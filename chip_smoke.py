@@ -1,0 +1,586 @@
+"""Smoke test of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py            # every phase (needs one CUDA device)
+    python3 chip_smoke.py --phases device,build,kernels
+
+Builds the transport kernels from ``testground_tpu_torch/csrc`` with nvcc,
+holds each kernel against its plain PyTorch version on the card (bit-equal)
+and drives the port's main path through the library entry points
+(``build_groups`` → ``instantiate_testcase`` → ``SimProgram.run``):
+
+1. device   — the card's name and power limit (nvidia-smi)
+2. build    — nvcc for sm_90a, with its wall seconds
+3. kernels  — K1 commit and K2 pop against their plain versions at the
+              flagship shape (L=8, N=100k, SLOTS=4, W=1, m2=200k), the
+              ping-pong shape (L=128, W=2) and small bool-occupancy /
+              no-stacking / etick variants; kernel, plain and library
+              times (CUDA events, median of 25 after warm-up) and the
+              memory bound at 3.35 TB/s
+4. sustained — network:pingpong-sustained at 100k instances, 500 ticks
+              (reshape every 250, chunk 250): all SUCCESS, both kernels
+              launched, flow conservation exact; peer·ticks/s and
+              per-phase ms/tick
+5. pingpong — network:ping-pong at 100k instances (100/10 ms): all SUCCESS
+6. scale    — pingpong-sustained at 1M instances for 64 ticks
+7. parity   — the sustained program at 4,096 instances for 128 ticks on
+              the CPU (plain versions) and on the card (kernels), and one
+              fully shaped enqueue on both: bit-equal
+
+Each phase prints one JSON line. Then the card's ``name, power.limit``
+line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+...}``. Any failure raises, so the script exits non-zero and prints no
+result. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
+PHASES = ("device", "build", "kernels", "sustained", "pingpong", "scale", "parity")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def time_ms(fn, restore, reps: int = 25, warm: int = 3) -> float:
+    """Median device time of ``fn`` over ``reps`` calls (CUDA events
+    around the call only); ``restore`` resets the inputs before each. A
+    ~0.1 ms spin kernel queued ahead of the start event keeps the device
+    busy while the host issues the call, so the window holds device time,
+    not the wrapper's Python overhead (a call that synchronises inside,
+    as the plain K1 does, still pays its own stalls)."""
+    times = []
+    for i in range(warm + reps):
+        restore()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# ------------------------------------------------------------ kernels
+
+
+def _calendar(net, L, N, slots, W, occ_bool, etick, rng, dev):
+    ns = N * slots
+    fill = rng.random((L, ns)) < 0.15
+    if occ_bool:
+        occ = torch.from_numpy(fill).to(dev)
+    else:
+        occ = torch.from_numpy(
+            np.where(fill, rng.integers(1, N + 1, (L, ns)), 0).astype(np.int32)
+        ).to(dev)
+    cal = net.Calendar(
+        payload=tuple(
+            torch.from_numpy(
+                rng.integers(-(2**31), 2**31, (L, ns), dtype=np.int64).astype(np.int32)
+            ).to(dev)
+            for _ in range(W)
+        ),
+        src=None if occ_bool else occ,
+        valid=occ if occ_bool else None,
+        etick=(
+            torch.from_numpy(rng.integers(0, 50, (L, ns)).astype(np.int32)).to(dev)
+            if etick
+            else None
+        ),
+        slots=slots,
+    )
+    return cal
+
+
+def _clone_cal(net, cal):
+    return net.Calendar(
+        payload=tuple(p.clone() for p in cal.payload),
+        src=None if cal.src is None else cal.src.clone(),
+        valid=None if cal.valid is None else cal.valid.clone(),
+        etick=None if cal.etick is None else cal.etick.clone(),
+        slots=cal.slots,
+    )
+
+
+def _planes(cal):
+    return [cal.occupancy_plane, *cal.payload] + (
+        [cal.etick] if cal.etick is not None else []
+    )
+
+
+def _max_err(a_list, b_list) -> int:
+    return max(
+        int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
+        for a, b in zip(a_list, b_list)
+    )
+
+
+def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed):
+    from testground_tpu_torch.sim import cuda_transport as ct
+    from testground_tpu_torch.sim import net
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cal0 = _calendar(net, L, N, slots, W, occ_bool, etick, rng, dev)
+    t_host = 5
+    # the main path's stream: every message lands a few ticks ahead
+    # (shaped latencies), destinations collide, a tenth are dead keys
+    bucket = (t_host + rng.choice([2, 4], m2)) % L
+    keys = bucket.astype(np.int64) * N + rng.integers(0, N, m2)
+    keys[rng.random(m2) < 0.1] = L * N
+    keys.sort(kind="stable")
+    sk = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    occ_vals = torch.from_numpy(
+        (np.ones(m2) if occ_bool else rng.integers(1, N + 1, m2)).astype(np.int32)
+    ).to(dev)
+    pay = [
+        torch.from_numpy(rng.integers(0, 2**31, m2).astype(np.int32)).to(dev)
+        for _ in range(W)
+    ]
+    t = torch.tensor(t_host, dtype=torch.int32, device=dev)
+
+    cal_k, cal_p = _clone_cal(net, cal0), _clone_cal(net, cal0)
+    _, surv_k = ct.commit_calendar(cal_k, sk, occ_vals, pay, t, stacking=stacking)
+    _, surv_p = ct.commit_calendar_plain(cal_p, sk, occ_vals, pay, t, stacking=stacking)
+    torch.cuda.synchronize()
+    err = _max_err([*_planes(cal_k), surv_k], [*_planes(cal_p), surv_p])
+    check(err == 0, f"K1 {label}: kernel disagrees with plain (max err {err})")
+
+    work = _clone_cal(net, cal0)
+
+    def restore():
+        for dst, src in zip(_planes(work), _planes(cal0)):
+            dst.copy_(src)
+
+    kernel_ms = time_ms(
+        lambda: ct.commit_calendar(work, sk, occ_vals, pay, t, stacking=stacking),
+        restore,
+    )
+    plain_ms = time_ms(
+        lambda: ct.commit_calendar_plain(work, sk, occ_vals, pay, t, stacking=stacking),
+        restore,
+    )
+    live = keys < L * N
+    runs = int(np.unique(keys[live]).size)
+    survivors = int(surv_p.sum())
+    occ_b = 1 if occ_bool else 4
+    nbytes = (
+        m2 * (8 + 4 * W)  # sk, occ_vals, payload streams in
+        + m2 * 4  # survival mask out
+        + (runs * slots * occ_b if stacking else 0)  # pre-tick fill reads
+        + survivors * (occ_b + 4 * W + (4 if etick else 0))  # plane writes
+    )
+    return {
+        "kernel": "commit_calendar",
+        "case": label,
+        "shape": dict(L=L, N=N, slots=slots, W=W, m2=m2, occ_bool=occ_bool,
+                      stacking=stacking, etick=etick),
+        "survivors": survivors,
+        "max_abs_err": err,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "library_ms": None,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "bound_bytes": nbytes,
+    }
+
+
+def pop_case(label, L, N, slots, W, occ_bool, seed):
+    from testground_tpu_torch.sim import cuda_transport as ct
+    from testground_tpu_torch.sim import net
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    cal0 = _calendar(net, L, N, slots, W, occ_bool, False, rng, dev)
+    t = torch.tensor(L + 3, dtype=torch.int32, device=dev)
+    cal_k, cal_p = _clone_cal(net, cal0), _clone_cal(net, cal0)
+    _, row_k, pay_k = ct.pop_bucket(cal_k, t)
+    _, row_p, pay_p = ct.pop_bucket_plain(cal_p, t)
+    torch.cuda.synchronize()
+    err = _max_err(
+        [*_planes(cal_k), row_k, *pay_k], [*_planes(cal_p), row_p, *pay_p]
+    )
+    check(err == 0, f"K2 {label}: kernel disagrees with plain (max err {err})")
+
+    work = _clone_cal(net, cal0)
+    b = (L + 3) % L
+    bidx = torch.tensor([b], dtype=torch.int64, device=dev)
+
+    def restore():
+        work.occupancy_plane[b].copy_(cal0.occupancy_plane[b])
+
+    def library():
+        for p in (work.occupancy_plane, *work.payload):
+            torch.index_select(p, 0, bidx)
+        work.occupancy_plane.index_fill_(0, bidx, 0)
+
+    kernel_ms = time_ms(lambda: ct.pop_bucket(work, t), restore)
+    plain_ms = time_ms(lambda: ct.pop_bucket_plain(work, t), restore)
+    library_ms = time_ms(library, restore)
+    ns = N * slots
+    occ_b = 1 if occ_bool else 4
+    nbytes = ns * (occ_b + 4 * W) * 2 + ns * occ_b  # rows in, rows out, clear
+    return {
+        "kernel": "pop_bucket",
+        "case": label,
+        "shape": dict(L=L, N=N, slots=slots, W=W, occ_bool=occ_bool),
+        "max_abs_err": err,
+        "kernel_ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+        "bound_bytes": nbytes,
+    }
+
+
+# ------------------------------------------------------------ main path
+
+
+class PhaseTimer:
+    """CUDA events at each engine phase mark; per-tick device ms by
+    phase, and the gap between one tick's end and the next one's start."""
+
+    def __init__(self):
+        self.marks = []
+
+    def mark(self, name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks.append((name, e))
+
+    def per_tick_ms(self) -> dict:
+        torch.cuda.synchronize()
+        sums: dict[str, float] = {}
+        ticks = 0
+        prev = None
+        for name, e in self.marks:
+            key = "gap" if name == "tick" else name
+            if name == "tick":
+                ticks += 1
+            if prev is not None:
+                sums[key] = sums.get(key, 0.0) + prev.elapsed_time(e)
+            prev = e
+        return {k: v / max(ticks, 1) for k, v in sums.items()}
+
+
+def program(case, n, params, chunk, device="cuda"):
+    from testground_tpu_torch.api import RunGroup
+    from testground_tpu_torch.sim.engine import SimProgram, build_groups
+    from testground_tpu_torch.sim.executor import (
+        instantiate_testcase,
+        load_sim_testcases,
+        plan_dir,
+    )
+
+    factory = load_sim_testcases(plan_dir("network"))[case]
+    groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
+    tc = instantiate_testcase(factory, groups, tick_ms=1.0)
+    return SimProgram(
+        tc, groups, test_plan="network", test_case=case, tick_ms=1.0,
+        chunk=chunk, device=device,
+    )
+
+
+def reset_launches():
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    ct.commit_calendar.launches = 0
+    ct.pop_bucket.launches = 0
+
+
+def read_launches() -> dict:
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    return {
+        "commit_calendar": ct.commit_calendar.launches,
+        "pop_bucket": ct.pop_bucket.launches,
+    }
+
+
+def run_timed(prog, max_ticks, timer=None):
+    last = {}
+
+    def keep(ticks, carry):
+        last["carry"] = carry
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = prog.run(seed=0, max_ticks=max_ticks, observer=keep, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    real_ticks = int(last["carry"].t)
+    return res, wall, real_ticks, last["carry"]
+
+
+def conserved(res) -> bool:
+    return res["msgs_sent"] == (
+        res["msgs_delivered"] + res["cal_depth"] + res["msgs_dropped"]
+        + res["msgs_rejected"]
+    )
+
+
+def flows(res) -> dict:
+    return {k: res[k] for k in ("msgs_sent", "msgs_delivered", "cal_depth",
+                                "msgs_dropped", "msgs_rejected")}
+
+
+def phase_sustained(card) -> dict:
+    n = 100_000
+    params = {"duration_ticks": "500", "reshape_every": "250",
+              "latency_ms": "4", "latency2_ms": "2"}
+    prog = program("pingpong-sustained", n, params, chunk=250)
+    reset_launches()
+    res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
+    launches = read_launches()
+    check(bool((res["status"] == 1).all()), "sustained: not every instance SUCCESS")
+    check(all(v > 0 for v in launches.values()), f"sustained: launches {launches}")
+    check(conserved(res), f"sustained: flow conservation {flows(res)}")
+    timer = PhaseTimer()
+    prog.run(seed=0, max_ticks=10_000, timer=timer)
+    return {
+        "phase": "sustained", "n": n, "ticks": ticks, "results_ticks": res["ticks"],
+        "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
+        "peer_ticks_per_s": n * ticks / wall,
+        "launches": launches, "flows": flows(res),
+        "rounds_min": int(res["states"][0]["rounds"].min()),
+        "phase_ms_per_tick": timer.per_tick_ms(),
+        **device_profile(prog, ticks=64, wall_ms_per_tick=wall / ticks * 1e3),
+        "card": card,
+    }
+
+
+def device_profile(prog, ticks, wall_ms_per_tick) -> dict:
+    """Device kernel time per tick from ``torch.profiler`` over the first
+    chunk of a run (at least ``ticks`` ticks; the real count is read off
+    the carry), its top kernels, and the device's busy share of the
+    unprofiled wall time per tick. Where the profiler reports no device
+    time, the share is "not measured" (None)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    last = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prog.run(seed=0, max_ticks=ticks,
+                 observer=lambda k, c: last.__setitem__("t", int(c.t)))
+        torch.cuda.synchronize()
+    ticks = last["t"]
+
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    # device-side events only (kernels, memcpy/memset): a CPU op's self
+    # device time would count its kernels a second time
+    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows = [r for r in rows if r[1] > 0]
+    total_ms = sum(r[1] for r in rows) / 1e3 / ticks
+    top = sorted(rows, key=lambda r: -r[1])[:10]
+    return {
+        "profiled_ticks": ticks,
+        "device_ms_per_tick": total_ms if rows else None,
+        "device_busy_share": total_ms / wall_ms_per_tick if rows else None,
+        "kernels_per_tick": sum(r[2] for r in rows) / ticks if rows else None,
+        "top_device_ms_per_tick": {k[:60]: us / 1e3 / ticks for k, us, _ in top},
+    }
+
+
+def phase_pingpong(card) -> dict:
+    n = 100_000
+    params = {"latency_ms": "100", "latency2_ms": "10", "tolerance_ms": "15"}
+    prog = program("ping-pong", n, params, chunk=64)
+    reset_launches()
+    res, wall, ticks, carry = run_timed(prog, max_ticks=4096)
+    launches = read_launches()
+    check(bool((res["status"] == 1).all()), "ping-pong: not every instance SUCCESS")
+    check(all(v > 0 for v in launches.values()), f"ping-pong: launches {launches}")
+    check(conserved(res), f"ping-pong: flow conservation {flows(res)}")
+    cal_bytes = sum(p.numel() * p.element_size() for p in _planes(carry.cal))
+    return {
+        "phase": "pingpong", "n": n, "ticks": ticks, "results_ticks": res["ticks"],
+        "wall_s": wall, "peer_ticks_per_s": n * ticks / wall,
+        "launches": launches, "calendar_bytes": cal_bytes,
+        "rtt1_ticks": sorted(set(res["states"][0]["rtt1"].tolist()))[:4],
+        "rtt2_ticks": sorted(set(res["states"][0]["rtt2"].tolist()))[:4],
+        "card": card,
+    }
+
+
+def phase_scale(card) -> dict:
+    n = 1_000_000
+    prog = program("pingpong-sustained", n, {"duration_ticks": "10000"}, chunk=64)
+    torch.cuda.reset_peak_memory_stats()
+    res, wall, ticks, _ = run_timed(prog, max_ticks=64)
+    check(ticks == 64, f"scale: ran {ticks} ticks")
+    check(conserved(res), f"scale: flow conservation {flows(res)}")
+    return {
+        "phase": "scale", "n": n, "ticks": ticks, "wall_s": wall,
+        "peer_ticks_per_s": n * ticks / wall,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "card": card,
+    }
+
+
+def _shaped_enqueue(device):
+    """One enqueue with every ported shaping feature at nonzero rates,
+    three filter regions and a pre-filled calendar, from a numpy seed."""
+    from testground_tpu_torch.sim import net
+
+    rng = np.random.default_rng(11)
+    n, o, w, L, slots = 4096, 2, 2, 16, 4
+    ns = n * slots
+    occ = np.where(rng.random((L, ns)) < 0.2, rng.integers(1, n + 1, (L, ns)), 0)
+    cal = net.Calendar(
+        payload=tuple(
+            torch.from_numpy(rng.integers(0, 1000, (L, ns)).astype(np.int32)).to(device)
+            for _ in range(w)
+        ),
+        src=torch.from_numpy(occ.astype(np.int32)).to(device),
+        valid=None,
+        slots=slots,
+    )
+    egress = np.stack([
+        rng.uniform(1, 9, n), rng.uniform(0, 5, n),
+        np.where(rng.random(n) < 0.5, 0.0, rng.uniform(0, 8e5, n)),
+        rng.uniform(0, 30, n), rng.uniform(0, 30, n), rng.uniform(0, 30, n),
+        np.zeros(n),
+    ]).astype(np.float32)
+    link = net.LinkState(
+        egress=torch.from_numpy(egress).to(device),
+        filters=torch.from_numpy(rng.integers(0, 3, (3, n)).astype(np.int32)).to(device),
+        region_of=torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(device),
+    )
+    dst = torch.from_numpy(rng.integers(-2, n + 2, (o, n)).astype(np.int32)).to(device)
+    pay = torch.from_numpy(rng.integers(0, 2**31, (o, w, n)).astype(np.int32)).to(device)
+    valid = torch.from_numpy(rng.random((o, n)) < 0.8).to(device)
+    t = torch.tensor(21, dtype=torch.int32, device=device)
+    cal, fb = net.enqueue(cal, link, dst, pay, valid, t, 1.0, (12345, 678910),
+                          features=net.SHAPING_NO_DUPLICATE)
+    return [*_planes(cal), fb.rejected, fb.clamped, fb.sent, fb.enqueued]
+
+
+def phase_parity(card) -> dict:
+    from testground_tpu_torch.sim.carry_io import carry_to_numpy
+
+    n = 4096
+    params = {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        prog = program("pingpong-sustained", n, params, chunk=64, device=dev)
+        last = {}
+        res = prog.run(seed=7, max_ticks=128,
+                       observer=lambda k, c: last.__setitem__("c", c))
+        out[dev] = (res, carry_to_numpy(last["c"]))
+    (res_c, car_c), (res_g, car_g) = out["cpu"], out["cuda"]
+    mism = [k for k in res_c if k not in ("groups", "states", "compile_secs")
+            and not np.array_equal(np.asarray(res_c[k]), np.asarray(res_g[k]))]
+    mism += [k for k in car_c if not np.array_equal(car_c[k], car_g[k])]
+    check(not mism, f"parity: CPU vs GPU differ in {mism}")
+    check(int(car_c["t"]) == 128, "parity: the run ended early")
+    shaped_c = [x.cpu() for x in _shaped_enqueue("cpu")]
+    shaped_g = [x.cpu() for x in _shaped_enqueue("cuda")]
+    err = _max_err(shaped_c, shaped_g)
+    check(err == 0, f"parity: shaped enqueue CPU vs GPU max err {err}")
+    return {"phase": "parity", "n": n, "ticks": 128, "leaves_compared": len(car_c),
+            "msgs_sent": res_c["msgs_sent"], "shaped_enqueue_max_err": err,
+            "card": card}
+
+
+# ------------------------------------------------------------ main
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES))
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    # the port itself; in a directory without it this import fails
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = {"name": name, "smi": smi}
+    emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
+          "smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    path, build_s, log = ct.build_kernels()
+    emit({"phase": "build", "library": path.rsplit("/", 1)[-1],
+          "seconds": build_s, "log": log[-2000:]})
+
+    kernel_rows = []
+    if "kernels" in phases:
+        N = 100_000
+        cases = [
+            commit_case("flagship", 8, N, 4, 1, 2 * N, False, True, False, 1),
+            commit_case("pingpong", 128, N, 4, 2, 2 * N, False, True, False, 2),
+            commit_case("bool-nostack-etick", 16, 4096, 4, 2, 8192, True, False, True, 3),
+            commit_case("int-etick", 16, 4096, 2, 3, 8192, False, True, True, 4),
+            pop_case("flagship", 8, N, 4, 1, False, 5),
+            pop_case("pingpong", 128, N, 4, 2, False, 6),
+            pop_case("bool", 16, 4096, 4, 2, True, 7),
+            pop_case("odd-row", 16, 4095, 3, 1, False, 8),
+        ]
+        for c in cases:
+            emit({"phase": "kernels", **c, "card": card})
+        kernel_rows = cases
+
+    launches = {"commit_calendar": 0, "pop_bucket": 0}
+    for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong)):
+        if ph in phases:
+            row = fn(card)
+            for k, v in row["launches"].items():
+                launches[k] += v
+            emit(row)
+    for ph, fn in (("scale", phase_scale), ("parity", phase_parity)):
+        if ph in phases:
+            emit(fn(card))
+
+    def kernel_entry(kname, replaces):
+        flag = [c for c in kernel_rows if c["kernel"] == kname and c["case"] == "flagship"]
+        c = flag[0] if flag else {}
+        return {
+            "name": kname, "route": "cuda",
+            "source": "testground_tpu_torch/csrc/transport.cu",
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": max((r["max_abs_err"] for r in kernel_rows
+                                if r["kernel"] == kname), default=None),
+            "ms": c.get("kernel_ms"), "plain_ms": c.get("plain_ms"),
+            "bound_ms": c.get("bound_ms"), "bound_by": "bytes",
+            "library_ms": c.get("library_ms"),
+        }
+
+    print(smi, flush=True)
+    emit({"kernels": [
+        kernel_entry("commit_calendar", "testground_tpu/sim/pallas_transport.py:340"),
+        kernel_entry("pop_bucket", "testground_tpu/sim/pallas_transport.py:713"),
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

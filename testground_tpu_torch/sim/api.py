@@ -1,0 +1,326 @@
+"""The sim-plan API over torch: plans as batched per-tick state machines.
+
+The port's counterpart of ``testground_tpu/sim/api.py``. The contract is
+the same (a per-instance ``init`` and a per-tick ``step``; signals,
+barriers, pub/sub and network reconfiguration through ``StepOut``), with
+one difference of form: there is no ``vmap``. ``init`` and ``step`` are
+called once per group per tick with **batched** tensors whose instance
+axis is LAST, in the plane layout the reference engine's ``out_axes=-1``
+produces (``engine.py:1156-1172``):
+
+- ``env.global_seq`` / ``env.group_seq``: ``[n_g]`` int32
+- ``inbox.payload [W, IN_MSGS, n_g]``, ``inbox.src / valid [IN_MSGS, n_g]``
+- ``sync.last_seq [S, n_g]``, ``sync.sub_payload [T, SUB_K, PW, n_g]``,
+  ``sync.sub_valid [T, SUB_K, n_g]``, ``sync.rejected [n_g]``; the global
+  ``sync.counts [S]``, ``sync.dropped [T]`` and ``sync.live [G]``
+- state: a dict of tensors with leading axis ``n_g``
+- ``t``: a 0-d int32 tensor on the run's device
+
+``StepOut`` fields left ``None`` take the engine's defaults, and fields may
+be given at any shape that broadcasts to their plane (``[O, n_g]``,
+``[S, n_g]``, ``[7, n_g]`` …), so a plan writes only what it drives.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar
+
+import torch
+
+from . import prng
+
+__all__ = [
+    "CRASH",
+    "FAILURE",
+    "FILTER_ACCEPT",
+    "FILTER_DROP",
+    "FILTER_REJECT",
+    "RUNNING",
+    "SUCCESS",
+    "GroupSpec",
+    "Inbox",
+    "Outbox",
+    "SimEnv",
+    "SimTestcase",
+    "StepOut",
+    "SyncView",
+]
+
+# Instance status codes (``pkg/runner/pretty.go:163-175``).
+RUNNING = 0
+SUCCESS = 1
+FAILURE = 2
+CRASH = 3
+
+# Per-(src instance, dst region) routing filter actions
+# (``pkg/sidecar/link.go:187-217``).
+FILTER_ACCEPT = 0
+FILTER_REJECT = 1
+FILTER_DROP = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """Static layout of one group on the instance axis."""
+
+    id: str
+    index: int
+    offset: int  # first global instance index
+    count: int
+    params: dict[str, str]
+
+
+@dataclasses.dataclass
+class SimEnv:
+    """The batched view of one group handed to ``init``/``step``.
+
+    ``key`` is each instance's PRNG key for this tick (``[n_g, 2]``; the
+    reference folds the tick into every instance key, ``engine.py:1106``).
+    It is computed on first access only: neither network plan reads it, and
+    at 100k instances it would be 100k threefry evaluations a tick.
+    """
+
+    test_plan: str
+    test_case: str
+    test_run: str
+    test_instance_count: int
+    tick_ms: float
+    groups: tuple[GroupSpec, ...]
+    group: GroupSpec
+    global_seq: torch.Tensor  # [n_g] int32
+    group_seq: torch.Tensor  # [n_g] int32
+    device: torch.device
+    hosts: tuple = ()
+    # the group's root keys [n_g, 2] and the tick folded into them (None
+    # at init: init sees the unfolded keys, as in the reference)
+    base_keys: torch.Tensor | None = None
+    tick: torch.Tensor | None = None
+    _key: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+
+    @property
+    def key(self) -> torch.Tensor:
+        if self._key is None:
+            self._key = (
+                self.base_keys
+                if self.tick is None
+                else prng.fold_in(self.base_keys, self.tick)
+            )
+        return self._key
+
+    def string_param(self, name: str) -> str:
+        v = self.group.params.get(name)
+        if v is None:
+            raise KeyError(f"missing param: {name}")
+        return v
+
+    def int_param(self, name: str) -> int:
+        return int(self.string_param(name))
+
+    def float_param(self, name: str) -> float:
+        return float(self.string_param(name))
+
+    def bool_param(self, name: str) -> bool:
+        return self.string_param(name).lower() in ("true", "1", "yes")
+
+    def group_index_of(self, group_id: str) -> int:
+        for g in self.groups:
+            if g.id == group_id:
+                return g.index
+        raise KeyError(f"unknown group: {group_id}")
+
+    def group_offset_of(self, group_id: str) -> int:
+        return self.groups[self.group_index_of(group_id)].offset
+
+    def ms_to_ticks(self, ms: float) -> int:
+        """Convert simulated milliseconds to whole ticks (≥1)."""
+        return max(1, round(ms / self.tick_ms))
+
+
+@dataclasses.dataclass
+class Inbox:
+    """Messages arriving this tick: ``payload [W, IN_MSGS, n]`` int32
+    (word-major), ``src [IN_MSGS, n]`` int32, ``valid [IN_MSGS, n]``."""
+
+    payload: torch.Tensor
+    src: torch.Tensor
+    valid: torch.Tensor
+
+    def word(self, w: int) -> torch.Tensor:
+        """Payload word ``w`` across slots: ``[IN_MSGS, n]`` int32."""
+        return self.payload[w]
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.valid.sum(dim=0, dtype=torch.int32)
+
+
+@dataclasses.dataclass
+class Outbox:
+    """Messages emitted this tick: ``dst [OUT_MSGS, n]`` int32 (global
+    instance index), ``payload [OUT_MSGS, W, n]`` int32, ``valid
+    [OUT_MSGS, n]`` bool."""
+
+    dst: torch.Tensor
+    payload: torch.Tensor
+    valid: torch.Tensor
+
+    @staticmethod
+    def empty(out_msgs: int, msg_width: int, n: int, device) -> "Outbox":
+        return Outbox(
+            dst=torch.zeros((out_msgs, n), dtype=torch.int32, device=device),
+            payload=torch.zeros(
+                (out_msgs, msg_width, n), dtype=torch.int32, device=device
+            ),
+            valid=torch.zeros((out_msgs, n), dtype=torch.bool, device=device),
+        )
+
+
+@dataclasses.dataclass
+class SyncView:
+    """Coordination state at tick start (shapes in the module docstring;
+    semantics as the reference ``SyncView``)."""
+
+    counts: torch.Tensor
+    last_seq: torch.Tensor
+    sub_payload: torch.Tensor
+    sub_valid: torch.Tensor
+    rejected: torch.Tensor
+    dropped: torch.Tensor
+    live: torch.Tensor
+
+
+@dataclasses.dataclass
+class StepOut:
+    """Everything a step may do; ``None`` = the engine default (status
+    RUNNING, nothing sent, signalled, published or reconfigured)."""
+
+    state: Any
+    status: Any = RUNNING
+    outbox: Outbox | None = None
+    signals: torch.Tensor | None = None  # [S, n] int32 0/1
+    pub_payload: torch.Tensor | None = None  # [T, PW, n] int32
+    pub_valid: torch.Tensor | None = None  # [T, n] bool
+    sub_consume: torch.Tensor | None = None  # [T, n] int32
+    net_shape: torch.Tensor | None = None  # [7, n] float32
+    net_shape_valid: Any = False  # [n] bool
+    net_filters: torch.Tensor | None = None  # [R, n] int32
+    net_filters_valid: Any = False  # [n] bool
+    region: Any = None  # [n] int32
+    region_valid: Any = False  # [n] bool
+
+
+class SimTestcase:
+    """Base class for sim testcases — the same class statics as the
+    reference ``SimTestcase`` (``testground_tpu/sim/api.py:283``), which
+    size every tensor of the run."""
+
+    STATES: ClassVar[list[str]] = []
+    TOPICS: ClassVar[list[str]] = []
+    N_REGIONS: ClassVar[int] = 0
+    FILTER_RULES: ClassVar[int] = 0
+    MSG_WIDTH: ClassVar[int] = 4
+    OUT_MSGS: ClassVar[int] = 1
+    IN_MSGS: ClassVar[int] = 4
+    PUB_WIDTH: ClassVar[int] = 4
+    SUB_K: ClassVar[int] = 4
+    TOPIC_CAP: ClassVar[int] = 256
+    MAX_LINK_TICKS: ClassVar[int] = 256
+    TRACK_SRC: ClassVar[bool] = True
+    CROSS_TICK_STACKING: ClassVar[bool] = True
+    SLOT_MODE: ClassVar[str] = "sorted"
+    BW_QUEUE_MSGS: ClassVar[int] = 128
+    SHAPING: ClassVar[tuple] = (
+        "latency",
+        "jitter",
+        "bandwidth",
+        "loss",
+        "corrupt",
+        "reorder",
+        "duplicate",
+        "filters",
+    )
+    DEFAULT_LINK: ClassVar[tuple[float, ...]] = (
+        1.0,  # latency ms
+        0.0,  # jitter ms
+        0.0,  # bandwidth, bytes/s (0 = unlimited)
+        0.0,  # loss %
+        0.0,  # corrupt %
+        0.0,  # reorder %
+        0.0,  # duplicate %
+    )
+
+    @classmethod
+    def specialize(
+        cls, groups: tuple[GroupSpec, ...], tick_ms: float = 1.0
+    ) -> type:
+        """Hook: return a (possibly narrowed) testcase class for this run;
+        never mutate ``cls`` (see the reference hook)."""
+        return cls
+
+    def state_id(self, name: str) -> int:
+        return type(self).STATES.index(name)
+
+    def topic_id(self, name: str) -> int:
+        return type(self).TOPICS.index(name)
+
+    def init(self, env: SimEnv) -> Any:
+        """Initial state: a dict of ``[n_g]``-leading tensors."""
+        return {}
+
+    def step(
+        self,
+        env: SimEnv,
+        state: Any,
+        inbox: Inbox,
+        sync: SyncView,
+        t: torch.Tensor,
+    ) -> StepOut:
+        raise NotImplementedError
+
+    def out(self, state: Any, **fields) -> StepOut:
+        """Build a StepOut; unset fields take the engine defaults."""
+        return StepOut(state=state, **fields)
+
+    def signal(self, *names: str, when: torch.Tensor) -> torch.Tensor:
+        """Signals plane ``[S, *when.shape]`` int32: the named states'
+        rows are ``when`` (a bool/int tensor), the others 0. A 0-d
+        ``when`` yields ``[S, 1]``, which broadcasts over the group."""
+        w = when.to(torch.int32).reshape(-1)
+        sig = torch.zeros(
+            (len(type(self).STATES), w.shape[0]),
+            dtype=torch.int32,
+            device=w.device,
+        )
+        for name in names:
+            sig[self.state_id(name)] = w
+        return sig
+
+    def link_shape(
+        self,
+        latency_ms=0.0,
+        jitter_ms=0.0,
+        bandwidth=0.0,
+        loss=0.0,
+        corrupt=0.0,
+        reorder=0.0,
+        duplicate=0.0,
+        *,
+        device,
+    ) -> torch.Tensor:
+        """A LinkShape plane (``network.LinkShape`` field order,
+        ``pkg/sidecar/link.go:155-183``): ``[7]`` for scalars, ``[7, n]``
+        when any field is an ``[n]`` tensor. float32, like the reference."""
+        parts = [
+            torch.as_tensor(x, dtype=torch.float32, device=device)
+            for x in (
+                latency_ms,
+                jitter_ms,
+                bandwidth,
+                loss,
+                corrupt,
+                reorder,
+                duplicate,
+            )
+        ]
+        return torch.stack(torch.broadcast_tensors(*parts))

@@ -1,0 +1,156 @@
+"""Carry a run's state across packages: numpy leaves under dotted paths.
+
+The simulator has no weights; what a run carries is its ``SimCarry``. A
+carry flattened to numpy under dotted leaf paths (``cal.src``,
+``cal.payload.0``, ``link.egress``, ``sync.counts``, ``states.0.phase``,
+``keys``, ``net_key``, ``msgs_sent`` …) is the exchange format: the JAX
+package's carry, flattened on its side, starts a port run from the same
+mid-run state (:func:`carry_from_numpy`), and :func:`carry_to_numpy`
+flattens a port carry the same way so two carries compare leaf by leaf.
+
+Converted on the way in:
+
+- the reference xla path's FLAT ``[L·N·SLOTS]`` calendar planes →
+  ``[L, N·SLOTS]``;
+- 2-limb int32 flow totals ``(hi, lo)`` with a 30-bit spill
+  (``engine.py:114-131``) → int64;
+- raw uint32 key data → the port's int64-held uint32 words (the link key
+  → two host ints).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .engine import SimCarry, SimProgram
+from .net import Calendar, LinkState
+from .sync_kernel import SyncState
+
+__all__ = ["carry_from_numpy", "carry_to_numpy"]
+
+_LIMB_BITS = 30
+_TOTALS = (
+    "msgs_delivered",
+    "msgs_sent",
+    "msgs_enqueued",
+    "msgs_dropped",
+    "msgs_rejected",
+    "fault_dropped",
+)
+_SCALARS = (
+    "t",
+    "clamped",
+    "bw_dropped",
+    "bw_rate_changed",
+    "collisions",
+    "cal_depth",
+    "faults_crashed",
+    "faults_restarted",
+)
+# carry leaves of planes this slice does not build
+_UNPORTED = ("cal.etick", "link.backlog", "link.rules", "lat_hist",
+             "live_counts", "net_mat", "net_bw_hiwater")
+
+
+def _total(a: np.ndarray) -> int:
+    a = np.asarray(a)
+    if a.shape == (2,):  # (hi, lo) limb pair
+        return (int(a[0]) << _LIMB_BITS) + int(a[1])
+    return int(a)
+
+
+def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarry:
+    """Build a port carry on ``prog.device`` from numpy leaves keyed by
+    dotted path (see the module docstring)."""
+    for key in arrays:
+        if any(key == u or key.startswith(u + ".") for u in _UNPORTED):
+            raise NotImplementedError(
+                f"carry leaf {key!r} belongs to a plane this slice does not "
+                "build (see ROADMAP queue 1)"
+            )
+    dev = prog.device
+
+    def t_(key, dtype=None):
+        x = torch.from_numpy(np.array(arrays[key]))  # a private, writable copy
+        return x.to(device=dev, dtype=dtype) if dtype else x.to(dev)
+
+    cls = type(prog.tc)
+    horizon = cls.MAX_LINK_TICKS
+    ns = prog.n * cls.IN_MSGS
+
+    def plane(key, dtype):
+        return t_(key, dtype).reshape(horizon, ns).contiguous()
+
+    width = sum(1 for k in arrays if k.startswith("cal.payload."))
+    cal = Calendar(
+        payload=tuple(
+            plane(f"cal.payload.{w}", torch.int32) for w in range(width)
+        ),
+        src=plane("cal.src", torch.int32) if "cal.src" in arrays else None,
+        valid=plane("cal.valid", torch.bool) if "cal.valid" in arrays else None,
+        slots=cls.IN_MSGS,
+    )
+    states = []
+    for gi in range(len(prog.groups)):
+        prefix = f"states.{gi}."
+        states.append(
+            {k[len(prefix):]: t_(k) for k in sorted(arrays) if k.startswith(prefix)}
+        )
+    i64 = torch.int64
+    return SimCarry(
+        states=tuple(states),
+        status=t_("status", torch.int32),
+        finished_at=t_("finished_at", torch.int32),
+        cal=cal,
+        link=LinkState(
+            egress=t_("link.egress", torch.float32),
+            filters=t_("link.filters", torch.int32),
+            region_of=t_("link.region_of", torch.int32),
+        ),
+        sync=SyncState(
+            **{
+                f.name: t_(f"sync.{f.name}", torch.int32)
+                for f in dataclasses.fields(SyncState)
+            }
+        ),
+        rejected=t_("rejected", torch.int32),
+        keys=torch.from_numpy(np.asarray(arrays["keys"]).astype(np.int64)).to(dev),
+        net_key=tuple(int(x) for x in np.asarray(arrays["net_key"]).reshape(-1)),
+        collision_where=t_("collision_where", torch.int32),
+        **{k: t_(k, torch.int32).reshape(()) for k in _SCALARS},
+        **{
+            k: torch.tensor(_total(arrays[k]), dtype=i64, device=dev)
+            for k in _TOTALS
+        },
+    )
+
+
+def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
+    """Flatten a port carry to numpy leaves under the same dotted paths
+    (calendar planes 2-D, totals as int64 scalars, keys as uint32)."""
+    out: dict[str, np.ndarray] = {}
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    for gi, s in enumerate(carry.states):
+        for k, v in s.items():
+            out[f"states.{gi}.{k}"] = host(v)
+    for w, p in enumerate(carry.cal.payload):
+        out[f"cal.payload.{w}"] = host(p)
+    for name in ("src", "valid"):
+        if getattr(carry.cal, name) is not None:
+            out[f"cal.{name}"] = host(getattr(carry.cal, name))
+    for name in ("egress", "filters", "region_of"):
+        out[f"link.{name}"] = host(getattr(carry.link, name))
+    for f in dataclasses.fields(SyncState):
+        out[f"sync.{f.name}"] = host(getattr(carry.sync, f.name))
+    out["keys"] = host(carry.keys).astype(np.uint32)
+    out["net_key"] = np.asarray(carry.net_key, dtype=np.uint32)
+    for k in ("status", "finished_at", "rejected", "collision_where",
+              *_SCALARS, *_TOTALS):
+        out[k] = host(getattr(carry, k))
+    return out

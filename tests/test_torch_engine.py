@@ -1,0 +1,279 @@
+"""The port's main path against the JAX package, on the CPU, bit for bit:
+``SimProgram.run`` of ``network:ping-pong`` (n = 8, and n = 7 with its solo
+lane) and ``network:pingpong-sustained`` (n = 16 with a reshape mid-run,
+and a two-group layout) through both packages' library entry points,
+comparing every ``results()`` key, every state leaf and the final carry
+(calendar planes included) through ``carry_io``; one resume: JAX runs k
+ticks, the carry crosses over with ``carry_from_numpy``, and both run on;
+the sync fold with live topics; and the refusals of what this slice does
+not port."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as ge
+from testground_tpu.sim import api as japi
+from testground_tpu_torch.api import RunGroup
+from testground_tpu_torch.sim import api as papi
+from testground_tpu_torch.sim import net as pnet
+from testground_tpu_torch.sim.carry_io import carry_from_numpy, carry_to_numpy
+from testground_tpu_torch.sim.engine import SimProgram, build_groups
+from testground_tpu_torch.sim.executor import (
+    instantiate_testcase,
+    load_sim_testcases,
+    plan_dir,
+)
+
+RESULT_KEYS = (
+    "status", "finished_at", "ticks", "sync_counts", "pub_dropped",
+    "latency_clamped", "bw_queue_dropped", "bw_rate_change_backlogged",
+    "collisions", "msgs_delivered", "msgs_sent", "msgs_enqueued",
+    "msgs_dropped", "msgs_rejected", "cal_depth", "faults_crashed",
+    "faults_restarted", "fault_dropped",
+)
+
+CASES = {
+    "ping-pong-8": ("ping-pong", 8,
+                    {"latency_ms": "4", "latency2_ms": "2", "tolerance_ms": "15"}, 8),
+    "ping-pong-7-solo": ("ping-pong", 7, {"latency_ms": "10", "latency2_ms": "3"}, 16),
+    "sustained-16": ("pingpong-sustained", 16,
+                     {"duration_ticks": "64", "reshape_every": "24"}, 16),
+    # two groups with their own latencies: per-group steps, two filter
+    # regions, and pairs that straddle the group boundary (4 + 5 lanes)
+    "sustained-2-groups": ("pingpong-sustained",
+                           [(5, {"duration_ticks": "40", "latency_ms": "3"}),
+                            (6, {"duration_ticks": "48", "latency_ms": "5",
+                                 "latency2_ms": "1", "reshape_every": "16"})],
+                           None, 8),
+}
+
+
+def _run_groups(n, params, group_cls):
+    """One group of ``n`` instances, or the ``[(count, params), ...]``
+    layout of a multi-group case."""
+    layout = [(n, params)] if isinstance(n, int) else n
+    return [group_cls(id=f"g{i}", instances=c, parameters=dict(p))
+            for i, (c, p) in enumerate(layout)]
+
+
+def jax_program(case, n, params, chunk):
+    from testground_tpu.api import RunGroup as JRunGroup
+    from testground_tpu.sim.engine import SimProgram as JSimProgram
+    from testground_tpu.sim.engine import build_groups as jbuild
+    from testground_tpu.sim.executor import instantiate_testcase as jinst
+    from testground_tpu.sim.executor import load_sim_testcases as jload
+
+    factory = jload(os.path.join(os.path.dirname(ge.__file__), "plans", "network"))[case]
+    groups = jbuild(_run_groups(n, params, JRunGroup))
+    return JSimProgram(jinst(factory, groups, 1.0), groups, test_plan="network",
+                       test_case=case, tick_ms=1.0, chunk=chunk)
+
+
+def jax_flat_carry(carry) -> dict:
+    """The JAX carry as numpy leaves under dotted paths (key arrays as
+    their raw uint32 words) — the exchange format of ``carry_io``."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(carry)[0]:
+        parts = []
+        for p in path:
+            parts.append(str(getattr(p, "name", getattr(p, "idx", getattr(p, "key", p)))))
+        if jax.dtypes.issubdtype(leaf.dtype, jax.dtypes.prng_key):
+            leaf = jax.random.key_data(leaf)
+        out[".".join(parts)] = np.asarray(leaf)
+    return out
+
+
+def port_program(case, n, params, chunk, device="cpu"):
+    factory = load_sim_testcases(plan_dir("network"))[case]
+    groups = build_groups(_run_groups(n, params, RunGroup))
+    tc = instantiate_testcase(factory, groups, tick_ms=1.0)
+    return SimProgram(tc, groups, test_plan="network", test_case=case,
+                      tick_ms=1.0, chunk=chunk, device=device)
+
+
+def run_capturing(prog, **kw):
+    """Run and keep the final carry (flattened at each chunk: the JAX
+    chunk donates its input carry)."""
+    last = {}
+    flat = jax_flat_carry if not isinstance(prog, SimProgram) else carry_to_numpy
+    res = prog.run(observer=lambda k, c: last.__setitem__("c", (flat(c), c)), **kw)
+    return res, last["c"]
+
+
+def assert_results_equal(res_j, res_p, label):
+    for key in RESULT_KEYS:
+        np.testing.assert_array_equal(
+            np.asarray(res_p[key]), np.asarray(res_j[key]), err_msg=f"{label} {key}")
+    assert len(res_j["states"]) == len(res_p["states"])
+    for sj, sp in zip(res_j["states"], res_p["states"]):
+        assert sorted(sj) == sorted(sp), label
+        for k in sj:
+            assert sp[k].dtype == np.asarray(sj[k]).dtype, f"{label} state {k} dtype"
+            np.testing.assert_array_equal(sp[k], np.asarray(sj[k]), err_msg=f"{label} {k}")
+
+
+def assert_carries_equal(flat_j, port_prog, flat_p, label):
+    want = carry_to_numpy(carry_from_numpy(flat_j, port_prog))
+    assert sorted(want) == sorted(flat_p), label
+    for k in want:
+        np.testing.assert_array_equal(flat_p[k], want[k], err_msg=f"{label} carry {k}")
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Each JAX program built and run once per module."""
+    out = {}
+    for name, (case, n, params, chunk) in CASES.items():
+        prog = jax_program(case, n, params, chunk)
+        res, (flat, _) = run_capturing(prog, seed=3, max_ticks=4096)
+        out[name] = (res, flat)
+    return out
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_run_matches_jax(name, jax_runs):
+    case, n, params, chunk = CASES[name]
+    res_j, flat_j = jax_runs[name]
+    prog = port_program(case, n, params, chunk)
+    res_p, (flat_p, _) = run_capturing(prog, seed=3, max_ticks=4096)
+    assert (res_p["status"] == papi.SUCCESS).all(), name
+    assert res_p["msgs_sent"] > 0
+    assert_results_equal(res_j, res_p, name)
+    assert_carries_equal(flat_j, prog, flat_p, name)
+
+
+def test_resume_from_jax_carry_matches_jax():
+    """JAX runs 24 ticks; its carry crosses into the port; both run on to
+    completion from there and agree leaf for leaf."""
+    case, n, params, chunk = CASES["sustained-16"]
+    k = 24
+    jprog = jax_program(case, n, params, 8)
+    _, (flat_mid, jcarry) = run_capturing(jprog, seed=5, max_ticks=k)
+    assert int(flat_mid["t"]) == k
+    res_j, (flat_j, _) = run_capturing(
+        jprog, seed=5, max_ticks=4096, resume_carry=jcarry, resume_ticks=k)
+
+    pprog = port_program(case, n, params, 8)
+    res_p, (flat_p, _) = run_capturing(
+        pprog, max_ticks=4096,
+        resume_carry=carry_from_numpy(flat_mid, pprog), resume_ticks=k)
+    assert_results_equal(res_j, res_p, "resume")
+    assert_carries_equal(flat_j, pprog, flat_p, "resume")
+
+
+def test_port_constants_match_reference():
+    for name in ("RUNNING", "SUCCESS", "FAILURE", "CRASH",
+                 "FILTER_ACCEPT", "FILTER_REJECT", "FILTER_DROP"):
+        assert getattr(papi, name) == getattr(japi, name), name
+    for name in ("STATES", "TOPICS", "N_REGIONS", "FILTER_RULES", "MSG_WIDTH",
+                 "OUT_MSGS", "IN_MSGS", "PUB_WIDTH", "SUB_K", "TOPIC_CAP",
+                 "MAX_LINK_TICKS", "TRACK_SRC", "CROSS_TICK_STACKING",
+                 "SLOT_MODE", "BW_QUEUE_MSGS", "SHAPING", "DEFAULT_LINK"):
+        assert getattr(papi.SimTestcase, name) == getattr(japi.SimTestcase, name), name
+    from testground_tpu.sim import net as jnet
+
+    assert pnet.FULL_SHAPING == jnet.FULL_SHAPING
+    assert pnet.MSG_BYTES == jnet.MSG_BYTES
+
+
+def test_plan_statics_match_reference():
+    from testground_tpu.api import RunGroup as JRunGroup
+    from testground_tpu.sim.engine import build_groups as jbuild
+    from testground_tpu.sim.executor import load_sim_testcases as jload
+
+    jcases = jload(os.path.join(os.path.dirname(ge.__file__), "plans", "network"))
+    pcases = load_sim_testcases(plan_dir("network"))
+    for name, pcls in pcases.items():
+        jcls = jcases[name]
+        for attr in ("STATES", "MSG_WIDTH", "OUT_MSGS", "IN_MSGS", "MAX_LINK_TICKS",
+                     "SHAPING", "TRACK_SRC", "SLOT_MODE", "DEFAULT_LINK"):
+            assert getattr(pcls, attr) == getattr(jcls, attr), (name, attr)
+        for lat in ("4", "100", "300"):
+            layout = [(4, {"latency_ms": lat})]
+            jt = jcls.specialize(jbuild(_run_groups(layout, None, JRunGroup)), 1.0)
+            pt = pcls.specialize(build_groups(_run_groups(layout, None, RunGroup)), 1.0)
+            assert jt.MAX_LINK_TICKS == pt.MAX_LINK_TICKS, (name, lat)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sync_fold_with_topics_matches_jax(seed):
+    """``update_sync`` and ``make_sub_window`` with live topics (the
+    network plans declare none): signals, publishes past a full topic,
+    cursor advances, three ticks in a row."""
+    from testground_tpu.sim import sync_kernel as jsync
+    from testground_tpu_torch.sim import sync_kernel as psync
+
+    rng = np.random.default_rng(seed)
+    n, s, t, cap, pw, k = 9, 2, 3, 5, 2, 3
+    js = jsync.make_sync_state(n, s, t, cap, pw)
+    ps = psync.make_sync_state(n, s, t, cap, pw, device="cpu")
+    for _ in range(3):
+        args = [rng.integers(0, 2, (s, n)).astype(np.int32),
+                rng.integers(0, 99, (t, pw, n)).astype(np.int32),
+                rng.random((t, n)) < 0.4,
+                rng.integers(-1, 3, (t, n)).astype(np.int32)]
+        js = jsync.update_sync(js, *[jnp.asarray(a) for a in args])
+        ps = psync.update_sync(ps, *[torch.from_numpy(a) for a in args])
+        for f in ("counts", "last_seq", "stream", "stream_len", "cursors", "dropped"):
+            np.testing.assert_array_equal(
+                getattr(ps, f).numpy(), np.asarray(getattr(js, f)), err_msg=f)
+        jp, jv = jsync.make_sub_window(js, k)  # [N, T, K, PW], [N, T, K]
+        pp, pv = psync.make_sub_window(ps, k)  # [T, K, PW, N], [T, K, N]
+        np.testing.assert_array_equal(pp.permute(3, 0, 1, 2).numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(pv.permute(2, 0, 1).numpy(), np.asarray(jv))
+    assert int(ps.dropped.sum()) > 0  # a topic filled up
+
+
+class _Direct(papi.SimTestcase):
+    SLOT_MODE = "direct"
+
+
+class _Dup(papi.SimTestcase):
+    SHAPING = ("latency", "duplicate")
+
+
+class _Rules(papi.SimTestcase):
+    SHAPING = ("latency", "filter_rules")
+    FILTER_RULES = 2
+
+
+def _groups(n=4):
+    return build_groups([RunGroup(id="all", instances=n)])
+
+
+@pytest.mark.parametrize(
+    "tc,kw,item",
+    [
+        (papi.SimTestcase, {"mesh": object()}, "item 15"),
+        (papi.SimTestcase, {"faults": object()}, "item 11"),
+        (papi.SimTestcase, {"telemetry": True}, "item 10"),
+        (papi.SimTestcase, {"trace": object()}, "item 12"),
+        (papi.SimTestcase, {"netmatrix": True}, "item 12"),
+        (papi.SimTestcase, {"live_counts": (4,)}, "item 13"),
+        (papi.SimTestcase, {"hosts": ("http-echo",)}, "item 4"),
+        (papi.SimTestcase, {"validate": True}, "item 4"),
+        (_Direct, {}, "item 4"),
+        (_Dup, {}, "item 4"),
+        (_Rules, {}, "item 4"),
+    ],
+)
+def test_unported_options_refuse_loudly(tc, kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        SimProgram(tc(), _groups(), device="cpu", **kw)
+
+
+def test_env_key_is_lazy_and_matches_jax_fold():
+    """``env.key`` is the tick folded into each instance key — computed
+    only when a plan reads it."""
+    prog = port_program("pingpong-sustained", 4, {}, 8)
+    carry = prog.init_carry(seed=2)
+    env = prog._env_for(prog.groups[0], carry.keys, tick=torch.tensor(9, dtype=torch.int32))
+    assert env._key is None
+    keys = jax.random.split(jax.random.split(jax.random.key(2))[1], 4)
+    want = jax.random.key_data(jax.vmap(jax.random.fold_in)(keys, np.full(4, 9, np.int32)))
+    np.testing.assert_array_equal(env.key.numpy(), np.asarray(want).astype(np.int64))
