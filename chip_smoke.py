@@ -12,9 +12,11 @@ and drives the port's main path through the library entry points
 2. build    — nvcc for sm_90a, with its wall seconds
 3. kernels  — K1 commit and K2 pop against their plain versions at the
               flagship shape (L=8, N=100k, SLOTS=4, W=1, m2=200k), the
-              ping-pong shape (L=128, W=2) and small bool-occupancy /
-              no-stacking / etick variants; kernel, plain and library
-              times (CUDA events, median of 25 after warm-up) and the
+              ping-pong shape (L=128, W=2) and small variants (bool
+              occupancy, no stacking, etick, runs straddling a commit
+              tile, heavy fan-in, SLOTS=1, W=8); kernel, plain and library
+              times (CUDA events, median of 25 after warm-up), the
+              events' floor (an empty kernel timed the same way) and the
               memory bound at 3.35 TB/s
 4. sustained — network:pingpong-sustained at 100k instances, 500 ticks
               (reshape every 250, chunk 250): all SUCCESS, both kernels
@@ -60,16 +62,17 @@ def check(cond: bool, what: str) -> None:
 def time_ms(fn, restore, reps: int = 25, warm: int = 3) -> float:
     """Median device time of ``fn`` over ``reps`` calls (CUDA events
     around the call only); ``restore`` resets the inputs before each. A
-    ~0.1 ms spin kernel queued ahead of the start event keeps the device
+    ~1 ms spin kernel queued ahead of the start event keeps the device
     busy while the host issues the call, so the window holds device time,
-    not the wrapper's Python overhead (a call that synchronises inside,
-    as the plain K1 does, still pays its own stalls)."""
+    not the wrapper's Python overhead, even on a slow host (a call that
+    synchronises inside, as the plain K1 does, still pays its own
+    stalls)."""
     times = []
     for i in range(warm + reps):
         restore()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -133,7 +136,36 @@ def _max_err(a_list, b_list) -> int:
     )
 
 
-def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed):
+def _stream_keys(kind, rng, m2, L, N, slots, t_host, tile):
+    """Sorted keys of one stream kind. ``main`` is the main path's stream:
+    every message lands a few ticks ahead (shaped latencies), destinations
+    collide, a tenth are dead keys. ``straddle`` lays a run of SLOTS+3
+    across every odd commit-tile boundary and a run of exactly SLOTS
+    ending at every even one, with short runs between. ``fanin`` puts
+    every message on one (bucket, dst)."""
+    if kind == "main":
+        bucket = (t_host + rng.choice([2, 4], m2)) % L
+        keys = bucket.astype(np.int64) * N + rng.integers(0, N, m2)
+        keys[rng.random(m2) < 0.1] = L * N
+        return np.sort(keys, kind="stable")
+    if kind == "fanin":
+        return np.full(m2, ((t_host + 2) % L) * N + int(rng.integers(0, N)))
+    check(kind == "straddle", f"unknown stream kind {kind}")
+    lengths, pos, k = [], 0, 1
+    while pos < m2:
+        start, run = (k * tile - 2, slots + 3) if k % 2 else (k * tile - slots, slots)
+        while pos < start:
+            lengths.append(min(start - pos, int(rng.integers(1, 4))))
+            pos += lengths[-1]
+        lengths.append(run)
+        pos += run
+        k += 1
+    keys = np.sort(rng.choice(L * N, len(lengths), replace=False))
+    return np.repeat(keys, lengths)[:m2]
+
+
+def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed,
+                stream="main"):
     from testground_tpu_torch.sim import cuda_transport as ct
     from testground_tpu_torch.sim import net
 
@@ -141,12 +173,7 @@ def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed):
     rng = np.random.default_rng(seed)
     cal0 = _calendar(net, L, N, slots, W, occ_bool, etick, rng, dev)
     t_host = 5
-    # the main path's stream: every message lands a few ticks ahead
-    # (shaped latencies), destinations collide, a tenth are dead keys
-    bucket = (t_host + rng.choice([2, 4], m2)) % L
-    keys = bucket.astype(np.int64) * N + rng.integers(0, N, m2)
-    keys[rng.random(m2) < 0.1] = L * N
-    keys.sort(kind="stable")
+    keys = _stream_keys(stream, rng, m2, L, N, slots, t_host, ct.COMMIT_TILE)
     sk = torch.from_numpy(keys.astype(np.int32)).to(dev)
     occ_vals = torch.from_numpy(
         (np.ones(m2) if occ_bool else rng.integers(1, N + 1, m2)).astype(np.int32)
@@ -192,7 +219,7 @@ def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed):
         "kernel": "commit_calendar",
         "case": label,
         "shape": dict(L=L, N=N, slots=slots, W=W, m2=m2, occ_bool=occ_bool,
-                      stacking=stacking, etick=etick),
+                      stacking=stacking, etick=etick, stream=stream),
         "survivors": survivors,
         "max_abs_err": err,
         "kernel_ms": kernel_ms,
@@ -370,9 +397,10 @@ def phase_sustained(card) -> dict:
 def device_profile(prog, ticks, wall_ms_per_tick) -> dict:
     """Device kernel time per tick from ``torch.profiler`` over the first
     chunk of a run (at least ``ticks`` ticks; the real count is read off
-    the carry), its top kernels, and the device's busy share of the
-    unprofiled wall time per tick. Where the profiler reports no device
-    time, the share is "not measured" (None)."""
+    the carry), its top kernels, the transport kernels' device time per
+    launch, and the device's busy share of the unprofiled wall time per
+    tick. Where the profiler reports no device time, the share is "not
+    measured" (None)."""
     from torch.profiler import ProfilerActivity, profile
 
     last = {}
@@ -399,6 +427,9 @@ def device_profile(prog, ticks, wall_ms_per_tick) -> dict:
         "device_busy_share": total_ms / wall_ms_per_tick if rows else None,
         "kernels_per_tick": sum(r[2] for r in rows) / ticks if rows else None,
         "top_device_ms_per_tick": {k[:60]: us / 1e3 / ticks for k, us, _ in top},
+        # the transport kernels' own device time per launch on this path
+        "transport_kernel_ms": {k.split("(")[0]: us / 1e3 / calls for k, us, calls in rows
+                                if k.startswith(("commit_k", "pop_vec_k", "pop_scalar_k"))},
     }
 
 
@@ -538,13 +569,24 @@ def main(argv=None) -> int:
             commit_case("pingpong", 128, N, 4, 2, 2 * N, False, True, False, 2),
             commit_case("bool-nostack-etick", 16, 4096, 4, 2, 8192, True, False, True, 3),
             commit_case("int-etick", 16, 4096, 2, 3, 8192, False, True, True, 4),
+            commit_case("straddling-run", 16, 4096, 4, 2, 8192, False, True, True, 9,
+                        stream="straddle"),
+            commit_case("heavy-fan-in", 16, 4096, 4, 1, 8192, False, True, False, 10,
+                        stream="fanin"),
+            commit_case("slots-1", 8, N, 1, 1, 2 * N, False, True, False, 11),
+            commit_case("width-8", 16, 4096, 4, 8, 8192, False, True, True, 12),
             pop_case("flagship", 8, N, 4, 1, False, 5),
             pop_case("pingpong", 128, N, 4, 2, False, 6),
             pop_case("bool", 16, 4096, 4, 2, True, 7),
             pop_case("odd-row", 16, 4095, 3, 1, False, 8),
+            pop_case("width-8", 16, 4096, 4, 8, False, 13),
         ]
         for c in cases:
             emit({"phase": "kernels", **c, "card": card})
+        # the harness's own floor: an empty kernel timed the same way
+        emit({"phase": "kernels", "case": "launch-floor",
+              "kernel_ms": time_ms(lambda: torch.cuda._sleep(0), lambda: None),
+              "card": card})
         kernel_rows = cases
 
     launches = {"commit_calendar": 0, "pop_bucket": 0}

@@ -1,37 +1,62 @@
 // Calendar transport kernels for Hopper (sm_90a): the port of the two
 // Pallas kernels in testground_tpu/sim/pallas_transport.py.
 //
-// K1 segmented calendar commit  (replaces pallas_transport.py:_commit_call,
+// K1 calendar commit, commit_k  (replaces pallas_transport.py:_commit_call,
 //    called by commit_calendar). Commits one tick's message stream, sorted
-//    by key = bucket*N + dst (dead keys >= L*N), into the [L, N*SLOTS]
-//    calendar planes at position slot*N + dst of row `bucket`. A message's
-//    slot is its rank inside its run of equal keys plus the bucket's
-//    PRE-tick fill for dst (0 without stacking); slot >= SLOTS drops it.
+//    by key = bucket*N + dst (dead keys < 0 or >= L*N), into the
+//    [L, N*SLOTS] calendar planes at position slot*N + dst of row `bucket`.
+//    A message's slot is its rank inside its run of equal keys plus the
+//    bucket's PRE-tick fill for dst (the nonzero occupancy words over the
+//    SLOTS slots; 0 without stacking); slot >= SLOTS drops it.
 //
-//    Bound: memory. Per message it reads the stream words (8 + 4W bytes),
-//    up to SLOTS occupancy words at a run start and writes the survival
-//    word; per survivor it writes 1 + W (+1) plane words at scattered
-//    positions. Arithmetic is a binary search (<= 18 probes at 200k).
+//    Bound: memory. Per message it reads its key and writes its survival
+//    word; per run leader, SLOTS occupancy words (stacking only); per
+//    message that can survive, its stream words (occupancy mark, W
+//    payload); per survivor, 1 + W (+1 etick) plane words at scattered
+//    positions. At the main path's sizes the chain of dependent loads sets
+//    the time, so the design keeps it to two: the key tile, then the fill
+//    and the stream words together. No search, no scan, no scratch, one
+//    launch.
 //
-//    Design: the TPU walks the stream serially with a rank carry in SMEM;
-//    here every sorted message is one thread. The run start is a
-//    lower-bound binary search over the sorted keys, so ranks need no
-//    carry and no scan, and positions are unique by construction, so no
-//    atomics. Two launches are REQUIRED: run-mates write into the very
-//    slots whose occupancy gives the run's base, so every fill must be
-//    read (launch 1: commit_rank) before any plane is written (launch 2:
-//    commit_write) — the ordering the TPU gets from its serial walk.
+//    Design: the run structure comes from neighbours alone. Each block
+//    stages its tile of kCommitTile keys (16-byte cp.async) plus a halo of
+//    SLOTS keys on each side into shared memory. In a sorted stream the
+//    rank of message j is >= SLOTS iff sk[j-SLOTS] == sk[j]; such a
+//    message can never survive (the fill is >= 0) and writes survived = 0
+//    itself, as a dead key does. Any other live message walks back at most
+//    SLOTS-1 keys in shared memory to its run's leader (sk[j-1] != sk[j]).
+//    The leader reads the (bucket, dst) fill once into shared memory; after
+//    one block barrier each run-mate in the tile commits itself at
+//    slot = fill + rank (planes and survived = 1, or survived = 0 when
+//    slot >= SLOTS). A run-mate past the tile's end (at most SLOTS-1 of
+//    them per tile) belongs to its leader, which commits it after its own
+//    message. Every survival word is written exactly once, and heavy
+//    fan-in costs a few shared-memory compares per message.
 //
-// K2 delivery pop  (replaces pallas_transport.py:_pop_call, called by
-//    pop_bucket). Copies row b = t mod L of the occupancy plane and the W
-//    payload planes out as [N*SLOTS] rows and zeroes the occupancy row, in
-//    one pass. b is computed from the device tick, so the host never reads
-//    it.
+//    Why one launch cannot race: the fill of (bucket, dst) is read only by
+//    its run's leader, and only that leader's block writes any slot of
+//    (bucket, dst): its run-mates in the tile after the block barrier, the
+//    ones past the tile by the leader itself after its read. So every fill
+//    read precedes every write of those cells, with no ordering across
+//    blocks; runs of other keys write disjoint (bucket, dst) columns. The
+//    TPU gets the same order from its serial walk ("fill reads stay
+//    PRE-update").
 //
-//    Bound: memory (reads (occ + 4W) bytes per cell, writes them once
-//    plus the cleared occupancy word). Design: 4 cells per thread with
-//    16-byte vector accesses when the rows are 16-byte aligned, so the
-//    copy runs at full-width transactions; a scalar path otherwise.
+// K2 delivery pop, pop_vec_k / pop_scalar_k  (replaces
+//    pallas_transport.py:_pop_call, called by pop_bucket). Copies row
+//    b = t mod L of the occupancy plane and the W payload planes out as
+//    [N*SLOTS] rows and zeroes the occupancy row, in one pass. b is
+//    computed on the device, once per block (one thread reads t, a 32-bit
+//    floor modulo, broadcast through shared memory): the host never reads
+//    the tick.
+//
+//    Bound: memory (reads (occ + 4W) bytes per cell, writes them once plus
+//    the cleared occupancy word). Design: the rows of all planes form one
+//    list of 16-byte vectors (16 cells of a bool row, 4 of an int32 row);
+//    a grid of at most 4 blocks per SM walks it with each thread issuing
+//    all of its kPopUnroll loads before any store, so the first wave keeps
+//    the whole row in flight. Rows whose length or alignment break 16-byte
+//    vectors take the scalar kernel.
 //
 // Plain C interface (loaded with ctypes): every entry point enqueues on
 // the caller's stream, never synchronises, allocates nothing, and returns
@@ -50,122 +75,170 @@ struct ConstPlanes {
   const int32_t* p[TG_MAX_WIDTH];
 };
 
-__global__ void commit_rank(const int32_t* __restrict__ sk,
-                            const void* __restrict__ occ, int occ_bool,
-                            int m2, int n, int slots, long long big,
-                            int stacking, int32_t* __restrict__ slot_out,
-                            int32_t* __restrict__ surv) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m2) return;
-  const int32_t key = sk[j];
-  if (key < 0 || (long long)key >= big) {
-    slot_out[j] = -1;
+// ------------------------------------------------------------------ K1
+
+static constexpr int kCommitTile = 256;  // messages per block, one a thread
+static constexpr int kMaxHalo = 1024;    // keys staged on each side of a tile
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// one message's stream words, read before its slot is known
+struct Msg {
+  int32_t occ;
+  int32_t pay[TG_MAX_WIDTH];
+};
+
+__device__ __forceinline__ Msg load_msg(int j, int width,
+                                        const int32_t* __restrict__ occ_vals,
+                                        const ConstPlanes& pay_in) {
+  Msg m;
+  m.occ = occ_vals[j];
+#pragma unroll
+  for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+    if (w < width) m.pay[w] = pay_in.p[w][j];
+  }
+  return m;
+}
+
+// writes message j at `slot` of its (bucket, dst) cell, or drops it
+__device__ __forceinline__ void commit_msg(
+    int j, const Msg& m, int slot, int slots, size_t cell, int n, int width,
+    void* occ, int occ_bool, const Planes& planes, int32_t* etick, int32_t t,
+    int32_t* __restrict__ surv) {
+  if (slot >= slots) {
     surv[j] = 0;
     return;
   }
-  // run start = first index of `key` in the sorted stream
-  int lo = 0, hi = j;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (sk[mid] < key) lo = mid + 1; else hi = mid;
-  }
-  int slot = j - lo;
-  if (stacking) {
-    const int b = key / n;
-    const int d = key - b * n;
-    const size_t row = (size_t)b * (size_t)n * (size_t)slots + (size_t)d;
-    int base = 0;
-    if (occ_bool) {
-      const uint8_t* o = (const uint8_t*)occ;
-      for (int s = 0; s < slots; ++s) base += o[row + (size_t)s * n] != 0;
-    } else {
-      const int32_t* o = (const int32_t*)occ;
-      for (int s = 0; s < slots; ++s) base += o[row + (size_t)s * n] != 0;
-    }
-    slot += base;
-  }
-  const bool keep = slot < slots;
-  slot_out[j] = keep ? slot : -1;
-  surv[j] = keep ? 1 : 0;
-}
-
-__global__ void commit_write(const int32_t* __restrict__ sk,
-                             const int32_t* __restrict__ slot_in,
-                             const int32_t* __restrict__ occ_vals,
-                             ConstPlanes pay_in, int width, void* occ,
-                             int occ_bool, Planes planes,
-                             int32_t* __restrict__ etick,
-                             const int32_t* __restrict__ t_dev, int m2,
-                             int n, int slots) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m2) return;
-  const int slot = slot_in[j];
-  if (slot < 0) return;
-  const int key = sk[j];
-  const int b = key / n;
-  const int d = key - b * n;
-  const size_t pos = (size_t)b * (size_t)n * (size_t)slots +
-                     (size_t)slot * (size_t)n + (size_t)d;
+  const size_t pos = cell + (size_t)slot * (size_t)n;
   if (occ_bool) {
-    ((uint8_t*)occ)[pos] = occ_vals[j] != 0;
+    ((uint8_t*)occ)[pos] = m.occ != 0;
   } else {
-    ((int32_t*)occ)[pos] = occ_vals[j];
+    ((int32_t*)occ)[pos] = m.occ;
   }
-  for (int w = 0; w < width; ++w) planes.p[w][pos] = pay_in.p[w][j];
-  if (etick != nullptr) etick[pos] = *t_dev;
+#pragma unroll
+  for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+    if (w < width) planes.p[w][pos] = m.pay[w];
+  }
+  if (etick != nullptr) etick[pos] = t;
+  surv[j] = 1;
 }
 
-__device__ __forceinline__ long long floor_mod(long long a, long long m) {
-  long long r = a % m;
-  return r < 0 ? r + m : r;
-}
+__global__ void __launch_bounds__(kCommitTile)
+    commit_k(const int32_t* __restrict__ sk,
+             const int32_t* __restrict__ occ_vals,
+             const __grid_constant__ ConstPlanes pay_in, int width, void* occ,
+             int occ_bool, const __grid_constant__ Planes planes,
+             int32_t* __restrict__ etick, const int32_t* __restrict__ t_dev,
+             int32_t* __restrict__ surv, int m2, int n, int slots, int big,
+             int stacking, int halo, int vec) {
+  // shared keys: [pad | left halo | tile | right halo], the tile 16-byte
+  // aligned at `hl`; positions outside [0, m2) hold -1, a dead key
+  extern __shared__ int4 smem_raw[];
+  int32_t* s_key = (int32_t*)smem_raw;
+  __shared__ int32_t s_fill[kCommitTile];  // pre-tick fill, at run leaders
+  __shared__ int32_t s_t;
+  const int hl = (halo + 3) & ~3;
+  const int tile0 = blockIdx.x * kCommitTile;
+  const int tid = threadIdx.x;
+  const int body = min(kCommitTile, m2 - tile0);
+  if (vec && body == kCommitTile) {
+    if (tid < kCommitTile / 4) {
+      cp_async16(s_key + hl + 4 * tid, sk + tile0 + 4 * tid);
+    }
+  } else {
+    s_key[hl + tid] = tid < body ? sk[tile0 + tid] : -1;
+  }
+  for (int i = tid; i < halo; i += kCommitTile) {
+    const int left = tile0 - halo + i;
+    const int right = tile0 + kCommitTile + i;
+    s_key[hl - halo + i] = left >= 0 ? sk[left] : -1;
+    s_key[hl + kCommitTile + i] = right < m2 ? sk[right] : -1;
+  }
+  if (tid == 0) s_t = etick != nullptr ? *t_dev : 0;
+  cp_async_wait_all();
+  __syncthreads();
 
-__global__ void pop_bucket_k(void* occ, int occ_bool, ConstPlanes pay,
-                             int width, const int32_t* __restrict__ t_dev,
-                             int horizon, long long ns, int vec,
-                             void* row_occ, Planes row_pay) {
-  const long long i = 4LL * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
-  if (i >= ns) return;
-  const long long base = floor_mod((long long)(*t_dev), horizon) * ns;
-  if (vec) {
-    // ns % 4 == 0 and 16-byte aligned planes: whole 4-cell groups
-    if (occ_bool) {
-      uint32_t* o = (uint32_t*)((uint8_t*)occ + base + i);
-      *(uint32_t*)((uint8_t*)row_occ + i) = *o;
-      *o = 0u;
-    } else {
-      int4* o = (int4*)((int32_t*)occ + base + i);
-      *(int4*)((int32_t*)row_occ + i) = *o;
-      *o = make_int4(0, 0, 0, 0);
+  // key of any stream position: shared memory inside the staged window,
+  // device memory beyond it (only when SLOTS > kMaxHalo)
+  const int lo = tile0 - halo;
+  const int hi = tile0 + kCommitTile + halo;
+  auto key_at = [&](int i) -> int32_t {
+    if (i >= lo && i < hi) return s_key[hl + (i - tile0)];
+    return (i < 0 || i >= m2) ? -1 : sk[i];
+  };
+
+  const int j = tile0 + tid;
+  const int32_t key = s_key[hl + tid];
+  const bool live = j < m2 && key >= 0 && key < big;
+  // rank inside the run, capped at SLOTS: in a sorted stream the rank is
+  // >= SLOTS iff sk[j-SLOTS] == sk[j]; otherwise walk back to the leader
+  int rank = slots;
+  if (live && !(j >= slots && key_at(j - slots) == key)) {
+    rank = 0;
+    while (key_at(j - rank - 1) == key) ++rank;
+  }
+  // a run-mate whose leader lies in an earlier tile is that leader's
+  const bool mine = live && rank < slots && rank <= tid;
+  Msg msg;
+  if (mine) msg = load_msg(j, width, occ_vals, pay_in);
+  const int b = key / n;
+  const size_t cell =
+      (size_t)b * (size_t)n * (size_t)slots + (size_t)(key - b * n);
+  int fill = 0;
+  if (live && rank == 0) {
+    if (stacking) {
+      if (occ_bool) {
+        const uint8_t* o = (const uint8_t*)occ + cell;
+#pragma unroll 4
+        for (int s = 0; s < slots; ++s) fill += o[(size_t)s * n] != 0;
+      } else {
+        const int32_t* o = (const int32_t*)occ + cell;
+#pragma unroll 4
+        for (int s = 0; s < slots; ++s) fill += o[(size_t)s * n] != 0;
+      }
     }
-    for (int w = 0; w < width; ++w) {
-      *(int4*)(row_pay.p[w] + i) = *(const int4*)(pay.p[w] + base + i);
-    }
+    s_fill[tid] = fill;
+  }
+  // every fill of this tile's runs is read before any plane is written
+  __syncthreads();
+  if (j >= m2) return;
+  if (!live || rank >= slots) {
+    surv[j] = 0;
     return;
   }
-  const long long end = i + 4 < ns ? i + 4 : ns;
-  for (long long c = i; c < end; ++c) {
-    if (occ_bool) {
-      uint8_t* o = (uint8_t*)occ + base + c;
-      ((uint8_t*)row_occ)[c] = *o;
-      *o = 0;
-    } else {
-      int32_t* o = (int32_t*)occ + base + c;
-      ((int32_t*)row_occ)[c] = *o;
-      *o = 0;
+  if (mine) {
+    commit_msg(j, msg, s_fill[tid - rank] + rank, slots, cell, n, width, occ,
+               occ_bool, planes, etick, s_t, surv);
+  }
+  // the leader also commits its run-mates past the tile's end
+  if (rank == 0) {
+    for (int r = kCommitTile - tid; r < slots && key_at(j + r) == key; ++r) {
+      commit_msg(j + r, load_msg(j + r, width, occ_vals, pay_in), fill + r,
+                 slots, cell, n, width, occ, occ_bool, planes, etick, s_t,
+                 surv);
     }
-    for (int w = 0; w < width; ++w) row_pay.p[w][c] = pay.p[w][base + c];
   }
 }
 
-static const int kThreads = 256;
-
-extern "C" int tg_commit_calendar(
-    const void* sk, const void* occ_vals, const void* pay_sorted_ptrs,
-    int width, void* occ, int occ_bool, const void* plane_ptrs, void* etick,
-    const void* t_dev, void* slot_scratch, void* surv, int m2, int horizon,
-    int n, int slots, int stacking, void* stream) {
-  if (width < 0 || width > TG_MAX_WIDTH) return (int)cudaErrorInvalidValue;
+extern "C" int tg_commit_calendar(const void* sk, const void* occ_vals,
+                                  const void* pay_sorted_ptrs, int width,
+                                  void* occ, int occ_bool,
+                                  const void* plane_ptrs, void* etick,
+                                  const void* t_dev, void* surv, int m2,
+                                  int horizon, int n, int slots, int stacking,
+                                  void* stream) {
+  if (width < 0 || width > TG_MAX_WIDTH || slots < 1 || m2 < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
   ConstPlanes pay_in;
   Planes planes;
   const void* const* ps = (const void* const*)pay_sorted_ptrs;
@@ -174,38 +247,163 @@ extern "C" int tg_commit_calendar(
     pay_in.p[w] = w < width ? (const int32_t*)ps[w] : nullptr;
     planes.p[w] = w < width ? (int32_t*)pp[w] : nullptr;
   }
-  const int blocks = (m2 + kThreads - 1) / kThreads;
-  cudaStream_t s = (cudaStream_t)stream;
-  commit_rank<<<blocks, kThreads, 0, s>>>(
-      (const int32_t*)sk, occ, occ_bool, m2, n, slots,
-      (long long)horizon * (long long)n, stacking, (int32_t*)slot_scratch,
-      (int32_t*)surv);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  commit_write<<<blocks, kThreads, 0, s>>>(
-      (const int32_t*)sk, (const int32_t*)slot_scratch,
-      (const int32_t*)occ_vals, pay_in, width, occ, occ_bool, planes,
-      (int32_t*)etick, (const int32_t*)t_dev, m2, n, slots);
+  const int halo = slots < kMaxHalo ? slots : kMaxHalo;
+  const int hl = (halo + 3) & ~3;
+  const size_t smem = (size_t)(hl + kCommitTile + halo) * sizeof(int32_t);
+  const int blocks = (m2 + kCommitTile - 1) / kCommitTile;
+  const int vec = ((uintptr_t)sk & 15) == 0;
+  commit_k<<<blocks, kCommitTile, smem, (cudaStream_t)stream>>>(
+      (const int32_t*)sk, (const int32_t*)occ_vals, pay_in, width, occ,
+      occ_bool, planes, (int32_t*)etick, (const int32_t*)t_dev,
+      (int32_t*)surv, m2, n, slots, horizon * n, stacking, halo, vec);
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ K2
+
+static constexpr int kPopThreads = 256;
+static constexpr int kPopUnroll = 2;      // 16-byte vectors in flight a thread
+static constexpr int kPopBlocksPerSm = 4;
+
+struct PopVecArgs {
+  int4* occ;                             // occupancy plane, read and cleared
+  const int4* pay[TG_MAX_WIDTH];         // payload planes
+  int4* row_occ;                         // popped rows
+  int4* row_pay[TG_MAX_WIDTH];
+};
+
+__device__ __forceinline__ int bucket_row(const int32_t* t_dev, int horizon) {
+  __shared__ int s_b;
+  if (threadIdx.x == 0) {
+    const int r = *t_dev % horizon;
+    s_b = r < 0 ? r + horizon : r;
+  }
+  __syncthreads();
+  return s_b;
+}
+
+__global__ void __launch_bounds__(kPopThreads)
+    pop_vec_k(const __grid_constant__ PopVecArgs a,
+              const int32_t* __restrict__ t_dev, int horizon,
+              unsigned nv_occ, unsigned nv_pay, unsigned total) {
+  const size_t b = (size_t)bucket_row(t_dev, horizon);
+  int4* occ = a.occ + b * nv_occ;
+  const size_t pay_row = b * nv_pay;
+  const unsigned step = gridDim.x * kPopThreads * kPopUnroll;
+  for (unsigned base = blockIdx.x * kPopThreads * kPopUnroll + threadIdx.x;
+       base < total; base += step) {
+    int4 v[kPopUnroll];
+    int plane[kPopUnroll];
+    unsigned off[kPopUnroll];
+#pragma unroll
+    for (int k = 0; k < kPopUnroll; ++k) {
+      const unsigned i = base + k * kPopThreads;
+      plane[k] = -1;
+      if (i >= total) continue;
+      if (i < nv_occ) {
+        plane[k] = 0;
+        off[k] = i;
+        v[k] = occ[i];
+      } else {
+        const unsigned q = i - nv_occ;
+        const unsigned w = q / nv_pay;
+        plane[k] = 1 + (int)w;
+        off[k] = q - w * nv_pay;
+        v[k] = __ldg(a.pay[w] + pay_row + off[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kPopUnroll; ++k) {
+      if (plane[k] < 0) continue;
+      if (plane[k] == 0) {
+        a.row_occ[off[k]] = v[k];
+        occ[off[k]] = make_int4(0, 0, 0, 0);
+      } else {
+        a.row_pay[plane[k] - 1][off[k]] = v[k];
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPopThreads)
+    pop_scalar_k(void* occ_plane, int occ_bool,
+                 const __grid_constant__ ConstPlanes pay, int width,
+                 const int32_t* __restrict__ t_dev, int horizon, unsigned ns,
+                 void* row_occ, const __grid_constant__ Planes row_pay) {
+  const size_t base = (size_t)bucket_row(t_dev, horizon) * ns;
+  for (unsigned c = blockIdx.x * kPopThreads + threadIdx.x; c < ns;
+       c += gridDim.x * kPopThreads) {
+    if (occ_bool) {
+      uint8_t* o = (uint8_t*)occ_plane + base + c;
+      ((uint8_t*)row_occ)[c] = *o;
+      *o = 0;
+    } else {
+      int32_t* o = (int32_t*)occ_plane + base + c;
+      ((int32_t*)row_occ)[c] = *o;
+      *o = 0;
+    }
+    for (int w = 0; w < width; ++w) row_pay.p[w][c] = pay.p[w][base + c];
+  }
+}
+
+// an error here is left for the launch's cudaGetLastError() to report
+static int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms > 0 ? sms : 1;
+}
+
+static bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 extern "C" int tg_pop_bucket(void* occ, int occ_bool, const void* pay_ptrs,
                              int width, const void* t_dev, int horizon,
-                             long long ns, int vec, void* row_occ,
+                             long long ns, void* row_occ,
                              const void* row_pay_ptrs, void* stream) {
-  if (width < 0 || width > TG_MAX_WIDTH) return (int)cudaErrorInvalidValue;
-  ConstPlanes pay;
-  Planes rows;
+  if (width < 0 || width > TG_MAX_WIDTH || horizon < 1 || ns < 1 ||
+      (long long)horizon * ns >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const void* const* pp = (const void* const*)pay_ptrs;
   const void* const* rp = (const void* const*)row_pay_ptrs;
+  const int occ_cells = occ_bool ? 16 : 4;  // cells in a 16-byte vector
+  const long long vectors = ns / occ_cells + width * (ns / 4);
+  bool vec = ns % occ_cells == 0 && ns % 4 == 0 && vectors < (1LL << 31) &&
+             aligned16(occ) && aligned16(row_occ);
+  for (int w = 0; w < width; ++w) {
+    vec = vec && aligned16(pp[w]) && aligned16(rp[w]);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long cap = (long long)sm_count() * kPopBlocksPerSm;
+  if (vec) {
+    PopVecArgs a;
+    a.occ = (int4*)occ;
+    a.row_occ = (int4*)row_occ;
+    for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+      a.pay[w] = w < width ? (const int4*)pp[w] : nullptr;
+      a.row_pay[w] = w < width ? (int4*)rp[w] : nullptr;
+    }
+    const long long per_block = (long long)kPopThreads * kPopUnroll;
+    long long blocks = (vectors + per_block - 1) / per_block;
+    if (blocks > cap) blocks = cap;
+    pop_vec_k<<<(int)blocks, kPopThreads, 0, s>>>(
+        a, (const int32_t*)t_dev, horizon, (unsigned)(ns / occ_cells),
+        (unsigned)(ns / 4), (unsigned)vectors);
+    return (int)cudaGetLastError();
+  }
+  ConstPlanes pay;
+  Planes rows;
   for (int w = 0; w < TG_MAX_WIDTH; ++w) {
     pay.p[w] = w < width ? (const int32_t*)pp[w] : nullptr;
     rows.p[w] = w < width ? (int32_t*)rp[w] : nullptr;
   }
-  const long long groups = (ns + 3) / 4;
-  const int blocks = (int)((groups + kThreads - 1) / kThreads);
-  pop_bucket_k<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      occ, occ_bool, pay, width, (const int32_t*)t_dev, horizon, ns, vec,
-      row_occ, rows);
+  long long blocks = (ns + kPopThreads - 1) / kPopThreads;
+  if (blocks > cap) blocks = cap;
+  pop_scalar_k<<<(int)blocks, kPopThreads, 0, s>>>(
+      occ, occ_bool, pay, width, (const int32_t*)t_dev, horizon,
+      (unsigned)ns, row_occ, rows);
   return (int)cudaGetLastError();
 }

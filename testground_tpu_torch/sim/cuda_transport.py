@@ -39,6 +39,7 @@ import time
 import torch
 
 __all__ = [
+    "COMMIT_TILE",
     "MAX_WIDTH",
     "build_kernels",
     "commit_calendar",
@@ -49,6 +50,8 @@ __all__ = [
 
 # payload planes one launch addresses (TG_MAX_WIDTH in transport.cu)
 MAX_WIDTH = 8
+# sorted messages one K1 block commits (kCommitTile in transport.cu)
+COMMIT_TILE = 256
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG, "csrc", "transport.cu")
@@ -116,11 +119,11 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.tg_commit_calendar.argtypes = [
-        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
+        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp,
     ]
     lib.tg_commit_calendar.restype = ci
     lib.tg_pop_bucket.argtypes = [
-        vp, ci, vp, ci, vp, ci, ctypes.c_longlong, ci, vp, vp, vp,
+        vp, ci, vp, ci, vp, ci, ctypes.c_longlong, vp, vp, vp,
     ]
     lib.tg_pop_bucket.restype = ci
     return lib
@@ -248,7 +251,6 @@ def commit_calendar(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
     if m2 == 0:
         return cal, surv
     lib = _lib()
-    slot = torch.empty(m2, dtype=torch.int32, device=dev)
     pay_ptrs = _ptr_array(pay_sorted)
     plane_ptrs = _ptr_array(cal.payload)
     rc = lib.tg_commit_calendar(
@@ -261,7 +263,6 @@ def commit_calendar(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         ctypes.addressof(plane_ptrs),
         cal.etick.data_ptr() if cal.etick is not None else None,
         t.data_ptr(),
-        slot.data_ptr(),
         surv.data_ptr(),
         m2,
         horizon,
@@ -310,9 +311,6 @@ def pop_bucket(cal, t):
     lib = _lib()
     row_occ = torch.empty(ns, dtype=occ.dtype, device=dev)
     rows = [torch.empty(ns, dtype=torch.int32, device=dev) for _ in cal.payload]
-    vec = ns % 4 == 0 and all(
-        x.data_ptr() % 16 == 0 for x in (occ, row_occ, *cal.payload, *rows)
-    )
     pay_ptrs = _ptr_array(cal.payload)
     row_ptrs = _ptr_array(rows)
     rc = lib.tg_pop_bucket(
@@ -323,7 +321,6 @@ def pop_bucket(cal, t):
         t.data_ptr(),
         horizon,
         ns,
-        int(vec),
         row_occ.data_ptr(),
         ctypes.addressof(row_ptrs),
         torch.cuda.current_stream(dev).cuda_stream,

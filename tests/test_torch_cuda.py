@@ -61,15 +61,73 @@ def _copy(cal):
     )
 
 
-@pytest.mark.parametrize("occ_bool,stacking,etick,width", [
-    (False, True, False, 1), (False, True, True, 3),
-    (True, False, True, 2), (True, True, False, 1)])
-def test_commit_kernel_matches_plain(cuda, occ_bool, stacking, etick, width):
-    rng = np.random.default_rng(width)
-    horizon, n, slots, m2 = 8, 1000, 4, 3000
+TILE = ct.COMMIT_TILE
+
+
+def _stream_keys(rng, kind, m2, horizon, n, slots):
+    """Sorted keys (bucket·N + dst; dead ≥ L·N or < 0) of one stream kind:
+    ``random`` draws with a dead tail; ``straddle`` lays a run of SLOTS+3
+    across every odd tile boundary and a run of exactly SLOTS ending at
+    every even one, with short runs between; ``fanin`` puts every message
+    on one (bucket, dst); ``dead`` holds dead keys only."""
+    big = horizon * n
+    if kind == "random":
+        return np.minimum(np.sort(rng.integers(0, big + 200, m2)), big)
+    if kind == "fanin":
+        return np.full(m2, int(rng.integers(0, big)))
+    if kind == "dead":
+        return np.sort(np.concatenate([rng.integers(-50, 0, m2 // 3),
+                                       rng.integers(big, big + 50, m2 - m2 // 3)]))
+    assert kind == "straddle"
+    lengths, pos, k = [], 0, 1
+    while pos < m2:
+        start, run = (k * TILE - 2, slots + 3) if k % 2 else (k * TILE - slots, slots)
+        while pos < start:
+            lengths.append(min(start - pos, int(rng.integers(1, 4))))
+            pos += lengths[-1]
+        lengths.append(run)
+        pos += run
+        k += 1
+    keys = np.sort(rng.choice(big, len(lengths), replace=False))
+    return np.repeat(keys, lengths)[:m2]
+
+
+# (occ_bool, stacking, etick, width, slots, m2, stream)
+_COMMIT_CASES = [
+    (False, True, False, 1, 4, 3000, "random"),
+    (False, True, True, 3, 4, 3000, "random"),
+    (True, False, True, 2, 4, 3000, "random"),
+    (True, True, False, 1, 4, 3000, "random"),
+    # runs across a block's tile boundary, and runs of SLOTS ending at one
+    (False, True, True, 2, 4, 4 * TILE + 37, "straddle"),
+    (True, False, False, 1, 3, 4 * TILE + 37, "straddle"),
+    (False, True, False, 1, 1, 4 * TILE + 37, "straddle"),
+    # heavy fan-in: every message on one (bucket, dst)
+    (False, True, False, 1, 4, 3000, "fanin"),
+    (True, False, True, 1, 2, 3000, "fanin"),
+    # stream lengths at the tile's edges
+    (False, True, False, 1, 4, 0, "random"),
+    (False, True, False, 1, 4, 1, "random"),
+    (False, True, True, 1, 4, 3, "random"),
+    (False, True, False, 2, 4, TILE - 1, "random"),
+    (True, True, False, 1, 4, TILE + 1, "random"),
+    (False, True, False, 2, 4, 3000, "dead"),
+    # every SLOTS up to 4, and the widest payload
+    (False, True, False, 1, 1, 3000, "random"),
+    (False, True, True, 1, 2, 3000, "random"),
+    (True, True, False, 2, 3, 3000, "random"),
+    (False, True, True, 8, 4, 3000, "random"),
+]
+
+
+@pytest.mark.parametrize("occ_bool,stacking,etick,width,slots,m2,stream", _COMMIT_CASES)
+def test_commit_kernel_matches_plain(cuda, occ_bool, stacking, etick, width, slots,
+                                     m2, stream):
+    rng = np.random.default_rng(width + 10 * slots + m2)
+    horizon, n = 8, 1000
     cal = _cal(rng, horizon, n, slots, width, occ_bool, etick, cuda)
-    keys = np.sort(rng.integers(0, horizon * n + 200, m2))
-    sk = torch.from_numpy(np.minimum(keys, horizon * n).astype(np.int32)).to(cuda)
+    keys = _stream_keys(rng, stream, m2, horizon, n, slots)
+    sk = torch.from_numpy(keys.astype(np.int32)).to(cuda)
     occ_vals = torch.from_numpy(rng.integers(1, n, m2).astype(np.int32)).to(cuda)
     pay = [torch.from_numpy(rng.integers(0, 99, m2).astype(np.int32)).to(cuda)
            for _ in range(width)]
@@ -79,22 +137,36 @@ def test_commit_kernel_matches_plain(cuda, occ_bool, stacking, etick, width):
     _, sa = ct.commit_calendar(a, sk, occ_vals, pay, t, stacking=stacking)
     _, sb = ct.commit_calendar_plain(b, sk, occ_vals, pay, t, stacking=stacking)
     torch.cuda.synchronize()
-    assert ct.commit_calendar.launches == before + 1
+    assert ct.commit_calendar.launches == before + (m2 > 0)
     assert torch.equal(sa, sb)
     for x, y in zip(_planes(a), _planes(b)):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("occ_bool,n,slots", [(False, 1000, 4), (True, 1000, 4),
-                                              (False, 333, 3)])
-def test_pop_kernel_matches_plain(cuda, occ_bool, n, slots):
-    rng = np.random.default_rng(n)
-    cal = _cal(rng, 16, n, slots, 2, occ_bool, False, cuda)
-    t = torch.tensor(37, dtype=torch.int32, device=cuda)
+# (occ_bool, n, slots, width, horizon, t)
+_POP_CASES = [
+    (False, 1000, 4, 2, 16, 37),
+    (True, 1000, 4, 2, 16, 37),
+    (False, 333, 3, 2, 16, 37),
+    (False, 1000, 4, 8, 16, 37),
+    (True, 333, 3, 2, 16, 37),  # bool row of 999 cells
+    (True, 1002, 4, 1, 16, 37),  # bool row of 4008 cells: not a multiple of 16
+    (False, 1000, 4, 2, 1, 37),
+    (False, 1000, 4, 2, 16, 2**20 + 1),
+]
+
+
+@pytest.mark.parametrize("occ_bool,n,slots,width,horizon,t", _POP_CASES)
+def test_pop_kernel_matches_plain(cuda, occ_bool, n, slots, width, horizon, t):
+    rng = np.random.default_rng(n + width + horizon)
+    cal = _cal(rng, horizon, n, slots, width, occ_bool, False, cuda)
+    t = torch.tensor(t, dtype=torch.int32, device=cuda)
     a, b = _copy(cal), _copy(cal)
+    before = ct.pop_bucket.launches
     _, ra, pa = ct.pop_bucket(a, t)
     _, rb, pb = ct.pop_bucket_plain(b, t)
     torch.cuda.synchronize()
+    assert ct.pop_bucket.launches == before + 1
     for x, y in zip([ra, *pa, *_planes(a)], [rb, *pb, *_planes(b)]):
         assert torch.equal(x, y)
 
