@@ -12,7 +12,11 @@ and drives the port's main path through the library entry points
 2. build    — nvcc for sm_90a, with its wall seconds
 3. kernels  — K1 commit and K2 pop against their plain versions at the
               flagship shape (L=8, N=100k, SLOTS=4, W=1, m2=200k), the
-              ping-pong shape (L=128, W=2) and small variants (bool
+              ping-pong shape (L=128, W=2), storm's shape (SLOTS=16, bool
+              occupancy, no stacking, a 500k Poisson fan-in stream with
+              runs past 16), a duplicate-doubled stream, flood's K2
+              (SLOTS=1, bool), storm's K2 (a 1.6M-cell bool row), the
+              256-row horizon of netlinkshape, and small variants (bool
               occupancy, no stacking, etick, runs straddling a commit
               tile, heavy fan-in, SLOTS=1, W=8); kernel, plain and library
               times (CUDA events, median of 25 after warm-up), the
@@ -23,10 +27,21 @@ and drives the port's main path through the library entry points
               launched, flow conservation exact; peer·ticks/s and
               per-phase ms/tick
 5. pingpong — network:ping-pong at 100k instances (100/10 ms): all SUCCESS
-6. scale    — pingpong-sustained at 1M instances for 64 ticks
-7. parity   — the sustained program at 4,096 instances for 128 ticks on
-              the CPU (plain versions) and on the card (kernels), and one
-              fully shaped enqueue on both: bit-equal
+6. flood    — benchmarks:pingpong-flood at 100k instances, 500 ticks,
+              4 ms (chunk 500): direct slots, K2 only; all SUCCESS,
+              conservation, rounds > 0
+7. storm    — benchmarks:storm at 100k instances (5 connections, 32-tick
+              dial delays, 512 KiB each, chunk 64) to all SUCCESS: a 500k
+              message stream a tick through K1 at SLOTS=16; bytes read > 0
+8. benchmarks — barrier, netinit, netlinkshape, subtree and startup at
+              100k instances, each to all SUCCESS
+9. scale    — pingpong-sustained at 1M instances for 64 ticks
+10. parity  — sustained, flood and storm at 4,096 instances on the CPU
+              (plain versions) and on the card (kernels), every carry leaf
+              and results() key; fully shaped enqueues (every sorted-path
+              feature; duplicate with the HTB queue; range rules) and one
+              direct-mode enqueue under validate with forced collisions
+              (counts and first collision): bit-equal
 
 Each phase prints one JSON line. Then the card's ``name, power.limit``
 line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -47,7 +62,10 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
-PHASES = ("device", "build", "kernels", "sustained", "pingpong", "scale", "parity")
+PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
+          "benchmarks", "scale", "parity")
+# the benchmarks cases besides flood and storm, run at their defaults
+BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 
 
 def emit(obj) -> None:
@@ -142,7 +160,11 @@ def _stream_keys(kind, rng, m2, L, N, slots, t_host, tile):
     collide, a tenth are dead keys. ``straddle`` lays a run of SLOTS+3
     across every odd commit-tile boundary and a run of exactly SLOTS
     ending at every even one, with short runs between. ``fanin`` puts
-    every message on one (bucket, dst)."""
+    every message on one (bucket, dst). ``poisson`` is storm's stream: 5
+    messages a sender to uniform destinations, all in the next bucket
+    (Poisson(5) fan-in), with a few runs of 20-40 planted so that ranks
+    pass SLOTS=16. ``dup`` is the main stream and its duplicate copies one
+    bucket later, the copies not drawn dead."""
     if kind == "main":
         bucket = (t_host + rng.choice([2, 4], m2)) % L
         keys = bucket.astype(np.int64) * N + rng.integers(0, N, m2)
@@ -150,6 +172,18 @@ def _stream_keys(kind, rng, m2, L, N, slots, t_host, tile):
         return np.sort(keys, kind="stable")
     if kind == "fanin":
         return np.full(m2, ((t_host + 2) % L) * N + int(rng.integers(0, N)))
+    if kind == "poisson":
+        keys = ((t_host + 1) % L) * N + rng.integers(0, N, m2)
+        heavy = rng.integers(0, N, 8)
+        keys[: 8 * 30] = ((t_host + 1) % L) * N + np.repeat(heavy, 30)
+        return np.sort(keys)
+    if kind == "dup":
+        m = m2 // 2
+        orig = _stream_keys("main", rng, m, L, N, slots, t_host, tile)
+        live = orig < L * N
+        copy = np.where(live & (rng.random(m) < 0.3), orig + N, L * N)
+        copy = np.where(copy >= L * N, L * N, copy)  # no wrap past row L-1
+        return np.sort(np.concatenate([orig, copy]), kind="stable")
     check(kind == "straddle", f"unknown stream kind {kind}")
     lengths, pos, k = [], 0, 1
     while pos < m2:
@@ -308,7 +342,7 @@ class PhaseTimer:
         return {k: v / max(ticks, 1) for k, v in sums.items()}
 
 
-def program(case, n, params, chunk, device="cuda"):
+def program(case, n, params, chunk, device="cuda", plan="network", **kw):
     from testground_tpu_torch.api import RunGroup
     from testground_tpu_torch.sim.engine import SimProgram, build_groups
     from testground_tpu_torch.sim.executor import (
@@ -317,12 +351,12 @@ def program(case, n, params, chunk, device="cuda"):
         plan_dir,
     )
 
-    factory = load_sim_testcases(plan_dir("network"))[case]
+    factory = load_sim_testcases(plan_dir(plan))[case]
     groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
     tc = instantiate_testcase(factory, groups, tick_ms=1.0)
     return SimProgram(
-        tc, groups, test_plan="network", test_case=case, tick_ms=1.0,
-        chunk=chunk, device=device,
+        tc, groups, test_plan=plan, test_case=case, tick_ms=1.0,
+        chunk=chunk, device=device, **kw,
     )
 
 
@@ -343,6 +377,9 @@ def read_launches() -> dict:
 
 
 def run_timed(prog, max_ticks, timer=None):
+    """One wall-clocked run (its launches counted from zero: read them
+    with ``read_launches`` right after)."""
+    reset_launches()
     last = {}
 
     def keep(ticks, carry):
@@ -374,7 +411,6 @@ def phase_sustained(card) -> dict:
     params = {"duration_ticks": "500", "reshape_every": "250",
               "latency_ms": "4", "latency2_ms": "2"}
     prog = program("pingpong-sustained", n, params, chunk=250)
-    reset_launches()
     res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
     launches = read_launches()
     check(bool((res["status"] == 1).all()), "sustained: not every instance SUCCESS")
@@ -437,7 +473,6 @@ def phase_pingpong(card) -> dict:
     n = 100_000
     params = {"latency_ms": "100", "latency2_ms": "10", "tolerance_ms": "15"}
     prog = program("ping-pong", n, params, chunk=64)
-    reset_launches()
     res, wall, ticks, carry = run_timed(prog, max_ticks=4096)
     launches = read_launches()
     check(bool((res["status"] == 1).all()), "ping-pong: not every instance SUCCESS")
@@ -454,83 +489,224 @@ def phase_pingpong(card) -> dict:
     }
 
 
+def phase_flood(card) -> dict:
+    """bench.py's flood (``bench.py:70-77``): direct slots, so K2 is the
+    only kernel on its path."""
+    n = 100_000
+    params = {"duration_ticks": "500", "latency_ms": "4"}
+    prog = program("pingpong-flood", n, params, chunk=500, plan="benchmarks")
+    res, wall, ticks, carry = run_timed(prog, max_ticks=10_000)
+    launches = read_launches()
+    metrics = prog.tc.collect_metrics(prog.groups[0], res["states"][0], res["status"])
+    check(bool((res["status"] == 1).all()), "flood: not every instance SUCCESS")
+    check(launches["pop_bucket"] > 0, f"flood: launches {launches}")
+    check(conserved(res), f"flood: flow conservation {flows(res)}")
+    check(int(metrics["flood.rounds"].min()) > 0, "flood: an instance made no round")
+    return {
+        "phase": "flood", "n": n, "ticks": ticks, "results_ticks": res["ticks"],
+        "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
+        "peer_ticks_per_s": n * ticks / wall, "launches": launches,
+        "flows": flows(res), "rounds_min": int(metrics["flood.rounds"].min()),
+        "calendar_bytes": sum(p.numel() * p.element_size() for p in _planes(carry.cal)),
+        **device_profile(prog, ticks=64, wall_ms_per_tick=wall / ticks * 1e3),
+        "card": card,
+    }
+
+
+def phase_storm(card) -> dict:
+    """bench.py's storm (``bench.py:78-87``) to all SUCCESS: OUT_MSGS=5,
+    SLOTS=16, bool occupancy, no stacking; the profile covers its first
+    128 ticks, about 94 of them flooding."""
+    n = 100_000
+    params = {"conn_outgoing": "5", "conn_delay_ticks": "32", "data_size_kb": "512"}
+    prog = program("storm", n, params, chunk=64, plan="benchmarks")
+    res, wall, ticks, carry = run_timed(prog, max_ticks=4096)
+    launches = read_launches()
+    metrics = prog.tc.collect_metrics(prog.groups[0], res["states"][0], res["status"])
+    check(bool((res["status"] == 1).all()), "storm: not every instance SUCCESS")
+    check(all(v > 0 for v in launches.values()), f"storm: launches {launches}")
+    check(conserved(res), f"storm: flow conservation {flows(res)}")
+    check(int(metrics["storm.bytes_read"].sum()) > 0, "storm: no bytes read")
+    return {
+        "phase": "storm", "n": n, "ticks": ticks, "results_ticks": res["ticks"],
+        "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
+        "peer_ticks_per_s": n * ticks / wall, "launches": launches,
+        "flows": flows(res),
+        "bytes_read_sum": int(metrics["storm.bytes_read"].sum()),
+        "bytes_sent_sum": int(metrics["storm.bytes_sent"].sum()),
+        "calendar_bytes": sum(p.numel() * p.element_size() for p in _planes(carry.cal)),
+        **device_profile(prog, ticks=128, wall_ms_per_tick=wall / ticks * 1e3),
+        "card": card,
+    }
+
+
+def phase_benchmarks(card) -> dict:
+    """The other five benchmarks cases at 100k, each to all SUCCESS;
+    netlinkshape also holds every pair's one-way delay to its shaped
+    250 ms (the plan fails an instance otherwise)."""
+    n = 100_000
+    runs, launches = {}, {"commit_calendar": 0, "pop_bucket": 0}
+    for case in BENCH_OTHERS:
+        prog = program(case, n, {}, chunk=64, plan="benchmarks")
+        res, wall, ticks, _ = run_timed(prog, max_ticks=4096)
+        got = read_launches()
+        check(bool((res["status"] == 1).all()), f"{case}: not every instance SUCCESS")
+        check(got["pop_bucket"] > 0, f"{case}: launches {got}")
+        check(conserved(res), f"{case}: flow conservation {flows(res)}")
+        for k, v in got.items():
+            launches[k] += v
+        runs[case] = {"ticks": ticks, "wall_s": wall, "launches": got,
+                      "msgs_sent": res["msgs_sent"]}
+    return {"phase": "benchmarks", "n": n, "runs": runs, "launches": launches,
+            "card": card}
+
+
 def phase_scale(card) -> dict:
     n = 1_000_000
     prog = program("pingpong-sustained", n, {"duration_ticks": "10000"}, chunk=64)
     torch.cuda.reset_peak_memory_stats()
     res, wall, ticks, _ = run_timed(prog, max_ticks=64)
+    launches = read_launches()
     check(ticks == 64, f"scale: ran {ticks} ticks")
     check(conserved(res), f"scale: flow conservation {flows(res)}")
     return {
         "phase": "scale", "n": n, "ticks": ticks, "wall_s": wall,
-        "peer_ticks_per_s": n * ticks / wall,
+        "peer_ticks_per_s": n * ticks / wall, "launches": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "card": card,
     }
 
 
-def _shaped_enqueue(device):
-    """One enqueue with every ported shaping feature at nonzero rates,
-    three filter regions and a pre-filled calendar, from a numpy seed."""
-    from testground_tpu_torch.sim import net
-
-    rng = np.random.default_rng(11)
-    n, o, w, L, slots = 4096, 2, 2, 16, 4
+def _enqueue_inputs(rng, n, o, w, L, slots, occ_bool=False):
+    """A pre-filled calendar, a link state with every shaping knob at
+    nonzero rates (three filter regions, an HTB backlog, two range rules a
+    sender) and one tick's outbox, from a numpy seed."""
     ns = n * slots
     occ = np.where(rng.random((L, ns)) < 0.2, rng.integers(1, n + 1, (L, ns)), 0)
-    cal = net.Calendar(
-        payload=tuple(
-            torch.from_numpy(rng.integers(0, 1000, (L, ns)).astype(np.int32)).to(device)
-            for _ in range(w)
-        ),
-        src=torch.from_numpy(occ.astype(np.int32)).to(device),
-        valid=None,
-        slots=slots,
-    )
     egress = np.stack([
         rng.uniform(1, 9, n), rng.uniform(0, 5, n),
         np.where(rng.random(n) < 0.5, 0.0, rng.uniform(0, 8e5, n)),
         rng.uniform(0, 30, n), rng.uniform(0, 30, n), rng.uniform(0, 30, n),
-        np.zeros(n),
+        rng.uniform(0, 60, n),
     ]).astype(np.float32)
-    link = net.LinkState(
-        egress=torch.from_numpy(egress).to(device),
-        filters=torch.from_numpy(rng.integers(0, 3, (3, n)).astype(np.int32)).to(device),
-        region_of=torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(device),
+    start = rng.integers(0, n, (2, n))
+    rules = np.stack([start, start + rng.integers(-1, 64, (2, n)),
+                      rng.integers(0, 3, (2, n))], axis=1)
+    return dict(
+        occ=(occ != 0) if occ_bool else occ.astype(np.int32),
+        pays=[rng.integers(0, 1000, (L, ns)).astype(np.int32) for _ in range(w)],
+        egress=egress,
+        filters=rng.integers(0, 3, (3, n)).astype(np.int32),
+        region_of=rng.integers(0, 3, n).astype(np.int32),
+        backlog=np.where(rng.random(n) < 0.5, 0.0, rng.uniform(0, 6, n)).astype(np.float32),
+        rules=rules.astype(np.int32),
+        dst=rng.integers(-2, n + 2, (o, n)).astype(np.int32),
+        payload=rng.integers(0, 2**31, (o, w, n)).astype(np.int32),
+        valid=rng.random((o, n)) < 0.8,
+        slots=slots, occ_bool=occ_bool,
     )
-    dst = torch.from_numpy(rng.integers(-2, n + 2, (o, n)).astype(np.int32)).to(device)
-    pay = torch.from_numpy(rng.integers(0, 2**31, (o, w, n)).astype(np.int32)).to(device)
-    valid = torch.from_numpy(rng.random((o, n)) < 0.8).to(device)
+
+
+def _enqueue_on(x, device, features, **kw):
+    """One ``net.enqueue`` of ``x`` on ``device``; returns the calendar's
+    planes and every feedback field, on the host."""
+    from testground_tpu_torch.sim import net
+
+    def d(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    occ = d(x["occ"])
+    cal = net.Calendar(payload=tuple(d(p) for p in x["pays"]),
+                       src=None if x["occ_bool"] else occ,
+                       valid=occ if x["occ_bool"] else None, slots=x["slots"])
+    link = net.LinkState(egress=d(x["egress"]), filters=d(x["filters"]),
+                         region_of=d(x["region_of"]), backlog=d(x["backlog"]),
+                         rules=d(x["rules"]))
     t = torch.tensor(21, dtype=torch.int32, device=device)
-    cal, fb = net.enqueue(cal, link, dst, pay, valid, t, 1.0, (12345, 678910),
-                          features=net.SHAPING_NO_DUPLICATE)
-    return [*_planes(cal), fb.rejected, fb.clamped, fb.sent, fb.enqueued]
+    cal, fb = net.enqueue(cal, link, d(x["dst"]), d(x["payload"]), d(x["valid"]), t,
+                          1.0, (12345, 678910), features=features, **kw)
+    fields = [fb.rejected, fb.clamped, fb.bw_dropped, fb.collisions,
+              fb.collision_where, fb.sent, fb.enqueued, fb.backlog]
+    return [p.cpu() for p in _planes(cal)], [f.cpu() for f in fields]
+
+
+def _shaped_parity() -> dict:
+    """Each enqueue on the CPU and on the card; the max error over planes
+    and feedback (the backlog is float32, compared bit for bit too)."""
+    from testground_tpu_torch.sim import net
+
+    n = 4096
+    cases = {
+        "sorted-all-features": (dict(o=2, w=2, L=16, slots=4),
+                                net.SHAPING_NO_DUPLICATE, {}),
+        "duplicate+bandwidth_queue": (dict(o=3, w=1, L=32, slots=8),
+                                      ("latency", "jitter", "loss", "duplicate",
+                                       "bandwidth_queue"), {"bw_queue_cap": 6}),
+        "filter_rules": (dict(o=2, w=1, L=16, slots=4),
+                         ("latency", "loss", "filter_rules"), {}),
+    }
+    out = {}
+    for name, (shape, features, kw) in cases.items():
+        x = _enqueue_inputs(np.random.default_rng(11), n, **shape)
+        pc, fc = _enqueue_on(x, "cpu", features, **kw)
+        pg, fg = _enqueue_on(x, "cuda", features, **kw)
+        err = max(_max_err(pc, pg), max(
+            float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+            for a, b in zip(fc, fg) if a is not None))
+        check(err == 0, f"parity: {name} enqueue CPU vs GPU max err {err}")
+        out[name] = err
+    # direct slots under validate, with fan-in onto a pre-filled calendar:
+    # which colliding write lands is undefined, so compare the counts,
+    # the first collision and the bool occupancy plane
+    x = _enqueue_inputs(np.random.default_rng(12), n, o=2, w=1, L=8, slots=2,
+                        occ_bool=True)
+    x["dst"] = np.random.default_rng(13).integers(0, 64, (2, n)).astype(np.int32)
+    pc, fc = _enqueue_on(x, "cpu", ("latency", "loss"), slot_mode="direct", validate=True)
+    pg, fg = _enqueue_on(x, "cuda", ("latency", "loss"), slot_mode="direct", validate=True)
+    check(torch.equal(pc[0], pg[0]), "parity: direct occupancy CPU vs GPU")
+    for a, b in zip(fc[:7], fg[:7]):
+        check(torch.equal(a, b), "parity: direct-mode feedback CPU vs GPU")
+    check(int(fc[3]) > 0, "parity: the forced collisions were not counted")
+    out["direct-validate"] = {"collisions": int(fc[3]),
+                              "collision_where": fc[4].tolist()}
+    return out
+
+
+PARITY_RUNS = {  # name: (plan, case, params, chunk, max_ticks)
+    "sustained": ("network", "pingpong-sustained",
+                  {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}, 64, 128),
+    "flood": ("benchmarks", "pingpong-flood", {"duration_ticks": "128"}, 64, 256),
+    "storm": ("benchmarks", "storm",
+              {"conn_delay_ticks": "8", "data_size_kb": "64"}, 64, 256),
+}
 
 
 def phase_parity(card) -> dict:
     from testground_tpu_torch.sim.carry_io import carry_to_numpy
 
     n = 4096
-    params = {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}
-    out = {}
-    for dev in ("cpu", "cuda"):
-        prog = program("pingpong-sustained", n, params, chunk=64, device=dev)
-        last = {}
-        res = prog.run(seed=7, max_ticks=128,
-                       observer=lambda k, c: last.__setitem__("c", c))
-        out[dev] = (res, carry_to_numpy(last["c"]))
-    (res_c, car_c), (res_g, car_g) = out["cpu"], out["cuda"]
-    mism = [k for k in res_c if k not in ("groups", "states", "compile_secs")
-            and not np.array_equal(np.asarray(res_c[k]), np.asarray(res_g[k]))]
-    mism += [k for k in car_c if not np.array_equal(car_c[k], car_g[k])]
-    check(not mism, f"parity: CPU vs GPU differ in {mism}")
-    check(int(car_c["t"]) == 128, "parity: the run ended early")
-    shaped_c = [x.cpu() for x in _shaped_enqueue("cpu")]
-    shaped_g = [x.cpu() for x in _shaped_enqueue("cuda")]
-    err = _max_err(shaped_c, shaped_g)
-    check(err == 0, f"parity: shaped enqueue CPU vs GPU max err {err}")
-    return {"phase": "parity", "n": n, "ticks": 128, "leaves_compared": len(car_c),
-            "msgs_sent": res_c["msgs_sent"], "shaped_enqueue_max_err": err,
+    runs = {}
+    for label, (plan, case, params, chunk, max_ticks) in PARITY_RUNS.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            prog = program(case, n, params, chunk=chunk, device=dev, plan=plan)
+            last = {}
+            res = prog.run(seed=7, max_ticks=max_ticks,
+                           observer=lambda k, c: last.__setitem__("c", c))
+            out[dev] = (res, carry_to_numpy(last["c"]))
+        (res_c, car_c), (res_g, car_g) = out["cpu"], out["cuda"]
+        mism = [k for k in res_c if k not in ("groups", "states", "compile_secs")
+                and not np.array_equal(np.asarray(res_c[k]), np.asarray(res_g[k]))]
+        mism += [k for k in car_c if not np.array_equal(car_c[k], car_g[k])]
+        check(not mism, f"parity {label}: CPU vs GPU differ in {mism}")
+        check(res_c["msgs_sent"] > 0, f"parity {label}: nothing sent")
+        runs[label] = {"ticks": int(car_c["t"]), "leaves_compared": len(car_c),
+                       "msgs_sent": res_c["msgs_sent"],
+                       "all_success": bool((res_c["status"] == 1).all())}
+    check(runs["sustained"]["ticks"] == 128, "parity: the sustained run ended early")
+    check(runs["flood"]["all_success"] and runs["storm"]["all_success"],
+          "parity: flood or storm did not reach all SUCCESS")
+    return {"phase": "parity", "n": n, "runs": runs, "enqueue": _shaped_parity(),
             "card": card}
 
 
@@ -575,11 +751,18 @@ def main(argv=None) -> int:
                         stream="fanin"),
             commit_case("slots-1", 8, N, 1, 1, 2 * N, False, True, False, 11),
             commit_case("width-8", 16, 4096, 4, 8, 8192, False, True, True, 12),
+            commit_case("storm", 8, N, 16, 1, 5 * N, True, False, False, 14,
+                        stream="poisson"),
+            commit_case("duplicate", 8, N, 4, 1, 4 * N, False, True, False, 15,
+                        stream="dup"),
             pop_case("flagship", 8, N, 4, 1, False, 5),
             pop_case("pingpong", 128, N, 4, 2, False, 6),
             pop_case("bool", 16, 4096, 4, 2, True, 7),
             pop_case("odd-row", 16, 4095, 3, 1, False, 8),
             pop_case("width-8", 16, 4096, 4, 8, False, 13),
+            pop_case("flood", 8, N, 1, 1, True, 16),
+            pop_case("storm", 8, N, 16, 1, True, 17),
+            pop_case("horizon-256", 256, N, 1, 1, True, 18),
         ]
         for c in cases:
             emit({"phase": "kernels", **c, "card": card})
@@ -589,16 +772,18 @@ def main(argv=None) -> int:
               "card": card})
         kernel_rows = cases
 
+    # launches on the main paths: each phase counts its own run from zero
     launches = {"commit_calendar": 0, "pop_bucket": 0}
-    for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong)):
+    for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong),
+                   ("flood", phase_flood), ("storm", phase_storm),
+                   ("benchmarks", phase_benchmarks), ("scale", phase_scale)):
         if ph in phases:
             row = fn(card)
             for k, v in row["launches"].items():
                 launches[k] += v
             emit(row)
-    for ph, fn in (("scale", phase_scale), ("parity", phase_parity)):
-        if ph in phases:
-            emit(fn(card))
+    if "parity" in phases:
+        emit(phase_parity(card))
 
     def kernel_entry(kname, replaces):
         flag = [c for c in kernel_rows if c["kernel"] == kname and c["case"] == "flagship"]

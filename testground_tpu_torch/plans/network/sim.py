@@ -1,22 +1,31 @@
-"""network plan, torch edition: the twins of ``plans/network/sim.py``'s
-``ping-pong`` and ``pingpong-sustained`` over batched ``[n_g]`` tensors.
+"""network plan, torch edition: the twins of ``plans/network/sim.py``'s six
+cases (``ping-pong``, ``pingpong-sustained``, ``traffic-allowed``,
+``traffic-blocked``, ``traffic-shaped``, ``traffic-ruled``) over batched
+``[n_g]`` tensors.
 
 Same state machines, same parameters, same wire format as the JAX plan;
 ``jnp.where`` becomes ``torch.where`` and each ``.at[].set`` chain becomes
 the plane it builds. Instances pair by global sequence number
-(partner = seq ^ 1); an odd count leaves a solo last instance.
+(partner = seq ^ 1) or chain to their ring successor; an odd count
+leaves a solo last instance.
 """
 
+import math
+
+import numpy as np
 import torch
 
 from testground_tpu_torch.sim.api import (
     FAILURE,
+    FILTER_ACCEPT,
+    FILTER_DROP,
+    FILTER_REJECT,
     RUNNING,
     SUCCESS,
     Outbox,
     SimTestcase,
 )
-from testground_tpu_torch.sim.net import SHAPING_NO_DUPLICATE
+from testground_tpu_torch.sim.net import MSG_BYTES, SHAPING_NO_DUPLICATE
 
 PING = 1
 PONG = 2
@@ -24,6 +33,14 @@ PONG = 2
 
 def _i32(x):
     return x.to(torch.int32)
+
+
+def _zeros(env, value=0):
+    return torch.full((env.group.count,), value, dtype=torch.int32, device=env.device)
+
+
+def _judged(judge, ok):
+    return _i32(torch.where(judge, torch.where(ok, SUCCESS, FAILURE), RUNNING))
 
 
 class PingPong(SimTestcase):
@@ -256,7 +273,224 @@ class PingPongSustained(SimTestcase):
         )
 
 
+class _Traffic(SimTestcase):
+    """Ring traffic under an Accept (allowed) or Drop (blocked) filter
+    (``traffic.go:16-46``): install the filter and signal, send once to
+    the ring successor after the barrier, and judge after ``wait_ticks``
+    whether traffic flowed."""
+
+    STATES = ["net-ready"]
+    BLOCKED = False
+    MSG_WIDTH = 2
+    OUT_MSGS = 1
+    IN_MSGS = 4
+
+    def init(self, env):
+        return {"phase": _zeros(env), "deadline": _zeros(env), "received": _zeros(env)}
+
+    def step(self, env, state, inbox, sync, t):
+        cls = type(self)
+        n = env.test_instance_count
+        p = env.group.params
+        wait = int(p["wait_ticks"]) if "wait_ticks" in p else 50
+        succ = torch.remainder(env.global_seq + 1, n)
+
+        phase = state["phase"]
+        ready = sync.counts[self.state_id("net-ready")] >= n
+        p0 = phase == 0
+        send = (phase == 1) & ready
+
+        received = state["received"] + inbox.count
+        deadline = torch.where(send, t + wait, state["deadline"])
+        judge = (phase == 2) & (t >= deadline)
+        ok = (received > 0) != cls.BLOCKED
+
+        action = FILTER_DROP if cls.BLOCKED else FILTER_ACCEPT
+        n_groups = len(env.groups)
+        return self.out(
+            {
+                "phase": _i32(torch.where(p0, 1, torch.where(send, 2, phase))),
+                "deadline": deadline,
+                "received": received,
+            },
+            status=_judged(judge, ok),
+            outbox=Outbox.single(succ, [1, 0], send, cls.OUT_MSGS, cls.MSG_WIDTH),
+            signals=self.signal("net-ready", when=p0),
+            net_filters=torch.full(
+                (n_groups, 1), action, dtype=torch.int32, device=env.device
+            ),
+            net_filters_valid=p0,
+        )
+
+    def collect_metrics(self, group, final_state, status):
+        return {"traffic.received": final_state["received"]}
+
+
+class TrafficAllowed(_Traffic):
+    BLOCKED = False
+
+
+class TrafficBlocked(_Traffic):
+    BLOCKED = True
+
+
+class TrafficRuled(SimTestcase):
+    """Ring traffic cut mid-run by a per-instance range rule (the
+    "filter_rules" model, ``pkg/sidecar/link.go:187-217``): at ``cut_tick``
+    each instance installs a REJECT rule over exactly its successor, and
+    asserts the one-tick turnaround, the REJECT feedback and untouched
+    traffic before the cut."""
+
+    FILTER_RULES = 2
+    MSG_WIDTH = 1
+    OUT_MSGS = 1
+    IN_MSGS = 4
+    MAX_LINK_TICKS = 8
+    SHAPING = ("latency", "filter_rules")
+    DEFAULT_LINK = (1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
+
+    def init(self, env):
+        return {
+            "received": _zeros(env),
+            "last_arrival": _zeros(env, -1),
+            "rejected": _zeros(env),
+        }
+
+    def step(self, env, state, inbox, sync, t):
+        n = env.test_instance_count
+        p = env.group.params
+        cut = int(p["cut_tick"]) if "cut_tick" in p else 8
+        stop = int(p["stop_tick"]) if "stop_tick" in p else 24
+        succ = torch.remainder(env.global_seq + 1, n)
+
+        count = inbox.count
+        received = state["received"] + count
+        last = torch.where(count > 0, t, state["last_arrival"])
+        rejected = state["rejected"] + sync.rejected
+
+        # the rule lands at cut's end: sends 0..cut deliver (the last at
+        # cut + delay) and every later send REJECTs back
+        delay = math.ceil(self.DEFAULT_LINK[0] / env.tick_ms)
+        judge = t >= stop + delay + 4
+        ok = (
+            (received == cut + 1)
+            & (last == cut + delay)
+            & (rejected == stop - (cut + 1))
+        )
+        return self.out(
+            {"received": received, "last_arrival": last, "rejected": rejected},
+            status=_judged(judge, ok),
+            outbox=Outbox.single(succ, [1], t < stop, 1, 1),
+            net_rules=self.filter_rules((succ, succ + 1, FILTER_REJECT)),
+            net_rules_valid=t == cut,
+        )
+
+    def collect_metrics(self, group, final_state, status):
+        return {
+            "traffic.received": final_state["received"],
+            "traffic.rejected": final_state["rejected"],
+        }
+
+
+class TrafficShaped(SimTestcase):
+    """Ring burst through an HTB-shaped link ("bandwidth_queue"): each
+    instance sends ``burst`` messages in one tick at ``rate`` msgs/tick,
+    and the receiver asserts conservation (every message arrives) and
+    pacing (the last arrives exactly at send + 1 + floor((burst-1)/rate))."""
+
+    STATES = ["net-ready"]
+    MSG_WIDTH = 1
+    IN_MSGS = 4
+    MAX_LINK_TICKS = 64  # narrowed by specialize below
+    SHAPING = ("latency", "bandwidth_queue")
+
+    @classmethod
+    def specialize(cls, groups, tick_ms=1.0):
+        bursts = {int(g.params.get("burst", 8)) for g in groups} or {8}
+        rates = {float(g.params.get("rate", 2.0)) for g in groups} or {2.0}
+        if len(bursts) > 1 or len(rates) > 1:
+            raise ValueError(
+                "traffic-shaped needs identical burst/rate across groups "
+                f"(got bursts={sorted(bursts)}, rates={sorted(rates)})"
+            )
+        burst, rate = bursts.pop(), rates.pop()
+        if rate <= 0:
+            raise ValueError(
+                f"traffic-shaped rate must be > 0 msgs/tick (got {rate}); "
+                "rate 0 means an unshaped link — use traffic-allowed"
+            )
+        # bandwidth bytes/s for `rate` msgs/tick (MSG_BYTES per message)
+        bw = rate * MSG_BYTES * 1000.0 / tick_ms
+        horizon = int(burst / rate) + 8  # last dt + latency + slack
+
+        class Specialized(cls):
+            OUT_MSGS = burst
+            # worst case the whole burst lands in one tick (rate ≥ burst)
+            IN_MSGS = burst
+            MAX_LINK_TICKS = horizon
+            DEFAULT_LINK = (1.0, 0.0, bw, 0.0, 0.0, 0.0, 0.0)
+
+        return Specialized
+
+    def init(self, env):
+        return {
+            "phase": _zeros(env),
+            "sent_at": _zeros(env, -1),
+            "received": _zeros(env),
+            "last_arrival": _zeros(env, -1),
+        }
+
+    def step(self, env, state, inbox, sync, t):
+        n = env.test_instance_count
+        p = env.group.params
+        burst = int(p["burst"]) if "burst" in p else 8
+        rate = float(p["rate"]) if "rate" in p else 2.0
+        succ = torch.remainder(env.global_seq + 1, n)
+
+        phase = state["phase"]
+        ready = sync.counts[self.state_id("net-ready")] >= n
+        p0 = phase == 0
+        send = (phase == 1) & ready
+
+        received = state["received"] + inbox.count
+        last_arrival = torch.where(inbox.count > 0, t, state["last_arrival"])
+        sent_at = torch.where(send, t, state["sent_at"])
+
+        # exact HTB schedule: burst message j departs floor(j/rate) ticks
+        # late and rides the 1-tick latency floor (the reference floors
+        # the float32 value of the Python expression)
+        lag = int(np.floor(np.float32((burst - 1) / rate + 1e-4)))
+        expected_last = sent_at + 1 + lag
+        judge = (phase == 2) & (t > expected_last + 4)
+        ok = (received == burst) & (last_arrival == expected_last)
+        return self.out(
+            {
+                "phase": _i32(torch.where(p0, 1, torch.where(send, 2, phase))),
+                "sent_at": sent_at,
+                "received": received,
+                "last_arrival": last_arrival,
+            },
+            status=_judged(judge, ok),
+            outbox=Outbox(
+                dst=succ[None, :].expand(burst, -1),
+                payload=torch.ones((burst, 1, 1), dtype=torch.int32, device=env.device),
+                valid=send[None, :].expand(burst, -1),
+            ),
+            signals=self.signal("net-ready", when=p0),
+        )
+
+    def collect_metrics(self, group, final_state, status):
+        return {
+            "traffic.received": final_state["received"],
+            "traffic.last_arrival_tick": final_state["last_arrival"],
+        }
+
+
 sim_testcases = {
     "ping-pong": PingPong,
     "pingpong-sustained": PingPongSustained,
+    "traffic-allowed": TrafficAllowed,
+    "traffic-blocked": TrafficBlocked,
+    "traffic-shaped": TrafficShaped,
+    "traffic-ruled": TrafficRuled,
 }

@@ -175,6 +175,29 @@ class Outbox:
             valid=torch.zeros((out_msgs, n), dtype=torch.bool, device=device),
         )
 
+    @staticmethod
+    def single(dst, payload, valid, out_msgs: int, msg_width: int) -> "Outbox":
+        """An outbox whose slot 0 carries one message per instance (the
+        reference ``Outbox.single``): ``dst`` and ``valid`` are ``[n]``
+        tensors or 0-d, ``payload`` the message's first words, ``[w]`` or
+        ``[w, n]`` (zero-padded to ``msg_width``). A message uniform over
+        the group (every field 0-d or ``[w]``) yields planes with an
+        instance axis of 1, which the engine broadcasts."""
+        dst = torch.as_tensor(dst)
+        dev = dst.device
+        valid = torch.as_tensor(valid, device=dev)
+        pay = torch.as_tensor(payload, device=dev).to(torch.int32)
+        n = torch.broadcast_shapes(
+            dst.reshape(-1).shape if dst.dim() else (1,),
+            valid.reshape(-1).shape if valid.dim() else (1,),
+            pay.shape[1:] if pay.dim() > 1 else (1,),
+        )[0]
+        ob = Outbox.empty(out_msgs, msg_width, n, dev)
+        ob.dst[0] = dst.to(torch.int32)
+        ob.payload[0, : pay.shape[0]] = pay if pay.dim() > 1 else pay[:, None]
+        ob.valid[0] = valid.to(torch.bool)
+        return ob
+
 
 @dataclasses.dataclass
 class SyncView:
@@ -206,6 +229,8 @@ class StepOut:
     net_shape_valid: Any = False  # [n] bool
     net_filters: torch.Tensor | None = None  # [R, n] int32
     net_filters_valid: Any = False  # [n] bool
+    net_rules: torch.Tensor | None = None  # [K, 3, n] int32
+    net_rules_valid: Any = False  # [n] bool
     region: Any = None  # [n] int32
     region_valid: Any = False  # [n] bool
 
@@ -310,17 +335,41 @@ class SimTestcase:
     ) -> torch.Tensor:
         """A LinkShape plane (``network.LinkShape`` field order,
         ``pkg/sidecar/link.go:155-183``): ``[7]`` for scalars, ``[7, n]``
-        when any field is an ``[n]`` tensor. float32, like the reference."""
-        parts = [
-            torch.as_tensor(x, dtype=torch.float32, device=device)
-            for x in (
-                latency_ms,
-                jitter_ms,
-                bandwidth,
-                loss,
-                corrupt,
-                reorder,
-                duplicate,
-            )
-        ]
+        when any field is an ``[n]`` tensor. float32, like the reference.
+        An all-scalar shape is built from one host copy."""
+        fields = (latency_ms, jitter_ms, bandwidth, loss, corrupt, reorder, duplicate)
+        if not any(isinstance(x, torch.Tensor) for x in fields):
+            return torch.tensor(fields, dtype=torch.float32, device=device)
+        parts = [torch.as_tensor(x, dtype=torch.float32, device=device) for x in fields]
         return torch.stack(torch.broadcast_tensors(*parts))
+
+    def filter_rules(self, *rules) -> torch.Tensor:
+        """A ``[FILTER_RULES, 3, n]`` rule-list plane for
+        ``StepOut.net_rules`` (the reference ``filter_rules``): each rule is
+        ``(start, end, action)``, ints or ``[n]`` tensors, applying to sends
+        whose dst lies in ``[start, end)``; first match wins, unmatched
+        sends are accepted. Unused tail rules are the never-matching (0, 0,
+        Accept). All-scalar rules give an instance axis of 1."""
+        k = type(self).FILTER_RULES
+        if len(rules) > k:
+            raise ValueError(
+                f"{len(rules)} rules > FILTER_RULES={k}; raise the declaration"
+            )
+        dev = next(
+            (x.device for r in rules for x in r if isinstance(x, torch.Tensor)),
+            torch.device("cpu"),
+        )
+        rows = [
+            torch.stack(
+                torch.broadcast_tensors(
+                    *(torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1)
+                      for x in rule)
+                )
+            )
+            for rule in rules
+        ]
+        n = torch.broadcast_shapes(*(r.shape[1:] for r in rows), (1,))[0]
+        out = torch.zeros((k, 3, n), dtype=torch.int32, device=dev)
+        for i, r in enumerate(rows):
+            out[i] = r
+        return out

@@ -2,7 +2,8 @@
 
 The simulator has no weights; what a run carries is its ``SimCarry``. A
 carry flattened to numpy under dotted leaf paths (``cal.src``,
-``cal.payload.0``, ``link.egress``, ``sync.counts``, ``states.0.phase``,
+``cal.payload.0``, ``link.egress``, ``link.backlog``, ``link.rules``,
+``sync.counts``, ``states.0.phase``,
 ``keys``, ``net_key``, ``msgs_sent`` …) is the exchange format: the JAX
 package's carry, flattened on its side, starts a port run from the same
 mid-run state (:func:`carry_from_numpy`), and :func:`carry_to_numpy`
@@ -50,9 +51,9 @@ _SCALARS = (
     "faults_crashed",
     "faults_restarted",
 )
-# carry leaves of planes this slice does not build
-_UNPORTED = ("cal.etick", "link.backlog", "link.rules", "lat_hist",
-             "live_counts", "net_mat", "net_bw_hiwater")
+# carry leaves of planes the port does not build yet
+_UNPORTED = ("cal.etick", "lat_hist", "live_counts", "net_mat",
+             "net_bw_hiwater")
 
 
 def _total(a: np.ndarray) -> int:
@@ -68,8 +69,8 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
     for key in arrays:
         if any(key == u or key.startswith(u + ".") for u in _UNPORTED):
             raise NotImplementedError(
-                f"carry leaf {key!r} belongs to a plane this slice does not "
-                "build (see ROADMAP queue 1)"
+                f"carry leaf {key!r} belongs to a plane the port does not "
+                "build yet (see ROADMAP queue 1)"
             )
     dev = prog.device
 
@@ -109,6 +110,10 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
             egress=t_("link.egress", torch.float32),
             filters=t_("link.filters", torch.int32),
             region_of=t_("link.region_of", torch.int32),
+            backlog=(
+                t_("link.backlog", torch.float32) if "link.backlog" in arrays else None
+            ),
+            rules=t_("link.rules", torch.int32) if "link.rules" in arrays else None,
         ),
         sync=SyncState(
             **{
@@ -144,8 +149,9 @@ def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
     for name in ("src", "valid"):
         if getattr(carry.cal, name) is not None:
             out[f"cal.{name}"] = host(getattr(carry.cal, name))
-    for name in ("egress", "filters", "region_of"):
-        out[f"link.{name}"] = host(getattr(carry.link, name))
+    for f in dataclasses.fields(carry.link):
+        if getattr(carry.link, f.name) is not None:
+            out[f"link.{f.name}"] = host(getattr(carry.link, f.name))
     for f in dataclasses.fields(SyncState):
         out[f"sync.{f.name}"] = host(getattr(carry.sync, f.name))
     out["keys"] = host(carry.keys).astype(np.uint32)

@@ -22,9 +22,11 @@ Python ints. The link-model key advances on the host (two uint32 lanes;
 evaluating that threefry on the card would cost ~100 kernel launches a
 tick), the per-instance keys live on the run's device.
 
-Not in this slice — each refused with ``NotImplementedError`` naming its
-ROADMAP item: meshes, shape buckets, faults, the flight recorder,
-telemetry, the traffic matrix, additional hosts and ``validate``.
+The reference's admission refusals of incompatible declarations are kept,
+with the same messages. Not ported yet — each refused with
+``NotImplementedError`` naming its ROADMAP item: meshes, shape buckets,
+faults, the flight recorder, telemetry, the traffic matrix and additional
+hosts.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from .api import (
     SyncView,
 )
 from .net import (
-    UNPORTED_SHAPING,
+    BANDWIDTH,
     Calendar,
     LinkState,
     apply_net_updates,
@@ -66,7 +68,7 @@ from .sync_kernel import (
 
 __all__ = ["SimCarry", "SimProgram", "build_groups", "resolve_device"]
 
-# Options of the reference SimProgram that this slice refuses, with the
+# Options of the reference SimProgram that the port refuses, with the
 # ROADMAP queue-1 item that ports each.
 _UNPORTED_OPTIONS = {
     "mesh": "item 15 (multi-GPU)",
@@ -76,7 +78,6 @@ _UNPORTED_OPTIONS = {
     "telemetry": "item 10 (telemetry and latency planes)",
     "netmatrix": "item 12 (SLO, trace and traffic-matrix planes)",
     "hosts": "item 4 (control lanes)",
-    "validate": "item 4 (direct slot mode with validate)",
 }
 
 
@@ -157,8 +158,22 @@ class SimProgram:
         tick_ms: float = 1.0,
         chunk: int = 128,
         device=None,
+        validate: bool = False,
         **unported,
     ):
+        cls = type(testcase)
+        if (
+            unported.get("live_counts") is not None
+            and "filter_rules" in cls.SHAPING
+            and len(groups) > 1
+        ):
+            raise ValueError(
+                "shape bucketing with multiple groups is incompatible "
+                "with 'filter_rules' shaping: rule ranges address the "
+                "exact (virtual) instance layout, and multi-group "
+                "padding shifts physical ids non-contiguously — run "
+                "with bucket=off or a single group"
+            )
         for name, value in unported.items():
             if name not in _UNPORTED_OPTIONS:
                 raise TypeError(f"SimProgram got an unexpected option {name!r}")
@@ -167,23 +182,13 @@ class SimProgram:
                     f"SimProgram option {name!r} is not ported yet: ROADMAP "
                     f"queue 1 {_UNPORTED_OPTIONS[name]}"
                 )
-        cls = type(testcase)
-        if cls.SLOT_MODE != "sorted":
-            raise NotImplementedError(
-                "SLOT_MODE='direct' is not ported yet: ROADMAP queue 1 item 4 "
-                "(direct slot mode with validate)"
-            )
-        for feat, item in UNPORTED_SHAPING.items():
-            if feat in cls.SHAPING:
-                raise NotImplementedError(
-                    f"{feat!r} shaping is not ported yet: {item}"
-                )
         self.device = resolve_device(device)
         self.tc = testcase
         self.groups = groups
         self.n = sum(g.count for g in groups)
         self.tick_ms = float(tick_ms)
         self.chunk = int(chunk)
+        self.validate = bool(validate)
         self.meta = dict(test_plan=test_plan, test_case=test_case, test_run=test_run)
         jitter_ms = cls.DEFAULT_LINK[1] if "jitter" in cls.SHAPING else 0.0
         base_ticks = int(np.ceil((cls.DEFAULT_LINK[0] + jitter_ms) / tick_ms))
@@ -195,14 +200,7 @@ class SimProgram:
                 f"{cls.MAX_LINK_TICKS - 1}; raise MAX_LINK_TICKS or the tick "
                 "duration"
             )
-        if not cls.CROSS_TICK_STACKING:
-            for feat in ("jitter", "reorder"):
-                if feat in cls.SHAPING:
-                    raise ValueError(
-                        "CROSS_TICK_STACKING=False is incompatible with "
-                        f"{feat} shaping (one calendar bucket fills from "
-                        "multiple send ticks)"
-                    )
+        _check_declarations(cls)
         self.n_states = len(cls.STATES)
         self.n_topics = len(cls.TOPICS)
         self.n_regions = cls.N_REGIONS if cls.N_REGIONS > 0 else len(groups)
@@ -266,6 +264,8 @@ class SimProgram:
                 self.n_regions,
                 cls.DEFAULT_LINK,
                 region_of=torch.clamp(self._group_of, max=self.n_regions - 1),
+                track_backlog="bandwidth_queue" in cls.SHAPING,
+                n_rules=cls.FILTER_RULES if "filter_rules" in cls.SHAPING else 0,
                 device=dev,
             ),
             sync=make_sync_state(
@@ -313,6 +313,7 @@ class SimProgram:
         filters = out.net_filters
         if filters is None:
             filters = torch.zeros((0, n_g), dtype=i32, device=dev)
+        rules = out.net_rules
         return {
             "state": out.state,
             "status": plane(out.status, (n_g,), i32),
@@ -327,6 +328,11 @@ class SimProgram:
             "net_shape_valid": plane(out.net_shape_valid, (n_g,), b),
             "net_filters": plane(filters, (filters.shape[0], n_g), i32),
             "net_filters_valid": plane(out.net_filters_valid, (n_g,), b),
+            # None when the group emits no rules (most plans): no planes
+            "net_rules": None if rules is None
+            else plane(rules, (rules.shape[0], 3, n_g), i32),
+            "net_rules_valid": None if rules is None
+            else plane(out.net_rules_valid, (n_g,), b),
             "region": plane(out.region, (n_g,), i32),
             "region_valid": plane(out.region_valid, (n_g,), b),
         }
@@ -388,20 +394,15 @@ class SimProgram:
             active & (status_new != RUNNING), t, carry.finished_at
         )
         active_i = active.to(torch.int32)
-        # groups that emit no filter planes contribute zero rows that are
-        # never applied (valid = False)
-        r, dev = self.n_regions, self.device
-        emits = [o["net_filters"].shape[0] == r for o in outs]
-        net_filters = torch.cat([
-            o["net_filters"] if e
-            else torch.zeros((r, g.count), dtype=torch.int32, device=dev)
-            for o, g, e in zip(outs, self.groups, emits)
-        ], dim=-1)
-        net_filters_valid = torch.cat([
-            o["net_filters_valid"] if e
-            else torch.zeros(g.count, dtype=torch.bool, device=dev)
-            for o, g, e in zip(outs, self.groups, emits)
-        ]) & active
+        net_filters, net_filters_valid = self._merge_reconfig(
+            outs, "net_filters", (self.n_regions,), active
+        )
+        n_rules = cls.FILTER_RULES if "filter_rules" in cls.SHAPING else 0
+        net_rules, net_rules_valid = (None, None)
+        if n_rules > 0 and any(_emits(o, "net_rules", (n_rules, 3)) for o in outs):
+            net_rules, net_rules_valid = self._merge_reconfig(
+                outs, "net_rules", (n_rules, 3), active
+            )
         return {
             "states": new_states,
             "status": status,
@@ -417,9 +418,29 @@ class SimProgram:
             "net_shape_valid": cat("net_shape_valid") & active,
             "net_filters": net_filters,
             "net_filters_valid": net_filters_valid,
+            "net_rules": net_rules,
+            "net_rules_valid": net_rules_valid,
             "net_region": cat("region"),
             "net_region_valid": cat("region_valid") & active,
         }
+
+    def _merge_reconfig(self, outs, name, lead, active):
+        """Concatenate an optional reconfiguration plane (``lead + (n_g,)``)
+        along the instance axis: a group that emits none contributes zero
+        columns that are never applied (valid = False)."""
+        dev = self.device
+        emits = [_emits(o, name, lead) for o in outs]
+        plane = torch.cat([
+            o[name] if e
+            else torch.zeros(lead + (g.count,), dtype=torch.int32, device=dev)
+            for o, g, e in zip(outs, self.groups, emits)
+        ], dim=-1)
+        valid = torch.cat([
+            o[name + "_valid"] if e
+            else torch.zeros(g.count, dtype=torch.bool, device=dev)
+            for o, g, e in zip(outs, self.groups, emits)
+        ]) & active
+        return plane, valid
 
     def _tick(self, carry: SimCarry, timer=None, done_out=None) -> SimCarry:
         """One simulated tick. ``timer.mark(name)`` (optional) is called at
@@ -459,6 +480,8 @@ class SimProgram:
             slot_mode=cls.SLOT_MODE,
             features=tuple(cls.SHAPING),
             stacking=cls.CROSS_TICK_STACKING,
+            bw_queue_cap=cls.BW_QUEUE_MSGS,
+            validate=self.validate,
         )
         link = apply_net_updates(
             carry.link,
@@ -468,7 +491,28 @@ class SimProgram:
             step["net_filters_valid"],
             step["net_region"],
             step["net_region_valid"],
+            step["net_rules"],
+            step["net_rules_valid"],
         )
+        bw_rate_changed = carry.bw_rate_changed
+        if fb.backlog is not None:
+            # HTB queue depths advance each tick; a rate change under a
+            # standing backlog is where the queue bound is approximate, so
+            # those (src, tick) events are counted (engine.py:1451-1462)
+            changed = (link.egress[BANDWIDTH] != carry.link.egress[BANDWIDTH]) & (
+                fb.backlog > 0
+            )
+            bw_rate_changed = bw_rate_changed + changed.sum(dtype=torch.int32)
+            link = dataclasses.replace(link, backlog=fb.backlog)
+        collisions, collision_where = carry.collisions, carry.collision_where
+        if self.validate:  # fb.collisions is 0 without validate
+            collisions = collisions + fb.collisions
+            # the first collision wins: keep the earliest (dst, slot)
+            collision_where = torch.where(
+                (carry.collisions == 0) & (fb.collisions > 0),
+                fb.collision_where,
+                collision_where,
+            )
         if timer is not None:
             timer.mark("commit")
         sync = update_sync(
@@ -493,9 +537,9 @@ class SimProgram:
             t=t + 1,
             clamped=carry.clamped + fb.clamped,
             bw_dropped=carry.bw_dropped + fb.bw_dropped,
-            bw_rate_changed=carry.bw_rate_changed,
-            collisions=carry.collisions + fb.collisions,
-            collision_where=carry.collision_where,
+            bw_rate_changed=bw_rate_changed,
+            collisions=collisions,
+            collision_where=collision_where,
             msgs_delivered=carry.msgs_delivered + delivered_t,
             msgs_sent=carry.msgs_sent + fb.sent,
             msgs_enqueued=carry.msgs_enqueued + fb.enqueued,
@@ -593,6 +637,69 @@ class SimProgram:
             ),
             "groups": self.groups,
         }
+
+
+def _emits(out: dict, name: str, lead: tuple) -> bool:
+    """Whether a group's normalized step output carries reconfiguration
+    plane ``name`` with leading shape ``lead``."""
+    x = out[name]
+    return x is not None and tuple(x.shape[: len(lead)]) == lead
+
+
+def _check_declarations(cls) -> None:
+    """The reference's static refusals of incompatible plan declarations
+    (``engine.py:504-562``), with its messages."""
+    shaping = cls.SHAPING
+    if "filter_rules" in shaping:
+        if "filters" in shaping:
+            raise ValueError(
+                "declare either 'filters' (dense per-dst-region table) or "
+                "'filter_rules' (per-instance range-rule lists), not both — "
+                "two granularity models for the same Accept/Reject/Drop "
+                "semantics"
+            )
+        if cls.FILTER_RULES <= 0:
+            raise ValueError(
+                "'filter_rules' shaping needs FILTER_RULES > 0 (the max "
+                "rules per instance)"
+            )
+    if "bandwidth_queue" in shaping:
+        if "bandwidth" in shaping:
+            raise ValueError(
+                "declare either 'bandwidth' (admission-cap drop) or "
+                "'bandwidth_queue' (HTB queueing), not both — they are two "
+                "semantics for the same LinkShape knob"
+            )
+        if cls.SLOT_MODE == "direct":
+            raise ValueError(
+                "bandwidth_queue is incompatible with SLOT_MODE='direct': "
+                "queue deferral makes two sends from one outbox slot land "
+                "on the same (receiver, slot, tick) and silently collide"
+            )
+        if "duplicate" in shaping:
+            raise ValueError(
+                "bandwidth_queue is incompatible with duplicate shaping: "
+                "second copies would bypass the egress queue (tc shapes "
+                "netem duplicates through the HTB class; the transport "
+                "creates copies after queue metering) — PARITY BOUND, use "
+                "admission-cap 'bandwidth' with duplicate instead"
+            )
+    if not cls.CROSS_TICK_STACKING:
+        for feat, why in (
+            ("duplicate", "second copies land one tick later"),
+            ("jitter", "per-message delay varies with the jitter draw"),
+            ("reorder", "reordered messages jump to the 1-tick floor"),
+            (
+                "bandwidth_queue",
+                "queued messages defer by a backlog-dependent delay",
+            ),
+        ):
+            if feat in shaping:
+                raise ValueError(
+                    f"CROSS_TICK_STACKING=False is incompatible with {feat} "
+                    f"shaping ({why}, so one calendar bucket fills from "
+                    "multiple send ticks)"
+                )
 
 
 def carry_bytes(carry: SimCarry) -> int:

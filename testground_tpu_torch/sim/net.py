@@ -7,13 +7,16 @@ planes indexed by arrival tick mod L, with positions ``slot·N + dst``; the
 
 What this module ports: the 2-D plane form of :class:`Calendar` (the flat
 form is an XLA:TPU layout choice), :class:`LinkState`,
-:class:`NetFeedback`, :func:`make_link_state`, :func:`deliver`, the sorted
-path of :func:`enqueue` with the latency, jitter, bandwidth (admission
-cap), loss, corrupt, reorder and filters features, and
-:func:`apply_net_updates`. The commit of the sorted stream and the
+:class:`NetFeedback`, :func:`make_link_state`, :func:`deliver`,
+:func:`enqueue` in both slot modes (sorted, and direct with its
+``validate`` collision check) with every LinkShape feature (latency,
+jitter, bandwidth as an admission cap or an HTB queue, loss, corrupt,
+reorder, duplicate, the dense filter table and per-instance range rules),
+and :func:`apply_net_updates`. The commit of the sorted stream and the
 delivery pop go through the kernels of ``sim/cuda_transport.py`` (plain
-versions on the CPU). Everything else raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+versions on the CPU); direct mode's write is an ``index_put_``, as it is
+a plain scatter in the reference. Control lanes (``control_start``) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Bit-equality with the reference rests on three rules:
 
@@ -64,13 +67,6 @@ FULL_SHAPING = (
 )
 SHAPING_NO_DUPLICATE = tuple(f for f in FULL_SHAPING if f != "duplicate")
 
-# Shaping features whose port is still to come, with their ROADMAP item.
-UNPORTED_SHAPING = {
-    "duplicate": "ROADMAP queue 1 item 4 (duplicate)",
-    "bandwidth_queue": "ROADMAP queue 1 item 4 (filter_rules and bandwidth_queue)",
-    "filter_rules": "ROADMAP queue 1 item 4 (filter_rules and bandwidth_queue)",
-}
-
 _M32 = 0xFFFFFFFF
 
 
@@ -78,21 +74,28 @@ _M32 = 0xFFFFFFFF
 class LinkState:
     """Per-instance egress shaping + per-(instance, dst-region) filters:
     ``egress [7, N]`` float32, ``filters [R, N]`` int32, ``region_of [N]``
-    int32 (see the reference ``LinkState``)."""
+    int32, ``backlog [N]`` float32 (the HTB queue's standing busy time in
+    ticks; None unless "bandwidth_queue" is declared) and ``rules [K, 3,
+    N]`` int32 (per-instance range rules; None unless "filter_rules" is
+    declared). See the reference ``LinkState``."""
 
     egress: torch.Tensor
     filters: torch.Tensor
     region_of: torch.Tensor
+    backlog: torch.Tensor | None = None
+    rules: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
 class NetFeedback:
     """Per-tick transport feedback from :func:`enqueue` (the reference
-    ``NetFeedback`` minus the planes this slice does not build)."""
+    ``NetFeedback`` minus the fate and flow planes of the trace and
+    traffic-matrix planes)."""
 
     rejected: torch.Tensor  # [N] int32
     clamped: torch.Tensor  # int32
     bw_dropped: torch.Tensor  # int32
+    backlog: torch.Tensor | None  # [N] float32, next tick's HTB backlog
     collisions: torch.Tensor  # int32
     collision_where: torch.Tensor  # [2] int32
     sent: torch.Tensor  # int32
@@ -152,7 +155,14 @@ class Calendar:
 
 
 def make_link_state(
-    n: int, n_regions: int, default_shape, region_of=None, *, device
+    n: int,
+    n_regions: int,
+    default_shape,
+    region_of=None,
+    track_backlog: bool = False,
+    n_rules: int = 0,
+    *,
+    device,
 ) -> LinkState:
     egress = (
         torch.tensor(default_shape, dtype=torch.float32, device=device)
@@ -167,6 +177,17 @@ def make_link_state(
             (n_regions, n), FILTER_ACCEPT, dtype=torch.int32, device=device
         ),
         region_of=region_of.to(device=device, dtype=torch.int32),
+        backlog=(
+            torch.zeros(n, dtype=torch.float32, device=device)
+            if track_backlog
+            else None
+        ),
+        # all-zero = every rule unset (start 0 >= end 0): accept everything
+        rules=(
+            torch.zeros((n_rules, 3, n), dtype=torch.int32, device=device)
+            if n_rules > 0
+            else None
+        ),
     )
 
 
@@ -225,22 +246,14 @@ def enqueue(
     features: tuple = FULL_SHAPING,
     control_start: int | None = None,
     stacking: bool = True,
+    bw_queue_cap: int = 128,
+    validate: bool = False,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
     place. ``key`` is the per-tick link key (two uint32 words). Semantics
     and argument meanings are the reference ``enqueue``'s
-    (``testground_tpu/sim/net.py:545``), sorted slot path."""
-    if slot_mode != "sorted":
-        raise NotImplementedError(
-            "SLOT_MODE='direct' is not ported yet: ROADMAP queue 1 item 4 "
-            "(direct slot mode with validate)"
-        )
-    for feat, item in UNPORTED_SHAPING.items():
-        if feat in features:
-            raise NotImplementedError(
-                f"{feat!r} shaping is not ported yet: {item}"
-            )
+    (``testground_tpu/sim/net.py:545``)."""
     if control_start is not None:
         raise NotImplementedError(
             "control lanes (additional hosts) are not ported yet: ROADMAP "
@@ -265,9 +278,11 @@ def enqueue(
     m = val_f.shape[0]
     sent = val_f.sum(dtype=i32)
 
-    def eg(plane):  # per-message egress attribute: an o-fold tile
-        row = link.egress[plane]
+    def srow(row):  # src-indexed [N] row → per message: an o-fold tile
         return row if o == 1 else row.repeat(o)
+
+    def eg(plane):
+        return srow(link.egress[plane])
 
     # per-feature dice: murmur3 finalizer of (message index, per-tick key
     # salt, feature id), exactly the reference's int32 hash (net.py:
@@ -285,28 +300,47 @@ def enqueue(
     dst_safe = dst_f.clamp(0, n - 1)
     val_f = val_f & (dst_f >= 0) & (dst_f < n)
 
-    # --- filters: per-(src instance, dst region) dense table
+    # --- filters: per-(src instance, dst region) dense table, or
+    # per-src range-rule lists over dst indices (first match wins)
+    action = None
     if "filters" in features:
         n_regions = link.filters.shape[0]
         if n_regions == 1:
-            action = link.filters[0] if o == 1 else link.filters[0].repeat(o)
+            action = srow(link.filters[0])
         elif n_regions <= 4:
             region = link.region_of[dst_safe]
             action = torch.zeros(m, dtype=i32, device=dev)
             for r in range(n_regions):
-                row = link.filters[r] if o == 1 else link.filters[r].repeat(o)
-                action = torch.where(region == r, row, action)
+                action = torch.where(region == r, srow(link.filters[r]), action)
         else:
             flat_idx = link.region_of[dst_safe].to(torch.int64) * n + src_f
             action = link.filters.reshape(-1)[flat_idx]
+    elif "filter_rules" in features:
+        if link.rules is None:
+            raise ValueError(
+                "filter_rules shaping needs a LinkState built with n_rules>0"
+            )
+        action = torch.full((m,), FILTER_ACCEPT, dtype=i32, device=dev)
+        matched = torch.zeros(m, dtype=torch.bool, device=dev)
+        for k in range(link.rules.shape[0]):
+            # unset rules (start >= end) can never hit
+            hit = (
+                ~matched
+                & (dst_safe >= srow(link.rules[k, 0]))
+                & (dst_safe < srow(link.rules[k, 1]))
+            )
+            action = torch.where(hit, srow(link.rules[k, 2]), action)
+            matched = matched | hit
+    if action is not None:
         rejected_msg = val_f & (action == FILTER_REJECT)
         val_f = val_f & (action == FILTER_ACCEPT)
         rejected = rejected_msg.reshape(o, n).sum(dim=0, dtype=i32)
     else:
         rejected = torch.zeros(n, dtype=i32, device=dev)
 
-    # --- bandwidth, admission-cap semantics
-    if "bandwidth" in features:
+    # --- bandwidth, admission-cap semantics (the HTB queue below
+    # supersedes it when declared)
+    if "bandwidth" in features and "bandwidth_queue" not in features:
         bw = eg(BANDWIDTH)
         cap = torch.where(
             bw <= 0.0,
@@ -338,9 +372,79 @@ def enqueue(
         reorder = u("reorder") * 100.0 < eg(REORDER)
         delay = torch.where(reorder, torch.ones_like(delay), delay)
 
+    # --- bandwidth, HTB-queue semantics (net.py:924-986): each src's
+    # egress is a FIFO served at B·tick_s/MSG_BYTES msgs/tick; a message
+    # deferred k service-ticks arrives k ticks later, and only a full
+    # queue (bw_queue_cap messages) tail-drops. The float32 expressions
+    # keep the reference's order of operations.
+    zero = torch.zeros((), dtype=i32, device=dev)
+    bw_dropped = zero
+    new_backlog = link.backlog
+    if "bandwidth_queue" in features:
+        if link.backlog is None:
+            raise ValueError(
+                "bandwidth_queue shaping needs a LinkState built with "
+                "track_backlog=True"
+            )
+        bw = eg(BANDWIDTH)
+        rate = bw * (tick_ms / 1000.0) / MSG_BYTES
+        safe_rate = rate.clamp_min(1e-9)
+        queued = val_f & (bw > 0.0)
+        qmask = queued.reshape(o, n).to(torch.float32)
+        ahead = (torch.cumsum(qmask, dim=0) - qmask).reshape(-1)
+        backlog_m = srow(link.backlog)
+        q_msgs = backlog_m * rate + ahead
+        overflow_q = queued & (q_msgs >= float(bw_queue_cap))
+        bw_dropped = overflow_q.sum(dtype=i32)
+        val_f = val_f & ~overflow_q
+        queued = queued & ~overflow_q
+        dt = torch.floor(backlog_m + ahead / safe_rate + 1e-4).to(i32)
+        delay = delay + torch.where(queued, dt, torch.zeros_like(dt))
+        admitted = queued.reshape(o, n).to(torch.float32).sum(dim=0)
+        bw_src = link.egress[BANDWIDTH]
+        rate_src = (bw_src * (tick_ms / 1000.0) / MSG_BYTES).clamp_min(1e-9)
+        new_backlog = torch.where(
+            bw_src <= 0.0,
+            torch.zeros_like(bw_src),
+            (link.backlog + admitted / rate_src - 1.0).clamp_min(0.0),
+        )
+
     # --- calendar-horizon overflow is counted, then clamped
     clamped = (val_f & (delay > horizon - 1)).sum(dtype=i32)
     delay = delay.clamp(1, horizon - 1)
+
+    def feedback(enqueued, collisions=None, where=None):
+        return NetFeedback(
+            rejected=rejected,
+            clamped=clamped,
+            bw_dropped=bw_dropped,
+            backlog=new_backlog,
+            collisions=zero if collisions is None else collisions,
+            collision_where=(
+                torch.zeros(2, dtype=i32, device=dev) if where is None else where
+            ),
+            sent=sent,
+            enqueued=enqueued,
+            fault_dropped=zero,
+        )
+
+    if slot_mode == "direct":
+        enq, collisions, where = _commit_direct(
+            cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate
+        )
+        return cal, feedback(enq, collisions, where)
+
+    # --- duplicate: a second copy one tick later (clipped at the horizon,
+    # and counted as clamped when that shortens its delay)
+    if "duplicate" in features:
+        dup = val_f & (u("duplicate") * 100.0 < eg(DUPLICATE))
+        sent = sent + dup.sum(dtype=i32)
+        clamped = clamped + (dup & (delay >= horizon - 1)).sum(dtype=i32)
+        dst_safe = torch.cat([dst_safe, dst_safe])
+        pay_w = [torch.cat([p, p]) for p in pay_w]
+        src_f = torch.cat([src_f, src_f])
+        val_f = torch.cat([val_f, dup])
+        delay = torch.cat([delay, (delay + 1).clamp(1, horizon - 1)])
 
     bucket = torch.remainder(t.reshape(()) + delay, horizon)
 
@@ -357,17 +461,59 @@ def enqueue(
     cal, survived = commit_calendar(
         cal, sk.contiguous(), occ_vals.contiguous(), pay_s, t, stacking=stacking
     )
-    zero = torch.zeros((), dtype=i32, device=dev)
-    return cal, NetFeedback(
-        rejected=rejected,
-        clamped=clamped,
-        bw_dropped=zero,
-        collisions=zero,
-        collision_where=torch.zeros(2, dtype=i32, device=dev),
-        sent=sent,
-        enqueued=survived.sum(dtype=i32),
-        fault_dropped=zero,
-    )
+    return cal, feedback(survived.sum(dtype=i32))
+
+
+def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
+                   o, validate):
+    """Direct slot mode's write (``net.py:1031-1111``): slot = the sender's
+    outbox index, one write per message, no sort and no duplicate pass.
+    The reference drops an invalid message by scattering it to the
+    out-of-range bucket ``horizon``; here it is masked out of the write.
+    Under ``validate``, same-tick duplicate targets and writes onto a
+    still-occupied slot are counted, with the first colliding (dst, slot);
+    which of two colliding writes lands is undefined on both backends.
+    Returns ``(enqueued, collisions, collision_where)``, the last two None
+    without ``validate``."""
+    slots = cal.slots
+    horizon, ns = cal.occupancy_plane.shape
+    n = ns // slots
+    i32 = torch.int32
+    if o > slots:
+        raise ValueError(
+            f"direct slot mode needs OUT_MSGS ({o}) <= IN_MSGS ({slots})"
+        )
+    buck = torch.remainder(t.reshape(()) + delay, horizon)
+    pos = slot_in_src * n + dst_safe
+    collisions = where = None
+    if validate:
+        big = horizon * ns
+        lin = torch.where(val_f, buck.to(torch.int64) * ns + pos, big)
+        # a stable argsort (jnp.argsort's default) maps sorted-adjacent
+        # duplicates back to their messages, so a message that both
+        # duplicates a key and lands on an occupied slot counts once
+        ks, perm = torch.sort(lin, stable=True)
+        dup = torch.zeros_like(val_f)
+        dup[perm[1:]] = (ks[1:] == ks[:-1]) & (ks[1:] < big)
+        occ = cal.occupancy_plane.reshape(-1)[lin.clamp_max(big - 1)] != 0
+        conflict = dup | (occ & val_f)
+        collisions = conflict.sum(dtype=i32)
+        first = torch.where(conflict, lin, big).min()
+        p = torch.remainder(first, ns)
+        where = torch.stack(
+            [torch.remainder(p, n), torch.div(p, n, rounding_mode="floor")]
+        ).to(i32)
+    keep = val_f.nonzero().squeeze(1)  # the write's one host sync
+    b, p = buck[keep].to(torch.int64), pos[keep].to(torch.int64)
+    for plane, vals in zip(cal.payload, pay_w):
+        plane.index_put_((b, p), vals[keep])
+    if cal.src is not None:  # src+1 doubles as the occupancy mark
+        cal.src.index_put_((b, p), src_f[keep] + 1)
+    else:
+        cal.valid.index_put_((b, p), torch.ones_like(b, dtype=torch.bool))
+    if cal.etick is not None:
+        cal.etick.index_put_((b, p), t.reshape(()).to(i32).expand(b.shape[0]))
+    return val_f.sum(dtype=i32), collisions, where
 
 
 def apply_net_updates(
@@ -378,9 +524,13 @@ def apply_net_updates(
     net_filters_valid: torch.Tensor,  # [N]
     net_region: torch.Tensor | None = None,  # [N] int32
     net_region_valid: torch.Tensor | None = None,  # [N]
+    net_rules: torch.Tensor | None = None,  # [K, 3, N] int32
+    net_rules_valid: torch.Tensor | None = None,  # [N]
 ) -> LinkState:
     """Apply per-instance network reconfigurations emitted by steps, with
-    one-tick turnaround (``pkg/sidecar/sidecar_handler.go:49-82``)."""
+    one-tick turnaround (``pkg/sidecar/sidecar_handler.go:49-82``). A valid
+    rule emission replaces the instance's whole rule list; the HTB backlog
+    has no reconfiguration surface and carries over."""
     egress = torch.where(net_shape_valid[None, :], net_shape, link.egress)
     filters = link.filters
     if link.filters.shape[0] > 0 and net_filters.shape[0] > 0:
@@ -388,4 +538,18 @@ def apply_net_updates(
     region_of = link.region_of
     if net_region is not None and net_region_valid is not None:
         region_of = torch.where(net_region_valid, net_region, region_of)
-    return LinkState(egress=egress, filters=filters, region_of=region_of)
+    rules = link.rules
+    if net_rules is not None and net_rules_valid is not None:
+        if rules is None:
+            raise ValueError(
+                "net_rules update against a LinkState without rule planes "
+                "(n_rules=0) — declare 'filter_rules' shaping"
+            )
+        if net_rules.shape[0] != rules.shape[0]:
+            raise ValueError(
+                f"net_rules K={net_rules.shape[0]} != LinkState K={rules.shape[0]}"
+            )
+        rules = torch.where(net_rules_valid[None, None, :], net_rules, rules)
+    return dataclasses.replace(
+        link, egress=egress, filters=filters, region_of=region_of, rules=rules
+    )

@@ -66,7 +66,10 @@ TILE = ct.COMMIT_TILE
 
 def _stream_keys(rng, kind, m2, horizon, n, slots):
     """Sorted keys (bucket·N + dst; dead ≥ L·N or < 0) of one stream kind:
-    ``random`` draws with a dead tail; ``straddle`` lays a run of SLOTS+3
+    ``random`` draws with a dead tail; ``poisson`` puts every message in
+    one bucket at a uniform dst, with a few runs of 20-40 planted;
+    ``dup`` is a stream and its duplicate copies one bucket later, the
+    copies not drawn dead; ``straddle`` lays a run of SLOTS+3
     across every odd tile boundary and a run of exactly SLOTS ending at
     every even one, with short runs between; ``fanin`` puts every message
     on one (bucket, dst); ``dead`` holds dead keys only."""
@@ -75,6 +78,15 @@ def _stream_keys(rng, kind, m2, horizon, n, slots):
         return np.minimum(np.sort(rng.integers(0, big + 200, m2)), big)
     if kind == "fanin":
         return np.full(m2, int(rng.integers(0, big)))
+    if kind == "poisson":
+        keys = 3 * n + rng.integers(0, n, m2)
+        keys[: 5 * 30] = 3 * n + np.repeat(rng.integers(0, n, 5), 30)
+        return np.sort(keys)
+    if kind == "dup":
+        m = m2 // 2
+        orig = rng.integers(2, 4, m) * n + rng.integers(0, n, m)
+        copy = np.where(rng.random(m) < 0.5, orig + n, big)
+        return np.sort(np.concatenate([orig, copy]))
     if kind == "dead":
         return np.sort(np.concatenate([rng.integers(-50, 0, m2 // 3),
                                        rng.integers(big, big + 50, m2 - m2 // 3)]))
@@ -117,6 +129,13 @@ _COMMIT_CASES = [
     (False, True, True, 1, 2, 3000, "random"),
     (True, True, False, 2, 3, 3000, "random"),
     (False, True, True, 8, 4, 3000, "random"),
+    # storm's shape: SLOTS=16, bool occupancy, no stacking, Poisson fan-in
+    # with runs past 16 (ranks >= SLOTS read survived = 0)
+    (True, False, False, 1, 16, 5000, "poisson"),
+    (True, False, False, 1, 16, 4 * TILE + 37, "straddle"),
+    # a duplicate-doubled stream: copies one bucket later, half dead
+    (False, True, False, 1, 4, 4000, "dup"),
+    (True, True, False, 2, 4, 4000, "dup"),
 ]
 
 
@@ -153,6 +172,9 @@ _POP_CASES = [
     (True, 1002, 4, 1, 16, 37),  # bool row of 4008 cells: not a multiple of 16
     (False, 1000, 4, 2, 1, 37),
     (False, 1000, 4, 2, 16, 2**20 + 1),
+    (True, 1000, 1, 1, 8, 37),  # flood's shape: SLOTS=1, bool
+    (True, 1000, 16, 1, 8, 37),  # storm's shape: SLOTS=16, bool
+    (True, 1000, 1, 1, 256, 300),  # netlinkshape's 256-row horizon
 ]
 
 
@@ -171,22 +193,36 @@ def test_pop_kernel_matches_plain(cuda, occ_bool, n, slots, width, horizon, t):
         assert torch.equal(x, y)
 
 
-def test_gpu_run_matches_cpu_run(cuda):
-    factory = load_sim_testcases(plan_dir("network"))["pingpong-sustained"]
-    groups = build_groups([RunGroup(id="all", instances=64,
-                                    parameters={"duration_ticks": "40",
-                                                "reshape_every": "16"})])
+GPU_RUNS = {
+    "sustained": ("network", "pingpong-sustained",
+                  {"duration_ticks": "40", "reshape_every": "16"}, {}),
+    "flood": ("benchmarks", "pingpong-flood", {"duration_ticks": "40"}, {}),
+    "flood-validate": ("benchmarks", "pingpong-flood", {"duration_ticks": "40"},
+                       {"validate": True}),
+    "storm": ("benchmarks", "storm", {"conn_delay_ticks": "8", "data_size_kb": "32"}, {}),
+    "barrier": ("benchmarks", "barrier", {"barrier_iterations": "2"}, {}),
+    "traffic-shaped": ("network", "traffic-shaped", {"burst": "12", "rate": "1.5"}, {}),
+    "traffic-ruled": ("network", "traffic-ruled", {}, {}),
+}
+
+
+@pytest.mark.parametrize("name", list(GPU_RUNS))
+def test_gpu_run_matches_cpu_run(cuda, name):
+    plan, case, params, kw = GPU_RUNS[name]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    groups = build_groups([RunGroup(id="all", instances=64, parameters=params)])
     out = []
     for device in ("cpu", cuda):
         prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups,
-                          chunk=16, device=device)
+                          chunk=16, device=device, **kw)
         last = {}
         res = prog.run(seed=1, max_ticks=256,
                        observer=lambda k, c: last.__setitem__("c", carry_to_numpy(c)))
         out.append((res, last["c"]))
     (rc, cc), (rg, cg) = out
     assert (rc["status"] == 1).all()
-    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped"):
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped",
+              "msgs_rejected", "collisions", "bw_queue_dropped"):
         assert rc[k] == rg[k], k
     for k in cc:
         np.testing.assert_array_equal(cg[k], cc[k], err_msg=k)

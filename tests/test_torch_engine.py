@@ -5,8 +5,8 @@ and a two-group layout) through both packages' library entry points,
 comparing every ``results()`` key, every state leaf and the final carry
 (calendar planes included) through ``carry_io``; one resume: JAX runs k
 ticks, the carry crosses over with ``carry_from_numpy``, and both run on;
-the sync fold with live topics; and the refusals of what this slice does
-not port."""
+the sync fold with live topics; and the refusals of what the port does
+not run yet, or refuses as the reference does."""
 
 import os
 
@@ -256,15 +256,82 @@ def _groups(n=4):
         (papi.SimTestcase, {"netmatrix": True}, "item 12"),
         (papi.SimTestcase, {"live_counts": (4,)}, "item 13"),
         (papi.SimTestcase, {"hosts": ("http-echo",)}, "item 4"),
-        (papi.SimTestcase, {"validate": True}, "item 4"),
-        (_Direct, {}, "item 4"),
-        (_Dup, {}, "item 4"),
-        (_Rules, {}, "item 4"),
+        # validate, direct slots, duplicate and filter_rules are ported;
+        # with control lanes they are still refused
+        (papi.SimTestcase, {"validate": True, "hosts": ("http-echo",)}, "item 4"),
+        (_Direct, {"hosts": ("http-echo",)}, "item 4"),
+        (_Dup, {"hosts": ("http-echo",)}, "item 4"),
+        (_Rules, {"hosts": ("http-echo",)}, "item 4"),
     ],
 )
 def test_unported_options_refuse_loudly(tc, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         SimProgram(tc(), _groups(), device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "tc,kw",
+    [(papi.SimTestcase, {"validate": True}), (_Direct, {}), (_Dup, {}), (_Rules, {})],
+    ids=["validate", "direct", "duplicate", "filter_rules"],
+)
+def test_ported_options_build(tc, kw):
+    prog = SimProgram(tc(), _groups(), device="cpu", **kw)
+    carry = prog.init_carry(seed=1)
+    assert (carry.link.rules is not None) == (tc is _Rules)
+
+
+def _declaring(**statics):
+    return statics
+
+
+REFUSALS = {
+    "filters+filter_rules": _declaring(SHAPING=("latency", "filters", "filter_rules"),
+                                       FILTER_RULES=2),
+    "filter_rules-without-K": _declaring(SHAPING=("latency", "filter_rules")),
+    "bandwidth+bandwidth_queue": _declaring(SHAPING=("bandwidth", "bandwidth_queue")),
+    "bandwidth_queue+direct": _declaring(SHAPING=("latency", "bandwidth_queue"),
+                                         SLOT_MODE="direct"),
+    "bandwidth_queue+duplicate": _declaring(SHAPING=("bandwidth_queue", "duplicate")),
+    "nostack+duplicate": _declaring(SHAPING=("latency", "duplicate"),
+                                    CROSS_TICK_STACKING=False),
+    "nostack+bandwidth_queue": _declaring(SHAPING=("latency", "bandwidth_queue"),
+                                          CROSS_TICK_STACKING=False),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSALS))
+def test_admission_refusals_match_reference(name):
+    """The reference's refusals of incompatible declarations, with its
+    messages (``engine.py:504-562``)."""
+    from testground_tpu.api import RunGroup as JRunGroup
+    from testground_tpu.sim.engine import SimProgram as JSimProgram
+    from testground_tpu.sim.engine import build_groups as jbuild
+
+    statics = REFUSALS[name]
+    jcls = type("J", (japi.SimTestcase,), dict(statics))
+    pcls = type("P", (papi.SimTestcase,), dict(statics))
+    with pytest.raises(ValueError) as jerr:
+        JSimProgram(jcls(), jbuild([JRunGroup(id="all", instances=4)]))
+    with pytest.raises(ValueError) as perr:
+        SimProgram(pcls(), _groups(), device="cpu")
+    assert str(perr.value) == str(jerr.value)
+
+
+def test_bucketed_filter_rules_with_groups_refusal_matches_reference():
+    from testground_tpu.api import RunGroup as JRunGroup
+    from testground_tpu.sim.engine import SimProgram as JSimProgram
+    from testground_tpu.sim.engine import build_groups as jbuild
+
+    layout = [("a", 2), ("b", 2)]
+    jg = jbuild([JRunGroup(id=i, instances=c) for i, c in layout])
+    pg = build_groups([RunGroup(id=i, instances=c) for i, c in layout])
+    with pytest.raises(ValueError) as jerr:
+        JSimProgram(type("J", (japi.SimTestcase,), dict(SHAPING=("latency", "filter_rules"),
+                                                        FILTER_RULES=1))(),
+                    jg, live_counts=(2, 2))
+    with pytest.raises(ValueError) as perr:
+        SimProgram(_Rules(), pg, device="cpu", live_counts=(2, 2))
+    assert str(perr.value) == str(jerr.value)
 
 
 def test_env_key_is_lazy_and_matches_jax_fold():

@@ -55,7 +55,8 @@ def test_port_module_imports_neither_jax_nor_the_jax_package(rel):
 def test_the_scan_sees_the_whole_port():
     rels = _port_sources()
     for must in ("chip_smoke.py", "testground_tpu_torch/sim/engine.py",
-                 "testground_tpu_torch/plans/network/sim.py"):
+                 "testground_tpu_torch/plans/network/sim.py",
+                 "testground_tpu_torch/plans/benchmarks/sim.py"):
         assert must in rels
 
 

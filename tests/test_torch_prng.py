@@ -74,3 +74,62 @@ def test_engine_key_schedule_matches_jax():
         host, h_msg = prng.split_host(host)
         assert list(host) == _kd(net_key).tolist()
         assert list(h_msg) == _kd(k_msg).tolist()
+
+
+def _inst_keys(seed, n):
+    """A batch of per-instance keys, as ``init_carry`` derives them."""
+    return jax.random.split(jax.random.split(jax.random.key(seed))[1], n)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_batched_split_and_random_bits_match_jax(seed):
+    """``split`` over a ``[n, 2]`` batch (storm splits ``env.key`` per
+    instance at init) and 32-bit ``random_bits``."""
+    keys = _inst_keys(seed, 6)
+    kd = torch.from_numpy(_kd(keys))
+    np.testing.assert_array_equal(
+        prng.split(kd).numpy(), _kd(jax.vmap(jax.random.split)(keys)))
+    np.testing.assert_array_equal(
+        prng.split(kd, 3).numpy(), _kd(jax.vmap(lambda k: jax.random.split(k, 3))(keys)))
+    want = np.asarray(jax.vmap(lambda k: jax.random.bits(k, (2, 5)))(keys)).astype(np.int64)
+    np.testing.assert_array_equal(prng.random_bits(kd, (2, 5)).numpy(), want)
+
+
+N_STORM = 16
+SPANS = [(0, 1), (0, 2), (0, 7), (0, N_STORM - 1), (0, 2**31 - 1), (-5, 3),
+         (9, 9), (7, 2), (-(2**31), 2**31 - 1)]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_matches_jax(seed):
+    """``randint`` as ``jax._src.random._randint`` computes it for int32,
+    over spans 1, 2, 7, n-1 and 2^31-1 (plus negative, empty and inverted
+    ranges, and the full int32 range, where the uint32 arithmetic wraps)."""
+    keys = _inst_keys(seed, 5)
+    kd = torch.from_numpy(_kd(keys))
+    for lo, hi in SPANS:
+        want = np.asarray(jax.vmap(lambda k: jax.random.randint(k, (8,), lo, hi))(keys))
+        got = prng.randint(kd, (8,), lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"[{lo}, {hi})")
+
+
+def test_storm_init_draws_match_jax():
+    """The storm plan's init draws for one group: ``split(env.key)``, then
+    ``randint`` of targets in ``[0, max(n-1, 1))`` shifted past the own
+    index and of delays in ``[0, 32)``, per instance."""
+    n, out = N_STORM, 5
+    keys = _inst_keys(3, n)
+
+    def draw(k, seq):
+        k_t, k_d = jax.random.split(k)
+        tg = jax.random.randint(k_t, (out,), 0, jnp.maximum(n - 1, 1))
+        return tg + (tg >= seq), jax.random.randint(k_d, (out,), 0, 32)
+
+    want_t, want_d = jax.vmap(draw)(keys, jnp.arange(n, dtype=jnp.int32))
+    ks = prng.split(torch.from_numpy(_kd(keys)))
+    tg = prng.randint(ks[:, 0], (out,), 0, n - 1)
+    tg = tg + (tg >= torch.arange(n, dtype=torch.int32)[:, None])
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(want_t))
+    np.testing.assert_array_equal(prng.randint(ks[:, 1], (out,), 0, 32).numpy(),
+                                  np.asarray(want_d))
