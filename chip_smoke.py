@@ -36,12 +36,26 @@ and drives the port's main path through the library entry points
 8. benchmarks — barrier, netinit, netlinkshape, subtree and startup at
               100k instances, each to all SUCCESS
 9. scale    — pingpong-sustained at 1M instances for 64 ticks
-10. parity  — sustained, flood and storm at 4,096 instances on the CPU
-              (plain versions) and on the card (kernels), every carry leaf
-              and results() key; fully shaped enqueues (every sorted-path
-              feature; duplicate with the HTB queue; range rules) and one
-              direct-mode enqueue under validate with forced collisions
-              (counts and first collision): bit-equal
+10. faults  — sustained@100k at phase 4's parameters, 500 ticks, under a
+              fault schedule of every kind (crash and restart of 10k
+              instances, a link flap, a partition into halves, a latency
+              spike, a loss burst), beside the same sustained run without
+              one: fault counters, wall and device ms/tick, busy share and
+              kernels a tick of both; all SUCCESS and the flow totals
+              closing over fault_dropped
+11. plans   — placebo's seven cases at 100k, and verify, splitbrain,
+              additional_hosts (one echo host) and chaos (the smoke
+              composition's schedule, instance ranges scaled) at 1,024:
+              each to its expected terminal status
+12. parity  — sustained, flood and storm at 4,096 instances, the faulted
+              sustained at 4,096, and chaos and additional_hosts at 64,
+              on the CPU (plain versions) and on the card (kernels), every
+              carry leaf and results() key; fully shaped enqueues (every
+              sorted-path feature; duplicate with the HTB queue; range
+              rules; control lanes sharing buckets with plan rows under a
+              fault schedule) and one direct-mode enqueue under validate
+              with forced collisions (counts and first collision):
+              bit-equal
 
 Each phase prints one JSON line. Then the card's ``name, power.limit``
 line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
@@ -63,9 +77,56 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
-          "benchmarks", "scale", "parity")
+          "benchmarks", "scale", "faults", "plans", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
+# bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
+SUSTAINED = {"duration_ticks": "500", "reshape_every": "250",
+             "latency_ms": "4", "latency2_ms": "2"}
+
+
+def sustained_fault_tables(n: int) -> dict:
+    """The faults phase's schedule over ``n`` instances, ranges in tenths
+    of n (at 100k: 0:10000 is the first tenth): crash the first tenth at
+    100 ms and restart it at 250 ms; a link flap on the second tenth,
+    120-200 ms, period 8 ms, duty 0.5; a bidirectional partition into
+    halves, 300-380 ms; +2 ms on the third tenth, 150-250 ms; a 30% loss
+    burst on the fourth, 400-450 ms."""
+    def r(lo, hi):
+        return f"{lo * n // 10}:{hi * n // 10}"
+
+    return {"": [
+        {"kind": "crash", "start_ms": 100, "instances": r(0, 1)},
+        {"kind": "restart", "start_ms": 250, "instances": r(0, 1)},
+        {"kind": "link_flap", "start_ms": 120, "duration_ms": 80, "period_ms": 8,
+         "duty": 0.5, "instances": r(1, 2)},
+        {"kind": "partition", "start_ms": 300, "duration_ms": 80, "bidirectional": True,
+         "instances": r(0, 5), "to_instances": r(5, 10)},
+        {"kind": "latency_spike", "start_ms": 150, "duration_ms": 100, "latency_ms": 2.0,
+         "instances": r(2, 3)},
+        {"kind": "loss_burst", "start_ms": 400, "duration_ms": 50, "loss": 30.0,
+         "instances": r(3, 4)},
+    ]}
+
+
+def chaos_setup(n: int) -> tuple[dict, dict]:
+    """The chaos plan's parameters and fault tables at ``n`` instances:
+    ``plans/chaos/_compositions/smoke.toml``'s schedule (written for 8)
+    with its instance ranges scaled by n/8 and its times unchanged. The
+    probe sweep takes n-1 ticks, so heal_tick and deadline move past it
+    by n; slow_tick keeps its 30 (after the restart at 20)."""
+    def r(lo, hi):
+        return f"{lo * n // 8}:{hi * n // 8}"
+
+    params = {"slow_tick": "30", "heal_tick": str(44 + n), "deadline": str(120 + n)}
+    return params, {"all": [
+        {"kind": "crash", "instances": r(0, 2), "start_ms": 6.0},
+        {"kind": "link_flap", "instances": r(2, 4), "start_ms": 8.0, "duration_ms": 8.0,
+         "period_ms": 4.0, "duty": 0.5},
+        {"kind": "restart", "instances": r(0, 2), "start_ms": 20.0},
+        {"kind": "partition", "instances": r(0, 4), "to_instances": r(4, 8),
+         "start_ms": 24.0, "duration_ms": 16.0},
+    ]}
 
 
 def emit(obj) -> None:
@@ -342,7 +403,10 @@ class PhaseTimer:
         return {k: v / max(ticks, 1) for k, v in sums.items()}
 
 
-def program(case, n, params, chunk, device="cuda", plan="network", **kw):
+def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=None,
+            **kw):
+    """A port SimProgram of one group; ``fault_tables`` (fault tables by
+    group id) are lowered by the port's ``build_fault_schedule``."""
     from testground_tpu_torch.api import RunGroup
     from testground_tpu_torch.sim.engine import SimProgram, build_groups
     from testground_tpu_torch.sim.executor import (
@@ -354,6 +418,10 @@ def program(case, n, params, chunk, device="cuda", plan="network", **kw):
     factory = load_sim_testcases(plan_dir(plan))[case]
     groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
     tc = instantiate_testcase(factory, groups, tick_ms=1.0)
+    if fault_tables:
+        from testground_tpu_torch.sim.faults import build_fault_schedule
+
+        kw["faults"] = build_fault_schedule(groups, fault_tables, 1.0)
     return SimProgram(
         tc, groups, test_plan=plan, test_case=case, tick_ms=1.0,
         chunk=chunk, device=device, **kw,
@@ -395,22 +463,22 @@ def run_timed(prog, max_ticks, timer=None):
 
 
 def conserved(res) -> bool:
+    """sent = delivered + in-flight + dropped + rejected + fault_dropped
+    (the last is 0 without a fault schedule)."""
     return res["msgs_sent"] == (
         res["msgs_delivered"] + res["cal_depth"] + res["msgs_dropped"]
-        + res["msgs_rejected"]
+        + res["msgs_rejected"] + res["fault_dropped"]
     )
 
 
 def flows(res) -> dict:
     return {k: res[k] for k in ("msgs_sent", "msgs_delivered", "cal_depth",
-                                "msgs_dropped", "msgs_rejected")}
+                                "msgs_dropped", "msgs_rejected", "fault_dropped")}
 
 
 def phase_sustained(card) -> dict:
     n = 100_000
-    params = {"duration_ticks": "500", "reshape_every": "250",
-              "latency_ms": "4", "latency2_ms": "2"}
-    prog = program("pingpong-sustained", n, params, chunk=250)
+    prog = program("pingpong-sustained", n, SUSTAINED, chunk=250)
     res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
     launches = read_launches()
     check(bool((res["status"] == 1).all()), "sustained: not every instance SUCCESS")
@@ -418,7 +486,7 @@ def phase_sustained(card) -> dict:
     check(conserved(res), f"sustained: flow conservation {flows(res)}")
     timer = PhaseTimer()
     prog.run(seed=0, max_ticks=10_000, timer=timer)
-    return {
+    row = {
         "phase": "sustained", "n": n, "ticks": ticks, "results_ticks": res["ticks"],
         "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
         "peer_ticks_per_s": n * ticks / wall,
@@ -428,19 +496,40 @@ def phase_sustained(card) -> dict:
         **device_profile(prog, ticks=64, wall_ms_per_tick=wall / ticks * 1e3),
         "card": card,
     }
+    row["host_syncs"] = {k: host_syncs(prog, k) for k in (32, 64)}
+    return row
 
 
-def device_profile(prog, ticks, wall_ms_per_tick) -> dict:
+def host_syncs(prog, ticks) -> int:
+    """Synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
+    reports over one run of ``ticks`` ticks, set-up included: the runs of
+    32 and 64 ticks differ by 32 ticks' worth."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            prog.run(seed=0, max_ticks=ticks)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
     """Device kernel time per tick from ``torch.profiler`` over the first
     chunk of a run (at least ``ticks`` ticks; the real count is read off
     the carry), its top kernels, the transport kernels' device time per
     launch, and the device's busy share of the unprofiled wall time per
     tick. Where the profiler reports no device time, the share is "not
-    measured" (None)."""
+    measured" (None). ``host_ops=False`` records device activity only,
+    which keeps a long window's trace small."""
     from torch.profiler import ProfilerActivity, profile
 
     last = {}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         prog.run(seed=0, max_ticks=ticks,
                  observer=lambda k, c: last.__setitem__("t", int(c.t)))
         torch.cuda.synchronize()
@@ -577,6 +666,116 @@ def phase_scale(card) -> dict:
     }
 
 
+def phase_faults(card) -> dict:
+    """The slice's full-width path: sustained@100k under a schedule of
+    every fault kind, beside the same run without one. Both runs are
+    timed on the wall clock first, then each is profiled over its whole
+    500 ticks."""
+    n = 100_000
+    runs, progs, launches = {}, {}, {"commit_calendar": 0, "pop_bucket": 0}
+    for label, tables in (("unfaulted", None), ("faulted", sustained_fault_tables(n))):
+        prog = program("pingpong-sustained", n, SUSTAINED, chunk=250,
+                       fault_tables=tables)
+        res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
+        got = read_launches()
+        for k, v in got.items():
+            launches[k] += v
+        check(bool((res["status"] == 1).all()), f"faults {label}: not all SUCCESS")
+        check(all(v > 0 for v in got.values()), f"faults {label}: launches {got}")
+        check(conserved(res), f"faults {label}: flow totals {flows(res)}")
+        progs[label] = prog
+        runs[label] = {
+            "ticks": ticks, "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
+            "peer_ticks_per_s": n * ticks / wall, "launches": got, "flows": flows(res),
+            "faults_crashed": res["faults_crashed"],
+            "faults_restarted": res["faults_restarted"],
+            "fault_dropped": res["fault_dropped"],
+        }
+    for label, row in runs.items():
+        row.update(device_profile(progs[label], ticks=500,
+                                  wall_ms_per_tick=row["wall_ms_per_tick"],
+                                  host_ops=False))
+    f = runs["faulted"]
+    f["purge"] = purge_timing(n, f["device_ms_per_tick"])
+    check(f["faults_crashed"] == n // 10 and f["faults_restarted"] == n // 10,
+          f"faults: crashed {f['faults_crashed']}, restarted {f['faults_restarted']}")
+    check(f["fault_dropped"] > 0, "faults: nothing fault-dropped")
+    check(runs["unfaulted"]["fault_dropped"] == 0, "faults: unfaulted run fault-dropped")
+    return {"phase": "faults", "n": n, "schedule": sustained_fault_tables(n)[""],
+            "runs": runs, "launches": launches, "card": card}
+
+
+def purge_timing(n, device_ms_per_tick) -> dict:
+    """``purge_dst`` at the faults phase's crash: sustained's calendar (L=8,
+    SLOTS=4, int32 occupancy, a fifth full) and a tenth of the lanes
+    crashing. Device ms per call (CUDA events), and its share of a crash
+    tick's device time (the mean faulted tick plus the purge)."""
+    from testground_tpu_torch.sim import net
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    cal0 = _calendar(net, 8, n, 4, 1, False, False, rng, dev)
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    mask[: n // 10] = True
+    work = _clone_cal(net, cal0)
+    ms = time_ms(lambda: net.purge_dst(work, mask),
+                 lambda: work.src.copy_(cal0.src))
+    return {"ms": ms, "share_of_crash_tick": (
+        ms / (device_ms_per_tick + ms) if device_ms_per_tick else None)}
+
+
+# (plan, case, n, params, max_ticks, chunk, options, expected status)
+PLAN_RUNS = {
+    **{f"placebo/{c}": ("placebo", c, 100_000, {}, 64, 64, {}, want)
+       for c, want in (("ok", 1), ("abort", 2), ("panic", 3), ("stall", 0),
+                       ("silent", 0), ("optional-failure", 1), ("metrics", 1))},
+    # pings cut from 8 to 2: each pinger pings once every n ticks
+    **{f"verify/{c}": ("verify", c, 1024, {"pings": "2"}, 8192, 256, {}, 1)
+       for c in ("uses-data-network", "uses-data-network-drop")},
+    **{f"splitbrain/{c}": ("splitbrain", c, 1024, {}, 8192, 256, {}, 1)
+       for c in ("accept", "drop", "reject")},
+    **{f"additional_hosts/{c}": ("additional_hosts", c, 1024, {}, 8192, 256,
+                                 {"hosts": ("http-echo",)}, 1)
+       for c in ("additional_hosts", "additional_hosts_drop")},
+    "chaos/chaos-barrier": ("chaos", "chaos-barrier", 1024, chaos_setup(1024)[0], 8192,
+                            256, {"fault_tables": chaos_setup(1024)[1]}, 1),
+}
+
+
+def phase_plans(card) -> dict:
+    """Every plan the slice adds, through the library entry points, to its
+    expected terminal status on every instance."""
+    runs, launches = {}, {"commit_calendar": 0, "pop_bucket": 0}
+    for label, (plan, case, n, params, max_ticks, chunk, opts, want) in PLAN_RUNS.items():
+        prog = program(case, n, params, chunk=chunk, plan=plan, **opts)
+        res, wall, ticks, _ = run_timed(prog, max_ticks=max_ticks)
+        got = read_launches()
+        for k, v in got.items():
+            launches[k] += v
+        status = np.bincount(res["status"], minlength=4).tolist()
+        check(status[want] == n, f"plans {label}: status counts {status}, want {want}")
+        check(got["pop_bucket"] > 0, f"plans {label}: launches {got}")
+        check(conserved(res), f"plans {label}: flow totals {flows(res)}")
+        row = {"n": n, "ticks": ticks, "wall_s": wall, "status_counts": status,
+               "launches": got, "flows": flows(res)}
+        if hasattr(prog.tc, "collect_metrics"):
+            m = prog.tc.collect_metrics(prog.groups[0], res["states"][0], res["status"])
+            row["metrics_sum"] = {k: int(np.asarray(v).sum()) for k, v in m.items()}
+        if plan == "chaos":
+            check(res["faults_crashed"] == n // 4 and res["faults_restarted"] == n // 4,
+                  f"plans chaos: {res['faults_crashed']} crashed")
+            check(res["fault_dropped"] > 0, "plans chaos: nothing fault-dropped")
+            row.update(params=params, faults=opts["fault_tables"]["all"],
+                       faults_crashed=res["faults_crashed"],
+                       faults_restarted=res["faults_restarted"],
+                       note="heal_tick and deadline raised by n past the n-1 tick "
+                            "probe sweep; slow_tick kept at 30")
+        if plan == "placebo" and case == "metrics":
+            check(row["metrics_sum"]["placebo.counter"] == 10 * n, "placebo metrics")
+        runs[label] = row
+    return {"phase": "plans", "runs": runs, "launches": launches, "card": card}
+
+
 def _enqueue_inputs(rng, n, o, w, L, slots, occ_bool=False):
     """A pre-filled calendar, a link state with every shaping knob at
     nonzero rates (three filter regions, an HTB backlog, two range rules a
@@ -623,11 +822,45 @@ def _enqueue_on(x, device, features, **kw):
                          region_of=d(x["region_of"]), backlog=d(x["backlog"]),
                          rules=d(x["rules"]))
     t = torch.tensor(21, dtype=torch.int32, device=device)
+    if "dead" in x:
+        kw = dict(kw, dead=d(x["dead"]))
     cal, fb = net.enqueue(cal, link, d(x["dst"]), d(x["payload"]), d(x["valid"]), t,
                           1.0, (12345, 678910), features=features, **kw)
     fields = [fb.rejected, fb.clamped, fb.bw_dropped, fb.collisions,
-              fb.collision_where, fb.sent, fb.enqueued, fb.backlog]
-    return [p.cpu() for p in _planes(cal)], [f.cpu() for f in fields]
+              fb.collision_where, fb.sent, fb.enqueued, fb.backlog, fb.fault_dropped,
+              fb.fate]
+    return [p.cpu() for p in _planes(cal)], [None if f is None else f.cpu() for f in fields]
+
+
+def _control_lane_inputs(n, hosts):
+    """Control lanes past ``n - hosts`` whose echo rows (the 1-tick floor)
+    share buckets and destinations with plan rows shaped to one tick (and
+    reordered to it), onto a pre-filled calendar; a dead mask; and a
+    schedule with a window of every send-time kind open at tick 21."""
+    from testground_tpu_torch.api import RunGroup
+    from testground_tpu_torch.sim.engine import build_groups
+    from testground_tpu_torch.sim.faults import build_fault_schedule
+
+    rng = np.random.default_rng(14)
+    x = _enqueue_inputs(rng, n, o=4, w=2, L=8, slots=4)
+    inst = n - hosts
+    x["egress"][0] = rng.uniform(0.1, 1.0, n)  # one tick
+    x["egress"][1] = 0.0  # no jitter
+    x["dst"] = rng.integers(0, inst // 8, (4, n)).astype(np.int32)  # fan-in
+    x["dst"][:, ::7] = inst + rng.integers(0, hosts, (4, n))[:, ::7]  # to the hosts
+    x["dead"] = np.concatenate([rng.random(inst) < 0.05, np.zeros(hosts, bool)])
+    q = inst // 10
+    groups = build_groups([RunGroup(id="all", instances=inst)])
+    faults = build_fault_schedule(groups, {"": [
+        {"kind": "partition", "start_ms": 20, "duration_ms": 5, "instances": f"0:{3 * q}",
+         "to_instances": f"{3 * q}:{6 * q}"},
+        {"kind": "link_flap", "start_ms": 18, "duration_ms": 8, "period_ms": 4,
+         "duty": 0.25, "instances": f"{6 * q}:{7 * q}"},
+        {"kind": "latency_spike", "start_ms": 20, "duration_ms": 4, "latency_ms": 0.75,
+         "instances": f"0:{5 * q}"},
+        {"kind": "loss_burst", "start_ms": 21, "duration_ms": 2, "loss": 25.0},
+    ]}, 1.0)
+    return x, {"control_start": inst, "faults": faults, "want_fate": True}
 
 
 def _shaped_parity() -> dict:
@@ -644,10 +877,16 @@ def _shaped_parity() -> dict:
                                        "bandwidth_queue"), {"bw_queue_cap": 6}),
         "filter_rules": (dict(o=2, w=1, L=16, slots=4),
                          ("latency", "loss", "filter_rules"), {}),
+        "control-lanes+faults": ("control-lanes",
+                                 ("latency", "jitter", "loss", "corrupt", "reorder",
+                                  "duplicate", "filters"), {}),
     }
     out = {}
     for name, (shape, features, kw) in cases.items():
-        x = _enqueue_inputs(np.random.default_rng(11), n, **shape)
+        if shape == "control-lanes":
+            x, kw = _control_lane_inputs(n, hosts=3)
+        else:
+            x = _enqueue_inputs(np.random.default_rng(11), n, **shape)
         pc, fc = _enqueue_on(x, "cpu", features, **kw)
         pg, fg = _enqueue_on(x, "cuda", features, **kw)
         err = max(_max_err(pc, pg), max(
@@ -655,6 +894,10 @@ def _shaped_parity() -> dict:
             for a, b in zip(fc, fg) if a is not None))
         check(err == 0, f"parity: {name} enqueue CPU vs GPU max err {err}")
         out[name] = err
+        if shape == "control-lanes":
+            check(int(fc[8]) > 0, "parity: control-lane enqueue fault-dropped nothing")
+            out[name] = {"max_err": err, "fault_dropped": int(fc[8]),
+                         "enqueued": int(fc[6])}
     # direct slots under validate, with fan-in onto a pre-filled calendar:
     # which colliding write lands is undefined, so compare the counts,
     # the first collision and the bool occupancy plane
@@ -672,24 +915,31 @@ def _shaped_parity() -> dict:
     return out
 
 
-PARITY_RUNS = {  # name: (plan, case, params, chunk, max_ticks)
-    "sustained": ("network", "pingpong-sustained",
-                  {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}, 64, 128),
-    "flood": ("benchmarks", "pingpong-flood", {"duration_ticks": "128"}, 64, 256),
-    "storm": ("benchmarks", "storm",
-              {"conn_delay_ticks": "8", "data_size_kb": "64"}, 64, 256),
+PARITY_RUNS = {  # name: (plan, case, n, params, chunk, max_ticks, options)
+    "sustained": ("network", "pingpong-sustained", 4096,
+                  {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}, 64, 128,
+                  {}),
+    "flood": ("benchmarks", "pingpong-flood", 4096, {"duration_ticks": "128"}, 64, 256,
+              {}),
+    "storm": ("benchmarks", "storm", 4096,
+              {"conn_delay_ticks": "8", "data_size_kb": "64"}, 64, 256, {}),
+    "sustained-faulted": ("network", "pingpong-sustained", 4096, SUSTAINED, 250, 1000,
+                          {"fault_tables": sustained_fault_tables(4096)}),
+    "chaos": ("chaos", "chaos-barrier", 64, chaos_setup(64)[0], 64, 1024,
+              {"fault_tables": chaos_setup(64)[1]}),
+    "additional_hosts": ("additional_hosts", "additional_hosts", 64, {}, 64, 256,
+                         {"hosts": ("http-echo",)}),
 }
 
 
 def phase_parity(card) -> dict:
     from testground_tpu_torch.sim.carry_io import carry_to_numpy
 
-    n = 4096
     runs = {}
-    for label, (plan, case, params, chunk, max_ticks) in PARITY_RUNS.items():
+    for label, (plan, case, n, params, chunk, max_ticks, opts) in PARITY_RUNS.items():
         out = {}
         for dev in ("cpu", "cuda"):
-            prog = program(case, n, params, chunk=chunk, device=dev, plan=plan)
+            prog = program(case, n, params, chunk=chunk, device=dev, plan=plan, **opts)
             last = {}
             res = prog.run(seed=7, max_ticks=max_ticks,
                            observer=lambda k, c: last.__setitem__("c", c))
@@ -700,14 +950,16 @@ def phase_parity(card) -> dict:
         mism += [k for k in car_c if not np.array_equal(car_c[k], car_g[k])]
         check(not mism, f"parity {label}: CPU vs GPU differ in {mism}")
         check(res_c["msgs_sent"] > 0, f"parity {label}: nothing sent")
-        runs[label] = {"ticks": int(car_c["t"]), "leaves_compared": len(car_c),
+        runs[label] = {"n": n, "ticks": int(car_c["t"]), "leaves_compared": len(car_c),
                        "msgs_sent": res_c["msgs_sent"],
+                       "fault_dropped": res_c["fault_dropped"],
                        "all_success": bool((res_c["status"] == 1).all())}
     check(runs["sustained"]["ticks"] == 128, "parity: the sustained run ended early")
-    check(runs["flood"]["all_success"] and runs["storm"]["all_success"],
-          "parity: flood or storm did not reach all SUCCESS")
-    return {"phase": "parity", "n": n, "runs": runs, "enqueue": _shaped_parity(),
-            "card": card}
+    short = [k for k in runs if k != "sustained" and not runs[k]["all_success"]]
+    check(not short, f"parity: {short} did not reach all SUCCESS")
+    check(runs["sustained-faulted"]["fault_dropped"] > 0
+          and runs["chaos"]["fault_dropped"] > 0, "parity: the schedules dropped nothing")
+    return {"phase": "parity", "runs": runs, "enqueue": _shaped_parity(), "card": card}
 
 
 # ------------------------------------------------------------ main
@@ -763,6 +1015,9 @@ def main(argv=None) -> int:
             pop_case("flood", 8, N, 1, 1, True, 16),
             pop_case("storm", 8, N, 16, 1, True, 17),
             pop_case("horizon-256", 256, N, 1, 1, True, 18),
+            # additional_hosts at 1,024 instances: 1,025 lanes, L=4, W=2
+            commit_case("hosts-lanes", 4, 1025, 4, 2, 4 * 1025, False, True, False, 19),
+            pop_case("hosts-lanes", 4, 1025, 4, 2, False, 20),
         ]
         for c in cases:
             emit({"phase": "kernels", **c, "card": card})
@@ -776,7 +1031,8 @@ def main(argv=None) -> int:
     launches = {"commit_calendar": 0, "pop_bucket": 0}
     for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong),
                    ("flood", phase_flood), ("storm", phase_storm),
-                   ("benchmarks", phase_benchmarks), ("scale", phase_scale)):
+                   ("benchmarks", phase_benchmarks), ("scale", phase_scale),
+                   ("faults", phase_faults), ("plans", phase_plans)):
         if ph in phases:
             row = fn(card)
             for k, v in row["launches"].items():

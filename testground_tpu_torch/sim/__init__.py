@@ -12,6 +12,7 @@ __all__ = [
     "cuda_transport",
     "engine",
     "executor",
+    "faults",
     "net",
     "prng",
     "sync_kernel",

@@ -136,6 +136,16 @@ class SimEnv:
         """Convert simulated milliseconds to whole ticks (≥1)."""
         return max(1, round(ms / self.tick_ms))
 
+    def host_index(self, name: str) -> int:
+        """Data-plane address of an additional host: its lane past the
+        instance axis. Raises if the run does not list it — the analog of
+        a DNS failure for a host missing from ADDITIONAL_HOSTS."""
+        if name not in self.hosts:
+            raise KeyError(
+                f"host {name!r} not in additional_hosts {list(self.hosts)}"
+            )
+        return self.test_instance_count + self.hosts.index(name)
+
 
 @dataclasses.dataclass
 class Inbox:

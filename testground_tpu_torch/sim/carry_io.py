@@ -80,7 +80,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
 
     cls = type(prog.tc)
     horizon = cls.MAX_LINK_TICKS
-    ns = prog.n * cls.IN_MSGS
+    ns = prog.n_lanes * cls.IN_MSGS  # host lanes included
 
     def plane(key, dtype):
         return t_(key, dtype).reshape(horizon, ns).contiguous()

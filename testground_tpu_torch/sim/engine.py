@@ -22,11 +22,20 @@ Python ints. The link-model key advances on the host (two uint32 lanes;
 evaluating that threefry on the card would cost ~100 kernel launches a
 tick), the per-instance keys live on the run's device.
 
+Additional hosts are echo lanes past the instance axis (``hosts``): their
+traffic rides the transport's control routes, they never terminate, and
+``results()`` slices them off. A fault schedule (``faults``, lowered by
+``sim/faults.py``) adds a phase at tick start — restarts, then crashes
+with the purge of the victims' in-flight rows — and send-time kills in the
+transport. The schedule's ticks are known on the host, so the re-init and
+the purge run only on the ticks it names (the reference gates both behind
+``lax.cond`` on the device). Without hosts and a schedule, the tick is the
+one it was before either existed.
+
 The reference's admission refusals of incompatible declarations are kept,
 with the same messages. Not ported yet — each refused with
 ``NotImplementedError`` naming its ROADMAP item: meshes, shape buckets,
-faults, the flight recorder, telemetry, the traffic matrix and additional
-hosts.
+the flight recorder, telemetry and the traffic matrix.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 
 from . import prng
 from .api import (
+    CRASH,
     RUNNING,
     GroupSpec,
     Inbox,
@@ -57,7 +67,9 @@ from .net import (
     deliver,
     enqueue,
     make_link_state,
+    purge_dst,
 )
+from .faults import DeviceFaults
 from .sync_kernel import (
     SyncState,
     live_per_group,
@@ -66,19 +78,27 @@ from .sync_kernel import (
     update_sync,
 )
 
-__all__ = ["SimCarry", "SimProgram", "build_groups", "resolve_device"]
+__all__ = [
+    "MAX_FILTER_CELLS",
+    "SimCarry",
+    "SimProgram",
+    "build_groups",
+    "resolve_device",
+]
 
 # Options of the reference SimProgram that the port refuses, with the
 # ROADMAP queue-1 item that ports each.
 _UNPORTED_OPTIONS = {
     "mesh": "item 15 (multi-GPU)",
     "live_counts": "item 13 (buckets, packs and checkpoint)",
-    "faults": "item 11 (faults plane)",
     "trace": "item 12 (SLO, trace and traffic-matrix planes)",
     "telemetry": "item 10 (telemetry and latency planes)",
     "netmatrix": "item 12 (SLO, trace and traffic-matrix planes)",
-    "hosts": "item 4 (control lanes)",
 }
+
+# Budget for the dense [R, N] per-region filter table, in int32 cells
+# (2**28 = 1 GiB), as in the reference.
+MAX_FILTER_CELLS = 2**28
 
 
 def resolve_device(device=None) -> torch.device:
@@ -102,12 +122,12 @@ class SimCarry:
     link key, which advances on the host."""
 
     states: tuple  # per-group dicts of [count, ...] tensors
-    status: torch.Tensor  # [N] int32
-    finished_at: torch.Tensor  # [N] int32 (-1 if never terminal)
-    cal: Calendar
-    link: LinkState
-    sync: SyncState
-    rejected: torch.Tensor  # [N] int32 — REJECT feedback from last tick
+    status: torch.Tensor  # [N + H] int32 (H additional hosts)
+    finished_at: torch.Tensor  # [N + H] int32 (-1 if never terminal)
+    cal: Calendar  # over N + H lanes
+    link: LinkState  # over N + H lanes
+    sync: SyncState  # over the N instances
+    rejected: torch.Tensor  # [N + H] int32 — REJECT feedback from last tick
     keys: torch.Tensor  # [N, 2] per-instance keys (uint32 words in int64)
     net_key: tuple  # link-model key: two uint32 words as Python ints
     t: torch.Tensor  # int32 current tick
@@ -158,7 +178,9 @@ class SimProgram:
         tick_ms: float = 1.0,
         chunk: int = 128,
         device=None,
+        hosts: tuple[str, ...] = (),
         validate: bool = False,
+        faults=None,
         **unported,
     ):
         cls = type(testcase)
@@ -186,10 +208,26 @@ class SimProgram:
         self.tc = testcase
         self.groups = groups
         self.n = sum(g.count for g in groups)
+        # echo lanes past the instance axis (SimEnv.host_index)
+        self.hosts = tuple(hosts)
+        self.n_lanes = self.n + len(self.hosts)
         self.tick_ms = float(tick_ms)
         self.chunk = int(chunk)
         self.validate = bool(validate)
         self.meta = dict(test_plan=test_plan, test_case=test_case, test_run=test_run)
+        self.faults = faults
+        if faults is not None and faults.n != self.n:
+            raise ValueError(
+                f"fault schedule lowered for {faults.n} instance(s) but "
+                f"the program has {self.n} — the schedule must be built "
+                "from the same group layout"
+            )
+        # the schedule's masks on the device, once per program
+        self._faults = (
+            DeviceFaults.lower(faults, self.device, self.n_lanes)
+            if faults is not None
+            else None
+        )
         jitter_ms = cls.DEFAULT_LINK[1] if "jitter" in cls.SHAPING else 0.0
         base_ticks = int(np.ceil((cls.DEFAULT_LINK[0] + jitter_ms) / tick_ms))
         if base_ticks > cls.MAX_LINK_TICKS - 1:
@@ -200,10 +238,21 @@ class SimProgram:
                 f"{cls.MAX_LINK_TICKS - 1}; raise MAX_LINK_TICKS or the tick "
                 "duration"
             )
-        _check_declarations(cls)
+        _check_declarations(cls, self.hosts)
         self.n_states = len(cls.STATES)
         self.n_topics = len(cls.TOPICS)
         self.n_regions = cls.N_REGIONS if cls.N_REGIONS > 0 else len(groups)
+        cells = self.n_regions * self.n_lanes
+        if cells > MAX_FILTER_CELLS:
+            raise ValueError(
+                f"filter table [R={self.n_regions}, N={self.n}] needs "
+                f"{cells:,} cells ({cells * 4 / 2**30:.1f} GiB int32), "
+                f"over the MAX_FILTER_CELLS budget of {MAX_FILTER_CELLS:,} "
+                f"({MAX_FILTER_CELLS * 4 / 2**30:.1f} GiB) — coarsen "
+                "N_REGIONS (per-instance granularity is practical to ~8k "
+                "instances, see PERF.md) or raise "
+                "testground_tpu_torch.sim.engine.MAX_FILTER_CELLS"
+            )
         dev = self.device
         self._group_of = torch.repeat_interleave(
             torch.arange(len(groups), dtype=torch.int32, device=dev),
@@ -229,8 +278,17 @@ class SimProgram:
             global_seq=self._gs[g.index],
             group_seq=self._gseq[g.index],
             device=self.device,
+            hosts=self.hosts,
             base_keys=keys,
             tick=tick,
+        )
+
+    def _init_states(self, keys) -> tuple:
+        """``testcase.init`` of every group under the instances' root keys
+        (at tick 0, and again for a restart)."""
+        return tuple(
+            self.tc.init(self._env_for(g, keys[g.offset : g.offset + g.count]))
+            for g in self.groups
         )
 
     def init_carry(self, seed: int = 0) -> SimCarry:
@@ -239,31 +297,36 @@ class SimProgram:
         root = prng.key(seed, device=dev)
         net_key, inst_root = prng.split(root)
         keys = prng.split(inst_root, self.n)
-        states = tuple(
-            self.tc.init(self._env_for(g, keys[g.offset : g.offset + g.count]))
-            for g in self.groups
-        )
+        states = self._init_states(keys)
+        lanes = self.n_lanes
+        # host lanes sit past the instance axis: region 0 (their traffic
+        # bypasses filters anyway), default egress, no sync participation
+        region_of = torch.clamp(self._group_of, max=self.n_regions - 1)
+        if self.hosts:
+            region_of = torch.cat(
+                [region_of, torch.zeros(len(self.hosts), dtype=torch.int32, device=dev)]
+            )
 
         def z(dtype=torch.int32):
             return torch.zeros((), dtype=dtype, device=dev)
 
         return SimCarry(
             states=states,
-            status=torch.full((self.n,), RUNNING, dtype=torch.int32, device=dev),
-            finished_at=torch.full((self.n,), -1, dtype=torch.int32, device=dev),
+            status=torch.full((lanes,), RUNNING, dtype=torch.int32, device=dev),
+            finished_at=torch.full((lanes,), -1, dtype=torch.int32, device=dev),
             cal=Calendar.empty(
                 cls.MAX_LINK_TICKS,
-                self.n,
+                lanes,
                 cls.IN_MSGS,
                 cls.MSG_WIDTH,
                 track_src=cls.TRACK_SRC,
                 device=dev,
             ),
             link=make_link_state(
-                self.n,
+                lanes,
                 self.n_regions,
                 cls.DEFAULT_LINK,
-                region_of=torch.clamp(self._group_of, max=self.n_regions - 1),
+                region_of=region_of,
                 track_backlog="bandwidth_queue" in cls.SHAPING,
                 n_rules=cls.FILTER_RULES if "filter_rules" in cls.SHAPING else 0,
                 device=dev,
@@ -276,7 +339,7 @@ class SimProgram:
                 cls.PUB_WIDTH,
                 device=dev,
             ),
-            rejected=torch.zeros(self.n, dtype=torch.int32, device=dev),
+            rejected=torch.zeros(lanes, dtype=torch.int32, device=dev),
             keys=keys,
             net_key=tuple(int(x) for x in net_key.tolist()),
             t=z(),
@@ -365,7 +428,8 @@ class SimProgram:
             out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
             outs.append(self._normalize(out, g.count))
 
-        active = carry.status == RUNNING  # [N]
+        n = self.n
+        active = carry.status[:n] == RUNNING  # [N]; host lanes echo below
 
         def freeze(old, new, a):
             a = a.reshape(a.shape + (1,) * (new.dim() - 1))
@@ -389,9 +453,9 @@ class SimProgram:
             return torch.cat([o[name] for o in outs], dim=dim)
 
         status_new = cat("status")
-        status = torch.where(active, status_new, carry.status)
+        status = torch.where(active, status_new, carry.status[:n])
         finished_at = torch.where(
-            active & (status_new != RUNNING), t, carry.finished_at
+            active & (status_new != RUNNING), t, carry.finished_at[:n]
         )
         active_i = active.to(torch.int32)
         net_filters, net_filters_valid = self._merge_reconfig(
@@ -403,7 +467,7 @@ class SimProgram:
             net_rules, net_rules_valid = self._merge_reconfig(
                 outs, "net_rules", (n_rules, 3), active
             )
-        return {
+        step = {
             "states": new_states,
             "status": status,
             "finished_at": finished_at,
@@ -423,6 +487,43 @@ class SimProgram:
             "net_region": cat("region"),
             "net_region_valid": cat("region_valid") & active,
         }
+        if self.hosts:
+            self._merge_hosts(step, carry, inbox_all)
+        return step
+
+    def _merge_hosts(self, step: dict, carry: SimCarry, inbox_all: Inbox) -> None:
+        """Append the host lanes to a step's planes (``engine.py:1206-1237,
+        1292-1309``): their status and finished_at carry over; the echo
+        service sends every message delivered to a host lane straight back
+        to its sender, payload verbatim (the outbox grows to max(OUT_MSGS,
+        IN_MSGS) rows); and the reconfiguration planes get valid=False
+        columns, since hosts never reconfigure."""
+        n, h = self.n, len(self.hosts)
+        step["status"] = torch.cat([step["status"], carry.status[n:]])
+        step["finished_at"] = torch.cat([step["finished_at"], carry.finished_at[n:]])
+        h_dst = inbox_all.src[:, n:]  # [SLOTS, H]
+        h_val = inbox_all.valid[:, n:]
+        h_pay = inbox_all.payload[:, :, n:].transpose(0, 1)  # [SLOTS, W, H]
+        rows = max(step["dst"].shape[0], h_dst.shape[0])
+
+        def pad_rows(x):
+            if x.shape[0] >= rows:
+                return x
+            pad = torch.zeros((rows - x.shape[0],) + x.shape[1:], dtype=x.dtype,
+                              device=x.device)
+            return torch.cat([x, pad])
+
+        for name, hx in (("dst", h_dst), ("payload", h_pay), ("valid", h_val)):
+            step[name] = torch.cat([pad_rows(step[name]), pad_rows(hx)], dim=-1)
+
+        def pad_cols(x, fill=0):
+            pad = torch.full(x.shape[:-1] + (h,), fill, dtype=x.dtype, device=x.device)
+            return torch.cat([x, pad], dim=-1)
+
+        for name in ("net_shape", "net_filters", "net_region", "net_rules"):
+            if step[name] is not None:
+                step[name] = pad_cols(step[name])
+                step[name + "_valid"] = pad_cols(step[name + "_valid"], False)
 
     def _merge_reconfig(self, outs, name, lead, active):
         """Concatenate an optional reconfiguration plane (``lead + (n_g,)``)
@@ -442,7 +543,53 @@ class SimProgram:
         ]) & active
         return plane, valid
 
-    def _tick(self, carry: SimCarry, timer=None, done_out=None) -> SimCarry:
+    def _fault_phase(self, carry: SimCarry, tick: int):
+        """The fault plane's point events at tick START
+        (``engine.py:974-1091``): scheduled restarts revive CRASHED slots —
+        ``testcase.init`` re-run under the instance's original key, its
+        sync history kept — then scheduled crashes flip RUNNING slots to
+        CRASH and purge the in-flight rows toward them. Only the ticks the
+        schedule names do either. Returns ``(carry, crashed_t, restarted_t,
+        purged_t, dead)``: the counts are None on a tick with no event;
+        ``dead`` is the post-event CRASH mask over every lane."""
+        f = self._faults
+        t = carry.t
+        status, finished_at = carry.status, carry.finished_at
+        states, cal = carry.states, carry.cal
+        crashed_t = restarted_t = purged_t = None
+        rmask = f.restart_at(tick)
+        if rmask is not None:
+            revive = rmask & (status == CRASH)  # host lanes: never in a mask
+            restarted_t = revive.sum(dtype=torch.int32)
+            fresh = self._init_states(carry.keys)
+
+            def sel(new, old, rv):  # rv over the leaf's leading axis
+                rv = rv.reshape(rv.shape + (1,) * (new.dim() - 1))
+                return torch.where(rv, new, old)
+
+            states = tuple(
+                {
+                    k: sel(fresh[g.index][k], v, revive[g.offset : g.offset + g.count])
+                    for k, v in states[g.index].items()
+                }
+                for g in self.groups
+            )
+            status = torch.where(revive, RUNNING, status)
+            finished_at = torch.where(revive, -1, finished_at)
+        cmask = f.crash_at(tick)
+        if cmask is not None:
+            kill = cmask & (status == RUNNING)
+            crashed_t = kill.sum(dtype=torch.int32)
+            cal, purged_t = purge_dst(cal, kill)
+            status = torch.where(kill, CRASH, status)
+            finished_at = torch.where(kill, t, finished_at)
+        carry = dataclasses.replace(
+            carry, states=states, status=status, finished_at=finished_at, cal=cal
+        )
+        return carry, crashed_t, restarted_t, purged_t, status == CRASH
+
+    def _tick(self, carry: SimCarry, timer=None, done_out=None,
+              tick: int | None = None) -> SimCarry:
         """One simulated tick. ``timer.mark(name)`` (optional) is called at
         the tick's start ("tick") and after each phase ("deliver", "step",
         "commit", "sync"). ``done_out`` (optional) is a ``(flag, event)``
@@ -450,11 +597,19 @@ class SimProgram:
         flag by a non-blocking copy queued right after the step phase, and
         ``event`` (a CUDA event, or None on the CPU) is recorded behind it,
         so the caller can wait for the flag without waiting for the
-        commit."""
+        commit. ``tick`` is ``carry.t`` as the host knows it; a run with a
+        fault schedule reads it off ``carry.t`` when it is not given."""
         cls = type(self.tc)
         t = carry.t
         if timer is not None:
             timer.mark("tick")
+        crashed_t = restarted_t = purged_t = dead = None
+        if self._faults is not None:
+            if tick is None:
+                tick = int(t)
+            carry, crashed_t, restarted_t, purged_t, dead = self._fault_phase(
+                carry, tick
+            )
         cal, inbox = deliver(carry.cal, t)
         delivered_t = inbox.valid.sum(dtype=torch.int32)
         if timer is not None:
@@ -462,7 +617,7 @@ class SimProgram:
         step = self._step_phase(carry, inbox, t)
         if done_out is not None:
             flag, event = done_out
-            flag.copy_((step["status"] != RUNNING).all(), non_blocking=True)
+            flag.copy_((step["status"][: self.n] != RUNNING).all(), non_blocking=True)
             if event is not None:
                 event.record()
         if timer is not None:
@@ -479,9 +634,13 @@ class SimProgram:
             k_msg,
             slot_mode=cls.SLOT_MODE,
             features=tuple(cls.SHAPING),
+            control_start=self.n if self.hosts else None,
             stacking=cls.CROSS_TICK_STACKING,
             bw_queue_cap=cls.BW_QUEUE_MSGS,
             validate=self.validate,
+            faults=self._faults,
+            dead=dead,
+            tick=tick,
         )
         link = apply_net_updates(
             carry.link,
@@ -524,6 +683,15 @@ class SimProgram:
         )
         rejected_t = fb.rejected.sum(dtype=torch.int32)
         dropped_t = fb.sent - fb.enqueued - rejected_t - fb.fault_dropped
+        # flow accounting (engine.py:1608-1619): crash purges move already
+        # enqueued messages from the in-flight depth into fault_dropped, so
+        # sent = delivered + in-flight + dropped + rejected + fault_dropped
+        # stays exact
+        fault_dropped_t = fb.fault_dropped
+        cal_depth = carry.cal_depth + fb.enqueued - delivered_t
+        if purged_t is not None:
+            fault_dropped_t = fault_dropped_t + purged_t
+            cal_depth = cal_depth - purged_t
         new = SimCarry(
             states=step["states"],
             status=step["status"],
@@ -545,10 +713,16 @@ class SimProgram:
             msgs_enqueued=carry.msgs_enqueued + fb.enqueued,
             msgs_dropped=carry.msgs_dropped + dropped_t,
             msgs_rejected=carry.msgs_rejected + rejected_t,
-            cal_depth=carry.cal_depth + fb.enqueued - delivered_t,
-            faults_crashed=carry.faults_crashed,
-            faults_restarted=carry.faults_restarted,
-            fault_dropped=carry.fault_dropped + fb.fault_dropped,
+            cal_depth=cal_depth,
+            faults_crashed=(
+                carry.faults_crashed if crashed_t is None
+                else carry.faults_crashed + crashed_t
+            ),
+            faults_restarted=(
+                carry.faults_restarted if restarted_t is None
+                else carry.faults_restarted + restarted_t
+            ),
+            fault_dropped=carry.fault_dropped + fault_dropped_t,
         )
         if timer is not None:
             timer.mark("sync")
@@ -557,7 +731,13 @@ class SimProgram:
     # ----------------------------------------------------------- execution
 
     def _all_done(self, carry: SimCarry) -> bool:
-        return bool((carry.status != RUNNING).all())
+        """Host lanes never terminate: only plan instances gate done. With
+        a fault schedule the run must also outlive its last event (an
+        all-crashed fleet with a restart to come is paused, not done)."""
+        done = bool((carry.status[: self.n] != RUNNING).all())
+        if self._faults is not None:
+            done = done and int(carry.t) > self._faults.last_event_tick
+        return done
 
     def run(
         self,
@@ -586,15 +766,25 @@ class SimProgram:
             torch.cuda.Event() if cuda else None,
         )
         done = self._all_done(carry)
+        # the host's copy of carry.t: a fault schedule resolves its events
+        # and windows against it, and its done gate reads it
+        last_event = None
+        tick = None
+        if self._faults is not None:
+            last_event = self._faults.last_event_tick
+            tick = int(carry.t)
         setup_secs = 0.0
         while ticks < max_ticks:
             for _ in range(self.chunk):
                 if done:
                     break  # post-completion ticks are no-ops
-                carry = self._tick(carry, timer=timer, done_out=done_out)
+                carry = self._tick(carry, timer=timer, done_out=done_out, tick=tick)
                 if cuda:
                     done_out[1].synchronize()
                 done = bool(done_out[0])
+                if tick is not None:
+                    tick += 1
+                    done = done and tick > last_event
             ticks += self.chunk
             if setup_secs == 0.0:
                 setup_secs = time.perf_counter() - t0
@@ -630,8 +820,9 @@ class SimProgram:
             "faults_restarted": int(carry.faults_restarted),
             "fault_dropped": int(carry.fault_dropped),
             "carry_bytes": carry_bytes(carry),
-            "status": host(carry.status),
-            "finished_at": host(carry.finished_at),
+            # host lanes are internal plumbing — plan instances only
+            "status": host(carry.status[: self.n]),
+            "finished_at": host(carry.finished_at[: self.n]),
             "states": tuple(
                 {k: host(v) for k, v in s.items()} for s in carry.states
             ),
@@ -646,9 +837,9 @@ def _emits(out: dict, name: str, lead: tuple) -> bool:
     return x is not None and tuple(x.shape[: len(lead)]) == lead
 
 
-def _check_declarations(cls) -> None:
+def _check_declarations(cls, hosts=()) -> None:
     """The reference's static refusals of incompatible plan declarations
-    (``engine.py:504-562``), with its messages."""
+    (``engine.py:504-573``), with its messages."""
     shaping = cls.SHAPING
     if "filter_rules" in shaping:
         if "filters" in shaping:
@@ -700,6 +891,23 @@ def _check_declarations(cls) -> None:
                     f"shaping ({why}, so one calendar bucket fills from "
                     "multiple send ticks)"
                 )
+        if hosts:
+            raise ValueError(
+                "CROSS_TICK_STACKING=False is incompatible with "
+                "additional_hosts (control lanes ride the 1-tick floor "
+                "while plan traffic rides the shaped latency)"
+            )
+    if hosts:
+        if not cls.TRACK_SRC:
+            raise ValueError(
+                "additional_hosts need TRACK_SRC=True (the echo replies "
+                "to the inbox src)"
+            )
+        if cls.SLOT_MODE == "direct":
+            raise ValueError(
+                "additional_hosts need SLOT_MODE='sorted' (host fan-in "
+                "violates the direct mode contract)"
+            )
 
 
 def carry_bytes(carry: SimCarry) -> int:

@@ -12,11 +12,13 @@ form is an XLA:TPU layout choice), :class:`LinkState`,
 ``validate`` collision check) with every LinkShape feature (latency,
 jitter, bandwidth as an admission cap or an HTB queue, loss, corrupt,
 reorder, duplicate, the dense filter table and per-instance range rules),
-and :func:`apply_net_updates`. The commit of the sorted stream and the
+control lanes (``control_start``), the fault plane's send-time terms
+(``faults``, ``dead``) and the per-message fate, :func:`purge_dst`, and
+:func:`apply_net_updates`. The commit of the sorted stream and the
 delivery pop go through the kernels of ``sim/cuda_transport.py`` (plain
-versions on the CPU); direct mode's write is an ``index_put_``, as it is
-a plain scatter in the reference. Control lanes (``control_start``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+versions on the CPU). Direct mode's write, the purge and the fault
+windows are plain torch ops: in the reference too they are plain XLA,
+outside any Pallas kernel.
 
 Bit-equality with the reference rests on three rules:
 
@@ -36,6 +38,7 @@ import torch
 
 from .api import FILTER_ACCEPT, FILTER_REJECT, Inbox
 from .cuda_transport import commit_calendar, pop_bucket
+from .faults import DeviceFaults
 
 __all__ = [
     "FULL_SHAPING",
@@ -47,6 +50,7 @@ __all__ = [
     "deliver",
     "enqueue",
     "make_link_state",
+    "purge_dst",
 ]
 
 # LinkShape plane indices (``pkg/sidecar/link.go:155-183``).
@@ -89,8 +93,7 @@ class LinkState:
 @dataclasses.dataclass
 class NetFeedback:
     """Per-tick transport feedback from :func:`enqueue` (the reference
-    ``NetFeedback`` minus the fate and flow planes of the trace and
-    traffic-matrix planes)."""
+    ``NetFeedback`` minus the traffic-matrix plane's per-message flow)."""
 
     rejected: torch.Tensor  # [N] int32
     clamped: torch.Tensor  # int32
@@ -101,6 +104,7 @@ class NetFeedback:
     sent: torch.Tensor  # int32
     enqueued: torch.Tensor  # int32
     fault_dropped: torch.Tensor  # int32
+    fate: torch.Tensor | None = None  # [M] int32 (want_fate only)
 
 
 @dataclasses.dataclass
@@ -233,6 +237,23 @@ def _mix(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def purge_dst(cal: Calendar, dst_mask: torch.Tensor) -> tuple[Calendar, torch.Tensor]:
+    """Remove every in-flight calendar entry destined to a masked lane —
+    a crashed instance's socket buffers vanish with it
+    (``testground_tpu/sim/net.py:416-448``). ``dst_mask`` is [N] bool over
+    the receiver axis. Only the occupancy plane is cleared, in place
+    (payload words stay stale, like a bucket after ``deliver``). Returns
+    ``(cal, purged)``, ``purged`` the int32 count of entries removed."""
+    plane = cal.occupancy_plane
+    n = plane.shape[1] // cal.slots
+    # positions are slot-major (slot·N + dst): [L·SLOTS, N] rows
+    view = plane.view(-1, n)
+    kill = (view != 0) & dst_mask[None, :]
+    purged = kill.sum(dtype=torch.int32)
+    view.masked_fill_(kill, 0)
+    return cal, purged
+
+
 def enqueue(
     cal: Calendar,
     link: LinkState,
@@ -248,17 +269,29 @@ def enqueue(
     stacking: bool = True,
     bw_queue_cap: int = 128,
     validate: bool = False,
+    faults=None,
+    dead: torch.Tensor | None = None,
+    tick: int | None = None,
+    want_fate: bool = False,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
     place. ``key`` is the per-tick link key (two uint32 words). Semantics
     and argument meanings are the reference ``enqueue``'s
-    (``testground_tpu/sim/net.py:545``)."""
-    if control_start is not None:
-        raise NotImplementedError(
-            "control lanes (additional hosts) are not ported yet: ROADMAP "
-            "queue 1 item 4 (control lanes)"
-        )
+    (``testground_tpu/sim/net.py:545``):
+
+    - ``control_start``: lanes at indices ≥ it are control-route endpoints
+      (additional hosts); traffic to or from them bypasses filters, every
+      shaping feature and every fault, and rides the 1-tick floor.
+    - ``faults``: a :class:`~.faults.FaultSchedule`, or its
+      :class:`~.faults.DeviceFaults` lowering (the engine lowers once per
+      program); its windows are resolved at ``tick``, the host's copy of
+      ``t`` (read off ``t`` when not given).
+    - ``dead``: [N] bool, lanes crashed by the fault plane; traffic to or
+      from them is killed and counted in ``fault_dropped``.
+    - ``want_fate``: also return ``NetFeedback.fate``, the per-message
+      transport fate in outbox order (-1 not sent, 0 enqueued, 1
+      rejected, 2 fault-dropped, 3 dropped)."""
     slots = cal.slots
     width = cal.width
     horizon, ns = cal.occupancy_plane.shape
@@ -275,6 +308,7 @@ def enqueue(
     dst_f = dst.reshape(-1)
     pay_w = [payload[:, w, :].reshape(-1) for w in range(width)]
     val_f = valid.reshape(-1)
+    val0 = val_f
     m = val_f.shape[0]
     sent = val_f.sum(dtype=i32)
 
@@ -290,15 +324,24 @@ def enqueue(
     salt = _hash_salt(key)
     h0 = (midx.to(torch.int64) * 0x9E3779B1 + salt) & _M32
 
+    def uhash_id(fid):
+        # feature ids 1..len(FULL_SHAPING) are the shaping knobs; the
+        # fault plane's loss bursts draw from the ids past that range
+        return _mix((h0 + ((fid * 0x9E3779B9) & _M32)) & _M32)
+
     def uhash(feat):
-        fid_mix = ((1 + FULL_SHAPING.index(feat)) * 0x9E3779B9) & _M32
-        return _mix((h0 + fid_mix) & _M32)
+        return uhash_id(1 + FULL_SHAPING.index(feat))
 
     def u(feat):
         return (uhash(feat) >> 8).to(torch.float32) * (2.0**-24)
 
     dst_safe = dst_f.clamp(0, n - 1)
     val_f = val_f & (dst_f >= 0) & (dst_f < n)
+
+    # --- control routes: host-lane traffic is exempt from everything below
+    is_ctrl = None
+    if control_start is not None:
+        is_ctrl = (dst_safe >= control_start) | (src_f >= control_start)
 
     # --- filters: per-(src instance, dst region) dense table, or
     # per-src range-rule lists over dst indices (first match wins)
@@ -331,12 +374,56 @@ def enqueue(
             )
             action = torch.where(hit, srow(link.rules[k, 2]), action)
             matched = matched | hit
+    rej_m = None
     if action is not None:
+        accept = action == FILTER_ACCEPT
         rejected_msg = val_f & (action == FILTER_REJECT)
-        val_f = val_f & (action == FILTER_ACCEPT)
+        if is_ctrl is not None:
+            accept = accept | is_ctrl
+            rejected_msg = rejected_msg & ~is_ctrl
+        val_f = val_f & accept
+        rej_m = rejected_msg
         rejected = rejected_msg.reshape(o, n).sum(dim=0, dtype=i32)
     else:
         rejected = torch.zeros(n, dtype=i32, device=dev)
+
+    # --- fault plane (net.py:817-863): scheduled kills after the filters
+    # (the REJECT feedback a sender sees is fault-independent) and before
+    # the shaping losses, so every fault kill lands in fault_dropped.
+    # Only the windows open at this tick are evaluated: a closed window
+    # contributes nothing to the reference's OR.
+    zero = torch.zeros((), dtype=i32, device=dev)
+    fault_dropped = zero
+    fault_m = None
+    if faults is not None and not isinstance(faults, DeviceFaults):
+        faults = DeviceFaults.lower(faults, dev, n)
+    if faults is not None and tick is None:
+        tick = int(t)
+    if faults is not None or dead is not None:
+        if dead is not None:
+            kill = srow(dead) | dead[dst_safe]
+        else:
+            kill = torch.zeros(m, dtype=torch.bool, device=dev)
+        if faults is not None:
+            for e in faults.drops_at(tick):
+                a, b = faults.drop_a[e], faults.drop_b[e]
+                hit = srow(a) & b[dst_safe]
+                if faults.sched.drop_sym[e]:
+                    hit = hit | (srow(b) & a[dst_safe])
+                kill = kill | hit
+            for e in faults.losses_at(tick):
+                # independent dice per loss window (ids past the shaping
+                # range); the same murmur3 finalizer as the netem draws
+                uf = (uhash_id(1 + len(FULL_SHAPING) + int(e)) >> 8).to(
+                    torch.float32
+                ) * (2.0**-24)
+                lossy = uf * 100.0 < float(faults.sched.loss_pct[e])
+                kill = kill | (lossy & srow(faults.loss_masks[e]))
+        if is_ctrl is not None:
+            kill = kill & ~is_ctrl
+        fault_m = val_f & kill
+        fault_dropped = fault_m.sum(dtype=i32)
+        val_f = val_f & ~fault_m
 
     # --- bandwidth, admission-cap semantics (the HTB queue below
     # supersedes it when declared)
@@ -347,11 +434,13 @@ def enqueue(
             torch.full_like(bw, float(o)),
             torch.floor(bw * (tick_ms / 1000.0) / MSG_BYTES),
         )
-        val_f = val_f & (slot_in_src.to(torch.float32) < cap)
+        admit = slot_in_src.to(torch.float32) < cap
+        val_f = val_f & (admit if is_ctrl is None else admit | is_ctrl)
 
     # --- loss
     if "loss" in features:
-        val_f = val_f & (u("loss") * 100.0 >= eg(LOSS))
+        keep = u("loss") * 100.0 >= eg(LOSS)
+        val_f = val_f & (keep if is_ctrl is None else keep | is_ctrl)
 
     # --- corrupt: flip one random bit of payload word 0
     if "corrupt" in features:
@@ -359,6 +448,8 @@ def enqueue(
         corrupt = (hc >> 8).to(torch.float32) * (2.0**-24) * 100.0 < eg(
             CORRUPT
         )
+        if is_ctrl is not None:
+            corrupt = corrupt & ~is_ctrl
         bit = torch.remainder(hc & 0xFF, 31).to(i32)
         flipped = pay_w[0] ^ torch.bitwise_left_shift(torch.ones_like(bit), bit)
         pay_w[0] = torch.where(corrupt, flipped, pay_w[0])
@@ -367,6 +458,21 @@ def enqueue(
     delay_ms = eg(LATENCY)
     if "jitter" in features:
         delay_ms = delay_ms + eg(JITTER) * u("jitter")
+    spikes = faults.latency_at(tick) if faults is not None else ()
+    if len(spikes):
+        # latency_spike windows: additive egress delay on the targeted
+        # senders, summed in float32 in event order. The reference adds
+        # 0.0 for each closed window, which changes no bit, so only the
+        # open ones are added here
+        extra = torch.zeros(n, dtype=torch.float32, device=dev)
+        for e in spikes:
+            extra = extra + torch.where(
+                faults.lat_masks[e], float(faults.sched.lat_ms[e]), 0.0
+            )
+        per_msg = srow(extra)
+        if is_ctrl is not None:
+            per_msg = torch.where(is_ctrl, 0.0, per_msg)
+        delay_ms = delay_ms + per_msg
     delay = torch.ceil(delay_ms / tick_ms).to(i32).clamp_min(1)
     if "reorder" in features:
         reorder = u("reorder") * 100.0 < eg(REORDER)
@@ -377,7 +483,6 @@ def enqueue(
     # deferred k service-ticks arrives k ticks later, and only a full
     # queue (bw_queue_cap messages) tail-drops. The float32 expressions
     # keep the reference's order of operations.
-    zero = torch.zeros((), dtype=i32, device=dev)
     bw_dropped = zero
     new_backlog = link.backlog
     if "bandwidth_queue" in features:
@@ -390,6 +495,8 @@ def enqueue(
         rate = bw * (tick_ms / 1000.0) / MSG_BYTES
         safe_rate = rate.clamp_min(1e-9)
         queued = val_f & (bw > 0.0)
+        if is_ctrl is not None:
+            queued = queued & ~is_ctrl
         qmask = queued.reshape(o, n).to(torch.float32)
         ahead = (torch.cumsum(qmask, dim=0) - qmask).reshape(-1)
         backlog_m = srow(link.backlog)
@@ -409,11 +516,27 @@ def enqueue(
             (link.backlog + admitted / rate_src - 1.0).clamp_min(0.0),
         )
 
+    if is_ctrl is not None:  # control routes ride at the 1-tick floor
+        delay = torch.where(is_ctrl, torch.ones_like(delay), delay)
+
     # --- calendar-horizon overflow is counted, then clamped
     clamped = (val_f & (delay > horizon - 1)).sum(dtype=i32)
     delay = delay.clamp(1, horizon - 1)
 
-    def feedback(enqueued, collisions=None, where=None):
+    def fate_of(survived):
+        """Per-message fate in outbox order (net.py:998-1013): dropped by
+        default, overridden by fault kills, then rejects, then survival."""
+        if not want_fate:
+            return None
+        f = torch.full((m,), 3, dtype=i32, device=dev)
+        if fault_m is not None:
+            f = torch.where(fault_m, 2, f)
+        if rej_m is not None:
+            f = torch.where(rej_m, 1, f)
+        f = torch.where(survived, 0, f)
+        return torch.where(val0, f, -1).to(i32)
+
+    def feedback(enqueued, fate, collisions=None, where=None):
         return NetFeedback(
             rejected=rejected,
             clamped=clamped,
@@ -425,19 +548,26 @@ def enqueue(
             ),
             sent=sent,
             enqueued=enqueued,
-            fault_dropped=zero,
+            fault_dropped=fault_dropped,
+            fate=fate,
         )
 
     if slot_mode == "direct":
         enq, collisions, where = _commit_direct(
             cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate
         )
-        return cal, feedback(enq, collisions, where)
+        return cal, feedback(enq, fate_of(val_f), collisions, where)
 
     # --- duplicate: a second copy one tick later (clipped at the horizon,
-    # and counted as clamped when that shortens its delay)
+    # and counted as clamped when that shortens its delay); a copy shares
+    # its original's index for the fate
+    orig = midx
     if "duplicate" in features:
         dup = val_f & (u("duplicate") * 100.0 < eg(DUPLICATE))
+        if is_ctrl is not None:
+            dup = dup & ~is_ctrl
+        if want_fate:
+            orig = torch.cat([midx, midx])
         sent = sent + dup.sum(dtype=i32)
         clamped = clamped + (dup & (delay >= horizon - 1)).sum(dtype=i32)
         dst_safe = torch.cat([dst_safe, dst_safe])
@@ -461,7 +591,14 @@ def enqueue(
     cal, survived = commit_calendar(
         cal, sk.contiguous(), occ_vals.contiguous(), pay_s, t, stacking=stacking
     )
-    return cal, feedback(survived.sum(dtype=i32))
+    fate = None
+    if want_fate:
+        # sorted survival back to outbox order: either copy made it (max)
+        surv = torch.zeros(m, dtype=i32, device=dev).scatter_reduce_(
+            0, orig[order].to(torch.int64), survived, "amax"
+        )
+        fate = fate_of(surv > 0)
+    return cal, feedback(survived.sum(dtype=i32), fate)
 
 
 def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,

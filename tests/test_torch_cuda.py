@@ -226,3 +226,112 @@ def test_gpu_run_matches_cpu_run(cuda, name):
         assert rc[k] == rg[k], k
     for k in cc:
         np.testing.assert_array_equal(cg[k], cc[k], err_msg=k)
+
+
+def _faults_for(groups, n):
+    """Every fault kind over a 64-instance run, windows inside 48 ticks."""
+    from testground_tpu_torch.sim.faults import build_fault_schedule
+
+    q = n // 8
+    return build_fault_schedule(groups, {"": [
+        {"kind": "crash", "start_ms": 6, "instances": f"0:{q}"},
+        {"kind": "restart", "start_ms": 20, "instances": f"0:{q}"},
+        {"kind": "link_flap", "start_ms": 8, "duration_ms": 12, "period_ms": 4,
+         "duty": 0.5, "instances": f"{q}:{2 * q}"},
+        {"kind": "partition", "start_ms": 24, "duration_ms": 10,
+         "instances": f"0:{n // 2}", "to_instances": f"{n // 2}:{n}"},
+        {"kind": "latency_spike", "start_ms": 10, "duration_ms": 20, "latency_ms": 2.0,
+         "instances": f"{2 * q}:{3 * q}"},
+        {"kind": "loss_burst", "start_ms": 30, "duration_ms": 10, "loss": 30.0,
+         "instances": f"{3 * q}:{4 * q}"},
+    ]}, 1.0)
+
+
+# name: (plan, case, params, options)
+GPU_FAULT_RUNS = {
+    "sustained-faulted": ("network", "pingpong-sustained",
+                          {"duration_ticks": "48", "reshape_every": "16"}, {"faults": True}),
+    "chaos": ("chaos", "chaos-barrier",
+              {"heal_tick": "108", "deadline": "184"}, {"faults": True}),
+    "additional-hosts": ("additional_hosts", "additional_hosts", {},
+                         {"hosts": ("http-echo",)}),
+    "additional-hosts-faulted": ("additional_hosts", "additional_hosts_drop", {},
+                                 {"hosts": ("http-echo",), "faults": True}),
+}
+
+
+@pytest.mark.parametrize("name", list(GPU_FAULT_RUNS))
+def test_gpu_faulted_and_hosts_run_matches_cpu_run(cuda, name):
+    """A fault schedule and control lanes at 64 instances: the GPU run
+    (kernels) against the CPU run (plain versions), every carry leaf."""
+    plan, case, params, opts = GPU_FAULT_RUNS[name]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    groups = build_groups([RunGroup(id="all", instances=64, parameters=params)])
+    faults = _faults_for(groups, 64) if opts.get("faults") else None
+    out = []
+    for device in ("cpu", cuda):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, faults=faults, hosts=opts.get("hosts", ()))
+        last = {}
+        res = prog.run(seed=1, max_ticks=512,
+                       observer=lambda k, c: last.__setitem__("c", carry_to_numpy(c)))
+        out.append((res, last["c"]))
+    (rc, cc), (rg, cg) = out
+    if faults is not None:
+        assert rc["faults_crashed"] > 0
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped",
+              "msgs_rejected", "fault_dropped", "faults_crashed", "faults_restarted"):
+        assert rc[k] == rg[k], k
+    np.testing.assert_array_equal(rg["status"], rc["status"])
+    for k in cc:
+        np.testing.assert_array_equal(cg[k], cc[k], err_msg=k)
+
+
+def test_enqueue_with_control_lanes_sharing_buckets_matches_cpu(cuda):
+    """Host echo rows (the 1-tick floor) and plan rows shaped to one tick
+    land in the same (bucket, dst) as messages already there (a
+    pre-filled calendar), under a fault schedule and a dead mask: K1 on
+    the card against the plain commit on the CPU."""
+    from testground_tpu_torch.sim.faults import build_fault_schedule
+
+    n, h, o, slots, horizon = 1000, 3, 4, 4, 8
+    lanes = n + h
+    rng = np.random.default_rng(4)
+    groups = build_groups([RunGroup(id="all", instances=n)])
+    faults = build_fault_schedule(groups, {"": [
+        {"kind": "partition", "start_ms": 0, "duration_ms": 9, "instances": "0:300",
+         "to_instances": "300:600"},
+        {"kind": "loss_burst", "start_ms": 0, "duration_ms": 9, "loss": 20.0},
+        {"kind": "latency_spike", "start_ms": 0, "duration_ms": 9, "latency_ms": 0.5,
+         "instances": "600:700"}]}, 1.0)
+    egress = np.zeros((7, lanes), np.float32)
+    egress[0] = rng.uniform(0.1, 1.0, lanes)  # every plan row: a one-tick delay
+    egress[5] = 25.0  # reorder: the floor again
+    dst = rng.integers(0, 40, (o, lanes)).astype(np.int32)  # heavy fan-in
+    dead = rng.random(lanes) < 0.05
+    dead[n:] = False
+    occ = np.where(rng.random((horizon, lanes * slots)) < 0.3,
+                   rng.integers(1, lanes + 1, (horizon, lanes * slots)), 0).astype(np.int32)
+    payload = rng.integers(0, 99, (o, 1, lanes)).astype(np.int32)
+    valid = rng.random((o, lanes)) < 0.9
+    outs = []
+    for device in ("cpu", cuda):
+        def d(a):
+            return torch.from_numpy(np.array(a)).to(device)
+
+        cal = net.Calendar(payload=(d(occ * 7),), src=d(occ), valid=None, slots=slots)
+        link = net.make_link_state(lanes, 1, (1.0,) * 7, device=device)
+        link.egress = d(egress)
+        before = ct.commit_calendar.launches
+        cal, fb = net.enqueue(cal, link, d(dst), d(payload), d(valid),
+                              torch.tensor(4, dtype=torch.int32, device=device), 1.0,
+                              (7, 9), features=("latency", "reorder", "filters"),
+                              control_start=n, faults=faults, dead=d(dead),
+                              want_fate=True)
+        if torch.device(device).type == "cuda":
+            assert ct.commit_calendar.launches == before + 1
+        outs.append([cal.src.cpu(), cal.payload[0].cpu(), fb.enqueued.cpu(),
+                     fb.fault_dropped.cpu(), fb.fate.cpu()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][3]) > 0

@@ -5,8 +5,9 @@ and a two-group layout) through both packages' library entry points,
 comparing every ``results()`` key, every state leaf and the final carry
 (calendar planes included) through ``carry_io``; one resume: JAX runs k
 ticks, the carry crosses over with ``carry_from_numpy``, and both run on;
-the sync fold with live topics; and the refusals of what the port does
-not run yet, or refuses as the reference does."""
+the sync fold with live topics; the options the port builds (control
+lanes and fault schedules among them); and the refusals of what the port
+does not run yet, or refuses as the reference does."""
 
 import os
 
@@ -250,18 +251,10 @@ def _groups(n=4):
     "tc,kw,item",
     [
         (papi.SimTestcase, {"mesh": object()}, "item 15"),
-        (papi.SimTestcase, {"faults": object()}, "item 11"),
         (papi.SimTestcase, {"telemetry": True}, "item 10"),
         (papi.SimTestcase, {"trace": object()}, "item 12"),
         (papi.SimTestcase, {"netmatrix": True}, "item 12"),
         (papi.SimTestcase, {"live_counts": (4,)}, "item 13"),
-        (papi.SimTestcase, {"hosts": ("http-echo",)}, "item 4"),
-        # validate, direct slots, duplicate and filter_rules are ported;
-        # with control lanes they are still refused
-        (papi.SimTestcase, {"validate": True, "hosts": ("http-echo",)}, "item 4"),
-        (_Direct, {"hosts": ("http-echo",)}, "item 4"),
-        (_Dup, {"hosts": ("http-echo",)}, "item 4"),
-        (_Rules, {"hosts": ("http-echo",)}, "item 4"),
     ],
 )
 def test_unported_options_refuse_loudly(tc, kw, item):
@@ -269,15 +262,34 @@ def test_unported_options_refuse_loudly(tc, kw, item):
         SimProgram(tc(), _groups(), device="cpu", **kw)
 
 
+def _crash_schedule():
+    from testground_tpu_torch.sim.faults import build_fault_schedule
+
+    return build_fault_schedule(_groups(), {"": [{"kind": "crash", "start_ms": 2}]}, 1.0)
+
+
+_HOST = {"hosts": ("http-echo",)}
+
+
 @pytest.mark.parametrize(
     "tc,kw",
-    [(papi.SimTestcase, {"validate": True}), (_Direct, {}), (_Dup, {}), (_Rules, {})],
-    ids=["validate", "direct", "duplicate", "filter_rules"],
+    [(papi.SimTestcase, {"validate": True}), (_Direct, {}), (_Dup, {}), (_Rules, {}),
+     (papi.SimTestcase, _HOST), (papi.SimTestcase, {"validate": True, **_HOST}),
+     (_Dup, _HOST), (_Rules, _HOST), (papi.SimTestcase, {"faults": "crash"}),
+     (_Rules, {"faults": "crash", **_HOST})],
+    ids=["validate", "direct", "duplicate", "filter_rules", "hosts", "validate+hosts",
+         "duplicate+hosts", "filter_rules+hosts", "faults", "filter_rules+faults+hosts"],
 )
 def test_ported_options_build(tc, kw):
+    if kw.get("faults") == "crash":
+        kw = {**kw, "faults": _crash_schedule()}
     prog = SimProgram(tc(), _groups(), device="cpu", **kw)
     carry = prog.init_carry(seed=1)
     assert (carry.link.rules is not None) == (tc is _Rules)
+    lanes = 4 + len(kw.get("hosts", ()))
+    assert carry.status.shape == carry.link.region_of.shape == (lanes,)
+    assert carry.cal.occupancy_plane.shape[1] == lanes * tc.IN_MSGS
+    assert carry.sync.last_seq.shape[1] == 4 and carry.keys.shape[0] == 4
 
 
 def _declaring(**statics):

@@ -1,7 +1,8 @@
 """Guards that keep the port a port:
 
 - no module of ``testground_tpu_torch/`` (plans included) and not
-  ``chip_smoke.py`` imports jax or the JAX package ``testground_tpu``;
+  ``chip_smoke.py`` imports jax, the JAX package ``testground_tpu`` or the
+  JAX plans under ``plans/``;
 - ``SimProgram`` with no ``device`` refuses to run without a GPU instead
   of carrying on on the CPU;
 - a kernel wrapper handed a CUDA tensor goes to its kernel (or raises),
@@ -30,7 +31,7 @@ def _port_sources():
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "testground_tpu")
+    return top in ("jax", "jaxlib", "testground_tpu", "plans")
 
 
 @pytest.mark.parametrize("rel", _port_sources())
@@ -55,8 +56,10 @@ def test_port_module_imports_neither_jax_nor_the_jax_package(rel):
 def test_the_scan_sees_the_whole_port():
     rels = _port_sources()
     for must in ("chip_smoke.py", "testground_tpu_torch/sim/engine.py",
-                 "testground_tpu_torch/plans/network/sim.py",
-                 "testground_tpu_torch/plans/benchmarks/sim.py"):
+                 "testground_tpu_torch/sim/faults.py",
+                 *(f"testground_tpu_torch/plans/{p}/sim.py"
+                   for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
+                             "additional_hosts", "chaos"))):
         assert must in rels
 
 

@@ -381,3 +381,126 @@ def test_resume_from_jax_carry_with_new_link_leaves(name):
     assert (res_p["status"] == papi.SUCCESS).all()
     assert_results_equal(res_j, res_p, name)
     assert_carries_equal(flat_j, pprog, flat_p, name)
+
+
+# ----------------------------------------- placebo, verify, splitbrain,
+# additional_hosts and chaos
+
+
+def _smoke_faults():
+    """The fault tables of ``plans/chaos/_compositions/smoke.toml``."""
+    import tomllib
+
+    with open(os.path.join(_ref_plan("chaos"), "_compositions", "smoke.toml"), "rb") as f:
+        comp = tomllib.load(f)
+    return {g["id"]: g["run"]["faults"] for g in comp["groups"]}
+
+
+# name: (plan, case, n, params, max_ticks, options, expected status)
+# options: {"hosts": (...)} and/or {"faults": tables by group id}
+NEW_PLAN_CASES = {
+    "placebo/ok": ("placebo", "ok", 4, {}, 16, {}, papi.SUCCESS),
+    "placebo/abort": ("placebo", "abort", 4, {}, 16, {}, papi.FAILURE),
+    "placebo/panic": ("placebo", "panic", 4, {}, 16, {}, papi.CRASH),
+    "placebo/stall": ("placebo", "stall", 4, {}, 24, {}, papi.RUNNING),
+    "placebo/silent": ("placebo", "silent", 4, {}, 24, {}, papi.RUNNING),
+    "placebo/optional-failure": ("placebo", "optional-failure", 4,
+                                 {"should_fail": "true"}, 16, {}, papi.FAILURE),
+    "placebo/optional-success": ("placebo", "optional-failure", 4, {}, 16, {},
+                                 papi.SUCCESS),
+    "placebo/metrics": ("placebo", "metrics", 4, {}, 32, {}, papi.SUCCESS),
+    "verify/uses-data-network": ("verify", "uses-data-network", 6, {"pings": "3"},
+                                 256, {}, papi.SUCCESS),
+    "verify/uses-data-network-drop": ("verify", "uses-data-network-drop", 6,
+                                      {"pings": "3"}, 256, {}, papi.SUCCESS),
+    "splitbrain/accept": ("splitbrain", "accept", 9, {}, 512, {}, papi.SUCCESS),
+    "splitbrain/drop": ("splitbrain", "drop", 9, {}, 512, {}, papi.SUCCESS),
+    # the reference's 9-workload matrix row (tests/test_transport_pallas.py)
+    "splitbrain/filters+regions": ("splitbrain", "reject", 15, {}, 2048, {},
+                                   papi.SUCCESS),
+    # the matrix row's control lanes, and the DROP-all data plane
+    "additional-hosts/control-lanes": ("additional_hosts", "additional_hosts", 8, {},
+                                       1024, {"hosts": ("http-echo",)}, papi.SUCCESS),
+    "additional-hosts/drop": ("additional_hosts", "additional_hosts_drop", 8, {},
+                              1024, {"hosts": ("http-echo",)}, papi.SUCCESS),
+    "chaos/smoke": ("chaos", "chaos-barrier", 8, {}, 512, {"faults": "smoke"},
+                    papi.SUCCESS),
+    # a restart revives plan-crashed slots too; they panic again
+    "placebo/panic-restarted": ("placebo", "panic", 4, {}, 16,
+                                {"faults": {"all": [{"kind": "restart", "start_ms": 3,
+                                                     "instances": "1:3"}]}},
+                                papi.CRASH),
+}
+
+
+def _new_plan_programs(name, chunk=16):
+    """The JAX package's program and the port's for one NEW_PLAN_CASES
+    entry, each with its own package's fault schedule."""
+    from testground_tpu.sim.executor import instantiate_testcase as jinst
+    from testground_tpu.sim.executor import load_sim_testcases as jload
+    from testground_tpu.sim.faults import build_fault_schedule as jfaults
+    from testground_tpu_torch.sim.faults import build_fault_schedule as pfaults
+
+    plan, case, n, params, _, opts, _ = NEW_PLAN_CASES[name]
+    tables = opts.get("faults", {})
+    if tables == "smoke":
+        tables = _smoke_faults()
+    hosts = opts.get("hosts", ())
+    jgroups = jbuild([JRunGroup(id="all", instances=n, parameters=dict(params))])
+    pgroups = build_groups([RunGroup(id="all", instances=n, parameters=dict(params))])
+    jtc = jinst(jload(_ref_plan(plan))[case], jgroups, 1.0)
+    ptc = instantiate_testcase(load_sim_testcases(plan_dir(plan))[case], pgroups, 1.0)
+    meta = dict(test_plan=plan, test_case=case, tick_ms=1.0, chunk=chunk, hosts=hosts)
+    jprog = JSimProgram(jtc, jgroups, faults=jfaults(jgroups, tables, 1.0), **meta)
+    pprog = SimProgram(ptc, pgroups, faults=pfaults(pgroups, tables, 1.0),
+                       device="cpu", **meta)
+    return jprog, pprog
+
+
+@pytest.mark.parametrize("name", list(NEW_PLAN_CASES))
+def test_new_plan_case_matches_jax(name):
+    """Every case of the five plan twins against the JAX plan: the
+    expected terminal status on every instance, every ``results()`` key,
+    every state leaf, the final carry and ``collect_metrics``."""
+    max_ticks, want = NEW_PLAN_CASES[name][4], NEW_PLAN_CASES[name][6]
+    jprog, pprog = _new_plan_programs(name)
+    res_j, (flat_j, _) = run_capturing(jprog, seed=3, max_ticks=max_ticks)
+    res_p, (flat_p, _) = run_capturing(pprog, seed=3, max_ticks=max_ticks)
+    assert (res_p["status"] == want).all(), (name, res_p["status"])
+    assert_results_equal(res_j, res_p, name)
+    assert_carries_equal(flat_j, pprog, flat_p, name)
+    if hasattr(jprog.tc, "collect_metrics"):
+        mj, mp = _metrics(jprog, res_j), _metrics(pprog, res_p)
+        assert sorted(mj) == sorted(mp), name
+        for k in mj:
+            np.testing.assert_array_equal(np.asarray(mp[k]), np.asarray(mj[k]), err_msg=k)
+    if name == "placebo/panic-restarted":
+        assert res_p["faults_restarted"] == 2
+        assert res_p["finished_at"].tolist() == [0, 3, 3, 0]
+    if name == "chaos/smoke":
+        assert res_p["faults_crashed"] == 2 and res_p["faults_restarted"] == 2
+        assert res_p["fault_dropped"] > 0
+        assert res_p["msgs_sent"] == (
+            res_p["msgs_delivered"] + res_p["cal_depth"] + res_p["msgs_dropped"]
+            + res_p["msgs_rejected"] + res_p["fault_dropped"])
+    if name.startswith("additional-hosts"):
+        assert res_p["status"].shape == (8,)  # the host lane is sliced off
+        assert res_p["msgs_delivered"] == 16  # 8 requests + 8 echoes
+
+
+@pytest.mark.parametrize("plan", ["placebo", "verify", "splitbrain", "additional_hosts",
+                                  "chaos"])
+def test_new_plan_statics_match_reference(plan):
+    from testground_tpu.sim.executor import load_sim_testcases as jload
+
+    jcases = jload(_ref_plan(plan))
+    pcases = load_sim_testcases(plan_dir(plan))
+    assert sorted(jcases) == sorted(pcases)
+    for name, pcls in pcases.items():
+        jcls = jcases[name]
+        for attr in ("STATES", "TOPICS", "N_REGIONS", "MSG_WIDTH", "OUT_MSGS", "IN_MSGS",
+                     "PUB_WIDTH", "SUB_K", "TOPIC_CAP", "MAX_LINK_TICKS", "SHAPING",
+                     "TRACK_SRC", "SLOT_MODE", "CROSS_TICK_STACKING", "DEFAULT_LINK"):
+            assert getattr(pcls, attr) == getattr(jcls, attr), (name, attr)
+        for attr in ("ACTION", "DROP_ALL", "DRAIN_TICKS"):
+            assert getattr(pcls, attr, None) == getattr(jcls, attr, None), (name, attr)
