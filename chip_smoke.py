@@ -18,7 +18,10 @@ and drives the port's main path through the library entry points
               (SLOTS=1, bool), storm's K2 (a 1.6M-cell bool row), the
               256-row horizon of netlinkshape, and small variants (bool
               occupancy, no stacking, etick, runs straddling a commit
-              tile, heavy fan-in, SLOTS=1, W=8); kernel, plain and library
+              tile, heavy fan-in, SLOTS=1, W=8), K1 at the flagship shape
+              with the etick plane (the telemetry plane's commit) and
+              flood's K2 with int32 occupancy (flood under the traffic
+              matrix); kernel, plain and library
               times (CUDA events, median of 25 after warm-up), the
               events' floor (an empty kernel timed the same way) and the
               memory bound at 3.35 TB/s
@@ -43,21 +46,38 @@ and drives the port's main path through the library entry points
               one: fault counters, wall and device ms/tick, busy share and
               kernels a tick of both; all SUCCESS and the flow totals
               closing over fault_dropped
-11. plans   — placebo's seven cases at 100k, and verify, splitbrain,
+11. telemetry — sustained@100k at phase 4's parameters, 500 ticks, four
+              ways in ten turns (wall deltas paired against the same
+              turn's planes-off run, resolved past the off runs' quartiles): every observability plane off, telemetry,
+              telemetry + the traffic matrix, and those two + a 64-lane
+              trace plan; wall and device ms/tick, busy share, kernels a
+              tick, host waits a tick and sync-debug counts at 32 and 64
+              ticks of each; the counter block sums to the flow totals,
+              the latency histogram to the messages delivered, the matrix
+              reconciles and the trace events decode. Then the faulted
+              sustained@100k of phase ``faults`` with telemetry + matrix:
+              the crash purge in the fault cells, the matrix reconciled
+12. plans   — placebo's seven cases at 100k, and verify, splitbrain,
               additional_hosts (one echo host) and chaos (the smoke
               composition's schedule, instance ranges scaled) at 1,024:
               each to its expected terminal status
-12. parity  — sustained, flood and storm at 4,096 instances, the faulted
+13. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
-              carry leaf and results() key; fully shaped enqueues (every
+              carry leaf and results() key, and with the planes on:
+              sustained at 4,096 with every plane, the faulted sustained
+              at 4,096 with the matrix, chaos at 64 with a trace plan,
+              traffic-shaped at 4,096 with the matrix (the HTB queue) —
+              every counter block, histogram and matrix delta, backlog
+              high-water and trace block too; fully shaped enqueues (every
               sorted-path feature; duplicate with the HTB queue; range
               rules; control lanes sharing buckets with plan rows under a
               fault schedule) and one direct-mode enqueue under validate
               with forced collisions (counts and first collision):
               bit-equal
 
-Each phase prints one JSON line. Then the card's ``name, power.limit``
+Each phase prints one JSON line (the main-path phases with their
+wall seconds). Then the card's ``name, power.limit``
 line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -67,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -77,7 +98,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
-          "benchmarks", "scale", "faults", "plans", "parity")
+          "benchmarks", "scale", "faults", "telemetry", "plans", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -404,9 +425,10 @@ class PhaseTimer:
 
 
 def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=None,
-            **kw):
+            trace=None, **kw):
     """A port SimProgram of one group; ``fault_tables`` (fault tables by
-    group id) are lowered by the port's ``build_fault_schedule``."""
+    group id) are lowered by the port's ``build_fault_schedule``, ``trace``
+    (an instance range, "lo:hi") by its ``build_trace_plan``."""
     from testground_tpu_torch.api import RunGroup
     from testground_tpu_torch.sim.engine import SimProgram, build_groups
     from testground_tpu_torch.sim.executor import (
@@ -422,6 +444,10 @@ def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=
         from testground_tpu_torch.sim.faults import build_fault_schedule
 
         kw["faults"] = build_fault_schedule(groups, fault_tables, 1.0)
+    if trace:
+        from testground_tpu_torch.sim.trace import build_trace_plan
+
+        kw["trace"] = build_trace_plan(groups, {"": {"instances": trace}})
     return SimProgram(
         tc, groups, test_plan=plan, test_case=case, tick_ms=1.0,
         chunk=chunk, device=device, **kw,
@@ -500,10 +526,12 @@ def phase_sustained(card) -> dict:
     return row
 
 
-def host_syncs(prog, ticks) -> int:
+def host_syncs(prog, ticks, sites=None) -> int:
     """Synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
     reports over one run of ``ticks`` ticks, set-up included: the runs of
-    32 and 64 ticks differ by 32 ticks' worth."""
+    32 and 64 ticks differ by 32 ticks' worth when the program's chunk
+    divides 32 (``max_ticks`` rounds up to whole chunks). ``sites``, a
+    dict, receives the count of each calling line ("file:line")."""
     import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
@@ -514,7 +542,12 @@ def host_syncs(prog, ticks) -> int:
             torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    if sites is not None:
+        for w in syncs:
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
+    return len(syncs)
 
 
 def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
@@ -703,6 +736,189 @@ def phase_faults(card) -> dict:
     check(runs["unfaulted"]["fault_dropped"] == 0, "faults: unfaulted run fault-dropped")
     return {"phase": "faults", "n": n, "schedule": sustained_fault_tables(n)[""],
             "runs": runs, "launches": launches, "card": card}
+
+
+# the telemetry phase's four ways to run sustained@100k, and how many
+# turns of the four it times: host speed drifts within a call by more
+# than a plane's wall cost, so ten pairs against the planes-off run
+TURNS = 10
+PLANE_SETS = {
+    "off": {},
+    "telemetry": {"telemetry": True},
+    "telemetry+matrix": {"telemetry": True, "netmatrix": True},
+    "telemetry+matrix+trace": {"telemetry": True, "netmatrix": True, "trace": "0:64"},
+}
+
+
+def record_planes(prog, **kw):
+    """``prog.run`` with every plane callback recording; returns
+    ``(results, {"tele", "lat", "nm", "trace"}: per-chunk arrays, last
+    carry)``."""
+    rec = {k: [] for k in ("tele", "lat", "nm", "trace")}
+    last = {}
+    res = prog.run(telemetry_cb=rec["tele"].append, lat_hist_cb=rec["lat"].append,
+                   netmatrix_cb=rec["nm"].append, trace_cb=rec["trace"].append,
+                   observer=lambda k, c: last.__setitem__("carry", c), **kw)
+    return res, rec, last["carry"]
+
+
+def run_planes(prog, max_ticks):
+    """``run_timed`` with the planes' callbacks recording, and the host's
+    waits on CUDA events counted (the done flag's, once a tick)."""
+    reset_launches()
+    waits = [0]
+    real = torch.cuda.Event.synchronize
+
+    def counted(self):
+        waits[0] += 1
+        return real(self)
+
+    torch.cuda.Event.synchronize = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, rec, carry = record_planes(prog, seed=0, max_ticks=max_ticks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.Event.synchronize = real
+    return res, wall, int(carry.t), rec, waits[0]
+
+
+def check_planes(label, prog, res, rec) -> dict:
+    """The planes' own invariants on one run: the counter rows sum to the
+    flow totals, the latency histogram to the messages delivered (no host
+    lanes here), the matrix reconciles with the flow totals, the trace
+    events decode onto the traced lanes."""
+    from testground_tpu_torch.sim import netmatrix as nm
+    from testground_tpu_torch.sim import telemetry as tele
+    from testground_tpu_torch.sim import trace as tr
+
+    out = {}
+    if prog.telemetry:
+        rows = tele.rows_from_blocks(rec["tele"], tuple(g.id for g in prog.groups))
+        totals = tele.telemetry_totals(rows)
+        want = {"delivered": res["msgs_delivered"], "sent": res["msgs_sent"],
+                "enqueued": res["msgs_enqueued"], "dropped": res["msgs_dropped"],
+                "rejected": res["msgs_rejected"], "fault_dropped": res["fault_dropped"]}
+        check(totals == want, f"{label}: counter rows {totals} != flow totals {want}")
+        hist = np.asarray(res["lat_hist"])
+        check(int(hist.sum()) == res["msgs_delivered"],
+              f"{label}: histogram {int(hist.sum())} != delivered {res['msgs_delivered']}")
+        out.update(rows=len(rows), lat_hist=hist.tolist(),
+                   latency=tele.latency_percentiles(hist.sum(axis=0), prog.tick_ms))
+    if prog.netmatrix:
+        mat = np.asarray(res["net_matrix"])
+        mism = nm.reconcile(mat, res)
+        check(not mism, f"{label}: matrix does not reconcile: {mism}")
+        out["matrix_totals"] = nm.matrix_totals(mat)
+    if prog.trace is not None:
+        events = tr.events_from_blocks(rec["trace"], lambda i: prog.groups[0].id)
+        lanes = set(prog.trace.lanes.tolist())
+        check(events and {e["instance"] for e in events} <= lanes,
+              f"{label}: trace events do not decode onto the traced lanes")
+        kinds = {}
+        for e in events:
+            kinds[e["event"]] = kinds.get(e["event"], 0) + 1
+        check({"send", "deliver"} <= set(kinds), f"{label}: trace kinds {kinds}")
+        out["trace_events"] = kinds
+    return out
+
+
+def phase_telemetry(card) -> dict:
+    """The observability planes on the full-width main path: sustained@100k
+    at phase 4's parameters four ways, timed in TURNS turns (each way once
+    a turn, every other turn in reverse order; each way's wall ms/tick
+    against the planes-off run of the same turn gives its paired deltas),
+    then profiled over one chunk each;
+    the sync-debug counts at 32 and 64 ticks use chunk-16 twins, so that
+    both runs span chunk boundaries. Then the faulted sustained of phase
+    ``faults`` with telemetry and the matrix."""
+    from testground_tpu_torch.sim import netmatrix as nm
+
+    n = 100_000
+    progs = {k: program("pingpong-sustained", n, SUSTAINED, chunk=250, **kw)
+             for k, kw in PLANE_SETS.items()}
+    runs = {k: {"wall_ms_per_tick": []} for k in PLANE_SETS}
+    launches = {"commit_calendar": 0, "pop_bucket": 0}
+    order = list(PLANE_SETS)
+    for label in [k for i in range(TURNS) for k in (order if i % 2 == 0 else order[::-1])]:
+        prog = progs[label]
+        res, wall, ticks, rec, waits = run_planes(prog, 10_000)
+        got = read_launches()
+        for k, v in got.items():
+            launches[k] += v
+        check(bool((res["status"] == 1).all()), f"telemetry {label}: not all SUCCESS")
+        check(all(v > 0 for v in got.values()), f"telemetry {label}: launches {got}")
+        check(conserved(res), f"telemetry {label}: flow totals {flows(res)}")
+        row = runs[label]
+        row["wall_ms_per_tick"].append(wall / ticks * 1e3)
+        row.update(ticks=ticks, launches=got, flows=flows(res), host_event_waits=waits,
+                   **check_planes(f"telemetry {label}", prog, res, rec))
+    off_walls = runs["off"]["wall_ms_per_tick"]
+    q1, _, q3 = statistics.quantiles(off_walls, n=4)
+    for label, row in runs.items():
+        walls = row["wall_ms_per_tick"]
+        wall_ms = statistics.median(walls)
+        deltas = [w - o for w, o in zip(walls, off_walls)]
+        diff = wall_ms - statistics.median(off_walls)
+        # a wall cost is resolved only past the planes-off runs' own spread
+        # (the distance between their quartiles)
+        row.update(wall_ms_median=wall_ms, wall_ms_range=[min(walls), max(walls)],
+                   wall_ms_delta_vs_off=deltas,
+                   wall_ms_delta_median=statistics.median(deltas),
+                   wall_ms_vs_off=diff, off_iqr_ms=q3 - q1,
+                   wall_resolved=abs(diff) > q3 - q1,
+                   turns_slower_than_off=sum(d > 0 for d in deltas))
+        row.update(device_profile(progs[label], ticks=250, wall_ms_per_tick=wall_ms,
+                                  host_ops=False))
+        twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, **PLANE_SETS[label])
+        sites = {32: {}, 64: {}}
+        row["host_syncs"] = {k: host_syncs(twin, k, sites[k]) for k in (32, 64)}
+        # the lines whose syncs grow with the ticks run: per tick
+        row["sync_sites_per_tick"] = {
+            key: (sites[64][key] - sites[32].get(key, 0)) / 32
+            for key in sites[64] if sites[64][key] != sites[32].get(key, 0)
+        }
+    off = runs["off"]
+    off_growth = off["host_syncs"][64] - off["host_syncs"][32]
+    for label, row in runs.items():
+        # the planes add no sync a tick: the counts grow as the planes-off run's do
+        growth = row["host_syncs"][64] - row["host_syncs"][32]
+        check(growth == off_growth,
+              f"telemetry {label}: {growth} syncs over 32 ticks, {off_growth} with planes off")
+        check(row["host_event_waits"] <= row["ticks"] + 1,
+              f"telemetry {label}: {row['host_event_waits']} waits in {row['ticks']} ticks")
+    check(off["host_event_waits"] == off["ticks"], f"telemetry off: {off['host_event_waits']}")
+
+    # the faulted run: the crash purge in the fault cells
+    prog = program("pingpong-sustained", n, SUSTAINED, chunk=250,
+                   fault_tables=sustained_fault_tables(n), telemetry=True, netmatrix=True)
+    res, wall, ticks, rec, waits = run_planes(prog, 10_000)
+    got = read_launches()
+    for k, v in got.items():
+        launches[k] += v
+    check(bool((res["status"] == 1).all()), "telemetry faulted: not all SUCCESS")
+    planes = check_planes("telemetry faulted", prog, res, rec)
+    from testground_tpu_torch.sim import telemetry as tele
+
+    rows = tele.rows_from_blocks(rec["tele"], ("all",))
+    crash = [i for i, r in enumerate(rows) if r["faults_crashed"] > 0]
+    check(len(crash) == 1 and crash[0] > 0, f"telemetry faulted: crash rows {crash}")
+    r, prev = rows[crash[0]], rows[crash[0] - 1]
+    purged = prev["cal_depth"] + r["enqueued"] - r["delivered"] - r["cal_depth"]
+    fault_cells = np.asarray(res["net_matrix"])[nm.NM_FAULT]
+    check(purged > 0 and r["fault_dropped"] >= purged,
+          f"telemetry faulted: purge {purged}, tick's fault_dropped {r['fault_dropped']}")
+    check(int(fault_cells.sum()) == res["fault_dropped"],
+          f"telemetry faulted: fault cells {fault_cells.tolist()}")
+    faulted = {"ticks": ticks, "wall_s": wall, "wall_ms_per_tick": wall / ticks * 1e3,
+               "launches": got, "flows": flows(res), "host_event_waits": waits,
+               "crash_tick": r["tick"], "purged": purged,
+               "crash_tick_fault_dropped": r["fault_dropped"],
+               "fault_cells": fault_cells.tolist(), **planes}
+    return {"phase": "telemetry", "n": n, "runs": runs, "faulted": faulted,
+            "launches": launches, "card": card}
 
 
 def purge_timing(n, device_ms_per_tick) -> dict:
@@ -929,6 +1145,19 @@ PARITY_RUNS = {  # name: (plan, case, n, params, chunk, max_ticks, options)
               {"fault_tables": chaos_setup(64)[1]}),
     "additional_hosts": ("additional_hosts", "additional_hosts", 64, {}, 64, 256,
                          {"hosts": ("http-echo",)}),
+    # the observability planes
+    "sustained+planes": ("network", "pingpong-sustained", 4096,
+                         {"reshape_every": "32", "latency_ms": "4", "latency2_ms": "2"}, 64,
+                         128, {"telemetry": True, "netmatrix": True, "trace": "0:64"}),
+    "sustained-faulted+matrix": ("network", "pingpong-sustained", 4096, SUSTAINED, 250, 1000,
+                                 {"fault_tables": sustained_fault_tables(4096),
+                                  "telemetry": True, "netmatrix": True}),
+    "chaos+trace": ("chaos", "chaos-barrier", 64, chaos_setup(64)[0], 64, 1024,
+                    {"fault_tables": chaos_setup(64)[1], "trace": "0:64"}),
+    # the HTB queue's backlog high-water under the matrix
+    "traffic-shaped+matrix": ("network", "traffic-shaped", 4096,
+                              {"burst": "12", "rate": "1.5"}, 64, 512,
+                              {"telemetry": True, "netmatrix": True}),
 }
 
 
@@ -940,25 +1169,35 @@ def phase_parity(card) -> dict:
         out = {}
         for dev in ("cpu", "cuda"):
             prog = program(case, n, params, chunk=chunk, device=dev, plan=plan, **opts)
-            last = {}
-            res = prog.run(seed=7, max_ticks=max_ticks,
-                           observer=lambda k, c: last.__setitem__("c", c))
-            out[dev] = (res, carry_to_numpy(last["c"]))
-        (res_c, car_c), (res_g, car_g) = out["cpu"], out["cuda"]
+            res, rec, carry = record_planes(prog, seed=7, max_ticks=max_ticks)
+            out[dev] = (res, rec, carry_to_numpy(carry))
+        (res_c, rec_c, car_c), (res_g, rec_g, car_g) = out["cpu"], out["cuda"]
         mism = [k for k in res_c if k not in ("groups", "states", "compile_secs")
                 and not np.array_equal(np.asarray(res_c[k]), np.asarray(res_g[k]))]
         mism += [k for k in car_c if not np.array_equal(car_c[k], car_g[k])]
+        mism += [k for k in rec_c if len(rec_c[k]) != len(rec_g[k]) or not all(
+            np.array_equal(a, b) for a, b in zip(rec_c[k], rec_g[k]))]
         check(not mism, f"parity {label}: CPU vs GPU differ in {mism}")
         check(res_c["msgs_sent"] > 0, f"parity {label}: nothing sent")
         runs[label] = {"n": n, "ticks": int(car_c["t"]), "leaves_compared": len(car_c),
                        "msgs_sent": res_c["msgs_sent"],
                        "fault_dropped": res_c["fault_dropped"],
-                       "all_success": bool((res_c["status"] == 1).all())}
-    check(runs["sustained"]["ticks"] == 128, "parity: the sustained run ended early")
-    short = [k for k in runs if k != "sustained" and not runs[k]["all_success"]]
+                       "all_success": bool((res_c["status"] == 1).all()),
+                       "blocks_compared": {k: len(v) for k, v in rec_c.items() if v}}
+        if opts.get("telemetry") or opts.get("trace"):
+            check(runs[label]["blocks_compared"], f"parity {label}: no plane block")
+            runs[label].update(check_planes(f"parity {label}", prog, res_c, rec_c))
+        if label == "traffic-shaped+matrix":
+            check(max(res_c["net_bw_hiwater"]) > 0, "parity: no HTB backlog high-water")
+            runs[label]["net_bw_hiwater"] = res_c["net_bw_hiwater"]
+    check(runs["sustained"]["ticks"] == runs["sustained+planes"]["ticks"] == 128,
+          "parity: a sustained run ended early")
+    short = [k for k in runs
+             if k not in ("sustained", "sustained+planes") and not runs[k]["all_success"]]
     check(not short, f"parity: {short} did not reach all SUCCESS")
-    check(runs["sustained-faulted"]["fault_dropped"] > 0
-          and runs["chaos"]["fault_dropped"] > 0, "parity: the schedules dropped nothing")
+    check(all(runs[k]["fault_dropped"] > 0 for k in (
+        "sustained-faulted", "chaos", "sustained-faulted+matrix", "chaos+trace")),
+          "parity: the schedules dropped nothing")
     return {"phase": "parity", "runs": runs, "enqueue": _shaped_parity(), "card": card}
 
 
@@ -991,6 +1230,7 @@ def main(argv=None) -> int:
 
     kernel_rows = []
     if "kernels" in phases:
+        t0 = time.perf_counter()
         N = 100_000
         cases = [
             commit_case("flagship", 8, N, 4, 1, 2 * N, False, True, False, 1),
@@ -1018,13 +1258,17 @@ def main(argv=None) -> int:
             # additional_hosts at 1,024 instances: 1,025 lanes, L=4, W=2
             commit_case("hosts-lanes", 4, 1025, 4, 2, 4 * 1025, False, True, False, 19),
             pop_case("hosts-lanes", 4, 1025, 4, 2, False, 20),
+            # the telemetry plane's commit on sustained (the etick plane),
+            # and flood's pop under the traffic matrix (int32 occupancy)
+            commit_case("flagship-etick", 8, N, 4, 1, 2 * N, False, True, True, 21),
+            pop_case("flood-int32", 8, N, 1, 1, False, 22),
         ]
         for c in cases:
             emit({"phase": "kernels", **c, "card": card})
         # the harness's own floor: an empty kernel timed the same way
         emit({"phase": "kernels", "case": "launch-floor",
               "kernel_ms": time_ms(lambda: torch.cuda._sleep(0), lambda: None),
-              "card": card})
+              "phase_s": time.perf_counter() - t0, "card": card})
         kernel_rows = cases
 
     # launches on the main paths: each phase counts its own run from zero
@@ -1032,14 +1276,20 @@ def main(argv=None) -> int:
     for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong),
                    ("flood", phase_flood), ("storm", phase_storm),
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
-                   ("faults", phase_faults), ("plans", phase_plans)):
+                   ("faults", phase_faults), ("telemetry", phase_telemetry),
+                   ("plans", phase_plans)):
         if ph in phases:
+            t0 = time.perf_counter()
             row = fn(card)
+            row["phase_s"] = time.perf_counter() - t0
             for k, v in row["launches"].items():
                 launches[k] += v
             emit(row)
     if "parity" in phases:
-        emit(phase_parity(card))
+        t0 = time.perf_counter()
+        row = phase_parity(card)
+        row["phase_s"] = time.perf_counter() - t0
+        emit(row)
 
     def kernel_entry(kname, replaces):
         flag = [c for c in kernel_rows if c["kernel"] == kname and c["case"] == "flagship"]

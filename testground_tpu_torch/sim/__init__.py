@@ -14,6 +14,9 @@ __all__ = [
     "executor",
     "faults",
     "net",
+    "netmatrix",
     "prng",
     "sync_kernel",
+    "telemetry",
+    "trace",
 ]

@@ -2,9 +2,10 @@
 
 The simulator has no weights; what a run carries is its ``SimCarry``. A
 carry flattened to numpy under dotted leaf paths (``cal.src``,
-``cal.payload.0``, ``link.egress``, ``link.backlog``, ``link.rules``,
-``sync.counts``, ``states.0.phase``,
-``keys``, ``net_key``, ``msgs_sent`` …) is the exchange format: the JAX
+``cal.payload.0``, ``cal.etick``, ``link.egress``, ``link.backlog``,
+``link.rules``, ``sync.counts``, ``states.0.phase``, ``keys``, ``net_key``,
+``msgs_sent``, ``lat_hist``, ``net_mat``, ``net_bw_hiwater`` …) is the
+exchange format: the JAX
 package's carry, flattened on its side, starts a port run from the same
 mid-run state (:func:`carry_from_numpy`), and :func:`carry_to_numpy`
 flattens a port carry the same way so two carries compare leaf by leaf.
@@ -52,8 +53,10 @@ _SCALARS = (
     "faults_restarted",
 )
 # carry leaves of planes the port does not build yet
-_UNPORTED = ("cal.etick", "lat_hist", "live_counts", "net_mat",
-             "net_bw_hiwater")
+_UNPORTED = ("live_counts",)
+# the observability planes' leaves (None when the plane is off)
+_PLANES = (("lat_hist", torch.int32), ("net_mat", torch.int32),
+           ("net_bw_hiwater", torch.float32))
 
 
 def _total(a: np.ndarray) -> int:
@@ -92,6 +95,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
         ),
         src=plane("cal.src", torch.int32) if "cal.src" in arrays else None,
         valid=plane("cal.valid", torch.bool) if "cal.valid" in arrays else None,
+        etick=plane("cal.etick", torch.int32) if "cal.etick" in arrays else None,
         slots=cls.IN_MSGS,
     )
     states = []
@@ -130,6 +134,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
             k: torch.tensor(_total(arrays[k]), dtype=i64, device=dev)
             for k in _TOTALS
         },
+        **{k: t_(k, dtype) if k in arrays else None for k, dtype in _PLANES},
     )
 
 
@@ -146,7 +151,7 @@ def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
             out[f"states.{gi}.{k}"] = host(v)
     for w, p in enumerate(carry.cal.payload):
         out[f"cal.payload.{w}"] = host(p)
-    for name in ("src", "valid"):
+    for name in ("src", "valid", "etick"):
         if getattr(carry.cal, name) is not None:
             out[f"cal.{name}"] = host(getattr(carry.cal, name))
     for f in dataclasses.fields(carry.link):
@@ -159,4 +164,7 @@ def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
     for k in ("status", "finished_at", "rejected", "collision_where",
               *_SCALARS, *_TOTALS):
         out[k] = host(getattr(carry, k))
+    for k, _ in _PLANES:
+        if getattr(carry, k) is not None:
+            out[k] = host(getattr(carry, k))
     return out

@@ -32,15 +32,38 @@ the purge run only on the ticks it names (the reference gates both behind
 ``lax.cond`` on the device). Without hosts and a schedule, the tick is the
 one it was before either existed.
 
+The observability planes (``engine.py:1465-1514, 1562-1579, 1659-1673,
+1708-1780, 1833-1870``) are options of the program, each off by default:
+
+- ``telemetry``: a ``[K]`` int32 counter row a tick
+  (``telemetry.TELEMETRY_FIXED_COLUMNS`` and one live count per group),
+  written into the chunk's ``[chunk, K]`` block on the device, and the
+  per-group delivery-latency histogram, read off the etick plane that K1
+  writes, accumulated in ``carry.lat_hist``;
+- ``netmatrix`` (needs ``telemetry``): the ``[6, GH, GH]`` src-group ×
+  dst-group flow counts in ``carry.net_mat``, crash purges included, and
+  under ``bandwidth_queue`` the per-group queue high-water;
+- ``trace``: a ``trace.TracePlan``; its lanes' event rows go into a
+  ``[chunk, R, 5]`` block.
+
+A chunk's blocks and its histogram and matrix deltas are copied to the
+host once per chunk, on the chunk's last tick, and the done flag's event
+is recorded behind those copies: the wait the loop makes for the flag
+covers them, so the planes add no host wait. Ticks after global
+completion leave their rows at -1, as the reference's padding does. The
+histogram and the matrix are zeroed at every flush (the host sums the
+deltas in int64), so the device counters never wrap. With every plane
+off the tick enters no plane code and issues no plane op.
+
 The reference's admission refusals of incompatible declarations are kept,
 with the same messages. Not ported yet — each refused with
-``NotImplementedError`` naming its ROADMAP item: meshes, shape buckets,
-the flight recorder, telemetry and the traffic matrix.
+``NotImplementedError`` naming its ROADMAP item: meshes and shape buckets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Any, Callable
 
@@ -61,22 +84,38 @@ from .api import (
 )
 from .net import (
     BANDWIDTH,
+    MSG_BYTES,
     Calendar,
     LinkState,
     apply_net_updates,
     deliver,
     enqueue,
+    latency_histogram,
     make_link_state,
     purge_dst,
+    purge_dst_matrix,
+    spread_offsets,
 )
 from .faults import DeviceFaults
+from .netmatrix import (
+    NM_CHANNELS,
+    NM_DELIVERED,
+    NM_DROPPED,
+    NM_ENQUEUED,
+    NM_FAULT,
+    NM_REJECTED,
+    NM_SENT,
+)
 from .sync_kernel import (
     SyncState,
     live_per_group,
     make_sub_window,
     make_sync_state,
+    sync_occupancy,
     update_sync,
 )
+from .telemetry import LATENCY_BINS, TELEMETRY_FIXED_COLUMNS
+from .trace import EV_DELIVER, EV_SEND, EV_SIGNAL, EV_STATUS
 
 __all__ = [
     "MAX_FILTER_CELLS",
@@ -91,9 +130,6 @@ __all__ = [
 _UNPORTED_OPTIONS = {
     "mesh": "item 15 (multi-GPU)",
     "live_counts": "item 13 (buckets, packs and checkpoint)",
-    "trace": "item 12 (SLO, trace and traffic-matrix planes)",
-    "telemetry": "item 10 (telemetry and latency planes)",
-    "netmatrix": "item 12 (SLO, trace and traffic-matrix planes)",
 }
 
 # Budget for the dense [R, N] per-region filter table, in int32 cells
@@ -145,6 +181,15 @@ class SimCarry:
     faults_crashed: torch.Tensor
     faults_restarted: torch.Tensor
     fault_dropped: torch.Tensor  # int64
+    # [G, LATENCY_BINS] int32 delivery-latency bin counts since the last
+    # chunk flush (telemetry only)
+    lat_hist: torch.Tensor | None = None
+    # [NM_CHANNELS, GH, GH] int32 flow counts since the last chunk flush
+    # (netmatrix only)
+    net_mat: torch.Tensor | None = None
+    # [GH] float32 per-src-group HTB backlog high-water, never flushed
+    # (netmatrix with bandwidth_queue only)
+    net_bw_hiwater: torch.Tensor | None = None
 
 
 def build_groups(run_groups, parameters_of=None) -> tuple[GroupSpec, ...]:
@@ -181,6 +226,9 @@ class SimProgram:
         hosts: tuple[str, ...] = (),
         validate: bool = False,
         faults=None,
+        telemetry: bool = False,
+        netmatrix: bool = False,
+        trace=None,
         **unported,
     ):
         cls = type(testcase)
@@ -215,12 +263,29 @@ class SimProgram:
         self.chunk = int(chunk)
         self.validate = bool(validate)
         self.meta = dict(test_plan=test_plan, test_case=test_case, test_run=test_run)
+        self.telemetry = bool(telemetry)
+        self._tele_k = len(TELEMETRY_FIXED_COLUMNS) + len(groups) if telemetry else 0
+        self.netmatrix = bool(netmatrix)
+        if self.netmatrix and not self.telemetry:
+            raise ValueError(
+                "the traffic-matrix plane rides the telemetry chunk "
+                "flush: enable telemetry or drop netmatrix"
+            )
+        # one hosts row past the groups, so echo traffic stays accounted
+        self._nm_gh = len(groups) + (1 if self.hosts else 0)
         self.faults = faults
         if faults is not None and faults.n != self.n:
             raise ValueError(
                 f"fault schedule lowered for {faults.n} instance(s) but "
                 f"the program has {self.n} — the schedule must be built "
                 "from the same group layout"
+            )
+        self.trace = trace
+        if trace is not None and trace.n != self.n:
+            raise ValueError(
+                f"trace plan lowered for {trace.n} instance(s) but the "
+                f"program has {self.n} — the plan must be built from "
+                "the same group layout"
             )
         # the schedule's masks on the device, once per program
         self._faults = (
@@ -263,6 +328,63 @@ class SimProgram:
             torch.arange(g.count, dtype=torch.int32, device=dev) for g in groups
         ]
         self._gs = [s + g.offset for s, g in zip(self._gseq, groups)]
+        if self.telemetry or self.trace is not None:
+            self._build_plane_statics(cls)
+
+    def _build_plane_statics(self, cls) -> None:
+        """The planes' static index tensors on the run's device, built once
+        per program (``engine.py:473-486, 602-617``)."""
+        dev = self.device
+        n_g = len(self.groups)
+        i64 = torch.int64
+        # lane → group for the histogram and the matrix rows: host lanes
+        # map to row G (the histogram's trash row, the matrix's hosts row)
+        group_of = torch.cat([
+            self._group_of.to(i64),
+            torch.full((len(self.hosts),), n_g, dtype=i64, device=dev),
+        ])
+        self._plane_group_of = group_of
+        self._zero = torch.zeros((), dtype=torch.int32, device=dev)
+        # post-host-merge outbox rows (the outbox grows to the echo slots)
+        o_rows = max(cls.OUT_MSGS, cls.IN_MSGS) if self.hosts else cls.OUT_MSGS
+        if self.netmatrix:
+            gh = self._nm_gh
+            # the tick's delta is counted privatised (net.spread_offsets):
+            # lane j adds into copy j mod P, folded by one sum
+            self._nm_copies, spread = spread_offsets(
+                group_of.shape[0], NM_CHANNELS * gh * gh, dev
+            )
+            # message m's sender lane is m mod n_lanes
+            self._nm_src_cell = (group_of * gh + spread).repeat(o_rows)
+            self._nm_del_cell = (NM_DELIVERED * gh * gh + group_of + spread)[None, :]
+            # by which flow channels are present (rejected and fault-killed
+            # may be absent): the present channels' offsets
+            chans = (NM_SENT, NM_ENQUEUED, NM_REJECTED, NM_FAULT)
+            self._nm_flow_chan = {
+                have: torch.tensor([c for c, h in zip(chans, have) if h], dtype=i64,
+                                   device=dev)[:, None] * (gh * gh)
+                for have in itertools.product((True,), (True,), (False, True), (False, True))
+            }
+        self._trace_nrows = 0
+        if self.trace is not None:
+            lanes = torch.as_tensor(self.trace.lanes, dtype=i64, device=dev)
+            n_l = lanes.shape[0]
+            s = len(cls.STATES)
+            self._trace_lanes = lanes
+            self._trace_nrows = n_l * (1 + s + o_rows + cls.IN_MSGS)
+            # per row: its lane, and its event kind when the slot is hit
+            counts = (1, s, o_rows, cls.IN_MSGS)
+            kinds = (EV_STATUS, EV_SIGNAL, EV_SEND, EV_DELIVER)
+            i32 = torch.int32
+            self._trace_lane_col = lanes.to(i32).repeat(sum(counts))
+            self._trace_kind = torch.cat([
+                torch.full((c * n_l,), k, dtype=i32, device=dev)
+                for c, k in zip(counts, kinds)
+            ])
+            self._trace_sid = torch.arange(s, dtype=i32, device=dev).repeat_interleave(n_l)
+            self._trace_zeros = torch.zeros(
+                max(s, cls.IN_MSGS) * n_l, dtype=i32, device=dev
+            )
 
     # ---------------------------------------------------------------- init
 
@@ -319,7 +441,12 @@ class SimProgram:
                 lanes,
                 cls.IN_MSGS,
                 cls.MSG_WIDTH,
-                track_src=cls.TRACK_SRC,
+                # the matrix attributes deliveries and purges to senders,
+                # so it forces the provenance plane on (the plan is still
+                # served all-zero src when it opted out)
+                track_src=cls.TRACK_SRC or self.netmatrix,
+                # the enqueue-tick plane feeds the latency histogram
+                track_etick=self.telemetry,
                 device=dev,
             ),
             link=make_link_state(
@@ -357,6 +484,23 @@ class SimProgram:
             faults_crashed=z(),
             faults_restarted=z(),
             fault_dropped=z(torch.int64),
+            lat_hist=(
+                torch.zeros((len(self.groups), LATENCY_BINS), dtype=torch.int32,
+                            device=dev)
+                if self.telemetry
+                else None
+            ),
+            net_mat=(
+                torch.zeros((NM_CHANNELS, self._nm_gh, self._nm_gh),
+                            dtype=torch.int32, device=dev)
+                if self.netmatrix
+                else None
+            ),
+            net_bw_hiwater=(
+                torch.zeros(self._nm_gh, dtype=torch.float32, device=dev)
+                if self.netmatrix and "bandwidth_queue" in cls.SHAPING
+                else None
+            ),
         )
 
     # ---------------------------------------------------------------- tick
@@ -577,32 +721,48 @@ class SimProgram:
             status = torch.where(revive, RUNNING, status)
             finished_at = torch.where(revive, -1, finished_at)
         cmask = f.crash_at(tick)
+        net_mat = carry.net_mat
         if cmask is not None:
             kill = cmask & (status == RUNNING)
             crashed_t = kill.sum(dtype=torch.int32)
-            cal, purged_t = purge_dst(cal, kill)
+            if self.netmatrix:
+                # the purge charges each lost message to its (sender group,
+                # crashed receiver group) cell of the fault channel
+                cal, purged_t, pmat = purge_dst_matrix(
+                    cal, kill, self._plane_group_of, self._nm_gh
+                )
+                net_mat = net_mat.clone()
+                net_mat[NM_FAULT] += pmat
+            else:
+                cal, purged_t = purge_dst(cal, kill)
             status = torch.where(kill, CRASH, status)
             finished_at = torch.where(kill, t, finished_at)
         carry = dataclasses.replace(
-            carry, states=states, status=status, finished_at=finished_at, cal=cal
+            carry, states=states, status=status, finished_at=finished_at, cal=cal,
+            net_mat=net_mat,
         )
         return carry, crashed_t, restarted_t, purged_t, status == CRASH
 
     def _tick(self, carry: SimCarry, timer=None, done_out=None,
-              tick: int | None = None) -> SimCarry:
+              tick: int | None = None, blocks=None, row: int = 0) -> SimCarry:
         """One simulated tick. ``timer.mark(name)`` (optional) is called at
         the tick's start ("tick") and after each phase ("deliver", "step",
-        "commit", "sync"). ``done_out`` (optional) is a ``(flag, event)``
-        pair: the host bool tensor ``flag`` receives this tick's all-done
-        flag by a non-blocking copy queued right after the step phase, and
-        ``event`` (a CUDA event, or None on the CPU) is recorded behind it,
-        so the caller can wait for the flag without waiting for the
-        commit. ``tick`` is ``carry.t`` as the host knows it; a run with a
-        fault schedule reads it off ``carry.t`` when it is not given."""
+        "commit", "sync", and "planes" when an observability plane is on).
+        ``done_out`` (optional) is a ``(flag, event)`` pair: the host bool
+        tensor ``flag`` receives this tick's all-done flag by a non-blocking
+        copy queued right after the step phase, and ``event`` (a CUDA
+        event, or None) is recorded behind it, so the caller can wait for
+        the flag without waiting for the commit. ``tick`` is ``carry.t`` as
+        the host knows it; a run with a fault schedule reads it off
+        ``carry.t`` when it is not given. ``blocks`` (a :class:`_Blocks`)
+        receives this tick's telemetry and trace rows at index ``row``."""
         cls = type(self.tc)
         t = carry.t
         if timer is not None:
             timer.mark("tick")
+        # the flight recorder's status events see scheduled crashes and
+        # restarts too: its snapshot precedes the fault phase
+        status_prev = carry.status
         crashed_t = restarted_t = purged_t = dead = None
         if self._faults is not None:
             if tick is None:
@@ -611,6 +771,19 @@ class SimProgram:
                 carry, tick
             )
         cal, inbox = deliver(carry.cal, t)
+        nm = lat_hist = None
+        if self.netmatrix:
+            # receiver-side cells from the physical provenance; a plan that
+            # opted out of provenance is then served the all-zero src of a
+            # valid-plane calendar, so it runs as it does with the plane off
+            nm = self._netmatrix_delivered(inbox)
+            if not cls.TRACK_SRC:
+                inbox = Inbox(payload=inbox.payload, src=torch.zeros_like(inbox.src),
+                              valid=inbox.valid)
+        if self.telemetry:
+            lat_hist = carry.lat_hist + latency_histogram(
+                cal, inbox, t, self._plane_group_of, len(self.groups), LATENCY_BINS
+            )
         delivered_t = inbox.valid.sum(dtype=torch.int32)
         if timer is not None:
             timer.mark("deliver")
@@ -641,6 +814,8 @@ class SimProgram:
             faults=self._faults,
             dead=dead,
             tick=tick,
+            want_fate=self.trace is not None,
+            want_flow=self.netmatrix,
         )
         link = apply_net_updates(
             carry.link,
@@ -692,6 +867,16 @@ class SimProgram:
         if purged_t is not None:
             fault_dropped_t = fault_dropped_t + purged_t
             cal_depth = cal_depth - purged_t
+        net_mat = net_bw_hiwater = None
+        if self.netmatrix:
+            nm = self._netmatrix_send(nm, fb.flow, step["dst"])
+            net_mat = carry.net_mat + nm.view(NM_CHANNELS, self._nm_gh, self._nm_gh)
+            net_bw_hiwater = carry.net_bw_hiwater
+            if net_bw_hiwater is not None:
+                # monotone max of each sender group's HTB backlog
+                net_bw_hiwater = net_bw_hiwater.scatter_reduce(
+                    0, self._plane_group_of, link.backlog, "amax"
+                )
         new = SimCarry(
             states=step["states"],
             status=step["status"],
@@ -723,10 +908,121 @@ class SimProgram:
                 else carry.faults_restarted + restarted_t
             ),
             fault_dropped=carry.fault_dropped + fault_dropped_t,
+            lat_hist=lat_hist,
+            net_mat=net_mat,
+            net_bw_hiwater=net_bw_hiwater,
         )
         if timer is not None:
             timer.mark("sync")
+        if blocks is None:
+            return new
+        if self.trace is not None:
+            self._trace_rows(
+                blocks.trace[row], t, status_prev, step["status"], step["signals"],
+                step["dst"], step["valid"], fb.fate, inbox,
+            )
+        if self.telemetry:
+            self._telemetry_row(
+                blocks.tele[row], t, step["status"], sync, delivered_t, fb.sent,
+                fb.enqueued, dropped_t, rejected_t, cal_depth, crashed_t,
+                restarted_t, fault_dropped_t,
+            )
+        if timer is not None:
+            timer.mark("planes")
         return new
+
+    def _netmatrix_delivered(self, inbox: Inbox) -> torch.Tensor:
+        """A fresh ``[P, NM_CHANNELS·GH·GH]`` privatised matrix delta
+        holding this tick's deliveries per (sender group, receiver group)
+        cell (``engine.py:1365-1382``), read off the physical provenance:
+        column j is receiver lane j, host echoes land in the hosts
+        row/column."""
+        gh = self._nm_gh
+        nm = torch.zeros(self._nm_copies * NM_CHANNELS * gh * gh, dtype=torch.int32,
+                         device=self.device)
+        srcg = self._plane_group_of[inbox.src.clamp(0, self.n_lanes - 1)]
+        idx = srcg * gh + self._nm_del_cell
+        nm.scatter_add_(0, idx.reshape(-1), inbox.valid.reshape(-1).to(torch.int32))
+        return nm
+
+    def _netmatrix_send(self, nm: torch.Tensor, flow: tuple,
+                        dst: torch.Tensor) -> torch.Tensor:
+        """Add one tick's send-side channels to the privatised delta ``nm``
+        and fold it (``engine.py:1331-1363``); returns the flat
+        ``[NM_CHANNELS·GH·GH]`` delta. The transport's per-message flow
+        channels (sent, enqueued, and rejected and fault-killed where a
+        feature can fill them) land at (sender group, physical destination
+        group), an invalid destination charged to its clipped lane's group.
+        The dropped channel is what the other four leave, cell by cell: the
+        reference's per-message residual, summed."""
+        gh = self._nm_gh
+        cells = NM_CHANNELS * gh * gh
+        cell = self._nm_src_cell + self._plane_group_of[
+            dst.reshape(-1).clamp(0, self.n_lanes - 1)
+        ]
+        chan = self._nm_flow_chan[tuple(c is not None for c in flow)]
+        nm.scatter_add_(0, (chan + cell[None, :]).reshape(-1),
+                        torch.stack([c for c in flow if c is not None]).reshape(-1))
+        nm = nm.view(self._nm_copies, cells).sum(0, dtype=torch.int32)
+        ch = nm.view(NM_CHANNELS, gh * gh)
+        ch[NM_DROPPED] = ch[NM_SENT] - ch[NM_ENQUEUED] - ch[NM_REJECTED] - ch[NM_FAULT]
+        return nm
+
+    def _telemetry_row(self, out, t, status, sync, delivered_t, sent_t,
+                       enqueued_t, dropped_t, rejected_t, cal_depth, crashed_t,
+                       restarted_t, fault_dropped_t) -> None:
+        """Write the tick's counter row into ``out`` ([K] int32,
+        ``engine.py:1465-1514``): TELEMETRY_FIXED_COLUMNS from scalars the
+        tick already holds, then the live (RUNNING) instances per group in
+        one scatter. ``bytes_enqueued`` is an int32 multiply, as in the
+        reference."""
+        zero = self._zero
+        sig_occ, pub_occ = sync_occupancy(sync)
+        fixed = [
+            t, delivered_t, sent_t, enqueued_t, dropped_t, rejected_t,
+            enqueued_t * int(MSG_BYTES), cal_depth, sig_occ, pub_occ,
+            zero if crashed_t is None else crashed_t,
+            zero if restarted_t is None else restarted_t,
+            fault_dropped_t,
+        ]
+        running = status[: self.n] == RUNNING
+        if len(self.groups) == 1:
+            torch.stack(fixed + [running.sum(dtype=torch.int32)], out=out)
+            return
+        nf = len(fixed)
+        torch.stack(fixed, out=out[:nf])
+        out[nf:].zero_().index_add_(
+            0, self._plane_group_of[: self.n], running.to(torch.int32)
+        )
+
+    def _trace_rows(self, out, t, status_prev, status_new, signals, dst, valid,
+                    fate, inbox) -> None:
+        """Write the tick's flight-recorder rows into ``out`` ([R, 5] int32,
+        columns tick, lane, kind, a, b; ``engine.py:1708-1780``): per traced
+        lane one status slot, one per sync state, one per post-merge outbox
+        row and one per inbox slot, in that order; an unused slot has kind
+        -1 and keeps its a and b values, as in the reference."""
+        lanes = self._trace_lanes
+        n_l = lanes.shape[0]
+        sp, sn = status_prev[lanes], status_new[lanes]
+        hits = [sp != sn]
+        a = [sn]
+        b = [sp]
+        if signals.shape[0] > 0:
+            sig = signals[:, lanes]
+            hits.append((sig > 0).reshape(-1))
+            a.append(self._trace_sid)
+            b.append(self._trace_zeros[: sig.numel()])
+        hits += [valid[:, lanes].reshape(-1), inbox.valid[:, lanes].reshape(-1)]
+        a += [dst[:, lanes].reshape(-1), inbox.src[:, lanes].reshape(-1)]
+        b += [fate.view(dst.shape)[:, lanes].reshape(-1),
+              self._trace_zeros[: inbox.valid.shape[0] * n_l]]
+        kind = torch.where(torch.cat(hits), self._trace_kind, -1)
+        torch.stack(
+            [t.expand(self._trace_nrows), self._trace_lane_col, kind, torch.cat(a),
+             torch.cat(b)],
+            dim=1, out=out,
+        )
 
     # ----------------------------------------------------------- execution
 
@@ -739,6 +1035,12 @@ class SimProgram:
             done = done and int(carry.t) > self._faults.last_event_tick
         return done
 
+    def telemetry_schema(self) -> tuple[str, ...]:
+        """Column names of the per-tick counter block, in device order
+        (``engine.py:1877-1883``): the fixed flow/occupancy counters, then
+        one ``live_<group id>`` column per group."""
+        return TELEMETRY_FIXED_COLUMNS + tuple(f"live_{g.id}" for g in self.groups)
+
     def run(
         self,
         seed: int = 0,
@@ -747,6 +1049,12 @@ class SimProgram:
         resume_carry: SimCarry | None = None,
         resume_ticks: int = 0,
         timer=None,
+        telemetry_cb: Callable[[np.ndarray], None] | None = None,
+        lat_hist_cb: Callable[[np.ndarray], None] | None = None,
+        trace_cb: Callable[[np.ndarray], None] | None = None,
+        netmatrix_cb: Callable[[np.ndarray], None] | None = None,
+        lat_hist_init=None,
+        net_mat_init=None,
     ) -> dict[str, Any]:
         """Step to completion (or ``max_ticks``, rounded up to whole
         chunks, as the reference does). ``observer(ticks, carry)`` is
@@ -754,7 +1062,18 @@ class SimProgram:
         updated in place by the next chunk). ``resume_carry`` /
         ``resume_ticks`` continue a run from a carry (e.g. one built by
         ``carry_io.carry_from_numpy``). ``timer`` receives per-phase marks
-        (see :meth:`_tick`)."""
+        (see :meth:`_tick`).
+
+        The observability planes' callbacks, called after every chunk in
+        the reference's order and before ``observer``
+        (``engine.py:2118-2137``): ``telemetry_cb(block)`` gets the chunk's
+        ``[chunk, K]`` int32 counter block, ``lat_hist_cb(delta)`` its
+        ``[G, LATENCY_BINS]`` int64 histogram delta, ``netmatrix_cb(delta)``
+        its ``[NM_CHANNELS, GH, GH]`` int64 matrix delta and
+        ``trace_cb(block)`` its ``[chunk, R, 5]`` int32 event block, all as
+        host numpy. The deltas also sum into ``results()['lat_hist']`` and
+        ``['net_matrix']``, seeded by ``lat_hist_init`` / ``net_mat_init``
+        on a resumed run."""
         t0 = time.perf_counter()
         if resume_carry is not None:
             carry, ticks = resume_carry, int(resume_ticks)
@@ -765,6 +1084,23 @@ class SimProgram:
             torch.zeros((), dtype=torch.bool, pin_memory=cuda),
             torch.cuda.Event() if cuda else None,
         )
+        blocks = None
+        if self.telemetry or self.trace is not None:
+            blocks = _Blocks(self, cuda)
+        lat_acc = nm_acc = None
+        if self.telemetry:
+            lat_acc = (
+                np.asarray(lat_hist_init, np.int64).copy()
+                if lat_hist_init is not None
+                else np.zeros((len(self.groups), LATENCY_BINS), np.int64)
+            )
+        if self.netmatrix:
+            gh = self._nm_gh
+            nm_acc = (
+                np.asarray(net_mat_init, np.int64).copy()
+                if net_mat_init is not None
+                else np.zeros((NM_CHANNELS, gh, gh), np.int64)
+            )
         done = self._all_done(carry)
         # the host's copy of carry.t: a fault schedule resolves its events
         # and windows against it, and its done gate reads it
@@ -775,25 +1111,64 @@ class SimProgram:
             tick = int(carry.t)
         setup_secs = 0.0
         while ticks < max_ticks:
-            for _ in range(self.chunk):
+            flushed = False
+            if blocks is not None:
+                blocks.reset()
+            for i in range(self.chunk):
                 if done:
                     break  # post-completion ticks are no-ops
-                carry = self._tick(carry, timer=timer, done_out=done_out, tick=tick)
+                # the chunk's last tick flushes the planes' blocks; the
+                # flag's event is recorded behind those copies instead
+                last = blocks is not None and i == self.chunk - 1
+                carry = self._tick(
+                    carry, timer=timer,
+                    done_out=(done_out[0], None) if last else done_out,
+                    tick=tick, blocks=blocks, row=i,
+                )
+                if last:
+                    carry = blocks.flush(carry, done_out[1])
+                    flushed = True
                 if cuda:
                     done_out[1].synchronize()
                 done = bool(done_out[0])
                 if tick is not None:
                     tick += 1
                     done = done and tick > last_event
+            if blocks is not None and not flushed:
+                # the run ended inside the chunk: its last rows were
+                # written after the flag's event
+                carry = blocks.flush(carry, done_out[1])
+                if cuda:
+                    done_out[1].synchronize()
             ticks += self.chunk
             if setup_secs == 0.0:
                 setup_secs = time.perf_counter() - t0
+            if self.telemetry:
+                if telemetry_cb is not None:
+                    telemetry_cb(blocks.host["tele"].numpy().copy())
+                delta = blocks.host["lat_hist"].numpy().astype(np.int64)
+                lat_acc += delta
+                if lat_hist_cb is not None:
+                    lat_hist_cb(delta)
+            if self.netmatrix:
+                nm_delta = blocks.host["net_mat"].numpy().astype(np.int64)
+                nm_acc += nm_delta
+                if netmatrix_cb is not None:
+                    netmatrix_cb(nm_delta)
+            if self.trace is not None and trace_cb is not None:
+                trace_cb(blocks.host["trace"].numpy().copy())
             if observer is not None:
                 observer(ticks, carry)
             if done:
                 break
         res = self.results(carry, ticks)
         res["compile_secs"] = setup_secs
+        if lat_acc is not None:
+            # Σ over bins == delivered plan messages (host lanes excluded)
+            res["lat_hist"] = lat_acc.tolist()
+        if nm_acc is not None:
+            # per channel, Σ cells == the flow total
+            res["net_matrix"] = nm_acc.tolist()
         return res
 
     def results(self, carry: SimCarry, ticks: int) -> dict[str, Any]:
@@ -819,6 +1194,11 @@ class SimProgram:
             "faults_crashed": int(carry.faults_crashed),
             "faults_restarted": int(carry.faults_restarted),
             "fault_dropped": int(carry.fault_dropped),
+            **(
+                {"net_bw_hiwater": host(carry.net_bw_hiwater).tolist()}
+                if carry.net_bw_hiwater is not None
+                else {}
+            ),
             "carry_bytes": carry_bytes(carry),
             # host lanes are internal plumbing — plan instances only
             "status": host(carry.status[: self.n]),
@@ -828,6 +1208,61 @@ class SimProgram:
             ),
             "groups": self.groups,
         }
+
+
+class _Blocks:
+    """The observability planes' per-chunk buffers: the device blocks the
+    tick writes its rows into (``tele`` [chunk, K], ``trace`` [chunk, R,
+    5]; -1 until written), and the host buffers (pinned on CUDA) that a
+    chunk's flush copies them to, with the chunk's histogram and matrix
+    deltas."""
+
+    def __init__(self, prog: SimProgram, cuda: bool):
+        dev, chunk = prog.device, prog.chunk
+        i32 = torch.int32
+        shapes = {}
+        if prog.telemetry:
+            shapes["tele"] = (chunk, prog._tele_k)
+            shapes["lat_hist"] = (len(prog.groups), LATENCY_BINS)
+        if prog.netmatrix:
+            shapes["net_mat"] = (NM_CHANNELS, prog._nm_gh, prog._nm_gh)
+        if prog.trace is not None:
+            shapes["trace"] = (chunk, prog._trace_nrows, 5)
+        self.tele = (
+            torch.empty(shapes["tele"], dtype=i32, device=dev) if "tele" in shapes else None
+        )
+        self.trace = (
+            torch.empty(shapes["trace"], dtype=i32, device=dev)
+            if "trace" in shapes
+            else None
+        )
+        self.cuda = cuda
+        self.host = {
+            k: torch.empty(v, dtype=i32, pin_memory=cuda) for k, v in shapes.items()
+        }
+
+    def reset(self) -> None:
+        """Rows of ticks that never run (after global completion) stay -1."""
+        for b in (self.tele, self.trace):
+            if b is not None:
+                b.fill_(-1)
+
+    def flush(self, carry: SimCarry, event) -> SimCarry:
+        """Queue the copies of the blocks and of the histogram and matrix
+        deltas to the host, zero the deltas in the carry, and record
+        ``event`` (a CUDA event, or None) behind the copies."""
+        src = {"tele": self.tele, "trace": self.trace, "lat_hist": carry.lat_hist,
+               "net_mat": carry.net_mat}
+        for k, h in self.host.items():
+            h.copy_(src[k], non_blocking=self.cuda)
+        carry = dataclasses.replace(
+            carry,
+            lat_hist=None if carry.lat_hist is None else torch.zeros_like(carry.lat_hist),
+            net_mat=None if carry.net_mat is None else torch.zeros_like(carry.net_mat),
+        )
+        if event is not None:
+            event.record()
+        return carry
 
 
 def _emits(out: dict, name: str, lead: tuple) -> bool:

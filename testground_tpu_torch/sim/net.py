@@ -13,12 +13,14 @@ form is an XLA:TPU layout choice), :class:`LinkState`,
 jitter, bandwidth as an admission cap or an HTB queue, loss, corrupt,
 reorder, duplicate, the dense filter table and per-instance range rules),
 control lanes (``control_start``), the fault plane's send-time terms
-(``faults``, ``dead``) and the per-message fate, :func:`purge_dst`, and
-:func:`apply_net_updates`. The commit of the sorted stream and the
-delivery pop go through the kernels of ``sim/cuda_transport.py`` (plain
-versions on the CPU). Direct mode's write, the purge and the fault
-windows are plain torch ops: in the reference too they are plain XLA,
-outside any Pallas kernel.
+(``faults``, ``dead``), the per-message fate and flow (``want_fate``,
+``want_flow``), :func:`purge_dst` and :func:`purge_dst_matrix`,
+:func:`latency_histogram` (with :func:`spread_offsets`), and
+:func:`apply_net_updates`. The commit of
+the sorted stream and the delivery pop go through the kernels of
+``sim/cuda_transport.py`` (plain versions on the CPU). Direct mode's write, the purges, the fault windows
+and the observability planes' scatters are plain torch ops: in the
+reference too they are plain XLA, outside any Pallas kernel.
 
 Bit-equality with the reference rests on three rules:
 
@@ -33,6 +35,7 @@ Bit-equality with the reference rests on three rules:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -49,8 +52,11 @@ __all__ = [
     "apply_net_updates",
     "deliver",
     "enqueue",
+    "latency_histogram",
     "make_link_state",
     "purge_dst",
+    "purge_dst_matrix",
+    "spread_offsets",
 ]
 
 # LinkShape plane indices (``pkg/sidecar/link.go:155-183``).
@@ -93,7 +99,7 @@ class LinkState:
 @dataclasses.dataclass
 class NetFeedback:
     """Per-tick transport feedback from :func:`enqueue` (the reference
-    ``NetFeedback`` minus the traffic-matrix plane's per-message flow)."""
+    ``NetFeedback``, field for field)."""
 
     rejected: torch.Tensor  # [N] int32
     clamped: torch.Tensor  # int32
@@ -105,6 +111,9 @@ class NetFeedback:
     enqueued: torch.Tensor  # int32
     fault_dropped: torch.Tensor  # int32
     fate: torch.Tensor | None = None  # [M] int32 (want_fate only)
+    # want_flow only: the four [M] int32 channels sent, enqueued, rejected,
+    # fault-killed; None for a channel no declared feature can fill
+    flow: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -254,6 +263,92 @@ def purge_dst(cal: Calendar, dst_mask: torch.Tensor) -> tuple[Calendar, torch.Te
     return cal, purged
 
 
+def purge_dst_matrix(
+    cal: Calendar, dst_mask: torch.Tensor, group_of: torch.Tensor, gh: int
+) -> tuple[Calendar, torch.Tensor, torch.Tensor]:
+    """:func:`purge_dst` with per-(src group, dst group) attribution for the
+    traffic-matrix plane (``testground_tpu/sim/net.py:450-490``): every
+    purged message is charged to its (sender group, crashed receiver
+    group) cell, the sender read as ``src - 1`` off the provenance plane.
+    ``group_of`` is the [N] lane → matrix row map (host lanes on the hosts
+    row), ``gh`` the matrix side. Returns ``(cal, purged, mat [gh, gh]
+    int32)``; the occupancy plane is cleared in place."""
+    if cal.src is None:
+        raise ValueError("purge_dst_matrix needs a Calendar built with track_src=True")
+    n = cal.src.shape[1] // cal.slots
+    view = cal.src.view(-1, n)
+    kill = (view != 0) & dst_mask[None, :]
+    purged = kill.sum(dtype=torch.int32)
+    g = group_of.to(torch.int64)
+    # every cell gets an in-range index; only killed ones add 1
+    idx = g[(view - 1).clamp(0, n - 1)] * gh + g[None, :]
+    mat = torch.zeros(gh * gh, dtype=torch.int32, device=view.device)
+    mat.scatter_add_(0, idx.reshape(-1), kill.reshape(-1).to(torch.int32))
+    view.masked_fill_(kill, 0)
+    return cal, purged, mat.view(gh, gh)
+
+
+# cells a privatised count spreads over (see spread_offsets)
+_SPREAD_CELLS = 8192
+
+
+@functools.lru_cache(maxsize=8)
+def spread_offsets(n: int, n_cells: int, device) -> tuple[int, torch.Tensor]:
+    """A privatised count of an ``[..., n]`` index plane into ``n_cells``
+    cells: element j adds into copy ``j mod P`` of the ``[P, n_cells]``
+    buffer, so the atomic adds of a few hot cells spread over P addresses
+    each, and one sum over the copies folds them. Returns ``(P, [n] int64
+    offsets (j mod P)·n_cells)``, built once per shape and device. Integer
+    adds are exact in any order."""
+    p = max(1, min(n, _SPREAD_CELLS // n_cells))
+    return p, torch.remainder(torch.arange(n, device=device), p) * n_cells
+
+
+@functools.lru_cache(maxsize=8)
+def _bin_edges(n_bins: int, device: str) -> torch.Tensor:
+    """Lower edges of bins 1.. of the delivery-latency histogram, 2^1 ..
+    2^(n_bins-1) ticks, built once per device."""
+    return torch.tensor([1 << e for e in range(1, n_bins)], dtype=torch.int32,
+                        device=device)
+
+
+def latency_histogram(
+    cal: Calendar,
+    inbox: Inbox,
+    t: torch.Tensor,
+    group_of: torch.Tensor,
+    n_groups: int,
+    n_bins: int,
+) -> torch.Tensor:
+    """Per-receiver-group histogram of the delivery latency of the bucket
+    delivered at tick ``t`` → ``[n_groups, n_bins]`` int32
+    (``testground_tpu/sim/net.py:493-542``).
+
+    Latency = ``t - etick`` of the delivered row; bin b counts delays in
+    [2^b, 2^(b+1)) ticks by integer edge compares, the last bin open-ended.
+    ``group_of`` is the [N] receiver lane → group map: a lane mapped to
+    ``n_groups`` (an additional host) counts into a trash row that is
+    sliced off, and invalid inbox slots add 0, so ``sum(hist)`` is exactly
+    the plan messages delivered. ``deliver`` clears only the occupancy
+    plane, so the etick row may be read before or after it."""
+    if cal.etick is None:
+        raise ValueError("latency_histogram needs a Calendar built with track_etick=True")
+    plane = cal.etick
+    horizon, ns = plane.shape
+    n = ns // cal.slots
+    t1 = t.reshape(1)
+    row = plane.index_select(0, torch.remainder(t1, horizon)).view(cal.slots, n)
+    binidx = torch.bucketize(t1 - row, _bin_edges(n_bins, str(plane.device)),
+                             out_int32=True, right=True)
+    cells = (n_groups + 1) * n_bins
+    p, spread = spread_offsets(n, cells, str(plane.device))
+    idx = (group_of.to(torch.int64) * n_bins + spread)[None, :] + binidx
+    hist = torch.zeros(p * cells, dtype=torch.int32, device=plane.device)
+    hist.scatter_add_(0, idx.reshape(-1), inbox.valid.reshape(-1).to(torch.int32))
+    hist = hist.view(p, cells).sum(0, dtype=torch.int32)
+    return hist[: n_groups * n_bins].view(n_groups, n_bins)
+
+
 def enqueue(
     cal: Calendar,
     link: LinkState,
@@ -273,6 +368,7 @@ def enqueue(
     dead: torch.Tensor | None = None,
     tick: int | None = None,
     want_fate: bool = False,
+    want_flow: bool = False,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
@@ -291,7 +387,13 @@ def enqueue(
       from them is killed and counted in ``fault_dropped``.
     - ``want_fate``: also return ``NetFeedback.fate``, the per-message
       transport fate in outbox order (-1 not sent, 0 enqueued, 1
-      rejected, 2 fault-dropped, 3 dropped)."""
+      rejected, 2 fault-dropped, 3 dropped).
+    - ``want_flow``: also return ``NetFeedback.flow``, the traffic-matrix
+      plane's per-message counts in outbox order, the rows of the
+      reference's ``[4, M]``: copies sent, copies enqueued (a duplicate and
+      its original add up), rejected, fault-dropped. The last two are None
+      when no filter, respectively no fault term or dead mask, is given:
+      they would be all zero."""
     slots = cal.slots
     width = cal.width
     horizon, ns = cal.occupancy_plane.shape
@@ -311,6 +413,7 @@ def enqueue(
     val0 = val_f
     m = val_f.shape[0]
     sent = val_f.sum(dtype=i32)
+    sent_m = val0.to(i32) if want_flow else None
 
     def srow(row):  # src-indexed [N] row → per message: an o-fold tile
         return row if o == 1 else row.repeat(o)
@@ -536,7 +639,17 @@ def enqueue(
         f = torch.where(survived, 0, f)
         return torch.where(val0, f, -1).to(i32)
 
-    def feedback(enqueued, fate, collisions=None, where=None):
+    def flow_of(enq_m):
+        """Per-message flow counts in outbox order (net.py:1015-1029);
+        ``enq_m`` holds each message's enqueued copies (0/1, or 0-2 with
+        duplicates)."""
+        if not want_flow:
+            return None
+        return (sent_m, enq_m.to(i32),
+                None if rej_m is None else rej_m.to(i32),
+                None if fault_m is None else fault_m.to(i32))
+
+    def feedback(enqueued, fate, flow=None, collisions=None, where=None):
         return NetFeedback(
             rejected=rejected,
             clamped=clamped,
@@ -550,25 +663,28 @@ def enqueue(
             enqueued=enqueued,
             fault_dropped=fault_dropped,
             fate=fate,
+            flow=flow,
         )
 
     if slot_mode == "direct":
         enq, collisions, where = _commit_direct(
             cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate
         )
-        return cal, feedback(enq, fate_of(val_f), collisions, where)
+        return cal, feedback(enq, fate_of(val_f), flow_of(val_f), collisions, where)
 
     # --- duplicate: a second copy one tick later (clipped at the horizon,
     # and counted as clamped when that shortens its delay); a copy shares
-    # its original's index for the fate
+    # its original's index for the fate and the flow
     orig = midx
     if "duplicate" in features:
         dup = val_f & (u("duplicate") * 100.0 < eg(DUPLICATE))
         if is_ctrl is not None:
             dup = dup & ~is_ctrl
-        if want_fate:
+        if want_fate or want_flow:
             orig = torch.cat([midx, midx])
         sent = sent + dup.sum(dtype=i32)
+        if want_flow:
+            sent_m = sent_m + dup.to(i32)
         clamped = clamped + (dup & (delay >= horizon - 1)).sum(dtype=i32)
         dst_safe = torch.cat([dst_safe, dst_safe])
         pay_w = [torch.cat([p, p]) for p in pay_w]
@@ -591,14 +707,17 @@ def enqueue(
     cal, survived = commit_calendar(
         cal, sk.contiguous(), occ_vals.contiguous(), pay_s, t, stacking=stacking
     )
-    fate = None
-    if want_fate:
-        # sorted survival back to outbox order: either copy made it (max)
-        surv = torch.zeros(m, dtype=i32, device=dev).scatter_reduce_(
-            0, orig[order].to(torch.int64), survived, "amax"
+    fate = flow = None
+    if want_fate or want_flow:
+        # sorted survival back to outbox order. The flow counts copies
+        # (add); the fate needs only "either copy made it", which the
+        # count answers too, so one scatter serves both
+        surv = torch.zeros(m, dtype=i32, device=dev).scatter_add_(
+            0, orig[order].to(torch.int64), survived
         )
         fate = fate_of(surv > 0)
-    return cal, feedback(survived.sum(dtype=i32), fate)
+        flow = flow_of(surv)
+    return cal, feedback(survived.sum(dtype=i32), fate, flow)
 
 
 def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,

@@ -20,6 +20,7 @@ __all__ = [
     "live_per_group",
     "make_sub_window",
     "make_sync_state",
+    "sync_occupancy",
     "update_sync",
 ]
 
@@ -107,6 +108,17 @@ def live_per_group(status: torch.Tensor, groups) -> torch.Tensor:
             )
             for g in groups
         ]
+    )
+
+
+def sync_occupancy(sync: SyncState) -> tuple[torch.Tensor, torch.Tensor]:
+    """The telemetry plane's occupancy of the sync service
+    (``testground_tpu/sim/sync_kernel.py:172-178``): Σ state counters (every
+    signal ever fired, the barrier occupancy) and Σ stored topic-stream
+    entries (the publish occupancy), as int32 scalars."""
+    return (
+        sync.counts.sum(dtype=torch.int32),
+        sync.stream_len.sum(dtype=torch.int32),
     )
 
 

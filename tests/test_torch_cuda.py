@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version on
-the same CUDA tensors, and a short run on the GPU against the same run on
-the CPU. Every test takes the ``cuda`` fixture, which skips it where
+the same CUDA tensors (the main path's shapes among them), and short runs
+on the GPU against the same runs on the CPU, the observability planes'
+blocks included. Every test takes the ``cuda`` fixture, which skips it where
 there is no GPU. This file imports no jax, so on a machine with the GPU
 and without jax it runs as
 
@@ -335,3 +336,73 @@ def test_enqueue_with_control_lanes_sharing_buckets_matches_cpu(cuda):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     assert int(outs[0][3]) > 0
+
+
+def test_commit_kernel_at_sustained_shape_with_etick(cuda):
+    """K1 as the telemetry plane runs it on sustained@100k: L=8, N=100k,
+    SLOTS=4, W=1, int32 occupancy, the etick plane written, m2=200k."""
+    rng = np.random.default_rng(41)
+    horizon, n, slots, m2 = 8, 100_000, 4, 200_000
+    cal = _cal(rng, horizon, n, slots, 1, False, True, cuda)
+    keys = np.sort(rng.integers(0, horizon * n + 20_000, m2))
+    keys = np.minimum(keys, horizon * n)
+    sk = torch.from_numpy(keys.astype(np.int32)).to(cuda)
+    occ_vals = torch.from_numpy(rng.integers(1, n, m2).astype(np.int32)).to(cuda)
+    pay = [torch.from_numpy(rng.integers(0, 99, m2).astype(np.int32)).to(cuda)]
+    t = torch.tensor(11, dtype=torch.int32, device=cuda)
+    a, b = _copy(cal), _copy(cal)
+    _, sa = ct.commit_calendar(a, sk, occ_vals, pay, t)
+    _, sb = ct.commit_calendar_plain(b, sk, occ_vals, pay, t)
+    torch.cuda.synchronize()
+    assert torch.equal(sa, sb) and int(sa.sum()) > 0
+    for x, y in zip(_planes(a), _planes(b)):
+        assert torch.equal(x, y)
+    assert int((a.etick == 11).sum()) >= int(sa.sum())
+
+
+def test_pop_kernel_at_flood_shape_with_int32_occupancy(cuda):
+    """K2 as flood runs under the traffic matrix (provenance forced on):
+    SLOTS=1, L=8, N=100k, int32 occupancy."""
+    rng = np.random.default_rng(42)
+    cal = _cal(rng, 8, 100_000, 1, 1, False, False, cuda)
+    t = torch.tensor(13, dtype=torch.int32, device=cuda)
+    a, b = _copy(cal), _copy(cal)
+    _, ra, pa = ct.pop_bucket(a, t)
+    _, rb, pb = ct.pop_bucket_plain(b, t)
+    torch.cuda.synchronize()
+    assert ra.dtype == torch.int32
+    for x, y in zip([ra, *pa, *_planes(a)], [rb, *pb, *_planes(b)]):
+        assert torch.equal(x, y)
+
+
+def test_gpu_run_with_every_plane_matches_cpu_run(cuda):
+    """Sustained at 4,096 instances with telemetry, the traffic matrix and
+    a 64-lane trace plan: every block, histogram and matrix delta, result
+    and carry leaf equal, CPU (plain versions) against GPU (kernels)."""
+    from testground_tpu_torch.sim.trace import build_trace_plan
+
+    factory = load_sim_testcases(plan_dir("network"))["pingpong-sustained"]
+    groups = build_groups([RunGroup(id="all", instances=4096, parameters={
+        "duration_ticks": "60", "reshape_every": "24"})])
+    out = []
+    for device in ("cpu", cuda):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, telemetry=True, netmatrix=True,
+                          trace=build_trace_plan(groups, {"": {"instances": "0:64"}}))
+        rec = {k: [] for k in ("tele", "lat", "nm", "trace")}
+        last = {}
+        res = prog.run(seed=1, max_ticks=256,
+                       telemetry_cb=rec["tele"].append, lat_hist_cb=rec["lat"].append,
+                       netmatrix_cb=rec["nm"].append, trace_cb=rec["trace"].append,
+                       observer=lambda k, c: last.__setitem__("c", carry_to_numpy(c)))
+        out.append((res, rec, last["c"]))
+    (rc, recc, cc), (rg, recg, cg) = out
+    assert (rc["status"] == 1).all() and sum(map(sum, rc["lat_hist"])) > 0
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "lat_hist", "net_matrix"):
+        assert rc[k] == rg[k], k
+    for k in recc:
+        assert len(recc[k]) == len(recg[k]) > 0, k
+        for x, y in zip(recc[k], recg[k]):
+            np.testing.assert_array_equal(y, x, err_msg=k)
+    for k in cc:
+        np.testing.assert_array_equal(cg[k], cc[k], err_msg=k)

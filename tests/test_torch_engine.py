@@ -251,9 +251,6 @@ def _groups(n=4):
     "tc,kw,item",
     [
         (papi.SimTestcase, {"mesh": object()}, "item 15"),
-        (papi.SimTestcase, {"telemetry": True}, "item 10"),
-        (papi.SimTestcase, {"trace": object()}, "item 12"),
-        (papi.SimTestcase, {"netmatrix": True}, "item 12"),
         (papi.SimTestcase, {"live_counts": (4,)}, "item 13"),
     ],
 )
@@ -276,13 +273,22 @@ _HOST = {"hosts": ("http-echo",)}
     [(papi.SimTestcase, {"validate": True}), (_Direct, {}), (_Dup, {}), (_Rules, {}),
      (papi.SimTestcase, _HOST), (papi.SimTestcase, {"validate": True, **_HOST}),
      (_Dup, _HOST), (_Rules, _HOST), (papi.SimTestcase, {"faults": "crash"}),
-     (_Rules, {"faults": "crash", **_HOST})],
+     (_Rules, {"faults": "crash", **_HOST}), (papi.SimTestcase, {"telemetry": True}),
+     (_Direct, {"telemetry": True, "netmatrix": True}),
+     (papi.SimTestcase, {"trace": "0:2", "faults": "crash", **_HOST}),
+     (_Dup, {"telemetry": True, "netmatrix": True, "trace": "0:2", **_HOST})],
     ids=["validate", "direct", "duplicate", "filter_rules", "hosts", "validate+hosts",
-         "duplicate+hosts", "filter_rules+hosts", "faults", "filter_rules+faults+hosts"],
+         "duplicate+hosts", "filter_rules+hosts", "faults", "filter_rules+faults+hosts",
+         "telemetry", "direct+telemetry+netmatrix", "trace+faults+hosts",
+         "every-plane+duplicate+hosts"],
 )
 def test_ported_options_build(tc, kw):
     if kw.get("faults") == "crash":
         kw = {**kw, "faults": _crash_schedule()}
+    if kw.get("trace") == "0:2":
+        from testground_tpu_torch.sim.trace import build_trace_plan
+
+        kw = {**kw, "trace": build_trace_plan(_groups(), {"": {"instances": "0:2"}})}
     prog = SimProgram(tc(), _groups(), device="cpu", **kw)
     carry = prog.init_carry(seed=1)
     assert (carry.link.rules is not None) == (tc is _Rules)
@@ -290,6 +296,11 @@ def test_ported_options_build(tc, kw):
     assert carry.status.shape == carry.link.region_of.shape == (lanes,)
     assert carry.cal.occupancy_plane.shape[1] == lanes * tc.IN_MSGS
     assert carry.sync.last_seq.shape[1] == 4 and carry.keys.shape[0] == 4
+    assert (carry.cal.etick is not None) == (carry.lat_hist is not None) == bool(
+        kw.get("telemetry"))
+    assert (carry.net_mat is not None) == bool(kw.get("netmatrix"))
+    if kw.get("netmatrix"):
+        assert carry.cal.src is not None  # the matrix forces provenance on
 
 
 def _declaring(**statics):

@@ -57,6 +57,8 @@ def test_the_scan_sees_the_whole_port():
     rels = _port_sources()
     for must in ("chip_smoke.py", "testground_tpu_torch/sim/engine.py",
                  "testground_tpu_torch/sim/faults.py",
+                 *(f"testground_tpu_torch/sim/{m}.py"
+                   for m in ("telemetry", "netmatrix", "trace")),
                  *(f"testground_tpu_torch/plans/{p}/sim.py"
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos"))):
