@@ -98,7 +98,7 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
-          "benchmarks", "scale", "faults", "telemetry", "plans", "parity")
+          "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -873,6 +873,8 @@ def phase_telemetry(card) -> dict:
         row.update(device_profile(progs[label], ticks=250, wall_ms_per_tick=wall_ms,
                                   host_ops=False))
         twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, **PLANE_SETS[label])
+        # one warm-up run: a program's first step builds its constants
+        twin.run(seed=0, max_ticks=16)
         sites = {32: {}, 64: {}}
         row["host_syncs"] = {k: host_syncs(twin, k, sites[k]) for k in (32, 64)}
         # the lines whose syncs grow with the ticks run: per tick
@@ -881,12 +883,10 @@ def phase_telemetry(card) -> dict:
             for key in sites[64] if sites[64][key] != sites[32].get(key, 0)
         }
     off = runs["off"]
-    off_growth = off["host_syncs"][64] - off["host_syncs"][32]
     for label, row in runs.items():
-        # the planes add no sync a tick: the counts grow as the planes-off run's do
+        # no sync a tick, planes off or on: 32 more ticks add none
         growth = row["host_syncs"][64] - row["host_syncs"][32]
-        check(growth == off_growth,
-              f"telemetry {label}: {growth} syncs over 32 ticks, {off_growth} with planes off")
+        check(growth == 0, f"telemetry {label}: {growth} syncs over 32 more ticks")
         check(row["host_event_waits"] <= row["ticks"] + 1,
               f"telemetry {label}: {row['host_event_waits']} waits in {row['ticks']} ticks")
     check(off["host_event_waits"] == off["ticks"], f"telemetry off: {off['host_event_waits']}")
@@ -1201,6 +1201,229 @@ def phase_parity(card) -> dict:
     return {"phase": "parity", "runs": runs, "enqueue": _shaped_parity(), "card": card}
 
 
+# ------------------------------------------------------------ executor
+
+# fields that differ between any two runs (wall clock, random span ids),
+# and the journal's sim keys that describe the machine, not the run: both
+# dropped before the CPU ↔ GPU comparison, as tests/test_torch_executor.py
+# drops them against the JAX package
+VARYING_FIELDS = frozenset(
+    {"ts", "wall_ns", "wall_secs", "compile_secs", "trace_id", "span_id", "parent_id"}
+)
+SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", "perf"})
+EXEC_TURNS = 3
+
+
+def exec_job(run_id, root, plan, case, n, params, device="cuda", faults=None,
+             group_faults=None, trace=None, slo=None, **cfg):
+    """A ``RunInput`` of one group for the port's ``execute_sim_run``."""
+    from testground_tpu_torch.api import OutputsEnv, RunGroup, RunInput
+    from testground_tpu_torch.sim.executor import SimTorchConfig, plan_dir
+
+    group = RunGroup(id="all", instances=n, parameters=dict(params),
+                     artifact_path=plan_dir(plan), faults=list(group_faults or []))
+    return RunInput(run_id=run_id, test_plan=plan, test_case=case, total_instances=n,
+                    groups=[group], env=OutputsEnv(root),
+                    runner_config=SimTorchConfig(device=device, **cfg),
+                    faults=list(faults or []), trace=dict(trace or {}),
+                    slo=list(slo or []))
+
+
+def run_exec(job):
+    """One wall-clocked ``execute_sim_run`` (launches counted from zero);
+    returns ``(RunOutput, wall seconds, run dir)``."""
+    import threading
+
+    from testground_tpu_torch.rpc import discard_writer
+    from testground_tpu_torch.sim.executor import execute_sim_run
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = execute_sim_run(job, discard_writer(), threading.Event())
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, os.path.join(
+        job.env.dirs.outputs(), job.test_plan, job.run_id)
+
+
+def _strip(x):
+    if isinstance(x, dict):
+        return {k: _strip(v) for k, v in x.items() if k not in VARYING_FIELDS}
+    if isinstance(x, list):
+        return [_strip(v) for v in x]
+    return x
+
+
+def read_run_dir(run_dir) -> dict:
+    """Every file of a run directory, parsed, the varying fields dropped."""
+    out = {}
+    for root, _, names in os.walk(run_dir):
+        for fname in names:
+            path = os.path.join(root, fname)
+            with open(path) as f:
+                rel = os.path.relpath(path, run_dir)
+                out[rel] = (_strip(json.load(f)) if fname.endswith(".json") else
+                            [_strip(json.loads(ln)) for ln in f if ln.strip()])
+    return out
+
+
+def check_exec_run(label, out, run_dir, n) -> dict:
+    """The run directory against its journal: the telemetry totals are the
+    series' sums, the matrix reconciles, the flow totals close."""
+    j = out.result.journal
+    sim = j["sim"]
+    check(out.result.outcome.value == "success", f"{label}: outcome {out.result.outcome}")
+    rows = [json.loads(ln) for ln in open(os.path.join(run_dir, "sim_timeseries.jsonl"))]
+    totals = j["telemetry"]["totals"]
+    for col in ("delivered", "sent", "enqueued", "dropped", "rejected", "fault_dropped"):
+        got = sum(r[col] for r in rows)
+        check(got == totals[col], f"{label}: Σ {col} {got} != journal {totals[col]}")
+    check(rows[-1]["cal_depth"] == totals["in_flight"], f"{label}: in-flight")
+    check(j["telemetry"]["rows"] == len(rows), f"{label}: rows")
+    check(sim["net_matrix"]["mismatches"] == [],
+          f"{label}: reconcile {sim['net_matrix']['mismatches']}")
+    check(sim["msgs_sent"] == sim["msgs_delivered"] + sim["msgs_in_flight"]
+          + sim["msgs_dropped"] + sim["msgs_rejected"] + sim["msgs_fault_dropped"],
+          f"{label}: flow conservation")
+    if n > 2048:
+        check(j.get("outputs_skipped", {}).get("instances") == n, f"{label}: outputs")
+    return {"ticks": sim["ticks"], "rows": len(rows), "carry_bytes": sim["carry_bytes"],
+            "transport": sim["transport"]["resolved"], "slo_breaches": j["slo"]["breaches"],
+            "trace_events": j.get("trace", {}).get("events"),
+            "files": sorted(os.listdir(run_dir))}
+
+
+def slo_ticks(run_dir) -> list:
+    from testground_tpu_torch.sim.slo import SLO_FILE
+
+    path = os.path.join(run_dir, SLO_FILE)
+    return [json.loads(ln)["tick"] for ln in open(path)] if os.path.exists(path) else []
+
+
+def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
+    """The port's ``execute_sim_run`` on the card, into a temporary
+    outputs root: sustained@100k with every plane and a warn SLO rule
+    (checked against its run directory, and timed in turns against
+    ``SimProgram.run`` of the same planes: the executor's host cost),
+    faults@100k with a crashed-fraction rule (its breaches inside the crash
+    window), the chaos smoke composition at 1,024, and the faulted
+    sustained at 4,096 with every plane on the CPU and on the card, whose
+    run directories and journals must be equal."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_exec_")
+    launches = {"commit_calendar": 0, "pop_bucket": 0}
+
+    def count(got, label):
+        check(all(v > 0 for v in got.values()), f"executor {label}: launches {got}")
+        for k, v in got.items():
+            launches[k] += v
+
+    planes = {"telemetry": True, "netmatrix": True}
+    rule = {"name": "drops-under-1pct", "metric": "drop_rate", "op": "<",
+            "threshold": 0.01, "severity": "warn"}
+    try:
+        # sustained@100k in turns: the executor, then the bare program
+        prog = program("pingpong-sustained", n, SUSTAINED, chunk=250, trace="0:64",
+                       **planes)
+        # a warm-up run, so that no turn pays the process's first run; and
+        # the footprint from the shapes alone, timed
+        run_timed(prog, max_ticks=10_000)
+        t0 = time.perf_counter()
+        estimate = prog.estimate_carry_bytes()
+        estimate_s = time.perf_counter() - t0
+        walls = {"execute_sim_run": [], "SimProgram.run": []}
+        sustained = None
+        order = ("execute_sim_run", "SimProgram.run")
+        for i in range(EXEC_TURNS):
+            for way in (order if i % 2 == 0 else order[::-1]):
+                if way == "SimProgram.run":
+                    res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
+                    check(conserved(res), "executor: bare run flow totals")
+                else:
+                    out, wall, run_dir = run_exec(exec_job(
+                        f"sustained-{i}", root, "network", "pingpong-sustained", n,
+                        SUSTAINED, trace={"instances": "0:64"}, slo=[rule], chunk=250,
+                        max_ticks=10_000, **planes))
+                    # the ticks that ran (one counter row each), not the
+                    # journal's ticks, which round up to whole chunks
+                    ticks = out.result.journal["telemetry"]["rows"]
+                    if sustained is None:
+                        sustained = check_exec_run("executor sustained", out, run_dir, n)
+                        check(sustained["carry_bytes"] == estimate,
+                              f"executor: carry_bytes {sustained['carry_bytes']} != "
+                              f"estimate {estimate}")
+                        sustained["estimate_carry_bytes_s"] = estimate_s
+                        sustained["run_wall_ms_per_tick"] = (
+                            out.result.journal["sim"]["wall_secs"] / ticks * 1e3)
+                    shutil.rmtree(run_dir)
+                count(read_launches(), way)
+                walls[way].append(wall / ticks * 1e3)
+        timing = {way: {"wall_ms_per_tick": w, "median": statistics.median(w)}
+                  for way, w in walls.items()}
+        timing["host_cost_ms_per_tick"] = [
+            e - r for e, r in zip(walls["execute_sim_run"], walls["SimProgram.run"])]
+
+        # faults@100k: a crashed fraction of 0.1 from the crash at 100 ms
+        # to the restart at 250 ms breaches a 0.05 rule in those chunks
+        crash_rule = {"name": "crashed-under-5pct", "metric": "crashed_fraction",
+                      "op": "<", "threshold": 0.05, "severity": "warn"}
+        out, wall, run_dir = run_exec(exec_job(
+            "faults", root, "network", "pingpong-sustained", n, SUSTAINED,
+            faults=sustained_fault_tables(n)[""], slo=[crash_rule], chunk=50,
+            max_ticks=10_000, **planes))
+        count(read_launches(), "faults")
+        faults = check_exec_run("executor faults", out, run_dir, n)
+        ticks = slo_ticks(run_dir)
+        check(ticks and all(100 <= t < 250 for t in ticks),
+              f"executor faults: breach ticks {ticks} outside the crash window")
+        faults.update(wall_s=wall, breach_ticks=ticks,
+                      faults_crashed=out.result.journal["sim"]["faults_crashed"])
+
+        # the chaos smoke composition at 1,024
+        params, tables = chaos_setup(chaos_n)
+        smoke_rule = {"name": "fleet-mostly-alive", "metric": "crashed_fraction",
+                      "op": "<", "threshold": 0.2, "severity": "warn"}
+        out, wall, run_dir = run_exec(exec_job(
+            "chaos", root, "chaos", "chaos-barrier", chaos_n, params,
+            group_faults=tables["all"], trace={"instances": "0:3"}, slo=[smoke_rule],
+            telemetry=True, chunk=16, max_ticks=8192))
+        count(read_launches(), "chaos")
+        j = out.result.journal
+        check(out.result.outcome.value == "success", f"executor chaos: {out.result.outcome}")
+        ticks = slo_ticks(run_dir)
+        check(ticks and all(6 <= t < 20 + 16 for t in ticks),
+              f"executor chaos: breach ticks {ticks}")
+        chaos = {"ticks": j["sim"]["ticks"], "wall_s": wall, "breach_ticks": ticks,
+                 "trace_events": j["trace"]["events"], "events": j["events"]}
+
+        # CPU ↔ GPU: the faulted sustained at 4,096 with every plane
+        trees = {}
+        for dev in ("cpu", "cuda"):
+            out, wall, run_dir = run_exec(exec_job(
+                "parity", os.path.join(root, dev), "network", "pingpong-sustained", m,
+                SUSTAINED, device=dev, faults=sustained_fault_tables(m)[""],
+                trace={"instances": "0:64"}, slo=[crash_rule], chunk=250, max_ticks=1000,
+                **planes))
+            journal = json.loads(json.dumps(out.result.journal))
+            journal["sim"] = {k: v for k, v in journal["sim"].items()
+                              if k not in SIM_SKIPPED}
+            trees[dev] = (read_run_dir(run_dir), journal, out.result.outcome.value)
+        count(read_launches(), "parity")  # the card's run, the last
+        (tc, jc, oc), (tg, jg, og) = trees["cpu"], trees["cuda"]
+        diff = sorted(set(tc) ^ set(tg)) + [k for k in tc if k in tg and tc[k] != tg[k]]
+        diff += [k for k in jc if jc.get(k) != jg.get(k)] + ([] if oc == og else ["outcome"])
+        check(not diff, f"executor parity: CPU vs GPU differ in {diff}")
+        parity = {"n": m, "files_compared": len(tc), "journal_keys": sorted(jc),
+                  "ticks": jc["sim"]["ticks"], "slo_breaches": jc["slo"]["breaches"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "executor", "n": n, "sustained": sustained, "timing": timing,
+            "faults": faults, "chaos": chaos, "parity": parity, "launches": launches,
+            "card": card}
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1277,7 +1500,7 @@ def main(argv=None) -> int:
                    ("flood", phase_flood), ("storm", phase_storm),
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
-                   ("plans", phase_plans)):
+                   ("plans", phase_plans), ("executor", phase_executor)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -11,4 +11,4 @@ copy. Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the parity tests do).
 """
 
-__all__ = ["api", "sim"]
+__all__ = ["api", "engine", "rpc", "runners", "sim"]

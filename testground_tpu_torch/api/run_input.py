@@ -1,12 +1,21 @@
-"""One group's slice of a run — the port's own copy of the reference
-``RunGroup`` (``testground_tpu/api/run_input.py``), without the fields that
-need the composition types (``resources``)."""
+"""Run inputs and outputs — the port's own copies of the reference's
+``RunGroup``, ``RunInput`` and ``RunOutput``
+(``testground_tpu/api/run_input.py:24-136``), without the fields that
+need the composition types (``resources``) and the engine (``preempt``).
+
+The port has no ``EnvConfig``: ``RunInput.env`` is anything whose
+``dirs.outputs()`` names the outputs root (:class:`OutputsEnv` is the
+smallest such thing). A run then writes ``<root>/<plan>/<run_id>``, the
+reference's layout.
+"""
 
 from __future__ import annotations
 
+import types
 from dataclasses import dataclass, field
+from typing import Any
 
-__all__ = ["RunGroup"]
+__all__ = ["OutputsEnv", "RunGroup", "RunInput", "RunOutput"]
 
 
 @dataclass
@@ -22,3 +31,43 @@ class RunGroup:
     faults: list = field(default_factory=list)
     trace: dict = field(default_factory=dict)
     slo: list = field(default_factory=list)
+
+
+@dataclass
+class RunInput:
+    """Input options for running one test run (``pkg/api/runner.go:36-63``)."""
+
+    run_id: str
+    test_plan: str
+    test_case: str
+    total_instances: int
+    groups: list[RunGroup] = field(default_factory=list)
+    runner_config: Any = None
+    disable_metrics: bool = False
+    # run-global fault schedule, flight-recorder table and SLO rules
+    # ([[global.run.faults]], [global.run.trace], [[global.run.slo]])
+    faults: list = field(default_factory=list)
+    trace: dict = field(default_factory=dict)
+    slo: list = field(default_factory=list)
+    # lifecycle trace context ({"trace_id", "parent_id"}) for the spans
+    trace_ctx: dict = field(default_factory=dict)
+    # anything with ``dirs.outputs()``; None runs without an outputs dir
+    env: Any = None
+
+
+@dataclass
+class RunOutput:
+    """Output from a run (``pkg/api/runner.go:87-102``)."""
+
+    run_id: str
+    composition: Any = None
+    result: Any = None
+
+
+class OutputsEnv:
+    """The smallest ``RunInput.env``: an outputs root and nothing else
+    (no Influx endpoint)."""
+
+    def __init__(self, outputs_root: str):
+        root = str(outputs_root)
+        self.dirs = types.SimpleNamespace(outputs=lambda: root)

@@ -195,6 +195,12 @@ class PingPong(SimTestcase):
             net_shape_valid=p0 | fin1,
         )
 
+    def collect_metrics(self, group, final_state, status):
+        return {
+            "pingpong.rtt1_ticks": final_state["rtt1"],
+            "pingpong.rtt2_ticks": final_state["rtt2"],
+        }
+
 
 class PingPongSustained(SimTestcase):
     """The headline full-path workload: paired ping-pong held for a fixed
@@ -217,6 +223,17 @@ class PingPongSustained(SimTestcase):
             "started": torch.zeros(n_g, dtype=torch.bool, device=env.device),
             "shape_hi": z.clone(),
         }
+
+    def _lat_consts(self, env, lat1, lat2):
+        """The group's two latencies as a float32 device constant, built on
+        the group's first step and reused: a per-tick ``torch.tensor``
+        would be a host copy every tick."""
+        cache = self.__dict__.setdefault("_lat_cache", {})
+        key = (env.group.index, env.device)
+        if key not in cache:
+            cache[key] = torch.tensor([lat1, lat2], dtype=torch.float32,
+                                      device=env.device)
+        return cache[key]
 
     def step(self, env, state, inbox, sync, t):
         n = env.test_instance_count
@@ -257,11 +274,8 @@ class PingPongSustained(SimTestcase):
         # periodic reshape through the dynamic net-config path
         at_reshape = started & (torch.remainder(t, reshape_every) == 0) & (t > 0)
         shape_hi = torch.where(at_reshape, 1 - state["shape_hi"], state["shape_hi"])
-        lat = torch.where(
-            shape_hi == 0,
-            torch.tensor(lat1, dtype=torch.float32, device=env.device),
-            torch.tensor(lat2, dtype=torch.float32, device=env.device),
-        )
+        lat_c = self._lat_consts(env, lat1, lat2)
+        lat = torch.where(shape_hi == 0, lat_c[0], lat_c[1])
         return self.out(
             {"rounds": rounds, "started": started, "shape_hi": shape_hi},
             status=_i32(status),

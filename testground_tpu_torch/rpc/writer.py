@@ -1,0 +1,67 @@
+"""OutputWriter: simultaneously a logger and a chunk emitter — the port's
+copy of the reference's ``testground_tpu/rpc/writer.py``
+(``pkg/rpc/writer.go``), without the binary stream it needs only for
+collected outputs.
+
+Progress output (human log lines) is emitted as ``p`` chunks. The result
+and error chunks come with the runner (ROADMAP queue 1 item 9c).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from typing import Any, TextIO
+
+__all__ = ["OutputWriter", "discard_writer"]
+
+CHUNK_PROGRESS = "p"
+
+
+class OutputWriter:
+    """Thread-safe chunked writer.
+
+    ``sink`` is a text stream receiving newline-delimited JSON chunks (an
+    HTTP response body or a file). ``echo`` optionally mirrors progress
+    lines to a local console stream.
+    """
+
+    def __init__(self, sink: TextIO | None, echo: TextIO | None = None):
+        self._sink = sink
+        self._echo = echo
+        self._lock = threading.Lock()
+
+    def _emit(self, obj: dict) -> None:
+        if self._sink is None:
+            return
+        with self._lock:
+            self._sink.write(json.dumps(obj) + "\n")
+            self._sink.flush()
+
+    def _log(self, level: str, msg: str, *args: Any) -> None:
+        text = (msg % args) if args else msg
+        if self._echo is not None:
+            with self._lock:
+                self._echo.write(text + "\n")
+                self._echo.flush()
+        self._emit({"t": CHUNK_PROGRESS, "p": f"{text}\n"})
+
+    def info(self, msg: str, *args: Any) -> None:
+        self._log("info", msg, *args)
+
+    def infof(self, msg: str, *args: Any) -> None:
+        self._log("info", msg, *args)
+
+    def warn(self, msg: str, *args: Any) -> None:
+        self._log("warn", msg, *args)
+
+    def error(self, msg: str, *args: Any) -> None:
+        self._log("error", msg, *args)
+
+    def debug(self, msg: str, *args: Any) -> None:
+        self._log("debug", msg, *args)
+
+
+def discard_writer() -> OutputWriter:
+    """An OutputWriter that drops everything (``rpc.Discard()``)."""
+    return OutputWriter(sink=None, echo=None)

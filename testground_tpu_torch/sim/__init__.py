@@ -9,6 +9,7 @@ The CUDA kernels are built and loaded on first use, never at import.
 __all__ = [
     "api",
     "carry_io",
+    "check",
     "cuda_transport",
     "engine",
     "executor",
@@ -16,6 +17,7 @@ __all__ = [
     "net",
     "netmatrix",
     "prng",
+    "slo",
     "sync_kernel",
     "telemetry",
     "trace",

@@ -346,12 +346,23 @@ class SimTestcase:
         """A LinkShape plane (``network.LinkShape`` field order,
         ``pkg/sidecar/link.go:155-183``): ``[7]`` for scalars, ``[7, n]``
         when any field is an ``[n]`` tensor. float32, like the reference.
-        An all-scalar shape is built from one host copy."""
+        An all-scalar shape is built from one host copy; a mixed shape is
+        built on the device (zeros, the tensor fields copied in, nonzero
+        scalars filled), so a shape that varies per tick waits on no host
+        copy."""
         fields = (latency_ms, jitter_ms, bandwidth, loss, corrupt, reorder, duplicate)
-        if not any(isinstance(x, torch.Tensor) for x in fields):
+        tensors = [x for x in fields if isinstance(x, torch.Tensor)]
+        if not tensors:
             return torch.tensor(fields, dtype=torch.float32, device=device)
-        parts = [torch.as_tensor(x, dtype=torch.float32, device=device) for x in fields]
-        return torch.stack(torch.broadcast_tensors(*parts))
+        # the ATen op: torch.broadcast_shapes imports sympy on first use
+        shape = torch.broadcast_tensors(*tensors)[0].shape
+        out = torch.zeros((7, *shape), dtype=torch.float32, device=tensors[0].device)
+        for row, x in zip(out, fields):
+            if isinstance(x, torch.Tensor):
+                row.copy_(x)
+            elif x != 0:
+                row.fill_(float(x))
+        return out
 
     def filter_rules(self, *rules) -> torch.Tensor:
         """A ``[FILTER_RULES, 3, n]`` rule-list plane for

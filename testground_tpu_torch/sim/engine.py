@@ -55,15 +55,19 @@ histogram and the matrix are zeroed at every flush (the host sums the
 deltas in int64), so the device counters never wrap. With every plane
 off the tick enters no plane code and issues no plane op.
 
-The reference's admission refusals of incompatible declarations are kept,
-with the same messages. Not ported yet — each refused with
-``NotImplementedError`` naming its ROADMAP item: meshes and shape buckets.
+``run`` has the reference's loop hooks (``cancel``, ``on_chunk``, the
+stall watchdog, ``nan_guard``), all at a chunk's end. The reference's
+admission refusals of incompatible declarations are kept, with the same
+messages. Not ported yet — each refused with ``NotImplementedError``
+naming its ROADMAP item: meshes, shape buckets and the perf ledger's hook.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
+import threading
 import time
 from typing import Any, Callable
 
@@ -121,7 +125,9 @@ __all__ = [
     "MAX_FILTER_CELLS",
     "SimCarry",
     "SimProgram",
+    "SimStallError",
     "build_groups",
+    "carry_footprint",
     "resolve_device",
 ]
 
@@ -131,6 +137,52 @@ _UNPORTED_OPTIONS = {
     "mesh": "item 15 (multi-GPU)",
     "live_counts": "item 13 (buckets, packs and checkpoint)",
 }
+
+
+class SimStallError(RuntimeError):
+    """A chunk outlasted the wall-clock watchdog (``chunk_timeout``): the
+    caller is released with a diagnostic instead of waiting forever on
+    the device. The reference's class, with its message."""
+
+    def __init__(self, ticks: int, chunk_index: int, timeout: float):
+        self.ticks = ticks
+        self.chunk_index = chunk_index
+        self.timeout = timeout
+        super().__init__(
+            f"sim chunk {chunk_index} did not complete within "
+            f"{timeout:g}s wall (last completed tick {ticks}) — device "
+            "hang or a pathologically slow dispatch; the cancel event "
+            "was set and the dispatch abandoned"
+        )
+
+
+def _check_carry_finite(carry, tick_lo: int, tick_hi: int) -> None:
+    """The ``nan_guard`` scan (``engine.py:133-158``): every float leaf of
+    the carry, failing on the first NaN or Inf with its path and the
+    chunk's tick range."""
+
+    def walk(x, path):
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                kind = "NaN" if bool(torch.isnan(x).any()) else "Inf"
+                raise FloatingPointError(
+                    f"nan_guard: {kind} in carry leaf 'carry{path}' after "
+                    f"ticks ({tick_lo}, {tick_hi}] — the plan's arithmetic "
+                    "(or a shaping input) produced a non-finite value in "
+                    "that tick range"
+                )
+        elif isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}[{k!r}]")
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}[{i}]")
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{path}.{f.name}")
+
+    walk(carry, "")
+
 
 # Budget for the dense [R, N] per-region filter table, in int32 cells
 # (2**28 = 1 GiB), as in the reference.
@@ -205,9 +257,22 @@ def build_groups(run_groups, parameters_of=None) -> tuple[GroupSpec, ...]:
     return tuple(specs)
 
 
-def _plane(x, shape, dtype, device) -> torch.Tensor:
-    """A StepOut field as a contiguous plane of ``shape``: broadcasts
-    scalars and [.., 1] fields, casts to the plane's dtype."""
+_PY_CAST = {torch.bool: bool, torch.int32: int, torch.float32: float}
+_PY_SCALARS = (bool, int, float)
+
+
+def _plane(x, shape, dtype, device, consts: dict) -> torch.Tensor:
+    """A StepOut field as a plane of ``shape``: broadcasts tensors and
+    [.., 1] fields, casts to the plane's dtype. A Python scalar is a
+    constant plane filled on the device once and kept in ``consts`` (a
+    host→device copy would wait on the host every tick); consumers never
+    write into a plane."""
+    if isinstance(x, _PY_SCALARS):
+        v = _PY_CAST[dtype](x)
+        key = (v, tuple(shape), dtype)
+        if key not in consts:
+            consts[key] = torch.full(shape, v, dtype=dtype, device=device)
+        return consts[key]
     return torch.as_tensor(x, device=device).to(dtype).broadcast_to(shape)
 
 
@@ -318,18 +383,25 @@ class SimProgram:
                 "instances, see PERF.md) or raise "
                 "testground_tpu_torch.sim.engine.MAX_FILTER_CELLS"
             )
-        dev = self.device
+        self._build_layout(self.device)
+        self._carry_bytes = None
+        self._consts = {}  # constant StepOut planes on the device (_plane)
+        if self.telemetry or self.trace is not None:
+            self._build_plane_statics(cls)
+
+    def _build_layout(self, dev) -> None:
+        """The static per-lane group map and per-group index planes on
+        ``dev``, built once."""
+        groups = self.groups
         self._group_of = torch.repeat_interleave(
             torch.arange(len(groups), dtype=torch.int32, device=dev),
             torch.tensor([g.count for g in groups], device=dev),
+            output_size=self.n,
         )
-        # static per-group index planes, built once
         self._gseq = [
             torch.arange(g.count, dtype=torch.int32, device=dev) for g in groups
         ]
         self._gs = [s + g.offset for s, g in zip(self._gseq, groups)]
-        if self.telemetry or self.trace is not None:
-            self._build_plane_statics(cls)
 
     def _build_plane_statics(self, cls) -> None:
         """The planes' static index tensors on the run's device, built once
@@ -416,9 +488,10 @@ class SimProgram:
     def init_carry(self, seed: int = 0) -> SimCarry:
         cls = type(self.tc)
         dev = self.device
-        root = prng.key(seed, device=dev)
-        net_key, inst_root = prng.split(root)
-        keys = prng.split(inst_root, self.n)
+        # the root split on the host: the link key stays there, and the
+        # instance root crosses once
+        net_key, inst_root = prng.split(prng.key(seed))
+        keys = prng.split(inst_root.to(dev), self.n)
         states = self._init_states(keys)
         lanes = self.n_lanes
         # host lanes sit past the instance axis: region 0 (their traffic
@@ -468,7 +541,7 @@ class SimProgram:
             ),
             rejected=torch.zeros(lanes, dtype=torch.int32, device=dev),
             keys=keys,
-            net_key=tuple(int(x) for x in net_key.tolist()),
+            net_key=(int(net_key[0]), int(net_key[1])),
             t=z(),
             clamped=z(),
             bw_dropped=z(),
@@ -503,6 +576,22 @@ class SimProgram:
             ),
         )
 
+    def estimate_carry_bytes(self) -> int:
+        """The reference's footprint of the run's carry
+        (``estimate_carry_bytes``, ``engine.py:1784-1803``; see
+        :func:`carry_footprint`), computed from the shapes alone: the carry
+        is built once on the meta device, so nothing is allocated. A
+        process's first use of the meta device imports torch's meta
+        kernels, which takes seconds; :func:`carry_footprint` of a built
+        carry gives the same number at no cost."""
+        if self._carry_bytes is None:
+            meta = copy.copy(self)
+            meta.device = torch.device("meta")
+            meta._consts = {}
+            meta._build_layout(meta.device)
+            self._carry_bytes = carry_footprint(meta.init_carry(0))
+        return self._carry_bytes
+
     # ---------------------------------------------------------------- tick
 
     def _normalize(self, out: StepOut, n_g: int) -> dict:
@@ -515,7 +604,7 @@ class SimProgram:
         ob = out.outbox or Outbox.empty(o, w, n_g, dev)
 
         def plane(x, shape, dtype):
-            return _plane(0 if x is None else x, shape, dtype, dev)
+            return _plane(0 if x is None else x, shape, dtype, dev, self._consts)
 
         filters = out.net_filters
         if filters is None:
@@ -1055,6 +1144,14 @@ class SimProgram:
         netmatrix_cb: Callable[[np.ndarray], None] | None = None,
         lat_hist_init=None,
         net_mat_init=None,
+        cancel=None,
+        on_chunk: Callable[[int], None] | None = None,
+        chunk_timeout: float = 0.0,
+        chunk_sleep_ms: float = 0.0,
+        on_stall: Callable[[int, int], None] | None = None,
+        nan_guard: bool = False,
+        perf=None,
+        live_counts=None,
     ) -> dict[str, Any]:
         """Step to completion (or ``max_ticks``, rounded up to whole
         chunks, as the reference does). ``observer(ticks, carry)`` is
@@ -1065,7 +1162,7 @@ class SimProgram:
         (see :meth:`_tick`).
 
         The observability planes' callbacks, called after every chunk in
-        the reference's order and before ``observer``
+        the reference's order and before ``on_chunk`` and ``observer``
         (``engine.py:2118-2137``): ``telemetry_cb(block)`` gets the chunk's
         ``[chunk, K]`` int32 counter block, ``lat_hist_cb(delta)`` its
         ``[G, LATENCY_BINS]`` int64 histogram delta, ``netmatrix_cb(delta)``
@@ -1073,12 +1170,36 @@ class SimProgram:
         ``trace_cb(block)`` its ``[chunk, R, 5]`` int32 event block, all as
         host numpy. The deltas also sum into ``results()['lat_hist']`` and
         ``['net_matrix']``, seeded by ``lat_hist_init`` / ``net_mat_init``
-        on a resumed run."""
+        on a resumed run.
+
+        The reference's loop hooks (``engine.py:1928-1948``), all at the
+        chunk's end, where the done flag has already been waited on, so
+        none adds a host read to the tick: ``on_chunk(ticks)`` after the
+        planes' callbacks; ``cancel`` (anything with ``is_set()``) checked
+        after ``observer``; ``chunk_timeout`` > 0 arms the wall-clock
+        watchdog from the third chunk on — a chunk that outlasts it sets
+        ``cancel``, calls ``on_stall(last_tick, chunk_index)`` and raises
+        :class:`SimStallError`; ``chunk_sleep_ms`` sleeps on the host in
+        each chunk (a synthetic slowdown for tests); ``nan_guard`` reads
+        every float leaf of the carry after each chunk and raises on a
+        NaN or Inf (a debug flag: the read waits on the device). ``perf``
+        and ``live_counts`` are refused (ROADMAP items 14 and 13)."""
+        if perf is not None:
+            raise NotImplementedError(
+                "SimProgram.run option 'perf' is not ported yet: ROADMAP "
+                "queue 1 item 14 (perf ledger, phases and the transport knob)"
+            )
+        if live_counts is not None:
+            raise NotImplementedError(
+                "SimProgram.run option 'live_counts' is not ported yet: "
+                f"ROADMAP queue 1 {_UNPORTED_OPTIONS['live_counts']}"
+            )
         t0 = time.perf_counter()
         if resume_carry is not None:
             carry, ticks = resume_carry, int(resume_ticks)
         else:
             carry, ticks = self.init_carry(seed), 0
+        start_ticks = ticks
         cuda = self.device.type == "cuda"
         done_out = (
             torch.zeros((), dtype=torch.bool, pin_memory=cuda),
@@ -1101,7 +1222,6 @@ class SimProgram:
                 if net_mat_init is not None
                 else np.zeros((NM_CHANNELS, gh, gh), np.int64)
             )
-        done = self._all_done(carry)
         # the host's copy of carry.t: a fault schedule resolves its events
         # and windows against it, and its done gate reads it
         last_event = None
@@ -1109,8 +1229,10 @@ class SimProgram:
         if self._faults is not None:
             last_event = self._faults.last_event_tick
             tick = int(carry.t)
-        setup_secs = 0.0
-        while ticks < max_ticks:
+        state = {"carry": carry, "done": self._all_done(carry), "tick": tick}
+
+        def chunk() -> None:
+            carry, done, tick = state["carry"], state["done"], state["tick"]
             flushed = False
             if blocks is not None:
                 blocks.reset()
@@ -1140,7 +1262,23 @@ class SimProgram:
                 carry = blocks.flush(carry, done_out[1])
                 if cuda:
                     done_out[1].synchronize()
+            state.update(carry=carry, done=done, tick=tick)
+
+        setup_secs = 0.0
+        while ticks < max_ticks:
+            watch = chunk_timeout and chunk_timeout > 0 and (
+                ticks >= start_ticks + 2 * self.chunk
+            )
+            if watch:
+                self._chunk_watched(chunk, ticks, chunk_timeout, cancel, on_stall)
+            else:
+                chunk()
+            carry = state["carry"]
             ticks += self.chunk
+            if chunk_sleep_ms > 0:
+                time.sleep(chunk_sleep_ms / 1000.0)
+            if nan_guard:
+                _check_carry_finite(carry, ticks - self.chunk, ticks)
             if setup_secs == 0.0:
                 setup_secs = time.perf_counter() - t0
             if self.telemetry:
@@ -1157,9 +1295,13 @@ class SimProgram:
                     netmatrix_cb(nm_delta)
             if self.trace is not None and trace_cb is not None:
                 trace_cb(blocks.host["trace"].numpy().copy())
+            if on_chunk is not None:
+                on_chunk(ticks)
             if observer is not None:
                 observer(ticks, carry)
-            if done:
+            if state["done"]:
+                break
+            if cancel is not None and cancel.is_set():
                 break
         res = self.results(carry, ticks)
         res["compile_secs"] = setup_secs
@@ -1170,6 +1312,42 @@ class SimProgram:
             # per channel, Σ cells == the flow total
             res["net_matrix"] = nm_acc.tolist()
         return res
+
+    def _chunk_watched(self, chunk, ticks: int, timeout: float, cancel,
+                       on_stall) -> None:
+        """Run one chunk under the wall-clock watchdog
+        (``engine.py:1885-1924``): the chunk runs in a daemon thread joined
+        with ``timeout``; on expiry ``cancel`` is set, ``on_stall`` fires
+        and :class:`SimStallError` releases the caller — the abandoned
+        thread dies with the process."""
+        box: dict[str, Any] = {}
+        dev = self.device
+
+        def work():
+            try:
+                if dev.type == "cuda":
+                    with torch.cuda.device(dev):
+                        chunk()
+                else:
+                    chunk()
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                box["err"] = e
+
+        th = threading.Thread(target=work, daemon=True, name="sim-chunk-dispatch")
+        th.start()
+        th.join(timeout)
+        if th.is_alive():
+            chunk_index = ticks // self.chunk
+            if cancel is not None:
+                cancel.set()
+            if on_stall is not None:
+                try:
+                    on_stall(ticks, chunk_index)
+                except Exception:  # noqa: BLE001 — diagnostics only
+                    pass
+            raise SimStallError(ticks, chunk_index, timeout)
+        if "err" in box:
+            raise box["err"]
 
     def results(self, carry: SimCarry, ticks: int) -> dict[str, Any]:
         def host(x):
@@ -1199,7 +1377,7 @@ class SimProgram:
                 if carry.net_bw_hiwater is not None
                 else {}
             ),
-            "carry_bytes": carry_bytes(carry),
+            "carry_bytes": carry_footprint(carry),
             # host lanes are internal plumbing — plan instances only
             "status": host(carry.status[: self.n]),
             "finished_at": host(carry.finished_at[: self.n]),
@@ -1343,6 +1521,14 @@ def _check_declarations(cls, hosts=()) -> None:
                 "additional_hosts need SLOT_MODE='sorted' (host fan-in "
                 "violates the direct mode contract)"
             )
+
+
+def carry_footprint(carry: SimCarry) -> int:
+    """The reference's footprint of ``carry``: the bytes of every tensor
+    leaf, with the per-instance keys counted as the reference stores them
+    (uint32 pairs, 8 B a lane, where the port holds each word in int64)
+    and 8 B for the link key, which the port keeps on the host."""
+    return carry_bytes(carry) - carry.keys.numel() * 4 + 8
 
 
 def carry_bytes(carry: SimCarry) -> int:

@@ -1,19 +1,188 @@
-"""Plan loading for the port: the library half of the reference executor
-(``testground_tpu/sim/executor.py:247-283``). Plans are the port's own
-torch twins under ``testground_tpu_torch/plans/<plan>/``."""
+"""The host side of a run of the port: a :class:`RunInput` in, a run
+directory, a journal and an :class:`Outcome` out — the port of the
+reference's ``execute_sim_run`` (``testground_tpu/sim/executor.py:735-2460``)
+for one single-device, unbucketed run.
+
+The executor loads the port's plan (``testground_tpu_torch/plans/<plan>/``
+unless a group names another ``artifact_path``), lowers the composition's
+fault schedule, flight-recorder table and SLO rules, builds one
+:class:`~testground_tpu_torch.sim.engine.SimProgram` on the run's device
+(the card unless the runner config names another), steps it to completion
+and writes what the reference writes under ``<outputs>/<plan>/<run_id>``:
+
+- ``run_spans.jsonl`` (the run span and its build / execute / collect
+  phases), ``sim_timeseries.jsonl``, ``sim_latency.jsonl``,
+  ``sim_netmatrix.jsonl``, ``sim_trace.jsonl`` with ``trace_events.json``,
+  ``sim_slo.jsonl`` and ``timeseries.jsonl``, each where its plane is on;
+- one ``<group>/<instance>/`` directory per instance with ``run.out`` and
+  ``metrics.out``, up to ``write_outputs_max`` instances;
+- the journal's ``sim``, ``telemetry``, ``trace``, ``slo``, ``metrics``,
+  ``timeseries`` and ``events`` blocks.
+
+The per-chunk sinks take the host numpy blocks that ``SimProgram.run``
+already copied behind the done flag's wait: none of them reads the device.
+The metric recorder reads the carry every ``timeseries_every`` ticks, as
+the reference does.
+
+Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
+item when set away from its default: buckets, packs and checkpoints (item
+13), meshes and cohorts (item 15), the profiler, the phase plane and the
+transport probe (item 14), and an Influx mirror (item 9c). The perf ledger
+(item 14) is on by default in the reference; the port writes no
+``sim.perf`` block and says so in one log line.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
+import json
 import os
 import sys
+import threading
+import time
 import uuid
 
-__all__ = ["instantiate_testcase", "load_sim_testcases", "plan_dir"]
+import numpy as np
+import torch
+
+from ..api import RunInput, RunOutput
+from ..engine.task import Outcome
+from ..rpc import OutputWriter
+from ..runners.outputs import instance_output_dir
+from ..runners.result import Result
+
+__all__ = [
+    "SimTorchConfig",
+    "execute_sim_run",
+    "fault_specs_of",
+    "instantiate_testcase",
+    "load_and_specialize",
+    "load_sim_testcases",
+    "make_sim_program",
+    "plan_dir",
+    "slo_specs_of",
+    "trace_specs_of",
+]
 
 PLANS_ROOT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "plans"
 )
+
+# Map sim status codes → lifecycle event names (pretty.go:163-175).
+_STATUS_NAME = {0: "incomplete", 1: "success", 2: "failure", 3: "crash"}
+
+
+@dataclasses.dataclass
+class SimTorchConfig:
+    """Runner config of the port: the fields and defaults of the
+    reference's ``SimJaxConfig`` (``executor.py:44-246``; each field means
+    what it means there), plus ``device``."""
+
+    tick_ms: float = 1.0  # simulated ms per tick
+    max_ticks: int = 100_000  # sim-time budget
+    chunk: int = 128  # ticks between host callbacks
+    seed: int = 0
+    # the reference's "shard over the visible devices"; the port runs on
+    # one device until item 15, so the flag changes nothing
+    shard: bool = True
+    mesh: str = ""  # refused unless "" (item 15)
+    write_outputs_max: int = 2048  # cap on per-instance output dirs
+    keep_outputs: bool = True
+    # metric time-series cadence in ticks (0 disables); each sample reads
+    # the plan states off the device
+    timeseries_every: int = 1024
+    validate: bool = False  # direct-slot collision detection
+    # wall-clock watchdog per chunk from the third chunk on (0 disables)
+    chunk_timeout_secs: float = 0.0
+    nan_guard: bool = False  # scan the carry for NaN/Inf after each chunk
+    debug_chunk_sleep_ms: float = 0.0  # synthetic host slowdown per chunk
+    telemetry: bool = False
+    netmatrix: bool = False  # needs telemetry
+    # the perf ledger is item 14: on by default as in the reference, but
+    # the port writes no sim.perf block yet
+    perf: bool = True
+    profile: bool = False  # refused unless False (item 14)
+    profile_chunks: int = 0  # refused unless 0 (item 14)
+    phases: bool = False  # refused unless False (item 14)
+    phases_measure: int = 0  # refused unless 0 (item 14)
+    # "xla", "pallas" or "auto": on the card every value runs K1/K2, on
+    # the CPU their plain versions; the journal records what ran
+    transport: str = "xla"
+    transport_probe: int = 0  # refused unless 0 (item 14)
+    bucket: str = "off"  # refused unless "off" (item 13)
+    bucket_ladder: str = ""  # refused unless "" (item 13)
+    pack: bool = False  # refused unless False (item 13)
+    pack_max: int = 8
+    build_buckets: bool = False  # refused unless False (item 13)
+    checkpoint_chunks: int = 0  # refused unless 0 (item 13)
+    checkpoint_keep: int = 3
+    resume_from: str = ""  # refused unless "" (item 13)
+    additional_hosts: list = dataclasses.field(default_factory=list)
+    # per-run device-memory precheck: 0 = the card's total memory (no
+    # check on the CPU), -1 = off, > 0 = an explicit budget in bytes
+    memory_limit_bytes: int = 0
+    coordinator_address: str = ""  # refused unless "" (item 15)
+    num_processes: int = 1  # refused unless 1 (item 15)
+    process_id: int = 0  # refused unless 0 (item 15)
+    isolate_cohort: bool = True
+    # the run's device: None is the card (raises without one), "cpu" runs
+    # the plain versions of the kernels
+    device: str | None = None
+
+
+_ITEM_13 = "item 13 (buckets, packs and checkpoint)"
+_ITEM_14 = "item 14 (perf ledger, phases and the transport knob)"
+_ITEM_15 = "item 15 (multi-GPU)"
+
+# runner-config fields the port refuses away from their default, with
+# the ROADMAP queue-1 item that ports each
+_UNPORTED_SETTINGS = {
+    "bucket": _ITEM_13,
+    "bucket_ladder": _ITEM_13,
+    "build_buckets": _ITEM_13,
+    "pack": _ITEM_13,
+    "checkpoint_chunks": _ITEM_13,
+    "resume_from": _ITEM_13,
+    "mesh": _ITEM_15,
+    "coordinator_address": _ITEM_15,
+    "num_processes": _ITEM_15,
+    "process_id": _ITEM_15,
+    "profile": _ITEM_14,
+    "profile_chunks": _ITEM_14,
+    "phases": _ITEM_14,
+    "phases_measure": _ITEM_14,
+    "transport_probe": _ITEM_14,
+}
+
+_TRANSPORTS = ("xla", "pallas", "auto")
+
+
+def _refuse_unported(cfg, job: RunInput) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item for every
+    setting the port cannot honour yet — never run as if it were unset."""
+    defaults = SimTorchConfig()
+    for name, item in _UNPORTED_SETTINGS.items():
+        value = getattr(cfg, name, getattr(defaults, name))
+        if value != getattr(defaults, name):
+            raise NotImplementedError(
+                f"runner config {name}={value!r} is not ported yet: ROADMAP "
+                f"queue 1 {item}"
+            )
+    influx = getattr(getattr(job.env, "daemon", None), "influxdb_endpoint", "")
+    if influx:
+        raise NotImplementedError(
+            f"the Influx mirror ({influx}) is not ported yet: ROADMAP queue 1 "
+            "item 9c (composition API, runner and CLI)"
+        )
+    if cfg.transport not in _TRANSPORTS:
+        raise ValueError(
+            f"unknown transport {cfg.transport!r}; expected one of "
+            f"{', '.join(_TRANSPORTS)}"
+        )
+
+
+# ------------------------------------------------------------ plan loading
 
 
 def plan_dir(plan: str) -> str:
@@ -53,3 +222,931 @@ def instantiate_testcase(factory, groups, tick_ms: float):
     if isinstance(factory, type):
         return factory.specialize(groups, tick_ms=tick_ms)()
     return factory
+
+
+def load_and_specialize(artifact_path, test_case, run_groups, tick_ms):
+    """Plan sources → specialized testcase + group layout
+    (``executor.py:286-301``)."""
+    from .engine import build_groups
+
+    cases = load_sim_testcases(artifact_path)
+    factory = cases.get(test_case)
+    if factory is None:
+        raise ValueError(
+            f"unknown sim test case {test_case!r}; plan exposes {sorted(cases)}"
+        )
+    groups = build_groups(run_groups)
+    return instantiate_testcase(factory, groups, tick_ms), groups
+
+
+def make_sim_program(
+    testcase,
+    groups,
+    *,
+    test_plan,
+    test_case,
+    test_run,
+    tick_ms,
+    chunk,
+    hosts,
+    validate,
+    telemetry,
+    faults,
+    trace,
+    netmatrix,
+    device,
+):
+    """The one construction site for a run's SimProgram
+    (``executor.py:304-346``): every program-shaping option is a required
+    keyword."""
+    from .engine import SimProgram
+
+    return SimProgram(
+        testcase,
+        groups,
+        test_plan=test_plan,
+        test_case=test_case,
+        test_run=test_run,
+        tick_ms=tick_ms,
+        chunk=chunk,
+        hosts=hosts,
+        validate=validate,
+        telemetry=telemetry,
+        faults=faults,
+        trace=trace,
+        netmatrix=netmatrix,
+        device=device,
+    )
+
+
+# ------------------------------------------------------ declaration tables
+
+
+def fault_specs_of(run_groups, global_faults=None) -> dict:
+    """{group_id: [raw fault dicts]}, run-global declarations under ``""``
+    (``executor.py:454-466``)."""
+    specs = {
+        g.id: [dict(f) for f in (getattr(g, "faults", None) or [])]
+        for g in run_groups
+    }
+    specs[""] = [dict(f) for f in (global_faults or [])]
+    return {k: v for k, v in specs.items() if v}
+
+
+def trace_specs_of(run_groups, global_trace=None) -> dict:
+    """{group_id: raw trace table}, the run-global one under ``""``
+    (``executor.py:469-480``)."""
+    specs = {g.id: dict(getattr(g, "trace", None) or {}) for g in run_groups}
+    specs[""] = dict(global_trace or {})
+    return {k: v for k, v in specs.items() if v}
+
+
+def slo_specs_of(run_groups, global_slo=None) -> dict:
+    """{group_id: [raw slo dicts]}, run-global rules under ``""``
+    (``executor.py:483-497``)."""
+    specs = {
+        g.id: [dict(s) for s in (getattr(g, "slo", None) or [])]
+        for g in run_groups
+    }
+    specs[""] = [dict(s) for s in (global_slo or [])]
+    return {k: v for k, v in specs.items() if v}
+
+
+class _SloRunCancel:
+    """OR of the task's cancel event with a run-local signal
+    (``executor.py:500-520``). ``set()`` keeps the task-level meaning (the
+    stall watchdog calls it); the SLO evaluator cancels through
+    ``run_local``: a fail-severity breach fails the run, not the task."""
+
+    def __init__(self, task_cancel: threading.Event):
+        self._task = task_cancel
+        self.run_local = threading.Event()
+
+    def set(self) -> None:
+        self._task.set()
+
+    def is_set(self) -> bool:
+        return self.run_local.is_set() or self._task.is_set()
+
+
+def _parse_hosts(raw) -> tuple[str, ...]:
+    """The additional_hosts config: a list, or a comma-separated string."""
+    if not raw:
+        return ()
+    if isinstance(raw, str):
+        raw = raw.split(",")
+    return tuple(s for s in (str(h).strip() for h in raw) if s)
+
+
+# headroom over the exact carry footprint (``executor.py:603-607``)
+_MEM_HEADROOM = 2.5
+
+
+def _precheck_device_memory(prog, carry: int, cfg, ow) -> None:
+    """Refuse an oversized composition before its first tick
+    (``executor.py:610-647``): the carry footprint × headroom against the
+    card's memory, or an explicit ``memory_limit_bytes``."""
+    limit = int(getattr(cfg, "memory_limit_bytes", 0) or 0)
+    if limit < 0:
+        return
+    if limit == 0:
+        if prog.device.type != "cuda":
+            return  # no device budget to check against
+        limit = torch.cuda.get_device_properties(prog.device).total_memory
+    need = int(carry * _MEM_HEADROOM)
+    if need > limit:
+        raise RuntimeError(
+            f"composition needs ~{need / 2**30:.2f} GiB per device "
+            f"(carry {carry / 2**30:.2f} GiB × {_MEM_HEADROOM} headroom "
+            f"/ 1 device(s)) but the device budget is "
+            f"{limit / 2**30:.2f} GiB — shrink the composition "
+            "(instances, IN_MSGS/MSG_WIDTH, MAX_LINK_TICKS, TOPIC_CAP) "
+            "or run on more devices; set runner config "
+            "memory_limit_bytes = -1 to override this precheck"
+        )
+    ow.infof(
+        "memory precheck: ~%.2f GiB/device of %.2f GiB budget (carry "
+        "%.2f GiB on %d device(s))",
+        need / 2**30, limit / 2**30, carry / 2**30, 1,
+    )
+
+
+def _transport_block(cfg, device: torch.device) -> dict:
+    """The ``sim.transport`` journal block: what the config asked for and
+    what ran."""
+    if device.type == "cuda":
+        resolved = "cuda"
+        reason = ("K1 commit_k and K2 pop_vec_k/pop_scalar_k "
+                  "(csrc/transport.cu) on the card")
+    else:
+        resolved = "plain"
+        reason = f"the plain torch versions of K1 and K2 on {device.type}"
+    return {"requested": cfg.transport, "resolved": resolved, "reason": reason}
+
+
+# ------------------------------------------------------------------ the run
+
+
+def execute_sim_run(
+    job: RunInput, ow: OutputWriter, cancel: threading.Event
+) -> RunOutput:
+    """Run ``job`` through the port and write its run directory
+    (``executor.py:735-793``). ``cancel`` (a ``threading.Event``) stops the
+    run at the next chunk's end; the outcome is then CANCELED."""
+    cfg = job.runner_config or SimTorchConfig()
+    _refuse_unported(cfg, job)
+    from .engine import resolve_device
+
+    device = resolve_device(getattr(cfg, "device", None))
+    outputs_root = job.env.dirs.outputs() if job.env is not None else None
+    run_dir = None
+    if outputs_root is not None:
+        run_dir = os.path.join(outputs_root, job.test_plan, job.run_id)
+        os.makedirs(run_dir, exist_ok=True)
+    from .telemetry import SPAN_FILE, SpanTracer
+
+    spans = SpanTracer(
+        os.path.join(run_dir, SPAN_FILE)
+        if run_dir is not None and not job.disable_metrics
+        else None,
+        ctx=getattr(job, "trace_ctx", None),
+    )
+    spans.start("run", run_id=job.run_id, plan=job.test_plan, case=job.test_case)
+    try:
+        return _execute_sim_run(job, cfg, device, ow, cancel, outputs_root,
+                                run_dir, spans)
+    except BaseException as e:
+        # failed runs keep their span record
+        spans.end("run", outcome="error", error=str(e)[:200])
+        raise
+    finally:
+        spans.close()
+
+
+def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans):
+    from . import netmatrix as _netmatrix
+    from .check import (
+        netmatrix_requires_telemetry_message,
+        slo_requires_telemetry_message,
+    )
+    from .engine import carry_footprint
+    from .faults import build_fault_schedule
+    from .slo import SLO_FILE, SloBreachError, SloEvaluator, build_slo_plan
+    from .telemetry import (
+        LATENCY_FILE,
+        NETMATRIX_FILE,
+        SIM_SERIES_FILE,
+        latency_percentiles,
+    )
+    from .trace import build_trace_plan
+
+    artifact = job.groups[0].artifact_path or plan_dir(job.test_plan)
+    spans.start("build")
+    testcase, groups = load_and_specialize(
+        artifact, job.test_case, job.groups, cfg.tick_ms
+    )
+    n = sum(g.count for g in groups)
+    hosts = _parse_hosts(getattr(cfg, "additional_hosts", None))
+
+    # fault plane: the composition's chaos schedule, lowered
+    fault_specs = fault_specs_of(job.groups, getattr(job, "faults", None))
+    fault_schedule = build_fault_schedule(groups, fault_specs, cfg.tick_ms)
+    # which group pairs the schedule degrades (journal
+    # sim.net_matrix.faulted_pairs)
+    nm_faulted = None
+    if fault_schedule is not None and bool(getattr(cfg, "netmatrix", False)):
+        nm_faulted = _netmatrix.faulted_pairs(fault_schedule, groups)
+    if fault_schedule is not None:
+        ow.infof("sim:torch %s: fault schedule armed — %s", job.run_id,
+                 fault_schedule.summary())
+
+    # flight recorder: disable_metrics wins
+    trace_specs = trace_specs_of(job.groups, getattr(job, "trace", None))
+    trace_plan = build_trace_plan(groups, trace_specs)
+    if trace_plan is not None and job.disable_metrics:
+        trace_plan = None
+    if trace_plan is not None:
+        ow.infof("sim:torch %s: flight recorder armed — %s", job.run_id,
+                 trace_plan.summary())
+
+    # telemetry plane: disable_metrics wins over the runner config; the
+    # traffic matrix and the SLO rules need it, and are refused loudly
+    # without it (the reference's messages)
+    telemetry_on = bool(getattr(cfg, "telemetry", False)) and not job.disable_metrics
+    netmatrix_on = bool(getattr(cfg, "netmatrix", False))
+    if netmatrix_on and not telemetry_on:
+        raise ValueError(netmatrix_requires_telemetry_message(job.disable_metrics))
+    slo_specs = slo_specs_of(job.groups, getattr(job, "slo", None))
+    slo_plan = build_slo_plan(groups, slo_specs)
+    if slo_plan is not None and not telemetry_on:
+        raise ValueError(
+            slo_requires_telemetry_message(slo_plan.count, job.disable_metrics)
+        )
+    if slo_plan is not None:
+        ow.infof("sim:torch %s: run health plane armed — %s", job.run_id,
+                 slo_plan.summary())
+
+    ow.infof(
+        "sim:torch run %s: plan=%s case=%s instances=%d groups=%d "
+        "tick=%.3fms device=%s",
+        job.run_id, job.test_plan, job.test_case, n, len(groups), cfg.tick_ms,
+        device,
+    )
+    if hosts:
+        ow.infof("additional hosts: %s", ",".join(hosts))
+
+    prog = make_sim_program(
+        testcase,
+        groups,
+        test_plan=job.test_plan,
+        test_case=job.test_case,
+        test_run=job.run_id,
+        tick_ms=cfg.tick_ms,
+        chunk=cfg.chunk,
+        hosts=hosts,
+        validate=bool(getattr(cfg, "validate", False)),
+        telemetry=telemetry_on,
+        faults=fault_schedule,
+        trace=trace_plan,
+        netmatrix=netmatrix_on,
+        device=device,
+    )
+    # the carry is built here, not from its shapes on the meta device: a
+    # process's first meta op imports torch's meta kernels, which takes
+    # seconds; the run then starts from this carry
+    carry0 = prog.init_carry(cfg.seed)
+    carry_bytes = carry_footprint(carry0)
+    _precheck_device_memory(prog, carry_bytes, cfg, ow)
+    ow.infof(
+        "sim:torch %s: device carry footprint %.2f MiB (%d bytes)",
+        job.run_id, carry_bytes / 2**20, carry_bytes,
+    )
+    spans.end("build", carry_bytes=carry_bytes, instances=n)
+    if bool(getattr(cfg, "perf", True)) and not job.disable_metrics:
+        ow.infof(
+            "sim:torch %s: perf ledger not ported (ROADMAP queue 1 %s) — no "
+            "sim.perf block", job.run_id, _ITEM_14,
+        )
+
+    t0 = time.monotonic()
+    last_report = [t0]
+    # bounded SLO warn lines: the first breach of each rule (and every
+    # fail) reaches the log; the full record stream is the jsonl
+    slo_warned: set[str] = set()
+    slo_eval = None
+
+    def on_chunk(ticks: int) -> None:
+        spans.point("chunk", ticks=ticks, wall_secs=round(time.monotonic() - t0, 6))
+        if slo_eval is not None:
+            # after the loop handed over this chunk's telemetry rows and
+            # latency delta (their callbacks run before on_chunk)
+            for breach in slo_eval.evaluate():
+                first = breach["rule"] not in slo_warned
+                slo_warned.add(breach["rule"])
+                if first or breach["severity"] == "fail":
+                    spans.point("slo_breach", **breach)
+                    ow.warn(
+                        "sim:torch %s: SLO breach (%s): %s — %s = %g "
+                        "violates %s %g at tick %d%s",
+                        job.run_id, breach["severity"], breach["rule"],
+                        breach["metric"], breach["observed"], breach["op"],
+                        breach["threshold"], breach["tick"],
+                        " — canceling the run"
+                        if breach["severity"] == "fail" else "",
+                    )
+        now = time.monotonic()
+        if now - last_report[0] >= 5.0:
+            last_report[0] = now
+            ow.infof(
+                "sim:torch %s: %d ticks (%.1f sim-s) in %.1fs wall",
+                job.run_id, ticks, ticks * cfg.tick_ms / 1000.0, now - t0,
+            )
+
+    # no outputs dir → nowhere to keep samples; disable_metrics opts out
+    ts_enabled = outputs_root is not None and not job.disable_metrics
+    recorder = _TimeSeriesRecorder(
+        testcase, groups,
+        getattr(cfg, "timeseries_every", 0) if ts_enabled else 0, ow,
+    )
+    row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
+    tele_writer = (
+        _SimTelemetryWriter(
+            tuple(g.id for g in groups), row_ident,
+            os.path.join(run_dir, SIM_SERIES_FILE) if run_dir is not None else None,
+        )
+        if telemetry_on else None
+    )
+    netmatrix_writer = (
+        _SimNetMatrixWriter(
+            prog, row_ident,
+            os.path.join(run_dir, NETMATRIX_FILE) if run_dir is not None else None,
+        )
+        if netmatrix_on else None
+    )
+    trace_writer = (
+        _SimTraceWriter(groups, row_ident, run_dir, cfg.tick_ms, trace_plan)
+        if trace_plan is not None else None
+    )
+    run_cancel = cancel
+    if slo_plan is not None:
+        # a fail-severity breach cancels the run, never the task
+        run_cancel = _SloRunCancel(cancel)
+        slo_eval = SloEvaluator(
+            slo_plan, groups, cfg.tick_ms, cfg.chunk, ident=row_ident,
+            path=os.path.join(run_dir, SLO_FILE) if run_dir is not None else None,
+            cancel=run_cancel.run_local,
+        )
+
+    def on_stall(last_tick: int, chunk_index: int) -> None:
+        spans.point(
+            "stall", last_tick=last_tick, chunk_index=chunk_index,
+            timeout_secs=float(getattr(cfg, "chunk_timeout_secs", 0.0)),
+        )
+        ow.warn(
+            "sim:torch %s: chunk %d stalled past the %.1fs wall-clock "
+            "watchdog (last completed tick %d) — canceling the run",
+            job.run_id, chunk_index,
+            float(getattr(cfg, "chunk_timeout_secs", 0.0)), last_tick,
+        )
+
+    # one decode of each chunk's rows, two consumers
+    if slo_eval is not None:
+
+        def _tele_cb(block):
+            slo_eval.on_rows(tele_writer.on_block(block))
+
+    else:
+        _tele_cb = tele_writer.on_block if tele_writer else None
+
+    spans.start("execute")
+    res = prog.run(
+        seed=cfg.seed,
+        resume_carry=carry0,
+        max_ticks=cfg.max_ticks,
+        cancel=run_cancel,
+        on_chunk=on_chunk,
+        observer=recorder.observe if recorder.enabled else None,
+        telemetry_cb=_tele_cb,
+        lat_hist_cb=slo_eval.on_lat_delta if slo_eval else None,
+        trace_cb=trace_writer.on_block if trace_writer else None,
+        netmatrix_cb=netmatrix_writer.on_delta if netmatrix_writer else None,
+        chunk_timeout=float(getattr(cfg, "chunk_timeout_secs", 0.0)),
+        chunk_sleep_ms=float(getattr(cfg, "debug_chunk_sleep_ms", 0.0)),
+        on_stall=on_stall,
+        nan_guard=bool(getattr(cfg, "nan_guard", False)),
+    )
+    wall = time.monotonic() - t0
+    spans.point("compile", wall_secs=round(res.get("compile_secs", 0.0), 6))
+    spans.end("execute", ticks=res["ticks"])
+    status = res["status"]
+    ow.infof(
+        "sim:torch %s: done — %d ticks in %.2fs wall (%.0f instance·ticks/s)",
+        job.run_id, res["ticks"], wall, n * res["ticks"] / max(wall, 1e-9),
+    )
+    if fault_schedule is not None:
+        ow.infof(
+            "sim:torch %s: fault plane — crashed=%d restarted=%d "
+            "fault_dropped=%d message(s)",
+            job.run_id, res["faults_crashed"], res["faults_restarted"],
+            res["fault_dropped"],
+        )
+    if res["collisions"] > 0:
+        # a direct-mode contract violation under validate: the data is
+        # corrupt, so no plan-level outcome is reported from it
+        c_dst, c_slot = res["collision_where"]
+        raise RuntimeError(
+            f"direct slot-mode collision: {res['collisions']} conflicting "
+            f"writes detected (first at receiver {c_dst}, inbox slot "
+            f"{c_slot}) — the plan violates the ≤1 sender per (receiver, "
+            "slot, tick) contract; use SLOT_MODE='sorted' or fix the "
+            "traffic pattern"
+        )
+    if res["bw_rate_change_backlogged"] > 0:
+        ow.warn(
+            "sim:torch %s: bandwidth changed under a standing egress "
+            "backlog %d time(s) — the bandwidth_queue occupancy bound "
+            "values standing busy time at the current rate, so tail-drop "
+            "thresholds around those ticks are approximate (pacing and "
+            "FIFO order are unaffected)",
+            job.run_id, res["bw_rate_change_backlogged"],
+        )
+    if res["latency_clamped"] > 0:
+        ow.warn(
+            "sim:torch %s: %d deliveries exceeded the calendar horizon and "
+            "were clamped to MAX_LINK_TICKS-1 — a shaped latency/jitter/"
+            "backlog does not fit the calendar; raise MAX_LINK_TICKS "
+            "(results arrive EARLIER than configured)",
+            job.run_id, res["latency_clamped"],
+        )
+
+    # ------------------------------------------------ outcomes + outputs
+    spans.start("collect")
+    result = Result.for_input(job)
+    result.journal["events"] = {}
+    write_outputs = outputs_root is not None and n <= cfg.write_outputs_max
+    if outputs_root is not None and not write_outputs:
+        ow.warn(
+            "sim:torch %s: %d instances > write_outputs_max=%d — skipping "
+            "per-instance output dirs (group metric aggregates are in the "
+            "journal)",
+            job.run_id, n, cfg.write_outputs_max,
+        )
+        result.journal["outputs_skipped"] = {
+            "instances": n, "write_outputs_max": cfg.write_outputs_max,
+        }
+
+    metrics = {}
+    collect = getattr(testcase, "collect_metrics", None)
+    if callable(collect):
+        for gi, g in enumerate(groups):
+            try:
+                metrics[g.id] = collect(
+                    g, res["states"][gi], status[g.offset : g.offset + g.count]
+                )
+            except Exception as e:  # noqa: BLE001 — metrics are best-effort
+                ow.warn("collect_metrics failed for group %s: %s", g.id, e)
+    if metrics:
+        result.journal["metrics"] = {
+            gid: _aggregate_metrics(m) for gid, m in metrics.items()
+        }
+
+    # the journal's totals equal the streamed rows' sums
+    if tele_writer is not None:
+        tele_writer.close()
+        result.journal["telemetry"] = {
+            "rows": tele_writer.rows_written,
+            **({"file": SIM_SERIES_FILE} if tele_writer.path is not None else {}),
+            "totals": {
+                "delivered": res["msgs_delivered"],
+                "sent": res["msgs_sent"],
+                "enqueued": res["msgs_enqueued"],
+                "dropped": res["msgs_dropped"],
+                "rejected": res["msgs_rejected"],
+                "in_flight": res["cal_depth"],
+                "fault_dropped": res["fault_dropped"],
+            },
+        }
+
+    # network topology plane: the matrix, its exact conservation verdict,
+    # the bounded top-K pair view and the statically faulted pairs
+    net_matrix_block = None
+    if netmatrix_writer is not None:
+        netmatrix_writer.close()
+    if netmatrix_on and res.get("net_matrix") is not None:
+        nm_mat = np.asarray(res["net_matrix"], np.int64)
+        nm_labels = [g.id for g in groups]
+        if nm_mat.shape[1] > len(nm_labels):
+            nm_labels.append("hosts")
+        nm_pairs, nm_elided = _netmatrix.top_pairs(nm_mat, 16)
+        nm_mismatches = _netmatrix.reconcile(nm_mat, res)
+        if nm_mismatches:
+            ow.warn("sim:torch %s: traffic matrix failed conservation — %s",
+                    job.run_id, "; ".join(nm_mismatches))
+        net_matrix_block = {
+            "labels": nm_labels,
+            "matrix": nm_mat.tolist(),
+            "totals": _netmatrix.matrix_totals(nm_mat),
+            "bytes_total": int(_netmatrix.matrix_bytes(nm_mat).sum()),
+            "top_pairs": nm_pairs,
+            "elided_pairs": nm_elided,
+            "mismatches": nm_mismatches,
+            **(
+                {"bw_queue_hiwater": res["net_bw_hiwater"]}
+                if res.get("net_bw_hiwater") is not None else {}
+            ),
+            **(
+                {"faulted_pairs": nm_faulted.tolist()}
+                if nm_faulted is not None else {}
+            ),
+            **(
+                {"file": NETMATRIX_FILE,
+                 "chunks": netmatrix_writer.chunks_written}
+                if netmatrix_writer.path is not None else {}
+            ),
+        }
+
+    # per-receiver-group delivery-latency percentiles off the histograms
+    lat_rows: list[dict] = []
+    latency: dict = {}
+    if res.get("lat_hist") is not None:
+        latency = {
+            g.id: latency_percentiles(res["lat_hist"][gi], cfg.tick_ms)
+            for gi, g in enumerate(groups)
+        }
+        for gid, pct in latency.items():
+            for q in ("p50", "p95", "p99"):
+                if f"{q}_ms" not in pct:
+                    continue
+                v = pct[f"{q}_ms"]
+                lat_rows.append({
+                    **row_ident, "tick": res["ticks"], "group_id": gid,
+                    "name": f"sim.latency.{q}", "count": pct["count"],
+                    "mean": v, "min": v, "max": v,
+                })
+        if run_dir is not None and lat_rows:
+            try:
+                with open(os.path.join(run_dir, LATENCY_FILE), "w") as f:
+                    for row in lat_rows:
+                        f.write(json.dumps(row) + "\n")
+            except OSError:  # observability never fails the run
+                pass
+
+    if trace_writer is not None:
+        trace_writer.close()
+        result.journal["trace"] = trace_writer.journal()
+
+    # present whenever rules were armed: "no breaches" is a verdict too
+    if slo_eval is not None:
+        slo_eval.close()
+        result.journal["slo"] = slo_eval.journal()
+
+    # final metric sample at the last tick, then the run's series
+    if recorder.enabled:
+        recorder.sample(res["ticks"], res["states"], status)
+    if run_dir is not None and recorder.rows:
+        with open(os.path.join(run_dir, "timeseries.jsonl"), "w") as f:
+            for row in recorder.rows:
+                f.write(json.dumps({**row_ident, **row}) + "\n")
+        result.journal["timeseries"] = {
+            "samples": len(recorder.rows), "every_ticks": recorder.every,
+        }
+
+    for gi, g in enumerate(groups):
+        st = status[g.offset : g.offset + g.count]
+        ok = int(np.sum(st == 1))
+        result.outcomes[g.id].ok = ok
+        counts = {name: int(np.sum(st == code)) for code, name in _STATUS_NAME.items()}
+        result.journal["events"][g.id] = counts
+        ow.infof("group %s: %d/%d ok (%s)", g.id, ok, g.count,
+                 ", ".join(f"{k}={v}" for k, v in counts.items() if v))
+        if write_outputs:
+            _write_instance_outputs(outputs_root, job, g, st, res, metrics.get(g.id))
+
+    result.journal["sim"] = {
+        "ticks": res["ticks"],
+        "tick_ms": cfg.tick_ms,
+        "wall_secs": wall,
+        "processes": 1,
+        "compile_secs": round(res.get("compile_secs", 0.0), 3),
+        "devices": 1,
+        "transport": _transport_block(cfg, device),
+        "pub_dropped": res["pub_dropped"].tolist(),
+        "latency_clamped": res["latency_clamped"],
+        "bw_queue_dropped": res["bw_queue_dropped"],
+        "bw_rate_change_backlogged": res["bw_rate_change_backlogged"],
+        "msgs_delivered": res["msgs_delivered"],
+        "msgs_sent": res["msgs_sent"],
+        "msgs_enqueued": res["msgs_enqueued"],
+        "msgs_dropped": res["msgs_dropped"],
+        "msgs_rejected": res["msgs_rejected"],
+        "msgs_in_flight": res["cal_depth"],
+        "faults_crashed": res["faults_crashed"],
+        "faults_restarted": res["faults_restarted"],
+        "msgs_fault_dropped": res["fault_dropped"],
+        "carry_bytes": res["carry_bytes"],
+        **({"latency": latency} if latency else {}),
+        **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
+    }
+    result.update_outcome()
+    if cancel.is_set():
+        result.outcome = Outcome.CANCELED
+    spans.end("collect")
+    # fail-severity SLO breach: the loop was canceled run-locally; the
+    # assembled result rides the error. An operator cancel wins.
+    if slo_eval is not None and slo_eval.fatal is not None and not cancel.is_set():
+        result.outcome = Outcome.FAILURE
+        err = SloBreachError(slo_eval.fatal)
+        result.journal["slo"]["error"] = str(err)
+        err.run_output = RunOutput(run_id=job.run_id, result=result)
+        raise err
+    spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
+    return RunOutput(run_id=job.run_id, result=result)
+
+
+# ------------------------------------------------------- per-chunk sinks
+
+
+class _SimTelemetryWriter:
+    """Streams each chunk's ``[chunk, K]`` telemetry block to the run's
+    series file as it arrives (``executor.py:3381-3456``): host memory is
+    bounded by one chunk, and a crashed run keeps every row written so
+    far. Without an outputs dir the writer only counts rows."""
+
+    def __init__(self, group_ids: tuple, ident: dict, path: str | None):
+        self.group_ids = group_ids
+        self.ident = ident
+        self.path = path
+        self.rows_written = 0
+        self._f = None
+        if path is not None:
+            try:
+                self._f = open(path, "w")
+            except OSError:
+                self.path = None  # observe best-effort, never fail the run
+
+    def on_block(self, block) -> list:
+        """Decode and stream one chunk's block; returns the decoded rows
+        for the SLO evaluator."""
+        from .telemetry import rows_from_blocks
+
+        rows = rows_from_blocks([block], self.group_ids)
+        self.rows_written += len(rows)
+        if self._f is not None:
+            try:
+                for row in rows:
+                    self._f.write(json.dumps({**self.ident, **row}) + "\n")
+                self._f.flush()
+            except (OSError, ValueError):
+                _close_quietly(self._f)
+                self._f = None
+                self.path = None
+        return rows
+
+    def close(self) -> None:
+        if self._f is not None:
+            try:
+                self._f.close()
+            except OSError:
+                self.path = None
+            finally:
+                self._f = None
+
+
+class _SimNetMatrixWriter:
+    """Streams each chunk's traffic-matrix delta to
+    ``sim_netmatrix.jsonl`` (``executor.py:3459-3520``): one row a chunk,
+    nonzero cells only."""
+
+    def __init__(self, prog, ident: dict, path: str | None):
+        self.chunk = int(prog.chunk)
+        self.ident = ident
+        self.path = path
+        self.chunks_written = 0
+        self._f = None
+        if path is not None:
+            try:
+                self._f = open(path, "w")
+            except OSError:
+                self.path = None
+
+    def on_delta(self, delta) -> None:
+        from .netmatrix import delta_row
+
+        idx = self.chunks_written
+        self.chunks_written += 1
+        if self._f is None:
+            return
+        row = delta_row(delta, tick=(idx + 1) * self.chunk, chunk=idx,
+                        ident=self.ident)
+        try:
+            self._f.write(json.dumps(row) + "\n")
+            self._f.flush()
+        except (OSError, ValueError):
+            _close_quietly(self._f)
+            self._f = None
+            self.path = None
+
+    def close(self) -> None:
+        if self._f is not None:
+            try:
+                self._f.close()
+            except OSError:
+                self.path = None
+            finally:
+                self._f = None
+
+
+class _SimTraceWriter:
+    """Streams each chunk's ``[chunk, R, 5]`` flight-recorder block into
+    ``sim_trace.jsonl`` (``executor.py:3523-3681``), and buffers the
+    decoded events, up to the plan's ``events`` cap, for the Chrome trace
+    export written at :meth:`close`; past the cap ``truncated`` counts
+    what the export lost."""
+
+    def __init__(self, groups, ident: dict, run_dir, tick_ms: float, plan):
+        from .trace import TRACE_EVENTS_FILE, TRACE_FILE
+
+        self.plan = plan
+        self.ident = ident
+        self.tick_ms = float(tick_ms)
+        self.events_written = 0
+        self.truncated = 0
+        self._buffer: list[dict] = []
+        # lane → (group id, group-relative seq) for the traced lanes only
+        self._lane_group = {}
+        for lane in plan.lanes:
+            lane = int(lane)
+            g = next((g for g in groups if g.offset <= lane < g.offset + g.count),
+                     None)
+            self._lane_group[lane] = (g.id, lane - g.offset) if g is not None else ("", -1)
+        self._gid_of = {lane: gid for lane, (gid, _) in self._lane_group.items()}
+        self.path = os.path.join(run_dir, TRACE_FILE) if run_dir is not None else None
+        self.events_path = (
+            os.path.join(run_dir, TRACE_EVENTS_FILE) if run_dir is not None else None
+        )
+        self._f = None
+        if self.path is not None:
+            try:
+                self._f = open(self.path, "w")
+            except OSError:
+                self.path = None
+
+    def on_block(self, block) -> None:
+        from .trace import events_from_blocks
+
+        events = events_from_blocks([block], lambda i: self._gid_of.get(i, ""))
+        self.events_written += len(events)
+        room = self.plan.events_cap - len(self._buffer)
+        if room > 0:
+            self._buffer.extend(events[:room])
+        self.truncated += max(0, len(events) - max(room, 0))
+        if self._f is not None:
+            try:
+                for ev in events:
+                    self._f.write(json.dumps({**self.ident, **ev}) + "\n")
+                self._f.flush()
+            except (OSError, ValueError):
+                _close_quietly(self._f)
+                self._f = None
+                self.path = None
+
+    def close(self) -> None:
+        from .trace import chrome_trace
+
+        if self._f is not None:
+            try:
+                self._f.close()
+            except OSError:
+                self.path = None
+            finally:
+                self._f = None
+        if self.events_path is None:
+            return
+        lane_names = {
+            lane: f"{gid}[{seq}] i{lane}"
+            for lane, (gid, seq) in self._lane_group.items()
+        }
+        try:
+            with open(self.events_path, "w") as f:
+                json.dump(chrome_trace(self._buffer, self.plan.lanes, lane_names,
+                                       self.tick_ms), f)
+        except (OSError, ValueError):
+            self.events_path = None
+
+    def journal(self) -> dict:
+        from .trace import TRACE_EVENTS_FILE, TRACE_FILE
+
+        out: dict = {"events": self.events_written, "instances": self.plan.count}
+        if self.path is not None:
+            out["file"] = TRACE_FILE
+        if self.events_path is not None:
+            out["events_file"] = TRACE_EVENTS_FILE
+        if self.truncated:
+            out["truncated"] = self.truncated
+        return out
+
+
+class _TimeSeriesRecorder:
+    """Periodic per-group metric reductions over the live carry
+    (``executor.py:3684-3779``): every ``every`` ticks the plan's
+    ``collect_metrics`` runs on the states read off the device, and the
+    per-group reductions become ``timeseries.jsonl`` rows."""
+
+    def __init__(self, testcase, groups, every: int, ow: OutputWriter):
+        self._collect = getattr(testcase, "collect_metrics", None)
+        self.groups = groups
+        self.every = int(every or 0)
+        self._next_at = self.every
+        self._last_tick = -1
+        self.rows: list[dict] = []
+        self.ow = ow
+        self._warned: set[str] = set()
+
+    @property
+    def enabled(self) -> bool:
+        return callable(self._collect) and self.every > 0
+
+    def observe(self, ticks: int, carry) -> None:
+        if ticks < self._next_at:
+            return
+        self._next_at = ticks + self.every
+        # the sampled read: the reference's own cost, once per cadence
+        states = tuple(
+            {k: v.detach().cpu().numpy() for k, v in s.items()} for s in carry.states
+        )
+        self.sample(ticks, states, carry.status.detach().cpu().numpy())
+
+    def sample(self, tick: int, states, status) -> None:
+        if tick == self._last_tick:  # final sample on a cadence boundary
+            return
+        self._last_tick = tick
+        for gi, g in enumerate(self.groups):
+            try:
+                m = self._collect(
+                    g, {k: np.asarray(v) for k, v in states[gi].items()},
+                    status[g.offset : g.offset + g.count],
+                )
+            except Exception as e:  # noqa: BLE001 — sampling is best-effort
+                if g.id not in self._warned:
+                    self._warned.add(g.id)
+                    self.ow.warn("timeseries sample failed for group %s: %s", g.id, e)
+                continue
+            for name, agg in _aggregate_metrics(m).items():
+                self.rows.append({"tick": int(tick), "group_id": g.id, "name": name,
+                                  **agg})
+
+
+def _close_quietly(f) -> None:
+    try:
+        f.close()
+    except OSError:
+        pass
+
+
+def _aggregate_metrics(group_metrics: dict) -> dict:
+    """Per-group reductions of the per-instance metric arrays
+    (``executor.py:3782-3801``); NaN entries are excluded."""
+    agg = {}
+    for name, arr in group_metrics.items():
+        a = np.asarray(arr, np.float64).reshape(-1)
+        a = a[~np.isnan(a)]
+        if a.size == 0:
+            agg[name] = {"count": 0}
+            continue
+        agg[name] = {
+            "count": int(a.size),
+            "mean": float(a.mean()),
+            "min": float(a.min()),
+            "max": float(a.max()),
+        }
+    return agg
+
+
+def _write_instance_outputs(outputs_root, job, g, st, res, group_metrics) -> None:
+    """The reference's outputs layout (``local_docker.go:258-267``): one
+    dir per instance with run.out / metrics.out."""
+    for i in range(g.count):
+        d = instance_output_dir(outputs_root, job.test_plan, job.run_id, g.id, i)
+        os.makedirs(d, exist_ok=True)
+        name = _STATUS_NAME.get(int(st[i]), "incomplete")
+        fin = int(res["finished_at"][g.offset + i])
+        with open(os.path.join(d, "run.out"), "w") as f:
+            f.write(json.dumps({
+                "ts": time.time_ns(),
+                "event": {
+                    "type": name if name != "incomplete" else "message",
+                    **({"message": "incomplete (max_ticks reached)"}
+                       if name == "incomplete" else {}),
+                },
+                "group_id": g.id,
+                "finished_at_tick": fin,
+            }) + "\n")
+        if group_metrics:
+            with open(os.path.join(d, "metrics.out"), "w") as f:
+                for mname, arr in group_metrics.items():
+                    f.write(json.dumps({
+                        "ts": time.time_ns(),
+                        "name": mname,
+                        "value": float(np.asarray(arr)[i]),
+                        "type": "point",
+                    }) + "\n")

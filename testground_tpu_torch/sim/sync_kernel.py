@@ -83,7 +83,7 @@ def update_sync(
     stream.reshape(-1, pw)[flat_idx] = upd
     published = pv.sum(dim=1, dtype=i32)
     stored = in_range.sum(dim=1, dtype=i32)
-    stream_len = torch.minimum(sync.stream_len + published, torch.tensor(cap, dtype=i32, device=pv.device))
+    stream_len = torch.clamp(sync.stream_len + published, max=cap)
     dropped = sync.dropped + (published - stored)
     cursors = torch.minimum(
         sync.cursors + sub_consume.clamp_min(0), stream_len[:, None]

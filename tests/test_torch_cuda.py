@@ -406,3 +406,42 @@ def test_gpu_run_with_every_plane_matches_cpu_run(cuda):
             np.testing.assert_array_equal(y, x, err_msg=k)
     for k in cc:
         np.testing.assert_array_equal(cg[k], cc[k], err_msg=k)
+
+
+def _syncs_over(prog, ticks) -> int:
+    """Synchronizing CUDA calls that sync debug mode reports over one run
+    of ``ticks`` ticks, set-up included."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            prog.run(seed=0, max_ticks=ticks)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("planes", ["off", "every-plane"])
+def test_sustained_tick_makes_no_host_sync(cuda, planes):
+    """The sustained tick waits on no host copy (the Python-scalar StepOut
+    fields are fills on the card, the link shape's scalar fields too, and
+    the plan's latencies are device constants): a run of 64 ticks makes
+    exactly the synchronizing calls of a run of 32 (chunk 16, so both span
+    chunk flushes), with the planes off and with every plane on."""
+    from testground_tpu_torch.sim.trace import build_trace_plan
+
+    factory = load_sim_testcases(plan_dir("network"))["pingpong-sustained"]
+    groups = build_groups([RunGroup(id="all", instances=512, parameters={
+        "duration_ticks": "500", "reshape_every": "24"})])
+    kw = {}
+    if planes == "every-plane":
+        kw = dict(telemetry=True, netmatrix=True,
+                  trace=build_trace_plan(groups, {"": {"instances": "0:64"}}))
+    prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                      device=cuda, **kw)
+    prog.run(seed=0, max_ticks=16)  # the kernels built and loaded
+    assert _syncs_over(prog, 32) == _syncs_over(prog, 64)
+

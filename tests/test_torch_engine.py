@@ -35,7 +35,7 @@ RESULT_KEYS = (
     "latency_clamped", "bw_queue_dropped", "bw_rate_change_backlogged",
     "collisions", "msgs_delivered", "msgs_sent", "msgs_enqueued",
     "msgs_dropped", "msgs_rejected", "cal_depth", "faults_crashed",
-    "faults_restarted", "fault_dropped",
+    "faults_restarted", "fault_dropped", "carry_bytes",
 )
 
 CASES = {

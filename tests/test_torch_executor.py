@@ -1,0 +1,445 @@
+"""The port's run executor against the JAX package's, on the CPU: the same
+``RunInput`` goes through ``testground_tpu.sim.executor.execute_sim_run``
+(JAX on the CPU, ``shard=False``, ``transport="xla"``) and through
+``testground_tpu_torch.sim.executor.execute_sim_run`` (``device="cpu"``),
+each into its own outputs root, and the two run directories, journals and
+outcomes must be equal:
+
+- every jsonl file and ``trace_events.json``, row for row, and every
+  per-instance ``run.out`` / ``metrics.out``, once the fields of
+  :data:`VARYING_FIELDS` are dropped;
+- the whole journal, with :data:`SIM_SKIPPED` left out of its ``sim``
+  block;
+- the outcome and the per-group outcomes.
+
+The reference runs with ``perf=False``: its perf ledger (ROADMAP item 14)
+has no counterpart in the port yet, and the port runs with its default,
+which writes no ledger. The workloads: ``network:ping-pong`` with
+telemetry and the traffic matrix, ``placebo`` ``ok`` and ``abort``, the
+chaos smoke composition (``plans/chaos/_compositions/smoke.toml``, built
+here by hand) with its warn SLO and again with ``severity = "fail"``, a
+plan with ``collect_metrics`` sampled into ``timeseries.jsonl``,
+``disable_metrics`` over ``telemetry``, a cancel set before the run, and
+``additional_hosts`` with an echo host under the traffic matrix.
+Then the refusals: each unported setting names its ROADMAP item, and no
+device without a GPU raises. Last, ``SimProgram.run``'s loop hooks that the
+executor uses (the callbacks' order, the cancel, the stall watchdog, the
+NaN guard and the refused options), and the footprint the build journals,
+``SimProgram.estimate_carry_bytes``."""
+
+import json
+import os
+import threading
+
+import pytest
+import torch
+
+import __graft_entry__ as ge
+from testground_tpu.api import RunGroup as JRunGroup
+from testground_tpu.api import RunInput as JRunInput
+from testground_tpu.config import EnvConfig
+from testground_tpu.rpc import discard_writer as jdiscard
+from testground_tpu.sim import executor as jexec
+from testground_tpu.sim.slo import SloBreachError as JSloBreachError
+from testground_tpu_torch.api import OutputsEnv, RunGroup, RunInput
+from testground_tpu_torch.rpc import discard_writer
+from testground_tpu_torch.sim import api as papi
+from testground_tpu_torch.sim import executor as pexec
+from testground_tpu_torch.sim.engine import SimProgram, build_groups
+from testground_tpu_torch.sim.slo import SloBreachError
+from test_torch_engine import CASES as ENGINE_CASES
+from test_torch_engine import jax_program, port_program
+
+REF_PLANS = os.path.join(os.path.dirname(ge.__file__), "plans")
+
+# Fields that differ between any two runs, the reference's with itself
+# too: wall-clock stamps and durations (span and row ``ts``, ``wall_ns``,
+# ``wall_secs``, ``compile_secs``) and the spans' random W3C ids. Dropped
+# wherever they appear, and nothing else is.
+VARYING_FIELDS = frozenset(
+    {"ts", "wall_ns", "wall_secs", "compile_secs", "trace_id", "span_id", "parent_id"}
+)
+
+# keys of the journal's ``sim`` block that describe the machine and not
+# the run: wall times, the process count, the transport record (what ran
+# where) and the reference's perf ledger (ROADMAP item 14)
+SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", "perf"})
+
+CHAOS_PARAMS = {"slow_count": "2", "slow_tick": "30", "heal_tick": "44",
+                "deadline": "120"}
+CHAOS_FAULTS = [
+    {"kind": "crash", "instances": "0:2", "start_ms": 6.0},
+    {"kind": "link_flap", "instances": "2:4", "start_ms": 8.0,
+     "duration_ms": 8.0, "period_ms": 4.0, "duty": 0.5},
+    {"kind": "restart", "instances": "0:2", "start_ms": 20.0},
+    {"kind": "partition", "instances": "0:4", "to_instances": "4:8",
+     "start_ms": 24.0, "duration_ms": 16.0},
+]
+CHAOS_SLO = {"name": "fleet-mostly-alive", "metric": "crashed_fraction", "op": "<",
+             "threshold": 0.2, "severity": "warn"}
+CHAOS_CFG = {"telemetry": True, "chunk": 16, "max_ticks": 512}
+
+# name: (plan, case, instances, group params, group faults, runner config,
+#        run-global fields, cancel set before the run)
+WORKLOADS = {
+    "ping-pong-planes": ("network", "ping-pong", 8, {}, [],
+                         {"telemetry": True, "netmatrix": True, "chunk": 16}, {}, False),
+    "placebo-ok": ("placebo", "ok", 4, {}, [], {"chunk": 8}, {}, False),
+    "placebo-abort": ("placebo", "abort", 4, {}, [], {"chunk": 8}, {}, False),
+    "chaos-smoke": ("chaos", "chaos-barrier", 8, CHAOS_PARAMS, CHAOS_FAULTS,
+                    {**CHAOS_CFG, "netmatrix": True},
+                    {"trace": {"instances": "0:3"}, "slo": [CHAOS_SLO]}, False),
+    "chaos-fail": ("chaos", "chaos-barrier", 8, CHAOS_PARAMS, CHAOS_FAULTS, CHAOS_CFG,
+                   {"trace": {"instances": "0:3"},
+                    "slo": [{**CHAOS_SLO, "severity": "fail"}]}, False),
+    "timeseries": ("placebo", "metrics", 4, {}, [],
+                   {"chunk": 4, "timeseries_every": 4}, {}, False),
+    "no-metrics": ("placebo", "metrics", 4, {}, [],
+                   {"chunk": 4, "telemetry": True, "timeseries_every": 4},
+                   {"disable_metrics": True}, False),
+    "canceled": ("network", "ping-pong", 8, {}, [],
+                 {"telemetry": True, "chunk": 16}, {}, True),
+    "additional-hosts": ("additional_hosts", "additional_hosts", 8, {}, [],
+                         {"telemetry": True, "netmatrix": True, "chunk": 16,
+                          "additional_hosts": ["http-echo"]}, {}, False),
+}
+
+
+def _jobs(name, jroot, proot):
+    plan, case, n, params, faults, cfg, extra, _ = WORKLOADS[name]
+    run_id = f"run-{name}"
+    jgroup = JRunGroup(id="all", instances=n, parameters=dict(params),
+                       artifact_path=os.path.join(REF_PLANS, plan), faults=list(faults))
+    pgroup = RunGroup(id="all", instances=n, parameters=dict(params),
+                      artifact_path=pexec.plan_dir(plan), faults=list(faults))
+    common = dict(run_id=run_id, test_plan=plan, test_case=case, total_instances=n)
+    jjob = JRunInput(groups=[jgroup], env=EnvConfig.load(home=str(jroot)),
+                     runner_config=jexec.SimJaxConfig(shard=False, transport="xla",
+                                                      perf=False, **cfg),
+                     **common, **extra)
+    pjob = RunInput(groups=[pgroup], env=OutputsEnv(proot),
+                    runner_config=pexec.SimTorchConfig(device="cpu", **cfg),
+                    **common, **extra)
+    return jjob, pjob
+
+
+def _execute(execute, job, writer, cancel):
+    """The run's output, or the run output a SloBreachError carried."""
+    try:
+        return execute(job, writer, cancel), None
+    except (JSloBreachError, SloBreachError) as e:
+        return e.run_output, e
+
+
+def _strip(x):
+    if isinstance(x, dict):
+        return {k: _strip(v) for k, v in x.items() if k not in VARYING_FIELDS}
+    if isinstance(x, list):
+        return [_strip(v) for v in x]
+    return x
+
+
+def _read_tree(run_dir) -> dict:
+    """Every file under the run directory, parsed and stripped:
+    ``.jsonl``/``.out`` row by row, ``.json`` whole."""
+    out = {}
+    for root, _, names in os.walk(run_dir):
+        for fname in names:
+            path = os.path.join(root, fname)
+            rel = os.path.relpath(path, run_dir)
+            with open(path) as f:
+                if fname.endswith(".json"):
+                    out[rel] = _strip(json.load(f))
+                else:
+                    out[rel] = [_strip(json.loads(line)) for line in f if line.strip()]
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Each workload run once through both executors, on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            base = tmp_path_factory.mktemp(name)
+            jroot, proot = base / "jax", base / "torch"
+            jjob, pjob = _jobs(name, jroot, proot)
+            pre_cancel = WORKLOADS[name][-1]
+            both = []
+            for execute, job, writer in ((jexec.execute_sim_run, jjob, jdiscard()),
+                                         (pexec.execute_sim_run, pjob, discard_writer())):
+                cancel = threading.Event()
+                if pre_cancel:
+                    cancel.set()
+                out, err = _execute(execute, job, writer, cancel)
+                run_dir = os.path.join(job.env.dirs.outputs(), job.test_plan, job.run_id)
+                both.append((out, err, _read_tree(run_dir)))
+            cache[name] = both
+        return cache[name]
+
+    return get
+
+
+def _journal(out) -> dict:
+    j = json.loads(json.dumps(out.result.journal))
+    j["sim"] = {k: v for k, v in j["sim"].items() if k not in SIM_SKIPPED}
+    return j
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_run_directory_matches_jax(name, runs):
+    (_, _, jtree), (_, _, ptree) = runs(name)
+    assert sorted(ptree) == sorted(jtree), name
+    for rel in jtree:
+        assert ptree[rel] == jtree[rel], f"{name}: {rel}"
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_journal_and_outcome_match_jax(name, runs):
+    (jout, jerr, _), (pout, perr, _) = runs(name)
+    assert (jerr is None) == (perr is None), name
+    if jerr is not None:
+        assert str(perr) == str(jerr)
+    assert pout.run_id == jout.run_id
+    assert pout.result.outcome.value == jout.result.outcome.value, name
+    assert ({k: v.to_dict() for k, v in pout.result.outcomes.items()}
+            == {k: v.to_dict() for k, v in jout.result.outcomes.items()})
+    assert _journal(pout) == _journal(jout), name
+
+
+# name: (outcome, journal keys that must be there, files that must be there)
+EXPECTED = {
+    "ping-pong-planes": ("success", {"telemetry"},
+                         {"sim_timeseries.jsonl", "sim_netmatrix.jsonl",
+                          "sim_latency.jsonl", "run_spans.jsonl", "all/0/run.out"}),
+    "placebo-ok": ("success", set(), {"all/3/run.out"}),
+    "placebo-abort": ("failure", set(), {"all/3/run.out"}),
+    "chaos-smoke": ("success", {"telemetry", "trace", "slo", "metrics"},
+                    {"sim_trace.jsonl", "trace_events.json", "sim_slo.jsonl"}),
+    "chaos-fail": ("failure", {"slo"}, {"sim_slo.jsonl"}),
+    "timeseries": ("success", {"timeseries", "metrics"},
+                   {"timeseries.jsonl", "all/0/metrics.out"}),
+    "no-metrics": ("success", {"metrics"}, set()),
+    "canceled": ("canceled", {"telemetry"}, {"sim_timeseries.jsonl"}),
+    "additional-hosts": ("success", {"telemetry"}, {"sim_netmatrix.jsonl"}),
+}
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_workload_covers_what_it_is_for(name, runs):
+    """The equalities above are not vacuous: each workload reaches the
+    outcome, journal blocks and files it is there for."""
+    _, (pout, _, ptree) = runs(name)
+    outcome, keys, files = EXPECTED[name]
+    assert pout.result.outcome.value == outcome, name
+    assert keys <= set(pout.result.journal), name
+    assert files <= set(ptree), name
+
+
+def test_chaos_breaches_fall_in_the_crash_window(runs):
+    _, (pout, _, ptree) = runs("chaos-smoke")
+    slo = pout.result.journal["slo"]
+    assert slo["breaches"] > 0 and "error" not in slo
+    ticks = [r["tick"] for r in ptree["sim_slo.jsonl"]]
+    assert ticks and all(6 <= t <= 32 for t in ticks), ticks  # crash at 6, restart at 20
+
+
+def test_fail_severity_cancels_the_run_at_the_reference_tick(runs):
+    (jout, _, _), (pout, perr, _) = runs("chaos-fail")
+    assert isinstance(perr, SloBreachError)
+    assert perr.run_output is pout
+    assert pout.result.journal["slo"]["error"] == str(perr)
+    # canceled at the end of the chunk that breached, not run to the end
+    assert pout.result.journal["sim"]["ticks"] == jout.result.journal["sim"]["ticks"]
+    assert pout.result.journal["sim"]["ticks"] < runs("chaos-smoke")[1][0].result.journal[
+        "sim"]["ticks"]
+
+
+def test_disable_metrics_writes_no_series_and_no_spans(runs):
+    _, (pout, _, ptree) = runs("no-metrics")
+    assert "telemetry" not in pout.result.journal
+    assert "timeseries" not in pout.result.journal
+    assert not {"run_spans.jsonl", "sim_timeseries.jsonl", "timeseries.jsonl"} & set(ptree)
+
+
+def test_telemetry_totals_equal_the_series(runs):
+    _, (pout, _, ptree) = runs("chaos-smoke")
+    rows = ptree["sim_timeseries.jsonl"]
+    totals = pout.result.journal["telemetry"]["totals"]
+    for col, key in (("delivered", "delivered"), ("sent", "sent"),
+                     ("fault_dropped", "fault_dropped")):
+        assert sum(r[col] for r in rows) == totals[key], col
+    assert pout.result.journal["sim"]["net_matrix"]["mismatches"] == []
+
+
+def test_outputs_over_the_cap_are_skipped(tmp_path):
+    job = RunInput(run_id="capped", test_plan="placebo", test_case="ok",
+                   total_instances=4, groups=[RunGroup(id="all", instances=4)],
+                   env=OutputsEnv(tmp_path),
+                   runner_config=pexec.SimTorchConfig(device="cpu", chunk=8,
+                                                      write_outputs_max=3))
+    out = pexec.execute_sim_run(job, discard_writer(), threading.Event())
+    assert out.result.journal["outputs_skipped"] == {"instances": 4,
+                                                     "write_outputs_max": 3}
+    assert not os.path.isdir(tmp_path / "placebo" / "capped" / "all")
+
+
+REFUSED = {
+    "bucket": ("auto", "item 13"),
+    "bucket_ladder": ("32,64", "item 13"),
+    "build_buckets": (True, "item 13"),
+    "pack": (True, "item 13"),
+    "checkpoint_chunks": (2, "item 13"),
+    "resume_from": ("earlier-run", "item 13"),
+    "mesh": ("4", "item 15"),
+    "coordinator_address": ("localhost:1234", "item 15"),
+    "num_processes": (2, "item 15"),
+    "process_id": (1, "item 15"),
+    "profile": (True, "item 14"),
+    "profile_chunks": (4, "item 14"),
+    "phases": (True, "item 14"),
+    "phases_measure": (3, "item 14"),
+    "transport_probe": (2, "item 14"),
+}
+
+
+def _placebo_job(tmp_path, **cfg):
+    return RunInput(run_id="refused", test_plan="placebo", test_case="ok",
+                    total_instances=2, groups=[RunGroup(id="all", instances=2)],
+                    env=OutputsEnv(tmp_path),
+                    runner_config=pexec.SimTorchConfig(**{"device": "cpu", **cfg}))
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
+    value, item = REFUSED[name]
+    with pytest.raises(NotImplementedError, match=f"{name}=.*ROADMAP queue 1 {item}"):
+        pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
+                              discard_writer(), threading.Event())
+    assert not os.path.exists(tmp_path / "placebo")  # refused before any output
+
+
+def test_influx_endpoint_is_refused_naming_its_item(tmp_path):
+    job = _placebo_job(tmp_path)
+    job.env.daemon = type("Daemon", (), {"influxdb_endpoint": "http://localhost:8086"})
+    with pytest.raises(NotImplementedError, match="item 9c"):
+        pexec.execute_sim_run(job, discard_writer(), threading.Event())
+
+
+def test_without_a_gpu_no_device_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    job = _placebo_job(tmp_path, device=None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pexec.execute_sim_run(job, discard_writer(), threading.Event())
+    assert not os.path.exists(tmp_path / "placebo")
+
+
+@pytest.mark.parametrize("flag", ["netmatrix", "slo"])
+def test_planes_without_telemetry_refused_like_reference(flag, tmp_path):
+    extra = {"netmatrix": True} if flag == "netmatrix" else {}
+    msgs = []
+    for execute, job_cls, cfg, group, env, w in (
+        (jexec.execute_sim_run, JRunInput, jexec.SimJaxConfig(shard=False, perf=False,
+                                                              **extra),
+         JRunGroup(id="all", instances=2, artifact_path=os.path.join(REF_PLANS, "placebo")),
+         EnvConfig.load(home=str(tmp_path / "jax")), jdiscard()),
+        (pexec.execute_sim_run, RunInput, pexec.SimTorchConfig(device="cpu", **extra),
+         RunGroup(id="all", instances=2), OutputsEnv(tmp_path / "torch"), discard_writer()),
+    ):
+        job = job_cls(run_id="r", test_plan="placebo", test_case="ok", total_instances=2,
+                      groups=[group], env=env, runner_config=cfg,
+                      slo=[CHAOS_SLO] if flag == "slo" else [])
+        with pytest.raises(ValueError) as e:
+            execute(job, w, threading.Event())
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+# ------------------------------------------------ SimProgram.run's loop hooks
+
+
+class _Slow(papi.SimTestcase):
+    """Runs forever; each step sleeps ``SLEEP_S`` on the host and, from
+    tick ``NAN_AT`` on, writes a NaN into its float state."""
+
+    MSG_WIDTH = 1
+    MAX_LINK_TICKS = 4
+    SLEEP_S = 0.0
+    NAN_AT = 10**9
+
+    def init(self, env):
+        return {"x": torch.zeros(env.group.count, dtype=torch.float32, device=env.device)}
+
+    def step(self, env, state, inbox, sync, t):
+        import time as _time
+
+        _time.sleep(self.SLEEP_S)
+        x = torch.where(t >= self.NAN_AT, torch.full_like(state["x"], float("nan")),
+                        state["x"] + 1)
+        return self.out({"x": x}, status=torch.zeros_like(env.group_seq))
+
+
+def _slow_program(**cls_attrs):
+    groups = build_groups([RunGroup(id="all", instances=2)])
+    tc = type("SlowCase", (_Slow,), cls_attrs)()
+    return SimProgram(tc, groups, chunk=4, device="cpu")
+
+
+def test_hooks_run_in_the_reference_order_and_cancel_ends_at_the_chunk():
+    """Per chunk: the planes' callbacks, then ``on_chunk``, then
+    ``observer``; a cancel set in ``on_chunk`` stops the loop after that
+    chunk's observer (``engine.py:2118-2148``)."""
+    groups = build_groups([RunGroup(id="all", instances=4)])
+    factory = pexec.load_sim_testcases(pexec.plan_dir("placebo"))["stall"]
+    prog = SimProgram(pexec.instantiate_testcase(factory, groups, 1.0), groups, chunk=4,
+                      device="cpu", telemetry=True)
+    calls, cancel = [], threading.Event()
+
+    def on_chunk(ticks):
+        calls.append(("on_chunk", ticks))
+        if ticks == 8:
+            cancel.set()
+
+    res = prog.run(max_ticks=64, cancel=cancel, on_chunk=on_chunk,
+                   telemetry_cb=lambda b: calls.append(("telemetry", len(b))),
+                   lat_hist_cb=lambda d: calls.append(("lat_hist", d.shape)),
+                   observer=lambda k, c: calls.append(("observer", k)))
+    assert res["ticks"] == 8
+    assert [c[0] for c in calls] == ["telemetry", "lat_hist", "on_chunk", "observer"] * 2
+
+
+def test_watchdog_cancels_and_raises_on_a_stalled_chunk():
+    from testground_tpu_torch.sim.engine import SimStallError
+
+    prog = _slow_program(SLEEP_S=0.05)
+    cancel, stalls = threading.Event(), []
+    with pytest.raises(SimStallError, match="did not complete within 0.1s"):
+        prog.run(max_ticks=64, cancel=cancel, chunk_timeout=0.1,
+                 on_stall=lambda tick, idx: stalls.append((tick, idx)))
+    assert cancel.is_set()
+    assert stalls == [(8, 2)]  # armed from the third chunk on
+
+
+def test_nan_guard_names_the_leaf_and_the_ticks():
+    with pytest.raises(FloatingPointError,
+                       match=r"NaN in carry leaf 'carry.states\[0\]\['x'\]' after ticks \(4, 8\]"):
+        _slow_program(NAN_AT=5).run(max_ticks=64, nan_guard=True)
+    assert _slow_program(NAN_AT=5).run(max_ticks=16)["ticks"] == 16  # off: runs on
+
+
+@pytest.mark.parametrize("option,item", [("perf", "item 14"), ("live_counts", "item 13")])
+def test_unported_run_options_are_refused(option, item):
+    with pytest.raises(NotImplementedError, match=f"'{option}'.*{item}"):
+        _slow_program().run(max_ticks=4, **{option: object()})
+
+
+@pytest.mark.parametrize("name", list(ENGINE_CASES))
+def test_carry_estimate_from_shapes_matches_jax(name):
+    """``SimProgram.estimate_carry_bytes`` (the shapes alone, on the meta
+    device) is the reference's ``estimate_carry_bytes`` on the engine
+    parity cases, whose ``results()['carry_bytes']`` ``RESULT_KEYS``
+    checks."""
+    case, n, params, chunk = ENGINE_CASES[name]
+    assert (port_program(case, n, params, chunk).estimate_carry_bytes()
+            == jax_program(case, n, params, chunk).estimate_carry_bytes())

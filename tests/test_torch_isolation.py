@@ -58,7 +58,11 @@ def test_the_scan_sees_the_whole_port():
     for must in ("chip_smoke.py", "testground_tpu_torch/sim/engine.py",
                  "testground_tpu_torch/sim/faults.py",
                  *(f"testground_tpu_torch/sim/{m}.py"
-                   for m in ("telemetry", "netmatrix", "trace")),
+                   for m in ("telemetry", "netmatrix", "trace", "executor", "slo",
+                             "check")),
+                 *(f"testground_tpu_torch/{m}.py"
+                   for m in ("api/run_input", "engine/task", "runners/result",
+                             "runners/outputs", "rpc/writer")),
                  *(f"testground_tpu_torch/plans/{p}/sim.py"
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos"))):
