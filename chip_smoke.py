@@ -21,7 +21,11 @@ and drives the port's main path through the library entry points
               tile, heavy fan-in, SLOTS=1, W=8), K1 at the flagship shape
               with the etick plane (the telemetry plane's commit) and
               flood's K2 with int32 occupancy (flood under the traffic
-              matrix); kernel, plain and library
+              matrix); the sharded K1 and K2 on virtual meshes on card 0
+              (the flagship at S=4 and S=8, ping-pong, storm, etick, a
+              stream wholly in one shard, an empty shard, W=8, runs
+              straddling a tile, fan-in, pops with n_loc % 4 != 0, and
+              the shards held in two tensors); kernel, plain and library
               times (CUDA events, median of 25 after warm-up), the
               events' floor (an empty kernel timed the same way) and the
               memory bound at 3.35 TB/s
@@ -47,7 +51,7 @@ and drives the port's main path through the library entry points
               kernels a tick of both; all SUCCESS and the flow totals
               closing over fault_dropped
 11. telemetry — sustained@100k at phase 4's parameters, 500 ticks, four
-              ways in ten turns (wall deltas paired against the same
+              ways in six turns (wall deltas paired against the same
               turn's planes-off run, resolved past the off runs' quartiles): every observability plane off, telemetry,
               telemetry + the traffic matrix, and those two + a 64-lane
               trace plan; wall and device ms/tick, busy share, kernels a
@@ -61,7 +65,17 @@ and drives the port's main path through the library entry points
               additional_hosts (one echo host) and chaos (the smoke
               composition's schedule, instance ranges scaled) at 1,024:
               each to its expected terminal status
-13. parity  — sustained, flood and storm at 4,096 instances, the faulted
+13. executor — execute_sim_run: sustained@100k with every plane and a warn
+              rule in turns against SimProgram.run, faults@100k and chaos
+              at 1,024 with SLO rules, CPU vs GPU at 4,096
+14. mesh    — sustained@100k at phase 4's parameters on a 4-shard virtual
+              mesh on card 0, in three turns with the same run unmeshed:
+              all SUCCESS, each sharded kernel launched once a tick, flow
+              conservation exact, every carry leaf equal to the unmeshed
+              run's; wall and device ms/tick, kernels a tick, busy share
+              of both, sync-debug counts at 32 and 64 ticks; ping-pong@100k
+              and flood@100k on the mesh to all SUCCESS
+15. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -74,7 +88,9 @@ and drives the port's main path through the library entry points
               rules; control lanes sharing buckets with plan rows under a
               fault schedule) and one direct-mode enqueue under validate
               with forced collisions (counts and first collision):
-              bit-equal
+              bit-equal; and sustained, flood, storm and the faulted
+              sustained with the matrix on a 4-shard virtual mesh, CPU vs
+              GPU and each against its unmeshed twin
 
 Each phase prints one JSON line (the main-path phases with their
 wall seconds). Then the card's ``name, power.limit``
@@ -98,7 +114,8 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
-          "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "parity")
+          "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
+          "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -214,19 +231,60 @@ def _calendar(net, L, N, slots, W, occ_bool, etick, rng, dev):
 
 
 def _clone_cal(net, cal):
+    def c(x):
+        if x is None:
+            return None
+        return tuple(p.clone() for p in x) if isinstance(x, tuple) else x.clone()
+
     return net.Calendar(
-        payload=tuple(p.clone() for p in cal.payload),
-        src=None if cal.src is None else cal.src.clone(),
-        valid=None if cal.valid is None else cal.valid.clone(),
-        etick=None if cal.etick is None else cal.etick.clone(),
-        slots=cal.slots,
+        payload=tuple(c(p) for p in cal.payload),
+        src=c(cal.src), valid=c(cal.valid), etick=c(cal.etick),
+        slots=cal.slots, mesh=cal.mesh,
     )
 
 
 def _planes(cal):
-    return [cal.occupancy_plane, *cal.payload] + (
+    """Every plane tensor of ``cal``; a meshed calendar's parts one by one."""
+    planes = [cal.occupancy_plane, *cal.payload] + (
         [cal.etick] if cal.etick is not None else []
     )
+    return [q for p in planes for q in (p if isinstance(p, tuple) else (p,))]
+
+
+def card_mesh(shards, device="cuda", parts=None):
+    """A virtual mesh of ``shards`` peer shards, every one on card 0 (or on
+    the CPU); ``parts`` (shard cuts) holds them in several tensors."""
+    from testground_tpu_torch.sim.meshplan import TorchMesh, make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+    if parts is None:
+        return make_mesh(str(shards), devices=[dev] * shards)
+    cuts = (0, *parts, shards)
+    return TorchMesh((dev,) * shards,
+                     parts=tuple((dev, a, b) for a, b in zip(cuts, cuts[1:])))
+
+
+def _sharded(net, cal, mesh):
+    """A global calendar's planes cut into ``mesh``'s shards."""
+    def sh(x):
+        return None if x is None else net.to_shards(x, mesh, cal.slots)
+
+    return net.Calendar(payload=tuple(sh(p) for p in cal.payload), src=sh(cal.src),
+                        valid=sh(cal.valid), etick=sh(cal.etick), slots=cal.slots,
+                        mesh=mesh)
+
+
+def _shard_major(keys, L, N, n_loc, dst_map=None):
+    """Bucket-major keys (b·N + dst, dead ≥ L·N) as the sorted shard-major
+    stream of the same messages (``dst_map`` moves their destinations)."""
+    live = (keys >= 0) & (keys < L * N)
+    b, d = keys // N, keys % N
+    if dst_map is not None:
+        d = dst_map(d)
+    sm = (d // n_loc) * L * n_loc + b * n_loc + d % n_loc
+    return np.sort(np.where(live, sm, L * N), kind="stable")
 
 
 def _max_err(a_list, b_list) -> int:
@@ -394,6 +452,126 @@ def pop_case(label, L, N, slots, W, occ_bool, seed):
     }
 
 
+def sharded_commit_case(label, S, L, N, slots, W, m2, occ_bool, stacking, etick, seed,
+                        stream="main", dst="any", parts=None):
+    """The sharded K1 on a virtual mesh of S shards on card 0 against its
+    plain version, on the main path's stream in shard-major order.
+    ``dst`` "one-shard" sends every message into the last shard,
+    "empty-shard" none into shard 1; ``parts`` holds the shards in
+    several tensors (one launch each, masks summed)."""
+    from testground_tpu_torch.sim import cuda_transport as ct
+    from testground_tpu_torch.sim import net
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    mesh = card_mesh(S, parts=parts)
+    n_loc = N // S
+    cal0 = _sharded(net, _calendar(net, L, N, slots, W, occ_bool, etick, rng, dev), mesh)
+    t_host = 5
+    dst_map = {"any": None,
+               "one-shard": lambda d: (S - 1) * n_loc + d % n_loc,
+               "empty-shard": lambda d: np.where(d // n_loc == 1, d + n_loc, d)}[dst]
+    keys = _shard_major(_stream_keys(stream, rng, m2, L, N, slots, t_host, ct.COMMIT_TILE),
+                        L, N, n_loc, dst_map)
+    sk = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    occ_vals = torch.from_numpy(
+        (np.ones(m2) if occ_bool else rng.integers(1, N + 1, m2)).astype(np.int32)
+    ).to(dev)
+    pay = [torch.from_numpy(rng.integers(0, 2**31, m2).astype(np.int32)).to(dev)
+           for _ in range(W)]
+    t = torch.tensor(t_host, dtype=torch.int32, device=dev)
+
+    cal_k, cal_p = _clone_cal(net, cal0), _clone_cal(net, cal0)
+    _, surv_k = ct.commit_calendar_sharded(cal_k, sk, occ_vals, pay, t, stacking=stacking)
+    _, surv_p = ct.commit_calendar_sharded_plain(cal_p, sk, occ_vals, pay, t,
+                                                 stacking=stacking)
+    torch.cuda.synchronize()
+    err = _max_err([*_planes(cal_k), surv_k], [*_planes(cal_p), surv_p])
+    check(err == 0, f"sharded K1 {label}: kernel disagrees with plain (max err {err})")
+    work = _clone_cal(net, cal0)
+
+    def restore():
+        for d_, s_ in zip(_planes(work), _planes(cal0)):
+            d_.copy_(s_)
+
+    kernel_ms = time_ms(lambda: ct.commit_calendar_sharded(
+        work, sk, occ_vals, pay, t, stacking=stacking), restore)
+    plain_ms = time_ms(lambda: ct.commit_calendar_sharded_plain(
+        work, sk, occ_vals, pay, t, stacking=stacking), restore)
+    live = keys < L * N
+    runs = int(np.unique(keys[live]).size)
+    survivors = int(surv_p.sum())
+    occ_b = 1 if occ_bool else 4
+    nbytes = (m2 * (8 + 4 * W) + m2 * 4 + (runs * slots * occ_b if stacking else 0)
+              + survivors * (occ_b + 4 * W + (4 if etick else 0)))
+    return {
+        "kernel": "commit_calendar_sharded", "case": label,
+        "shape": dict(S=S, parts=len(mesh.parts), L=L, N=N, slots=slots, W=W, m2=m2,
+                      occ_bool=occ_bool, stacking=stacking, etick=etick, stream=stream,
+                      dst=dst),
+        "survivors": survivors, "max_abs_err": err,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+    }
+
+
+def sharded_pop_case(label, S, L, N, slots, W, occ_bool, seed, parts=None):
+    """The sharded K2 on a virtual mesh of S shards on card 0 against its
+    plain version; the library yardstick is ``index_select`` of each
+    shard's row and ``index_copy_`` into the strided global row, and
+    ``index_fill_`` of the occupancy rows."""
+    from testground_tpu_torch.sim import cuda_transport as ct
+    from testground_tpu_torch.sim import net
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    mesh = card_mesh(S, parts=parts)
+    n_loc = N // S
+    cal0 = _sharded(net, _calendar(net, L, N, slots, W, occ_bool, False, rng, dev), mesh)
+    t = torch.tensor(L + 3, dtype=torch.int32, device=dev)
+    cal_k, cal_p = _clone_cal(net, cal0), _clone_cal(net, cal0)
+    _, row_k, pay_k = ct.pop_bucket_sharded(cal_k, t)
+    _, row_p, pay_p = ct.pop_bucket_sharded_plain(cal_p, t)
+    torch.cuda.synchronize()
+    err = _max_err([*_planes(cal_k), row_k, *pay_k], [*_planes(cal_p), row_p, *pay_p])
+    check(err == 0, f"sharded K2 {label}: kernel disagrees with plain (max err {err})")
+    work = _clone_cal(net, cal0)
+    b = (L + 3) % L
+    bidx = torch.tensor([b], dtype=torch.int64, device=dev)
+    occ0, occw = cal0.occupancy_plane, work.occupancy_plane
+
+    def restore():
+        for d_, s_ in zip(occw, occ0):
+            d_[:, b].copy_(s_[:, b])
+
+    shard_idx = [torch.arange(s1 - s0, device=dev) + s0 for _, s0, s1 in mesh.parts]
+    rows = [torch.empty(N * slots, dtype=p[0].dtype, device=dev)
+            for p in (occw, *work.payload)]
+
+    def library():
+        for row, plane in zip(rows, (occw, *work.payload)):
+            for part, idx in zip(plane, shard_idx):
+                got = part.index_select(1, bidx).view(-1, slots, n_loc).transpose(0, 1)
+                row.view(slots, S, n_loc).index_copy_(1, idx, got)
+        for part in occw:
+            part.index_fill_(1, bidx, 0)
+
+    kernel_ms = time_ms(lambda: ct.pop_bucket_sharded(work, t), restore)
+    plain_ms = time_ms(lambda: ct.pop_bucket_sharded_plain(work, t), restore)
+    library_ms = time_ms(library, restore)
+    ns = N * slots
+    occ_b = 1 if occ_bool else 4
+    nbytes = ns * (occ_b + 4 * W) * 2 + ns * occ_b
+    return {
+        "kernel": "pop_bucket_sharded", "case": label,
+        "shape": dict(S=S, parts=len(mesh.parts), L=L, N=N, n_loc=n_loc, slots=slots,
+                      W=W, occ_bool=occ_bool),
+        "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+    }
+
+
 # ------------------------------------------------------------ main path
 
 
@@ -425,10 +603,11 @@ class PhaseTimer:
 
 
 def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=None,
-            trace=None, **kw):
+            trace=None, mesh=None, **kw):
     """A port SimProgram of one group; ``fault_tables`` (fault tables by
     group id) are lowered by the port's ``build_fault_schedule``, ``trace``
-    (an instance range, "lo:hi") by its ``build_trace_plan``."""
+    (an instance range, "lo:hi") by its ``build_trace_plan``; ``mesh`` (a
+    shard count) runs it on a virtual mesh on ``device``."""
     from testground_tpu_torch.api import RunGroup
     from testground_tpu_torch.sim.engine import SimProgram, build_groups
     from testground_tpu_torch.sim.executor import (
@@ -448,26 +627,29 @@ def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=
         from testground_tpu_torch.sim.trace import build_trace_plan
 
         kw["trace"] = build_trace_plan(groups, {"": {"instances": trace}})
+    if mesh:
+        kw["mesh"] = card_mesh(mesh, device)
     return SimProgram(
         tc, groups, test_plan=plan, test_case=case, tick_ms=1.0,
         chunk=chunk, device=device, **kw,
     )
 
 
+KERNELS = ("commit_calendar", "pop_bucket")
+SHARDED_KERNELS = ("commit_calendar_sharded", "pop_bucket_sharded")
+
+
 def reset_launches():
     from testground_tpu_torch.sim import cuda_transport as ct
 
-    ct.commit_calendar.launches = 0
-    ct.pop_bucket.launches = 0
+    for k in KERNELS + SHARDED_KERNELS:
+        getattr(ct, k).launches = 0
 
 
-def read_launches() -> dict:
+def read_launches(kernels=KERNELS) -> dict:
     from testground_tpu_torch.sim import cuda_transport as ct
 
-    return {
-        "commit_calendar": ct.commit_calendar.launches,
-        "pop_bucket": ct.pop_bucket.launches,
-    }
+    return {k: getattr(ct, k).launches for k in kernels}
 
 
 def run_timed(prog, max_ticks, timer=None):
@@ -587,7 +769,8 @@ def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
         "top_device_ms_per_tick": {k[:60]: us / 1e3 / ticks for k, us, _ in top},
         # the transport kernels' own device time per launch on this path
         "transport_kernel_ms": {k.split("(")[0]: us / 1e3 / calls for k, us, calls in rows
-                                if k.startswith(("commit_k", "pop_vec_k", "pop_scalar_k"))},
+                                if k.startswith(("commit_k", "pop_vec_k", "pop_scalar_k",
+                                                 "pop_shard_"))},
     }
 
 
@@ -738,10 +921,100 @@ def phase_faults(card) -> dict:
             "runs": runs, "launches": launches, "card": card}
 
 
+# the mesh phase: peer shards of its virtual mesh on card 0, and turns of
+# the meshed and unmeshed sustained@100k it times
+MESH_SHARDS = 4
+MESH_TURNS = 3
+
+
+def phase_mesh(card) -> dict:
+    """The mesh path at full width: sustained@100k at phase 4's parameters
+    on a 4-shard virtual mesh on card 0, in turns with the same run
+    unmeshed (wall ms/tick of each turn), both to all SUCCESS with exact
+    flow conservation and every carry leaf equal; the meshed run launches
+    each sharded kernel once a tick and the unsharded ones never. Then
+    device ms/tick, kernels a tick and busy share of both, sync-debug
+    counts of the meshed run at 32 and 64 ticks (chunk 16: no sync a
+    tick), and ping-pong@100k and flood@100k (direct slots) on the mesh to
+    all SUCCESS."""
+    from testground_tpu_torch.sim.carry_io import carry_to_numpy
+
+    n = 100_000
+    progs = {"unmeshed": program("pingpong-sustained", n, SUSTAINED, chunk=250),
+             "mesh": program("pingpong-sustained", n, SUSTAINED, chunk=250,
+                             mesh=MESH_SHARDS)}
+    launches = dict.fromkeys(KERNELS + SHARDED_KERNELS, 0)
+    walls = {k: [] for k in progs}
+    runs, carries = {}, {}
+    for turn in range(MESH_TURNS):
+        order = ("unmeshed", "mesh") if turn % 2 == 0 else ("mesh", "unmeshed")
+        for label in order:
+            res, wall, ticks, carry = run_timed(progs[label], max_ticks=10_000)
+            got = read_launches(KERNELS + SHARDED_KERNELS)
+            for k, v in got.items():
+                launches[k] += v
+            check(bool((res["status"] == 1).all()), f"mesh {label}: not all SUCCESS")
+            check(conserved(res), f"mesh {label}: flow conservation {flows(res)}")
+            if label == "mesh":
+                check(got["commit_calendar_sharded"] == got["pop_bucket_sharded"] == ticks
+                      and got["commit_calendar"] == got["pop_bucket"] == 0,
+                      f"mesh: launches {got} over {ticks} ticks")
+            else:
+                check(got["commit_calendar"] > 0 and got["pop_bucket"] > 0,
+                      f"mesh unmeshed: launches {got}")
+            walls[label].append(wall / ticks * 1e3)
+            if turn == 0:
+                carries[label] = carry_to_numpy(carry)
+                runs[label] = {"ticks": ticks, "launches": got, "flows": flows(res),
+                               "carry_bytes": res["carry_bytes"]}
+    um, me = carries["unmeshed"], carries["mesh"]
+    diff = [k for k in um if not np.array_equal(um[k], me[k])]
+    check(not diff, f"mesh: carry leaves differ from the unmeshed run: {diff}")
+    check(runs["mesh"]["carry_bytes"] == runs["unmeshed"]["carry_bytes"],
+          "mesh: footprint differs from the unmeshed one")
+    for label, row in runs.items():
+        row["wall_ms_per_tick"] = walls[label]
+        row["wall_ms_per_tick_median"] = statistics.median(walls[label])
+        row["peer_ticks_per_s"] = n * 1e3 / row["wall_ms_per_tick_median"]
+        row.update(device_profile(progs[label], ticks=64,
+                                  wall_ms_per_tick=row["wall_ms_per_tick_median"],
+                                  host_ops=False))
+    twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, mesh=MESH_SHARDS)
+    twin.run(seed=0, max_ticks=16)  # its first step builds the plan's constants
+    sites: dict = {}
+    runs["mesh"]["host_syncs"] = {k: host_syncs(twin, k, sites if k == 64 else None)
+                                  for k in (32, 64)}
+    check(runs["mesh"]["host_syncs"][32] == runs["mesh"]["host_syncs"][64],
+          f"mesh: a host sync a tick {runs['mesh']['host_syncs']} at {sites}")
+    others = {}
+    for name, (case, plan, params, chunk) in {
+        "pingpong": ("ping-pong", "network",
+                     {"latency_ms": "100", "latency2_ms": "10", "tolerance_ms": "15"}, 64),
+        "flood": ("pingpong-flood", "benchmarks",
+                  {"duration_ticks": "500", "latency_ms": "4"}, 500),
+    }.items():
+        prog = program(case, n, params, chunk=chunk, plan=plan, mesh=MESH_SHARDS)
+        res, wall, ticks, _ = run_timed(prog, max_ticks=10_000)
+        got = read_launches(KERNELS + SHARDED_KERNELS)
+        for k, v in got.items():
+            launches[k] += v
+        check(bool((res["status"] == 1).all()), f"mesh {name}: not all SUCCESS")
+        check(conserved(res), f"mesh {name}: flow conservation {flows(res)}")
+        check(got["pop_bucket_sharded"] == ticks and got["pop_bucket"] == 0,
+              f"mesh {name}: launches {got} over {ticks} ticks")
+        others[name] = {"ticks": ticks, "wall_s": wall,
+                        "wall_ms_per_tick": wall / ticks * 1e3,
+                        "peer_ticks_per_s": n * ticks / wall, "launches": got,
+                        "flows": flows(res)}
+    return {"phase": "mesh", "n": n, "shards": MESH_SHARDS, "turns": MESH_TURNS,
+            "runs": runs, "others": others, "launches": launches, "card": card}
+
+
 # the telemetry phase's four ways to run sustained@100k, and how many
 # turns of the four it times: host speed drifts within a call by more
-# than a plane's wall cost, so ten pairs against the planes-off run
-TURNS = 10
+# than a plane's wall cost, so six pairs against the planes-off run (six,
+# not more, keeps the whole script inside half its time limit)
+TURNS = 6
 PLANE_SETS = {
     "off": {},
     "telemetry": {"telemetry": True},
@@ -1159,12 +1432,17 @@ PARITY_RUNS = {  # name: (plan, case, n, params, chunk, max_ticks, options)
                               {"burst": "12", "rate": "1.5"}, 64, 512,
                               {"telemetry": True, "netmatrix": True}),
 }
+# the mesh path: the same runs on a 4-shard virtual mesh (on the CPU, and on
+# card 0), each also held against its unmeshed twin above
+for _twin in ("sustained", "flood", "storm", "sustained-faulted+matrix"):
+    *_spec, _opts = PARITY_RUNS[_twin]
+    PARITY_RUNS[f"{_twin}+mesh"] = (*_spec, {**_opts, "mesh": MESH_SHARDS})
 
 
 def phase_parity(card) -> dict:
     from testground_tpu_torch.sim.carry_io import carry_to_numpy
 
-    runs = {}
+    runs, cpu_carries = {}, {}
     for label, (plan, case, n, params, chunk, max_ticks, opts) in PARITY_RUNS.items():
         out = {}
         for dev in ("cpu", "cuda"):
@@ -1179,6 +1457,11 @@ def phase_parity(card) -> dict:
             np.array_equal(a, b) for a, b in zip(rec_c[k], rec_g[k]))]
         check(not mism, f"parity {label}: CPU vs GPU differ in {mism}")
         check(res_c["msgs_sent"] > 0, f"parity {label}: nothing sent")
+        cpu_carries[label] = car_c
+        if opts.get("mesh"):
+            twin = cpu_carries[label.removesuffix("+mesh")]
+            diff = [k for k in twin if not np.array_equal(twin[k], car_c[k])]
+            check(not diff, f"parity {label}: differs from the unmeshed run in {diff}")
         runs[label] = {"n": n, "ticks": int(car_c["t"]), "leaves_compared": len(car_c),
                        "msgs_sent": res_c["msgs_sent"],
                        "fault_dropped": res_c["fault_dropped"],
@@ -1192,8 +1475,8 @@ def phase_parity(card) -> dict:
             runs[label]["net_bw_hiwater"] = res_c["net_bw_hiwater"]
     check(runs["sustained"]["ticks"] == runs["sustained+planes"]["ticks"] == 128,
           "parity: a sustained run ended early")
-    short = [k for k in runs
-             if k not in ("sustained", "sustained+planes") and not runs[k]["all_success"]]
+    short = [k for k in runs if k not in ("sustained", "sustained+planes", "sustained+mesh")
+             and not runs[k]["all_success"]]
     check(not short, f"parity: {short} did not reach all SUCCESS")
     check(all(runs[k]["fault_dropped"] > 0 for k in (
         "sustained-faulted", "chaos", "sustained-faulted+matrix", "chaos+trace")),
@@ -1485,6 +1768,36 @@ def main(argv=None) -> int:
             # and flood's pop under the traffic matrix (int32 occupancy)
             commit_case("flagship-etick", 8, N, 4, 1, 2 * N, False, True, True, 21),
             pop_case("flood-int32", 8, N, 1, 1, False, 22),
+            # the mesh path: the sharded K1 and K2 on virtual meshes on card 0
+            sharded_commit_case("flagship", 4, 8, N, 4, 1, 2 * N, False, True, False, 31),
+            sharded_commit_case("flagship-S8", 8, 8, N, 4, 1, 2 * N, False, True, False,
+                                32),
+            sharded_commit_case("pingpong", 4, 128, N, 4, 2, 2 * N, False, True, False, 33),
+            sharded_commit_case("storm", 4, 8, N, 16, 1, 5 * N, True, False, False, 34,
+                                stream="poisson"),
+            sharded_commit_case("flagship-etick", 4, 8, N, 4, 1, 2 * N, False, True, True,
+                                35),
+            sharded_commit_case("one-shard", 4, 16, 4096, 4, 2, 8192, False, True, True,
+                                36, dst="one-shard"),
+            sharded_commit_case("empty-shard", 4, 16, 4096, 4, 2, 8192, True, True, False,
+                                37, dst="empty-shard"),
+            sharded_commit_case("width-8", 4, 16, 4096, 4, 8, 8192, False, True, True, 38),
+            sharded_commit_case("straddling-run", 4, 16, 4096, 4, 2, 8192, False, True,
+                                True, 39, stream="straddle"),
+            sharded_commit_case("heavy-fan-in", 8, 16, 4096, 4, 1, 8192, False, True,
+                                False, 40, stream="fanin"),
+            sharded_commit_case("parts-1+3", 4, 8, N, 4, 1, 2 * N, False, True, True, 41,
+                                parts=(1,)),
+            sharded_pop_case("flagship", 4, 8, N, 4, 1, False, 51),
+            sharded_pop_case("flagship-S8", 8, 8, N, 4, 1, False, 52),
+            sharded_pop_case("pingpong", 4, 128, N, 4, 2, False, 53),
+            sharded_pop_case("storm", 4, 8, N, 16, 1, True, 54),
+            sharded_pop_case("flood", 4, 8, N, 1, 1, True, 55),
+            sharded_pop_case("width-8", 4, 16, 4096, 4, 8, False, 56),
+            sharded_pop_case("n_loc-odd", 4, 16, 4 * 1023, 3, 2, False, 57),
+            sharded_pop_case("n_loc-odd-bool", 4, 16, 4 * 1023, 4, 1, True, 58),
+            sharded_pop_case("n_loc-6-bool", 4, 16, 24, 2, 1, True, 59),
+            sharded_pop_case("parts-1+3", 4, 8, N, 4, 1, False, 60, parts=(1,)),
         ]
         for c in cases:
             emit({"phase": "kernels", **c, "card": card})
@@ -1495,12 +1808,13 @@ def main(argv=None) -> int:
         kernel_rows = cases
 
     # launches on the main paths: each phase counts its own run from zero
-    launches = {"commit_calendar": 0, "pop_bucket": 0}
+    launches = dict.fromkeys(KERNELS + SHARDED_KERNELS, 0)
     for ph, fn in (("sustained", phase_sustained), ("pingpong", phase_pingpong),
                    ("flood", phase_flood), ("storm", phase_storm),
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
-                   ("plans", phase_plans), ("executor", phase_executor)):
+                   ("plans", phase_plans), ("executor", phase_executor),
+                   ("mesh", phase_mesh)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)
@@ -1515,6 +1829,7 @@ def main(argv=None) -> int:
         emit(row)
 
     def kernel_entry(kname, replaces):
+        # the flagship row of each kernel (its sharded form at S=4)
         flag = [c for c in kernel_rows if c["kernel"] == kname and c["case"] == "flagship"]
         c = flag[0] if flag else {}
         return {
@@ -1532,6 +1847,9 @@ def main(argv=None) -> int:
     emit({"kernels": [
         kernel_entry("commit_calendar", "testground_tpu/sim/pallas_transport.py:340"),
         kernel_entry("pop_bucket", "testground_tpu/sim/pallas_transport.py:713"),
+        kernel_entry("commit_calendar_sharded",
+                     "testground_tpu/sim/pallas_transport.py:513"),
+        kernel_entry("pop_bucket_sharded", "testground_tpu/sim/pallas_transport.py:754"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

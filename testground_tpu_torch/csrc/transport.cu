@@ -42,6 +42,25 @@
 //    TPU gets the same order from its serial walk ("fill reads stay
 //    PRE-update").
 //
+// K1 sharded, the same commit_k  (replaces
+//    pallas_transport.py:_commit_calendar_sharded). On a mesh of S peer
+//    shards each shard s holds lanes [s*n_loc, (s+1)*n_loc) in its own
+//    [L, SLOTS*n_loc] plane, and a device holds its shards [s0, s1) as one
+//    [S_d, L, SLOTS*n_loc] tensor, i.e. a [S_d*L, SLOTS*n_loc] plane. The
+//    stream is sorted by the SHARD-major key s*L*n_loc + bucket*n_loc +
+//    local dst, so (key - s0*L*n_loc) is exactly the unsharded key of that
+//    plane with "bucket" (s - s0)*L + bucket and N = n_loc: one launch per
+//    device commits all of its shards, with the key window [key_lo,
+//    key_hi) = [s0*L*n_loc, s1*L*n_loc) in place of [0, L*N). Equal-key
+//    runs never cross a shard, so the rank walk and the fill are as above.
+//    The stream is sorted, so a tile's first and last keys tell whether it
+//    meets the window at all: a tile that does not exits right after
+//    staging its keys (no search, no host read). Survival is written only
+//    inside the window, unless the launch owns the whole stream (own_all:
+//    one device holds every shard, or the unsharded call), which writes
+//    every word; a device that holds some shards gets a zeroed mask, and
+//    the wrapper sums the devices' masks.
+//
 // K2 delivery pop, pop_vec_k / pop_scalar_k  (replaces
 //    pallas_transport.py:_pop_call, called by pop_bucket). Copies row
 //    b = t mod L of the occupancy plane and the W payload planes out as
@@ -57,6 +76,18 @@
 //    all of its kPopUnroll loads before any store, so the first wave keeps
 //    the whole row in flight. Rows whose length or alignment break 16-byte
 //    vectors take the scalar kernel.
+//
+// K2 sharded, pop_shard_vec_k / pop_shard_scalar_k  (replaces
+//    pallas_transport.py:_pop_bucket_sharded). One launch per device pops
+//    row b = t mod L of each of its shards' [L, SLOTS*n_loc] planes and
+//    writes cell (slot, l) of shard s straight to slot*out_stride +
+//    out_col0 + (s - s0)*n_loc + l of the output row: the global
+//    slot-major [SLOTS*N] row (out_stride = N, out_col0 = s0*n_loc), or a
+//    device-local [SLOTS, S_d*n_loc] row that the wrapper copies home. The
+//    occupancy row is cleared in the same pass. Bound: memory, as K2.
+//    Where n_loc % 4 == 0 every thread moves 4 cells at a time (16 bytes
+//    of an int32 plane, 4 of a bool plane): 4 cells never straddle a
+//    (shard, slot) segment. Otherwise the scalar kernel moves one cell.
 //
 // Plain C interface (loaded with ctypes): every entry point enqueues on
 // the caller's stream, never synchronises, allocates nothing, and returns
@@ -138,8 +169,9 @@ __global__ void __launch_bounds__(kCommitTile)
              const __grid_constant__ ConstPlanes pay_in, int width, void* occ,
              int occ_bool, const __grid_constant__ Planes planes,
              int32_t* __restrict__ etick, const int32_t* __restrict__ t_dev,
-             int32_t* __restrict__ surv, int m2, int n, int slots, int big,
-             int stacking, int halo, int vec) {
+             int32_t* __restrict__ surv, int m2, int n, int slots,
+             int key_lo, int key_hi, int own_all, int stacking, int halo,
+             int vec) {
   // shared keys: [pad | left halo | tile | right halo], the tile 16-byte
   // aligned at `hl`; positions outside [0, m2) hold -1, a dead key
   extern __shared__ int4 smem_raw[];
@@ -166,6 +198,11 @@ __global__ void __launch_bounds__(kCommitTile)
   if (tid == 0) s_t = etick != nullptr ? *t_dev : 0;
   cp_async_wait_all();
   __syncthreads();
+  // a sorted tile wholly outside the key window has nothing to commit
+  if (s_key[hl] >= key_hi || s_key[hl + body - 1] < key_lo) {
+    if (own_all && tid < body) surv[tile0 + tid] = 0;
+    return;
+  }
 
   // key of any stream position: shared memory inside the staged window,
   // device memory beyond it (only when SLOTS > kMaxHalo)
@@ -178,7 +215,7 @@ __global__ void __launch_bounds__(kCommitTile)
 
   const int j = tile0 + tid;
   const int32_t key = s_key[hl + tid];
-  const bool live = j < m2 && key >= 0 && key < big;
+  const bool live = j < m2 && key >= key_lo && key < key_hi;
   // rank inside the run, capped at SLOTS: in a sorted stream the rank is
   // >= SLOTS iff sk[j-SLOTS] == sk[j]; otherwise walk back to the leader
   int rank = slots;
@@ -190,9 +227,10 @@ __global__ void __launch_bounds__(kCommitTile)
   const bool mine = live && rank < slots && rank <= tid;
   Msg msg;
   if (mine) msg = load_msg(j, width, occ_vals, pay_in);
-  const int b = key / n;
+  const int rk = key - key_lo;  // the key in this plane's own key space
+  const int b = rk / n;
   const size_t cell =
-      (size_t)b * (size_t)n * (size_t)slots + (size_t)(key - b * n);
+      (size_t)b * (size_t)n * (size_t)slots + (size_t)(rk - b * n);
   int fill = 0;
   if (live && rank == 0) {
     if (stacking) {
@@ -212,7 +250,7 @@ __global__ void __launch_bounds__(kCommitTile)
   __syncthreads();
   if (j >= m2) return;
   if (!live || rank >= slots) {
-    surv[j] = 0;
+    if (live || own_all) surv[j] = 0;
     return;
   }
   if (mine) {
@@ -229,14 +267,14 @@ __global__ void __launch_bounds__(kCommitTile)
   }
 }
 
-extern "C" int tg_commit_calendar(const void* sk, const void* occ_vals,
-                                  const void* pay_sorted_ptrs, int width,
-                                  void* occ, int occ_bool,
-                                  const void* plane_ptrs, void* etick,
-                                  const void* t_dev, void* surv, int m2,
-                                  int horizon, int n, int slots, int stacking,
-                                  void* stream) {
-  if (width < 0 || width > TG_MAX_WIDTH || slots < 1 || m2 < 1) {
+static int launch_commit(const void* sk, const void* occ_vals,
+                         const void* pay_sorted_ptrs, int width, void* occ,
+                         int occ_bool, const void* plane_ptrs, void* etick,
+                         const void* t_dev, void* surv, int m2, int n,
+                         int slots, int stacking, int key_lo, int key_hi,
+                         int own_all, void* stream) {
+  if (width < 0 || width > TG_MAX_WIDTH || slots < 1 || m2 < 1 || n < 1 ||
+      key_lo < 0 || key_hi < key_lo) {
     return (int)cudaErrorInvalidValue;
   }
   ConstPlanes pay_in;
@@ -255,8 +293,37 @@ extern "C" int tg_commit_calendar(const void* sk, const void* occ_vals,
   commit_k<<<blocks, kCommitTile, smem, (cudaStream_t)stream>>>(
       (const int32_t*)sk, (const int32_t*)occ_vals, pay_in, width, occ,
       occ_bool, planes, (int32_t*)etick, (const int32_t*)t_dev,
-      (int32_t*)surv, m2, n, slots, horizon * n, stacking, halo, vec);
+      (int32_t*)surv, m2, n, slots, key_lo, key_hi, own_all, stacking, halo,
+      vec);
   return (int)cudaGetLastError();
+}
+
+extern "C" int tg_commit_calendar(const void* sk, const void* occ_vals,
+                                  const void* pay_sorted_ptrs, int width,
+                                  void* occ, int occ_bool,
+                                  const void* plane_ptrs, void* etick,
+                                  const void* t_dev, void* surv, int m2,
+                                  int horizon, int n, int slots, int stacking,
+                                  void* stream) {
+  return launch_commit(sk, occ_vals, pay_sorted_ptrs, width, occ, occ_bool,
+                       plane_ptrs, etick, t_dev, surv, m2, n, slots, stacking,
+                       0, horizon * n, 1, stream);
+}
+
+// rows = S_d*L bucket rows of the device's [S_d*L, SLOTS*n_loc] plane;
+// key_lo = s0*L*n_loc
+extern "C" int tg_commit_calendar_sharded(
+    const void* sk, const void* occ_vals, const void* pay_sorted_ptrs,
+    int width, void* occ, int occ_bool, const void* plane_ptrs, void* etick,
+    const void* t_dev, void* surv, int m2, int rows, int n_loc, int slots,
+    int stacking, int key_lo, int own_all, void* stream) {
+  if ((long long)key_lo + (long long)rows * n_loc >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_commit(sk, occ_vals, pay_sorted_ptrs, width, occ, occ_bool,
+                       plane_ptrs, etick, t_dev, surv, m2, n_loc, slots,
+                       stacking, key_lo, key_lo + rows * n_loc, own_all,
+                       stream);
 }
 
 // ------------------------------------------------------------------ K2
@@ -405,5 +472,138 @@ extern "C" int tg_pop_bucket(void* occ, int occ_bool, const void* pay_ptrs,
   pop_scalar_k<<<(int)blocks, kPopThreads, 0, s>>>(
       occ, occ_bool, pay, width, (const int32_t*)t_dev, horizon,
       (unsigned)ns, row_occ, rows);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ K2 sharded
+
+struct PopShardArgs {
+  void* occ;                        // [S_d, L, SLOTS*n_loc], read and cleared
+  const int32_t* pay[TG_MAX_WIDTH];
+  void* row_occ;                    // output rows
+  int32_t* row_pay[TG_MAX_WIDTH];
+};
+
+// cell c of the device's popped [S_d, SLOTS*n_loc] rows: its offset in the
+// planes (row b of its shard) and in the output row
+struct ShardCell {
+  size_t src;
+  size_t dst;
+};
+
+__device__ __forceinline__ ShardCell shard_cell(size_t c, unsigned b,
+                                                unsigned horizon,
+                                                unsigned row_cells,
+                                                unsigned n_loc,
+                                                size_t out_stride,
+                                                size_t out_col0) {
+  const size_t s = c / row_cells;
+  const size_t r = c - s * row_cells;
+  const size_t slot = r / n_loc;
+  const size_t l = r - slot * n_loc;
+  return {(s * horizon + b) * row_cells + r,
+          slot * out_stride + out_col0 + s * n_loc + l};
+}
+
+__global__ void __launch_bounds__(kPopThreads)
+    pop_shard_vec_k(const __grid_constant__ PopShardArgs a,
+                    const int32_t* __restrict__ t_dev, int horizon,
+                    int occ_bool, unsigned units, unsigned width,
+                    unsigned row_cells, unsigned n_loc, size_t out_stride,
+                    size_t out_col0) {
+  const unsigned b = (unsigned)bucket_row(t_dev, horizon);
+  const size_t total = (size_t)units * (1 + width);
+  for (size_t i = (size_t)blockIdx.x * kPopThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kPopThreads) {
+    const unsigned k = (unsigned)(i / units);
+    const size_t u = i - (size_t)k * units;
+    const ShardCell x = shard_cell(4 * u, b, (unsigned)horizon, row_cells,
+                                   n_loc, out_stride, out_col0);
+    if (k == 0) {
+      if (occ_bool) {
+        uint32_t* o = (uint32_t*)((uint8_t*)a.occ + x.src);
+        *(uint32_t*)((uint8_t*)a.row_occ + x.dst) = *o;
+        *o = 0u;
+      } else {
+        int4* o = (int4*)((int32_t*)a.occ + x.src);
+        *(int4*)((int32_t*)a.row_occ + x.dst) = *o;
+        *o = make_int4(0, 0, 0, 0);
+      }
+    } else {
+      *(int4*)(a.row_pay[k - 1] + x.dst) =
+          __ldg((const int4*)(a.pay[k - 1] + x.src));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kPopThreads)
+    pop_shard_scalar_k(const __grid_constant__ PopShardArgs a,
+                       const int32_t* __restrict__ t_dev, int horizon,
+                       int occ_bool, unsigned cells, unsigned width,
+                       unsigned row_cells, unsigned n_loc, size_t out_stride,
+                       size_t out_col0) {
+  const unsigned b = (unsigned)bucket_row(t_dev, horizon);
+  for (size_t c = (size_t)blockIdx.x * kPopThreads + threadIdx.x; c < cells;
+       c += (size_t)gridDim.x * kPopThreads) {
+    const ShardCell x = shard_cell(c, b, (unsigned)horizon, row_cells, n_loc,
+                                   out_stride, out_col0);
+    if (occ_bool) {
+      uint8_t* o = (uint8_t*)a.occ + x.src;
+      ((uint8_t*)a.row_occ)[x.dst] = *o;
+      *o = 0;
+    } else {
+      int32_t* o = (int32_t*)a.occ + x.src;
+      ((int32_t*)a.row_occ)[x.dst] = *o;
+      *o = 0;
+    }
+    for (unsigned w = 0; w < width; ++w) {
+      a.row_pay[w][x.dst] = a.pay[w][x.src];
+    }
+  }
+}
+
+extern "C" int tg_pop_bucket_sharded(void* occ, int occ_bool,
+                                     const void* pay_ptrs, int width,
+                                     const void* t_dev, int horizon,
+                                     int shards, int slots, int n_loc,
+                                     void* row_occ, const void* row_pay_ptrs,
+                                     long long out_stride,
+                                     long long out_col0, void* stream) {
+  const long long row_cells = (long long)slots * n_loc;
+  const long long cells = (long long)shards * row_cells;
+  if (width < 0 || width > TG_MAX_WIDTH || horizon < 1 || shards < 1 ||
+      slots < 1 || n_loc < 1 || out_stride < 1 || out_col0 < 0 ||
+      cells * horizon >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  PopShardArgs a;
+  a.occ = occ;
+  a.row_occ = row_occ;
+  const void* const* pp = (const void* const*)pay_ptrs;
+  const void* const* rp = (const void* const*)row_pay_ptrs;
+  bool vec = n_loc % 4 == 0 && out_stride % 4 == 0 && out_col0 % 4 == 0 &&
+             aligned16(occ) && aligned16(row_occ);
+  for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+    a.pay[w] = w < width ? (const int32_t*)pp[w] : nullptr;
+    a.row_pay[w] = w < width ? (int32_t*)rp[w] : nullptr;
+    if (w < width) vec = vec && aligned16(pp[w]) && aligned16(rp[w]);
+  }
+  const long long items = vec ? (cells / 4) * (1 + width) : cells;
+  const long long cap = (long long)sm_count() * kPopBlocksPerSm;
+  long long blocks = (items + kPopThreads - 1) / kPopThreads;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    pop_shard_vec_k<<<(int)blocks, kPopThreads, 0, s>>>(
+        a, (const int32_t*)t_dev, horizon, occ_bool, (unsigned)(cells / 4),
+        (unsigned)width, (unsigned)row_cells, (unsigned)n_loc,
+        (size_t)out_stride, (size_t)out_col0);
+  } else {
+    pop_shard_scalar_k<<<(int)blocks, kPopThreads, 0, s>>>(
+        a, (const int32_t*)t_dev, horizon, occ_bool, (unsigned)cells,
+        (unsigned)width, (unsigned)row_cells, (unsigned)n_loc,
+        (size_t)out_stride, (size_t)out_col0);
+  }
   return (int)cudaGetLastError();
 }

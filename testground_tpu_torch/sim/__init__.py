@@ -14,6 +14,7 @@ __all__ = [
     "engine",
     "executor",
     "faults",
+    "meshplan",
     "net",
     "netmatrix",
     "prng",

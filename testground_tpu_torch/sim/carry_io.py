@@ -13,7 +13,8 @@ flattens a port carry the same way so two carries compare leaf by leaf.
 Converted on the way in:
 
 - the reference xla path's FLAT ``[L·N·SLOTS]`` calendar planes →
-  ``[L, N·SLOTS]``;
+  ``[L, N·SLOTS]`` (on a mesh, cut into the shards' planes, and joined
+  back on the way out: the exchange format is always the global layout);
 - 2-limb int32 flow totals ``(hi, lo)`` with a 30-bit spill
   (``engine.py:114-131``) → int64;
 - raw uint32 key data → the port's int64-held uint32 words (the link key
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from .engine import SimCarry, SimProgram
-from .net import Calendar, LinkState
+from .net import Calendar, LinkState, from_shards, to_shards
 from .sync_kernel import SyncState
 
 __all__ = ["carry_from_numpy", "carry_to_numpy"]
@@ -86,7 +87,8 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
     ns = prog.n_lanes * cls.IN_MSGS  # host lanes included
 
     def plane(key, dtype):
-        return t_(key, dtype).reshape(horizon, ns).contiguous()
+        x = t_(key, dtype).reshape(horizon, ns).contiguous()
+        return x if prog.mesh is None else to_shards(x, prog.mesh, cls.IN_MSGS)
 
     width = sum(1 for k in arrays if k.startswith("cal.payload."))
     cal = Calendar(
@@ -97,6 +99,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
         valid=plane("cal.valid", torch.bool) if "cal.valid" in arrays else None,
         etick=plane("cal.etick", torch.int32) if "cal.etick" in arrays else None,
         slots=cls.IN_MSGS,
+        mesh=prog.mesh,
     )
     states = []
     for gi in range(len(prog.groups)):
@@ -140,7 +143,8 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
 
 def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
     """Flatten a port carry to numpy leaves under the same dotted paths
-    (calendar planes 2-D, totals as int64 scalars, keys as uint32)."""
+    (calendar planes 2-D ``[L, N·SLOTS]``, a meshed calendar's shards
+    joined; totals as int64 scalars, keys as uint32)."""
     out: dict[str, np.ndarray] = {}
 
     def host(x):
@@ -149,11 +153,16 @@ def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
     for gi, s in enumerate(carry.states):
         for k, v in s.items():
             out[f"states.{gi}.{k}"] = host(v)
-    for w, p in enumerate(carry.cal.payload):
-        out[f"cal.payload.{w}"] = host(p)
+    cal = carry.cal
+
+    def plane(x):
+        return host(x if cal.mesh is None else from_shards(x, cal.slots, "cpu"))
+
+    for w, p in enumerate(cal.payload):
+        out[f"cal.payload.{w}"] = plane(p)
     for name in ("src", "valid", "etick"):
-        if getattr(carry.cal, name) is not None:
-            out[f"cal.{name}"] = host(getattr(carry.cal, name))
+        if getattr(cal, name) is not None:
+            out[f"cal.{name}"] = plane(getattr(cal, name))
     for f in dataclasses.fields(carry.link):
         if getattr(carry.link, f.name) is not None:
             out[f"link.{f.name}"] = host(getattr(carry.link, f.name))

@@ -8,6 +8,10 @@ return contracts:
   (``pallas_transport.py:_commit_call`` via ``commit_calendar``).
 - :func:`pop_bucket` — K2, the delivery pop
   (``pallas_transport.py:_pop_call`` via ``pop_bucket``).
+- :func:`commit_calendar_sharded` and :func:`pop_bucket_sharded` — K1 and
+  K2 on a mesh of peer shards (``_commit_calendar_sharded``,
+  ``_pop_bucket_sharded``): one launch per device over the shards it
+  holds, on the calendar of ``net.Calendar`` with a mesh.
 
 The kernels live in ``csrc/transport.cu`` (design and bound notes there).
 They are compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` at first use
@@ -21,12 +25,13 @@ one to the other. Each wrapper counts its kernel launches in a plain
 integer attribute (``commit_calendar.launches``, ``pop_bucket.launches``)
 so a run can show that its main path went through the kernels.
 
-Both kernels update the calendar planes IN PLACE (the JAX package returns
+The kernels update the calendar planes IN PLACE (the JAX package returns
 new arrays; the port mutates, which saves a copy of every plane a tick).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -44,8 +49,12 @@ __all__ = [
     "build_kernels",
     "commit_calendar",
     "commit_calendar_plain",
+    "commit_calendar_sharded",
+    "commit_calendar_sharded_plain",
     "pop_bucket",
     "pop_bucket_plain",
+    "pop_bucket_sharded",
+    "pop_bucket_sharded_plain",
 ]
 
 # payload planes one launch addresses (TG_MAX_WIDTH in transport.cu)
@@ -126,6 +135,15 @@ def _lib() -> ctypes.CDLL:
         vp, ci, vp, ci, vp, ci, ctypes.c_longlong, vp, vp, vp,
     ]
     lib.tg_pop_bucket.restype = ci
+    lib.tg_commit_calendar_sharded.argtypes = [
+        vp, vp, vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp,
+    ]
+    lib.tg_commit_calendar_sharded.restype = ci
+    ll = ctypes.c_longlong
+    lib.tg_pop_bucket_sharded.argtypes = [
+        vp, ci, vp, ci, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
+    ]
+    lib.tg_pop_bucket_sharded.restype = ci
     return lib
 
 
@@ -159,6 +177,20 @@ def _check_planes(cal) -> None:
     _require(occ.shape[1] % cal.slots == 0, "N·SLOTS axis not a SLOTS multiple")
 
 
+def _check_stream(cal, sk, occ_vals, pay_sorted, dev) -> None:
+    m2 = sk.shape[0]
+    _require(len(pay_sorted) == cal.width, "one sorted stream per payload plane")
+    for x in (sk, occ_vals, *pay_sorted):
+        _require(
+            x.dtype == torch.int32
+            and x.dim() == 1
+            and x.shape[0] == m2
+            and x.is_contiguous()
+            and x.device == dev,
+            "stream operands must be contiguous [m2] int32 on the planes' device",
+        )
+
+
 def _check_tick(t: torch.Tensor, device) -> None:
     _require(
         isinstance(t, torch.Tensor)
@@ -172,31 +204,26 @@ def _check_tick(t: torch.Tensor, device) -> None:
 # ------------------------------------------------------------------ K1
 
 
-def commit_calendar_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
-    """Plain PyTorch K1, mirroring the reference's XLA path
-    (``net.py:1242-1299``): rank = position − the prefix-max of run
-    starts, plus the bucket's pre-tick fill (gathered before any write),
-    then masked ``index_put_`` of every plane. Runs on any device; returns
-    ``(cal, survived)`` with ``survived`` an ``[m2]`` int32 0/1 mask in
-    sorted order."""
+def _commit_plain(cal, sk, occ_vals, pay_sorted, t, stacking, key_lo=0):
+    """The plain commit into ``cal``'s 2-D ``[rows, SLOTS·n]`` planes of the
+    messages whose key lies in ``[key_lo, key_lo + rows·n)``, at local key
+    ``key - key_lo``; the others are left alone and read survived = 0."""
     occ = cal.occupancy_plane
-    horizon, ns = occ.shape
+    rows, ns = occ.shape
     slots = cal.slots
     n = ns // slots
     m2 = sk.shape[0]
-    big = horizon * n
     dev = sk.device
     pos = torch.arange(m2, dtype=torch.int64, device=dev)
     is_start = torch.ones(m2, dtype=torch.bool, device=dev)
     is_start[1:] = sk[1:] != sk[:-1]
     starts = torch.where(is_start, pos, torch.zeros_like(pos))
     rank = pos - torch.cummax(starts, dim=0).values
-    live = (sk >= 0) & (sk < big)
-    skl = sk.to(torch.int64)
+    skl = sk.to(torch.int64) - key_lo
+    big = rows * n
+    live = (skl >= 0) & (skl < big)
     if stacking:
-        fill = (occ.reshape(horizon, slots, n) != 0).sum(
-            dim=1, dtype=torch.int64
-        )
+        fill = (occ.reshape(rows, slots, n) != 0).sum(dim=1, dtype=torch.int64)
         base = fill.reshape(-1)[skl.clamp(0, big - 1)]
         rank = rank + torch.where(live, base, torch.zeros_like(base))
     surv = live & (rank < slots)
@@ -213,7 +240,17 @@ def commit_calendar_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         cal.etick.index_put_(
             (b, p), t.reshape(()).to(torch.int32).expand(b.shape[0])
         )
-    return cal, surv.to(torch.int32)
+    return surv.to(torch.int32)
+
+
+def commit_calendar_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
+    """Plain PyTorch K1, mirroring the reference's XLA path
+    (``net.py:1242-1299``): rank = position − the prefix-max of run
+    starts, plus the bucket's pre-tick fill (gathered before any write),
+    then masked ``index_put_`` of every plane. Runs on any device; returns
+    ``(cal, survived)`` with ``survived`` an ``[m2]`` int32 0/1 mask in
+    sorted order."""
+    return cal, _commit_plain(cal, sk, occ_vals, pay_sorted, t, stacking)
 
 
 def commit_calendar(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
@@ -233,16 +270,7 @@ def commit_calendar(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
     occ = cal.occupancy_plane
     dev = occ.device
     m2 = sk.shape[0]
-    _require(len(pay_sorted) == cal.width, "one sorted stream per payload plane")
-    for x in (sk, occ_vals, *pay_sorted):
-        _require(
-            x.dtype == torch.int32
-            and x.dim() == 1
-            and x.shape[0] == m2
-            and x.is_contiguous()
-            and x.device == dev,
-            "stream operands must be contiguous [m2] int32 on the planes' device",
-        )
+    _check_stream(cal, sk, occ_vals, pay_sorted, dev)
     _check_tick(t, dev)
     horizon, ns = occ.shape
     n = ns // cal.slots
@@ -332,3 +360,193 @@ def pop_bucket(cal, t):
 
 
 pop_bucket.launches = 0
+
+
+# ------------------------------------------------------------ on a mesh
+#
+# A meshed ``net.Calendar`` holds each plane as one ``[S_d, L, SLOTS·n_loc]``
+# tensor per mesh part (``meshplan.TorchMesh.parts``: a device and its
+# shards [s0, s1)); ``cal.part(i)`` is part i as a 2-D ``[S_d·L,
+# SLOTS·n_loc]`` calendar of views. The stream is sorted by the shard-major
+# key ``s·L·n_loc + bucket·n_loc + dst mod n_loc`` (big = L·N still sorts
+# last), so part i's messages are exactly those with a key in [s0·L·n_loc,
+# s1·L·n_loc), and ``key - s0·L·n_loc`` is their key in the part's plane.
+
+
+def _device_context(dev, several: bool):
+    """The launch's device made current, where a mesh spans devices."""
+    return torch.cuda.device(dev) if several else contextlib.nullcontext()
+
+
+def commit_calendar_sharded_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
+    """Plain PyTorch sharded K1: the plain commit of every part's segment
+    of the shard-major stream into its planes, the per-part survival masks
+    summed on the stream's device (``pallas_transport.py:661``)."""
+    dev0 = sk.device
+    seg = cal.horizon * cal.n_loc
+    survived = None
+    for i, (dev, s0, _) in enumerate(cal.mesh.parts):
+        surv = _commit_plain(
+            cal.part(i), sk.to(dev), occ_vals.to(dev), [p.to(dev) for p in pay_sorted],
+            t.to(dev), stacking, key_lo=s0 * seg,
+        ).to(dev0)
+        survived = surv if survived is None else survived + surv
+    return cal, survived
+
+
+def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
+    """Commit one tick's shard-major sorted stream into a meshed calendar:
+    one launch per mesh part. Arguments and return as
+    :func:`commit_calendar`; ``survived`` lies on the stream's device."""
+    if sk.device.type == "cpu":
+        return commit_calendar_sharded_plain(
+            cal, sk, occ_vals, pay_sorted, t, stacking=stacking
+        )
+    _require(sk.device.type == "cuda", f"unsupported device {sk.device}")
+    parts = cal.mesh.parts
+    several = len(parts) > 1
+    seg = cal.horizon * cal.n_loc
+    _require(cal.mesh.size * seg < 2**31, "calendar too large for int32 keys")
+    m2 = sk.shape[0]
+    _check_stream(cal, sk, occ_vals, pay_sorted, sk.device)
+    _check_tick(t, sk.device)
+    if m2 == 0:
+        return cal, torch.empty(0, dtype=torch.int32, device=sk.device)
+    lib = _lib()
+    survived = None
+    for i, (dev, s0, s1) in enumerate(parts):
+        part = cal.part(i)
+        _check_planes(part)
+        _require(part.occupancy_plane.device == dev, "mesh part off its device")
+        stream = [x.to(dev) for x in (sk, occ_vals, *pay_sorted)]
+        t_d = t.to(dev)
+        # a part that holds every shard owns the whole mask; the others
+        # write their own segment into a zeroed mask
+        own_all = not several
+        alloc = torch.empty if own_all else torch.zeros
+        surv = alloc(m2, dtype=torch.int32, device=dev)
+        pay_ptrs = _ptr_array(stream[2:])
+        plane_ptrs = _ptr_array(part.payload)
+        occ = part.occupancy_plane
+        with _device_context(dev, several):
+            rc = lib.tg_commit_calendar_sharded(
+                stream[0].data_ptr(),
+                stream[1].data_ptr(),
+                ctypes.addressof(pay_ptrs),
+                part.width,
+                occ.data_ptr(),
+                int(occ.dtype == torch.bool),
+                ctypes.addressof(plane_ptrs),
+                part.etick.data_ptr() if part.etick is not None else None,
+                t_d.data_ptr(),
+                surv.data_ptr(),
+                m2,
+                (s1 - s0) * cal.horizon,
+                cal.n_loc,
+                part.slots,
+                int(bool(stacking)),
+                s0 * seg,
+                int(own_all),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"commit_calendar_sharded kernel launch failed: CUDA error {rc}"
+            )
+        commit_calendar_sharded.launches += 1
+        surv = surv.to(sk.device)
+        survived = surv if survived is None else survived + surv
+    return cal, survived
+
+
+commit_calendar_sharded.launches = 0
+
+
+def pop_bucket_sharded_plain(cal, t):
+    """Plain PyTorch sharded K2: row ``t mod L`` of every shard's planes,
+    laid along the lane axis into the global slot-major ``[SLOTS·N]`` rows
+    on the primary device; every shard's occupancy row cleared."""
+    slots, n_loc, n = cal.slots, cal.n_loc, cal.lanes
+    dev0 = cal.mesh.primary
+    b = int(torch.remainder(t.reshape(()), cal.horizon))
+    occ_parts = cal.occupancy_plane
+    occ_row = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
+    pay_rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
+                for _ in range(cal.width)]
+    for i, (_, s0, s1) in enumerate(cal.mesh.parts):
+        for row, plane in ((occ_row, occ_parts[i]),
+                           *zip(pay_rows, (p[i] for p in cal.payload))):
+            src = plane[:, b].reshape(s1 - s0, slots, n_loc).permute(1, 0, 2)
+            row.view(slots, n)[:, s0 * n_loc : s1 * n_loc].copy_(
+                src.reshape(slots, (s1 - s0) * n_loc)
+            )
+        occ_parts[i][:, b].zero_()
+    return cal, occ_row, pay_rows
+
+
+def pop_bucket_sharded(cal, t):
+    """Pop the bucket arriving at tick ``t`` from a meshed calendar: one
+    launch per mesh part. Returns ``(cal, occ_row, pay_rows)`` as
+    :func:`pop_bucket`, the rows global and slot-major on the primary
+    device; each shard's occupancy row is cleared in place."""
+    occ_parts = cal.occupancy_plane
+    if occ_parts[0].device.type == "cpu":
+        return pop_bucket_sharded_plain(cal, t)
+    _require(
+        occ_parts[0].device.type == "cuda", f"unsupported device {occ_parts[0].device}"
+    )
+    slots, n_loc, n = cal.slots, cal.n_loc, cal.lanes
+    dev0 = cal.mesh.primary
+    parts = cal.mesh.parts
+    several = len(parts) > 1
+    lib = _lib()
+    row_occ = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
+    rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
+            for _ in range(cal.width)]
+    for i, (dev, s0, s1) in enumerate(parts):
+        part = cal.part(i)
+        _check_planes(part)
+        t_d = t.to(dev)
+        _check_tick(t_d, dev)
+        home = dev == dev0
+        if home:  # straight into the global row
+            out_occ, out_pay = row_occ, rows
+            stride, col0 = n, s0 * n_loc
+        else:  # a device-local [SLOTS, S_d·n_loc] row, copied home below
+            cells = slots * (s1 - s0) * n_loc
+            out_occ = torch.empty(cells, dtype=row_occ.dtype, device=dev)
+            out_pay = [torch.empty(cells, dtype=torch.int32, device=dev)
+                       for _ in rows]
+            stride, col0 = (s1 - s0) * n_loc, 0
+        pay_ptrs = _ptr_array(part.payload)
+        row_ptrs = _ptr_array(out_pay)
+        occ = part.occupancy_plane
+        with _device_context(dev, several):
+            rc = lib.tg_pop_bucket_sharded(
+                occ.data_ptr(),
+                int(occ.dtype == torch.bool),
+                ctypes.addressof(pay_ptrs),
+                part.width,
+                t_d.data_ptr(),
+                cal.horizon,
+                s1 - s0,
+                slots,
+                n_loc,
+                out_occ.data_ptr(),
+                ctypes.addressof(row_ptrs),
+                stride,
+                col0,
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"pop_bucket_sharded kernel launch failed: CUDA error {rc}")
+        pop_bucket_sharded.launches += 1
+        if not home:
+            for glob, loc in ((row_occ, out_occ), *zip(rows, out_pay)):
+                glob.view(slots, n)[:, s0 * n_loc : s1 * n_loc].copy_(
+                    loc.view(slots, (s1 - s0) * n_loc)
+                )
+    return cal, row_occ, rows
+
+
+pop_bucket_sharded.launches = 0

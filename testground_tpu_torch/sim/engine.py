@@ -59,7 +59,14 @@ off the tick enters no plane code and issues no plane op.
 stall watchdog, ``nan_guard``), all at a chunk's end. The reference's
 admission refusals of incompatible declarations are kept, with the same
 messages. Not ported yet — each refused with ``NotImplementedError``
-naming its ROADMAP item: meshes, shape buckets and the perf ledger's hook.
+naming its ROADMAP item: shape buckets and the perf ledger's hook.
+
+``mesh`` (a ``meshplan.TorchMesh``) splits the calendar's lane axis over
+the mesh's peer shards: each shard's planes live on its device, the
+commit and the pop are the sharded kernels, and every other carry leaf
+stays on the mesh's primary device (shard 0's). As in the reference the
+lane count must divide across the shards. Every result is the unmeshed
+run's, bit for bit.
 """
 
 from __future__ import annotations
@@ -101,6 +108,7 @@ from .net import (
     spread_offsets,
 )
 from .faults import DeviceFaults
+from .meshplan import plan_for
 from .netmatrix import (
     NM_CHANNELS,
     NM_DELIVERED,
@@ -134,7 +142,6 @@ __all__ = [
 # Options of the reference SimProgram that the port refuses, with the
 # ROADMAP queue-1 item that ports each.
 _UNPORTED_OPTIONS = {
-    "mesh": "item 15 (multi-GPU)",
     "live_counts": "item 13 (buckets, packs and checkpoint)",
 }
 
@@ -294,6 +301,7 @@ class SimProgram:
         telemetry: bool = False,
         netmatrix: bool = False,
         trace=None,
+        mesh=None,
         **unported,
     ):
         cls = type(testcase)
@@ -317,13 +325,41 @@ class SimProgram:
                     f"SimProgram option {name!r} is not ported yet: ROADMAP "
                     f"queue 1 {_UNPORTED_OPTIONS[name]}"
                 )
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            # every leaf but the calendar's planes lives on shard 0's device
+            want = None if device is None else torch.device(device)
+            if want is not None and (
+                want.type != mesh.primary.type
+                or want.index not in (None, mesh.primary.index)
+            ):
+                raise ValueError(
+                    f"device {device} is not the mesh's primary device "
+                    f"{mesh.primary}: a meshed run keeps its other leaves there"
+                )
+            self.device = mesh.primary
+        self.mesh = mesh
+        self.meshplan = plan_for(mesh)
         self.tc = testcase
         self.groups = groups
         self.n = sum(g.count for g in groups)
         # echo lanes past the instance axis (SimEnv.host_index)
         self.hosts = tuple(hosts)
         self.n_lanes = self.n + len(self.hosts)
+        if self.meshplan is not None:
+            # the reference's rule and message (engine.py:406-422): every
+            # shard holds an equal contiguous block of lanes
+            shards = self.meshplan.shards
+            if self.n_lanes % shards != 0:
+                raise ValueError(
+                    f"transport=pallas on a mesh needs the lane count to "
+                    f"divide across the peer shards: {self.n_lanes} "
+                    f"lane(s) ({self.n} instances + {len(self.hosts)} "
+                    f"host(s)) do not divide by {shards} — pad the "
+                    "instance counts (shape bucketing does this), drop "
+                    "the hosts, or use transport=xla"
+                )
         self.tick_ms = float(tick_ms)
         self.chunk = int(chunk)
         self.validate = bool(validate)
@@ -521,6 +557,7 @@ class SimProgram:
                 # the enqueue-tick plane feeds the latency histogram
                 track_etick=self.telemetry,
                 device=dev,
+                mesh=self.mesh,
             ),
             link=make_link_state(
                 lanes,
@@ -587,6 +624,7 @@ class SimProgram:
         if self._carry_bytes is None:
             meta = copy.copy(self)
             meta.device = torch.device("meta")
+            meta.mesh = None if self.mesh is None else self.mesh.on(meta.device)
             meta._consts = {}
             meta._build_layout(meta.device)
             self._carry_bytes = carry_footprint(meta.init_carry(0))

@@ -1,7 +1,7 @@
 """The host side of a run of the port: a :class:`RunInput` in, a run
 directory, a journal and an :class:`Outcome` out — the port of the
 reference's ``execute_sim_run`` (``testground_tpu/sim/executor.py:735-2460``)
-for one single-device, unbucketed run.
+for one unbucketed run, on one device or on a mesh of peer shards.
 
 The executor loads the port's plan (``testground_tpu_torch/plans/<plan>/``
 unless a group names another ``artifact_path``), lowers the composition's
@@ -26,8 +26,13 @@ the reference does.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default: buckets, packs and checkpoints (item
-13), meshes and cohorts (item 15), the profiler, the phase plane and the
-transport probe (item 14), and an Influx mirror (item 9c). The perf ledger
+13, a 2-D pack mesh among them), multi-host cohorts (item 15b), the
+profiler, the phase plane and the transport probe (item 14), and an Influx
+mirror (item 9c).
+
+A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
+the calendar over the peer shards (``sim/meshplan.py``); the journal's
+``sim.mesh`` block is the reference's. The perf ledger
 (item 14) is on by default in the reference; the port writes no
 ``sim.perf`` block and says so in one log line.
 """
@@ -51,6 +56,13 @@ from ..engine.task import Outcome
 from ..rpc import OutputWriter
 from ..runners.outputs import instance_output_dir
 from ..runners.result import Result
+from .meshplan import (
+    cross_shard_bytes_est,
+    layout_str,
+    make_mesh,
+    parse_mesh_shape,
+    plan_for,
+)
 
 __all__ = [
     "SimTorchConfig",
@@ -83,10 +95,12 @@ class SimTorchConfig:
     max_ticks: int = 100_000  # sim-time budget
     chunk: int = 128  # ticks between host callbacks
     seed: int = 0
-    # the reference's "shard over the visible devices"; the port runs on
-    # one device until item 15, so the flag changes nothing
+    # shard over every visible card (the reference's default): no mesh
+    # on a host with one card or on the CPU
     shard: bool = True
-    mesh: str = ""  # refused unless "" (item 15)
+    # explicit 1-D peers mesh ("4"), over the visible cards, or virtual on
+    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13)
+    mesh: str = ""
     write_outputs_max: int = 2048  # cap on per-instance output dirs
     keep_outputs: bool = True
     # metric time-series cadence in ticks (0 disables); each sample reads
@@ -122,9 +136,9 @@ class SimTorchConfig:
     # per-run device-memory precheck: 0 = the card's total memory (no
     # check on the CPU), -1 = off, > 0 = an explicit budget in bytes
     memory_limit_bytes: int = 0
-    coordinator_address: str = ""  # refused unless "" (item 15)
-    num_processes: int = 1  # refused unless 1 (item 15)
-    process_id: int = 0  # refused unless 0 (item 15)
+    coordinator_address: str = ""  # refused unless "" (item 15b)
+    num_processes: int = 1  # refused unless 1 (item 15b)
+    process_id: int = 0  # refused unless 0 (item 15b)
     isolate_cohort: bool = True
     # the run's device: None is the card (raises without one), "cpu" runs
     # the plain versions of the kernels
@@ -133,7 +147,7 @@ class SimTorchConfig:
 
 _ITEM_13 = "item 13 (buckets, packs and checkpoint)"
 _ITEM_14 = "item 14 (perf ledger, phases and the transport knob)"
-_ITEM_15 = "item 15 (multi-GPU)"
+_ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
 # the ROADMAP queue-1 item that ports each
@@ -144,10 +158,9 @@ _UNPORTED_SETTINGS = {
     "pack": _ITEM_13,
     "checkpoint_chunks": _ITEM_13,
     "resume_from": _ITEM_13,
-    "mesh": _ITEM_15,
-    "coordinator_address": _ITEM_15,
-    "num_processes": _ITEM_15,
-    "process_id": _ITEM_15,
+    "coordinator_address": _ITEM_15B,
+    "num_processes": _ITEM_15B,
+    "process_id": _ITEM_15B,
     "profile": _ITEM_14,
     "profile_chunks": _ITEM_14,
     "phases": _ITEM_14,
@@ -169,6 +182,12 @@ def _refuse_unported(cfg, job: RunInput) -> None:
                 f"runner config {name}={value!r} is not ported yet: ROADMAP "
                 f"queue 1 {item}"
             )
+    mesh = getattr(cfg, "mesh", "")
+    if mesh and len(parse_mesh_shape(mesh)) > 1:
+        raise NotImplementedError(
+            f"runner config mesh={mesh!r} is not ported yet: ROADMAP queue 1 "
+            f"{_ITEM_13} — a 2-D mesh's leading axis is the pack run axis"
+        )
     influx = getattr(getattr(job.env, "daemon", None), "influxdb_endpoint", "")
     if influx:
         raise NotImplementedError(
@@ -255,10 +274,11 @@ def make_sim_program(
     trace,
     netmatrix,
     device,
+    mesh,
 ):
     """The one construction site for a run's SimProgram
     (``executor.py:304-346``): every program-shaping option is a required
-    keyword."""
+    keyword. On a mesh the program's leaves live on its primary device."""
     from .engine import SimProgram
 
     return SimProgram(
@@ -275,7 +295,8 @@ def make_sim_program(
         faults=faults,
         trace=trace,
         netmatrix=netmatrix,
-        device=device,
+        device=None if mesh is not None else device,
+        mesh=mesh,
     )
 
 
@@ -338,14 +359,64 @@ def _parse_hosts(raw) -> tuple[str, ...]:
     return tuple(s for s in (str(h).strip() for h in raw) if s)
 
 
+def _make_mesh(shard: bool, shape: str, device: torch.device):
+    """The executor's mesh gate (``executor.py:554-565``): an explicit
+    ``mesh="4"`` wins over the boolean ``shard`` (every visible card, 1-D).
+    A single device, and ``shard`` on the CPU, give None. An explicit
+    shape on the CPU is a virtual mesh there."""
+    if shape:
+        return make_mesh(shape, device=device)
+    if not shard:
+        return None
+    return make_mesh(None, device=device)
+
+
+# K1's default stream tile in the reference (pallas_transport.py:123): the
+# tile-padded stream sizes the modeled exchange
+_COMMIT_TILE = 4096
+
+
+def _stream_bytes_per_tick(testcase, groups, hosts) -> int:
+    """Bytes of the tile-padded sorted stream one commit consumes, the
+    (2+W) int32 words (key, occupancy value, payload) per message
+    (``transport_model.py:379-391``)."""
+    cls = type(testcase)
+    n_lanes = sum(g.count for g in groups) + len(hosts)
+    m2 = cls.OUT_MSGS * n_lanes * (2 if "duplicate" in cls.SHAPING else 1)
+    m2p = -(-max(m2, 1) // _COMMIT_TILE) * _COMMIT_TILE
+    return (2 + int(cls.MSG_WIDTH)) * m2p * 4
+
+
+def _mesh_journal_block(mesh, testcase, groups, hosts):
+    """The ``sim.mesh`` journal block (``executor.py:568-600``): the layout
+    string, the shard extents, the rule table and the modeled per-commit
+    exchange bytes. None without a mesh."""
+    if mesh is None:
+        return None
+    plan = plan_for(mesh)
+    return {
+        "axes": layout_str(mesh),
+        "shards": plan.shards,
+        "runs": plan.runs,
+        "layout_table": plan.layout_table(),
+        "cross_shard_bytes_est": int(
+            cross_shard_bytes_est(
+                stream_bytes=_stream_bytes_per_tick(testcase, groups, hosts),
+                shards=plan.shards,
+            )
+        ),
+    }
+
+
 # headroom over the exact carry footprint (``executor.py:603-607``)
 _MEM_HEADROOM = 2.5
 
 
 def _precheck_device_memory(prog, carry: int, cfg, ow) -> None:
     """Refuse an oversized composition before its first tick
-    (``executor.py:610-647``): the carry footprint × headroom against the
-    card's memory, or an explicit ``memory_limit_bytes``."""
+    (``executor.py:610-647``): the carry footprint × headroom, divided
+    across the mesh's distinct devices, against the card's memory, or an
+    explicit ``memory_limit_bytes``."""
     limit = int(getattr(cfg, "memory_limit_bytes", 0) or 0)
     if limit < 0:
         return
@@ -353,12 +424,13 @@ def _precheck_device_memory(prog, carry: int, cfg, ow) -> None:
         if prog.device.type != "cuda":
             return  # no device budget to check against
         limit = torch.cuda.get_device_properties(prog.device).total_memory
-    need = int(carry * _MEM_HEADROOM)
+    n_dev = 1 if prog.mesh is None else len(set(prog.mesh.devices))
+    need = int(carry * _MEM_HEADROOM / n_dev)
     if need > limit:
         raise RuntimeError(
             f"composition needs ~{need / 2**30:.2f} GiB per device "
             f"(carry {carry / 2**30:.2f} GiB × {_MEM_HEADROOM} headroom "
-            f"/ 1 device(s)) but the device budget is "
+            f"/ {n_dev} device(s)) but the device budget is "
             f"{limit / 2**30:.2f} GiB — shrink the composition "
             "(instances, IN_MSGS/MSG_WIDTH, MAX_LINK_TICKS, TOPIC_CAP) "
             "or run on more devices; set runner config "
@@ -367,20 +439,27 @@ def _precheck_device_memory(prog, carry: int, cfg, ow) -> None:
     ow.infof(
         "memory precheck: ~%.2f GiB/device of %.2f GiB budget (carry "
         "%.2f GiB on %d device(s))",
-        need / 2**30, limit / 2**30, carry / 2**30, 1,
+        need / 2**30, limit / 2**30, carry / 2**30, n_dev,
     )
 
 
-def _transport_block(cfg, device: torch.device) -> dict:
+def _transport_block(cfg, device: torch.device, mesh=None) -> dict:
     """The ``sim.transport`` journal block: what the config asked for and
     what ran."""
     if device.type == "cuda":
         resolved = "cuda"
         reason = ("K1 commit_k and K2 pop_vec_k/pop_scalar_k "
                   "(csrc/transport.cu) on the card")
+        if mesh is not None:
+            reason = ("sharded K1 commit_k and K2 pop_shard_vec_k/"
+                      "pop_shard_scalar_k (csrc/transport.cu), one launch "
+                      "per device of the mesh")
     else:
         resolved = "plain"
         reason = f"the plain torch versions of K1 and K2 on {device.type}"
+        if mesh is not None:
+            reason = ("the plain torch versions of the sharded K1 and K2 on "
+                      f"{device.type}")
     return {"requested": cfg.transport, "resolved": resolved, "reason": reason}
 
 
@@ -486,11 +565,23 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         ow.infof("sim:torch %s: run health plane armed — %s", job.run_id,
                  slo_plan.summary())
 
+    mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
+                      device)
+    lanes = n + len(hosts)
+    if mesh is not None and cfg.transport != "pallas" and lanes % mesh.size:
+        # the reference's XLA transport pads an indivisible lane axis; the
+        # port's calendar is always split per shard, so it waits for the
+        # padding of shape bucketing
+        raise NotImplementedError(
+            f"transport={cfg.transport} on a {mesh.size}-shard mesh with "
+            f"{lanes} lane(s), which do not divide by {mesh.size}, is not "
+            f"ported yet: ROADMAP queue 1 {_ITEM_13}"
+        )
     ow.infof(
         "sim:torch run %s: plan=%s case=%s instances=%d groups=%d "
-        "tick=%.3fms device=%s",
+        "tick=%.3fms device=%s devices=%d",
         job.run_id, job.test_plan, job.test_case, n, len(groups), cfg.tick_ms,
-        device,
+        device, 1 if mesh is None else mesh.size,
     )
     if hosts:
         ow.infof("additional hosts: %s", ",".join(hosts))
@@ -510,6 +601,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         trace=trace_plan,
         netmatrix=netmatrix_on,
         device=device,
+        mesh=mesh,
     )
     # the carry is built here, not from its shapes on the meta device: a
     # process's first meta op imports torch's meta kernels, which takes
@@ -822,14 +914,15 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         if write_outputs:
             _write_instance_outputs(outputs_root, job, g, st, res, metrics.get(g.id))
 
+    mesh_block = _mesh_journal_block(mesh, testcase, groups, hosts)
     result.journal["sim"] = {
         "ticks": res["ticks"],
         "tick_ms": cfg.tick_ms,
         "wall_secs": wall,
         "processes": 1,
         "compile_secs": round(res.get("compile_secs", 0.0), 3),
-        "devices": 1,
-        "transport": _transport_block(cfg, device),
+        "devices": 1 if mesh is None else mesh.size,
+        "transport": _transport_block(cfg, prog.device, mesh),
         "pub_dropped": res["pub_dropped"].tolist(),
         "latency_clamped": res["latency_clamped"],
         "bw_queue_dropped": res["bw_queue_dropped"],
@@ -846,6 +939,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         "carry_bytes": res["carry_bytes"],
         **({"latency": latency} if latency else {}),
         **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
+        **({"mesh": mesh_block} if mesh_block else {}),
     }
     result.update_outcome()
     if cancel.is_set():

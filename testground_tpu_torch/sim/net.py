@@ -22,6 +22,14 @@ the sorted stream and the delivery pop go through the kernels of
 and the observability planes' scatters are plain torch ops: in the
 reference too they are plain XLA, outside any Pallas kernel.
 
+On a mesh of S peer shards (``Calendar.mesh``, a ``meshplan.TorchMesh``)
+shard s owns lanes ``[s·n_loc, (s+1)·n_loc)`` and its own ``[L,
+SLOTS·n_loc]`` planes, and a device holds its shards as one ``[S_d, L,
+SLOTS·n_loc]`` tensor per plane. The sorted stream then carries the
+reference's SHARD-major key (``net.py:1174-1183``), the commit and the pop
+are the sharded kernels, and the direct write, the purges and the latency
+histogram address each shard's planes. Every result is the unmeshed run's.
+
 Bit-equality with the reference rests on three rules:
 
 - integer hashing in int64 masked to 32 bits (torch's ``>>`` on int32 is
@@ -40,7 +48,12 @@ import functools
 import torch
 
 from .api import FILTER_ACCEPT, FILTER_REJECT, Inbox
-from .cuda_transport import commit_calendar, pop_bucket
+from .cuda_transport import (
+    commit_calendar,
+    commit_calendar_sharded,
+    pop_bucket,
+    pop_bucket_sharded,
+)
 from .faults import DeviceFaults
 
 __all__ = [
@@ -52,11 +65,13 @@ __all__ = [
     "apply_net_updates",
     "deliver",
     "enqueue",
+    "from_shards",
     "latency_histogram",
     "make_link_state",
     "purge_dst",
     "purge_dst_matrix",
     "spread_offsets",
+    "to_shards",
 ]
 
 # LinkShape plane indices (``pkg/sidecar/link.go:155-183``).
@@ -126,6 +141,9 @@ class Calendar:
     valid:   [L, N·SLOTS] bool — the occupancy plane when src is None
     etick:   [L, N·SLOTS] int32 — enqueue tick per message (None unless
              the telemetry plane is built)
+    mesh:    None, or the ``meshplan.TorchMesh`` whose shards split the
+             lane axis: each plane is then a tuple with one ``[S_d, L,
+             SLOTS·n_loc]`` tensor per mesh part (see :func:`to_shards`)
     """
 
     payload: tuple
@@ -133,6 +151,7 @@ class Calendar:
     valid: torch.Tensor | None
     etick: torch.Tensor | None = None
     slots: int = 4
+    mesh: object = None
 
     @staticmethod
     def empty(
@@ -144,11 +163,21 @@ class Calendar:
         track_etick: bool = False,
         *,
         device,
+        mesh=None,
     ) -> "Calendar":
-        shape = (horizon, n * slots)
+        if mesh is None:
 
-        def z(dtype):
-            return torch.zeros(shape, dtype=dtype, device=device)
+            def z(dtype):
+                return torch.zeros((horizon, n * slots), dtype=dtype, device=device)
+
+        else:
+            n_loc = n // mesh.size
+
+            def z(dtype):
+                return tuple(
+                    torch.zeros((s1 - s0, horizon, slots * n_loc), dtype=dtype, device=d)
+                    for d, s0, s1 in mesh.parts
+                )
 
         return Calendar(
             payload=tuple(z(torch.int32) for _ in range(width)),
@@ -156,6 +185,7 @@ class Calendar:
             valid=None if track_src else z(torch.bool),
             etick=z(torch.int32) if track_etick else None,
             slots=slots,
+            mesh=mesh,
         )
 
     @property
@@ -163,8 +193,94 @@ class Calendar:
         return len(self.payload)
 
     @property
-    def occupancy_plane(self) -> torch.Tensor:
+    def occupancy_plane(self):
         return self.src if self.src is not None else self.valid
+
+    @property
+    def horizon(self) -> int:
+        occ = self.occupancy_plane
+        return occ.shape[0] if self.mesh is None else occ[0].shape[1]
+
+    @property
+    def n_loc(self) -> int:
+        """Lanes a shard owns (all of them without a mesh)."""
+        occ = self.occupancy_plane
+        return (occ if self.mesh is None else occ[0]).shape[-1] // self.slots
+
+    @property
+    def lanes(self) -> int:
+        return self.n_loc * (1 if self.mesh is None else self.mesh.size)
+
+    def part(self, i: int) -> "Calendar":
+        """Mesh part ``i``'s planes as an unmeshed calendar of ``[S_d·L,
+        SLOTS·n_loc]`` views (writes land in this calendar)."""
+
+        def v(planes):
+            return None if planes is None else planes[i].view(-1, planes[i].shape[-1])
+
+        return Calendar(
+            payload=tuple(v(p) for p in self.payload),
+            src=v(self.src),
+            valid=v(self.valid),
+            etick=v(self.etick),
+            slots=self.slots,
+        )
+
+
+def to_shards(plane: torch.Tensor, mesh, slots: int) -> tuple:
+    """A global ``[L, SLOTS·N]`` plane as a mesh's per-part ``[S_d, L,
+    SLOTS·n_loc]`` tensors: shard s's local plane is the global
+    ``[L, SLOTS, N][:, :, s·n_loc:(s+1)·n_loc]``, laid out slot-major."""
+    horizon, ns = plane.shape
+    n = ns // slots
+    n_loc = n // mesh.size
+    x = plane.reshape(horizon, slots, mesh.size, n_loc).permute(2, 0, 1, 3)
+    return tuple(
+        x[s0:s1].to(d).reshape(s1 - s0, horizon, slots * n_loc).contiguous()
+        for d, s0, s1 in mesh.parts
+    )
+
+
+def from_shards(parts, slots: int, device=None) -> torch.Tensor:
+    """The inverse of :func:`to_shards`: the global ``[L, SLOTS·N]`` plane
+    on ``device`` (the first part's by default)."""
+    dev = parts[0].device if device is None else device
+    x = torch.cat([p.to(dev) for p in parts])
+    s, horizon, w = x.shape
+    n_loc = w // slots
+    return x.reshape(s, horizon, slots, n_loc).permute(1, 2, 0, 3).reshape(
+        horizon, slots * s * n_loc
+    )
+
+
+def _lane_blocks(cal: Calendar, plane) -> list:
+    """Each part of ``plane`` as ``(view [S_d, L·SLOTS, n_loc], lo, hi)``,
+    the part's lanes being ``[lo, hi)`` (one block without a mesh)."""
+    n_loc = cal.n_loc
+    if cal.mesh is None:
+        return [(plane.view(1, -1, n_loc), 0, n_loc)]
+    return [
+        (p.view(p.shape[0], -1, n_loc), s0 * n_loc, s1 * n_loc)
+        for p, (_, s0, s1) in zip(plane, cal.mesh.parts)
+    ]
+
+
+def _row_at(cal: Calendar, plane, t: torch.Tensor) -> torch.Tensor:
+    """Row ``t mod L`` of ``plane`` as the global ``[SLOTS, N]`` inbox
+    layout, without a host read."""
+    b = torch.remainder(t.reshape(1), cal.horizon)
+    if cal.mesh is None:
+        return plane.index_select(0, b).view(cal.slots, -1)
+    dev0 = cal.mesh.primary
+    rows = [
+        p.index_select(1, b.to(p.device))
+        .view(p.shape[0], cal.slots, -1)
+        .permute(1, 0, 2)
+        .reshape(cal.slots, -1)
+        .to(dev0)
+        for p in plane
+    ]
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
 
 
 def make_link_state(
@@ -210,7 +326,8 @@ def deliver(cal: Calendar, t: torch.Tensor) -> tuple[Calendar, Inbox]:
     zeroed for reuse at t+L (payload stays stale, masked). With provenance
     on, invalid slots read src = -1; without it, src = 0."""
     slots = cal.slots
-    cal, occ_row, pay_rows = pop_bucket(cal, t)
+    pop = pop_bucket if cal.mesh is None else pop_bucket_sharded
+    cal, occ_row, pay_rows = pop(cal, t)
     n = occ_row.shape[0] // slots
     if cal.src is not None:
         row_v = occ_row != 0
@@ -251,15 +368,17 @@ def purge_dst(cal: Calendar, dst_mask: torch.Tensor) -> tuple[Calendar, torch.Te
     a crashed instance's socket buffers vanish with it
     (``testground_tpu/sim/net.py:416-448``). ``dst_mask`` is [N] bool over
     the receiver axis. Only the occupancy plane is cleared, in place
-    (payload words stay stale, like a bucket after ``deliver``). Returns
-    ``(cal, purged)``, ``purged`` the int32 count of entries removed."""
-    plane = cal.occupancy_plane
-    n = plane.shape[1] // cal.slots
-    # positions are slot-major (slot·N + dst): [L·SLOTS, N] rows
-    view = plane.view(-1, n)
-    kill = (view != 0) & dst_mask[None, :]
-    purged = kill.sum(dtype=torch.int32)
-    view.masked_fill_(kill, 0)
+    (payload words stay stale, like a bucket after ``deliver``); on a mesh
+    each shard against its own lanes. Returns ``(cal, purged)``,
+    ``purged`` the int32 count of entries removed."""
+    purged = None
+    # positions are slot-major (slot·n_loc + lane): [S_d, L·SLOTS, n_loc]
+    for view, lo, hi in _lane_blocks(cal, cal.occupancy_plane):
+        mask = dst_mask[lo:hi].to(view.device).view(view.shape[0], 1, -1)
+        kill = (view != 0) & mask
+        k = kill.sum(dtype=torch.int32).to(dst_mask.device)
+        purged = k if purged is None else purged + k
+        view.masked_fill_(kill, 0)
     return cal, purged
 
 
@@ -269,22 +388,31 @@ def purge_dst_matrix(
     """:func:`purge_dst` with per-(src group, dst group) attribution for the
     traffic-matrix plane (``testground_tpu/sim/net.py:450-490``): every
     purged message is charged to its (sender group, crashed receiver
-    group) cell, the sender read as ``src - 1`` off the provenance plane.
-    ``group_of`` is the [N] lane → matrix row map (host lanes on the hosts
-    row), ``gh`` the matrix side. Returns ``(cal, purged, mat [gh, gh]
-    int32)``; the occupancy plane is cleared in place."""
+    group) cell, the sender read as the global ``src - 1`` off the
+    provenance plane. ``group_of`` is the [N] lane → matrix row map (host
+    lanes on the hosts row), ``gh`` the matrix side. Returns ``(cal,
+    purged, mat [gh, gh] int32)``; the occupancy plane is cleared in
+    place."""
     if cal.src is None:
         raise ValueError("purge_dst_matrix needs a Calendar built with track_src=True")
-    n = cal.src.shape[1] // cal.slots
-    view = cal.src.view(-1, n)
-    kill = (view != 0) & dst_mask[None, :]
-    purged = kill.sum(dtype=torch.int32)
+    n = cal.lanes
     g = group_of.to(torch.int64)
-    # every cell gets an in-range index; only killed ones add 1
-    idx = g[(view - 1).clamp(0, n - 1)] * gh + g[None, :]
-    mat = torch.zeros(gh * gh, dtype=torch.int32, device=view.device)
-    mat.scatter_add_(0, idx.reshape(-1), kill.reshape(-1).to(torch.int32))
-    view.masked_fill_(kill, 0)
+    mat = torch.zeros(gh * gh, dtype=torch.int32, device=dst_mask.device)
+    purged = None
+    for view, lo, hi in _lane_blocks(cal, cal.src):
+        dev = view.device
+        mask = dst_mask[lo:hi].to(dev).view(view.shape[0], 1, -1)
+        kill = (view != 0) & mask
+        k = kill.sum(dtype=torch.int32).to(dst_mask.device)
+        purged = k if purged is None else purged + k
+        gd = g.to(dev)
+        # every cell gets an in-range index; only killed ones add 1
+        idx = gd[(view - 1).clamp(0, n - 1)] * gh + gd[lo:hi].view(view.shape[0], 1, -1)
+        m = mat if dev == mat.device else torch.zeros_like(mat, device=dev)
+        m.scatter_add_(0, idx.reshape(-1), kill.reshape(-1).to(torch.int32))
+        if m is not mat:
+            mat += m.to(mat.device)
+        view.masked_fill_(kill, 0)
     return cal, purged, mat.view(gh, gh)
 
 
@@ -333,17 +461,15 @@ def latency_histogram(
     plane, so the etick row may be read before or after it."""
     if cal.etick is None:
         raise ValueError("latency_histogram needs a Calendar built with track_etick=True")
-    plane = cal.etick
-    horizon, ns = plane.shape
-    n = ns // cal.slots
+    n = cal.lanes
     t1 = t.reshape(1)
-    row = plane.index_select(0, torch.remainder(t1, horizon)).view(cal.slots, n)
-    binidx = torch.bucketize(t1 - row, _bin_edges(n_bins, str(plane.device)),
+    row = _row_at(cal, cal.etick, t)
+    binidx = torch.bucketize(t1 - row, _bin_edges(n_bins, str(row.device)),
                              out_int32=True, right=True)
     cells = (n_groups + 1) * n_bins
-    p, spread = spread_offsets(n, cells, str(plane.device))
+    p, spread = spread_offsets(n, cells, str(row.device))
     idx = (group_of.to(torch.int64) * n_bins + spread)[None, :] + binidx
-    hist = torch.zeros(p * cells, dtype=torch.int32, device=plane.device)
+    hist = torch.zeros(p * cells, dtype=torch.int32, device=row.device)
     hist.scatter_add_(0, idx.reshape(-1), inbox.valid.reshape(-1).to(torch.int32))
     hist = hist.view(p, cells).sum(0, dtype=torch.int32)
     return hist[: n_groups * n_bins].view(n_groups, n_bins)
@@ -394,10 +520,8 @@ def enqueue(
       its original add up), rejected, fault-dropped. The last two are None
       when no filter, respectively no fault term or dead mask, is given:
       they would be all zero."""
-    slots = cal.slots
     width = cal.width
-    horizon, ns = cal.occupancy_plane.shape
-    n = ns // slots
+    horizon, n = cal.horizon, cal.lanes
     o, n_src = valid.shape
     if n_src != n:
         raise ValueError(f"outbox lane count {n_src} != calendar lanes {n}")
@@ -697,14 +821,28 @@ def enqueue(
     # --- slot assignment: one stable sort by (bucket, dst); invalid
     # messages carry the key L·N and sort last. The commit (rank within
     # equal-key runs + the bucket's pre-tick fill, then every plane
-    # write) is the K1 kernel.
+    # write) is the K1 kernel. On a mesh the key is SHARD-major, (dst
+    # shard, bucket, local dst): its equal-key classes are the
+    # bucket-major key's, so the stable sort assigns the same slots, and
+    # L·N is still one past its largest value.
     big = horizon * n
-    sort_key = torch.where(val_f, bucket * n + dst_safe, torch.full_like(dst_safe, big))
+    if cal.mesh is None:
+        key = bucket * n + dst_safe
+        commit = commit_calendar
+    else:
+        n_loc = cal.n_loc
+        key = (
+            torch.div(dst_safe, n_loc, rounding_mode="floor") * (horizon * n_loc)
+            + bucket * n_loc
+            + torch.remainder(dst_safe, n_loc)
+        )
+        commit = commit_calendar_sharded
+    sort_key = torch.where(val_f, key, torch.full_like(dst_safe, big))
     sk, order = torch.sort(sort_key, stable=True)
     src_s = src_f[order]
     pay_s = [p[order].contiguous() for p in pay_w]
     occ_vals = src_s + 1 if cal.src is not None else torch.ones_like(src_s)
-    cal, survived = commit_calendar(
+    cal, survived = commit(
         cal, sk.contiguous(), occ_vals.contiguous(), pay_s, t, stacking=stacking
     )
     fate = flow = None
@@ -729,11 +867,13 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
     Under ``validate``, same-tick duplicate targets and writes onto a
     still-occupied slot are counted, with the first colliding (dst, slot);
     which of two colliding writes lands is undefined on both backends.
-    Returns ``(enqueued, collisions, collision_where)``, the last two None
-    without ``validate``."""
+    On a mesh message m lands in shard ``dst // n_loc`` at row bucket,
+    position ``slot·n_loc + dst mod n_loc``; a device that holds several
+    shards takes one write per plane. Returns ``(enqueued, collisions,
+    collision_where)``, the last two None without ``validate``."""
     slots = cal.slots
-    horizon, ns = cal.occupancy_plane.shape
-    n = ns // slots
+    horizon, n = cal.horizon, cal.lanes
+    ns = n * slots
     i32 = torch.int32
     if o > slots:
         raise ValueError(
@@ -741,6 +881,12 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
         )
     buck = torch.remainder(t.reshape(()) + delay, horizon)
     pos = slot_in_src * n + dst_safe
+    if cal.mesh is not None:
+        # the shard's [S_d·L, SLOTS·n_loc] plane: row s·L + bucket
+        n_loc = cal.n_loc
+        shard = torch.div(dst_safe, n_loc, rounding_mode="floor")
+        row = shard * horizon + buck
+        col = slot_in_src * n_loc + torch.remainder(dst_safe, n_loc)
     collisions = where = None
     if validate:
         big = horizon * ns
@@ -751,7 +897,15 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
         ks, perm = torch.sort(lin, stable=True)
         dup = torch.zeros_like(val_f)
         dup[perm[1:]] = (ks[1:] == ks[:-1]) & (ks[1:] < big)
-        occ = cal.occupancy_plane.reshape(-1)[lin.clamp_max(big - 1)] != 0
+        if cal.mesh is None:
+            occ = cal.occupancy_plane.reshape(-1)[lin.clamp_max(big - 1)] != 0
+        else:
+            occ = torch.zeros_like(val_f)
+            for i, (dev, s0, s1) in enumerate(cal.mesh.parts):
+                flat = cal.part(i).occupancy_plane.reshape(-1)
+                idx = (row.to(torch.int64) - s0 * horizon) * (slots * n_loc) + col
+                hit = flat[idx.clamp(0, flat.shape[0] - 1).to(dev)] != 0
+                occ = occ | (hit.to(occ.device) & (shard >= s0) & (shard < s1))
         conflict = dup | (occ & val_f)
         collisions = conflict.sum(dtype=i32)
         first = torch.where(conflict, lin, big).min()
@@ -760,15 +914,28 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
             [torch.remainder(p, n), torch.div(p, n, rounding_mode="floor")]
         ).to(i32)
     keep = val_f.nonzero().squeeze(1)  # the write's one host sync
-    b, p = buck[keep].to(torch.int64), pos[keep].to(torch.int64)
-    for plane, vals in zip(cal.payload, pay_w):
-        plane.index_put_((b, p), vals[keep])
-    if cal.src is not None:  # src+1 doubles as the occupancy mark
-        cal.src.index_put_((b, p), src_f[keep] + 1)
+    if cal.mesh is None:
+        writes = [(cal, keep, buck[keep], pos[keep])]
     else:
-        cal.valid.index_put_((b, p), torch.ones_like(b, dtype=torch.bool))
-    if cal.etick is not None:
-        cal.etick.index_put_((b, p), t.reshape(()).to(i32).expand(b.shape[0]))
+        parts = cal.mesh.parts
+        writes = []
+        for i, (dev, s0, s1) in enumerate(parts):
+            sel = keep
+            if len(parts) > 1:  # one more host sync per part
+                sk = shard[keep]
+                sel = keep[(sk >= s0) & (sk < s1)]
+            writes.append((cal.part(i), sel, row[sel] - s0 * horizon, col[sel]))
+    for part, sel, b, p in writes:
+        dev = part.occupancy_plane.device
+        b, p = b.to(dev, torch.int64), p.to(dev, torch.int64)
+        for plane, vals in zip(part.payload, pay_w):
+            plane.index_put_((b, p), vals[sel].to(dev))
+        if part.src is not None:  # src+1 doubles as the occupancy mark
+            part.src.index_put_((b, p), (src_f[sel] + 1).to(dev))
+        else:
+            part.valid.index_put_((b, p), torch.ones_like(b, dtype=torch.bool))
+        if part.etick is not None:
+            part.etick.index_put_((b, p), t.reshape(()).to(dev, i32).expand(b.shape[0]))
     return val_f.sum(dtype=i32), collisions, where
 
 

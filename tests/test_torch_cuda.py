@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain version on
-the same CUDA tensors (the main path's shapes among them), and short runs
-on the GPU against the same runs on the CPU, the observability planes'
-blocks included. Every test takes the ``cuda`` fixture, which skips it where
+the same CUDA tensors (the main path's shapes among them; the sharded
+kernels on virtual meshes on card 0), and short runs on the GPU against
+the same runs on the CPU, the observability planes' blocks and meshed runs
+included. Every test takes the ``cuda`` fixture, which skips it where
 there is no GPU. This file imports no jax, so on a machine with the GPU
 and without jax it runs as
 
@@ -445,3 +446,157 @@ def test_sustained_tick_makes_no_host_sync(cuda, planes):
     prog.run(seed=0, max_ticks=16)  # the kernels built and loaded
     assert _syncs_over(prog, 32) == _syncs_over(prog, 64)
 
+
+
+# ------------------------------------------------------------ the mesh
+
+
+def _virtual_mesh(shards, parts=None):
+    """``shards`` peer shards on card 0; ``parts`` (shard cuts) holds them
+    in several tensors."""
+    from testground_tpu_torch.sim.meshplan import TorchMesh
+
+    dev = torch.device("cuda", 0)
+    cuts = (0, *(parts or ()), shards)
+    return TorchMesh((dev,) * shards,
+                     parts=tuple((dev, a, b) for a, b in zip(cuts, cuts[1:])))
+
+
+def _meshed(cal, mesh):
+    def sh(x):
+        return None if x is None else net.to_shards(x, mesh, cal.slots)
+
+    return net.Calendar(payload=tuple(sh(p) for p in cal.payload), src=sh(cal.src),
+                        valid=sh(cal.valid), etick=sh(cal.etick), slots=cal.slots,
+                        mesh=mesh)
+
+
+def _copy_meshed(cal):
+    def c(x):
+        return None if x is None else tuple(p.clone() for p in x)
+
+    return net.Calendar(payload=tuple(c(p) for p in cal.payload), src=c(cal.src),
+                        valid=c(cal.valid), etick=c(cal.etick), slots=cal.slots,
+                        mesh=cal.mesh)
+
+
+def _global_planes(cal):
+    return [net.from_shards(p, cal.slots) for p in _planes(cal)]
+
+
+def _to_shard_major(keys, horizon, n, n_loc):
+    live = (keys >= 0) & (keys < horizon * n)
+    b, d = keys // n, keys % n
+    sm = (d // n_loc) * horizon * n_loc + b * n_loc + d % n_loc
+    return np.sort(np.where(live, sm, horizon * n), kind="stable")
+
+
+# (shards, parts, occ_bool, stacking, etick, width, slots, m2, stream)
+_SHARDED_COMMIT_CASES = [
+    (4, None, False, True, False, 1, 4, 3000, "random"),
+    (8, None, False, True, True, 2, 4, 3000, "random"),
+    (2, None, True, False, True, 2, 4, 3000, "random"),
+    (4, (1,), False, True, True, 2, 4, 3000, "random"),
+    (4, (1, 3), True, True, False, 1, 4, 3000, "random"),
+    (4, None, False, True, True, 2, 4, 4 * TILE + 37, "straddle"),
+    (4, None, False, True, False, 1, 4, 3000, "fanin"),
+    (4, None, True, False, False, 1, 16, 5000, "poisson"),
+    (4, None, False, True, False, 1, 1, 3000, "random"),
+    (8, None, False, True, True, 8, 4, 3000, "random"),
+    (4, None, False, True, False, 2, 4, 4000, "dup"),
+    (4, None, False, True, False, 1, 4, 0, "random"),
+    (4, (2,), False, True, False, 1, 4, 1, "random"),
+    (4, None, False, True, False, 2, 4, 3000, "dead"),
+]
+
+
+@pytest.mark.parametrize("shards,parts,occ_bool,stacking,etick,width,slots,m2,stream",
+                         _SHARDED_COMMIT_CASES)
+def test_sharded_commit_kernel_matches_plain(cuda, shards, parts, occ_bool, stacking, etick,
+                                             width, slots, m2, stream):
+    rng = np.random.default_rng(shards + width + 10 * slots + m2)
+    horizon, n = 8, 1000
+    mesh = _virtual_mesh(shards, parts)
+    cal = _meshed(_cal(rng, horizon, n, slots, width, occ_bool, etick, cuda), mesh)
+    keys = _to_shard_major(_stream_keys(rng, stream, m2, horizon, n, slots), horizon, n,
+                           n // shards)
+    sk = torch.from_numpy(keys.astype(np.int32)).to(cuda)
+    occ_vals = torch.from_numpy(rng.integers(1, n, m2).astype(np.int32)).to(cuda)
+    pay = [torch.from_numpy(rng.integers(0, 99, m2).astype(np.int32)).to(cuda)
+           for _ in range(width)]
+    t = torch.tensor(3, dtype=torch.int32, device=cuda)
+    a, b = _copy_meshed(cal), _copy_meshed(cal)
+    before = ct.commit_calendar_sharded.launches
+    _, sa = ct.commit_calendar_sharded(a, sk, occ_vals, pay, t, stacking=stacking)
+    _, sb = ct.commit_calendar_sharded_plain(b, sk, occ_vals, pay, t, stacking=stacking)
+    torch.cuda.synchronize()
+    assert ct.commit_calendar_sharded.launches == before + (len(mesh.parts) if m2 else 0)
+    assert torch.equal(sa, sb)
+    for x, y in zip(_global_planes(a), _global_planes(b)):
+        assert torch.equal(x, y)
+
+
+# (shards, parts, occ_bool, n, slots, width, horizon, t)
+_SHARDED_POP_CASES = [
+    (4, None, False, 1000, 4, 2, 16, 37),
+    (4, None, True, 1000, 4, 2, 16, 37),
+    (8, None, False, 1000, 4, 8, 16, 37),
+    (4, None, False, 4 * 333, 3, 2, 16, 37),  # n_loc = 333: the scalar kernel
+    (4, None, True, 4 * 1001, 4, 1, 16, 37),
+    (4, None, True, 24, 2, 1, 8, 5),  # n_loc = 6
+    (4, (1,), False, 1000, 4, 2, 16, 2**20 + 1),
+    (4, (1, 2), True, 4 * 333, 1, 1, 8, 37),
+    (4, None, True, 1000, 16, 1, 8, 37),  # storm's shape
+    (4, None, True, 1000, 1, 1, 256, 300),  # flood's SLOTS=1, a 256-row horizon
+]
+
+
+@pytest.mark.parametrize("shards,parts,occ_bool,n,slots,width,horizon,t",
+                         _SHARDED_POP_CASES)
+def test_sharded_pop_kernel_matches_plain(cuda, shards, parts, occ_bool, n, slots, width,
+                                          horizon, t):
+    rng = np.random.default_rng(n + width + horizon)
+    mesh = _virtual_mesh(shards, parts)
+    cal = _meshed(_cal(rng, horizon, n, slots, width, occ_bool, False, cuda), mesh)
+    t = torch.tensor(t, dtype=torch.int32, device=cuda)
+    a, b = _copy_meshed(cal), _copy_meshed(cal)
+    before = ct.pop_bucket_sharded.launches
+    _, ra, pa = ct.pop_bucket_sharded(a, t)
+    _, rb, pb = ct.pop_bucket_sharded_plain(b, t)
+    torch.cuda.synchronize()
+    assert ct.pop_bucket_sharded.launches == before + len(mesh.parts)
+    for x, y in zip([ra, *pa, *_global_planes(a)], [rb, *pb, *_global_planes(b)]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", ["sustained", "flood", "storm"])
+def test_gpu_meshed_run_matches_cpu_runs(cuda, name):
+    """A 4-shard virtual mesh on card 0 against the same mesh on the CPU and
+    the unmeshed CPU run: every carry leaf; the sharded kernels launched
+    and the unsharded ones not."""
+    from testground_tpu_torch.sim.meshplan import make_mesh
+
+    plan, case, params, kw = GPU_RUNS[name]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    groups = build_groups([RunGroup(id="all", instances=64, parameters=params)])
+    out = []
+    for device, mesh in (("cpu", None), ("cpu", make_mesh("4", device="cpu")),
+                         (None, _virtual_mesh(4))):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, mesh=mesh, **kw)
+        before = (ct.commit_calendar.launches, ct.pop_bucket.launches,
+                  ct.pop_bucket_sharded.launches)
+        last = {}
+        res = prog.run(seed=1, max_ticks=256,
+                       observer=lambda k, c: last.__setitem__("c", carry_to_numpy(c)))
+        after = (ct.commit_calendar.launches, ct.pop_bucket.launches,
+                 ct.pop_bucket_sharded.launches)
+        out.append((res, last["c"]))
+    assert after[:2] == before[:2] and after[2] > before[2]
+    (ru, cu), (rm, cm), (rg, cg) = out
+    assert (ru["status"] == 1).all()
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "carry_bytes"):
+        assert ru[k] == rm[k] == rg[k], k
+    for k in cu:
+        np.testing.assert_array_equal(cm[k], cu[k], err_msg=k)
+        np.testing.assert_array_equal(cg[k], cu[k], err_msg=k)

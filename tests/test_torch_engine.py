@@ -250,7 +250,6 @@ def _groups(n=4):
 @pytest.mark.parametrize(
     "tc,kw,item",
     [
-        (papi.SimTestcase, {"mesh": object()}, "item 15"),
         (papi.SimTestcase, {"live_counts": (4,)}, "item 13"),
     ],
 )

@@ -292,10 +292,10 @@ REFUSED = {
     "pack": (True, "item 13"),
     "checkpoint_chunks": (2, "item 13"),
     "resume_from": ("earlier-run", "item 13"),
-    "mesh": ("4", "item 15"),
-    "coordinator_address": ("localhost:1234", "item 15"),
-    "num_processes": (2, "item 15"),
-    "process_id": (1, "item 15"),
+    "mesh": ("2x4", "item 13"),
+    "coordinator_address": ("localhost:1234", "item 15b"),
+    "num_processes": (2, "item 15b"),
+    "process_id": (1, "item 15b"),
     "profile": (True, "item 14"),
     "profile_chunks": (4, "item 14"),
     "phases": (True, "item 14"),

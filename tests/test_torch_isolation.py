@@ -59,7 +59,7 @@ def test_the_scan_sees_the_whole_port():
                  "testground_tpu_torch/sim/faults.py",
                  *(f"testground_tpu_torch/sim/{m}.py"
                    for m in ("telemetry", "netmatrix", "trace", "executor", "slo",
-                             "check")),
+                             "check", "meshplan")),
                  *(f"testground_tpu_torch/{m}.py"
                    for m in ("api/run_input", "engine/task", "runners/result",
                              "runners/outputs", "rpc/writer")),
@@ -100,22 +100,38 @@ def _kernel_sentinel():
     raise _KernelReached
 
 
-@pytest.mark.parametrize("which", ["commit", "pop"])
+def _launches():
+    return (ct.commit_calendar.launches, ct.pop_bucket.launches,
+            ct.commit_calendar_sharded.launches, ct.pop_bucket_sharded.launches)
+
+
+@pytest.mark.parametrize("which", ["commit", "pop", "commit-sharded", "pop-sharded"])
 def test_cuda_tensor_goes_to_the_kernel_never_the_plain_version(monkeypatch, which):
-    monkeypatch.setattr(ct, "commit_calendar_plain", _no_plain)
-    monkeypatch.setattr(ct, "pop_bucket_plain", _no_plain)
+    for plain in ("commit_calendar_plain", "pop_bucket_plain",
+                  "commit_calendar_sharded_plain", "pop_bucket_sharded_plain"):
+        monkeypatch.setattr(ct, plain, _no_plain)
     monkeypatch.setattr(ct, "_lib", _kernel_sentinel)
-    before = (ct.commit_calendar.launches, ct.pop_bucket.launches)
+    before = _launches()
     with FakeTensorMode():
         cal = _cal("cuda")
+        if which.endswith("sharded"):
+            # a virtual 4-shard mesh on card 0
+            from testground_tpu_torch.sim.meshplan import make_mesh
+
+            mesh = make_mesh("4", devices=[torch.device("cuda", 0)] * 4)
+            cal = pnet.Calendar.empty(4, 8, 2, 1, device="cuda", mesh=mesh)
         t = torch.zeros((), dtype=torch.int32, device="cuda")
         sk = torch.zeros(5, dtype=torch.int32, device="cuda")
         with pytest.raises(_KernelReached):
             if which == "commit":
                 ct.commit_calendar(cal, sk, sk.clone(), [sk.clone()], t)
-            else:
+            elif which == "pop":
                 ct.pop_bucket(cal, t)
-    assert (ct.commit_calendar.launches, ct.pop_bucket.launches) == before
+            elif which == "commit-sharded":
+                ct.commit_calendar_sharded(cal, sk, sk.clone(), [sk.clone()], t)
+            else:
+                ct.pop_bucket_sharded(cal, t)
+    assert _launches() == before
 
 
 def test_cuda_tensor_without_a_toolkit_raises(monkeypatch):

@@ -111,11 +111,15 @@ def _layout(n):
 
 
 def programs(name, telemetry=False, netmatrix=False, trace=False, transport="xla",
-             chunk=None):
+             chunk=None, shards=None):
     """The JAX package's program and the port's for one workload, with the
     planes asked for (``trace=True`` lowers the workload's trace tables
-    with each package's own ``build_trace_plan``)."""
-    plan, case, n, params, _, wchunk, opts, tables = WORKLOADS[name]
+    with each package's own ``build_trace_plan``); ``shards`` runs both on
+    a mesh of that many peer shards (the JAX package's virtual CPU
+    devices, the port's virtual CPU mesh). ``name`` may also be a
+    workload tuple of the :data:`WORKLOADS` form."""
+    spec = WORKLOADS[name] if isinstance(name, str) else name
+    plan, case, n, params, _, wchunk, opts, tables = spec
     layout = _layout(n)
     jg = jbuild([JRunGroup(id=i, instances=c, parameters=dict(params)) for i, c in layout])
     pg = build_groups([RunGroup(id=i, instances=c, parameters=dict(params))
@@ -126,6 +130,12 @@ def programs(name, telemetry=False, netmatrix=False, trace=False, transport="xla
     kw = dict(test_plan=plan or "inline", test_case=case, tick_ms=1.0,
               chunk=chunk or wchunk, hosts=opts.get("hosts", ()), telemetry=telemetry,
               netmatrix=netmatrix)
+    jmesh = pmesh = None
+    if shards:
+        from testground_tpu.sim.meshplan import make_mesh as jmake_mesh
+        from testground_tpu_torch.sim.meshplan import make_mesh
+
+        jmesh, pmesh = jmake_mesh(str(shards)), make_mesh(str(shards), device="cpu")
     if plan is None:
         jtc, ptc = INLINE[case][0]()(), INLINE[case][1]()()
     else:
@@ -133,9 +143,10 @@ def programs(name, telemetry=False, netmatrix=False, trace=False, transport="xla
         ptc = instantiate_testcase(load_sim_testcases(plan_dir(plan))[case], pg, 1.0)
     jprog = JSimProgram(jtc, jg, faults=jfaults(jg, faults, 1.0) if faults else None,
                         trace=jtrace(jg, tables) if trace else None, transport=transport,
-                        **kw)
+                        mesh=jmesh, **kw)
     pprog = SimProgram(ptc, pg, faults=pfaults(pg, faults, 1.0) if faults else None,
-                       trace=ptrace(pg, tables) if trace else None, device="cpu", **kw)
+                       trace=ptrace(pg, tables) if trace else None, device="cpu",
+                       mesh=pmesh, **kw)
     return jprog, pprog
 
 
