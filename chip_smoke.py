@@ -24,11 +24,17 @@ and drives the port's main path through the library entry points
               matrix); the sharded K1 and K2 on virtual meshes on card 0
               (the flagship at S=4 and S=8, ping-pong, storm, etick, a
               stream wholly in one shard, an empty shard, W=8, runs
-              straddling a tile, fan-in, pops with n_loc % 4 != 0, and
+              straddling a tile, fan-in, pops with n_loc % 4 != 0, bool
+              pops in 4-byte words and 16-byte vectors, segments of many
+              chunks, 65,600 segments, SLOTS past the grid's y limit, and
               the shards held in two tensors); kernel, plain and library
               times (CUDA events, median of 25 after warm-up), the
               events' floor (an empty kernel timed the same way) and the
-              memory bound at 3.35 TB/s
+              memory bound at 3.35 TB/s. Last of all, after every
+              wall-clocked phase, the kernel's and the library call's own
+              device time (``torch.profiler`` over 25 calls), the
+              floor's, and the share of the bound the kernel's device
+              time reaches
 4. sustained — network:pingpong-sustained at 100k instances, 500 ticks
               (reshape every 250, chunk 250): all SUCCESS, both kernels
               launched, flow conservation exact; peer·ticks/s and
@@ -42,7 +48,8 @@ and drives the port's main path through the library entry points
               message stream a tick through K1 at SLOTS=16; bytes read > 0
 8. benchmarks — barrier, netinit, netlinkshape, subtree and startup at
               100k instances, each to all SUCCESS
-9. scale    — pingpong-sustained at 1M instances for 64 ticks
+9. scale    — pingpong-sustained at 1M instances for 64 ticks, and the
+              run's peak device bytes over what was allocated before it
 10. faults  — sustained@100k at phase 4's parameters, 500 ticks, under a
               fault schedule of every kind (crash and restart of 10k
               instances, a link flap, a partition into halves, a latency
@@ -93,7 +100,8 @@ and drives the port's main path through the library entry points
               GPU and each against its unmeshed twin
 
 Each phase prints one JSON line (the main-path phases with their
-wall seconds). Then the card's ``name, power.limit``
+wall seconds; the kernel cases after the last phase, with their device
+times). Then the card's ``name, power.limit``
 line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 ...}``. Any failure raises, so the script exits non-zero and prints no
 result. It imports nothing of JAX.
@@ -197,6 +205,109 @@ def time_ms(fn, restore, reps: int = 25, warm: int = 3) -> float:
         if i >= warm:
             times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# the transport kernels' names as the profiler reports them
+TRANSPORT_KERNELS = ("commit_k", "pop_vec_k", "pop_scalar_k", "pop_shard_")
+
+
+def _device_rows(prof) -> list:
+    """``(name, self device µs, count)`` of the profiler's device-side
+    events (kernels, memcpy/memset): a CPU op's self device time would
+    count its kernels a second time."""
+    def dev_us(e):
+        v = getattr(e, "self_device_time_total", None)
+        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
+
+    return [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+
+
+def device_events(fn, restore=lambda: None, reps: int = 25, warm: int = 3,
+                  tries: int = 3, want=None) -> tuple:
+    """``({name: [device µs, events kept, most events one window kept]},
+    windows)`` of the device events of ``fn``, from ``torch.profiler``'s
+    self device time over up to ``tries`` windows of ``reps`` calls,
+    ``restore`` before each call inside the window, each window opened by
+    a warm-up step of ``warm`` calls whose events are dropped. No spin kernel and no CUDA
+    events: the profiler reads each kernel's own start and end. The
+    profiler keeps a varying share of a short window's events (on the H100
+    anywhere from all to none, more often after earlier sessions), so a
+    reading pools every kept event; ``want`` = (name prefixes, events a
+    call) stops the tries once one window kept all of those."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def calls(n):
+        for _ in range(n):
+            restore()
+            fn()
+        torch.cuda.synchronize()
+
+    got: dict = {}
+    for windows in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            calls(warm)
+            prof.step()
+            calls(reps)
+            prof.step()
+        for name, us, n in _device_rows(prof):
+            g = got.setdefault(name, [0.0, 0, 0])
+            g[0], g[1], g[2] = g[0] + us, g[1] + n, max(g[2], n)
+        if want and sum(g[2] for k, g in got.items()
+                        if k.startswith(want[0])) >= want[1] * reps:
+            break
+    return got, windows
+
+
+def per_call_ms(got, reps: int = 25):
+    """Device ms a call of the events in ``got``: each name's mean an
+    event times its events a call (the most one window kept, rounded up);
+    None where nothing was kept."""
+    ms = sum(us / n * -(-most // reps) for us, n, most in got.values() if n) / 1e3
+    return ms or None
+
+
+def _launches_of(fn, restore) -> int:
+    """Kernel launches one call of ``fn`` makes, by the wrappers' counts."""
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    def count():
+        return sum(getattr(ct, k).launches for k in KERNELS + SHARDED_KERNELS)
+
+    restore()
+    before = count()
+    fn()
+    return count() - before
+
+
+def device_pass(rows) -> float | None:
+    """Each kernel case's device times, after every wall-clocked phase (a
+    profiler session slows every later launch on the host):
+    ``kernel_device_ms``, the kernel's own events a call (their mean a
+    launch times the launches a call the wrappers count;
+    ``kernel_device_kept``, the share of its launches the profiler kept);
+    ``library_device_ms``, the device events of a call of the library
+    window less those of a window of ``restore`` alone; and
+    ``bound_share`` = bound ÷ kernel device time. Returns the launch
+    floor's device time (an empty kernel, the same reps)."""
+    for r in rows:
+        fn, restore, library = r.pop("_timed")
+        per_call = _launches_of(fn, restore)
+        got, windows = device_events(fn, restore, want=(TRANSPORT_KERNELS, per_call))
+        got = [g for k, g in got.items() if k.startswith(TRANSPORT_KERNELS)]
+        us, kept = sum(g[0] for g in got), sum(g[1] for g in got)
+        r["kernel_device_ms"] = us / kept * per_call / 1e3 if kept else None
+        r["kernel_device_kept"] = kept / (per_call * 25 * windows) if per_call else None
+        r["bound_share"] = (r["bound_ms"] / r["kernel_device_ms"]
+                            if r["kernel_device_ms"] else None)
+        r["library_device_ms"] = None
+        if library is not None:
+            lib = per_call_ms(device_events(library, restore)[0])
+            alone = per_call_ms(device_events(lambda: None, restore)[0])
+            if lib is not None:
+                r["library_device_ms"] = lib - (alone or 0.0)
+    return per_call_ms(device_events(lambda: torch.cuda._sleep(0))[0])
 
 
 # ------------------------------------------------------------ kernels
@@ -371,10 +482,10 @@ def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed,
         for dst, src in zip(_planes(work), _planes(cal0)):
             dst.copy_(src)
 
-    kernel_ms = time_ms(
-        lambda: ct.commit_calendar(work, sk, occ_vals, pay, t, stacking=stacking),
-        restore,
-    )
+    def kernel():
+        ct.commit_calendar(work, sk, occ_vals, pay, t, stacking=stacking)
+
+    kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(
         lambda: ct.commit_calendar_plain(work, sk, occ_vals, pay, t, stacking=stacking),
         restore,
@@ -401,6 +512,7 @@ def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed,
         "library_ms": None,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
         "bound_bytes": nbytes,
+        "_timed": (kernel, restore, None),
     }
 
 
@@ -433,7 +545,10 @@ def pop_case(label, L, N, slots, W, occ_bool, seed):
             torch.index_select(p, 0, bidx)
         work.occupancy_plane.index_fill_(0, bidx, 0)
 
-    kernel_ms = time_ms(lambda: ct.pop_bucket(work, t), restore)
+    def kernel():
+        ct.pop_bucket(work, t)
+
+    kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(lambda: ct.pop_bucket_plain(work, t), restore)
     library_ms = time_ms(library, restore)
     ns = N * slots
@@ -449,6 +564,7 @@ def pop_case(label, L, N, slots, W, occ_bool, seed):
         "library_ms": library_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
         "bound_bytes": nbytes,
+        "_timed": (kernel, restore, library),
     }
 
 
@@ -494,8 +610,10 @@ def sharded_commit_case(label, S, L, N, slots, W, m2, occ_bool, stacking, etick,
         for d_, s_ in zip(_planes(work), _planes(cal0)):
             d_.copy_(s_)
 
-    kernel_ms = time_ms(lambda: ct.commit_calendar_sharded(
-        work, sk, occ_vals, pay, t, stacking=stacking), restore)
+    def kernel():
+        ct.commit_calendar_sharded(work, sk, occ_vals, pay, t, stacking=stacking)
+
+    kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(lambda: ct.commit_calendar_sharded_plain(
         work, sk, occ_vals, pay, t, stacking=stacking), restore)
     live = keys < L * N
@@ -512,6 +630,7 @@ def sharded_commit_case(label, S, L, N, slots, W, m2, occ_bool, stacking, etick,
         "survivors": survivors, "max_abs_err": err,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+        "_timed": (kernel, restore, None),
     }
 
 
@@ -556,7 +675,10 @@ def sharded_pop_case(label, S, L, N, slots, W, occ_bool, seed, parts=None):
         for part in occw:
             part.index_fill_(1, bidx, 0)
 
-    kernel_ms = time_ms(lambda: ct.pop_bucket_sharded(work, t), restore)
+    def kernel():
+        ct.pop_bucket_sharded(work, t)
+
+    kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(lambda: ct.pop_bucket_sharded_plain(work, t), restore)
     library_ms = time_ms(library, restore)
     ns = N * slots
@@ -569,6 +691,7 @@ def sharded_pop_case(label, S, L, N, slots, W, occ_bool, seed, parts=None):
         "max_abs_err": err, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
         "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_bytes": nbytes,
+        "_timed": (kernel, restore, library),
     }
 
 
@@ -749,16 +872,7 @@ def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
                  observer=lambda k, c: last.__setitem__("t", int(c.t)))
         torch.cuda.synchronize()
     ticks = last["t"]
-
-    def dev_us(e):
-        v = getattr(e, "self_device_time_total", None)
-        return v if v is not None else getattr(e, "self_cuda_time_total", 0)
-
-    # device-side events only (kernels, memcpy/memset): a CPU op's self
-    # device time would count its kernels a second time
-    rows = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    rows = [r for r in rows if r[1] > 0]
+    rows = [r for r in _device_rows(prof) if r[1] > 0]
     total_ms = sum(r[1] for r in rows) / 1e3 / ticks
     top = sorted(rows, key=lambda r: -r[1])[:10]
     return {
@@ -769,8 +883,7 @@ def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
         "top_device_ms_per_tick": {k[:60]: us / 1e3 / ticks for k, us, _ in top},
         # the transport kernels' own device time per launch on this path
         "transport_kernel_ms": {k.split("(")[0]: us / 1e3 / calls for k, us, calls in rows
-                                if k.startswith(("commit_k", "pop_vec_k", "pop_scalar_k",
-                                                 "pop_shard_"))},
+                                if k.startswith(TRANSPORT_KERNELS)},
     }
 
 
@@ -869,6 +982,8 @@ def phase_benchmarks(card) -> dict:
 def phase_scale(card) -> dict:
     n = 1_000_000
     prog = program("pingpong-sustained", n, {"duration_ticks": "10000"}, chunk=64)
+    # the run's own peak: the kernel cases stay allocated until the device pass
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     res, wall, ticks, _ = run_timed(prog, max_ticks=64)
     launches = read_launches()
@@ -877,7 +992,7 @@ def phase_scale(card) -> dict:
     return {
         "phase": "scale", "n": n, "ticks": ticks, "wall_s": wall,
         "peer_ticks_per_s": n * ticks / wall, "launches": launches,
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated() - held,
         "card": card,
     }
 
@@ -1798,13 +1913,23 @@ def main(argv=None) -> int:
             sharded_pop_case("n_loc-odd-bool", 4, 16, 4 * 1023, 4, 1, True, 58),
             sharded_pop_case("n_loc-6-bool", 4, 16, 24, 2, 1, True, 59),
             sharded_pop_case("parts-1+3", 4, 8, N, 4, 1, False, 60, parts=(1,)),
+            # each branch of the segment-copy design: bool occupancy in
+            # 4-byte words (n_loc % 8 != 0) and in 16-byte vectors,
+            # segments of many chunks with a ragged last one, S_d·SLOTS =
+            # 65,600 segments, SLOTS past the grid's 65,535 folded into x
+            # (vector and scalar), W=8 vectors
+            sharded_pop_case("bool-words", 4, 16, 4 * 1004, 4, 2, True, 61),
+            sharded_pop_case("bool-16", 4, 16, 4 * 1024, 4, 2, True, 62),
+            sharded_pop_case("long-segment", 2, 8, 2 * 10_000, 4, 3, False, 63),
+            sharded_pop_case("many-segments", 4, 2, 16, 16_400, 1, False, 64),
+            sharded_pop_case("y-fold", 2, 2, 8, 65_540, 1, False, 65),
+            sharded_pop_case("y-fold-scalar", 2, 2, 6, 65_540, 2, True, 66),
+            sharded_pop_case("width-8-bool-16", 4, 16, 4 * 1024, 4, 8, True, 67),
         ]
-        for c in cases:
-            emit({"phase": "kernels", **c, "card": card})
         # the harness's own floor: an empty kernel timed the same way
-        emit({"phase": "kernels", "case": "launch-floor",
-              "kernel_ms": time_ms(lambda: torch.cuda._sleep(0), lambda: None),
-              "phase_s": time.perf_counter() - t0, "card": card})
+        floor = {"phase": "kernels", "case": "launch-floor",
+                 "kernel_ms": time_ms(lambda: torch.cuda._sleep(0), lambda: None),
+                 "phase_s": time.perf_counter() - t0, "card": card}
         kernel_rows = cases
 
     # launches on the main paths: each phase counts its own run from zero
@@ -1827,6 +1952,14 @@ def main(argv=None) -> int:
         row = phase_parity(card)
         row["phase_s"] = time.perf_counter() - t0
         emit(row)
+    if kernel_rows:
+        # the kernels' own device times, last: see device_pass
+        t0 = time.perf_counter()
+        floor["device_ms"] = device_pass(kernel_rows)
+        floor["device_pass_s"] = time.perf_counter() - t0
+        for c in kernel_rows:
+            emit({"phase": "kernels", **c, "card": card})
+        emit(floor)
 
     def kernel_entry(kname, replaces):
         # the flagship row of each kernel (its sharded form at S=4)
@@ -1838,8 +1971,9 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": max((r["max_abs_err"] for r in kernel_rows
                                 if r["kernel"] == kname), default=None),
-            "ms": c.get("kernel_ms"), "plain_ms": c.get("plain_ms"),
-            "bound_ms": c.get("bound_ms"), "bound_by": "bytes",
+            "ms": c.get("kernel_ms"), "device_ms": c.get("kernel_device_ms"),
+            "plain_ms": c.get("plain_ms"), "bound_ms": c.get("bound_ms"),
+            "bound_share": c.get("bound_share"), "bound_by": "bytes",
             "library_ms": c.get("library_ms"),
         }
 

@@ -84,10 +84,34 @@
 //    out_col0 + (s - s0)*n_loc + l of the output row: the global
 //    slot-major [SLOTS*N] row (out_stride = N, out_col0 = s0*n_loc), or a
 //    device-local [SLOTS, S_d*n_loc] row that the wrapper copies home. The
-//    occupancy row is cleared in the same pass. Bound: memory, as K2.
-//    Where n_loc % 4 == 0 every thread moves 4 cells at a time (16 bytes
-//    of an int32 plane, 4 of a bool plane): 4 cells never straddle a
-//    (shard, slot) segment. Otherwise the scalar kernel moves one cell.
+//    occupancy row is cleared in the same pass.
+//
+//    Bound: memory, as K2 (the same bytes: every popped row read once and
+//    written once, the occupancy row cleared).
+//
+//    Design: a batch of equal segment copies. For one shard and slot, a
+//    plane's popped cells are one run of n_loc cells at the source and one
+//    at the destination, so the pop is S_d*SLOTS segments of every plane.
+//    The wrapper computes their geometry (the length and the strides
+//    between segments at both ends: cuda_transport.pop_segments). The
+//    grid is 3-D, chunks of a segment x SLOTS x S_d, so a block reads its
+//    segment off blockIdx with no division (SLOTS past the grid's 65,535
+//    folds into x, with one division a block): a flattened segment index,
+//    split by divisions in every block, measured slower at every shape.
+//    Every thread reads t itself (one transaction a warp, no barrier).
+//    A block moves one chunk of every plane as K2 moves a row: the
+//    chunk's 16-byte vectors of all planes form one list, each thread
+//    issues its kPopUnroll loads (__ldg on the payload) before any store,
+//    and occupancy items are zeroed as they are read. A chunk holds 2^k
+//    payload vectors a plane, k the largest that keeps the list within
+//    one pass of the block, so the list splits by shifts. Bool occupancy
+//    moves 16, 8 or 4 cells an item, the most that every segment base
+//    allows (n_loc % 16, % 8, % 4 == 0: at N=100k on 4 shards, 8). Where
+//    n_loc % 4 != 0 the scalar kernel walks the same grid, each thread
+//    loading its cell of every plane before it stores. What stays slower
+//    than K2 at the same bytes: an [S_d*L]-row plane holds one popped
+//    row in S_d places, and a segment shorter than a chunk leaves most of
+//    its block idle (one block a segment at the least).
 //
 // Plain C interface (loaded with ctypes): every entry point enqueues on
 // the caller's stream, never synchronises, allocates nothing, and returns
@@ -477,133 +501,243 @@ extern "C" int tg_pop_bucket(void* occ, int occ_bool, const void* pay_ptrs,
 
 // ------------------------------------------------------------ K2 sharded
 
-struct PopShardArgs {
-  void* occ;                        // [S_d, L, SLOTS*n_loc], read and cleared
+static constexpr int kMaxGrid = 65535;  // gridDim.y and gridDim.z
+
+struct PopSegArgs {
+  void* occ;  // the device's [S_d*L, SLOTS*n_loc] plane, read and cleared
   const int32_t* pay[TG_MAX_WIDTH];
-  void* row_occ;                    // output rows
+  void* row_occ;  // output rows
   int32_t* row_pay[TG_MAX_WIDTH];
+  // the segment of shard s and slot `slot` starts at cell
+  //   s*src_shard + slot*src_slot + b*src_row   of each plane and at
+  //   dst0 + s*dst_shard + slot*dst_slot        of each output row
+  long long src_shard, src_slot, src_row, dst_shard, dst_slot, dst0;
+  int seg_len, slots;
+  int chunks;  // blocks along one segment
+  int fold;    // slots a grid row holds: 1 unless SLOTS passes kMaxGrid
 };
 
-// cell c of the device's popped [S_d, SLOTS*n_loc] rows: its offset in the
-// planes (row b of its shard) and in the output row
-struct ShardCell {
-  size_t src;
-  size_t dst;
+struct SegChunk {
+  size_t src, dst;  // the chunk's first cell in the planes and the rows
+  int len;          // its cells
+  int slot;         // >= slots in the folded grid's last row: no work
 };
 
-__device__ __forceinline__ ShardCell shard_cell(size_t c, unsigned b,
-                                                unsigned horizon,
-                                                unsigned row_cells,
-                                                unsigned n_loc,
-                                                size_t out_stride,
-                                                size_t out_col0) {
-  const size_t s = c / row_cells;
-  const size_t r = c - s * row_cells;
-  const size_t slot = r / n_loc;
-  const size_t l = r - slot * n_loc;
-  return {(s * horizon + b) * row_cells + r,
-          slot * out_stride + out_col0 + s * n_loc + l};
+// the block's chunk: shard blockIdx.z, slot blockIdx.y, chunk blockIdx.x
+// (a division only where SLOTS was folded into x); everything but the
+// bucket row, so that it overlaps the read of t
+__device__ __forceinline__ SegChunk seg_chunk(const PopSegArgs& a,
+                                              int chunk_cells) {
+  int slot = blockIdx.y;
+  int chunk = blockIdx.x;
+  if (a.fold > 1) {
+    const int q = blockIdx.x / a.chunks;
+    slot = blockIdx.y * a.fold + q;
+    chunk = blockIdx.x - q * a.chunks;
+  }
+  const int c0 = chunk * chunk_cells;
+  const size_t s = blockIdx.z;
+  return {s * a.src_shard + (size_t)slot * a.src_slot + c0,
+          a.dst0 + s * a.dst_shard + (size_t)slot * a.dst_slot + c0,
+          min(chunk_cells, a.seg_len - c0), slot};
 }
 
+// b = t mod L (floor), read by every thread: one transaction a warp and
+// no barrier
+__device__ __forceinline__ size_t bucket_of(const int32_t* t_dev,
+                                            int horizon) {
+  const int r = *t_dev % horizon;
+  return (size_t)(r < 0 ? r + horizon : r);
+}
+
+// occupancy items: 2^occ_shift cells of cell_bytes each, so 16 bytes for
+// int32 (shift 2) and 16, 8 or 4 bytes for bool (shift 4, 3 or 2)
 __global__ void __launch_bounds__(kPopThreads)
-    pop_shard_vec_k(const __grid_constant__ PopShardArgs a,
+    pop_shard_vec_k(const __grid_constant__ PopSegArgs a,
                     const int32_t* __restrict__ t_dev, int horizon,
-                    int occ_bool, unsigned units, unsigned width,
-                    unsigned row_cells, unsigned n_loc, size_t out_stride,
-                    size_t out_col0) {
-  const unsigned b = (unsigned)bucket_row(t_dev, horizon);
-  const size_t total = (size_t)units * (1 + width);
-  for (size_t i = (size_t)blockIdx.x * kPopThreads + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * kPopThreads) {
-    const unsigned k = (unsigned)(i / units);
-    const size_t u = i - (size_t)k * units;
-    const ShardCell x = shard_cell(4 * u, b, (unsigned)horizon, row_cells,
-                                   n_loc, out_stride, out_col0);
-    if (k == 0) {
-      if (occ_bool) {
-        uint32_t* o = (uint32_t*)((uint8_t*)a.occ + x.src);
-        *(uint32_t*)((uint8_t*)a.row_occ + x.dst) = *o;
-        *o = 0u;
-      } else {
-        int4* o = (int4*)((int32_t*)a.occ + x.src);
-        *(int4*)((int32_t*)a.row_occ + x.dst) = *o;
-        *o = make_int4(0, 0, 0, 0);
+                    int cell_bytes, int occ_shift, int width, int log_p) {
+  const int chunk_cells = 4 << log_p;
+  SegChunk x = seg_chunk(a, chunk_cells);
+  if (x.slot >= a.slots) return;
+  const size_t row = bucket_of(t_dev, horizon) * (size_t)a.src_row;
+  x.src += row;
+  // the list: the chunk's occupancy items, then 2^log_p vectors a plane
+  const int occ_items = chunk_cells >> occ_shift;
+  const int occ_valid = x.len >> occ_shift;
+  const int pay_valid = x.len >> 2;
+  const int items = occ_items + (width << log_p);
+  const int item_bytes = cell_bytes << occ_shift;
+  char* occ = (char*)a.occ + x.src * cell_bytes;
+  char* row_occ = (char*)a.row_occ + x.dst * cell_bytes;
+  const int mask = (1 << log_p) - 1;
+  for (int base = threadIdx.x; base < items;
+       base += kPopThreads * kPopUnroll) {
+    int4 v[kPopUnroll];
+    int plane[kPopUnroll];
+    int off[kPopUnroll];
+#pragma unroll
+    for (int k = 0; k < kPopUnroll; ++k) {
+      const int i = base + k * kPopThreads;
+      plane[k] = -1;
+      if (i < occ_items) {
+        if (i < occ_valid) {
+          plane[k] = 0;
+          off[k] = i * item_bytes;
+          if (item_bytes == 16) {
+            v[k] = *(const int4*)(occ + off[k]);
+          } else if (item_bytes == 8) {
+            const int2 w = *(const int2*)(occ + off[k]);
+            v[k].x = w.x;
+            v[k].y = w.y;
+          } else {
+            v[k].x = *(const int32_t*)(occ + off[k]);
+          }
+        }
+      } else if (i < items) {
+        const int j = i - occ_items;
+        if ((j & mask) < pay_valid) {
+          plane[k] = 1 + (j >> log_p);
+          off[k] = j & mask;
+          v[k] = __ldg((const int4*)(a.pay[plane[k] - 1] + x.src) + off[k]);
+        }
       }
-    } else {
-      *(int4*)(a.row_pay[k - 1] + x.dst) =
-          __ldg((const int4*)(a.pay[k - 1] + x.src));
+    }
+#pragma unroll
+    for (int k = 0; k < kPopUnroll; ++k) {
+      if (plane[k] < 0) continue;
+      if (plane[k] > 0) {
+        ((int4*)(a.row_pay[plane[k] - 1] + x.dst))[off[k]] = v[k];
+      } else if (item_bytes == 16) {
+        *(int4*)(row_occ + off[k]) = v[k];
+        *(int4*)(occ + off[k]) = make_int4(0, 0, 0, 0);
+      } else if (item_bytes == 8) {
+        *(int2*)(row_occ + off[k]) = make_int2(v[k].x, v[k].y);
+        *(int2*)(occ + off[k]) = make_int2(0, 0);
+      } else {
+        *(int32_t*)(row_occ + off[k]) = v[k].x;
+        *(int32_t*)(occ + off[k]) = 0;
+      }
     }
   }
 }
 
 __global__ void __launch_bounds__(kPopThreads)
-    pop_shard_scalar_k(const __grid_constant__ PopShardArgs a,
+    pop_shard_scalar_k(const __grid_constant__ PopSegArgs a,
                        const int32_t* __restrict__ t_dev, int horizon,
-                       int occ_bool, unsigned cells, unsigned width,
-                       unsigned row_cells, unsigned n_loc, size_t out_stride,
-                       size_t out_col0) {
-  const unsigned b = (unsigned)bucket_row(t_dev, horizon);
-  for (size_t c = (size_t)blockIdx.x * kPopThreads + threadIdx.x; c < cells;
-       c += (size_t)gridDim.x * kPopThreads) {
-    const ShardCell x = shard_cell(c, b, (unsigned)horizon, row_cells, n_loc,
-                                   out_stride, out_col0);
-    if (occ_bool) {
-      uint8_t* o = (uint8_t*)a.occ + x.src;
-      ((uint8_t*)a.row_occ)[x.dst] = *o;
-      *o = 0;
-    } else {
-      int32_t* o = (int32_t*)a.occ + x.src;
-      ((int32_t*)a.row_occ)[x.dst] = *o;
-      *o = 0;
+                       int occ_bool, int width) {
+  constexpr int kChunk = kPopThreads * kPopUnroll;
+  SegChunk x = seg_chunk(a, kChunk);
+  if (x.slot >= a.slots) return;
+  x.src += bucket_of(t_dev, horizon) * (size_t)a.src_row;
+  int32_t v[kPopUnroll][1 + TG_MAX_WIDTH];
+#pragma unroll
+  for (int k = 0; k < kPopUnroll; ++k) {
+    const size_t c = threadIdx.x + k * kPopThreads;
+    if (c >= (size_t)x.len) continue;
+    v[k][0] = occ_bool ? ((const uint8_t*)a.occ)[x.src + c]
+                       : ((const int32_t*)a.occ)[x.src + c];
+#pragma unroll
+    for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+      if (w < width) v[k][1 + w] = __ldg(a.pay[w] + x.src + c);
     }
-    for (unsigned w = 0; w < width; ++w) {
-      a.row_pay[w][x.dst] = a.pay[w][x.src];
+  }
+#pragma unroll
+  for (int k = 0; k < kPopUnroll; ++k) {
+    const size_t c = threadIdx.x + k * kPopThreads;
+    if (c >= (size_t)x.len) continue;
+    if (occ_bool) {
+      ((uint8_t*)a.row_occ)[x.dst + c] = (uint8_t)v[k][0];
+      ((uint8_t*)a.occ)[x.src + c] = 0;
+    } else {
+      ((int32_t*)a.row_occ)[x.dst + c] = v[k][0];
+      ((int32_t*)a.occ)[x.src + c] = 0;
+    }
+#pragma unroll
+    for (int w = 0; w < TG_MAX_WIDTH; ++w) {
+      if (w < width) a.row_pay[w][x.dst + c] = v[k][1 + w];
     }
   }
 }
 
-extern "C" int tg_pop_bucket_sharded(void* occ, int occ_bool,
-                                     const void* pay_ptrs, int width,
-                                     const void* t_dev, int horizon,
-                                     int shards, int slots, int n_loc,
-                                     void* row_occ, const void* row_pay_ptrs,
-                                     long long out_stride,
-                                     long long out_col0, void* stream) {
-  const long long row_cells = (long long)slots * n_loc;
-  const long long cells = (long long)shards * row_cells;
+static bool aligned(const void* p, int bytes) {
+  return ((uintptr_t)p & (bytes - 1)) == 0;
+}
+
+// the segments' geometry comes from the wrapper (PopSegments): shards x
+// slots segments of seg_len cells, strides in cells
+extern "C" int tg_pop_bucket_sharded(
+    void* occ, int occ_bool, const void* pay_ptrs, int width,
+    const void* t_dev, int horizon, int shards, int slots, int seg_len,
+    long long src_shard, long long src_slot, long long src_row,
+    long long dst_shard, long long dst_slot, long long dst0, void* row_occ,
+    const void* row_pay_ptrs, void* stream) {
   if (width < 0 || width > TG_MAX_WIDTH || horizon < 1 || shards < 1 ||
-      slots < 1 || n_loc < 1 || out_stride < 1 || out_col0 < 0 ||
-      cells * horizon >= (1LL << 31)) {
+      shards > kMaxGrid || slots < 1 || seg_len < 1 || src_shard < 0 ||
+      src_slot < 0 || src_row < 0 || dst_shard < 0 || dst_slot < 0 ||
+      dst0 < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  PopShardArgs a;
+  PopSegArgs a;
   a.occ = occ;
   a.row_occ = row_occ;
+  a.src_shard = src_shard;
+  a.src_slot = src_slot;
+  a.src_row = src_row;
+  a.dst_shard = dst_shard;
+  a.dst_slot = dst_slot;
+  a.dst0 = dst0;
+  a.seg_len = seg_len;
+  a.slots = slots;
   const void* const* pp = (const void* const*)pay_ptrs;
   const void* const* rp = (const void* const*)row_pay_ptrs;
-  bool vec = n_loc % 4 == 0 && out_stride % 4 == 0 && out_col0 % 4 == 0 &&
-             aligned16(occ) && aligned16(row_occ);
+  bool pay16 = true;
   for (int w = 0; w < TG_MAX_WIDTH; ++w) {
     a.pay[w] = w < width ? (const int32_t*)pp[w] : nullptr;
     a.row_pay[w] = w < width ? (int32_t*)rp[w] : nullptr;
-    if (w < width) vec = vec && aligned16(pp[w]) && aligned16(rp[w]);
+    if (w < width) pay16 = pay16 && aligned(pp[w], 16) && aligned(rp[w], 16);
   }
-  const long long items = vec ? (cells / 4) * (1 + width) : cells;
-  const long long cap = (long long)sm_count() * kPopBlocksPerSm;
-  long long blocks = (items + kPopThreads - 1) / kPopThreads;
-  if (blocks > cap) blocks = cap;
-  if (blocks < 1) blocks = 1;
+  // every segment base a multiple of `cells` cells
+  auto bases_divisible = [&](long long cells) {
+    return seg_len % cells == 0 && src_shard % cells == 0 &&
+           src_slot % cells == 0 && src_row % cells == 0 &&
+           dst_shard % cells == 0 && dst_slot % cells == 0 &&
+           dst0 % cells == 0;
+  };
+  // occupancy items of 2^occ_shift cells: 16 bytes of int32 cells, the
+  // widest of 16, 8 or 4 bytes of bool cells that every segment base and
+  // both pointers allow; 0 takes the scalar kernel
+  const int cell_bytes = occ_bool ? 1 : 4;
+  int occ_shift = 0;
+  if (pay16 && bases_divisible(4)) {
+    for (int sh = occ_bool ? 4 : 2; sh >= 2 && occ_shift == 0; --sh) {
+      const int bytes = cell_bytes << sh;
+      if (bases_divisible(1 << sh) && aligned(occ, bytes) &&
+          aligned(row_occ, bytes)) {
+        occ_shift = sh;
+      }
+    }
+  }
+  // payload vectors a chunk holds per plane: 2^log_p, the list of all
+  // planes' vectors within one pass of the block (log_p >= 5 always is)
+  int log_p = 8;
+  while (log_p > 5 && ((4 << log_p) >> occ_shift) + (width << log_p) >
+                          kPopThreads * kPopUnroll) {
+    --log_p;
+  }
+  const int chunk_cells = occ_shift ? 4 << log_p : kPopThreads * kPopUnroll;
+  a.chunks = (seg_len + chunk_cells - 1) / chunk_cells;
+  a.fold = (slots + kMaxGrid - 1) / kMaxGrid;
+  if ((long long)a.chunks * a.fold >= (1LL << 31)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(a.chunks * a.fold, (slots + a.fold - 1) / a.fold, shards);
   cudaStream_t s = (cudaStream_t)stream;
-  if (vec) {
-    pop_shard_vec_k<<<(int)blocks, kPopThreads, 0, s>>>(
-        a, (const int32_t*)t_dev, horizon, occ_bool, (unsigned)(cells / 4),
-        (unsigned)width, (unsigned)row_cells, (unsigned)n_loc,
-        (size_t)out_stride, (size_t)out_col0);
+  if (occ_shift) {
+    pop_shard_vec_k<<<grid, kPopThreads, 0, s>>>(
+        a, (const int32_t*)t_dev, horizon, cell_bytes, occ_shift, width, log_p);
   } else {
-    pop_shard_scalar_k<<<(int)blocks, kPopThreads, 0, s>>>(
-        a, (const int32_t*)t_dev, horizon, occ_bool, (unsigned)cells,
-        (unsigned)width, (unsigned)row_cells, (unsigned)n_loc,
-        (size_t)out_stride, (size_t)out_col0);
+    pop_shard_scalar_k<<<grid, kPopThreads, 0, s>>>(
+        a, (const int32_t*)t_dev, horizon, occ_bool, width);
   }
   return (int)cudaGetLastError();
 }

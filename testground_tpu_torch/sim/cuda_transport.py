@@ -11,7 +11,9 @@ return contracts:
 - :func:`commit_calendar_sharded` and :func:`pop_bucket_sharded` — K1 and
   K2 on a mesh of peer shards (``_commit_calendar_sharded``,
   ``_pop_bucket_sharded``): one launch per device over the shards it
-  holds, on the calendar of ``net.Calendar`` with a mesh.
+  holds, on the calendar of ``net.Calendar`` with a mesh. The sharded
+  pop's segment geometry (:func:`pop_segments`) is computed here and
+  handed to the kernel, so the CPU tests reach it.
 
 The kernels live in ``csrc/transport.cu`` (design and bound notes there).
 They are compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` at first use
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -46,6 +49,7 @@ import torch
 __all__ = [
     "COMMIT_TILE",
     "MAX_WIDTH",
+    "PopSegments",
     "build_kernels",
     "commit_calendar",
     "commit_calendar_plain",
@@ -55,6 +59,7 @@ __all__ = [
     "pop_bucket_plain",
     "pop_bucket_sharded",
     "pop_bucket_sharded_plain",
+    "pop_segments",
 ]
 
 # payload planes one launch addresses (TG_MAX_WIDTH in transport.cu)
@@ -141,7 +146,7 @@ def _lib() -> ctypes.CDLL:
     lib.tg_commit_calendar_sharded.restype = ci
     ll = ctypes.c_longlong
     lib.tg_pop_bucket_sharded.argtypes = [
-        vp, ci, vp, ci, vp, ci, ci, ci, ci, vp, vp, ll, ll, vp,
+        vp, ci, vp, ci, vp, ci, ci, ci, ci, ll, ll, ll, ll, ll, ll, vp, vp, vp,
     ]
     lib.tg_pop_bucket_sharded.restype = ci
     return lib
@@ -484,6 +489,41 @@ def pop_bucket_sharded_plain(cal, t):
     return cal, occ_row, pay_rows
 
 
+@dataclasses.dataclass(frozen=True)
+class PopSegments:
+    """Where the sharded pop's segments lie, in cells. A mesh part's pop
+    is ``shards × slots`` runs of ``length`` cells: for the part's own
+    shard index ``s`` and a slot, bucket row ``b``'s cells start at
+    ``s·src_shard + slot·src_slot + b·src_row`` of every ``[S_d·L,
+    SLOTS·n_loc]`` plane and land at ``dst0 + s·dst_shard +
+    slot·dst_slot`` of every output row. The kernel walks exactly these
+    runs (``tg_pop_bucket_sharded``)."""
+
+    shards: int
+    slots: int
+    length: int
+    src_shard: int
+    src_slot: int
+    src_row: int
+    dst_shard: int
+    dst_slot: int
+    dst0: int
+
+
+def pop_segments(cal, i: int, home: bool) -> PopSegments:
+    """Mesh part ``i``'s segments: into the global slot-major ``[SLOTS·N]``
+    row where the part lies on the primary device (``home``), else into a
+    part-local ``[SLOTS, S_d·n_loc]`` row that is then copied home."""
+    _, s0, s1 = cal.mesh.parts[i]
+    slots, n_loc = cal.slots, cal.n_loc
+    out_stride, out_col0 = (cal.lanes, s0 * n_loc) if home else ((s1 - s0) * n_loc, 0)
+    return PopSegments(
+        shards=s1 - s0, slots=slots, length=n_loc,
+        src_shard=cal.horizon * slots * n_loc, src_slot=n_loc, src_row=slots * n_loc,
+        dst_shard=n_loc, dst_slot=out_stride, dst0=out_col0,
+    )
+
+
 def pop_bucket_sharded(cal, t):
     """Pop the bucket arriving at tick ``t`` from a meshed calendar: one
     launch per mesh part. Returns ``(cal, occ_row, pay_rows)`` as
@@ -509,15 +549,13 @@ def pop_bucket_sharded(cal, t):
         t_d = t.to(dev)
         _check_tick(t_d, dev)
         home = dev == dev0
+        seg = pop_segments(cal, i, home)
         if home:  # straight into the global row
             out_occ, out_pay = row_occ, rows
-            stride, col0 = n, s0 * n_loc
-        else:  # a device-local [SLOTS, S_d·n_loc] row, copied home below
-            cells = slots * (s1 - s0) * n_loc
+        else:  # a device-local row, copied home below
+            cells = seg.shards * seg.slots * seg.length
             out_occ = torch.empty(cells, dtype=row_occ.dtype, device=dev)
-            out_pay = [torch.empty(cells, dtype=torch.int32, device=dev)
-                       for _ in rows]
-            stride, col0 = (s1 - s0) * n_loc, 0
+            out_pay = [torch.empty(cells, dtype=torch.int32, device=dev) for _ in rows]
         pay_ptrs = _ptr_array(part.payload)
         row_ptrs = _ptr_array(out_pay)
         occ = part.occupancy_plane
@@ -529,13 +567,17 @@ def pop_bucket_sharded(cal, t):
                 part.width,
                 t_d.data_ptr(),
                 cal.horizon,
-                s1 - s0,
-                slots,
-                n_loc,
+                seg.shards,
+                seg.slots,
+                seg.length,
+                seg.src_shard,
+                seg.src_slot,
+                seg.src_row,
+                seg.dst_shard,
+                seg.dst_slot,
+                seg.dst0,
                 out_occ.data_ptr(),
                 ctypes.addressof(row_ptrs),
-                stride,
-                col0,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if rc != 0:

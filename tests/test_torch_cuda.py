@@ -2,9 +2,9 @@
 the same CUDA tensors (the main path's shapes among them; the sharded
 kernels on virtual meshes on card 0), and short runs on the GPU against
 the same runs on the CPU, the observability planes' blocks and meshed runs
-included. Every test takes the ``cuda`` fixture, which skips it where
-there is no GPU. This file imports no jax, so on a machine with the GPU
-and without jax it runs as
+included. Every test is marked ``cuda`` and takes the ``cuda`` fixture,
+which skips it where there is no GPU. This file imports no jax, so on a
+machine with the GPU and without jax it runs as
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -23,6 +23,8 @@ from testground_tpu_torch.sim.executor import (
     load_sim_testcases,
     plan_dir,
 )
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture()
@@ -548,6 +550,26 @@ _SHARDED_POP_CASES = [
     (4, (1, 2), True, 4 * 333, 1, 1, 8, 37),
     (4, None, True, 1000, 16, 1, 8, 37),  # storm's shape
     (4, None, True, 1000, 1, 1, 256, 300),  # flood's SLOTS=1, a 256-row horizon
+    # bool occupancy in 8-byte items (n_loc = 1000: % 8 == 0, % 16 != 0)
+    # and in 4-byte words (n_loc = 1004: % 4 == 0, % 8 != 0)
+    (4, None, True, 4 * 1000, 4, 2, 8, 37),
+    (4, None, True, 4 * 1004, 4, 1, 8, 37),
+    # bool occupancy in 16-byte vectors (n_loc = 1024), int32 alongside
+    (4, None, True, 4 * 1024, 4, 2, 8, -5),
+    (4, (2,), False, 4 * 1024, 2, 3, 8, 37),
+    # segments of several chunks, the last one ragged (n_loc = 2500 at
+    # W = 1, 3; n_loc = 1023 in the scalar kernel)
+    (4, None, False, 4 * 2500, 4, 1, 8, 37),
+    (2, None, True, 2 * 2500, 4, 3, 8, 37),
+    (4, None, False, 4 * 1023, 2, 1, 8, 37),
+    # S_d·SLOTS = 65,600 segments, and SLOTS = 65,540 past the grid's y
+    # limit, folded into x (vector and scalar kernels)
+    (4, None, False, 16, 16400, 1, 2, 37),
+    (2, None, False, 8, 65540, 1, 2, 37),
+    (2, None, True, 6, 65540, 2, 2, 37),
+    # W = 8 in the vector kernel, int32 and bool-vector occupancy
+    (4, None, False, 4 * 1000, 4, 8, 8, 37),
+    (4, None, True, 4 * 1024, 2, 8, 8, 37),
 ]
 
 
