@@ -82,7 +82,21 @@ and drives the port's main path through the library entry points
               run's; wall and device ms/tick, kernels a tick, busy share
               of both, sync-debug counts at 32 and 64 ticks; ping-pong@100k
               and flood@100k on the mesh to all SUCCESS
-15. parity  — sustained, flood and storm at 4,096 instances, the faulted
+15. cli     — the port's CLI (``testground_tpu_torch.cli.main.main`` in
+              process) in temporary homes holding the port's plans:
+              ``healthcheck --runner sim:torch``; the sustained smoke
+              composition (telemetry files, K1 and K2 journaled and
+              launched); sustained@100k as a composition in three turns
+              against ``execute_sim_run`` of the ``RunInput`` the CLI
+              lowered, after a warm-up run (the CLI's host cost per run
+              and per tick; then kernels a tick and device ms/tick of both,
+              profiled); ``run single network:ping-pong -i 100000`` to all
+              SUCCESS; the chaos smoke composition on the card and, from a
+              home with ``device = "cpu"``, on the CPU: run directories and
+              task results equal; and a run mirrored to a local Influx
+              capture server (the plan-metric, ``sim.*`` and
+              ``sim.latency.*`` families)
+16. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -123,7 +137,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "parity")
+          "cli", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -1822,6 +1836,365 @@ def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
             "card": card}
 
 
+# ------------------------------------------------------------ the CLI
+
+CLI_TURNS = 3
+# sustained@100k as a composition: bench.py's sustained cut as phase 4
+# cuts it, through `run composition` at full width
+SUSTAINED_COMPOSITION = """[metadata]
+name = "sustained-100k"
+
+[global]
+plan = "network"
+case = "pingpong-sustained"
+builder = "sim:plan"
+runner = "sim:torch"
+
+[global.run_config]
+chunk = 250
+max_ticks = 10000
+telemetry = true
+
+[[groups]]
+id = "all"
+
+[groups.instances]
+count = 100000
+
+[groups.run.test_params]
+{params}
+"""
+
+
+def cli_home(root, name, env_toml="") -> str:
+    """A ``$TESTGROUND_HOME`` under ``root`` whose ``plans/`` holds copies
+    of the port's plan directories and whose ``.env.toml`` is ``env_toml``."""
+    import shutil
+
+    from testground_tpu_torch.sim.executor import PLANS_ROOT
+
+    home = os.path.join(root, name)
+    for plan in sorted(os.listdir(PLANS_ROOT)):
+        src = os.path.join(PLANS_ROOT, plan)
+        if os.path.isfile(os.path.join(src, "manifest.toml")):
+            shutil.copytree(src, os.path.join(home, "plans", plan),
+                            ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(home, ".env.toml"), "w") as f:
+        f.write(env_toml)
+    return home
+
+
+def cli_call(home, argv) -> dict:
+    """One in-process call of the port's CLI with ``$TESTGROUND_HOME`` =
+    ``home``, wall-clocked (the card synchronised on both sides): its exit
+    code, output, wall seconds and task."""
+    import contextlib
+    import io
+    import re
+
+    from testground_tpu_torch.cli import commands
+    from testground_tpu_torch.cli.main import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    old = os.environ.get("TESTGROUND_HOME")
+    os.environ["TESTGROUND_HOME"] = home
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("TESTGROUND_HOME", None)
+        else:
+            os.environ["TESTGROUND_HOME"] = old
+    m = re.search(r"run is queued with ID: (\S+)", out.getvalue())
+    task = commands.LAST_TASK
+    return {"rc": rc, "out": out.getvalue(), "err": err.getvalue(), "wall": wall,
+            "task": task if m and task is not None and task.id == m.group(1) else None}
+
+
+def cli_run(label, home, argv, launches) -> dict:
+    """A CLI run of the main path: its launches counted from zero and added
+    to ``launches``; it must exit 0 with outcome success and launch both
+    kernels."""
+    reset_launches()
+    got = cli_call(home, argv)
+    check(got["rc"] == 0 and "(outcome: success)" in got["out"],
+          f"cli {label}: exit {got['rc']}: {got['out'][-1500:]} {got['err'][-1500:]}")
+    counts = read_launches()
+    check(all(v > 0 for v in counts.values()), f"cli {label}: launches {counts}")
+    for k, v in counts.items():
+        launches[k] += v
+    got["launches"] = counts
+    return got
+
+
+def _run_dir(home, task, run_id=None):
+    return os.path.join(home, "data", "outputs", task.plan, run_id or task.id)
+
+
+def _norm_task(task, home) -> dict:
+    """A task's result with its run ID, its home and the machine's fields
+    (SIM_SKIPPED, VARYING_FIELDS) made the same on every device."""
+    result = json.loads(json.dumps(task.result))
+    result.pop("perf", None)
+    result["journal"]["sim"] = {k: v for k, v in result["journal"]["sim"].items()
+                                if k not in SIM_SKIPPED}
+    text = json.dumps(_strip(result)).replace(task.id, "<task>").replace(home, "<home>")
+    return json.loads(text)
+
+
+def _profiled(fn) -> tuple:
+    """``(device ms, kernels)`` of the device events of one call of ``fn``
+    (``torch.profiler``, device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [r for r in _device_rows(prof) if r[1] > 0]
+    return sum(r[1] for r in rows) / 1e3, sum(r[2] for r in rows)
+
+
+def phase_cli(card) -> dict:
+    """The port's CLI on the card (``testground_tpu_torch.cli.main.main``
+    in process, so that the kernels' launch counts are visible), in
+    temporary ``$TESTGROUND_HOME``s whose ``plans/`` hold copies of the
+    port's plan directories: the healthcheck; the sustained smoke
+    composition; sustained@100k as a composition in turns against
+    ``execute_sim_run`` of the ``RunInput`` the CLI lowered (the CLI's host
+    cost per run and per tick), then both profiled (kernels a tick, device
+    ms/tick); ``run single network:ping-pong -i 100000``; the chaos smoke
+    composition on the card and, from a home that sets ``device = "cpu"``,
+    on the CPU, whose run directories and task results must be equal; and a
+    run mirrored to a local Influx capture server."""
+    import dataclasses
+    import http.server
+    import shutil
+    import tempfile
+    import threading
+
+    from testground_tpu_torch.rpc import discard_writer
+    from testground_tpu_torch.sim.executor import execute_sim_run
+    from testground_tpu_torch.sim.runner import SimTorchRunner
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "cli", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    try:
+        home = cli_home(root, "card")
+
+        # the healthcheck, first: its K2 check is cached for the runs after
+        got = cli_call(home, ["healthcheck", "--runner", "sim:torch"])
+        report = [ln for ln in got["out"].splitlines() if ln.startswith(("check ", "fix "))]
+        print("\n".join(report), flush=True)
+        check(got["rc"] == 0 and len(report) == 10
+              and all(": ok " in ln or ": omitted " in ln for ln in report),
+              f"cli healthcheck: {got['out'][-2000:]}")
+        row["healthcheck"] = {"wall_s": got["wall"], "report": report}
+        step("healthcheck")
+
+        # the sustained smoke composition
+        comp = os.path.join(home, "plans", "network", "_compositions",
+                            "sustained-smoke.toml")
+        got = cli_run("sustained-smoke", home, ["run", "composition", "-f", comp],
+                      launches)
+        task = got["task"]
+        sim = task.result["journal"]["sim"]
+        files = set(os.listdir(_run_dir(home, task)))
+        want = {"run_spans.jsonl", "sim_timeseries.jsonl", "sim_latency.jsonl",
+                "sim_slo.jsonl", "timeseries.jsonl"}
+        check(want <= files, f"cli sustained-smoke: files {sorted(files)}")
+        check(sim["transport"]["resolved"] == "cuda"
+              and "commit_k" in sim["transport"]["reason"]
+              and "pop_vec_k" in sim["transport"]["reason"],
+              f"cli sustained-smoke: transport {sim['transport']}")
+        row["sustained_smoke"] = {"wall_s": got["wall"], "ticks": sim["ticks"],
+                                  "launches": got["launches"], "files": sorted(files)}
+        step("sustained_smoke")
+
+        # sustained@100k as a composition: a warm-up run through the CLI,
+        # recording the RunInput the supervisor lowered; then turns of the
+        # CLI against execute_sim_run of that same RunInput
+        path = os.path.join(root, "sustained-100k.toml")
+        with open(path, "w") as f:
+            f.write(SUSTAINED_COMPOSITION.format(params="\n".join(
+                f'{k} = "{v}"' for k, v in SUSTAINED.items())))
+        argv = ["run", "composition", "-f", path]
+        lowered = []
+        plain_run = SimTorchRunner.run
+
+        def recording(self, job, ow, cancel):
+            lowered.append(job)
+            return plain_run(self, job, ow, cancel)
+
+        SimTorchRunner.run = recording
+        try:
+            cli_run("sustained@100k warm-up", home, argv, launches)
+        finally:
+            SimTorchRunner.run = plain_run
+        check(len(lowered) == 1, "cli sustained@100k: no RunInput lowered")
+        job0 = lowered[0]
+
+        def exec_run(i):
+            job = dataclasses.replace(job0, run_id=f"exec-{i}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = execute_sim_run(job, discard_writer(), threading.Event())
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        step("sustained_100k_warm_up")
+        walls = {"cli": [], "execute_sim_run": []}
+        per_tick = {"cli": [], "execute_sim_run": []}
+        # the CLI's wall outside the runner's run, within the same call
+        # (the supervisor's runner_wall_secs): no turn-to-turn spread
+        outside_ms = []
+        ticks = None
+        for i in range(CLI_TURNS):
+            for way in (("cli", "execute_sim_run") if i % 2 == 0
+                        else ("execute_sim_run", "cli")):
+                if way == "cli":
+                    got = cli_run(f"sustained@100k turn {i}", home, argv, launches)
+                    journal, wall = got["task"].result["journal"], got["wall"]
+                    check(got["task"].result["outcome"] == "success",
+                          "cli sustained@100k: outcome")
+                    runner_s = got["task"].result["perf"]["runner_wall_secs"]["default"]
+                    outside_ms.append((wall - runner_s) * 1e3)
+                else:
+                    reset_launches()
+                    out, wall = exec_run(i)
+                    for k, v in read_launches().items():
+                        launches[k] += v
+                    journal = out.result.journal
+                    check(out.result.outcome.value == "success",
+                          "cli sustained@100k: executor outcome")
+                s = journal["sim"]
+                check(s["msgs_sent"] == s["msgs_delivered"] + s["msgs_in_flight"]
+                      + s["msgs_dropped"] + s["msgs_rejected"] + s["msgs_fault_dropped"],
+                      f"cli sustained@100k {way}: flow conservation")
+                # the ticks that ran (one counter row each)
+                ticks = journal["telemetry"]["rows"]
+                walls[way].append(wall)
+                per_tick[way].append(wall / ticks * 1e3)
+        cost_ms = [(c - e) * 1e3 for c, e in zip(walls["cli"], walls["execute_sim_run"])]
+        row["sustained_100k"] = {
+            "n": 100_000, "ticks": ticks, "turns": CLI_TURNS,
+            "wall_s": walls, "wall_ms_per_tick": per_tick,
+            "host_cost_ms_per_run": cost_ms,
+            "host_cost_ms_per_tick": [c / ticks for c in cost_ms],
+            "host_cost_ms_per_run_median": statistics.median(cost_ms),
+            "outside_runner_ms_per_run": outside_ms,
+        }
+        step("sustained_100k_turns")
+
+        # ping-pong@100k through `run single`, with its RTT assertions
+        got = cli_run("ping-pong@100k", home,
+                      ["run", "single", "network:ping-pong", "-i", "100000"], launches)
+        sim = got["task"].result["journal"]["sim"]
+        check(got["task"].result["journal"]["events"]["single"]["success"] == 100_000,
+              "cli ping-pong@100k: not every instance SUCCESS")
+        row["pingpong_100k"] = {"wall_s": got["wall"], "ticks": sim["ticks"],
+                                "launches": got["launches"]}
+        step("pingpong_100k")
+
+        # the chaos smoke composition on the card and on the CPU
+        cpu_home = cli_home(root, "cpu", '[runners."sim:torch"]\ndevice = "cpu"\n')
+        runs = {}
+        for dev, h in (("cuda", home), ("cpu", cpu_home)):
+            comp = os.path.join(h, "plans", "chaos", "_compositions", "smoke.toml")
+            if dev == "cuda":
+                got = cli_run("chaos-smoke", h, ["run", "composition", "-f", comp],
+                              launches)
+            else:
+                got = cli_call(h, ["run", "composition", "-f", comp])
+                check(got["rc"] == 0, f"cli chaos-smoke cpu: {got['err'][-1500:]}")
+            task = got["task"]
+            tree = json.loads(json.dumps(read_run_dir(_run_dir(h, task)))
+                              .replace(task.id, "<task>").replace(h, "<home>"))
+            runs[dev] = (tree, _norm_task(task, h),
+                         task.result["journal"]["sim"]["transport"]["resolved"])
+        (tg, jg, rg), (tc, jc, rc_) = runs["cuda"], runs["cpu"]
+        diff = sorted(set(tc) ^ set(tg)) + [k for k in tc if k in tg and tc[k] != tg[k]]
+        diff += [k for k in jc if jc.get(k) != jg.get(k)]
+        check(not diff and (rg, rc_) == ("cuda", "plain"),
+              f"cli chaos-smoke: CPU vs GPU differ in {diff} ({rg}, {rc_})")
+        row["chaos_parity"] = {"files_compared": len(tc), "result_keys": sorted(jc),
+                               "ticks": jc["journal"]["sim"]["ticks"]}
+        step("chaos_parity")
+
+        # the Influx mirror, to a capture server on this host
+        posts = []
+
+        class Capture(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers["Content-Length"])
+                posts.append((self.path, self.rfile.read(n)))
+                self.send_response(204)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        srv = http.server.HTTPServer(("127.0.0.1", 0), Capture)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        try:
+            influx_home = cli_home(root, "influx", '[daemon]\ninfluxdb_endpoint = '
+                                   f'"http://127.0.0.1:{srv.server_port}"\n')
+            got = cli_run("influx", influx_home,
+                          ["run", "single", "network:ping-pong", "-i", "64",
+                           "--run-cfg", "telemetry=true", "--run-cfg", "chunk=16",
+                           "--run-cfg", "timeseries_every=16"], launches)
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        journal = got["task"].result["journal"]
+        blocks = {k: v for k, v in journal.items() if k.startswith("influx")}
+        body = b"".join(b for _, b in posts).decode()
+        check(set(blocks) == {"influx", "influx_telemetry", "influx_latency"}
+              and all(b["ok"] for b in blocks.values()),
+              f"cli influx: journal blocks {blocks}")
+        check(all(p == "/write?db=testground" for p, _ in posts)
+              and ".sim.delivered" in body and ".sim.latency.p50" in body
+              and ".pingpong.rtt1_ticks" in body,
+              f"cli influx: {len(posts)} posts")
+        row["influx"] = {"posts": len(posts), "lines": body.count("\n"),
+                         "journal": blocks}
+        step("influx")
+
+        # kernels a tick and device ms/tick of the CLI's run and of the
+        # executor's over the first chunk (max_ticks = one chunk, 250
+        # ticks), profiled last (a profiler session slows later launches)
+        first = os.path.join(root, "sustained-100k-first-chunk.toml")
+        with open(path) as f, open(first, "w") as g:
+            g.write(f.read().replace("max_ticks = 10000", "max_ticks = 250"))
+        job0 = dataclasses.replace(
+            job0, runner_config=dataclasses.replace(job0.runner_config, max_ticks=250))
+        prof = {}
+        for way, fn in (("cli", lambda: cli_call(home, ["run", "composition", "-f", first])),
+                        ("execute_sim_run", lambda: exec_run("profiled"))):
+            ms, kernels = _profiled(fn)
+            prof[way] = {"ticks": 250, "device_ms_per_tick": ms / 250,
+                         "kernels_per_tick": kernels / 250}
+        row["sustained_100k"]["profiled"] = prof
+        step("profiled")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 # ------------------------------------------------------------ main
 
 
@@ -1939,7 +2312,7 @@ def main(argv=None) -> int:
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
                    ("plans", phase_plans), ("executor", phase_executor),
-                   ("mesh", phase_mesh)):
+                   ("mesh", phase_mesh), ("cli", phase_cli)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -8,7 +8,23 @@ Hopper (``csrc/transport.cu``).
 The port imports torch and numpy, never jax and never the reference
 package; where it needs a reference module's definitions it keeps its own
 copy. Entry points run on the CUDA device unless the caller passes
-``device="cpu"`` (the parity tests do).
+``device="cpu"`` (the parity tests do), or, through the CLI
+(``python -m testground_tpu_torch.cli``), unless ``.env.toml`` sets
+``device = "cpu"`` under ``[runners."sim:torch"]``.
 """
 
-__all__ = ["api", "engine", "rpc", "runners", "sim"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "api",
+    "builders",
+    "cli",
+    "config",
+    "engine",
+    "healthcheck",
+    "metrics",
+    "rpc",
+    "runners",
+    "sim",
+    "utils",
+]

@@ -1,12 +1,13 @@
-"""Run inputs and outputs — the port's own copies of the reference's
-``RunGroup``, ``RunInput`` and ``RunOutput``
-(``testground_tpu/api/run_input.py:24-136``), without the fields that
-need the composition types (``resources``) and the engine (``preempt``).
+"""Run and build inputs and outputs — the port's own copies of the
+reference's ``RunGroup``, ``RunInput``, ``RunOutput``, ``BuildInput`` and
+``BuildOutput`` (``testground_tpu/api/run_input.py``), without the engine's
+preemption signal (``preempt``) and the collection input.
 
-The port has no ``EnvConfig``: ``RunInput.env`` is anything whose
-``dirs.outputs()`` names the outputs root (:class:`OutputsEnv` is the
-smallest such thing). A run then writes ``<root>/<plan>/<run_id>``, the
-reference's layout.
+``RunInput.env`` is the port's :class:`~testground_tpu_torch.config.EnvConfig`
+when a run comes through the runner; a library caller may pass anything
+whose ``dirs.outputs()`` names the outputs root (:class:`OutputsEnv` is the
+smallest such thing, with no Influx endpoint). A run then writes
+``<root>/<plan>/<run_id>``, the reference's layout.
 """
 
 from __future__ import annotations
@@ -15,7 +16,16 @@ import types
 from dataclasses import dataclass, field
 from typing import Any
 
-__all__ = ["OutputsEnv", "RunGroup", "RunInput", "RunOutput"]
+from .composition import Resources
+
+__all__ = [
+    "BuildInput",
+    "BuildOutput",
+    "OutputsEnv",
+    "RunGroup",
+    "RunInput",
+    "RunOutput",
+]
 
 
 @dataclass
@@ -28,6 +38,7 @@ class RunGroup:
     builder: str = ""
     parameters: dict[str, str] = field(default_factory=dict)
     profiles: dict[str, str] = field(default_factory=dict)
+    resources: Resources = field(default_factory=Resources)
     faults: list = field(default_factory=list)
     trace: dict = field(default_factory=dict)
     slo: list = field(default_factory=list)
@@ -49,9 +60,11 @@ class RunInput:
     faults: list = field(default_factory=list)
     trace: dict = field(default_factory=dict)
     slo: list = field(default_factory=list)
-    # lifecycle trace context ({"trace_id", "parent_id"}) for the spans
+    # lifecycle trace context ({"trace_id", "parent_id", "task_id",
+    # "traceparent"}) for the spans
     trace_ctx: dict = field(default_factory=dict)
-    # anything with ``dirs.outputs()``; None runs without an outputs dir
+    # EnvConfig, or anything with ``dirs.outputs()``; None runs without an
+    # outputs dir
     env: Any = None
 
 
@@ -62,6 +75,29 @@ class RunOutput:
     run_id: str
     composition: Any = None
     result: Any = None
+
+
+@dataclass
+class BuildInput:
+    """Input options for building a test plan (``pkg/api/builder.go:29-58``)."""
+
+    build_id: str
+    test_plan: str
+    unpacked_plan_dir: str = ""
+    unpacked_sdk_dir: str = ""
+    selectors: list[str] = field(default_factory=list)
+    dependencies: dict[str, tuple[str, str]] = field(default_factory=dict)
+    build_config: Any = None
+    env: Any = None
+
+
+@dataclass
+class BuildOutput:
+    """Output from a build (``pkg/api/builder.go:60-75``)."""
+
+    builder_id: str
+    artifact_path: str
+    dependencies: dict[str, str] = field(default_factory=dict)
 
 
 class OutputsEnv:

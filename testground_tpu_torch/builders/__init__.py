@@ -1,0 +1,7 @@
+"""Builder interface and the ``sim:plan`` builder (the port's copies of the
+reference's ``testground_tpu/builders``; ``pkg/build``)."""
+
+from .base import Builder
+from .sim_plan import SimPlanBuilder
+
+__all__ = ["Builder", "SimPlanBuilder"]

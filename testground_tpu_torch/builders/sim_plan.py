@@ -1,0 +1,55 @@
+"""``sim:plan`` builder: snapshot a plan's simulation program for the
+``sim:torch`` runner — the port's copy of ``build`` of the
+reference's ``testground_tpu/builders/sim_plan.py``.
+
+The runner executes plans as per-tick state machines over torch tensors,
+not processes, so the "artifact" is a snapshot of the plan source dir
+(``<work>/sim-plan--<plan>-<build_id>``), which the executor loads with
+``load_sim_testcases`` as it loads the package's own plan directory (the
+port's plans import ``testground_tpu_torch`` absolutely). Queued runs are
+immune to source edits.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import threading
+
+from ..api import BuildInput, BuildOutput
+from ..rpc import OutputWriter
+from .base import Builder
+
+__all__ = ["SimPlanBuilder"]
+
+
+class SimPlanBuilder(Builder):
+    def id(self) -> str:
+        return "sim:plan"
+
+    def build(
+        self, inp: BuildInput, ow: OutputWriter, cancel: threading.Event
+    ) -> BuildOutput:
+        src = inp.unpacked_plan_dir
+        if not src or not os.path.isdir(src):
+            raise ValueError(f"plan sources not found: {src!r}")
+        if not (
+            os.path.isfile(os.path.join(src, "sim.py"))
+            or os.path.isfile(os.path.join(src, "main.py"))
+        ):
+            raise ValueError(
+                f"plan has neither sim.py nor main.py entry point: {src}"
+            )
+        work = inp.env.dirs.work()
+        dest = os.path.join(work, f"sim-plan--{inp.test_plan}-{inp.build_id}")
+        if os.path.exists(dest):
+            shutil.rmtree(dest)
+        shutil.copytree(
+            src,
+            dest,
+            ignore=shutil.ignore_patterns(
+                "__pycache__", "*.pyc", ".git", "_compositions"
+            ),
+        )
+        ow.infof("sim:plan built %s -> %s", inp.test_plan, dest)
+        return BuildOutput(builder_id=self.id(), artifact_path=dest)

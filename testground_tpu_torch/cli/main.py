@@ -1,0 +1,75 @@
+"""The port's ``tg`` CLI entry point — the reference's
+``testground_tpu/cli/main.py`` with the verbs the port honours: ``run
+composition``, ``run single``, ``healthcheck`` and ``version``. Runs go
+through the in-process engine (``engine/supervisor.py``) and the
+``sim:torch`` runner:
+
+    python -m testground_tpu_torch.cli run composition -f X.toml
+
+A daemon (``--endpoint``) and the verbs over the task store come with
+ROADMAP queue 1 item 9e; their flags are parsed and refused.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .. import __version__
+from ..logging_ import set_level
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tg-torch",
+        description=(
+            "testground-tpu's PyTorch/CUDA port: runs Testground compositions "
+            "as a vectorized network simulation on one CUDA device"
+        ),
+    )
+    p.add_argument("-v", "--verbose", action="store_true", help="verbose logging")
+    p.add_argument(
+        "--endpoint",
+        default="",
+        help="daemon endpoint (refused: the daemon is not ported yet)",
+    )
+    sub = p.add_subparsers(dest="command")
+
+    from . import commands
+
+    commands.register_run(sub)
+    commands.register_healthcheck(sub)
+    commands.register_version(sub)
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.verbose:
+        set_level("debug")
+    if args.command is None:
+        build_parser().print_help()
+        return 0
+    if args.command == "version":
+        print(f"testground-tpu-torch {__version__}")
+        return 0
+    try:
+        return args.func(args) or 0
+    except KeyboardInterrupt:
+        return 130
+    except BrokenPipeError:
+        # downstream pager/head closed the pipe; exit quietly
+        try:
+            sys.stdout.close()
+        except Exception:  # noqa: BLE001
+            pass
+        return 0
+    except Exception as e:  # noqa: BLE001 — CLI boundary
+        print(f"error: {e}", file=sys.stderr)
+        if args.verbose:
+            raise
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

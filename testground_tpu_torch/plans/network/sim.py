@@ -286,6 +286,9 @@ class PingPongSustained(SimTestcase):
             net_shape_valid=(t == 0) | at_reshape,
         )
 
+    def collect_metrics(self, group, final_state, status):
+        return {"sustained.rounds": final_state["rounds"]}
+
 
 class _Traffic(SimTestcase):
     """Ring traffic under an Accept (allowed) or Drop (blocked) filter

@@ -3,8 +3,8 @@ copy of the reference's ``testground_tpu/rpc/writer.py``
 (``pkg/rpc/writer.go``), without the binary stream it needs only for
 collected outputs.
 
-Progress output (human log lines) is emitted as ``p`` chunks. The result
-and error chunks come with the runner (ROADMAP queue 1 item 9c).
+Progress output (human log lines) is emitted as ``p`` chunks; the terminal
+result/error as a single ``r``/``e`` chunk.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Any, TextIO
 __all__ = ["OutputWriter", "discard_writer"]
 
 CHUNK_PROGRESS = "p"
+CHUNK_RESULT = "r"
+CHUNK_ERROR = "e"
 
 
 class OutputWriter:
@@ -60,6 +62,12 @@ class OutputWriter:
 
     def debug(self, msg: str, *args: Any) -> None:
         self._log("debug", msg, *args)
+
+    def write_result(self, result: Any) -> None:
+        self._emit({"t": CHUNK_RESULT, "p": result})
+
+    def write_error(self, msg: str) -> None:
+        self._emit({"t": CHUNK_ERROR, "e": {"m": msg}})
 
 
 def discard_writer() -> OutputWriter:

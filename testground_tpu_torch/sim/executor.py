@@ -24,17 +24,23 @@ already copied behind the done flag's wait: none of them reads the device.
 The metric recorder reads the carry every ``timeseries_every`` ticks, as
 the reference does.
 
+With ``[daemon] influxdb_endpoint`` set in the env, the plan-metric rows,
+the ``sim.*`` telemetry series (in their own bounded batches) and the
+``sim.latency.*`` rows are mirrored to InfluxDB as the reference mirrors
+them; the journal's ``influx``, ``influx_telemetry`` and ``influx_latency``
+blocks record each push.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default: buckets, packs and checkpoints (item
-13, a 2-D pack mesh among them), multi-host cohorts (item 15b), the
-profiler, the phase plane and the transport probe (item 14), and an Influx
-mirror (item 9c).
+13, a 2-D pack mesh among them), multi-host cohorts (item 15b), and the
+profiler, the phase plane and the transport probe (item 14).
 
 A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
 the calendar over the peer shards (``sim/meshplan.py``); the journal's
 ``sim.mesh`` block is the reference's. The perf ledger
 (item 14) is on by default in the reference; the port writes no
-``sim.perf`` block and says so in one log line.
+``sim.perf`` block, and mirrors no ``sim.perf.*`` family, and says so in
+one log line.
 """
 
 from __future__ import annotations
@@ -187,12 +193,6 @@ def _refuse_unported(cfg, job: RunInput) -> None:
         raise NotImplementedError(
             f"runner config mesh={mesh!r} is not ported yet: ROADMAP queue 1 "
             f"{_ITEM_13} — a 2-D mesh's leading axis is the pack run axis"
-        )
-    influx = getattr(getattr(job.env, "daemon", None), "influxdb_endpoint", "")
-    if influx:
-        raise NotImplementedError(
-            f"the Influx mirror ({influx}) is not ported yet: ROADMAP queue 1 "
-            "item 9c (composition API, runner and CLI)"
         )
     if cfg.transport not in _TRANSPORTS:
         raise ValueError(
@@ -614,12 +614,18 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         job.run_id, carry_bytes / 2**20, carry_bytes,
     )
     spans.end("build", carry_bytes=carry_bytes, instances=n)
+    influx_endpoint = getattr(getattr(job.env, "daemon", None),
+                              "influxdb_endpoint", "")
     if bool(getattr(cfg, "perf", True)) and not job.disable_metrics:
         ow.infof(
             "sim:torch %s: perf ledger not ported (ROADMAP queue 1 %s) — no "
-            "sim.perf block", job.run_id, _ITEM_14,
+            "sim.perf block%s", job.run_id, _ITEM_14,
+            ", no sim.perf.* Influx family" if influx_endpoint else "",
         )
 
+    # durations on the monotonic clock; the wall-clock anchor only where a
+    # real timestamp is needed (the Influx base_ns)
+    t0_wall = time.time()
     t0 = time.monotonic()
     last_report = [t0]
     # bounded SLO warn lines: the first breach of each rule (and every
@@ -895,13 +901,36 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # final metric sample at the last tick, then the run's series
     if recorder.enabled:
         recorder.sample(res["ticks"], res["states"], status)
+    full_rows: list[dict] = []
     if run_dir is not None and recorder.rows:
+        full_rows = [{**row_ident, **row} for row in recorder.rows]
         with open(os.path.join(run_dir, "timeseries.jsonl"), "w") as f:
-            for row in recorder.rows:
-                f.write(json.dumps({**row_ident, **row}) + "\n")
+            for row in full_rows:
+                f.write(json.dumps(row) + "\n")
         result.journal["timeseries"] = {
             "samples": len(recorder.rows), "every_ticks": recorder.every,
         }
+
+    # the optional Influx mirror (executor.py:2231-2290), best-effort:
+    # base_ns is the run's start, stable per run, so a re-push is
+    # idempotent and batches never collide
+    base_ns = int(t0_wall * 1e9)
+    if influx_endpoint and full_rows:
+        from ..metrics.influx import push_rows
+
+        result.journal["influx"] = push_rows(influx_endpoint, full_rows,
+                                             base_ns=base_ns)
+    if (influx_endpoint and tele_writer is not None
+            and tele_writer.path is not None and tele_writer.rows_written > 0):
+        # the sim.* family in its own bounded batches: one oversized POST
+        # must not also lose the small plan-metric batch above
+        result.journal["influx_telemetry"] = _push_sim_series(
+            influx_endpoint, tele_writer.iter_rows(), base_ns)
+    if influx_endpoint and lat_rows:
+        from ..metrics.influx import push_rows
+
+        result.journal["influx_latency"] = push_rows(influx_endpoint, lat_rows,
+                                                     base_ns=base_ns)
 
     for gi, g in enumerate(groups):
         st = status[g.offset : g.offset + g.count]
@@ -1004,6 +1033,54 @@ class _SimTelemetryWriter:
                 self.path = None
             finally:
                 self._f = None
+
+    def iter_rows(self):
+        """Re-read the written series (for the Influx mirror): the rows
+        were streamed out, not retained."""
+        from .telemetry import iter_jsonl
+
+        if self.path is None:
+            return
+        yield from iter_jsonl(self.path)
+
+
+# Influx lines per POST for the sim telemetry family — far under
+# InfluxDB's default 25 MB body cap (a line is ~100 bytes) while still
+# amortizing the HTTP round trip.
+_INFLUX_BATCH_LINES = 5000
+
+
+def _push_sim_series(endpoint: str, rows_iter, base_ns: int) -> dict:
+    """Expand streamed sim telemetry rows to viewer shape and push them in
+    bounded batches (``executor.py:3271-3306``). Returns one merged journal
+    dict ({pushed, ok, batches, error?, aborted?}); a failed batch (already
+    retried by ``push_rows``) aborts the rest of the mirror."""
+    from ..metrics.influx import push_rows
+    from ..metrics.viewer import expand_sim_row
+
+    journal: dict = {"pushed": 0, "ok": True, "batches": 0}
+
+    def push(batch: list) -> bool:
+        j = push_rows(endpoint, batch, base_ns=base_ns)
+        journal["pushed"] += j.get("pushed", 0)
+        journal["batches"] += 1
+        if not j.get("ok"):
+            journal["ok"] = False
+            journal.setdefault("error", j.get("error", "push failed"))
+            journal["aborted"] = True  # remaining batches not attempted
+            return False
+        return True
+
+    batch: list = []
+    for row in rows_iter:
+        batch.extend(expand_sim_row(row))
+        if len(batch) >= _INFLUX_BATCH_LINES:
+            if not push(batch):
+                return journal
+            batch = []
+    if batch:
+        push(batch)
+    return journal
 
 
 class _SimNetMatrixWriter:

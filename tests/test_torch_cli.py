@@ -1,0 +1,685 @@
+"""The port's control plane against the JAX package's, on the CPU: the CLI
+(``python -m testground_tpu_torch.cli``) end to end, the in-process
+engine's lowering, the ``sim:torch`` runner's healthcheck, the refusals,
+and the executor's Influx mirror.
+
+CLI cases run the reference's ``tg`` (``testground_tpu.cli.main``, runner
+``sim:jax`` with ``shard = false`` and ``perf = false`` in its
+``.env.toml``: one device, and no perf ledger, which the port has not yet)
+and the port's, each in its own ``$TESTGROUND_HOME`` whose ``plans/``
+holds its package's plan directories and whose ``.env.toml`` (the port's
+sets ``device = "cpu"``) selects the CPU. Then the exit codes, the outcome
+lines, the ``--result-file`` CSV rows, every run directory and the task
+results (journal, outcome, composition) must be equal, once the task ID,
+the home directory, the runner's name and the fields that differ between
+any two runs (``test_torch_executor.VARYING_FIELDS``) are normalized.
+"""
+
+import contextlib
+import csv
+import http.server
+import io
+import json
+import os
+import re
+import shutil
+import threading
+
+import pytest
+import torch
+
+import __graft_entry__ as ge
+from test_torch_executor import SIM_SKIPPED, _read_tree, _strip
+from testground_tpu.cli.main import main as jmain
+from testground_tpu.config import EnvConfig as JEnvConfig
+from testground_tpu.engine import Engine as JEngine
+from testground_tpu.sim import executor as jexec
+from testground_tpu_torch.cli import commands as pcommands
+from testground_tpu_torch.cli.main import main as pmain
+from testground_tpu_torch.config import EnvConfig
+from testground_tpu_torch.engine.supervisor import Registry
+from testground_tpu_torch.sim import cuda_transport as ct
+from testground_tpu_torch.sim import executor as pexec
+from testground_tpu_torch.sim import runner as prunner
+from testground_tpu_torch.sim.runner import SimTorchRunner
+
+REPO = os.path.dirname(os.path.abspath(ge.__file__))
+REF_PLANS = os.path.join(REPO, "plans")
+PORT_PLANS = os.path.join(REPO, "testground_tpu_torch", "plans")
+
+REF_ENV = '[runners."sim:jax"]\nshard = false\nperf = false\n'
+PORT_ENV = '[runners."sim:torch"]\ndevice = "cpu"\n'
+
+# what the reference's engine writes into a run directory at the end of a
+# task: its lifecycle span tree, exported from the task store, which the
+# port gets with the engine (ROADMAP queue 1 item 9e)
+ENGINE_FILES = frozenset({"task_spans.jsonl", "task_trace.json"})
+
+# one run that passes and one that aborts: its fault table names no
+# fault kind, so the run raises while it is lowered, and the next one runs
+TWO_RUNS = """[global]
+plan = "placebo"
+case = "optional-failure"
+builder = "sim:plan"
+runner = "{runner}"
+
+[global.run_config]
+chunk = 8
+
+[[groups]]
+id = "all"
+[groups.instances]
+count = 4
+
+[[runs]]
+id = "passes"
+[[runs.groups]]
+id = "all"
+
+[[runs]]
+id = "aborts"
+[runs.test_params]
+should_fail = "true"
+[[runs.groups]]
+id = "all"
+[[runs.groups.faults]]
+kind = "meteor"
+instances = "0:1"
+start_ms = 2.0
+"""
+
+
+def _make_home(root, pkg, env_toml, plans):
+    home = root / pkg
+    home.mkdir(parents=True, exist_ok=True)
+    src = REF_PLANS if pkg == "jax" else PORT_PLANS
+    for p in plans:
+        shutil.copytree(os.path.join(src, p), home / "plans" / p,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    (home / ".env.toml").write_text(env_toml)
+    return home
+
+
+@contextlib.contextmanager
+def _home_env(home):
+    old = os.environ.get("TESTGROUND_HOME")
+    os.environ["TESTGROUND_HOME"] = str(home)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("TESTGROUND_HOME", None)
+        else:
+            os.environ["TESTGROUND_HOME"] = old
+
+
+def _cli(main, home, argv):
+    """``(exit code, stdout, stderr)`` of one in-process CLI call."""
+    out, err = io.StringIO(), io.StringIO()
+    with _home_env(home), contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _task_id(stdout):
+    m = re.search(r"run is queued with ID: (\S+)", stdout)
+    assert m, stdout
+    return m.group(1)
+
+
+def _jax_task(home, task_id):
+    """The reference's archived task, from its on-disk store."""
+    with _home_env(home):
+        env = JEnvConfig.load()
+        env.daemon.scheduler.task_repo_type = "disk"
+        e = JEngine.new_default(env)
+        try:
+            return e.get_task(task_id)
+        finally:
+            e.stop()
+
+
+def _norm(x, task_id, home):
+    """Strip the varying fields and name the task, the home and the runner
+    the same way in both packages' records."""
+    text = json.dumps(_strip(x))
+    for old, new in ((task_id, "<task>"), (str(home), "<home>"), ("sim:jax", "sim:torch")):
+        text = text.replace(old, new)
+    return json.loads(text)
+
+
+def _journal(result):
+    j = json.loads(json.dumps(result.get("journal", {})))
+    if "sim" in j:
+        j["sim"] = {k: v for k, v in j["sim"].items() if k not in SIM_SKIPPED}
+    return j
+
+
+def _record(pkg, home, rc, stdout, stderr, result_file):
+    """What a CLI call left: its lines, CSV rows, run directories and task."""
+    task_id = _task_id(stdout)
+    if pkg == "jax":
+        t = _jax_task(home, task_id)
+    else:
+        t = pcommands.LAST_TASK
+        assert t.id == task_id
+    result = t.result
+    runs = result.get("runs")
+    results = ({rid: r for rid, r in runs.items()} if runs else {None: result})
+    run_dirs = {}
+    outputs = os.path.join(home, "data", "outputs", t.plan)
+    for rid in results:
+        run_id = task_id if rid is None else f"{task_id}-{rid}"
+        d = os.path.join(outputs, run_id)
+        run_dirs[rid] = ({k: v for k, v in _read_tree(d).items() if k not in ENGINE_FILES}
+                         if os.path.isdir(d) else None)
+    rows = []
+    if result_file and os.path.exists(result_file):
+        with open(result_file) as f:
+            rows = list(csv.reader(f))
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith(("finished run with ID", "  run "))]
+    errors = [ln for ln in stderr.splitlines() if ln.startswith("error: ")]
+    return _norm({
+        "rc": rc, "lines": lines, "errors": errors, "csv": rows,
+        "run_dirs": run_dirs,
+        "outcome": t.outcome().value,
+        "error": t.error,
+        # the task-level perf block holds wall times (and, in the
+        # reference, the queue wait)
+        "results": {str(rid): {**{k: v for k, v in r.items()
+                                  if k not in ("journal", "perf", "composition")},
+                               "journal": _journal(r)}
+                    for rid, r in results.items()},
+        "composition": result.get("composition"),
+    }, task_id, home)
+
+
+# name: (plans to copy, argv with {home} and {runner}, writes a result file)
+CLI_CASES = {
+    "sustained-smoke": (("network",), ["run", "composition", "-f",
+                                       "{home}/plans/network/_compositions/sustained-smoke.toml",
+                                       "--result-file", "{home}/results.csv"]),
+    "chaos-smoke": (("chaos",), ["run", "composition", "-f",
+                                 "{home}/plans/chaos/_compositions/smoke.toml",
+                                 "--result-file", "{home}/results.csv"]),
+    "two-runs": (("placebo",), ["run", "composition", "-f", "{home}/two-runs.toml",
+                                "--result-file", "{home}/results.csv"]),
+    "single-placebo": (("placebo",), ["run", "single", "placebo:ok", "-i", "4",
+                                      "--builder", "sim:plan", "--runner", "{runner}"]),
+    "single-run-cfg": (("network",), ["run", "single", "network:ping-pong", "-i", "8",
+                                      "--runner", "{runner}", "--run-cfg", "chunk=32",
+                                      "--run-cfg", "telemetry=true", "--run-cfg", "mesh=4",
+                                      "-tp", "tolerance_ms=20"]),
+}
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory):
+    """Each CLI case run once through both CLIs, on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            plans, argv = CLI_CASES[name]
+            base = tmp_path_factory.mktemp(name)
+            both = {}
+            for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
+                                           ("torch", pmain, PORT_ENV, "sim:torch")):
+                home = _make_home(base, pkg, env, plans)
+                (home / "two-runs.toml").write_text(TWO_RUNS.format(runner=runner))
+                args = [a.format(home=home, runner=runner) for a in argv]
+                rc, out, err = _cli(main, home, args)
+                result_file = str(home / "results.csv")
+                both[pkg] = (_record(pkg, home, rc, out, err, result_file), out, err)
+            both["torch-task"] = pcommands.LAST_TASK
+            cache[name] = both
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(CLI_CASES))
+def test_cli_run_matches_jax(name, cli_runs):
+    both = cli_runs(name)
+    (port, pout, perr), (ref, _, _) = both["torch"], both["jax"]
+    for key in ("rc", "lines", "errors", "csv", "outcome", "error", "composition"):
+        assert port[key] == ref[key], f"{name}: {key}\n{pout}\n{perr}"
+    assert sorted(port["results"]) == sorted(ref["results"])
+    for rid in ref["results"]:
+        assert port["results"][rid] == ref["results"][rid], f"{name}: run {rid}"
+    assert sorted(port["run_dirs"]) == sorted(ref["run_dirs"])
+    for rid, tree in ref["run_dirs"].items():
+        assert (tree is None) == (port["run_dirs"][rid] is None), rid
+        if tree is not None:
+            assert sorted(port["run_dirs"][rid]) == sorted(tree), rid
+            for rel in tree:
+                assert port["run_dirs"][rid][rel] == tree[rel], f"{name}: {rid}/{rel}"
+
+
+# name: (exit code, outcome lines, CSV rows past the header, files in a run dir)
+EXPECTED = {
+    "sustained-smoke": (0, ["finished run with ID: <task> (outcome: success)"],
+                        [["<task>", "network:pingpong-sustained", "success", ""]],
+                        {"sim_timeseries.jsonl", "sim_latency.jsonl", "sim_slo.jsonl",
+                         "timeseries.jsonl", "run_spans.jsonl", "pairs/7/run.out"}),
+    "chaos-smoke": (0, ["finished run with ID: <task> (outcome: success)"],
+                    [["<task>", "chaos:chaos-barrier", "success", ""]],
+                    {"sim_trace.jsonl", "trace_events.json", "sim_slo.jsonl"}),
+    "two-runs": (1, ["finished run with ID: <task> (outcome: failure)",
+                     "  run passes: outcome: success", "  run aborts: outcome: failure"],
+                 None, {"all/3/run.out"}),
+    "single-placebo": (0, ["finished run with ID: <task> (outcome: success)"], [],
+                       {"single/3/run.out"}),
+    "single-run-cfg": (0, ["finished run with ID: <task> (outcome: success)"], [],
+                       {"sim_timeseries.jsonl", "single/7/metrics.out"}),
+}
+
+
+@pytest.mark.parametrize("name", list(CLI_CASES))
+def test_cli_run_covers_what_it_is_for(name, cli_runs):
+    """The equalities above are not vacuous."""
+    port, _, _ = cli_runs(name)["torch"]
+    rc, lines, rows, files = EXPECTED[name]
+    assert port["rc"] == rc and port["lines"] == lines
+    if rows is not None:
+        assert port["csv"][1:] == rows
+    trees = [t for t in port["run_dirs"].values() if t is not None]
+    assert trees and all(files <= set(t) for t in trees[:1]), name
+    if name == "two-runs":
+        rows = port["csv"][1:]
+        assert [r[0] for r in rows] == ["<task>-passes", "<task>-aborts"]
+        assert rows[0][3] == "" and "meteor" in rows[1][3]
+        assert port["errors"] == [f"error: run aborts failed: {rows[1][3]}"]
+        assert port["run_dirs"]["aborts"] is not None  # its run span was kept
+    if name == "single-run-cfg":
+        sim = port["results"]["None"]["journal"]["sim"]
+        assert sim["mesh"]["shards"] == 4 and sim["devices"] == 4
+        assert port["composition"]["global"]["run_config"]["mesh"] == 4
+        assert port["composition"]["runs"][0]["groups"][0]["test_params"][
+            "tolerance_ms"] == "20"
+
+
+def test_cli_journal_names_the_plain_transport_on_the_cpu(cli_runs):
+    runs = cli_runs("sustained-smoke")
+    port, _, _ = runs["torch"]
+    assert port["composition"]["global"]["runner"] == "sim:torch"
+    task = runs["torch-task"]
+    assert (task.plan, task.case, task.runner) == ("network", "pingpong-sustained", "sim:torch")
+    assert task.result["journal"]["sim"]["transport"]["resolved"] == "plain"
+    assert set(task.result["perf"]) == {"runner_wall_secs"}
+
+
+def test_write_artifacts_and_reuse(tmp_path):
+    """``--write-artifacts`` writes the snapshot into the composition file;
+    a second run reuses it and builds nothing."""
+    home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
+    comp = home / "comp.toml"
+    comp.write_text(TWO_RUNS.format(runner="sim:torch").split("[[runs]]")[0])
+    rc, out, _ = _cli(pmain, home, ["run", "composition", "-f", str(comp),
+                                    "--write-artifacts"])
+    assert rc == 0 and "sim:plan built placebo" in out
+    assert "wrote artifacts into composition" in out
+    text = comp.read_text()
+    assert "sim-plan--placebo-" in text
+    rc, out, _ = _cli(pmain, home, ["run", "composition", "-f", str(comp)])
+    assert rc == 0 and "built" not in out
+    rc, out, _ = _cli(pmain, home, ["run", "composition", "-f", str(comp),
+                                    "--ignore-artifacts", "--run-ids", "default"])
+    assert rc == 0 and "sim:plan built placebo" in out
+
+
+# ------------------------------------------------------------- refusals
+
+
+def test_disabled_runner_is_refused_like_jax(tmp_path):
+    msgs = {}
+    for pkg, main, runner in (("jax", jmain, "sim:jax"), ("torch", pmain, "sim:torch")):
+        home = _make_home(tmp_path, pkg, f'[runners."{runner}"]\ndisabled = true\n',
+                          ("placebo",))
+        rc, out, err = _cli(main, home, ["run", "single", "placebo:ok", "-i", "2",
+                                         "--builder", "sim:plan", "--runner", runner])
+        assert rc == 1 and "(outcome: failure)" in out
+        msgs[pkg] = [ln for ln in err.splitlines() if ln.startswith("error: ")]
+    assert msgs["torch"] == ["error: runner sim:torch is disabled in .env.toml"]
+    assert msgs["torch"] == [m.replace("sim:jax", "sim:torch") for m in msgs["jax"]]
+
+
+@pytest.mark.parametrize("setting,item", [("bucket=auto", "item 13"),
+                                          ("num_processes=2", "item 15b"),
+                                          ("phases=true", "item 14")])
+def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
+    home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
+    rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
+                                      "--run-cfg", setting])
+    assert rc == 1 and "(outcome: failure)" in out
+    errors = [ln for ln in err.splitlines() if ln.startswith("error: ")]
+    assert len(errors) == 1 and f"ROADMAP queue 1 {item}" in errors[0], err
+
+
+DAEMON_FLAGS = {
+    "endpoint": ["--endpoint", "http://127.0.0.1:9", "run", "single", "placebo:ok"],
+    "detach": ["run", "single", "placebo:ok", "--detach"],
+    "collect": ["run", "single", "placebo:ok", "--collect"],
+    "collect-file": ["run", "composition", "-f", "x.toml", "--collect-file", "o.tgz"],
+    "priority": ["run", "composition", "-f", "x.toml", "--priority", "3"],
+    "metadata": ["run", "single", "placebo:ok", "--metadata-repo", "org/repo"],
+    "resume": ["run", "resume", "sometask"],
+    "client-endpoint": ["healthcheck", "--runner", "sim:torch"],
+}
+
+
+@pytest.mark.parametrize("name", list(DAEMON_FLAGS))
+def test_daemon_only_flag_is_refused_naming_its_item(name, tmp_path):
+    env = PORT_ENV + ('[client]\nendpoint = "http://127.0.0.1:9"\n'
+                      if name == "client-endpoint" else "")
+    home = _make_home(tmp_path, "torch", env, ("placebo",))
+    rc, out, err = _cli(pmain, home, DAEMON_FLAGS[name])
+    assert rc == 1
+    assert err.startswith("error: ") and "ROADMAP queue 1 item 9e" in err, err
+    assert "run is queued" not in out
+    assert not os.path.exists(home / "data" / "outputs" / "placebo")
+
+
+# ----------------------------------------------------------- healthcheck
+
+
+def _report_lines(stdout):
+    return {m.group(1): m.group(2) for m in re.finditer(r"check (\S+): (\S+)", stdout)}
+
+
+def test_healthcheck_on_the_cpu_passes(tmp_path):
+    home = _make_home(tmp_path, "torch", PORT_ENV, ())
+    rc, out, _ = _cli(pmain, home, ["healthcheck", "--runner", "sim:torch"])
+    assert rc == 0
+    assert _report_lines(out) == dict.fromkeys(
+        ("torch-importable", "device-available", "kernel-buildable", "device-memory",
+         "outputs-dir-writable"), "ok")
+
+
+def test_healthcheck_without_a_card_fails_and_does_not_fall_back(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    home = _make_home(tmp_path, "torch", "", ("placebo",))
+    rc, out, _ = _cli(pmain, home, ["healthcheck", "--runner", "sim:torch", "--fix"])
+    assert rc == 1
+    checks = _report_lines(out)
+    assert checks["device-available"] == "failed" and checks["torch-importable"] == "ok"
+    assert "no CUDA device" in out
+    # a run fails with the reference's healthcheck error and runs nothing
+    rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2"])
+    assert rc == 1 and "(outcome: failure)" in out
+    assert "error: runner sim:torch failed healthcheck" in err
+    assert not os.path.exists(home / "data" / "outputs" / "placebo")
+
+
+def test_run_cfg_device_cpu_passes_the_healthcheck_without_a_card(tmp_path, monkeypatch):
+    """The healthcheck checks the run's device, coalesced from the
+    composition (here ``--run-cfg``), not the env's layer alone."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    home = _make_home(tmp_path, "torch", "", ("placebo",))
+    rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
+                                      "--run-cfg", "device=cpu"])
+    assert rc == 0 and "(outcome: success)" in out, out + err
+    assert "check device-available: ok" not in out  # the report prints only on failure
+    assert pcommands.LAST_TASK.result["journal"]["sim"]["transport"]["resolved"] == "plain"
+
+
+def _fake_card(monkeypatch, allocated=0, total=80 * 2**30):
+    """A card as the healthcheck reads it, with no CUDA call reaching torch."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "a card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda d=None: allocated)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d=None: type("Props", (), {"total_memory": total})())
+    # the whole card held by the caching allocator and other processes
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d=None: (0, total))
+
+
+def test_healthcheck_checks_the_device_the_run_config_names(tmp_path, monkeypatch):
+    """On a card host, a run set to ``device = "cpu"`` builds no kernel and
+    reads no card memory: its checks are on the CPU."""
+    _fake_card(monkeypatch)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(ct, "build_kernels", no_nvcc)
+    env = EnvConfig.load(home=str(tmp_path))
+    ow = pcommands.OutputWriter(None)
+    on_cpu = SimTorchRunner().healthcheck(fix=False, ow=ow, env=env,
+                                          config=pexec.SimTorchConfig(device="cpu"))
+    assert on_cpu.ok(), str(on_cpu)
+    msgs = {c.name: c.message for c in on_cpu.checks}
+    assert "cpu" in msgs["kernel-buildable"] and "cpu" in msgs["device-memory"]
+    on_card = SimTorchRunner().healthcheck(fix=False, ow=ow, env=env,
+                                           config=pexec.SimTorchConfig())
+    assert not on_card.ok()
+    assert "nvcc not found" in {c.name: c.message for c in on_card.checks}["kernel-buildable"]
+
+
+@pytest.mark.parametrize("allocated,status", [(2**30, "ok"), (79 * 2**30, "failed")])
+def test_device_memory_counts_live_allocations(allocated, status, tmp_path, monkeypatch):
+    """``device-memory`` counts the live allocations, as the reference's
+    ``bytes_in_use``: a card whose memory the cache or other processes
+    hold passes, one this process has filled past 95% fails."""
+    _fake_card(monkeypatch, allocated=allocated)
+    monkeypatch.setattr(prunner, "_kernel_check", lambda dev: (True, "built"))
+    env = EnvConfig.load(home=str(tmp_path))
+    report = SimTorchRunner().healthcheck(fix=False, ow=pcommands.OutputWriter(None), env=env)
+    check = {c.name: c for c in report.checks}["device-memory"]
+    assert check.status == status, check.message
+    assert f"{allocated}/{80 * 2**30} bytes in use" in check.message
+
+
+def test_kernel_that_does_not_build_fails_the_healthcheck(tmp_path, monkeypatch):
+    def no_nvcc():
+        raise RuntimeError("nvcc not found: the transport kernels are built with "
+                           "the CUDA toolkit")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: "a card")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(ct, "build_kernels", no_nvcc)
+    monkeypatch.setattr(prunner, "_kernel_check_ok", {})
+    env = EnvConfig.load(home=str(tmp_path))
+    report = SimTorchRunner().healthcheck(fix=True, ow=pcommands.OutputWriter(None), env=env)
+    by_name = {c.name: c for c in report.checks}
+    assert by_name["device-available"].status == "ok"
+    assert by_name["kernel-buildable"].status == "failed"
+    assert "nvcc not found" in by_name["kernel-buildable"].message
+    assert not report.ok() and prunner._kernel_check_ok == {}
+
+
+def test_runner_identity_and_registry():
+    r = SimTorchRunner()
+    assert r.id() == "sim:torch" and r.compatible_builders() == ["sim:plan"]
+    assert r.config_type() is pexec.SimTorchConfig
+    reg = Registry.new_default(EnvConfig())
+    assert sorted(reg.builders) == ["sim:plan"] and sorted(reg.runners) == ["sim:torch"]
+    with pytest.raises(ValueError, match="unknown runner: sim:jax"):
+        reg.do_healthcheck("sim:jax", False, None)
+
+
+def test_version():
+    rc, out, _ = _cli(pmain, ".", ["version"])
+    assert rc == 0 and out.startswith("testground-tpu-torch ")
+
+
+# ------------------------------------------------------------ Influx mirror
+
+
+class _Capture(http.server.BaseHTTPRequestHandler):
+    def do_POST(self):
+        n = int(self.headers["Content-Length"])
+        self.server.posts.append((self.path, self.rfile.read(n).decode("utf-8")))
+        self.send_response(204)
+        self.end_headers()
+
+    def log_message(self, *args):
+        pass
+
+
+@pytest.fixture()
+def capture():
+    srv = http.server.HTTPServer(("127.0.0.1", 0), _Capture)
+    srv.posts = []
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    yield srv
+    srv.shutdown()
+    srv.server_close()
+
+
+def _rebased(body):
+    """Each line's timestamp as ``base+tick``: every line of one run shares
+    its base (the run's start), which differs between two runs."""
+    bases, out = set(), []
+    for line in body.splitlines():
+        head, ts = line.rsplit(" ", 1)
+        tick = int(re.search(r"(?:^|,| )tick=(-?\d+)i", head).group(1))
+        bases.add(int(ts) - tick)
+        out.append(f"{head} base+{tick}")
+    assert len(bases) == 1, bases
+    return out, bases.pop()
+
+
+@pytest.mark.parametrize("batch", [5000, 7])
+def test_influx_mirror_posts_the_reference_bodies(batch, capture, tmp_path, monkeypatch):
+    """The same run through both executors with an Influx endpoint: the
+    capture server receives the same line-protocol bodies, timestamps
+    rebased to each run's start, and the journals' influx blocks agree."""
+    from testground_tpu.api import RunGroup as JRunGroup
+    from testground_tpu.api import RunInput as JRunInput
+    from testground_tpu.rpc import discard_writer as jdiscard
+    from testground_tpu_torch.api import RunGroup, RunInput
+    from testground_tpu_torch.rpc import discard_writer
+
+    monkeypatch.setattr(jexec, "_INFLUX_BATCH_LINES", batch)
+    monkeypatch.setattr(pexec, "_INFLUX_BATCH_LINES", batch)
+    endpoint = f"http://127.0.0.1:{capture.server_port}"
+    cfg = {"telemetry": True, "chunk": 16, "timeseries_every": 16}
+    common = dict(run_id="influx", test_plan="network", test_case="ping-pong",
+                  total_instances=8)
+    posts, journals = {}, {}
+    for pkg in ("jax", "torch"):
+        if pkg == "jax":
+            env = JEnvConfig.load(home=str(tmp_path / pkg))
+            job = JRunInput(groups=[JRunGroup(id="all", instances=8, artifact_path=os.path.join(
+                REF_PLANS, "network"))], env=env,
+                runner_config=jexec.SimJaxConfig(shard=False, perf=False, **cfg), **common)
+            execute, writer = jexec.execute_sim_run, jdiscard()
+        else:
+            env = EnvConfig.load(home=str(tmp_path / pkg))
+            job = RunInput(groups=[RunGroup(id="all", instances=8)], env=env,
+                           runner_config=pexec.SimTorchConfig(device="cpu", **cfg),
+                           **common)
+            execute, writer = pexec.execute_sim_run, discard_writer()
+        env.daemon.influxdb_endpoint = endpoint
+        capture.posts.clear()
+        out = execute(job, writer, threading.Event())
+        posts[pkg] = list(capture.posts)
+        journals[pkg] = {k: v for k, v in out.result.journal.items()
+                         if k.startswith("influx")}
+    assert [p for p, _ in posts["torch"]] == [p for p, _ in posts["jax"]]
+    assert all(p == "/write?db=testground" for p, _ in posts["torch"])
+    bases = set()
+    for (_, pbody), (_, jbody) in zip(posts["torch"], posts["jax"]):
+        plines, pbase = _rebased(pbody)
+        jlines, _ = _rebased(jbody)
+        assert plines == jlines
+        bases.add(pbase)
+    assert len(bases) == 1  # one base for the run's every family
+    assert journals["torch"] == journals["jax"]
+    assert set(journals["torch"]) == {"influx", "influx_telemetry", "influx_latency"}
+    assert all(j["ok"] for j in journals["torch"].values())
+    assert len(posts["torch"]) >= 3
+    if batch == 7:
+        assert journals["torch"]["influx_telemetry"]["batches"] > 1
+    text = "".join(b for _, b in posts["torch"])
+    assert "results.network-ping-pong.sim.latency.p50" in text
+    assert "results.network-ping-pong.sim.delivered" in text
+
+
+def test_influx_mirror_failure_is_journaled_not_fatal(tmp_path, monkeypatch):
+    """An endpoint that refuses every POST: the run still succeeds, and
+    each family's block records the failure as the reference's does."""
+    from testground_tpu_torch.api import RunGroup, RunInput
+    from testground_tpu_torch.metrics import influx
+    from testground_tpu_torch.rpc import discard_writer
+
+    monkeypatch.setattr(influx, "_RETRY_BASE_SECS", 0.0)
+    monkeypatch.setattr(influx, "_RETRY_JITTER_SECS", 0.0)
+    env = EnvConfig.load(home=str(tmp_path))
+    env.daemon.influxdb_endpoint = "http://127.0.0.1:9"  # nothing listens there
+    job = RunInput(run_id="down", test_plan="network", test_case="ping-pong",
+                   total_instances=4, groups=[RunGroup(id="all", instances=4)], env=env,
+                   runner_config=pexec.SimTorchConfig(device="cpu", telemetry=True,
+                                                      chunk=16, timeseries_every=16))
+    out = pexec.execute_sim_run(job, discard_writer(), threading.Event())
+    assert out.result.outcome.value == "success"
+    j = out.result.journal
+    assert not j["influx"]["ok"] and j["influx"]["attempts"] == 3
+    assert j["influx_telemetry"]["aborted"] and j["influx_telemetry"]["batches"] == 1
+
+
+# --------------------------------------------------- helpers' copies
+
+
+@pytest.mark.parametrize("fix", [False, True])
+def test_healthcheck_helper_matches_jax(fix, tmp_path):
+    """The same checks through both packages' ``Helper``: the same report."""
+    from testground_tpu.healthcheck import Helper as JHelper
+    from testground_tpu.healthcheck import checkers as jcheckers
+    from testground_tpu.healthcheck import fixers as jfixers
+    from testground_tpu_torch.healthcheck import Helper, checkers, fixers
+
+    reports = []
+    for helper, chk, fx, pkg in ((JHelper, jcheckers, jfixers, "jax"),
+                                 (Helper, checkers, fixers, "torch")):
+        missing = str(tmp_path / pkg / "outputs")
+        h = helper()
+        h.enlist("passes", lambda: (True, "fine"))
+        h.enlist("fixable", chk.check_dir_writable(missing), fx.create_directory(missing))
+        h.enlist("manual", lambda: (False, "broken"), fx.requires_manual_fixing("call x"))
+        h.enlist("no-fixer", lambda: (False, "broken too"))
+
+        def raises():
+            raise OSError("probe failed")
+
+        h.enlist("raises", raises)
+        r = h.run_checks(fix)
+        reports.append((r.ok(), json.loads(json.dumps(r.to_dict()).replace(pkg, "<pkg>")),
+                        str(r).replace(pkg, "<pkg>")))
+    assert reports[1] == reports[0]
+    assert reports[1][0] is False
+
+
+def test_trace_context_and_task_ids_match_jax(tmp_path):
+    """A run task's lifecycle trace ids and its ID have the reference's
+    forms: a 32-hex trace, 16-hex spans and 20 base32hex characters."""
+    from testground_tpu import tracectx as jtrace
+    from testground_tpu.engine.task import new_task_id as jnew_task_id
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.engine.supervisor import new_run_task
+    from testground_tpu_torch.engine.task import new_task_id
+    from testground_tpu_torch.sim import telemetry as ptel
+
+    for pmake, jmake in ((ptel.new_trace_id, jtrace.new_trace_id),
+                         (ptel.new_span_id, jtrace.new_span_id)):
+        got, want = pmake(), jmake()
+        assert re.fullmatch(r"[0-9a-f]+", got) and len(got) == len(want)
+    home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
+    comp = home / "one-run.toml"
+    comp.write_text(TWO_RUNS.format(runner="sim:torch").split("[[runs]]")[0])
+    env = EnvConfig.load(home=str(home))
+    manifest = pcommands._resolve_plan(env, "placebo")[1]
+    tsk = new_run_task(Registry.new_default(env), load_composition(str(comp)), manifest)
+    assert set(tsk.trace) == {"trace_id", "root_span_id", "queued_span_id"}
+    assert re.fullmatch(r"[0-9a-f]{32}", tsk.trace["trace_id"])
+    assert all(re.fullmatch(r"[0-9a-f]{16}", tsk.trace[k])
+               for k in ("root_span_id", "queued_span_id"))
+    for make in (new_task_id, jnew_task_id):
+        ids = [make() for _ in range(50)]
+        assert len(set(ids)) == 50
+        assert all(re.fullmatch(r"[0-9a-v]{20}", i) for i in ids)

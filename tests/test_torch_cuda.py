@@ -622,3 +622,61 @@ def test_gpu_meshed_run_matches_cpu_runs(cuda, name):
     for k in cu:
         np.testing.assert_array_equal(cm[k], cu[k], err_msg=k)
         np.testing.assert_array_equal(cg[k], cu[k], err_msg=k)
+
+
+def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkeypatch):
+    """``run composition`` of the port's chaos smoke composition through the
+    CLI, in a home whose ``.env.toml`` names no device (the card) and in one
+    that sets ``device = "cpu"``: both succeed, the card's run launches K1
+    and K2 and journals them, and the run directories are equal once the
+    run ID and the wall-clock fields are dropped."""
+    import json
+    import os
+    import shutil
+
+    from testground_tpu_torch.cli import commands
+    from testground_tpu_torch.cli.main import main
+
+    varying = {"ts", "wall_ns", "wall_secs", "compile_secs", "trace_id", "span_id",
+               "parent_id", "transport"}
+
+    def strip(x, run_id):
+        if isinstance(x, dict):
+            return {k: strip(v, run_id) for k, v in x.items() if k not in varying}
+        if isinstance(x, list):
+            return [strip(v, run_id) for v in x]
+        return x.replace(run_id, "<run>") if isinstance(x, str) else x
+
+    trees = {}
+    for dev, env in (("cuda", ""), ("cpu", '[runners."sim:torch"]\ndevice = "cpu"\n')):
+        home = tmp_path / dev
+        shutil.copytree(os.path.join(plan_dir("chaos")), home / "plans" / "chaos",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        (home / ".env.toml").write_text(env)
+        monkeypatch.setenv("TESTGROUND_HOME", str(home))
+        before = (ct.commit_calendar.launches, ct.pop_bucket.launches)
+        comp = home / "plans" / "chaos" / "_compositions" / "smoke.toml"
+        assert main(["run", "composition", "-f", str(comp)]) == 0
+        after = (ct.commit_calendar.launches, ct.pop_bucket.launches)
+        task = commands.LAST_TASK
+        assert task.outcome().value == "success"
+        sim = task.result["journal"]["sim"]
+        assert sim["transport"]["resolved"] == ("cuda" if dev == "cuda" else "plain")
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+        else:
+            assert after == before
+        run_dir = home / "data" / "outputs" / "chaos" / task.id
+        tree = {}
+        for root, _, names in os.walk(run_dir):
+            for name in names:
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    rows = ([json.load(f)] if name.endswith(".json") else
+                            [json.loads(ln) for ln in f if ln.strip()])
+                tree[os.path.relpath(path, run_dir)] = strip(rows, task.id)
+        trees[dev] = (tree, strip(task.result["journal"], task.id))
+    assert sorted(trees["cuda"][0]) == sorted(trees["cpu"][0])
+    for rel in trees["cpu"][0]:
+        assert trees["cuda"][0][rel] == trees["cpu"][0][rel], rel
+    assert trees["cuda"][1] == trees["cpu"][1]

@@ -320,13 +320,6 @@ def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
     assert not os.path.exists(tmp_path / "placebo")  # refused before any output
 
 
-def test_influx_endpoint_is_refused_naming_its_item(tmp_path):
-    job = _placebo_job(tmp_path)
-    job.env.daemon = type("Daemon", (), {"influxdb_endpoint": "http://localhost:8086"})
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        pexec.execute_sim_run(job, discard_writer(), threading.Event())
-
-
 def test_without_a_gpu_no_device_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     job = _placebo_job(tmp_path, device=None)

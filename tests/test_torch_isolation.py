@@ -62,7 +62,18 @@ def test_the_scan_sees_the_whole_port():
                              "check", "meshplan")),
                  *(f"testground_tpu_torch/{m}.py"
                    for m in ("api/run_input", "engine/task", "runners/result",
-                             "runners/outputs", "rpc/writer")),
+                             "runners/outputs", "rpc/writer",
+                             # the control plane above the executor
+                             "utils/toml_writer", "utils/conv", "config/dirs",
+                             "config/coalescing", "config/env", "api/template",
+                             "api/composition", "api/manifest", "api/validation",
+                             "api/preparation", "healthcheck/report",
+                             "healthcheck/helper", "healthcheck/checkers",
+                             "healthcheck/fixers", "runners/base", "builders/base",
+                             "builders/sim_plan", "sim/runner", "engine/supervisor",
+                             "logging_", "metrics/influx",
+                             "metrics/viewer", "cli/main", "cli/__main__",
+                             "cli/commands")),
                  *(f"testground_tpu_torch/plans/{p}/sim.py"
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos"))):
