@@ -137,7 +137,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "parity")
+          "cli", "daemon", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -1666,8 +1666,14 @@ def _strip(x):
     return x
 
 
+# the engine's lifecycle span tree in a run directory, and its clocks
+SPAN_TREE_FILES = ("task_spans.jsonl", "task_trace.json")
+SPAN_CLOCKS = frozenset({"start_ns", "end_ns", "ts", "dur"})
+
+
 def read_run_dir(run_dir) -> dict:
-    """Every file of a run directory, parsed, the varying fields dropped."""
+    """Every file of a run directory, parsed, the varying fields dropped;
+    the span tree's rows without their clocks, in an order of their own."""
     out = {}
     for root, _, names in os.walk(run_dir):
         for fname in names:
@@ -1676,6 +1682,10 @@ def read_run_dir(run_dir) -> dict:
                 rel = os.path.relpath(path, run_dir)
                 out[rel] = (_strip(json.load(f)) if fname.endswith(".json") else
                             [_strip(json.loads(ln)) for ln in f if ln.strip()])
+            if fname in SPAN_TREE_FILES:
+                rows = out[rel]["traceEvents"] if fname.endswith(".json") else out[rel]
+                out[rel] = sorted(({k: v for k, v in r.items() if k not in SPAN_CLOCKS}
+                                   for r in rows), key=lambda r: json.dumps(r, sort_keys=True))
     return out
 
 
@@ -1892,8 +1902,8 @@ def cli_call(home, argv) -> dict:
     import io
     import re
 
-    from testground_tpu_torch.cli import commands
     from testground_tpu_torch.cli.main import main as cli_main
+    from testground_tpu_torch.engine import TaskStorage
 
     out, err = io.StringIO(), io.StringIO()
     old = os.environ.get("TESTGROUND_HOME")
@@ -1911,9 +1921,11 @@ def cli_call(home, argv) -> dict:
         else:
             os.environ["TESTGROUND_HOME"] = old
     m = re.search(r"run is queued with ID: (\S+)", out.getvalue())
-    task = commands.LAST_TASK
+    # the in-process engine's disk store; through a daemon, its store
+    db = os.path.join(home, "tasks.db")
+    task = TaskStorage(db).get(m.group(1)) if m and os.path.exists(db) else None
     return {"rc": rc, "out": out.getvalue(), "err": err.getvalue(), "wall": wall,
-            "task": task if m and task is not None and task.id == m.group(1) else None}
+            "task": task}
 
 
 def cli_run(label, home, argv, launches) -> dict:
@@ -2195,6 +2207,383 @@ def phase_cli(card) -> dict:
     return row
 
 
+# ---------------------------------------------------------------- daemon
+
+DAEMON_TURNS = 3
+# a composition of one group, with {n}, {chunk}, {max_ticks}, {cfg} (more
+# run-config lines), {params} and {faults} ([[global.run.faults]] blocks)
+DAEMON_COMPOSITION = """[metadata]
+name = "{name}"
+
+[global]
+plan = "network"
+case = "pingpong-sustained"
+builder = "sim:plan"
+runner = "sim:torch"
+
+[global.run_config]
+chunk = {chunk}
+max_ticks = {max_ticks}
+telemetry = true
+{cfg}
+
+[[groups]]
+id = "all"
+
+[groups.instances]
+count = {n}
+
+[groups.run.test_params]
+{params}
+{faults}
+"""
+
+
+def daemon_composition(root, name, n, params, chunk=250, max_ticks=10000, cfg="",
+                       faults=()) -> str:
+    """A sustained composition file under ``root``; returns its path."""
+    blocks = "\n".join("[[global.run.faults]]\n" + "\n".join(
+        f"{k} = {json.dumps(v)}" for k, v in f.items()) for f in faults)
+    path = os.path.join(root, f"{name}.toml")
+    with open(path, "w") as f:
+        f.write(DAEMON_COMPOSITION.format(
+            name=name, n=n, chunk=chunk, max_ticks=max_ticks, cfg=cfg, faults=blocks,
+            params="\n".join(f'{k} = "{v}"' for k, v in params.items())))
+    return path
+
+
+def _wait_done(client, task_id, deadline_s, poll_s=0.01) -> dict:
+    """``status`` until the task is complete or canceled, within a deadline."""
+    t_end = time.monotonic() + deadline_s
+    while True:
+        t = client.status(task_id)
+        if t["states"][-1]["state"] in ("complete", "canceled"):
+            return t
+        check(time.monotonic() < t_end, f"daemon: task {task_id} not done in {deadline_s}s")
+        time.sleep(poll_s)
+
+
+def _sim_flows(task) -> dict:
+    """A task's flow counters, its per-group events and its outcome."""
+    j = task["result"]["journal"]
+    return {"outcome": task["outcome"], "events": j["events"],
+            "flows": {k: v for k, v in j["sim"].items() if k.startswith("msgs_")},
+            "ticks": j["sim"]["ticks"]}
+
+
+def phase_daemon(card) -> dict:
+    """The daemon on the card: ``python -m testground_tpu_torch.cli daemon``
+    as a process of its own, driven by the CLI with ``--endpoint``
+    (``healthcheck``, two detached runs claimed at once by its two workers
+    on their first kernel launch, ``run composition`` of the sustained
+    smoke, ``tasks``, ``status``, ``logs``, ``collect`` against the same
+    composition run by the in-process CLI, ``terminate``) and stopped by
+    SIGTERM; then an in-process ``Daemon`` (its workers' launches counted
+    here): sustained@100k through its client in turns against the in-process
+    CLI (queue wait, wall outside the runner; kernels a tick and device
+    ms/tick of both, first chunk profiled, last); two runs at once on its
+    two workers, each equal to its run alone; ``/kill`` of a 10,000-tick
+    run after its first chunk; the chaos smoke on the CPU and on the card
+    through it, equal."""
+    import re
+    import shutil
+    import signal
+    import socket
+    import tarfile
+    import tempfile
+
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "daemon", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def ids_out(x, task_id, home):
+        return json.loads(json.dumps(x).replace(task_id, "<task>").replace(home, "<home>"))
+
+    smoke_rel = os.path.join("plans", "network", "_compositions", "sustained-smoke.toml")
+    try:
+        # 1. the daemon process, as its users start it
+        home = cli_home(root, "daemon")
+        client_home = cli_home(root, "client")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ep = f"http://127.0.0.1:{port}"
+        log_path = os.path.join(root, "daemon.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "testground_tpu_torch.cli", "daemon",
+                 "--listen", f"127.0.0.1:{port}"],
+                cwd=here, stdout=log, stderr=subprocess.STDOUT,
+                env={**os.environ, "TESTGROUND_HOME": home, "PYTHONPATH": here})
+        client = Client(ep)
+
+        def log_tail():
+            with open(log_path) as f:
+                return f.read()[-3000:]
+
+        try:
+            t_end = time.monotonic() + 120
+            while True:
+                check(proc.poll() is None, f"daemon exited early: {log_tail()}")
+                try:
+                    client.tasks()
+                    break
+                except OSError:
+                    check(time.monotonic() < t_end, f"daemon did not answer: {log_tail()}")
+                    time.sleep(0.2)
+            row["answers_s"] = 120 - (t_end - time.monotonic())
+            step("daemon_answers")
+
+            def remote(argv):
+                return cli_call(client_home, ["--endpoint", ep, *argv])
+
+            # two detached runs, claimed at once by the two workers: both
+            # reach the kernels' first launch (the build, K2's check) together
+            smoke = os.path.join(client_home, smoke_rel)
+            detached = []
+            for _ in range(2):
+                got = remote(["run", "composition", "-f", smoke, "--detach"])
+                check(got["rc"] == 0 and "finished run" not in got["out"],
+                      f"daemon --detach: {got['out'][-1000:]} {got['err'][-1000:]}")
+                detached.append(re.search(r"run is queued with ID: (\S+)", got["out"])[1])
+            done = [_wait_done(client, tid, 120, poll_s=0.1) for tid in detached]
+            check(all(t["outcome"] == "success" for t in done),
+                  f"daemon detached runs: {[t['error'] for t in done]}")
+            check(_sim_flows(done[0]) == _sim_flows(done[1]), "daemon: detached runs differ")
+            starts = [t["states"][1]["created"] for t in done]
+            ends = [t["states"][2]["created"] for t in done]
+            row["detached"] = {"overlap_s": min(ends) - max(starts),
+                               "queued_secs": [t["result"]["perf"]["queued_secs"]
+                                               for t in done]}
+            step("detached_pair")
+
+            got = remote(["healthcheck", "--runner", "sim:torch"])
+            report = [ln for ln in got["out"].splitlines()
+                      if ln.startswith(("check ", "fix "))]
+            check(got["rc"] == 0 and len(report) == 10
+                  and all(": ok " in ln or ": omitted " in ln for ln in report),
+                  f"daemon healthcheck: {got['out'][-2000:]}")
+            row["healthcheck"] = report
+
+            got = remote(["run", "composition", "-f", smoke])
+            check(got["rc"] == 0 and "(outcome: success)" in got["out"],
+                  f"daemon run: {got['out'][-1500:]} {got['err'][-1500:]}")
+            tid = re.search(r"run is queued with ID: (\S+)", got["out"])[1]
+            task = client.status(tid)
+            sim = task["result"]["journal"]["sim"]
+            check(sim["transport"]["resolved"] == "cuda"
+                  and "commit_k" in sim["transport"]["reason"],
+                  f"daemon run: transport {sim['transport']}")
+            verbs = {}
+            for verb, argv in (("tasks", ["tasks"]), ("status", ["status", "-t", tid]),
+                               ("logs", ["logs", "-t", tid])):
+                got = remote(argv)
+                check(got["rc"] == 0 and tid in got["out"] if verb != "logs"
+                      else got["rc"] == 0 and f"executing run {tid}" in got["out"],
+                      f"daemon {verb}: {got['out'][-1000:]} {got['err'][-1000:]}")
+                verbs[verb] = len(got["out"].splitlines())
+            check("Outcome: success" in remote(["status", "-t", tid])["out"],
+                  "daemon status: outcome")
+            tgz = os.path.join(root, "collected.tgz")
+            got = remote(["collect", tid, "--runner", "sim:torch", "-o", tgz])
+            check(got["rc"] == 0 and os.path.getsize(tgz) > 0, f"daemon collect: {got['err']}")
+            unpacked = os.path.join(root, "collected")
+            with tarfile.open(tgz) as tar:
+                tar.extractall(unpacked, filter="data")
+            remote_tree = ids_out(read_run_dir(os.path.join(unpacked, tid)), tid, home)
+            # the same composition through the in-process CLI
+            got = cli_run("daemon sustained-smoke in process", client_home,
+                          ["run", "composition", "-f", smoke], launches)
+            local = got["task"]
+            local_tree = ids_out(read_run_dir(_run_dir(client_home, local)), local.id,
+                                 client_home)
+            diff = sorted(set(local_tree) ^ set(remote_tree)) + [
+                k for k in local_tree if k in remote_tree and local_tree[k] != remote_tree[k]]
+            check(not diff and "task_spans.jsonl" in local_tree,
+                  f"daemon collect: differs from the in-process run in {diff}")
+            got = remote(["terminate", "--runner", "sim:torch"])
+            check(got["rc"] == 0 and "all jobs terminated" in got["out"],
+                  f"daemon terminate: {got['out']} {got['err']}")
+            row["process"] = {"verbs_lines": verbs, "files_compared": len(local_tree),
+                              "ticks": sim["ticks"]}
+            step("verbs")
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+                rc = None
+        check(rc == 0, f"daemon: SIGTERM exit {rc}: {log_tail()}")
+        step("sigterm")
+
+        # 2. an in-process daemon: its workers' launches count here
+        env = EnvConfig.load(home=cli_home(root, "inproc"))
+        env.daemon.scheduler.workers = 2
+        daemon = Daemon(env=env, listen="127.0.0.1:0")
+        daemon.start()
+        client = Client(daemon.address)
+        try:
+            path = daemon_composition(root, "sustained-100k", 100_000, SUSTAINED)
+            comp = load_composition(path).to_dict()
+
+            def daemon_run(c, max_s=300, whole=True, poll_s=0.1):
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tid = client.run(c)
+                # polled as the reference's client waits (`tg` follows the
+                # log, its tests poll status), every 0.1 s
+                t = _wait_done(client, tid, max_s, poll_s=poll_s)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_launches()
+                # a run cut to its first chunk ends before the plan does
+                check(t["outcome"] == "success" or not whole,
+                      f"daemon run {tid}: {t['error']}")
+                check(all(v > 0 for v in counts.values()), f"daemon run: launches {counts}")
+                for k, v in counts.items():
+                    launches[k] += v
+                return t, wall, counts
+
+            daemon_run(comp)  # warm-up
+            step("sustained_100k_warm_up")
+            turns = {"daemon": [], "cli": [], "daemon_polled_10ms": []}
+            ways = [("daemon", "cli") if i % 2 == 0 else ("cli", "daemon")
+                    for i in range(DAEMON_TURNS)]
+            # last, a daemon run whose client polls status every 10 ms from
+            # this process: what a busy poller costs a run beside it
+            for i, way in enumerate([w for pair in ways for w in pair]
+                                    + ["daemon_polled_10ms"]):
+                if way.startswith("daemon"):
+                    t, wall, counts = daemon_run(
+                        comp, poll_s=0.01 if way == "daemon_polled_10ms" else 0.1)
+                    perf, journal = t["result"]["perf"], t["result"]["journal"]
+                    states = [s["created"] for s in t["states"]]
+                else:
+                    got = cli_run(f"daemon sustained@100k cli turn {i}", client_home,
+                                  ["run", "composition", "-f", path], launches)
+                    perf, journal = got["task"].result["perf"], got["task"].result["journal"]
+                    states = [s.created for s in got["task"].states]
+                    wall, counts = got["wall"], got["launches"]
+                runner_s = perf["runner_wall_secs"]["default"]
+                ticks = journal["telemetry"]["rows"]  # the ticks that ran
+                turns[way].append({
+                    "wall_s": wall, "queued_secs": perf["queued_secs"],
+                    # submit to the status that saw it complete
+                    "outside_runner_ms": (wall - runner_s) * 1e3,
+                    # the store's own stamps: scheduled to complete
+                    "outside_runner_in_store_ms": (states[-1] - states[0] - runner_s) * 1e3,
+                    "wall_ms_per_tick": wall / ticks * 1e3,
+                    "ticks": ticks, "launches": counts})
+            row["sustained_100k"] = {"n": 100_000, "turns": turns}
+            step("sustained_100k_turns")
+
+            # 3. two runs at once on the two workers, each as it runs alone
+            faulted = load_composition(daemon_composition(
+                root, "faulted-4096", 4096, SUSTAINED,
+                faults=sustained_fault_tables(4096)[""])).to_dict()
+            smoke_comp = load_composition(os.path.join(client_home, smoke_rel)).to_dict()
+            alone = [_sim_flows(daemon_run(c)[0]) for c in (smoke_comp, faulted)]
+            reset_launches()
+            pair_ids = [client.run(c) for c in (smoke_comp, faulted)]
+            pair = [_wait_done(client, tid, 300) for tid in pair_ids]
+            for k, v in read_launches().items():
+                launches[k] += v
+            together = [_sim_flows(t) for t in pair]
+            check(together == alone, f"daemon pair: {together} != alone {alone}")
+            check(alone[1]["flows"]["msgs_fault_dropped"] > 0, "daemon pair: no fault drops")
+            starts = [t["states"][1]["created"] for t in pair]
+            ends = [t["states"][2]["created"] for t in pair]
+            row["pair"] = {"overlap_s": min(ends) - max(starts),
+                           "ticks": [f["ticks"] for f in together]}
+            step("pair")
+
+            # 4. /kill of a 10,000-tick run after its first chunk's row
+            long_path = daemon_composition(
+                root, "sustained-10k", 100_000,
+                {**SUSTAINED, "duration_ticks": "10000"}, max_ticks=10_000)
+            tid = client.run(load_composition(long_path).to_dict())
+            rows = os.path.join(env.dirs.outputs(), "network", tid, "sim_timeseries.jsonl")
+            t_end = time.monotonic() + 120
+            while not (os.path.exists(rows) and os.path.getsize(rows) > 0):
+                check(time.monotonic() < t_end, "daemon kill: no first chunk")
+                time.sleep(0.01)
+            with open(rows) as f:
+                at_kill = sum(1 for _ in f)
+            check(client.kill(tid), "daemon kill: not killed")
+            t = _wait_done(client, tid, 120)
+            ticks = t["result"]["journal"]["sim"]["ticks"]
+            check(ticks < 10_000 and ticks - at_kill <= 2 * 250,
+                  f"daemon kill: ran {ticks} ticks, {at_kill} rows at the kill")
+            after = daemon_run(smoke_comp)[0]
+            row["kill"] = {"rows_at_kill": at_kill, "ticks": ticks,
+                           "state": t["states"][-1]["state"], "outcome": t["outcome"],
+                           "run_outcome": t["result"]["journal"]["events"],
+                           "next_run": after["outcome"]}
+            step("kill")
+
+            # 5. the chaos smoke on the CPU and on the card, through the daemon
+            chaos = os.path.join(client_home, "plans", "chaos", "_compositions",
+                                 "smoke.toml")
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                c = load_composition(chaos).to_dict()
+                if dev == "cpu":
+                    c["global"]["run_config"]["device"] = "cpu"
+                tid = client.run(c)
+                t = _wait_done(client, tid, 300)
+                check(t["outcome"] == "success", f"daemon chaos {dev}: {t['error']}")
+                rd = os.path.join(env.dirs.outputs(), "chaos", tid)
+                res = dict(t["result"])
+                res.pop("perf", None)
+                res.pop("composition", None)
+                res["journal"]["sim"] = {k: v for k, v in res["journal"]["sim"].items()
+                                         if k not in SIM_SKIPPED}
+                runs[dev] = (ids_out(read_run_dir(rd), tid, env.dirs.home),
+                             ids_out(_strip(res), tid, env.dirs.home))
+            (tg, jg), (tc, jc) = runs["cuda"], runs["cpu"]
+            diff = sorted(set(tc) ^ set(tg)) + [k for k in tc if k in tg and tc[k] != tg[k]]
+            diff += [k for k in jc if jc.get(k) != jg.get(k)]
+            check(not diff, f"daemon chaos: CPU vs GPU differ in {diff}")
+            row["chaos_parity"] = {"files_compared": len(tc)}
+            step("chaos_parity")
+
+            # kernels a tick and device ms/tick over the first chunk, through
+            # the daemon and through the in-process CLI; profiled last
+            first = daemon_composition(root, "sustained-100k-first", 100_000, SUSTAINED,
+                                       max_ticks=250)
+            first_comp = load_composition(first).to_dict()
+            prof = {}
+            for way, fn in (("daemon", lambda: daemon_run(first_comp, whole=False)),
+                            ("cli", lambda: cli_call(client_home,
+                                                     ["run", "composition", "-f", first]))):
+                ms, kernels = _profiled(fn)
+                prof[way] = {"ticks": 250, "device_ms_per_tick": ms / 250,
+                             "kernels_per_tick": kernels / 250}
+            row["sustained_100k"]["profiled"] = prof
+            step("profiled")
+        finally:
+            daemon.stop()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2312,7 +2701,7 @@ def main(argv=None) -> int:
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
                    ("plans", phase_plans), ("executor", phase_executor),
-                   ("mesh", phase_mesh), ("cli", phase_cli)):
+                   ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

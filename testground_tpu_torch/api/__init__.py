@@ -25,6 +25,7 @@ from .preparation import (
 from .run_input import (
     BuildInput,
     BuildOutput,
+    CollectionInput,
     OutputsEnv,
     RunGroup,
     RunInput,
@@ -36,6 +37,7 @@ from .validation import CompositionError, validate_for_build, validate_for_run
 __all__ = [
     "Build",
     "BuildInput",
+    "CollectionInput",
     "BuildOutput",
     "Composition",
     "CompositionError",

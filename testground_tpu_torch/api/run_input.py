@@ -1,7 +1,8 @@
 """Run and build inputs and outputs — the port's own copies of the
 reference's ``RunGroup``, ``RunInput``, ``RunOutput``, ``BuildInput`` and
-``BuildOutput`` (``testground_tpu/api/run_input.py``), without the engine's
-preemption signal (``preempt``) and the collection input.
+``BuildOutput`` and ``CollectionInput`` (``testground_tpu/api/run_input.py``),
+without the engine's preemption signal (``preempt``, ROADMAP queue 1 item
+13).
 
 ``RunInput.env`` is the port's :class:`~testground_tpu_torch.config.EnvConfig`
 when a run comes through the runner; a library caller may pass anything
@@ -21,6 +22,7 @@ from .composition import Resources
 __all__ = [
     "BuildInput",
     "BuildOutput",
+    "CollectionInput",
     "OutputsEnv",
     "RunGroup",
     "RunInput",
@@ -75,6 +77,16 @@ class RunOutput:
     run_id: str
     composition: Any = None
     result: Any = None
+
+
+@dataclass
+class CollectionInput:
+    """Input for collecting a run's outputs (``pkg/api/runner.go:104-114``)."""
+
+    run_id: str
+    runner_id: str
+    runner_config: Any = None
+    env: Any = None
 
 
 @dataclass

@@ -1,5 +1,5 @@
 """``sim:plan`` builder: snapshot a plan's simulation program for the
-``sim:torch`` runner — the port's copy of ``build`` of the
+``sim:torch`` runner — the port's copy of ``build`` and ``purge`` of the
 reference's ``testground_tpu/builders/sim_plan.py``.
 
 The runner executes plans as per-tick state machines over torch tensors,
@@ -18,7 +18,7 @@ import threading
 
 from ..api import BuildInput, BuildOutput
 from ..rpc import OutputWriter
-from .base import Builder
+from .base import Builder, purge_snapshots
 
 __all__ = ["SimPlanBuilder"]
 
@@ -53,3 +53,7 @@ class SimPlanBuilder(Builder):
         )
         ow.infof("sim:plan built %s -> %s", inp.test_plan, dest)
         return BuildOutput(builder_id=self.id(), artifact_path=dest)
+
+    def purge(self, testplan: str, ow: OutputWriter, env=None) -> None:
+        removed = purge_snapshots("sim-plan", testplan, ow, env)
+        ow.infof("sim:plan purge: removed %d snapshot(s)", removed)

@@ -1,23 +1,31 @@
-"""CLI command implementations — the port's copy of ``run composition``,
-``run single``, ``healthcheck`` and ``version`` of the reference's
-``testground_tpu/cli/commands.py`` (``pkg/cmd/{run,healthcheck}.go``).
+"""CLI command implementations — the port's copy of the reference's
+``testground_tpu/cli/commands.py`` (``pkg/cmd/{run,build,collect,terminate,
+healthcheck,tasks,status,logs,daemon}.go``) for the verbs the port serves:
+``run composition|single``, ``build composition|single|purge``, ``tasks``,
+``status``, ``logs``, ``collect``, ``healthcheck``, ``terminate``,
+``daemon`` and ``version``.
 
-A run is lowered and executed in this process (``engine/supervisor.py``),
-its task log printed as it is written. The output phrasing matches the
-reference's ("run is queued with ID", the task log, "finished run with
-ID"), and so does the ``--result-file`` CSV. The flags that need the task
-store or a daemon (``--endpoint``, ``--detach``, ``--collect``,
-``--collect-file``, ``--priority``, ``--metadata-*``) and ``run resume``
-are parsed and refused, naming the ROADMAP item that ports them: such a
-user must not get a silent in-process run.
+Every verb goes through an engine: a ``RemoteEngine`` over the daemon's
+HTTP API when ``--endpoint`` (or ``[client] endpoint``) names one, else an
+in-process ``Engine`` whose task store is on disk, so that ``status``,
+``logs`` and ``tasks`` of a run work from a fresh process. Output phrasing
+matches the reference ("run is queued with ID", the task log, "finished
+run with ID"), and so does the ``--result-file`` CSV.
+
+The reference's flags and verbs that later ROADMAP queue 1 items port are
+refused naming the item: ``run resume`` and ``terminate --drain`` (item
+13), ``build --buckets`` (item 13), ``status --telemetry`` (item 9f), and
+``collect``'s default runner ``local:exec`` (item 16). A verb the port does
+not register (``stats``, ``perf``, ``trace``, ``watch``, ``netmap``,
+``diff``, ``top``, ``preempt``, ``plan``, ``check``, ``describe``) is
+refused by argparse.
 """
 
 from __future__ import annotations
 
-import json
 import os
 import sys
-import threading
+import time
 
 from ..api import (
     Composition,
@@ -30,37 +38,56 @@ from ..api import (
     validate_for_run,
 )
 from ..config import EnvConfig
-from ..engine import Outcome, Task
+from ..engine import Engine, Outcome, State
 from ..rpc import OutputWriter
 from ..utils.conv import parse_key_values
 
-ITEM_9E = ("ROADMAP queue 1 item 9e (the engine, the task queue and storage, "
-           "the daemon and its client)")
-
-# the last task this process ran, for in-process callers that read its
-# result (main returns only the exit code); the task store is item 9e
-LAST_TASK: Task | None = None
+ITEM_9F = ("ROADMAP queue 1 item 9f (the observability verbs and routes, the "
+           "dashboard and plan import)")
+ITEM_13 = "ROADMAP queue 1 item 13 (buckets, packs, checkpoints and preemption)"
+ITEM_16 = ("ROADMAP queue 1 item 16 (the local:exec runner, the exec:py and "
+           "exec:bin builders and the sdk)")
 
 # --------------------------------------------------------------- plumbing
 
 
-class _ConsoleSink:
-    """A task log sink that prints each chunk as the reference's CLI prints
-    a followed task log (``_print_chunk_line``): progress to stdout, the
-    error chunk as ``error: …`` to stderr, the result chunk not at all."""
+def _engine(args):
+    """The engine behind every verb: in-process by default, or an
+    Engine-shaped HTTP client when ``--endpoint`` (or the .env.toml
+    ``[client] endpoint``) points at a daemon — the client↔daemon hop is
+    transport, not semantics (``pkg/client/client.go:43-513``).
 
-    def write(self, text: str) -> None:
-        for line in text.splitlines():
-            if not line.strip():
-                continue
-            chunk = json.loads(line)
-            if chunk.get("t") == "p" and isinstance(chunk.get("p"), str):
-                sys.stdout.write(chunk["p"])
-            elif chunk.get("t") == "e" and chunk.get("e"):
-                print(f"error: {chunk['e']['m']}", file=sys.stderr)
+    In-process task state must survive across CLI invocations
+    (status/logs/tasks run in fresh processes), so the memory default
+    upgrades to disk unless .env.toml explicitly chose memory."""
+    env = EnvConfig.load()
+    endpoint = _endpoint(args, env)
+    if endpoint:
+        from ..client import Client, RemoteEngine
 
-    def flush(self) -> None:
-        sys.stdout.flush()
+        return RemoteEngine(Client(endpoint, token=env.client.token), env)
+    if not env.task_repo_explicit:
+        env.daemon.scheduler.task_repo_type = "disk"
+    engine = Engine.new_default(env)
+    engine.start_workers()
+    return engine
+
+
+def _print_chunk_line(line: str, raw_fallback: bool = True) -> None:
+    """Decode one task-log chunk line to the console (shared by run-follow
+    and ``logs``)."""
+    from ..rpc import Chunk
+
+    try:
+        c = Chunk.from_json(line)
+    except Exception:  # noqa: BLE001 — non-chunk lines pass through
+        if raw_fallback:
+            sys.stdout.write(line)
+        return
+    if c.type == "p" and isinstance(c.payload, str):
+        sys.stdout.write(c.payload)
+    elif c.type == "e" and c.error:
+        print(f"error: {c.error}", file=sys.stderr)
 
 
 def _resolve_plan(env: EnvConfig, plan: str) -> tuple[str, TestPlanManifest]:
@@ -81,27 +108,59 @@ def _resolve_plan(env: EnvConfig, plan: str) -> tuple[str, TestPlanManifest]:
     )
 
 
-def _refuse_daemon_flags(args, env: EnvConfig) -> None:
-    """Refuse every flag that needs the task store or a daemon."""
-    endpoint = getattr(args, "endpoint", "") or env.client.endpoint
-    if endpoint:
-        raise NotImplementedError(
-            f"daemon endpoint {endpoint!r}: the daemon is not ported yet: {ITEM_9E}"
-        )
-    for flag, attr in (
-        ("--detach", "detach"),
-        ("--collect", "collect"),
-        ("--collect-file", "collect_file"),
-        ("--priority", "priority"),
-        ("--metadata-repo", "metadata_repo"),
-        ("--metadata-branch", "metadata_branch"),
-        ("--metadata-commit", "metadata_commit"),
-    ):
-        if getattr(args, attr, None):
-            raise NotImplementedError(
-                f"{flag} needs the task store or a daemon, which are not "
-                f"ported yet: {ITEM_9E}"
-            )
+def _created_by(args, env: EnvConfig):
+    """CreatedBy from the --metadata-* flags (+ [client] user) — the CI
+    identity that drives per-branch queue dedup (``pkg/cmd/run.go:62-70``,
+    ``queue.go:80-97``). None when no metadata was given."""
+    from ..engine.task import CreatedBy
+
+    repo = getattr(args, "metadata_repo", "")
+    branch = getattr(args, "metadata_branch", "")
+    commit = getattr(args, "metadata_commit", "")
+    if not (repo or branch or commit or env.client.user):
+        return None
+    return CreatedBy(
+        user=env.client.user, repo=repo, branch=branch, commit=commit
+    )
+
+
+def _endpoint(args, env: EnvConfig) -> str:
+    """Daemon endpoint precedence: --endpoint flag > .env.toml [client]."""
+    return getattr(args, "endpoint", "") or env.client.endpoint
+
+
+def _resolve_manifest(env: EnvConfig, args, plan: str) -> TestPlanManifest:
+    """Resolve a plan's manifest: locally, or from the daemon when
+    ``--endpoint`` points at one (GET /describe) — plans live daemon-side,
+    so a remote CLI need not hold a local copy."""
+    try:
+        return _resolve_plan(env, plan)[1]
+    except FileNotFoundError:
+        endpoint = _endpoint(args, env)
+        if not endpoint:
+            raise
+        from ..client import Client
+
+        return Client(endpoint, token=env.client.token).describe_plan(plan)
+
+
+def _wait_task(engine: Engine, task_id: str, follow_logs: bool = True):
+    if follow_logs:
+        for line in engine.logs(task_id, follow=True):
+            _print_chunk_line(line, raw_fallback=False)
+    while True:
+        t = engine.get_task(task_id)
+        if t is not None and t.state().state in (State.COMPLETE, State.CANCELED):
+            return t
+        time.sleep(0.1)
+
+
+def _collect_to_file(engine: Engine, runner_id: str, run_id: str, dest: str):
+    from ..rpc import discard_writer
+
+    with open(dest, "wb") as f:
+        engine.do_collect_outputs(runner_id, run_id, f, discard_writer())
+    print(f"downloaded outputs to {dest}")
 
 
 def _help_func(parser):
@@ -114,16 +173,20 @@ def _help_func(parser):
     return fn
 
 
-def _add_daemon_flags(p) -> None:
-    """The reference's queue and CI flags (``pkg/cmd/run.go:62-70``):
-    parsed, and refused by :func:`_refuse_daemon_flags`."""
-    p.add_argument("--priority", type=int, default=0,
-                   help=f"queue priority (refused: {ITEM_9E})")
-    p.add_argument("--metadata-repo", default="", help="source repo (refused)")
-    p.add_argument("--metadata-branch", default="", help="source branch (refused)")
-    p.add_argument("--metadata-commit", default="", help="source commit (refused)")
-    p.add_argument("--detach", action="store_true",
-                   help=f"queue and exit without waiting (refused: {ITEM_9E})")
+def _add_metadata_flags(p) -> None:
+    """CI metadata flags (``pkg/cmd/run.go:62-70``; also on build)."""
+    p.add_argument("--metadata-repo", default="", help="source repo (CI)")
+    p.add_argument("--metadata-branch", default="", help="source branch (CI)")
+    p.add_argument("--metadata-commit", default="", help="source commit (CI)")
+
+
+def _add_priority_flag(p) -> None:
+    p.add_argument(
+        "--priority",
+        type=int,
+        default=0,
+        help="queue priority (higher runs first)",
+    )
 
 
 # ------------------------------------------------------------------- run
@@ -136,10 +199,8 @@ def register_run(sub) -> None:
 
     pc = psub.add_parser("composition", help="run a composition file")
     pc.add_argument("-f", "--file", required=True, help="composition TOML file")
-    pc.add_argument("--collect", action="store_true",
-                    help=f"collect outputs after run (refused: {ITEM_9E})")
-    pc.add_argument("--collect-file", default="",
-                    help=f"write outputs tgz here (refused: {ITEM_9E})")
+    pc.add_argument("--collect", action="store_true", help="collect outputs after run")
+    pc.add_argument("--collect-file", default="", help="write outputs tgz here")
     pc.add_argument(
         "--write-artifacts",
         action="store_true",
@@ -154,7 +215,14 @@ def register_run(sub) -> None:
     pc.add_argument(
         "--result-file", default="", help="append run results as CSV rows"
     )
-    _add_daemon_flags(pc)
+    pc.add_argument(
+        "--detach",
+        action="store_true",
+        help="queue the task and exit without waiting (the reference's "
+        "non---wait mode; follow later with `logs -f`)",
+    )
+    _add_priority_flag(pc)
+    _add_metadata_flags(pc)
     pc.set_defaults(func=run_composition_cmd)
 
     ps = psub.add_parser("single", help="run a single plan/case")
@@ -169,8 +237,7 @@ def register_run(sub) -> None:
         default=[],
         help="test param k=v (repeatable)",
     )
-    ps.add_argument("--collect", action="store_true",
-                    help=f"collect outputs after run (refused: {ITEM_9E})")
+    ps.add_argument("--collect", action="store_true")
     ps.add_argument(
         "-ub",
         "--use-build",
@@ -188,35 +255,42 @@ def register_run(sub) -> None:
         action="store_true",
         help="disable metrics batching",
     )
-    _add_daemon_flags(ps)
+    ps.add_argument(
+        "--detach",
+        action="store_true",
+        help="queue the task and exit without waiting",
+    )
+    _add_priority_flag(ps)
+    _add_metadata_flags(ps)
     ps.set_defaults(func=run_single_cmd)
 
     pr = psub.add_parser(
         "resume",
-        help=f"resume a checkpointed run (refused: the task store is {ITEM_9E}, "
-        "checkpoints ROADMAP queue 1 item 13)",
+        help=f"resume a checkpointed run (refused: {ITEM_13})",
     )
     pr.add_argument("task", help="task id of the checkpointed run")
     pr.add_argument("--run-cfg", action="append", default=[])
-    _add_daemon_flags(pr)
+    pr.add_argument("--detach", action="store_true")
+    _add_priority_flag(pr)
+    _add_metadata_flags(pr)
     pr.set_defaults(func=run_resume_cmd)
 
 
 def run_resume_cmd(args) -> int:
     raise NotImplementedError(
-        f"run resume reads the task store, which is not ported yet: {ITEM_9E}; "
-        "checkpoints are ROADMAP queue 1 item 13"
+        f"run resume seeds a run from a checkpoint, which is not ported yet: "
+        f"{ITEM_13}"
     )
 
 
 def run_composition_cmd(args) -> int:
-    _refuse_daemon_flags(args, EnvConfig.load())
     comp = load_composition(args.file)
     if args.ignore_artifacts:
         for g in comp.groups:
             g.run.artifact = ""
     # validate before frame_for_runs so a bad composition is rejected even
-    # when --run-ids selects a subset (run.go:157 → FrameForRuns)
+    # when --run-ids selects a subset (queue_run re-validates the framed
+    # composition; reference order is the same, run.go:157 → FrameForRuns)
     validate_for_run(comp)
     if args.run_ids:
         comp = comp.frame_for_runs(*args.run_ids.split(","))
@@ -225,12 +299,11 @@ def run_composition_cmd(args) -> int:
 
 def run_single_cmd(args) -> int:
     """(``pkg/cmd/run.go`` runSingleCmd + createSingletonComposition)."""
-    env = EnvConfig.load()
-    _refuse_daemon_flags(args, env)
     plan, _, case = args.plan_case.partition(":")
     if not case:
         raise ValueError("expected <plan>:<case>")
-    manifest = _resolve_plan(env, plan)[1]
+    env = EnvConfig.load()
+    manifest = _resolve_manifest(env, args, plan)
     builder = args.builder or manifest.defaults.get("builder", "")
     runner = args.runner or manifest.defaults.get("runner", "")
     tc = manifest.testcase_by_name(case)
@@ -263,57 +336,444 @@ def run_single_cmd(args) -> int:
 
 
 def _run(args, comp: Composition, write_artifacts_to: str = "") -> int:
-    """Lower and execute ``comp`` in this process (the reference's queue,
-    worker and wait, ``commands.py:374-496``), then report like the
-    reference's CLI."""
-    from ..engine.supervisor import Registry, new_run_task, process_task
+    """Queue ``comp`` and follow the task to its end
+    (``commands.py:374-497``): through a daemon, or through the in-process
+    engine's queue and a worker."""
+    from ..client import RemoteEngine
+    from ..tracectx import TraceContext
 
-    global LAST_TASK
-    env = EnvConfig.load()
-    engine = Registry.new_default(env)
-    src_dir, manifest = _resolve_plan(env, comp.global_.plan)
-    tsk = LAST_TASK = new_run_task(engine, comp, manifest, sources_dir=src_dir)
-    print(f"run is queued with ID: {tsk.id}")
-    process_task(engine, tsk, OutputWriter(sink=_ConsoleSink()), threading.Event())
-    outcome = tsk.outcome()
-    print(f"finished run with ID: {tsk.id} (outcome: {outcome.value})")
-
-    # per-run breakdown for multi-[[runs]] compositions (run.go:281-336)
-    run_results = tsk.result.get("runs", {}) if isinstance(tsk.result, dict) else {}
-    for rid, rres in run_results.items():
-        print(f"  run {rid}: outcome: {rres.get('outcome', Outcome.UNKNOWN.value)}")
-
-    if write_artifacts_to and isinstance(tsk.result, dict):
-        comp_out = tsk.result.get("composition")
-        if comp_out:
-            Composition.from_dict(comp_out).write_file(write_artifacts_to)
-            print(f"wrote artifacts into composition {write_artifacts_to}")
-
-    result_file = getattr(args, "result_file", "")
-    if result_file:
-        import csv
-
-        new = not os.path.exists(result_file)
-        with open(result_file, "a", newline="") as f:
-            w = csv.writer(f)
-            if new:
-                w.writerow(["task_id", "plan_case", "outcome", "error"])
-            if run_results:
-                # one row per [[runs]] entry, each with its own error
-                for rid, rres in run_results.items():
-                    w.writerow([
-                        f"{tsk.id}-{rid}",
-                        tsk.name(),
-                        rres.get("outcome", Outcome.UNKNOWN.value),
-                        rres.get("error", ""),
-                    ])
+    engine = _engine(args)
+    try:
+        created_by = _created_by(args, engine.env)
+        # the submit span roots the task's lifecycle trace: the CLI mints
+        # the trace id here so the causal chain starts at the submitter,
+        # and the daemon/engine parents every later span under it
+        # (engine/tracetree.py)
+        submit_ctx = TraceContext.mint()
+        priority = int(getattr(args, "priority", 0) or 0)
+        if isinstance(engine, RemoteEngine):
+            # the daemon resolves the plan from ITS $TESTGROUND_HOME/plans
+            task_id = engine.queue_run(
+                comp,
+                priority=priority,
+                created_by=created_by,
+                trace_parent=submit_ctx.to_traceparent(),
+            )
+        else:
+            src_dir, manifest = _resolve_plan(engine.env, comp.global_.plan)
+            task_id = engine.queue_run(
+                comp,
+                manifest,
+                sources_dir=src_dir,
+                priority=priority,
+                created_by=created_by,
+                trace_parent=submit_ctx.to_traceparent(),
+            )
+        print(f"run is queued with ID: {task_id}")
+        if getattr(args, "detach", False):
+            # queue-only mode (the reference without --wait, run.go:348):
+            # in-process engines must keep running the task, so detach is
+            # only meaningful against a daemon
+            if not isinstance(engine, RemoteEngine):
+                print(
+                    "warning: --detach without --endpoint queues into an "
+                    "in-process engine that exits with the CLI; waiting "
+                    "instead",
+                    file=sys.stderr,
+                )
             else:
-                w.writerow([tsk.id, tsk.name(), outcome.value, tsk.error])
+                dropped = [
+                    flag
+                    for flag, attr in (
+                        ("--collect", "collect"),
+                        ("--collect-file", "collect_file"),
+                        ("--result-file", "result_file"),
+                        ("--write-artifacts", "write_artifacts"),
+                    )
+                    if getattr(args, attr, None)
+                ]
+                if dropped:
+                    print(
+                        "warning: --detach does not wait for the task, so "
+                        f"{', '.join(dropped)} will be ignored",
+                        file=sys.stderr,
+                    )
+                return 0
+        t = _wait_task(engine, task_id)
+        outcome = t.outcome()
+        print(f"finished run with ID: {task_id} (outcome: {outcome.value})")
 
-    return 0 if outcome == Outcome.SUCCESS else 1
+        # per-run breakdown for multi-[[runs]] compositions (run.go:281-336)
+        run_results = (
+            t.result.get("runs", {}) if isinstance(t.result, dict) else {}
+        )
+        for rid, rres in run_results.items():
+            print(
+                f"  run {rid}: outcome: "
+                f"{rres.get('outcome', Outcome.UNKNOWN.value)}"
+            )
+
+        if write_artifacts_to and isinstance(t.result, dict):
+            comp_out = t.result.get("composition")
+            if comp_out:
+                Composition.from_dict(comp_out).write_file(write_artifacts_to)
+                print(f"wrote artifacts into composition {write_artifacts_to}")
+
+        collect_file = getattr(args, "collect_file", "")
+        if getattr(args, "collect", False) or collect_file:
+            dest = collect_file or f"{task_id}.tgz"
+            _collect_to_file(engine, comp.global_.runner, task_id, dest)
+
+        result_file = getattr(args, "result_file", "")
+        if result_file:
+            import csv
+
+            new = not os.path.exists(result_file)
+            with open(result_file, "a", newline="") as f:
+                w = csv.writer(f)
+                if new:
+                    w.writerow(["task_id", "plan_case", "outcome", "error"])
+                if run_results:
+                    # one row per [[runs]] entry, each with its own error
+                    for rid, rres in run_results.items():
+                        w.writerow([
+                            f"{t.id}-{rid}",
+                            t.name(),
+                            rres.get("outcome", Outcome.UNKNOWN.value),
+                            rres.get("error", ""),
+                        ])
+                else:
+                    w.writerow([t.id, t.name(), outcome.value, t.error])
+
+        return 0 if outcome == Outcome.SUCCESS else 1
+    finally:
+        engine.stop()
 
 
-# ------------------------------------------------------------ healthcheck
+# ------------------------------------------------------------------ build
+
+
+def register_build(sub) -> None:
+    p = sub.add_parser("build", help="builds a composition or single plan")
+    p.set_defaults(func=_help_func(p))
+    psub = p.add_subparsers(dest="build_mode")
+    pc = psub.add_parser("composition")
+    pc.add_argument("-f", "--file", required=True)
+    pc.add_argument("--write-artifacts", action="store_true")
+    pc.add_argument(
+        "--buckets",
+        action="store_true",
+        help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
+    )
+    _add_metadata_flags(pc)
+    pc.set_defaults(func=build_composition_cmd)
+    ps = psub.add_parser("single")
+    ps.add_argument("plan", help="<plan> or <plan>:<case>")
+    ps.add_argument("--builder", default="")
+    ps.add_argument(
+        "--buckets",
+        action="store_true",
+        help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
+    )
+    _add_metadata_flags(ps)
+    ps.set_defaults(func=build_single_cmd)
+
+    pp = psub.add_parser(
+        "purge", help="purge the cache for a builder and testplan"
+    )
+    pp.add_argument("-b", "--builder", required=True)
+    pp.add_argument("-p", "--plan", required=True)
+    pp.set_defaults(func=build_purge_cmd)
+
+
+def _refuse_buckets(args) -> None:
+    """``build --buckets`` precompiles the bucket ladder into XLA's cache
+    in the reference; the ladder is item 13, and the port has no such
+    cache (nor the reference's build ``--run-cfg``, which only feeds it)."""
+    if args.buckets:
+        raise NotImplementedError(
+            f"build --buckets precompiles the shape-bucket ladder, which is "
+            f"not ported yet: {ITEM_13}"
+        )
+
+
+def _queue_build(engine, comp, args, manifest=None, src_dir="") -> str:
+    from ..client import RemoteEngine
+    from ..tracectx import TraceContext
+
+    created_by = _created_by(args, engine.env)
+    submit_ctx = TraceContext.mint()
+    if isinstance(engine, RemoteEngine):
+        return engine.queue_build(
+            comp,
+            created_by=created_by,
+            trace_parent=submit_ctx.to_traceparent(),
+        )
+    return engine.queue_build(
+        comp,
+        manifest,
+        sources_dir=src_dir,
+        created_by=created_by,
+        trace_parent=submit_ctx.to_traceparent(),
+    )
+
+
+def build_composition_cmd(args) -> int:
+    from ..client import RemoteEngine
+
+    _refuse_buckets(args)
+    comp = load_composition(args.file)
+    engine = _engine(args)
+    try:
+        if isinstance(engine, RemoteEngine):
+            task_id = _queue_build(engine, comp, args)
+        else:
+            src_dir, manifest = _resolve_plan(engine.env, comp.global_.plan)
+            task_id = _queue_build(engine, comp, args, manifest, src_dir)
+        print(f"build is queued with ID: {task_id}")
+        t = _wait_task(engine, task_id)
+        print(f"finished build with ID: {task_id} (outcome: {t.outcome().value})")
+        if args.write_artifacts and isinstance(t.result, dict):
+            comp_out = t.result.get("composition")
+            if comp_out:
+                Composition.from_dict(comp_out).write_file(args.file)
+                print(f"wrote artifacts into composition {args.file}")
+        return 0 if t.outcome() == Outcome.SUCCESS else 1
+    finally:
+        engine.stop()
+
+
+def build_purge_cmd(args) -> int:
+    """(``build.go:91-110`` purge — drop a builder's cached artifacts for
+    one plan)."""
+    engine = _engine(args)
+    try:
+        ow = OutputWriter(sink=None, echo=sys.stdout)
+        engine.do_build_purge(args.builder, args.plan, ow)
+        print(f"purged {args.builder} cache for plan {args.plan}")
+        return 0
+    finally:
+        engine.stop()
+
+
+def build_single_cmd(args) -> int:
+    from ..client import RemoteEngine
+
+    _refuse_buckets(args)
+    plan, _, case = args.plan.partition(":")
+    engine = _engine(args)
+    try:
+        try:
+            src_dir, manifest = _resolve_plan(engine.env, plan)
+        except FileNotFoundError:
+            # daemon-hosted plan: the daemon resolves its own sources
+            src_dir = ""
+            manifest = _resolve_manifest(engine.env, args, plan)
+        builder = args.builder or manifest.defaults.get("builder", "")
+        # with a case the instance count and runner default from the
+        # manifest, matching what a default `run single` would execute
+        instances = 1
+        runner = ""
+        if case:
+            tc = manifest.testcase_by_name(case)
+            if tc is None:
+                raise ValueError(f"test case {case} not found in plan {plan}")
+            instances = tc.instances.default or tc.instances.minimum or 1
+            runner = manifest.defaults.get("runner", "")
+        comp = Composition(
+            global_=Global(plan=plan, case=case, builder=builder, runner=runner),
+            groups=[Group(id="single", instances=Instances(count=instances))],
+        )
+        if isinstance(engine, RemoteEngine):
+            task_id = _queue_build(engine, comp, args)
+        else:
+            task_id = _queue_build(engine, comp, args, manifest, src_dir)
+        print(f"build is queued with ID: {task_id}")
+        t = _wait_task(engine, task_id)
+        print(f"finished build with ID: {task_id} (outcome: {t.outcome().value})")
+        if isinstance(t.result, dict):
+            for gid, artifact in t.result.get("artifacts", {}).items():
+                # printed so a later `run single --use-build <artifact>`
+                # can reuse it (run.go:119-123)
+                print(f"group {gid} artifact: {artifact}")
+        return 0 if t.outcome() == Outcome.SUCCESS else 1
+    finally:
+        engine.stop()
+
+
+# ---------------------------------------------------- tasks / status / logs
+
+
+def register_tasks(sub) -> None:
+    p = sub.add_parser("tasks", help="list tasks")
+    p.add_argument("--state", action="append", default=[], help="filter by state")
+    p.add_argument("--type", action="append", default=[], help="filter by type")
+    p.add_argument(
+        "--before", default="", help="created before (YYYY-MM-DD[ HH:MM:SS])"
+    )
+    p.add_argument(
+        "--after", default="", help="created after (YYYY-MM-DD[ HH:MM:SS])"
+    )
+    p.add_argument("-n", "--limit", type=int, default=0)
+    p.set_defaults(func=tasks_cmd)
+
+
+def _parse_when(text: str) -> float | None:
+    """YYYY-MM-DD[ HH:MM:SS] → epoch seconds (local time)."""
+    if not text:
+        return None
+    for fmt in ("%Y-%m-%d %H:%M:%S", "%Y-%m-%d"):
+        try:
+            return time.mktime(time.strptime(text, fmt))
+        except ValueError:
+            continue
+    raise ValueError(
+        f"cannot parse time {text!r}; use YYYY-MM-DD or 'YYYY-MM-DD HH:MM:SS'"
+    )
+
+
+def tasks_cmd(args) -> int:
+    # validate the date flags before spinning up an engine
+    before, after = _parse_when(args.before), _parse_when(args.after)
+    engine = _engine(args)
+    try:
+        tasks = engine.tasks(
+            states=args.state or None,
+            types=args.type or None,
+            before=before,
+            after=after,
+            limit=args.limit,
+        )
+        # ID / DATE / PLAN:CASE / QUEUED / DURATION / STATE / TYPE / PRE +
+        # outcome — the reference's columns (tasks.go:50-54, plus the
+        # queue-wait and preemption columns)
+        for t in tasks:
+            created = time.strftime(
+                "%Y-%m-%d %H:%M:%S", time.localtime(t.created())
+            )
+            preemptions = int(t.trace.get("preemptions", 0) or 0)
+            print(
+                f"{t.id}  {created}  {t.name():24}  "
+                f"{t.queued_secs():6.1f}s  {t.took():7.1f}s  "
+                f"{t.state().state.value:10}  {t.type.value:5}  "
+                f"{preemptions:3}  "
+                f"{t.outcome().value}"
+            )
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_status(sub) -> None:
+    p = sub.add_parser("status", help="get task status")
+    p.add_argument("-t", "--task", required=True, help="task id")
+    p.add_argument("--extended", action="store_true")
+    p.add_argument(
+        "--telemetry",
+        action="store_true",
+        help=f"also render the sim telemetry summary table (refused: {ITEM_9F})",
+    )
+    p.set_defaults(func=status_cmd)
+
+
+def status_cmd(args) -> int:
+    if getattr(args, "telemetry", False):
+        raise NotImplementedError(
+            f"status --telemetry renders the telemetry summary, which is not "
+            f"ported yet: {ITEM_9F}"
+        )
+    engine = _engine(args)
+    try:
+        t = engine.get_task(args.task)
+        if t is None:
+            raise KeyError(f"unknown task {args.task}")
+        print(f"ID:      {t.id}")
+        print(f"Name:    {t.name()}")
+        print(f"Type:    {t.type.value}")
+        print(f"State:   {t.state().state.value}")
+        print(f"Outcome: {t.outcome().value}")
+        print(f"Queued:  {t.queued_secs():.1f}s")
+        cb = t.created_by
+        if cb.user or cb.repo or cb.branch or cb.commit:
+            parts = [cb.user or "-"]
+            if cb.repo or cb.branch:
+                parts.append(f"{cb.repo}@{cb.branch}" if cb.branch else cb.repo)
+            if cb.commit:
+                parts.append(cb.commit[:12])
+            print(f"By:      {' '.join(parts)}")
+        if t.error:
+            print(f"Error:   {t.error}")
+        mj = (
+            t.result.get("journal", {}).get("metrics")
+            if isinstance(t.result, dict)
+            else None
+        )
+        if mj:
+            print("Metrics:")
+            for gid, names in mj.items():
+                for name, agg in names.items():
+                    if agg.get("count"):
+                        print(
+                            f"  {gid}/{name}: mean={agg['mean']:.3f} "
+                            f"min={agg['min']:.3f} max={agg['max']:.3f} "
+                            f"n={agg['count']}"
+                        )
+        if args.extended:
+            import json
+
+            print(json.dumps(t.to_dict(), indent=2))
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_logs(sub) -> None:
+    p = sub.add_parser("logs", help="print task logs")
+    p.add_argument("-t", "--task", required=True)
+    p.add_argument("-f", "--follow", action="store_true")
+    p.set_defaults(func=logs_cmd)
+
+
+def logs_cmd(args) -> int:
+    engine = _engine(args)
+    try:
+        for line in engine.logs(args.task, follow=args.follow):
+            _print_chunk_line(line)
+        return 0
+    finally:
+        engine.stop()
+
+
+# ---------------------------------------------------------------- collect
+
+
+def register_collect(sub) -> None:
+    p = sub.add_parser("collect", help="collect run outputs into a tgz")
+    p.add_argument("run_id")
+    # the reference's default; the port's runner is sim:torch
+    p.add_argument("--runner", default="local:exec",
+                   help="the run's runner (default local:exec, not ported: "
+                   "pass --runner sim:torch)")
+    p.add_argument("-o", "--output", default="")
+    p.set_defaults(func=collect_cmd)
+
+
+def collect_cmd(args) -> int:
+    if args.runner == "local:exec":
+        raise NotImplementedError(
+            f"runner local:exec is not ported yet: {ITEM_16}; collect a "
+            "sim:torch run with --runner sim:torch"
+        )
+    engine = _engine(args)
+    try:
+        dest = args.output or f"{args.run_id}.tgz"
+        _collect_to_file(engine, args.runner, args.run_id, dest)
+        return 0
+    finally:
+        engine.stop()
+
+
+# ------------------------------------------- healthcheck / terminate / misc
 
 
 def register_healthcheck(sub) -> None:
@@ -324,14 +784,68 @@ def register_healthcheck(sub) -> None:
 
 
 def healthcheck_cmd(args) -> int:
-    from ..engine.supervisor import Registry
+    engine = _engine(args)
+    try:
+        ow = OutputWriter(sink=None, echo=sys.stdout)
+        report = engine.do_healthcheck(args.runner, args.fix, ow)
+        print(report)
+        return 0 if report.ok() else 1
+    finally:
+        engine.stop()
 
-    env = EnvConfig.load()
-    _refuse_daemon_flags(args, env)
-    ow = OutputWriter(sink=None, echo=sys.stdout)
-    report = Registry.new_default(env).do_healthcheck(args.runner, args.fix, ow)
-    print(report)
-    return 0 if report.ok() else 1
+
+def register_terminate(sub) -> None:
+    p = sub.add_parser(
+        "terminate",
+        help="terminate all jobs and supporting processes of a runner or builder",
+    )
+    p.add_argument("--runner", default="")
+    p.add_argument("--builder", default="")
+    p.add_argument(
+        "--drain",
+        action="store_true",
+        help=f"gracefully drain the daemon instead (refused: {ITEM_13})",
+    )
+    p.set_defaults(func=terminate_cmd)
+
+
+def terminate_cmd(args) -> int:
+    if getattr(args, "drain", False):
+        raise NotImplementedError(
+            f"terminate --drain checkpoints and requeues the daemon's runs, "
+            f"which is not ported yet: {ITEM_13}"
+        )
+    # one component at a time, like the reference (terminate.go:38-45)
+    if bool(args.runner) == bool(args.builder):
+        print("specify exactly one of --runner or --builder", file=sys.stderr)
+        return 1
+    engine = _engine(args)
+    try:
+        ow = OutputWriter(sink=None, echo=sys.stdout)
+        if args.runner:
+            engine.do_terminate(args.runner, ow, ctype="runner")
+        else:
+            engine.do_terminate(args.builder, ow, ctype="builder")
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_daemon(sub) -> None:
+    p = sub.add_parser("daemon", help="run the testground daemon")
+    p.add_argument(
+        "--listen",
+        default="",
+        help="listen address host:port (default: .env.toml daemon.listen "
+        "or localhost:8042)",
+    )
+    p.set_defaults(func=daemon_cmd)
+
+
+def daemon_cmd(args) -> int:
+    from ..daemon.server import serve
+
+    return serve(listen=args.listen)
 
 
 def register_version(sub) -> None:

@@ -1,13 +1,17 @@
 """The port's ``tg`` CLI entry point — the reference's
-``testground_tpu/cli/main.py`` with the verbs the port honours: ``run
-composition``, ``run single``, ``healthcheck`` and ``version``. Runs go
-through the in-process engine (``engine/supervisor.py``) and the
-``sim:torch`` runner:
+``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
+``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
+``terminate``, ``daemon`` and ``version``. The engine runs in-process
+unless ``--endpoint`` points at a daemon (the reference's client↔daemon
+hop is transport, not semantics); either way a run goes through the task
+queue, a worker and the ``sim:torch`` runner:
 
     python -m testground_tpu_torch.cli run composition -f X.toml
+    python -m testground_tpu_torch.cli daemon --listen 127.0.0.1:8042
+    python -m testground_tpu_torch.cli --endpoint 127.0.0.1:8042 run ...
 
-A daemon (``--endpoint``) and the verbs over the task store come with
-ROADMAP queue 1 item 9e; their flags are parsed and refused.
+The observability verbs come with ROADMAP queue 1 item 9f, ``preempt``
+with item 13; ``plan``, ``check`` and ``describe`` with items 9f and 9d.
 """
 
 from __future__ import annotations
@@ -31,14 +35,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--endpoint",
         default="",
-        help="daemon endpoint (refused: the daemon is not ported yet)",
+        help="daemon endpoint (default: in-process engine)",
     )
     sub = p.add_subparsers(dest="command")
 
     from . import commands
 
     commands.register_run(sub)
+    commands.register_build(sub)
+    commands.register_tasks(sub)
+    commands.register_status(sub)
+    commands.register_logs(sub)
+    commands.register_collect(sub)
     commands.register_healthcheck(sub)
+    commands.register_terminate(sub)
+    commands.register_daemon(sub)
     commands.register_version(sub)
     return p
 

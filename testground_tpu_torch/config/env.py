@@ -20,6 +20,10 @@ from .dirs import Directories
 
 ENV_TESTGROUND_HOME = "TESTGROUND_HOME"
 
+DEFAULT_LISTEN_ADDR = "localhost:8042"
+DEFAULT_TASK_REPO_TYPE = "memory"
+DEFAULT_WORKERS = 2
+DEFAULT_QUEUE_SIZE = 100
 DEFAULT_TASK_TIMEOUT_MIN = 10
 
 # Config flag marking a runner disabled in .env.toml
@@ -27,26 +31,35 @@ DEFAULT_TASK_TIMEOUT_MIN = 10
 RUNNER_DISABLED_FLAG = "disabled"
 
 
-# Only the settings the port reads are kept; the daemon's listen address,
-# tokens, webhooks, worker and queue sizes, task repo and client identity
-# come with the daemon (ROADMAP queue 1 item 9e). Other keys are ignored.
+# Only the settings the port reads are kept: the reference's
+# ``metrics_task_limit`` comes with GET /metrics (ROADMAP queue 1 item 9f).
+# Other keys are ignored.
 
 
 @dataclass
 class SchedulerConfig:
+    workers: int = 0
+    queue_size: int = 0
+    task_repo_type: str = ""
     task_timeout_min: int = 0
 
 
 @dataclass
 class DaemonConfig:
+    listen: str = ""
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    tokens: list[str] = field(default_factory=list)
+    slack_webhook_url: str = ""
+    github_repo_status_token: str = ""
+    root_url: str = ""
     influxdb_endpoint: str = ""
 
 
 @dataclass
 class ClientConfig:
-    # read only to refuse it: the CLI has no daemon to talk to yet
     endpoint: str = ""
+    token: str = ""
+    user: str = ""
 
 
 @dataclass
@@ -56,6 +69,10 @@ class EnvConfig:
     daemon: DaemonConfig = field(default_factory=DaemonConfig)
     client: ClientConfig = field(default_factory=ClientConfig)
     dirs: Directories = field(default_factory=lambda: Directories(""))
+    # whether .env.toml explicitly chose a task repo type; the in-process
+    # CLI upgrades the "memory" default to "disk" so task state survives
+    # across invocations
+    task_repo_explicit: bool = False
 
     @classmethod
     def load(
@@ -83,8 +100,7 @@ class EnvConfig:
                     f"found .env.toml at {env_toml}, but failed to parse: {err}"
                 ) from err
 
-        sch = e.daemon.scheduler
-        sch.task_timeout_min = sch.task_timeout_min or DEFAULT_TASK_TIMEOUT_MIN
+        e._ensure_minimal()
         if ensure_dirs:
             for d in e.dirs.all():
                 os.makedirs(d, exist_ok=True)
@@ -94,13 +110,43 @@ class EnvConfig:
         self.builders.update(d.get("builders", {}))
         self.runners.update(d.get("runners", {}))
         dm = d.get("daemon", {})
+        self.daemon.listen = dm.get("listen", self.daemon.listen)
+        self.daemon.tokens = list(dm.get("tokens", self.daemon.tokens))
+        self.daemon.slack_webhook_url = dm.get(
+            "slack_webhook_url", self.daemon.slack_webhook_url
+        )
+        self.daemon.github_repo_status_token = dm.get(
+            "github_repo_status_token", self.daemon.github_repo_status_token
+        )
+        self.daemon.root_url = dm.get("root_url", self.daemon.root_url)
         self.daemon.influxdb_endpoint = dm.get(
             "influxdb_endpoint", self.daemon.influxdb_endpoint
         )
         sch = dm.get("scheduler", {})
+        self.daemon.scheduler.workers = int(sch.get("workers", 0))
+        self.daemon.scheduler.queue_size = int(sch.get("queue_size", 0))
+        self.daemon.scheduler.task_repo_type = sch.get("task_repo_type", "")
         self.daemon.scheduler.task_timeout_min = int(sch.get("task_timeout_min", 0))
+        if sch.get("task_repo_type"):
+            self.task_repo_explicit = True
         cl = d.get("client", {})
         self.client.endpoint = cl.get("endpoint", self.client.endpoint)
+        self.client.token = cl.get("token", self.client.token)
+        self.client.user = cl.get("user", self.client.user)
+
+    def _ensure_minimal(self) -> None:
+        """Apply fallback defaults (``pkg/config/loader.go:55-63``).
+
+        Deviation: the reference defaults ``client.endpoint`` to
+        localhost:8042 because its CLI can only talk to a daemon; here the
+        CLI runs an in-process engine unless an endpoint is configured, so
+        the endpoint stays empty."""
+        self.daemon.listen = self.daemon.listen or DEFAULT_LISTEN_ADDR
+        sch = self.daemon.scheduler
+        sch.workers = sch.workers or DEFAULT_WORKERS
+        sch.queue_size = sch.queue_size or DEFAULT_QUEUE_SIZE
+        sch.task_repo_type = sch.task_repo_type or DEFAULT_TASK_REPO_TYPE
+        sch.task_timeout_min = sch.task_timeout_min or DEFAULT_TASK_TIMEOUT_MIN
 
     def runner_config(self, runner_id: str) -> dict:
         """The raw .env.toml config map for a runner (``{}`` when absent)

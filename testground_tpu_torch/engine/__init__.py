@@ -1,8 +1,32 @@
-"""The port's in-process engine: task types and the supervisor's build and
-run lowering (copies of the reference's ``testground_tpu/engine``
-definitions). The task queue, the store and the daemon come with ROADMAP
-queue 1 item 9e."""
+"""The scheduler core: task model, persistent priority queue, worker
+supervisor, and the engine facade tying builders/runners together — the
+port's copy of the reference's ``testground_tpu/engine``
+(``pkg/engine`` + ``pkg/task``)."""
 
-from .task import DatedState, Outcome, State, Task, TaskType, new_task_id
+from .task import (
+    CreatedBy,
+    DatedState,
+    Outcome,
+    State,
+    Task,
+    TaskType,
+    new_task_id,
+)
+from .storage import TaskStorage
+from .queue import QueueFullError, TaskQueue
+from .engine import Engine, EngineConfig
 
-__all__ = ["DatedState", "Outcome", "State", "Task", "TaskType", "new_task_id"]
+__all__ = [
+    "CreatedBy",
+    "DatedState",
+    "Engine",
+    "EngineConfig",
+    "Outcome",
+    "QueueFullError",
+    "State",
+    "Task",
+    "TaskQueue",
+    "TaskStorage",
+    "TaskType",
+    "new_task_id",
+]

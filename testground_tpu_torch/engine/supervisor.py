@@ -1,13 +1,16 @@
-"""Builds and runs a task in process — the port's copy of ``do_build`` and
-``do_run`` of the reference's ``testground_tpu/engine/supervisor.py``
-(``supervisor.go``), and of the error handling of its ``process_task``.
+"""The worker loop: pops tasks off the queue and executes builds and runs —
+the port's copy of the reference's ``testground_tpu/engine/supervisor.py``
+(``pkg/engine/supervisor.go``): state transitions are persisted at each
+step, builds are deduplicated by ``Group.build_key()``, config coalesces
+with precedence composition > .env.toml > manifest, runs are dispatched to
+the runner, and the result is archived.
 
-The reference's ``engine`` argument becomes an explicit :class:`Registry`:
-the env, and the builders and runners by ID. Builds are deduplicated by
-``Group.build_key()``; the runner config coalesces the env's runner layer
-under the composition's; each ``[[runs]]`` entry becomes one ``RunInput``.
-The task queue, the store, the event journal, preemption and run packs
-come with the engine (ROADMAP queue 1 item 9e; packs item 13).
+A worker is a host thread, and the CUDA current device is per host thread:
+``do_run`` makes the run's device current for its healthcheck and its runs
+(``sim.engine.device_context``). Left out, with the ROADMAP queue 1 item
+that ports each: run packs and their claim (item 13), preemption and the
+requeue of a preempted run (item 13), and the build task's precompile,
+which fills the reference's XLA compile cache (the port has no such cache).
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ import concurrent.futures
 import threading
 import time
 import traceback
-from dataclasses import dataclass, field
 
 from ..api import (
     BuildInput,
@@ -29,87 +31,77 @@ from ..api import (
     validate_for_build,
     validate_for_run,
 )
-from ..config import CoalescedConfig, EnvConfig
+from ..config import CoalescedConfig
 from ..logging_ import S
 from ..rpc import OutputWriter
+from ..sim.engine import device_context
 from ..sim.slo import SloBreachError
-from ..sim.telemetry import new_span_id, new_trace_id
-from .task import DatedState, Outcome, State, Task, TaskType, new_task_id
+from ..tracectx import new_span_id, new_trace_id
+from .engine import Engine
+from .notify import notify_task_finished, notify_task_started
+from .queue import QueueEmptyError
+from .task import DatedState, Outcome, State, Task, TaskType
+from .tracetree import export_task_trace
 
-__all__ = ["Registry", "do_build", "do_run", "new_run_task", "process_task"]
+__all__ = ["do_build", "do_build_task", "do_run", "process_task", "worker"]
 
 DEFAULT_TASK_TIMEOUT_SECS = 10 * 60  # supervisor.go:49-52
 
 
-@dataclass
-class Registry:
-    """What the supervisor reads of the reference's ``Engine``: the env,
-    and the builders and runners by ID."""
-
-    env: EnvConfig
-    builders: dict = field(default_factory=dict)
-    runners: dict = field(default_factory=dict)
-
-    @classmethod
-    def new_default(cls, env: EnvConfig) -> "Registry":
-        """The port's one builder and one runner (``engine.go:25-38``)."""
-        from ..builders import SimPlanBuilder
-        from ..sim.runner import SimTorchRunner
-
-        return cls(env=env, builders={"sim:plan": SimPlanBuilder()},
-                   runners={"sim:torch": SimTorchRunner()})
-
-    def builder_by_name(self, name: str):
-        return self.builders.get(name)
-
-    def runner_by_name(self, name: str):
-        return self.runners.get(name)
-
-    def do_healthcheck(self, runner_id: str, fix: bool, ow):
-        from ..runners.base import HealthcheckedRunner
-
-        runner = self.runner_by_name(runner_id)
-        if runner is None:
-            raise ValueError(f"unknown runner: {runner_id}")
-        if not isinstance(runner, HealthcheckedRunner):
-            raise ValueError(f"runner {runner_id} does not support healthchecks")
-        return runner.healthcheck(fix, ow, env=self.env)
+def worker(engine: Engine, idx: int) -> None:
+    """One worker loop (``supervisor.go:47-190``)."""
+    S().debug("supervisor worker %d started", idx)
+    while not engine._stop.is_set():
+        try:
+            tsk = engine.queue.pop()
+        except QueueEmptyError:
+            engine._queue_kick.wait(timeout=0.2)
+            engine._queue_kick.clear()
+            continue
+        # close the kill() race before any claim bookkeeping: the task is
+        # already stamped PROCESSING (queue.pop), so an operator cancel
+        # arriving now must find a registered event, not fall between
+        # cancel_queued and process_task's registration
+        engine.register_cancel(tsk.id)
+        _note_claim(engine, idx, tsk)
+        process_task(engine, tsk)
 
 
-def new_run_task(
-    engine: Registry,
-    comp: Composition,
-    manifest: TestPlanManifest,
-    sources_dir: str = "",
-) -> Task:
-    """A scheduled run task (``engine.go:203-249`` QueueRun without the
-    queue): the composition validated, the runner known and every group's
-    builder compatible with it, a fresh lifecycle trace rooted at the
-    submit (the reference adopts a submitter's traceparent, which crosses
-    the daemon's wire hop: item 9e)."""
-    validate_for_run(comp)
-    runner = engine.runner_by_name(comp.global_.runner)
-    if runner is None:
-        raise ValueError(f"unknown runner: {comp.global_.runner}")
-    compatible = set(runner.compatible_builders())
-    for b in comp.list_builders():
-        if b and b not in compatible:
-            raise ValueError(
-                f"builder {b} is incompatible with runner "
-                f"{comp.global_.runner} (compatible: {sorted(compatible)})"
-            )
-    trace = {"trace_id": new_trace_id(), "root_span_id": new_span_id(),
-             "queued_span_id": new_span_id()}
-    return Task(
-        id=new_task_id(),
-        type=TaskType.RUN,
-        plan=comp.global_.plan,
-        case=comp.global_.case,
-        runner=comp.global_.runner,
-        composition=comp.to_dict(),
-        input={"manifest": manifest.to_dict(), "sources_dir": sources_dir},
-        states=[DatedState(state=State.SCHEDULED, created=time.time())],
-        trace=trace,
+def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
+    """Claim bookkeeping for a freshly-popped task: mint the claim and
+    execute span ids and journal the claim. Tasks pushed straight into the
+    queue (tests) get trace ids filled in here so every archive still
+    exports a connected tree."""
+    tr = tsk.trace
+    tr.setdefault("trace_id", new_trace_id())
+    tr.setdefault("root_span_id", new_span_id())
+    tr.setdefault("queued_span_id", new_span_id())
+    if tr.get("claim_span_id") and tr.get("execute_span_id"):
+        # a re-claim (restart rehydration): keep the prior attempt's ids
+        # so the executor spans it parented still resolve in the archived
+        # tree (bounded)
+        prior = tr.setdefault("prior_attempts", [])
+        prior.append(
+            {"claim": tr["claim_span_id"], "execute": tr["execute_span_id"]}
+        )
+        del prior[:-16]
+    tr["claim_span_id"] = new_span_id()
+    tr["execute_span_id"] = new_span_id()
+    queue_wait = (
+        max(0.0, tsk.states[-1].created - tsk.states[0].created)
+        if len(tsk.states) >= 2
+        else 0.0
+    )
+    engine.events.emit(
+        "task.claimed",
+        task=tsk.id,
+        trace=tr,
+        state=State.PROCESSING.value,
+        worker=idx,
+        queue_wait_secs=round(queue_wait, 6),
+        # the reference's record shape: a task runs alone until run packs
+        # are ported (ROADMAP queue 1 item 13)
+        pack_width=1,
     )
 
 
@@ -133,48 +125,142 @@ def _run_trace_ctx(tsk: Task) -> dict:
     }
 
 
-def process_task(
-    engine: Registry, tsk: Task, ow: OutputWriter, cancel: threading.Event
-) -> None:
-    """Execute one task to its end, with its timeout (``supervisor.go:
-    192-291``): a task error becomes the task's error and a FAILURE (or
-    CANCELED) result, never an exception."""
+def _post_run_events(engine: Engine, tsk: Task) -> None:
+    """Journal the run-derived control-plane events an archived result
+    reveals: checkpoint/resume activity and sync-service evictions.
+    Best-effort — a malformed result journal must not fail the task."""
+    try:
+        result = tsk.result if isinstance(tsk.result, dict) else {}
+        journal = result.get("journal")
+        if not isinstance(journal, dict):
+            return
+        sim = journal.get("sim")
+        if isinstance(sim, dict) and isinstance(sim.get("checkpoint"), dict):
+            ck = sim["checkpoint"]
+            if ck.get("count"):
+                engine.events.emit(
+                    "task.checkpoint",
+                    task=tsk.id,
+                    trace=tsk.trace,
+                    count=int(ck.get("count", 0)),
+                    last_tick=int(ck.get("last_tick", 0) or 0),
+                )
+            if ck.get("resumed"):
+                engine.events.emit(
+                    "task.resumed",
+                    task=tsk.id,
+                    trace=tsk.trace,
+                    resumed=ck["resumed"],
+                )
+                fb = (
+                    ck["resumed"].get("fallback")
+                    if isinstance(ck["resumed"], dict)
+                    else None
+                )
+                if isinstance(fb, dict):
+                    engine.events.emit(
+                        "task.resume_fallback",
+                        task=tsk.id,
+                        trace=tsk.trace,
+                        skipped=list(fb.get("skipped", [])),
+                        error=str(fb.get("error", ""))[:200],
+                    )
+        sync = journal.get("sync")
+        if isinstance(sync, dict) and sync.get("evicted"):
+            engine.events.emit(
+                "task.sync_evicted",
+                task=tsk.id,
+                trace=tsk.trace,
+                count=int(sync["evicted"]),
+            )
+    except (TypeError, ValueError):
+        pass
+
+
+def _finish_task(engine: Engine, tsk: Task) -> None:
+    """The archive-time tail: journal the terminal transition plus
+    run-derived events, then export the task's span tree
+    (task_spans.jsonl + task_trace.json)."""
+    _post_run_events(engine, tsk)
+    engine.events.emit(
+        "task.finished",
+        task=tsk.id,
+        trace=tsk.trace,
+        state=tsk.states[-1].state.value,
+        outcome=tsk.outcome().value,
+        error=tsk.error[:200] if tsk.error else "",
+    )
+    export_task_trace(engine.env.dirs.outputs(), tsk)
+
+
+def process_task(engine: Engine, tsk: Task) -> None:
+    """Execute one task end-to-end, with timeout and cancellation
+    (``supervisor.go:192-291``)."""
     timeout = engine.env.daemon.scheduler.task_timeout_min * 60 or (
         DEFAULT_TASK_TIMEOUT_SECS
     )
+    cancel = engine.register_cancel(tsk.id)
     timer = threading.Timer(timeout, cancel.set)
     timer.daemon = True
     timer.start()
-    tsk.states.append(DatedState(state=State.PROCESSING, created=time.time()))
-    tsk.trace.setdefault("claim_span_id", new_span_id())
-    tsk.trace.setdefault("execute_span_id", new_span_id())
+
+    log_path = engine.task_log_path(tsk.id)
     try:
-        if tsk.type != TaskType.RUN:
-            raise ValueError(f"unsupported task type {tsk.type}")
-        tsk.result = do_run(engine, tsk, ow, cancel)
-    except Exception as e:  # noqa: BLE001 — task errors become results
-        S().error("task %s failed: %s", tsk.id, e)
-        ow.write_error(str(e))
-        tsk.error = str(e)
-        tsk.result = {
-            "outcome": (
-                Outcome.CANCELED.value if cancel.is_set() else Outcome.FAILURE.value
-            )
-        }
-        S().debug("%s", traceback.format_exc())
-    else:
-        ow.write_result(tsk.result)
+        with open(log_path, "w") as log_file:
+            ow = OutputWriter(sink=log_file)
+            try:
+                engine.storage.update_current(tsk)
+                # pending commit status for CI tasks (supervisor.go:213-215)
+                notify_task_started(engine.env, tsk)
+                engine.events.emit(
+                    "task.started",
+                    task=tsk.id,
+                    trace=tsk.trace,
+                    state=State.PROCESSING.value,
+                    task_type=tsk.type.value,
+                )
+                if tsk.type == TaskType.RUN:
+                    result = do_run(engine, tsk, ow, cancel)
+                elif tsk.type == TaskType.BUILD:
+                    result = do_build_task(engine, tsk, ow, cancel)
+                else:
+                    raise ValueError(f"unsupported task type {tsk.type}")
+                tsk.result = result
+            except Exception as e:  # noqa: BLE001 — task errors become results
+                S().error("task %s failed: %s", tsk.id, e)
+                ow.write_error(str(e))
+                tsk.error = str(e)
+                tsk.result = {
+                    "outcome": (
+                        Outcome.CANCELED.value
+                        if cancel.is_set()
+                        else Outcome.FAILURE.value
+                    )
+                }
+                S().debug("%s", traceback.format_exc())
+            else:
+                ow.write_result(tsk.result)
     finally:
         timer.cancel()
-    final = State.CANCELED if cancel.is_set() and tsk.error else State.COMPLETE
-    tsk.states.append(DatedState(state=final, created=time.time()))
+        engine.drop_cancel(tsk.id)
+        final = State.CANCELED if cancel.is_set() and tsk.error else State.COMPLETE
+        tsk.states.append(DatedState(state=final, created=time.time()))
+        # journal + span-tree export BEFORE the archive makes the terminal
+        # state visible: a client polling for COMPLETE must find
+        # task_spans.jsonl already on disk
+        _finish_task(engine, tsk)
+        engine.storage.archive(tsk)
+        # status webhooks: log-and-continue, never affect the task
+        # (supervisor.go:176-183)
+        notify_task_finished(engine.env, tsk)
+        S().info("task %s finished: %s", tsk.id, tsk.outcome().value)
 
 
 # ----------------------------------------------------------------- builds
 
 
 def do_build(
-    engine: Registry,
+    engine: Engine,
     comp: Composition,
     manifest: TestPlanManifest,
     sources_dir: str,
@@ -237,11 +323,29 @@ def do_build(
     return comp
 
 
+def do_build_task(
+    engine: Engine, tsk: Task, ow: OutputWriter, cancel: threading.Event
+) -> dict:
+    """A build task (``tg build``, ``supervisor.go:298-493``): the groups'
+    artifacts, without the reference's precompile into XLA's compile
+    cache."""
+    comp = Composition.from_dict(tsk.composition)
+    manifest = TestPlanManifest.from_dict(tsk.input["manifest"])
+    built = do_build(
+        engine, comp, manifest, tsk.input.get("sources_dir", ""), tsk.id, ow, cancel
+    )
+    return {
+        "outcome": Outcome.SUCCESS.value,
+        "artifacts": {g.id: g.run.artifact for g in built.groups},
+        "composition": built.to_dict(),
+    }
+
+
 # ------------------------------------------------------------------- runs
 
 
 def do_run(
-    engine: Registry, tsk: Task, ow: OutputWriter, cancel: threading.Event
+    engine: Engine, tsk: Task, ow: OutputWriter, cancel: threading.Event
 ) -> dict:
     """(``supervisor.go:494-656``)."""
     comp = Composition.from_dict(tsk.composition)
@@ -261,6 +365,7 @@ def do_run(
     if needs_build:
         comp = do_build(engine, comp, manifest, sources_dir, tsk.id, ow, cancel)
         tsk.composition = comp.to_dict()
+        engine.storage.update_current(tsk)
 
     comp = prepare_for_run(comp, manifest)
     validate_for_run(comp)
@@ -279,6 +384,32 @@ def do_run(
         else coalesced.flatten()
     )
 
+    # the run's device made current in this (worker) thread for the
+    # healthcheck's kernel check and every run: the kernels launch on the
+    # current device with the stream of their tensors' device
+    with device_context(_run_device(runner_cfg)):
+        return _run_composition(engine, tsk, comp, runner, runner_cfg, ow, cancel)
+
+
+def _run_device(runner_cfg):
+    """The card a run's coalesced config names (its ``device``, or the
+    card when it names none and there is one); None for a host device."""
+    import torch
+
+    name = getattr(runner_cfg, "device", None)
+    if name is None:
+        return torch.device("cuda") if torch.cuda.is_available() else None
+    dev = torch.device(name)
+    return dev if dev.type == "cuda" else None
+
+
+def _run_composition(engine: Engine, tsk: Task, comp: Composition, runner,
+                     runner_cfg, ow: OutputWriter, cancel: threading.Event) -> dict:
+    """The healthcheck and each ``[[runs]]`` entry of a prepared
+    composition (``supervisor.go:541-656``)."""
+    runner_id = comp.global_.runner
+    cfg_type = runner.config_type()
+
     # healthcheck with fix (supervisor.go:541-553)
     from ..runners.base import HealthcheckedRunner
 
@@ -293,8 +424,15 @@ def do_run(
     run_results: dict[str, dict] = {}
     outcome = Outcome.SUCCESS
     artifacts_by_group = {g.id: g.run.artifact for g in comp.groups}
-    # the queue wait (queued_secs) comes with the task queue (item 9e)
+    # task-level timings: the queue wait and per-run runner wall are only
+    # visible HERE — the executor measures inside a run (scheduled →
+    # processing is appended by queue.pop, so the state timestamps carry
+    # the wait)
     task_perf: dict = {"runner_wall_secs": {}}
+    if len(tsk.states) >= 2:
+        task_perf["queued_secs"] = round(
+            max(0.0, tsk.states[-1].created - tsk.states[0].created), 3
+        )
 
     for run in comp.runs:
         if cancel.is_set():
@@ -351,6 +489,15 @@ def do_run(
             # the task keeps the failed run's record. Later [[runs]] still
             # execute (the task's cancel event was not set).
             ow.write_error(f"run {run.id} failed: {e}")
+            engine.events.emit(
+                "task.slo_canceled",
+                task=tsk.id,
+                trace=tsk.trace,
+                run=run.id,
+                rule=e.breach.get("rule", ""),
+                metric=e.breach.get("metric", ""),
+                observed=e.breach.get("observed"),
+            )
             bo = e.run_output
             result_dict = (
                 bo.result.to_dict()

@@ -1,11 +1,11 @@
-"""The task model — the port's copy of what the in-process CLI needs of the
+"""Task model: the unit of scheduled work — the port's copy of the
 reference's ``testground_tpu/engine/task.py`` (``pkg/task/task.go``): a
-task moves through scheduled → processing → complete (or canceled),
-carries its composition and input, and ends with an outcome.
+task moves through scheduled → processing → complete (or canceled), carries
+its composition and input, and ends with an outcome
+(unknown/success/failure/canceled).
 
-The task store, the queue and their payloads (``stats_payload``,
-``perf_payload``, ``to_dict``) come with the engine (ROADMAP queue 1 item
-9e).
+The observability payloads (``stats_payload``, ``perf_payload``) come with
+the verbs that serve them (ROADMAP queue 1 item 9f).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 __all__ = [
+    "CreatedBy",
     "DatedState",
     "Outcome",
     "State",
@@ -88,14 +89,49 @@ class DatedState:
     state: State
     created: float  # unix seconds
 
+    def to_dict(self) -> dict:
+        return {"state": self.state.value, "created": self.created}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DatedState":
+        return cls(state=State(d["state"]), created=float(d["created"]))
+
+
+@dataclass
+class CreatedBy:
+    """Who created the task (``task.go:48-53``)."""
+
+    user: str = ""
+    repo: str = ""
+    branch: str = ""
+    commit: str = ""
+
+    def to_dict(self) -> dict:
+        return {
+            "user": self.user,
+            "repo": self.repo,
+            "branch": self.branch,
+            "commit": self.commit,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CreatedBy":
+        return cls(
+            user=d.get("user", ""),
+            repo=d.get("repo", ""),
+            branch=d.get("branch", ""),
+            commit=d.get("commit", ""),
+        )
+
 
 @dataclass
 class Task:
-    """(``task.go:55-74``), without the priority, version and creator the
-    queue reads."""
+    """(``task.go:55-74``)."""
 
     id: str
     type: TaskType
+    priority: int = 0
+    version: int = 0
     runner: str = ""
     plan: str = ""
     case: str = ""
@@ -104,19 +140,53 @@ class Task:
     input: Any = None
     result: Any = None
     error: str = ""
-    # causal lifecycle-trace ids: trace_id plus the span ids of the
-    # lifecycle phases minted so far
+    created_by: CreatedBy = field(default_factory=CreatedBy)
+    # Causal lifecycle-trace ids (tracectx.py): trace_id plus the span
+    # ids of the lifecycle phases minted so far (root/queued/claim/
+    # execute). Not the flight recorder, which lives in the result
+    # journal under "trace"; this keyspace is control-plane only.
     trace: dict = field(default_factory=dict)
+
+    def created(self) -> float:
+        if not self.states:
+            raise ValueError("task must have a state")
+        return self.states[0].created
 
     def state(self) -> DatedState:
         if not self.states:
             raise ValueError("task must have a state")
         return self.states[-1]
 
+    def is_canceled(self) -> bool:
+        return self.state().state == State.CANCELED
+
     def name(self) -> str:
         if self.type == TaskType.BUILD:
             return "build"
         return f"{self.plan}:{self.case}"
+
+    def took(self) -> float:
+        """Seconds from creation to last state transition (``task.go:98-100``)."""
+        return self.state().created - self.created()
+
+    def queued_secs(self) -> float:
+        """Seconds the task spent (or has spent so far) in the queue:
+        scheduled → first PROCESSING transition, or scheduled → now for
+        a task still waiting. The same quantity the supervisor reports
+        in the perf payload, computable for every task in the store."""
+        if not self.states:
+            return 0.0
+        t0 = self.states[0].created
+        for ds in self.states[1:]:
+            if ds.state == State.PROCESSING:
+                return max(0.0, ds.created - t0)
+        if self.states[-1].state == State.SCHEDULED:
+            return max(0.0, time.time() - t0)
+        return 0.0
+
+    def created_by_ci(self) -> bool:
+        cb = self.created_by
+        return bool(cb.repo and cb.commit and cb.branch)
 
     def outcome(self) -> Outcome:
         """Map task state + result to an outcome — the semantics of
@@ -134,3 +204,41 @@ class Task:
             except ValueError:
                 return Outcome.UNKNOWN
         return Outcome.UNKNOWN
+
+    def to_dict(self) -> dict:
+        return {
+            "version": self.version,
+            "priority": self.priority,
+            "id": self.id,
+            "type": self.type.value,
+            "runner": self.runner,
+            "plan": self.plan,
+            "case": self.case,
+            "states": [s.to_dict() for s in self.states],
+            "composition": self.composition,
+            "input": self.input,
+            "result": self.result,
+            "error": self.error,
+            "outcome": self.outcome().value,
+            "created_by": self.created_by.to_dict(),
+            "trace": dict(self.trace),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Task":
+        return cls(
+            id=d["id"],
+            type=TaskType(d["type"]),
+            priority=int(d.get("priority", 0)),
+            version=int(d.get("version", 0)),
+            runner=d.get("runner", ""),
+            plan=d.get("plan", ""),
+            case=d.get("case", ""),
+            states=[DatedState.from_dict(s) for s in d.get("states", [])],
+            composition=d.get("composition"),
+            input=d.get("input"),
+            result=d.get("result"),
+            error=d.get("error", ""),
+            created_by=CreatedBy.from_dict(d.get("created_by", {})),
+            trace=dict(d.get("trace") or {}),
+        )

@@ -1,23 +1,22 @@
 """OutputWriter: simultaneously a logger and a chunk emitter — the port's
 copy of the reference's ``testground_tpu/rpc/writer.py``
-(``pkg/rpc/writer.go``), without the binary stream it needs only for
-collected outputs.
+(``pkg/rpc/writer.go``).
 
-Progress output (human log lines) is emitted as ``p`` chunks; the terminal
+Progress output (human log lines) is emitted as ``p`` chunks; binary streams
+(e.g. collected-outputs tarballs) as base64 ``b`` chunks; and the terminal
 result/error as a single ``r``/``e`` chunk.
 """
 
 from __future__ import annotations
 
+import base64
 import json
 import threading
-from typing import Any, TextIO
+from typing import Any, BinaryIO, TextIO
+
+from .chunk import CHUNK_BINARY, CHUNK_ERROR, CHUNK_PROGRESS, CHUNK_RESULT
 
 __all__ = ["OutputWriter", "discard_writer"]
-
-CHUNK_PROGRESS = "p"
-CHUNK_RESULT = "r"
-CHUNK_ERROR = "e"
 
 
 class OutputWriter:
@@ -62,6 +61,20 @@ class OutputWriter:
 
     def debug(self, msg: str, *args: Any) -> None:
         self._log("debug", msg, *args)
+
+    def write_progress(self, data: str) -> None:
+        self._emit({"t": CHUNK_PROGRESS, "p": data})
+
+    def write_binary(self, reader: BinaryIO, chunk_size: int = 1 << 16) -> None:
+        """Stream binary data as base64 ``b`` chunks (``writer.go`` binary
+        writer)."""
+        while True:
+            buf = reader.read(chunk_size)
+            if not buf:
+                break
+            self._emit(
+                {"t": CHUNK_BINARY, "p": base64.b64encode(buf).decode("ascii")}
+            )
 
     def write_result(self, result: Any) -> None:
         self._emit({"t": CHUNK_RESULT, "p": result})

@@ -2,8 +2,8 @@
 of the reference's ``testground_tpu/runners`` definitions). The port's one
 runner is ``sim:torch`` (``testground_tpu_torch.sim.runner``)."""
 
-from .base import HealthcheckedRunner, Runner
-from .outputs import instance_output_dir
+from .base import HealthcheckedRunner, Runner, Terminatable
+from .outputs import collect_run_outputs, find_run_dir, instance_output_dir
 from .result import GroupOutcome, Result
 
 __all__ = [
@@ -11,5 +11,8 @@ __all__ = [
     "HealthcheckedRunner",
     "Result",
     "Runner",
+    "Terminatable",
+    "collect_run_outputs",
+    "find_run_dir",
     "instance_output_dir",
 ]

@@ -1,17 +1,17 @@
 """Runner interface — the port's copy of the reference's
 ``testground_tpu/runners/base.py`` (``pkg/api/runner.go:17-34``), without
-output collection and ``Terminatable``, which come with the engine and the
-verbs that call them (ROADMAP queue 1 item 9e)."""
+``RunnerOutcomeError``, which only the ``local:exec`` runner raises."""
 
 from __future__ import annotations
 
 import abc
 import threading
+from typing import BinaryIO
 
-from ..api import RunInput, RunOutput
+from ..api import CollectionInput, RunInput, RunOutput
 from ..rpc import OutputWriter
 
-__all__ = ["HealthcheckedRunner", "Runner"]
+__all__ = ["HealthcheckedRunner", "Runner", "Terminatable"]
 
 
 class Runner(abc.ABC):
@@ -36,6 +36,22 @@ class Runner(abc.ABC):
     def config_type(self) -> type | None:
         """Dataclass type for this runner's config, or None."""
         return None
+
+    def collect_outputs(
+        self, inp: CollectionInput, w: BinaryIO, ow: OutputWriter
+    ) -> None:
+        """Gather outputs from a run into a tar.gz written to ``w``
+        (default layout collection lives in ``runners.outputs``)."""
+        from .outputs import collect_run_outputs
+
+        collect_run_outputs(inp.env.dirs.outputs(), inp.run_id, w)
+
+
+class Terminatable(abc.ABC):
+    """Optional runner capability (``pkg/api/runner.go:117-121``)."""
+
+    @abc.abstractmethod
+    def terminate_all(self, ow: OutputWriter) -> None: ...
 
 
 class HealthcheckedRunner(abc.ABC):

@@ -42,6 +42,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
@@ -94,10 +95,20 @@ def _nvcc() -> str:
     )
 
 
+# the first build may be asked for by several threads at once (a daemon's
+# workers): one of them runs nvcc, the others then find its library
+_BUILD_LOCK = threading.Lock()
+
+
 def build_kernels() -> tuple[str, float, str]:
     """Compile ``csrc/transport.cu`` unless a library built from the same
     source bytes and flags exists. Returns ``(path, seconds, compiler
     output)``; seconds is 0.0 on a cache hit."""
+    with _BUILD_LOCK:
+        return _build_kernels()
+
+
+def _build_kernels() -> tuple[str, float, str]:
     with open(_SOURCE, "rb") as f:
         src = f.read()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

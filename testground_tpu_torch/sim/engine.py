@@ -71,6 +71,7 @@ run's, bit for bit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -136,6 +137,7 @@ __all__ = [
     "SimStallError",
     "build_groups",
     "carry_footprint",
+    "device_context",
     "resolve_device",
 ]
 
@@ -194,6 +196,17 @@ def _check_carry_finite(carry, tick_lo: int, tick_hi: int) -> None:
 # Budget for the dense [R, N] per-region filter table, in int32 cells
 # (2**28 = 1 GiB), as in the reference.
 MAX_FILTER_CELLS = 2**28
+
+
+def device_context(dev: torch.device):
+    """``dev`` made the calling thread's current CUDA device, where it is a
+    card. The kernels of ``cuda_transport`` launch on the current device
+    with the stream of their tensors' device, and the current device is per
+    host thread: a thread that runs on another card than its current one
+    (a daemon's worker, a run on ``cuda:1``) enters this first."""
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -1310,7 +1323,8 @@ class SimProgram:
             if watch:
                 self._chunk_watched(chunk, ticks, chunk_timeout, cancel, on_stall)
             else:
-                chunk()
+                with device_context(self.device):
+                    chunk()
             carry = state["carry"]
             ticks += self.chunk
             if chunk_sleep_ms > 0:
@@ -1363,10 +1377,7 @@ class SimProgram:
 
         def work():
             try:
-                if dev.type == "cuda":
-                    with torch.cuda.device(dev):
-                        chunk()
-                else:
+                with device_context(dev):
                     chunk()
             except BaseException as e:  # noqa: BLE001 — re-raised below
                 box["err"] = e

@@ -19,7 +19,7 @@ import threading
 
 from ..api import RunInput, RunOutput
 from ..rpc import OutputWriter
-from ..runners.base import HealthcheckedRunner, Runner
+from ..runners.base import HealthcheckedRunner, Runner, Terminatable
 
 __all__ = ["SimTorchRunner"]
 
@@ -35,12 +35,31 @@ def _kernel_check(device) -> tuple[bool, str]:
     import torch
 
     from . import cuda_transport as ct
-    from .net import Calendar
+    from .engine import device_context
 
     key = (str(device), torch.cuda.get_device_name(device))
     if key in _kernel_check_ok:
         return True, _kernel_check_ok[key]
     path, build_s, _ = ct.build_kernels()
+    # K2 launches on the current device: make it the checked one
+    with device_context(device):
+        ok = _pop_check(device)
+    if not ok:
+        return False, "K2 disagrees with its plain version"
+    msg = (f"kernels built ({path.rsplit('/', 1)[-1]}, {build_s:.1f}s) and "
+           f"K2 bit-equal to its plain version on {device}")
+    _kernel_check_ok[key] = msg
+    return True, msg
+
+
+def _pop_check(device) -> bool:
+    """K2 on a small random calendar plane on ``device``, bit-equal to its
+    plain version."""
+    import torch
+
+    from . import cuda_transport as ct
+    from .net import Calendar
+
     gen = torch.Generator().manual_seed(0)
     horizon, ns, width = 4, 2 * 64, 2
 
@@ -59,15 +78,10 @@ def _kernel_check(device) -> tuple[bool, str]:
     _, row_p, pay_p = ct.pop_bucket_plain(cals[1], t)
     got = [cals[0].src, *cals[0].payload, row_k, *pay_k]
     want = [cals[1].src, *cals[1].payload, row_p, *pay_p]
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        return False, "K2 disagrees with its plain version"
-    msg = (f"kernels built ({path.rsplit('/', 1)[-1]}, {build_s:.1f}s) and "
-           f"K2 bit-equal to its plain version on {device}")
-    _kernel_check_ok[key] = msg
-    return True, msg
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-class SimTorchRunner(Runner, HealthcheckedRunner):
+class SimTorchRunner(Runner, HealthcheckedRunner, Terminatable):
     def id(self) -> str:
         return "sim:torch"
 
@@ -78,6 +92,11 @@ class SimTorchRunner(Runner, HealthcheckedRunner):
         from .executor import SimTorchConfig
 
         return SimTorchConfig
+
+    def terminate_all(self, ow: OutputWriter) -> None:
+        """In-flight device dispatches stop at the next chunk boundary via
+        the task's cancel event; no containers/services persist a run."""
+        ow.infof("sim:torch: no persistent resources to terminate")
 
     def healthcheck(self, fix: bool, ow: OutputWriter, env=None, config=None):
         from ..config import EnvConfig

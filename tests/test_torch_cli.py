@@ -1,7 +1,8 @@
 """The port's control plane against the JAX package's, on the CPU: the CLI
-(``python -m testground_tpu_torch.cli``) end to end, the in-process
-engine's lowering, the ``sim:torch`` runner's healthcheck, the refusals,
-and the executor's Influx mirror.
+(``python -m testground_tpu_torch.cli``) end to end through the in-process
+engine (its queue, its disk store and a worker), the ``sim:torch``
+runner's healthcheck, the queue and daemon flags, the refusals, and the
+executor's Influx mirror.
 
 CLI cases run the reference's ``tg`` (``testground_tpu.cli.main``, runner
 ``sim:jax`` with ``shard = false`` and ``perf = false`` in its
@@ -12,7 +13,10 @@ sets ``device = "cpu"``) selects the CPU. Then the exit codes, the outcome
 lines, the ``--result-file`` CSV rows, every run directory and the task
 results (journal, outcome, composition) must be equal, once the task ID,
 the home directory, the runner's name and the fields that differ between
-any two runs (``test_torch_executor.VARYING_FIELDS``) are normalized.
+any two runs (``test_torch_executor.VARYING_FIELDS``) are normalized. The
+lifecycle span tree each engine writes into a run directory
+(``task_spans.jsonl``, ``task_trace.json``) is compared span by span, each
+with its parent's name in place of the ids and without its clocks.
 """
 
 import contextlib
@@ -23,6 +27,7 @@ import json
 import os
 import re
 import shutil
+import tarfile
 import threading
 
 import pytest
@@ -37,7 +42,7 @@ from testground_tpu.sim import executor as jexec
 from testground_tpu_torch.cli import commands as pcommands
 from testground_tpu_torch.cli.main import main as pmain
 from testground_tpu_torch.config import EnvConfig
-from testground_tpu_torch.engine.supervisor import Registry
+from testground_tpu_torch.engine import Engine, TaskStorage
 from testground_tpu_torch.sim import cuda_transport as ct
 from testground_tpu_torch.sim import executor as pexec
 from testground_tpu_torch.sim import runner as prunner
@@ -50,9 +55,8 @@ PORT_PLANS = os.path.join(REPO, "testground_tpu_torch", "plans")
 REF_ENV = '[runners."sim:jax"]\nshard = false\nperf = false\n'
 PORT_ENV = '[runners."sim:torch"]\ndevice = "cpu"\n'
 
-# what the reference's engine writes into a run directory at the end of a
-# task: its lifecycle span tree, exported from the task store, which the
-# port gets with the engine (ROADMAP queue 1 item 9e)
+# what an engine writes into a run directory at the end of a task: its
+# lifecycle span tree (engine/tracetree.py)
 ENGINE_FILES = frozenset({"task_spans.jsonl", "task_trace.json"})
 
 # one run that passes and one that aborts: its fault table names no
@@ -139,6 +143,42 @@ def _jax_task(home, task_id):
             e.stop()
 
 
+def _port_task(home, task_id):
+    """The port's archived task, from its on-disk store."""
+    return TaskStorage(os.path.join(home, "tasks.db")).get(task_id)
+
+
+def _engine_file(run_dir, name):
+    """``task_spans.jsonl`` or ``task_trace.json`` made comparable across
+    two runs: each span (or trace event) with its parent's name in place of
+    the ids and without its clocks, in an order of their own. Every parent
+    must resolve: the tree is connected."""
+    with open(os.path.join(run_dir, name)) as f:
+        if name == "task_spans.jsonl":
+            rows = [json.loads(ln) for ln in f if ln.strip()]
+            names = {r["span_id"]: r["name"] for r in rows}
+            assert all(r["parent_id"] in names for r in rows if r["parent_id"]), name
+            rows = [{**{k: v for k, v in r.items() if k not in ("start_ns", "end_ns")},
+                     "parent": names.get(r["parent_id"], "")} for r in rows]
+            head = {}
+        else:
+            doc = json.load(f)
+            rows = [{k: v for k, v in e.items() if k not in ("ts", "dur")}
+                    for e in doc["traceEvents"]]
+            head = {k: v for k, v in doc.items() if k != "traceEvents"}
+    return {**head, "spans": sorted((_strip(r) for r in rows),
+                                    key=lambda r: json.dumps(r, sort_keys=True))}
+
+
+def _run_tree(run_dir):
+    """A run directory as ``_read_tree`` reads it, its span tree as
+    ``_engine_file`` does."""
+    tree = _read_tree(run_dir)
+    for name in ENGINE_FILES & set(tree):
+        tree[name] = _engine_file(run_dir, name)
+    return tree
+
+
 def _norm(x, task_id, home):
     """Strip the varying fields and name the task, the home and the runner
     the same way in both packages' records."""
@@ -158,11 +198,7 @@ def _journal(result):
 def _record(pkg, home, rc, stdout, stderr, result_file):
     """What a CLI call left: its lines, CSV rows, run directories and task."""
     task_id = _task_id(stdout)
-    if pkg == "jax":
-        t = _jax_task(home, task_id)
-    else:
-        t = pcommands.LAST_TASK
-        assert t.id == task_id
+    t = (_jax_task if pkg == "jax" else _port_task)(home, task_id)
     result = t.result
     runs = result.get("runs")
     results = ({rid: r for rid, r in runs.items()} if runs else {None: result})
@@ -171,8 +207,11 @@ def _record(pkg, home, rc, stdout, stderr, result_file):
     for rid in results:
         run_id = task_id if rid is None else f"{task_id}-{rid}"
         d = os.path.join(outputs, run_id)
-        run_dirs[rid] = ({k: v for k, v in _read_tree(d).items() if k not in ENGINE_FILES}
-                         if os.path.isdir(d) else None)
+        run_dirs[rid] = _run_tree(d) if os.path.isdir(d) else None
+    if runs:
+        # a composition of several runs: the task's own directory holds its
+        # span tree
+        run_dirs["task"] = _run_tree(os.path.join(outputs, task_id))
     rows = []
     if result_file and os.path.exists(result_file):
         with open(result_file) as f:
@@ -232,7 +271,8 @@ def cli_runs(tmp_path_factory):
                 rc, out, err = _cli(main, home, args)
                 result_file = str(home / "results.csv")
                 both[pkg] = (_record(pkg, home, rc, out, err, result_file), out, err)
-            both["torch-task"] = pcommands.LAST_TASK
+                both[f"{pkg}-task"] = (_jax_task if pkg == "jax" else _port_task)(
+                    home, _task_id(out))
             cache[name] = both
         return cache[name]
 
@@ -262,7 +302,8 @@ EXPECTED = {
     "sustained-smoke": (0, ["finished run with ID: <task> (outcome: success)"],
                         [["<task>", "network:pingpong-sustained", "success", ""]],
                         {"sim_timeseries.jsonl", "sim_latency.jsonl", "sim_slo.jsonl",
-                         "timeseries.jsonl", "run_spans.jsonl", "pairs/7/run.out"}),
+                         "timeseries.jsonl", "run_spans.jsonl", "pairs/7/run.out",
+                         "task_spans.jsonl", "task_trace.json"}),
     "chaos-smoke": (0, ["finished run with ID: <task> (outcome: success)"],
                     [["<task>", "chaos:chaos-barrier", "success", ""]],
                     {"sim_trace.jsonl", "trace_events.json", "sim_slo.jsonl"}),
@@ -286,6 +327,8 @@ def test_cli_run_covers_what_it_is_for(name, cli_runs):
         assert port["csv"][1:] == rows
     trees = [t for t in port["run_dirs"].values() if t is not None]
     assert trees and all(files <= set(t) for t in trees[:1]), name
+    spans = {s["name"] for s in trees[-1]["task_spans.jsonl"]["spans"]}
+    assert {"submit", "queued", "claim", "execute", "archive", "run"} <= spans, spans
     if name == "two-runs":
         rows = port["csv"][1:]
         assert [r[0] for r in rows] == ["<task>-passes", "<task>-aborts"]
@@ -307,7 +350,11 @@ def test_cli_journal_names_the_plain_transport_on_the_cpu(cli_runs):
     task = runs["torch-task"]
     assert (task.plan, task.case, task.runner) == ("network", "pingpong-sustained", "sim:torch")
     assert task.result["journal"]["sim"]["transport"]["resolved"] == "plain"
-    assert set(task.result["perf"]) == {"runner_wall_secs"}
+    # the task-level timings: the queue wait and the runner's wall, as in
+    # the reference
+    assert set(task.result["perf"]) == {"runner_wall_secs", "queued_secs"}
+    assert set(task.result["perf"]) == set(runs["jax-task"].result["perf"])
+    assert 0 <= task.result["perf"]["queued_secs"] < 5
 
 
 def test_write_artifacts_and_reuse(tmp_path):
@@ -357,28 +404,83 @@ def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     assert len(errors) == 1 and f"ROADMAP queue 1 {item}" in errors[0], err
 
 
+# the queue and daemon flags, with {home} and {runner}; the port refused
+# them until it had a task store and a daemon
+ONE_RUN = "{home}/one-run.toml"
+SINGLE = ["run", "single", "placebo:ok", "-i", "2", "--builder", "sim:plan",
+          "--runner", "{runner}"]
 DAEMON_FLAGS = {
-    "endpoint": ["--endpoint", "http://127.0.0.1:9", "run", "single", "placebo:ok"],
-    "detach": ["run", "single", "placebo:ok", "--detach"],
-    "collect": ["run", "single", "placebo:ok", "--collect"],
-    "collect-file": ["run", "composition", "-f", "x.toml", "--collect-file", "o.tgz"],
-    "priority": ["run", "composition", "-f", "x.toml", "--priority", "3"],
-    "metadata": ["run", "single", "placebo:ok", "--metadata-repo", "org/repo"],
+    "endpoint": ["--endpoint", "http://127.0.0.1:9", *SINGLE],
+    "detach": [*SINGLE, "--detach"],
+    "collect": [*SINGLE, "--collect"],
+    "collect-file": ["run", "composition", "-f", ONE_RUN, "--collect-file", "{home}/o.tgz"],
+    "priority": ["run", "composition", "-f", ONE_RUN, "--priority", "3"],
+    "metadata": [*SINGLE, "--metadata-repo", "org/repo", "--metadata-branch", "main",
+                 "--metadata-commit", "abc123"],
     "resume": ["run", "resume", "sometask"],
-    "client-endpoint": ["healthcheck", "--runner", "sim:torch"],
+    "client-endpoint": ["healthcheck", "--runner", "{runner}"],
 }
 
 
+def _flag_record(pkg, home, rc, out, err):
+    """What a CLI call with a queue or daemon flag left: its exit code, its
+    report lines, the task's queue fields and the files it collected."""
+    m = re.search(r"run is queued with ID: (\S+)", out)
+    task_id = m[1] if m else "<none>"
+    rec = {"rc": rc,
+           "lines": [ln for ln in out.splitlines()
+                     if ln.startswith(("run is queued", "finished run", "downloaded"))],
+           "errors": [ln for ln in err.splitlines() if ln.startswith(("error: ", "warning: "))]}
+    if m:
+        t = (_jax_task if pkg == "jax" else _port_task)(home, task_id)
+        rec["task"] = {"priority": t.priority, "created_by": t.created_by.to_dict(),
+                       "state": t.state().state.value, "outcome": t.outcome().value}
+        for tgz in (home / f"{task_id}.tgz", home / "o.tgz"):
+            if tgz.exists():
+                with tarfile.open(tgz) as tar:
+                    rec["collected"] = sorted(tar.getnames())
+    return _norm(rec, task_id, home)
+
+
 @pytest.mark.parametrize("name", list(DAEMON_FLAGS))
-def test_daemon_only_flag_is_refused_naming_its_item(name, tmp_path):
-    env = PORT_ENV + ('[client]\nendpoint = "http://127.0.0.1:9"\n'
-                      if name == "client-endpoint" else "")
-    home = _make_home(tmp_path, "torch", env, ("placebo",))
-    rc, out, err = _cli(pmain, home, DAEMON_FLAGS[name])
-    assert rc == 1
-    assert err.startswith("error: ") and "ROADMAP queue 1 item 9e" in err, err
-    assert "run is queued" not in out
-    assert not os.path.exists(home / "data" / "outputs" / "placebo")
+def test_daemon_only_flag_is_refused_naming_its_item(name, tmp_path, monkeypatch):
+    """The flags the port refused while it had no task store and no daemon
+    now do what the reference's do: the same exit code, lines, queue fields
+    of the task and collected files. ``run resume`` seeds a run from a
+    checkpoint, and is still refused, naming its item (13)."""
+    got = {}
+    for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
+                                   ("torch", pmain, PORT_ENV, "sim:torch")):
+        if name == "client-endpoint":
+            env += '[client]\nendpoint = "http://127.0.0.1:9"\n'
+        home = _make_home(tmp_path, pkg, env, ("placebo",))
+        (home / "one-run.toml").write_text(TWO_RUNS.format(runner=runner).split("[[runs]]")[0])
+        monkeypatch.chdir(home)  # --collect writes <task>.tgz into the working dir
+        argv = [a.format(home=home, runner=runner) for a in DAEMON_FLAGS[name]]
+        got[pkg] = _flag_record(pkg, home, *_cli(main, home, argv))
+    port = got["torch"]
+    if name == "resume":
+        assert port["rc"] == 1 and len(port["errors"]) == 1
+        assert "ROADMAP queue 1 item 13" in port["errors"][0], port
+        return
+    assert port == got["jax"]
+    if name in ("endpoint", "client-endpoint"):
+        # nothing listens there: the call fails, and nothing runs in process
+        assert port["rc"] == 1 and "Connection refused" in port["errors"][0], port
+        assert not os.path.exists(tmp_path / "torch" / "data" / "outputs" / "placebo")
+        return
+    assert port["rc"] == 0 and port["task"]["outcome"] == "success", port
+    if name == "detach":
+        # without a daemon the in-process engine waits, with the warning
+        assert port["errors"][0].startswith("warning: --detach without --endpoint")
+    if name.startswith("collect"):
+        assert {"<task>/task_spans.jsonl", "<task>/task_trace.json",
+                "<task>/run_spans.jsonl"} <= set(port["collected"]), port
+    if name == "priority":
+        assert port["task"]["priority"] == 3
+    if name == "metadata":
+        assert port["task"]["created_by"] == {"user": "", "repo": "org/repo",
+                                              "branch": "main", "commit": "abc123"}
 
 
 # ----------------------------------------------------------- healthcheck
@@ -409,7 +511,9 @@ def test_healthcheck_without_a_card_fails_and_does_not_fall_back(tmp_path, monke
     rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2"])
     assert rc == 1 and "(outcome: failure)" in out
     assert "error: runner sim:torch failed healthcheck" in err
-    assert not os.path.exists(home / "data" / "outputs" / "placebo")
+    # the task's directory holds its span tree and nothing of a run
+    outputs = home / "data" / "outputs" / "placebo"
+    assert [set(os.listdir(outputs / d)) for d in os.listdir(outputs)] == [ENGINE_FILES]
 
 
 def test_run_cfg_device_cpu_passes_the_healthcheck_without_a_card(tmp_path, monkeypatch):
@@ -421,7 +525,8 @@ def test_run_cfg_device_cpu_passes_the_healthcheck_without_a_card(tmp_path, monk
                                       "--run-cfg", "device=cpu"])
     assert rc == 0 and "(outcome: success)" in out, out + err
     assert "check device-available: ok" not in out  # the report prints only on failure
-    assert pcommands.LAST_TASK.result["journal"]["sim"]["transport"]["resolved"] == "plain"
+    task = _port_task(home, _task_id(out))
+    assert task.result["journal"]["sim"]["transport"]["resolved"] == "plain"
 
 
 def _fake_card(monkeypatch, allocated=0, total=80 * 2**30):
@@ -491,12 +596,12 @@ def test_kernel_that_does_not_build_fails_the_healthcheck(tmp_path, monkeypatch)
     assert not report.ok() and prunner._kernel_check_ok == {}
 
 
-def test_runner_identity_and_registry():
+def test_runner_identity_and_registry(tmp_path):
     r = SimTorchRunner()
     assert r.id() == "sim:torch" and r.compatible_builders() == ["sim:plan"]
     assert r.config_type() is pexec.SimTorchConfig
-    reg = Registry.new_default(EnvConfig())
-    assert sorted(reg.builders) == ["sim:plan"] and sorted(reg.runners) == ["sim:torch"]
+    reg = Engine.new_default(EnvConfig.load(home=str(tmp_path)))
+    assert reg.list_builders() == ["sim:plan"] and reg.list_runners() == ["sim:torch"]
     with pytest.raises(ValueError, match="unknown runner: sim:jax"):
         reg.do_healthcheck("sim:jax", False, None)
 
@@ -661,7 +766,6 @@ def test_trace_context_and_task_ids_match_jax(tmp_path):
     from testground_tpu import tracectx as jtrace
     from testground_tpu.engine.task import new_task_id as jnew_task_id
     from testground_tpu_torch.api import load_composition
-    from testground_tpu_torch.engine.supervisor import new_run_task
     from testground_tpu_torch.engine.task import new_task_id
     from testground_tpu_torch.sim import telemetry as ptel
 
@@ -674,7 +778,8 @@ def test_trace_context_and_task_ids_match_jax(tmp_path):
     comp.write_text(TWO_RUNS.format(runner="sim:torch").split("[[runs]]")[0])
     env = EnvConfig.load(home=str(home))
     manifest = pcommands._resolve_plan(env, "placebo")[1]
-    tsk = new_run_task(Registry.new_default(env), load_composition(str(comp)), manifest)
+    engine = Engine.new_default(env)
+    tsk = engine.get_task(engine.queue_run(load_composition(str(comp)), manifest))
     assert set(tsk.trace) == {"trace_id", "root_span_id", "queued_span_id"}
     assert re.fullmatch(r"[0-9a-f]{32}", tsk.trace["trace_id"])
     assert all(re.fullmatch(r"[0-9a-f]{16}", tsk.trace[k])
@@ -683,3 +788,72 @@ def test_trace_context_and_task_ids_match_jax(tmp_path):
         ids = [make() for _ in range(50)]
         assert len(set(ids)) == 50
         assert all(re.fullmatch(r"[0-9a-v]{20}", i) for i in ids)
+
+
+# ------------------------------------------------------------ build verbs
+
+BUILD_CASES = {
+    "composition": ["build", "composition", "-f", "{home}/one-run.toml", "--write-artifacts"],
+    "single": ["build", "single", "placebo", "--builder", "sim:plan"],
+    "single-case": ["build", "single", "placebo:ok", "--builder", "sim:plan"],
+}
+
+
+@pytest.mark.parametrize("name", list(BUILD_CASES))
+def test_build_verbs_match_jax(name, tmp_path):
+    """``build composition|single`` queue a build task, and ``build purge``
+    removes its snapshots, as the reference's do: the same exit codes and
+    lines, and the artifacts in the same places of each home."""
+    got = {}
+    for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
+                                   ("torch", pmain, PORT_ENV, "sim:torch")):
+        home = _make_home(tmp_path, pkg, env, ("placebo",))
+        (home / "one-run.toml").write_text(TWO_RUNS.format(runner=runner).split("[[runs]]")[0])
+        argv = [a.format(home=home) for a in BUILD_CASES[name]]
+        rc, out, err = _cli(main, home, argv)
+        m = re.search(r"build is queued with ID: (\S+)", out)
+        assert m, out + err
+        work = home / "data" / "work"
+        built = sorted(p.name.replace(m[1], "<task>") for p in work.iterdir())
+        written = "sim-plan--placebo-" in (home / "one-run.toml").read_text()
+        prc, pout, _ = _cli(main, home, ["build", "purge", "-b", "sim:plan", "-p", "placebo"])
+        left = sorted(p.name for p in work.iterdir())
+        # the reference's build task also lints and precompiles into XLA's
+        # cache, and logs both; the port has no such cache
+        lines = [ln for ln in out.splitlines() if ln.startswith(
+            ("build is queued", "sim:plan built", "group ", "finished build", "wrote"))]
+        got[pkg] = _norm({"rc": rc, "lines": lines, "built": built,
+                          "written": written, "purge": (prc, pout.splitlines()),
+                          "left": left}, m[1], home)
+    assert got["torch"] == got["jax"]
+    port = got["torch"]
+    assert port["rc"] == 0 and port["built"] == ["sim-plan--placebo-<task>-0"]
+    assert "finished build with ID: <task> (outcome: success)" in port["lines"]
+    assert port["purge"][0] == 0 and port["left"] == []
+    assert port["written"] == (name == "composition")
+
+
+UNPORTED_FLAGS = {
+    "build-buckets": (["build", "single", "placebo:ok", "--buckets"], "item 13"),
+    "terminate-drain": (["terminate", "--drain"], "item 13"),
+    "status-telemetry": (["status", "-t", "sometask", "--telemetry"], "item 9f"),
+    "collect-local-exec": (["collect", "sometask"], "item 16"),
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED_FLAGS))
+def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
+    argv, item = UNPORTED_FLAGS[name]
+    home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
+    rc, out, err = _cli(pmain, home, argv)
+    assert rc == 1 and err.startswith("error: ") and f"ROADMAP queue 1 {item}" in err, err
+    assert not (home / "data" / "work").exists() or not os.listdir(home / "data" / "work")
+
+
+@pytest.mark.parametrize("verb", ["stats", "perf", "trace", "watch", "netmap", "diff",
+                                  "top", "preempt", "plan", "check", "describe"])
+def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        pmain([verb, "x"])
+    assert e.value.code == 2
+    assert f"invalid choice: '{verb}'" in capsys.readouterr().err

@@ -125,10 +125,11 @@ def test_env_config_load_matches_jax(name, tmp_path):
     got = _outcome(loaded, pconfig.EnvConfig, homes["torch"])
     want = _outcome(loaded, jconfig.EnvConfig, homes["jax"])
     if got[0] == want[0] == "ok":
-        assert set(got[1]["daemon"]) == {"scheduler", "influxdb_endpoint"}
-        assert set(got[1]["client"]) == {"endpoint"}
-        want = ("ok", {**{k: v for k, v in want[1].items() if k != "task_repo_explicit"},
-                       **{k: kept(want[1][k], got[1][k]) for k in ("daemon", "client")}})
+        # the reference's GET /metrics bound comes with that route (item 9f)
+        assert set(want[1]["daemon"]) - set(got[1]["daemon"]) == {"metrics_task_limit"}
+        assert set(got[1]["client"]) == set(want[1]["client"]) == {"endpoint", "token",
+                                                                    "user"}
+        want = ("ok", {**want[1], "daemon": kept(want[1]["daemon"], got[1]["daemon"])})
     assert got == tuple(w.replace(homes["jax"], homes["torch"])
                         if isinstance(w, str) else w for w in want)
     if got[0] == "ok":

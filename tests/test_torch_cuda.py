@@ -624,7 +624,8 @@ def test_gpu_meshed_run_matches_cpu_runs(cuda, name):
         np.testing.assert_array_equal(cg[k], cu[k], err_msg=k)
 
 
-def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkeypatch):
+def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkeypatch,
+                                                          capsys):
     """``run composition`` of the port's chaos smoke composition through the
     CLI, in a home whose ``.env.toml`` names no device (the card) and in one
     that sets ``device = "cpu"``: both succeed, the card's run launches K1
@@ -634,11 +635,14 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
     import os
     import shutil
 
-    from testground_tpu_torch.cli import commands
-    from testground_tpu_torch.cli.main import main
+    import re
 
+    from testground_tpu_torch.cli.main import main
+    from testground_tpu_torch.engine import TaskStorage
+
+    # the span tree's clocks too (task_spans.jsonl, task_trace.json)
     varying = {"ts", "wall_ns", "wall_secs", "compile_secs", "trace_id", "span_id",
-               "parent_id", "transport"}
+               "parent_id", "transport", "start_ns", "end_ns", "dur"}
 
     def strip(x, run_id):
         if isinstance(x, dict):
@@ -656,9 +660,11 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
         monkeypatch.setenv("TESTGROUND_HOME", str(home))
         before = (ct.commit_calendar.launches, ct.pop_bucket.launches)
         comp = home / "plans" / "chaos" / "_compositions" / "smoke.toml"
+        capsys.readouterr()
         assert main(["run", "composition", "-f", str(comp)]) == 0
         after = (ct.commit_calendar.launches, ct.pop_bucket.launches)
-        task = commands.LAST_TASK
+        task_id = re.search(r"run is queued with ID: (\S+)", capsys.readouterr().out)[1]
+        task = TaskStorage(str(home / "tasks.db")).get(task_id)
         assert task.outcome().value == "success"
         sim = task.result["journal"]["sim"]
         assert sim["transport"]["resolved"] == ("cuda" if dev == "cuda" else "plain")
@@ -674,7 +680,14 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
                 with open(path) as f:
                     rows = ([json.load(f)] if name.endswith(".json") else
                             [json.loads(ln) for ln in f if ln.strip()])
-                tree[os.path.relpath(path, run_dir)] = strip(rows, task.id)
+                # the span tree's rows in an order of their own, not by clock
+                rows = strip(rows, task.id)
+                if name == "task_trace.json":
+                    rows = [{**r, "traceEvents": sorted(r["traceEvents"], key=json.dumps)}
+                            for r in rows]
+                elif name.startswith("task_"):
+                    rows = sorted(rows, key=json.dumps)
+                tree[os.path.relpath(path, run_dir)] = rows
         trees[dev] = (tree, strip(task.result["journal"], task.id))
     assert sorted(trees["cuda"][0]) == sorted(trees["cpu"][0])
     for rel in trees["cpu"][0]:
