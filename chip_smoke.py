@@ -94,9 +94,21 @@ and drives the port's main path through the library entry points
               SUCCESS; the chaos smoke composition on the card and, from a
               home with ``device = "cpu"``, on the CPU: run directories and
               task results equal; and a run mirrored to a local Influx
-              capture server (the plan-metric, ``sim.*`` and
-              ``sim.latency.*`` families)
-16. parity  — sustained, flood and storm at 4,096 instances, the faulted
+              capture server (the plan-metric, ``sim.*``,
+              ``sim.latency.*`` and ``sim.perf.*`` families)
+16. daemon  — the daemon as a process with the verbs against it, then an
+              in-process daemon: sustained@100k through its client in turns
+              against the in-process CLI, two runs at once, a kill, chaos
+              smoke CPU ↔ card (see ``phase_daemon``)
+17. admit   — an in-process daemon on the card refuses four bad variants
+              of cli@100k's composition at submit (422, no task, one
+              ``task.refused``, no device memory) and admits the composition
+              itself, whose run journals ``sim.perf``; ``execute_sim_run``
+              with the perf ledger on and off in turns (ms/tick; syncs,
+              launches and ops a tick equal); a one-chunk
+              ``profile_chunks`` capture naming K1 and K2; ``tg check`` as
+              a process (see ``phase_admit``)
+18. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -137,7 +149,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "parity")
+          "cli", "daemon", "admit", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -851,13 +863,40 @@ def host_syncs(prog, ticks, sites=None) -> int:
     32 and 64 ticks differ by 32 ticks' worth when the program's chunk
     divides 32 (``max_ticks`` rounds up to whole chunks). ``sites``, a
     dict, receives the count of each calling line ("file:line")."""
+    return counted_syncs(lambda: prog.run(seed=0, max_ticks=ticks), sites)[1]
+
+
+def dispatched_ops(fn) -> tuple:
+    """``(fn(), the aten ops it dispatched)``, counted on the host by a
+    ``TorchDispatchMode`` (exact, unlike a profiler's device events); on
+    the card each op launches its kernels."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    mode = Count()
+    with mode:
+        out = fn()
+    return out, mode.n
+
+
+def counted_syncs(fn, sites=None) -> tuple:
+    """``(fn(), synchronizing CUDA calls it made)``, as ``host_syncs``
+    counts them."""
     import warnings
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            prog.run(seed=0, max_ticks=ticks)
+            out = fn()
             torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -866,7 +905,7 @@ def host_syncs(prog, ticks, sites=None) -> int:
         for w in syncs:
             key = f"{os.path.relpath(w.filename)}:{w.lineno}"
             sites[key] = sites.get(key, 0) + 1
-    return len(syncs)
+    return out, len(syncs)
 
 
 def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
@@ -1623,6 +1662,9 @@ VARYING_FIELDS = frozenset(
     {"ts", "wall_ns", "wall_secs", "compile_secs", "trace_id", "span_id", "parent_id"}
 )
 SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", "perf"})
+# the perf ledger's row fields that are the run's: the rest are timings,
+# the transport that ran and, on a card, the device bytes in use
+PERF_ROW_FIELDS = ("run", "plan", "case", "tick", "chunk")
 EXEC_TURNS = 3
 
 
@@ -1673,7 +1715,8 @@ SPAN_CLOCKS = frozenset({"start_ns", "end_ns", "ts", "dur"})
 
 def read_run_dir(run_dir) -> dict:
     """Every file of a run directory, parsed, the varying fields dropped;
-    the span tree's rows without their clocks, in an order of their own."""
+    the span tree's rows without their clocks, in an order of their own;
+    the perf ledger's rows by their PERF_ROW_FIELDS."""
     out = {}
     for root, _, names in os.walk(run_dir):
         for fname in names:
@@ -1682,6 +1725,8 @@ def read_run_dir(run_dir) -> dict:
                 rel = os.path.relpath(path, run_dir)
                 out[rel] = (_strip(json.load(f)) if fname.endswith(".json") else
                             [_strip(json.loads(ln)) for ln in f if ln.strip()])
+            if fname == "sim_perf.jsonl":
+                out[rel] = [{k: r[k] for k in PERF_ROW_FIELDS} for r in out[rel]]
             if fname in SPAN_TREE_FILES:
                 rows = out[rel]["traceEvents"] if fname.endswith(".json") else out[rel]
                 out[rel] = sorted(({k: v for k, v in r.items() if k not in SPAN_CLOCKS}
@@ -2174,12 +2219,12 @@ def phase_cli(card) -> dict:
         journal = got["task"].result["journal"]
         blocks = {k: v for k, v in journal.items() if k.startswith("influx")}
         body = b"".join(b for _, b in posts).decode()
-        check(set(blocks) == {"influx", "influx_telemetry", "influx_latency"}
+        check(set(blocks) == {"influx", "influx_telemetry", "influx_latency", "influx_perf"}
               and all(b["ok"] for b in blocks.values()),
               f"cli influx: journal blocks {blocks}")
         check(all(p == "/write?db=testground" for p, _ in posts)
               and ".sim.delivered" in body and ".sim.latency.p50" in body
-              and ".pingpong.rtt1_ticks" in body,
+              and ".pingpong.rtt1_ticks" in body and ".sim.perf.peer_ticks_per_sec" in body,
               f"cli influx: {len(posts)} posts")
         row["influx"] = {"posts": len(posts), "lines": body.count("\n"),
                          "journal": blocks}
@@ -2584,6 +2629,281 @@ def phase_daemon(card) -> dict:
     return row
 
 
+# ---------------------------------------------------------------- admit
+
+ADMIT_TURNS = 3
+# the bad compositions of phase admit: cli@100k's composition with one
+# change each, and the rule its 422 names
+ADMIT_REFUSED = {
+    "slo-without-telemetry": ("slo.needs-telemetry",
+                              lambda c: (c["global"]["run_config"].update(telemetry=False),
+                                         c["global"].update(run={"slo": [{
+                                             "name": "keeps-delivering",
+                                             "metric": "delivered_per_tick", "op": ">=",
+                                             "threshold": 0.5}]}))),
+    "transport-bogus": ("transport.unknown",
+                        lambda c: c["global"]["run_config"].update(transport="bogus")),
+    # a partition whose window ends before it starts
+    "fault-inverted-window": ("faults.invalid",
+                              lambda c: c["groups"][0]["run"].update(faults=[{
+                                  "kind": "partition", "instances": "0:50000",
+                                  "to_instances": "50000:100000", "start_ms": 100.0,
+                                  "duration_ms": -50.0}])),
+    "bucket-auto": ("port.not-ported",
+                    lambda c: c["global"]["run_config"].update(bucket="auto")),
+}
+
+
+def _post(address, route, body) -> tuple:
+    """``(status, parsed body)`` of one POST to a daemon on this host
+    (``address`` as ``Daemon.address`` gives it, ``http://host:port``)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(address + route, method="POST",
+                                 data=json.dumps(body).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _refused_events(client) -> list:
+    try:
+        return [r for r in client.events() if r["type"] == "task.refused"]
+    except Exception as e:  # noqa: BLE001 — a fresh daemon has no journal yet
+        check("no events journal yet" in str(e), f"admit: events: {e}")
+        return []
+
+
+def phase_admit(card) -> dict:
+    """Admission at submit and the perf ledger on the card: (a) an
+    in-process ``Daemon`` on the card with one worker refuses cli@100k's
+    composition with an SLO and no telemetry, an unknown transport, an
+    inverted fault window and ``bucket = "auto"``: a 422 naming the rule,
+    no task, one ``task.refused`` event, no device memory allocated; (b)
+    admits cli@100k's own composition, which launches K1 and K2 every tick
+    and journals ``sim.perf`` (rows = chunks, Σ row walls = the execute
+    wall, 100,000 instances, the transport that ran, the device peak above
+    the carry and within the card); (c) ``execute_sim_run`` of its
+    ``RunInput`` in turns with ``perf`` on and off: ms/tick, sync-debug
+    syncs and launches a tick of each turn, then ops a tick of each
+    (counted on the host) and kernels and device ms a tick
+    (``torch.profiler``) — syncs, launches and ops equal; (d)
+    ``profile_chunks = 1``: a Chrome trace naming the kernels; (e) ``tg
+    check`` as a process on the port's smoke compositions, and
+    ``check_composition`` in process."""
+    import shutil
+    import tempfile
+
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+    from testground_tpu_torch.sim.perf import PERF_FILE
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_admit_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "admit", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def count(got, label):
+        check(all(v > 0 for v in got.values()), f"admit {label}: launches {got}")
+        for k, v in got.items():
+            launches[k] += v
+
+    try:
+        # the healthcheck's K2 check (a launch compared with the plain
+        # version, cached per card) made here, outside the counts
+        from testground_tpu_torch.sim.runner import _kernel_check
+
+        check(_kernel_check(torch.device("cuda", 0))[0], "admit: the K2 check")
+        env = EnvConfig.load(home=cli_home(root, "daemon"))
+        env.daemon.scheduler.workers = 1
+        daemon = Daemon(env=env, listen="127.0.0.1:0")
+        daemon.start()
+        client = Client(daemon.address)
+        path = daemon_composition(root, "sustained-100k", 100_000, SUSTAINED)
+        try:
+            # (a) four bad compositions, each refused before a queue slot
+            refused = {}
+            for name, (rule, edit) in ADMIT_REFUSED.items():
+                comp = load_composition(path).to_dict()
+                edit(comp)
+                tasks, events = len(client.tasks()), len(_refused_events(client))
+                torch.cuda.synchronize()
+                mem = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                status, body = _post(daemon.address, "/run", {"composition": comp})
+                rtt = time.perf_counter() - t0
+                mem_after = torch.cuda.memory_allocated()
+                new = _refused_events(client)[events:]
+                check(status == 422 and f"[{rule}] " in body.get("error", ""),
+                      f"admit {name}: {status} {body}")
+                check(len(client.tasks()) == tasks, f"admit {name}: a task was queued")
+                check(len(new) == 1 and new[0]["rules"][0] == rule,
+                      f"admit {name}: task.refused {new}")
+                check(mem_after == mem, f"admit {name}: {mem_after - mem} device bytes")
+                refused[name] = {"status": status, "rules": new[0]["rules"],
+                                 "round_trip_ms": rtt * 1e3, "device_bytes_added": 0}
+            row["refused"] = refused
+            step("refused")
+
+            # (b) cli@100k's own composition: admitted, run, ledgered
+            reset_launches()
+            tid = client.run(load_composition(path).to_dict())
+            t = _wait_done(client, tid, 300)
+            got = read_launches()
+            check(t["outcome"] == "success", f"admit run: {t['error']}")
+            j = t["result"]["journal"]
+            sim, perf = j["sim"], j["sim"].get("perf")
+            ticks = j["telemetry"]["rows"]  # the ticks that ran
+            check(perf is not None, f"admit run: no sim.perf in {sorted(sim)}")
+            check(all(v == ticks for v in got.values()),
+                  f"admit run: launches {got} over {ticks} ticks")
+            count(got, "run")
+            ex = perf["execute"]
+            rows = [json.loads(ln) for ln in open(os.path.join(
+                env.dirs.outputs(), "network", tid, PERF_FILE))]
+            row_walls = sum(r["wall_secs"] for r in rows)
+            check(perf["series"]["rows"] == ex["chunks"] == len(rows),
+                  f"admit run: rows {perf['series']} chunks {ex['chunks']} file {len(rows)}")
+            check(abs(row_walls - ex["wall_secs"]) <= 1e-5 * len(rows),
+                  f"admit run: Σ row walls {row_walls} != {ex['wall_secs']}")
+            check(perf["instances"] == 100_000
+                  and perf["transport"] == sim["transport"]["resolved"] == "cuda",
+                  f"admit run: {perf['instances']} {perf['transport']}")
+            hbm = perf.get("hbm", {})
+            check(sim["carry_bytes"] < hbm.get("peak_bytes", 0) <= hbm.get("bytes_limit", 0),
+                  f"admit run: hbm {hbm} carry {sim['carry_bytes']}")
+            row["admitted"] = {"ticks": ticks, "launches": got, "perf": perf,
+                               "carry_bytes": sim["carry_bytes"],
+                               "rows_wall_s": row_walls}
+            step("admitted")
+        finally:
+            daemon.stop()
+
+        # (c) the ledger on and off, in turns: syncs and kernels equal
+        def exec_turn(perf_on, run_id):
+            job = exec_job(run_id, root, "network", "pingpong-sustained", 100_000,
+                           SUSTAINED, chunk=250, max_ticks=10_000, telemetry=True,
+                           perf=perf_on)
+            (out, wall, _), syncs = counted_syncs(lambda: run_exec(job))
+            got = read_launches()
+            count(got, f"perf={perf_on}")
+            n_ticks = out.result.journal["telemetry"]["rows"]
+            check(("perf" in out.result.journal["sim"]) == perf_on,
+                  f"admit perf={perf_on}: sim.perf present")
+            return {"perf": perf_on, "ticks": n_ticks, "wall_s": wall,
+                    "ms_per_tick": wall / n_ticks * 1e3, "host_syncs": syncs,
+                    "launches_per_tick": {k: v / n_ticks for k, v in got.items()}}
+
+        turns = []
+        for i in range(ADMIT_TURNS):
+            order = (True, False) if i % 2 == 0 else (False, True)
+            for perf_on in order:
+                turns.append(exec_turn(perf_on, f"turn-{i}-{int(perf_on)}"))
+        by = {on: [t for t in turns if t["perf"] is on] for on in (True, False)}
+        check(len({t["host_syncs"] for t in turns}) == 1,
+              f"admit: host syncs differ {[(t['perf'], t['host_syncs']) for t in turns]}")
+        check(len({json.dumps(t["launches_per_tick"], sort_keys=True) for t in turns}) == 1,
+              "admit: launches a tick differ")
+        # kernels a tick: the ops each run dispatches, counted exactly on the
+        # host, and the device's kernels as the profiler sees them (it
+        # loses a varying few of a window's events, PERF.md §7)
+        kernels = {}
+        for perf_on in (True, False):
+            def job(label):
+                # two chunks of 125 ticks: the counts a tick do not need more
+                return exec_job(f"{label}-{int(perf_on)}", root, "network",
+                                "pingpong-sustained", 100_000, SUSTAINED, chunk=125,
+                                max_ticks=250, telemetry=True, perf=perf_on)
+
+            (out, _, _), n_ops = dispatched_ops(lambda: run_exec(job("ops")))
+            count(read_launches(), f"ops perf={perf_on}")
+            box = {}
+            ms, n_kernels = _profiled(lambda: box.__setitem__("run", run_exec(job("prof"))))
+            count(read_launches(), f"profiled perf={perf_on}")
+            n_ticks = out.result.journal["telemetry"]["rows"]
+            kernels[perf_on] = {"ticks": n_ticks, "ops_per_tick": n_ops / n_ticks,
+                                "profiled_kernels_per_tick": n_kernels / n_ticks,
+                                "device_ms_per_tick": ms / n_ticks}
+        check(kernels[True]["ops_per_tick"] == kernels[False]["ops_per_tick"],
+              f"admit: ops a tick differ {kernels}")
+        row["perf_on_off"] = {
+            "turns": turns,
+            "ms_per_tick": {("on" if on else "off"): [t["ms_per_tick"] for t in by[on]]
+                            for on in (True, False)},
+            "median_ms_per_tick": {("on" if on else "off"):
+                                   statistics.median(t["ms_per_tick"] for t in by[on])
+                                   for on in (True, False)},
+            "host_syncs": turns[0]["host_syncs"],
+            "profiled": {("on" if on else "off"): kernels[on] for on in (True, False)},
+        }
+        step("perf_on_off")
+
+        # (d) a bounded profiler capture names the kernels
+        job = exec_job("profiled-chunk", root, "network", "pingpong-sustained", 100_000,
+                       SUSTAINED, chunk=25, max_ticks=50, telemetry=True, profile=True,
+                       profile_chunks=1)
+        out, wall, run_dir = run_exec(job)
+        count(read_launches(), "profile")
+        from testground_tpu_torch.sim.executor import PROFILE_TRACE_FILE
+
+        trace_path = os.path.join(run_dir, "profiles", PROFILE_TRACE_FILE)
+        with open(trace_path) as f:
+            names = {e.get("name", "") for e in json.load(f).get("traceEvents", [])}
+        has = {k: any(k in nm for nm in names) for k in ("commit_k", "pop_vec_k",
+                                                         "pop_scalar_k")}
+        check(has["commit_k"] and (has["pop_vec_k"] or has["pop_scalar_k"]),
+              f"admit profile: kernels {has} in {len(names)} event names")
+        row["profile"] = {"journal": out.result.journal["profile"], "kernels": has,
+                          "trace_bytes": os.path.getsize(trace_path), "wall_s": wall}
+        step("profile")
+
+        # (e) tg check: as a process on the smoke compositions, and in process
+        here = os.path.dirname(os.path.abspath(__file__))
+        from testground_tpu_torch.sim.executor import PLANS_ROOT
+
+        smokes = [os.path.join(PLANS_ROOT, "network", "_compositions", "sustained-smoke.toml"),
+                  os.path.join(PLANS_ROOT, "chaos", "_compositions", "smoke.toml")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "testground_tpu_torch.cli", "check", *smokes],
+            cwd=here, capture_output=True, text=True, timeout=120,
+            env={**os.environ, "PYTHONPATH": here,
+                 "TESTGROUND_HOME": os.path.join(root, "check-home")})
+        process_ms = (time.perf_counter() - t0) * 1e3
+        check(proc.returncode == 0 and proc.stdout.count("ok (no findings)") == 2,
+              f"admit check: exit {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
+        from testground_tpu_torch.api import TestPlanManifest
+        from testground_tpu_torch.sim.check import check_composition
+
+        manifest = TestPlanManifest.load_file(os.path.join(PLANS_ROOT, "network",
+                                                           "manifest.toml"))
+        comp = load_composition(path)
+        in_ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fs = check_composition(comp, manifest)
+            in_ms.append((time.perf_counter() - t0) * 1e3)
+        check(fs == [], f"admit check_composition: {fs}")
+        row["check"] = {"process_ms": process_ms, "lines": proc.stdout.splitlines(),
+                        "check_composition_ms": statistics.median(in_ms),
+                        "check_composition_ms_range": [min(in_ms), max(in_ms)]}
+        step("check")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 # ------------------------------------------------------------ main
 
 
@@ -2701,7 +3021,8 @@ def main(argv=None) -> int:
                    ("benchmarks", phase_benchmarks), ("scale", phase_scale),
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
                    ("plans", phase_plans), ("executor", phase_executor),
-                   ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon)):
+                   ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
+                   ("admit", phase_admit)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -3,7 +3,7 @@
 healthcheck,tasks,status,logs,daemon}.go``) for the verbs the port serves:
 ``run composition|single``, ``build composition|single|purge``, ``tasks``,
 ``status``, ``logs``, ``collect``, ``healthcheck``, ``terminate``,
-``daemon`` and ``version``.
+``daemon``, ``check`` and ``version``.
 
 Every verb goes through an engine: a ``RemoteEngine`` over the daemon's
 HTTP API when ``--endpoint`` (or ``[client] endpoint``) names one, else an
@@ -15,10 +15,10 @@ run with ID"), and so does the ``--result-file`` CSV.
 The reference's flags and verbs that later ROADMAP queue 1 items port are
 refused naming the item: ``run resume`` and ``terminate --drain`` (item
 13), ``build --buckets`` (item 13), ``status --telemetry`` (item 9f), and
-``collect``'s default runner ``local:exec`` (item 16). A verb the port does
-not register (``stats``, ``perf``, ``trace``, ``watch``, ``netmap``,
-``diff``, ``top``, ``preempt``, ``plan``, ``check``, ``describe``) is
-refused by argparse.
+``collect``'s default runner ``local:exec`` (item 16), ``check
+--trace-plans`` (item 9g). A verb the port does not register (``stats``,
+``perf``, ``trace``, ``watch``, ``netmap``, ``diff``, ``top``, ``preempt``,
+``plan``, ``describe``) is refused by argparse.
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ from ..utils.conv import parse_key_values
 ITEM_9F = ("ROADMAP queue 1 item 9f (the observability verbs and routes, the "
            "dashboard and plan import)")
 ITEM_13 = "ROADMAP queue 1 item 13 (buckets, packs, checkpoints and preemption)"
+ITEM_9G = ("ROADMAP queue 1 item 9g (layers 2 and 3 of tg check: plan tracing "
+           "on the meta device and the lints of the tick)")
 ITEM_16 = ("ROADMAP queue 1 item 16 (the local:exec runner, the exec:py and "
            "exec:bin builders and the sdk)")
 
@@ -465,6 +467,13 @@ def register_build(sub) -> None:
         action="store_true",
         help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
     )
+    pc.add_argument(
+        "--run-cfg",
+        action="append",
+        default=[],
+        help="override runner configuration k=v (repeatable); merged into "
+        "global.run_config, which --write-artifacts writes out",
+    )
     _add_metadata_flags(pc)
     pc.set_defaults(func=build_composition_cmd)
     ps = psub.add_parser("single")
@@ -474,6 +483,12 @@ def register_build(sub) -> None:
         "--buckets",
         action="store_true",
         help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
+    )
+    ps.add_argument(
+        "--run-cfg",
+        action="append",
+        default=[],
+        help="override runner configuration k=v (repeatable)",
     )
     _add_metadata_flags(ps)
     ps.set_defaults(func=build_single_cmd)
@@ -489,12 +504,22 @@ def register_build(sub) -> None:
 def _refuse_buckets(args) -> None:
     """``build --buckets`` precompiles the bucket ladder into XLA's cache
     in the reference; the ladder is item 13, and the port has no such
-    cache (nor the reference's build ``--run-cfg``, which only feeds it)."""
+    cache."""
     if args.buckets:
         raise NotImplementedError(
             f"build --buckets precompiles the shape-bucket ladder, which is "
             f"not ported yet: {ITEM_13}"
         )
+
+
+def _apply_build_run_cfg(comp, args) -> None:
+    """``build --run-cfg k=v``: merge the overrides into the composition's
+    ``global.run_config``, as the reference's ``_apply_bucket_build_flags``
+    does (``commands.py:555-568``)."""
+    overrides = parse_key_values(getattr(args, "run_cfg", []) or [])
+    if overrides:
+        comp.global_.run_config = dict(comp.global_.run_config or {})
+        comp.global_.run_config.update(overrides)
 
 
 def _queue_build(engine, comp, args, manifest=None, src_dir="") -> str:
@@ -523,6 +548,7 @@ def build_composition_cmd(args) -> int:
 
     _refuse_buckets(args)
     comp = load_composition(args.file)
+    _apply_build_run_cfg(comp, args)
     engine = _engine(args)
     try:
         if isinstance(engine, RemoteEngine):
@@ -584,6 +610,7 @@ def build_single_cmd(args) -> int:
             global_=Global(plan=plan, case=case, builder=builder, runner=runner),
             groups=[Group(id="single", instances=Instances(count=instances))],
         )
+        _apply_build_run_cfg(comp, args)
         if isinstance(engine, RemoteEngine):
             task_id = _queue_build(engine, comp, args)
         else:
@@ -599,6 +626,132 @@ def build_single_cmd(args) -> int:
         return 0 if t.outcome() == Outcome.SUCCESS else 1
     finally:
         engine.stop()
+
+
+# ------------------------------------------------------------------ check
+
+
+def register_check(sub) -> None:
+    p = sub.add_parser(
+        "check",
+        help="statically analyze composition file(s) against the sim:torch "
+        "admission rules — every refusal the executor would raise, reported "
+        "in one pass before anything queues",
+    )
+    p.add_argument(
+        "compositions",
+        nargs="+",
+        help="composition TOML file(s); the plan resolves from "
+        "$TESTGROUND_HOME/plans, a plans/ dir beside the composition "
+        "(plans/<plan>/_compositions/x.toml layout), or ./plans/<plan>",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="emit the machine-readable findings document (schema "
+        "version 1; exit codes unchanged)",
+    )
+    p.add_argument(
+        "--trace-plans",
+        action="store_true",
+        help=f"abstract plan tracing and the tick's lints (refused: {ITEM_9G})",
+    )
+    p.add_argument(
+        "--run-cfg",
+        action="append",
+        default=[],
+        help="override runner configuration k=v for the analysis "
+        "(repeatable) — check what a different knob combination would "
+        "do without editing the file",
+    )
+    p.add_argument(
+        "--devices",
+        type=int,
+        default=0,
+        help="device-context override: evaluate the mesh-bound rules as "
+        "if the run had N cards (0 = this host's visible cards)",
+    )
+    p.set_defaults(func=check_cmd)
+
+
+def _resolve_plan_for_check(env: EnvConfig, comp_path: str, plan: str):
+    """Plan resolution for ``check`` (``commands.py:935-962``): the run
+    verbs' search paths plus the repo layouts a checked-in composition
+    lives in — ``plans/<plan>/_compositions/x.toml`` resolves its own plan
+    dir, and ``./plans/<plan>`` covers compositions checked from a repo
+    root."""
+    try:
+        return _resolve_plan(env, plan)
+    except FileNotFoundError:
+        pass
+    comp_dir = os.path.dirname(os.path.abspath(comp_path))
+    candidates = [
+        os.path.dirname(comp_dir),  # plans/<plan>/_compositions/x.toml
+        os.path.join(os.getcwd(), "plans", plan),
+        os.path.join(comp_dir, plan),
+    ]
+    for c in candidates:
+        manifest_path = os.path.join(c, "manifest.toml")
+        if os.path.isfile(manifest_path):
+            m = TestPlanManifest.load_file(manifest_path)
+            if m.name == plan:
+                return os.path.abspath(c), m
+    raise FileNotFoundError(
+        f"plan {plan!r} for {comp_path} not found (searched "
+        f"$TESTGROUND_HOME/plans and {candidates}); copy the port's plan "
+        "directory into $TESTGROUND_HOME/plans or run check from the repo root"
+    )
+
+
+def check_cmd(args) -> int:
+    """(``commands.py:965-1012``): findings of every composition, in one
+    pass each; exit 2 when a file cannot be checked, 1 on any error
+    finding, else 0."""
+    import json
+
+    from ..sim.check import (
+        Finding,
+        check_composition,
+        findings_payload,
+        render_findings,
+        rule_by_id,
+    )
+
+    if getattr(args, "trace_plans", False):
+        raise NotImplementedError(f"check --trace-plans is not ported yet: {ITEM_9G}")
+    env = EnvConfig.load()
+    overrides = parse_key_values(getattr(args, "run_cfg", []) or [])
+    results = []
+    load_failures = 0
+    for path in args.compositions:
+        try:
+            comp = load_composition(path)
+            if overrides:
+                comp.global_.run_config = dict(comp.global_.run_config or {})
+                comp.global_.run_config.update(overrides)
+            _, manifest = _resolve_plan_for_check(env, path, comp.global_.plan)
+            findings = check_composition(
+                comp,
+                manifest,
+                env_layer=env.runners.get(comp.global_.runner or "sim:torch"),
+                devices=getattr(args, "devices", 0) or 0,
+            )
+        except Exception as e:  # noqa: BLE001 — per-file isolation: the
+            # failure lands in the findings document, not on stderr only
+            load_failures += 1
+            r = rule_by_id("composition.invalid")
+            findings = [Finding(rule=r.id, severity=r.severity, layer=r.layer,
+                                message=f"cannot check: {e}")]
+        results.append((path, findings))
+    if getattr(args, "json", False):
+        print(json.dumps(findings_payload(results), indent=2, sort_keys=True))
+    else:
+        for path, findings in results:
+            print(render_findings(path, findings))
+    errors = sum(1 for _, fs in results for f in fs if f.severity == "error")
+    if load_failures:
+        return 2
+    return 1 if errors else 0
 
 
 # ---------------------------------------------------- tasks / status / logs

@@ -1,17 +1,18 @@
 """The port's ``tg`` CLI entry point — the reference's
 ``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
 ``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``daemon`` and ``version``. The engine runs in-process
-unless ``--endpoint`` points at a daemon (the reference's client↔daemon
+``terminate``, ``daemon``, ``check`` and ``version``. The engine runs
+in-process unless ``--endpoint`` points at a daemon (the reference's client↔daemon
 hop is transport, not semantics); either way a run goes through the task
 queue, a worker and the ``sim:torch`` runner:
 
     python -m testground_tpu_torch.cli run composition -f X.toml
     python -m testground_tpu_torch.cli daemon --listen 127.0.0.1:8042
     python -m testground_tpu_torch.cli --endpoint 127.0.0.1:8042 run ...
+    python -m testground_tpu_torch.cli check X.toml [--json]
 
 The observability verbs come with ROADMAP queue 1 item 9f, ``preempt``
-with item 13; ``plan``, ``check`` and ``describe`` with items 9f and 9d.
+with item 13; ``plan`` and ``describe`` with item 9f.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
     commands.register_healthcheck(sub)
     commands.register_terminate(sub)
     commands.register_daemon(sub)
+    commands.register_check(sub)
     commands.register_version(sub)
     return p
 

@@ -23,7 +23,10 @@ Transport notes (as the reference's):
 - requests are plain JSON bodies; plan sources reach the daemon through its
   own ``$TESTGROUND_HOME/plans``;
 - ``/run`` and ``/build`` respond over the rpc chunk protocol (progress
-  chunks + a result chunk holding the task id), like the reference;
+  chunks + a result chunk holding the task id), like the reference; a run
+  whose composition ``tg check`` refuses (``Engine.admission_findings``)
+  is answered 422 with the rule ids and messages before it takes a queue
+  slot, and journaled as ``task.refused``;
 - ``/logs`` streams the task's chunk-lines until completion when
   ``follow`` is set (``engine.go:461-558`` semantics);
 - ``/outputs`` streams the run's tar.gz bytes directly with a gzip
@@ -263,6 +266,21 @@ class _Handler(BaseHTTPRequestHandler):
         if resolved is None:
             return
         plan_dir, manifest = resolved
+        if kind == "run":
+            # admission at submit: the `tg check` rules engine runs here,
+            # before the task takes a queue slot, and a refused
+            # composition never reaches a worker or the card. Daemon
+            # boundary only: the in-process engine queues anything
+            findings = self.engine.admission_findings(comp, manifest)
+            if findings:
+                self.engine.note_refused(
+                    comp, [f.rule for f in findings], kind=kind
+                )
+                return self._send_error_json(
+                    "composition refused at submit (tg check): "
+                    + "; ".join(f"[{f.rule}] {f.message}" for f in findings),
+                    422,
+                )
         queue = (
             self.engine.queue_run if kind == "run" else self.engine.queue_build
         )

@@ -4,10 +4,14 @@ task APIs the daemon exposes — the port's copy of the reference's
 storage/queue init, worker threads, queue/kill/logs) with the supervisor
 loop in ``supervisor.py``.
 
+``admission_findings`` and ``note_refused`` are the daemon's admission at
+submit: the ``tg check`` rules engine (``sim/check.py``) before a run
+takes a queue slot, and the ``task.refused`` event of a refusal.
+
 Left out, with the ROADMAP queue 1 item that ports each: the fleet
-counters, ``fleet_payload``, ``diff_tasks`` and ``stream_rows`` (item 9f),
-preemption, eviction and ``drain`` (item 13: a preempted run resumes from
-a checkpoint), ``admission_findings`` (item 9d, ``tg check``) and run
+counters (``_fleet_refused`` among them), ``fleet_payload``,
+``diff_tasks`` and ``stream_rows`` (item 9f), preemption, eviction and
+``drain`` (item 13: a preempted run resumes from a checkpoint) and run
 packs (item 13).
 """
 
@@ -234,6 +238,34 @@ class Engine:
         return tsk.id
 
     # ------------------------------------------------------------ cancel/kill
+
+    def admission_findings(
+        self, comp: Composition, manifest: TestPlanManifest
+    ) -> list:
+        """Server-side ``tg check``: the error-severity findings of the
+        rules engine (``sim/check.py``) against a composition; the daemon
+        refuses the submit when any fires, with the rule ids ``tg check``
+        reports (``engine.py:471-482``)."""
+        from ..sim.check import check_composition
+
+        findings = check_composition(
+            comp, manifest,
+            env_layer=self.env.runners.get(comp.global_.runner) or {},
+        )
+        return [f for f in findings if f.severity == "error"]
+
+    def note_refused(
+        self, comp: Composition, rules: list[str], kind: str = "run"
+    ) -> None:
+        """Journal one composition refused at submit (``engine.py:484-494``;
+        its fleet counter waits for item 9f)."""
+        self.events.emit(
+            "task.refused",
+            task_type=kind,
+            plan=comp.global_.plan,
+            case=comp.global_.case,
+            rules=list(rules),
+        )
 
     def register_cancel(self, task_id: str) -> threading.Event:
         # idempotent: the worker registers at claim time (before the

@@ -1,22 +1,25 @@
 """Row expansions and measurement names the Influx mirror needs — the
-port's copy of ``expand_sim_row``, ``clean`` and ``measurement_name`` of
-the reference's ``testground_tpu/metrics/viewer.py``
+port's copy of ``expand_sim_row``, ``expand_perf_row``, ``clean`` and
+``measurement_name`` of the reference's ``testground_tpu/metrics/viewer.py``
 (``pkg/metrics/viewer.go``). The dashboard's viewer over the run files
 comes with the dashboard (ROADMAP queue 1 item 9f).
 
 The sim telemetry plane's per-tick counters (``sim_timeseries.jsonl``)
 surface as measurement ``sim.<counter>`` (group_id ``_run``, since the
 counters are run-global), and the per-group live counts as ``sim.live``
-dimensioned by group_id. Counter rows carry the raw per-tick value in every
+dimensioned by group_id; the perf ledger's rows (``sim_perf.jsonl``) as
+``sim.perf.<gauge>``. Counter rows carry the raw per-tick value in every
 field slot (count/mean/min/max), the shape the Influx mirror writes.
 """
 
 from __future__ import annotations
 
-__all__ = ["clean", "expand_sim_row", "measurement_name"]
+__all__ = ["clean", "expand_perf_row", "expand_sim_row", "measurement_name"]
 
 # Keys of a sim telemetry row that identify rather than measure.
 _SIM_IDENTITY = {"run", "plan", "case", "tick"}
+# ... and of a perf ledger row, which also carries its chunk index.
+_PERF_IDENTITY = _SIM_IDENTITY | {"chunk"}
 
 
 def expand_sim_row(row: dict, prefix: str = "sim", identity=None):
@@ -58,6 +61,13 @@ def expand_sim_row(row: dict, prefix: str = "sim", identity=None):
             "min": val,
             "max": val,
         }
+
+
+def expand_perf_row(row: dict):
+    """One sim_perf.jsonl row (the perf ledger, sim/perf.py) → the
+    ``sim.perf.<gauge>`` measurement family (group_id ``_run``, like the
+    counter family)."""
+    yield from expand_sim_row(row, prefix="sim.perf", identity=_PERF_IDENTITY)
 
 
 def clean(name: str) -> str:

@@ -1,18 +1,227 @@
-"""The refusal messages the executor raises, with the reference's text
-(``testground_tpu/sim/check.py:350-380``), so that the port refuses a
-composition with the same words as the reference. The static checker
-(``tg check``) is not ported yet: ROADMAP queue 1 item 9d."""
+"""Layer 1 of the rules engine behind ``tg check`` — the port's copy of the
+reference's ``testground_tpu/sim/check.py:52-890, 1192-1304``, evaluated
+for the ``sim:torch`` runner.
+
+Every composition-level refusal the port's executor makes is catalogued as
+a typed :class:`Rule` and evaluated statically against a composition, its
+coalesced runner config and a device count; every finding is reported in
+one pass instead of the run dying on the first, and the daemon refuses a
+run at submit when any error fires (``Engine.admission_findings``).
+
+Drift discipline, as in the reference: the checker does not re-implement
+the gates, it calls the functions the port's executor calls
+(``fault_specs_of`` / ``trace_specs_of`` / ``slo_specs_of``,
+``build_fault_schedule``, ``build_trace_plan``, ``build_slo_plan``,
+``meshplan.parse_mesh_shape``, ``_parse_hosts``, and the executor's own
+gates ``unported_settings``, ``transport_knob`` and ``check_mesh_lanes``),
+and catches their refusals; the refusals the executor states inline take
+their text from the message helpers below, which the executor imports
+back. So an error finding is the executor's refusal, word for word, and
+the executor refuses exactly the compositions the checker reports an error
+for (``tests/test_torch_check.py`` pins both directions).
+
+Where the port diverges from the reference's catalog:
+
+- ``port.not-ported`` (error, layer ``port``) is the port's own rule: one
+  finding for each runner-config key of ``executor._UNPORTED_SETTINGS`` set
+  away from its default, and for a 2-D ``mesh``, with the executor's
+  ``NotImplementedError`` text naming the ROADMAP item. It stands in for
+  the rules whose gates the port does not have yet: ``buckets.*`` and
+  ``trace.bucket-disabled`` (``bucket``, ``bucket_ladder``), ``pack.solo``
+  (``pack``), the ``checkpoint.*`` rules (``checkpoint_chunks``,
+  ``resume_from``), and the cohort rules — ``*.cohort-disabled``,
+  ``debug.nan-guard-cohort`` and ``cohort.spec-oversize`` — which need
+  ``coordinator_address`` (item 15b).
+- ``transport.mesh-indivisible`` is an error, not a warn: the reference
+  falls back to its XLA transport, the port refuses (a lane count that
+  does not divide across the peer shards waits for the padding of item
+  13), with the executor's message.
+- ``run-cfg.unknown-key`` names the ``sim:torch`` runner and the
+  ``SimTorchConfig`` fields.
+- Layers 2 and 3 (``--trace-plans``: abstract plan tracing and the jaxpr
+  lints) are ROADMAP queue 1 item 9g; their ``plan.*`` rules stay in the
+  catalog and never fire.
+- ``devices=0`` counts the visible cards (``torch.cuda.device_count()``),
+  1 without one; a run whose ``device`` is not a card meshes nothing
+  unless ``mesh`` says so, as the executor does.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import types
+
 __all__ = [
+    "CheckContext",
+    "Finding",
+    "Rule",
+    "RULES",
+    "check_composition",
+    "findings_payload",
+    "mesh_2d_message",
+    "mesh_lanes_message",
     "netmatrix_requires_telemetry_message",
+    "not_ported_message",
+    "pallas_lanes_message",
+    "render_findings",
+    "rule_by_id",
     "slo_requires_telemetry_message",
+    "unknown_transport_message",
 ]
+
+RUNNER = "sim:torch"
+
+
+# --------------------------------------------------------------- catalog
+
+
+@dataclasses.dataclass(frozen=True)
+class Rule:
+    """One catalogued admission rule: a stable id, the severity the port's
+    executor enforces it at (``error`` = the run is refused, ``warn`` =
+    the executor runs on), the knob layer it guards, and a one-line
+    summary."""
+
+    id: str
+    severity: str  # "error" | "warn"
+    layer: str
+    summary: str
+
+
+RULES: tuple[Rule, ...] = (
+    # ---- composition structure
+    Rule("composition.invalid", "error", "composition",
+         "composition fails structural validation / preparation"),
+    Rule("run-cfg.unknown-key", "warn", "run-cfg",
+         "runner-config key matches no SimJaxConfig field (silently ignored)"),
+    # ---- transport
+    Rule("transport.unknown", "error", "transport",
+         "transport knob is not xla|pallas|auto"),
+    # an error in the port: it refuses what the reference falls back from
+    Rule("transport.mesh-indivisible", "error", "transport",
+         "pallas/auto lanes do not divide across the mesh peer shards; "
+         "resolves to xla"),
+    # ---- mesh layout
+    Rule("mesh.shape-invalid", "error", "mesh",
+         "mesh knob is not N or AxB (e.g. '4' or '2x4')"),
+    # ---- shape buckets
+    Rule("buckets.mode-invalid", "error", "buckets",
+         "bucket knob is not off|auto|<n>"),
+    Rule("buckets.ladder-invalid", "error", "buckets",
+         "bucket_ladder is not a positive instance-count list"),
+    Rule("buckets.cohort-disabled", "warn", "buckets",
+         "bucketing disabled under a cohort config"),
+    Rule("buckets.mesh-indivisible", "warn", "buckets",
+         "a padded rung does not divide across the mesh peer shards; "
+         "runs exact shapes"),
+    Rule("buckets.over-ladder", "warn", "buckets",
+         "a group exceeds the ladder coverage; runs exact shapes"),
+    Rule("buckets.filter-rules", "warn", "buckets",
+         "filter_rules shaping with multiple groups disables bucketing"),
+    # ---- faults / flight recorder
+    Rule("faults.invalid", "error", "faults",
+         "a [[run.faults]] table fails validation/lowering"),
+    Rule("trace.invalid", "error", "trace",
+         "a [run.trace] table fails validation/lowering"),
+    Rule("trace.bucket-disabled", "warn", "trace",
+         "flight recorder disabled under shape bucketing"),
+    Rule("trace.cohort-disabled", "warn", "trace",
+         "flight recorder disabled under a cohort config"),
+    # ---- telemetry / SLO
+    Rule("telemetry.cohort-disabled", "warn", "telemetry",
+         "telemetry plane disabled under a cohort config"),
+    # ---- traffic matrix
+    Rule("netmatrix.needs-telemetry", "error", "netmatrix",
+         "netmatrix = true but the telemetry plane is off"),
+    Rule("netmatrix.cohort-disabled", "warn", "netmatrix",
+         "traffic matrix disabled under a cohort config"),
+    Rule("slo.invalid", "error", "slo",
+         "a [[run.slo]] table fails validation"),
+    Rule("slo.needs-telemetry", "error", "slo",
+         "SLO rules declared but the telemetry plane is off"),
+    Rule("slo.cohort-disabled", "warn", "slo",
+         "SLO assertions disabled under a cohort config"),
+    # ---- checkpoint / resume
+    Rule("checkpoint.cohort-disabled", "warn", "checkpoint",
+         "checkpointing disabled under a cohort config"),
+    Rule("checkpoint.resume-cohort", "error", "checkpoint",
+         "resume_from is not supported under a multi-host cohort"),
+    Rule("checkpoint.resume-multi-runs", "error", "checkpoint",
+         "resume_from on a multi-[[runs]] composition is ambiguous"),
+    # ---- debug knobs
+    Rule("debug.nan-guard-cohort", "warn", "debug",
+         "nan_guard disabled under a cohort config"),
+    # ---- cohort
+    Rule("cohort.spec-oversize", "error", "cohort",
+         "cohort job spec exceeds the broadcast byte bound"),
+    # ---- run packing
+    Rule("pack.solo", "warn", "pack",
+         "pack=true but the composition must run solo"),
+    # ---- abstract plan tracing (--trace-plans, item 9g: never fire)
+    Rule("plan.load-failed", "error", "plan",
+         "plan sources fail to import/specialize for this composition"),
+    Rule("plan.traced-int", "error", "plan",
+         "python int()/len()/control flow on a traced count "
+         "(the traced-count contract, docs/WRITING_PLANS.md)"),
+    Rule("plan.trace-error", "error", "plan",
+         "the testcase fails to trace at the composition's shapes"),
+    Rule("plan.memory", "error", "plan",
+         "estimated carry footprint exceeds the device memory budget"),
+    Rule("plan.host-callback", "warn", "plan",
+         "host callback (pure_callback/io_callback/debug_print) in the "
+         "jitted tick"),
+    Rule("plan.while-loop", "warn", "plan",
+         "while loop in the jitted tick (unbounded per-tick work)"),
+    Rule("plan.weak-type", "warn", "plan",
+         "weak-typed leaf in the instance state (recompile hazard)"),
+    # ---- the port's own
+    Rule("port.not-ported", "error", "port",
+         "a runner-config setting the port refuses until its ROADMAP "
+         "item lands"),
+)
+
+_RULE_INDEX = {r.id: r for r in RULES}
+
+
+def rule_by_id(rule_id: str) -> Rule:
+    return _RULE_INDEX[rule_id]
+
+
+@dataclasses.dataclass
+class Finding:
+    """One rule firing against one composition: the rule id, its
+    severity/layer (denormalized for the JSON surface), the executor's
+    message, and where it fired (``run`` = the [[runs]] entry id, when
+    attributable; ``plan_file`` for the plan-tracing layer)."""
+
+    rule: str
+    severity: str
+    layer: str
+    message: str
+    run: str = ""
+    plan_file: str = ""
+
+    def to_dict(self) -> dict:
+        out = {
+            "rule": self.rule,
+            "severity": self.severity,
+            "layer": self.layer,
+            "message": self.message,
+        }
+        if self.run:
+            out["run"] = self.run
+        if self.plan_file:
+            out["plan_file"] = self.plan_file
+        return out
+
+
+# ------------------------------------------------- shared message helpers
+# The executor imports these back, so the refusal it raises and the
+# finding the checker reports are the same string by construction.
 
 
 def slo_requires_telemetry_message(count: int, disable_metrics: bool) -> str:
-    """The SLO-without-telemetry refusal."""
+    """The SLO-without-telemetry refusal (executor + checker)."""
     return (
         f"composition declares {count} SLO rule(s) but the telemetry "
         "plane is off"
@@ -27,7 +236,7 @@ def slo_requires_telemetry_message(count: int, disable_metrics: bool) -> str:
 
 
 def netmatrix_requires_telemetry_message(disable_metrics: bool) -> str:
-    """The netmatrix-without-telemetry refusal."""
+    """The netmatrix-without-telemetry refusal (executor + checker)."""
     return (
         "netmatrix = true but the telemetry plane is off"
         + (
@@ -39,3 +248,334 @@ def netmatrix_requires_telemetry_message(disable_metrics: bool) -> str:
         )
         + "; refusing to run with an unobservable matrix plane"
     )
+
+
+def unknown_transport_message(requested: str) -> str:
+    """The unknown-transport refusal, the reference's text
+    (``transport_model.py:208-212``)."""
+    return (
+        f"unknown transport {requested!r} in runner config: expected "
+        "'xla', 'pallas', or 'auto' (--run-cfg transport=pallas)"
+    )
+
+
+def not_ported_message(name: str, value, item: str) -> str:
+    """A runner-config setting the port refuses until ``item`` lands."""
+    return (
+        f"runner config {name}={value!r} is not ported yet: ROADMAP queue 1 "
+        f"{item}"
+    )
+
+
+def mesh_2d_message(mesh, item: str) -> str:
+    """The 2-D mesh refusal: its leading axis is the pack run axis."""
+    return (
+        f"runner config mesh={mesh!r} is not ported yet: ROADMAP queue 1 "
+        f"{item} — a 2-D mesh's leading axis is the pack run axis"
+    )
+
+
+def mesh_lanes_message(transport: str, lanes: int, shards: int, item: str) -> str:
+    """An indivisible lane count under the xla/auto transport: the
+    reference pads the lane axis, the port waits for item 13's padding."""
+    return (
+        f"transport={transport} on a {shards}-shard mesh with {lanes} "
+        f"lane(s), which do not divide by {shards}, is not ported yet: "
+        f"ROADMAP queue 1 {item}"
+    )
+
+
+def pallas_lanes_message(n: int, hosts: int, shards: int) -> str:
+    """An indivisible lane count under ``transport=pallas``: the
+    reference engine's own rule and message (``engine.py:406-422``)."""
+    return (
+        f"transport=pallas on a mesh needs the lane count to "
+        f"divide across the peer shards: {n + hosts} "
+        f"lane(s) ({n} instances + {hosts} "
+        f"host(s)) do not divide by {shards} — pad the "
+        "instance counts (shape bucketing does this), drop "
+        "the hosts, or use transport=xla"
+    )
+
+
+# ---------------------------------------------------------------- context
+
+
+def _layout(mesh) -> tuple[int, ...] | None:
+    """The explicit ``mesh`` knob's extents; None when unset or malformed
+    (``mesh.shape-invalid`` reports that refusal)."""
+    from .meshplan import parse_mesh_shape
+
+    if not mesh:
+        return None
+    try:
+        return parse_mesh_shape(mesh)
+    except ValueError:
+        return None
+
+
+@dataclasses.dataclass
+class CheckContext:
+    """Everything one check pass evaluates against: the prepared
+    composition, the coalesced runner config, and the device count
+    (``devices``: how many cards the run would see; overridable so a
+    host can check what a host of eight cards would refuse)."""
+
+    comp: object  # api.Composition, post prepare_for_run
+    cfg: object  # SimTorchConfig
+    devices: int = 1
+    raw_run_config: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def peer_shards(self) -> int:
+        """The peer shards the executor's ``_make_mesh`` would split the
+        calendar over: the explicit layout's last extent, else every card
+        when ``shard`` is on and the run's device is a card, else 1."""
+        dims = _layout(getattr(self.cfg, "mesh", ""))
+        if dims is not None:
+            return int(dims[-1])
+        device = getattr(self.cfg, "device", None)
+        if not getattr(self.cfg, "shard", True) or (
+            device is not None and not str(device).startswith("cuda")
+        ):
+            return 1
+        return max(int(self.devices), 1)
+
+
+def _group_layout(run_groups):
+    """The resolved per-run group layout the lowering gates resolve
+    selectors against — the construction of ``sim/engine.build_groups``
+    (the gates only read ``id``/``index``/``offset``/``count``/``params``)."""
+    specs = []
+    off = 0
+    for i, rg in enumerate(run_groups):
+        count = int(rg.calculated_instance_count)
+        specs.append(
+            types.SimpleNamespace(
+                id=rg.id, index=i, offset=off, count=count,
+                params=dict(rg.test_params),
+            )
+        )
+        off += count
+    return tuple(specs)
+
+
+# ------------------------------------------------------------ rule passes
+
+
+def _add(findings, rule_id, message, run=""):
+    r = rule_by_id(rule_id)
+    findings.append(
+        Finding(rule=r.id, severity=r.severity, layer=r.layer, message=message, run=run)
+    )
+
+
+def _check_run_cfg_keys(ctx, findings) -> None:
+    """Unknown runner-config keys: ``coalesce_into`` silently drops them,
+    so a typo'd knob (``trasnport=pallas``) configures nothing."""
+    from .executor import SimTorchConfig
+
+    known = {f.name for f in dataclasses.fields(SimTorchConfig)}
+    # "enabled" is the manifest's runner toggle (prepare_for_run folds
+    # manifest runner defaults into run_config), the rest are consumed by
+    # the engine/runner layer before the executor
+    known |= {"enabled", "pack", "sync_service"}
+    for key in sorted(ctx.raw_run_config or {}):
+        if key not in known:
+            _add(
+                findings,
+                "run-cfg.unknown-key",
+                f"runner config key {key!r} matches no {RUNNER} option and "
+                "is silently ignored — known options: "
+                f"{', '.join(sorted(known))}",
+            )
+
+
+def _check_not_ported(ctx, findings) -> None:
+    """``port.not-ported``: every refusal of the executor's
+    ``unported_settings`` gate, one finding each."""
+    from .executor import unported_settings
+
+    for message in unported_settings(ctx.cfg):
+        _add(findings, "port.not-ported", message)
+
+
+def _check_mesh(ctx, findings) -> None:
+    """An explicit ``mesh`` knob that fails the layout grammar — the
+    executor's ``parse_mesh_shape`` refusal, reported statically."""
+    from .meshplan import parse_mesh_shape
+
+    mesh = getattr(ctx.cfg, "mesh", "")
+    if not mesh:
+        return
+    try:
+        parse_mesh_shape(mesh)
+    except ValueError as e:
+        _add(findings, "mesh.shape-invalid", str(e))
+
+
+def _check_transport(ctx, findings) -> None:
+    """The transport knob, then the lane count of each run against the
+    peer shards — the executor's ``transport_knob`` and
+    ``check_mesh_lanes`` gates."""
+    from .executor import _parse_hosts, check_mesh_lanes, transport_knob
+
+    try:
+        transport = transport_knob(ctx.cfg)
+    except ValueError as e:
+        _add(findings, "transport.unknown", str(e))
+        return
+    shards = ctx.peer_shards
+    hosts = _parse_hosts(getattr(ctx.cfg, "additional_hosts", None))
+    for run in ctx.comp.runs:
+        n = sum(int(rg.calculated_instance_count) for rg in run.groups)
+        try:
+            check_mesh_lanes(transport, n, len(hosts), shards)
+        except (NotImplementedError, ValueError) as e:
+            _add(findings, "transport.mesh-indivisible", str(e), run=run.id)
+
+
+def _run_specs(ctx, run):
+    """The three spec dicts the executor collects for one run — built from
+    the SAME ``*_specs_of`` helpers on the same layout."""
+    from .executor import fault_specs_of, slo_specs_of, trace_specs_of
+
+    run_global = ctx.comp.global_.run
+    return (
+        fault_specs_of(run.groups, run_global.faults if run_global else None),
+        trace_specs_of(run.groups, run_global.trace if run_global else None),
+        slo_specs_of(run.groups, run_global.slo if run_global else None),
+    )
+
+
+def _check_run(ctx, run, findings) -> None:
+    """All config-layer rules for one [[runs]] entry."""
+    from .faults import build_fault_schedule
+    from .slo import build_slo_plan
+    from .trace import build_trace_plan
+
+    vgroups = _group_layout(run.groups)
+    fault_specs, trace_specs, slo_specs = _run_specs(ctx, run)
+    try:
+        build_fault_schedule(vgroups, fault_specs, ctx.cfg.tick_ms)
+    except ValueError as e:
+        _add(findings, "faults.invalid", str(e), run=run.id)
+    try:
+        build_trace_plan(vgroups, trace_specs)
+    except ValueError as e:
+        _add(findings, "trace.invalid", str(e), run=run.id)
+
+    disable_metrics = bool(ctx.comp.global_.disable_metrics)
+    telemetry_on = bool(getattr(ctx.cfg, "telemetry", False)) and not disable_metrics
+    if bool(getattr(ctx.cfg, "netmatrix", False)) and not telemetry_on:
+        _add(findings, "netmatrix.needs-telemetry",
+             netmatrix_requires_telemetry_message(disable_metrics), run=run.id)
+
+    slo_plan = None
+    try:
+        slo_plan = build_slo_plan(vgroups, slo_specs)
+    except ValueError as e:
+        _add(findings, "slo.invalid", str(e), run=run.id)
+    if slo_plan is not None and not telemetry_on:
+        _add(findings, "slo.needs-telemetry",
+             slo_requires_telemetry_message(slo_plan.count, disable_metrics),
+             run=run.id)
+
+
+# ------------------------------------------------------------ entry point
+
+
+def _visible_cards() -> int:
+    import torch
+
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def check_composition(
+    comp,
+    manifest,
+    *,
+    env_layer: dict | None = None,
+    devices: int = 0,
+) -> list[Finding]:
+    """Evaluate every catalogued rule against one composition.
+
+    ``comp`` is an ``api.Composition`` (pre-preparation — this function
+    prepares its own clone, as the engine does); ``manifest`` its plan
+    manifest; ``env_layer`` the env's ``[runners."sim:torch"]`` layer
+    (coalesced under the composition's run_config, the executor's
+    precedence); ``devices`` the device count (0 = the visible cards, 1
+    without one).
+
+    Returns ALL findings, error and warn, in evaluation order — the caller
+    decides presentation and exit codes."""
+    from ..api import prepare_for_run, validate_for_run
+    from ..config import CoalescedConfig
+    from .executor import SimTorchConfig
+
+    findings: list[Finding] = []
+    try:
+        validate_for_run(comp)
+        prepared = prepare_for_run(comp, manifest)
+    except Exception as e:  # noqa: BLE001 — structural refusals
+        _add(findings, "composition.invalid", str(e))
+        return findings
+
+    if (prepared.global_.runner or "") != RUNNER:
+        # the catalog guards the sim:torch admission surface; other
+        # runners only get the structural validation above
+        return findings
+
+    raw_cfg = dict(prepared.global_.run_config or {})
+    cfg = CoalescedConfig().append(env_layer).append(raw_cfg).coalesce_into(
+        SimTorchConfig
+    )
+    if devices <= 0:
+        devices = max(_visible_cards(), 1)
+    ctx = CheckContext(comp=prepared, cfg=cfg, devices=devices,
+                       raw_run_config=raw_cfg)
+
+    _check_run_cfg_keys(ctx, findings)
+    _check_not_ported(ctx, findings)
+    _check_mesh(ctx, findings)
+    _check_transport(ctx, findings)
+    for run in prepared.runs:
+        _check_run(ctx, run, findings)
+    return findings
+
+
+# ------------------------------------------------------------- rendering
+
+
+def render_findings(path: str, findings: list[Finding]) -> str:
+    """Human-readable report for one composition file — one line per
+    finding, errors first (stable within severity)."""
+    errors = [f for f in findings if f.severity == "error"]
+    warns = [f for f in findings if f.severity != "error"]
+    if not findings:
+        return f"{path}: ok (no findings)"
+    lines = [f"{path}: {len(errors)} error(s), {len(warns)} warning(s)"]
+    for f in errors + warns:
+        where = f" (run {f.run})" if f.run else ""
+        lines.append(f"  [{f.severity:5}] {f.rule}{where}: {f.message}")
+    return "\n".join(lines)
+
+
+def findings_payload(results: list[tuple[str, list[Finding]]]) -> dict:
+    """The ``tg check --json`` document (schema version 1, the
+    reference's)."""
+    comps = [
+        {
+            "file": path,
+            "findings": [f.to_dict() for f in fs],
+            "errors": sum(1 for f in fs if f.severity == "error"),
+            "warnings": sum(1 for f in fs if f.severity != "error"),
+        }
+        for path, fs in results
+    ]
+    return {
+        "version": 1,
+        "compositions": comps,
+        "errors": sum(c["errors"] for c in comps),
+        "warnings": sum(c["warnings"] for c in comps),
+    }

@@ -56,10 +56,10 @@ deltas in int64), so the device counters never wrap. With every plane
 off the tick enters no plane code and issues no plane op.
 
 ``run`` has the reference's loop hooks (``cancel``, ``on_chunk``, the
-stall watchdog, ``nan_guard``), all at a chunk's end. The reference's
-admission refusals of incompatible declarations are kept, with the same
-messages. Not ported yet — each refused with ``NotImplementedError``
-naming its ROADMAP item: shape buckets and the perf ledger's hook.
+stall watchdog, ``nan_guard``, the perf ledger's ``perf``), all at a
+chunk's end. The reference's admission refusals of incompatible
+declarations are kept, with the same messages. Not ported yet — refused
+with ``NotImplementedError`` naming its ROADMAP item: shape buckets.
 
 ``mesh`` (a ``meshplan.TorchMesh``) splits the calendar's lane axis over
 the mesh's peer shards: each shard's planes live on its device, the
@@ -365,13 +365,10 @@ class SimProgram:
             # shard holds an equal contiguous block of lanes
             shards = self.meshplan.shards
             if self.n_lanes % shards != 0:
+                from .check import pallas_lanes_message
+
                 raise ValueError(
-                    f"transport=pallas on a mesh needs the lane count to "
-                    f"divide across the peer shards: {self.n_lanes} "
-                    f"lane(s) ({self.n} instances + {len(self.hosts)} "
-                    f"host(s)) do not divide by {shards} — pad the "
-                    "instance counts (shape bucketing does this), drop "
-                    "the hosts, or use transport=xla"
+                    pallas_lanes_message(self.n, len(self.hosts), shards)
                 )
         self.tick_ms = float(tick_ms)
         self.chunk = int(chunk)
@@ -1233,13 +1230,14 @@ class SimProgram:
         :class:`SimStallError`; ``chunk_sleep_ms`` sleeps on the host in
         each chunk (a synthetic slowdown for tests); ``nan_guard`` reads
         every float leaf of the carry after each chunk and raises on a
-        NaN or Inf (a debug flag: the read waits on the device). ``perf``
-        and ``live_counts`` are refused (ROADMAP items 14 and 13)."""
-        if perf is not None:
-            raise NotImplementedError(
-                "SimProgram.run option 'perf' is not ported yet: ROADMAP "
-                "queue 1 item 14 (perf ledger, phases and the transport knob)"
-            )
+        NaN or Inf (a debug flag: the read waits on the device).
+
+        ``perf`` (a ``sim/perf.PerfLedger``) gets ``on_chunk(index, ticks,
+        ticks_delta, wall_secs)`` once per chunk, ``wall_secs`` the
+        chunk's host-clock wall from its first launch to the return of the
+        wait on its last done event (``chunk_sleep_ms`` inside it, as in
+        the reference): no launch and no device read of its own.
+        ``live_counts`` is refused (ROADMAP item 13)."""
         if live_counts is not None:
             raise NotImplementedError(
                 "SimProgram.run option 'live_counts' is not ported yet: "
@@ -1320,6 +1318,7 @@ class SimProgram:
             watch = chunk_timeout and chunk_timeout > 0 and (
                 ticks >= start_ticks + 2 * self.chunk
             )
+            t_chunk = time.perf_counter()
             if watch:
                 self._chunk_watched(chunk, ticks, chunk_timeout, cancel, on_stall)
             else:
@@ -1329,6 +1328,9 @@ class SimProgram:
             ticks += self.chunk
             if chunk_sleep_ms > 0:
                 time.sleep(chunk_sleep_ms / 1000.0)
+            if perf is not None:
+                perf.on_chunk(ticks // self.chunk - 1, ticks, self.chunk,
+                              time.perf_counter() - t_chunk)
             if nan_guard:
                 _check_carry_finite(carry, ticks - self.chunk, ticks)
             if setup_secs == 0.0:

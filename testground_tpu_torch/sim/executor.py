@@ -16,8 +16,14 @@ and writes what the reference writes under ``<outputs>/<plan>/<run_id>``:
   ``sim_slo.jsonl`` and ``timeseries.jsonl``, each where its plane is on;
 - one ``<group>/<instance>/`` directory per instance with ``run.out`` and
   ``metrics.out``, up to ``write_outputs_max`` instances;
-- the journal's ``sim``, ``telemetry``, ``trace``, ``slo``, ``metrics``,
-  ``timeseries`` and ``events`` blocks.
+- ``sim_perf.jsonl``, the perf ledger's row a chunk (``sim/perf.py``),
+  on by default (``perf``) unless ``disable_metrics``, and a
+  ``torch.profiler`` Chrome trace under ``profiles/`` with ``profile``
+  (or a group's ``profiles``), of the whole run or of ``profile_chunks``
+  chunks after the first;
+- the journal's ``sim`` (with ``sim.perf``), ``telemetry``, ``trace``,
+  ``slo``, ``metrics``, ``timeseries``, ``profile`` and ``events``
+  blocks.
 
 The per-chunk sinks take the host numpy blocks that ``SimProgram.run``
 already copied behind the done flag's wait: none of them reads the device.
@@ -25,27 +31,27 @@ The metric recorder reads the carry every ``timeseries_every`` ticks, as
 the reference does.
 
 With ``[daemon] influxdb_endpoint`` set in the env, the plan-metric rows,
-the ``sim.*`` telemetry series (in their own bounded batches) and the
-``sim.latency.*`` rows are mirrored to InfluxDB as the reference mirrors
-them; the journal's ``influx``, ``influx_telemetry`` and ``influx_latency``
-blocks record each push.
+the ``sim.*`` telemetry series (in their own bounded batches), the
+``sim.latency.*`` rows and the ``sim.perf.*`` rows are mirrored to
+InfluxDB as the reference mirrors them; the journal's ``influx``,
+``influx_telemetry``, ``influx_latency`` and ``influx_perf`` blocks record
+each push.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item when set away from its default: buckets, packs and checkpoints (item
+item when set away from its default (``unported_settings``; ``tg check``
+reports each as ``port.not-ported``): buckets, packs and checkpoints (item
 13, a 2-D pack mesh among them), multi-host cohorts (item 15b), and the
-profiler, the phase plane and the transport probe (item 14).
+phase plane and the transport probe (item 14b).
 
 A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
 the calendar over the peer shards (``sim/meshplan.py``); the journal's
-``sim.mesh`` block is the reference's. The perf ledger
-(item 14) is on by default in the reference; the port writes no
-``sim.perf`` block, and mirrors no ``sim.perf.*`` family, and says so in
-one log line.
+``sim.mesh`` block is the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import os
@@ -72,6 +78,7 @@ from .meshplan import (
 
 __all__ = [
     "SimTorchConfig",
+    "check_mesh_lanes",
     "execute_sim_run",
     "fault_specs_of",
     "instantiate_testcase",
@@ -81,6 +88,8 @@ __all__ = [
     "plan_dir",
     "slo_specs_of",
     "trace_specs_of",
+    "transport_knob",
+    "unported_settings",
 ]
 
 PLANS_ROOT = os.path.join(
@@ -119,17 +128,18 @@ class SimTorchConfig:
     debug_chunk_sleep_ms: float = 0.0  # synthetic host slowdown per chunk
     telemetry: bool = False
     netmatrix: bool = False  # needs telemetry
-    # the perf ledger is item 14: on by default as in the reference, but
-    # the port writes no sim.perf block yet
+    # the perf ledger: sim_perf.jsonl and the journal's sim.perf block
     perf: bool = True
-    profile: bool = False  # refused unless False (item 14)
-    profile_chunks: int = 0  # refused unless 0 (item 14)
-    phases: bool = False  # refused unless False (item 14)
-    phases_measure: int = 0  # refused unless 0 (item 14)
+    # a torch.profiler trace of the whole run under <run>/profiles
+    profile: bool = False
+    # > 0: the profiler captures only this many chunks after the first
+    profile_chunks: int = 0
+    phases: bool = False  # refused unless False (item 14b)
+    phases_measure: int = 0  # refused unless 0 (item 14b)
     # "xla", "pallas" or "auto": on the card every value runs K1/K2, on
     # the CPU their plain versions; the journal records what ran
     transport: str = "xla"
-    transport_probe: int = 0  # refused unless 0 (item 14)
+    transport_probe: int = 0  # refused unless 0 (item 14b)
     bucket: str = "off"  # refused unless "off" (item 13)
     bucket_ladder: str = ""  # refused unless "" (item 13)
     pack: bool = False  # refused unless False (item 13)
@@ -152,7 +162,7 @@ class SimTorchConfig:
 
 
 _ITEM_13 = "item 13 (buckets, packs and checkpoint)"
-_ITEM_14 = "item 14 (perf ledger, phases and the transport knob)"
+_ITEM_14B = "item 14b (the phase plane and the transport probe)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
@@ -167,38 +177,76 @@ _UNPORTED_SETTINGS = {
     "coordinator_address": _ITEM_15B,
     "num_processes": _ITEM_15B,
     "process_id": _ITEM_15B,
-    "profile": _ITEM_14,
-    "profile_chunks": _ITEM_14,
-    "phases": _ITEM_14,
-    "phases_measure": _ITEM_14,
-    "transport_probe": _ITEM_14,
+    "phases": _ITEM_14B,
+    "phases_measure": _ITEM_14B,
+    "transport_probe": _ITEM_14B,
 }
 
 _TRANSPORTS = ("xla", "pallas", "auto")
 
 
-def _refuse_unported(cfg, job: RunInput) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for every
-    setting the port cannot honour yet — never run as if it were unset."""
+def unported_settings(cfg) -> list[str]:
+    """The refusal of every setting the port cannot honour yet, each naming
+    its ROADMAP item: the keys of ``_UNPORTED_SETTINGS`` away from their
+    default, then a 2-D ``mesh``. The executor raises the first; the
+    checker reports each as ``port.not-ported``."""
+    from .check import mesh_2d_message, not_ported_message
+
     defaults = SimTorchConfig()
+    out = []
     for name, item in _UNPORTED_SETTINGS.items():
         value = getattr(cfg, name, getattr(defaults, name))
         if value != getattr(defaults, name):
-            raise NotImplementedError(
-                f"runner config {name}={value!r} is not ported yet: ROADMAP "
-                f"queue 1 {item}"
-            )
+            out.append(not_ported_message(name, value, item))
     mesh = getattr(cfg, "mesh", "")
-    if mesh and len(parse_mesh_shape(mesh)) > 1:
-        raise NotImplementedError(
-            f"runner config mesh={mesh!r} is not ported yet: ROADMAP queue 1 "
-            f"{_ITEM_13} — a 2-D mesh's leading axis is the pack run axis"
-        )
-    if cfg.transport not in _TRANSPORTS:
-        raise ValueError(
-            f"unknown transport {cfg.transport!r}; expected one of "
-            f"{', '.join(_TRANSPORTS)}"
-        )
+    if mesh:
+        try:
+            dims = parse_mesh_shape(mesh)
+        except ValueError:
+            dims = ()  # mesh.shape-invalid: parse_mesh_shape's own refusal
+        if len(dims) > 1:
+            out.append(mesh_2d_message(mesh, _ITEM_13))
+    return out
+
+
+def transport_knob(cfg) -> str:
+    """The ``transport`` knob, lowercased as the reference reads it;
+    anything but xla, pallas or auto is refused with the reference's
+    message."""
+    from .check import unknown_transport_message
+
+    requested = str(getattr(cfg, "transport", "xla") or "xla").lower()
+    if requested not in _TRANSPORTS:
+        raise ValueError(unknown_transport_message(requested))
+    return requested
+
+
+def check_mesh_lanes(transport: str, n: int, hosts: int, shards: int) -> None:
+    """Refuse a lane count (instances + hosts) that does not divide across
+    ``shards`` peer shards: the reference's XLA transport pads such a lane
+    axis and the port's calendar is always split per shard, so xla and
+    auto wait for the padding of shape bucketing (item 13); pallas refuses
+    with the reference engine's message."""
+    from .check import mesh_lanes_message, pallas_lanes_message
+
+    lanes = n + hosts
+    if shards <= 1 or lanes % shards == 0:
+        return
+    if transport == "pallas":
+        raise ValueError(pallas_lanes_message(n, hosts, shards))
+    raise NotImplementedError(mesh_lanes_message(transport, lanes, shards, _ITEM_13))
+
+
+def _refuse_unported(cfg) -> None:
+    """Raise for a setting the port cannot honour yet (never run as if it
+    were unset), a malformed ``mesh`` and an unknown transport."""
+    refused = unported_settings(cfg)
+    if refused:
+        raise NotImplementedError(refused[0])
+    mesh = getattr(cfg, "mesh", "")
+    if mesh:
+        parse_mesh_shape(mesh)
+    transport_knob(cfg)
 
 
 # ------------------------------------------------------------ plan loading
@@ -473,7 +521,7 @@ def execute_sim_run(
     (``executor.py:735-793``). ``cancel`` (a ``threading.Event``) stops the
     run at the next chunk's end; the outcome is then CANCELED."""
     cfg = job.runner_config or SimTorchConfig()
-    _refuse_unported(cfg, job)
+    _refuse_unported(cfg)
     from .engine import resolve_device
 
     device = resolve_device(getattr(cfg, "device", None))
@@ -567,16 +615,8 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
 
     mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
                       device)
-    lanes = n + len(hosts)
-    if mesh is not None and cfg.transport != "pallas" and lanes % mesh.size:
-        # the reference's XLA transport pads an indivisible lane axis; the
-        # port's calendar is always split per shard, so it waits for the
-        # padding of shape bucketing
-        raise NotImplementedError(
-            f"transport={cfg.transport} on a {mesh.size}-shard mesh with "
-            f"{lanes} lane(s), which do not divide by {mesh.size}, is not "
-            f"ported yet: ROADMAP queue 1 {_ITEM_13}"
-        )
+    check_mesh_lanes(transport_knob(cfg), n, len(hosts),
+                     1 if mesh is None else mesh.size)
     ow.infof(
         "sim:torch run %s: plan=%s case=%s instances=%d groups=%d "
         "tick=%.3fms device=%s devices=%d",
@@ -616,12 +656,6 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     spans.end("build", carry_bytes=carry_bytes, instances=n)
     influx_endpoint = getattr(getattr(job.env, "daemon", None),
                               "influxdb_endpoint", "")
-    if bool(getattr(cfg, "perf", True)) and not job.disable_metrics:
-        ow.infof(
-            "sim:torch %s: perf ledger not ported (ROADMAP queue 1 %s) — no "
-            "sim.perf block%s", job.run_id, _ITEM_14,
-            ", no sim.perf.* Influx family" if influx_endpoint else "",
-        )
 
     # durations on the monotonic clock; the wall-clock anchor only where a
     # real timestamp is needed (the Influx base_ns)
@@ -635,6 +669,9 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
 
     def on_chunk(ticks: int) -> None:
         spans.point("chunk", ticks=ticks, wall_secs=round(time.monotonic() - t0, 6))
+        if chunk_profiler is not None:
+            # starts after the warm-up chunk, stops after its window
+            chunk_profiler.on_chunk(ticks)
         if slo_eval is not None:
             # after the loop handed over this chunk's telemetry rows and
             # latency delta (their callbacks run before on_chunk)
@@ -667,6 +704,37 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         getattr(cfg, "timeseries_every", 0) if ts_enabled else 0, ow,
     )
     row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
+    transport_block = _transport_block(cfg, prog.device, mesh)
+    # the perf ledger: host-side only, so not program-shaping; disable_metrics
+    # wins, as over the telemetry plane
+    perf_ledger = None
+    if bool(getattr(cfg, "perf", True)) and not job.disable_metrics:
+        from .perf import PERF_FILE, PerfLedger
+
+        perf_ledger = PerfLedger(
+            n, cfg.chunk, ident=row_ident,
+            path=os.path.join(run_dir, PERF_FILE) if run_dir is not None else None,
+            # one warm-up chunk on a mesh too: the port has no sharding
+            # retrace (the reference keeps a second one out there)
+            warmup=1,
+            transport=transport_block["resolved"],
+            device=prog.device,
+        )
+    # the profiler: any group's profiles or the profile flag record a
+    # torch.profiler trace (host and device activity) into the run dir
+    profile_dir = None
+    chunk_profiler = None
+    if run_dir is not None and (any(g.profiles for g in job.groups)
+                                or bool(getattr(cfg, "profile", False))):
+        profile_dir = os.path.join(run_dir, "profiles")
+        os.makedirs(profile_dir, exist_ok=True)
+        n_prof_chunks = int(getattr(cfg, "profile_chunks", 0) or 0)
+        if n_prof_chunks > 0:
+            chunk_profiler = _ChunkedProfiler(profile_dir, n_prof_chunks, prog.device)
+            ow.infof("capturing torch.profiler trace to %s (%d chunk(s) after warmup)",
+                     profile_dir, n_prof_chunks)
+        else:
+            ow.infof("capturing torch.profiler trace to %s", profile_dir)
     tele_writer = (
         _SimTelemetryWriter(
             tuple(g.id for g in groups), row_ident,
@@ -717,7 +785,8 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         _tele_cb = tele_writer.on_block if tele_writer else None
 
     spans.start("execute")
-    res = prog.run(
+    run = functools.partial(
+        prog.run,
         seed=cfg.seed,
         resume_carry=carry0,
         max_ticks=cfg.max_ticks,
@@ -732,7 +801,17 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         chunk_sleep_ms=float(getattr(cfg, "debug_chunk_sleep_ms", 0.0)),
         on_stall=on_stall,
         nan_guard=bool(getattr(cfg, "nan_guard", False)),
+        perf=perf_ledger,
     )
+    if profile_dir is not None and chunk_profiler is None:
+        res = _profiled_run(run, profile_dir, prog.device)
+    else:
+        try:
+            res = run()
+        finally:
+            # a run ending inside the window still closes the trace
+            if chunk_profiler is not None:
+                chunk_profiler.close()
     wall = time.monotonic() - t0
     spans.point("compile", wall_secs=round(res.get("compile_secs", 0.0), 6))
     spans.end("execute", ticks=res["ticks"])
@@ -898,6 +977,28 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         slo_eval.close()
         result.journal["slo"] = slo_eval.journal()
 
+    # the perf ledger's block, and one log line of its throughput
+    perf_summary = None
+    if perf_ledger is not None:
+        perf_ledger.close()
+        perf_summary = perf_ledger.summary()
+        ex = perf_summary.get("execute", {})
+        if ex:
+            ow.infof(
+                "sim:torch %s: perf — %.0f peer·ticks/s over %d chunk(s)%s",
+                job.run_id,
+                ex.get("steady_peer_ticks_per_sec", ex.get("peer_ticks_per_sec", 0.0)),
+                ex.get("chunks", 0),
+                ", hbm peak %.2f MiB" % (perf_summary["hbm"]["peak_bytes"] / 2**20)
+                if perf_summary.get("hbm") else "",
+            )
+    # the capture window is part of the run record
+    if profile_dir is not None:
+        result.journal["profile"] = (
+            chunk_profiler.journal() if chunk_profiler is not None
+            else {"dir": "profiles", "mode": "full"}
+        )
+
     # final metric sample at the last tick, then the run's series
     if recorder.enabled:
         recorder.sample(res["ticks"], res["states"], status)
@@ -931,6 +1032,18 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
 
         result.journal["influx_latency"] = push_rows(influx_endpoint, lat_rows,
                                                      base_ns=base_ns)
+    if (influx_endpoint and perf_ledger is not None and perf_ledger.path is not None
+            and perf_ledger.rows_written > 0):
+        # the sim.perf.* family, one row a chunk: one small batch
+        from ..metrics.influx import push_rows
+        from ..metrics.viewer import expand_perf_row
+        from .telemetry import iter_jsonl
+
+        result.journal["influx_perf"] = push_rows(
+            influx_endpoint,
+            [r for row in iter_jsonl(perf_ledger.path) for r in expand_perf_row(row)],
+            base_ns=base_ns,
+        )
 
     for gi, g in enumerate(groups):
         st = status[g.offset : g.offset + g.count]
@@ -951,7 +1064,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         "processes": 1,
         "compile_secs": round(res.get("compile_secs", 0.0), 3),
         "devices": 1 if mesh is None else mesh.size,
-        "transport": _transport_block(cfg, prog.device, mesh),
+        "transport": transport_block,
         "pub_dropped": res["pub_dropped"].tolist(),
         "latency_clamped": res["latency_clamped"],
         "bw_queue_dropped": res["bw_queue_dropped"],
@@ -967,6 +1080,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         "msgs_fault_dropped": res["fault_dropped"],
         "carry_bytes": res["carry_bytes"],
         **({"latency": latency} if latency else {}),
+        **({"perf": perf_summary} if perf_summary else {}),
         **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
         **({"mesh": mesh_block} if mesh_block else {}),
     }
@@ -984,6 +1098,115 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         raise err
     spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
     return RunOutput(run_id=job.run_id, result=result)
+
+
+# ------------------------------------------------------------ profiler
+
+PROFILE_TRACE_FILE = "trace.json"
+
+
+def _profiler(device):
+    """A ``torch.profiler`` session over the host and, on a card, the
+    device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def _export(prof, profile_dir) -> None:
+    try:
+        prof.export_chrome_trace(os.path.join(profile_dir, PROFILE_TRACE_FILE))
+    except Exception:  # noqa: BLE001 — capture is best-effort
+        pass
+
+
+def _profiled_run(run, profile_dir, device):
+    """``run()`` under a profiler session of the whole run, its Chrome
+    trace written into ``profile_dir``; a profiler that does not start
+    leaves the run unprofiled, never failed."""
+    try:
+        prof = _profiler(device)
+        prof.start()
+    except Exception:  # noqa: BLE001 — capture is best-effort
+        return run()
+    try:
+        return run()
+    finally:
+        try:
+            prof.stop()
+        except Exception:  # noqa: BLE001
+            pass
+        else:
+            _export(prof, profile_dir)
+
+
+class _ChunkedProfiler:
+    """Bounded capture (``profile_chunks=N``, ``executor.py:3308-3377``):
+    ``on_chunk(ticks)`` fires at every chunk's end; the first call (the
+    warm-up chunk just completed) starts a profiler session, and once N
+    more chunks have completed it stops and writes the Chrome trace. A
+    profiler failure ends the capture, never the run."""
+
+    def __init__(self, profile_dir: str, chunks: int, device):
+        self.dir = profile_dir
+        self.chunks = max(1, int(chunks))
+        self.device = device
+        self.started = False
+        self.done = False
+        self.from_tick: int | None = None
+        self.to_tick: int | None = None
+        self.captured = 0
+        self._prof = None
+
+    def on_chunk(self, ticks: int) -> None:
+        if self.done:
+            return
+        if not self.started:
+            try:
+                self._prof = _profiler(self.device)
+                self._prof.start()
+            except Exception:  # noqa: BLE001 — capture is best-effort
+                self.done = True
+                return
+            self.started = True
+            self.from_tick = int(ticks)
+            return
+        self.captured += 1
+        self.to_tick = int(ticks)
+        if self.captured >= self.chunks:
+            self._stop()
+
+    def _stop(self) -> None:
+        try:
+            self._prof.stop()
+        except Exception:  # noqa: BLE001
+            pass
+        else:
+            _export(self._prof, self.dir)
+        self.done = True
+
+    def close(self) -> None:
+        if self.started and not self.done:
+            self._stop()
+
+    def journal(self) -> dict:
+        out: dict = {"dir": "profiles", "mode": "chunks", "chunks": self.captured}
+        if self.from_tick is not None:
+            out["from_tick"] = self.from_tick
+        if self.to_tick is not None:
+            out["to_tick"] = self.to_tick
+        if self.started and not self.captured:
+            # the run ended inside the warm-up chunk: the trace holds no
+            # steady-state chunk
+            out["note"] = (
+                "run ended before any post-warmup chunk completed — the "
+                "capture is empty; use profile_chunks=0 (whole-run) for "
+                "runs this short"
+            )
+        return out
 
 
 # ------------------------------------------------------- per-chunk sinks

@@ -1,0 +1,415 @@
+"""Layer 1 of the port's rules engine (``testground_tpu_torch/sim/check.py``)
+against the JAX package's (``testground_tpu/sim/check.py``), on the CPU.
+Each composition is built once for each package, with runner ``sim:jax``
+for the reference and ``sim:torch`` for the port:
+
+- the catalog: the reference's rule ids, layers and summaries, plus the
+  port's own ``port.not-ported``;
+- a matrix of bad compositions, one case each, and a clean one: the same
+  findings (rule, severity, message, run) in both packages —
+  ``run-cfg.unknown-key`` by its rule and key, since its message names
+  each package's runner and options;
+- each divergence the module docstring lists, by the port's finding;
+- no drift: the port's checker reports an error exactly when the port's
+  ``execute_sim_run`` (``device="cpu"``) refuses the composition, with the
+  refusal's text among the errors, over the matrix, every key of
+  ``_UNPORTED_SETTINGS``, a 2-D mesh and the indivisible lanes;
+- ``tg check``: both CLIs give the same exit codes, lines (paths aside)
+  and ``--json`` document; ``--trace-plans`` exits 1 naming item 9g.
+"""
+
+import json
+import os
+import threading
+
+import pytest
+
+from test_torch_cli import PORT_ENV, REF_ENV, _cli, _make_home, jmain, pmain
+from test_torch_executor import REF_PLANS
+from testground_tpu.api import Composition as JComposition
+from testground_tpu.api import Global as JGlobal
+from testground_tpu.api import Group as JGroup
+from testground_tpu.api import Instances as JInstances
+from testground_tpu.api import TestPlanManifest as JManifest
+from testground_tpu.api import generate_default_run as jgenerate
+from testground_tpu.api.composition import Run as JRun
+from testground_tpu.api.composition import CompositionRunGroup as JCompRunGroup
+from testground_tpu.api.composition import RunParams as JRunParams
+from testground_tpu.sim import check as jcheck
+from testground_tpu_torch.api import (
+    Composition,
+    Global,
+    Group,
+    Instances,
+    RunGroup,
+    RunInput,
+    TestPlanManifest,
+    generate_default_run,
+    prepare_for_run,
+    validate_for_run,
+)
+from testground_tpu_torch.api.composition import CompositionRunGroup, Run, RunParams
+from testground_tpu_torch.config import CoalescedConfig
+from testground_tpu_torch.rpc import discard_writer
+from testground_tpu_torch.sim import check as pcheck
+from testground_tpu_torch.sim import executor as pexec
+
+PKG = {
+    "jax": dict(Composition=JComposition, Global=JGlobal, Group=JGroup,
+                Instances=JInstances, RunParams=JRunParams, Run=JRun,
+                RunGroup=JCompRunGroup, generate=jgenerate, runner="sim:jax",
+                manifest=lambda plan: JManifest.load_file(
+                    os.path.join(REF_PLANS, plan, "manifest.toml")),
+                check=jcheck.check_composition),
+    "torch": dict(Composition=Composition, Global=Global, Group=Group,
+                  Instances=Instances, RunParams=RunParams, Run=Run,
+                  RunGroup=CompositionRunGroup, generate=generate_default_run,
+                  runner="sim:torch",
+                  manifest=lambda plan: TestPlanManifest.load_file(
+                      os.path.join(pexec.plan_dir(plan), "manifest.toml")),
+                  check=pcheck.check_composition),
+}
+
+
+def make_comp(pkg, plan="placebo", case="ok", count=2, run_cfg=None, slo=None,
+              faults=None, trace=None, params=None, disable_metrics=False, runs=0):
+    """One composition of ``pkg``'s api: a group ``all`` of ``count``, the
+    run-global SLO rules, the group's faults, trace table and parameters;
+    ``runs`` > 0 declares that many ``[[runs]]`` entries."""
+    k = PKG[pkg]
+    comp = k["Composition"](
+        global_=k["Global"](plan=plan, case=case, builder="sim:plan", runner=k["runner"],
+                            run_config=dict(run_cfg or {}),
+                            disable_metrics=disable_metrics),
+        groups=[k["Group"](id="all", instances=k["Instances"](count=count))],
+    )
+    if slo:
+        comp.global_.run = k["RunParams"](slo=[dict(s) for s in slo])
+    if faults:
+        comp.groups[0].run.faults = [dict(f) for f in faults]
+    if trace:
+        comp.groups[0].run.trace = dict(trace)
+    if params:
+        comp.groups[0].run.test_params = dict(params)
+    if runs:
+        comp.runs = [k["Run"](id=f"r{i}", groups=[k["RunGroup"](id="all", group_id="all")])
+                     for i in range(runs)]
+    return k["generate"](comp)
+
+
+def findings(pkg, devices=1, **kw) -> list:
+    comp = make_comp(pkg, **kw)
+    fs = PKG[pkg]["check"](comp, PKG[pkg]["manifest"](comp.global_.plan), devices=devices)
+    return [(f.rule, f.severity, f.message, f.run) for f in fs]
+
+
+# ---------------------------------------------------------------- catalog
+
+
+@pytest.mark.parametrize("rule_id", [r.id for r in jcheck.RULES])
+def test_catalog_holds_each_reference_rule(rule_id):
+    ref, port = jcheck.rule_by_id(rule_id), pcheck.rule_by_id(rule_id)
+    assert (port.layer, port.summary) == (ref.layer, ref.summary)
+    # the one severity that differs: the port refuses what the reference
+    # falls back from
+    want = "error" if rule_id == "transport.mesh-indivisible" else ref.severity
+    assert port.severity == want
+
+
+def test_catalog_adds_only_port_not_ported():
+    assert {r.id for r in pcheck.RULES} - {r.id for r in jcheck.RULES} == {"port.not-ported"}
+    assert len({r.id for r in pcheck.RULES}) == len(pcheck.RULES)
+    r = pcheck.rule_by_id("port.not-ported")
+    assert (r.severity, r.layer) == ("error", "port")
+
+
+def test_findings_payload_and_rendering_match_jax():
+    fs = {pkg: PKG[pkg]["check"](make_comp(pkg, run_cfg={"transport": "warp"},
+                                           faults=[{"kind": "meteor", "start_ms": 1.0}]),
+                                 PKG[pkg]["manifest"]("placebo"), devices=1)
+          for pkg in PKG}
+    port, ref = fs["torch"], fs["jax"]
+    assert [f.to_dict() for f in port] == [f.to_dict() for f in ref]
+    assert (pcheck.render_findings("x.toml", port)
+            == jcheck.render_findings("x.toml", ref))
+    assert (pcheck.findings_payload([("x.toml", port), ("y.toml", [])])
+            == jcheck.findings_payload([("x.toml", ref), ("y.toml", [])]))
+    assert pcheck.render_findings("y.toml", []) == "y.toml: ok (no findings)"
+
+
+# ----------------------------------------------------------------- matrix
+
+SLO_DROP = {"metric": "drop_rate", "op": "<", "threshold": 0.5}
+
+# label: (make_comp kwargs, the rule that fires; None for a clean one)
+MATRIX = {
+    "unknown-case": (dict(case="nope"), "composition.invalid"),
+    "too-many-instances": (dict(count=900), "composition.invalid"),
+    "unknown-key": (dict(run_cfg={"trasnport": "pallas"}), "run-cfg.unknown-key"),
+    "transport-unknown": (dict(run_cfg={"transport": "warp"}), "transport.unknown"),
+    "mesh-shape": (dict(run_cfg={"mesh": "nope"}), "mesh.shape-invalid"),
+    "mesh-shape-3d": (dict(run_cfg={"mesh": "2x2x2"}), "mesh.shape-invalid"),
+    "fault-kind": (dict(faults=[{"kind": "meteor", "start_ms": 1.0}]), "faults.invalid"),
+    "fault-range": (dict(faults=[{"kind": "crash", "instances": "0:99", "start_ms": 1.0}]),
+                    "faults.invalid"),
+    "fault-inverted-window": (dict(faults=[{"kind": "partition", "instances": "0:1",
+                                            "to_instances": "1:2", "start_ms": 4.0,
+                                            "duration_ms": -2.0}]), "faults.invalid"),
+    "trace-fraction": (dict(trace={"fraction": 7.0}), "trace.invalid"),
+    "slo-metric": (dict(slo=[{"metric": "vibes", "op": "<", "threshold": 1}],
+                        run_cfg={"telemetry": True}), "slo.invalid"),
+    "slo-no-telemetry": (dict(slo=[SLO_DROP]), "slo.needs-telemetry"),
+    "slo-disable-metrics": (dict(slo=[SLO_DROP], run_cfg={"telemetry": True},
+                                 disable_metrics=True), "slo.needs-telemetry"),
+    "netmatrix-no-telemetry": (dict(run_cfg={"netmatrix": True}),
+                               "netmatrix.needs-telemetry"),
+    "netmatrix-disable-metrics": (dict(run_cfg={"netmatrix": True, "telemetry": True},
+                                       disable_metrics=True), "netmatrix.needs-telemetry"),
+    "clean": (dict(run_cfg={"max_ticks": 32}), None),
+    "clean-kitchen-sink": (dict(case="stall", count=4,
+                                run_cfg={"telemetry": True, "netmatrix": True,
+                                         "max_ticks": 48, "chunk": 16},
+                                faults=[{"kind": "crash", "instances": "0:1",
+                                         "start_ms": 4.0}],
+                                trace={"instances": "0:2"},
+                                slo=[{"metric": "crashed_fraction", "op": "<=",
+                                      "threshold": 1.0}]), None),
+}
+
+
+@pytest.mark.parametrize("label", list(MATRIX))
+def test_findings_match_jax(label):
+    kw, rule = MATRIX[label]
+    ref, port = findings("jax", **kw), findings("torch", **kw)
+    assert [f[0] for f in port] == ([rule] if rule else [])
+    if rule == "run-cfg.unknown-key":
+        # the message names each package's runner and its options
+        assert [f[:2] + (f[3],) for f in port] == [f[:2] + (f[3],) for f in ref]
+        assert "'trasnport'" in port[0][2] and "no sim:torch option" in port[0][2]
+        assert "'trasnport'" in ref[0][2]
+    else:
+        assert port == ref
+
+
+# ------------------------------------------------------------ divergences
+
+ITEM_13 = pexec._ITEM_13
+
+
+def _not_ported(name, value, item=ITEM_13):
+    return ("port.not-ported", "error", pcheck.not_ported_message(name, value, item), "")
+
+
+# label: (make_comp kwargs, the port's findings); each divergence of the
+# module docstring
+DIVERGENCES = {
+    "buckets-mode": (dict(run_cfg={"bucket": "sideways"}),
+                     [_not_ported("bucket", "sideways")]),
+    "buckets-ladder": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "x,y"}),
+                       [_not_ported("bucket", "auto"), _not_ported("bucket_ladder", "x,y")]),
+    "trace-bucket-disabled": (dict(trace={"instances": "0:1"},
+                                   run_cfg={"bucket": "auto", "bucket_ladder": "16"}),
+                              [_not_ported("bucket", "auto"),
+                               _not_ported("bucket_ladder", "16")]),
+    "pack-solo": (dict(run_cfg={"pack": True}), [_not_ported("pack", True)]),
+    "checkpoint-chunks": (dict(run_cfg={"checkpoint_chunks": 2}),
+                          [_not_ported("checkpoint_chunks", 2)]),
+    "checkpoint-resume-multi-runs": (dict(run_cfg={"resume_from": "earlier"}, runs=2),
+                                     [_not_ported("resume_from", "earlier")]),
+    "cohort": (dict(run_cfg={"coordinator_address": "127.0.0.1:1", "telemetry": True,
+                             "nan_guard": True, "num_processes": 2}),
+               [_not_ported("coordinator_address", "127.0.0.1:1", pexec._ITEM_15B),
+                _not_ported("num_processes", 2, pexec._ITEM_15B)]),
+    "mesh-2d": (dict(count=8, run_cfg={"mesh": "2x4"}),
+                [("port.not-ported", "error", pcheck.mesh_2d_message("2x4", ITEM_13), "")]),
+    "phases": (dict(run_cfg={"phases": True, "transport_probe": 2}),
+               [_not_ported("phases", True, pexec._ITEM_14B),
+                _not_ported("transport_probe", 2, pexec._ITEM_14B)]),
+    "mesh-indivisible-pallas": (
+        dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),
+        [("transport.mesh-indivisible", "error", pcheck.pallas_lanes_message(6, 0, 4),
+          "default")]),
+    "mesh-indivisible-xla": (
+        dict(count=6, run_cfg={"mesh": "4"}),
+        [("transport.mesh-indivisible", "error",
+          pcheck.mesh_lanes_message("xla", 6, 4, ITEM_13), "default")]),
+    "mesh-indivisible-auto-cards": (
+        dict(count=6, run_cfg={"transport": "auto", "device": "cuda"}, devices=4),
+        [("transport.mesh-indivisible", "error",
+          pcheck.mesh_lanes_message("auto", 6, 4, ITEM_13), "default")]),
+}
+
+
+@pytest.mark.parametrize("label", list(DIVERGENCES))
+def test_divergence_is_the_ports_finding(label):
+    kw, want = DIVERGENCES[label]
+    assert findings("torch", **kw) == want
+
+
+def test_mesh_indivisible_is_a_warn_in_the_reference():
+    """The reference falls back to its XLA transport where the port
+    refuses: the same rule, a warn there."""
+    kw = DIVERGENCES["mesh-indivisible-pallas"][0]
+    assert [f[:2] for f in findings("jax", **kw)] == [
+        ("transport.mesh-indivisible", "warn")]
+
+
+def test_devices_default_to_the_visible_cards(monkeypatch):
+    """``devices=0`` counts the cards: none here, so 1 — and a run on the
+    CPU meshes nothing unless ``mesh`` says so."""
+    kw = dict(count=6, run_cfg={"transport": "pallas", "device": "cuda"})
+    assert findings("torch", devices=0, **kw) == []
+    monkeypatch.setattr(pcheck, "_visible_cards", lambda: 4)
+    assert [f[0] for f in findings("torch", devices=0, **kw)] == [
+        "transport.mesh-indivisible"]
+    kw["run_cfg"]["device"] = "cpu"
+    assert findings("torch", devices=0, **kw) == []
+
+
+# -------------------------------------------------------------- no drift
+
+
+def drive_executor(comp):
+    """The composition through the port's executor the way the engine runs
+    it (validate → prepare → coalesce → RunInput → ``execute_sim_run``) on
+    the CPU. Returns the refusal, or None when it ran."""
+    try:
+        validate_for_run(comp)
+        prepared = prepare_for_run(comp, PKG["torch"]["manifest"](comp.global_.plan))
+        cfg = CoalescedConfig().append(prepared.global_.run_config).coalesce_into(
+            pexec.SimTorchConfig)
+        cfg.device = "cpu"
+        grun = prepared.global_.run
+        for run in prepared.runs:
+            job = RunInput(
+                run_id=run.id, test_plan=prepared.global_.plan,
+                test_case=prepared.global_.case, total_instances=run.total_instances,
+                groups=[RunGroup(id=rg.id, instances=rg.calculated_instance_count,
+                                 parameters=dict(rg.test_params),
+                                 faults=[dict(f) for f in rg.faults],
+                                 trace=dict(rg.trace or {}), slo=[dict(s) for s in rg.slo])
+                        for rg in run.groups],
+                runner_config=cfg, disable_metrics=prepared.global_.disable_metrics,
+                faults=[dict(f) for f in (grun.faults if grun is not None else [])],
+                trace=dict(grun.trace if grun is not None else {}),
+                slo=[dict(s) for s in (grun.slo if grun is not None else [])])
+            pexec.execute_sim_run(job, discard_writer(), threading.Event())
+    except Exception as e:  # noqa: BLE001 — the refusal under test
+        return e
+    return None
+
+
+_DEFAULTS = pexec.SimTorchConfig()
+# a value away from its default for every unported setting
+_UNPORTED_VALUES = {"bucket": "auto", "bucket_ladder": "32,64", "build_buckets": True,
+                    "pack": True, "checkpoint_chunks": 2, "resume_from": "earlier",
+                    "coordinator_address": "127.0.0.1:1", "num_processes": 2,
+                    "process_id": 1, "phases": True, "phases_measure": 3,
+                    "transport_probe": 2}
+
+DRIFT = {
+    **{f"matrix-{k}": v[0] for k, v in MATRIX.items()},
+    **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _UNPORTED_VALUES.items()},
+    "mesh-2d": dict(run_cfg={"mesh": "2x4"}),
+    "mesh-indivisible-xla": dict(count=6, run_cfg={"mesh": "4"}),
+    "mesh-indivisible-pallas": dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),
+    "mesh-divisible": dict(count=8, run_cfg={"mesh": "4", "transport": "auto"}),
+}
+
+
+def test_drift_matrix_covers_every_unported_setting():
+    assert set(_UNPORTED_VALUES) == set(pexec._UNPORTED_SETTINGS)
+    assert all(v != getattr(_DEFAULTS, k) for k, v in _UNPORTED_VALUES.items())
+
+
+@pytest.mark.parametrize("label", list(DRIFT))
+def test_checker_errors_exactly_when_the_executor_refuses(label):
+    kw = {**DRIFT[label]}
+    kw["run_cfg"] = {"max_ticks": 32, **kw.get("run_cfg", {})}
+    fs = PKG["torch"]["check"](make_comp("torch", **kw),
+                               PKG["torch"]["manifest"](kw.get("plan", "placebo")))
+    errors = [f.message for f in fs if f.severity == "error"]
+    exc = drive_executor(make_comp("torch", **kw))
+    assert (exc is not None) == bool(errors), (label, exc, errors)
+    if exc is not None:
+        assert str(exc) in errors, (str(exc), errors)
+
+
+# -------------------------------------------------------------- tg check
+
+BAD = """[global]
+plan = "network"
+case = "ping-pong"
+builder = "sim:plan"
+runner = "{runner}"
+
+[global.run_config]
+chunk = 16
+transport = "warp"
+
+[[global.run.slo]]
+metric = "drop_rate"
+op = "<"
+threshold = 0.5
+
+[[groups]]
+id = "all"
+[groups.instances]
+count = 8
+"""
+
+# name: (argv with {home})
+CHECK_CASES = {
+    "smokes": ["check", "{home}/plans/network/_compositions/sustained-smoke.toml",
+               "{home}/plans/chaos/_compositions/smoke.toml"],
+    "smokes-json": ["check", "--json",
+                    "{home}/plans/network/_compositions/sustained-smoke.toml",
+                    "{home}/plans/chaos/_compositions/smoke.toml"],
+    "bad": ["check", "{home}/bad.toml"],
+    "bad-json": ["check", "--json", "{home}/bad.toml",
+                 "{home}/plans/chaos/_compositions/smoke.toml"],
+    "run-cfg": ["check", "--run-cfg", "telemetry=false", "--run-cfg", "netmatrix=true",
+                "{home}/plans/chaos/_compositions/smoke.toml"],
+    "devices": ["check", "--devices", "8", "{home}/plans/chaos/_compositions/smoke.toml"],
+    "unloadable": ["check", "{home}/missing.toml",
+                   "{home}/plans/network/_compositions/sustained-smoke.toml"],
+}
+
+
+@pytest.fixture(scope="module")
+def homes(tmp_path_factory):
+    root = tmp_path_factory.mktemp("check")
+    out = {}
+    for pkg, env in (("jax", REF_ENV), ("torch", PORT_ENV)):
+        home = _make_home(root, pkg, env, ("network", "chaos"))
+        (home / "bad.toml").write_text(BAD.format(runner=PKG[pkg]["runner"]))
+        out[pkg] = home
+    return out
+
+
+@pytest.mark.parametrize("name", list(CHECK_CASES))
+def test_tg_check_matches_jax(name, homes):
+    got = {}
+    for pkg, main in (("jax", jmain), ("torch", pmain)):
+        home = homes[pkg]
+        rc, out, err = _cli(main, home, [a.format(home=home) for a in CHECK_CASES[name]])
+        got[pkg] = (rc, out.replace(str(home), "<home>"))
+    assert got["torch"] == got["jax"]
+    rc, out = got["torch"]
+    want_rc = {"smokes": 0, "smokes-json": 0, "bad": 1, "bad-json": 1, "run-cfg": 1,
+               "devices": 0, "unloadable": 2}[name]
+    assert rc == want_rc, out
+    if name.endswith("json"):
+        doc = json.loads(out)
+        assert doc["version"] == 1 and len(doc["compositions"]) == 2
+    if name == "bad":
+        assert "[error] transport.unknown" in out and "slo.needs-telemetry" in out
+
+
+def test_tg_check_trace_plans_is_refused_naming_9g(homes):
+    home = homes["torch"]
+    before = sorted(os.listdir(home))
+    rc, out, err = _cli(pmain, home, ["check", "--trace-plans", str(home / "bad.toml")])
+    assert rc == 1 and out == ""
+    assert err.startswith("error: ") and "ROADMAP queue 1 item 9g" in err
+    assert sorted(os.listdir(home)) == before

@@ -5,9 +5,8 @@ runner's healthcheck, the queue and daemon flags, the refusals, and the
 executor's Influx mirror.
 
 CLI cases run the reference's ``tg`` (``testground_tpu.cli.main``, runner
-``sim:jax`` with ``shard = false`` and ``perf = false`` in its
-``.env.toml``: one device, and no perf ledger, which the port has not yet)
-and the port's, each in its own ``$TESTGROUND_HOME`` whose ``plans/``
+``sim:jax`` with ``shard = false`` in its ``.env.toml``: one device) and
+the port's, both with the perf ledger on, their default, each in its own ``$TESTGROUND_HOME`` whose ``plans/``
 holds its package's plan directories and whose ``.env.toml`` (the port's
 sets ``device = "cpu"``) selects the CPU. Then the exit codes, the outcome
 lines, the ``--result-file`` CSV rows, every run directory and the task
@@ -34,7 +33,8 @@ import pytest
 import torch
 
 import __graft_entry__ as ge
-from test_torch_executor import SIM_SKIPPED, _read_tree, _strip
+from test_torch_executor import COMPILE_DERIVED, SIM_SKIPPED, _read_tree, _strip
+from test_torch_perf import perf_view
 from testground_tpu.cli.main import main as jmain
 from testground_tpu.config import EnvConfig as JEnvConfig
 from testground_tpu.engine import Engine as JEngine
@@ -52,7 +52,7 @@ REPO = os.path.dirname(os.path.abspath(ge.__file__))
 REF_PLANS = os.path.join(REPO, "plans")
 PORT_PLANS = os.path.join(REPO, "testground_tpu_torch", "plans")
 
-REF_ENV = '[runners."sim:jax"]\nshard = false\nperf = false\n'
+REF_ENV = '[runners."sim:jax"]\nshard = false\n'
 PORT_ENV = '[runners."sim:torch"]\ndevice = "cpu"\n'
 
 # what an engine writes into a run directory at the end of a task: its
@@ -228,7 +228,11 @@ def _record(pkg, home, rc, stdout, stderr, result_file):
         # reference, the queue wait)
         "results": {str(rid): {**{k: v for k, v in r.items()
                                   if k not in ("journal", "perf", "composition")},
-                               "journal": _journal(r)}
+                               "journal": _journal(r),
+                               # the perf ledger's keys and counts
+                               "sim_perf": (perf_view(r["journal"]["sim"])
+                                            if "perf" in r.get("journal", {}).get("sim", {})
+                                            else None)}
                     for rid, r in results.items()},
         "composition": result.get("composition"),
     }, task_id, home)
@@ -303,7 +307,7 @@ EXPECTED = {
                         [["<task>", "network:pingpong-sustained", "success", ""]],
                         {"sim_timeseries.jsonl", "sim_latency.jsonl", "sim_slo.jsonl",
                          "timeseries.jsonl", "run_spans.jsonl", "pairs/7/run.out",
-                         "task_spans.jsonl", "task_trace.json"}),
+                         "task_spans.jsonl", "task_trace.json", "sim_perf.jsonl"}),
     "chaos-smoke": (0, ["finished run with ID: <task> (outcome: success)"],
                     [["<task>", "chaos:chaos-barrier", "success", ""]],
                     {"sim_trace.jsonl", "trace_events.json", "sim_slo.jsonl"}),
@@ -374,6 +378,60 @@ def test_write_artifacts_and_reuse(tmp_path):
     rc, out, _ = _cli(pmain, home, ["run", "composition", "-f", str(comp),
                                     "--ignore-artifacts", "--run-ids", "default"])
     assert rc == 0 and "sim:plan built placebo" in out
+
+
+# the lines a build prints in both packages (the reference's precompile
+# into XLA's cache has no counterpart in the port)
+BUILD_LINES = ("build is queued", "sim:plan built", "group ", "finished build",
+               "wrote artifacts")
+
+# name: (argv with {home}; plans to copy)
+BUILD_RUN_CFG = {
+    "composition": (["build", "composition", "-f", "{home}/comp.toml", "--run-cfg",
+                     "chunk=32", "--run-cfg", "telemetry=true", "--write-artifacts"],
+                    ("placebo",)),
+    "single": (["build", "single", "network:ping-pong", "--run-cfg", "chunk=32"],
+               ("network",)),
+}
+
+
+@pytest.mark.parametrize("mode", list(BUILD_RUN_CFG))
+def test_build_run_cfg_matches_jax(mode, tmp_path):
+    """``build composition|single --run-cfg k=v`` merges the overrides into
+    the composition's ``global.run_config`` as the reference does: the same
+    exit code and lines, the same build task composition and the same
+    written composition file (``[[runs]]``' ``total_instances`` aside, which
+    the reference's precompile pass fills in as it validates)."""
+    argv, plans = BUILD_RUN_CFG[mode]
+    got = {}
+    for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
+                                   ("torch", pmain, PORT_ENV, "sim:torch")):
+        home = _make_home(tmp_path, pkg, env, plans)
+        comp = home / "comp.toml"
+        comp.write_text(TWO_RUNS.format(runner=runner).split("[[runs]]")[0])
+        rc, out, err = _cli(main, home, [a.format(home=home) for a in argv])
+        tid = re.search(r"build is queued with ID: (\S+)", out).group(1)
+        task = (_jax_task if pkg == "jax" else _port_task)(home, tid)
+        written = None
+        if mode == "composition":
+            from testground_tpu_torch.api import Composition
+
+            written = Composition.load_file(str(comp)).to_dict()
+            for run in written["runs"]:
+                run.pop("total_instances")
+        got[pkg] = _norm({
+            "rc": rc, "outcome": task.outcome().value,
+            "lines": [ln for ln in out.splitlines() if ln.startswith(BUILD_LINES)],
+            "run_config": task.composition["global"]["run_config"],
+            "written": written,
+        }, tid, home)
+    assert got["torch"] == got["jax"]
+    assert got["torch"]["rc"] == 0 and got["torch"]["outcome"] == "success"
+    assert got["torch"]["run_config"]["chunk"] == 32
+    if mode == "composition":
+        assert got["torch"]["written"]["global"]["run_config"] == {"chunk": 32,
+                                                                   "telemetry": True}
+        assert got["torch"]["lines"][-1].startswith("wrote artifacts into composition")
 
 
 # ------------------------------------------------------------- refusals
@@ -649,11 +707,20 @@ def _rebased(body):
     return out, bases.pop()
 
 
+def _measurements(body) -> list:
+    """The measurement of each line of a line-protocol body, the compile
+    pass's gauges of the reference aside."""
+    names = [line.split(",", 1)[0] for line in body.splitlines()]
+    return sorted(n for n in names if n.rsplit(".", 1)[-1] not in COMPILE_DERIVED)
+
+
 @pytest.mark.parametrize("batch", [5000, 7])
 def test_influx_mirror_posts_the_reference_bodies(batch, capture, tmp_path, monkeypatch):
     """The same run through both executors with an Influx endpoint: the
     capture server receives the same line-protocol bodies, timestamps
-    rebased to each run's start, and the journals' influx blocks agree."""
+    rebased to each run's start, and the journals' influx blocks agree.
+    The perf ledger's family (the last POST) holds timings: its
+    measurements agree, less the reference's compile-pass gauges."""
     from testground_tpu.api import RunGroup as JRunGroup
     from testground_tpu.api import RunInput as JRunInput
     from testground_tpu.rpc import discard_writer as jdiscard
@@ -672,7 +739,7 @@ def test_influx_mirror_posts_the_reference_bodies(batch, capture, tmp_path, monk
             env = JEnvConfig.load(home=str(tmp_path / pkg))
             job = JRunInput(groups=[JRunGroup(id="all", instances=8, artifact_path=os.path.join(
                 REF_PLANS, "network"))], env=env,
-                runner_config=jexec.SimJaxConfig(shard=False, perf=False, **cfg), **common)
+                runner_config=jexec.SimJaxConfig(shard=False, **cfg), **common)
             execute, writer = jexec.execute_sim_run, jdiscard()
         else:
             env = EnvConfig.load(home=str(tmp_path / pkg))
@@ -689,16 +756,23 @@ def test_influx_mirror_posts_the_reference_bodies(batch, capture, tmp_path, monk
     assert [p for p, _ in posts["torch"]] == [p for p, _ in posts["jax"]]
     assert all(p == "/write?db=testground" for p, _ in posts["torch"])
     bases = set()
-    for (_, pbody), (_, jbody) in zip(posts["torch"], posts["jax"]):
+    for (_, pbody), (_, jbody) in zip(posts["torch"][:-1], posts["jax"][:-1]):
         plines, pbase = _rebased(pbody)
         jlines, _ = _rebased(jbody)
         assert plines == jlines
         bases.add(pbase)
+    (_, pperf), (_, jperf) = posts["torch"][-1], posts["jax"][-1]
+    assert _measurements(pperf) == _measurements(jperf)
+    assert "results.network-ping-pong.sim.perf.peer_ticks_per_sec" in pperf
+    bases.add(_rebased(pperf)[1])
     assert len(bases) == 1  # one base for the run's every family
+    pperf_j, jperf_j = journals["torch"].pop("influx_perf"), journals["jax"].pop("influx_perf")
+    assert pperf_j["ok"] and jperf_j["ok"]
+    assert pperf_j["pushed"] == len(pperf.splitlines())
     assert journals["torch"] == journals["jax"]
     assert set(journals["torch"]) == {"influx", "influx_telemetry", "influx_latency"}
     assert all(j["ok"] for j in journals["torch"].values())
-    assert len(posts["torch"]) >= 3
+    assert len(posts["torch"]) >= 4
     if batch == 7:
         assert journals["torch"]["influx_telemetry"]["batches"] > 1
     text = "".join(b for _, b in posts["torch"])
@@ -726,6 +800,7 @@ def test_influx_mirror_failure_is_journaled_not_fatal(tmp_path, monkeypatch):
     j = out.result.journal
     assert not j["influx"]["ok"] and j["influx"]["attempts"] == 3
     assert j["influx_telemetry"]["aborted"] and j["influx_telemetry"]["batches"] == 1
+    assert not j["influx_perf"]["ok"]
 
 
 # --------------------------------------------------- helpers' copies
@@ -851,7 +926,7 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
 
 
 @pytest.mark.parametrize("verb", ["stats", "perf", "trace", "watch", "netmap", "diff",
-                                  "top", "preempt", "plan", "check", "describe"])
+                                  "top", "preempt", "plan", "describe"])
 def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         pmain([verb, "x"])

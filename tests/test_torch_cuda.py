@@ -630,7 +630,9 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
     CLI, in a home whose ``.env.toml`` names no device (the card) and in one
     that sets ``device = "cpu"``: both succeed, the card's run launches K1
     and K2 and journals them, and the run directories are equal once the
-    run ID and the wall-clock fields are dropped."""
+    run ID and the wall-clock fields are dropped. The perf ledger's rows
+    and block are compared by what is the run's (ticks, chunks, rows), not
+    by its timings or the card's bytes in use."""
     import json
     import os
     import shutil
@@ -687,9 +689,19 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
                             for r in rows]
                 elif name.startswith("task_"):
                     rows = sorted(rows, key=json.dumps)
+                elif name == "sim_perf.jsonl":
+                    rows = [{k: r[k] for k in ("run", "plan", "case", "tick", "chunk")}
+                            for r in rows]
                 tree[os.path.relpath(path, run_dir)] = rows
-        trees[dev] = (tree, strip(task.result["journal"], task.id))
+        journal = strip(task.result["journal"], task.id)
+        perf = journal["sim"].pop("perf")
+        counts = {"instances": perf["instances"], "chunk": perf["chunk"],
+                  "chunks": perf["execute"]["chunks"], "ticks": perf["execute"]["ticks"],
+                  "series": perf["series"]}
+        trees[dev] = (tree, journal, counts)
     assert sorted(trees["cuda"][0]) == sorted(trees["cpu"][0])
+    assert "sim_perf.jsonl" in trees["cpu"][0]
     for rel in trees["cpu"][0]:
         assert trees["cuda"][0][rel] == trees["cpu"][0][rel], rel
     assert trees["cuda"][1] == trees["cpu"][1]
+    assert trees["cuda"][2] == trees["cpu"][2]

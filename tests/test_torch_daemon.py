@@ -1,7 +1,7 @@
 """The port's daemon and client against the JAX package's, on the CPU:
 both packages' ``Daemon`` (an engine behind a stdlib HTTP server on
-``127.0.0.1:0``, ``sim:jax`` with ``shard = false`` and ``perf = false``
-against ``sim:torch`` with ``device = "cpu"``) take the same compositions
+``127.0.0.1:0``, ``sim:jax`` with ``shard = false`` against ``sim:torch``
+with ``device = "cpu"``, both with the perf ledger on) take the same compositions
 from their CLIs with ``--endpoint``, from a client home that holds no
 plans. Then the exit codes, the printed lines of ``run``, ``status``,
 ``logs`` and ``tasks``, the task fields (less IDs and times) and the run
@@ -49,6 +49,7 @@ from testground_tpu_torch.client import Client, DaemonError
 from testground_tpu_torch.config import EnvConfig
 from testground_tpu_torch.daemon import Daemon
 from testground_tpu_torch.daemon.server import NOT_PORTED_ROUTES
+from test_torch_perf import perf_view
 
 PKGS = {"jax": (JDaemon, JEnvConfig, JClient, jmain, REF_ENV, "sim:jax"),
         "torch": (Daemon, EnvConfig, Client, pmain, PORT_ENV, "sim:torch")}
@@ -173,6 +174,7 @@ def _through_daemon(pkg, d, argv):
         "trace": sorted(task["trace"]),
         "result": {k: v for k, v in result.items() if k not in ("journal", "perf")},
         "perf": sorted(result["perf"]),
+        "sim_perf": perf_view(result["journal"]["sim"]),
         "journal_keys": sorted(result["journal"]),
         "run_dir": _run_tree(run_dir),
     }
@@ -203,6 +205,8 @@ def test_run_through_daemon_matches_jax(name, daemons):
     assert port["tasks"][0][0] == "<task>" and port["tasks"][0][-1] == "success"
     assert any(ln.startswith("executing run <task>") for ln in port["logs"])
     assert port["perf"] == ["queued_secs", "runner_wall_secs"]
+    assert port["sim_perf"]["series"]["rows"] == port["sim_perf"]["chunks"] > 0
+    assert "sim_perf.jsonl" in port["run_dir"]
 
 
 def test_in_process_run_is_read_from_another_process(tmp_path):
@@ -590,3 +594,116 @@ def test_kernel_check_launches_on_the_card_it_checks(monkeypatch):
     ok, msg = prunner._kernel_check(torch.device("cuda:1"))
     assert ok and "bit-equal" in msg
     assert seen == ["build", ("enter", 1), ("pop", torch.device("cuda:1")), ("exit", 1)]
+
+
+# ------------------------------------------------------ admission at submit
+
+
+def _ping_pong(d, edit=None) -> dict:
+    """``PING_PONG`` as the package's composition dict, ``edit`` applied."""
+    path = os.path.join(d["client_home"], "ping-pong.toml")
+    if d["runner"] == "sim:jax":
+        from testground_tpu.api import load_composition
+    else:
+        from testground_tpu_torch.api import load_composition
+    comp = load_composition(path).to_dict()
+    if edit is not None:
+        edit(comp)
+    return comp
+
+
+def _cfg(**kw):
+    return lambda c: c["global"]["run_config"].update(kw)
+
+
+def _slo_without_telemetry(c):
+    c["global"]["run_config"]["telemetry"] = False
+    c["global"]["run"] = {"slo": [{"metric": "drop_rate", "op": "<", "threshold": 0.5}]}
+
+
+def _inverted_window(c):
+    # a partition whose window ends before it starts
+    c["groups"][0]["run"]["faults"] = [{"kind": "partition", "instances": "0:4",
+                                        "to_instances": "4:8", "start_ms": 10.0,
+                                        "duration_ms": -5.0}]
+
+
+# name: (edit, the rule ids the 422 names)
+REFUSED_AT_SUBMIT = {
+    "slo-needs-telemetry": (_slo_without_telemetry, ["slo.needs-telemetry"]),
+    "transport-unknown": (_cfg(transport="bogus"), ["transport.unknown"]),
+    "faults-inverted-window": (_inverted_window, ["faults.invalid"]),
+    "netmatrix-needs-telemetry": (_cfg(netmatrix=True, telemetry=False),
+                                  ["netmatrix.needs-telemetry"]),
+    "two-findings": (lambda c: (_cfg(transport="bogus")(c), _inverted_window(c)),
+                     ["transport.unknown", "faults.invalid"]),
+}
+
+
+def _refusals(client) -> list:
+    try:
+        rows = list(client.events())
+    except Exception as e:  # noqa: BLE001 — either package's DaemonError
+        assert "no events journal yet" in str(e)
+        rows = []
+    return [{k: r.get(k) for k in ("type", "task", "task_type", "plan", "case", "rules")}
+            for r in rows if r["type"] == "task.refused"]
+
+
+def _submit(d, comp):
+    """POST /run of ``comp``: the status, the error body, the tasks and
+    refusals it added."""
+    client = d["client"]
+    tasks, refused = len(client.tasks()), len(_refusals(client))
+    status, body = _http(d["ep"], "POST", "/run", {"composition": comp})
+    return {"status": status, "body": json.loads(body) if status != 200 else None,
+            "new_tasks": len(client.tasks()) - tasks,
+            "refusals": _refusals(client)[refused:]}
+
+
+@pytest.mark.parametrize("name", list(REFUSED_AT_SUBMIT))
+def test_bad_composition_refused_at_submit_like_jax(name, daemons):
+    """The same bad composition posted to both daemons: the same 422 and
+    body naming the rules, one ``task.refused`` with the same fields each,
+    and no task queued."""
+    edit, rules = REFUSED_AT_SUBMIT[name]
+    got = {pkg: _submit(daemons[pkg], _ping_pong(daemons[pkg], edit)) for pkg in PKGS}
+    assert got["torch"] == got["jax"]
+    port = got["torch"]
+    assert port["status"] == 422 and port["new_tasks"] == 0
+    msg = port["body"]["error"]
+    assert msg.startswith("composition refused at submit (tg check): [")
+    assert re.findall(r"\[([a-z.-]+)\] ", msg) == rules
+    assert port["refusals"] == [{"type": "task.refused", "task": "", "task_type": "run",
+                                 "plan": "network", "case": "ping-pong", "rules": rules}]
+
+
+def test_client_reports_the_refusal(daemons):
+    with pytest.raises(DaemonError, match=r"refused at submit.*\[transport.unknown\]"):
+        daemons["torch"]["client"].run(_ping_pong(daemons["torch"], _cfg(transport="bogus")))
+
+
+def test_unported_setting_refused_at_submit(daemons):
+    """A divergence: ``bucket = "auto"`` runs on the reference and is
+    refused by the port, at submit, as ``port.not-ported``."""
+    got = _submit(daemons["torch"], _ping_pong(daemons["torch"], _cfg(bucket="auto")))
+    assert got["status"] == 422 and got["new_tasks"] == 0
+    assert "[port.not-ported] runner config bucket='auto' is not ported yet: ROADMAP " \
+           "queue 1 item 13" in got["body"]["error"]
+    assert got["refusals"][0]["rules"] == ["port.not-ported"]
+
+
+def test_clean_composition_is_still_queued_and_builds_are_not_checked(daemons):
+    for pkg in PKGS:
+        d = daemons[pkg]
+        got = _submit(d, _ping_pong(d))
+        assert got["status"] == 200 and got["new_tasks"] == 1 and got["refusals"] == []
+        # a build of a composition a run would refuse is queued all the same
+        status, _ = _http(d["ep"], "POST", "/build",
+                          {"composition": _ping_pong(d, _cfg(transport="bogus"))})
+        assert status == 200
+        deadline = time.monotonic() + 60
+        while any(t["states"][-1]["state"] not in ("complete", "canceled")
+                  for t in d["client"].tasks()):
+            assert time.monotonic() < deadline, "queued tasks did not finish"
+            time.sleep(0.05)

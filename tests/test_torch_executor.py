@@ -12,9 +12,11 @@ outcomes must be equal:
   block;
 - the outcome and the per-group outcomes.
 
-The reference runs with ``perf=False``: its perf ledger (ROADMAP item 14)
-has no counterpart in the port yet, and the port runs with its default,
-which writes no ledger. The workloads: ``network:ping-pong`` with
+Both run with the perf ledger on, their default: ``sim_perf.jsonl`` is
+compared row for row by its identifying fields and its keys
+(:data:`PERF_ROW_FIELDS`), its timings and the reference's compile-derived
+gauges aside (``tests/test_torch_perf.py`` holds the ``sim.perf`` block).
+The workloads: ``network:ping-pong`` with
 telemetry and the traffic matrix, ``placebo`` ``ok`` and ``abort``, the
 chaos smoke composition (``plans/chaos/_compositions/smoke.toml``, built
 here by hand) with its warn SLO and again with ``severity = "fail"``, a
@@ -62,8 +64,16 @@ VARYING_FIELDS = frozenset(
 
 # keys of the journal's ``sim`` block that describe the machine and not
 # the run: wall times, the process count, the transport record (what ran
-# where) and the reference's perf ledger (ROADMAP item 14)
+# where) and the perf ledger's timings (tests/test_torch_perf.py compares
+# its keys and counts)
 SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", "perf"})
+
+# the perf ledger's row fields that are the run's and not the machine's;
+# the rest are timings, the transport that ran and, in the reference only,
+# the gauges of its compile pass (COMPILE_DERIVED), which the port has not
+PERF_ROW_FIELDS = ("run", "plan", "case", "tick", "chunk")
+COMPILE_DERIVED = frozenset({"compile", "flops_per_sec", "bytes_per_sec",
+                             "est_flops_per_sec", "est_bytes_per_sec"})
 
 CHAOS_PARAMS = {"slow_count": "2", "slow_tick": "30", "heal_tick": "44",
                 "deadline": "120"}
@@ -115,7 +125,7 @@ def _jobs(name, jroot, proot):
     common = dict(run_id=run_id, test_plan=plan, test_case=case, total_instances=n)
     jjob = JRunInput(groups=[jgroup], env=EnvConfig.load(home=str(jroot)),
                      runner_config=jexec.SimJaxConfig(shard=False, transport="xla",
-                                                      perf=False, **cfg),
+                                                      **cfg),
                      **common, **extra)
     pjob = RunInput(groups=[pgroup], env=OutputsEnv(proot),
                     runner_config=pexec.SimTorchConfig(device="cpu", **cfg),
@@ -139,9 +149,17 @@ def _strip(x):
     return x
 
 
+def perf_row(row: dict) -> dict:
+    """A ``sim_perf.jsonl`` row as both packages must agree on it: its
+    identifying fields and its keys, the compile-derived ones aside."""
+    return {"keys": sorted(set(row) - COMPILE_DERIVED),
+            **{k: row[k] for k in PERF_ROW_FIELDS}}
+
+
 def _read_tree(run_dir) -> dict:
     """Every file under the run directory, parsed and stripped:
-    ``.jsonl``/``.out`` row by row, ``.json`` whole."""
+    ``.jsonl``/``.out`` row by row, ``.json`` whole, the perf ledger's rows
+    by :func:`perf_row`."""
     out = {}
     for root, _, names in os.walk(run_dir):
         for fname in names:
@@ -150,6 +168,8 @@ def _read_tree(run_dir) -> dict:
             with open(path) as f:
                 if fname.endswith(".json"):
                     out[rel] = _strip(json.load(f))
+                elif fname == "sim_perf.jsonl":
+                    out[rel] = [perf_row(json.loads(line)) for line in f if line.strip()]
                 else:
                     out[rel] = [_strip(json.loads(line)) for line in f if line.strip()]
     return out
@@ -212,8 +232,9 @@ def test_journal_and_outcome_match_jax(name, runs):
 EXPECTED = {
     "ping-pong-planes": ("success", {"telemetry"},
                          {"sim_timeseries.jsonl", "sim_netmatrix.jsonl",
-                          "sim_latency.jsonl", "run_spans.jsonl", "all/0/run.out"}),
-    "placebo-ok": ("success", set(), {"all/3/run.out"}),
+                          "sim_latency.jsonl", "run_spans.jsonl", "all/0/run.out",
+                          "sim_perf.jsonl"}),
+    "placebo-ok": ("success", set(), {"all/3/run.out", "sim_perf.jsonl"}),
     "placebo-abort": ("failure", set(), {"all/3/run.out"}),
     "chaos-smoke": ("success", {"telemetry", "trace", "slo", "metrics"},
                     {"sim_trace.jsonl", "trace_events.json", "sim_slo.jsonl"}),
@@ -296,11 +317,9 @@ REFUSED = {
     "coordinator_address": ("localhost:1234", "item 15b"),
     "num_processes": (2, "item 15b"),
     "process_id": (1, "item 15b"),
-    "profile": (True, "item 14"),
-    "profile_chunks": (4, "item 14"),
-    "phases": (True, "item 14"),
-    "phases_measure": (3, "item 14"),
-    "transport_probe": (2, "item 14"),
+    "phases": (True, "item 14b"),
+    "phases_measure": (3, "item 14b"),
+    "transport_probe": (2, "item 14b"),
 }
 
 
@@ -421,7 +440,7 @@ def test_nan_guard_names_the_leaf_and_the_ticks():
     assert _slow_program(NAN_AT=5).run(max_ticks=16)["ticks"] == 16  # off: runs on
 
 
-@pytest.mark.parametrize("option,item", [("perf", "item 14"), ("live_counts", "item 13")])
+@pytest.mark.parametrize("option,item", [("live_counts", "item 13")])
 def test_unported_run_options_are_refused(option, item):
     with pytest.raises(NotImplementedError, match=f"'{option}'.*{item}"):
         _slow_program().run(max_ticks=4, **{option: object()})

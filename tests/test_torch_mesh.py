@@ -494,7 +494,7 @@ def _mesh_jobs(tmp_path, mesh, transport="xla", n=8):
         groups=[JRunGroup(id="all", instances=n,
                           artifact_path=f"{REF_PLANS}/network")],
         env=EnvConfig.load(home=str(tmp_path / "jax")),
-        runner_config=jexec.SimJaxConfig(perf=False, **cfg), **common)
+        runner_config=jexec.SimJaxConfig(**cfg), **common)
     pjob = RunInput(groups=[RunGroup(id="all", instances=n,
                                      artifact_path=pexec.plan_dir("network"))],
                     env=OutputsEnv(tmp_path / "torch"),
