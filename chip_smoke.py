@@ -108,7 +108,14 @@ and drives the port's main path through the library entry points
               launches and ops a tick equal); a one-chunk
               ``profile_chunks`` capture naming K1 and K2; ``tg check`` as
               a process (see ``phase_admit``)
-18. parity  — sustained, flood and storm at 4,096 instances, the faulted
+18. observe — the phase ledger of cli@100k's composition (its rows, the
+              exact residual, K1's and K2's closed-form bytes, measured ms
+              beside a PhaseTimer; the ops a tick with it on and off), the
+              transport probe, the daemon's runs alone, under a ``tg
+              watch`` and under a ``tg top`` process (ms/tick; the rows the
+              watcher saw), the read-side verbs through ``--endpoint`` and
+              one banked row (see ``phase_observe``)
+19. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -149,7 +156,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "admit", "parity")
+          "cli", "daemon", "admit", "observe", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -519,13 +526,7 @@ def commit_case(label, L, N, slots, W, m2, occ_bool, stacking, etick, seed,
     live = keys < L * N
     runs = int(np.unique(keys[live]).size)
     survivors = int(surv_p.sum())
-    occ_b = 1 if occ_bool else 4
-    nbytes = (
-        m2 * (8 + 4 * W)  # sk, occ_vals, payload streams in
-        + m2 * 4  # survival mask out
-        + (runs * slots * occ_b if stacking else 0)  # pre-tick fill reads
-        + survivors * (occ_b + 4 * W + (4 if etick else 0))  # plane writes
-    )
+    nbytes = ct.commit_bytes(m2, W, slots, occ_bool, stacking, etick, runs, survivors)
     return {
         "kernel": "commit_calendar",
         "case": label,
@@ -577,9 +578,7 @@ def pop_case(label, L, N, slots, W, occ_bool, seed):
     kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(lambda: ct.pop_bucket_plain(work, t), restore)
     library_ms = time_ms(library, restore)
-    ns = N * slots
-    occ_b = 1 if occ_bool else 4
-    nbytes = ns * (occ_b + 4 * W) * 2 + ns * occ_b  # rows in, rows out, clear
+    nbytes = ct.pop_bytes(N * slots, W, occ_bool)  # rows in, rows out, clear
     return {
         "kernel": "pop_bucket",
         "case": label,
@@ -645,9 +644,7 @@ def sharded_commit_case(label, S, L, N, slots, W, m2, occ_bool, stacking, etick,
     live = keys < L * N
     runs = int(np.unique(keys[live]).size)
     survivors = int(surv_p.sum())
-    occ_b = 1 if occ_bool else 4
-    nbytes = (m2 * (8 + 4 * W) + m2 * 4 + (runs * slots * occ_b if stacking else 0)
-              + survivors * (occ_b + 4 * W + (4 if etick else 0)))
+    nbytes = ct.commit_bytes(m2, W, slots, occ_bool, stacking, etick, runs, survivors)
     return {
         "kernel": "commit_calendar_sharded", "case": label,
         "shape": dict(S=S, parts=len(mesh.parts), L=L, N=N, slots=slots, W=W, m2=m2,
@@ -707,9 +704,7 @@ def sharded_pop_case(label, S, L, N, slots, W, occ_bool, seed, parts=None):
     kernel_ms = time_ms(kernel, restore)
     plain_ms = time_ms(lambda: ct.pop_bucket_sharded_plain(work, t), restore)
     library_ms = time_ms(library, restore)
-    ns = N * slots
-    occ_b = 1 if occ_bool else 4
-    nbytes = ns * (occ_b + 4 * W) * 2 + ns * occ_b
+    nbytes = ct.pop_bytes(N * slots, W, occ_bool)
     return {
         "kernel": "pop_bucket_sharded", "case": label,
         "shape": dict(S=S, parts=len(mesh.parts), L=L, N=N, n_loc=n_loc, slots=slots,
@@ -2904,6 +2899,376 @@ def phase_admit(card) -> dict:
     return row
 
 
+# ------------------------------------------------------------ observe
+
+OBSERVE_TURNS = 3
+# the phase ledger's extra ticks on the card: one warm-up, one counted,
+# then phases_measure measured ones
+OBSERVE_MEASURE = 30
+OBSERVE_WAYS = ("alone", "watch", "top")
+
+# `tg watch --json` against a daemon, in a process of its own, for each
+# task ID it reads on its standard input; a marker line ends each
+WATCHER = (
+    "import sys\n"
+    "from testground_tpu_torch.cli.main import main\n"
+    "print('@@ready', flush=True)\n"
+    "for line in sys.stdin:\n"
+    "    rc = main(['--endpoint', sys.argv[1], 'watch', line.strip(), '--json'])\n"
+    "    print(f'@@done {rc}', flush=True)\n"
+)
+
+
+def _lines(path) -> list:
+    with open(path) as f:
+        return f.read().splitlines()
+
+
+def _wait_for(pred, what, deadline_s=120.0):
+    t_end = time.monotonic() + deadline_s
+    while not pred():
+        check(time.monotonic() < t_end, f"observe: timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def run_ops(job) -> tuple:
+    """``(run_exec(job), aten ops dispatched inside SimProgram.run)``: the
+    run's own ticks only, not what the executor does after it."""
+    from testground_tpu_torch.sim.engine import SimProgram
+
+    orig = SimProgram.run
+    box = {}
+
+    def counted(self, *a, **kw):
+        res, box["ops"] = dispatched_ops(lambda: orig(self, *a, **kw))
+        return res
+
+    SimProgram.run = counted
+    try:
+        out = run_exec(job)
+    finally:
+        SimProgram.run = orig
+    return out, box["ops"]
+
+
+def phase_observe(card) -> dict:
+    """The read side of the observability plane on the card: (a)
+    cli@100k's composition through ``execute_sim_run`` with ``phases =
+    true, phases_measure = 30``: the rows of the reference's phases with
+    telemetry, Σ phases + residual = whole exactly, K2's closed-form bytes
+    in ``deliver`` and K1's in ``net_commit``, each phase's measured ms
+    beside a ``PhaseTimer`` reading of the same program, a phases-off twin
+    dispatching the same ops a tick, and the run again under ``transport =
+    "auto", transport_probe = 30`` (its journaled scores); (b) the
+    composition submitted to an in-process ``Daemon`` in turns alone, with
+    a ``tg watch --json`` process following ``/stream`` (the rows it saw =
+    the run directory's) and with a ``tg top --interval 2`` process on
+    ``/fleet``: wall ms/tick of each; (c) the verbs through ``--endpoint``
+    (``stats``, ``perf --phases``, ``perf --compare``, ``netmap``,
+    ``trace``, ``status --telemetry``, ``top``, and ``diff`` of two of
+    (b)'s runs with no mismatch in the counter planes), each exit 0 and
+    allocating nothing on the card; (d) one row of (a) banked into
+    ``chiprun_out/`` with its fingerprint."""
+    import shutil
+    import tempfile
+
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+    from testground_tpu_torch.engine.stream import STREAM_FAMILIES
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_observe_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "observe", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def count(got, label, ticks=None):
+        check(all(v > 0 for v in got.values()), f"observe {label}: launches {got}")
+        check(ticks is None or all(v == ticks for v in got.values()),
+              f"observe {label}: launches {got} over {ticks} ticks")
+        for k, v in got.items():
+            launches[k] += v
+
+    try:
+        # (a) the phase ledger of cli@100k's composition
+        job = exec_job("phases", root, "network", "pingpong-sustained", 100_000,
+                       SUSTAINED, chunk=250, max_ticks=10_000, telemetry=True,
+                       phases=True, phases_measure=OBSERVE_MEASURE)
+        out, wall, run_dir = run_exec(job)
+        sim = out.result.journal["sim"]
+        ticks = out.result.journal["telemetry"]["rows"]
+        count(read_launches(), "phases run", ticks + 2 + OBSERVE_MEASURE)
+        block = sim["phases"]
+        rows = {r["phase"]: r for r in block["phases"]}
+        check(list(rows) == ["deliver", "lat_hist", "step", "sync", "net_commit",
+                             "telemetry"], f"observe phases: rows {list(rows)}")
+        for key, total in block["whole_per_tick"].items():
+            parts = sum(r.get(key, 0) for r in rows.values()) + block["residual"][key]
+            check(parts == total, f"observe phases: {key} Σ {parts} != whole {total}")
+        prog = program("pingpong-sustained", 100_000, SUSTAINED, 250, telemetry=True)
+        cal = prog.init_carry(0).cal
+        occ = cal.occupancy_plane
+        pop = ct.pop_bytes(occ.shape[1], cal.width, occ.dtype == torch.bool)
+        kb = block.get("kernel_bytes", {})
+        commit = kb.get("net_commit", {}).get("commit_calendar", 0)
+        check(kb.get("deliver") == {"pop_bucket": pop},
+              f"observe phases: K2 bytes {kb} against {pop}")
+        check(commit > 0 and rows["net_commit"]["bytes_accessed"] >= commit
+              and rows["deliver"]["bytes_accessed"] >= pop,
+              f"observe phases: K1 bytes {kb}, rows {rows}")
+        check(all(r["measured_reps"] == OBSERVE_MEASURE for r in rows.values()),
+              f"observe phases: measured {rows}")
+        timer = PhaseTimer()
+        _, t_wall, t_ticks, _ = run_timed(prog, 250, timer=timer)
+        count(read_launches(), "phase timer", t_ticks)
+        del prog, cal, occ
+        row["phases"] = {
+            "block": block, "ticks": ticks, "wall_s": wall,
+            "measured_ms": {p: r["measured_ms"] for p, r in rows.items()},
+            "phase_timer_ms": timer.per_tick_ms(), "phase_timer_ticks": t_ticks,
+            "phase_timer_wall_ms_per_tick": t_wall / t_ticks * 1e3,
+            "pop_bytes": pop, "commit_bytes": commit,
+        }
+        step("phases")
+
+        # the run's ops a tick with the ledger on and off (250 ticks each)
+        ops = {}
+        for on in (True, False):
+            job = exec_job(f"ops-{int(on)}", root, "network", "pingpong-sustained",
+                           100_000, SUSTAINED, chunk=125, max_ticks=250, telemetry=True,
+                           phases=on)
+            (out, _, _), n_ops = run_ops(job)
+            n_ticks = out.result.journal["telemetry"]["rows"]
+            count(read_launches(), f"ops phases={on}")
+            check(("phases" in out.result.journal["sim"]) == on,
+                  f"observe ops: sim.phases present {on}")
+            ops[on] = n_ops / n_ticks
+        check(ops[True] == ops[False], f"observe: ops a tick differ {ops}")
+        row["ops_per_tick"] = {"phases_on": ops[True], "phases_off": ops[False]}
+        step("ops")
+
+        # the probe under transport = "auto"
+        job = exec_job("probe", root, "network", "pingpong-sustained", 100_000, SUSTAINED,
+                       chunk=250, max_ticks=250, telemetry=True, transport="auto",
+                       transport_probe=OBSERVE_MEASURE)
+        out, _, _ = run_exec(job)
+        tr = out.result.journal["sim"]["transport"]
+        count(read_launches(), "probe")
+        check(tr["resolved"] == "cuda" and tr["scores"]["source"] == "measured"
+              and tr["scores"]["reps"] == OBSERVE_MEASURE
+              and tr["scores"].get("cuda_ms_per_tick", 0) > 0,
+              f"observe probe: {tr}")
+        row["probe"] = tr
+        step("probe")
+
+        # (b) the daemon alone, under a watcher and under top, in turns;
+        # the healthcheck's K2 check (one launch compared with the plain
+        # version, cached per card) made here, outside the counts
+        from testground_tpu_torch.sim.engine import resolve_device
+        from testground_tpu_torch.sim.runner import _kernel_check
+
+        # the key the runner's healthcheck looks it up by: its run device
+        check(_kernel_check(resolve_device(None))[0], "observe: the K2 check")
+        env = EnvConfig.load(home=cli_home(root, "daemon"))
+        env.daemon.scheduler.workers = 1
+        daemon = Daemon(env=env, listen="127.0.0.1:0")
+        daemon.start()
+        client = Client(daemon.address)
+        client_home = os.path.join(root, "client")
+        os.makedirs(client_home)
+        penv = {**os.environ, "PYTHONPATH": here, "TESTGROUND_HOME": client_home}
+        watch_log = os.path.join(root, "watch.log")
+        watcher = subprocess.Popen(
+            [sys.executable, "-c", WATCHER, daemon.address], cwd=here, env=penv,
+            stdin=subprocess.PIPE, stdout=open(watch_log, "w"),
+            stderr=subprocess.STDOUT, text=True)
+        procs = [watcher]
+        try:
+            path = daemon_composition(root, "sustained-100k", 100_000, SUSTAINED)
+            comp = load_composition(path).to_dict()
+            _wait_for(lambda: "@@ready" in _lines(watch_log), "the watcher to start")
+
+            def turn(way, k):
+                top = None
+                if way == "top":
+                    top_log = os.path.join(root, f"top-{k}.log")
+                    top = subprocess.Popen(
+                        [sys.executable, "-m", "testground_tpu_torch.cli", "--endpoint",
+                         daemon.address, "top", "--interval", "2"], cwd=here, env=penv,
+                        stdout=open(top_log, "w"), stderr=subprocess.STDOUT)
+                    procs.append(top)
+                    _wait_for(lambda: "workers" in "".join(_lines(top_log)),
+                              "top's first view")
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tid = client.run(comp)
+                if way == "watch":
+                    watcher.stdin.write(tid + "\n")
+                    watcher.stdin.flush()
+                t = _wait_done(client, tid, 300, poll_s=0.1)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                check(t["outcome"] == "success", f"observe {way}: {t['error']}")
+                j = t["result"]["journal"]
+                n_ticks = j["telemetry"]["rows"]
+                count(read_launches(), f"{way} turn", n_ticks)
+                got = {"task": tid, "ticks": n_ticks, "wall_s": wall,
+                       "wall_ms_per_tick": wall / n_ticks * 1e3,
+                       "run_ms_per_tick": j["sim"]["wall_secs"] / n_ticks * 1e3}
+                if way == "top":
+                    top.terminate()
+                    top.wait(timeout=30)
+                    got["views"] = "".join(_lines(top_log)).count("workers")
+                if way == "watch":
+                    _wait_for(lambda: sum(ln.startswith("@@done")
+                                          for ln in _lines(watch_log)) == k + 1,
+                              "the watcher's end")
+                return got
+
+            turns = {w: [] for w in OBSERVE_WAYS}
+            watched = 0
+            for i in range(OBSERVE_TURNS):
+                for way in OBSERVE_WAYS[i:] + OBSERVE_WAYS[:i]:
+                    turns[way].append(turn(way, watched if way == "watch" else i))
+                    watched += way == "watch"
+            watcher.stdin.close()
+            watcher.wait(timeout=60)
+            check(watcher.returncode == 0, f"observe: watcher exit {watcher.returncode}")
+
+            # the rows the watcher saw are the run directory's
+            seen, k = {}, 0
+            for ln in _lines(watch_log):
+                if ln.startswith("@@done"):
+                    check(ln == "@@done 0", f"observe: watch exit {ln}")
+                    k += 1
+                elif ln.startswith("{"):
+                    r = json.loads(ln)
+                    seen.setdefault(turns["watch"][k]["task"], []).append(r)
+            for w in turns["watch"]:
+                tid = w["task"]
+                rdir = os.path.join(env.dirs.outputs(), "network", tid)
+                n_rows = 0
+                for fam, fname in STREAM_FAMILIES:
+                    want = ([{"run": tid, **json.loads(ln)}
+                             for ln in _lines(os.path.join(rdir, fname))]
+                            if os.path.exists(os.path.join(rdir, fname)) else [])
+                    got = [{k2: v for k2, v in r.items() if k2 != "stream"}
+                           for r in seen.get(tid, []) if r["stream"] == fam]
+                    check(got == want, f"observe watch {tid} {fam}: {len(got)} rows "
+                          f"seen, {len(want)} in the run directory")
+                    n_rows += len(want)
+                w["rows_seen"] = n_rows
+            med = {w: statistics.median(t["run_ms_per_tick"] for t in turns[w])
+                   for w in OBSERVE_WAYS}
+            spread = {w: [min(t["run_ms_per_tick"] for t in turns[w]),
+                          max(t["run_ms_per_tick"] for t in turns[w])]
+                      for w in OBSERVE_WAYS}
+            row["pollers"] = {
+                "turns": turns, "median_run_ms_per_tick": med, "range": spread,
+                # a delta is resolved when the poller's turns all lie past
+                # the alone turns' range
+                "resolved": {w: (spread[w][0] > spread["alone"][1]
+                                 or spread[w][1] < spread["alone"][0])
+                             for w in ("watch", "top")},
+            }
+            step("pollers")
+
+            # (c) the verbs through --endpoint
+            obs = daemon_composition(root, "observed-100k", 100_000,
+                                     {**SUSTAINED, "duration_ticks": "250"},
+                                     cfg="netmatrix = true\nphases = true")
+            with open(obs, "a") as f:
+                f.write('\n[groups.run.trace]\ninstances = "0:64"\n')
+            reset_launches()
+            tid = client.run(load_composition(obs).to_dict())
+            t = _wait_done(client, tid, 300, poll_s=0.1)
+            check(t["outcome"] == "success", f"observe verbs run: {t['error']}")
+            count(read_launches(), "verbs run")
+            a, b = turns["alone"][0]["task"], turns["alone"][1]["task"]
+            cmp_file = os.path.join(root, "perf-b.json")
+            got = cli_call(client_home, ["--endpoint", daemon.address, "perf", b, "--json"])
+            check(got["rc"] == 0, f"observe perf --json: {got['err']}")
+            with open(cmp_file, "w") as f:
+                f.write(got["out"])
+            verbs = {
+                "stats": (["stats", tid], "messages"),
+                "perf --phases": (["perf", tid, "--phases"], "net_commit"),
+                "perf --compare": (["perf", a, "--compare", cmp_file], "peer·ticks/s"),
+                "netmap": (["netmap", tid], "conservation"),
+                "trace": (["trace", tid, "-n", "20"], "trace: "),
+                "status --telemetry": (["status", "-t", tid, "--telemetry"], "Telemetry:"),
+                "top": (["top", "--no-follow"], "workers"),
+                "diff": (["diff", a, b, "--json"], '"verdict"'),
+            }
+            verb_rows = {}
+            for name, (argv, want) in verbs.items():
+                torch.cuda.synchronize()
+                mem = torch.cuda.memory_allocated()
+                got = cli_call(client_home, ["--endpoint", daemon.address, *argv])
+                check(got["rc"] == 0 and want in got["out"],
+                      f"observe {name}: exit {got['rc']}: {got['out'][-800:]} "
+                      f"{got['err'][-800:]}")
+                check(torch.cuda.memory_allocated() == mem,
+                      f"observe {name}: device bytes allocated")
+                verb_rows[name] = {"ms": got["wall"] * 1e3,
+                                   "lines": len(got["out"].splitlines())}
+                if name == "diff":
+                    doc = json.loads(got["out"])
+                    for plane in ("counters", "latency"):
+                        check(doc[plane]["mismatched"] == 0,
+                              f"observe diff: {plane} {doc[plane]}")
+                    check(doc["setup"]["identical"] and not doc["findings"],
+                          f"observe diff: {doc['setup']} {doc['findings']}")
+                    verb_rows[name].update(verdict=doc["verdict"],
+                                           compared=doc["counters"]["compared"])
+            row["verbs"] = verb_rows
+            step("verbs")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+            daemon.stop()
+
+        # (d) one row of (a) in the port's bench bank
+        from testground_tpu_torch.analysis.bench_history import (
+            HISTORY_FILE,
+            bank_row,
+            env_fingerprint,
+        )
+
+        fp = env_fingerprint()
+        check(fp.get("device_kind") == card["name"] and "jax" not in fp,
+              f"observe bank: fingerprint {fp}")
+        os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
+        banked = bank_row(os.path.join(here, "chiprun_out", HISTORY_FILE), {
+            "workload": "cli@100k", "instances": 100_000, "transport": "cuda", "mesh": "",
+            # the ticks that ran over the run's wall: the perf ledger's
+            # steady rate counts whole chunks, and this run ends one tick
+            # into its third
+            "metric": "peer_ticks_per_sec", "value": 100_000 * ticks / sim["wall_secs"],
+            "ts": time.time(), "fingerprint": fp,
+            "phases_measured_ms": row["phases"]["measured_ms"],
+        })
+        print("bank fingerprint: " + json.dumps(banked["fingerprint"], sort_keys=True),
+              flush=True)
+        row["bank"] = {"file": f"chiprun_out/{HISTORY_FILE}", "row": banked}
+        step("bank")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3022,7 +3387,7 @@ def main(argv=None) -> int:
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
                    ("plans", phase_plans), ("executor", phase_executor),
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
-                   ("admit", phase_admit)):
+                   ("admit", phase_admit), ("observe", phase_observe)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -2,8 +2,12 @@
 ``testground_tpu/cli/commands.py`` (``pkg/cmd/{run,build,collect,terminate,
 healthcheck,tasks,status,logs,daemon}.go``) for the verbs the port serves:
 ``run composition|single``, ``build composition|single|purge``, ``tasks``,
-``status``, ``logs``, ``collect``, ``healthcheck``, ``terminate``,
-``daemon``, ``check`` and ``version``.
+``status`` (with ``--telemetry``), ``logs``, ``collect``, ``healthcheck``,
+``terminate``, ``daemon``, ``check``, ``version``, and the read side of the
+observability plane: ``stats``, ``perf`` (``--compare``, ``--phases``,
+``--measure``, ``--follow``), ``trace`` (``--lifecycle``), ``watch``,
+``netmap``, ``diff`` and ``top``. These read the task store, the result
+journals and the run outputs, and never touch the card.
 
 Every verb goes through an engine: a ``RemoteEngine`` over the daemon's
 HTTP API when ``--endpoint`` (or ``[client] endpoint``) names one, else an
@@ -14,15 +18,16 @@ run with ID"), and so does the ``--result-file`` CSV.
 
 The reference's flags and verbs that later ROADMAP queue 1 items port are
 refused naming the item: ``run resume`` and ``terminate --drain`` (item
-13), ``build --buckets`` (item 13), ``status --telemetry`` (item 9f), and
+13), ``build --buckets`` (item 13), ``plan`` and ``describe`` (item 9f-b),
 ``collect``'s default runner ``local:exec`` (item 16), ``check
---trace-plans`` (item 9g). A verb the port does not register (``stats``,
-``perf``, ``trace``, ``watch``, ``netmap``, ``diff``, ``top``, ``preempt``,
-``plan``, ``describe``) is refused by argparse.
+--trace-plans`` (item 9g). A verb the port does not register
+(``preempt``, ``sim-worker``, ``sync-service``, ``sync-stats``) is
+refused by argparse.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -42,8 +47,8 @@ from ..engine import Engine, Outcome, State
 from ..rpc import OutputWriter
 from ..utils.conv import parse_key_values
 
-ITEM_9F = ("ROADMAP queue 1 item 9f (the observability verbs and routes, the "
-           "dashboard and plan import)")
+ITEM_9F_B = ("ROADMAP queue 1 item 9f-b (the dashboard, the Prometheus "
+             "exposition, plan import and describe)")
 ITEM_13 = "ROADMAP queue 1 item 13 (buckets, packs, checkpoints and preemption)"
 ITEM_9G = ("ROADMAP queue 1 item 9g (layers 2 and 3 of tg check: plan tracing "
            "on the meta device and the lints of the tick)")
@@ -817,6 +822,815 @@ def tasks_cmd(args) -> int:
         engine.stop()
 
 
+def register_stats(sub) -> None:
+    p = sub.add_parser(
+        "stats",
+        help="show a completed task's sim telemetry summary "
+        "(message flow, latency, timings, memory — docs/OBSERVABILITY.md)",
+    )
+    p.add_argument("task", help="task id")
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw stats payload as JSON (machine-readable; the "
+        "same shape as GET /stats)",
+    )
+    p.add_argument(
+        "-f",
+        "--follow",
+        action="store_true",
+        help="follow the task live first (per-chunk telemetry + SLO "
+        "breaches via GET /stream, like `tg logs -f`), then print the "
+        "final summary table",
+    )
+    p.set_defaults(func=stats_cmd)
+
+
+def stats_cmd(args) -> int:
+    import json
+
+    from ..client import RemoteEngine
+    from ..runners.pretty import render_telemetry_summary
+
+    engine = _engine(args)
+    try:
+        if getattr(args, "follow", False):
+            # under --json the live view goes to stderr — stdout stays
+            # the machine-readable payload (the --json contract)
+            _follow_stream(
+                engine,
+                args.task,
+                families=("telemetry", "slo", "spans"),
+                out=sys.stderr if getattr(args, "json", False) else None,
+            )
+        if isinstance(engine, RemoteEngine):
+            data = engine.task_stats(args.task)
+        else:
+            t = engine.get_task(args.task)
+            if t is None:
+                raise KeyError(f"unknown task {args.task}")
+            data = t.stats_payload()
+        if getattr(args, "json", False):
+            print(json.dumps(data, indent=2, sort_keys=True))
+        else:
+            print(render_telemetry_summary(data))
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_perf(sub) -> None:
+    p = sub.add_parser(
+        "perf",
+        help="show a task's performance ledger (compile/execute split, "
+        "peer·ticks/s, HBM high-water mark, XLA cost estimates — "
+        "docs/OBSERVABILITY.md)",
+    )
+    p.add_argument("task", help="task id")
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw perf payload as JSON (machine-readable; the "
+        "same shape as GET /perf)",
+    )
+    p.add_argument(
+        "--compare",
+        default="",
+        metavar="FILE",
+        help="print throughput deltas against a baseline JSON file — a "
+        "BENCH_rNN.json line, a prior `tg perf --json` dump, or a "
+        "journal sim block (written to stderr under --json so stdout "
+        "stays parseable)",
+    )
+    p.add_argument(
+        "--phases",
+        action="store_true",
+        help="print the per-phase tick attribution table (flops/bytes "
+        "per phase + residual + whole-program rows; requires the run "
+        "to have recorded it — --run-cfg phases=true)",
+    )
+    p.add_argument(
+        "--measure",
+        action="store_true",
+        help="with --phases: insist on the measured ms/tick calibration "
+        "column (recorded with --run-cfg phases_measure=K) — prints a "
+        "hint when the run only holds the static cost rows",
+    )
+    p.add_argument(
+        "-f",
+        "--follow",
+        action="store_true",
+        help="follow the task live first (per-chunk throughput rows + "
+        "SLO breaches via GET /stream, like `tg logs -f`), then print "
+        "the final ledger table",
+    )
+    p.set_defaults(func=perf_cmd)
+
+
+def perf_cmd(args) -> int:
+    import json
+
+    from ..client import RemoteEngine
+    from ..runners.pretty import render_perf_summary
+    from ..sim.perf import perf_compare
+
+    engine = _engine(args)
+    try:
+        if getattr(args, "follow", False):
+            _follow_stream(
+                engine,
+                args.task,
+                families=("perf", "slo", "spans"),
+                out=sys.stderr if getattr(args, "json", False) else None,
+            )
+        if isinstance(engine, RemoteEngine):
+            data = engine.task_perf(args.task)
+        else:
+            t = engine.get_task(args.task)
+            if t is None:
+                raise KeyError(f"unknown task {args.task}")
+            data = t.perf_payload()
+        if getattr(args, "json", False):
+            print(json.dumps(data, indent=2, sort_keys=True))
+        else:
+            print(render_perf_summary(data))
+        if getattr(args, "phases", False):
+            from ..runners.pretty import render_phase_table
+
+            # with --json, stdout stays the parseable payload (the
+            # phases block is inside it) — the table goes to stderr
+            out = sys.stderr if getattr(args, "json", False) else sys.stdout
+            print("-- phases --", file=out)
+            print(render_phase_table(data), file=out)
+            if getattr(args, "measure", False):
+                # same block resolution as render_phase_table (top-level
+                # payload or journal sim shape) — the hint and the table
+                # must never disagree about the same payload
+                block = (
+                    data.get("phases")
+                    or (data.get("sim") or {}).get("phases")
+                    or {}
+                )
+                rows = block.get("phases") or []
+                if not any(
+                    isinstance(r, dict) and r.get("measured_ms") is not None
+                    for r in rows
+                ):
+                    print(
+                        "no measured calibration recorded — re-run with "
+                        "--run-cfg phases=true phases_measure=30 for "
+                        "measured ms/tick per phase",
+                        file=out,
+                    )
+        if getattr(args, "compare", ""):
+            with open(args.compare) as f:
+                # BENCH_rNN.json files are one JSON object per line
+                # (possibly with comment noise) — take the LAST line
+                # that parses (the newest round, matching the bench
+                # tail unwrapping in sim/perf.py); a whole-file JSON
+                # document also parses
+                text = f.read()
+            try:
+                baseline = json.loads(text)
+            except ValueError:
+                baseline = None
+                for line in reversed(text.splitlines()):
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        baseline = json.loads(line)
+                        break
+                    except ValueError:
+                        continue
+                if baseline is None:
+                    raise ValueError(
+                        f"{args.compare} holds no parseable JSON"
+                    ) from None
+            # with --json, stdout is the machine-readable payload — the
+            # human-facing delta lines go to stderr so `| jq` keeps working
+            out = sys.stderr if getattr(args, "json", False) else sys.stdout
+            label = os.path.basename(args.compare)
+            print(f"-- vs {label} --", file=out)
+            for line in perf_compare(data, baseline, label=label):
+                print(line, file=out)
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_trace(sub) -> None:
+    p = sub.add_parser(
+        "trace",
+        help="show a task's flight-recorder events (per-instance "
+        "message-lifecycle timeline — docs/OBSERVABILITY.md); enable "
+        "recording with [global.run.trace] / [groups.run.trace]",
+    )
+    p.add_argument("task", help="task id")
+    p.add_argument(
+        "-n",
+        "--limit",
+        type=int,
+        default=0,
+        help="print at most N events (default: all)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw events as JSON lines (the sim_trace.jsonl "
+        "rows) instead of the aligned timeline",
+    )
+    p.add_argument(
+        "--lifecycle",
+        action="store_true",
+        help="render the task's causal lifecycle span tree "
+        "(task_spans.jsonl: submit → queued → claim → execute → run "
+        "spans) instead of the flight-recorder timeline; the sibling "
+        "task_trace.json opens in Perfetto",
+    )
+    p.set_defaults(func=trace_cmd)
+
+
+def _render_trace_event(ev: dict) -> str:
+    kind = ev.get("event", "?")
+    who = f"{ev.get('group', '?')}/i{ev.get('instance', '?')}"
+    if kind == "status":
+        what = f"status {ev.get('prev', '?')} → {ev.get('status', '?')}"
+    elif kind == "signal":
+        what = f"signal state {ev.get('state', '?')}"
+    elif kind == "send":
+        what = f"send → i{ev.get('dst', '?')} ({ev.get('fate', '?')})"
+    elif kind == "deliver":
+        what = f"deliver ← i{ev.get('src', '?')}"
+    else:
+        what = kind
+    return f"t={ev.get('tick', '?'):>6}  {who:<16}  {what}"
+
+
+def trace_cmd(args) -> int:
+    import json
+
+    from ..client import RemoteEngine
+
+    engine = _engine(args)
+    try:
+        if getattr(args, "lifecycle", False):
+            return _trace_lifecycle(engine, args)
+        if isinstance(engine, RemoteEngine):
+            data = engine.task_trace(args.task, limit=args.limit)
+            summary, events = data.get("trace", {}), data.get("events", [])
+        else:
+            t = engine.get_task(args.task)
+            if t is None:
+                raise KeyError(f"unknown task {args.task}")
+            from ..sim.trace import read_trace_events
+
+            journal = (
+                t.result.get("journal", {})
+                if isinstance(t.result, dict)
+                else {}
+            )
+            summary = journal.get("trace", {})
+            events = read_trace_events(
+                engine.env.dirs.outputs(), t.plan, t.id, limit=args.limit
+            )
+        if not summary and not events:
+            # same message AND exit code with or without --json — a CI
+            # pipe must not read an empty stream as a recorded trace
+            print(
+                f"no flight-recorder trace for task {args.task} — enable "
+                "it with [global.run.trace] in the composition "
+                "(docs/OBSERVABILITY.md)",
+                file=sys.stderr,
+            )
+            return 1
+        if isinstance(engine, RemoteEngine) and data.get("truncated"):
+            print(
+                f"warning: daemon capped the response at "
+                f"{data.get('limit')} events — fetch the full stream "
+                "via GET /artifact?name=sim_trace.jsonl",
+                file=sys.stderr,
+            )
+        if getattr(args, "json", False):
+            for ev in events:
+                print(json.dumps(ev))
+            return 0
+        print(
+            "trace: {e} event(s) from {i} instance(s)".format(
+                e=summary.get("events", len(events)),
+                i=summary.get("instances", "?"),
+            )
+            + (
+                f" — {summary['events_file']} loads in Perfetto"
+                if summary.get("events_file")
+                else ""
+            )
+        )
+        for ev in events:
+            print(_render_trace_event(ev))
+        return 0
+    finally:
+        engine.stop()
+
+
+def _trace_lifecycle(engine, args) -> int:
+    """``tg trace <task> --lifecycle``: load the archived lifecycle span
+    tree (task_spans.jsonl — engine/tracetree.py) and render it as an
+    indented tree; --json dumps the raw span rows. Works identically
+    in-process (outputs dir) and remote (GET /artifact)."""
+    import json
+
+    from ..client import RemoteEngine
+    from ..engine.tracetree import (
+        TASK_SPANS_FILE,
+        load_task_spans,
+    )
+    from ..runners.pretty import render_lifecycle_tree
+
+    if isinstance(engine, RemoteEngine):
+        try:
+            raw = engine.task_artifact(args.task, TASK_SPANS_FILE)
+        except Exception as e:  # noqa: BLE001 — 404 → readable hint below
+            raw = b""
+            reason = f" ({e})"
+        else:
+            reason = ""
+        spans = []
+        for line in raw.decode(errors="replace").splitlines():
+            try:
+                spans.append(json.loads(line))
+            except ValueError:
+                continue
+    else:
+        t = engine.get_task(args.task)
+        if t is None:
+            raise KeyError(f"unknown task {args.task}")
+        reason = ""
+        spans = load_task_spans(
+            os.path.join(
+                engine.env.dirs.outputs(), t.plan, t.id, TASK_SPANS_FILE
+            )
+        )
+    if not spans:
+        # same message AND exit code with or without --json, like the
+        # flight-recorder branch above
+        print(
+            f"no lifecycle trace for task {args.task}{reason} — the span "
+            "tree is assembled when the task archives "
+            "(docs/OBSERVABILITY.md 'Control plane')",
+            file=sys.stderr,
+        )
+        return 1
+    if getattr(args, "json", False):
+        for s in spans:
+            print(json.dumps(s))
+        return 0
+    print(render_lifecycle_tree(spans))
+    return 0
+
+
+# ------------------------------------------------------------------ watch
+
+
+def _breach_line(row: dict, color: bool) -> str:
+    """One highlighted SLO-breach line (the run health plane's live
+    surface — docs/OBSERVABILITY.md "Run health plane")."""
+    sev = row.get("severity", "warn")
+    text = (
+        f"!! SLO breach ({sev}) {row.get('rule', '?')}: "
+        f"{row.get('metric', '?')} = {row.get('observed', '?')} "
+        f"violates {row.get('op', '?')} {row.get('threshold', '?')} "
+        f"at tick {row.get('tick', '?')}"
+    )
+    if color:
+        code = "\033[31;1m" if sev == "fail" else "\033[33m"
+        return f"{code}{text}\033[0m"
+    return text
+
+
+def _follow_stream(engine, task_id: str, families, out=None, follow=True) -> None:
+    """Follow a task's observability stream and render one line per
+    chunk (plus immediate SLO-breach lines) until the task finishes —
+    the shared live view behind ``tg watch``, ``tg stats -f`` and
+    ``tg perf -f``. ``families`` must include ``spans`` for the chunk
+    clock unless ``perf`` rows (one per chunk) are streamed; with
+    ``follow=False`` (``tg watch --no-follow``) one replay sweep of
+    what exists is rendered instead of waiting for the task."""
+    from ..sim.netmatrix import NM_MSG_BYTES
+    from ..sim.perf import fmt_rate, num
+
+    out = out or sys.stdout
+    color = hasattr(out, "isatty") and out.isatty()
+    use_spans_clock = "spans" in families
+    header = (
+        f"{'tick':>8}  {'wall':>8}  {'ticks/s':>9}  {'peer·t/s':>9}"
+        f"  {'delivered':>9}  {'dropped':>8}  {'in-flight':>9}"
+        f"  {'infl-KiB':>8}  breaches"
+    )
+    printed_header = False
+    # telemetry deltas accumulated since the last chunk line
+    acc = {"delivered": 0, "dropped": 0, "fault_dropped": 0}
+    last_tele: dict = {}
+    last_perf: dict = {}
+    breaches = 0
+
+    def chunk_line(tick, wall) -> str:
+        d = acc["delivered"]
+        x = acc["dropped"] + acc["fault_dropped"]
+        acc.update(delivered=0, dropped=0, fault_dropped=0)
+        # in-flight wire bytes: calendar occupancy × the fixed message
+        # size (the traffic matrix's bytes accounting) — "?" when the
+        # telemetry row has no finite depth yet
+        depth = num(last_tele.get("cal_depth"))
+        infl = f"{depth * NM_MSG_BYTES / 1024:.1f}" if depth is not None else "?"
+        return (
+            f"{tick:>8}  {wall:>8.2f}  "
+            f"{fmt_rate(last_perf.get('ticks_per_sec')):>9}  "
+            f"{fmt_rate(last_perf.get('peer_ticks_per_sec')):>9}  "
+            f"{d:>9}  {x:>8}  "
+            f"{last_tele.get('cal_depth', '?'):>9}  {infl:>8}  {breaches}"
+        )
+
+    for row in engine.stream_rows(
+        task_id, follow=follow, families=families
+    ):
+        if not row:
+            continue  # heartbeat / blank keepalive
+        fam = row.get("stream")
+        if fam == "telemetry":
+            for k in acc:
+                acc[k] += int(row.get(k, 0) or 0)
+            last_tele = row
+        elif fam == "perf":
+            last_perf = row
+            if not use_spans_clock:  # perf rows ARE the chunk clock
+                if not printed_header:
+                    printed_header = True
+                    print(header, file=out)
+                print(
+                    chunk_line(
+                        row.get("tick", "?"), row.get("wall_secs", 0.0)
+                    ),
+                    file=out,
+                )
+        elif fam == "slo":
+            breaches += 1
+            print(_breach_line(row, color), file=out)
+        elif fam == "spans":
+            ev = row.get("event") or {}
+            span, typ = ev.get("span"), ev.get("type")
+            if typ == "point" and span == "chunk" and use_spans_clock:
+                if not printed_header:
+                    printed_header = True
+                    print(header, file=out)
+                print(
+                    chunk_line(
+                        ev.get("ticks", "?"), ev.get("wall_secs", 0.0)
+                    ),
+                    file=out,
+                )
+            elif typ == "span_start" and span == "run":
+                run = row.get("run", "")
+                tag = f" [{run}]" if run and run != task_id else ""
+                print(f"-- run started{tag} --", file=out)
+            elif typ == "span_end" and span == "run":
+                print(
+                    "-- run finished: outcome "
+                    f"{ev.get('outcome', ev.get('error', '?'))} --",
+                    file=out,
+                )
+        try:
+            out.flush()
+        except OSError:
+            pass
+
+
+def register_watch(sub) -> None:
+    p = sub.add_parser(
+        "watch",
+        help="live one-row-per-chunk view of a task (telemetry deltas, "
+        "throughput, SLO-breach highlighting), across the queued→"
+        "running→done lifecycle — docs/OBSERVABILITY.md 'Run health "
+        "plane'",
+    )
+    p.add_argument("task", help="task id")
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw ndjson rows (the GET /stream payload) "
+        "instead of the rendered view",
+    )
+    p.add_argument(
+        "--no-follow",
+        action="store_true",
+        help="replay what exists and exit instead of waiting for the "
+        "task to finish",
+    )
+    p.set_defaults(func=watch_cmd)
+
+
+def watch_cmd(args) -> int:
+    import json
+
+    engine = _engine(args)
+    try:
+        follow = not getattr(args, "no_follow", False)
+        if getattr(args, "json", False):
+            for row in engine.stream_rows(args.task, follow=follow):
+                print(json.dumps(row))
+                sys.stdout.flush()
+        else:
+            if follow:
+                print(f"watching task {args.task} (ctrl-c to stop)")
+            _follow_stream(
+                engine,
+                args.task,
+                families=("telemetry", "perf", "slo", "spans"),
+                follow=follow,
+            )
+            if follow:
+                t = engine.get_task(args.task)
+                if t is not None:
+                    print(
+                        f"task {args.task}: outcome {t.outcome().value}"
+                    )
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_netmap(sub) -> None:
+    p = sub.add_parser(
+        "netmap",
+        help="show a task's group-to-group traffic matrix (sent heatmap, "
+        "lossy pairs, link-shaping observables) and recommend a "
+        "cross-traffic-minimizing group partition with --cut — "
+        "docs/OBSERVABILITY.md 'Traffic matrix'; record with "
+        "--run-cfg telemetry=true netmatrix=true",
+    )
+    p.add_argument("task", help="task id")
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw sim.net_matrix journal block as JSON "
+        "(machine-readable; the same shape as in GET /stats)",
+    )
+    p.add_argument(
+        "-f",
+        "--follow",
+        action="store_true",
+        help="follow the per-chunk matrix deltas live first (the "
+        "netmatrix family of GET /stream), then print the final "
+        "heatmap",
+    )
+    p.add_argument(
+        "--cut",
+        type=int,
+        default=0,
+        metavar="N",
+        help="recommend a balanced N-shard group partition minimizing "
+        "cross-cut traffic bytes (measured, not guessed — the "
+        "instance-axis → mesh-axis placement advisor)",
+    )
+    p.set_defaults(func=netmap_cmd)
+
+
+def netmap_cmd(args) -> int:
+    import json
+
+    from ..client import RemoteEngine
+    from ..runners.pretty import (
+        render_netmap,
+        render_netmap_cut,
+    )
+
+    engine = _engine(args)
+    try:
+        as_json = bool(getattr(args, "json", False))
+        # under --json every human-facing line goes to stderr — stdout
+        # stays the machine-readable payload (the --json contract)
+        hout = sys.stderr if as_json else sys.stdout
+        if getattr(args, "follow", False):
+            print(
+                f"following task {args.task} traffic deltas "
+                "(ctrl-c to stop)",
+                file=hout,
+            )
+            for row in engine.stream_rows(
+                args.task, follow=True, families=("netmatrix",)
+            ):
+                if not row or row.get("stream") != "netmatrix":
+                    continue
+                cells = row.get("cells") or []
+                sent = sum(
+                    int(c[2]) for c in cells if len(c) > 2
+                )
+                lost = sum(
+                    int(c[5]) + int(c[6]) + int(c[7])
+                    for c in cells
+                    if len(c) > 7
+                )
+                line = (
+                    f"tick {row.get('tick', '?'):>8}  "
+                    f"{len(cells)} active pair(s)  sent {sent}"
+                )
+                if lost:
+                    line += f"  LOST {lost}"
+                print(line, file=hout)
+                try:
+                    hout.flush()
+                except OSError:
+                    pass
+        if isinstance(engine, RemoteEngine):
+            data = engine.task_stats(args.task)
+        else:
+            t = engine.get_task(args.task)
+            if t is None:
+                raise KeyError(f"unknown task {args.task}")
+            data = t.stats_payload()
+        block = (data.get("sim") or {}).get("net_matrix") or {}
+        if as_json:
+            print(json.dumps(block, indent=2, sort_keys=True))
+        if not block:
+            print(
+                "no traffic matrix recorded for this task — run with "
+                "--run-cfg telemetry=true netmatrix=true (cohorts and "
+                "disable_metrics run matrix-free)",
+                file=hout,
+            )
+            return 1
+        if not as_json:
+            ident = (
+                f"{data.get('plan', '?')}:{data.get('case', '?')}"
+                f"  ({args.task})"
+            )
+            print(render_netmap(block, ident))
+        if getattr(args, "cut", 0):
+            import numpy as np
+
+            from ..sim.netmatrix import (
+                cut_advisor,
+                matrix_bytes,
+            )
+
+            mat = np.asarray(block.get("matrix") or [], np.int64)
+            rec = cut_advisor(
+                matrix_bytes(mat),
+                int(args.cut),
+                labels=block.get("labels") or None,
+            )
+            print("", file=hout)
+            print(render_netmap_cut(rec, int(args.cut)), file=hout)
+        return 0
+    finally:
+        engine.stop()
+
+
+def register_diff(sub) -> None:
+    p = sub.add_parser(
+        "diff",
+        help="differential run analysis of two tasks: deterministic "
+        "counters compared exactly (a mismatch between identically-"
+        "seeded runs is a correctness finding), throughput judged "
+        "from per-chunk samples with noise-robust statistics "
+        "(median ratio + Mann-Whitney U) — docs/OBSERVABILITY.md "
+        "'Run diff'. Exit 1 on correctness findings.",
+    )
+    p.add_argument("task_a", help="baseline task id (A)")
+    p.add_argument("task_b", help="candidate task id (B)")
+    p.add_argument(
+        "--planes",
+        default="",
+        metavar="P1,P2",
+        help="comma-separated plane subset "
+        "(counters,perf,latency,phases,slo,netmatrix; default all)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the full RunDiff document as JSON (machine-readable; "
+        "the same shape as GET /diff)",
+    )
+    p.set_defaults(func=diff_cmd)
+
+
+def diff_cmd(args) -> int:
+    import json
+
+    from ..analysis.diff import validate_planes
+    from ..runners.pretty import render_run_diff
+
+    # validate the plane selection client-side so an unknown plane is
+    # the same usage error (exit 2) in-process and remote — a daemon
+    # 400 would otherwise surface as a generic DaemonError (exit 1)
+    try:
+        validate_planes(args.planes or None)
+    except ValueError as e:
+        print(f"tg diff: {e}", file=sys.stderr)
+        return 2
+    engine = _engine(args)
+    try:
+        # in-process and remote engines expose the same diff_tasks verb
+        # (the document is always built by Engine.diff_tasks — ONE
+        # comparison codepath, daemon-side when remote)
+        try:
+            doc = engine.diff_tasks(
+                args.task_a, args.task_b, planes=args.planes or None
+            )
+        except ValueError as e:  # unknown plane — usage error
+            print(f"tg diff: {e}", file=sys.stderr)
+            return 2
+        if getattr(args, "json", False):
+            print(json.dumps(doc, indent=2, sort_keys=True))
+        else:
+            print(render_run_diff(doc))
+        # correctness findings gate (exit 1); perf verdicts inform but
+        # never fail `tg diff` itself — the bench sentinel gates perf
+        return 1 if doc.get("findings") else 0
+    finally:
+        engine.stop()
+
+
+def register_top(sub) -> None:
+    p = sub.add_parser(
+        "top",
+        help="live fleet view: worker occupancy, queue depth, per-state "
+        "task counts over the FULL store, and one row per queued/"
+        "running task (GET /fleet — docs/OBSERVABILITY.md 'Control "
+        "plane')",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw fleet payload as ndjson (one object per "
+        "refresh) instead of the rendered view",
+    )
+    p.add_argument(
+        "--no-follow",
+        action="store_true",
+        help="print one snapshot and exit instead of refreshing",
+    )
+    p.add_argument(
+        "-i",
+        "--interval",
+        type=float,
+        default=2.0,
+        help="refresh interval in seconds (default: 2)",
+    )
+    p.set_defaults(func=top_cmd)
+
+
+def top_cmd(args) -> int:
+    import json
+
+    from ..runners.pretty import render_fleet
+
+    engine = _engine(args)
+    try:
+        follow = not getattr(args, "no_follow", False)
+        interval = max(0.1, getattr(args, "interval", 2.0))
+        clear = follow and sys.stdout.isatty() and not args.json
+        while True:
+            payload = engine.fleet_payload()
+            if getattr(args, "json", False):
+                print(json.dumps(payload, sort_keys=True))
+            else:
+                if clear:
+                    # home + clear-to-end, not full clear: no flicker
+                    sys.stdout.write("\033[H\033[J")
+                print(render_fleet(payload))
+            sys.stdout.flush()
+            if not follow:
+                return 0
+            time.sleep(interval)
+    finally:
+        engine.stop()
+
+
+def register_plan(sub) -> None:
+    p = sub.add_parser(
+        "plan", help=f"import, list, create or remove test plans (refused: {ITEM_9F_B})"
+    )
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+    p.set_defaults(func=plan_cmd)
+
+
+def plan_cmd(args) -> int:
+    raise NotImplementedError(f"tg plan is not ported yet: {ITEM_9F_B}")
+
+
+def register_describe(sub) -> None:
+    p = sub.add_parser(
+        "describe", help=f"describe a test plan (refused: {ITEM_9F_B})"
+    )
+    p.add_argument("rest", nargs=argparse.REMAINDER)
+    p.set_defaults(func=describe_cmd)
+
+
+def describe_cmd(args) -> int:
+    raise NotImplementedError(f"tg describe is not ported yet: {ITEM_9F_B}")
+
+
 def register_status(sub) -> None:
     p = sub.add_parser("status", help="get task status")
     p.add_argument("-t", "--task", required=True, help="task id")
@@ -824,17 +1638,12 @@ def register_status(sub) -> None:
     p.add_argument(
         "--telemetry",
         action="store_true",
-        help=f"also render the sim telemetry summary table (refused: {ITEM_9F})",
+        help="also render the sim telemetry summary table",
     )
     p.set_defaults(func=status_cmd)
 
 
 def status_cmd(args) -> int:
-    if getattr(args, "telemetry", False):
-        raise NotImplementedError(
-            f"status --telemetry renders the telemetry summary, which is not "
-            f"ported yet: {ITEM_9F}"
-        )
     engine = _engine(args)
     try:
         t = engine.get_task(args.task)
@@ -871,6 +1680,12 @@ def status_cmd(args) -> int:
                             f"min={agg['min']:.3f} max={agg['max']:.3f} "
                             f"n={agg['count']}"
                         )
+        if getattr(args, "telemetry", False):
+            from ..runners.pretty import render_telemetry_summary
+
+            print("Telemetry:")
+            summary = render_telemetry_summary(t.stats_payload())
+            print("\n".join(f"  {line}" for line in summary.splitlines()))
         if args.extended:
             import json
 

@@ -1,18 +1,20 @@
 """The port's ``tg`` CLI entry point — the reference's
 ``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
 ``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``daemon``, ``check`` and ``version``. The engine runs
-in-process unless ``--endpoint`` points at a daemon (the reference's client↔daemon
-hop is transport, not semantics); either way a run goes through the task
-queue, a worker and the ``sim:torch`` runner:
+``terminate``, ``daemon``, ``check``, ``version``, and the observability
+verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
+``top``. The engine runs in-process unless ``--endpoint`` points at a
+daemon (the reference's client↔daemon hop is transport, not semantics);
+either way a run goes through the task queue, a worker and the
+``sim:torch`` runner:
 
     python -m testground_tpu_torch.cli run composition -f X.toml
     python -m testground_tpu_torch.cli daemon --listen 127.0.0.1:8042
     python -m testground_tpu_torch.cli --endpoint 127.0.0.1:8042 run ...
     python -m testground_tpu_torch.cli check X.toml [--json]
 
-The observability verbs come with ROADMAP queue 1 item 9f, ``preempt``
-with item 13; ``plan`` and ``describe`` with item 9f.
+``plan`` and ``describe`` are refused naming ROADMAP queue 1 item 9f-b;
+``preempt`` comes with item 13.
 """
 
 from __future__ import annotations
@@ -46,6 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
     commands.register_build(sub)
     commands.register_tasks(sub)
     commands.register_status(sub)
+    commands.register_stats(sub)
+    commands.register_perf(sub)
+    commands.register_trace(sub)
+    commands.register_watch(sub)
+    commands.register_netmap(sub)
+    commands.register_diff(sub)
+    commands.register_top(sub)
+    commands.register_plan(sub)
+    commands.register_describe(sub)
     commands.register_logs(sub)
     commands.register_collect(sub)
     commands.register_healthcheck(sub)

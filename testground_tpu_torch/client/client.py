@@ -1,9 +1,8 @@
 """HTTP client for the daemon — the port's copy of the reference's
 ``testground_tpu/client/client.py`` (``pkg/client/client.go``), for the
 routes the port's daemon serves: the methods of the routes that come with
-ROADMAP queue 1 item 9f (``stats``, ``perf``, ``diff``, ``metrics``,
-``fleet``, ``artifact``, ``trace``, ``stream``, ``import_plan``) and item
-13 (``preempt``, ``drain``) are left out.
+ROADMAP queue 1 item 9f-b (``metrics``, ``import_plan``) and item 13
+(``preempt``, ``drain``) are left out.
 
 Two layers:
 
@@ -211,6 +210,35 @@ class Client:
     def status(self, task_id: str) -> dict:
         return self._post_json("/status", {"task_id": task_id})["task"]
 
+    def stats(self, task_id: str) -> dict:
+        """GET /stats — a task's sim telemetry summary (the ``tg stats``
+        backend): identity + the journal's sim/telemetry/events sections."""
+        return self._get_json("/stats", {"task_id": task_id})
+
+    def perf(self, task_id: str) -> dict:
+        """GET /perf — a task's performance-ledger payload (the ``tg
+        perf`` backend): identity + the journal's sim block + the
+        sim.perf ledger + task-level queue/runner timings."""
+        return self._get_json("/perf", {"task_id": task_id})
+
+    def diff(self, a: str, b: str, planes=None) -> dict:
+        """GET /diff — the differential run analysis of two tasks (the
+        ``tg diff`` backend; docs/OBSERVABILITY.md "Run diff"): exact
+        counter comparison + noise-aware throughput verdicts, built
+        daemon-side so archived tasks diff over HTTP."""
+        params = {"a": a, "b": b}
+        if planes:
+            params["planes"] = (
+                planes if isinstance(planes, str) else ",".join(planes)
+            )
+        return self._get_json("/diff", params)
+
+    def fleet(self) -> dict:
+        """GET /fleet — the daemon's live fleet snapshot (the ``tg top``
+        backend): per-state counts over the FULL task store, queue
+        depth by priority, worker occupancy, and live task rows."""
+        return self._get_json("/fleet", {})
+
     def events(self, since: int = 0, follow: bool = False) -> Iterator[dict]:
         """GET /events — tail the daemon's control-plane event journal
         (``daemon_events.jsonl``) as ndjson dicts. One-shot by default
@@ -221,6 +249,62 @@ class Client:
             line = line.strip()
             if not line:
                 continue  # follow-mode heartbeat
+            try:
+                yield json.loads(line)
+            except ValueError:
+                continue  # tolerant-reader rule: skip foreign noise
+
+    def artifact(self, task_id: str, name: str, run: str = "") -> bytes:
+        """GET /artifact — fetch one whitelisted run-outputs file (e.g.
+        ``task_spans.jsonl`` for ``tg trace --lifecycle`` against a
+        remote daemon) as raw bytes."""
+        from urllib.parse import urlencode
+
+        params = {"task_id": task_id, "name": name}
+        if run:
+            params["run"] = run
+        conn = self._conn()
+        conn.request(
+            "GET", f"/artifact?{urlencode(params)}", headers=self._headers()
+        )
+        resp = conn.getresponse()
+        try:
+            data = resp.read()
+            if resp.status >= 400:
+                try:
+                    msg = json.loads(data).get("error")
+                except Exception:  # noqa: BLE001
+                    msg = data.decode(errors="replace")[:500]
+                raise DaemonError(msg or f"HTTP {resp.status}")
+            return data
+        finally:
+            conn.close()
+
+    def trace(self, task_id: str, limit: int = 0) -> dict:
+        """GET /trace — a task's flight-recorder events (the ``tg trace``
+        backend): the journal's trace summary plus the recorded
+        ``sim_trace.jsonl`` events (``limit`` > 0 truncates)."""
+        params = {"task_id": task_id}
+        if limit:
+            params["limit"] = str(limit)
+        return self._get_json("/trace", params)
+
+    def stream(
+        self, task_id: str, follow: bool = True, families=None
+    ) -> Iterator[dict]:
+        """GET /stream — follow a task's live observability rows
+        (telemetry / perf / SLO breaches / run spans) as ndjson: the
+        ``tg watch`` backend (docs/OBSERVABILITY.md "Run health
+        plane"). Yields one dict per row; the stream closes when the
+        task finishes (an already-finished task replays its history,
+        then closes)."""
+        params: dict = {"task_id": task_id, "follow": "1" if follow else "0"}
+        if families:
+            params["families"] = ",".join(families)
+        for line in self._get_stream("/stream", params):
+            line = line.strip()
+            if not line:
+                continue
             try:
                 yield json.loads(line)
             except ValueError:
@@ -317,9 +401,53 @@ class RemoteEngine:
         except DaemonError:
             return None
 
+    def task_stats(self, task_id: str) -> dict:
+        """One round trip to the daemon's /stats route (the remote half
+        of ``tg stats``; in-process engines assemble the same payload
+        via Task.stats_payload)."""
+        return self.client.stats(task_id)
+
+    def task_perf(self, task_id: str) -> dict:
+        """One round trip to the daemon's /perf route (the remote half
+        of ``tg perf``; in-process engines assemble the same payload
+        via Task.perf_payload)."""
+        return self.client.perf(task_id)
+
+    def task_trace(self, task_id: str, limit: int = 0) -> dict:
+        """One round trip to the daemon's /trace route (the remote half
+        of ``tg trace``; in-process engines read the run outputs via
+        sim.trace.read_trace_events)."""
+        return self.client.trace(task_id, limit=limit)
+
+    def diff_tasks(self, a: str, b: str, planes=None) -> dict:
+        """One round trip to the daemon's /diff route, named like
+        Engine.diff_tasks so ``tg diff`` works identically in-process
+        and remote (the document is built daemon-side by the same
+        engine method)."""
+        return self.client.diff(a, b, planes=planes)
+
+    def fleet_payload(self) -> dict:
+        """The daemon's /fleet route, shaped like Engine.fleet_payload
+        so ``tg top`` works identically in-process and remote."""
+        return self.client.fleet()
+
     def event_rows(self, since: int = 0, follow: bool = False):
         """The daemon's /events route (control-plane journal tail)."""
         return self.client.events(since=since, follow=follow)
+
+    def task_artifact(self, task_id: str, name: str, run: str = "") -> bytes:
+        """One whitelisted run-outputs file as raw bytes (the remote
+        half of ``tg trace --lifecycle``; in-process engines read the
+        outputs dir directly)."""
+        return self.client.artifact(task_id, name, run=run)
+
+    def stream_rows(
+        self, task_id: str, follow: bool = True, cancel=None, families=None
+    ) -> Iterator[dict]:
+        """The daemon's /stream route, shaped like Engine.stream_rows so
+        ``tg watch`` / ``-f`` followers work identically in-process and
+        remote."""
+        return self.client.stream(task_id, follow=follow, families=families)
 
     def tasks(
         self, states=None, types=None, before=None, after=None, limit=0, **_

@@ -32,7 +32,7 @@ RUNNER_DISABLED_FLAG = "disabled"
 
 
 # Only the settings the port reads are kept: the reference's
-# ``metrics_task_limit`` comes with GET /metrics (ROADMAP queue 1 item 9f).
+# ``metrics_task_limit`` comes with GET /metrics (ROADMAP queue 1 item 9f-b).
 # Other keys are ignored.
 
 

@@ -8,15 +8,19 @@ auth (``daemon.go:49-70``) and these of its routes:
     POST /run /build /tasks /status /logs /outputs /terminate
          /healthcheck /kill /delete /build/purge
     GET  /tasks /logs /outputs /kill /delete /describe /events
+         /journal /stats /perf /diff /stream /trace /artifact /fleet
 
 ``/kill`` and ``/delete`` mutate on GET exactly like the reference's
-(``daemon.go:87-88``). The routes that come with later ROADMAP queue 1
-items answer 501 naming the item, so that a reference client gets a clear
-error instead of a 404: the dashboard tier and the observability routes
-(``/``, ``/journal``, ``/stats``, ``/perf``, ``/diff``, ``/stream``,
-``/trace``, ``/artifact``, ``/data``, ``/dashboard``, ``/metrics``,
-``/fleet``) and ``/plan/import`` with item 9f, ``/preempt`` and ``/drain``
-with item 13.
+(``daemon.go:87-88``). The read side of the observability verbs answers
+as the reference's: a task's journal, its stats and perf payloads
+(``Task.stats_payload``/``perf_payload``), the RunDiff of two tasks
+(``Engine.diff_tasks``), the ndjson stream of its run rows
+(``Engine.stream_rows``), its flight-recorder events, one whitelisted run
+artifact, and the fleet view (``Engine.fleet_payload``). The routes that
+come with later ROADMAP queue 1 items answer 501 naming the item, so that
+a reference client gets a clear error instead of a 404: the dashboard
+tier (``/``, ``/dashboard``, ``/data``), ``/metrics`` and ``/plan/import``
+with item 9f-b, ``/preempt`` and ``/drain`` with item 13.
 
 Transport notes (as the reference's):
 
@@ -58,25 +62,17 @@ from ..rpc import OutputWriter
 
 __all__ = ["Daemon", "NOT_PORTED_ROUTES", "serve"]
 
-_ITEM_9F = ("ROADMAP queue 1 item 9f (the observability verbs and routes, "
-            "the dashboard and plan import)")
+_ITEM_9F_B = ("ROADMAP queue 1 item 9f-b (the dashboard, the Prometheus "
+              "exposition and plan import)")
 _ITEM_13 = "ROADMAP queue 1 item 13 (preemption, drain and run packs)"
 
 # the reference's routes that later items port: route -> the item
 NOT_PORTED_ROUTES = {
-    "/": _ITEM_9F,
-    "/journal": _ITEM_9F,
-    "/stats": _ITEM_9F,
-    "/perf": _ITEM_9F,
-    "/diff": _ITEM_9F,
-    "/stream": _ITEM_9F,
-    "/trace": _ITEM_9F,
-    "/artifact": _ITEM_9F,
-    "/data": _ITEM_9F,
-    "/dashboard": _ITEM_9F,
-    "/metrics": _ITEM_9F,
-    "/fleet": _ITEM_9F,
-    "/plan/import": _ITEM_9F,
+    "/": _ITEM_9F_B,
+    "/data": _ITEM_9F_B,
+    "/dashboard": _ITEM_9F_B,
+    "/metrics": _ITEM_9F_B,
+    "/plan/import": _ITEM_9F_B,
     "/preempt": _ITEM_13,
     "/drain": _ITEM_13,
 }
@@ -159,6 +155,13 @@ class _Handler(BaseHTTPRequestHandler):
         }
         handlers = {
             "/tasks": lambda: self._tasks(q),
+            "/journal": lambda: self._journal(q),
+            "/stats": lambda: self._stats(q),
+            "/perf": lambda: self._perf(q),
+            "/diff": lambda: self._diff(q),
+            "/stream": lambda: self._stream(q),
+            "/trace": lambda: self._trace(q),
+            "/artifact": lambda: self._artifact(q),
             "/describe": lambda: self._describe(q),
             # the reference serves kill/delete/logs/outputs on GET too
             # (daemon.go:85-91, dashboard links); the POST forms carry the
@@ -167,7 +170,9 @@ class _Handler(BaseHTTPRequestHandler):
             "/delete": lambda: self._delete(q),
             "/logs": lambda: self._get_logs(q),
             "/outputs": lambda: self._get_outputs(q),
-            # the daemon event-journal tail
+            # control plane: fleet summary for `tg top`, daemon
+            # event-journal tail
+            "/fleet": lambda: self._fleet(q),
             "/events": lambda: self._events(q),
         }
         h = handlers.get(url.path)
@@ -467,6 +472,116 @@ class _Handler(BaseHTTPRequestHandler):
         )
         self._send_json({"output": buf.getvalue()})
 
+    def _journal(self, q: dict) -> None:
+        """GET /journal?task_id= — the task's result journal
+        (``daemon.go:90`` getJournalHandler)."""
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        journal = (
+            t.result.get("journal", {}) if isinstance(t.result, dict) else {}
+        )
+        self._send_json({"task_id": task_id, "journal": journal})
+
+    def _stats(self, q: dict) -> None:
+        """GET /stats?task_id= — the task's sim telemetry summary (the
+        ``tg stats`` backend; docs/OBSERVABILITY.md): identity + the
+        journal's sim/telemetry/events sections, i.e. everything the
+        console table needs in one round trip. The payload shape is
+        Task.stats_payload — shared with the in-process CLI."""
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        self._send_json(t.stats_payload())
+
+    def _diff(self, q: dict) -> None:
+        """GET /diff?a=&b=[&planes=p1,p2] — the differential run
+        analysis document (the ``tg diff`` backend; docs/OBSERVABILITY.md
+        "Run diff"): deterministic counters compared exactly, throughput
+        judged from per-chunk samples. Built by Engine.diff_tasks — the
+        one codepath shared with the in-process CLI — so it works
+        against archived tasks over HTTP."""
+        a, b = q.get("a", ""), q.get("b", "")
+        if not a or not b:
+            return self._send_error_json("a and b task params required", 400)
+        try:
+            doc = self.engine.diff_tasks(a, b, planes=q.get("planes"))
+        except FileNotFoundError as e:
+            return self._send_error_json(str(e), 404)
+        except ValueError as e:
+            return self._send_error_json(str(e), 400)
+        self._send_json(doc)
+
+    def _perf(self, q: dict) -> None:
+        """GET /perf?task_id= — the task's performance-ledger payload
+        (the ``tg perf`` backend; docs/OBSERVABILITY.md): identity, the
+        journal's sim block, the sim.perf ledger, and the supervisor's
+        task-level timings. Payload shape is Task.perf_payload — shared
+        with the in-process CLI."""
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        self._send_json(t.perf_payload())
+
+    def _stream(self, q: dict) -> None:
+        """GET /stream?task_id=[&follow=0][&families=perf,slo] — ndjson
+        stream of a task's live observability rows (telemetry / perf /
+        SLO breaches / run spans), tailed from the run outputs as they
+        are appended: the ``tg watch`` backend (docs/OBSERVABILITY.md
+        "Run health plane"). Follows by default — an already-finished
+        task replays its full history, then the stream closes; a
+        running task streams until it completes."""
+        task_id = q.get("task_id", "") or q.get("task", "")
+        if not task_id:
+            return self._send_error_json("task_id is required", 400)
+        # resolve BEFORE starting the chunked stream (the /logs rule)
+        if self.engine.get_task(task_id) is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        follow = q.get("follow", "1") not in ("0", "false", "no")
+        families = None
+        if q.get("families"):
+            from ..engine.stream import STREAM_FAMILIES
+
+            families = tuple(
+                f.strip() for f in q["families"].split(",") if f.strip()
+            )
+            known = {name for name, _ in STREAM_FAMILIES}
+            unknown = sorted(set(families) - known)
+            if unknown or not families:
+                # a typo'd (or all-blank, e.g. "families=,") family list
+                # would otherwise follow silently, row-less, for the
+                # task's whole lifetime
+                return self._send_error_json(
+                    f"unknown stream families {unknown}; families: "
+                    f"{sorted(known)}",
+                    400,
+                )
+        self._start_stream()
+        try:
+            # heartbeat: a blank ndjson line at least every 15 s of
+            # idle, so a queued task / long compile / quiet soak cannot
+            # trip a follower's socket read timeout
+            for row in self.engine.stream_rows(
+                task_id, follow=follow, families=families, heartbeat_secs=15.0
+            ):
+                self._write_chunked(
+                    b"\n"
+                    if row is None
+                    else (json.dumps(row) + "\n").encode()
+                )
+        finally:
+            self._end_chunked()
+
+    def _fleet(self, q: dict) -> None:
+        """GET /fleet — the daemon-wide summary behind ``tg top``:
+        worker slots, queue depth by priority, per-state counts over
+        the FULL task store, pack occupancy, and one row per
+        queued/running task with live ticks/s and breach counts."""
+        self._send_json(self.engine.fleet_payload())
+
     def _events(self, q: dict) -> None:
         """GET /events?since=<byte offset>[&follow=1] — tail the daemon
         event journal (engine/events.py) as ndjson. One-shot by
@@ -515,6 +630,152 @@ class _Handler(BaseHTTPRequestHandler):
                 time.sleep(0.15)
         finally:
             self._end_chunked()
+
+
+    # ---------------------------------------------- flight recorder, artifacts
+
+    # Event cap for one /trace JSON response (sim_trace.jsonl itself is
+    # unbounded; the full file streams via /artifact).
+    _TRACE_EVENTS_MAX = 50_000
+
+    def _trace(self, q: dict) -> None:
+        """GET /trace?task_id=[&limit=] — the task's flight-recorder
+        events (``sim_trace.jsonl``, read back from the outputs tree —
+        every run dir of a multi-``[[runs]]`` task contributes) plus the
+        journal's trace summary: the ``tg trace`` backend
+        (docs/OBSERVABILITY.md). Responses cap at ``_TRACE_EVENTS_MAX``
+        events; fetch the whole stream via ``/artifact``."""
+        from ..sim.trace import read_trace_events
+
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        journal = (
+            t.result.get("journal", {}) if isinstance(t.result, dict) else {}
+        )
+        try:
+            limit = int(q.get("limit") or 0)
+        except (TypeError, ValueError):
+            return self._send_error_json("invalid limit", 400)
+        # a JSON response must stay bounded — sim_trace.jsonl is not
+        # (see /artifact, which streams the whole file): an absent/0
+        # limit gets the server-side default instead of a full slurp
+        limit = (
+            self._TRACE_EVENTS_MAX
+            if limit <= 0
+            else min(limit, self._TRACE_EVENTS_MAX)
+        )
+        # read one past the limit so an exactly-limit-sized stream is
+        # not falsely reported as truncated
+        events = read_trace_events(
+            self.engine.env.dirs.outputs(), t.plan, task_id, limit=limit + 1
+        )
+        payload = {
+            "task_id": task_id,
+            "trace": journal.get("trace", {}),
+            "events": events[:limit],
+        }
+        if len(events) > limit:
+            # never silently incomplete: a capped response says so, and
+            # points at the full stream
+            payload["truncated"] = True
+            payload["limit"] = limit
+        self._send_json(payload)
+
+    # Observability artifacts a dashboard task page may link: file names
+    # are a closed whitelist (never client paths) and the run dir must
+    # belong to the task, so the route cannot read outside the task's
+    # outputs.
+    _ARTIFACT_FILES = (
+        "timeseries.jsonl",
+        "sim_timeseries.jsonl",
+        "sim_netmatrix.jsonl",
+        "sim_latency.jsonl",
+        "sim_perf.jsonl",
+        "sim_phases.jsonl",
+        "sim_slo.jsonl",
+        "run_spans.jsonl",
+        "sim_trace.jsonl",
+        "trace_events.json",
+        # lifecycle span tree (engine/tracetree.py): assembled at
+        # archive time; task_trace.json opens in Perfetto directly
+        "task_spans.jsonl",
+        "task_trace.json",
+    )
+    # the torch.profiler capture (``profile = true``) lands at
+    # profiles/trace.json under the run dir — served so a remote `tg`
+    # session can fetch it. The reference's per-instance cProfile dumps
+    # (item 16), xplane captures and checkpoints (item 13) have no
+    # counterpart in the port's run outputs.
+    _PROFILE_FILES = ("profiles/trace.json",)
+
+    @classmethod
+    def _artifact_relpath(cls, name: str) -> str | None:
+        """Validate an artifact name → safe run-dir-relative path, or
+        None: the flat whitelist, or the profiler capture."""
+        if name in cls._ARTIFACT_FILES:
+            return name
+        if name in cls._PROFILE_FILES:
+            return os.path.join(*name.split("/"))
+        return None
+
+    def _artifact(self, q: dict) -> None:
+        """GET /artifact?task_id=&name=[&run=] — serve one whitelisted
+        observability artifact from a task's run outputs dir (the
+        dashboard's trace/telemetry/profile links)."""
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        name = q.get("name", "")
+        rel = self._artifact_relpath(name)
+        if rel is None:
+            return self._send_error_json(
+                f"unknown artifact {name!r}; serving only "
+                f"{list(self._ARTIFACT_FILES + self._PROFILE_FILES)}",
+                400,
+            )
+        rid = q.get("run", task_id)
+        if rid != os.path.basename(rid) or not (
+            rid == task_id or rid.startswith(task_id + "-")
+        ):
+            return self._send_error_json(f"invalid run id {rid!r}", 400)
+        path = os.path.join(
+            self.engine.env.dirs.outputs(), t.plan, rid, rel
+        )
+        if not os.path.isfile(path):
+            return self._send_error_json(
+                f"artifact {name} not found for run {rid}", 404
+            )
+        # stream, never slurp: sim_trace.jsonl is unbounded by design (a
+        # long traced run can reach GBs) and the daemon owns every
+        # running task — one dashboard click must not balloon its RSS.
+        # Copy EXACTLY the declared length: the file may still be
+        # growing (a RUNNING traced task flushes every chunk), and extra
+        # bytes past Content-Length would corrupt the keep-alive
+        # connection's framing for the next pipelined response.
+        size = os.path.getsize(path)
+        self.send_response(200)
+        self.send_header(
+            "Content-Type",
+            "application/json"
+            if name.endswith(".json")
+            else "application/octet-stream"
+            if name.endswith((".pstats", ".pb", ".npz"))
+            else "application/x-ndjson",
+        )
+        self.send_header("Content-Length", str(size))
+        self.end_headers()
+        with open(path, "rb") as f:
+            remaining = size
+            while remaining > 0:
+                chunk = f.read(min(1 << 16, remaining))
+                if not chunk:  # file truncated underneath us: pad out
+                    self.wfile.write(b" " * remaining)
+                    break
+                self.wfile.write(chunk)
+                remaining -= len(chunk)
 
 
 class _ChunkSink:

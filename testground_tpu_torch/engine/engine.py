@@ -8,11 +8,17 @@ loop in ``supervisor.py``.
 submit: the ``tg check`` rules engine (``sim/check.py``) before a run
 takes a queue slot, and the ``task.refused`` event of a refusal.
 
-Left out, with the ROADMAP queue 1 item that ports each: the fleet
-counters (``_fleet_refused`` among them), ``fleet_payload``,
-``diff_tasks`` and ``stream_rows`` (item 9f), preemption, eviction and
-``drain`` (item 13: a preempted run resumes from a checkpoint) and run
-packs (item 13).
+The read side of the observability verbs: ``stream_rows`` (``GET
+/stream``, ``tg watch``), ``diff_tasks`` (``GET /diff``, ``tg diff``),
+and the fleet counters with ``fleet_payload`` (``GET /fleet``, ``tg top``)
+and ``fleet_info`` (the counter snapshot that the ``/metrics`` exposition
+of ROADMAP item 9f-b will render).
+
+Left out, with the ROADMAP queue 1 item that ports each: preemption,
+eviction and ``drain`` (item 13: a preempted run resumes from a
+checkpoint) and run packs (item 13) — so the fleet view's
+``pack.running`` is ``{}``, ``draining`` false and every task's
+``preemptions`` 0, and the pack, preemption and eviction counters are 0.
 """
 
 from __future__ import annotations
@@ -28,11 +34,24 @@ from ..config import EnvConfig
 from ..logging_ import S
 from ..tracectx import TraceContext, new_span_id, new_trace_id
 from .events import EVENTS_FILE, EventJournal
+from .stream import stream_task_rows
 from .queue import TaskQueue
 from .storage import TaskStorage
 from .task import CreatedBy, DatedState, State, Task, TaskType, new_task_id
 
 __all__ = ["Engine", "EngineConfig"]
+
+# log2 µs bins of the fleet's queue-wait and claim-latency histograms (the
+# reference's ``sync/stats.py`` TIME_BINS and time_bin)
+TIME_BINS = 20
+
+
+def time_bin(us: float) -> int:
+    """Histogram bin for a time in µs (log2 bins, clamped)."""
+    n = int(us)
+    if n < 1:
+        return 0
+    return min(TIME_BINS - 1, n.bit_length() - 1)
 
 
 @dataclass
@@ -68,10 +87,19 @@ class Engine:
         self._queue_kick = threading.Event()
         self._workers: list[threading.Thread] = []
 
-        # the append-only daemon event journal (events.py)
+        # the append-only daemon event journal (events.py) plus the
+        # in-memory fleet counters behind GET /fleet: they cover the
+        # daemon's lifetime, not the task store's
         self.events = EventJournal(
             os.path.join(self.env.dirs.daemon(), EVENTS_FILE)
         )
+        self._fleet_lock = threading.Lock()
+        self._worker_task: dict[int, str] = {}  # worker idx -> task id ("" idle)
+        self._queue_wait_bins = [0] * TIME_BINS
+        self._queue_wait_total_us = 0
+        self._claim_latency_bins = [0] * TIME_BINS
+        self._claim_latency_total_us = 0
+        self._fleet_refused = 0  # compositions refused at submit
 
     # ---------------------------------------------------------------- wiring
 
@@ -257,8 +285,10 @@ class Engine:
     def note_refused(
         self, comp: Composition, rules: list[str], kind: str = "run"
     ) -> None:
-        """Journal one composition refused at submit (``engine.py:484-494``;
-        its fleet counter waits for item 9f)."""
+        """Journal and count one composition refused at submit
+        (``engine.py:484-494``)."""
+        with self._fleet_lock:
+            self._fleet_refused += 1
         self.events.emit(
             "task.refused",
             task_type=kind,
@@ -381,6 +411,232 @@ class Engine:
                 if cancel is not None and cancel.is_set():
                     return
                 time.sleep(0.1)
+
+    def stream_rows(
+        self,
+        task_id: str,
+        follow: bool = True,
+        cancel: threading.Event | None = None,
+        families=None,
+        heartbeat_secs: float = 0.0,
+    ) -> Iterator[dict]:
+        """Stream a task's live observability rows (telemetry / perf /
+        SLO breaches / run spans) from its run outputs dirs — the
+        backend of the daemon's ``GET /stream`` and ``tg watch``
+        (docs/OBSERVABILITY.md "Run health plane"). With ``follow``,
+        tails across the queued→running→done lifecycle and closes after
+        a final sweep once the task finishes; on an already-finished
+        task it replays the full history, then closes (the ``logs``
+        follow contract)."""
+        tsk = self.get_task(task_id)
+        if tsk is None:
+            raise FileNotFoundError(f"unknown task {task_id}")
+
+        def is_done() -> bool:
+            t = self.get_task(task_id)
+            return t is None or t.state().state in (
+                State.COMPLETE,
+                State.CANCELED,
+            )
+
+        yield from stream_task_rows(
+            self.env.dirs.outputs(),
+            tsk.plan,
+            task_id,
+            is_done,
+            follow=follow,
+            cancel=cancel,
+            families=families,
+            heartbeat_secs=heartbeat_secs,
+        )
+
+    def diff_tasks(self, a: str, b: str, planes=None) -> dict:
+        """Differential run analysis (docs/OBSERVABILITY.md "Run diff"):
+        load both tasks' journals + swept ``sim_perf.jsonl`` chunk rows
+        and build the RunDiff document — deterministic counters compared
+        exactly, throughput judged from the per-chunk samples
+        (``analysis/diff.py``). Works on ARCHIVED tasks: everything read
+        here (task store + run outputs) survives daemon restarts.
+
+        Raises ``FileNotFoundError`` for an unknown task and
+        ``ValueError`` for an unknown plane — the daemon route maps
+        these to 404/400; backend of ``tg diff`` and ``Client.diff``.
+        """
+        from ..analysis.diff import (
+            build_run_diff,
+            task_snapshot,
+            validate_planes,
+        )
+
+        planes = validate_planes(planes)
+        snaps = []
+        for tid in (a, b):
+            tsk = self.get_task(tid)
+            if tsk is None:
+                raise FileNotFoundError(f"unknown task {tid}")
+            try:
+                rows = [
+                    r
+                    for r in self.stream_rows(
+                        tid, follow=False, families=("perf",)
+                    )
+                    if isinstance(r, dict)
+                ]
+            except FileNotFoundError:
+                rows = []
+            snaps.append(task_snapshot(tsk.to_dict(), rows))
+        return build_run_diff(snaps[0], snaps[1], planes=planes)
+
+    # ----------------------------------------------------------------- fleet
+
+    def fleet_worker_state(self, idx: int, task_id: str) -> None:
+        """Supervisor hook: worker ``idx`` is now busy on ``task_id``
+        ("" = idle). Feeds tg_fleet_workers and GET /fleet."""
+        with self._fleet_lock:
+            self._worker_task[idx] = task_id
+
+    def fleet_note_claim(
+        self, queue_wait_secs: float, claim_latency_secs: float
+    ) -> None:
+        """Supervisor hook: one task left the queue. Records log2
+        histograms of how long it waited (scheduled → PROCESSING) and
+        how long the claim itself took (PROCESSING stamp → worker
+        dispatch, i.e. pack admission + prep overhead)."""
+        wait_us = max(0.0, queue_wait_secs) * 1e6
+        claim_us = max(0.0, claim_latency_secs) * 1e6
+        with self._fleet_lock:
+            self._queue_wait_bins[time_bin(wait_us)] += 1
+            self._queue_wait_total_us += int(wait_us)
+            self._claim_latency_bins[time_bin(claim_us)] += 1
+            self._claim_latency_total_us += int(claim_us)
+
+    def fleet_info(self) -> dict:
+        """Counter snapshot for the Prometheus ``tg_fleet_*`` family
+        (metrics/prometheus.py renders it; task-store gauges are
+        computed there from the FULL task list)."""
+        with self._fleet_lock:
+            busy = sum(1 for t in self._worker_task.values() if t)
+            total = max(len(self._workers), len(self._worker_task))
+            return {
+                "workers": {"total": total, "busy": busy},
+                "queue_wait_bins": list(self._queue_wait_bins),
+                "queue_wait_total_us": self._queue_wait_total_us,
+                "claim_latency_bins": list(self._claim_latency_bins),
+                "claim_latency_total_us": self._claim_latency_total_us,
+                # packs, preemptions, evictions and drain come with item 13
+                "pack": {"packed": 0, "packed_runs": 0, "solo": {}},
+                "preemptions": 0,
+                "evictions": 0,
+                "refused": self._fleet_refused,
+                "draining": False,
+            }
+
+    @staticmethod
+    def _tail_last_row(path: str, tail_bytes: int = 8192) -> dict:
+        """Last parseable JSON line of a jsonl file, reading only the
+        tail — bounded no matter how long a run has been ticking."""
+        try:
+            with open(path, "rb") as f:
+                f.seek(0, os.SEEK_END)
+                size = f.tell()
+                f.seek(max(0, size - tail_bytes))
+                chunk = f.read().decode("utf-8", "replace")
+        except OSError:
+            return {}
+        import json as _json
+
+        for line in reversed(chunk.splitlines()):
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                row = _json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(row, dict):
+                return row
+        return {}
+
+    @staticmethod
+    def _count_lines_bounded(path: str, max_bytes: int = 256 << 10) -> int:
+        """Line count of a jsonl file, reading at most ``max_bytes``
+        from the head — exact for every sane breach stream, a floor for
+        a pathological one (the fleet view needs "how bad", not an
+        audit-grade total)."""
+        try:
+            with open(path, "rb") as f:
+                return f.read(max_bytes).count(b"\n")
+        except OSError:
+            return 0
+
+    def fleet_payload(self) -> dict:
+        """The ``GET /fleet`` summary: worker slots, queue depth, pack
+        occupancy, and one row per queued/running task with live
+        ticks/s (sim_perf.jsonl tail) and SLO breach counts. Counts
+        cover the FULL task store; the per-task list is naturally
+        bounded by what is actually queued or running."""
+        now = time.time()
+        all_tasks = self.storage.filter()
+        counts: dict[str, int] = {}
+        by_priority: dict[int, int] = {}
+        rows: list[dict] = []
+        outputs = self.env.dirs.outputs()
+        with self._fleet_lock:
+            worker_task = dict(self._worker_task)
+            n_workers = max(len(self._workers), len(self._worker_task))
+        for tsk in all_tasks:
+            st = tsk.state().state
+            counts[st.value] = counts.get(st.value, 0) + 1
+            if st == State.SCHEDULED:
+                by_priority[tsk.priority] = by_priority.get(tsk.priority, 0) + 1
+            if st not in (State.SCHEDULED, State.PROCESSING):
+                continue
+            row = {
+                "id": tsk.id,
+                "name": tsk.name(),
+                "type": tsk.type.value,
+                "state": st.value,
+                "priority": tsk.priority,
+                "queued_secs": round(tsk.queued_secs(), 3),
+                "trace_id": tsk.trace.get("trace_id", ""),
+                # how many times the fleet controller migrated this
+                # task (rides Task.trace; 0 until item 13's preemption)
+                "preemptions": int(tsk.trace.get("preemptions", 0) or 0),
+            }
+            if st == State.PROCESSING:
+                row["running_secs"] = round(
+                    max(0.0, now - tsk.state().created), 3
+                )
+                row["pack_width"] = 0  # run packs come with item 13
+                run_dir = os.path.join(outputs, tsk.plan, tsk.id)
+                perf = self._tail_last_row(
+                    os.path.join(run_dir, "sim_perf.jsonl")
+                )
+                if perf:
+                    row["ticks_per_sec"] = perf.get("ticks_per_sec", 0)
+                row["breaches"] = self._count_lines_bounded(
+                    os.path.join(run_dir, "sim_slo.jsonl")
+                )
+            rows.append(row)
+        rows.sort(key=lambda r: (r["state"], -r["priority"], r["id"]))
+        busy = sum(1 for t in worker_task.values() if t)
+        return {
+            "ts_wall_ns": time.time_ns(),
+            "workers": {
+                "total": n_workers,
+                "busy": busy,
+                "idle": max(0, n_workers - busy),
+            },
+            "draining": False,  # drain comes with item 13
+            "queue": {
+                "depth": counts.get(State.SCHEDULED.value, 0),
+                "by_priority": {str(k): v for k, v in by_priority.items()},
+            },
+            "counts": counts,
+            "tasks_total": len(all_tasks),
+            "pack": {"running": {}},
+            "tasks": rows,
+        }
 
     # -------------------------------------------------------------- actions
 

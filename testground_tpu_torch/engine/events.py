@@ -14,8 +14,8 @@ the daemon do that": admission decisions, preemptions and migrations
 become replayable from the journal alone. Served live by
 ``GET /events?since=<byte offset>`` (daemon/server.py) through
 :class:`JournalTail`, the reference's byte-offset tail
-(``engine/stream.py`` ``_Tail``, whose other readers come with ROADMAP
-queue 1 item 9f).
+(``engine/stream.py`` ``_Tail``, which the port's ``engine/stream.py``
+also tails the run outputs with).
 
 Bounded by size-based rotation: when the journal exceeds ``max_bytes``
 it is renamed to ``daemon_events.jsonl.1`` (replacing any previous
@@ -137,15 +137,16 @@ class JournalTail:
     """Byte-offset tail over one jsonl file: yields complete lines only
     (the trailing partial line of an in-flight write stays unconsumed
     until its newline lands) — the reference's ``engine/stream.py``
-    ``_Tail``."""
+    ``_Tail``, reading ``read_chunk`` bytes at a time."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, read_chunk: int = _READ_CHUNK):
         self.path = path
         self.offset = 0
+        self.read_chunk = read_chunk
 
     def read_new(self) -> Iterator[dict]:
         """Yield the rows appended since the last call, reading in
-        bounded chunks (memory stays O(_READ_CHUNK) however large the
+        bounded chunks (memory stays O(read_chunk) however large the
         backlog)."""
         try:
             size = os.path.getsize(self.path)
@@ -154,7 +155,7 @@ class JournalTail:
             with open(self.path, "rb") as f:
                 while self.offset < size:
                     f.seek(self.offset)
-                    data = f.read(min(_READ_CHUNK, size - self.offset))
+                    data = f.read(min(self.read_chunk, size - self.offset))
                     if not data:
                         return
                     end = data.rfind(b"\n")
@@ -162,7 +163,7 @@ class JournalTail:
                     # until its newline (degenerate, rows are ~100 B)
                     while end < 0 and self.offset + len(data) < size:
                         more = f.read(
-                            min(_READ_CHUNK, size - self.offset - len(data))
+                            min(self.read_chunk, size - self.offset - len(data))
                         )
                         if not more:
                             return

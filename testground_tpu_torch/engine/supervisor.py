@@ -64,14 +64,19 @@ def worker(engine: Engine, idx: int) -> None:
         # cancel_queued and process_task's registration
         engine.register_cancel(tsk.id)
         _note_claim(engine, idx, tsk)
-        process_task(engine, tsk)
+        engine.fleet_worker_state(idx, tsk.id)
+        try:
+            process_task(engine, tsk)
+        finally:
+            engine.fleet_worker_state(idx, "")
 
 
 def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
     """Claim bookkeeping for a freshly-popped task: mint the claim and
-    execute span ids and journal the claim. Tasks pushed straight into the
-    queue (tests) get trace ids filled in here so every archive still
-    exports a connected tree."""
+    execute span ids, feed the fleet claim histograms, and journal the
+    claim. Tasks pushed straight into the queue (tests) get trace ids
+    filled in here so every archive still exports a connected tree."""
+    now = time.time()
     tr = tsk.trace
     tr.setdefault("trace_id", new_trace_id())
     tr.setdefault("root_span_id", new_span_id())
@@ -92,6 +97,8 @@ def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
         if len(tsk.states) >= 2
         else 0.0
     )
+    claim_latency = max(0.0, now - tsk.states[-1].created) if tsk.states else 0.0
+    engine.fleet_note_claim(queue_wait, claim_latency)
     engine.events.emit(
         "task.claimed",
         task=tsk.id,

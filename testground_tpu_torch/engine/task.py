@@ -4,8 +4,8 @@ task moves through scheduled → processing → complete (or canceled), carries
 its composition and input, and ends with an outcome
 (unknown/success/failure/canceled).
 
-The observability payloads (``stats_payload``, ``perf_payload``) come with
-the verbs that serve them (ROADMAP queue 1 item 9f).
+``stats_payload`` and ``perf_payload`` are the observability payloads of
+``tg stats`` / ``GET /stats`` and ``tg perf`` / ``GET /perf``.
 """
 
 from __future__ import annotations
@@ -204,6 +204,65 @@ class Task:
             except ValueError:
                 return Outcome.UNKNOWN
         return Outcome.UNKNOWN
+
+    def stats_payload(self) -> dict:
+        """The telemetry-summary payload (``tg stats`` / GET /stats):
+        identity plus the result journal's sim/telemetry/events sections.
+        ONE builder for the daemon route and the in-process CLI, so the
+        two surfaces cannot drift."""
+        journal = (
+            self.result.get("journal", {})
+            if isinstance(self.result, dict)
+            else {}
+        )
+        return {
+            "task_id": self.id,
+            "plan": self.plan,
+            "case": self.case,
+            "state": self.state().state.value,
+            "outcome": self.outcome().value,
+            "sim": journal.get("sim", {}),
+            "telemetry": journal.get("telemetry", {}),
+            # flight-recorder summary (docs/OBSERVABILITY.md) — the
+            # events themselves are served by `tg trace` / GET /trace
+            "trace": journal.get("trace", {}),
+            # run health plane (docs/OBSERVABILITY.md "Run health
+            # plane"): rule verdicts + bounded breach records
+            "slo": journal.get("slo", {}),
+            "events": journal.get("events", {}),
+        }
+
+    def perf_payload(self) -> dict:
+        """The performance-ledger payload (``tg perf`` / GET /perf):
+        identity, the journal's sim block, its nested perf ledger
+        (surfaced at top level for consumers), and the supervisor's
+        task-level timings (queue wait, per-run runner wall). ONE
+        builder for the daemon route and the in-process CLI — same rule
+        as :meth:`stats_payload`."""
+        result = self.result if isinstance(self.result, dict) else {}
+        journal = result.get("journal", {})
+        if not isinstance(journal, dict):
+            journal = {}
+        sim = journal.get("sim", {})
+        if not isinstance(sim, dict):
+            sim = {}
+        return {
+            "task_id": self.id,
+            "plan": self.plan,
+            "case": self.case,
+            "state": self.state().state.value,
+            "outcome": self.outcome().value,
+            "sim": {
+                k: v for k, v in sim.items() if k not in ("perf", "phases")
+            },
+            "perf": sim.get("perf", {}),
+            # phase attribution plane (sim/phases.py) — surfaced at top
+            # level beside the ledger for `tg perf --phases` consumers
+            "phases": sim.get("phases", {}),
+            "task": result.get("perf", {})
+            if isinstance(result.get("perf"), dict)
+            else {},
+        }
 
     def to_dict(self) -> dict:
         return {

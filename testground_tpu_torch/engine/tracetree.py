@@ -17,9 +17,10 @@ when the task archives, from the state timestamps + those files:
   JSON ("X" complete events, µs timestamps), so ``chrome://tracing``
   or ui.perfetto.dev opens a task's submit→archive timeline directly.
 
-Both land in the task's run output dir, and ``tg collect`` carries them
-(``GET /artifact`` serves them with ROADMAP queue 1 item 9f). Export is
-best-effort: a failure here must never fail the task it describes.
+Both land in the task's run output dir, ``tg collect`` carries them,
+``GET /artifact`` serves them and ``tg trace --lifecycle`` renders the
+tree. Export is best-effort: a failure here must never fail the task it
+describes.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 port's copy of ``expand_sim_row``, ``expand_perf_row``, ``clean`` and
 ``measurement_name`` of the reference's ``testground_tpu/metrics/viewer.py``
 (``pkg/metrics/viewer.go``). The dashboard's viewer over the run files
-comes with the dashboard (ROADMAP queue 1 item 9f).
+comes with the dashboard (ROADMAP queue 1 item 9f-b).
 
 The sim telemetry plane's per-tick counters (``sim_timeseries.jsonl``)
 surface as measurement ``sim.<counter>`` (group_id ``_run``, since the

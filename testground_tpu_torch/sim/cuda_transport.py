@@ -27,6 +27,14 @@ one to the other. Each wrapper counts its kernel launches in a plain
 integer attribute (``commit_calendar.launches``, ``pop_bucket.launches``)
 so a run can show that its main path went through the kernels.
 
+:func:`commit_bytes` and :func:`pop_bytes` are the closed forms of the
+bytes each kernel must move (each input read once, each output written
+once): the memory bound that ``chip_smoke.py`` holds the kernels'
+times against, and what the phase ledger (``sim/phases.py``) adds for a
+launch its dispatch counter cannot see. Inside :func:`observe_launches`
+each wrapper that launches a kernel reports the launch to the thread's
+observer; without an observer the wrappers read nothing.
+
 The kernels update the calendar planes IN PLACE (the JAX package returns
 new arrays; the port mutates, which saves a copy of every plane a tick).
 """
@@ -52,12 +60,15 @@ __all__ = [
     "MAX_WIDTH",
     "PopSegments",
     "build_kernels",
+    "commit_bytes",
     "commit_calendar",
     "commit_calendar_plain",
     "commit_calendar_sharded",
     "commit_calendar_sharded_plain",
+    "observe_launches",
     "pop_bucket",
     "pop_bucket_plain",
+    "pop_bytes",
     "pop_bucket_sharded",
     "pop_bucket_sharded_plain",
     "pop_segments",
@@ -217,6 +228,78 @@ def _check_tick(t: torch.Tensor, device) -> None:
     )
 
 
+# ----------------------------------------------------- bytes and observer
+
+
+def commit_bytes(m2: int, width: int, slots: int, occ_bool: bool, stacking: bool,
+                 etick: bool, runs: int, survivors: int) -> int:
+    """The bytes K1 must move on one stream: the keys, occupancy marks and
+    ``width`` payload streams read (``m2`` int32 each) and the survival
+    mask written, the pre-tick fill of each of the stream's ``runs``
+    distinct live keys read under ``stacking`` (``slots`` occupancy cells
+    each), and each of the ``survivors``' occupancy, payload and etick
+    cells written."""
+    occ_b = 1 if occ_bool else 4
+    return (m2 * (8 + 4 * width) + m2 * 4
+            + (runs * slots * occ_b if stacking else 0)
+            + survivors * (occ_b + 4 * width + (4 if etick else 0)))
+
+
+def pop_bytes(cells: int, width: int, occ_bool: bool) -> int:
+    """The bytes K2 must move popping a row of ``cells`` (N·SLOTS) cells:
+    the occupancy and ``width`` payload rows read and written out, and the
+    occupancy row cleared."""
+    occ_b = 1 if occ_bool else 4
+    return cells * (occ_b + 4 * width) * 2 + cells * occ_b
+
+
+_OBSERVED = threading.local()
+
+
+@contextlib.contextmanager
+def observe_launches(fn):
+    """Within the block, each kernel launch of this thread calls ``fn(name,
+    measure)`` with the wrapper's name and a function that returns the
+    launch's closed-form bytes (:func:`commit_bytes`, :func:`pop_bytes`);
+    a sharded wrapper reports once for all its launches. K1's ``measure``
+    reads the stream's run and survivor counts off the card (torch ops,
+    which wait for the stream), so the observer chooses when they run."""
+    prev = getattr(_OBSERVED, "fn", None)
+    _OBSERVED.fn = fn
+    try:
+        yield
+    finally:
+        _OBSERVED.fn = prev
+
+
+def _occ_bool(cal) -> bool:
+    occ = cal.occupancy_plane
+    return (occ if cal.mesh is None else occ[0]).dtype == torch.bool
+
+
+def _report_commit(name, cal, sk, surv, big, stacking) -> None:
+    """Report a K1 wrapper's launch to the thread's observer, if any."""
+    fn = getattr(_OBSERVED, "fn", None)
+    if fn is None:
+        return
+
+    def measure() -> int:
+        live = sk < big
+        starts = torch.ones_like(live)
+        starts[1:] = sk[1:] != sk[:-1]
+        return commit_bytes(sk.shape[0], cal.width, cal.slots, _occ_bool(cal),
+                            stacking, cal.etick is not None,
+                            int((live & starts).sum()), int(surv.sum()))
+
+    fn(name, measure)
+
+
+def _report_pop(name, cal, cells) -> None:
+    fn = getattr(_OBSERVED, "fn", None)
+    if fn is not None:
+        fn(name, lambda: pop_bytes(cells, cal.width, _occ_bool(cal)))
+
+
 # ------------------------------------------------------------------ K1
 
 
@@ -318,6 +401,7 @@ def commit_calendar(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
     if rc != 0:
         raise RuntimeError(f"commit_calendar kernel launch failed: CUDA error {rc}")
     commit_calendar.launches += 1
+    _report_commit("commit_calendar", cal, sk, surv, horizon * n, stacking)
     return cal, surv
 
 
@@ -372,6 +456,7 @@ def pop_bucket(cal, t):
     if rc != 0:
         raise RuntimeError(f"pop_bucket kernel launch failed: CUDA error {rc}")
     pop_bucket.launches += 1
+    _report_pop("pop_bucket", cal, ns)
     return cal, row_occ, rows
 
 
@@ -472,6 +557,8 @@ def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         commit_calendar_sharded.launches += 1
         surv = surv.to(sk.device)
         survived = surv if survived is None else survived + surv
+    _report_commit("commit_calendar_sharded", cal, sk, survived,
+                   cal.mesh.size * seg, stacking)
     return cal, survived
 
 
@@ -599,6 +686,7 @@ def pop_bucket_sharded(cal, t):
                 glob.view(slots, n)[:, s0 * n_loc : s1 * n_loc].copy_(
                     loc.view(slots, (s1 - s0) * n_loc)
                 )
+    _report_pop("pop_bucket_sharded", cal, slots * n)
     return cal, row_occ, rows
 
 

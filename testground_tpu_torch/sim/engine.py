@@ -883,8 +883,15 @@ class SimProgram:
     def _tick(self, carry: SimCarry, timer=None, done_out=None,
               tick: int | None = None, blocks=None, row: int = 0) -> SimCarry:
         """One simulated tick. ``timer.mark(name)`` (optional) is called at
-        the tick's start ("tick") and after each phase ("deliver", "step",
-        "commit", "sync", and "planes" when an observability plane is on).
+        the tick's start ("tick") and at the end of each stretch of it,
+        naming the stretch: "faults" (with a schedule), "deliver" (the pop
+        and the delivered count), "netmatrix" (the matrix's receiver
+        cells), "lat_hist" (with telemetry), "step", "commit" (enqueue and
+        the link updates), "sync" (the sync fold), "carry" (the flow
+        accounting, the matrix's send cells and the new carry), and, with
+        ``blocks``, "trace" and "telemetry" (the planes' rows). Every mark
+        sits behind ``timer is not None``: a tick without a timer runs no
+        code of them.
         ``done_out`` (optional) is a ``(flag, event)`` pair: the host bool
         tensor ``flag`` receives this tick's all-done flag by a non-blocking
         copy queued right after the step phase, and ``event`` (a CUDA
@@ -907,7 +914,12 @@ class SimProgram:
             carry, crashed_t, restarted_t, purged_t, dead = self._fault_phase(
                 carry, tick
             )
+            if timer is not None:
+                timer.mark("faults")
         cal, inbox = deliver(carry.cal, t)
+        delivered_t = inbox.valid.sum(dtype=torch.int32)
+        if timer is not None:
+            timer.mark("deliver")
         nm = lat_hist = None
         if self.netmatrix:
             # receiver-side cells from the physical provenance; a plan that
@@ -917,13 +929,14 @@ class SimProgram:
             if not cls.TRACK_SRC:
                 inbox = Inbox(payload=inbox.payload, src=torch.zeros_like(inbox.src),
                               valid=inbox.valid)
+            if timer is not None:
+                timer.mark("netmatrix")
         if self.telemetry:
             lat_hist = carry.lat_hist + latency_histogram(
                 cal, inbox, t, self._plane_group_of, len(self.groups), LATENCY_BINS
             )
-        delivered_t = inbox.valid.sum(dtype=torch.int32)
-        if timer is not None:
-            timer.mark("deliver")
+            if timer is not None:
+                timer.mark("lat_hist")
         step = self._step_phase(carry, inbox, t)
         if done_out is not None:
             flag, event = done_out
@@ -993,6 +1006,8 @@ class SimProgram:
             step["pub_valid"],
             step["sub_consume"],
         )
+        if timer is not None:
+            timer.mark("sync")
         rejected_t = fb.rejected.sum(dtype=torch.int32)
         dropped_t = fb.sent - fb.enqueued - rejected_t - fb.fault_dropped
         # flow accounting (engine.py:1608-1619): crash purges move already
@@ -1050,7 +1065,7 @@ class SimProgram:
             net_bw_hiwater=net_bw_hiwater,
         )
         if timer is not None:
-            timer.mark("sync")
+            timer.mark("carry")
         if blocks is None:
             return new
         if self.trace is not None:
@@ -1058,14 +1073,16 @@ class SimProgram:
                 blocks.trace[row], t, status_prev, step["status"], step["signals"],
                 step["dst"], step["valid"], fb.fate, inbox,
             )
+            if timer is not None:
+                timer.mark("trace")
         if self.telemetry:
             self._telemetry_row(
                 blocks.tele[row], t, step["status"], sync, delivered_t, fb.sent,
                 fb.enqueued, dropped_t, rejected_t, cal_depth, crashed_t,
                 restarted_t, fault_dropped_t,
             )
-        if timer is not None:
-            timer.mark("planes")
+            if timer is not None:
+                timer.mark("telemetry")
         return new
 
     def _netmatrix_delivered(self, inbox: Inbox) -> torch.Tensor:

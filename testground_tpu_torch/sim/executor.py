@@ -21,6 +21,10 @@ and writes what the reference writes under ``<outputs>/<plan>/<run_id>``:
   ``torch.profiler`` Chrome trace under ``profiles/`` with ``profile``
   (or a group's ``profiles``), of the whole run or of ``profile_chunks``
   chunks after the first;
+- ``sim_phases.jsonl`` and the journal's ``sim.phases`` block with
+  ``phases`` (``sim/phases.py``: the per-phase ledger of one tick on a
+  fresh carry after the run, and with ``phases_measure = K`` each phase's
+  ms over K ticks);
 - the journal's ``sim`` (with ``sim.perf``), ``telemetry``, ``trace``,
   ``slo``, ``metrics``, ``timeseries``, ``profile`` and ``events``
   blocks.
@@ -37,11 +41,15 @@ InfluxDB as the reference mirrors them; the journal's ``influx``,
 ``influx_telemetry``, ``influx_latency`` and ``influx_perf`` blocks record
 each push.
 
+``transport = "auto"`` with ``transport_probe = K`` times the resolved
+arm's ``deliver`` and ``net_commit`` over K ticks before the run and
+journals the reading under ``sim.transport.scores``; the port has one arm
+per device, so the probe measures and does not choose.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default (``unported_settings``; ``tg check``
 reports each as ``port.not-ported``): buckets, packs and checkpoints (item
-13, a 2-D pack mesh among them), multi-host cohorts (item 15b), and the
-phase plane and the transport probe (item 14b).
+13, a 2-D pack mesh among them) and multi-host cohorts (item 15b).
 
 A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
 the calendar over the peer shards (``sim/meshplan.py``); the journal's
@@ -134,12 +142,17 @@ class SimTorchConfig:
     profile: bool = False
     # > 0: the profiler captures only this many chunks after the first
     profile_chunks: int = 0
-    phases: bool = False  # refused unless False (item 14b)
-    phases_measure: int = 0  # refused unless 0 (item 14b)
+    # the phase ledger (sim/phases.py) after the run: sim.phases and
+    # sim_phases.jsonl; disable_metrics wins
+    phases: bool = False
+    # > 0 (with phases): each phase's measured ms/tick over this many ticks
+    phases_measure: int = 0
     # "xla", "pallas" or "auto": on the card every value runs K1/K2, on
     # the CPU their plain versions; the journal records what ran
     transport: str = "xla"
-    transport_probe: int = 0  # refused unless 0 (item 14b)
+    # > 0 with transport "auto": time the resolved arm's deliver and
+    # net_commit over this many ticks before the run (sim.transport.scores)
+    transport_probe: int = 0
     bucket: str = "off"  # refused unless "off" (item 13)
     bucket_ladder: str = ""  # refused unless "" (item 13)
     pack: bool = False  # refused unless False (item 13)
@@ -162,7 +175,6 @@ class SimTorchConfig:
 
 
 _ITEM_13 = "item 13 (buckets, packs and checkpoint)"
-_ITEM_14B = "item 14b (the phase plane and the transport probe)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
@@ -177,9 +189,6 @@ _UNPORTED_SETTINGS = {
     "coordinator_address": _ITEM_15B,
     "num_processes": _ITEM_15B,
     "process_id": _ITEM_15B,
-    "phases": _ITEM_14B,
-    "phases_measure": _ITEM_14B,
-    "transport_probe": _ITEM_14B,
 }
 
 _TRANSPORTS = ("xla", "pallas", "auto")
@@ -511,6 +520,36 @@ def _transport_block(cfg, device: torch.device, mesh=None) -> dict:
     return {"requested": cfg.transport, "resolved": resolved, "reason": reason}
 
 
+def _probe_transport(prog, block: dict, reps: int, seed: int) -> dict:
+    """The ``transport_probe`` reading under ``transport = "auto"``: the
+    resolved arm's ``deliver`` + ``net_commit`` ms per tick over ``reps``
+    ticks on a fresh carry (``sim/phases.measure_phases``). The reference
+    times two arms and picks the faster
+    (``testground_tpu/sim/transport_model.py:447-511``); the port has one
+    arm per device and never runs the plain version on a CUDA tensor, so
+    the resolution stays and the reading is journaled."""
+    from .phases import measure_phases
+
+    arm, backend = block["resolved"], prog.device.type
+    note = ("the port has one arm per device (K1 and K2 on the card, their "
+            "plain versions on the CPU): the probe measures the resolved arm "
+            "and does not choose")
+    try:
+        ms = measure_phases(prog, reps, seed=seed)
+        per_tick = ms["deliver"] + ms["net_commit"]
+    except Exception as e:  # noqa: BLE001 — the probe is best-effort
+        return {**block,
+                "reason": f"measured probe failed on the {arm} arm ({e}); {note}",
+                "scores": {"source": "measured", "backend": backend}}
+    return {
+        **block,
+        "reason": (f"measured probe: {arm} {per_tick:.3f} ms per tick over "
+                   f"{reps} rep(s) on {backend}; {note}"),
+        "scores": {"source": "measured", "backend": backend,
+                   f"{arm}_ms_per_tick": round(per_tick, 6), "reps": reps},
+    }
+
+
 # ------------------------------------------------------------------ the run
 
 
@@ -705,6 +744,12 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     )
     row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
     transport_block = _transport_block(cfg, prog.device, mesh)
+    probe_reps = int(getattr(cfg, "transport_probe", 0) or 0)
+    if transport_block["requested"].lower() == "auto" and probe_reps > 0:
+        transport_block = _probe_transport(prog, transport_block, probe_reps,
+                                           cfg.seed)
+        ow.infof("sim:torch %s: transport — %s", job.run_id,
+                 transport_block["reason"])
     # the perf ledger: host-side only, so not program-shaping; disable_metrics
     # wins, as over the telemetry plane
     perf_ledger = None
@@ -992,6 +1037,38 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                 ", hbm peak %.2f MiB" % (perf_summary["hbm"]["peak_bytes"] / 2**20)
                 if perf_summary.get("hbm") else "",
             )
+    # the phase ledger, after the run on its own carry: gated like the
+    # telemetry plane (disable_metrics wins) and best-effort, so it never
+    # fails the run it measures
+    phases_block = None
+    if bool(getattr(cfg, "phases", False)) and not job.disable_metrics:
+        from .phases import PHASES_FILE, build_phase_ledger, write_phase_rows
+
+        spans.start("phases")
+        try:
+            phases_block = build_phase_ledger(
+                prog, measure=int(getattr(cfg, "phases_measure", 0) or 0),
+                seed=cfg.seed, transport=transport_block["resolved"],
+            )
+        except Exception as e:  # noqa: BLE001 — attribution is best-effort
+            ow.warn("sim:torch %s: phase attribution failed: %s", job.run_id, e)
+            phases_block = None
+        if phases_block is not None:
+            rows_written = (
+                write_phase_rows(os.path.join(run_dir, PHASES_FILE), row_ident,
+                                 phases_block)
+                if run_dir is not None else 0
+            )
+            if rows_written:
+                phases_block["series"] = {"rows": rows_written, "file": PHASES_FILE}
+            cov = (phases_block.get("coverage") or {}).get("bytes_frac")
+            ow.infof(
+                "sim:torch %s: phase attribution — %d phase(s), transport=%s%s",
+                job.run_id, len(phases_block.get("phases") or []),
+                phases_block.get("transport"),
+                ", bytes coverage x%.2f of the whole tick" % cov if cov else "",
+            )
+        spans.end("phases")
     # the capture window is part of the run record
     if profile_dir is not None:
         result.journal["profile"] = (
@@ -1081,6 +1158,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         "carry_bytes": res["carry_bytes"],
         **({"latency": latency} if latency else {}),
         **({"perf": perf_summary} if perf_summary else {}),
+        **({"phases": phases_block} if phases_block else {}),
         **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
         **({"mesh": mesh_block} if mesh_block else {}),
     }

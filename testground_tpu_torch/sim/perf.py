@@ -27,9 +27,15 @@ from __future__ import annotations
 import json
 from typing import Any
 
+# the comparison codepath lives in the cross-run analysis plane
+# (analysis/diff.py, stdlib-only, shared with `tg diff`); re-exported here
+# as the reference's sim/perf.py re-exports it, so there is ONE
+# implementation
+from ..analysis.diff import fmt_rate, num, perf_compare  # noqa: F401 — re-exports
 from .telemetry import PERF_FILE
 
-__all__ = ["PERF_FILE", "PerfLedger", "device_memory_stats"]
+__all__ = ["PERF_FILE", "PerfLedger", "device_memory_stats", "fmt_rate", "num",
+           "perf_compare"]
 
 
 def device_memory_stats(device=None) -> dict:

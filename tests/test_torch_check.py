@@ -166,6 +166,10 @@ MATRIX = {
     "netmatrix-disable-metrics": (dict(run_cfg={"netmatrix": True, "telemetry": True},
                                        disable_metrics=True), "netmatrix.needs-telemetry"),
     "clean": (dict(run_cfg={"max_ticks": 32}), None),
+    # the phase plane and the probe, divergences until they were ported
+    "clean-phases-and-probe": (dict(run_cfg={"phases": True, "phases_measure": 2,
+                                             "transport": "auto", "transport_probe": 2}),
+                               None),
     "clean-kitchen-sink": (dict(case="stall", count=4,
                                 run_cfg={"telemetry": True, "netmatrix": True,
                                          "max_ticks": 48, "chunk": 16},
@@ -222,9 +226,6 @@ DIVERGENCES = {
                 _not_ported("num_processes", 2, pexec._ITEM_15B)]),
     "mesh-2d": (dict(count=8, run_cfg={"mesh": "2x4"}),
                 [("port.not-ported", "error", pcheck.mesh_2d_message("2x4", ITEM_13), "")]),
-    "phases": (dict(run_cfg={"phases": True, "transport_probe": 2}),
-               [_not_ported("phases", True, pexec._ITEM_14B),
-                _not_ported("transport_probe", 2, pexec._ITEM_14B)]),
     "mesh-indivisible-pallas": (
         dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),
         [("transport.mesh-indivisible", "error", pcheck.pallas_lanes_message(6, 0, 4),
@@ -304,12 +305,14 @@ _DEFAULTS = pexec.SimTorchConfig()
 _UNPORTED_VALUES = {"bucket": "auto", "bucket_ladder": "32,64", "build_buckets": True,
                     "pack": True, "checkpoint_chunks": 2, "resume_from": "earlier",
                     "coordinator_address": "127.0.0.1:1", "num_processes": 2,
-                    "process_id": 1, "phases": True, "phases_measure": 3,
-                    "transport_probe": 2}
+                    "process_id": 1}
 
 DRIFT = {
     **{f"matrix-{k}": v[0] for k, v in MATRIX.items()},
     **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _UNPORTED_VALUES.items()},
+    # ported settings: neither the checker nor the executor refuses them
+    **{f"ported-{k}": dict(run_cfg={k: v, "transport": "auto"})
+       for k, v in {"phases": True, "phases_measure": 3, "transport_probe": 2}.items()},
     "mesh-2d": dict(run_cfg={"mesh": "2x4"}),
     "mesh-indivisible-xla": dict(count=6, run_cfg={"mesh": "4"}),
     "mesh-indivisible-pallas": dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),

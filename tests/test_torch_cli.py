@@ -452,7 +452,7 @@ def test_disabled_runner_is_refused_like_jax(tmp_path):
 
 @pytest.mark.parametrize("setting,item", [("bucket=auto", "item 13"),
                                           ("num_processes=2", "item 15b"),
-                                          ("phases=true", "item 14")])
+                                          ("checkpoint_chunks=2", "item 13")])
 def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
     rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
@@ -460,6 +460,29 @@ def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     assert rc == 1 and "(outcome: failure)" in out
     errors = [ln for ln in err.splitlines() if ln.startswith("error: ")]
     assert len(errors) == 1 and f"ROADMAP queue 1 {item}" in errors[0], err
+
+
+def test_phases_run_cfg_writes_the_phase_rows_as_jax(tmp_path):
+    """``--run-cfg phases=true`` (refused until the phase plane was
+    ported) runs, and both packages' ``sim_phases.jsonl`` hold the same
+    rows: the phases, then residual and total, with the same fields."""
+    got = {}
+    for pkg, main, runner, env in (("jax", jmain, "sim:jax", REF_ENV),
+                                   ("torch", pmain, "sim:torch", PORT_ENV)):
+        home = _make_home(tmp_path, pkg, env, ("placebo",))
+        rc, out, err = _cli(main, home, ["run", "single", "placebo:ok", "-i", "2",
+                                         "--builder", "sim:plan", "--runner", runner,
+                                         "--run-cfg", "phases=true"])
+        assert rc == 0, err
+        tid = _task_id(out)
+        rows = [json.loads(ln) for ln in open(os.path.join(
+            home, "data", "outputs", "placebo", tid, "sim_phases.jsonl"))]
+        got[pkg] = [(r["phase"], r["run"] == tid, sorted(set(r) & {"phase", "run", "plan",
+                                                                    "case", "transport"}))
+                    for r in rows]
+    assert got["torch"] == got["jax"]
+    assert [p for p, _, _ in got["torch"]] == ["deliver", "step", "sync", "net_commit",
+                                               "residual", "total"]
 
 
 # the queue and daemon flags, with {home} and {runner}; the port refused
@@ -911,8 +934,9 @@ def test_build_verbs_match_jax(name, tmp_path):
 UNPORTED_FLAGS = {
     "build-buckets": (["build", "single", "placebo:ok", "--buckets"], "item 13"),
     "terminate-drain": (["terminate", "--drain"], "item 13"),
-    "status-telemetry": (["status", "-t", "sometask", "--telemetry"], "item 9f"),
     "collect-local-exec": (["collect", "sometask"], "item 16"),
+    "plan": (["plan", "import", "--from", "x"], "item 9f-b"),
+    "describe": (["describe", "placebo"], "item 9f-b"),
 }
 
 
@@ -925,10 +949,63 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
     assert not (home / "data" / "work").exists() or not os.listdir(home / "data" / "work")
 
 
-@pytest.mark.parametrize("verb", ["stats", "perf", "trace", "watch", "netmap", "diff",
-                                  "top", "preempt", "plan", "describe"])
+@pytest.mark.parametrize("verb", ["preempt", "sim-worker", "sync-service", "sync-stats"])
 def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         pmain([verb, "x"])
     assert e.value.code == 2
     assert f"invalid choice: '{verb}'" in capsys.readouterr().err
+
+
+# the observability verbs on two runs of one composition in each package's
+# home: what both print, the run IDs named alike; the trace and the
+# matrix are the runs', so those views match line for line
+OBSERVED = TWO_RUNS.split("[[runs]]")[0].replace(
+    'case = "optional-failure"', 'case = "ok"').replace(
+    "chunk = 8", "chunk = 8\ntelemetry = true\nnetmatrix = true").replace(
+    "count = 4", 'count = 4\n[groups.run.trace]\ninstances = "0:2"')
+OBS_VERBS = {
+    "stats": ["stats", "{a}"],
+    "perf": ["perf", "{a}"],
+    "trace": ["trace", "{a}"],
+    "watch": ["watch", "{a}", "--no-follow"],
+    "netmap": ["netmap", "{a}", "--cut", "1"],
+    "diff": ["diff", "{a}", "{b}", "--planes", "counters,latency,slo,netmatrix"],
+    "top": ["top", "--no-follow"],
+}
+EXACT_VERBS = ("trace", "netmap")
+
+
+@pytest.fixture(scope="module")
+def observed_homes(tmp_path_factory):
+    root = tmp_path_factory.mktemp("observed")
+    out = {}
+    for pkg, main, runner, env in (("jax", jmain, "sim:jax", REF_ENV),
+                                   ("torch", pmain, "sim:torch", PORT_ENV)):
+        home = _make_home(root, pkg, env, ("placebo",))
+        (home / "obs.toml").write_text(OBSERVED.format(runner=runner))
+        tids = []
+        for _ in range(2):
+            rc, out_, err = _cli(main, home, ["run", "composition", "-f",
+                                              str(home / "obs.toml")])
+            assert rc == 0, err
+            tids.append(_task_id(out_))
+        out[pkg] = (main, home, tids)
+    return out
+
+
+@pytest.mark.parametrize("verb", list(OBS_VERBS))
+def test_observability_verb_prints_as_jax(verb, observed_homes):
+    got = {}
+    for pkg, (main, home, (a, b)) in observed_homes.items():
+        argv = [x.format(a=a, b=b) for x in OBS_VERBS[verb]]
+        rc, out, err = _cli(main, home, argv)
+        text = out.replace(a, "<a>").replace(b, "<b>")
+        lines = text.splitlines()
+        got[pkg] = (rc, lines if verb in EXACT_VERBS else
+                    [ln.split()[0] for ln in lines if ln.strip()
+                     # the rows of the reference's compile pass, which the
+                     # port has not (sim/perf.py)
+                     and ln.split()[0] not in ("cost", "program")])
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 0 and got["torch"][1]

@@ -705,3 +705,34 @@ def test_cli_runs_a_composition_on_the_card_as_on_the_cpu(cuda, tmp_path, monkey
         assert trees["cuda"][0][rel] == trees["cpu"][0][rel], rel
     assert trees["cuda"][1] == trees["cpu"][1]
     assert trees["cuda"][2] == trees["cpu"][2]
+
+
+def test_phase_ledger_counts_the_kernels_bytes(cuda):
+    """On the card K1 and K2 launch through ctypes, out of the dispatch
+    counter's sight: the ledger adds their closed-form bytes to the deliver
+    and net_commit rows, and the residual still closes the tick exactly."""
+    from testground_tpu_torch.sim.phases import build_phase_ledger
+
+    factory = load_sim_testcases(plan_dir("network"))["pingpong-sustained"]
+    groups = build_groups([RunGroup(id="all", instances=64,
+                                    parameters={"duration_ticks": "40"})])
+    prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                      device=cuda, telemetry=True)
+    block = build_phase_ledger(prog, measure=3)
+    rows = {r["phase"]: r for r in block["phases"]}
+    occ = prog.init_carry(0).cal.occupancy_plane
+    pop = ct.pop_bytes(occ.shape[1], prog.init_carry(0).cal.width,
+                       occ.dtype == torch.bool)
+    assert block["transport"] == "cuda"
+    assert block["kernel_bytes"]["deliver"] == {"pop_bucket": pop}
+    assert block["kernel_bytes"]["net_commit"]["commit_calendar"] > 0
+    assert rows["deliver"]["bytes_accessed"] >= pop
+    assert rows["net_commit"]["bytes_accessed"] >= (
+        block["kernel_bytes"]["net_commit"]["commit_calendar"])
+    whole = block["whole_per_tick"]["bytes_accessed"]
+    assert sum(r["bytes_accessed"] for r in rows.values()) + block["residual"][
+        "bytes_accessed"] == whole
+    assert all(r["measured_reps"] == 3 for r in rows.values())
+    assert build_phase_ledger(prog)["phases"] == [
+        {k: v for k, v in r.items() if not k.startswith("measured")}
+        for r in block["phases"]]

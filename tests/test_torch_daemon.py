@@ -6,8 +6,10 @@ from their CLIs with ``--endpoint``, from a client home that holds no
 plans. Then the exit codes, the printed lines of ``run``, ``status``,
 ``logs`` and ``tasks``, the task fields (less IDs and times) and the run
 directories, lifecycle span tree included, must be equal. Also: bearer
-auth, the path-traversal guards, the routes that answer 501 naming their
-ROADMAP item, ``--detach``, ``--collect-file``, ``terminate`` of each
+auth, the path-traversal guards, the observability routes (``/journal``,
+``/stats``, ``/perf``, ``/diff``, ``/stream``, ``/trace``, ``/artifact``,
+``/fleet``) answering as the reference's, the routes that answer 501
+naming their ROADMAP item, ``--detach``, ``--collect-file``, ``terminate`` of each
 component type, ``/kill`` of a running task, the ``/events`` tail, two
 workers at once, ``SIGTERM`` of a daemon process, and a run on a fake
 ``cuda:1`` whose worker thread makes that card current before the first
@@ -387,11 +389,111 @@ def test_not_ported_route_answers_501_naming_its_item(route, daemons):
         code, data = _http(d["ep"], method, route, body)
         assert code == 501, (method, route, code)
         err = json.loads(data)["error"]
-        item = "item 13" if route in ("/preempt", "/drain") else "item 9f"
-        assert f"ROADMAP queue 1 {item}" in err and route in err
+        item = "item 13" if route in ("/preempt", "/drain") else "item 9f-b"
+        assert f"ROADMAP queue 1 {item} " in err and route in err
     # the connection stays usable: a route that exists still answers
     assert _http(d["ep"], "GET", "/tasks")[0] == 200
     assert _http(d["ep"], "GET", "/no-such-route")[0] == 404
+
+
+# the routes of the observability verbs, each held against the reference's
+OBSERVE_ROUTES = ("/journal", "/stats", "/perf", "/diff", "/stream", "/trace",
+                  "/artifact", "/fleet")
+
+TRACED = PING_PONG.replace("count = 8", "count = 8\n[groups.run.trace]\ninstances = \"0:2\"")
+
+
+@pytest.fixture(scope="module")
+def observed(daemons):
+    """Two runs of one traced composition on each package's daemon."""
+    out = {}
+    for pkg, d in daemons.items():
+        (d["client_home"] / "traced.toml").write_text(TRACED.format(runner=d["runner"]))
+        tids = []
+        for _ in range(2):
+            rc, stdout, _ = _call(d, pkg, ["run", "composition", "-f", "{home}/traced.toml"])
+            assert rc == 0, stdout
+            tids.append(_task_id(stdout))
+        out[pkg] = tids
+    return out
+
+
+def _get_json(d, route):
+    code, data = _http(d["ep"], "GET", route)
+    return code, json.loads(data) if data.strip().startswith(b"{") else data
+
+
+def _observe(route, d, a, b):
+    """What ``route`` answers about runs ``a`` and ``b``, as both packages
+    must agree on it: wall clocks, IDs and the machine's own blocks aside."""
+    if route == "/journal":
+        code, got = _get_json(d, f"/journal?task_id={a}")
+        j = got["journal"]
+        return code, sorted(got), sorted(j), j["events"], j["telemetry"]["totals"]
+    if route == "/stats":
+        code, got = _get_json(d, f"/stats?task_id={a}")
+        return (code, sorted(got), got["state"], got["outcome"], got["events"],
+                got["telemetry"]["totals"], got["trace"]["events"])
+    if route == "/perf":
+        code, got = _get_json(d, f"/perf?task_id={a}")
+        return (code, sorted(got), got["outcome"], perf_view(got["sim"] | {"perf": got["perf"]}),
+                got["phases"], sorted(got["task"]))
+    if route == "/diff":
+        code, got = _get_json(d, f"/diff?a={a}&b={b}&planes=counters,latency")
+        return (code, sorted(got), got["verdict"], got["setup"], got["findings"],
+                [(p, got[p]["compared"], got[p]["mismatched"]) for p in ("counters", "latency")],
+                _get_json(d, f"/diff?a={a}&b={b}&planes=vibes")[0])
+    if route == "/stream":
+        code, data = _http(d["ep"], "GET", f"/stream?task_id={a}&follow=0")
+        rows = [json.loads(ln) for ln in data.decode().splitlines() if ln.strip()]
+        fams = sorted({r["stream"] for r in rows})
+        tele = [_strip(r) for r in rows if r["stream"] == "telemetry"]
+        return (code, fams, _norm(tele, a, d["home"]),
+                _http(d["ep"], "GET", f"/stream?task_id={a}&families=nope")[0])
+    if route == "/trace":
+        code, got = _get_json(d, f"/trace?task_id={a}&limit=7")
+        return (code, sorted(got), _norm(got["events"], a, d["home"]), got.get("truncated"),
+                got["trace"]["events"])
+    if route == "/artifact":
+        code, data = _http(d["ep"], "GET", f"/artifact?task_id={a}&name=sim_trace.jsonl")
+        bad = _http(d["ep"], "GET", f"/artifact?task_id={a}&name=../../etc/passwd")[0]
+        return code, _norm([json.loads(ln) for ln in data.decode().splitlines()], a,
+                           d["home"]), bad
+    code, got = _get_json(d, "/fleet")
+    return (code, sorted(got), sorted(got["workers"]), sorted(got["queue"]),
+            got["draining"], got["pack"], got["tasks"])
+
+
+@pytest.mark.parametrize("route", OBSERVE_ROUTES)
+def test_observability_route_answers_as_jax(route, daemons, observed):
+    got = {pkg: _observe(route, d, *observed[pkg]) for pkg, d in daemons.items()}
+    assert got["torch"] == got["jax"]
+    assert got["torch"][0] == 200
+    for pkg, d in daemons.items():  # an unknown task is a 404 on each
+        if route not in ("/fleet", "/diff"):
+            assert _http(d["ep"], "GET", f"{route}?task_id=nope")[0] == 404, (pkg, route)
+
+
+def test_fleet_shows_a_running_task_as_jax(daemons):
+    """``/fleet`` while a run is on the card: its row carries the keys of
+    the reference's, its live ticks/s off the perf ledger's last row."""
+    got = {}
+    for pkg, d in daemons.items():
+        c = d["client"]
+        _, out, _ = _call(d, pkg, ["run", "composition", "-f", "{home}/slow.toml",
+                                   "--detach"])
+        tid = _task_id(out)
+        perf = d["home"] / "data" / "outputs" / "network" / tid / "sim_perf.jsonl"
+        _wait(lambda: perf.exists() and perf.stat().st_size > 0, "the first perf row")
+        fleet = c.fleet()
+        assert c.kill(tid) is True
+        _wait(lambda: _done(c, tid), "the killed task", timeout=20)
+        rows = [r for r in fleet["tasks"] if r["id"] == tid]
+        assert len(rows) == 1 and rows[0]["state"] == "processing", fleet
+        got[pkg] = (sorted(rows[0]), rows[0]["pack_width"], rows[0]["preemptions"],
+                    rows[0]["breaches"], rows[0]["ticks_per_sec"] > 0,
+                    fleet["workers"]["busy"] >= 1)
+    assert got["torch"] == got["jax"]
 
 
 # ------------------------------------------------------- kill and events

@@ -317,9 +317,6 @@ REFUSED = {
     "coordinator_address": ("localhost:1234", "item 15b"),
     "num_processes": (2, "item 15b"),
     "process_id": (1, "item 15b"),
-    "phases": (True, "item 14b"),
-    "phases_measure": (3, "item 14b"),
-    "transport_probe": (2, "item 14b"),
 }
 
 
@@ -337,6 +334,34 @@ def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
         pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
                               discard_writer(), threading.Event())
     assert not os.path.exists(tmp_path / "placebo")  # refused before any output
+
+
+# the settings of the phase plane and the transport probe, refused until
+# they were ported: each now runs, and journals what it asked for
+PHASE_PLANE = {
+    "phases": dict(phases=True),
+    "phases_measure": dict(phases=True, phases_measure=3),
+    "transport_probe": dict(transport="auto", transport_probe=2),
+}
+
+
+@pytest.mark.parametrize("name", list(PHASE_PLANE))
+def test_phase_plane_setting_runs(name, tmp_path):
+    out = pexec.execute_sim_run(_placebo_job(tmp_path, **PHASE_PLANE[name]),
+                                discard_writer(), threading.Event())
+    sim = out.result.journal["sim"]
+    assert out.result.outcome.value == "success"
+    if name == "transport_probe":
+        assert "phases" not in sim
+        assert sim["transport"]["scores"]["source"] == "measured"
+        assert sim["transport"]["scores"]["reps"] == 2
+        assert sim["transport"]["resolved"] == "plain"
+        return
+    assert [r["phase"] for r in sim["phases"]["phases"]] == [
+        "deliver", "step", "sync", "net_commit"]
+    assert (tmp_path / "placebo" / "refused" / "sim_phases.jsonl").exists()
+    measured = [r.get("measured_reps") for r in sim["phases"]["phases"]]
+    assert measured == ([3] * 4 if name == "phases_measure" else [None] * 4)
 
 
 def test_without_a_gpu_no_device_raises(tmp_path, monkeypatch):
