@@ -115,7 +115,15 @@ and drives the port's main path through the library entry points
               watch`` and under a ``tg top`` process (ms/tick; the rows the
               watcher saw), the read-side verbs through ``--endpoint`` and
               one banked row (see ``phase_observe``)
-19. parity  — sustained, flood and storm at 4,096 instances, the faulted
+19. surface — ``tg check --trace-plans`` as processes (with and without a
+              visible card) and in process, allocating nothing on the card
+              and launching nothing, with sustained@1M refused by
+              ``plan.memory``; plan import, ``plan list``, ``describe`` and
+              a run of the imported plan through a daemon process;
+              ``/metrics``, ``/dashboard`` and ``/data``; and cli@100k's
+              runs alone, under a ``/metrics`` poller and under a
+              dashboard poller (see ``phase_surface``)
+20. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -156,7 +164,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "admit", "observe", "parity")
+          "cli", "daemon", "admit", "observe", "surface", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -3269,6 +3277,433 @@ def phase_observe(card) -> dict:
     return row
 
 
+# ------------------------------------------------------------ surface
+
+SURFACE_TURNS = 3
+SURFACE_WAYS = ("alone", "metrics", "dashboard")
+# the sustained plan at 1M instances under a 512 MiB budget: its carry
+# (321 MiB) × the executor's 2.5 headroom does not fit
+SURFACE_LIMIT = 512 * 2**20
+
+# a poller of the daemon at `address`, in a process of its own: while the
+# control file holds a task ID it GETs its route every second (/metrics, or
+# that task's dashboard page) and logs each answer; "exit" ends it
+POLLER = (
+    "import json, sys, time, urllib.request\n"
+    "address, kind, ctl, log = sys.argv[1:5]\n"
+    "out = open(log, 'a')\n"
+    "print('@@ready', file=out, flush=True)\n"
+    "while True:\n"
+    "    tid = open(ctl).read().strip()\n"
+    "    if tid == 'exit':\n"
+    "        break\n"
+    "    if not tid:\n"
+    "        time.sleep(0.05)\n"
+    "        continue\n"
+    "    route = '/metrics' if kind == 'metrics' else '/dashboard?task_id=' + tid\n"
+    "    t0 = time.perf_counter()\n"
+    "    with urllib.request.urlopen(address + route, timeout=60) as r:\n"
+    "        code, size = r.status, len(r.read())\n"
+    "    ms = (time.perf_counter() - t0) * 1e3\n"
+    "    print(json.dumps({'task': tid, 'code': code, 'bytes': size, 'ms': ms}),\n"
+    "          file=out, flush=True)\n"
+    "    time.sleep(max(0.0, 1.0 - ms / 1e3))\n"
+)
+
+
+def _scrape(address) -> tuple:
+    """``(ms, text, families)`` of one GET /metrics; every line is a HELP, a
+    TYPE or a ``name{labels} value`` sample with a finite value (format
+    0.0.4)."""
+    import math
+    import re
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(address + "/metrics", timeout=60) as r:
+        ctype = r.headers.get("Content-Type")
+        text = r.read().decode()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(ctype == "text/plain; version=0.0.4; charset=utf-8", f"surface: /metrics {ctype}")
+    fams = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith(("# HELP ", "# TYPE ")):
+            continue
+        m = re.match(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$', ln)
+        check(m is not None and math.isfinite(float(m[3])), f"surface: /metrics line {ln!r}")
+        fams.setdefault(m[1], []).append((m[2] or "", float(m[3])))
+    return ms, text, fams
+
+
+def _get(address, route) -> tuple:
+    """``(status, location, body, ms)`` of one GET, redirects not followed."""
+    import urllib.error
+    import urllib.request
+
+    class NoRedirect(urllib.request.HTTPRedirectHandler):
+        def redirect_request(self, *a, **k):
+            return None
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.build_opener(NoRedirect).open(address + route, timeout=60) as r:
+            got = (r.status, r.headers.get("Location"), r.read())
+    except urllib.error.HTTPError as e:
+        got = (e.code, e.headers.get("Location"), e.read())
+    return (*got, (time.perf_counter() - t0) * 1e3)
+
+
+def phase_surface(card) -> dict:
+    """The user-facing surfaces of the daemon and ``tg check`` on the card:
+    (a) ``tg check --trace-plans`` as processes — the smoke compositions and
+    cli@100k's with the card visible (exit 0, no ``plan.*`` finding), and
+    with no card visible plus sustained@1M under a 512 MiB
+    ``memory_limit_bytes`` (exit 1, ``plan.memory`` alone, the executor's
+    words) — and the same in process: the allocator's counters unchanged,
+    K1 and K2 never launched; (b) ``python -m testground_tpu_torch.cli
+    daemon`` in an empty home: ``plan import`` of the port's network plan
+    under a new name through ``--endpoint`` (a tar.gz to ``/plan/import``),
+    ``plan list --testcases``, ``describe``, ``run single
+    network-imported:ping-pong -i 100000`` to all SUCCESS on the card (its
+    journal's transport ``cuda``; its phase ledger holds K1's and K2's
+    closed-form bytes, which only a launch reports), ``plan rm``; (c) that
+    daemon's ``/metrics`` (format 0.0.4, the run's flow identity, Σ
+    ``tg_fleet_tasks`` = ``tg_scrape_tasks_total``), ``/``, ``/dashboard``,
+    the run's page and ``/data`` (its rows = the viewer's); (d) cli@100k's
+    composition through an in-process ``Daemon`` (one worker) in three
+    rotated turns alone, under a process GETting ``/metrics`` every second
+    and under one GETting the run's dashboard page every second: run
+    ms/tick of each; then a turn's page and ``/data`` rows against the
+    viewer's over its run directory."""
+    import re
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from testground_tpu_torch.api import TestPlanManifest, load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+    from testground_tpu_torch.metrics import Viewer
+    from testground_tpu_torch.sim.check import check_composition
+    from testground_tpu_torch.sim.engine import resolve_device
+    from testground_tpu_torch.sim.executor import PLANS_ROOT
+    from testground_tpu_torch.sim.runner import _kernel_check
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_surface_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "surface", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    procs = []
+    daemon = None
+    try:
+        # the in-process daemon of (d) and its two pollers, idle until a
+        # turn names its task: they start while (a)-(c) run
+        check(_kernel_check(resolve_device(None))[0], "surface: the K2 check")
+        env = EnvConfig.load(home=cli_home(root, "inproc"))
+        env.daemon.scheduler.workers = 1
+        daemon = Daemon(env=env, listen="127.0.0.1:0")
+        daemon.start()
+        penv = {**os.environ, "PYTHONPATH": here}
+        pollers = {}
+        for way in SURFACE_WAYS[1:]:
+            ctl, log = (os.path.join(root, f"{way}.{x}") for x in ("ctl", "log"))
+            open(ctl, "w").close()
+            open(log, "w").close()
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", POLLER, daemon.address, way, ctl, log], cwd=here,
+                env=penv, stdout=subprocess.DEVNULL, stderr=open(log + ".err", "w")))
+            pollers[way] = (ctl, log)
+
+        # (a) tg check --trace-plans, as processes and in process. The
+        # processes, and (b)'s daemon process, start together: the first
+        # meta op of each pays torch's meta kernels' import
+        from concurrent.futures import ThreadPoolExecutor
+
+        smokes = [os.path.join(PLANS_ROOT, "network", "_compositions", "sustained-smoke.toml"),
+                  os.path.join(PLANS_ROOT, "chaos", "_compositions", "smoke.toml")]
+        cli100k = daemon_composition(root, "sustained-100k", 100_000, SUSTAINED)
+        big = daemon_composition(root, "sustained-1m", 1_000_000, SUSTAINED, max_ticks=64,
+                                 cfg=f"memory_limit_bytes = {SURFACE_LIMIT}")
+        # layer 2 wants no card: a process that sees one never initialises it
+        probe = ("import sys, torch\n"
+                 "from testground_tpu_torch.api import load_composition, TestPlanManifest\n"
+                 "from testground_tpu_torch.sim.check import check_composition\n"
+                 "comp = load_composition(sys.argv[1])\n"
+                 "m = TestPlanManifest.load_file(sys.argv[2] + '/manifest.toml')\n"
+                 "fs = check_composition(comp, m, trace_plans=True, plan_sources=sys.argv[2])\n"
+                 "print([f.rule for f in fs], torch.cuda.is_initialized())\n")
+        calls = {
+            "card": ["-m", "testground_tpu_torch.cli", "check", "--trace-plans", "--json",
+                     *smokes, cli100k],
+            "no-card": ["-m", "testground_tpu_torch.cli", "check", "--trace-plans", "--json",
+                        *smokes, cli100k, big],
+            "no-context": ["-c", probe, big, os.path.join(PLANS_ROOT, "network")],
+        }
+
+        def timed(name):
+            t0 = time.perf_counter()
+            got = subprocess.run(
+                [sys.executable, *calls[name]], cwd=here, capture_output=True, text=True,
+                timeout=180, env={**penv, "TESTGROUND_HOME": cli_home(root, f"check-{name}"),
+                                  **({"CUDA_VISIBLE_DEVICES": ""} if name == "no-card"
+                                     else {})})
+            return got, time.perf_counter() - t0
+
+        # (b)'s daemon, in an empty home
+        home = os.path.join(root, "daemon")
+        os.makedirs(home)
+        open(os.path.join(home, ".env.toml"), "w").close()
+        client_home = os.path.join(root, "client")
+        os.makedirs(client_home)
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ep = f"http://127.0.0.1:{port}"
+        log_path = os.path.join(root, "daemon.log")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "testground_tpu_torch.cli", "daemon", "--listen",
+             f"127.0.0.1:{port}"], cwd=here, stdout=open(log_path, "w"),
+            stderr=subprocess.STDOUT, env={**penv, "TESTGROUND_HOME": home})
+        procs.append(proc)
+        with ThreadPoolExecutor(len(calls)) as pool:
+            futures = {name: pool.submit(timed, name) for name in calls}
+            in_proc = {}
+            manifests = {p: TestPlanManifest.load_file(
+                os.path.join(PLANS_ROOT, p, "manifest.toml")) for p in ("network", "chaos")}
+            for path in smokes + [cli100k, big]:
+                comp = load_composition(path)
+                plan = comp.global_.plan
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                mem = torch.cuda.memory_allocated()
+                reset_launches()
+                t0 = time.perf_counter()
+                fs = check_composition(comp, manifests[plan], trace_plans=True,
+                                       plan_sources=os.path.join(PLANS_ROOT, plan))
+                ms = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+                check(torch.cuda.memory_allocated() == mem
+                      and torch.cuda.max_memory_allocated() == mem,
+                      f"surface check {path}: device bytes allocated")
+                check(read_launches() == dict.fromkeys(KERNELS, 0),
+                      f"surface check {path}: launches {read_launches()}")
+                check([f.rule for f in fs] == (["plan.memory"] if path == big else []),
+                      f"surface check {path}: {fs}")
+                in_proc[os.path.basename(path)] = ms
+            done = {name: f.result() for name, f in futures.items()}
+        checks = {}
+        for name, (got, wall) in done.items():
+            want_rc = 1 if name == "no-card" else 0
+            check(got.returncode == want_rc,
+                  f"surface check {name}: exit {got.returncode}: {got.stdout[-2000:]} "
+                  f"{got.stderr[-2000:]}")
+            checks[name] = {"wall_s": wall}
+            if name == "no-context":
+                check(got.stdout.strip() == "['plan.memory'] False",
+                      f"surface check: the no-context probe: {got.stdout}")
+                continue
+            doc = json.loads(got.stdout)
+            found = {c["file"]: [f["rule"] for f in c["findings"]] for c in doc["compositions"]}
+            check(all(v == [] for f, v in found.items() if f != big),
+                  f"surface check {name}: findings {found}")
+            checks[name]["files"] = len(found)
+            if big in found:
+                fs = [f for c in doc["compositions"] if c["file"] == big
+                      for f in c["findings"]]
+                check([f["rule"] for f in fs] == ["plan.memory"]
+                      and "composition needs ~" in fs[0]["message"]
+                      and "but the device budget is 0.50 GiB" in fs[0]["message"],
+                      f"surface check {name}: {fs}")
+                row["memory_finding"] = fs[0]["message"]
+        row["check"] = {"process": checks, "in_process_ms": in_proc}
+        step("check")
+
+        # (b) plan import through the daemon process
+        client = Client(ep)
+        _wait_for(lambda: _answers(client, proc, log_path), "the daemon process", 120)
+
+        def remote(argv, want_rc=0):
+            got = cli_call(client_home, ["--endpoint", ep, *argv])
+            check(got["rc"] == want_rc, f"surface {argv[:2]}: exit {got['rc']}: "
+                  f"{got['out'][-1500:]} {got['err'][-1500:]}")
+            return got
+
+        verbs = {}
+        got = remote(["plan", "import", "--from", os.path.join(PLANS_ROOT, "network"),
+                      "--name", "network-imported"])
+        check(got["out"].strip() == f"imported plan network-imported into daemon at {ep}",
+              f"surface import: {got['out']}")
+        verbs["plan import"] = got["wall"] * 1e3
+        got = cli_call(home, ["plan", "list", "--testcases"])
+        check(got["rc"] == 0 and "network-imported:pingpong-sustained" in got["out"],
+              f"surface plan list: {got['out']}")
+        verbs["plan list"] = got["wall"] * 1e3
+        got = remote(["describe", "network-imported:pingpong-sustained"])
+        check("pingpong-sustained" in got["out"], f"surface describe: {got['out']}")
+        verbs["describe"] = got["wall"] * 1e3
+        got = remote(["run", "single", "network-imported:ping-pong", "-i", "100000",
+                      "--run-cfg", "telemetry=true", "--run-cfg", "phases=true"])
+        tid = re.search(r"run is queued with ID: (\S+)", got["out"])[1]
+        task = client.status(tid)
+        sim = task["result"]["journal"]["sim"]
+        check(task["outcome"] == "success" and sim["transport"]["resolved"] == "cuda",
+              f"surface run: {task['outcome']} {sim.get('transport')} {task['error']}")
+        # the phase ledger's kernel bytes: the K1 and K2 wrappers report them
+        # only where they launch their kernel, never from the plain versions
+        kb = sim["phases"].get("kernel_bytes", {})
+        has = {"commit_calendar": kb.get("net_commit", {}).get("commit_calendar", 0),
+               "pop_bucket": kb.get("deliver", {}).get("pop_bucket", 0)}
+        check(all(v > 0 for v in has.values()), f"surface run: kernel bytes {kb}")
+        row["imported_run"] = {"task": tid, "ticks": sim["ticks"], "wall_s": got["wall"],
+                               "transport": sim["transport"], "kernels": has,
+                               "instances": task["result"]["journal"]["events"]}
+        step("import_run")
+
+        # (c) the scrape and the pages of that daemon
+        scrapes = [_scrape(ep) for _ in range(5)]
+        _, text, fams = scrapes[-1]
+        flows = {re.search(r'flow="(\w+)"', lbl)[1]: v
+                 for lbl, v in fams["tg_run_msgs_total"] if f'task="{tid}"' in lbl}
+        check(flows["sent"] > 0 and flows["sent"] == flows["delivered"]
+              + flows["in_flight"] + flows["dropped"] + flows["rejected"]
+              + flows["fault_dropped"], f"surface /metrics: flows {flows}")
+        total = fams["tg_scrape_tasks_total"][0][1]
+        check(sum(v for _, v in fams["tg_fleet_tasks"]) == total,
+              f"surface /metrics: fleet {fams['tg_fleet_tasks']} against {total}")
+        row["scrape"] = {"ms": [s[0] for s in scrapes], "tasks": total,
+                         "families": len(fams), "bytes": len(text), "flows": flows}
+        pages = {}
+        code, where, body, ms = _get(ep, "/")
+        check(code == 302 and where == "/dashboard", f"surface /: {code} {where}")
+        pages["/"] = ms
+        for route in ("/dashboard", f"/dashboard?task_id={tid}"):
+            code, _, body, ms = _get(ep, route)
+            check(code == 200 and tid.encode() in body, f"surface {route}: {code}")
+            pages[route.split("=")[0]] = ms
+        # a plan imported under another name runs under its manifest's
+        # name (as in the reference): the run directory is outputs/network/,
+        # the task's page and /data read outputs/network-imported/, empty
+        code, _, body, ms = _get(ep, f"/data?task_id={tid}&metric=sim.delivered")
+        want = [r.to_dict() for r in Viewer(EnvConfig.load(home=home)).get_data(
+            "network-imported", "ping-pong", "sim.delivered", run_id=tid)]
+        check(code == 200 and json.loads(body)["rows"] == want,
+              f"surface /data: {code} {body[:300]}")
+        pages["/data"] = ms
+        row["pages_ms"] = pages
+        row["verbs_ms"] = verbs
+        got = cli_call(home, ["plan", "rm", "network-imported"])
+        check(got["rc"] == 0 and not os.path.exists(os.path.join(home, "plans",
+                                                                 "network-imported")),
+              f"surface plan rm: {got['out']} {got['err']}")
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+        step("scrape_pages")
+
+        # (d) what the pollers cost a run
+        for way, (_, log) in pollers.items():
+            _wait_for(lambda: "@@ready" in _lines(log), f"the {way} poller", 120)
+        comp = load_composition(cli100k).to_dict()
+        dclient = Client(daemon.address)
+
+        def turn(way):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tid = dclient.run(comp)
+            if way in pollers:
+                with open(pollers[way][0], "w") as f:
+                    f.write(tid)
+            t = _wait_done(dclient, tid, 300, poll_s=0.1)
+            if way in pollers:
+                open(pollers[way][0], "w").close()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(t["outcome"] == "success", f"surface {way}: {t['error']}")
+            j = t["result"]["journal"]
+            n_ticks = j["telemetry"]["rows"]
+            got = read_launches()
+            check(all(v == n_ticks for v in got.values()),
+                  f"surface {way}: launches {got} over {n_ticks} ticks")
+            for k, v in got.items():
+                launches[k] += v
+            out = {"task": tid, "ticks": n_ticks, "wall_s": wall,
+                   "run_ms_per_tick": j["sim"]["wall_secs"] / n_ticks * 1e3}
+            if way in pollers:
+                gets = [json.loads(ln) for ln in _lines(pollers[way][1])
+                        if ln.startswith("{") and json.loads(ln)["task"] == tid]
+                check(gets and all(g["code"] == 200 for g in gets),
+                      f"surface {way}: poller answers {gets[-3:]}")
+                out["gets"] = len(gets)
+                out["get_ms"] = statistics.median(g["ms"] for g in gets)
+            return out
+
+        turns = {w: [] for w in SURFACE_WAYS}
+        for i in range(SURFACE_TURNS):
+            for way in SURFACE_WAYS[i:] + SURFACE_WAYS[:i]:
+                turns[way].append(turn(way))
+        med = {w: statistics.median(t["run_ms_per_tick"] for t in turns[w])
+               for w in SURFACE_WAYS}
+        spread = {w: [min(t["run_ms_per_tick"] for t in turns[w]),
+                      max(t["run_ms_per_tick"] for t in turns[w])] for w in SURFACE_WAYS}
+        row["pollers"] = {
+            "turns": turns, "median_run_ms_per_tick": med, "range": spread,
+            "delta_pct": {w: (med[w] / med["alone"] - 1) * 100 for w in SURFACE_WAYS[1:]},
+            # resolved: every turn of the poller past the alone turns' range
+            "resolved": {w: (spread[w][0] > spread["alone"][1]
+                             or spread[w][1] < spread["alone"][0])
+                         for w in SURFACE_WAYS[1:]},
+        }
+        ms, _, fams = _scrape(daemon.address)
+        row["scrape_inproc"] = {"ms": ms, "tasks": fams["tg_scrape_tasks_total"][0][1]}
+        # the pages of a run with every series: the last turn alone
+        tid = turns["alone"][-1]["task"]
+        code, _, body, ms = _get(daemon.address, f"/dashboard?task_id={tid}")
+        check(code == 200 and b"<h2>results.network-pingpong-sustained.sim.delivered</h2>"
+              in body, f"surface task page: {code}")
+        pages = {"/dashboard?task_id": ms, "bytes": len(body)}
+        viewer = Viewer(env)
+        for metric in ("sim.delivered", "sim.perf.peer_ticks_per_sec"):
+            code, _, body, ms = _get(daemon.address, f"/data?task_id={tid}&metric={metric}")
+            want = [r.to_dict() for r in viewer.get_data("network", "pingpong-sustained",
+                                                          metric, run_id=tid)]
+            check(code == 200 and json.loads(body)["rows"] == want and want,
+                  f"surface /data {metric}: {code} {body[:300]}")
+            pages[f"/data {metric}"] = ms
+        row["pages_inproc_ms"] = pages
+        step("pollers")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+        if daemon is not None:
+            daemon.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
+def _answers(client, proc, log_path) -> bool:
+    """The daemon process answers ``/tasks`` (it must not have exited)."""
+    if proc.poll() is not None:
+        with open(log_path) as f:
+            check(False, f"surface: the daemon exited: {f.read()[-3000:]}")
+    try:
+        client.tasks()
+        return True
+    except OSError:
+        return False
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3387,7 +3822,8 @@ def main(argv=None) -> int:
                    ("faults", phase_faults), ("telemetry", phase_telemetry),
                    ("plans", phase_plans), ("executor", phase_executor),
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
-                   ("admit", phase_admit), ("observe", phase_observe)):
+                   ("admit", phase_admit), ("observe", phase_observe),
+                   ("surface", phase_surface)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

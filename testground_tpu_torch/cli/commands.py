@@ -3,8 +3,9 @@
 healthcheck,tasks,status,logs,daemon}.go``) for the verbs the port serves:
 ``run composition|single``, ``build composition|single|purge``, ``tasks``,
 ``status`` (with ``--telemetry``), ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``daemon``, ``check``, ``version``, and the read side of the
-observability plane: ``stats``, ``perf`` (``--compare``, ``--phases``,
+``terminate``, ``daemon``, ``check`` (with ``--trace-plans``), ``plan
+list|import|rm|create``, ``describe``, ``version``, and the read side of
+the observability plane: ``stats``, ``perf`` (``--compare``, ``--phases``,
 ``--measure``, ``--follow``), ``trace`` (``--lifecycle``), ``watch``,
 ``netmap``, ``diff`` and ``top``. These read the task store, the result
 journals and the run outputs, and never touch the card.
@@ -18,17 +19,15 @@ run with ID"), and so does the ``--result-file`` CSV.
 
 The reference's flags and verbs that later ROADMAP queue 1 items port are
 refused naming the item: ``run resume`` and ``terminate --drain`` (item
-13), ``build --buckets`` (item 13), ``plan`` and ``describe`` (item 9f-b),
-``collect``'s default runner ``local:exec`` (item 16), ``check
---trace-plans`` (item 9g). A verb the port does not register
-(``preempt``, ``sim-worker``, ``sync-service``, ``sync-stats``) is
-refused by argparse.
+13), ``build --buckets`` (item 13), ``collect``'s default runner
+``local:exec`` (item 16). A verb the port does not register (``preempt``,
+``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
 """
 
 from __future__ import annotations
 
-import argparse
 import os
+import shutil
 import sys
 import time
 
@@ -47,11 +46,7 @@ from ..engine import Engine, Outcome, State
 from ..rpc import OutputWriter
 from ..utils.conv import parse_key_values
 
-ITEM_9F_B = ("ROADMAP queue 1 item 9f-b (the dashboard, the Prometheus "
-             "exposition, plan import and describe)")
 ITEM_13 = "ROADMAP queue 1 item 13 (buckets, packs, checkpoints and preemption)"
-ITEM_9G = ("ROADMAP queue 1 item 9g (layers 2 and 3 of tg check: plan tracing "
-           "on the meta device and the lints of the tick)")
 ITEM_16 = ("ROADMAP queue 1 item 16 (the local:exec runner, the exec:py and "
            "exec:bin builders and the sdk)")
 
@@ -109,9 +104,8 @@ def _resolve_plan(env: EnvConfig, plan: str) -> tuple[str, TestPlanManifest]:
         if os.path.isfile(manifest_path):
             return os.path.abspath(c), TestPlanManifest.load_file(manifest_path)
     raise FileNotFoundError(
-        f"plan {plan!r} not found (searched: {candidates}); copy the port's "
-        "plan directory (testground_tpu_torch/plans/<plan>) into "
-        "$TESTGROUND_HOME/plans"
+        f"plan {plan!r} not found (searched: {candidates}); "
+        f"import it with `tg plan import --from <dir>`"
     )
 
 
@@ -659,7 +653,11 @@ def register_check(sub) -> None:
     p.add_argument(
         "--trace-plans",
         action="store_true",
-        help=f"abstract plan tracing and the tick's lints (refused: {ITEM_9G})",
+        help="also build each referenced plan on the meta device at the "
+        "composition's shapes (no device memory, no kernel launch) and run "
+        "two ticks of its step: load, build, memory and step errors, and "
+        "the tick's lints (per-tick host copies, while loops on device "
+        "values, state leaves whose dtype drifts)",
     )
     p.add_argument(
         "--run-cfg",
@@ -703,8 +701,8 @@ def _resolve_plan_for_check(env: EnvConfig, comp_path: str, plan: str):
                 return os.path.abspath(c), m
     raise FileNotFoundError(
         f"plan {plan!r} for {comp_path} not found (searched "
-        f"$TESTGROUND_HOME/plans and {candidates}); copy the port's plan "
-        "directory into $TESTGROUND_HOME/plans or run check from the repo root"
+        f"$TESTGROUND_HOME/plans and {candidates}); import it with "
+        "`tg plan import --from <dir>` or run check from the repo root"
     )
 
 
@@ -722,8 +720,6 @@ def check_cmd(args) -> int:
         rule_by_id,
     )
 
-    if getattr(args, "trace_plans", False):
-        raise NotImplementedError(f"check --trace-plans is not ported yet: {ITEM_9G}")
     env = EnvConfig.load()
     overrides = parse_key_values(getattr(args, "run_cfg", []) or [])
     results = []
@@ -734,12 +730,16 @@ def check_cmd(args) -> int:
             if overrides:
                 comp.global_.run_config = dict(comp.global_.run_config or {})
                 comp.global_.run_config.update(overrides)
-            _, manifest = _resolve_plan_for_check(env, path, comp.global_.plan)
+            plan_dir, manifest = _resolve_plan_for_check(
+                env, path, comp.global_.plan
+            )
             findings = check_composition(
                 comp,
                 manifest,
                 env_layer=env.runners.get(comp.global_.runner or "sim:torch"),
                 devices=getattr(args, "devices", 0) or 0,
+                trace_plans=getattr(args, "trace_plans", False),
+                plan_sources=plan_dir,
             )
         except Exception as e:  # noqa: BLE001 — per-file isolation: the
             # failure lands in the findings document, not on stderr only
@@ -1607,28 +1607,208 @@ def top_cmd(args) -> int:
         engine.stop()
 
 
+# ------------------------------------------------------------------- plan
+
+
 def register_plan(sub) -> None:
-    p = sub.add_parser(
-        "plan", help=f"import, list, create or remove test plans (refused: {ITEM_9F_B})"
+    p = sub.add_parser("plan", help="manage test plans in $TESTGROUND_HOME/plans")
+    p.set_defaults(func=_help_func(p))
+    psub = p.add_subparsers(dest="plan_mode")
+
+    pl = psub.add_parser("list", help="list known plans")
+    pl.add_argument("--testcases", action="store_true", help="also list testcases")
+    pl.set_defaults(func=plan_list_cmd)
+
+    pi = psub.add_parser("import", help="import a plan directory or git repo")
+    pi.add_argument(
+        "--from",
+        dest="source",
+        required=True,
+        help="source dir, or a git URL with --git",
     )
-    p.add_argument("rest", nargs=argparse.REMAINDER)
-    p.set_defaults(func=plan_cmd)
+    pi.add_argument("--name", default="", help="rename the plan on import")
+    pi.add_argument(
+        "--git",
+        action="store_true",
+        help="git-clone the source (any scheme git supports)",
+    )
+    pi.add_argument(
+        "--force", action="store_true", help="overwrite an existing plan"
+    )
+    pi.set_defaults(func=plan_import_cmd)
+
+    pr = psub.add_parser("rm", help="remove an imported plan")
+    pr.add_argument("plan")
+    pr.set_defaults(func=plan_rm_cmd)
+
+    pc = psub.add_parser(
+        "create",
+        help="scaffold a new plan (an exec:py plan on local:exec, as the "
+        f"reference's; it runs once {ITEM_16} lands)",
+    )
+    pc.add_argument("plan")
+    pc.set_defaults(func=plan_create_cmd)
 
 
-def plan_cmd(args) -> int:
-    raise NotImplementedError(f"tg plan is not ported yet: {ITEM_9F_B}")
+def plan_list_cmd(args) -> int:
+    env = EnvConfig.load()
+    root = env.dirs.plans()
+    for name in sorted(os.listdir(root)) if os.path.isdir(root) else []:
+        manifest_path = os.path.join(root, name, "manifest.toml")
+        if not os.path.isfile(manifest_path):
+            continue
+        print(name)
+        if args.testcases:
+            m = TestPlanManifest.load_file(manifest_path)
+            for tc in m.testcases:
+                print(f"  {name}:{tc.name}")
+    return 0
+
+
+def plan_import_cmd(args) -> int:
+    env = EnvConfig.load()
+    tmp_ctx = None
+    try:
+        if args.git:
+            # clone through the git binary — any scheme git supports, like
+            # the reference's go-git clone path (``plan.go:210-214``) —
+            # into a tempdir, then fall through to the shared import tail
+            # so validation happens BEFORE any existing plan is replaced
+            import subprocess
+            import tempfile
+
+            name = args.name or os.path.basename(
+                args.source.rstrip("/").removesuffix(".git")
+            )
+            if name in ("", ".", ".."):
+                raise ValueError(
+                    f"cannot derive a plan name from {args.source!r}; "
+                    "pass --name"
+                )
+            tmp_ctx = tempfile.TemporaryDirectory(dir=env.dirs.work())
+            src = os.path.join(tmp_ctx.name, "clone")
+            res = subprocess.run(
+                ["git", "clone", "--depth", "1", args.source, src],
+                capture_output=True,
+                text=True,
+            )
+            if res.returncode != 0:
+                raise RuntimeError(f"git clone failed: {res.stderr.strip()}")
+        else:
+            name = args.name or os.path.basename(
+                os.path.abspath(args.source).rstrip("/")
+            )
+            src = os.path.abspath(args.source)
+        if not os.path.isfile(os.path.join(src, "manifest.toml")):
+            raise FileNotFoundError(
+                f"{args.source} has no manifest.toml at its root"
+            )
+        endpoint = _endpoint(args, env)
+        if endpoint:
+            from ..client import Client
+
+            name = Client(endpoint, token=env.client.token).import_plan(
+                src, name=name
+            )
+            print(f"imported plan {name} into daemon at {endpoint}")
+            return 0
+        dest = os.path.join(env.dirs.plans(), name)
+        if os.path.exists(dest):
+            if not args.force:
+                raise FileExistsError(
+                    f"plan {name} already exists at {dest}; "
+                    "pass --force to replace"
+                )
+            shutil.rmtree(dest)
+        shutil.copytree(
+            src, dest, ignore=shutil.ignore_patterns("__pycache__", ".git")
+        )
+        print(f"imported plan {name} -> {dest}")
+        return 0
+    finally:
+        if tmp_ctx is not None:
+            tmp_ctx.cleanup()
+
+
+def plan_rm_cmd(args) -> int:
+    env = EnvConfig.load()
+    dest = os.path.join(env.dirs.plans(), args.plan)
+    if not os.path.isdir(dest):
+        raise FileNotFoundError(f"no such plan: {args.plan}")
+    shutil.rmtree(dest)
+    print(f"removed plan {args.plan}")
+    return 0
+
+
+# the reference's scaffold, importing the port's plan SDK (item 16)
+_PLAN_TEMPLATE = '''"""{name}: a testground-tpu plan."""
+
+from testground_tpu_torch.sdk import invoke_map
+
+
+def ok(runenv):
+    runenv.record_message("hello from {name}")
+
+
+if __name__ == "__main__":
+    invoke_map({{"ok": ok}})
+'''
+
+_MANIFEST_TEMPLATE = """name = "{name}"
+
+[defaults]
+builder = "exec:py"
+runner = "local:exec"
+
+[builders."exec:py"]
+enabled = true
+
+[runners."local:exec"]
+enabled = true
+
+[[testcases]]
+name = "ok"
+instances = {{ min = 1, max = 100, default = 1 }}
+"""
+
+
+def plan_create_cmd(args) -> int:
+    env = EnvConfig.load()
+    dest = os.path.join(env.dirs.plans(), args.plan)
+    if os.path.exists(dest):
+        raise FileExistsError(f"plan {args.plan} already exists")
+    os.makedirs(dest)
+    with open(os.path.join(dest, "main.py"), "w") as f:
+        f.write(_PLAN_TEMPLATE.format(name=args.plan))
+    with open(os.path.join(dest, "manifest.toml"), "w") as f:
+        f.write(_MANIFEST_TEMPLATE.format(name=args.plan))
+    print(f"created plan {args.plan} at {dest}")
+    return 0
+
+
+# --------------------------------------------------------------- describe
 
 
 def register_describe(sub) -> None:
-    p = sub.add_parser(
-        "describe", help=f"describe a test plan (refused: {ITEM_9F_B})"
-    )
-    p.add_argument("rest", nargs=argparse.REMAINDER)
+    p = sub.add_parser("describe", help="describe a plan or test case")
+    p.add_argument("plan", help="<plan> or <plan>:<case>")
     p.set_defaults(func=describe_cmd)
 
 
 def describe_cmd(args) -> int:
-    raise NotImplementedError(f"tg describe is not ported yet: {ITEM_9F_B}")
+    env = EnvConfig.load()
+    plan, _, case = args.plan.partition(":")
+    manifest = _resolve_manifest(env, args, plan)
+    if case:
+        tc = manifest.testcase_by_name(case)
+        if tc is None:
+            raise KeyError(f"test case {case} not found in plan {plan}")
+        print(tc.describe())
+    else:
+        print(manifest.describe())
+        for tc in manifest.testcases:
+            print(tc.describe())
+    return 0
 
 
 def register_status(sub) -> None:

@@ -1,8 +1,8 @@
 """The port's ``tg`` CLI entry point — the reference's
 ``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
 ``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``daemon``, ``check``, ``version``, and the observability
-verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
+``terminate``, ``daemon``, ``check``, ``plan``, ``describe``, ``version``,
+and the observability verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
 ``top``. The engine runs in-process unless ``--endpoint`` points at a
 daemon (the reference's client↔daemon hop is transport, not semantics);
 either way a run goes through the task queue, a worker and the
@@ -11,10 +11,10 @@ either way a run goes through the task queue, a worker and the
     python -m testground_tpu_torch.cli run composition -f X.toml
     python -m testground_tpu_torch.cli daemon --listen 127.0.0.1:8042
     python -m testground_tpu_torch.cli --endpoint 127.0.0.1:8042 run ...
-    python -m testground_tpu_torch.cli check X.toml [--json]
+    python -m testground_tpu_torch.cli check X.toml [--json] [--trace-plans]
+    python -m testground_tpu_torch.cli plan import --from DIR [--name N]
 
-``plan`` and ``describe`` are refused naming ROADMAP queue 1 item 9f-b;
-``preempt`` comes with item 13.
+``preempt`` comes with ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations

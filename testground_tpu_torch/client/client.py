@@ -1,8 +1,7 @@
 """HTTP client for the daemon — the port's copy of the reference's
 ``testground_tpu/client/client.py`` (``pkg/client/client.go``), for the
 routes the port's daemon serves: the methods of the routes that come with
-ROADMAP queue 1 item 9f-b (``metrics``, ``import_plan``) and item 13
-(``preempt``, ``drain``) are left out.
+ROADMAP queue 1 item 13 (``preempt``, ``drain``) are left out.
 
 Two layers:
 
@@ -18,9 +17,12 @@ Two layers:
 
 from __future__ import annotations
 
+import io
 import json
+import os
+import tarfile
 from typing import Iterator
-from urllib.parse import urlparse
+from urllib.parse import quote, urlparse
 
 from ..engine import Task
 from ..healthcheck.report import CheckResult, Report
@@ -239,6 +241,23 @@ class Client:
         depth by priority, worker occupancy, and live task rows."""
         return self._get_json("/fleet", {})
 
+    def metrics(self) -> str:
+        """GET /metrics — the daemon's Prometheus text exposition
+        (task gauges, flow counters, perf gauges)."""
+        conn = self._conn()
+        conn.request("GET", "/metrics", headers=self._headers())
+        resp = conn.getresponse()
+        try:
+            data = resp.read()
+            if resp.status >= 400:
+                raise DaemonError(
+                    data.decode(errors="replace")[:500]
+                    or f"HTTP {resp.status}"
+                )
+            return data.decode(errors="replace")
+        finally:
+            conn.close()
+
     def events(self, since: int = 0, follow: bool = False) -> Iterator[dict]:
         """GET /events — tail the daemon's control-plane event journal
         (``daemon_events.jsonl``) as ndjson dicts. One-shot by default
@@ -365,6 +384,31 @@ class Client:
         return self._post_json(
             "/build/purge", {"builder": builder, "testplan": testplan}
         )["output"]
+
+    def import_plan(self, source_dir: str, name: str = "") -> str:
+        """Tar.gz the plan dir and POST it to /plan/import (the reference
+        ships sources as tars inside /run requests, ``client.go:84-228``);
+        returns the name the daemon imported it under."""
+        buf = io.BytesIO()
+        base = os.path.basename(os.path.abspath(source_dir).rstrip("/"))
+        with tarfile.open(fileobj=buf, mode="w:gz") as tar:
+            tar.add(
+                source_dir,
+                arcname=base,
+                filter=lambda ti: None
+                if "__pycache__" in ti.name or "/.git" in ti.name
+                else ti,
+            )
+        conn = self._conn()
+        route = "/plan/import" + (f"?name={quote(name, safe='')}" if name else "")
+        conn.request(
+            "POST",
+            route,
+            buf.getvalue(),
+            self._headers("application/gzip"),
+        )
+        obj = self._read_json_response(conn, conn.getresponse())
+        return obj["imported"]
 
 
 class RemoteEngine:

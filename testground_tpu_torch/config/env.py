@@ -31,11 +31,6 @@ DEFAULT_TASK_TIMEOUT_MIN = 10
 RUNNER_DISABLED_FLAG = "disabled"
 
 
-# Only the settings the port reads are kept: the reference's
-# ``metrics_task_limit`` comes with GET /metrics (ROADMAP queue 1 item 9f-b).
-# Other keys are ignored.
-
-
 @dataclass
 class SchedulerConfig:
     workers: int = 0
@@ -53,6 +48,10 @@ class DaemonConfig:
     github_repo_status_token: str = ""
     root_url: str = ""
     influxdb_endpoint: str = ""
+    # per-scrape task-label cardinality bound for GET /metrics (0 = the
+    # daemon's built-in default); truncation is reported via the
+    # tg_scrape_tasks_total/_elided gauges, never silent
+    metrics_task_limit: int = 0
 
 
 @dataclass
@@ -121,6 +120,12 @@ class EnvConfig:
         self.daemon.root_url = dm.get("root_url", self.daemon.root_url)
         self.daemon.influxdb_endpoint = dm.get(
             "influxdb_endpoint", self.daemon.influxdb_endpoint
+        )
+        # clamp: a negative limit would slice tasks[:-n] and export the
+        # OLDEST tasks — treat anything < 1 as "use the built-in default"
+        self.daemon.metrics_task_limit = max(
+            0,
+            int(dm.get("metrics_task_limit", self.daemon.metrics_task_limit)),
         )
         sch = dm.get("scheduler", {})
         self.daemon.scheduler.workers = int(sch.get("workers", 0))

@@ -6,9 +6,10 @@ number of CLI clients talk to over HTTP, with the reference's bearer-token
 auth (``daemon.go:49-70``) and these of its routes:
 
     POST /run /build /tasks /status /logs /outputs /terminate
-         /healthcheck /kill /delete /build/purge
-    GET  /tasks /logs /outputs /kill /delete /describe /events
+         /healthcheck /kill /delete /build/purge /plan/import
+    GET  / /tasks /logs /outputs /kill /delete /describe /events
          /journal /stats /perf /diff /stream /trace /artifact /fleet
+         /metrics /dashboard /data
 
 ``/kill`` and ``/delete`` mutate on GET exactly like the reference's
 (``daemon.go:87-88``). The read side of the observability verbs answers
@@ -16,11 +17,14 @@ as the reference's: a task's journal, its stats and perf payloads
 (``Task.stats_payload``/``perf_payload``), the RunDiff of two tasks
 (``Engine.diff_tasks``), the ndjson stream of its run rows
 (``Engine.stream_rows``), its flight-recorder events, one whitelisted run
-artifact, and the fleet view (``Engine.fleet_payload``). The routes that
-come with later ROADMAP queue 1 items answer 501 naming the item, so that
-a reference client gets a clear error instead of a 404: the dashboard
-tier (``/``, ``/dashboard``, ``/data``), ``/metrics`` and ``/plan/import``
-with item 9f-b, ``/preempt`` and ``/drain`` with item 13.
+artifact, and the fleet view (``Engine.fleet_payload``). ``/metrics`` is
+the Prometheus exposition (``metrics/prometheus.py``), ``/`` redirects to
+the HTML dashboard (``/dashboard``: the task list, or one task's
+measurement tables over the ``metrics.Viewer``), ``/data`` serves one
+measurement's rows, and ``/plan/import`` takes a plan directory as a
+tar.gz body. ``/preempt`` and ``/drain`` come with ROADMAP queue 1 item
+13 and answer 501 naming it, so that a reference client gets a clear
+error instead of a 404.
 
 Transport notes (as the reference's):
 
@@ -49,6 +53,7 @@ import json
 import os
 import shutil
 import signal
+import tarfile
 import tempfile
 import threading
 import time
@@ -62,17 +67,10 @@ from ..rpc import OutputWriter
 
 __all__ = ["Daemon", "NOT_PORTED_ROUTES", "serve"]
 
-_ITEM_9F_B = ("ROADMAP queue 1 item 9f-b (the dashboard, the Prometheus "
-              "exposition and plan import)")
 _ITEM_13 = "ROADMAP queue 1 item 13 (preemption, drain and run packs)"
 
-# the reference's routes that later items port: route -> the item
+# the reference's routes that a later item ports: route -> the item
 NOT_PORTED_ROUTES = {
-    "/": _ITEM_9F_B,
-    "/data": _ITEM_9F_B,
-    "/dashboard": _ITEM_9F_B,
-    "/metrics": _ITEM_9F_B,
-    "/plan/import": _ITEM_9F_B,
     "/preempt": _ITEM_13,
     "/drain": _ITEM_13,
 }
@@ -154,14 +152,18 @@ class _Handler(BaseHTTPRequestHandler):
             for k, v in parse_qs(url.query).items()
         }
         handlers = {
+            "/": self._root_redirect,
             "/tasks": lambda: self._tasks(q),
             "/journal": lambda: self._journal(q),
             "/stats": lambda: self._stats(q),
             "/perf": lambda: self._perf(q),
             "/diff": lambda: self._diff(q),
             "/stream": lambda: self._stream(q),
+            "/metrics": lambda: self._metrics(q),
             "/trace": lambda: self._trace(q),
             "/artifact": lambda: self._artifact(q),
+            "/data": lambda: self._data(q),
+            "/dashboard": lambda: self._dashboard(q),
             "/describe": lambda: self._describe(q),
             # the reference serves kill/delete/logs/outputs on GET too
             # (daemon.go:85-91, dashboard links); the POST forms carry the
@@ -209,6 +211,8 @@ class _Handler(BaseHTTPRequestHandler):
             "/build/purge": self._build_purge,
         }
         try:
+            if route == "/plan/import":
+                return self._plan_import()
             if route not in handlers:
                 if route in NOT_PORTED_ROUTES:
                     return self._not_ported(route)
@@ -252,8 +256,8 @@ class _Handler(BaseHTTPRequestHandler):
         manifest_path = os.path.join(plan_dir, "manifest.toml")
         if not os.path.isfile(manifest_path):
             self._send_error_json(
-                f"plan {plan!r} not found on the daemon; copy its directory "
-                "into the daemon's $TESTGROUND_HOME/plans",
+                f"plan {plan!r} not found on the daemon; "
+                "import it with `tg plan import` against --endpoint",
                 404,
             )
             return None
@@ -357,6 +361,15 @@ class _Handler(BaseHTTPRequestHandler):
         if t is None:
             return self._send_error_json(f"unknown task {body['task_id']}", 404)
         self._send_json({"task": t.to_dict()})
+
+    def _root_redirect(self) -> None:
+        """GET / → the dashboard (``daemon.go:91`` redirect)."""
+        self.send_response(302)
+        self.send_header("Location", "/dashboard")
+        # explicit empty body: keep-alive clients (curl, browsers) would
+        # otherwise read until timeout waiting for an unframed body
+        self.send_header("Content-Length", "0")
+        self.end_headers()
 
     def _get_logs(self, q: dict) -> None:
         if "task_id" not in q:
@@ -472,6 +485,16 @@ class _Handler(BaseHTTPRequestHandler):
         )
         self._send_json({"output": buf.getvalue()})
 
+    # ------------------------------------------------- dashboard tier (GET)
+
+    def _send_html(self, body: str, code: int = 200) -> None:
+        data = body.encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "text/html; charset=utf-8")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
     def _journal(self, q: dict) -> None:
         """GET /journal?task_id= — the task's result journal
         (``daemon.go:90`` getJournalHandler)."""
@@ -574,6 +597,34 @@ class _Handler(BaseHTTPRequestHandler):
                 )
         finally:
             self._end_chunked()
+
+    # Task-label cardinality bound for one /metrics scrape (most recent
+    # first — a scraper watches the daemon's working set, not history).
+    # The default; .env.toml ``[daemon] metrics_task_limit`` overrides.
+    _METRICS_TASKS_MAX = 200
+
+    def _metrics(self, q: dict) -> None:
+        """GET /metrics — Prometheus text exposition (format 0.0.4):
+        task gauges, cumulative flow counters, performance-ledger and
+        SLO gauges for the most recent tasks, and the fleet gauges, so
+        any standard scraper can watch a daemon. Truncation is never
+        silent: ``tg_scrape_tasks_total`` / ``tg_scrape_tasks_elided``
+        report how much of the task store one scrape covered."""
+        from ..metrics.prometheus import CONTENT_TYPE, render_prometheus
+
+        limit = (
+            int(self.daemon_ref.env.daemon.metrics_task_limit or 0)
+            or self._METRICS_TASKS_MAX
+        )
+        body = render_prometheus(
+            self.engine.tasks(), per_task_limit=limit,
+            fleet=self.engine.fleet_info(),
+        ).encode()
+        self.send_response(200)
+        self.send_header("Content-Type", CONTENT_TYPE)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
 
     def _fleet(self, q: dict) -> None:
         """GET /fleet — the daemon-wide summary behind ``tg top``:
@@ -776,6 +827,224 @@ class _Handler(BaseHTTPRequestHandler):
                     break
                 self.wfile.write(chunk)
                 remaining -= len(chunk)
+
+    def _data(self, q: dict) -> None:
+        """GET /data?task_id=&metric= — one measurement's sampled rows
+        (``daemon.go:83`` dataHandler; rows are the InfluxDB-table analog).
+        ``metric`` accepts the bare metric name or the full
+        ``results.<plan>-<case>.<metric>`` measurement string."""
+        from ..metrics import Viewer, measurement_name
+
+        task_id = q.get("task_id", "")
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_error_json(f"unknown task {task_id}", 404)
+        metric = q.get("metric", "")
+        prefix = measurement_name(t.plan, t.case, "")
+        if metric.startswith(prefix):
+            metric = metric[len(prefix) :]
+        if not metric:
+            return self._send_error_json("metric query param required", 400)
+        rows = Viewer(self.engine.env).get_data(
+            t.plan, t.case, metric, run_id=task_id
+        )
+        self._send_json(
+            {
+                "measurement": measurement_name(t.plan, t.case, metric),
+                "rows": [r.to_dict() for r in rows],
+            }
+        )
+
+    def _dashboard(self, q: dict) -> None:
+        """GET /dashboard[?task_id=] — HTML: the task list (``tmpl/
+        tasks.html`` analog) or one task's measurement tables
+        (``dashboard.go:44-75`` + ``tmpl/measurements.html``)."""
+        import html as _html
+
+        from ..metrics import Viewer, measurement_name
+
+        esc = _html.escape
+        task_id = q.get("task_id", "")
+        if not task_id:
+            rows = []
+            for t in self.engine.tasks(limit=100):
+                rows.append(
+                    "<tr>"
+                    f'<td><a href="/dashboard?task_id={esc(t.id)}">{esc(t.id)}</a></td>'
+                    f"<td>{esc(t.plan)}:{esc(t.case)}</td>"
+                    f"<td>{esc(t.type.value)}</td>"
+                    f"<td>{esc(t.state().state.value)}</td>"
+                    f"<td>{esc(t.outcome().value)}</td>"
+                    "</tr>"
+                )
+            return self._send_html(
+                _page(
+                    "testground tasks",
+                    "<table><tr><th>task</th><th>plan:case</th><th>type</th>"
+                    "<th>state</th><th>outcome</th></tr>"
+                    + "".join(rows)
+                    + "</table>",
+                )
+            )
+
+        t = self.engine.get_task(task_id)
+        if t is None:
+            return self._send_html(_page("not found", "Cannot get task"), 404)
+        viewer = Viewer(self.engine.env)
+        all_data = viewer.get_all_data(t.plan, t.case, run_id=task_id)
+        sections = []
+        for metric in sorted(all_data):
+            m = measurement_name(t.plan, t.case, metric)
+            rows = all_data[metric]
+            body = "".join(
+                "<tr>"
+                f"<td>{r.tick}</td><td>{esc(r.group_id)}</td>"
+                f"<td>{r.fields.get('count', '')}</td>"
+                f"<td>{_fmt(r.fields.get('mean'))}</td>"
+                f"<td>{_fmt(r.fields.get('min'))}</td>"
+                f"<td>{_fmt(r.fields.get('max'))}</td>"
+                "</tr>"
+                for r in rows
+            )
+            sections.append(
+                f"<h2>{esc(m)}</h2>"
+                "<table><tr><th>tick</th><th>group</th><th>count</th>"
+                "<th>mean</th><th>min</th><th>max</th></tr>" + body + "</table>"
+            )
+        if not sections:
+            sections = ["<p>No measurements for this test plan.</p>"]
+        # multi-[[runs]] tasks store outputs under <task_id>-<run_id> dirs
+        # (supervisor run_id framing); one link per run, else one for the
+        # single-run task
+        output_links = ""
+        artifact_links = ""
+        if t.runner:  # build tasks have no run outputs
+            run_results = (
+                t.result.get("runs") if isinstance(t.result, dict) else None
+            )
+            if isinstance(run_results, dict) and run_results:
+                links = [
+                    (f"outputs[{esc(rid)}]", f"{task_id}-{rid}")
+                    for rid in run_results
+                ]
+            else:
+                links = [("outputs", task_id)]
+            output_links = "".join(
+                f' · <a href="/outputs?runner={esc(t.runner)}&amp;run_id='
+                f'{esc(rid)}">{label}</a>'
+                for label, rid in links
+            )
+            # telemetry / trace artifacts and the profiler capture actually
+            # present in the run dir(s) — served by /artifact (whitelisted
+            # names). The reference's per-instance profiles (item 16) and
+            # xplane captures have no counterpart in the port's outputs
+            per_run = []
+            for _, rid in links:
+                run_dir = os.path.join(
+                    self.engine.env.dirs.outputs(), t.plan, rid
+                )
+                present = [
+                    name
+                    for name in self._ARTIFACT_FILES + self._PROFILE_FILES
+                    if os.path.isfile(os.path.join(run_dir, *name.split("/")))
+                ]
+                if not present:
+                    continue
+                tag = (
+                    f" [{esc(rid)}]"
+                    if rid != task_id
+                    else ""
+                )
+                per_run.append(
+                    " · ".join(
+                        f'<a href="/artifact?task_id={esc(task_id)}'
+                        f"&amp;run={esc(rid)}&amp;name={esc(name)}\">"
+                        f"{esc(name)}</a>"
+                        for name in present
+                    )
+                    + tag
+                )
+            if per_run:
+                artifact_links = (
+                    "<p>artifacts: " + " &nbsp;|&nbsp; ".join(per_run) + "</p>"
+                )
+        header = (
+            f"<p>task <code>{esc(task_id)}</code> — "
+            f"{esc(t.plan)}:{esc(t.case)} — state {esc(t.state().state.value)}, "
+            f"outcome {esc(t.outcome().value)} — "
+            f'<a href="/journal?task_id={esc(task_id)}">journal</a> · '
+            f'<a href="/stats?task_id={esc(task_id)}">stats</a> · '
+            f'<a href="/perf?task_id={esc(task_id)}">perf</a> · '
+            f'<a href="/trace?task_id={esc(task_id)}">trace</a> · '
+            f'<a href="/logs?task_id={esc(task_id)}">logs</a>'
+            + output_links
+            + "</p>"
+            + artifact_links
+        )
+        self._send_html(
+            _page(f"{t.plan}:{t.case}", header + "".join(sections))
+        )
+
+    def _plan_import(self) -> None:
+        """POST /plan/import[?name=] — body: the raw tar.gz of a plan
+        directory. Members that would land outside the extraction dir
+        (absolute paths, ``..``, links out) are refused by the tarfile
+        ``data`` filter, and a plan name must be a single path component;
+        both answer 400."""
+        from urllib.parse import parse_qs, urlparse
+
+        q = parse_qs(urlparse(self.path).query)
+        n = int(self.headers.get("Content-Length") or 0)
+        raw = self.rfile.read(n)
+        with tempfile.TemporaryDirectory() as td:
+            try:
+                with tarfile.open(fileobj=io.BytesIO(raw), mode="r:gz") as tar:
+                    tar.extractall(td, filter="data")
+            except (tarfile.TarError, OSError, EOFError) as e:
+                return self._send_error_json(f"bad plan archive: {e}", 400)
+            entries = [e for e in os.listdir(td) if not e.startswith(".")]
+            if len(entries) == 1 and os.path.isdir(os.path.join(td, entries[0])):
+                src = os.path.join(td, entries[0])
+                default_name = entries[0]
+            else:
+                src = td
+                default_name = ""
+            name = (q.get("name") or [default_name])[0]
+            if not name:
+                return self._send_error_json("plan name required", 400)
+            if not os.path.isfile(os.path.join(src, "manifest.toml")):
+                return self._send_error_json("archive has no manifest.toml", 400)
+            try:
+                dest = self._safe_plan_dir(name)
+            except ValueError as e:
+                return self._send_error_json(str(e), 400)
+            if os.path.exists(dest):
+                shutil.rmtree(dest)
+            shutil.copytree(src, dest)
+        self._send_json({"imported": name})
+
+
+def _fmt(v) -> str:
+    return f"{v:.3f}" if isinstance(v, (int, float)) else ""
+
+
+def _page(title: str, body: str) -> str:
+    """Minimal self-contained page shell (the tmpl/*.html + bootstrap
+    analog, without the static asset tree). The title is escaped here (it
+    can carry client-supplied plan/case strings); the body is the caller's
+    already-escaped markup."""
+    import html as _html
+
+    title = _html.escape(title)
+    return (
+        "<!doctype html><html><head><meta charset='utf-8'>"
+        f"<title>{title}</title>"
+        "<style>body{font-family:sans-serif;margin:2rem}"
+        "table{border-collapse:collapse;margin:1rem 0}"
+        "td,th{border:1px solid #999;padding:.3rem .6rem;text-align:left}"
+        "th{background:#eee}</style></head>"
+        f"<body><h1>{title}</h1>{body}</body></html>"
+    )
 
 
 class _ChunkSink:

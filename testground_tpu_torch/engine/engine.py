@@ -11,8 +11,8 @@ takes a queue slot, and the ``task.refused`` event of a refusal.
 The read side of the observability verbs: ``stream_rows`` (``GET
 /stream``, ``tg watch``), ``diff_tasks`` (``GET /diff``, ``tg diff``),
 and the fleet counters with ``fleet_payload`` (``GET /fleet``, ``tg top``)
-and ``fleet_info`` (the counter snapshot that the ``/metrics`` exposition
-of ROADMAP item 9f-b will render).
+and ``fleet_info`` (the counter snapshot that the ``/metrics`` exposition,
+``metrics/prometheus.py``, renders as the ``tg_fleet_*`` family).
 
 Left out, with the ROADMAP queue 1 item that ports each: preemption,
 eviction and ``drain`` (item 13: a preempted run resumes from a

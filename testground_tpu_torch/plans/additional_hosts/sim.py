@@ -44,7 +44,7 @@ class AdditionalHosts(SimTestcase):
         window = max(1, -(-env.test_instance_count // 2))
         send = t == 2 + torch.remainder(env.global_seq, window)
         ob = Outbox.single(
-            torch.tensor(host, dtype=torch.int32, device=env.device),
+            self.device_constant(host, torch.int32, env.device),
             torch.stack([torch.full_like(nonce, REQ), nonce]),
             send,
             cls.OUT_MSGS,

@@ -81,8 +81,8 @@ class Barrier(SimTestcase):
         iters = _param(env, "barrier_iterations", 10)
         dev = env.device
         # testInstanceNum = max(1, floor(N * percent)) — benchmarks.go:126-130
-        test_counts = torch.tensor(
-            [max(1, int(n * p)) for p in BARRIER_PCTS], dtype=torch.int32, device=dev
+        test_counts = self.device_constant(
+            tuple(max(1, int(n * p)) for p in BARRIER_PCTS), torch.int32, dev
         )
         phase, it = state["phase"], state["iter"]
         pct_idx = torch.div(phase, 2, rounding_mode="floor")
@@ -271,7 +271,7 @@ class Subtree(SimTestcase):
         total = k * iters
         dev = env.device
         lane = torch.arange(env.group.count, device=dev)
-        sizes = torch.tensor(SUBTREE_SIZES, dtype=torch.int32, device=dev)
+        sizes = self.device_constant(SUBTREE_SIZES, torch.int32, dev)
         series_ax = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
 
         rank = sync.last_seq[self.state_id("elected")]

@@ -224,17 +224,6 @@ class PingPongSustained(SimTestcase):
             "shape_hi": z.clone(),
         }
 
-    def _lat_consts(self, env, lat1, lat2):
-        """The group's two latencies as a float32 device constant, built on
-        the group's first step and reused: a per-tick ``torch.tensor``
-        would be a host copy every tick."""
-        cache = self.__dict__.setdefault("_lat_cache", {})
-        key = (env.group.index, env.device)
-        if key not in cache:
-            cache[key] = torch.tensor([lat1, lat2], dtype=torch.float32,
-                                      device=env.device)
-        return cache[key]
-
     def step(self, env, state, inbox, sync, t):
         n = env.test_instance_count
         p = env.group.params
@@ -274,7 +263,7 @@ class PingPongSustained(SimTestcase):
         # periodic reshape through the dynamic net-config path
         at_reshape = started & (torch.remainder(t, reshape_every) == 0) & (t > 0)
         shape_hi = torch.where(at_reshape, 1 - state["shape_hi"], state["shape_hi"])
-        lat_c = self._lat_consts(env, lat1, lat2)
+        lat_c = self.device_constant((lat1, lat2), torch.float32, env.device)
         lat = torch.where(shape_hi == 0, lat_c[0], lat_c[1])
         return self.out(
             {"rounds": rounds, "started": started, "shape_hi": shape_hi},

@@ -165,6 +165,20 @@ class Inbox:
         return self.valid.sum(dim=0, dtype=torch.int32)
 
 
+def _broadcast_len(*sizes: int) -> int:
+    """The length 1-D planes of ``sizes`` broadcast to (1 with none), as
+    ``torch.broadcast_shapes`` gives it, on the host without it: its first
+    call imports sympy, seconds on a cold process."""
+    n = max(sizes, default=1)
+    for m in sizes:
+        if m not in (1, n):
+            raise RuntimeError(
+                f"Shape mismatch: objects cannot be broadcast to a single "
+                f"shape: sizes {sizes}"
+            )
+    return n
+
+
 @dataclasses.dataclass
 class Outbox:
     """Messages emitted this tick: ``dst [OUT_MSGS, n]`` int32 (global
@@ -196,15 +210,32 @@ class Outbox:
         dst = torch.as_tensor(dst)
         dev = dst.device
         valid = torch.as_tensor(valid, device=dev)
-        pay = torch.as_tensor(payload, device=dev).to(torch.int32)
-        n = torch.broadcast_shapes(
-            dst.reshape(-1).shape if dst.dim() else (1,),
-            valid.reshape(-1).shape if valid.dim() else (1,),
-            pay.shape[1:] if pay.dim() > 1 else (1,),
-        )[0]
+        # a list of Python words is filled in on the device (zeros, the
+        # nonzero words filled), so a constant payload waits on no host copy
+        words = None
+        if isinstance(payload, (list, tuple)) and not any(
+            isinstance(x, torch.Tensor) for x in payload
+        ):
+            words = payload
+        else:
+            pay = torch.as_tensor(payload, device=dev).to(torch.int32)
+        n = _broadcast_len(
+            dst.numel() if dst.dim() else 1,
+            valid.numel() if valid.dim() else 1,
+            pay.shape[1] if words is None and pay.dim() > 1 else 1,
+        )
         ob = Outbox.empty(out_msgs, msg_width, n, dev)
         ob.dst[0] = dst.to(torch.int32)
-        ob.payload[0, : pay.shape[0]] = pay if pay.dim() > 1 else pay[:, None]
+        if words is None:
+            ob.payload[0, : pay.shape[0]] = pay if pay.dim() > 1 else pay[:, None]
+        else:
+            if len(words) > msg_width:
+                raise ValueError(
+                    f"payload of {len(words)} words > MSG_WIDTH={msg_width}"
+                )
+            for w, v in enumerate(words):
+                if v != 0:
+                    ob.payload[0, w].fill_(int(v))
         ob.valid[0] = valid.to(torch.bool)
         return ob
 
@@ -331,6 +362,18 @@ class SimTestcase:
             sig[self.state_id(name)] = w
         return sig
 
+    def device_constant(self, values, dtype, device) -> torch.Tensor:
+        """``torch.tensor(values, dtype=dtype, device=device)`` built on the
+        first call with these arguments and reused (``values`` hashable: a
+        number or a tuple). A step that made it every tick would copy host
+        data to the device, and wait, every tick. Consumers never write
+        into it."""
+        cache = self.__dict__.setdefault("_device_constants", {})
+        key = (values, dtype, torch.device(device))
+        if key not in cache:
+            cache[key] = torch.tensor(values, dtype=dtype, device=device)
+        return cache[key]
+
     def link_shape(
         self,
         latency_ms=0.0,
@@ -346,14 +389,14 @@ class SimTestcase:
         """A LinkShape plane (``network.LinkShape`` field order,
         ``pkg/sidecar/link.go:155-183``): ``[7]`` for scalars, ``[7, n]``
         when any field is an ``[n]`` tensor. float32, like the reference.
-        An all-scalar shape is built from one host copy; a mixed shape is
+        An all-scalar shape is a :meth:`device_constant`; a mixed shape is
         built on the device (zeros, the tensor fields copied in, nonzero
         scalars filled), so a shape that varies per tick waits on no host
         copy."""
         fields = (latency_ms, jitter_ms, bandwidth, loss, corrupt, reorder, duplicate)
         tensors = [x for x in fields if isinstance(x, torch.Tensor)]
         if not tensors:
-            return torch.tensor(fields, dtype=torch.float32, device=device)
+            return self.device_constant(fields, torch.float32, device)
         # the ATen op: torch.broadcast_shapes imports sympy on first use
         shape = torch.broadcast_tensors(*tensors)[0].shape
         out = torch.zeros((7, *shape), dtype=torch.float32, device=tensors[0].device)
@@ -380,17 +423,16 @@ class SimTestcase:
             (x.device for r in rules for x in r if isinstance(x, torch.Tensor)),
             torch.device("cpu"),
         )
-        rows = [
-            torch.stack(
-                torch.broadcast_tensors(
-                    *(torch.as_tensor(x, device=dev).to(torch.int32).reshape(-1)
-                      for x in rule)
-                )
-            )
-            for rule in rules
-        ]
-        n = torch.broadcast_shapes(*(r.shape[1:] for r in rows), (1,))[0]
+        # built on the device: the tensor fields copied in, nonzero scalars
+        # filled, so a rule list with scalar fields waits on no host copy
+        n = _broadcast_len(
+            *(x.numel() for r in rules for x in r if isinstance(x, torch.Tensor))
+        )
         out = torch.zeros((k, 3, n), dtype=torch.int32, device=dev)
-        for i, r in enumerate(rows):
-            out[i] = r
+        for i, rule in enumerate(rules):
+            for j, x in enumerate(rule):
+                if isinstance(x, torch.Tensor):
+                    out[i, j].copy_(x.to(torch.int32).reshape(-1))
+                elif x != 0:
+                    out[i, j].fill_(int(x))
         return out

@@ -1,6 +1,5 @@
-"""Layer 1 of the rules engine behind ``tg check`` — the port's copy of the
-reference's ``testground_tpu/sim/check.py:52-890, 1192-1304``, evaluated
-for the ``sim:torch`` runner.
+"""The rules engine behind ``tg check`` — the port's copy of the reference's
+``testground_tpu/sim/check.py``, evaluated for the ``sim:torch`` runner.
 
 Every composition-level refusal the port's executor makes is catalogued as
 a typed :class:`Rule` and evaluated statically against a composition, its
@@ -38,9 +37,49 @@ Where the port diverges from the reference's catalog:
   13), with the executor's message.
 - ``run-cfg.unknown-key`` names the ``sim:torch`` runner and the
   ``SimTorchConfig`` fields.
-- Layers 2 and 3 (``--trace-plans``: abstract plan tracing and the jaxpr
-  lints) are ROADMAP queue 1 item 9g; their ``plan.*`` rules stay in the
-  catalog and never fire.
+- Layers 2 and 3 (``check_composition(..., trace_plans=True)``, ``tg
+  check --trace-plans``) build each run's program on the **meta device**
+  where the reference traces under ``jax.eval_shape`` and ``make_jaxpr``:
+  every tensor has its shape and dtype and no storage, so nothing is
+  allocated on any device and no kernel launches. The checker loads the
+  plan, builds the program at the composition's exact shapes, sizes the
+  carry, and runs the plan's part of two ticks: an inbox of the shapes
+  ``net.deliver`` pops, then ``SimProgram._step_phase``. The rest of the
+  tick (the transport's kernels, the fault phase) reads the card on the
+  host by design and is not run. How each ``plan.*`` rule maps:
+
+  - ``plan.load-failed``: ``executor.load_and_specialize`` raises.
+  - ``plan.memory``: the carry's bytes (``engine.carry_footprint``, shapes
+    only) against the executor's own ``_precheck_device_memory``, with the
+    card the composition's ``device`` names (none without a card and
+    without ``memory_limit_bytes``: no budget), word for word.
+  - ``plan.traced-int``: a plan frame reads a device value on the host
+    (``int()``, ``bool()``, ``.item()``, ``.tolist()``, ``.cpu()``), which
+    raises on meta — the same plan logic that fails the reference's trace
+    with ``TracerIntegerConversionError``. A read from engine code is the
+    engine's own (PERF.md §7) and no finding.
+  - ``plan.while-loop`` (warn): that read's line is a ``while`` — an
+    unbounded loop over device values needs such a read in eager torch.
+  - ``plan.trace-error``: any other failure of the build or the step (a
+    data-dependent shape, ``nonzero``, mask indexing, a shape error), or
+    a step plane whose shape or dtype is not what ``enqueue``,
+    ``apply_net_updates`` and ``update_sync`` take.
+  - ``plan.host-callback`` (warn): the reference's host callbacks in the
+    tick; here, host data made into a device tensor (``torch.tensor``,
+    ``as_tensor``, ``asarray``, ``from_numpy``, and ``broadcast_shapes``,
+    whose first call imports sympy) by the plan's files or ``sim/api.py``
+    during the second step — one host copy and wait each, every tick. The
+    first step may fill a cache. ``sys.monitoring`` CALL events watch that
+    one step only; nothing of it is installed on a run's path.
+  - ``plan.weak-type`` (warn): a state leaf whose dtype after two steps
+    differs from its dtype after ``init`` (a Python float promoting an
+    ``int32`` leaf) — the port's recompile-hazard twin: the tick then
+    runs other kernels than its first.
+
+  Every finding names the deepest frame in the plan's own files (else
+  the plan's ``step``). The reference also traces the padded-ladder
+  variant of a bucketed run; that waits for buckets (ROADMAP queue 1
+  item 13). Admission at submit stays layer 1, as in the reference.
 - ``devices=0`` counts the visible cards (``torch.cuda.device_count()``),
   1 without one; a run whose ``device`` is not a card meshes nothing
   unless ``mesh`` says so, as the executor does.
@@ -48,7 +87,12 @@ Where the port diverges from the reference's catalog:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import sys
+import threading
+import traceback
 import types
 
 __all__ = [
@@ -157,7 +201,7 @@ RULES: tuple[Rule, ...] = (
     # ---- run packing
     Rule("pack.solo", "warn", "pack",
          "pack=true but the composition must run solo"),
-    # ---- abstract plan tracing (--trace-plans, item 9g: never fire)
+    # ---- abstract plan tracing (--trace-plans: the meta device)
     Rule("plan.load-failed", "error", "plan",
          "plan sources fail to import/specialize for this composition"),
     Rule("plan.traced-int", "error", "plan",
@@ -324,6 +368,8 @@ class CheckContext:
     comp: object  # api.Composition, post prepare_for_run
     cfg: object  # SimTorchConfig
     devices: int = 1
+    trace_plans: bool = False
+    plan_sources: str = ""
     raw_run_config: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -363,10 +409,11 @@ def _group_layout(run_groups):
 # ------------------------------------------------------------ rule passes
 
 
-def _add(findings, rule_id, message, run=""):
+def _add(findings, rule_id, message, run="", plan_file=""):
     r = rule_by_id(rule_id)
     findings.append(
-        Finding(rule=r.id, severity=r.severity, layer=r.layer, message=message, run=run)
+        Finding(rule=r.id, severity=r.severity, layer=r.layer, message=message,
+                run=run, plan_file=plan_file)
     )
 
 
@@ -448,8 +495,10 @@ def _run_specs(ctx, run):
     )
 
 
-def _check_run(ctx, run, findings) -> None:
-    """All config-layer rules for one [[runs]] entry."""
+def _check_run(ctx, run, findings) -> dict:
+    """All config-layer rules for one [[runs]] entry. Returns what the plan
+    layer builds the run's program with: the planes' switches, and the
+    fault and trace specs where they lower (None where they do not)."""
     from .faults import build_fault_schedule
     from .slo import build_slo_plan
     from .trace import build_trace_plan
@@ -460,10 +509,12 @@ def _check_run(ctx, run, findings) -> None:
         build_fault_schedule(vgroups, fault_specs, ctx.cfg.tick_ms)
     except ValueError as e:
         _add(findings, "faults.invalid", str(e), run=run.id)
+        fault_specs = None
     try:
         build_trace_plan(vgroups, trace_specs)
     except ValueError as e:
         _add(findings, "trace.invalid", str(e), run=run.id)
+        trace_specs = None
 
     disable_metrics = bool(ctx.comp.global_.disable_metrics)
     telemetry_on = bool(getattr(ctx.cfg, "telemetry", False)) and not disable_metrics
@@ -480,6 +531,356 @@ def _check_run(ctx, run, findings) -> None:
         _add(findings, "slo.needs-telemetry",
              slo_requires_telemetry_message(slo_plan.count, disable_metrics),
              run=run.id)
+    return {
+        "telemetry_on": telemetry_on,
+        # the executor refuses the matrix without telemetry (reported
+        # above); the plan layer then builds without it
+        "netmatrix_on": telemetry_on and bool(getattr(ctx.cfg, "netmatrix", False)),
+        "fault_specs": fault_specs,
+        "trace_specs": None if disable_metrics else trace_specs,
+    }
+
+
+# ---------------------------------------------- plan layer (--trace-plans)
+# The reference traces each plan under jax.eval_shape and make_jaxpr; the
+# port builds the run's program on the meta device, where every tensor has
+# a shape and a dtype and no storage, and runs the plan's part of two
+# ticks there. Nothing is allocated on any device and nothing launches.
+
+# what an eager read of a device value raises on the meta device: the
+# traced-count contract's failure in torch (the reference's
+# TracerIntegerConversionError and kin)
+_META_READS = (
+    (RuntimeError, "cannot be called on meta tensors"),
+    (NotImplementedError, "Cannot copy out of meta tensor"),
+)
+
+# the host→device factories the host-callback lint counts; the last is no
+# copy, but its first call imports sympy (seconds) and it runs on the host
+_HOST_FACTORIES = (
+    "tensor", "as_tensor", "asarray", "from_numpy", "broadcast_shapes",
+)
+
+
+def _in_roots(filename: str, roots, cache: dict) -> bool:
+    hit = cache.get(filename)
+    if hit is None:
+        hit = cache[filename] = os.path.realpath(filename).startswith(roots)
+    return hit
+
+
+def _plan_frame(tb, roots) -> tuple[str, int, str] | None:
+    """The deepest frame of a traceback in the plan's own files:
+    (file, line, source line)."""
+    cache: dict = {}
+    frame = None
+    for fs in traceback.extract_tb(tb):
+        if _in_roots(fs.filename, roots, cache):
+            frame = (fs.filename, fs.lineno or 0, (fs.line or "").strip())
+    return frame
+
+
+def _where(frame, plan_sources: str) -> str:
+    """``<plan dir>/<file>:<line>`` of a plan frame."""
+    base = os.path.dirname(os.path.realpath(plan_sources))
+    return f"{os.path.relpath(os.path.realpath(frame[0]), base)}:{frame[1]}"
+
+
+def _step_site(testcase) -> tuple[str, int, str]:
+    """The plan's ``step`` definition, for a finding no plan frame raised."""
+    code = type(testcase).step.__code__
+    return (code.co_filename, code.co_firstlineno, "")
+
+
+def _classify(e, roots, site) -> tuple[list[str], tuple | None]:
+    """A failure of the meta program → (rule ids, plan frame). A device
+    value read on the host from a plan frame is ``plan.traced-int``, and
+    also ``plan.while-loop`` when that line is a ``while``; a read with no
+    plan frame is the engine's own (PERF.md §7) and no finding; anything
+    else, a data-dependent shape included, is ``plan.trace-error`` at the
+    deepest plan frame, else at ``site``."""
+    frame = _plan_frame(e.__traceback__, roots)
+    read = any(isinstance(e, t) and m in str(e) for t, m in _META_READS)
+    if read:
+        if frame is None:
+            return [], None
+        rules = ["plan.traced-int"]
+        if frame[2].startswith(("while ", "while(")):
+            rules.append("plan.while-loop")
+        return rules, frame
+    return ["plan.trace-error"], frame or site
+
+
+class _HostCopies:
+    """Counts, on the calling thread, the calls of ``_HOST_FACTORIES`` whose
+    data is not a tensor, made from the plan's files or from ``sim/api.py``
+    (the helpers a step calls), while it is entered: ``sys.monitoring``
+    CALL events, installed for the one step the lint watches and removed
+    after it. Each hit is (factory, the deepest plan frame's file and
+    line)."""
+
+    def __init__(self, roots):
+        import torch
+
+        from . import api
+
+        self.roots = tuple(roots)
+        self.watch = self.roots + (os.path.realpath(api.__file__),)
+        self.targets = {id(getattr(torch, n)): n for n in _HOST_FACTORIES}
+        self._tensor = torch.Tensor
+        self.hits: list[tuple[str, str, int]] = []
+        self._files: dict = {}
+        self._plan_files: dict = {}
+        self._tool = None
+
+    def __enter__(self):
+        mon = sys.monitoring
+        free = [i for i in range(6) if mon.get_tool(i) is None]
+        if not free:
+            return self  # every tool id is taken: the lint sees nothing
+        self._tool = free[-1]
+        self._thread = threading.get_ident()
+        mon.use_tool_id(self._tool, "tg-check")
+        mon.register_callback(self._tool, mon.events.CALL, self._on_call)
+        mon.set_events(self._tool, mon.events.CALL)
+        return self
+
+    def __exit__(self, *exc):
+        if self._tool is not None:
+            mon = sys.monitoring
+            mon.set_events(self._tool, 0)
+            mon.register_callback(self._tool, mon.events.CALL, None)
+            mon.free_tool_id(self._tool)
+            # re-arm the locations this tool disabled (DISABLE outlives
+            # the tool id)
+            mon.restart_events()
+            self._tool = None
+        return False
+
+    def _on_call(self, code, offset, fn, arg0):
+        watched = _in_roots(code.co_filename, self.watch, self._files)
+        if not watched:
+            return sys.monitoring.DISABLE  # a file's calls never matter
+        name = self.targets.get(id(fn))
+        if name is None or threading.get_ident() != self._thread:
+            return None
+        if name != "broadcast_shapes" and isinstance(arg0, self._tensor):
+            return None
+        f = sys._getframe(1)
+        while f is not None and not _in_roots(
+            f.f_code.co_filename, self.roots, self._plan_files
+        ):
+            f = f.f_back
+        if f is not None:
+            self.hits.append((name, f.f_code.co_filename, f.f_lineno))
+        return None
+
+
+def _meta_inbox(cal, device):
+    """An inbox of the shapes and dtypes ``net.deliver`` pops from ``cal``."""
+    import torch
+
+    from .api import Inbox
+
+    slots = cal.slots
+    n = cal.payload[0].shape[-1] // slots
+    return Inbox(
+        payload=torch.empty((cal.width, slots, n), dtype=cal.payload[0].dtype,
+                            device=device),
+        src=torch.empty((slots, n), dtype=torch.int32, device=device),
+        valid=torch.empty((slots, n), dtype=torch.bool, device=device),
+    )
+
+
+def _step_contract(prog) -> dict:
+    """What ``net.enqueue``, ``apply_net_updates`` and ``update_sync`` take
+    of a step: plane name → (shape, dtype)."""
+    import torch
+
+    cls = type(prog.tc)
+    i32, f32, b = torch.int32, torch.float32, torch.bool
+    n, lanes = prog.n, prog.n_lanes
+    rows = max(cls.OUT_MSGS, cls.IN_MSGS) if prog.hosts else cls.OUT_MSGS
+    s, tt, pw = len(cls.STATES), len(cls.TOPICS), cls.PUB_WIDTH
+    out = {
+        "status": ((lanes,), i32),
+        "finished_at": ((lanes,), i32),
+        "dst": ((rows, lanes), i32),
+        "payload": ((rows, cls.MSG_WIDTH, lanes), i32),
+        "valid": ((rows, lanes), b),
+        "signals": ((s, n), i32),
+        "pub_payload": ((tt, pw, n), i32),
+        "pub_valid": ((tt, n), b),
+        "sub_consume": ((tt, n), i32),
+        "net_shape": ((7, lanes), f32),
+        "net_shape_valid": ((lanes,), b),
+        "net_filters": ((prog.n_regions, lanes), i32),
+        "net_filters_valid": ((lanes,), b),
+        "net_region": ((lanes,), i32),
+        "net_region_valid": ((lanes,), b),
+    }
+    if "filter_rules" in cls.SHAPING and cls.FILTER_RULES > 0:
+        out["net_rules"] = ((cls.FILTER_RULES, 3, lanes), i32)
+        out["net_rules_valid"] = ((lanes,), b)
+    return out
+
+
+def _state_dtypes(states) -> dict:
+    """State leaf → dtype, named as ``jax.tree_util.keystr`` names the
+    reference's leaves (``[group]['key']``)."""
+    return {
+        f"[{gi}][{k!r}]": v.dtype
+        for gi, st in enumerate(states)
+        for k, v in st.items()
+    }
+
+
+def _check_device(cfg):
+    """The card a run of ``cfg`` would use, for the memory budget; None
+    where this host has none (no budget, as in the executor)."""
+    import torch
+
+    dev = getattr(cfg, "device", None)
+    d = torch.device("cuda" if dev is None else dev)
+    if d.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return d
+
+
+def _trace_one_program(ctx, run, resolved, findings) -> None:
+    """Layers 2 and 3 for one run: build the run's program on the meta
+    device at the composition's exact shapes, size its carry against the
+    device budget, and run the plan's part of two ticks (an inbox of
+    ``deliver``'s shapes, then ``SimProgram._step_phase``), then hold the
+    step's planes against what the transport and the sync fold take and
+    lint the tick."""
+    import dataclasses as _dc
+
+    import torch
+
+    from ..api import RunGroup
+    from ..rpc import discard_writer
+    from .engine import carry_footprint
+    from .executor import (
+        _parse_hosts,
+        _precheck_device_memory,
+        load_and_specialize,
+        make_sim_program,
+    )
+    from .faults import build_fault_schedule
+    from .trace import build_trace_plan
+
+    plan_file = ctx.plan_sources or ctx.comp.global_.plan
+    label = f"{ctx.comp.global_.plan}:{ctx.comp.global_.case}"
+    roots = (os.path.realpath(ctx.plan_sources) + os.sep,)
+    meta = torch.device("meta")
+
+    def add(rule, msg):
+        _add(findings, rule, f"{label}: {msg}", run=run.id, plan_file=plan_file)
+
+    def failed(e, stage, site):
+        rules, frame = _classify(e, roots, site)
+        where = "" if frame is None else f" at {_where(frame, ctx.plan_sources)}"
+        for rule in rules:
+            add(rule, f"{stage} failed on the meta device at exact shapes"
+                f"{where} ({type(e).__name__}): {e}")
+        return None
+
+    try:
+        testcase, groups = load_and_specialize(
+            ctx.plan_sources,
+            ctx.comp.global_.case,
+            [RunGroup(id=rg.id, instances=int(rg.calculated_instance_count),
+                      parameters=dict(rg.test_params)) for rg in run.groups],
+            ctx.cfg.tick_ms,
+        )
+    except Exception as e:  # noqa: BLE001 — import/specialize failures
+        add("plan.load-failed",
+            f"plan failed to load/specialize at exact shapes: {e}")
+        return
+    site = _step_site(testcase)
+
+    try:
+        faults = trace = None
+        if resolved["fault_specs"] is not None:
+            faults = build_fault_schedule(groups, resolved["fault_specs"],
+                                          ctx.cfg.tick_ms)
+        if resolved["trace_specs"] is not None:
+            trace = build_trace_plan(groups, resolved["trace_specs"])
+        prog = make_sim_program(
+            testcase,
+            groups,
+            test_plan=ctx.comp.global_.plan,
+            test_case=ctx.comp.global_.case,
+            test_run="check",
+            tick_ms=ctx.cfg.tick_ms,
+            chunk=ctx.cfg.chunk,
+            hosts=_parse_hosts(getattr(ctx.cfg, "additional_hosts", None)),
+            validate=bool(getattr(ctx.cfg, "validate", False)),
+            telemetry=resolved["telemetry_on"],
+            faults=faults,
+            trace=trace,
+            netmatrix=resolved["netmatrix_on"],
+            device=meta,
+            mesh=None,
+        )
+        carry = prog.init_carry(int(ctx.cfg.seed))
+    except Exception as e:  # noqa: BLE001 — build-time refusals
+        return failed(e, "program build", site)
+
+    # the executor's capacity precheck, the same function on the same bytes
+    try:
+        _precheck_device_memory(prog, carry_footprint(carry), ctx.cfg,
+                                discard_writer(), _check_device(ctx.cfg))
+    except RuntimeError as e:
+        add("plan.memory", str(e))
+
+    before = _state_dtypes(carry.states)
+    inbox = _meta_inbox(carry.cal, meta)
+    copies = _HostCopies(roots)
+    step = None
+    try:
+        for tick in range(2):
+            # the first tick may fill a cache; the lint watches the second
+            with copies if tick == 1 else contextlib.nullcontext():
+                step = prog._step_phase(carry, inbox, carry.t)
+            carry = _dc.replace(carry, states=step["states"], status=step["status"],
+                                finished_at=step["finished_at"], t=carry.t + 1)
+    except Exception as e:  # noqa: BLE001 — the plan's step on meta
+        return failed(e, f"tick {tick}", site)
+
+    bad = []
+    for name, (shape, dtype) in _step_contract(prog).items():
+        x = step.get(name)
+        if x is None:
+            continue
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            bad.append(f"{name} {tuple(x.shape)} {x.dtype} (expected "
+                       f"{shape} {dtype})")
+    if bad:
+        add("plan.trace-error",
+            f"the step's planes at {_where(site, ctx.plan_sources)} do not "
+            f"match what the transport takes: {'; '.join(bad)}")
+
+    if copies.hits:
+        sites = sorted({f"torch.{n} at {_where((f, ln), ctx.plan_sources)}"
+                        for n, f, ln in copies.hits})
+        add("plan.host-callback",
+            f"{len(copies.hits)} host→device cop(ies) inside the step on "
+            f"the second traced tick ({', '.join(sites)}) — each waits on "
+            "the host every tick; build constants once per program (the "
+            "first step may fill a cache) and keep per-tick values on the "
+            "device")
+    after = _state_dtypes(carry.states)
+    drift = [f"{k} {before[k]} → {after[k]}" for k in before
+             if after.get(k, before[k]) != before[k]]
+    if drift:
+        shown = ", ".join(drift[:4]) + ("…" if len(drift) > 4 else "")
+        add("plan.weak-type",
+            f"{len(drift)} state leaf/leaves change dtype over two ticks "
+            f"({shown}) — a Python literal promoted the leaf; give it an "
+            "explicit dtype (torch.tensor(0.0, dtype=torch.float32), "
+            ".to(torch.int32)) so every tick runs the same kernels")
 
 
 # ------------------------------------------------------------ entry point
@@ -497,6 +898,8 @@ def check_composition(
     *,
     env_layer: dict | None = None,
     devices: int = 0,
+    trace_plans: bool = False,
+    plan_sources: str = "",
 ) -> list[Finding]:
     """Evaluate every catalogued rule against one composition.
 
@@ -505,7 +908,8 @@ def check_composition(
     manifest; ``env_layer`` the env's ``[runners."sim:torch"]`` layer
     (coalesced under the composition's run_config, the executor's
     precedence); ``devices`` the device count (0 = the visible cards, 1
-    without one).
+    without one); ``trace_plans`` adds the plan layer (layers 2 and 3, on
+    the meta device) against the plan directory ``plan_sources``.
 
     Returns ALL findings, error and warn, in evaluation order — the caller
     decides presentation and exit codes."""
@@ -533,6 +937,7 @@ def check_composition(
     if devices <= 0:
         devices = max(_visible_cards(), 1)
     ctx = CheckContext(comp=prepared, cfg=cfg, devices=devices,
+                       trace_plans=trace_plans, plan_sources=plan_sources,
                        raw_run_config=raw_cfg)
 
     _check_run_cfg_keys(ctx, findings)
@@ -540,7 +945,9 @@ def check_composition(
     _check_mesh(ctx, findings)
     _check_transport(ctx, findings)
     for run in prepared.runs:
-        _check_run(ctx, run, findings)
+        resolved = _check_run(ctx, run, findings)
+        if trace_plans and plan_sources:
+            _trace_one_program(ctx, run, resolved, findings)
     return findings
 
 

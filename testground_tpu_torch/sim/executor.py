@@ -469,18 +469,21 @@ def _mesh_journal_block(mesh, testcase, groups, hosts):
 _MEM_HEADROOM = 2.5
 
 
-def _precheck_device_memory(prog, carry: int, cfg, ow) -> None:
+def _precheck_device_memory(prog, carry: int, cfg, ow, device) -> None:
     """Refuse an oversized composition before its first tick
     (``executor.py:610-647``): the carry footprint × headroom, divided
-    across the mesh's distinct devices, against the card's memory, or an
-    explicit ``memory_limit_bytes``."""
+    across the mesh's distinct devices, against the memory of ``device``
+    (the run's card), or an explicit ``memory_limit_bytes``. ``device`` is
+    the run's device, not the program's: ``tg check`` builds the program
+    on the meta device and passes the card the run would use, or None
+    where it has none."""
     limit = int(getattr(cfg, "memory_limit_bytes", 0) or 0)
     if limit < 0:
         return
     if limit == 0:
-        if prog.device.type != "cuda":
+        if device is None or device.type != "cuda":
             return  # no device budget to check against
-        limit = torch.cuda.get_device_properties(prog.device).total_memory
+        limit = torch.cuda.get_device_properties(device).total_memory
     n_dev = 1 if prog.mesh is None else len(set(prog.mesh.devices))
     need = int(carry * _MEM_HEADROOM / n_dev)
     if need > limit:
@@ -687,7 +690,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # seconds; the run then starts from this carry
     carry0 = prog.init_carry(cfg.seed)
     carry_bytes = carry_footprint(carry0)
-    _precheck_device_memory(prog, carry_bytes, cfg, ow)
+    _precheck_device_memory(prog, carry_bytes, cfg, ow, device)
     ow.infof(
         "sim:torch %s: device carry footprint %.2f MiB (%d bytes)",
         job.run_id, carry_bytes / 2**20, carry_bytes,

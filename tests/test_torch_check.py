@@ -15,11 +15,18 @@ for the reference and ``sim:torch`` for the port:
   refusal's text among the errors, over the matrix, every key of
   ``_UNPORTED_SETTINGS``, a 2-D mesh and the indivisible lanes;
 - ``tg check``: both CLIs give the same exit codes, lines (paths aside)
-  and ``--json`` document; ``--trace-plans`` exits 1 naming item 9g.
+  and ``--json`` document, with ``--trace-plans`` too (the plan layer);
+- the plan layer (layers 2 and 3, on the meta device): one fixture plan
+  a rule fires its own rule, each naming the plan's file and line; the
+  memory rule carries the executor's refusal word for word; every plan
+  case of the port's plans is clean; and every tensor the layer made is
+  on the meta device (the host's key split and index lists aside), with
+  the lint's ``sys.monitoring`` hook gone after it.
 """
 
 import json
 import os
+import sys
 import threading
 
 import pytest
@@ -376,6 +383,10 @@ CHECK_CASES = {
     "devices": ["check", "--devices", "8", "{home}/plans/chaos/_compositions/smoke.toml"],
     "unloadable": ["check", "{home}/missing.toml",
                    "{home}/plans/network/_compositions/sustained-smoke.toml"],
+    "smokes-trace-plans": ["check", "--trace-plans",
+                           "{home}/plans/network/_compositions/sustained-smoke.toml",
+                           "{home}/plans/chaos/_compositions/smoke.toml"],
+    "bad-trace-plans": ["check", "--trace-plans", "--json", "{home}/bad.toml"],
 }
 
 
@@ -400,7 +411,8 @@ def test_tg_check_matches_jax(name, homes):
     assert got["torch"] == got["jax"]
     rc, out = got["torch"]
     want_rc = {"smokes": 0, "smokes-json": 0, "bad": 1, "bad-json": 1, "run-cfg": 1,
-               "devices": 0, "unloadable": 2}[name]
+               "devices": 0, "unloadable": 2, "smokes-trace-plans": 0,
+               "bad-trace-plans": 1}[name]
     assert rc == want_rc, out
     if name.endswith("json"):
         doc = json.loads(out)
@@ -409,10 +421,237 @@ def test_tg_check_matches_jax(name, homes):
         assert "[error] transport.unknown" in out and "slo.needs-telemetry" in out
 
 
-def test_tg_check_trace_plans_is_refused_naming_9g(homes):
-    home = homes["torch"]
-    before = sorted(os.listdir(home))
-    rc, out, err = _cli(pmain, home, ["check", "--trace-plans", str(home / "bad.toml")])
-    assert rc == 1 and out == ""
-    assert err.startswith("error: ") and "ROADMAP queue 1 item 9g" in err
-    assert sorted(os.listdir(home)) == before
+# ------------------------------------------------- the plan layer (meta)
+
+FIXTURE_SIM = """import torch
+
+from testground_tpu_torch.sim.api import RUNNING, SUCCESS, Outbox, SimTestcase
+
+
+class Item(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        if t.item() > 3:
+            return self.out(state, status=SUCCESS)
+        return self.out(state)
+
+
+class While(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        k = t.clone()
+        while bool(k > 100):
+            k = k - 1
+        return self.out(state)
+
+
+class Copy(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        w = torch.tensor([1, 2, 3], dtype=torch.int32, device=env.device)
+        return self.out(state, status=RUNNING + 0 * w[0])
+
+
+class Cached(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        if "w" not in self.__dict__:
+            self.w = torch.tensor([1, 2, 3], dtype=torch.int32, device=env.device)
+        return self.out(state, status=RUNNING + 0 * self.w[0])
+
+
+class Promote(SimTestcase):
+    def init(self, env):
+        return {"x": torch.zeros(env.group.count, dtype=torch.int32, device=env.device)}
+
+    def step(self, env, state, inbox, sync, t):
+        return self.out({"x": state["x"] + 0.5})
+
+
+class Nonzero(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        torch.nonzero(inbox.valid)
+        return self.out(state)
+
+
+class BadPlane(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        n = env.group.count
+        dst = torch.zeros((1, n + 1), dtype=torch.int32, device=env.device)
+        ob = Outbox(dst=dst, payload=torch.zeros((1, 4, n), dtype=torch.int32,
+                                                 device=env.device),
+                    valid=torch.zeros((1, n), dtype=torch.bool, device=env.device))
+        return self.out(state, outbox=ob)
+
+
+sim_testcases = {
+    "item": Item, "while": While, "copy": Copy, "cached": Cached,
+    "promote": Promote, "nonzero": Nonzero, "bad-plane": BadPlane,
+}
+"""
+
+# case: (the rules it must fire, the line of sim.py they name)
+FIXTURE_RULES = {
+    "item": (["plan.traced-int"], 8),
+    "while": (["plan.traced-int", "plan.while-loop"], 16),
+    "copy": (["plan.host-callback"], 23),
+    "cached": ([], 0),
+    "promote": (["plan.weak-type"], 0),
+    "nonzero": (["plan.trace-error"], 44),
+    # the engine refuses the plane (no plan frame): the step's definition
+    "bad-plane": (["plan.trace-error"], 49),
+    "broken": (["plan.load-failed"], 0),
+}
+
+
+def _manifest(name, cases):
+    return (f'name = "{name}"\n[defaults]\nbuilder = "sim:plan"\nrunner = "sim:torch"\n'
+            '[builders."sim:plan"]\nenabled = true\n[runners."sim:torch"]\nenabled = true\n'
+            + "".join(f'[[testcases]]\nname = "{c}"\ninstances = {{ min = 1, max = 64, '
+                      'default = 1 }\n' for c in cases))
+
+
+@pytest.fixture(scope="module")
+def fixture_plans(tmp_path_factory):
+    root = tmp_path_factory.mktemp("fixture-plans")
+    (root / "fx").mkdir()
+    (root / "fx" / "sim.py").write_text(FIXTURE_SIM)
+    (root / "fx" / "manifest.toml").write_text(
+        _manifest("fx", [c for c in FIXTURE_RULES if c != "broken"]))
+    (root / "broken").mkdir()
+    (root / "broken" / "sim.py").write_text("import no_such_module_anywhere\n")
+    (root / "broken" / "manifest.toml").write_text(_manifest("broken", ["broken"]))
+    return root
+
+
+def _trace(plan_dir, case, count=4, **run_cfg):
+    manifest = TestPlanManifest.load_file(os.path.join(plan_dir, "manifest.toml"))
+    comp = generate_default_run(Composition(
+        global_=Global(plan=manifest.name, case=case, builder="sim:plan",
+                       runner="sim:torch", total_instances=count,
+                       run_config={"device": "cpu", **run_cfg}),
+        groups=[Group(id="all", instances=Instances(count=count))]))
+    return pcheck.check_composition(comp, manifest, trace_plans=True,
+                                    plan_sources=str(plan_dir))
+
+
+@pytest.mark.parametrize("case", list(FIXTURE_RULES))
+def test_fixture_plan_fires_its_rule(case, fixture_plans):
+    rules, line = FIXTURE_RULES[case]
+    plan = "broken" if case == "broken" else "fx"
+    fs = _trace(fixture_plans / plan, case)
+    assert [f.rule for f in fs] == rules, [(f.rule, f.message) for f in fs]
+    for f in fs:
+        assert f.layer == "plan" and f.run == "default"
+        assert f.plan_file == str(fixture_plans / plan)
+        assert f.message.startswith(f"{plan}:{case}: ")
+        if line:
+            assert f"{plan}/sim.py:{line}" in f.message, f.message
+    if case == "promote":
+        assert "[0]['x'] torch.int32 → torch.float32" in fs[0].message
+    if case == "bad-plane":
+        assert "The expanded size of the tensor (4) must match" in fs[0].message
+
+
+def test_step_planes_are_held_against_what_the_transport_takes(monkeypatch):
+    """A step plane of another dtype or shape than ``enqueue``,
+    ``apply_net_updates`` and ``update_sync`` take is a trace error naming
+    each plane (the engine's ``_normalize`` makes the plan's planes
+    conform, so the step phase itself is bent here)."""
+    from testground_tpu_torch.sim.engine import SimProgram
+
+    step_phase = SimProgram._step_phase
+
+    def bent(self, carry, inbox, t):
+        out = step_phase(self, carry, inbox, t)
+        return {**out, "dst": out["dst"].float(), "signals": out["signals"][:, :1]}
+
+    monkeypatch.setattr(SimProgram, "_step_phase", bent)
+    fs = _trace(pexec.plan_dir("placebo"), "ok")
+    assert [f.rule for f in fs] == ["plan.trace-error"]
+    assert "dst (1, 4) torch.float32 (expected (1, 4) torch.int32)" in fs[0].message
+    assert "signals (0, 1) torch.int32 (expected (0, 4) torch.int32)" in fs[0].message
+    assert "placebo/sim.py:" in fs[0].message
+
+
+def test_layer_one_alone_never_traces(fixture_plans):
+    manifest = TestPlanManifest.load_file(str(fixture_plans / "fx" / "manifest.toml"))
+    comp = generate_default_run(Composition(
+        global_=Global(plan="fx", case="item", builder="sim:plan", runner="sim:torch",
+                       total_instances=2, run_config={"device": "cpu"}),
+        groups=[Group(id="all", instances=Instances(count=2))]))
+    assert pcheck.check_composition(comp, manifest) == []
+    assert pcheck.check_composition(comp, manifest, trace_plans=True) == []
+
+
+def test_memory_rule_carries_the_executors_refusal():
+    """A carry over ``memory_limit_bytes``: the finding is the executor's
+    own ``_precheck_device_memory`` refusal of the same composition."""
+    kw = dict(plan="network", case="pingpong-sustained", count=16,
+              run_cfg={"memory_limit_bytes": 4096, "max_ticks": 8})
+    comp = make_comp("torch", **kw)
+    fs = pcheck.check_composition(comp, PKG["torch"]["manifest"]("network"),
+                                  trace_plans=True,
+                                  plan_sources=pexec.plan_dir("network"))
+    assert [f.rule for f in fs] == ["plan.memory"]
+    exc = drive_executor(make_comp("torch", **kw))
+    assert isinstance(exc, RuntimeError)
+    assert fs[0].message == f"network:pingpong-sustained: {exc}"
+    assert "but the device budget is 0.00 GiB" in fs[0].message
+    # with no budget (no card, no limit) nothing is refused
+    kw["run_cfg"] = {"max_ticks": 8}
+    assert pcheck.check_composition(make_comp("torch", **kw),
+                                    PKG["torch"]["manifest"]("network"), trace_plans=True,
+                                    plan_sources=pexec.plan_dir("network")) == []
+
+
+def _port_cases():
+    for plan in sorted(os.listdir(pexec.PLANS_ROOT)):
+        path = os.path.join(pexec.PLANS_ROOT, plan, "manifest.toml")
+        if os.path.isfile(path):
+            for tc in TestPlanManifest.load_file(path).testcases:
+                yield f"{plan}:{tc.name}"
+
+
+@pytest.mark.parametrize("label", list(_port_cases()))
+def test_every_port_plan_case_is_clean(label):
+    """No plan step of the port reads a device value on the host, copies
+    host data to the card every tick or drifts a state leaf's dtype."""
+    plan, case = label.split(":")
+    run_cfg = {"additional_hosts": "http-echo"} if plan == "additional_hosts" else {}
+    fs = _trace(pexec.plan_dir(plan), case, count=16, **run_cfg)
+    assert fs == [], [(f.rule, f.message) for f in fs]
+
+
+def test_the_plan_layer_makes_meta_tensors_only(fixture_plans):
+    """Every op the plan layer dispatches, over the port's smoke
+    compositions and a fixture, yields meta tensors; the only host tensors
+    are the key split and the index lists the build copies in (a few
+    words), and no tensor lands on another device. The lint's
+    ``sys.monitoring`` tool is released after each check."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    from testground_tpu_torch.api import load_composition
+
+    made = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.extend(x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor))
+            return out
+
+    with Record():
+        for plan, rel in (("network", "sustained-smoke.toml"), ("chaos", "smoke.toml")):
+            comp = load_composition(os.path.join(pexec.plan_dir(plan), "_compositions", rel))
+            comp.global_.run_config["device"] = "cpu"
+            assert pcheck.check_composition(comp, PKG["torch"]["manifest"](plan),
+                                            trace_plans=True,
+                                            plan_sources=pexec.plan_dir(plan)) == []
+        assert [f.rule for f in _trace(fixture_plans / "fx", "copy")] == ["plan.host-callback"]
+    meta = [x for x in made if x.device.type == "meta"]
+    host = [x for x in made if x.device.type != "meta"]
+    assert len(meta) > 100
+    assert {x.device.type for x in host} <= {"cpu"}
+    # the key split is a few words; the fault and trace lane lists a few
+    # words a lane (8 lanes here)
+    assert sum(x.numel() * x.element_size() for x in host) < 16384
+    assert all(sys.monitoring.get_tool(i) != "tg-check" for i in range(6))

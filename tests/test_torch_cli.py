@@ -935,8 +935,6 @@ UNPORTED_FLAGS = {
     "build-buckets": (["build", "single", "placebo:ok", "--buckets"], "item 13"),
     "terminate-drain": (["terminate", "--drain"], "item 13"),
     "collect-local-exec": (["collect", "sometask"], "item 16"),
-    "plan": (["plan", "import", "--from", "x"], "item 9f-b"),
-    "describe": (["describe", "placebo"], "item 9f-b"),
 }
 
 

@@ -9,7 +9,7 @@ directories, lifecycle span tree included, must be equal. Also: bearer
 auth, the path-traversal guards, the observability routes (``/journal``,
 ``/stats``, ``/perf``, ``/diff``, ``/stream``, ``/trace``, ``/artifact``,
 ``/fleet``) answering as the reference's, the routes that answer 501
-naming their ROADMAP item, ``--detach``, ``--collect-file``, ``terminate`` of each
+naming their ROADMAP item (``/preempt`` and ``/drain``), ``--detach``, ``--collect-file``, ``terminate`` of each
 component type, ``/kill`` of a running task, the ``/events`` tail, two
 workers at once, ``SIGTERM`` of a daemon process, and a run on a fake
 ``cuda:1`` whose worker thread makes that card current before the first
@@ -384,13 +384,13 @@ def test_path_traversal_is_refused_as_jax(name, daemons):
 
 @pytest.mark.parametrize("route", list(NOT_PORTED_ROUTES))
 def test_not_ported_route_answers_501_naming_its_item(route, daemons):
+    assert set(NOT_PORTED_ROUTES) == {"/preempt", "/drain"}
     d = daemons["torch"]
     for method, body in (("GET", None), ("POST", {})):
         code, data = _http(d["ep"], method, route, body)
         assert code == 501, (method, route, code)
         err = json.loads(data)["error"]
-        item = "item 13" if route in ("/preempt", "/drain") else "item 9f-b"
-        assert f"ROADMAP queue 1 {item} " in err and route in err
+        assert "ROADMAP queue 1 item 13 " in err and route in err
     # the connection stays usable: a route that exists still answers
     assert _http(d["ep"], "GET", "/tasks")[0] == 200
     assert _http(d["ep"], "GET", "/no-such-route")[0] == 404

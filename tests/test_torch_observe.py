@@ -370,12 +370,6 @@ def test_diff_of_one_seed_finds_no_mismatch(mode, site):
     assert rc == 2 and "unknown diff plane" in err
 
 
-def test_plan_and_describe_are_refused_naming_9f_b(site):
-    for argv in (["plan", "import", "--from", "x"], ["describe", "network"]):
-        rc, _, err = _cli(site["homes"]["local"], argv)
-        assert rc == 1 and "ROADMAP queue 1 item 9f-b" in err, err
-
-
 def test_fleet_counters_match_jax(site, tmp_path):
     """The daemon's fleet counters: each claim in the histograms, each
     refusal counted, and the reference's keys; packs, preemptions and
