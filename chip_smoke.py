@@ -123,7 +123,18 @@ and drives the port's main path through the library entry points
               ``/metrics``, ``/dashboard`` and ``/data``; and cli@100k's
               runs alone, under a ``/metrics`` poller and under a
               dashboard poller (see ``phase_surface``)
-20. parity  — sustained, flood and storm at 4,096 instances, the faulted
+20. resume  — the checkpoint plane and the fleet controller: sustained@100k
+              through ``execute_sim_run`` with a snapshot every chunk (bytes,
+              D2H and write ms of each) against the knob at 0 in three
+              rotated turns (ms/tick; with the knob at 0 ops and syncs a
+              tick equal to a run without the key), a run cut at tick 250
+              and resumed, the faulted sustained at 4,096 snapshotted on the
+              CPU and resumed on the card, each equal to the uninterrupted
+              card run (journal, telemetry stream, final carry); an
+              in-process daemon's ``/preempt``, priority eviction and
+              ``/drain``; sustained@1M's snapshot and restore (see
+              ``phase_resume``)
+21. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -164,7 +175,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "admit", "observe", "surface", "parity")
+          "cli", "daemon", "admit", "observe", "surface", "resume", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -3704,6 +3715,291 @@ def _answers(client, proc, log_path) -> bool:
         return False
 
 
+# ---------------------------------------------------------------- resume
+
+RESUME_TURNS = 3
+
+
+def _run_points(run_dir) -> list:
+    """The ``checkpoint`` and ``resume`` span points of a run directory."""
+    with open(os.path.join(run_dir, "run_spans.jsonl")) as f:
+        events = [json.loads(ln)["event"] for ln in f if ln.strip()]
+    return [e for e in events
+            if e["type"] == "point" and e["span"] in ("checkpoint", "resume")]
+
+
+def _series(run_dir) -> list:
+    with open(os.path.join(run_dir, "sim_timeseries.jsonl")) as f:
+        return [{k: v for k, v in json.loads(ln).items() if k != "run"} for ln in f]
+
+
+def _same_end(label, full, full_dir, other, other_dir) -> int:
+    """``other`` ended as ``full`` did: the journal's flow totals, latency,
+    matrix and telemetry blocks, the telemetry stream row for row, and the
+    final carry (each run's newest snapshot is taken at its last chunk's
+    end) leaf for leaf. Returns the leaves compared."""
+    from testground_tpu_torch.sim.checkpoint import load_latest
+
+    jf, jo = full.result.journal, other.result.journal
+    keys = [k for k in jf["sim"] if k.startswith("msgs_") or k.startswith("faults_")]
+    diff = [k for k in keys + ["ticks", "latency", "net_matrix"]
+            if jf["sim"].get(k) != jo["sim"].get(k)]
+    diff += [k for k in ("telemetry", "events") if jf.get(k) != jo.get(k)]
+    check(not diff, f"resume {label}: the journal differs in {diff}")
+    check(_series(full_dir) == _series(other_dir), f"resume {label}: telemetry stream")
+    mf, lf, _ = load_latest(full_dir)
+    mo, lo, _ = load_latest(other_dir)
+    check(mf["tick"] == mo["tick"] and len(lf) == len(lo)
+          and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(lf, lo)),
+          f"resume {label}: the final carry differs")
+    return len(lf)
+
+
+def phase_resume(card) -> dict:
+    """The checkpoint plane and the fleet controller on the card:
+
+    1. sustained@100k at phase 4's parameters through ``execute_sim_run``
+       (telemetry on): with ``checkpoint_chunks = 1`` each snapshot's bytes,
+       D2H ms and write ms and no write error; ms/tick with the knob at 1
+       and at 0 in three rotated turns; with the knob at 0 the ops and the
+       sync-debug syncs of a chunk equal a run's without the key;
+    2. a run cut at tick 250 and resumed from its snapshot equal to the
+       uninterrupted card run (journal, telemetry stream, final carry),
+       with the resume's load and restore ms;
+    3. the faulted sustained at 4,096 (phase ``parity``'s) snapshotted on
+       the CPU at tick 250 and resumed on the card, equal to the card's
+       uninterrupted run;
+    4. an in-process daemon with one worker and cli@100k's composition with
+       ``checkpoint_chunks = 1``: ``POST /preempt`` after its first
+       snapshot (ms to the requeue and to completion), a priority-1
+       arrival evicting a priority-0 run, ``POST /drain`` of a running
+       task (preempted and parked) and of an idle daemon; each resumed run
+       equal to the uninterrupted one;
+    5. sustained@1M, 64 ticks, chunk 32, ``checkpoint_chunks = 1``: snapshot
+       bytes, D2H and write ms, and the restore ms of a resume."""
+    import shutil
+    import tempfile
+
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+    from testground_tpu_torch.sim.checkpoint import list_snapshots, load_latest
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    launches = dict.fromkeys(KERNELS, 0)
+    row = {"phase": "resume", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def counted(label, ran=True):
+        counts = read_launches()
+        check(not ran or all(v > 0 for v in counts.values()),
+              f"resume {label}: launches {counts}")
+        for k, v in counts.items():
+            launches[k] += v
+
+    def sustained(run_id, n=100_000, params=SUSTAINED, device="cuda", ran=True, **cfg):
+        cfg = {"chunk": 250, "max_ticks": 10_000, "telemetry": True, **cfg}
+        out, wall, rd = run_exec(exec_job(run_id, root, "network", "pingpong-sustained",
+                                          n, params, device=device, **cfg))
+        if device == "cuda":
+            counted(run_id, ran)
+        return out, wall, rd
+
+    def snapshots_of(rd) -> dict:
+        pts = [p for p in _run_points(rd) if p["span"] == "checkpoint"]
+        return {"ticks": [p["tick"] for p in pts], "bytes": [p["bytes"] for p in pts],
+                "d2h_ms": [p["d2h_ms"] for p in pts], "write_ms": [p["write_ms"] for p in pts]}
+
+    def resume_point(rd) -> dict:
+        pts = [p for p in _run_points(rd) if p["span"] == "resume"]
+        check(len(pts) == 1, f"resume: {rd} has {len(pts)} resume points")
+        return {k: pts[0][k] for k in ("from_tick", "from_run", "load_ms", "restore_ms")}
+
+    try:
+        # 1. the snapshot's cost on sustained@100k
+        sustained("warm-up")
+        step("warm_up")
+        ms = {"off": [], "on": []}
+        full = None
+        for i in range(RESUME_TURNS):
+            for way in (("off", "on") if i % 2 == 0 else ("on", "off")):
+                rid = f"{way}-{i}"
+                out, wall, rd = sustained(rid, **({"checkpoint_chunks": 1} if way == "on"
+                                                  else {}))
+                check(out.result.outcome.value == "success", f"resume {rid}: outcome")
+                ms[way].append(wall / out.result.journal["telemetry"]["rows"] * 1e3)
+                if way == "on":
+                    ck = out.result.journal["sim"]["checkpoint"]
+                    check(ck["count"] >= 2 and "errors" not in ck,
+                          f"resume {rid}: sim.checkpoint {ck}")
+                    if full is None:
+                        full = (out, rd)
+                        row["snapshots_100k"] = snapshots_of(rd)
+                    else:
+                        shutil.rmtree(rd)
+        row["ms_per_tick_100k"] = {
+            **ms, "median_off": statistics.median(ms["off"]),
+            "median_on": statistics.median(ms["on"]),
+            "delta": statistics.median(ms["on"]) - statistics.median(ms["off"]),
+        }
+        step("turns")
+
+        def ops_syncs(rid, **cfg):
+            job = exec_job(rid, root, "network", "pingpong-sustained", 100_000, SUSTAINED,
+                           chunk=250, max_ticks=250, telemetry=True, **cfg)
+            ((_, _, _), ops), syncs = counted_syncs(lambda: dispatched_ops(
+                lambda: run_exec(job)))
+            counted(rid)
+            return ops / 250, syncs / 250
+
+        absent = ops_syncs("key-absent")
+        zero = ops_syncs("key-zero", checkpoint_chunks=0)
+        check(absent == zero, f"resume: knob at 0 {zero} != no key {absent}")
+        row["knob_0"] = {"ops_per_tick": zero[0], "syncs_per_tick": zero[1],
+                         "absent": {"ops_per_tick": absent[0], "syncs_per_tick": absent[1]}}
+        step("zero_overhead")
+
+        # 2. cut at 250 and resumed, on the card
+        sustained("cut", checkpoint_chunks=1, max_ticks=250)
+        res, _, res_rd = sustained("res", checkpoint_chunks=1, resume_from="cut")
+        row["cut_resume_100k"] = {
+            **resume_point(res_rd),
+            "leaves_compared": _same_end("100k", *full, res, res_rd)}
+        step("cut_resume")
+
+        # 3. snapshotted on the CPU, resumed on the card
+        faults = sustained_fault_tables(4096)[""]
+        kw = dict(n=4096, faults=faults, max_ticks=1000, netmatrix=True,
+                  checkpoint_chunks=1)
+        f_full = sustained("f-card", **kw)
+        sustained("f-cpu", device="cpu", **{**kw, "max_ticks": 250})
+        f_res = sustained("f-res", resume_from="f-cpu", **kw)
+        check(f_full[0].result.journal["sim"]["faults_crashed"] > 0, "resume: no crash")
+        row["cpu_to_card_4096"] = {**resume_point(f_res[2]),
+                                   "leaves_compared": _same_end("cpu→card", f_full[0],
+                                                                f_full[2], f_res[0],
+                                                                f_res[2])}
+        step("cpu_to_card")
+
+        # 4. the daemon: preempt, evict, drain
+        env = EnvConfig.load(home=cli_home(root, "daemon"))
+        env.daemon.scheduler.workers = 1
+        outputs = env.dirs.outputs()
+        daemon = Daemon(env=env, listen="127.0.0.1:0")
+        daemon.start()
+        client = Client(daemon.address)
+        path = daemon_composition(root, "cli-100k-ckpt", 100_000, SUSTAINED,
+                                  cfg="checkpoint_chunks = 1")
+        comp = load_composition(path).to_dict()
+        base = full[0].result.journal["sim"]
+
+        def first_snapshot(tid):
+            _wait_for(lambda: list_snapshots(os.path.join(outputs, "network", tid)),
+                      f"the first snapshot of {tid}")
+
+        _, full_leaves, _ = load_latest(full[1])
+
+        def equal_flows(label, t):
+            """The daemon's run ended as the uninterrupted executor run: its
+            flow totals, and its final carry (its newest snapshot)."""
+            sim = t["result"]["journal"]["sim"]
+            diff = [k for k in base if (k.startswith("msgs_") or k == "ticks")
+                    and sim.get(k) != base[k]]
+            check(t["outcome"] == "success" and not diff,
+                  f"resume daemon {label}: {t['outcome']} {t['error']} {diff}")
+            if sim.get("checkpoint", {}).get("count"):
+                _, leaves, _ = load_latest(os.path.join(outputs, "network", t["id"]))
+                check(all(np.array_equal(a, b) for a, b in zip(leaves, full_leaves)),
+                      f"resume daemon {label}: the final carry differs")
+
+        stopped = False
+        try:
+            reset_launches()
+            tid = client.run(comp)
+            first_snapshot(tid)
+            t_pre = time.time()
+            check(client.preempt(tid) == {"ok": True, "queued": False}, "resume: /preempt")
+            t = _wait_done(client, tid, 300)
+            equal_flows("preempted", t)
+            states = [(s["state"], s["created"]) for s in t["states"]]
+            check([s for s, _ in states] == ["scheduled", "processing", "scheduled",
+                                             "processing", "complete"],
+                  f"resume daemon: states {states}")
+            resumed = t["result"]["journal"]["sim"]["checkpoint"]["resumed"]
+            check(resumed["from_run"] == tid and resumed["from_tick"] >= 250,
+                  f"resume daemon: resumed {resumed}")
+            row["daemon_preempt"] = {
+                "preempt_to_requeue_ms": (states[2][1] - t_pre) * 1e3,
+                "preempt_to_done_ms": (states[-1][1] - t_pre) * 1e3,
+                "resumed_from_tick": resumed["from_tick"],
+                "preemptions": t["trace"]["preemptions"]}
+            step("daemon_preempt")
+
+            victim = client.run(comp)
+            first_snapshot(victim)
+            hi = client.run(comp, priority=1)
+            t_hi, t_v = _wait_done(client, hi, 300), _wait_done(client, victim, 300)
+            equal_flows("evicting", t_hi)
+            equal_flows("evicted", t_v)
+            evicted = [e for e in client.events() if e["type"] == "task.evicted"]
+            check(len(evicted) == 1 and evicted[0]["task"] == victim
+                  and evicted[0]["by"] == hi, f"resume daemon: evictions {evicted}")
+            row["daemon_evict"] = {
+                "victim_preemptions": t_v["trace"]["preemptions"],
+                "victim_resumed_from_tick":
+                    t_v["result"]["journal"]["sim"]["checkpoint"]["resumed"]["from_tick"]}
+            step("daemon_evict")
+
+            parked = client.run(comp)
+            first_snapshot(parked)
+            t0 = time.perf_counter()
+            drained = client.drain(timeout_secs=120)
+            row["daemon_drain"] = {"busy_drain_ms": (time.perf_counter() - t0) * 1e3}
+            check(drained["drained"] and drained["preempted"] == [parked],
+                  f"resume daemon: /drain {drained}")
+            _wait_for(lambda: daemon._stopped, "the drained daemon to stop")
+            stopped = True
+            kept = daemon.engine.storage.get(parked)
+            check(kept.state().state.value == "scheduled"
+                  and kept.trace.get("preemptions") == 1
+                  and kept.composition["global"]["run_config"]["resume_from"] == parked,
+                  "resume daemon: the drained task is not parked")
+            counted("daemon")
+            idle = Daemon(env=EnvConfig.load(home=cli_home(root, "idle")),
+                          listen="127.0.0.1:0")
+            idle.start()
+            t0 = time.perf_counter()
+            got = Client(idle.address).drain(timeout_secs=10)
+            row["daemon_drain"]["idle_drain_ms"] = (time.perf_counter() - t0) * 1e3
+            check(got == {"drained": True, "preempted": [], "canceled": []},
+                  f"resume: idle /drain {got}")
+            _wait_for(lambda: idle._stopped, "the idle daemon to stop")
+            step("daemon_drain")
+        finally:
+            if not stopped:
+                daemon.stop()
+
+        # 5. sustained@1M
+        n1, p1 = 1_000_000, {"duration_ticks": "10000"}
+        _, wall, rd = sustained("1m", n=n1, params=p1, chunk=32, max_ticks=64,
+                                checkpoint_chunks=1)
+        _, _, rd_res = sustained("1m-res", n=n1, params=p1, chunk=32, max_ticks=64,
+                                 checkpoint_chunks=1, resume_from="1m", ran=False)
+        row["scale_1m"] = {"ms_per_tick": wall / 64 * 1e3, **snapshots_of(rd),
+                           **resume_point(rd_res)}
+        step("scale_1m")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 # ------------------------------------------------------------ main
 
 
@@ -3823,7 +4119,7 @@ def main(argv=None) -> int:
                    ("plans", phase_plans), ("executor", phase_executor),
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
                    ("admit", phase_admit), ("observe", phase_observe),
-                   ("surface", phase_surface)):
+                   ("surface", phase_surface), ("resume", phase_resume)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -1,8 +1,6 @@
 """Run and build inputs and outputs — the port's own copies of the
 reference's ``RunGroup``, ``RunInput``, ``RunOutput``, ``BuildInput`` and
-``BuildOutput`` and ``CollectionInput`` (``testground_tpu/api/run_input.py``),
-without the engine's preemption signal (``preempt``, ROADMAP queue 1 item
-13).
+``BuildOutput`` and ``CollectionInput`` (``testground_tpu/api/run_input.py``).
 
 ``RunInput.env`` is the port's :class:`~testground_tpu_torch.config.EnvConfig`
 when a run comes through the runner; a library caller may pass anything
@@ -68,6 +66,10 @@ class RunInput:
     # EnvConfig, or anything with ``dirs.outputs()``; None runs without an
     # outputs dir
     env: Any = None
+    # the fleet controller's preemption signal (engine/controller.py): a
+    # threading.Event the supervisor arms to stop the run at a chunk
+    # boundary for a live migration. Process-local, like env
+    preempt: Any = None
 
 
 @dataclass

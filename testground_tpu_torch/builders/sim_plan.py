@@ -8,10 +8,15 @@ not processes, so the "artifact" is a snapshot of the plan source dir
 ``load_sim_testcases`` as it loads the package's own plan directory (the
 port's plans import ``testground_tpu_torch`` absolutely). Queued runs are
 immune to source edits.
+
+``_source_digest`` is the reference's digest of a plan snapshot's Python
+sources, the part of a checkpoint's ``build_key`` that refuses a resume
+after a plan edit (``sim/checkpoint.py``).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import shutil
 import threading
@@ -21,6 +26,22 @@ from ..rpc import OutputWriter
 from .base import Builder, purge_snapshots
 
 __all__ = ["SimPlanBuilder"]
+
+
+def _source_digest(artifact_dir: str) -> str:
+    """Digest of the snapshot's Python sources (path + contents)
+    (``builders/sim_plan.py:27-40`` of the reference)."""
+    h = hashlib.sha256()
+    for root, dirs, files in os.walk(artifact_dir):
+        dirs.sort()
+        for name in sorted(files):
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, artifact_dir).encode())
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
 
 
 class SimPlanBuilder(Builder):

@@ -17,11 +17,14 @@ in-process ``Engine`` whose task store is on disk, so that ``status``,
 matches the reference ("run is queued with ID", the task log, "finished
 run with ID"), and so does the ``--result-file`` CSV.
 
+The fleet controller's verbs: ``run resume`` (a checkpointed task queued
+again with ``resume_from`` at its own run), ``preempt`` and ``terminate
+--drain``.
+
 The reference's flags and verbs that later ROADMAP queue 1 items port are
-refused naming the item: ``run resume`` and ``terminate --drain`` (item
-13), ``build --buckets`` (item 13), ``collect``'s default runner
-``local:exec`` (item 16). A verb the port does not register (``preempt``,
-``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
+refused naming the item: ``build --buckets`` (item 13b), ``collect``'s
+default runner ``local:exec`` (item 16). A verb the port does not register
+(``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ from ..engine import Engine, Outcome, State
 from ..rpc import OutputWriter
 from ..utils.conv import parse_key_values
 
-ITEM_13 = "ROADMAP queue 1 item 13 (buckets, packs, checkpoints and preemption)"
+ITEM_13 = "ROADMAP queue 1 item 13b (buckets, packs and the 2-D mesh)"
 ITEM_16 = ("ROADMAP queue 1 item 16 (the local:exec runner, the exec:py and "
            "exec:bin builders and the sdk)")
 
@@ -267,21 +270,61 @@ def register_run(sub) -> None:
 
     pr = psub.add_parser(
         "resume",
-        help=f"resume a checkpointed run (refused: {ITEM_13})",
+        help="resume an interrupted checkpointed run from its newest "
+        "snapshot (docs/CHECKPOINT.md): re-queues the task's own "
+        "composition with runner config resume_from=<task>, so the new "
+        "run seeds its carry from the snapshot and continues "
+        "bit-identically",
     )
     pr.add_argument("task", help="task id of the checkpointed run")
-    pr.add_argument("--run-cfg", action="append", default=[])
-    pr.add_argument("--detach", action="store_true")
+    pr.add_argument(
+        "--run-cfg",
+        action="append",
+        default=[],
+        help="override runner configuration k=v on the resumed run "
+        "(repeatable) — e.g. max_ticks=10000000 to extend a "
+        "budget-interrupted soak; program-shaping options still "
+        "validate against the snapshot manifest",
+    )
+    pr.add_argument(
+        "--detach",
+        action="store_true",
+        help="queue the resumed task and exit without waiting",
+    )
     _add_priority_flag(pr)
     _add_metadata_flags(pr)
     pr.set_defaults(func=run_resume_cmd)
 
 
 def run_resume_cmd(args) -> int:
-    raise NotImplementedError(
-        f"run resume seeds a run from a checkpoint, which is not ported yet: "
-        f"{ITEM_13}"
-    )
+    """``tg run resume <task>`` (``commands.py:275-312``): the interrupted
+    task's own composition, its artifacts already resolved, queued again
+    with ``resume_from`` naming the old run."""
+    engine = _engine(args)
+    try:
+        t = engine.get_task(args.task)
+        if t is None:
+            raise KeyError(f"unknown task {args.task}")
+        if not t.composition:
+            raise ValueError(f"task {args.task} carries no composition to resume")
+        comp = Composition.from_dict(t.composition)
+        if len(comp.runs) > 1:
+            # a multi-[[runs]] task writes one outputs dir per run
+            # (<task>-<run id>), and one resume_from cannot name them all
+            raise ValueError(
+                f"task {t.id} is a multi-[[runs]] composition "
+                f"({len(comp.runs)} runs) — resume one run at a time by "
+                "re-running the composition framed to that run "
+                "(--run-ids <id>) with run config "
+                f"resume_from = \"{t.id}-<run id>\""
+            )
+        comp.global_.run_config = dict(comp.global_.run_config or {})
+        comp.global_.run_config.update(parse_key_values(getattr(args, "run_cfg", [])))
+        comp.global_.run_config["resume_from"] = t.id
+        print(f"resuming task {t.id} ({t.name()}) from its newest snapshot")
+    finally:
+        engine.stop()
+    return _run(args, comp)
 
 
 def run_composition_cmd(args) -> int:
@@ -502,7 +545,7 @@ def register_build(sub) -> None:
 
 def _refuse_buckets(args) -> None:
     """``build --buckets`` precompiles the bucket ladder into XLA's cache
-    in the reference; the ladder is item 13, and the port has no such
+    in the reference; the ladder is item 13b, and the port has no such
     cache."""
     if args.buckets:
         raise NotImplementedError(
@@ -1952,17 +1995,64 @@ def register_terminate(sub) -> None:
     p.add_argument(
         "--drain",
         action="store_true",
-        help=f"gracefully drain the daemon instead (refused: {ITEM_13})",
+        help="gracefully drain the daemon instead: stop claiming, "
+        "checkpoint + requeue running runs (they resume on restart), "
+        "cancel builds, then shut the daemon down",
     )
     p.set_defaults(func=terminate_cmd)
 
 
+def register_preempt(sub) -> None:
+    p = sub.add_parser(
+        "preempt",
+        help="checkpoint-and-requeue a running task at its next chunk "
+        "boundary (the fleet controller's live-migration verb); a "
+        "checkpointed run resumes bit-identically when re-claimed",
+    )
+    p.add_argument("task", help="task id")
+    p.set_defaults(func=preempt_cmd)
+
+
+def preempt_cmd(args) -> int:
+    """``tg preempt <task>`` (``commands.py:2013-2040``)."""
+    engine = _engine(args)
+    try:
+        res = engine.preempt(args.task)
+        if not res.get("ok"):
+            print(f"preempt refused: {res.get('error', 'unknown')}", file=sys.stderr)
+            return 1
+        if res.get("queued"):
+            print(f"task {args.task} is still queued — nothing to preempt")
+        else:
+            print(f"task {args.task} will checkpoint and requeue at its "
+                  "next chunk boundary")
+        return 0
+    finally:
+        engine.stop()
+
+
 def terminate_cmd(args) -> int:
     if getattr(args, "drain", False):
-        raise NotImplementedError(
-            f"terminate --drain checkpoints and requeues the daemon's runs, "
-            f"which is not ported yet: {ITEM_13}"
-        )
+        # the whole daemon (commands.py:2055-2085)
+        if args.runner or args.builder:
+            print("--drain drains the whole daemon; it takes no "
+                  "--runner/--builder", file=sys.stderr)
+            return 1
+        engine = _engine(args)
+        try:
+            res = engine.drain()
+            print(
+                "daemon drained: {drained} worker(s) idle, "
+                "{preempted} task(s) preempted, "
+                "{canceled} build(s) canceled".format(
+                    drained=res.get("drained"),
+                    preempted=res.get("preempted", 0),
+                    canceled=res.get("canceled", 0),
+                )
+            )
+            return 0 if res.get("drained") else 1
+        finally:
+            engine.stop()
     # one component at a time, like the reference (terminate.go:38-45)
     if bool(args.runner) == bool(args.builder):
         print("specify exactly one of --runner or --builder", file=sys.stderr)

@@ -1,7 +1,8 @@
 """The port's ``tg`` CLI entry point — the reference's
 ``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
 ``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``daemon``, ``check``, ``plan``, ``describe``, ``version``,
+``terminate``, ``preempt``, ``daemon``, ``check``, ``plan``, ``describe``,
+``version``,
 and the observability verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
 ``top``. The engine runs in-process unless ``--endpoint`` points at a
 daemon (the reference's client↔daemon hop is transport, not semantics);
@@ -13,8 +14,6 @@ either way a run goes through the task queue, a worker and the
     python -m testground_tpu_torch.cli --endpoint 127.0.0.1:8042 run ...
     python -m testground_tpu_torch.cli check X.toml [--json] [--trace-plans]
     python -m testground_tpu_torch.cli plan import --from DIR [--name N]
-
-``preempt`` comes with ROADMAP queue 1 item 13.
 """
 
 from __future__ import annotations
@@ -61,6 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
     commands.register_collect(sub)
     commands.register_healthcheck(sub)
     commands.register_terminate(sub)
+    commands.register_preempt(sub)
     commands.register_daemon(sub)
     commands.register_check(sub)
     commands.register_version(sub)

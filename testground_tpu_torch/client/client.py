@@ -1,7 +1,6 @@
 """HTTP client for the daemon — the port's copy of the reference's
 ``testground_tpu/client/client.py`` (``pkg/client/client.go``), for the
-routes the port's daemon serves: the methods of the routes that come with
-ROADMAP queue 1 item 13 (``preempt``, ``drain``) are left out.
+routes the port's daemon serves, ``preempt`` and ``drain`` among them.
 
 Two layers:
 
@@ -367,6 +366,16 @@ class Client:
     def kill(self, task_id: str) -> bool:
         return bool(self._post_json("/kill", {"task_id": task_id})["killed"])
 
+    def preempt(self, task_id: str) -> dict:
+        """POST /preempt — checkpoint and requeue a running task
+        (``client.py:367-375``)."""
+        return self._post_json("/preempt", {"task_id": task_id})
+
+    def drain(self, timeout_secs: float = 30.0) -> dict:
+        """POST /drain — stop claiming, checkpoint and requeue the running
+        runs, then shut the daemon down."""
+        return self._post_json("/drain", {"timeout_secs": timeout_secs})
+
     def delete(self, task_id: str) -> bool:
         """Delete a finished task's record + log (``daemon.go:88``)."""
         return bool(
@@ -534,6 +543,12 @@ class RemoteEngine:
 
     def kill(self, task_id: str) -> bool:
         return self.client.kill(task_id)
+
+    def preempt(self, task_id: str) -> dict:
+        return self.client.preempt(task_id)
+
+    def drain(self, timeout_secs: float = 30.0) -> dict:
+        return self.client.drain(timeout_secs=timeout_secs)
 
     def delete_task(self, task_id: str) -> bool:
         return self.client.delete(task_id)

@@ -22,9 +22,9 @@ the Prometheus exposition (``metrics/prometheus.py``), ``/`` redirects to
 the HTML dashboard (``/dashboard``: the task list, or one task's
 measurement tables over the ``metrics.Viewer``), ``/data`` serves one
 measurement's rows, and ``/plan/import`` takes a plan directory as a
-tar.gz body. ``/preempt`` and ``/drain`` come with ROADMAP queue 1 item
-13 and answer 501 naming it, so that a reference client gets a clear
-error instead of a 404.
+tar.gz body. ``/preempt`` checkpoints and requeues one running task
+(``Engine.preempt``), ``/drain`` drains the daemon (``Engine.drain``) and
+then stops it, and SIGTERM drains before the daemon exits.
 
 Transport notes (as the reference's):
 
@@ -65,15 +65,7 @@ from ..engine import Engine
 from ..logging_ import S
 from ..rpc import OutputWriter
 
-__all__ = ["Daemon", "NOT_PORTED_ROUTES", "serve"]
-
-_ITEM_13 = "ROADMAP queue 1 item 13 (preemption, drain and run packs)"
-
-# the reference's routes that a later item ports: route -> the item
-NOT_PORTED_ROUTES = {
-    "/preempt": _ITEM_13,
-    "/drain": _ITEM_13,
-}
+__all__ = ["Daemon", "serve"]
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -113,15 +105,6 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send_error_json(self, msg: str, code: int = 400) -> None:
         self._send_json({"error": msg}, code)
-
-    def _not_ported(self, route: str) -> None:
-        # drain a request body so the keep-alive connection stays framed
-        n = int(self.headers.get("Content-Length") or 0)
-        if n:
-            self.rfile.read(n)
-        self._send_error_json(
-            f"route {route} is not ported yet: {NOT_PORTED_ROUTES[route]}", 501
-        )
 
     def _start_stream(self, content_type: str = "application/x-ndjson"):
         self.send_response(200)
@@ -179,8 +162,6 @@ class _Handler(BaseHTTPRequestHandler):
         }
         h = handlers.get(url.path)
         if h is None:
-            if url.path in NOT_PORTED_ROUTES:
-                return self._not_ported(url.path)
             return self._send_error_json("not found", 404)
         try:
             return h()
@@ -207,6 +188,10 @@ class _Handler(BaseHTTPRequestHandler):
             "/terminate": self._terminate,
             "/healthcheck": self._healthcheck,
             "/kill": self._kill,
+            # the fleet controller: checkpoint and requeue a running task,
+            # drain the whole daemon
+            "/preempt": self._preempt,
+            "/drain": self._drain,
             "/delete": self._delete,
             "/build/purge": self._build_purge,
         }
@@ -214,8 +199,6 @@ class _Handler(BaseHTTPRequestHandler):
             if route == "/plan/import":
                 return self._plan_import()
             if route not in handlers:
-                if route in NOT_PORTED_ROUTES:
-                    return self._not_ported(route)
                 return self._send_error_json("not found", 404)
             return handlers[route](self._json_body())
         except BrokenPipeError:
@@ -457,6 +440,25 @@ class _Handler(BaseHTTPRequestHandler):
             return self._send_error_json("task_id param required", 400)
         ok = self.engine.kill(task_id)
         self._send_json({"killed": bool(ok)})
+
+    def _preempt(self, body: dict) -> None:
+        """Checkpoint and requeue one running task (``server.py:444-452``);
+        the run stops at its next chunk boundary."""
+        task_id = body.get("task_id")
+        if not task_id:
+            return self._send_error_json("task_id param required", 400)
+        self._send_json(self.engine.preempt(task_id))
+
+    def _drain(self, body: dict) -> None:
+        """Drain, answer with the drain's result, then stop the daemon from
+        a timer thread (``httpd.shutdown()`` from this handler's thread
+        would close the socket under this very response)."""
+        timeout = float(body.get("timeout_secs", 30.0) or 30.0)
+        res = self.engine.drain(timeout_secs=timeout)
+        self._send_json(res)
+        t = threading.Timer(0.2, self.daemon_ref.stop)
+        t.daemon = True
+        t.start()
 
     def _describe(self, q: dict) -> None:
         """GET /describe?plan= — the daemon-side manifest, so a remote CLI
@@ -757,9 +759,14 @@ class _Handler(BaseHTTPRequestHandler):
     # the torch.profiler capture (``profile = true``) lands at
     # profiles/trace.json under the run dir — served so a remote `tg`
     # session can fetch it. The reference's per-instance cProfile dumps
-    # (item 16), xplane captures and checkpoints (item 13) have no
-    # counterpart in the port's run outputs.
+    # (item 16) and xplane captures have no counterpart in the port's run
+    # outputs.
     _PROFILE_FILES = ("profiles/trace.json",)
+    # snapshots (sim/checkpoint.py) at checkpoints/ckpt-<tick>.npz, served
+    # so an operator can migrate a run between machines; exact depth and
+    # name shape, every component validated
+    _CHECKPOINT_PREFIX = "checkpoints"
+    _CHECKPOINT_NAME = ("ckpt-", ".npz")
 
     @classmethod
     def _artifact_relpath(cls, name: str) -> str | None:
@@ -769,6 +776,16 @@ class _Handler(BaseHTTPRequestHandler):
             return name
         if name in cls._PROFILE_FILES:
             return os.path.join(*name.split("/"))
+        parts = name.split("/")
+        if (
+            len(parts) == 2
+            and parts[0] == cls._CHECKPOINT_PREFIX
+            and parts[1].startswith(cls._CHECKPOINT_NAME[0])
+            and parts[1].endswith(cls._CHECKPOINT_NAME[1])
+            and all(p and p not in (".", "..") and p == os.path.basename(p)
+                    and "\\" not in p for p in parts)
+        ):
+            return os.path.join(*parts)
         return None
 
     def _artifact(self, q: dict) -> None:
@@ -1099,13 +1116,11 @@ class Daemon:
         S().info("daemon listening on %s", self.address)
 
         def _on_sigterm(signum, frame):  # noqa: ARG001
-            # the reference drains here (checkpoint + requeue, ROADMAP
-            # queue 1 item 13); the port stops: a task still running is
-            # PROCESSING in the store, and a restarted daemon requeues it
-            # (storage.recover_processing). A thread, because the handler
+            # graceful drain: checkpoint and requeue the running work,
+            # journal daemon.drain, exit 0. A thread, because the handler
             # runs ON the serving thread — httpd.shutdown() here would
             # deadlock serve_forever
-            threading.Thread(target=self.stop, daemon=True).start()
+            threading.Thread(target=self._drain_and_stop, daemon=True).start()
 
         try:
             signal.signal(signal.SIGTERM, _on_sigterm)
@@ -1118,8 +1133,16 @@ class Daemon:
         finally:
             self.stop()
 
+    def _drain_and_stop(self) -> None:
+        try:
+            self.engine.drain()
+        except Exception as e:  # noqa: BLE001 — still shut down
+            S().warning("drain on SIGTERM failed: %s", e)
+        self.stop()
+
     def stop(self) -> None:
-        # idempotent: SIGTERM and serve_forever's finally may both reach here
+        # idempotent: SIGTERM's drain, /drain's timer and serve_forever's
+        # finally may all reach here
         with self._stop_lock:
             if self._stopped:
                 return

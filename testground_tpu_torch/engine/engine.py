@@ -14,11 +14,16 @@ and the fleet counters with ``fleet_payload`` (``GET /fleet``, ``tg top``)
 and ``fleet_info`` (the counter snapshot that the ``/metrics`` exposition,
 ``metrics/prometheus.py``, renders as the ``tg_fleet_*`` family).
 
-Left out, with the ROADMAP queue 1 item that ports each: preemption,
-eviction and ``drain`` (item 13: a preempted run resumes from a
-checkpoint) and run packs (item 13) — so the fleet view's
-``pack.running`` is ``{}``, ``draining`` false and every task's
-``preemptions`` 0, and the pack, preemption and eviction counters are 0.
+The fleet controller (``engine.py:348-535``): ``preempt`` (a running run
+checkpoints at its next chunk boundary and requeues to resume from its
+snapshot), priority eviction at queue time (``_maybe_evict_for``, policy
+``controller.pick_eviction_victim``) and ``drain`` (stop claiming, preempt
+the running runs, cancel the builds, wait for the workers to park), with
+their counters in ``fleet_info`` and ``fleet_payload``.
+
+Left out, with the ROADMAP queue 1 item that ports it: run packs (item
+13b) — so the fleet view's ``pack.running`` is ``{}`` and the pack
+counters are 0.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..api import Composition, TestPlanManifest, validate_for_run
 from ..config import EnvConfig
 from ..logging_ import S
 from ..tracectx import TraceContext, new_span_id, new_trace_id
+from .controller import pick_eviction_victim
 from .events import EVENTS_FILE, EventJournal
 from .stream import stream_task_rows
 from .queue import TaskQueue
@@ -82,6 +88,11 @@ class Engine:
         # per-task cancel signals (``engine.go:59-62``)
         self._cancel_lock = threading.Lock()
         self._cancels: dict[str, threading.Event] = {}
+        # per-task preemption signals: a preempted run checkpoints at its
+        # next chunk boundary and requeues instead of archiving CANCELED
+        self._preempts: dict[str, threading.Event] = {}
+        # drain flag: workers stop claiming while it is set
+        self._draining = threading.Event()
 
         self._stop = threading.Event()
         self._queue_kick = threading.Event()
@@ -100,6 +111,8 @@ class Engine:
         self._claim_latency_bins = [0] * TIME_BINS
         self._claim_latency_total_us = 0
         self._fleet_refused = 0  # compositions refused at submit
+        self._fleet_preemptions = 0  # preempted runs requeued
+        self._fleet_evictions = 0  # preemptions caused by priority arrivals
 
     # ---------------------------------------------------------------- wiring
 
@@ -263,6 +276,13 @@ class Engine:
             priority=priority,
         )
         S().info("queued task %s (%s)", tsk.id, tsk.name())
+        # a high-priority run that finds no idle worker evicts the
+        # lowest-value running task instead of queueing behind it
+        if typ == TaskType.RUN and priority > 0:
+            try:
+                self._maybe_evict_for(tsk)
+            except Exception as e:  # noqa: BLE001 — never fails the submit
+                S().warning("eviction check failed for %s: %s", tsk.id, e)
         return tsk.id
 
     # ------------------------------------------------------------ cancel/kill
@@ -345,6 +365,145 @@ class Engine:
             )
             return True
         return False
+
+    # -------------------------------------------------- fleet controller
+
+    def register_preempt(self, task_id: str) -> threading.Event:
+        """Idempotent get-or-create of a task's preemption signal, as
+        :meth:`register_cancel`: a ``preempt()`` landing between the queue
+        pop and the claim finds the event the worker adopts."""
+        with self._cancel_lock:
+            ev = self._preempts.get(task_id)
+            if ev is None:
+                ev = threading.Event()
+                self._preempts[task_id] = ev
+        return ev
+
+    def drop_preempt(self, task_id: str) -> None:
+        with self._cancel_lock:
+            self._preempts.pop(task_id, None)
+
+    def preempt_requested(self, task_id: str) -> bool:
+        with self._cancel_lock:
+            ev = self._preempts.get(task_id)
+        return ev is not None and ev.is_set()
+
+    def preempt(self, task_id: str) -> dict:
+        """Ask a running RUN task to checkpoint at its next chunk boundary,
+        requeue and resume from its newest snapshot. Idempotent; a task
+        still queued is a no-op success. Returns ``{"ok", "queued"}``, or
+        ``{"ok": False, "error"}``."""
+        tsk = self.storage.get(task_id)
+        if tsk is None:
+            return {"ok": False, "error": f"unknown task {task_id}"}
+        st = tsk.state().state
+        if st == State.SCHEDULED:
+            return {"ok": True, "queued": True}
+        if st != State.PROCESSING:
+            return {
+                "ok": False,
+                "error": (
+                    f"task {task_id} is {st.value}; only running tasks "
+                    "can be preempted"
+                ),
+            }
+        if tsk.type != TaskType.RUN:
+            return {
+                "ok": False,
+                "error": (
+                    "build tasks are not preemptible (a build has no "
+                    "carry to checkpoint — kill it instead)"
+                ),
+            }
+        ev = self.register_preempt(task_id)
+        first = not ev.is_set()
+        ev.set()
+        if first:
+            self.events.emit("task.preempt_requested", task=task_id, trace=tsk.trace)
+        return {"ok": True, "queued": False}
+
+    def _maybe_evict_for(self, tsk: Task) -> None:
+        """Priority preemption: when ``tsk`` (a RUN just queued with
+        priority > 0) finds every worker busy, preempt the lowest-value
+        running run (``controller.pick_eviction_victim``)."""
+        with self._fleet_lock:
+            busy = sum(1 for t in self._worker_task.values() if t)
+            total = max(len(self._workers), len(self._worker_task))
+        if total == 0 or busy < total:
+            return  # an idle worker claims the arrival anyway
+        candidates = []
+        for cur in self.storage.processing():
+            if cur.type != TaskType.RUN or cur.id == tsk.id:
+                continue  # builds are not preemptible
+            cfg = dict(self.env.runners.get(cur.runner) or {})
+            cfg.update((cur.composition.get("global") or {}).get("run_config") or {})
+            candidates.append({
+                "id": cur.id,
+                "priority": cur.priority,
+                "started": cur.state().created,
+                "checkpointed": int(cfg.get("checkpoint_chunks") or 0) > 0,
+            })
+        victim = pick_eviction_victim(candidates, tsk.priority)
+        if victim is None:
+            return
+        if not self.preempt(victim["id"]).get("ok"):
+            return
+        with self._fleet_lock:
+            self._fleet_evictions += 1
+        vt = self.storage.get(victim["id"])
+        self.events.emit(
+            "task.evicted",
+            task=victim["id"],
+            trace=vt.trace if vt is not None else None,
+            by=tsk.id,
+            arriving_priority=tsk.priority,
+            victim_priority=int(victim["priority"]),
+            checkpointed=bool(victim["checkpointed"]),
+        )
+        S().info("evicted task %s (priority %d) for arrival %s (priority %d)",
+                 victim["id"], victim["priority"], tsk.id, tsk.priority)
+
+    def fleet_note_preemption(self) -> None:
+        """Supervisor hook: one preempted run was requeued."""
+        with self._fleet_lock:
+            self._fleet_preemptions += 1
+
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def drain(self, timeout_secs: float = 30.0) -> dict:
+        """Graceful drain: stop claiming, preempt the running RUN tasks (a
+        checkpointed one requeues to resume, the rest to rerun), cancel
+        the running builds, then wait — bounded — for every worker to park.
+        Idempotent; journals ``daemon.drain``."""
+        already = self._draining.is_set()
+        self._draining.set()
+        self._queue_kick.set()
+        preempted: list[str] = []
+        canceled: list[str] = []
+        for tsk in self.storage.processing():
+            if tsk.type == TaskType.RUN:
+                if self.preempt(tsk.id).get("ok"):
+                    preempted.append(tsk.id)
+            elif self.kill(tsk.id):
+                canceled.append(tsk.id)
+        deadline = time.monotonic() + max(0.0, timeout_secs)
+        drained = False
+        while True:
+            with self._fleet_lock:
+                busy = any(t for t in self._worker_task.values())
+            if not busy:
+                drained = True
+                break
+            if time.monotonic() >= deadline:
+                break
+            time.sleep(0.05)
+        self.events.emit("daemon.drain", preempted=preempted, canceled=canceled,
+                         drained=drained, already_draining=already)
+        S().info("drain: %d run(s) preempted, %d build(s) canceled, workers %s",
+                 len(preempted), len(canceled),
+                 "idle" if drained else "still busy at timeout")
+        return {"drained": drained, "preempted": preempted, "canceled": canceled}
 
     def delete_task(self, task_id: str) -> bool:
         """Delete a FINISHED task's record + log file (the daemon's GET
@@ -523,12 +682,12 @@ class Engine:
                 "queue_wait_total_us": self._queue_wait_total_us,
                 "claim_latency_bins": list(self._claim_latency_bins),
                 "claim_latency_total_us": self._claim_latency_total_us,
-                # packs, preemptions, evictions and drain come with item 13
+                # run packs come with item 13b
                 "pack": {"packed": 0, "packed_runs": 0, "solo": {}},
-                "preemptions": 0,
-                "evictions": 0,
+                "preemptions": self._fleet_preemptions,
+                "evictions": self._fleet_evictions,
                 "refused": self._fleet_refused,
-                "draining": False,
+                "draining": self._draining.is_set(),
             }
 
     @staticmethod
@@ -600,14 +759,14 @@ class Engine:
                 "queued_secs": round(tsk.queued_secs(), 3),
                 "trace_id": tsk.trace.get("trace_id", ""),
                 # how many times the fleet controller migrated this
-                # task (rides Task.trace; 0 until item 13's preemption)
+                # task (rides Task.trace)
                 "preemptions": int(tsk.trace.get("preemptions", 0) or 0),
             }
             if st == State.PROCESSING:
                 row["running_secs"] = round(
                     max(0.0, now - tsk.state().created), 3
                 )
-                row["pack_width"] = 0  # run packs come with item 13
+                row["pack_width"] = 0  # run packs come with item 13b
                 run_dir = os.path.join(outputs, tsk.plan, tsk.id)
                 perf = self._tail_last_row(
                     os.path.join(run_dir, "sim_perf.jsonl")
@@ -627,7 +786,7 @@ class Engine:
                 "busy": busy,
                 "idle": max(0, n_workers - busy),
             },
-            "draining": False,  # drain comes with item 13
+            "draining": self._draining.is_set(),
             "queue": {
                 "depth": counts.get(State.SCHEDULED.value, 0),
                 "by_priority": {str(k): v for k, v in by_priority.items()},

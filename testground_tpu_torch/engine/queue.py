@@ -1,6 +1,6 @@
 """Persistent priority queue for tasks — the port's copy of the reference's
 ``testground_tpu/engine/queue.py``, without ``claim_matching``, the run
-packs' claim (ROADMAP queue 1 item 13).
+packs' claim (ROADMAP queue 1 item 13b).
 
 Twin of ``pkg/task/queue.go``: an in-memory heap ordered by
 priority (descending) then creation time (FIFO), write-through to storage, a
@@ -77,7 +77,7 @@ class TaskQueue:
 
     def requeue(self, tsk: Task) -> None:
         """Put a claimed (PROCESSING) task back on the queue — the fleet
-        controller's preempt/drain/evict path (ROADMAP queue 1 item 13). Bypasses
+        controller's preempt/drain/evict path (``engine.py``). Bypasses
         the size bound: the task already held a queue slot once, and a
         full queue must never strand a checkpointed evictee in limbo.
         The caller appends the SCHEDULED state first; storage moves the

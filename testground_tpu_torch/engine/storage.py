@@ -82,7 +82,7 @@ class TaskStorage:
 
     def persist_rescheduled(self, tsk: Task) -> None:
         """A requeued task moved current → queue (the fleet controller's
-        preempt/drain path, ROADMAP queue 1 item 13). Clearing the CURRENT row
+        preempt/drain path, ``supervisor._requeue_preempted``). Clearing the CURRENT row
         in the same transaction matters: ``get()`` prefers CURRENT over
         QUEUE, so a plain ``persist_scheduled`` would leave a stale
         PROCESSING record shadowing the requeued one."""

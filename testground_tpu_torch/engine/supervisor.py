@@ -7,10 +7,15 @@ the runner, and the result is archived.
 
 A worker is a host thread, and the CUDA current device is per host thread:
 ``do_run`` makes the run's device current for its healthcheck and its runs
-(``sim.engine.device_context``). Left out, with the ROADMAP queue 1 item
-that ports each: run packs and their claim (item 13), preemption and the
-requeue of a preempted run (item 13), and the build task's precompile,
-which fills the reference's XLA compile cache (the port has no such cache).
+(``sim.engine.device_context``), so a preempted run requeued and claimed
+by another worker thread launches on its card there too.
+
+A preempted run (``engine.controller.TaskPreemptedError``) is requeued by
+``_requeue_preempted`` pointing at its own snapshots; a draining engine's
+workers stop claiming. Left out, with the ROADMAP queue 1 item that ports
+each: run packs, their claim and pack-member preemption (item 13b), and
+the build task's precompile, which fills the reference's XLA compile cache
+(the port has no such cache).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from ..rpc import OutputWriter
 from ..sim.engine import device_context
 from ..sim.slo import SloBreachError
 from ..tracectx import new_span_id, new_trace_id
+from .controller import TaskPreemptedError
 from .engine import Engine
 from .notify import notify_task_finished, notify_task_started
 from .queue import QueueEmptyError
@@ -52,17 +58,23 @@ def worker(engine: Engine, idx: int) -> None:
     """One worker loop (``supervisor.go:47-190``)."""
     S().debug("supervisor worker %d started", idx)
     while not engine._stop.is_set():
+        # a draining engine stops claiming: queued and requeued tasks stay
+        # parked for a restarted daemon to rehydrate
+        if engine._draining.is_set():
+            engine._queue_kick.wait(timeout=0.2)
+            engine._queue_kick.clear()
+            continue
         try:
             tsk = engine.queue.pop()
         except QueueEmptyError:
             engine._queue_kick.wait(timeout=0.2)
             engine._queue_kick.clear()
             continue
-        # close the kill() race before any claim bookkeeping: the task is
-        # already stamped PROCESSING (queue.pop), so an operator cancel
-        # arriving now must find a registered event, not fall between
-        # cancel_queued and process_task's registration
+        # close the kill()/preempt() race before any claim bookkeeping: the
+        # task is already stamped PROCESSING (queue.pop), so an operator
+        # cancel or a preemption arriving now must find a registered event
         engine.register_cancel(tsk.id)
+        engine.register_preempt(tsk.id)
         _note_claim(engine, idx, tsk)
         engine.fleet_worker_state(idx, tsk.id)
         try:
@@ -82,7 +94,8 @@ def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
     tr.setdefault("root_span_id", new_span_id())
     tr.setdefault("queued_span_id", new_span_id())
     if tr.get("claim_span_id") and tr.get("execute_span_id"):
-        # a re-claim (restart rehydration): keep the prior attempt's ids
+        # a re-claim (preemption requeue or restart rehydration): keep the
+        # prior attempt's ids
         # so the executor spans it parented still resolve in the archived
         # tree (bounded)
         prior = tr.setdefault("prior_attempts", [])
@@ -107,7 +120,7 @@ def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
         worker=idx,
         queue_wait_secs=round(queue_wait, 6),
         # the reference's record shape: a task runs alone until run packs
-        # are ported (ROADMAP queue 1 item 13)
+        # are ported (ROADMAP queue 1 item 13b)
         pack_width=1,
     )
 
@@ -200,6 +213,45 @@ def _finish_task(engine: Engine, tsk: Task) -> None:
     export_task_trace(engine.env.dirs.outputs(), tsk)
 
 
+def _requeue_preempted(engine: Engine, tsk: Task, e: TaskPreemptedError) -> None:
+    """A live migration's requeue (``supervisor.py:245-291``): the task
+    goes back on the queue pointing at its own newest snapshot, with no
+    terminal state, archive or webhook. A preemption without a snapshot
+    leaves the composition as it was, and the rerun from tick 0 is
+    bit-equal by determinism."""
+    if e.resumable:
+        glob = tsk.composition.setdefault("global", {})
+        rc = glob.setdefault("run_config", {})
+        # its own snapshots are newer even if this run resumed another's
+        rc["resume_from"] = tsk.id
+    tsk.trace["preemptions"] = int(tsk.trace.get("preemptions", 0) or 0) + 1
+    tsk.error = ""
+    tsk.result = None
+    tsk.states.append(DatedState(state=State.SCHEDULED, created=time.time()))
+    engine.queue.requeue(tsk)
+    engine.fleet_note_preemption()
+    engine.events.emit(
+        "task.preempted",
+        task=tsk.id,
+        trace=tsk.trace,
+        tick=e.tick,
+        snapshot_tick=e.snapshot_tick,
+        snapshots=e.snapshots,
+        resumable=e.resumable,
+        preemptions=int(tsk.trace["preemptions"]),
+    )
+    engine.events.emit(
+        "task.migrated",
+        task=tsk.id,
+        trace=tsk.trace,
+        resume_from=tsk.id if e.resumable else "",
+        from_tick=e.snapshot_tick if e.resumable else 0,
+    )
+    engine._queue_kick.set()
+    S().info("task %s preempted at tick %d (%s) — requeued", tsk.id, e.tick,
+             f"resume from tick {e.snapshot_tick}" if e.resumable else "rerun")
+
+
 def process_task(engine: Engine, tsk: Task) -> None:
     """Execute one task end-to-end, with timeout and cancellation
     (``supervisor.go:192-291``)."""
@@ -212,6 +264,7 @@ def process_task(engine: Engine, tsk: Task) -> None:
     timer.start()
 
     log_path = engine.task_log_path(tsk.id)
+    preempted: TaskPreemptedError | None = None
     try:
         with open(log_path, "w") as log_file:
             ow = OutputWriter(sink=log_file)
@@ -233,6 +286,11 @@ def process_task(engine: Engine, tsk: Task) -> None:
                 else:
                     raise ValueError(f"unsupported task type {tsk.type}")
                 tsk.result = result
+            except TaskPreemptedError as e:
+                # no failure: the run stopped at a chunk boundary, and the
+                # finally branch requeues it
+                preempted = e
+                ow.infof("%s", e)
             except Exception as e:  # noqa: BLE001 — task errors become results
                 S().error("task %s failed: %s", tsk.id, e)
                 ow.write_error(str(e))
@@ -250,17 +308,21 @@ def process_task(engine: Engine, tsk: Task) -> None:
     finally:
         timer.cancel()
         engine.drop_cancel(tsk.id)
-        final = State.CANCELED if cancel.is_set() and tsk.error else State.COMPLETE
-        tsk.states.append(DatedState(state=final, created=time.time()))
-        # journal + span-tree export BEFORE the archive makes the terminal
-        # state visible: a client polling for COMPLETE must find
-        # task_spans.jsonl already on disk
-        _finish_task(engine, tsk)
-        engine.storage.archive(tsk)
-        # status webhooks: log-and-continue, never affect the task
-        # (supervisor.go:176-183)
-        notify_task_finished(engine.env, tsk)
-        S().info("task %s finished: %s", tsk.id, tsk.outcome().value)
+        engine.drop_preempt(tsk.id)
+        if preempted is not None:
+            _requeue_preempted(engine, tsk, preempted)
+        else:
+            final = State.CANCELED if cancel.is_set() and tsk.error else State.COMPLETE
+            tsk.states.append(DatedState(state=final, created=time.time()))
+            # journal + span-tree export BEFORE the archive makes the
+            # terminal state visible: a client polling for COMPLETE must
+            # find task_spans.jsonl already on disk
+            _finish_task(engine, tsk)
+            engine.storage.archive(tsk)
+            # status webhooks: log-and-continue, never affect the task
+            # (supervisor.go:176-183)
+            notify_task_finished(engine.env, tsk)
+            S().info("task %s finished: %s", tsk.id, tsk.outcome().value)
 
 
 # ----------------------------------------------------------------- builds
@@ -478,6 +540,9 @@ def _run_composition(engine: Engine, tsk: Task, comp: Composition, runner,
             slo=[dict(s) for s in (grun.slo if grun is not None else [])],
             trace_ctx=_run_trace_ctx(tsk),
             env=engine.env,
+            # a live migration stops a single-[[runs]] task only: a
+            # multi-run task's partial results have no requeue story
+            preempt=engine.register_preempt(tsk.id) if len(comp.runs) == 1 else None,
         )
         ow.infof(
             "executing run %s: plan=%s case=%s instances=%d runner=%s",
@@ -490,6 +555,9 @@ def _run_composition(engine: Engine, tsk: Task, comp: Composition, runner,
         t_run = time.monotonic()
         try:
             out = runner.run(rinput, ow, cancel)
+        except TaskPreemptedError:
+            # armed for single-[[runs]] tasks only; process_task requeues
+            raise
         except SloBreachError as e:
             # a fail-severity SLO canceled the run at a chunk boundary; the
             # error carries the assembled RunOutput, journal included, so

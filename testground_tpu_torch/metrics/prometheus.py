@@ -37,9 +37,9 @@ stays, so that a reference journal renders the same, and on a port run
 they are silent: ``tg_run_lower_seconds``, ``tg_run_xla_compile_seconds``,
 ``tg_run_est_flops_per_chunk`` and ``tg_run_est_bytes_accessed_per_chunk``
 (no XLA compile or cost analysis), ``tg_compile_bucket_*``,
-``tg_bucket_padded_instances``, ``tg_checkpoint_*``, ``tg_pack_*`` and
-``tg_fleet_pack_solo_total`` (buckets, checkpoints and packs: ROADMAP
-queue 1 item 13). The sync service's ``render_sync_prometheus`` comes
+``tg_bucket_padded_instances``, ``tg_pack_*`` and
+``tg_fleet_pack_solo_total`` (buckets and packs: ROADMAP queue 1 item
+13b). The sync service's ``render_sync_prometheus`` comes
 with the sync service (item 17).
 """
 

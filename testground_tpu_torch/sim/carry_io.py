@@ -53,7 +53,7 @@ _SCALARS = (
     "faults_crashed",
     "faults_restarted",
 )
-# carry leaves of planes the port does not build yet
+# carry leaves of planes the port does not build yet (item 13b)
 _UNPORTED = ("live_counts",)
 # the observability planes' leaves (None when the plane is off)
 _PLANES = (("lat_hist", torch.int32), ("net_mat", torch.int32),
@@ -74,7 +74,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
         if any(key == u or key.startswith(u + ".") for u in _UNPORTED):
             raise NotImplementedError(
                 f"carry leaf {key!r} belongs to a plane the port does not "
-                "build yet (see ROADMAP queue 1)"
+                "build yet (ROADMAP queue 1 item 13b)"
             )
     dev = prog.device
 

@@ -26,15 +26,16 @@ Where the port diverges from the reference's catalog:
   away from its default, and for a 2-D ``mesh``, with the executor's
   ``NotImplementedError`` text naming the ROADMAP item. It stands in for
   the rules whose gates the port does not have yet: ``buckets.*`` and
-  ``trace.bucket-disabled`` (``bucket``, ``bucket_ladder``), ``pack.solo``
-  (``pack``), the ``checkpoint.*`` rules (``checkpoint_chunks``,
-  ``resume_from``), and the cohort rules — ``*.cohort-disabled``,
-  ``debug.nan-guard-cohort`` and ``cohort.spec-oversize`` — which need
-  ``coordinator_address`` (item 15b).
+  ``trace.bucket-disabled`` (``bucket``, ``bucket_ladder``) and
+  ``pack.solo`` (``pack``), item 13b, and the cohort rules —
+  ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` among them),
+  ``checkpoint.resume-cohort``, ``debug.nan-guard-cohort`` and
+  ``cohort.spec-oversize`` — which need ``coordinator_address`` (item
+  15b). ``checkpoint.resume-multi-runs`` fires as the reference's.
 - ``transport.mesh-indivisible`` is an error, not a warn: the reference
   falls back to its XLA transport, the port refuses (a lane count that
   does not divide across the peer shards waits for the padding of item
-  13), with the executor's message.
+  13b), with the executor's message.
 - ``run-cfg.unknown-key`` names the ``sim:torch`` runner and the
   ``SimTorchConfig`` fields.
 - Layers 2 and 3 (``check_composition(..., trace_plans=True)``, ``tg
@@ -79,7 +80,7 @@ Where the port diverges from the reference's catalog:
   Every finding names the deepest frame in the plan's own files (else
   the plan's ``step``). The reference also traces the padded-ladder
   variant of a bucketed run; that waits for buckets (ROADMAP queue 1
-  item 13). Admission at submit stays layer 1, as in the reference.
+  item 13b). Admission at submit stays layer 1, as in the reference.
 - ``devices=0`` counts the visible cards (``torch.cuda.device_count()``),
   1 without one; a run whose ``device`` is not a card meshes nothing
   unless ``mesh`` says so, as the executor does.
@@ -321,7 +322,7 @@ def mesh_2d_message(mesh, item: str) -> str:
 
 def mesh_lanes_message(transport: str, lanes: int, shards: int, item: str) -> str:
     """An indivisible lane count under the xla/auto transport: the
-    reference pads the lane axis, the port waits for item 13's padding."""
+    reference pads the lane axis, the port waits for item 13b's padding."""
     return (
         f"transport={transport} on a {shards}-shard mesh with {lanes} "
         f"lane(s), which do not divide by {shards}, is not ported yet: "
@@ -445,6 +446,20 @@ def _check_not_ported(ctx, findings) -> None:
 
     for message in unported_settings(ctx.cfg):
         _add(findings, "port.not-ported", message)
+
+
+def _check_resume_multi_runs(ctx, findings) -> None:
+    """``resume_from`` with several ``[[runs]]`` is ambiguous: each run has
+    its own outputs dir (``check.py:877-891``)."""
+    if str(getattr(ctx.cfg, "resume_from", "") or "") and len(ctx.comp.runs) > 1:
+        _add(
+            findings,
+            "checkpoint.resume-multi-runs",
+            f"resume_from is set on a multi-[[runs]] composition "
+            f"({len(ctx.comp.runs)} runs) — every run would resume from "
+            "the same snapshot dir; resume one run at a time "
+            "(--run-ids <id>)",
+        )
 
 
 def _check_mesh(ctx, findings) -> None:
@@ -944,6 +959,7 @@ def check_composition(
     _check_not_ported(ctx, findings)
     _check_mesh(ctx, findings)
     _check_transport(ctx, findings)
+    _check_resume_multi_runs(ctx, findings)
     for run in prepared.runs:
         resolved = _check_run(ctx, run, findings)
         if trace_plans and plan_sources:

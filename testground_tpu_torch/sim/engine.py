@@ -144,7 +144,7 @@ __all__ = [
 # Options of the reference SimProgram that the port refuses, with the
 # ROADMAP queue-1 item that ports each.
 _UNPORTED_OPTIONS = {
-    "live_counts": "item 13 (buckets, packs and checkpoint)",
+    "live_counts": "item 13b (buckets, packs and the 2-D mesh)",
 }
 
 
@@ -632,13 +632,19 @@ class SimProgram:
         kernels, which takes seconds; :func:`carry_footprint` of a built
         carry gives the same number at no cost."""
         if self._carry_bytes is None:
-            meta = copy.copy(self)
-            meta.device = torch.device("meta")
-            meta.mesh = None if self.mesh is None else self.mesh.on(meta.device)
-            meta._consts = {}
-            meta._build_layout(meta.device)
-            self._carry_bytes = carry_footprint(meta.init_carry(0))
+            self._carry_bytes = carry_footprint(self.meta_carry())
         return self._carry_bytes
+
+    def meta_carry(self) -> SimCarry:
+        """The run's carry built on the meta device: every leaf's shape and
+        dtype, no storage (the checkpoint plane validates a snapshot
+        against it before a byte reaches the card)."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        meta.mesh = None if self.mesh is None else self.mesh.on(meta.device)
+        meta._consts = {}
+        meta._build_layout(meta.device)
+        return meta.init_carry(0)
 
     # ---------------------------------------------------------------- tick
 
@@ -1254,7 +1260,7 @@ class SimProgram:
         chunk's host-clock wall from its first launch to the return of the
         wait on its last done event (``chunk_sleep_ms`` inside it, as in
         the reference): no launch and no device read of its own.
-        ``live_counts`` is refused (ROADMAP item 13)."""
+        ``live_counts`` is refused (ROADMAP item 13b)."""
         if live_counts is not None:
             raise NotImplementedError(
                 "SimProgram.run option 'live_counts' is not ported yet: "

@@ -46,10 +46,21 @@ arm's ``deliver`` and ``net_commit`` over K ticks before the run and
 journals the reading under ``sim.transport.scores``; the port has one arm
 per device, so the probe measures and does not choose.
 
+``checkpoint_chunks = K`` snapshots the run every K chunks into
+``<run>/checkpoints/ckpt-<tick>.npz`` in the reference's archive format
+(``sim/checkpoint.py``; ``checkpoint_keep`` bounds retention) and journals
+``sim.checkpoint``; ``resume_from = <run id>`` seeds the run from that
+run's newest snapshot (a run that already holds newer snapshots of its own
+continues from those), with the streams, the SLO evaluator, the metric
+recorder and the planes' accumulators continued where the snapshot left
+them. A ``RunInput.preempt`` event stops the run at the next chunk
+boundary after a forced snapshot there, and the run raises
+``engine.controller.TaskPreemptedError`` for the supervisor to requeue.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default (``unported_settings``; ``tg check``
-reports each as ``port.not-ported``): buckets, packs and checkpoints (item
-13, a 2-D pack mesh among them) and multi-host cohorts (item 15b).
+reports each as ``port.not-ported``): buckets and packs (item 13b, a 2-D
+pack mesh among them) and multi-host cohorts (item 15b).
 
 A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
 the calendar over the peer shards (``sim/meshplan.py``); the journal's
@@ -122,7 +133,7 @@ class SimTorchConfig:
     # on a host with one card or on the CPU
     shard: bool = True
     # explicit 1-D peers mesh ("4"), over the visible cards, or virtual on
-    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13)
+    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13b)
     mesh: str = ""
     write_outputs_max: int = 2048  # cap on per-instance output dirs
     keep_outputs: bool = True
@@ -153,14 +164,15 @@ class SimTorchConfig:
     # > 0 with transport "auto": time the resolved arm's deliver and
     # net_commit over this many ticks before the run (sim.transport.scores)
     transport_probe: int = 0
-    bucket: str = "off"  # refused unless "off" (item 13)
-    bucket_ladder: str = ""  # refused unless "" (item 13)
-    pack: bool = False  # refused unless False (item 13)
+    bucket: str = "off"  # refused unless "off" (item 13b)
+    bucket_ladder: str = ""  # refused unless "" (item 13b)
+    pack: bool = False  # refused unless False (item 13b)
     pack_max: int = 8
-    build_buckets: bool = False  # refused unless False (item 13)
-    checkpoint_chunks: int = 0  # refused unless 0 (item 13)
-    checkpoint_keep: int = 3
-    resume_from: str = ""  # refused unless "" (item 13)
+    build_buckets: bool = False  # refused unless False (item 13b)
+    # > 0: a snapshot every this many chunks (sim/checkpoint.py)
+    checkpoint_chunks: int = 0
+    checkpoint_keep: int = 3  # newest snapshots kept
+    resume_from: str = ""  # a run id of this plan to resume from
     additional_hosts: list = dataclasses.field(default_factory=list)
     # per-run device-memory precheck: 0 = the card's total memory (no
     # check on the CPU), -1 = off, > 0 = an explicit budget in bytes
@@ -174,7 +186,7 @@ class SimTorchConfig:
     device: str | None = None
 
 
-_ITEM_13 = "item 13 (buckets, packs and checkpoint)"
+_ITEM_13 = "item 13b (buckets, packs and the 2-D mesh)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
@@ -184,8 +196,6 @@ _UNPORTED_SETTINGS = {
     "bucket_ladder": _ITEM_13,
     "build_buckets": _ITEM_13,
     "pack": _ITEM_13,
-    "checkpoint_chunks": _ITEM_13,
-    "resume_from": _ITEM_13,
     "coordinator_address": _ITEM_15B,
     "num_processes": _ITEM_15B,
     "process_id": _ITEM_15B,
@@ -234,7 +244,7 @@ def check_mesh_lanes(transport: str, n: int, hosts: int, shards: int) -> None:
     """Refuse a lane count (instances + hosts) that does not divide across
     ``shards`` peer shards: the reference's XLA transport pads such a lane
     axis and the port's calendar is always split per shard, so xla and
-    auto wait for the padding of shape bucketing (item 13); pallas refuses
+    auto wait for the padding of shape bucketing (item 13b); pallas refuses
     with the reference engine's message."""
     from .check import mesh_lanes_message, pallas_lanes_message
 
@@ -405,6 +415,23 @@ class _SloRunCancel:
 
     def is_set(self) -> bool:
         return self.run_local.is_set() or self._task.is_set()
+
+
+class _PreemptRunCancel:
+    """OR of the fleet controller's preemption signal with the run's cancel
+    object (``executor.py:522-540``): the loop stops at the next chunk
+    boundary when either is set, after the preempt observer forced a
+    snapshot at that boundary. ``set()`` keeps the task-level meaning."""
+
+    def __init__(self, inner, preempt):
+        self._inner = inner
+        self._preempt = preempt
+
+    def set(self) -> None:
+        self._inner.set()
+
+    def is_set(self) -> bool:
+        return self._preempt.is_set() or self._inner.is_set()
 
 
 def _parse_hosts(raw) -> tuple[str, ...]:
@@ -585,8 +612,11 @@ def execute_sim_run(
         return _execute_sim_run(job, cfg, device, ow, cancel, outputs_root,
                                 run_dir, spans)
     except BaseException as e:
-        # failed runs keep their span record
-        spans.end("run", outcome="error", error=str(e)[:200])
+        # failed runs keep their span record; a preemption is no failure
+        from ..engine.controller import TaskPreemptedError
+
+        outcome = "preempted" if isinstance(e, TaskPreemptedError) else "error"
+        spans.end("run", outcome=outcome, error=str(e)[:200])
         raise
     finally:
         spans.close()
@@ -699,6 +729,83 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     influx_endpoint = getattr(getattr(job.env, "daemon", None),
                               "influxdb_endpoint", "")
 
+    # the checkpoint plane (executor.py:1173-1306): not program-shaping,
+    # and inert at checkpoint_chunks = 0 without resume_from. The identity
+    # is what a snapshot's manifest is validated against on resume
+    ckpt_every = int(getattr(cfg, "checkpoint_chunks", 0) or 0)
+    resume_from = str(getattr(cfg, "resume_from", "") or "")
+    if resume_from and run_dir is None:
+        raise ValueError(
+            "resume_from requires a run outputs dir (no env attached "
+            "to this run input)"
+        )
+    if ckpt_every > 0 and run_dir is None:
+        ow.warn("sim:torch %s: checkpointing disabled — no run outputs dir "
+                "to hold snapshots", job.run_id)
+        ckpt_every = 0
+    resume_state = resume_info = identity = None
+    if ckpt_every > 0 or resume_from:
+        from .checkpoint import (
+            CheckpointError,
+            list_snapshots,
+            prepare_resume,
+            run_identity,
+        )
+
+        identity = run_identity(
+            job, cfg, telemetry=telemetry_on, transport=transport_knob(cfg),
+            fault_specs=fault_specs,
+            # a trace plan nulled by disable_metrics shapes nothing
+            trace_specs=trace_specs if trace_plan is not None else {},
+            hosts=hosts, netmatrix=netmatrix_on,
+        )
+        source_run = None
+        t_load = time.perf_counter()
+        own_snaps = list_snapshots(run_dir) if run_dir is not None else []
+        if resume_from:
+            src_dir = os.path.join(outputs_root, job.test_plan, resume_from)
+            src_snaps = list_snapshots(src_dir) if os.path.isdir(src_dir) else []
+            # a restarted resume prefers its own newer progress: rolling
+            # back to the source's older snapshot would discard the ticks
+            # this run already re-earned and overwrite its streams
+            if own_snaps and (not src_snaps or own_snaps[-1][0] >= src_snaps[-1][0]):
+                resume_state = prepare_resume(run_dir, run_dir, identity)
+                source_run = job.run_id
+            else:
+                if not src_snaps:
+                    raise CheckpointError(
+                        f"no snapshots for {resume_from!r} under "
+                        f"{os.path.join(outputs_root, job.test_plan)} — "
+                        "nothing to resume from"
+                    )
+                resume_state = prepare_resume(src_dir, run_dir, identity)
+                source_run = resume_from
+        elif ckpt_every > 0 and own_snaps:
+            # a task requeued or rehydrated under the same id continues
+            # from its own snapshots instead of replaying from tick 0
+            resume_state = prepare_resume(run_dir, run_dir, identity)
+            source_run = job.run_id
+        if resume_state is not None:
+            load_ms = (time.perf_counter() - t_load) * 1000.0
+            resume_info = {
+                "from_tick": resume_state.tick,
+                "from_run": source_run,
+                "snapshot": os.path.basename(resume_state.path),
+            }
+            fb = resume_state.manifest.get("_fallback")
+            if fb:
+                # newer snapshots were unloadable: the resume continues
+                # from an older tick, and says so everywhere
+                resume_info["fallback"] = dict(fb)
+                ow.warn("sim:torch %s: newest snapshot(s) unloadable (%s) — "
+                        "falling back to %s: %s", job.run_id,
+                        ", ".join(fb.get("skipped", [])),
+                        resume_info["snapshot"], fb.get("error", ""))
+            ow.infof("sim:torch %s: resuming from snapshot %s (tick %d, run %s)",
+                     job.run_id, resume_info["snapshot"], resume_state.tick,
+                     resume_info["from_run"])
+    resume_aux = resume_state.aux if resume_state is not None else {}
+
     # durations on the monotonic clock; the wall-clock anchor only where a
     # real timestamp is needed (the Influx base_ns)
     t0_wall = time.time()
@@ -783,10 +890,15 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                      profile_dir, n_prof_chunks)
         else:
             ow.infof("capturing torch.profiler trace to %s", profile_dir)
+    # a resumed run's writers append past the prefix that prepare_resume
+    # aligned to the snapshot's tick, their counters continuing from it
+    resumed = resume_state is not None
     tele_writer = (
         _SimTelemetryWriter(
             tuple(g.id for g in groups), row_ident,
             os.path.join(run_dir, SIM_SERIES_FILE) if run_dir is not None else None,
+            append=resumed,
+            rows_offset=int(resume_aux.get("telemetry_rows", 0) or 0),
         )
         if telemetry_on else None
     )
@@ -794,11 +906,14 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         _SimNetMatrixWriter(
             prog, row_ident,
             os.path.join(run_dir, NETMATRIX_FILE) if run_dir is not None else None,
+            append=resumed,
+            chunks_offset=int(resume_aux.get("netmatrix_chunks", 0) or 0),
         )
         if netmatrix_on else None
     )
     trace_writer = (
-        _SimTraceWriter(groups, row_ident, run_dir, cfg.tick_ms, trace_plan)
+        _SimTraceWriter(groups, row_ident, run_dir, cfg.tick_ms, trace_plan,
+                        resume=resume_aux.get("trace") if resumed else None)
         if trace_plan is not None else None
     )
     run_cancel = cancel
@@ -809,7 +924,17 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             slo_plan, groups, cfg.tick_ms, cfg.chunk, ident=row_ident,
             path=os.path.join(run_dir, SLO_FILE) if run_dir is not None else None,
             cancel=run_cancel.run_local,
+            append=resumed,
         )
+        if resumed and resume_aux.get("slo"):
+            # windowed rules judge the same history as an uninterrupted run
+            slo_eval.load_state(resume_aux["slo"])
+    # the fleet controller's preemption (executor.py:1560-1567): the loop
+    # stops at the next chunk boundary and the tail raises
+    # TaskPreemptedError for the supervisor to requeue
+    preempt_ev = getattr(job, "preempt", None)
+    if preempt_ev is not None:
+        run_cancel = _PreemptRunCancel(run_cancel, preempt_ev)
 
     def on_stall(last_tick: int, chunk_index: int) -> None:
         spans.point(
@@ -832,19 +957,127 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     else:
         _tele_cb = tele_writer.on_block if tele_writer else None
 
+    # the checkpoint plane's write side rides the observer hook, after the
+    # chunk's plane callbacks, so the stream offsets it records are
+    # flush-exact (executor.py:1603-1724)
+    checkpointer = None
+    if ckpt_every > 0:
+        from .checkpoint import RunCheckpointer
+        from .trace import TRACE_FILE
+
+        def _size_of(path):
+            try:
+                return os.path.getsize(path)
+            except OSError:
+                return None
+
+        def _ckpt_aux() -> dict:
+            """The host state beside the carry that a resumed run needs to
+            be an uninterrupted one: stream byte offsets, writer counters,
+            the SLO evaluator's windows and the recorder's rows."""
+            aux: dict = {}
+            streams: dict = {}
+            for name, writer in ((SIM_SERIES_FILE, tele_writer),
+                                 (SLO_FILE, slo_eval),
+                                 (TRACE_FILE, trace_writer),
+                                 (NETMATRIX_FILE, netmatrix_writer)):
+                if writer is not None and writer.path is not None:
+                    size = _size_of(writer.path)
+                    if size is not None:
+                        streams[name] = size
+            if tele_writer is not None:
+                aux["telemetry_rows"] = tele_writer.rows_written
+            if slo_eval is not None:
+                aux["slo"] = slo_eval.state_dict()
+            if trace_writer is not None:
+                aux["trace"] = {"events": trace_writer.events_written,
+                                "truncated": trace_writer.truncated}
+            if netmatrix_writer is not None:
+                aux["netmatrix_chunks"] = netmatrix_writer.chunks_written
+            if recorder.enabled:
+                aux["recorder"] = recorder.state_dict()
+            aux["streams"] = streams
+            return aux
+
+        checkpointer = RunCheckpointer(
+            run_dir, every_chunks=ckpt_every,
+            keep=int(getattr(cfg, "checkpoint_keep", 3) or 3), chunk=cfg.chunk,
+            identity=identity, ident=row_ident, aux_cb=_ckpt_aux, spans=spans,
+            warn=ow.warn, telemetry=telemetry_on, resumed_from=resume_info,
+        )
+        ow.infof("sim:torch %s: checkpointing every %d chunk(s) (%d ticks), "
+                 "keeping newest %d", job.run_id, ckpt_every,
+                 ckpt_every * cfg.chunk, checkpointer.keep)
+
+    # restore the carry and the host state the snapshot holds
+    start_carry, start_ticks = carry0, 0
+    if resume_state is not None:
+        from .checkpoint import restore_carry
+
+        if recorder.enabled and resume_aux.get("recorder"):
+            recorder.load_state(resume_aux["recorder"])
+        if checkpointer is not None:
+            checkpointer.seed_lat_hist(resume_state.lat_hist)
+            checkpointer.seed_net_matrix(resume_state.net_matrix)
+        t_restore = time.perf_counter()
+        start_carry = restore_carry(
+            prog, cfg.seed, resume_state.manifest, resume_state.leaves,
+            transport=identity["transport"], template=carry0,
+        )
+        if prog.device.type == "cuda":
+            torch.cuda.synchronize(prog.device)
+        start_ticks = resume_state.tick
+        # the snapshot's read (load_ms: find, unzip, validate the identity,
+        # align the streams) and its restore onto the device, apart
+        spans.point(
+            "resume",
+            **{k: v for k, v in resume_info.items() if k != "fallback"},
+            fallback_skipped=len((resume_info.get("fallback") or {}).get("skipped", [])),
+            load_ms=round(load_ms, 3),
+            restore_ms=round((time.perf_counter() - t_restore) * 1000.0, 3),
+        )
+    del carry0
+
+    observers = [o for o in (
+        recorder.observe if recorder.enabled else None,
+        checkpointer.observe if checkpointer is not None else None,
+    ) if o is not None]
+    if preempt_ev is not None and checkpointer is not None:
+        # the forced snapshot at the stopping boundary: the observer runs
+        # before the loop's cancel check, so the snapshot and the stop
+        # fall on the same boundary and the resumed run replays nothing
+
+        def _preempt_observe(ticks, carry):
+            if preempt_ev.is_set() and checkpointer.last_tick != int(ticks):
+                checkpointer.snapshot(int(ticks), carry)
+
+        observers.append(_preempt_observe)
+    # the run loop calls these only where their plane is on
+    lat_cbs = [cb for cb in (
+        slo_eval.on_lat_delta if slo_eval else None,
+        checkpointer.on_lat_delta if checkpointer is not None else None,
+    ) if cb is not None]
+    nm_cbs = [cb for cb in (
+        netmatrix_writer.on_delta if netmatrix_writer else None,
+        checkpointer.on_net_matrix_delta if checkpointer is not None else None,
+    ) if cb is not None]
+
     spans.start("execute")
     run = functools.partial(
         prog.run,
         seed=cfg.seed,
-        resume_carry=carry0,
+        resume_carry=start_carry,
+        resume_ticks=start_ticks,
+        lat_hist_init=resume_state.lat_hist if resume_state is not None else None,
+        net_mat_init=resume_state.net_matrix if resume_state is not None else None,
         max_ticks=cfg.max_ticks,
         cancel=run_cancel,
         on_chunk=on_chunk,
-        observer=recorder.observe if recorder.enabled else None,
+        observer=_fan_out(observers),
         telemetry_cb=_tele_cb,
-        lat_hist_cb=slo_eval.on_lat_delta if slo_eval else None,
+        lat_hist_cb=_fan_out(lat_cbs),
         trace_cb=trace_writer.on_block if trace_writer else None,
-        netmatrix_cb=netmatrix_writer.on_delta if netmatrix_writer else None,
+        netmatrix_cb=_fan_out(nm_cbs),
         chunk_timeout=float(getattr(cfg, "chunk_timeout_secs", 0.0)),
         chunk_sleep_ms=float(getattr(cfg, "debug_chunk_sleep_ms", 0.0)),
         on_stall=on_stall,
@@ -1136,6 +1369,21 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         if write_outputs:
             _write_instance_outputs(outputs_root, job, g, st, res, metrics.get(g.id))
 
+    # the checkpoint plane's block: whenever snapshots were armed or the
+    # run resumed (tg stats and the tg_checkpoint_* family read it)
+    checkpoint_block = None
+    if checkpointer is not None:
+        checkpoint_block = checkpointer.journal()
+        if checkpointer.count:
+            ow.infof(
+                "sim:torch %s: checkpoint plane — %d snapshot(s), last at "
+                "tick %d (%.2f MiB, %.1f ms write)",
+                job.run_id, checkpointer.count, checkpointer.last_tick,
+                checkpointer.last_bytes / 2**20, checkpointer.last_write_ms,
+            )
+    elif resume_info is not None:
+        checkpoint_block = {"every_chunks": 0, "count": 0, "resumed": resume_info}
+
     mesh_block = _mesh_journal_block(mesh, testcase, groups, hosts)
     result.journal["sim"] = {
         "ticks": res["ticks"],
@@ -1163,6 +1411,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         **({"perf": perf_summary} if perf_summary else {}),
         **({"phases": phases_block} if phases_block else {}),
         **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
+        **({"checkpoint": checkpoint_block} if checkpoint_block else {}),
         **({"mesh": mesh_block} if mesh_block else {}),
     }
     result.update_outcome()
@@ -1177,8 +1426,38 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         result.journal["slo"]["error"] = str(err)
         err.run_output = RunOutput(run_id=job.run_id, result=result)
         raise err
+    # the fleet controller's preemption: after the SLO block (a condemned
+    # run does not launder its failure into a migration) and only without
+    # an operator cancel (a kill stays CANCELED)
+    if preempt_ev is not None and preempt_ev.is_set() and not cancel.is_set():
+        from ..engine.controller import TaskPreemptedError
+
+        resumable = checkpointer is not None and checkpointer.count > 0
+        snapshot_tick = int(checkpointer.last_tick) if resumable else 0
+        spans.point("preempt", tick=int(res["ticks"]), snapshot_tick=snapshot_tick,
+                    resumable=resumable)
+        # execute_sim_run closes the run span with outcome="preempted"
+        raise TaskPreemptedError(
+            job.run_id, tick=int(res["ticks"]), snapshot_tick=snapshot_tick,
+            snapshots=int(checkpointer.count) if checkpointer is not None else 0,
+            resumable=resumable,
+        )
     spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
     return RunOutput(run_id=job.run_id, result=result)
+
+
+def _fan_out(callbacks: list):
+    """One callback calling each of ``callbacks`` in turn; None for none."""
+    if not callbacks:
+        return None
+    if len(callbacks) == 1:
+        return callbacks[0]
+
+    def call(*args):
+        for cb in callbacks:
+            cb(*args)
+
+    return call
 
 
 # ------------------------------------------------------------ profiler
@@ -1299,15 +1578,18 @@ class _SimTelemetryWriter:
     bounded by one chunk, and a crashed run keeps every row written so
     far. Without an outputs dir the writer only counts rows."""
 
-    def __init__(self, group_ids: tuple, ident: dict, path: str | None):
+    def __init__(self, group_ids: tuple, ident: dict, path: str | None,
+                 append: bool = False, rows_offset: int = 0):
         self.group_ids = group_ids
         self.ident = ident
         self.path = path
-        self.rows_written = 0
+        # a resumed run continues the series: the file was truncated to the
+        # snapshot's offset, and the row count continues from its count
+        self.rows_written = int(rows_offset)
         self._f = None
         if path is not None:
             try:
-                self._f = open(path, "w")
+                self._f = open(path, "a" if append else "w")
             except OSError:
                 self.path = None  # observe best-effort, never fail the run
 
@@ -1392,15 +1674,16 @@ class _SimNetMatrixWriter:
     ``sim_netmatrix.jsonl`` (``executor.py:3459-3520``): one row a chunk,
     nonzero cells only."""
 
-    def __init__(self, prog, ident: dict, path: str | None):
+    def __init__(self, prog, ident: dict, path: str | None, append: bool = False,
+                 chunks_offset: int = 0):
         self.chunk = int(prog.chunk)
         self.ident = ident
         self.path = path
-        self.chunks_written = 0
+        self.chunks_written = int(chunks_offset)
         self._f = None
         if path is not None:
             try:
-                self._f = open(path, "w")
+                self._f = open(path, "a" if append else "w")
             except OSError:
                 self.path = None
 
@@ -1438,14 +1721,17 @@ class _SimTraceWriter:
     export written at :meth:`close`; past the cap ``truncated`` counts
     what the export lost."""
 
-    def __init__(self, groups, ident: dict, run_dir, tick_ms: float, plan):
+    def __init__(self, groups, ident: dict, run_dir, tick_ms: float, plan,
+                 resume: dict | None = None):
         from .trace import TRACE_EVENTS_FILE, TRACE_FILE
 
         self.plan = plan
         self.ident = ident
         self.tick_ms = float(tick_ms)
-        self.events_written = 0
-        self.truncated = 0
+        # a resumed run continues the stream: the counters come from the
+        # snapshot, the export buffer from the truncated jsonl prefix
+        self.events_written = int((resume or {}).get("events", 0) or 0)
+        self.truncated = int((resume or {}).get("truncated", 0) or 0)
         self._buffer: list[dict] = []
         # lane → (group id, group-relative seq) for the traced lanes only
         self._lane_group = {}
@@ -1461,10 +1747,27 @@ class _SimTraceWriter:
         )
         self._f = None
         if self.path is not None:
+            if resume is not None:
+                self._seed_buffer_from_file()
             try:
-                self._f = open(self.path, "w")
+                self._f = open(self.path, "a" if resume is not None else "w")
             except OSError:
                 self.path = None
+
+    def _seed_buffer_from_file(self) -> None:
+        """Re-read the truncated jsonl prefix into the export buffer, up to
+        the plan's ``events`` cap, so a resumed run's ``trace_events.json``
+        covers the whole run; best-effort."""
+        from .telemetry import iter_jsonl
+
+        drop = set(self.ident)
+        try:
+            for row in iter_jsonl(self.path):
+                if len(self._buffer) >= self.plan.events_cap:
+                    break
+                self._buffer.append({k: v for k, v in row.items() if k not in drop})
+        except OSError:
+            pass
 
     def on_block(self, block) -> None:
         from .trace import events_from_blocks
@@ -1540,6 +1843,17 @@ class _TimeSeriesRecorder:
     @property
     def enabled(self) -> bool:
         return callable(self._collect) and self.every > 0
+
+    # the sampled rows ride a run's snapshots, so a resumed run's
+    # timeseries.jsonl still covers the whole run
+    def state_dict(self) -> dict:
+        return {"rows": list(self.rows), "next_at": self._next_at,
+                "last_tick": self._last_tick}
+
+    def load_state(self, state: dict) -> None:
+        self.rows = [dict(r) for r in state.get("rows", [])]
+        self._next_at = int(state.get("next_at", self.every))
+        self._last_tick = int(state.get("last_tick", -1))
 
     def observe(self, ticks: int, carry) -> None:
         if ticks < self._next_at:

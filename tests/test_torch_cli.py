@@ -451,8 +451,7 @@ def test_disabled_runner_is_refused_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("setting,item", [("bucket=auto", "item 13"),
-                                          ("num_processes=2", "item 15b"),
-                                          ("checkpoint_chunks=2", "item 13")])
+                                          ("num_processes=2", "item 15b")])
 def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
     rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
@@ -460,6 +459,30 @@ def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     assert rc == 1 and "(outcome: failure)" in out
     errors = [ln for ln in err.splitlines() if ln.startswith("error: ")]
     assert len(errors) == 1 and f"ROADMAP queue 1 {item}" in errors[0], err
+
+
+def test_checkpoint_run_cfg_writes_snapshots_as_jax(tmp_path):
+    """``--run-cfg checkpoint_chunks=2`` (refused until the checkpoint plane
+    was ported) runs, and both packages keep the same snapshot files and
+    journal the same ``sim.checkpoint`` block, the timings aside."""
+    got = {}
+    for pkg, main, runner, env in (("jax", jmain, "sim:jax", REF_ENV),
+                                   ("torch", pmain, "sim:torch", PORT_ENV)):
+        home = _make_home(tmp_path, pkg, env, ("placebo",))
+        rc, out, err = _cli(main, home, ["run", "single", "placebo:ok", "-i", "2",
+                                         "--builder", "sim:plan", "--runner", runner,
+                                         "--run-cfg", "checkpoint_chunks=1",
+                                         "--run-cfg", "chunk=8"])
+        assert rc == 0, err
+        tid = _task_id(out)
+        run_dir = os.path.join(home, "data", "outputs", "placebo", tid)
+        t = (_jax_task if pkg == "jax" else _port_task)(home, tid)
+        block = dict(t.result["journal"]["sim"]["checkpoint"])
+        for k in ("write_ms", "total_write_ms", "bytes"):
+            assert block.pop(k) > 0, (pkg, k)
+        got[pkg] = (sorted(os.listdir(os.path.join(run_dir, "checkpoints"))), block)
+    assert got["torch"] == got["jax"]
+    assert got["torch"][1]["count"] >= 1
 
 
 def test_phases_run_cfg_writes_the_phase_rows_as_jax(tmp_path):
@@ -540,11 +563,11 @@ def test_daemon_only_flag_is_refused_naming_its_item(name, tmp_path, monkeypatch
         argv = [a.format(home=home, runner=runner) for a in DAEMON_FLAGS[name]]
         got[pkg] = _flag_record(pkg, home, *_cli(main, home, argv))
     port = got["torch"]
-    if name == "resume":
-        assert port["rc"] == 1 and len(port["errors"]) == 1
-        assert "ROADMAP queue 1 item 13" in port["errors"][0], port
-        return
     assert port == got["jax"]
+    if name == "resume":
+        # a task this home never ran: refused as the reference refuses it
+        assert port["rc"] == 1 and "unknown task sometask" in port["errors"][0], port
+        return
     if name in ("endpoint", "client-endpoint"):
         # nothing listens there: the call fails, and nothing runs in process
         assert port["rc"] == 1 and "Connection refused" in port["errors"][0], port
@@ -933,9 +956,38 @@ def test_build_verbs_match_jax(name, tmp_path):
 
 UNPORTED_FLAGS = {
     "build-buckets": (["build", "single", "placebo:ok", "--buckets"], "item 13"),
-    "terminate-drain": (["terminate", "--drain"], "item 13"),
     "collect-local-exec": (["collect", "sometask"], "item 16"),
 }
+
+# the fleet controller's verbs, refused until they were ported: what both
+# packages print and exit with, in process
+FLEET_VERBS = {
+    "terminate-drain": ["terminate", "--drain"],
+    "terminate-drain-with-runner": ["terminate", "--drain", "--runner", "{runner}"],
+    "preempt": ["preempt", "sometask"],
+}
+
+
+@pytest.mark.parametrize("name", list(FLEET_VERBS))
+def test_fleet_verb_matches_jax(name, tmp_path):
+    got = {}
+    for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
+                                   ("torch", pmain, PORT_ENV, "sim:torch")):
+        home = _make_home(tmp_path, pkg, env, ("placebo",))
+        argv = [a.format(runner=runner) for a in FLEET_VERBS[name]]
+        rc, out, err = _cli(main, home, argv)
+        # the stderr lines past the log records (each package's logger)
+        err = "".join(ln for ln in err.splitlines(True)
+                      if not re.match(r"\d\d:\d\d:\d\d\t", ln))
+        got[pkg] = (rc, out, err.replace("sim:jax", "sim:torch"))
+    assert got["torch"] == got["jax"]
+    rc, out, err = got["torch"]
+    if name == "terminate-drain":
+        assert rc == 0 and out.startswith("daemon drained: True"), out
+    elif name == "preempt":
+        assert rc == 1 and "preempt refused: unknown task sometask" in err, err
+    else:
+        assert rc == 1 and "takes no --runner/--builder" in err, err
 
 
 @pytest.mark.parametrize("name", list(UNPORTED_FLAGS))
@@ -947,7 +999,7 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
     assert not (home / "data" / "work").exists() or not os.listdir(home / "data" / "work")
 
 
-@pytest.mark.parametrize("verb", ["preempt", "sim-worker", "sync-service", "sync-stats"])
+@pytest.mark.parametrize("verb", ["sim-worker", "sync-service", "sync-stats"])
 def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         pmain([verb, "x"])

@@ -736,3 +736,47 @@ def test_phase_ledger_counts_the_kernels_bytes(cuda):
     assert build_phase_ledger(prog)["phases"] == [
         {k: v for k, v in r.items() if not k.startswith("measured")}
         for r in block["phases"]]
+
+
+def test_snapshot_on_the_card_equals_the_cpus_and_resumes_there(cuda):
+    """The checkpoint plane on the card: a snapshot read through the pinned
+    buffers of a reused stage (the live carry read before the next chunk
+    updates it) equals the CPU run's at the same tick, and the CPU's
+    snapshot restored on the card ends as the card's uninterrupted run."""
+    from testground_tpu_torch.sim.checkpoint import _HostStage, restore_carry, snapshot_carry
+
+    factory = load_sim_testcases(plan_dir("network"))["pingpong-sustained"]
+    groups = build_groups([RunGroup(id="all", instances=64, parameters={
+        "duration_ticks": "40", "reshape_every": "16"})])
+
+    def prog(device):
+        return SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          telemetry=True, device=device)
+
+    got = {}
+    for device, stage in (("cpu", None), (cuda, _HostStage())):
+        snaps = {}
+
+        def obs(k, c, snaps=snaps, stage=stage):
+            leaves, metas = snapshot_carry(c, "xla", stage)
+            snaps[k] = ([x.copy() for x in leaves], metas)
+
+        res = prog(device).run(seed=1, max_ticks=256, observer=obs)
+        got[str(device)] = (res, snaps)
+    (rc, sc), (rg, sg) = got["cpu"], got[str(cuda)]
+    assert sorted(sc) == sorted(sg) and 32 in sc
+    for k in sc:
+        assert sc[k][1] == sg[k][1]
+        for a, b in zip(sc[k][0], sg[k][0]):
+            np.testing.assert_array_equal(a, b, err_msg=str(k))
+    card = prog(cuda)
+    carry = restore_carry(card, 1, {"leaves": sc[32][1]}, sc[32][0], transport="xla")
+    assert carry.status.device.type == "cuda"
+    end = {}
+    res = card.run(seed=1, max_ticks=256, resume_carry=carry, resume_ticks=32,
+                   observer=lambda k, c: end.__setitem__("c", snapshot_carry(c, "xla")))
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped"):
+        assert res[k] == rg[k], k
+    last = max(sg)
+    for a, b in zip(end["c"][0], sg[last][0]):
+        np.testing.assert_array_equal(a, b)

@@ -8,10 +8,11 @@ plans. Then the exit codes, the printed lines of ``run``, ``status``,
 directories, lifecycle span tree included, must be equal. Also: bearer
 auth, the path-traversal guards, the observability routes (``/journal``,
 ``/stats``, ``/perf``, ``/diff``, ``/stream``, ``/trace``, ``/artifact``,
-``/fleet``) answering as the reference's, the routes that answer 501
-naming their ROADMAP item (``/preempt`` and ``/drain``), ``--detach``, ``--collect-file``, ``terminate`` of each
-component type, ``/kill`` of a running task, the ``/events`` tail, two
-workers at once, ``SIGTERM`` of a daemon process, and a run on a fake
+``/fleet``) answering as the reference's, the fleet controller's routes
+(``/preempt`` and ``/drain``) answering as the reference's, ``--detach``,
+``--collect-file``, ``terminate`` of each component type, ``/kill`` of a
+running task, the ``/events`` tail, two workers at once, ``SIGTERM`` of a
+daemon process (which drains it), and a run on a fake
 ``cuda:1`` whose worker thread makes that card current before the first
 kernel launch. Mirrors the reference's ``tests/test_daemon.py`` and
 ``test_cli_e2e.py``. Every wait has a deadline.
@@ -50,7 +51,6 @@ from testground_tpu.daemon import Daemon as JDaemon
 from testground_tpu_torch.client import Client, DaemonError
 from testground_tpu_torch.config import EnvConfig
 from testground_tpu_torch.daemon import Daemon
-from testground_tpu_torch.daemon.server import NOT_PORTED_ROUTES
 from test_torch_perf import perf_view
 
 PKGS = {"jax": (JDaemon, JEnvConfig, JClient, jmain, REF_ENV, "sim:jax"),
@@ -382,18 +382,36 @@ def test_path_traversal_is_refused_as_jax(name, daemons):
     assert got["torch"][0] == 400 and "invalid" in got["torch"][1]
 
 
-@pytest.mark.parametrize("route", list(NOT_PORTED_ROUTES))
-def test_not_ported_route_answers_501_naming_its_item(route, daemons):
-    assert set(NOT_PORTED_ROUTES) == {"/preempt", "/drain"}
-    d = daemons["torch"]
-    for method, body in (("GET", None), ("POST", {})):
-        code, data = _http(d["ep"], method, route, body)
-        assert code == 501, (method, route, code)
-        err = json.loads(data)["error"]
-        assert "ROADMAP queue 1 item 13 " in err and route in err
-    # the connection stays usable: a route that exists still answers
-    assert _http(d["ep"], "GET", "/tasks")[0] == 200
-    assert _http(d["ep"], "GET", "/no-such-route")[0] == 404
+# the fleet controller's routes (501 until they were ported): each call's
+# status and body in both packages' daemons, on an idle daemon
+FLEET_ROUTES = {
+    "/preempt": [("POST", {"task_id": "nope"}), ("POST", {}), ("GET", None)],
+    "/drain": [("POST", {"timeout_secs": 1})],
+}
+
+
+@pytest.mark.parametrize("route", list(FLEET_ROUTES))
+def test_fleet_route_answers_as_jax(route, tmp_path):
+    got = {}
+    for pkg in PKGS:
+        d = _start(pkg, _make_home(tmp_path / pkg, pkg, PKGS[pkg][4], ()))
+        try:
+            got[pkg] = [(code, json.loads(data)) for code, data in
+                        (_http(d.address, m, route, b) for m, b in FLEET_ROUTES[route])]
+            if route == "/drain":
+                # the drained daemon stops itself after it answered
+                _wait(lambda: d._stopped, "the drained daemon to stop", timeout=10)
+                with open(d.engine.events.path) as f:
+                    got[pkg].append([json.loads(ln)["type"] for ln in f])
+        finally:
+            d.stop()
+    assert got["torch"] == got["jax"]
+    if route == "/preempt":
+        assert got["torch"][0] == (200, {"ok": False, "error": "unknown task nope"})
+        assert got["torch"][1][0] == 400 and got["torch"][2][0] == 404
+    else:
+        assert got["torch"][0] == (200, {"drained": True, "preempted": [], "canceled": []})
+        assert "daemon.drain" in got["torch"][1]
 
 
 # the routes of the observability verbs, each held against the reference's
@@ -595,6 +613,9 @@ def test_sigterm_stops_the_daemon_process(tmp_path):
         _wait(answers, "the daemon to answer", timeout=60)
         proc.terminate()
         assert proc.wait(timeout=20) == 0
+        # SIGTERM drained the daemon before it stopped
+        with open(home / "data" / "daemon" / "daemon_events.jsonl") as f:
+            assert "daemon.drain" in [json.loads(ln)["type"] for ln in f]
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -791,7 +812,7 @@ def test_unported_setting_refused_at_submit(daemons):
     got = _submit(daemons["torch"], _ping_pong(daemons["torch"], _cfg(bucket="auto")))
     assert got["status"] == 422 and got["new_tasks"] == 0
     assert "[port.not-ported] runner config bucket='auto' is not ported yet: ROADMAP " \
-           "queue 1 item 13" in got["body"]["error"]
+           "queue 1 item 13b" in got["body"]["error"]
     assert got["refusals"][0]["rules"] == ["port.not-ported"]
 
 

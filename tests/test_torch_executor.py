@@ -307,13 +307,11 @@ def test_outputs_over_the_cap_are_skipped(tmp_path):
 
 
 REFUSED = {
-    "bucket": ("auto", "item 13"),
-    "bucket_ladder": ("32,64", "item 13"),
-    "build_buckets": (True, "item 13"),
-    "pack": (True, "item 13"),
-    "checkpoint_chunks": (2, "item 13"),
-    "resume_from": ("earlier-run", "item 13"),
-    "mesh": ("2x4", "item 13"),
+    "bucket": ("auto", "item 13b"),
+    "bucket_ladder": ("32,64", "item 13b"),
+    "build_buckets": (True, "item 13b"),
+    "pack": (True, "item 13b"),
+    "mesh": ("2x4", "item 13b"),
     "coordinator_address": ("localhost:1234", "item 15b"),
     "num_processes": (2, "item 15b"),
     "process_id": (1, "item 15b"),
@@ -325,6 +323,25 @@ def _placebo_job(tmp_path, **cfg):
                     total_instances=2, groups=[RunGroup(id="all", instances=2)],
                     env=OutputsEnv(tmp_path),
                     runner_config=pexec.SimTorchConfig(**{"device": "cpu", **cfg}))
+
+
+@pytest.mark.parametrize("name", ["checkpoint_chunks", "resume_from"])
+def test_checkpoint_setting_runs(name, tmp_path):
+    """The checkpoint plane's settings, refused until it was ported: a run
+    with ``checkpoint_chunks`` keeps its snapshots, and ``resume_from``
+    that run continues it from its newest one."""
+    first = pexec.execute_sim_run(_placebo_job(tmp_path, checkpoint_chunks=1, chunk=8),
+                                  discard_writer(), threading.Event())
+    block = first.result.journal["sim"]["checkpoint"]
+    assert block["count"] >= 1 and os.listdir(tmp_path / "placebo" / "refused" / "checkpoints")
+    if name == "resume_from":
+        job = _placebo_job(tmp_path, resume_from="refused", chunk=8)
+        job.run_id = "resumed"
+        out = pexec.execute_sim_run(job, discard_writer(), threading.Event())
+        assert out.result.journal["sim"]["checkpoint"]["resumed"] == {
+            "from_tick": block["last_tick"], "from_run": "refused",
+            "snapshot": f"ckpt-{block['last_tick']:012d}.npz"}
+        assert out.result.journal["events"] == first.result.journal["events"]
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
