@@ -58,7 +58,7 @@ and drives the port's main path through the library entry points
               kernels a tick of both; all SUCCESS and the flow totals
               closing over fault_dropped
 11. telemetry — sustained@100k at phase 4's parameters, 500 ticks, four
-              ways in six turns (wall deltas paired against the same
+              ways in three turns (wall deltas paired against the same
               turn's planes-off run, resolved past the off runs' quartiles): every observability plane off, telemetry,
               telemetry + the traffic matrix, and those two + a 64-lane
               trace plan; wall and device ms/tick, busy share, kernels a
@@ -100,7 +100,7 @@ and drives the port's main path through the library entry points
               in-process daemon: sustained@100k through its client in turns
               against the in-process CLI, two runs at once, a kill, chaos
               smoke CPU ↔ card (see ``phase_daemon``)
-17. admit   — an in-process daemon on the card refuses four bad variants
+17. admit   — an in-process daemon on the card refuses five bad variants
               of cli@100k's composition at submit (422, no task, one
               ``task.refused``, no device memory) and admits the composition
               itself, whose run journals ``sim.perf``; ``execute_sim_run``
@@ -134,7 +134,18 @@ and drives the port's main path through the library entry points
               in-process daemon's ``/preempt``, priority eviction and
               ``/drain``; sustained@1M's snapshot and restore (see
               ``phase_resume``)
-21. parity  — sustained, flood and storm at 4,096 instances, the faulted
+21. buckets — shape buckets: sustained@100k exact against ``bucket =
+              "auto"`` (131,072 lanes) through ``execute_sim_run`` in
+              three rotated turns, equal; ``build --buckets`` and a
+              bucketed ``run single`` through the CLI; ops and syncs a
+              tick; ping-pong@100k and the faulted sustained at 4,000
+              padded (CPU ↔ card); 100,002 instances on a 4-shard mesh
+              (two dead lanes) with an exact-shape snapshot; 1M padded to
+              1,048,576 (peak bytes); a bucketed ``tg check
+              --trace-plans``; every plan case's syncs, exact against
+              padded; device ms and kernels a tick last (see
+              ``phase_buckets``)
+22. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -175,7 +186,7 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "admit", "observe", "surface", "resume", "parity")
+          "cli", "daemon", "admit", "observe", "surface", "resume", "buckets", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -766,11 +777,14 @@ class PhaseTimer:
 
 
 def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=None,
-            trace=None, mesh=None, **kw):
+            trace=None, mesh=None, ladder=None, **kw):
     """A port SimProgram of one group; ``fault_tables`` (fault tables by
     group id) are lowered by the port's ``build_fault_schedule``, ``trace``
     (an instance range, "lo:hi") by its ``build_trace_plan``; ``mesh`` (a
-    shard count) runs it on a virtual mesh on ``device``."""
+    shard count) runs it on a virtual mesh on ``device``. ``ladder`` (a
+    bucket ladder) pads the group to its rung as the executor does under
+    ``bucket = "auto"``: the plan specialized at the padded count, the
+    fault schedule lowered in the exact layout and remapped."""
     from testground_tpu_torch.api import RunGroup
     from testground_tpu_torch.sim.engine import SimProgram, build_groups
     from testground_tpu_torch.sim.executor import (
@@ -780,12 +794,22 @@ def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=
     )
 
     factory = load_sim_testcases(plan_dir(plan))[case]
-    groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
+    exact = build_groups([RunGroup(id="all", instances=n, parameters=params)])
+    groups, bp = exact, None
+    if ladder:
+        from testground_tpu_torch.sim.buckets import plan_buckets
+
+        bp = plan_buckets([n], "auto", tuple(ladder))
+        groups = build_groups([RunGroup(id="all", instances=bp.padded_counts[0],
+                                        parameters=params)])
+        kw["live_counts"] = bp.live_counts
     tc = instantiate_testcase(factory, groups, tick_ms=1.0)
     if fault_tables:
-        from testground_tpu_torch.sim.faults import build_fault_schedule
+        from testground_tpu_torch.sim.faults import build_fault_schedule, remap_schedule
 
-        kw["faults"] = build_fault_schedule(groups, fault_tables, 1.0)
+        kw["faults"] = build_fault_schedule(exact, fault_tables, 1.0)
+        if bp is not None:
+            kw["faults"] = remap_schedule(kw["faults"], bp.index_map(), bp.padded_n)
     if trace:
         from testground_tpu_torch.sim.trace import build_trace_plan
 
@@ -922,14 +946,15 @@ def counted_syncs(fn, sites=None) -> tuple:
     return out, len(syncs)
 
 
-def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
+def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True, by_name=False) -> dict:
     """Device kernel time per tick from ``torch.profiler`` over the first
     chunk of a run (at least ``ticks`` ticks; the real count is read off
     the carry), its top kernels, the transport kernels' device time per
     launch, and the device's busy share of the unprofiled wall time per
     tick. Where the profiler reports no device time, the share is "not
     measured" (None). ``host_ops=False`` records device activity only,
-    which keeps a long window's trace small."""
+    which keeps a long window's trace small; ``by_name`` adds each
+    device event's count a tick."""
     from torch.profiler import ProfilerActivity, profile
 
     last = {}
@@ -942,7 +967,13 @@ def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True) -> dict:
     rows = [r for r in _device_rows(prof) if r[1] > 0]
     total_ms = sum(r[1] for r in rows) / 1e3 / ticks
     top = sorted(rows, key=lambda r: -r[1])[:10]
+    named = {}
+    if by_name:
+        per = named["kernels_per_tick_by_name"] = {}
+        for k, _, calls in rows:
+            per[k[:80]] = per.get(k[:80], 0) + calls / ticks
     return {
+        **named,
         "profiled_ticks": ticks,
         "device_ms_per_tick": total_ms if rows else None,
         "device_busy_share": total_ms / wall_ms_per_tick if rows else None,
@@ -1194,9 +1225,10 @@ def phase_mesh(card) -> dict:
 
 # the telemetry phase's four ways to run sustained@100k, and how many
 # turns of the four it times: host speed drifts within a call by more
-# than a plane's wall cost, so six pairs against the planes-off run (six,
-# not more, keeps the whole script inside half its time limit)
-TURNS = 6
+# than a plane's wall cost, so three pairs against the planes-off run
+# (six to PR 14; three, as every other phase times, to make room for the
+# buckets phase inside the script's time limit)
+TURNS = 3
 PLANE_SETS = {
     "off": {},
     "telemetry": {"telemetry": True},
@@ -2663,8 +2695,10 @@ ADMIT_REFUSED = {
                                   "kind": "partition", "instances": "0:50000",
                                   "to_instances": "50000:100000", "start_ms": 100.0,
                                   "duration_ms": -50.0}])),
-    "bucket-auto": ("port.not-ported",
-                    lambda c: c["global"]["run_config"].update(bucket="auto")),
+    # run packs: still refused (item 13c); a bucket mode the gate refuses
+    "pack": ("port.not-ported", lambda c: c["global"]["run_config"].update(pack=True)),
+    "bucket-sideways": ("buckets.mode-invalid",
+                        lambda c: c["global"]["run_config"].update(bucket="sideways")),
 }
 
 
@@ -2695,7 +2729,8 @@ def phase_admit(card) -> dict:
     """Admission at submit and the perf ledger on the card: (a) an
     in-process ``Daemon`` on the card with one worker refuses cli@100k's
     composition with an SLO and no telemetry, an unknown transport, an
-    inverted fault window and ``bucket = "auto"``: a 422 naming the rule,
+    inverted fault window, ``pack = true`` (run packs, item 13c) and
+    ``bucket = "sideways"``: a 422 naming the rule,
     no task, one ``task.refused`` event, no device memory allocated; (b)
     admits cli@100k's own composition, which launches K1 and K2 every tick
     and journals ``sim.perf`` (rows = chunks, Σ row walls = the execute
@@ -2745,7 +2780,7 @@ def phase_admit(card) -> dict:
         client = Client(daemon.address)
         path = daemon_composition(root, "sustained-100k", 100_000, SUSTAINED)
         try:
-            # (a) four bad compositions, each refused before a queue slot
+            # (a) five bad compositions, each refused before a queue slot
             refused = {}
             for name, (rule, edit) in ADMIT_REFUSED.items():
                 comp = load_composition(path).to_dict()
@@ -4003,6 +4038,367 @@ def phase_resume(card) -> dict:
 # ------------------------------------------------------------ main
 
 
+# ---------------------------------------------------------------- buckets
+
+BUCKET_TURNS = 3
+# the phase's sizes: sustained@100k and its rung under the default ladder,
+# 1M and its rung, the faulted sustained, the plan cases' sweep
+BUCKET_SIZES = {"n": 100_000, "padded": 131_072, "big": 1_000_000,
+                "big_padded": 1_048_576, "faulted": 4000, "faulted_padded": 4096,
+                "sweep": 1000}
+# the build's ladder: the rungs a composition of the default 2 instances
+# fits in, up to sustained@100k's
+BUILD_LADDER = "4096,32768,131072"
+# result keys a padded run must reproduce (the footprint is the padded
+# carry's, as in the reference)
+SAME_KEYS = ("ticks", "status", "finished_at", "sync_counts", "pub_dropped",
+             "latency_clamped", "bw_queue_dropped", "collisions", "msgs_delivered",
+             "msgs_sent", "msgs_enqueued", "msgs_dropped", "msgs_rejected", "cal_depth",
+             "faults_crashed", "faults_restarted", "fault_dropped")
+
+
+def same_results(label, a, b) -> None:
+    """``b`` reproduces ``a``: every key of SAME_KEYS, every state leaf, the
+    planes' accumulators, and the exact group layout."""
+    for k in SAME_KEYS:
+        check(np.array_equal(np.asarray(a[k]), np.asarray(b[k])), f"{label}: {k} differs")
+    for sa, sb in zip(a["states"], b["states"]):
+        check(sorted(sa) == sorted(sb), f"{label}: state keys")
+        for k in sa:
+            check(sa[k].dtype == sb[k].dtype and np.array_equal(sa[k], sb[k]),
+                  f"{label}: state {k} differs")
+    for k in ("lat_hist", "net_matrix"):
+        check(a.get(k) == b.get(k), f"{label}: {k} differs")
+    check([(g.id, g.offset, g.count) for g in a["groups"]]
+          == [(g.id, g.offset, g.count) for g in b["groups"]], f"{label}: groups")
+
+
+def phase_buckets(card) -> dict:
+    """Shape buckets on the card (the ladder's dead lanes, exact-N results):
+
+    1. sustained@100k at phase 4's parameters through ``execute_sim_run``
+       with telemetry, exact against ``bucket = "auto"`` (131,072 lanes)
+       in three rotated turns: wall ms/tick; the journals, the telemetry
+       streams and the latency blocks equal;
+    2. ``build single network:pingpong-sustained --buckets`` with the
+       ladder 4096,32768,131072 through the CLI (seconds a rung, the
+       marker), then ``run single ... -i 100000 --run-cfg bucket=auto``;
+    3. the same two programs through ``SimProgram.run``: results, every
+       counter block and histogram delta equal; ops (counted on the host)
+       and sync-debug syncs a tick of each, the syncs equal;
+    4. ping-pong@100k under the default ladder to all SUCCESS, equal to
+       exact; the faulted sustained at 4,000 (padded to 4,096) on the CPU
+       and the card and exact on the card, equal;
+    5. sustained at 100,002 on a 4-shard virtual mesh (two dead lanes),
+       equal to the unmeshed run; snapshotted at tick 250 with the exact
+       shapes, restored and run on, equal again;
+    6. sustained@1M under the default ladder (1,048,576 lanes), 64 ticks:
+       peak device bytes against the exact 1M run;
+    7. ``tg check --trace-plans`` of a bucketed sustained@100k composition
+       in process: 0 launches, 0 device bytes;
+    8. every port plan case at 1,000 instances (padded to 4,096): sync-
+       debug syncs over 16 and 32 ticks, exact against padded, equal; a
+       plan that reads a count on the host (barrier) refuses padded;
+    9. last, after every wall clock: phase 3's programs profiled over a
+       64-tick first chunk (device ms and kernels a tick, K1 and K2 ms a
+       launch at the padded shape)."""
+    import shutil
+    import tempfile
+
+    from testground_tpu_torch.sim.buckets import DEFAULT_LADDER
+    from testground_tpu_torch.sim.checkpoint import restore_carry, snapshot_carry
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_buckets_")
+    launches = dict.fromkeys(KERNELS + SHARDED_KERNELS, 0)
+    row = {"phase": "buckets", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+    sz = BUCKET_SIZES
+    n = sz["n"]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def counted(label, kernels=KERNELS):
+        got = read_launches(KERNELS + SHARDED_KERNELS)
+        check(all(got[k] > 0 for k in kernels), f"buckets {label}: launches {got}")
+        for k, v in got.items():
+            launches[k] += v
+        return got
+
+    def run_counted(label, prog, kernels=KERNELS, **kw):
+        reset_launches()
+        res = prog.run(seed=0, **kw)
+        torch.cuda.synchronize()
+        counted(label, kernels)
+        return res
+
+    try:
+        # 1. exact against auto through the executor, rotated turns
+        def sustained(rid, **cfg):
+            out, wall, rd = run_exec(exec_job(rid, root, "network", "pingpong-sustained",
+                                              n, SUSTAINED, chunk=250, max_ticks=10_000,
+                                              telemetry=True, **cfg))
+            counted(rid)
+            check(out.result.outcome.value == "success", f"buckets {rid}: outcome")
+            return out, wall, rd
+
+        sustained("warm-up", bucket="auto")
+        ms = {"exact": [], "auto": []}
+        first = {}
+        for i in range(BUCKET_TURNS):
+            for way in (("exact", "auto") if i % 2 == 0 else ("auto", "exact")):
+                out, wall, rd = sustained(f"{way}-{i}",
+                                          **({"bucket": "auto"} if way == "auto" else {}))
+                ms[way].append(wall / out.result.journal["telemetry"]["rows"] * 1e3)
+                if way not in first:
+                    first[way] = (out.result.journal, rd)
+        (jx, dx), (ja, da) = first["exact"], first["auto"]
+        bucket = ja["sim"]["bucket"]
+        check(bucket["padded_instances"] == sz["padded"] and bucket["instances"] == n
+              and "bucket" not in jx["sim"], f"buckets: bucket block {bucket}")
+        keys = [k for k in jx["sim"] if k.startswith(("msgs_", "faults_"))]
+        diff = [k for k in keys + ["ticks", "latency"] if jx["sim"].get(k) != ja["sim"].get(k)]
+        diff += [k for k in ("telemetry", "events") if jx.get(k) != ja.get(k)]
+        check(not diff, f"buckets: the padded journal differs in {diff}")
+        check(_series(dx) == _series(da), "buckets: the telemetry streams differ")
+        row["sustained_100k"] = {
+            "wall_ms_per_tick": ms, "median_exact": statistics.median(ms["exact"]),
+            "median_auto": statistics.median(ms["auto"]),
+            "delta": statistics.median(ms["auto"]) - statistics.median(ms["exact"]),
+            "resolved": (min(ms["auto"]) > max(ms["exact"])
+                         or max(ms["auto"]) < min(ms["exact"])),
+            "bucket": bucket, "ticks": ja["telemetry"]["rows"],
+            "perf_instances": ja["sim"]["perf"]["instances"],
+            "perf_bucket": ja["sim"]["perf"].get("bucket"),
+        }
+        step("turns")
+
+        # 2. build --buckets, then a bucketed run single, through the CLI
+        home = cli_home(root, "cli")
+        got = cli_call(home, ["build", "single", "network:pingpong-sustained", "--buckets",
+                              "--run-cfg", f"bucket_ladder={BUILD_LADDER}"])
+        check(got["rc"] == 0 and "(outcome: success)" in got["out"],
+              f"buckets build: {got['out'][-1500:]} {got['err'][-1500:]}")
+        with open(os.path.join(home, "data", "precompiled",
+                               "buckets-network-pingpong-sustained.json")) as f:
+            marker = json.load(f)
+        check([b["bucket"] for b in marker["buckets"]]
+              == [int(r) for r in BUILD_LADDER.split(",")]
+              and sorted(marker) == ["buckets", "case", "ladder", "plan"],
+              f"buckets build: marker {marker}")
+        ran = cli_run("bucketed run single", home,
+                      ["run", "single", "network:pingpong-sustained", "-i", str(n),
+                       "-tp", "duration_ticks=500", "-tp", "reshape_every=250",
+                       "--run-cfg", "bucket=auto"], launches)
+        rj = ran["task"].result["journal"]
+        check(rj["events"]["single"]["success"] == n
+              and rj["sim"]["bucket"]["padded_instances"] == sz["padded"],
+              f"buckets run single: {rj['events']} {rj['sim'].get('bucket')}")
+        row["cli"] = {"build_wall_s": got["wall"], "marker": marker,
+                      "run_wall_s": ran["wall"], "run_ticks": rj["sim"]["ticks"],
+                      "run_launches": ran["launches"]}
+        step("cli")
+
+        # 3. the two programs directly: equal, ops and syncs a tick
+        progs = {
+            "exact": program("pingpong-sustained", n, SUSTAINED, chunk=250, telemetry=True),
+            "auto": program("pingpong-sustained", n, SUSTAINED, chunk=250, telemetry=True,
+                            ladder=DEFAULT_LADDER),
+        }
+        check(progs["auto"].n == sz["padded"], "buckets: the padded program's lanes")
+        rec = {}
+        for way, prog in progs.items():
+            reset_launches()
+            res, blocks, _ = record_planes(prog, seed=0, max_ticks=10_000)
+            torch.cuda.synchronize()
+            rec[way] = (res, blocks, counted(f"sustained {way}"))
+        (rx, bx, lx), (ra, ba, la) = rec["exact"], rec["auto"]
+        same_results("buckets sustained", rx, ra)
+        for k in ("tele", "lat"):
+            check(len(bx[k]) == len(ba[k]) and all(
+                np.array_equal(u, v) for u, v in zip(bx[k], ba[k])),
+                f"buckets sustained: {k} blocks differ")
+        check(lx == la, f"buckets sustained: launches {lx} against {la}")
+        per_tick = {}
+        for way, prog in progs.items():
+            reset_launches()
+            (_, ops), syncs = counted_syncs(lambda p=prog: dispatched_ops(
+                lambda: p.run(seed=0, max_ticks=250)))
+            torch.cuda.synchronize()
+            counted(f"ops {way}")
+            per_tick[way] = {"ops": ops / 250, "syncs": syncs / 250}
+        check(per_tick["auto"]["syncs"] == per_tick["exact"]["syncs"],
+              f"buckets: syncs a tick {per_tick}")
+        row["direct_100k"] = {"ticks": int(rx["ticks"]), "per_tick": per_tick,
+                              "ops_added_per_tick": per_tick["auto"]["ops"]
+                              - per_tick["exact"]["ops"],
+                              "launches": la, "flows": flows(ra)}
+        step("direct")
+
+        # 4. ping-pong@100k; the faulted sustained at 4,000 on CPU and card
+        pp = {"latency_ms": "100", "latency2_ms": "10", "tolerance_ms": "15"}
+        res_x = run_counted("ping-pong exact", program("ping-pong", n, pp, chunk=64),
+                            max_ticks=10_000)
+        res_a = run_counted("ping-pong auto", program("ping-pong", n, pp, chunk=64,
+                                                      ladder=DEFAULT_LADDER),
+                            max_ticks=10_000)
+        check(bool((res_a["status"] == 1).all()), "buckets ping-pong: not all SUCCESS")
+        same_results("buckets ping-pong", res_x, res_a)
+        m = sz["faulted"]
+        ft = sustained_fault_tables(m)
+        fx = run_counted("faulted exact", program("pingpong-sustained", m, SUSTAINED,
+                                                  chunk=250, fault_tables=ft),
+                         max_ticks=1000)
+        fa = run_counted("faulted auto", program("pingpong-sustained", m, SUSTAINED,
+                                                 chunk=250, fault_tables=ft,
+                                                 ladder=DEFAULT_LADDER), max_ticks=1000)
+        fc = program("pingpong-sustained", m, SUSTAINED, chunk=250, fault_tables=ft,
+                     ladder=DEFAULT_LADDER, device="cpu").run(seed=0, max_ticks=1000)
+        check(fa["faults_crashed"] > 0 and fa["fault_dropped"] > 0,
+              f"buckets faulted: {flows(fa)}")
+        same_results("buckets faulted card", fx, fa)
+        same_results("buckets faulted cpu", fc, fa)
+        row["pingpong_100k"] = {"ticks": int(res_a["ticks"]), "flows": flows(res_a)}
+        row["faulted_4000"] = {"padded": sz["faulted_padded"], "ticks": int(fa["ticks"]),
+                               "flows": flows(fa)}
+        step("pingpong_faulted")
+
+        # 5. an indivisible lane count on a 4-shard virtual mesh
+        odd = n + 2
+        meshed = program("pingpong-sustained", odd, SUSTAINED, chunk=250,
+                         mesh=MESH_SHARDS)
+        check(meshed.mesh_pad == 2 and meshed.n == odd + 2,
+              f"buckets mesh: pad {meshed.mesh_pad}")
+        flat = program("pingpong-sustained", odd, SUSTAINED, chunk=250)
+        res_u = run_counted("mesh unmeshed", flat, max_ticks=10_000)
+        export = meshed.lane_export()
+        cut = {}
+
+        def grab(ticks, carry):
+            if ticks == 250:
+                cut["snap"] = snapshot_carry(carry, "xla", export=export)
+
+        reset_launches()
+        res_m = meshed.run(seed=0, max_ticks=10_000, observer=grab)
+        torch.cuda.synchronize()
+        counted("mesh", SHARDED_KERNELS)
+        same_results("buckets mesh", res_u, res_m)
+        leaves, metas = cut["snap"]
+        check(any(mt["shape"] == [odd] for mt in metas)
+              and not any(odd + 2 in mt["shape"] for mt in metas),
+              f"buckets mesh: snapshot shapes {[mt['shape'] for mt in metas]}")
+        carry = restore_carry(meshed, 0, {"leaves": metas}, leaves, transport="xla")
+        reset_launches()
+        res_r = meshed.run(seed=0, max_ticks=10_000, resume_carry=carry, resume_ticks=250)
+        torch.cuda.synchronize()
+        counted("mesh resumed", SHARDED_KERNELS)
+        same_results("buckets mesh resumed", res_u, res_r)
+        row["mesh_100002"] = {"shards": MESH_SHARDS, "dead_lanes": meshed.mesh_pad,
+                              "ticks": int(res_m["ticks"]), "snapshot_leaves": len(leaves),
+                              "carry_bytes": res_m["carry_bytes"]}
+        step("mesh")
+
+        # 6. sustained@1M under the default ladder: peak bytes
+        big = sz["big"]
+        peaks = {}
+        for way, lad in (("exact", None), ("auto", DEFAULT_LADDER)):
+            prog = program("pingpong-sustained", big, {"duration_ticks": "10000"},
+                           chunk=64, ladder=lad)
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = run_counted(f"1M {way}", prog, max_ticks=64)
+            peaks[way] = torch.cuda.max_memory_allocated() - held
+            check(conserved(res), f"buckets 1M {way}: flows")
+            del prog, res
+        row["scale_1m"] = {"peak_bytes": peaks, "padded": sz["big_padded"],
+                           "ratio": peaks["auto"] / peaks["exact"]}
+        step("scale")
+
+        # 7. tg check --trace-plans of a bucketed composition
+        from testground_tpu_torch.api import TestPlanManifest, load_composition
+        from testground_tpu_torch.sim.check import check_composition
+        from testground_tpu_torch.sim.executor import plan_dir
+
+        path = daemon_composition(root, "bucketed-100k", n, SUSTAINED,
+                                  cfg='bucket = "auto"\n')
+        manifest = TestPlanManifest.load_file(os.path.join(plan_dir("network"),
+                                                           "manifest.toml"))
+        torch.cuda.synchronize()
+        mem = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        fs = check_composition(load_composition(path), manifest, trace_plans=True,
+                               plan_sources=plan_dir("network"))
+        check_ms = (time.perf_counter() - t0) * 1e3
+        got = read_launches(KERNELS + SHARDED_KERNELS)
+        torch.cuda.synchronize()
+        check(not [f for f in fs if f.severity == "error"], f"buckets check: {fs}")
+        check(sum(got.values()) == 0 and torch.cuda.memory_allocated() == mem,
+              f"buckets check: launches {got}, bytes {torch.cuda.memory_allocated() - mem}")
+        row["check"] = {"ms": check_ms, "findings": [f.rule for f in fs], "launches": 0,
+                        "device_bytes": 0}
+        step("check")
+
+        # 8. every port plan case: syncs over 32 and 64 ticks, exact and padded
+        from testground_tpu_torch.sim.executor import PLANS_ROOT
+
+        from testground_tpu_torch.sim.engine import HOST_READ_ERROR
+
+        sweep, refused = {}, []
+        for plan in sorted(os.listdir(PLANS_ROOT)):
+            mpath = os.path.join(PLANS_ROOT, plan, "manifest.toml")
+            if not os.path.isfile(mpath):
+                continue
+            for tc in TestPlanManifest.load_file(mpath).testcases:
+                kw = {"hosts": ("http-echo",)} if plan == "additional_hosts" else {}
+                growth = {}
+                for way, lad in (("exact", None), ("auto", DEFAULT_LADDER)):
+                    prog = program(tc.name, sz["sweep"], {}, chunk=16, plan=plan,
+                                   ladder=lad, **kw)
+                    try:
+                        prog.run(seed=0, max_ticks=16)  # a step's constants, built once
+                    except TypeError as e:
+                        # a plan that reads a count on the host refuses at
+                        # its first padded step, as the reference's trace
+                        check(way == "auto" and HOST_READ_ERROR in str(e),
+                              f"buckets sweep {plan}:{tc.name} {way}: {e}")
+                        refused.append(f"{plan}:{tc.name}")
+                        break
+                    growth[way] = host_syncs(prog, 32) - host_syncs(prog, 16)
+                else:
+                    sweep[f"{plan}:{tc.name}"] = growth
+        reading = {k: v for k, v in sweep.items() if v["auto"] != v["exact"]}
+        check(not reading, f"buckets sweep: syncs differ {reading}")
+        # the one case whose bucketed --trace-plans is plan.traced-int in
+        # both packages (barrier's max(1, int(n * p)))
+        check(refused == ["benchmarks:barrier"], f"buckets sweep: refused {refused}")
+        row["sync_sweep"] = {"cases": len(sweep), "per_16_ticks": sweep,
+                             "refused": refused}
+        step("sweep")
+
+        # 9. phase 3's programs profiled over a first chunk of 64 ticks, last
+        prof = {}
+        for way, lad in (("exact", None), ("auto", DEFAULT_LADDER)):
+            twin = program("pingpong-sustained", n, SUSTAINED, chunk=64, telemetry=True,
+                           ladder=lad)
+            prof[way] = device_profile(twin, ticks=64, wall_ms_per_tick=statistics.median(
+                ms[way]), host_ops=False, by_name=True)
+        # the device events a padded tick adds or drops, by kernel name
+        names = {w: prof[w].pop("kernels_per_tick_by_name") for w in prof}
+        row["profiled"] = prof
+        row["kernels_added_per_tick"] = {
+            k: names["auto"].get(k, 0) - names["exact"].get(k, 0)
+            for k in sorted(set(names["auto"]) | set(names["exact"]))
+            if names["auto"].get(k, 0) != names["exact"].get(k, 0)}
+        step("profiled")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4119,7 +4515,8 @@ def main(argv=None) -> int:
                    ("plans", phase_plans), ("executor", phase_executor),
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
                    ("admit", phase_admit), ("observe", phase_observe),
-                   ("surface", phase_surface), ("resume", phase_resume)):
+                   ("surface", phase_surface), ("resume", phase_resume),
+                   ("buckets", phase_buckets)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

@@ -12,6 +12,14 @@ immune to source edits.
 ``_source_digest`` is the reference's digest of a plan snapshot's Python
 sources, the part of a checkpoint's ``build_key`` that refuses a resume
 after a plan edit (``sim/checkpoint.py``).
+
+``warm_bucket_ladder`` is ``tg build --buckets`` (``build_buckets = true``):
+the reference's ``_warm_bucket_ladder`` (``builders/sim_plan.py:583-815``)
+compiles every rung of the shape-bucket ladder into XLA's cache. The port
+compiles nothing, so each rung runs ``init_carry`` and one chunk on the
+run's device instead — the kernels' first launches and the allocator's
+first blocks at that rung's shapes — and the rung's seconds go into the
+reference's ``buckets-<plan>-<case>.json`` marker, with its keys.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from ..api import BuildInput, BuildOutput
 from ..rpc import OutputWriter
 from .base import Builder, purge_snapshots
 
-__all__ = ["SimPlanBuilder"]
+__all__ = ["SimPlanBuilder", "bucket_marker_path", "warm_bucket_ladder"]
 
 
 def _source_digest(artifact_dir: str) -> str:
@@ -78,3 +86,124 @@ class SimPlanBuilder(Builder):
     def purge(self, testplan: str, ow: OutputWriter, env=None) -> None:
         removed = purge_snapshots("sim-plan", testplan, ow, env)
         ow.infof("sim:plan purge: removed %d snapshot(s)", removed)
+
+
+def bucket_marker_path(env, plan: str, case: str) -> str:
+    """Where the ladder warm writes its marker: the reference's file name,
+    under the home's ``data/precompiled`` (the port has no compile-cache
+    directory to put it in)."""
+    return os.path.join(env.dirs.home, "data", "precompiled",
+                        f"buckets-{plan}-{case}.json")
+
+
+def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
+                       cancel: threading.Event) -> list[dict]:
+    """Warm the shape-bucket ladder for the composition's first [[runs]]
+    entry, when its coalesced runner config asks for it
+    (``build_buckets``): each rung the composition fits in, every group
+    padded to it, built as the run builds it and driven through
+    ``init_carry`` and one chunk on the run's device. The reference's
+    skips apply: a cohort config, a rung below the composition's counts, a
+    rung that does not divide across the mesh's peer shards, and a rung
+    the memory precheck refuses (each rung is best-effort). The
+    pack-width warm is run packs' (item 13c) and is skipped with a
+    warning. Returns the marker's ``buckets`` rows."""
+    import json
+    import time
+
+    from ..api import RunGroup, prepare_for_run
+    from ..config import CoalescedConfig
+    from ..sim.buckets import parse_ladder
+    from ..sim.engine import device_context, resolve_device
+    from ..sim.executor import (
+        SimTorchConfig,
+        _make_mesh,
+        _parse_hosts,
+        _precheck_device_memory,
+        load_and_specialize,
+        make_sim_program,
+    )
+    from ..sim.meshplan import peer_shards
+
+    if not comp.global_.case:
+        return []
+    comp = prepare_for_run(comp, manifest)
+    cfg = (CoalescedConfig().append(env.runners.get("sim:torch") if env else None)
+           .append(comp.global_.run_config).coalesce_into(SimTorchConfig))
+    if not getattr(cfg, "build_buckets", False) or cancel.is_set():
+        return []
+    if getattr(cfg, "coordinator_address", ""):
+        ow.warn("bucket-ladder warming skipped under a cohort config")
+        return []
+    device = resolve_device(getattr(cfg, "device", None))
+    mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
+                      device)
+    shards = peer_shards(mesh)
+    hosts = _parse_hosts(getattr(cfg, "additional_hosts", None))
+    telemetry = bool(getattr(cfg, "telemetry", False)) and not comp.global_.disable_metrics
+    ladder = parse_ladder(getattr(cfg, "bucket_ladder", "") or None)
+    pack_on = str(getattr(cfg, "pack", False)).strip().lower() in ("1", "true", "yes", "on")
+    run = comp.runs[0]
+    first = comp.get_group(run.groups[0].effective_group_id())
+    counts = [rg.calculated_instance_count for rg in run.groups]
+    warmed = []
+    for rung in ladder:
+        if cancel.is_set():
+            return warmed
+        if any(c > rung for c in counts):
+            continue  # this rung cannot hold the composition
+        if shards > 1 and rung % shards != 0:
+            ow.warn(
+                "bucket %d skipped: it does not divide across %d "
+                "peer shard(s) — pick ladder rungs that are "
+                "multiples of the shard count to warm them meshed",
+                rung, shards,
+            )
+            continue
+        t0 = time.perf_counter()
+        try:
+            testcase, groups = load_and_specialize(
+                first.run.artifact, comp.global_.case,
+                [RunGroup(id=rg.id, instances=rung, parameters=dict(rg.test_params))
+                 for rg in run.groups],
+                cfg.tick_ms,
+            )
+            prog = make_sim_program(
+                testcase, groups, test_plan=comp.global_.plan,
+                test_case=comp.global_.case, test_run="build", tick_ms=cfg.tick_ms,
+                chunk=cfg.chunk, hosts=hosts,
+                validate=bool(getattr(cfg, "validate", False)), telemetry=telemetry,
+                faults=None, trace=None,
+                netmatrix=telemetry and bool(getattr(cfg, "netmatrix", False)),
+                device=device, mesh=mesh, live_counts=tuple(counts),
+            )
+            with device_context(prog.device):
+                carry = prog.init_carry(cfg.seed)
+                # the run's capacity precheck on the rung's carry (a carry
+                # the card cannot hold fails its allocation: skipped too)
+                _precheck_device_memory(prog, prog.footprint(carry), cfg, ow, device)
+                prog.run(seed=cfg.seed, max_ticks=prog.chunk, resume_carry=carry)
+                if prog.device.type == "cuda":
+                    import torch
+
+                    torch.cuda.synchronize(prog.device)
+            del carry
+        except Exception as e:  # noqa: BLE001 — per-rung best-effort
+            ow.warn("bucket %d warmup failed (skipped): %s", rung, e)
+            continue
+        secs = round(time.perf_counter() - t0, 3)
+        warmed.append({"bucket": rung, "compile_secs": secs})
+        ow.infof("sim:plan bucket %d warmed in %.1fs (%s:%s)", rung, secs,
+                 comp.global_.plan, comp.global_.case)
+        if pack_on:
+            ow.warn(
+                "bucket %d pack-width warmup skipped: run packs are not "
+                "ported yet: ROADMAP queue 1 item 13c (run packs)", rung,
+            )
+    if warmed:
+        marker = bucket_marker_path(env, comp.global_.plan, comp.global_.case)
+        os.makedirs(os.path.dirname(marker), exist_ok=True)
+        with open(marker, "w") as f:
+            json.dump({"plan": comp.global_.plan, "case": comp.global_.case,
+                       "ladder": list(ladder), "buckets": warmed}, f)
+    return warmed

@@ -22,8 +22,9 @@ again with ``resume_from`` at its own run), ``preempt`` and ``terminate
 --drain``.
 
 The reference's flags and verbs that later ROADMAP queue 1 items port are
-refused naming the item: ``build --buckets`` (item 13b), ``collect``'s
-default runner ``local:exec`` (item 16). A verb the port does not register
+refused naming the item: ``collect``'s default runner ``local:exec`` (item
+16). ``build --buckets`` warms the shape-bucket ladder on the run's device
+(``builders/sim_plan.warm_bucket_ladder``); its pack-width warm is item 13c. A verb the port does not register
 (``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
 """
 
@@ -49,7 +50,6 @@ from ..engine import Engine, Outcome, State
 from ..rpc import OutputWriter
 from ..utils.conv import parse_key_values
 
-ITEM_13 = "ROADMAP queue 1 item 13b (buckets, packs and the 2-D mesh)"
 ITEM_16 = ("ROADMAP queue 1 item 16 (the local:exec runner, the exec:py and "
            "exec:bin builders and the sdk)")
 
@@ -507,7 +507,8 @@ def register_build(sub) -> None:
     pc.add_argument(
         "--buckets",
         action="store_true",
-        help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
+        help="also warm every bucket of the shape-bucket ladder (bucket_ladder) "
+        "for this composition; runs default to bucket=auto",
     )
     pc.add_argument(
         "--run-cfg",
@@ -524,7 +525,8 @@ def register_build(sub) -> None:
     ps.add_argument(
         "--buckets",
         action="store_true",
-        help=f"precompile the shape-bucket ladder (refused: {ITEM_13})",
+        help="also warm every bucket of the shape-bucket ladder (bucket_ladder) "
+        "for this composition; runs default to bucket=auto",
     )
     ps.add_argument(
         "--run-cfg",
@@ -543,25 +545,21 @@ def register_build(sub) -> None:
     pp.set_defaults(func=build_purge_cmd)
 
 
-def _refuse_buckets(args) -> None:
-    """``build --buckets`` precompiles the bucket ladder into XLA's cache
-    in the reference; the ladder is item 13b, and the port has no such
-    cache."""
-    if args.buckets:
-        raise NotImplementedError(
-            f"build --buckets precompiles the shape-bucket ladder, which is "
-            f"not ported yet: {ITEM_13}"
-        )
-
-
 def _apply_build_run_cfg(comp, args) -> None:
-    """``build --run-cfg k=v``: merge the overrides into the composition's
-    ``global.run_config``, as the reference's ``_apply_bucket_build_flags``
-    does (``commands.py:555-568``)."""
+    """``build --run-cfg k=v`` and ``--buckets``: merge the overrides into
+    the composition's ``global.run_config``, and ask for the ladder warm
+    there (``build_buckets``; bucketed runs default to ``bucket=auto``),
+    as the reference's ``_apply_bucket_build_flags`` does
+    (``commands.py:555-568``)."""
     overrides = parse_key_values(getattr(args, "run_cfg", []) or [])
     if overrides:
         comp.global_.run_config = dict(comp.global_.run_config or {})
         comp.global_.run_config.update(overrides)
+    if not getattr(args, "buckets", False):
+        return
+    comp.global_.run_config = dict(comp.global_.run_config or {})
+    comp.global_.run_config["build_buckets"] = True
+    comp.global_.run_config.setdefault("bucket", "auto")
 
 
 def _queue_build(engine, comp, args, manifest=None, src_dir="") -> str:
@@ -588,7 +586,6 @@ def _queue_build(engine, comp, args, manifest=None, src_dir="") -> str:
 def build_composition_cmd(args) -> int:
     from ..client import RemoteEngine
 
-    _refuse_buckets(args)
     comp = load_composition(args.file)
     _apply_build_run_cfg(comp, args)
     engine = _engine(args)
@@ -627,7 +624,6 @@ def build_purge_cmd(args) -> int:
 def build_single_cmd(args) -> int:
     from ..client import RemoteEngine
 
-    _refuse_buckets(args)
     plan, _, case = args.plan.partition(":")
     engine = _engine(args)
     try:

@@ -22,7 +22,7 @@ the running runs, cancel the builds, wait for the workers to park), with
 their counters in ``fleet_info`` and ``fleet_payload``.
 
 Left out, with the ROADMAP queue 1 item that ports it: run packs (item
-13b) — so the fleet view's ``pack.running`` is ``{}`` and the pack
+13c) — so the fleet view's ``pack.running`` is ``{}`` and the pack
 counters are 0.
 """
 
@@ -682,7 +682,7 @@ class Engine:
                 "queue_wait_total_us": self._queue_wait_total_us,
                 "claim_latency_bins": list(self._claim_latency_bins),
                 "claim_latency_total_us": self._claim_latency_total_us,
-                # run packs come with item 13b
+                # run packs come with item 13c
                 "pack": {"packed": 0, "packed_runs": 0, "solo": {}},
                 "preemptions": self._fleet_preemptions,
                 "evictions": self._fleet_evictions,
@@ -766,7 +766,7 @@ class Engine:
                 row["running_secs"] = round(
                     max(0.0, now - tsk.state().created), 3
                 )
-                row["pack_width"] = 0  # run packs come with item 13b
+                row["pack_width"] = 0  # run packs come with item 13c
                 run_dir = os.path.join(outputs, tsk.plan, tsk.id)
                 perf = self._tail_last_row(
                     os.path.join(run_dir, "sim_perf.jsonl")

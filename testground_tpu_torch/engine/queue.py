@@ -1,6 +1,6 @@
 """Persistent priority queue for tasks — the port's copy of the reference's
 ``testground_tpu/engine/queue.py``, without ``claim_matching``, the run
-packs' claim (ROADMAP queue 1 item 13b).
+packs' claim (ROADMAP queue 1 item 13c).
 
 Twin of ``pkg/task/queue.go``: an in-memory heap ordered by
 priority (descending) then creation time (FIFO), write-through to storage, a

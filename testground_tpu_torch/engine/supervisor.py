@@ -13,9 +13,10 @@ by another worker thread launches on its card there too.
 A preempted run (``engine.controller.TaskPreemptedError``) is requeued by
 ``_requeue_preempted`` pointing at its own snapshots; a draining engine's
 workers stop claiming. Left out, with the ROADMAP queue 1 item that ports
-each: run packs, their claim and pack-member preemption (item 13b), and
+each: run packs, their claim and pack-member preemption (item 13c), and
 the build task's precompile, which fills the reference's XLA compile cache
-(the port has no such cache).
+(the port has no such cache; ``build --buckets`` warms the bucket ladder
+on the run's device instead).
 """
 
 from __future__ import annotations
@@ -120,7 +121,7 @@ def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
         worker=idx,
         queue_wait_secs=round(queue_wait, 6),
         # the reference's record shape: a task runs alone until run packs
-        # are ported (ROADMAP queue 1 item 13b)
+        # are ported (ROADMAP queue 1 item 13c)
         pack_width=1,
     )
 
@@ -397,12 +398,22 @@ def do_build_task(
 ) -> dict:
     """A build task (``tg build``, ``supervisor.go:298-493``): the groups'
     artifacts, without the reference's precompile into XLA's compile
-    cache."""
+    cache; with ``build_buckets`` (``tg build --buckets``) the shape-bucket
+    ladder is warmed on the run's device after them
+    (``builders/sim_plan.warm_bucket_ladder``), best-effort like the
+    reference's precompile."""
     comp = Composition.from_dict(tsk.composition)
     manifest = TestPlanManifest.from_dict(tsk.input["manifest"])
     built = do_build(
         engine, comp, manifest, tsk.input.get("sources_dir", ""), tsk.id, ow, cancel
     )
+    if "sim:plan" in built.list_builders() and not cancel.is_set():
+        from ..builders.sim_plan import warm_bucket_ladder
+
+        try:
+            warm_bucket_ladder(built, manifest, engine.env, ow, cancel)
+        except Exception as e:  # noqa: BLE001 — the artifacts above stand
+            ow.warn("sim:plan bucket-ladder warmup failed (build still ok): %s", e)
     return {
         "outcome": Outcome.SUCCESS.value,
         "artifacts": {g.id: g.run.artifact for g in built.groups},

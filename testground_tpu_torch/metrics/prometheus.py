@@ -36,10 +36,11 @@ Some families read journal fields the port's runs never write; their code
 stays, so that a reference journal renders the same, and on a port run
 they are silent: ``tg_run_lower_seconds``, ``tg_run_xla_compile_seconds``,
 ``tg_run_est_flops_per_chunk`` and ``tg_run_est_bytes_accessed_per_chunk``
-(no XLA compile or cost analysis), ``tg_compile_bucket_*``,
-``tg_bucket_padded_instances``, ``tg_pack_*`` and
-``tg_fleet_pack_solo_total`` (buckets and packs: ROADMAP queue 1 item
-13b). The sync service's ``render_sync_prometheus`` comes
+(no XLA compile or cost analysis), ``tg_compile_bucket_*`` (a port
+bucket's ``compile_cache`` is ``"off"``: no compile cache, so neither a hit
+nor a miss), ``tg_pack_*`` and ``tg_fleet_pack_solo_total`` (run packs:
+ROADMAP queue 1 item 13c). ``tg_bucket_padded_instances`` renders a port
+bucketed run's padded size. The sync service's ``render_sync_prometheus`` comes
 with the sync service (item 17).
 """
 

@@ -32,7 +32,7 @@ class AdditionalHosts(SimTestcase):
     DROP_ALL = False
 
     def init(self, env):
-        return {"bad": torch.zeros(env.group.count, dtype=torch.bool, device=env.device)}
+        return {"bad": torch.zeros(env.group_lanes, dtype=torch.bool, device=env.device)}
 
     def step(self, env, state, inbox, sync, t):
         cls = type(self)
@@ -41,10 +41,17 @@ class AdditionalHosts(SimTestcase):
 
         # request once the (possible) DROP filter is applied, two senders a
         # tick, so the host's IN_MSGS-slot inbox never overflows
-        window = max(1, -(-env.test_instance_count // 2))
+        # torch.clamp, not Python max, on a count that is a 0-d tensor
+        # (shape bucketing): max() would read it on the host every tick
+        half = -(-env.test_instance_count // 2)
+        window = (
+            torch.clamp(half, min=1) if isinstance(half, torch.Tensor) else max(1, half)
+        )
         send = t == 2 + torch.remainder(env.global_seq, window)
         ob = Outbox.single(
-            self.device_constant(host, torch.int32, env.device),
+            # under shape bucketing the host's address is already a tensor
+            host if isinstance(host, torch.Tensor)
+            else self.device_constant(host, torch.int32, env.device),
             torch.stack([torch.full_like(nonce, REQ), nonce]),
             send,
             cls.OUT_MSGS,

@@ -40,7 +40,7 @@ def _param(env, name, default, conv=int):
 
 
 def _full(env, value, dtype=torch.int32, shape=()):
-    return torch.full((env.group.count, *shape), value, dtype=dtype, device=env.device)
+    return torch.full((env.group_lanes, *shape), value, dtype=dtype, device=env.device)
 
 
 def _status(done, ok=None):
@@ -270,7 +270,7 @@ class Subtree(SimTestcase):
         k = len(SUBTREE_SIZES)
         total = k * iters
         dev = env.device
-        lane = torch.arange(env.group.count, device=dev)
+        lane = torch.arange(env.group_lanes, device=dev)
         sizes = self.device_constant(SUBTREE_SIZES, torch.int32, dev)
         series_ax = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
 
@@ -457,7 +457,10 @@ class Storm(SimTestcase):
         n = env.test_instance_count
         keys = prng.split(env.key)  # [n_g, 2, 2]: k_targets, k_delay
         # conn_outgoing random peers, self-index skipped by shifting
-        targets = prng.randint(keys[:, 0], (cls.OUT_MSGS,), 0, max(n - 1, 1))
+        # torch.clamp, not Python max, on a count that is a 0-d tensor
+        # (shape bucketing): max() would read it on the host
+        hi = torch.clamp(n - 1, min=1) if isinstance(n, torch.Tensor) else max(n - 1, 1)
+        targets = prng.randint(keys[:, 0], (cls.OUT_MSGS,), 0, hi)
         targets = targets + (targets >= env.global_seq[:, None])
         delay_max = _param(env, "conn_delay_ticks", 32)
         delays = prng.randint(keys[:, 1], (cls.OUT_MSGS,), 0, max(delay_max, 1))

@@ -56,7 +56,7 @@ class ChaosBarrier(SimTestcase):
 
     def init(self, env):
         def z(dtype=torch.int32):
-            return torch.zeros(env.group.count, dtype=dtype, device=env.device)
+            return torch.zeros(env.group_lanes, dtype=dtype, device=env.device)
 
         return {
             "phase": z(),

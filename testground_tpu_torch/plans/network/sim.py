@@ -36,7 +36,7 @@ def _i32(x):
 
 
 def _zeros(env, value=0):
-    return torch.full((env.group.count,), value, dtype=torch.int32, device=env.device)
+    return torch.full((env.group_lanes,), value, dtype=torch.int32, device=env.device)
 
 
 def _judged(judge, ok):
@@ -76,7 +76,7 @@ class PingPong(SimTestcase):
         return type(f"{cls.__name__}_h{horizon}", (cls,), {"MAX_LINK_TICKS": horizon})
 
     def init(self, env):
-        n_g = env.group.count
+        n_g = env.group_lanes
 
         def z(v=0, dtype=torch.int32):
             return torch.full((n_g,), v, dtype=dtype, device=env.device)
@@ -216,7 +216,7 @@ class PingPongSustained(SimTestcase):
     SHAPING = SHAPING_NO_DUPLICATE
 
     def init(self, env):
-        n_g = env.group.count
+        n_g = env.group_lanes
         z = torch.zeros(n_g, dtype=torch.int32, device=env.device)
         return {
             "rounds": z,

@@ -64,7 +64,7 @@ class Metrics(SimTestcase):
 
     def init(self, env):
         return {
-            "counter": torch.zeros(env.group.count, dtype=torch.int32, device=env.device)
+            "counter": torch.zeros(env.group_lanes, dtype=torch.int32, device=env.device)
         }
 
     def step(self, env, state, inbox, sync, t):

@@ -54,7 +54,7 @@ class _SplitBrain(SimTestcase):
 
     def init(self, env):
         def z(v=0, dtype=torch.int32):
-            return torch.full((env.group.count,), v, dtype=dtype, device=env.device)
+            return torch.full((env.group_lanes,), v, dtype=dtype, device=env.device)
 
         return {
             "phase": z(),
@@ -67,9 +67,16 @@ class _SplitBrain(SimTestcase):
         }
 
     @staticmethod
-    def _region_counts(n: int):
-        # signal seqs are 1..N; region = seq % 3
-        return [sum(1 for x in range(1, n + 1) if x % 3 == r) for r in range(3)]
+    def _region_counts(n):
+        # signal seqs are 1..N; region = seq % 3. Under shape bucketing n
+        # is a 0-d tensor: the tensor arm is the closed form of the same
+        # count (x in [1, n] with x % 3 == r), as in the reference plan
+        if isinstance(n, int):
+            return [sum(1 for x in range(1, n + 1) if x % 3 == r) for r in range(3)]
+        return [
+            n // 3 if r == 0 else torch.where(n >= r, (n - r) // 3 + 1, 0)
+            for r in range(3)
+        ]
 
     def step(self, env, state, inbox, sync, t):
         cls = type(self)

@@ -64,7 +64,7 @@ class UsesDataNetwork(SimTestcase):
 
     def init(self, env):
         def z(v=0, dtype=torch.int32):
-            return torch.full((env.group.count,), v, dtype=dtype, device=env.device)
+            return torch.full((env.group_lanes,), v, dtype=dtype, device=env.device)
 
         return {
             "addr_data": z(-1),

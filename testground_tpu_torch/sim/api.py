@@ -79,12 +79,23 @@ class SimEnv:
     reference folds the tick into every instance key, ``engine.py:1106``).
     It is computed on first access only: neither network plan reads it, and
     at 100k instances it would be 100k threefry evaluations a tick.
+
+    ``group_lanes`` is the group's length on the instance axis: every
+    ``[n_g]`` tensor the plan gets or returns is that long, so a plan
+    sizes its tensors with it. Under shape bucketing (``sim/buckets.py``)
+    it is the padded count, and ``test_instance_count``, ``group.count``,
+    ``group.offset`` (of every group) and ``global_seq`` are the exact
+    layout's values as 0-d int32 tensors on the run's device — what the
+    plan means by a count, never a Python int (the traced-count
+    contract: a plan that reads one on the host gets ``plan.traced-int``
+    from ``tg check --trace-plans``). Without bucketing they are Python
+    ints and ``group_lanes == group.count``.
     """
 
     test_plan: str
     test_case: str
     test_run: str
-    test_instance_count: int
+    test_instance_count: int | torch.Tensor
     tick_ms: float
     groups: tuple[GroupSpec, ...]
     group: GroupSpec
@@ -92,11 +103,16 @@ class SimEnv:
     group_seq: torch.Tensor  # [n_g] int32
     device: torch.device
     hosts: tuple = ()
+    group_lanes: int | None = None
     # the group's root keys [n_g, 2] and the tick folded into them (None
     # at init: init sees the unfolded keys, as in the reference)
     base_keys: torch.Tensor | None = None
     tick: torch.Tensor | None = None
     _key: torch.Tensor | None = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        if self.group_lanes is None:
+            self.group_lanes = int(self.group.count)
 
     @property
     def key(self) -> torch.Tensor:

@@ -4,7 +4,8 @@ The simulator has no weights; what a run carries is its ``SimCarry``. A
 carry flattened to numpy under dotted leaf paths (``cal.src``,
 ``cal.payload.0``, ``cal.etick``, ``link.egress``, ``link.backlog``,
 ``link.rules``, ``sync.counts``, ``states.0.phase``, ``keys``, ``net_key``,
-``msgs_sent``, ``lat_hist``, ``net_mat``, ``net_bw_hiwater`` …) is the
+``msgs_sent``, ``lat_hist``, ``live_counts``, ``net_mat``,
+``net_bw_hiwater`` …) is the
 exchange format: the JAX
 package's carry, flattened on its side, starts a port run from the same
 mid-run state (:func:`carry_from_numpy`), and :func:`carry_to_numpy`
@@ -53,11 +54,10 @@ _SCALARS = (
     "faults_crashed",
     "faults_restarted",
 )
-# carry leaves of planes the port does not build yet (item 13b)
-_UNPORTED = ("live_counts",)
-# the observability planes' leaves (None when the plane is off)
-_PLANES = (("lat_hist", torch.int32), ("net_mat", torch.int32),
-           ("net_bw_hiwater", torch.float32))
+# the observability planes' leaves and shape bucketing's live counts
+# (None when the plane is off, or the run is not bucketed)
+_PLANES = (("lat_hist", torch.int32), ("live_counts", torch.int32),
+           ("net_mat", torch.int32), ("net_bw_hiwater", torch.float32))
 
 
 def _total(a: np.ndarray) -> int:
@@ -70,12 +70,6 @@ def _total(a: np.ndarray) -> int:
 def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarry:
     """Build a port carry on ``prog.device`` from numpy leaves keyed by
     dotted path (see the module docstring)."""
-    for key in arrays:
-        if any(key == u or key.startswith(u + ".") for u in _UNPORTED):
-            raise NotImplementedError(
-                f"carry leaf {key!r} belongs to a plane the port does not "
-                "build yet (ROADMAP queue 1 item 13b)"
-            )
     dev = prog.device
 
     def t_(key, dtype=None):

@@ -25,17 +25,19 @@ Where the port diverges from the reference's catalog:
   finding for each runner-config key of ``executor._UNPORTED_SETTINGS`` set
   away from its default, and for a 2-D ``mesh``, with the executor's
   ``NotImplementedError`` text naming the ROADMAP item. It stands in for
-  the rules whose gates the port does not have yet: ``buckets.*`` and
-  ``trace.bucket-disabled`` (``bucket``, ``bucket_ladder``) and
-  ``pack.solo`` (``pack``), item 13b, and the cohort rules —
-  ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` among them),
-  ``checkpoint.resume-cohort``, ``debug.nan-guard-cohort`` and
-  ``cohort.spec-oversize`` — which need ``coordinator_address`` (item
-  15b). ``checkpoint.resume-multi-runs`` fires as the reference's.
-- ``transport.mesh-indivisible`` is an error, not a warn: the reference
-  falls back to its XLA transport, the port refuses (a lane count that
-  does not divide across the peer shards waits for the padding of item
-  13b), with the executor's message.
+  the rules whose gates the port does not have yet: ``pack.solo``
+  (``pack``, ``pack_max``), item 13c, and the cohort rules —
+  ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` and
+  ``buckets.cohort-disabled`` among them), ``checkpoint.resume-cohort``,
+  ``debug.nan-guard-cohort`` and ``cohort.spec-oversize`` — which need
+  ``coordinator_address`` (item 15b). ``checkpoint.resume-multi-runs``,
+  ``buckets.*`` and ``trace.bucket-disabled`` fire as the reference's
+  (``executor.resolve_buckets``, the same gate and messages).
+- ``transport.mesh-indivisible`` is an error, not a warn, and fires for
+  ``pallas`` only: there the port refuses with the reference engine's
+  message, where the reference falls back to its XLA transport. Under
+  ``xla`` and ``auto`` the port pads the last group with dead lanes, as
+  the reference's XLA transport pads its lane axis, and nothing fires.
 - ``run-cfg.unknown-key`` names the ``sim:torch`` runner and the
   ``SimTorchConfig`` fields.
 - Layers 2 and 3 (``check_composition(..., trace_plans=True)``, ``tg
@@ -78,9 +80,11 @@ Where the port diverges from the reference's catalog:
     runs other kernels than its first.
 
   Every finding names the deepest frame in the plan's own files (else
-  the plan's ``step``). The reference also traces the padded-ladder
-  variant of a bucketed run; that waits for buckets (ROADMAP queue 1
-  item 13b). Admission at submit stays layer 1, as in the reference.
+  the plan's ``step``). A bucketed run is built at its padded shapes with
+  the exact counts as 0-d meta tensors (the reference's ``bucketed=True``
+  variant): a plan that turns a count into a Python int reads a meta
+  tensor on the host, ``plan.traced-int`` — the traced-count contract's
+  teeth. Admission at submit stays layer 1, as in the reference.
 - ``devices=0`` counts the visible cards (``torch.cuda.device_count()``),
   1 without one; a run whose ``device`` is not a card meshes nothing
   unless ``mesh`` says so, as the executor does.
@@ -104,7 +108,6 @@ __all__ = [
     "check_composition",
     "findings_payload",
     "mesh_2d_message",
-    "mesh_lanes_message",
     "netmatrix_requires_telemetry_message",
     "not_ported_message",
     "pallas_lanes_message",
@@ -320,16 +323,6 @@ def mesh_2d_message(mesh, item: str) -> str:
     )
 
 
-def mesh_lanes_message(transport: str, lanes: int, shards: int, item: str) -> str:
-    """An indivisible lane count under the xla/auto transport: the
-    reference pads the lane axis, the port waits for item 13b's padding."""
-    return (
-        f"transport={transport} on a {shards}-shard mesh with {lanes} "
-        f"lane(s), which do not divide by {shards}, is not ported yet: "
-        f"ROADMAP queue 1 {item}"
-    )
-
-
 def pallas_lanes_message(n: int, hosts: int, shards: int) -> str:
     """An indivisible lane count under ``transport=pallas``: the
     reference engine's own rule and message (``engine.py:406-422``)."""
@@ -480,7 +473,7 @@ def _check_transport(ctx, findings) -> None:
     """The transport knob, then the lane count of each run against the
     peer shards — the executor's ``transport_knob`` and
     ``check_mesh_lanes`` gates."""
-    from .executor import _parse_hosts, check_mesh_lanes, transport_knob
+    from .executor import _parse_hosts, check_mesh_lanes, resolve_buckets, transport_knob
 
     try:
         transport = transport_knob(ctx.cfg)
@@ -490,11 +483,53 @@ def _check_transport(ctx, findings) -> None:
     shards = ctx.peer_shards
     hosts = _parse_hosts(getattr(ctx.cfg, "additional_hosts", None))
     for run in ctx.comp.runs:
-        n = sum(int(rg.calculated_instance_count) for rg in run.groups)
+        counts = [int(rg.calculated_instance_count) for rg in run.groups]
+        try:  # a bucketed run's lanes are its padded counts
+            bp = resolve_buckets(ctx.cfg, counts, mesh=_bucket_mesh(ctx))
+        except ValueError:
+            bp = None  # buckets.* reports the refusal
+        n = sum(bp.padded_counts if bp is not None else counts)
         try:
             check_mesh_lanes(transport, n, len(hosts), shards)
         except (NotImplementedError, ValueError) as e:
             _add(findings, "transport.mesh-indivisible", str(e), run=run.id)
+
+
+def _bucket_mesh(ctx):
+    """What ``resolve_buckets`` divides the padded counts by: a stand-in
+    for the executor's mesh with the checked peer shards (None for one)."""
+    shards = ctx.peer_shards
+    return types.SimpleNamespace(shape={"i": shards}) if shards > 1 else None
+
+
+def _check_buckets(ctx, run, findings):
+    """The run's BucketPlan (or None) — the plan layer needs it — with the
+    gate's refusals and warnings as findings (``check.py:621-650``): the
+    executor's ``resolve_buckets`` on the same counts and shards."""
+    from .executor import resolve_buckets
+
+    counts = [rg.calculated_instance_count for rg in run.groups]
+    lines: list[str] = []
+
+    def warn(fmt, *args):
+        lines.append(fmt % args if args else fmt)
+
+    try:
+        plan = resolve_buckets(ctx.cfg, counts, mesh=_bucket_mesh(ctx), warn=warn)
+    except ValueError as e:
+        msg = str(e)
+        rule = "buckets.ladder-invalid" if "bucket_ladder" in msg else "buckets.mode-invalid"
+        _add(findings, rule, msg, run=run.id)
+        return None
+    for line in lines:
+        if "cohort" in line:
+            rule = "buckets.cohort-disabled"
+        elif "divide" in line:
+            rule = "buckets.mesh-indivisible"
+        else:
+            rule = "buckets.over-ladder"
+        _add(findings, rule, line, run=run.id)
+    return plan
 
 
 def _run_specs(ctx, run):
@@ -520,18 +555,30 @@ def _check_run(ctx, run, findings) -> dict:
 
     vgroups = _group_layout(run.groups)
     fault_specs, trace_specs, slo_specs = _run_specs(ctx, run)
+    bucket_plan = _check_buckets(ctx, run, findings)
     try:
         build_fault_schedule(vgroups, fault_specs, ctx.cfg.tick_ms)
     except ValueError as e:
         _add(findings, "faults.invalid", str(e), run=run.id)
         fault_specs = None
+    trace_plan = None
     try:
-        build_trace_plan(vgroups, trace_specs)
+        trace_plan = build_trace_plan(vgroups, trace_specs)
     except ValueError as e:
         _add(findings, "trace.invalid", str(e), run=run.id)
         trace_specs = None
 
     disable_metrics = bool(ctx.comp.global_.disable_metrics)
+    if trace_plan is not None and not disable_metrics and bucket_plan is not None:
+        _add(
+            findings,
+            "trace.bucket-disabled",
+            "flight recorder disabled under shape bucketing (trace "
+            "lanes are exact-layout selectors baked into the program; "
+            "run with bucket=off to trace)",
+            run=run.id,
+        )
+        trace_specs = None
     telemetry_on = bool(getattr(ctx.cfg, "telemetry", False)) and not disable_metrics
     if bool(getattr(ctx.cfg, "netmatrix", False)) and not telemetry_on:
         _add(findings, "netmatrix.needs-telemetry",
@@ -553,6 +600,7 @@ def _check_run(ctx, run, findings) -> dict:
         "netmatrix_on": telemetry_on and bool(getattr(ctx.cfg, "netmatrix", False)),
         "fault_specs": fault_specs,
         "trace_specs": None if disable_metrics else trace_specs,
+        "bucket_plan": bucket_plan,
     }
 
 
@@ -614,8 +662,13 @@ def _classify(e, roots, site) -> tuple[list[str], tuple | None]:
     plan frame is the engine's own (PERF.md §7) and no finding; anything
     else, a data-dependent shape included, is ``plan.trace-error`` at the
     deepest plan frame, else at ``site``."""
+    from .engine import HOST_READ_ERROR
+
     frame = _plan_frame(e.__traceback__, roots)
-    read = any(isinstance(e, t) and m in str(e) for t, m in _META_READS)
+    # a padded program's first step refuses a host read before the meta
+    # tensor can (SimProgram under bucketing)
+    read = any(isinstance(e, t) and m in str(e)
+               for t, m in _META_READS + ((TypeError, HOST_READ_ERROR),))
     if read:
         if frame is None:
             return [], None
@@ -764,11 +817,13 @@ def _check_device(cfg):
 
 def _trace_one_program(ctx, run, resolved, findings) -> None:
     """Layers 2 and 3 for one run: build the run's program on the meta
-    device at the composition's exact shapes, size its carry against the
-    device budget, and run the plan's part of two ticks (an inbox of
-    ``deliver``'s shapes, then ``SimProgram._step_phase``), then hold the
-    step's planes against what the transport and the sync fold take and
-    lint the tick."""
+    device at the shapes the run would have — the composition's exact
+    shapes, or a bucketed run's padded ones with its exact counts as 0-d
+    meta tensors (the reference's ``bucketed=True`` variant, no faults and
+    no trace plan there) — size its carry against the device budget, and
+    run the plan's part of two ticks (an inbox of ``deliver``'s shapes,
+    then ``SimProgram._step_phase``), then hold the step's planes against
+    what the transport and the sync fold take and lint the tick."""
     import dataclasses as _dc
 
     import torch
@@ -789,6 +844,14 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
     label = f"{ctx.comp.global_.plan}:{ctx.comp.global_.case}"
     roots = (os.path.realpath(ctx.plan_sources) + os.sep,)
     meta = torch.device("meta")
+    bucket_plan = resolved["bucket_plan"]
+    counts = (
+        list(bucket_plan.padded_counts) if bucket_plan is not None
+        else [int(rg.calculated_instance_count) for rg in run.groups]
+    )
+    shape_note = (
+        f"padded shapes {tuple(counts)}" if bucket_plan is not None else "exact shapes"
+    )
 
     def add(rule, msg):
         _add(findings, rule, f"{label}: {msg}", run=run.id, plan_file=plan_file)
@@ -797,7 +860,7 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
         rules, frame = _classify(e, roots, site)
         where = "" if frame is None else f" at {_where(frame, ctx.plan_sources)}"
         for rule in rules:
-            add(rule, f"{stage} failed on the meta device at exact shapes"
+            add(rule, f"{stage} failed on the meta device at {shape_note}"
                 f"{where} ({type(e).__name__}): {e}")
         return None
 
@@ -805,22 +868,36 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
         testcase, groups = load_and_specialize(
             ctx.plan_sources,
             ctx.comp.global_.case,
-            [RunGroup(id=rg.id, instances=int(rg.calculated_instance_count),
-                      parameters=dict(rg.test_params)) for rg in run.groups],
+            [RunGroup(id=rg.id, instances=c, parameters=dict(rg.test_params))
+             for rg, c in zip(run.groups, counts)],
             ctx.cfg.tick_ms,
         )
     except Exception as e:  # noqa: BLE001 — import/specialize failures
         add("plan.load-failed",
-            f"plan failed to load/specialize at exact shapes: {e}")
+            f"plan failed to load/specialize at {shape_note}: {e}")
         return
     site = _step_site(testcase)
+    if (bucket_plan is not None and "filter_rules" in type(testcase).SHAPING
+            and len(groups) > 1):
+        _add(
+            findings,
+            "buckets.filter-rules",
+            "shape bucketing disabled — 'filter_rules' shaping with "
+            "multiple groups addresses the exact layout (rule ranges "
+            "cannot survive per-group padding); running exact shapes",
+            run=run.id,
+            plan_file=plan_file,
+        )
+        return
 
     try:
         faults = trace = None
-        if resolved["fault_specs"] is not None:
+        if bucket_plan is not None:
+            pass  # the padded variant builds without either, as the reference's
+        elif resolved["fault_specs"] is not None:
             faults = build_fault_schedule(groups, resolved["fault_specs"],
                                           ctx.cfg.tick_ms)
-        if resolved["trace_specs"] is not None:
+        if resolved["trace_specs"] is not None and bucket_plan is None:
             trace = build_trace_plan(groups, resolved["trace_specs"])
         prog = make_sim_program(
             testcase,
@@ -838,6 +915,7 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
             netmatrix=resolved["netmatrix_on"],
             device=meta,
             mesh=None,
+            live_counts=None if bucket_plan is None else bucket_plan.live_counts,
         )
         carry = prog.init_carry(int(ctx.cfg.seed))
     except Exception as e:  # noqa: BLE001 — build-time refusals

@@ -126,14 +126,16 @@ class CheckpointError(RuntimeError):
 
 
 def run_identity(job, cfg, *, telemetry: bool, transport: str, fault_specs: dict,
-                 trace_specs: dict, hosts, netmatrix: bool = False) -> dict:
+                 trace_specs: dict, hosts, bucket=None, netmatrix: bool = False) -> dict:
     """Everything that shapes the program or the tick stream
     (``checkpoint.py:114-175``), so that a snapshot refuses to seed a run
     built another way. ``max_ticks`` is absent: it is a budget. ``sources``
     digests each group's plan sources; each package digests its own plan
     copy, so it is the one key on which the two packages' identities of
-    one composition differ. Shape buckets (the reference's ``bucket`` key)
-    come with ROADMAP item 13b."""
+    one composition differ. ``bucket`` (the padded per-group counts, keyed
+    only when the run is bucketed) shapes every carry leaf, so a snapshot
+    from one bucket refuses to seed another; a mesh's internal padding
+    keys nothing, its snapshots having the exact shapes."""
     from ..builders.sim_plan import _source_digest
 
     sources = {}
@@ -159,6 +161,7 @@ def run_identity(job, cfg, *, telemetry: bool, transport: str, fault_specs: dict
         "faults": fault_specs,
         "trace": trace_specs,
         "hosts": list(hosts),
+        **({"bucket": list(bucket)} if bucket else {}),
         **({"netmatrix": True} if netmatrix else {}),
     }
 
@@ -269,13 +272,15 @@ class _HostStage:
         return out
 
 
-def snapshot_carry(carry, transport: str = "xla", stage: _HostStage | None = None
-                   ) -> tuple[list, list]:
+def snapshot_carry(carry, transport: str = "xla", stage: _HostStage | None = None,
+                   export=None) -> tuple[list, list]:
     """The live carry as the reference's ``(leaves, metas)``
     (``checkpoint.py:202-238``): numpy leaves in the reference's order,
     shapes and dtypes, laid out for ``transport``. ``stage`` keeps pinned
     buffers across snapshots; the leaves then view them until the next
-    fetch. The device→host read is the plane's only cost."""
+    fetch. ``export`` (``SimProgram.lane_export()``) cuts a mesh
+    padding's dead lanes out. The device→host read is the plane's only
+    cost."""
     from .net import from_shards
 
     paths = leaf_paths(carry)
@@ -297,6 +302,9 @@ def snapshot_carry(carry, transport: str = "xla", stage: _HostStage | None = Non
             data = host[path].numpy()
         if path.startswith("cal.") and flat:
             data = data.reshape(-1)
+        if export is not None:
+            data = export.take(path, data)
+            meta = dict(meta, shape=list(data.shape))
         leaves.append(data)
         metas.append(meta)
     return leaves, metas
@@ -311,10 +319,16 @@ def restore_carry(prog, seed: int, manifest: dict, leaves: list, *,
     device — in the layout of ``transport`` (the restoring run's knob;
     the manifest's when None), with the reference's messages, before
     anything is copied to the device. ``seed`` is the reference's
-    signature: a snapshot holds every key."""
+    signature: a snapshot holds every key. A mesh-padded program's
+    snapshot has the caller's layout (``SimProgram.lane_export``): its
+    dead lanes come back from ``template``, else from a fresh carry."""
     from .carry_io import carry_from_numpy
 
-    ref = template if template is not None else prog.meta_carry()
+    export = prog.lane_export()
+    if template is not None:
+        ref = template
+    else:
+        ref = prog.init_carry(seed) if export is not None else prog.meta_carry()
     if transport is None:
         transport = manifest.get("transport") or (
             manifest.get("identity") or {}).get("transport") or "xla"
@@ -331,6 +345,8 @@ def restore_carry(prog, seed: int, manifest: dict, leaves: list, *,
     arrays = {}
     for i, (data, meta, path) in enumerate(zip(leaves, metas, paths)):
         want = _expected(ref, path, flat)
+        if export is not None:
+            want["shape"] = export.shape(path, want["shape"])
         data = np.asarray(data)
         kind = meta.get("kind", "array")
         if kind == "prng":
@@ -369,6 +385,10 @@ def restore_carry(prog, seed: int, manifest: dict, leaves: list, *,
                     "refusing to resume"
                 )
         arrays[path] = data
+    if export is not None:
+        fresh, _ = snapshot_carry(ref, transport)
+        for path, tmpl in zip(paths, fresh):
+            arrays[path] = export.put(path, tmpl, arrays[path])
     del ref
     return carry_from_numpy(arrays, prog)
 
@@ -687,8 +707,10 @@ class RunCheckpointer:
 
     def __init__(self, run_dir: str, *, every_chunks: int, keep: int, chunk: int,
                  identity: dict, ident: dict, aux_cb=None, spans=None, warn=None,
-                 telemetry: bool = False, resumed_from: dict | None = None):
+                 telemetry: bool = False, resumed_from: dict | None = None,
+                 export=None):
         self.run_dir = run_dir
+        self.export = export
         self.every = max(1, int(every_chunks))
         self.keep = max(1, int(keep))
         self.chunk = max(1, int(chunk))
@@ -736,7 +758,8 @@ class RunCheckpointer:
         try:
             t0 = time.perf_counter()
             leaves, metas = snapshot_carry(
-                carry, self.identity.get("transport", "xla"), self._stage)
+                carry, self.identity.get("transport", "xla"), self._stage,
+                export=self.export)
             d2h_ms = (time.perf_counter() - t0) * 1000.0
             aux = dict(self.aux_cb() if self.aux_cb is not None else {})
             aux["lat_hist"] = self._lat_hist is not None

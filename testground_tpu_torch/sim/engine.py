@@ -58,15 +58,27 @@ off the tick enters no plane code and issues no plane op.
 ``run`` has the reference's loop hooks (``cancel``, ``on_chunk``, the
 stall watchdog, ``nan_guard``, the perf ledger's ``perf``), all at a
 chunk's end. The reference's admission refusals of incompatible
-declarations are kept, with the same messages. Not ported yet — refused
-with ``NotImplementedError`` naming its ROADMAP item: shape buckets.
+declarations are kept, with the same messages.
+
+Shape buckets (``live_counts``, ``sim/buckets.py``, ``engine.py:636-940,
+2156-2234``): ``groups`` is the padded layout, ``live_counts`` the exact
+per-group counts. The dead lanes are CRASH from tick 0; the plans see the
+exact layout's counts as 0-d tensors; virtual destinations translate to
+physical lanes, delivered senders back, and the shaping dice hash the
+exact run's message indices; live lane v gets the exact run's key v. The
+maps are static (the counts are fixed for the run), so each is one
+lookup tensor built with the program and one gather a tick. ``results()``
+demuxes to the exact layout: every result is the exact run's, bit for bit.
 
 ``mesh`` (a ``meshplan.TorchMesh``) splits the calendar's lane axis over
 the mesh's peer shards: each shard's planes live on its device, the
 commit and the pop are the sharded kernels, and every other carry leaf
-stays on the mesh's primary device (shard 0's). As in the reference the
-lane count must divide across the shards. Every result is the unmeshed
-run's, bit for bit.
+stays on the mesh's primary device (shard 0's). A lane count that does
+not divide across the shards gets dead lanes at the end of its last group
+(the same machinery, the counts as Python ints), which nothing outside
+the program sees: results, snapshots (:class:`LaneExport`) and the
+footprint keep the caller's layout. Every result is the unmeshed run's,
+bit for bit.
 """
 
 from __future__ import annotations
@@ -75,12 +87,14 @@ import contextlib
 import copy
 import dataclasses
 import itertools
+import math
 import threading
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from . import prng
 from .api import (
@@ -141,11 +155,30 @@ __all__ = [
     "resolve_device",
 ]
 
-# Options of the reference SimProgram that the port refuses, with the
-# ROADMAP queue-1 item that ports each.
-_UNPORTED_OPTIONS = {
-    "live_counts": "item 13b (buckets, packs and the 2-D mesh)",
-}
+# what a plan's step may not do to a tensor under bucketing: read its value
+# on the host (a device sync every tick on a card)
+_HOST_READS = frozenset(
+    ("__int__", "__index__", "__bool__", "__float__", "__complex__", "item", "tolist",
+     "numpy")
+)
+HOST_READ_ERROR = "a plan's step read a device value on the host under shape bucketing"
+
+
+class _NoHostReads(TorchFunctionMode):
+    """A padded program's first step: a plan that reads a tensor's value
+    on the host (``int(env.test_instance_count)``, a ``while`` on a count)
+    raises, as the reference's trace of the step raises
+    ``ConcretizationTypeError`` on its traced counts. On a card such a read
+    would be a device sync every tick."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) in _HOST_READS:
+            raise TypeError(
+                f"{HOST_READ_ERROR} ({func.__name__}): the counts, offsets and "
+                "global_seq a padded run hands its plan are 0-d device tensors; "
+                "compute with them on the device, or run with bucket=off"
+            )
+        return func(*args, **(kwargs or {}))
 
 
 class SimStallError(RuntimeError):
@@ -256,6 +289,9 @@ class SimCarry:
     # [G, LATENCY_BINS] int32 delivery-latency bin counts since the last
     # chunk flush (telemetry only)
     lat_hist: torch.Tensor | None = None
+    # [G] int32 exact per-group counts (shape bucketing only; the
+    # reference's leaf, threaded through unchanged)
+    live_counts: torch.Tensor | None = None
     # [NM_CHANNELS, GH, GH] int32 flow counts since the last chunk flush
     # (netmatrix only)
     net_mat: torch.Tensor | None = None
@@ -315,28 +351,40 @@ class SimProgram:
         netmatrix: bool = False,
         trace=None,
         mesh=None,
-        **unported,
+        live_counts=None,
     ):
         cls = type(testcase)
-        if (
-            unported.get("live_counts") is not None
-            and "filter_rules" in cls.SHAPING
-            and len(groups) > 1
-        ):
-            raise ValueError(
-                "shape bucketing with multiple groups is incompatible "
-                "with 'filter_rules' shaping: rule ranges address the "
-                "exact (virtual) instance layout, and multi-group "
-                "padding shifts physical ids non-contiguously — run "
-                "with bucket=off or a single group"
-            )
-        for name, value in unported.items():
-            if name not in _UNPORTED_OPTIONS:
-                raise TypeError(f"SimProgram got an unexpected option {name!r}")
-            if value not in (None, False, (), []):
-                raise NotImplementedError(
-                    f"SimProgram option {name!r} is not ported yet: ROADMAP "
-                    f"queue 1 {_UNPORTED_OPTIONS[name]}"
+        # Shape bucketing (sim/buckets.py, the reference's rules and
+        # messages, engine.py:340-378): ``groups`` is the PADDED layout and
+        # ``live_counts`` the exact per-group sizes
+        if live_counts is not None:
+            live_counts = tuple(int(c) for c in live_counts)
+            if len(live_counts) != len(groups):
+                raise ValueError(
+                    f"live_counts has {len(live_counts)} entries for "
+                    f"{len(groups)} group(s) — the bucket plan must be "
+                    "built from the same group layout"
+                )
+            for lc, g in zip(live_counts, groups):
+                if not (0 < lc <= g.count):
+                    raise ValueError(
+                        f"group {g.id!r}: live count {lc} outside "
+                        f"(0, {g.count}] — padding only ever adds lanes"
+                    )
+            if trace is not None:
+                raise ValueError(
+                    "the flight recorder is not supported with shape "
+                    "bucketing (trace lanes are virtual-layout selectors "
+                    "baked into the program) — run with bucket=off to "
+                    "trace"
+                )
+            if "filter_rules" in cls.SHAPING and len(groups) > 1:
+                raise ValueError(
+                    "shape bucketing with multiple groups is incompatible "
+                    "with 'filter_rules' shaping: rule ranges address the "
+                    "exact (virtual) instance layout, and multi-group "
+                    "padding shifts physical ids non-contiguously — run "
+                    "with bucket=off or a single group"
                 )
         if mesh is None:
             self.device = resolve_device(device)
@@ -355,21 +403,48 @@ class SimProgram:
         self.mesh = mesh
         self.meshplan = plan_for(mesh)
         self.tc = testcase
-        self.groups = groups
-        self.n = sum(g.count for g in groups)
+        groups = tuple(groups)
         # echo lanes past the instance axis (SimEnv.host_index)
         self.hosts = tuple(hosts)
-        self.n_lanes = self.n + len(self.hosts)
+        # every shard holds an equal contiguous block of lanes: a lane
+        # count that does not divide across the shards gets dead lanes at
+        # the end of its last group (the reference's GSPMD pads its lane
+        # axis internally). Like the bucket's, they are CRASH from tick
+        # 0; unlike the bucket's, nothing outside the program sees them —
+        # results, snapshots and the footprint keep the caller's layout
+        n_in = sum(g.count for g in groups)
+        self.bucketed = live_counts is not None
+        self.mesh_pad = 0
         if self.meshplan is not None:
-            # the reference's rule and message (engine.py:406-422): every
-            # shard holds an equal contiguous block of lanes
-            shards = self.meshplan.shards
-            if self.n_lanes % shards != 0:
-                from .check import pallas_lanes_message
+            self.mesh_pad = -(n_in + len(self.hosts)) % self.meshplan.shards
+        if self.mesh_pad:
+            if live_counts is None:
+                live_counts = tuple(g.count for g in groups)
+            last = groups[-1]
+            groups = groups[:-1] + (
+                dataclasses.replace(last, count=last.count + self.mesh_pad),
+            )
+            if faults is not None and faults.n == n_in:
+                from .faults import remap_schedule
 
-                raise ValueError(
-                    pallas_lanes_message(self.n, len(self.hosts), shards)
+                faults = remap_schedule(faults, np.arange(n_in), n_in + self.mesh_pad)
+            if trace is not None and trace.n == n_in:
+                trace = dataclasses.replace(
+                    trace, n=n_in + self.mesh_pad,
+                    mask=np.concatenate([trace.mask, np.zeros(self.mesh_pad, bool)]),
                 )
+        self.groups = groups
+        self.n = sum(g.count for g in groups)
+        self.n_lanes = self.n + len(self.hosts)
+        # the exact per-group counts where the layout is padded (None
+        # otherwise), and whether plans see them as 0-d tensors: under
+        # bucketing they do (the traced-count contract), under the mesh
+        # padding alone as Python ints
+        self.live_counts = live_counts
+        self._virt = _Virtual(self) if live_counts is not None else None
+        # the reference traces the step once per compile with the counts as
+        # traced scalars; the port watches the plan's first step instead
+        self._watch_host_reads = self.bucketed
         self.tick_ms = float(tick_ms)
         self.chunk = int(chunk)
         self.validate = bool(validate)
@@ -448,6 +523,8 @@ class SimProgram:
             torch.arange(g.count, dtype=torch.int32, device=dev) for g in groups
         ]
         self._gs = [s + g.offset for s, g in zip(self._gseq, groups)]
+        if self._virt is not None:
+            self._virt = self._virt.built(self, dev)
 
     def _build_plane_statics(self, cls) -> None:
         """The planes' static index tensors on the run's device, built once
@@ -507,6 +584,27 @@ class SimProgram:
     # ---------------------------------------------------------------- init
 
     def _env_for(self, g: GroupSpec, keys, tick=None) -> SimEnv:
+        v = self._virt
+        if v is not None:
+            # a padded layout: the plan sees the exact layout's counts,
+            # offsets and global_seq (engine.py:787-817), and its tensors
+            # are the group's physical length (group_lanes)
+            return SimEnv(
+                test_plan=self.meta["test_plan"],
+                test_case=self.meta["test_case"],
+                test_run=self.meta["test_run"],
+                test_instance_count=v.test_instance_count,
+                tick_ms=self.tick_ms,
+                groups=v.groups,
+                group=v.groups[g.index],
+                global_seq=v.global_seq[g.index],
+                group_seq=self._gseq[g.index],
+                device=self.device,
+                hosts=self.hosts,
+                group_lanes=g.count,
+                base_keys=keys,
+                tick=tick,
+            )
         return SimEnv(
             test_plan=self.meta["test_plan"],
             test_case=self.meta["test_case"],
@@ -519,6 +617,7 @@ class SimProgram:
             group_seq=self._gseq[g.index],
             device=self.device,
             hosts=self.hosts,
+            group_lanes=g.count,
             base_keys=keys,
             tick=tick,
         )
@@ -531,13 +630,38 @@ class SimProgram:
             for g in self.groups
         )
 
-    def init_carry(self, seed: int = 0) -> SimCarry:
+    def init_carry(self, seed: int = 0, live_counts=None) -> SimCarry:
+        """The run's carry at tick 0. ``live_counts`` is the reference's
+        argument: under bucketing the program's own counts (the default),
+        refused on a program without a bucket plan and when they differ
+        (the port builds its virtual maps once per program). A padded
+        layout's dead lanes are CRASH from tick 0 (``engine.py:819-940``)."""
+        if live_counts is not None:
+            if self.live_counts is None:
+                raise ValueError(
+                    "init_carry live_counts must be provided exactly when "
+                    "the program was built with a bucket plan"
+                )
+            if tuple(int(c) for c in live_counts) != tuple(self.live_counts):
+                raise ValueError(
+                    f"init_carry live_counts {tuple(live_counts)} differ from "
+                    f"the program's bucket plan {self.live_counts}: the port "
+                    "builds its virtual maps once per program"
+                )
         cls = type(self.tc)
         dev = self.device
         # the root split on the host: the link key stays there, and the
         # instance root crosses once
         net_key, inst_root = prng.split(prng.key(seed))
-        keys = prng.split(inst_root.to(dev), self.n)
+        inst_root = inst_root.to(dev)
+        if self._virt is None:
+            keys = prng.split(inst_root, self.n)
+        else:
+            # live lane v gets the exact run's key v (the port's split
+            # hashes the counter pair (0, v) alone, prng.py), the dead
+            # lanes the counters from ln up
+            y1, y2 = prng.threefry2x32(inst_root[0], inst_root[1], 0, self._virt.key_ctr)
+            keys = torch.stack([y1, y2], dim=-1)
         states = self._init_states(keys)
         lanes = self.n_lanes
         # host lanes sit past the instance axis: region 0 (their traffic
@@ -551,9 +675,12 @@ class SimProgram:
         def z(dtype=torch.int32):
             return torch.zeros((), dtype=dtype, device=dev)
 
+        status = torch.full((lanes,), RUNNING, dtype=torch.int32, device=dev)
+        if self._virt is not None:
+            status[: self.n].masked_fill_(self._virt.dead, CRASH)
         return SimCarry(
             states=states,
-            status=torch.full((lanes,), RUNNING, dtype=torch.int32, device=dev),
+            status=status,
             finished_at=torch.full((lanes,), -1, dtype=torch.int32, device=dev),
             cal=Calendar.empty(
                 cls.MAX_LINK_TICKS,
@@ -610,6 +737,8 @@ class SimProgram:
                 if self.telemetry
                 else None
             ),
+            # threaded through unchanged, never written
+            live_counts=self._virt.live_counts if self.bucketed else None,
             net_mat=(
                 torch.zeros((NM_CHANNELS, self._nm_gh, self._nm_gh),
                             dtype=torch.int32, device=dev)
@@ -634,6 +763,20 @@ class SimProgram:
         if self._carry_bytes is None:
             self._carry_bytes = carry_footprint(self.meta_carry())
         return self._carry_bytes
+
+    def footprint(self, carry: SimCarry) -> int:
+        """:func:`carry_footprint` of this program's ``carry`` in the
+        caller's layout: a mesh padding's dead lanes are not counted (the
+        reference's meshed footprint has the exact shapes)."""
+        out = carry_footprint(carry)
+        if self.mesh_pad:
+            out -= LaneExport(self).dead_bytes(carry)
+        return out
+
+    def lane_export(self) -> "LaneExport | None":
+        """How a snapshot of this program cuts the mesh padding's dead
+        lanes out (None without them)."""
+        return LaneExport(self) if self.mesh_pad else None
 
     def meta_carry(self) -> SimCarry:
         """The run's carry built on the meta device: every leaf's shape and
@@ -712,8 +855,13 @@ class SimProgram:
                 live=live_g,
             )
             env = self._env_for(g, carry.keys[lo:hi], tick=t)
-            out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
+            if self._watch_host_reads:
+                with _NoHostReads():
+                    out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
+            else:
+                out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
             outs.append(self._normalize(out, g.count))
+        self._watch_host_reads = False
 
         n = self.n
         active = carry.status[:n] == RUNNING  # [N]; host lanes echo below
@@ -937,6 +1085,12 @@ class SimProgram:
                               valid=inbox.valid)
             if timer is not None:
                 timer.mark("netmatrix")
+        virt = self._virt
+        if virt is not None and cls.TRACK_SRC:
+            # delivered provenance back to virtual ids: plans reply to
+            # inbox.src, so it must hold the exact run's values
+            inbox = Inbox(payload=inbox.payload, src=virt.src(inbox.src),
+                          valid=inbox.valid)
         if self.telemetry:
             lat_hist = carry.lat_hist + latency_histogram(
                 cal, inbox, t, self._plane_group_of, len(self.groups), LATENCY_BINS
@@ -952,10 +1106,15 @@ class SimProgram:
         if timer is not None:
             timer.mark("step")
         net_key, k_msg = prng.split_host(carry.net_key)
+        dst, dice_idx = step["dst"], None
+        if virt is not None:
+            # plan-emitted virtual destinations → physical lanes, and the
+            # shaping dice hash the exact run's message indices
+            dst, dice_idx = virt.dst(dst), virt.dice_idx
         cal, fb = enqueue(
             cal,
             carry.link,
-            step["dst"],
+            dst,
             step["payload"],
             step["valid"],
             t,
@@ -972,6 +1131,7 @@ class SimProgram:
             tick=tick,
             want_fate=self.trace is not None,
             want_flow=self.netmatrix,
+            dice_idx=dice_idx,
         )
         link = apply_net_updates(
             carry.link,
@@ -1027,7 +1187,7 @@ class SimProgram:
             cal_depth = cal_depth - purged_t
         net_mat = net_bw_hiwater = None
         if self.netmatrix:
-            nm = self._netmatrix_send(nm, fb.flow, step["dst"])
+            nm = self._netmatrix_send(nm, fb.flow, dst)
             net_mat = carry.net_mat + nm.view(NM_CHANNELS, self._nm_gh, self._nm_gh)
             net_bw_hiwater = carry.net_bw_hiwater
             if net_bw_hiwater is not None:
@@ -1067,6 +1227,7 @@ class SimProgram:
             ),
             fault_dropped=carry.fault_dropped + fault_dropped_t,
             lat_hist=lat_hist,
+            live_counts=carry.live_counts,
             net_mat=net_mat,
             net_bw_hiwater=net_bw_hiwater,
         )
@@ -1260,17 +1421,12 @@ class SimProgram:
         chunk's host-clock wall from its first launch to the return of the
         wait on its last done event (``chunk_sleep_ms`` inside it, as in
         the reference): no launch and no device read of its own.
-        ``live_counts`` is refused (ROADMAP item 13b)."""
-        if live_counts is not None:
-            raise NotImplementedError(
-                "SimProgram.run option 'live_counts' is not ported yet: "
-                f"ROADMAP queue 1 {_UNPORTED_OPTIONS['live_counts']}"
-            )
+        ``live_counts`` is :meth:`init_carry`'s."""
         t0 = time.perf_counter()
         if resume_carry is not None:
             carry, ticks = resume_carry, int(resume_ticks)
         else:
-            carry, ticks = self.init_carry(seed), 0
+            carry, ticks = self.init_carry(seed, live_counts), 0
         start_ticks = ticks
         cuda = self.device.type == "cuda"
         done_out = (
@@ -1423,10 +1579,34 @@ class SimProgram:
         if "err" in box:
             raise box["err"]
 
+    def virtual_groups(self) -> tuple[GroupSpec, ...]:
+        """The exact (virtual) group layout of a padded program as Python
+        ints (``engine.py:2156-2176``); ``groups`` itself without padding."""
+        if self.live_counts is None:
+            return self.groups
+        out, off = [], 0
+        for g, lv in zip(self.groups, self.live_counts):
+            out.append(dataclasses.replace(g, offset=off, count=int(lv)))
+            off += int(lv)
+        return tuple(out)
+
     def results(self, carry: SimCarry, ticks: int) -> dict[str, Any]:
         def host(x):
             return x.detach().cpu().numpy()
 
+        status = host(carry.status[: self.n])
+        finished_at = host(carry.finished_at[: self.n])
+        states = tuple({k: host(v) for k, v in s.items()} for s in carry.states)
+        carry_bytes = self.footprint(carry)
+        if self.live_counts is not None:
+            # a padded run: demux to the exact layout (engine.py:2187-2225);
+            # no caller ever sees a dead lane
+            keep = self._virt.live
+            status, finished_at = status[keep], finished_at[keep]
+            states = tuple(
+                {k: v[: int(lv)] for k, v in st.items()}
+                for st, lv in zip(states, self.live_counts)
+            )
         return {
             "ticks": ticks,
             "tick_ms": self.tick_ms,
@@ -1451,15 +1631,211 @@ class SimProgram:
                 if carry.net_bw_hiwater is not None
                 else {}
             ),
-            "carry_bytes": carry_footprint(carry),
+            "carry_bytes": carry_bytes,
             # host lanes are internal plumbing — plan instances only
-            "status": host(carry.status[: self.n]),
-            "finished_at": host(carry.finished_at[: self.n]),
-            "states": tuple(
-                {k: host(v) for k, v in s.items()} for s in carry.states
-            ),
-            "groups": self.groups,
+            "status": status,
+            "finished_at": finished_at,
+            "states": states,
+            "groups": self.virtual_groups(),
         }
+
+
+class _Virtual:
+    """The exact (virtual) layout of a padded program — its maps to and
+    from the physical lanes, all static, so each is built once per
+    program and each tick pays one gather a map (the reference rebuilds
+    them from the carry's traced counts every tick, ``engine.py:636-817``).
+
+    Lane ids: the live lanes of group g are the first ``live_counts[g]``
+    of its physical span, then the dead ones; the host lanes follow the
+    instances in both layouts (``ln + h`` virtual, ``n + h`` physical)."""
+
+    def __init__(self, prog: SimProgram):
+        groups, lc = prog.groups, np.asarray(prog.live_counts, np.int64)
+        h, n = len(prog.hosts), prog.n
+        self.voff = np.concatenate([[0], np.cumsum(lc)]).astype(np.int64)
+        self.ln = int(self.voff[-1])
+        self.n_vlanes = self.ln + h
+        gseq = np.concatenate([np.arange(g.count) for g in groups])
+        gi = np.repeat(np.arange(len(groups)), [g.count for g in groups])
+        live = gseq < lc[gi]
+        vid = self.voff[gi] + gseq
+        hosts_p = n + np.arange(h)
+        self.live = live
+        # virtual lane → physical, then one past the lanes (a destination
+        # past the virtual ones stays past the physical ones) and -1
+        self.dst_np = np.concatenate(
+            [np.flatnonzero(live), hosts_p, [n + h, -1]]).astype(np.int32)
+        # physical sender → virtual (a dead lane never sends), then -1 for
+        # the empty slot's src = -1 (a negative index reads the last entry)
+        self.src_np = np.concatenate(
+            [np.where(live, vid, self.n_vlanes + np.arange(n)),
+             self.ln + np.arange(h), [-1]]).astype(np.int32)
+        # the keys: live lane v hashes counter v, as in the exact run's
+        # split; the dead lanes take the counters from ln up
+        self.key_np = np.where(live, vid, self.ln + np.cumsum(~live) - 1).astype(np.int64)
+        # the shaping dice's message source (net.enqueue ``dice_idx``,
+        # engine.py:750-784): live and host lanes their virtual ids, dead
+        # lanes ids past the virtual lanes; message o·lanes + src hashes
+        # o·n_vlanes + its source's, its index in the exact run's outbox
+        self.dice_np = np.concatenate(
+            [np.where(live, vid, self.n_vlanes + np.arange(n)),
+             self.ln + np.arange(h)]).astype(np.int32)
+
+    def built(self, prog: SimProgram, dev) -> "_Virtual":
+        """A copy with the device tables and the plan-facing values on
+        ``dev``: under bucketing the counts, offsets and ``global_seq`` as
+        0-d / [n_g] int32 tensors (the reference's traced scalars), under
+        the mesh padding alone as the exact layout's Python ints."""
+        out = copy.copy(self)
+        out.dst_tbl = torch.from_numpy(self.dst_np).to(dev)
+        out.src_tbl = torch.from_numpy(self.src_np).to(dev)
+        out.key_ctr = torch.from_numpy(self.key_np).to(dev)
+        # the dead lanes' mask and the carry's live_counts leaf: built here
+        # so that init_carry copies nothing from the host (a wait on a card)
+        out.dead = torch.from_numpy(~self.live).to(dev)
+        out.live_counts = torch.tensor(prog.live_counts, dtype=torch.int32, device=dev)
+        # the outbox's rows (grown to the echo slots with hosts)
+        cls = type(prog.tc)
+        rows = max(cls.OUT_MSGS, cls.IN_MSGS) if prog.hosts else cls.OUT_MSGS
+        o = np.arange(rows, dtype=np.int64)[:, None]
+        out.dice_idx = torch.from_numpy(
+            (o * self.n_vlanes + self.dice_np[None, :]).reshape(-1).astype(np.int32)
+        ).to(dev)
+        groups = prog.groups
+        lc = prog.live_counts
+        if prog.bucketed:
+            both = torch.tensor(
+                [self.ln, *lc, *self.voff[:-1].tolist()], dtype=torch.int32, device=dev
+            )
+            g_n = len(groups)
+            out.test_instance_count = both[0]
+            counts, offs = both[1 : 1 + g_n], both[1 + g_n :]
+            out.groups = tuple(
+                dataclasses.replace(g, count=counts[i], offset=offs[i])
+                for i, g in enumerate(groups)
+            )
+            out.global_seq = [offs[i] + prog._gseq[i] for i in range(g_n)]
+        else:
+            out.test_instance_count = self.ln
+            out.groups = tuple(
+                dataclasses.replace(g, count=int(c), offset=int(o))
+                for g, c, o in zip(groups, lc, self.voff[:-1].tolist())
+            )
+            out.global_seq = [
+                s + int(o) for s, o in zip(prog._gseq, self.voff[:-1].tolist())
+            ]
+        return out
+
+    def dst(self, dst: torch.Tensor) -> torch.Tensor:
+        """Plan-emitted virtual destinations → physical lanes; one past the
+        virtual lanes and below 0 stay out of range (``_translate_dst``)."""
+        return self.dst_tbl[dst.clamp(-1, self.n_vlanes)]
+
+    def src(self, src: torch.Tensor) -> torch.Tensor:
+        """Delivered physical provenance → virtual (``_translate_src``)."""
+        return self.src_tbl[src]
+
+
+
+class LaneExport:
+    """A mesh-padded program's snapshot leaves in the caller's layout: the
+    dead lanes at the end of the last group are taken out of every leaf
+    with a lane axis on the way out (:meth:`take`), and put back from a
+    fresh carry of the program on the way in (:meth:`put`) — a dead lane
+    never changes after tick 0. The leaves are the exchange format's
+    (``sim/carry_io.py``; calendar planes ``[L, SLOTS·N]`` or flat), so a
+    snapshot has the shapes of the reference's meshed run, whose padding
+    is internal too. The senders the calendar records past the instances
+    (the host lanes) shift with the cut."""
+
+    def __init__(self, prog: SimProgram):
+        self.pad = prog.mesh_pad
+        self.n = prog.n
+        self.n_exp = prog.n - self.pad
+        self.slots = type(prog.tc).IN_MSGS
+        h = len(prog.hosts)
+        self.last = len(prog.groups) - 1
+        keep = {
+            "lanes": np.concatenate([np.arange(self.n_exp), self.n + np.arange(h)]),
+            "inst": np.arange(self.n_exp),
+            "group": np.arange(prog.groups[-1].count - self.pad),
+        }
+        self._keep = keep
+        self.lanes = self.n + h  # the physical lane axis
+
+    _AXES = {
+        "status": ("lanes", 0), "finished_at": ("lanes", 0), "rejected": ("lanes", 0),
+        "link.region_of": ("lanes", 0), "link.backlog": ("lanes", 0),
+        "link.egress": ("lanes", 1), "link.filters": ("lanes", 1),
+        "link.rules": ("lanes", 2), "sync.last_seq": ("inst", 1),
+        "sync.cursors": ("inst", 1), "keys": ("inst", 0),
+    }
+
+    def _axis(self, path: str):
+        if path.startswith("cal."):
+            return "lanes", 2
+        if path.startswith("states."):
+            return ("group", 0) if int(path.split(".")[1]) == self.last else None
+        return self._AXES.get(path)
+
+    def _view(self, path: str, data: np.ndarray) -> np.ndarray:
+        if path.startswith("cal."):
+            return data.reshape(-1, self.slots, self.lanes)
+        return data
+
+    def shape(self, path: str, shape: list) -> list:
+        """The exported leaf's shape for the program's leaf ``shape``."""
+        ax = self._axis(path)
+        out = list(shape)
+        if ax is not None:
+            kept = len(self._keep[ax[0]])
+            if path.startswith("cal."):
+                out[-1] = out[-1] // self.lanes * kept
+            else:
+                out[ax[1]] = kept
+        return out
+
+    def dead_bytes(self, carry: SimCarry) -> int:
+        """The footprint bytes (:func:`carry_footprint`) the dead lanes
+        hold: each leaf's, as the reference stores it, past its exported
+        shape."""
+        from .checkpoint import _expected, leaf_paths
+
+        out = 0
+        for path in leaf_paths(carry):
+            if self._axis(path) is None:
+                continue
+            meta = _expected(carry, path, flat=False)
+            cut = math.prod(meta["shape"]) - math.prod(self.shape(path, meta["shape"]))
+            out += cut * np.dtype(meta["dtype"]).itemsize
+        return out
+
+    def take(self, path: str, data: np.ndarray) -> np.ndarray:
+        ax = self._axis(path)
+        if ax is None:
+            return data
+        out = np.take(self._view(path, data), self._keep[ax[0]], axis=ax[1])
+        if path == "cal.src":
+            out = np.where(out > self.n_exp, out - self.pad, out).astype(out.dtype)
+        if path.startswith("cal."):
+            out = out.reshape(data.shape[0], -1) if data.ndim == 2 else out.reshape(-1)
+        return np.ascontiguousarray(out)
+
+    def put(self, path: str, template: np.ndarray, data: np.ndarray) -> np.ndarray:
+        ax = self._axis(path)
+        if ax is None:
+            return data
+        out = np.array(self._view(path, template))
+        if path.startswith("cal."):
+            lanes = len(self._keep["lanes"])
+            data = data.reshape(out.shape[0], self.slots, lanes)
+            if path == "cal.src":
+                data = np.where(data > self.n_exp, data + self.pad, data).astype(data.dtype)
+        idx = [slice(None)] * out.ndim
+        idx[ax[1]] = self._keep[ax[0]]
+        out[tuple(idx)] = data
+        return out.reshape(template.shape)
 
 
 class _Blocks:

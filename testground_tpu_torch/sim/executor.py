@@ -59,12 +59,23 @@ boundary after a forced snapshot there, and the run raises
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default (``unported_settings``; ``tg check``
-reports each as ``port.not-ported``): buckets and packs (item 13b, a 2-D
-pack mesh among them) and multi-host cohorts (item 15b).
+reports each as ``port.not-ported``): run packs (item 13c, ``pack``,
+``pack_max`` and a 2-D pack mesh) and multi-host cohorts (item 15b).
+
+Shape buckets (``bucket = off|auto|<n>``, ``bucket_ladder``;
+``resolve_buckets``, ``executor.py:395-452, 846-965``): a bucketed run's
+groups are padded to the ladder, the plan is specialized against the
+padded layout, the fault schedule is lowered in the exact layout and
+remapped, the flight recorder is off, and the journal's ``sim.bucket``
+block is the reference's (``compile_cache`` is ``"off"``: the port has no
+compile cache). Every result, stream and total stays exact-N.
 
 A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
 the calendar over the peer shards (``sim/meshplan.py``); the journal's
-``sim.mesh`` block is the reference's.
+``sim.mesh`` block is the reference's. A lane count that does not divide
+across the shards runs under ``xla`` and ``auto`` with dead lanes that the
+engine keeps to itself (``SimProgram.mesh_pad``); ``pallas`` refuses it,
+as the reference's engine does.
 """
 
 from __future__ import annotations
@@ -133,7 +144,7 @@ class SimTorchConfig:
     # on a host with one card or on the CPU
     shard: bool = True
     # explicit 1-D peers mesh ("4"), over the visible cards, or virtual on
-    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13b)
+    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13c)
     mesh: str = ""
     write_outputs_max: int = 2048  # cap on per-instance output dirs
     keep_outputs: bool = True
@@ -164,11 +175,13 @@ class SimTorchConfig:
     # > 0 with transport "auto": time the resolved arm's deliver and
     # net_commit over this many ticks before the run (sim.transport.scores)
     transport_probe: int = 0
-    bucket: str = "off"  # refused unless "off" (item 13b)
-    bucket_ladder: str = ""  # refused unless "" (item 13b)
-    pack: bool = False  # refused unless False (item 13b)
-    pack_max: int = 8
-    build_buckets: bool = False  # refused unless False (item 13b)
+    # shape buckets: "off", "auto" (the ladder) or an explicit count
+    bucket: str = "off"
+    bucket_ladder: str = ""  # "" = buckets.DEFAULT_LADDER
+    pack: bool = False  # refused unless False (item 13c)
+    pack_max: int = 8  # refused unless 8 (item 13c)
+    # the sim:plan builder warms the bucket ladder (tg build --buckets)
+    build_buckets: bool = False
     # > 0: a snapshot every this many chunks (sim/checkpoint.py)
     checkpoint_chunks: int = 0
     checkpoint_keep: int = 3  # newest snapshots kept
@@ -186,16 +199,14 @@ class SimTorchConfig:
     device: str | None = None
 
 
-_ITEM_13 = "item 13b (buckets, packs and the 2-D mesh)"
+_ITEM_13 = "item 13c (run packs)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
 # the ROADMAP queue-1 item that ports each
 _UNPORTED_SETTINGS = {
-    "bucket": _ITEM_13,
-    "bucket_ladder": _ITEM_13,
-    "build_buckets": _ITEM_13,
     "pack": _ITEM_13,
+    "pack_max": _ITEM_13,
     "coordinator_address": _ITEM_15B,
     "num_processes": _ITEM_15B,
     "process_id": _ITEM_15B,
@@ -242,18 +253,71 @@ def transport_knob(cfg) -> str:
 
 def check_mesh_lanes(transport: str, n: int, hosts: int, shards: int) -> None:
     """Refuse a lane count (instances + hosts) that does not divide across
-    ``shards`` peer shards: the reference's XLA transport pads such a lane
-    axis and the port's calendar is always split per shard, so xla and
-    auto wait for the padding of shape bucketing (item 13b); pallas refuses
-    with the reference engine's message."""
-    from .check import mesh_lanes_message, pallas_lanes_message
+    ``shards`` peer shards under ``transport=pallas``, with the reference
+    engine's message. Under xla and auto the engine pads the last group
+    with dead lanes (``SimProgram.mesh_pad``), as the reference's XLA
+    transport pads the lane axis."""
+    from .check import pallas_lanes_message
 
     lanes = n + hosts
     if shards <= 1 or lanes % shards == 0:
         return
     if transport == "pallas":
         raise ValueError(pallas_lanes_message(n, hosts, shards))
-    raise NotImplementedError(mesh_lanes_message(transport, lanes, shards, _ITEM_13))
+
+
+def resolve_buckets(cfg, counts, mesh=None, warn=None):
+    """The one shape-bucketing gate (``executor.py:395-452``, its rules and
+    messages): validate the ``bucket``/``bucket_ladder`` knobs and apply
+    the structural bounds. Returns a ``buckets.BucketPlan`` or None (exact
+    shapes). Shared by the executor, the sim:plan ladder warm and ``tg
+    check``. ``warn`` is a ``(fmt, *args)`` callable for loud fallbacks."""
+    from .buckets import parse_bucket_mode, parse_ladder, plan_buckets
+
+    mode = parse_bucket_mode(getattr(cfg, "bucket", "off"))
+    if mode == "off":
+        return None
+    if getattr(cfg, "coordinator_address", ""):
+        if warn is not None:
+            warn(
+                "shape bucketing disabled for the cohort config (the "
+                "runtime-N carry input is leader-local state a follower "
+                "cannot reproduce symmetrically)"
+            )
+        return None
+    ladder = parse_ladder(getattr(cfg, "bucket_ladder", "") or None)
+    plan = plan_buckets(counts, mode, ladder)
+    if plan is not None and mesh is not None:
+        # a bucketed run shards the PADDED instance axis: every rung's
+        # padded count must divide across the peer shards
+        from .meshplan import indivisible_counts, peer_shards
+
+        shards = peer_shards(mesh)
+        bad = indivisible_counts(plan.padded_counts, shards)
+        if bad:
+            if warn is not None:
+                warn(
+                    "shape bucketing skipped on this mesh: padded "
+                    "count(s) %s do not divide across %d peer shard(s) "
+                    "— running exact shapes; pick a bucket ladder whose "
+                    "rungs are multiples of the shard count",
+                    ",".join(str(c) for c in bad),
+                    shards,
+                )
+            return None
+    if plan is None:
+        if warn is not None:
+            warn(
+                "shape bucketing skipped: a group's %s instances exceed "
+                "the bucket coverage (ladder %s) — running exact shapes; "
+                "raise bucket_ladder to bucket runs this large",
+                max(counts),
+                ",".join(str(r) for r in ladder)
+                if mode == "auto"
+                else mode,
+            )
+        return None
+    return plan
 
 
 def _refuse_unported(cfg) -> None:
@@ -342,10 +406,12 @@ def make_sim_program(
     netmatrix,
     device,
     mesh,
+    live_counts=None,
 ):
     """The one construction site for a run's SimProgram
     (``executor.py:304-346``): every program-shaping option is a required
-    keyword. On a mesh the program's leaves live on its primary device."""
+    keyword but ``live_counts`` (a bucket plan's exact counts). On a mesh
+    the program's leaves live on its primary device."""
     from .engine import SimProgram
 
     return SimProgram(
@@ -364,6 +430,7 @@ def make_sim_program(
         netmatrix=netmatrix,
         device=None if mesh is not None else device,
         mesh=mesh,
+        live_counts=live_counts,
     )
 
 
@@ -628,7 +695,6 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         netmatrix_requires_telemetry_message,
         slo_requires_telemetry_message,
     )
-    from .engine import carry_footprint
     from .faults import build_fault_schedule
     from .slo import SLO_FILE, SloBreachError, SloEvaluator, build_slo_plan
     from .telemetry import (
@@ -641,28 +707,74 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
 
     artifact = job.groups[0].artifact_path or plan_dir(job.test_plan)
     spans.start("build")
+    mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
+                      device)
+    # shape buckets: resolved before specialization — the padded layout is
+    # what the testcase specializes against, while every lowering that
+    # addresses instances (fault selectors, SLO scoping, reporting) works
+    # in the EXACT layout and is remapped or demuxed at the edges
+    bucket_plan = resolve_buckets(cfg, [g.instances for g in job.groups], mesh=mesh,
+                                  warn=ow.warn)
+    padded_in = job.groups
+    if bucket_plan is not None:
+        padded_in = [dataclasses.replace(g, instances=p)
+                     for g, p in zip(job.groups, bucket_plan.padded_counts)]
     testcase, groups = load_and_specialize(
-        artifact, job.test_case, job.groups, cfg.tick_ms
+        artifact, job.test_case, padded_in, cfg.tick_ms
     )
-    n = sum(g.count for g in groups)
+    if (bucket_plan is not None and "filter_rules" in type(testcase).SHAPING
+            and len(groups) > 1):
+        ow.warn(
+            "sim:torch %s: shape bucketing disabled — 'filter_rules' "
+            "shaping with multiple groups addresses the exact layout "
+            "(rule ranges cannot survive per-group padding); running "
+            "exact shapes",
+            job.run_id,
+        )
+        bucket_plan = None
+        testcase, groups = load_and_specialize(
+            artifact, job.test_case, job.groups, cfg.tick_ms
+        )
+    from .engine import build_groups
+
+    # the EXACT layout every host-side surface reports in
+    vgroups = build_groups(job.groups) if bucket_plan is not None else groups
+    n = sum(g.count for g in vgroups)
+    if bucket_plan is not None:
+        ow.infof("sim:torch %s: shape bucket — %s", job.run_id, bucket_plan.summary())
     hosts = _parse_hosts(getattr(cfg, "additional_hosts", None))
 
-    # fault plane: the composition's chaos schedule, lowered
+    # fault plane: the composition's chaos schedule, lowered in the exact
+    # layout the operator declared it in
     fault_specs = fault_specs_of(job.groups, getattr(job, "faults", None))
-    fault_schedule = build_fault_schedule(groups, fault_specs, cfg.tick_ms)
+    fault_schedule = build_fault_schedule(vgroups, fault_specs, cfg.tick_ms)
     # which group pairs the schedule degrades (journal
-    # sim.net_matrix.faulted_pairs)
+    # sim.net_matrix.faulted_pairs), read before any bucket remap
     nm_faulted = None
     if fault_schedule is not None and bool(getattr(cfg, "netmatrix", False)):
-        nm_faulted = _netmatrix.faulted_pairs(fault_schedule, groups)
+        nm_faulted = _netmatrix.faulted_pairs(fault_schedule, vgroups)
+    if fault_schedule is not None and bucket_plan is not None:
+        from .faults import remap_schedule
+
+        fault_schedule = remap_schedule(
+            fault_schedule, bucket_plan.index_map(), bucket_plan.padded_n
+        )
     if fault_schedule is not None:
         ow.infof("sim:torch %s: fault schedule armed — %s", job.run_id,
                  fault_schedule.summary())
 
-    # flight recorder: disable_metrics wins
+    # flight recorder: disable_metrics wins, and bucketing turns it off
     trace_specs = trace_specs_of(job.groups, getattr(job, "trace", None))
-    trace_plan = build_trace_plan(groups, trace_specs)
+    trace_plan = build_trace_plan(vgroups, trace_specs)
     if trace_plan is not None and job.disable_metrics:
+        trace_plan = None
+    if trace_plan is not None and bucket_plan is not None:
+        ow.warn(
+            "sim:torch %s: flight recorder disabled under shape bucketing "
+            "(trace lanes are exact-layout selectors baked into the "
+            "program; run with bucket=off to trace)",
+            job.run_id,
+        )
         trace_plan = None
     if trace_plan is not None:
         ow.infof("sim:torch %s: flight recorder armed — %s", job.run_id,
@@ -676,7 +788,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     if netmatrix_on and not telemetry_on:
         raise ValueError(netmatrix_requires_telemetry_message(job.disable_metrics))
     slo_specs = slo_specs_of(job.groups, getattr(job, "slo", None))
-    slo_plan = build_slo_plan(groups, slo_specs)
+    slo_plan = build_slo_plan(vgroups, slo_specs)
     if slo_plan is not None and not telemetry_on:
         raise ValueError(
             slo_requires_telemetry_message(slo_plan.count, job.disable_metrics)
@@ -685,9 +797,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         ow.infof("sim:torch %s: run health plane armed — %s", job.run_id,
                  slo_plan.summary())
 
-    mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
-                      device)
-    check_mesh_lanes(transport_knob(cfg), n, len(hosts),
+    check_mesh_lanes(transport_knob(cfg), sum(g.count for g in groups), len(hosts),
                      1 if mesh is None else mesh.size)
     ow.infof(
         "sim:torch run %s: plan=%s case=%s instances=%d groups=%d "
@@ -714,12 +824,17 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         netmatrix=netmatrix_on,
         device=device,
         mesh=mesh,
+        live_counts=bucket_plan.live_counts if bucket_plan is not None else None,
     )
+    if prog.mesh_pad:
+        ow.infof("sim:torch %s: %d dead lane(s) pad the last group so the "
+                 "lanes divide across %d peer shards", job.run_id, prog.mesh_pad,
+                 mesh.size)
     # the carry is built here, not from its shapes on the meta device: a
     # process's first meta op imports torch's meta kernels, which takes
     # seconds; the run then starts from this carry
     carry0 = prog.init_carry(cfg.seed)
-    carry_bytes = carry_footprint(carry0)
+    carry_bytes = prog.footprint(carry0)
     _precheck_device_memory(prog, carry_bytes, cfg, ow, device)
     ow.infof(
         "sim:torch %s: device carry footprint %.2f MiB (%d bytes)",
@@ -757,7 +872,11 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             fault_specs=fault_specs,
             # a trace plan nulled by disable_metrics shapes nothing
             trace_specs=trace_specs if trace_plan is not None else {},
-            hosts=hosts, netmatrix=netmatrix_on,
+            hosts=hosts,
+            # the padded layout shapes every carry leaf: a snapshot from
+            # one bucket refuses to seed another
+            bucket=bucket_plan.padded_counts if bucket_plan is not None else None,
+            netmatrix=netmatrix_on,
         )
         source_run = None
         t_load = time.perf_counter()
@@ -849,8 +968,10 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # no outputs dir → nowhere to keep samples; disable_metrics opts out
     ts_enabled = outputs_root is not None and not job.disable_metrics
     recorder = _TimeSeriesRecorder(
-        testcase, groups,
+        testcase, vgroups,
         getattr(cfg, "timeseries_every", 0) if ts_enabled else 0, ow,
+        # a padded carry's samples slice each group's live span out
+        phys_groups=prog.groups if prog.live_counts is not None else None,
     )
     row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
     transport_block = _transport_block(cfg, prog.device, mesh)
@@ -874,6 +995,8 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             warmup=1,
             transport=transport_block["resolved"],
             device=prog.device,
+            # the padded size rides beside the exact N as an annotation
+            bucket=bucket_plan.padded_n if bucket_plan is not None else None,
         )
     # the profiler: any group's profiles or the profile flag record a
     # torch.profiler trace (host and device activity) into the run dir
@@ -895,7 +1018,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     resumed = resume_state is not None
     tele_writer = (
         _SimTelemetryWriter(
-            tuple(g.id for g in groups), row_ident,
+            tuple(g.id for g in vgroups), row_ident,
             os.path.join(run_dir, SIM_SERIES_FILE) if run_dir is not None else None,
             append=resumed,
             rows_offset=int(resume_aux.get("telemetry_rows", 0) or 0),
@@ -912,7 +1035,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         if netmatrix_on else None
     )
     trace_writer = (
-        _SimTraceWriter(groups, row_ident, run_dir, cfg.tick_ms, trace_plan,
+        _SimTraceWriter(vgroups, row_ident, run_dir, cfg.tick_ms, trace_plan,
                         resume=resume_aux.get("trace") if resumed else None)
         if trace_plan is not None else None
     )
@@ -921,7 +1044,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         # a fail-severity breach cancels the run, never the task
         run_cancel = _SloRunCancel(cancel)
         slo_eval = SloEvaluator(
-            slo_plan, groups, cfg.tick_ms, cfg.chunk, ident=row_ident,
+            slo_plan, vgroups, cfg.tick_ms, cfg.chunk, ident=row_ident,
             path=os.path.join(run_dir, SLO_FILE) if run_dir is not None else None,
             cancel=run_cancel.run_local,
             append=resumed,
@@ -1004,6 +1127,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             keep=int(getattr(cfg, "checkpoint_keep", 3) or 3), chunk=cfg.chunk,
             identity=identity, ident=row_ident, aux_cb=_ckpt_aux, spans=spans,
             warn=ow.warn, telemetry=telemetry_on, resumed_from=resume_info,
+            export=prog.lane_export(),
         )
         ow.infof("sim:torch %s: checkpointing every %d chunk(s) (%d ticks), "
                  "keeping newest %d", job.run_id, ckpt_every,
@@ -1097,6 +1221,24 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     spans.point("compile", wall_secs=round(res.get("compile_secs", 0.0), 6))
     spans.end("execute", ticks=res["ticks"])
     status = res["status"]
+    # the bucket block: results are already demuxed to the exact layout
+    bucket_block = None
+    if bucket_plan is not None:
+        bucket_block = {
+            "instances": bucket_plan.live_n,
+            "padded_instances": bucket_plan.padded_n,
+            "dead_lanes": bucket_plan.padded_n - bucket_plan.live_n,
+            "per_group": {
+                g.id: {"live": lv, "padded": pv}
+                for g, lv, pv in zip(vgroups, bucket_plan.live_counts,
+                                     bucket_plan.padded_counts)
+            },
+            # the reference's value without a compile cache: the port
+            # compiles nothing, so no bucket is ever cold
+            "compile_cache": "off",
+        }
+        ow.infof("sim:torch %s: bucket %d (live %d) — compile cache %s", job.run_id,
+                 bucket_plan.padded_n, bucket_plan.live_n, bucket_block["compile_cache"])
     ow.infof(
         "sim:torch %s: done — %d ticks in %.2fs wall (%.0f instance·ticks/s)",
         job.run_id, res["ticks"], wall, n * res["ticks"] / max(wall, 1e-9),
@@ -1156,7 +1298,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     metrics = {}
     collect = getattr(testcase, "collect_metrics", None)
     if callable(collect):
-        for gi, g in enumerate(groups):
+        for gi, g in enumerate(vgroups):
             try:
                 metrics[g.id] = collect(
                     g, res["states"][gi], status[g.offset : g.offset + g.count]
@@ -1192,7 +1334,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         netmatrix_writer.close()
     if netmatrix_on and res.get("net_matrix") is not None:
         nm_mat = np.asarray(res["net_matrix"], np.int64)
-        nm_labels = [g.id for g in groups]
+        nm_labels = [g.id for g in vgroups]
         if nm_mat.shape[1] > len(nm_labels):
             nm_labels.append("hosts")
         nm_pairs, nm_elided = _netmatrix.top_pairs(nm_mat, 16)
@@ -1229,7 +1371,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     if res.get("lat_hist") is not None:
         latency = {
             g.id: latency_percentiles(res["lat_hist"][gi], cfg.tick_ms)
-            for gi, g in enumerate(groups)
+            for gi, g in enumerate(vgroups)
         }
         for gid, pct in latency.items():
             for q in ("p50", "p95", "p99"):
@@ -1358,7 +1500,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             base_ns=base_ns,
         )
 
-    for gi, g in enumerate(groups):
+    for gi, g in enumerate(vgroups):
         st = status[g.offset : g.offset + g.count]
         ok = int(np.sum(st == 1))
         result.outcomes[g.id].ok = ok
@@ -1384,7 +1526,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     elif resume_info is not None:
         checkpoint_block = {"every_chunks": 0, "count": 0, "resumed": resume_info}
 
-    mesh_block = _mesh_journal_block(mesh, testcase, groups, hosts)
+    mesh_block = _mesh_journal_block(mesh, testcase, vgroups, hosts)
     result.journal["sim"] = {
         "ticks": res["ticks"],
         "tick_ms": cfg.tick_ms,
@@ -1412,6 +1554,9 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         **({"phases": phases_block} if phases_block else {}),
         **({"net_matrix": net_matrix_block} if net_matrix_block else {}),
         **({"checkpoint": checkpoint_block} if checkpoint_block else {}),
+        # present when the run was padded to a bucket; every total above
+        # stays exact-N
+        **({"bucket": bucket_block} if bucket_block else {}),
         **({"mesh": mesh_block} if mesh_block else {}),
     }
     result.update_outcome()
@@ -1830,9 +1975,13 @@ class _TimeSeriesRecorder:
     ``collect_metrics`` runs on the states read off the device, and the
     per-group reductions become ``timeseries.jsonl`` rows."""
 
-    def __init__(self, testcase, groups, every: int, ow: OutputWriter):
+    def __init__(self, testcase, groups, every: int, ow: OutputWriter,
+                 phys_groups=None):
         self._collect = getattr(testcase, "collect_metrics", None)
+        # ``groups`` is the exact layout the rows report in, ``phys_groups``
+        # the padded one of a padded carry (None without padding)
         self.groups = groups
+        self._phys = phys_groups
         self.every = int(every or 0)
         self._next_at = self.every
         self._last_tick = -1
@@ -1863,7 +2012,14 @@ class _TimeSeriesRecorder:
         states = tuple(
             {k: v.detach().cpu().numpy() for k, v in s.items()} for s in carry.states
         )
-        self.sample(ticks, states, carry.status.detach().cpu().numpy())
+        status = carry.status.detach().cpu().numpy()
+        if self._phys is not None:
+            # a padded carry: each group's live span only
+            states = tuple({k: v[: g.count] for k, v in st.items()}
+                           for st, g in zip(states, self.groups))
+            status = np.concatenate([status[pg.offset : pg.offset + g.count]
+                                     for pg, g in zip(self._phys, self.groups)])
+        self.sample(ticks, states, status)
 
     def sample(self, tick: int, states, status) -> None:
         if tick == self._last_tick:  # final sample on a cadence boundary

@@ -495,6 +495,7 @@ def enqueue(
     tick: int | None = None,
     want_fate: bool = False,
     want_flow: bool = False,
+    dice_idx: torch.Tensor | None = None,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
@@ -519,7 +520,11 @@ def enqueue(
       reference's ``[4, M]``: copies sent, copies enqueued (a duplicate and
       its original add up), rejected, fault-dropped. The last two are None
       when no filter, respectively no fault term or dead mask, is given:
-      they would be all zero."""
+      they would be all zero.
+    - ``dice_idx``: ``[O·N]`` int32 message indices the shaping dice hash
+      in place of the flat index (shape bucketing: the exact run's
+      indices, so every stochastic draw matches an unpadded run's). The
+      slot ranks, the fate and the flow keep the flat index."""
     width = cal.width
     horizon, n = cal.horizon, cal.lanes
     o, n_src = valid.shape
@@ -549,7 +554,8 @@ def enqueue(
     # salt, feature id), exactly the reference's int32 hash (net.py:
     # 696-736) computed on uint32 values in int64
     salt = _hash_salt(key)
-    h0 = (midx.to(torch.int64) * 0x9E3779B1 + salt) & _M32
+    iota_m = midx if dice_idx is None else dice_idx
+    h0 = (iota_m.to(torch.int64) * 0x9E3779B1 + salt) & _M32
 
     def uhash_id(fid):
         # feature ids 1..len(FULL_SHAPING) are the shaping knobs; the

@@ -83,9 +83,13 @@ class PerfLedger:
         warmup: int = 1,
         transport: str = "plain",
         device=None,
+        bucket: int | None = None,
     ):
-        # the exact live count: peer·ticks/s divide real work
+        # the exact live count, never the padded bucket size: peer·ticks/s
+        # divide real work, so a padded run never reports inflated
+        # throughput (the bucket size rides beside it as an annotation)
         self.instances = int(instances)
+        self.bucket = int(bucket) if bucket else None
         self.chunk = int(chunk)
         # the transport that ran: every row and the summary name it, so
         # ledgers of different backends are never cross-attributed
@@ -120,6 +124,8 @@ class PerfLedger:
             "ticks_per_sec": round(ticks_delta / wall, 3),
             "peer_ticks_per_sec": round(self.instances * ticks_delta / wall, 3),
         }
+        if self.bucket:
+            row["bucket"] = self.bucket
         mem = device_memory_stats(self.device) if self.device is not None else {}
         if "bytes_in_use" in mem:
             row["bytes_in_use"] = mem["bytes_in_use"]
@@ -157,6 +163,8 @@ class PerfLedger:
             "chunk": self.chunk,
             "transport": self.transport,
         }
+        if self.bucket:
+            out["bucket"] = self.bucket
         if self._chunk_walls:
             wall = sum(self._chunk_walls)
             ex: dict[str, Any] = {

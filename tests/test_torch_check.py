@@ -215,17 +215,15 @@ def _not_ported(name, value, item=ITEM_13):
     return ("port.not-ported", "error", pcheck.not_ported_message(name, value, item), "")
 
 
-# label: (make_comp kwargs, the port's findings); each divergence of the
-# module docstring
+# label: (make_comp kwargs, the port's findings, or REF where they are now
+# the reference's); each divergence of the module docstring, and the
+# bucket cases that were divergences until shape buckets were ported
+REF = "the reference's findings"
 DIVERGENCES = {
-    "buckets-mode": (dict(run_cfg={"bucket": "sideways"}),
-                     [_not_ported("bucket", "sideways")]),
-    "buckets-ladder": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "x,y"}),
-                       [_not_ported("bucket", "auto"), _not_ported("bucket_ladder", "x,y")]),
+    "buckets-mode": (dict(run_cfg={"bucket": "sideways"}), REF),
+    "buckets-ladder": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "x,y"}), REF),
     "trace-bucket-disabled": (dict(trace={"instances": "0:1"},
-                                   run_cfg={"bucket": "auto", "bucket_ladder": "16"}),
-                              [_not_ported("bucket", "auto"),
-                               _not_ported("bucket_ladder", "16")]),
+                                   run_cfg={"bucket": "auto", "bucket_ladder": "16"}), REF),
     "pack-solo": (dict(run_cfg={"pack": True}), [_not_ported("pack", True)]),
     "cohort": (dict(run_cfg={"coordinator_address": "127.0.0.1:1", "telemetry": True,
                              "nan_guard": True, "num_processes": 2}),
@@ -237,21 +235,28 @@ DIVERGENCES = {
         dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),
         [("transport.mesh-indivisible", "error", pcheck.pallas_lanes_message(6, 0, 4),
           "default")]),
-    "mesh-indivisible-xla": (
-        dict(count=6, run_cfg={"mesh": "4"}),
-        [("transport.mesh-indivisible", "error",
-          pcheck.mesh_lanes_message("xla", 6, 4, ITEM_13), "default")]),
+    # the dead lanes of the mesh padding: the port runs both, where the
+    # reference runs xla and falls back from auto with a warn
+    "mesh-indivisible-xla": (dict(count=6, run_cfg={"mesh": "4"}), []),
     "mesh-indivisible-auto-cards": (
-        dict(count=6, run_cfg={"transport": "auto", "device": "cuda"}, devices=4),
-        [("transport.mesh-indivisible", "error",
-          pcheck.mesh_lanes_message("auto", 6, 4, ITEM_13), "default")]),
+        dict(count=6, run_cfg={"transport": "auto", "device": "cuda"}, devices=4), []),
 }
 
 
 @pytest.mark.parametrize("label", list(DIVERGENCES))
 def test_divergence_is_the_ports_finding(label):
     kw, want = DIVERGENCES[label]
-    assert findings("torch", **kw) == want
+    got = findings("torch", **kw)
+    if want == REF:
+        want = findings("jax", **kw)
+        assert got, label  # each of these fires a rule
+    elif label == "mesh-indivisible-xla":
+        assert findings("jax", **kw) == []  # the reference runs it too
+    elif label == "mesh-indivisible-auto-cards":
+        # the reference falls back from auto to xla with a warn
+        assert ("transport.mesh-indivisible", "warn") in [
+            f[:2] for f in findings("jax", **kw)]
+    assert got == want
 
 
 def test_mesh_indivisible_is_a_warn_in_the_reference():
@@ -309,9 +314,11 @@ def drive_executor(comp):
 
 _DEFAULTS = pexec.SimTorchConfig()
 # a value away from its default for every unported setting
-_UNPORTED_VALUES = {"bucket": "auto", "bucket_ladder": "32,64", "build_buckets": True,
-                    "pack": True, "coordinator_address": "127.0.0.1:1", "num_processes": 2,
-                    "process_id": 1}
+_UNPORTED_VALUES = {"pack": True, "pack_max": 4, "coordinator_address": "127.0.0.1:1",
+                    "num_processes": 2, "process_id": 1}
+# refused until shape buckets were ported (their cases keep their labels)
+_PORTED_BUCKET_VALUES = {"bucket": "auto", "bucket_ladder": "32,64",
+                         "build_buckets": True}
 
 DRIFT = {
     # the resume-multi-runs rule judges the whole composition, where the
@@ -319,6 +326,10 @@ DRIFT = {
     **{f"matrix-{k}": v[0] for k, v in MATRIX.items()
        if k != "checkpoint-resume-multi-runs"},
     **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _UNPORTED_VALUES.items()},
+    **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _PORTED_BUCKET_VALUES.items()},
+    "ported-bucket-ladder": dict(count=10, run_cfg={"bucket": "auto",
+                                                    "bucket_ladder": "16"}),
+    "buckets-mode-invalid": dict(run_cfg={"bucket": "sideways"}),
     # ported settings: neither the checker nor the executor refuses them
     **{f"ported-{k}": dict(run_cfg={k: v, "transport": "auto"})
        for k, v in {"phases": True, "phases_measure": 3, "transport_probe": 2}.items()},
@@ -660,3 +671,99 @@ def test_the_plan_layer_makes_meta_tensors_only(fixture_plans):
     # words a lane (8 lanes here)
     assert sum(x.numel() * x.element_size() for x in host) < 16384
     assert all(sys.monitoring.get_tool(i) != "tg-check" for i in range(6))
+
+
+# ------------------------------------------- the padded variant (buckets)
+
+_BUCKETED = {"bucket": "auto", "bucket_ladder": "32,64", "max_ticks": 8}
+
+
+@pytest.mark.parametrize("label", list(_port_cases()))
+def test_bucketed_trace_plans_match_jax(label):
+    """``--trace-plans`` of a bucketed run traces the padded variant, the
+    counts as 0-d meta tensors, in both packages: the same findings for
+    every plan case (``benchmarks:barrier`` turns ``n * p`` into a Python
+    int, ``plan.traced-int`` in both)."""
+    plan, case = label.split(":")
+    rc = dict(_BUCKETED)
+    if plan == "additional_hosts":
+        rc["additional_hosts"] = "http-echo"
+    got = {}
+    for pkg, src in (("jax", os.path.join(REF_PLANS, plan)), ("torch", pexec.plan_dir(plan))):
+        comp = make_comp(pkg, plan=plan, case=case, count=16, run_cfg=rc)
+        fs = PKG[pkg]["check"](comp, PKG[pkg]["manifest"](plan), trace_plans=True,
+                               plan_sources=src)
+        got[pkg] = [(f.rule, f.severity) for f in fs]
+    assert got["torch"] == got["jax"]
+    assert got["torch"] == ([("plan.traced-int", "error")] if label == "benchmarks:barrier"
+                            else [])
+
+
+_INT_OF_COUNT = {
+    "jax": "from testground_tpu.sim.api import SimTestcase\n",
+    "torch": "from testground_tpu_torch.sim.api import SimTestcase\n",
+}
+_INT_OF_COUNT_BODY = """
+
+class Count(SimTestcase):
+    def step(self, env, state, inbox, sync, t):
+        if int(env.test_instance_count) > 1:
+            return self.out(state)
+        return self.out(state)
+
+
+sim_testcases = {"count": Count}
+"""
+
+
+@pytest.mark.parametrize("bucket", ["auto", "off"])
+def test_int_of_the_instance_count_is_traced_int_in_both(bucket, tmp_path):
+    """The traced-count contract's teeth: a plan that calls ``int()`` on
+    ``env.test_instance_count`` gets ``plan.traced-int`` under bucketing in
+    both packages, and nothing at exact shapes, where the count is an
+    int."""
+    got = {}
+    for pkg in ("jax", "torch"):
+        d = tmp_path / pkg / "fxcount"
+        d.mkdir(parents=True)
+        (d / "sim.py").write_text(_INT_OF_COUNT[pkg] + _INT_OF_COUNT_BODY)
+        runner = PKG[pkg]["runner"]
+        (d / "manifest.toml").write_text(_manifest("fxcount", ["count"]).replace(
+            "sim:torch", runner))
+        manifest = (JManifest if pkg == "jax" else TestPlanManifest).load_file(
+            str(d / "manifest.toml"))
+        comp = make_comp(pkg, plan="fxcount", case="count", count=4,
+                         run_cfg={"bucket": bucket, "bucket_ladder": "32", "max_ticks": 8})
+        fs = PKG[pkg]["check"](comp, manifest, trace_plans=True, plan_sources=str(d))
+        got[pkg] = [(f.rule, f.severity) for f in fs]
+    assert got["torch"] == got["jax"]
+    assert got["torch"] == ([("plan.traced-int", "error")] if bucket == "auto" else [])
+
+
+# label: (make_comp kwargs, the bucket rule that fires; None for a clean one)
+BUCKET_RULES = {
+    "auto": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "32"}), None),
+    "explicit": (dict(run_cfg={"bucket": "16"}), None),
+    "over-ladder": (dict(count=20, run_cfg={"bucket": "auto", "bucket_ladder": "16"}),
+                    "buckets.over-ladder"),
+    "explicit-over": (dict(count=20, run_cfg={"bucket": "8"}), "buckets.over-ladder"),
+    "mesh-indivisible": (dict(count=8, run_cfg={"mesh": "4", "bucket": "auto",
+                                                "bucket_ladder": "33"}),
+                         "buckets.mesh-indivisible"),
+    "mesh-divisible": (dict(count=8, run_cfg={"mesh": "4", "bucket": "auto",
+                                              "bucket_ladder": "32"}), None),
+    "mode-invalid": (dict(run_cfg={"bucket": "sideways"}), "buckets.mode-invalid"),
+    "ladder-invalid": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "0,4"}),
+                       "buckets.ladder-invalid"),
+}
+
+
+@pytest.mark.parametrize("label", list(BUCKET_RULES))
+def test_bucket_rules_match_jax(label):
+    """The ``buckets.*`` rules fire as the reference's: the executor's
+    ``resolve_buckets`` gate, its refusals and its warnings, word for
+    word."""
+    kw, rule = BUCKET_RULES[label]
+    ref, port = findings("jax", **kw), findings("torch", **kw)
+    assert port == ref
+    assert [f[0] for f in port if f[0].startswith("buckets.")] == ([rule] if rule else [])

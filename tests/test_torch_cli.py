@@ -450,12 +450,18 @@ def test_disabled_runner_is_refused_like_jax(tmp_path):
     assert msgs["torch"] == [m.replace("sim:jax", "sim:torch") for m in msgs["jax"]]
 
 
-@pytest.mark.parametrize("setting,item", [("bucket=auto", "item 13"),
-                                          ("num_processes=2", "item 15b")])
+# the setting, and the ROADMAP item that refuses it; None for bucket=auto,
+# refused until shape buckets were ported, which now runs
+@pytest.mark.parametrize("setting,item", [("bucket=auto", None),
+                                          ("num_processes=2", "item 15b")],
+                         ids=["bucket=auto-item 13", "num_processes=2-item 15b"])
 def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
     rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
                                       "--run-cfg", setting])
+    if item is None:
+        assert rc == 0 and "(outcome: success)" in out, err
+        return
     assert rc == 1 and "(outcome: failure)" in out
     errors = [ln for ln in err.splitlines() if ln.startswith("error: ")]
     assert len(errors) == 1 and f"ROADMAP queue 1 {item}" in errors[0], err
@@ -954,8 +960,11 @@ def test_build_verbs_match_jax(name, tmp_path):
     assert port["written"] == (name == "composition")
 
 
+# argv, and the ROADMAP item that refuses it; None for build --buckets,
+# refused until shape buckets were ported, which now warms the ladder
 UNPORTED_FLAGS = {
-    "build-buckets": (["build", "single", "placebo:ok", "--buckets"], "item 13"),
+    "build-buckets": (["build", "single", "placebo:ok", "--buckets", "--run-cfg",
+                       "bucket_ladder=4,8"], None),
     "collect-local-exec": (["collect", "sometask"], "item 16"),
 }
 
@@ -995,6 +1004,12 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
     argv, item = UNPORTED_FLAGS[name]
     home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
     rc, out, err = _cli(pmain, home, argv)
+    if item is None:
+        assert rc == 0 and "(outcome: success)" in out, err
+        marker = home / "data" / "precompiled" / "buckets-placebo-ok.json"
+        got = json.loads(marker.read_text())
+        assert [b["bucket"] for b in got["buckets"]] == [4, 8] and got["ladder"] == [4, 8]
+        return
     assert rc == 1 and err.startswith("error: ") and f"ROADMAP queue 1 {item}" in err, err
     assert not (home / "data" / "work").exists() or not os.listdir(home / "data" / "work")
 

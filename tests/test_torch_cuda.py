@@ -780,3 +780,70 @@ def test_snapshot_on_the_card_equals_the_cpus_and_resumes_there(cuda):
     last = max(sg)
     for a, b in zip(end["c"][0], sg[last][0]):
         np.testing.assert_array_equal(a, b)
+
+
+# name: (plan, case, instances, params, options): padded runs on the card
+PADDED_GPU_RUNS = {
+    # 60 instances padded into a 128-lane bucket, under every fault kind
+    "sustained-bucketed-faulted": ("network", "pingpong-sustained", 60,
+                                   {"duration_ticks": "48", "reshape_every": "16"},
+                                   {"bucket": 128, "faults": True}),
+    # two groups and a host lane padded to 64 each
+    "hosts-bucketed": ("additional_hosts", "additional_hosts", (20, 24), {},
+                       {"bucket": 64, "hosts": ("http-echo",)}),
+    # 62 instances on a 4-shard virtual mesh on the card: two dead lanes
+    "sustained-mesh-padded": ("network", "pingpong-sustained", 62,
+                              {"duration_ticks": "48", "reshape_every": "16"},
+                              {"mesh": 4}),
+}
+
+
+@pytest.mark.parametrize("name", list(PADDED_GPU_RUNS))
+def test_gpu_padded_run_matches_exact_and_cpu_runs(cuda, name):
+    """A run with dead lanes (a bucket's, or a mesh's padding) on the card:
+    every result equal to the same padded run on the CPU and to the exact
+    run on the card."""
+    from testground_tpu_torch.sim.faults import remap_schedule
+    from testground_tpu_torch.sim.meshplan import TorchMesh
+
+    plan, case, n, params, opts = PADDED_GPU_RUNS[name]
+    counts = (n,) if isinstance(n, int) else n
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    exact = build_groups([RunGroup(id=f"g{i}", instances=c, parameters=params)
+                          for i, c in enumerate(counts)])
+    faults = _faults_for(exact, sum(counts)) if opts.get("faults") else None
+    padded, live = exact, None
+    if opts.get("bucket"):
+        padded = build_groups([RunGroup(id=f"g{i}", instances=opts["bucket"],
+                                        parameters=params) for i in range(len(counts))])
+        live = counts
+        if faults is not None:
+            index = np.concatenate([np.arange(c) + i * opts["bucket"]
+                                    for i, c in enumerate(counts)])
+            faults_p = remap_schedule(faults, index, sum(g.count for g in padded))
+    out = {}
+    for label, device, groups, lc in (("exact", cuda, exact, None),
+                                      ("cpu", "cpu", padded, live),
+                                      ("card", cuda, padded, live)):
+        kw = {"hosts": opts.get("hosts", ())}
+        if faults is not None:
+            kw["faults"] = faults if lc is None else faults_p
+        if opts.get("mesh") and label != "exact":
+            dev = torch.device(device)
+            kw["mesh"] = TorchMesh(devices=(dev,) * opts["mesh"])
+            device = None
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, live_counts=lc, **kw)
+        out[label] = prog.run(seed=1, max_ticks=512)
+    ref = out["exact"]
+    assert (ref["status"] == 1).all()
+    for label in ("cpu", "card"):
+        res = out[label]
+        for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped",
+                  "msgs_rejected", "fault_dropped", "faults_crashed", "faults_restarted"):
+            assert res[k] == ref[k], (label, k)
+        np.testing.assert_array_equal(res["status"], ref["status"])
+        np.testing.assert_array_equal(res["finished_at"], ref["finished_at"])
+        for sr, sp in zip(ref["states"], res["states"]):
+            for k in sr:
+                np.testing.assert_array_equal(sp[k], sr[k], err_msg=f"{label} {k}")

@@ -254,8 +254,18 @@ def _groups(n=4):
     ],
 )
 def test_unported_options_refuse_loudly(tc, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SimProgram(tc(), _groups(), device="cpu", **kw)
+    """``live_counts``, refused until shape buckets were ported: the
+    program builds with the bucket leaf, and what the port still refuses of
+    it — other live counts at ``init_carry`` than the program's, and live
+    counts on a program without a bucket plan — refuses loudly."""
+    prog = SimProgram(tc(), _groups(8), device="cpu", **kw)
+    carry = prog.init_carry(1)
+    assert carry.live_counts.tolist() == [4] and prog.virtual_groups()[0].count == 4
+    assert (carry.status == papi.CRASH).sum() == 4  # the dead lanes
+    with pytest.raises(ValueError, match="differ from the program's bucket plan"):
+        prog.init_carry(1, (3,))
+    with pytest.raises(ValueError, match="exactly when the program was built"):
+        SimProgram(tc(), _groups(), device="cpu").init_carry(1, (4,))
 
 
 def _crash_schedule():

@@ -131,7 +131,7 @@ class _ChaosTraffic(papi.SimTestcase):
     SHAPING = ("latency",)
 
     def init(self, env):
-        n_g = env.group.count
+        n_g = env.group_lanes
         return {"k": torch.zeros(n_g, dtype=torch.int32),
                 "passed": torch.zeros(n_g, dtype=torch.bool)}
 

@@ -467,11 +467,21 @@ def test_meshed_footprint_equals_the_unmeshed_one():
 
 
 def test_indivisible_lanes_refused_with_the_reference_message():
+    """Under ``transport=pallas`` the executor's gate refuses an
+    indivisible lane count with the reference engine's message; the port's
+    engine itself, which runs K1/K2 under every knob, pads such a layout
+    with dead lanes (refused until then) and runs the unmeshed run."""
     with pytest.raises(ValueError) as jerr:
         ge._pingpong_program(30, mesh=jmp.make_mesh("4"), transport="pallas")
     with pytest.raises(ValueError) as perr:
-        _pingpong_port(30, _cpu_mesh(4))
+        pexec.check_mesh_lanes("pallas", 30, 0, 4)
     assert str(perr.value) == str(jerr.value)
+    prog = _pingpong_port(30, _cpu_mesh(4))
+    assert prog.mesh_pad == 2 and prog.n == 32
+    res_m, _ = run_capturing(prog, seed=1, max_ticks=64)
+    res_u, _ = run_capturing(_pingpong_port(30, None), seed=1, max_ticks=64)
+    assert_results_equal(res_u, res_m, "padded mesh")
+    assert (res_m["status"] == 1).all()
     groups = build_groups([RunGroup(id="all", instances=8)])
     with pytest.raises(ValueError, match="not the mesh's primary device"):
         SimProgram(port_program("ping-pong", 8, {}, 8).tc, groups, mesh=_cpu_mesh(4),
@@ -527,13 +537,26 @@ def test_execute_sim_run_on_a_mesh_matches_jax(tmp_path):
 
 def test_executor_mesh_gate(tmp_path):
     """``shard`` on the CPU gives no mesh; an explicit shape a virtual one;
-    a 2-D shape and an indivisible lane count under the XLA transport
-    are refused naming item 13."""
+    an indivisible lane count under the XLA transport (refused until the
+    mesh padding was ported) runs, its journal and run directory the
+    reference's; under pallas it is refused with the reference's message."""
+    from testground_tpu.rpc import discard_writer as jdiscard
+
     assert pexec._make_mesh(True, "", CPU) is None
     assert pexec._make_mesh(False, "4", CPU).size == 4
-    _, _, pjob = _mesh_jobs(tmp_path, "4", n=6)
-    with pytest.raises(NotImplementedError, match="do not divide by 4.*item 13"):
-        pexec.execute_sim_run(pjob, discard_writer(), threading.Event())
+    jjob, jexecute, pjob = _mesh_jobs(tmp_path, "4", n=6)
+    both = []
+    for execute, job, writer in ((jexecute, jjob, jdiscard()),
+                                 (pexec.execute_sim_run, pjob, discard_writer())):
+        out, err = _execute(execute, job, writer, threading.Event())
+        assert err is None
+        both.append((out, _read_tree(f"{job.env.dirs.outputs()}/network/run-mesh")))
+    (jout, jtree), (pout, ptree) = both
+    assert _journal(pout) == _journal(jout)
+    assert pout.result.journal["events"]["all"]["success"] == 6
+    assert sorted(ptree) == sorted(jtree)
+    for rel in jtree:
+        assert ptree[rel] == jtree[rel], rel
     _, _, pjob = _mesh_jobs(tmp_path, "4", transport="pallas", n=6)
     with pytest.raises(ValueError, match="divide across the peer shards"):
         pexec.execute_sim_run(pjob, discard_writer(), threading.Event())

@@ -159,7 +159,7 @@ class _DupRing(papi.SimTestcase):
     DEFAULT_LINK = (2.0, 0.0, 0.0, 0.0, 0.0, 0.0, 50.0)
 
     def init(self, env):
-        return {"received": torch.zeros(env.group.count, dtype=torch.int32)}
+        return {"received": torch.zeros(env.group_lanes, dtype=torch.int32)}
 
     def step(self, env, state, inbox, sync, t):
         n = env.test_instance_count
@@ -184,7 +184,7 @@ class _RuledRing(papi.SimTestcase):
     DEFAULT_LINK = (2.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
 
     def init(self, env):
-        z = torch.zeros(env.group.count, dtype=torch.int32)
+        z = torch.zeros(env.group_lanes, dtype=torch.int32)
         return {"received": z, "rejected": z.clone()}
 
     def step(self, env, state, inbox, sync, t):
@@ -241,7 +241,7 @@ def _rate_change_pair():
         locals().update(statics)
 
         def init(self, env):
-            return {"received": torch.zeros(env.group.count, dtype=torch.int32)}
+            return {"received": torch.zeros(env.group_lanes, dtype=torch.int32)}
 
         def step(self, env, state, inbox, sync, t):
             n = env.test_instance_count

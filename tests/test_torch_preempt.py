@@ -18,7 +18,7 @@ reference's ``tests/test_preempt.py``, on the CPU:
   fail-severity SLO breach wins);
 - bit-equality with real port runs: a preempted, a doubly preempted and an
   evicted run each end equal to the port's uninterrupted run and to the
-  reference's. Run packs' member preemption waits for item 13b.
+  reference's. Run packs' member preemption waits for item 13c.
 """
 
 import json
