@@ -145,7 +145,16 @@ and drives the port's main path through the library entry points
               --trace-plans``; every plan case's syncs, exact against
               padded; device ms and kernels a tick last (see
               ``phase_buckets``)
-22. parity  — sustained, flood and storm at 4,096 instances, the faulted
+22. packs   — run packs: eight sustained tenants at 24,000 … 31,000
+              instances (32,768 lanes each) through an in-process daemon
+              with one worker, against the same eight one after another
+              through ``execute_sim_run``, three rotated turns, each
+              member equal to its serial run; the reference's ping-pong
+              pack smoke at 5 … 29 instances against CPU runs; a straggler
+              and an SLO-canceled member against their isolated runs; the
+              pack against one member alone, peak bytes and a profiled
+              first chunk last (see ``phase_packs``)
+23. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -186,7 +195,8 @@ import torch
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
-          "cli", "daemon", "admit", "observe", "surface", "resume", "buckets", "parity")
+          "cli", "daemon", "admit", "observe", "surface", "resume", "buckets", "packs",
+          "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -2300,7 +2310,8 @@ def phase_cli(card) -> dict:
 
 # ---------------------------------------------------------------- daemon
 
-DAEMON_TURNS = 3
+# two turns (three before phase packs joined the script's time budget)
+DAEMON_TURNS = 2
 # a composition of one group, with {n}, {chunk}, {max_ticks}, {cfg} (more
 # run-config lines), {params} and {faults} ([[global.run.faults]] blocks)
 DAEMON_COMPOSITION = """[metadata]
@@ -2695,8 +2706,10 @@ ADMIT_REFUSED = {
                                   "kind": "partition", "instances": "0:50000",
                                   "to_instances": "50000:100000", "start_ms": 100.0,
                                   "duration_ms": -50.0}])),
-    # run packs: still refused (item 13c); a bucket mode the gate refuses
-    "pack": ("port.not-ported", lambda c: c["global"]["run_config"].update(pack=True)),
+    # a run pack on a mesh: still refused (item 13d); a bucket mode the
+    # gate refuses
+    "pack-on-mesh": ("port.not-ported",
+                     lambda c: c["global"]["run_config"].update(pack=True, mesh="2")),
     "bucket-sideways": ("buckets.mode-invalid",
                         lambda c: c["global"]["run_config"].update(bucket="sideways")),
 }
@@ -2729,7 +2742,7 @@ def phase_admit(card) -> dict:
     """Admission at submit and the perf ledger on the card: (a) an
     in-process ``Daemon`` on the card with one worker refuses cli@100k's
     composition with an SLO and no telemetry, an unknown transport, an
-    inverted fault window, ``pack = true`` (run packs, item 13c) and
+    inverted fault window, ``pack = true`` on a mesh (item 13d) and
     ``bucket = "sideways"``: a 422 naming the rule,
     no task, one ``task.refused`` event, no device memory allocated; (b)
     admits cli@100k's own composition, which launches K1 and K2 every tick
@@ -3325,7 +3338,8 @@ def phase_observe(card) -> dict:
 
 # ------------------------------------------------------------ surface
 
-SURFACE_TURNS = 3
+# two turns (three before phase packs joined the script's time budget)
+SURFACE_TURNS = 2
 SURFACE_WAYS = ("alone", "metrics", "dashboard")
 # the sustained plan at 1M instances under a 512 MiB budget: its carry
 # (321 MiB) × the executor's 2.5 headroom does not fit
@@ -3416,7 +3430,7 @@ def phase_surface(card) -> dict:
     daemon's ``/metrics`` (format 0.0.4, the run's flow identity, Σ
     ``tg_fleet_tasks`` = ``tg_scrape_tasks_total``), ``/``, ``/dashboard``,
     the run's page and ``/data`` (its rows = the viewer's); (d) cli@100k's
-    composition through an in-process ``Daemon`` (one worker) in three
+    composition through an in-process ``Daemon`` (one worker) in two
     rotated turns alone, under a process GETting ``/metrics`` every second
     and under one GETting the run's dashboard page every second: run
     ms/tick of each; then a turn's page and ``/data`` rows against the
@@ -4399,6 +4413,350 @@ def phase_buckets(card) -> dict:
     return row
 
 
+# phase packs: eight sustained tenants, one bucket of the default ladder
+# (32,768 lanes each, 262,144 in the pack, 16% of them dead)
+PACK_SIZES = (24_000, 25_000, 26_000, 27_000, 28_000, 29_000, 30_000, 31_000)
+PACK_TURNS = 3
+# the reference's pack smoke: eight ping-pong tenants in one rung of 32
+PACK_SMOKE_SIZES = (5, 9, 13, 17, 21, 25, 29, 24)
+PACK_SMOKE_LADDER = (32, 64)
+PACK_PINGPONG = {"latency_ms": "4", "latency2_ms": "2", "tolerance_ms": "15"}
+
+
+def pack_profile(prog, members, wall_ms_per_tick) -> dict:
+    """``device_profile`` of a pack: device kernel time and kernels a tick
+    over one chunk of ``PackRunner(prog, len(members))``, the busy share
+    against ``wall_ms_per_tick`` and the transport kernels' ms a launch at
+    the packed shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from testground_tpu_torch.sim.pack import PackRunner
+
+    runner = PackRunner(prog, len(members))
+    ticks = prog.chunk
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runner.run(members)
+        torch.cuda.synchronize()
+    rows = [r for r in _device_rows(prof) if r[1] > 0]
+    total_ms = sum(r[1] for r in rows) / 1e3 / ticks
+    return {
+        "profiled_ticks": ticks,
+        "device_ms_per_tick": total_ms if rows else None,
+        "device_busy_share": total_ms / wall_ms_per_tick if rows else None,
+        "kernels_per_tick": sum(r[2] for r in rows) / ticks if rows else None,
+        "transport_kernel_ms": {k.split("(")[0]: us / 1e3 / calls for k, us, calls in rows
+                                if k.startswith(TRANSPORT_KERNELS)},
+    }
+
+
+def phase_packs(card) -> dict:
+    """Run packs on the card (``sim/pack.py``, ``engine/pack.py``):
+
+    1. pack8@sustained: eight ``network:pingpong-sustained`` tenants at
+       24,000 … 31,000 instances (phase 4's parameters, ``bucket =
+       "auto"``: 32,768 lanes each, ``pack = true``, telemetry, chunk 250)
+       submitted to an in-process daemon with one worker while a CPU run
+       holds it, so one claim takes all eight; against the same eight runs
+       one after another through ``execute_sim_run``, in three rotated
+       turns. Every member's journal (flow totals, latency, telemetry and
+       events blocks) and telemetry stream equals its serial run's, and
+       journals ``sim.pack.members`` = 8. Wall ms/tick of the pack (the
+       run loop's ``sim.wall_secs``), and aggregate live peer·ticks/s of
+       the pack against the serial eight;
+    2. the reference's pack smoke on the card: eight ping-pong tenants at
+       5 … 29 instances in one rung of 32, each SUCCESS at its exact N and
+       equal to its CPU run;
+    3. a straggler: two sustained tenants at 4,000 instances, the first
+       one's own budget ending after one chunk, each equal to its isolated
+       card run with that budget; an SLO cancel: two tenants
+       through ``execute_packed_sim_runs``, one of them with a
+       fail-severity rule, which fails alone equal to its isolated run's
+       breach;
+    4. last, after every wall clock: the pack's peak device bytes against
+       one member alone's over one chunk, and a first chunk of 64 ticks
+       profiled, the pack against one member alone: device ms and kernels
+       a tick, the busy share, K1's and K2's ms a launch at the packed
+       shape."""
+    import shutil
+    import tempfile
+    import threading
+
+    from testground_tpu_torch.api import load_composition
+    from testground_tpu_torch.client import Client
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.daemon import Daemon
+    from testground_tpu_torch.rpc import discard_writer
+    from testground_tpu_torch.sim.buckets import DEFAULT_LADDER
+    from testground_tpu_torch.sim.executor import execute_packed_sim_runs
+    from testground_tpu_torch.sim.pack import PackMember, PackRunner
+    from testground_tpu_torch.sim.slo import SloBreachError
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_packs_")
+    launches = dict.fromkeys(KERNELS + SHARDED_KERNELS, 0)
+    row = {"phase": "packs", "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def counted(label):
+        got = read_launches(KERNELS + SHARDED_KERNELS)
+        check(all(got[k] > 0 for k in KERNELS), f"packs {label}: launches {got}")
+        for k, v in got.items():
+            launches[k] += v
+        return got
+
+    def same_journal(label, ja, jb):
+        keys = [k for k in ja["sim"] if k.startswith(("msgs_", "faults_"))]
+        diff = [k for k in keys + ["ticks", "latency", "pub_dropped"]
+                if ja["sim"].get(k) != jb["sim"].get(k)]
+        diff += [k for k in ("telemetry", "events") if ja.get(k) != jb.get(k)]
+        check(not diff, f"packs {label}: the journals differ in {diff}")
+
+    env = EnvConfig.load(home=cli_home(root, "daemon"))
+    env.daemon.scheduler.workers = 1
+    daemon = Daemon(env=env, listen="127.0.0.1:0")
+    daemon.start()
+    client = Client(daemon.address)
+    try:
+        # 1. pack8@sustained through the daemon against the serial eight
+        def blocker(i):
+            # a CPU run holds the one worker while the eight are queued: it
+            # launches no kernel, so the counts below are the pack's alone
+            comp = load_composition(daemon_composition(
+                root, f"hold-{i}", 1000, SUSTAINED,
+                cfg='device = "cpu"\ndebug_chunk_sleep_ms = 500\n')).to_dict()
+            return client.run(comp)
+
+        def pack_turn(i):
+            hold = blocker(i)
+            reset_launches()
+            tids = []
+            for k, n in enumerate(PACK_SIZES):
+                comp = load_composition(daemon_composition(
+                    root, f"pack-{i}-{k}", n, SUSTAINED,
+                    cfg=f'bucket = "auto"\npack = true\nseed = {k}\n')).to_dict()
+                tids.append(client.run(comp))
+            # polled every 0.25 s: a 10 ms poller's HTTP thread takes the
+            # GIL from the launching worker (phase daemon's daemon_polled_10ms)
+            _wait_done(client, hold, 120, poll_s=0.25)
+            for tid in tids:
+                _wait_done(client, tid, 600, poll_s=0.25)
+            torch.cuda.synchronize()
+            got = counted(f"pack turn {i}")
+            tasks = [daemon.engine.get_task(t) for t in tids]
+            for t, n in zip(tasks, PACK_SIZES):
+                check(t.outcome().value == "success", f"packs member {t.id}: {t.error}")
+                sim = t.result["journal"]["sim"]
+                check(sim["pack"]["members"] == 8 and sim["pack"]["width"] == 8,
+                      f"packs: member {t.id} pack block {sim['pack']}")
+                check(t.result["journal"]["events"]["all"]["success"] == n,
+                      f"packs: member {t.id} events {t.result['journal']['events']}")
+            journals = [t.result["journal"] for t in tasks]
+            claimed = [t.states[1].created for t in tasks]
+            ended = [t.states[-1].created for t in tasks]
+            dirs = [os.path.join(env.dirs.outputs(), "network", t) for t in tids]
+            return {"journals": journals, "dirs": dirs,
+                    "wall": journals[0]["sim"]["wall_secs"],
+                    "ticks": [j["telemetry"]["rows"] for j in journals], "launches": got,
+                    # the claim to the last archive, in the store's stamps
+                    "claim_to_done_s": max(ended) - min(claimed),
+                    "steady": [j["sim"]["perf"]["execute"]["steady_peer_ticks_per_sec"]
+                               for j in journals]}
+
+        def serial_turn(i):
+            journals, dirs, walls, ticks = [], [], [], []
+            for k, n in enumerate(PACK_SIZES):
+                out, _, rd = run_exec(exec_job(
+                    f"serial-{i}-{k}", root, "network", "pingpong-sustained", n, SUSTAINED,
+                    chunk=250, max_ticks=10_000, telemetry=True, bucket="auto", seed=k))
+                counted(f"serial {i}-{k}")
+                check(out.result.outcome.value == "success", f"packs serial {k}: outcome")
+                journals.append(out.result.journal)
+                dirs.append(rd)
+                walls.append(out.result.journal["sim"]["wall_secs"])
+                ticks.append(out.result.journal["telemetry"]["rows"])
+            return {"journals": journals, "dirs": dirs, "wall": sum(walls),
+                    "walls": walls, "ticks": ticks,
+                    "steady": [j["sim"]["perf"]["execute"]["steady_peer_ticks_per_sec"]
+                               for j in journals]}
+
+        turns = {"pack": [], "serial": []}
+        for i in range(PACK_TURNS):
+            for way in (("pack", "serial") if i % 2 == 0 else ("serial", "pack")):
+                turns[way].append(pack_turn(i) if way == "pack" else serial_turn(i))
+        for p, q in zip(turns["pack"], turns["serial"]):
+            for k in range(len(PACK_SIZES)):
+                same_journal(f"member {k}", q["journals"][k], p["journals"][k])
+                check(_series(q["dirs"][k]) == _series(p["dirs"][k]),
+                      f"packs member {k}: the telemetry streams differ")
+        live = np.asarray(PACK_SIZES, np.float64)
+
+        def rate(t):
+            return float((live * np.asarray(t["ticks"])).sum() / t["wall"])
+
+        def steady_rate(t, packed):
+            # the perf ledger's rate over each run's chunks after its first:
+            # a pack's members share its chunk walls; the serial eight take
+            # one another's time
+            if packed:
+                return float(sum(t["steady"]))
+            return float((live * np.asarray(t["ticks"])).sum() / sum(
+                n * tk / r for n, tk, r in zip(live, t["ticks"], t["steady"])))
+
+        pack_rates = [rate(t) for t in turns["pack"]]
+        serial_rates = [rate(t) for t in turns["serial"]]
+        pack_steady = [steady_rate(t, True) for t in turns["pack"]]
+        serial_steady = [steady_rate(t, False) for t in turns["serial"]]
+        pack_ms = [t["wall"] / max(t["ticks"]) * 1e3 for t in turns["pack"]]
+        member_ms = [w / tk * 1e3 for t in turns["serial"]
+                     for w, tk in zip(t["walls"], t["ticks"])]
+        padded = turns["pack"][0]["journals"][0]["sim"]["bucket"]["padded_instances"]
+        row["pack8_sustained"] = {
+            "sizes": list(PACK_SIZES), "lanes": len(PACK_SIZES) * padded,
+            "ticks": turns["pack"][0]["ticks"],
+            "pack_wall_ms_per_tick": pack_ms,
+            "median_pack_wall_ms_per_tick": statistics.median(pack_ms),
+            "serial_member_wall_ms_per_tick": statistics.median(member_ms),
+            "pack_live_peer_ticks_per_s": pack_rates,
+            "serial_live_peer_ticks_per_s": serial_rates,
+            "aggregate_ratio": statistics.median(pack_rates) / statistics.median(
+                serial_rates),
+            "resolved": min(pack_rates) > max(serial_rates),
+            "pack_steady_peer_ticks_per_s": pack_steady,
+            "serial_steady_peer_ticks_per_s": serial_steady,
+            "steady_ratio": statistics.median(pack_steady) / statistics.median(
+                serial_steady),
+            "pack_claim_to_done_s": [t["claim_to_done_s"] for t in turns["pack"]],
+            "pack_launches": turns["pack"][0]["launches"],
+        }
+        check(row["pack8_sustained"]["aggregate_ratio"] > 1.0,
+              f"packs: the pack is no faster {row['pack8_sustained']}")
+        step("pack8")
+
+        # 2. the reference's pack smoke: ping-pong tenants at 5 … 29
+        prog = program("ping-pong", 32, PACK_PINGPONG, chunk=32, telemetry=True,
+                       ladder=PACK_SMOKE_LADDER)
+        from testground_tpu_torch.sim.buckets import plan_buckets
+
+        lcs = [plan_buckets([n], "auto", PACK_SMOKE_LADDER).live_counts
+               for n in PACK_SMOKE_SIZES]
+        reset_launches()
+        packed = PackRunner(prog, 8).run([
+            PackMember(seed=k, live_counts=lc, max_ticks=2048) for k, lc in enumerate(lcs)])
+        torch.cuda.synchronize()
+        counted("ping-pong pack")
+        for k, (n, res) in enumerate(zip(PACK_SMOKE_SIZES, packed)):
+            check(res["status"].shape == (n,) and bool((res["status"] == 1).all()),
+                  f"packs ping-pong member {k}: status {res['status']}")
+            cpu = program("ping-pong", n, PACK_PINGPONG, chunk=32, telemetry=True,
+                          ladder=PACK_SMOKE_LADDER, device="cpu").run(seed=k,
+                                                                      max_ticks=2048)
+            same_results(f"packs ping-pong member {k}", cpu, res)
+        row["pingpong_smoke"] = {"sizes": list(PACK_SMOKE_SIZES),
+                                 "ticks": [int(r["ticks"]) for r in packed]}
+        step("smoke")
+
+        # 3. a straggler (its own budget ends first) and an SLO cancel
+        m = 4000
+        sprog = program("pingpong-sustained", m, SUSTAINED, chunk=250, telemetry=True,
+                        ladder=DEFAULT_LADDER)
+        lc = plan_buckets([m], "auto", DEFAULT_LADDER).live_counts
+        budgets = (250, 10_000)
+        reset_launches()
+        packed = PackRunner(sprog, 2).run([PackMember(seed=k, live_counts=lc, max_ticks=b)
+                                           for k, b in enumerate(budgets)])
+        torch.cuda.synchronize()
+        counted("straggler pack")
+        for k, (b, res) in enumerate(zip(budgets, packed)):
+            iso = program("pingpong-sustained", m, SUSTAINED, chunk=250, telemetry=True,
+                          ladder=DEFAULT_LADDER).run(seed=k, max_ticks=b)
+            same_results(f"packs straggler member {k}", iso, res)
+        check(packed[0]["ticks"] == 250 and packed[1]["ticks"] > 250,
+              f"packs straggler: ticks {[r['ticks'] for r in packed]}")
+        slo = [{"name": "impossible", "metric": "delivered_per_tick", "op": ">",
+                "threshold": 1e9, "severity": "fail"}]
+
+        def slo_job(rid, k, rules):
+            return exec_job(rid, root, "network", "pingpong-sustained", m, SUSTAINED,
+                            chunk=250, max_ticks=10_000, telemetry=True, bucket="auto",
+                            pack=True, seed=k, slo=rules)
+
+        reset_launches()
+        jobs = [slo_job("slo-pack-0", 0, slo), slo_job("slo-pack-1", 1, None)]
+        outs = execute_packed_sim_runs(jobs, [discard_writer()] * 2,
+                                       [threading.Event(), threading.Event()])
+        torch.cuda.synchronize()
+        counted("slo pack")
+        check(isinstance(outs[0], SloBreachError)
+              and outs[1].result.outcome.value == "success",
+              f"packs slo: {outs}")
+        try:
+            run_exec(slo_job("slo-solo-0", 0, slo))
+            check(False, "packs slo: the isolated run did not breach")
+        except SloBreachError as e:
+            iso = e
+        counted("slo solo")
+        same_journal("slo member", iso.run_output.result.journal,
+                     outs[0].run_output.result.journal)
+        check(iso.run_output.result.journal["slo"]["breaches"]
+              == outs[0].run_output.result.journal["slo"]["breaches"],
+              "packs slo: the breaches differ")
+        slo_dirs = [os.path.join(jobs[0].env.dirs.outputs(), "network", r)
+                    for r in ("slo-solo-0", "slo-pack-0")]
+        check(_series(slo_dirs[0]) == _series(slo_dirs[1]),
+              "packs slo: the telemetry streams differ")
+        row["straggler"] = {"budgets": list(budgets),
+                            "ticks": [int(r["ticks"]) for r in packed]}
+        row["slo_cancel"] = {"ticks": outs[0].run_output.result.journal["sim"]["ticks"],
+                             "other_ticks": outs[1].result.journal["sim"]["ticks"]}
+        step("straggler_slo")
+
+        # 4. last: peak bytes, then the first 64 ticks profiled
+        lc8 = [plan_buckets([n], "auto", DEFAULT_LADDER).live_counts for n in PACK_SIZES]
+
+        def pack_prog(chunk):
+            return program("pingpong-sustained", PACK_SIZES[0], SUSTAINED, chunk=chunk,
+                           telemetry=True, ladder=DEFAULT_LADDER)
+
+        def members(ticks):
+            return [PackMember(seed=k, live_counts=lc, max_ticks=ticks)
+                    for k, lc in enumerate(lc8)]
+
+        peaks = {}
+        for way in ("pack", "member"):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            if way == "pack":
+                PackRunner(pack_prog(64), 8).run(members(64))
+            else:
+                pack_prog(64).run(seed=0, max_ticks=64)
+            torch.cuda.synchronize()
+            counted(f"peak {way}")
+            peaks[way] = torch.cuda.max_memory_allocated() - held
+        p8 = row["pack8_sustained"]
+        prof = {
+            "pack": pack_profile(pack_prog(64), members(64),
+                                 p8["median_pack_wall_ms_per_tick"]),
+            "member": device_profile(pack_prog(64), ticks=64, wall_ms_per_tick=p8[
+                "serial_member_wall_ms_per_tick"], host_ops=False),
+        }
+        kp, km = prof["pack"]["kernels_per_tick"], prof["member"]["kernels_per_tick"]
+        row["profiled"] = prof
+        row["peak_bytes"] = {**peaks, "ratio": peaks["pack"] / peaks["member"]}
+        row["kernels_ratio"] = kp / km if kp and km else None
+        step("profiled")
+    finally:
+        daemon.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    row["launches"] = launches
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -4516,7 +4874,7 @@ def main(argv=None) -> int:
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
                    ("admit", phase_admit), ("observe", phase_observe),
                    ("surface", phase_surface), ("resume", phase_resume),
-                   ("buckets", phase_buckets)):
+                   ("buckets", phase_buckets), ("packs", phase_packs)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

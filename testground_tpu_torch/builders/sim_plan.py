@@ -105,9 +105,10 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
     ``init_carry`` and one chunk on the run's device. The reference's
     skips apply: a cohort config, a rung below the composition's counts, a
     rung that does not divide across the mesh's peer shards, and a rung
-    the memory precheck refuses (each rung is best-effort). The
-    pack-width warm is run packs' (item 13c) and is skipped with a
-    warning. Returns the marker's ``buckets`` rows."""
+    the memory precheck refuses (each rung is best-effort). With ``pack``
+    each rung also warms the power-of-two pack widths up to ``pack_max``
+    (``_warm_pack_widths``; a pack on a mesh is item 13d). Returns the
+    marker's ``buckets`` rows."""
     import json
     import time
 
@@ -195,11 +196,8 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
         warmed.append({"bucket": rung, "compile_secs": secs})
         ow.infof("sim:plan bucket %d warmed in %.1fs (%s:%s)", rung, secs,
                  comp.global_.plan, comp.global_.case)
-        if pack_on:
-            ow.warn(
-                "bucket %d pack-width warmup skipped: run packs are not "
-                "ported yet: ROADMAP queue 1 item 13c (run packs)", rung,
-            )
+        if pack_on and mesh is None:
+            _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow)
     if warmed:
         marker = bucket_marker_path(env, comp.global_.plan, comp.global_.case)
         os.makedirs(os.path.dirname(marker), exist_ok=True)
@@ -207,3 +205,44 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
             json.dump({"plan": comp.global_.plan, "case": comp.global_.case,
                        "ladder": list(ladder), "buckets": warmed}, f)
     return warmed
+
+
+def _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow) -> None:
+    """Warm the pack-width ladder of one rung (``sim_plan.py:737-790``):
+    each power-of-two width up to ``pack_max`` runs ``init`` and one chunk
+    of the packed program on the run's device, bounded to packs whose lanes
+    stay inside a full pack of the smallest rung (the serving envelope
+    packs are for). Each width is best-effort, and each warmed width is a
+    marker row with the reference's keys."""
+    import time
+
+    from ..sim.engine import device_context
+    from ..sim.pack import PackMember, PackRunner, pack_width
+
+    pack_max = int(getattr(cfg, "pack_max", 8) or 8)
+    lane_budget = pack_max * ladder[0]
+    w = 2
+    while w <= pack_width(pack_max, pack_max):
+        if w * rung > lane_budget:
+            break  # packed lanes past the serving envelope
+        t1 = time.perf_counter()
+        try:
+            with device_context(prog.device):
+                PackRunner(prog, w).run([
+                    PackMember(seed=int(cfg.seed), live_counts=tuple(counts),
+                               max_ticks=prog.chunk)
+                    for _ in range(w)
+                ])
+                if prog.device.type == "cuda":
+                    import torch
+
+                    torch.cuda.synchronize(prog.device)
+        except Exception as e:  # noqa: BLE001 — per-width best-effort
+            ow.warn("bucket %d pack width %d warmup failed (skipped): %s",
+                    rung, w, e)
+            w *= 2
+            continue
+        psecs = round(time.perf_counter() - t1, 3)
+        warmed.append({"bucket": rung, "pack_width": w, "compile_secs": psecs})
+        ow.infof("sim:plan bucket %d pack-width %d warmed in %.1fs", rung, w, psecs)
+        w *= 2

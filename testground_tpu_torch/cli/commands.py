@@ -24,7 +24,8 @@ again with ``resume_from`` at its own run), ``preempt`` and ``terminate
 The reference's flags and verbs that later ROADMAP queue 1 items port are
 refused naming the item: ``collect``'s default runner ``local:exec`` (item
 16). ``build --buckets`` warms the shape-bucket ladder on the run's device
-(``builders/sim_plan.warm_bucket_ladder``); its pack-width warm is item 13c. A verb the port does not register
+(``builders/sim_plan.warm_bucket_ladder``), and with ``pack`` the pack
+widths of each rung. A verb the port does not register
 (``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
 """
 

@@ -21,9 +21,11 @@ snapshot), priority eviction at queue time (``_maybe_evict_for``, policy
 the running runs, cancel the builds, wait for the workers to park), with
 their counters in ``fleet_info`` and ``fleet_payload``.
 
-Left out, with the ROADMAP queue 1 item that ports it: run packs (item
-13c) — so the fleet view's ``pack.running`` is ``{}`` and the pack
-counters are 0.
+Run packs (``engine/pack.py``, ``supervisor.process_task_pack``): the
+fleet's pack counters (``fleet_note_pack``, ``fleet_note_solo``,
+``fleet_pack_done``) feed ``fleet_info``'s ``pack`` block (the
+``tg_fleet_pack_*`` families) and ``fleet_payload``'s running packs and
+per-task ``pack_width``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ __all__ = ["Engine", "EngineConfig"]
 # log2 µs bins of the fleet's queue-wait and claim-latency histograms (the
 # reference's ``sync/stats.py`` TIME_BINS and time_bin)
 TIME_BINS = 20
+
+
+# distinct solo reasons the fleet counts before folding the rest into
+# "other" (a bounded label set for tg_fleet_pack_solo_total)
+_FLEET_SOLO_REASONS_MAX = 32
 
 
 def time_bin(us: float) -> int:
@@ -110,6 +117,10 @@ class Engine:
         self._queue_wait_total_us = 0
         self._claim_latency_bins = [0] * TIME_BINS
         self._claim_latency_total_us = 0
+        self._pack_packed_total = 0  # admissions that packed >= 2 runs
+        self._pack_packed_runs_total = 0  # member runs admitted via packs
+        self._pack_solo: dict[str, int] = {}  # solo_reason -> count
+        self._running_packs: dict[str, int] = {}  # leader task id -> width
         self._fleet_refused = 0  # compositions refused at submit
         self._fleet_preemptions = 0  # preempted runs requeued
         self._fleet_evictions = 0  # preemptions caused by priority arrivals
@@ -474,25 +485,41 @@ class Engine:
     def drain(self, timeout_secs: float = 30.0) -> dict:
         """Graceful drain: stop claiming, preempt the running RUN tasks (a
         checkpointed one requeues to resume, the rest to rerun), cancel
-        the running builds, then wait — bounded — for every worker to park.
-        Idempotent; journals ``daemon.drain``."""
+        the running builds, then wait — bounded — until no task is claimed
+        and every worker is parked. Idempotent; journals ``daemon.drain``."""
         already = self._draining.is_set()
         self._draining.set()
         self._queue_kick.set()
         preempted: list[str] = []
         canceled: list[str] = []
-        for tsk in self.storage.processing():
-            if tsk.type == TaskType.RUN:
-                if self.preempt(tsk.id).get("ok"):
-                    preempted.append(tsk.id)
-            elif self.kill(tsk.id):
-                canceled.append(tsk.id)
+        seen: set[str] = set()
+
+        def stop_claimed() -> bool:
+            """Preempt or cancel every claimed task not yet seen; True
+            while any is still claimed. A worker's pop stamps its task
+            PROCESSING before the worker enters ``_worker_task`` (and a
+            pack claims its members in between), so the store's current
+            bucket, not the worker map, is the record of what is
+            claimed; a pop that raced the drain flag shows up here too."""
+            claimed = self.storage.processing()
+            for tsk in claimed:
+                if tsk.id in seen:
+                    continue
+                seen.add(tsk.id)
+                if tsk.type == TaskType.RUN:
+                    if self.preempt(tsk.id).get("ok"):
+                        preempted.append(tsk.id)
+                elif self.kill(tsk.id):
+                    canceled.append(tsk.id)
+            return bool(claimed)
+
+        stop_claimed()
         deadline = time.monotonic() + max(0.0, timeout_secs)
         drained = False
         while True:
             with self._fleet_lock:
                 busy = any(t for t in self._worker_task.values())
-            if not busy:
+            if not stop_claimed() and not busy:
                 drained = True
                 break
             if time.monotonic() >= deadline:
@@ -669,6 +696,29 @@ class Engine:
             self._claim_latency_bins[time_bin(claim_us)] += 1
             self._claim_latency_total_us += int(claim_us)
 
+    def fleet_note_pack(self, leader_id: str, width: int) -> None:
+        """Supervisor hook: a pack claim admitted ``width`` runs."""
+        with self._fleet_lock:
+            self._pack_packed_total += 1
+            self._pack_packed_runs_total += width
+            self._running_packs[leader_id] = width
+
+    def fleet_note_solo(self, reason: str) -> None:
+        """Supervisor hook: a pack-eligible run went solo; count by
+        reason (bounded label set)."""
+        reason = reason or "none"
+        with self._fleet_lock:
+            if (
+                reason not in self._pack_solo
+                and len(self._pack_solo) >= _FLEET_SOLO_REASONS_MAX
+            ):
+                reason = "other"
+            self._pack_solo[reason] = self._pack_solo.get(reason, 0) + 1
+
+    def fleet_pack_done(self, leader_id: str) -> None:
+        with self._fleet_lock:
+            self._running_packs.pop(leader_id, None)
+
     def fleet_info(self) -> dict:
         """Counter snapshot for the Prometheus ``tg_fleet_*`` family
         (metrics/prometheus.py renders it; task-store gauges are
@@ -682,8 +732,11 @@ class Engine:
                 "queue_wait_total_us": self._queue_wait_total_us,
                 "claim_latency_bins": list(self._claim_latency_bins),
                 "claim_latency_total_us": self._claim_latency_total_us,
-                # run packs come with item 13c
-                "pack": {"packed": 0, "packed_runs": 0, "solo": {}},
+                "pack": {
+                    "packed": self._pack_packed_total,
+                    "packed_runs": self._pack_packed_runs_total,
+                    "solo": dict(self._pack_solo),
+                },
                 "preemptions": self._fleet_preemptions,
                 "evictions": self._fleet_evictions,
                 "refused": self._fleet_refused,
@@ -742,6 +795,7 @@ class Engine:
         outputs = self.env.dirs.outputs()
         with self._fleet_lock:
             worker_task = dict(self._worker_task)
+            running_packs = dict(self._running_packs)
             n_workers = max(len(self._workers), len(self._worker_task))
         for tsk in all_tasks:
             st = tsk.state().state
@@ -766,7 +820,7 @@ class Engine:
                 row["running_secs"] = round(
                     max(0.0, now - tsk.state().created), 3
                 )
-                row["pack_width"] = 0  # run packs come with item 13c
+                row["pack_width"] = running_packs.get(tsk.id, 0)
                 run_dir = os.path.join(outputs, tsk.plan, tsk.id)
                 perf = self._tail_last_row(
                     os.path.join(run_dir, "sim_perf.jsonl")
@@ -793,7 +847,7 @@ class Engine:
             },
             "counts": counts,
             "tasks_total": len(all_tasks),
-            "pack": {"running": {}},
+            "pack": {"running": running_packs},
             "tasks": rows,
         }
 

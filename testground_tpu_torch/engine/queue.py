@@ -1,6 +1,6 @@
 """Persistent priority queue for tasks — the port's copy of the reference's
-``testground_tpu/engine/queue.py``, without ``claim_matching``, the run
-packs' claim (ROADMAP queue 1 item 13c).
+``testground_tpu/engine/queue.py``, with ``claim_matching``, the run packs'
+claim.
 
 Twin of ``pkg/task/queue.go``: an in-memory heap ordered by
 priority (descending) then creation time (FIFO), write-through to storage, a
@@ -124,6 +124,31 @@ class TaskQueue:
             )
             self._storage.persist_processing(tsk)
             return tsk
+
+    def claim_matching(self, match, limit: int) -> list[Task]:
+        """Pop up to ``limit`` queued tasks satisfying ``match(task)``, in
+        heap order (priority desc, then FIFO) — the pack-admission claim
+        (``engine/pack.py``). Each claimed task transitions to PROCESSING
+        exactly like :meth:`pop`; the caller owns its lifecycle from here."""
+        if limit <= 0:
+            return []
+        claimed: list[Task] = []
+        with self._lock:
+            keep: list[_Entry] = []
+            # heap order = sorted entries (priority desc, FIFO)
+            for e in sorted(self._heap):
+                if len(claimed) < limit and match(e.task):
+                    e.task.states.append(
+                        DatedState(state=State.PROCESSING, created=time.time())
+                    )
+                    self._storage.persist_processing(e.task)
+                    claimed.append(e.task)
+                else:
+                    keep.append(e)
+            if claimed:
+                self._heap = keep
+                heapq.heapify(self._heap)
+        return claimed
 
     def cancel_queued(self, task_id: str) -> bool:
         """Cancel a still-queued task by id (used by the engine's kill path

@@ -12,11 +12,20 @@ by another worker thread launches on its card there too.
 
 A preempted run (``engine.controller.TaskPreemptedError``) is requeued by
 ``_requeue_preempted`` pointing at its own snapshots; a draining engine's
-workers stop claiming. Left out, with the ROADMAP queue 1 item that ports
-each: run packs, their claim and pack-member preemption (item 13c), and
-the build task's precompile, which fills the reference's XLA compile cache
-(the port has no such cache; ``build --buckets`` warms the bucket ladder
-on the run's device instead).
+workers stop claiming.
+
+Run packs (``engine/pack.py``, ``sim/pack.py``): a popped task that opted
+into packing claims every queued compatible run (``claim_pack``), and the
+pack runs as one program on the card (``process_task_pack``). Each member
+keeps its own log, cancel event, timer, result and archive; a member whose
+preparation or collection fails fails alone, and a pack that shrinks below
+two members runs its survivor solo. A preempted or evicted member stops at
+the next chunk boundary and is requeued to rerun from scratch (a pack
+writes no snapshots).
+
+Left out: the build task's precompile, which fills the reference's XLA
+compile cache (the port has no such cache; ``build --buckets`` warms the
+bucket ladder and the pack widths on the run's device instead).
 """
 
 from __future__ import annotations
@@ -46,17 +55,30 @@ from ..tracectx import new_span_id, new_trace_id
 from .controller import TaskPreemptedError
 from .engine import Engine
 from .notify import notify_task_finished, notify_task_started
+from .pack import _truthy
 from .queue import QueueEmptyError
 from .task import DatedState, Outcome, State, Task, TaskType
 from .tracetree import export_task_trace
 
-__all__ = ["do_build", "do_build_task", "do_run", "process_task", "worker"]
+__all__ = [
+    "do_build",
+    "do_build_task",
+    "do_run",
+    "process_task",
+    "process_task_pack",
+    "worker",
+]
 
 DEFAULT_TASK_TIMEOUT_SECS = 10 * 60  # supervisor.go:49-52
 
 
 def worker(engine: Engine, idx: int) -> None:
-    """One worker loop (``supervisor.go:47-190``)."""
+    """One worker loop (``supervisor.go:47-190``). A popped task that opted
+    into run packing (``--run-cfg pack=true``) also claims every queued
+    compatible run; the whole pack then runs as one program
+    (``engine/pack.py``, ``sim/pack.py``)."""
+    from .pack import claim_pack
+
     S().debug("supervisor worker %d started", idx)
     while not engine._stop.is_set():
         # a draining engine stops claiming: queued and requeued tasks stay
@@ -71,59 +93,81 @@ def worker(engine: Engine, idx: int) -> None:
             engine._queue_kick.wait(timeout=0.2)
             engine._queue_kick.clear()
             continue
+        pack = claim_pack(engine, tsk)
         # close the kill()/preempt() race before any claim bookkeeping: the
-        # task is already stamped PROCESSING (queue.pop), so an operator
-        # cancel or a preemption arriving now must find a registered event
-        engine.register_cancel(tsk.id)
-        engine.register_preempt(tsk.id)
-        _note_claim(engine, idx, tsk)
+        # tasks are already stamped PROCESSING (queue.pop, claim_matching),
+        # so an operator cancel or a preemption arriving now must find a
+        # registered event
+        for member in pack:
+            engine.register_cancel(member.id)
+            engine.register_preempt(member.id)
+        _note_claim(engine, idx, pack)
         engine.fleet_worker_state(idx, tsk.id)
         try:
-            process_task(engine, tsk)
+            if len(pack) > 1:
+                process_task_pack(engine, pack)
+            else:
+                process_task(engine, tsk)
         finally:
             engine.fleet_worker_state(idx, "")
+            if len(pack) > 1:
+                engine.fleet_pack_done(tsk.id)
 
 
-def _note_claim(engine: Engine, idx: int, tsk: Task) -> None:
-    """Claim bookkeeping for a freshly-popped task: mint the claim and
-    execute span ids, feed the fleet claim histograms, and journal the
-    claim. Tasks pushed straight into the queue (tests) get trace ids
-    filled in here so every archive still exports a connected tree."""
+def _note_claim(engine: Engine, idx: int, pack: list[Task]) -> None:
+    """Claim bookkeeping for a freshly-popped task (or pack): mint the
+    claim and execute span ids — the pack-claim span is minted once and
+    shared by every member, so each member's tree hangs off the same
+    span — feed the fleet claim histograms, and journal the claims. Tasks
+    pushed straight into the queue (tests) get trace ids filled in here
+    so every archive still exports a connected tree."""
     now = time.time()
-    tr = tsk.trace
-    tr.setdefault("trace_id", new_trace_id())
-    tr.setdefault("root_span_id", new_span_id())
-    tr.setdefault("queued_span_id", new_span_id())
-    if tr.get("claim_span_id") and tr.get("execute_span_id"):
-        # a re-claim (preemption requeue or restart rehydration): keep the
-        # prior attempt's ids
-        # so the executor spans it parented still resolve in the archived
-        # tree (bounded)
-        prior = tr.setdefault("prior_attempts", [])
-        prior.append(
-            {"claim": tr["claim_span_id"], "execute": tr["execute_span_id"]}
+    claim_sid = new_span_id()
+    leader = pack[0]
+    for tsk in pack:
+        tr = tsk.trace
+        tr.setdefault("trace_id", new_trace_id())
+        tr.setdefault("root_span_id", new_span_id())
+        tr.setdefault("queued_span_id", new_span_id())
+        if tr.get("claim_span_id") and tr.get("execute_span_id"):
+            # a re-claim (preemption requeue or restart rehydration): keep
+            # the prior attempt's ids so the executor spans it parented
+            # still resolve in the archived tree (bounded)
+            prior = tr.setdefault("prior_attempts", [])
+            prior.append(
+                {"claim": tr["claim_span_id"], "execute": tr["execute_span_id"]}
+            )
+            del prior[:-16]
+        tr["claim_span_id"] = claim_sid
+        tr["execute_span_id"] = new_span_id()
+        if len(pack) > 1:
+            tr["pack_leader"] = leader.id
+            tr["pack_width"] = len(pack)
+        queue_wait = (
+            max(0.0, tsk.states[-1].created - tsk.states[0].created)
+            if len(tsk.states) >= 2
+            else 0.0
         )
-        del prior[:-16]
-    tr["claim_span_id"] = new_span_id()
-    tr["execute_span_id"] = new_span_id()
-    queue_wait = (
-        max(0.0, tsk.states[-1].created - tsk.states[0].created)
-        if len(tsk.states) >= 2
-        else 0.0
-    )
-    claim_latency = max(0.0, now - tsk.states[-1].created) if tsk.states else 0.0
-    engine.fleet_note_claim(queue_wait, claim_latency)
-    engine.events.emit(
-        "task.claimed",
-        task=tsk.id,
-        trace=tr,
-        state=State.PROCESSING.value,
-        worker=idx,
-        queue_wait_secs=round(queue_wait, 6),
-        # the reference's record shape: a task runs alone until run packs
-        # are ported (ROADMAP queue 1 item 13c)
-        pack_width=1,
-    )
+        claim_latency = max(0.0, now - tsk.states[-1].created) if tsk.states else 0.0
+        engine.fleet_note_claim(queue_wait, claim_latency)
+        engine.events.emit(
+            "task.claimed",
+            task=tsk.id,
+            trace=tr,
+            state=State.PROCESSING.value,
+            worker=idx,
+            queue_wait_secs=round(queue_wait, 6),
+            pack_width=len(pack),
+        )
+    if len(pack) > 1:
+        engine.fleet_note_pack(leader.id, len(pack))
+        engine.events.emit(
+            "pack.admitted",
+            task=leader.id,
+            trace=leader.trace,
+            width=len(pack),
+            members=[t.id for t in pack],
+        )
 
 
 def _run_trace_ctx(tsk: Task) -> dict:
@@ -324,6 +368,229 @@ def process_task(engine: Engine, tsk: Task) -> None:
             # (supervisor.go:176-183)
             notify_task_finished(engine.env, tsk)
             S().info("task %s finished: %s", tsk.id, tsk.outcome().value)
+
+
+def _prepare_pack_run_input(
+    engine: Engine, tsk: Task, ow: OutputWriter, cancel: threading.Event
+) -> RunInput:
+    """The head of :func:`do_run` for a single-[[runs]] pack member
+    (``supervisor.py:371-444``): build missing artifacts (BuildKey-deduped,
+    so the members of one pack build once), prepare + validate, coalesce
+    the runner config, and assemble the RunInput. Raises on any refusal —
+    the member then fails alone and the pack continues without it."""
+    comp = Composition.from_dict(tsk.composition)
+    manifest = TestPlanManifest.from_dict(tsk.input["manifest"])
+    sources_dir = tsk.input.get("sources_dir", "")
+    runner_id = comp.global_.runner
+    if engine.env.runner_is_disabled(runner_id):
+        raise ValueError(f"runner {runner_id} is disabled in .env.toml")
+    if any(not g.run.artifact for g in comp.groups):
+        comp = do_build(engine, comp, manifest, sources_dir, tsk.id, ow, cancel)
+        tsk.composition = comp.to_dict()
+        engine.storage.update_current(tsk)
+    comp = prepare_for_run(comp, manifest)
+    validate_for_run(comp)
+    coalesced = CoalescedConfig().append(engine.env.runners.get(runner_id)).append(
+        comp.global_.run_config
+    )
+    runner = engine.runner_by_name(runner_id)
+    cfg_type = runner.config_type()
+    runner_cfg = (
+        coalesced.coalesce_into(cfg_type)
+        if cfg_type is not None
+        else coalesced.flatten()
+    )
+    run = comp.runs[0]
+    artifacts = {g.id: g.run.artifact for g in comp.groups}
+    groups = []
+    for rg in run.groups:
+        backing = comp.get_group(rg.effective_group_id())
+        groups.append(
+            RunGroup(
+                id=rg.id,
+                instances=rg.calculated_instance_count,
+                artifact_path=artifacts[backing.id],
+                builder=backing.builder or comp.global_.builder,
+                parameters=dict(rg.test_params),
+                profiles=dict(rg.profiles),
+                resources=rg.resources,
+                slo=[dict(x) for x in rg.slo],
+            )
+        )
+    grun = comp.global_.run
+    return RunInput(
+        run_id=tsk.id,
+        test_plan=comp.global_.plan,
+        test_case=comp.global_.case,
+        total_instances=run.total_instances,
+        groups=groups,
+        runner_config=runner_cfg,
+        disable_metrics=comp.global_.disable_metrics,
+        slo=[dict(x) for x in (grun.slo if grun is not None else [])],
+        trace_ctx=_run_trace_ctx(tsk),
+        env=engine.env,
+        # eviction of a pack member stops its lanes at the next chunk
+        # boundary, as a cancel does; the requeued member reruns from
+        # scratch (a pack writes no snapshots, engine/pack.py)
+        preempt=engine.register_preempt(tsk.id),
+    )
+
+
+def process_task_pack(engine: Engine, tasks: list[Task]) -> None:
+    """Execute a claimed pack end-to-end (``supervisor.py:446-643``): each
+    task keeps its own log file, cancel event, timeout timer, result and
+    archive record — only the device program is shared (``sim/pack.py``).
+    A member whose preparation or collection fails fails ALONE; if the
+    pack shrinks below two members the survivor runs the ordinary solo
+    path."""
+    timeout = engine.env.daemon.scheduler.task_timeout_min * 60 or (
+        DEFAULT_TASK_TIMEOUT_SECS
+    )
+    ctxs = []
+    for tsk in tasks:
+        cancel = engine.register_cancel(tsk.id)
+        timer = threading.Timer(timeout, cancel.set)
+        timer.daemon = True
+        timer.start()
+        log_file = open(engine.task_log_path(tsk.id), "w")
+        ctxs.append({
+            "tsk": tsk, "cancel": cancel, "timer": timer, "log": log_file,
+            "ow": OutputWriter(sink=log_file), "result": None, "error": "",
+            "preempted": None,
+        })
+        engine.storage.update_current(tsk)
+        notify_task_started(engine.env, tsk)
+        engine.events.emit(
+            "task.started",
+            task=tsk.id,
+            trace=tsk.trace,
+            state=State.PROCESSING.value,
+            task_type=tsk.type.value,
+            pack_width=len(tasks),
+        )
+
+    def failed(ctx, err: str) -> None:
+        ctx["ow"].write_error(err)
+        ctx["error"] = err
+        ctx["result"] = {
+            "outcome": (
+                Outcome.CANCELED.value if ctx["cancel"].is_set()
+                else Outcome.FAILURE.value
+            )
+        }
+
+    try:
+        ready = []
+        for ctx in ctxs:
+            try:
+                ctx["job"] = _prepare_pack_run_input(
+                    engine, ctx["tsk"], ctx["ow"], ctx["cancel"]
+                )
+                ready.append(ctx)
+            except Exception as e:  # noqa: BLE001 — member-local failure
+                S().error("pack member %s failed: %s", ctx["tsk"].id, e)
+                ctx["ow"].write_error(str(e))
+                ctx["error"] = str(e)
+                ctx["result"] = {"outcome": Outcome.FAILURE.value}
+
+        if len(ready) >= 2:
+            from ..sim.executor import execute_packed_sim_runs
+
+            try:
+                with device_context(_run_device(ready[0]["job"].runner_config)):
+                    outs = execute_packed_sim_runs(
+                        [c["job"] for c in ready],
+                        [c["ow"] for c in ready],
+                        [c["cancel"] for c in ready],
+                    )
+            except Exception as e:  # noqa: BLE001 — whole-pack failure
+                S().error("pack execution failed: %s", e)
+                S().debug("%s", traceback.format_exc())
+                for ctx in ready:
+                    failed(ctx, str(e))
+            else:
+                for ctx, out in zip(ready, outs):
+                    comp_dict = ctx["tsk"].composition
+                    if isinstance(out, SloBreachError):
+                        bo = out.run_output
+                        rd = (
+                            bo.result.to_dict()
+                            if bo is not None and hasattr(bo.result, "to_dict")
+                            else {"outcome": Outcome.FAILURE.value}
+                        )
+                        ctx["ow"].write_error(str(out))
+                        ctx["error"] = str(out)
+                        ctx["result"] = {**rd, "outcome": Outcome.FAILURE.value,
+                                         "composition": comp_dict}
+                    elif isinstance(out, TaskPreemptedError):
+                        # an evicted member: the finally loop requeues it
+                        # instead of archiving (never resumable)
+                        ctx["preempted"] = out
+                        ctx["ow"].infof("%s", out)
+                    elif isinstance(out, Exception):
+                        ctx["ow"].write_error(str(out))
+                        ctx["error"] = str(out)
+                        ctx["result"] = {"outcome": Outcome.FAILURE.value,
+                                         "composition": comp_dict}
+                    else:
+                        rd = (
+                            out.result.to_dict()
+                            if hasattr(out.result, "to_dict")
+                            else (out.result or {})
+                        )
+                        ctx["result"] = {
+                            **rd,
+                            "outcome": rd.get("outcome", Outcome.FAILURE.value),
+                            "composition": comp_dict,
+                        }
+        elif len(ready) == 1:
+            # the pack shrank to one — the ordinary solo path, so the
+            # member loses nothing
+            ctx = ready[0]
+            try:
+                ctx["result"] = do_run(engine, ctx["tsk"], ctx["ow"], ctx["cancel"])
+            except TaskPreemptedError as e:
+                ctx["preempted"] = e
+                ctx["ow"].infof("%s", e)
+            except Exception as e:  # noqa: BLE001
+                failed(ctx, str(e))
+    finally:
+        for ctx in ctxs:
+            tsk = ctx["tsk"]
+            ctx["timer"].cancel()
+            engine.drop_cancel(tsk.id)
+            engine.drop_preempt(tsk.id)
+            if ctx["preempted"] is not None:
+                _requeue_preempted(engine, tsk, ctx["preempted"])
+                _close_quietly(ctx["log"])
+                continue
+            tsk.result = ctx["result"] or {"outcome": Outcome.FAILURE.value}
+            if ctx["error"]:
+                tsk.error = ctx["error"]
+            else:
+                try:
+                    ctx["ow"].write_result(tsk.result)
+                except Exception:  # noqa: BLE001 — log-only
+                    pass
+            final = (
+                State.CANCELED if ctx["cancel"].is_set() and tsk.error
+                else State.COMPLETE
+            )
+            tsk.states.append(DatedState(state=final, created=time.time()))
+            # the solo path's ordering contract: spans on disk before
+            # COMPLETE is observable
+            _finish_task(engine, tsk)
+            engine.storage.archive(tsk)
+            notify_task_finished(engine.env, tsk)
+            _close_quietly(ctx["log"])
+            S().info("task %s finished: %s (packed)", tsk.id, tsk.outcome().value)
+
+
+def _close_quietly(f) -> None:
+    try:
+        f.close()
+    except OSError:
+        pass
 
 
 # ----------------------------------------------------------------- builds
@@ -617,6 +884,34 @@ def _run_composition(engine: Engine, tsk: Task, comp: Composition, runner,
         run_results[run.id] = result_dict
         if result_dict.get("outcome") != Outcome.SUCCESS.value:
             outcome = Outcome.FAILURE
+
+    # run packing requested but executed solo: this is the solo path
+    # (packed tasks run through process_task_pack), so the journal says
+    # why it did not pack — the classification tg check previews as rule
+    # pack.solo (supervisor.py:940-973)
+    if runner_id == "sim:torch" and _truthy(getattr(runner_cfg, "pack", False)):
+        from .pack import pack_solo_reason
+
+        solo_reason = (
+            pack_solo_reason(tsk, engine.env.runners.get(runner_id) or {})
+            or "no compatible queued run to pack with at claim time"
+        )
+        tsk.trace["solo_reason"] = solo_reason
+        engine.fleet_note_solo(solo_reason)
+        engine.events.emit(
+            "pack.solo",
+            task=tsk.id,
+            trace=tsk.trace,
+            solo_reason=solo_reason,
+        )
+        for rres in run_results.values():
+            journal = rres.get("journal") if isinstance(rres, dict) else None
+            if isinstance(journal, dict) and isinstance(journal.get("sim"), dict):
+                journal["sim"]["pack"] = {
+                    "requested": True,
+                    "packed": False,
+                    "solo_reason": solo_reason,
+                }
 
     base = (
         run_results[comp.runs[0].id]

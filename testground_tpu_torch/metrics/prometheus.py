@@ -38,9 +38,9 @@ they are silent: ``tg_run_lower_seconds``, ``tg_run_xla_compile_seconds``,
 ``tg_run_est_flops_per_chunk`` and ``tg_run_est_bytes_accessed_per_chunk``
 (no XLA compile or cost analysis), ``tg_compile_bucket_*`` (a port
 bucket's ``compile_cache`` is ``"off"``: no compile cache, so neither a hit
-nor a miss), ``tg_pack_*`` and ``tg_fleet_pack_solo_total`` (run packs:
-ROADMAP queue 1 item 13c). ``tg_bucket_padded_instances`` renders a port
-bucketed run's padded size. The sync service's ``render_sync_prometheus`` comes
+nor a miss). ``tg_bucket_padded_instances`` renders a port bucketed
+run's padded size, ``tg_pack_width``/``tg_pack_members`` a packed run's
+``sim.pack`` block and ``tg_fleet_pack_*`` the engine's pack claims. The sync service's ``render_sync_prometheus`` comes
 with the sync service (item 17).
 """
 

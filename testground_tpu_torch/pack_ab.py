@@ -1,0 +1,105 @@
+"""Wall ms/tick of a width-8 pack of sustained tenants against one member
+alone, on the library path (``PackRunner.run`` and ``SimProgram.run``, no
+executor), and where each spends its host time:
+
+    python3 testground_tpu_torch/pack_ab.py DIR LABEL [--profile]
+
+The pack is ``chip_smoke.py``'s pack8@sustained (eight tenants at 24,000 …
+31,000 instances, 32,768 lanes each, telemetry, chunk 250); the member
+alone is the first tenant. One warm-up run of each, then three timed runs
+of each in alternating order (ms/tick of the whole run, and of its steady
+chunks: every chunk after the first, timed on the host at the chunk
+boundary). ``--profile`` adds a ``cProfile`` of one more run of each: the
+top functions by own time. It drives DIR's own ``chip_smoke.py`` helpers,
+so the same command times a parent checkout and the change in one call.
+Prints one JSON line.
+"""
+
+import cProfile
+import io
+import json
+import os
+import pstats
+import statistics
+import sys
+import time
+
+
+def main(argv) -> int:
+    d, label = argv[0], argv[1]
+    profile = "--profile" in argv[2:]
+    sys.path.insert(0, os.path.abspath(d))
+    os.chdir(d)
+    import torch
+
+    import chip_smoke as cs
+    from testground_tpu_torch.sim.buckets import DEFAULT_LADDER, plan_buckets
+    from testground_tpu_torch.sim.pack import PackMember, PackRunner
+
+    sizes = cs.PACK_SIZES
+
+    def prog():
+        return cs.program("pingpong-sustained", sizes[0], cs.SUSTAINED, chunk=250,
+                          telemetry=True, ladder=DEFAULT_LADDER)
+
+    lcs = [plan_buckets([n], "auto", DEFAULT_LADDER).live_counts for n in sizes]
+    pack_prog, member_prog = prog(), prog()
+    runner = PackRunner(pack_prog, len(sizes))
+
+    def timed(fn):
+        """(ms/tick over the run, ms/tick over its chunks after the first)."""
+        marks = []
+
+        def on_chunk(ticks):
+            torch.cuda.synchronize()
+            marks.append((ticks, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ticks = fn(on_chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        (k0, s0), (k1, s1) = marks[0], marks[-1]
+        steady = (s1 - s0) / max(min(k1, ticks) - k0, 1) * 1e3
+        return wall / ticks * 1e3, steady
+
+    def run_pack(on_chunk):
+        members = [PackMember(seed=k, live_counts=lc, max_ticks=10_000)
+                   for k, lc in enumerate(lcs)]
+        members[0].on_chunk = on_chunk
+        res = runner.run(members)
+        return max(int(r["finished_at"].max()) + 1 for r in res)
+
+    def run_member(on_chunk):
+        res = member_prog.run(seed=0, max_ticks=10_000, on_chunk=on_chunk)
+        return int(res["finished_at"].max()) + 1
+
+    ways = {"pack": run_pack, "member": run_member}
+    for fn in ways.values():
+        timed(fn)
+    got = {w: [] for w in ways}
+    for i in range(3):
+        for w in (("pack", "member") if i % 2 == 0 else ("member", "pack")):
+            got[w].append(timed(ways[w]))
+    row = {"who": label, "sizes": list(sizes)}
+    for w, runs in got.items():
+        row[w] = {"wall_ms_per_tick": [r[0] for r in runs],
+                  "steady_ms_per_tick": [r[1] for r in runs]}
+    p, m = (statistics.median(r[1] for r in got[w]) for w in ("pack", "member"))
+    row["steady_aggregate_ratio"] = len(sizes) * m / p
+    if profile:
+        for w, fn in ways.items():
+            prof = cProfile.Profile()
+            prof.enable()
+            fn(lambda ticks: None)
+            torch.cuda.synchronize()
+            prof.disable()
+            out = io.StringIO()
+            pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(25)
+            row[f"{w}_profile"] = out.getvalue().splitlines()[6:40]
+    print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,7 @@ __all__ = [
     "meshplan",
     "net",
     "netmatrix",
+    "pack",
     "prng",
     "slo",
     "sync_kernel",

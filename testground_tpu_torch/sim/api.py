@@ -241,9 +241,13 @@ class Outbox:
             pay.shape[1] if words is None and pay.dim() > 1 else 1,
         )
         ob = Outbox.empty(out_msgs, msg_width, n, dev)
-        ob.dst[0] = dst.to(torch.int32)
+        # slot 0 joined to the empty slots out of place, so that a run
+        # pack's vmapped step (sim/pack.py) may hand in per-member values
+        ob.dst = torch.cat([dst.to(torch.int32).broadcast_to((1, n)), ob.dst[1:]])
         if words is None:
-            ob.payload[0, : pay.shape[0]] = pay if pay.dim() > 1 else pay[:, None]
+            pay = (pay if pay.dim() > 1 else pay[:, None]).broadcast_to((pay.shape[0], n))
+            row = torch.cat([pay, ob.payload[0, pay.shape[0]:]])
+            ob.payload = torch.cat([row[None], ob.payload[1:]])
         else:
             if len(words) > msg_width:
                 raise ValueError(
@@ -252,7 +256,7 @@ class Outbox:
             for w, v in enumerate(words):
                 if v != 0:
                     ob.payload[0, w].fill_(int(v))
-        ob.valid[0] = valid.to(torch.bool)
+        ob.valid = torch.cat([valid.to(torch.bool).broadcast_to((1, n)), ob.valid[1:]])
         return ob
 
 
@@ -369,14 +373,12 @@ class SimTestcase:
         rows are ``when`` (a bool/int tensor), the others 0. A 0-d
         ``when`` yields ``[S, 1]``, which broadcasts over the group."""
         w = when.to(torch.int32).reshape(-1)
-        sig = torch.zeros(
-            (len(type(self).STATES), w.shape[0]),
-            dtype=torch.int32,
-            device=w.device,
-        )
-        for name in names:
-            sig[self.state_id(name)] = w
-        return sig
+        # built out of place, so that a run pack's vmapped step
+        # (sim/pack.py) may hand in a per-member ``when``
+        rows = {self.state_id(name) for name in names}
+        zero = torch.zeros(w.shape[0], dtype=torch.int32, device=w.device)
+        return torch.stack([w if i in rows else zero
+                            for i in range(len(type(self).STATES))])
 
     def device_constant(self, values, dtype, device) -> torch.Tensor:
         """``torch.tensor(values, dtype=dtype, device=device)`` built on the
@@ -415,13 +417,16 @@ class SimTestcase:
             return self.device_constant(fields, torch.float32, device)
         # the ATen op: torch.broadcast_shapes imports sympy on first use
         shape = torch.broadcast_tensors(*tensors)[0].shape
-        out = torch.zeros((7, *shape), dtype=torch.float32, device=tensors[0].device)
-        for row, x in zip(out, fields):
-            if isinstance(x, torch.Tensor):
-                row.copy_(x)
-            elif x != 0:
-                row.fill_(float(x))
-        return out
+        dev = tensors[0].device
+        # stacked out of place, so that a run pack's vmapped step
+        # (sim/pack.py) may hand in per-member fields
+        zero = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return torch.stack([
+            x.to(torch.float32).broadcast_to(shape) if isinstance(x, torch.Tensor)
+            else torch.full(shape, float(x), dtype=torch.float32, device=dev)
+            if x != 0 else zero
+            for x in fields
+        ])
 
     def filter_rules(self, *rules) -> torch.Tensor:
         """A ``[FILTER_RULES, 3, n]`` rule-list plane for
@@ -444,11 +449,15 @@ class SimTestcase:
         n = _broadcast_len(
             *(x.numel() for r in rules for x in r if isinstance(x, torch.Tensor))
         )
-        out = torch.zeros((k, 3, n), dtype=torch.int32, device=dev)
+        # stacked out of place, so that a run pack's vmapped step
+        # (sim/pack.py) may hand in per-member fields
+        zero = torch.zeros(n, dtype=torch.int32, device=dev)
+        cells = [zero] * (k * 3)
         for i, rule in enumerate(rules):
             for j, x in enumerate(rule):
                 if isinstance(x, torch.Tensor):
-                    out[i, j].copy_(x.to(torch.int32).reshape(-1))
+                    cells[i * 3 + j] = x.to(torch.int32).reshape(-1).broadcast_to((n,))
                 elif x != 0:
-                    out[i, j].fill_(int(x))
-        return out
+                    cells[i * 3 + j] = torch.full((n,), int(x), dtype=torch.int32,
+                                                  device=dev)
+        return torch.stack(cells).view(k, 3, n)

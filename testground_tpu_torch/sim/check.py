@@ -23,10 +23,10 @@ Where the port diverges from the reference's catalog:
 
 - ``port.not-ported`` (error, layer ``port``) is the port's own rule: one
   finding for each runner-config key of ``executor._UNPORTED_SETTINGS`` set
-  away from its default, and for a 2-D ``mesh``, with the executor's
-  ``NotImplementedError`` text naming the ROADMAP item. It stands in for
-  the rules whose gates the port does not have yet: ``pack.solo``
-  (``pack``, ``pack_max``), item 13c, and the cohort rules —
+  away from its default, for a 2-D ``mesh`` and for ``pack`` on a mesh
+  (item 13d), with the executor's ``NotImplementedError`` text naming the
+  ROADMAP item. It stands in for the rules whose gates the port does not
+  have yet: the cohort rules —
   ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` and
   ``buckets.cohort-disabled`` among them), ``checkpoint.resume-cohort``,
   ``debug.nan-guard-cohort`` and ``cohort.spec-oversize`` — which need
@@ -323,6 +323,16 @@ def mesh_2d_message(mesh, item: str) -> str:
     )
 
 
+def pack_mesh_message(mesh, item: str) -> str:
+    """A run pack on a mesh: the pack's run axis and the mesh's peer
+    shards are one layout problem on the card, ported together."""
+    return (
+        f"runner config pack=true with mesh={mesh!r} is not ported yet: "
+        f"ROADMAP queue 1 {item} — a pack on a mesh lays out runs × peer "
+        "shards"
+    )
+
+
 def pallas_lanes_message(n: int, hosts: int, shards: int) -> str:
     """An indivisible lane count under ``transport=pallas``: the
     reference engine's own rule and message (``engine.py:406-422``)."""
@@ -365,6 +375,8 @@ class CheckContext:
     trace_plans: bool = False
     plan_sources: str = ""
     raw_run_config: dict = dataclasses.field(default_factory=dict)
+    # the env's [runners."sim:torch"] layer, as pack admission reads it
+    raw_env_layer: dict = dataclasses.field(default_factory=dict)
 
     @property
     def peer_shards(self) -> int:
@@ -439,6 +451,21 @@ def _check_not_ported(ctx, findings) -> None:
 
     for message in unported_settings(ctx.cfg):
         _add(findings, "port.not-ported", message)
+
+
+def _check_pack(ctx, findings) -> None:
+    """Pack-admission preview (``check.py:861-874``): when the composition
+    opts into packing but would run solo, name the cause — the same
+    classification the engine journals as ``sim.pack.solo_reason``."""
+    from ..engine.pack import solo_reason_for_composition
+
+    reason = solo_reason_for_composition(ctx.comp.to_dict(), dict(ctx.raw_env_layer))
+    if reason is not None:
+        _add(
+            findings,
+            "pack.solo",
+            f"pack=true but this composition runs solo: {reason}",
+        )
 
 
 def _check_resume_multi_runs(ctx, findings) -> None:
@@ -921,9 +948,17 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
     except Exception as e:  # noqa: BLE001 — build-time refusals
         return failed(e, "program build", site)
 
-    # the executor's capacity precheck, the same function on the same bytes
+    # the executor's capacity precheck, the same function on the same bytes;
+    # a pack-opted run may share the card with the widest pack its claim
+    # builds, whose carry is every member's side by side
+    need = carry_footprint(carry)
+    if bool(getattr(ctx.cfg, "pack", False)):
+        from .pack import pack_width
+
+        pack_max = int(getattr(ctx.cfg, "pack_max", 8) or 8)
+        need *= pack_width(pack_max, pack_max)
     try:
-        _precheck_device_memory(prog, carry_footprint(carry), ctx.cfg,
+        _precheck_device_memory(prog, need, ctx.cfg,
                                 discard_writer(), _check_device(ctx.cfg))
     except RuntimeError as e:
         add("plan.memory", str(e))
@@ -1031,12 +1066,13 @@ def check_composition(
         devices = max(_visible_cards(), 1)
     ctx = CheckContext(comp=prepared, cfg=cfg, devices=devices,
                        trace_plans=trace_plans, plan_sources=plan_sources,
-                       raw_run_config=raw_cfg)
+                       raw_run_config=raw_cfg, raw_env_layer=dict(env_layer or {}))
 
     _check_run_cfg_keys(ctx, findings)
     _check_not_ported(ctx, findings)
     _check_mesh(ctx, findings)
     _check_transport(ctx, findings)
+    _check_pack(ctx, findings)
     _check_resume_multi_runs(ctx, findings)
     for run in prepared.runs:
         resolved = _check_run(ctx, run, findings)

@@ -1590,14 +1590,20 @@ class SimProgram:
             off += int(lv)
         return tuple(out)
 
-    def results(self, carry: SimCarry, ticks: int) -> dict[str, Any]:
+    def results(self, carry: SimCarry, ticks: int,
+                carry_bytes: int | None = None) -> dict[str, Any]:
+        """The run's results from ``carry`` after ``ticks``. ``carry_bytes``
+        (a run pack's member, whose carry holds only the leaves read here)
+        replaces the carry's footprint."""
+
         def host(x):
             return x.detach().cpu().numpy()
 
         status = host(carry.status[: self.n])
         finished_at = host(carry.finished_at[: self.n])
         states = tuple({k: host(v) for k, v in s.items()} for s in carry.states)
-        carry_bytes = self.footprint(carry)
+        if carry_bytes is None:
+            carry_bytes = self.footprint(carry)
         if self.live_counts is not None:
             # a padded run: demux to the exact layout (engine.py:2187-2225);
             # no caller ever sees a dead lane

@@ -57,10 +57,17 @@ them. A ``RunInput.preempt`` event stops the run at the next chunk
 boundary after a forced snapshot there, and the run raises
 ``engine.controller.TaskPreemptedError`` for the supervisor to requeue.
 
+Run packs (``pack = true``, ``pack_max``): ``execute_packed_sim_runs``
+runs the members a pack claim gathered (``engine/pack.py``) as one program
+over a run axis (``sim/pack.py``); each member keeps its run directory,
+streams, SLO evaluation, perf rows, journal (with the reference's
+``sim.pack`` block) and result, and equals its isolated run. A solo run
+with ``pack = true`` runs as any run.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default (``unported_settings``; ``tg check``
-reports each as ``port.not-ported``): run packs (item 13c, ``pack``,
-``pack_max`` and a 2-D pack mesh) and multi-host cohorts (item 15b).
+reports each as ``port.not-ported``): a pack on a mesh and the 2-D ``"RxP"``
+mesh (item 13d) and multi-host cohorts (item 15b).
 
 Shape buckets (``bucket = off|auto|<n>``, ``bucket_ladder``;
 ``resolve_buckets``, ``executor.py:395-452, 846-965``): a bucketed run's
@@ -109,6 +116,7 @@ from .meshplan import (
 __all__ = [
     "SimTorchConfig",
     "check_mesh_lanes",
+    "execute_packed_sim_runs",
     "execute_sim_run",
     "fault_specs_of",
     "instantiate_testcase",
@@ -144,7 +152,7 @@ class SimTorchConfig:
     # on a host with one card or on the CPU
     shard: bool = True
     # explicit 1-D peers mesh ("4"), over the visible cards, or virtual on
-    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13c)
+    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13d)
     mesh: str = ""
     write_outputs_max: int = 2048  # cap on per-instance output dirs
     keep_outputs: bool = True
@@ -178,8 +186,9 @@ class SimTorchConfig:
     # shape buckets: "off", "auto" (the ladder) or an explicit count
     bucket: str = "off"
     bucket_ladder: str = ""  # "" = buckets.DEFAULT_LADDER
-    pack: bool = False  # refused unless False (item 13c)
-    pack_max: int = 8  # refused unless 8 (item 13c)
+    # run packs: claim queued compatible runs into one program
+    pack: bool = False
+    pack_max: int = 8  # the widest pack a claim builds
     # the sim:plan builder warms the bucket ladder (tg build --buckets)
     build_buckets: bool = False
     # > 0: a snapshot every this many chunks (sim/checkpoint.py)
@@ -199,14 +208,12 @@ class SimTorchConfig:
     device: str | None = None
 
 
-_ITEM_13 = "item 13c (run packs)"
+_ITEM_13D = "item 13d (packs on a mesh, and the 2-D mesh)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
 # the ROADMAP queue-1 item that ports each
 _UNPORTED_SETTINGS = {
-    "pack": _ITEM_13,
-    "pack_max": _ITEM_13,
     "coordinator_address": _ITEM_15B,
     "num_processes": _ITEM_15B,
     "process_id": _ITEM_15B,
@@ -218,9 +225,9 @@ _TRANSPORTS = ("xla", "pallas", "auto")
 def unported_settings(cfg) -> list[str]:
     """The refusal of every setting the port cannot honour yet, each naming
     its ROADMAP item: the keys of ``_UNPORTED_SETTINGS`` away from their
-    default, then a 2-D ``mesh``. The executor raises the first; the
-    checker reports each as ``port.not-ported``."""
-    from .check import mesh_2d_message, not_ported_message
+    default, then a 2-D ``mesh``, then ``pack`` on a mesh. The executor
+    raises the first; the checker reports each as ``port.not-ported``."""
+    from .check import mesh_2d_message, not_ported_message, pack_mesh_message
 
     defaults = SimTorchConfig()
     out = []
@@ -235,7 +242,9 @@ def unported_settings(cfg) -> list[str]:
         except ValueError:
             dims = ()  # mesh.shape-invalid: parse_mesh_shape's own refusal
         if len(dims) > 1:
-            out.append(mesh_2d_message(mesh, _ITEM_13))
+            out.append(mesh_2d_message(mesh, _ITEM_13D))
+        if getattr(cfg, "pack", False):
+            out.append(pack_mesh_message(mesh, _ITEM_13D))
     return out
 
 
@@ -1587,6 +1596,386 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             snapshots=int(checkpointer.count) if checkpointer is not None else 0,
             resumable=resumable,
         )
+    spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
+    return RunOutput(run_id=job.run_id, result=result)
+
+
+def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
+    """Execute N compatible sim runs as ONE program over a run axis on the
+    card (``executor.py:2463-2686``; the device half is ``sim/pack.py``).
+    Every job keeps its own task identity: run directory, telemetry, SLO
+    and perf streams, journal (with the ``sim.pack`` block) and Result,
+    demuxed from the pack's ``[.., R, ..]`` blocks each chunk.
+
+    The engine's pack admission (``engine/pack.py``) guarantees the jobs
+    share a program (same plan, case, parameters, bucket layout, gates and
+    device; no faults, trace, hosts, cohort or checkpoint); this function
+    asserts the essentials and returns one ``RunOutput`` OR ``Exception``
+    per job (a member's failure is its own task's failure, never the
+    pack's). A pack on a mesh is item 13d and refuses; the port has no
+    compile cache, so ``sim.bucket.compile_cache`` is ``"off"``."""
+    from .engine import build_groups as _build_groups
+    from .engine import resolve_device
+    from .pack import PACK_MESH_ITEM, PackMember, PackRunner, pack_width
+    from .telemetry import SIM_SERIES_FILE, SPAN_FILE, SpanTracer
+
+    assert len(jobs) == len(ows) == len(cancels) and len(jobs) >= 2
+    job0, cfg = jobs[0], jobs[0].runner_config or SimTorchConfig()
+    _refuse_unported(cfg)
+    device = resolve_device(getattr(cfg, "device", None))
+    outputs_root = job0.env.dirs.outputs() if job0.env is not None else None
+
+    # ---------------------------------------------------- shared program
+    if _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
+                  device) is not None:
+        raise NotImplementedError(
+            f"a run pack on a mesh is not ported yet: ROADMAP queue 1 "
+            f"{PACK_MESH_ITEM}"
+        )
+    bucket_plan = resolve_buckets(cfg, [g.instances for g in job0.groups],
+                                  warn=ows[0].warn)
+    if bucket_plan is None:
+        for j in jobs[1:]:
+            if [g.instances for g in j.groups] != [g.instances for g in job0.groups]:
+                raise ValueError(
+                    "pack admission bug: unbucketed members with "
+                    "different instance counts share a pack"
+                )
+    padded_in = job0.groups
+    if bucket_plan is not None:
+        padded_in = [dataclasses.replace(g, instances=p)
+                     for g, p in zip(job0.groups, bucket_plan.padded_counts)]
+    artifact = job0.groups[0].artifact_path or plan_dir(job0.test_plan)
+    testcase, groups = load_and_specialize(artifact, job0.test_case, padded_in,
+                                           cfg.tick_ms)
+    telemetry_on = bool(getattr(cfg, "telemetry", False)) and not any(
+        j.disable_metrics for j in jobs
+    )
+    prog = make_sim_program(
+        testcase,
+        groups,
+        test_plan=job0.test_plan,
+        test_case=job0.test_case,
+        test_run=job0.run_id,
+        tick_ms=cfg.tick_ms,
+        chunk=cfg.chunk,
+        hosts=(),
+        validate=bool(getattr(cfg, "validate", False)),
+        telemetry=telemetry_on,
+        faults=None,
+        trace=None,
+        # the matrix plane is a pack exclusion (engine/pack.py): a member
+        # asking for netmatrix runs solo
+        netmatrix=False,
+        device=device,
+        mesh=None,
+        live_counts=bucket_plan.live_counts if bucket_plan is not None else None,
+    )
+    width = pack_width(len(jobs), int(getattr(cfg, "pack_max", 8) or 8))
+    runner = PackRunner(prog, width)
+    transport_block = _transport_block(cfg, prog.device)
+    # the stacked carry: every member's leaves side by side
+    carry_one = prog.footprint(prog.init_carry(0))
+    _precheck_device_memory(prog, carry_one * width, cfg, ows[0], device)
+
+    # ------------------------------------------------ per-member plumbing
+    members: list = []
+    contexts: list[dict] = []
+    for idx, (job, ow, cancel) in enumerate(zip(jobs, ows, cancels)):
+        jcfg = job.runner_config or cfg
+        run_dir = None
+        if outputs_root is not None:
+            run_dir = os.path.join(outputs_root, job.test_plan, job.run_id)
+            os.makedirs(run_dir, exist_ok=True)
+        spans = SpanTracer(
+            os.path.join(run_dir, SPAN_FILE)
+            if run_dir is not None and not job.disable_metrics else None,
+            ctx=getattr(job, "trace_ctx", None),
+        )
+        spans.start("run", run_id=job.run_id, plan=job.test_plan, case=job.test_case,
+                    pack_index=idx)
+        vgroups = _build_groups(job.groups)
+        member_bucket = (
+            resolve_buckets(jcfg, [g.instances for g in job.groups])
+            if bucket_plan is not None else None
+        )
+        n_live = sum(g.count for g in vgroups)
+        row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
+        tele_writer = (
+            _SimTelemetryWriter(
+                tuple(g.id for g in vgroups), row_ident,
+                os.path.join(run_dir, SIM_SERIES_FILE) if run_dir is not None else None,
+            )
+            if telemetry_on else None
+        )
+        slo_eval = slo_cancel = None
+        from .slo import build_slo_plan
+
+        slo_plan = build_slo_plan(vgroups, slo_specs_of(job.groups,
+                                                        getattr(job, "slo", None)))
+        if slo_plan is not None and not telemetry_on:
+            raise ValueError(
+                f"pack member {job.run_id} declares SLO rules but the "
+                "pack's telemetry plane is off"
+            )
+        if slo_plan is not None:
+            from .slo import SLO_FILE, SloEvaluator
+
+            slo_cancel = _SloRunCancel(cancel)
+            slo_eval = SloEvaluator(
+                slo_plan, vgroups, cfg.tick_ms, cfg.chunk, ident=row_ident,
+                path=os.path.join(run_dir, SLO_FILE) if run_dir is not None else None,
+                cancel=slo_cancel.run_local,
+            )
+        perf_ledger = None
+        if bool(getattr(jcfg, "perf", True)) and not job.disable_metrics:
+            from .perf import PERF_FILE, PerfLedger
+
+            perf_ledger = PerfLedger(
+                n_live, cfg.chunk, ident=row_ident,
+                path=os.path.join(run_dir, PERF_FILE) if run_dir is not None else None,
+                warmup=1,
+                transport=transport_block["resolved"],
+                device=prog.device,
+                bucket=bucket_plan.padded_n if bucket_plan is not None else None,
+            )
+
+        def _tele_cb(block, _w=tele_writer, _s=slo_eval):
+            rows = _w.on_block(block) if _w is not None else []
+            if _s is not None:
+                _s.on_rows(rows)
+
+        def _on_chunk(ticks, _s=slo_eval, _ow=ow, _r=job.run_id):
+            # judged after this chunk's rows and latency delta landed
+            for breach in _s.evaluate():
+                _ow.warn(
+                    "sim:torch %s: SLO breach (%s): %s — %s = %g violates %s %g at "
+                    "tick %d%s",
+                    _r, breach["severity"], breach["rule"], breach["metric"],
+                    breach["observed"], breach["op"], breach["threshold"],
+                    breach["tick"],
+                    " — stopping this pack member" if breach["severity"] == "fail"
+                    else "",
+                )
+
+        # eviction (engine/controller.py) rides the cancel path: the member
+        # stops at the next chunk boundary and collect raises
+        # TaskPreemptedError
+        preempt_ev = getattr(job, "preempt", None)
+
+        def _cancel_check(_c=cancel, _sc=slo_cancel, _p=preempt_ev):
+            return (_c.is_set() or (_sc is not None and _sc.run_local.is_set())
+                    or (_p is not None and _p.is_set()))
+
+        ow.infof(
+            "sim:torch %s: packed run %d/%d (width %d) — plan=%s case=%s "
+            "instances=%d%s",
+            job.run_id, idx + 1, len(jobs), width, job.test_plan, job.test_case,
+            n_live,
+            f", bucket {bucket_plan.padded_n}" if bucket_plan is not None else "",
+        )
+        members.append(PackMember(
+            seed=int(getattr(jcfg, "seed", 0) or 0),
+            live_counts=member_bucket.live_counts if member_bucket is not None else None,
+            max_ticks=int(getattr(jcfg, "max_ticks", 10_000)),
+            telemetry_cb=_tele_cb if telemetry_on else None,
+            lat_hist_cb=slo_eval.on_lat_delta if slo_eval is not None else None,
+            on_chunk=_on_chunk if slo_eval is not None else None,
+            cancel_check=_cancel_check,
+            perf=perf_ledger,
+        ))
+        contexts.append({
+            "job": job, "ow": ow, "cancel": cancel, "spans": spans,
+            "vgroups": vgroups, "run_dir": run_dir, "tele_writer": tele_writer,
+            "slo_eval": slo_eval, "perf": perf_ledger, "bucket": member_bucket,
+            "n": n_live, "testcase": testcase, "leader_run": job0.run_id,
+        })
+
+    # ---------------------------------------------------- one program
+    t0 = time.monotonic()
+    for ctx in contexts:
+        ctx["spans"].start("execute")
+    try:
+        pack_results = runner.run(members)
+    except BaseException as e:  # noqa: BLE001 — whole-pack failure
+        for ctx in contexts:
+            ctx["spans"].end("execute", outcome="error")
+            ctx["spans"].end("run", outcome="error", error=str(e)[:200])
+            ctx["spans"].close()
+        raise
+    wall = time.monotonic() - t0
+
+    # ------------------------------------------------- per-member collect
+    from ..engine.controller import TaskPreemptedError
+
+    outs: list = []
+    for idx, (ctx, m, res) in enumerate(zip(contexts, members, pack_results)):
+        spans = ctx["spans"]
+        try:
+            outs.append(_collect_pack_member(
+                idx, ctx, m, res, width, len(jobs), wall, transport_block,
+                bucket_plan, outputs_root,
+            ))
+        except Exception as e:  # noqa: BLE001 — member-local failure
+            outcome = "preempted" if isinstance(e, TaskPreemptedError) else "error"
+            spans.end("run", outcome=outcome, error=str(e)[:200])
+            outs.append(e)
+        finally:
+            spans.close()
+    return outs
+
+
+def _collect_pack_member(idx, ctx, member, res, width, n_members, wall,
+                         transport_block, bucket_plan, outputs_root):
+    """One pack member's RunOutput (``executor.py:2689-3080``): outcomes,
+    metrics, journal (the sim block with ``sim.pack`` and ``sim.bucket``),
+    instance outputs."""
+    from .telemetry import latency_percentiles
+
+    job, ow, spans, cancel = ctx["job"], ctx["ow"], ctx["spans"], ctx["cancel"]
+    groups = res["groups"]
+    status = res["status"]
+    n = ctx["n"]
+    spans.end("execute", ticks=res["ticks"])
+    spans.start("collect")
+    result = Result.for_input(job)
+    result.journal["events"] = {}
+    if member.canceled and cancel.is_set():
+        ow.warn("sim:torch %s: pack member canceled", job.run_id)
+
+    metrics: dict = {}
+    collect = getattr(ctx["testcase"], "collect_metrics", None)
+    if callable(collect):
+        for gi, g in enumerate(groups):
+            try:
+                metrics[g.id] = collect(g, res["states"][gi],
+                                        status[g.offset : g.offset + g.count])
+            except Exception as e:  # noqa: BLE001 — best-effort
+                ow.warn("collect_metrics failed for group %s: %s", g.id, e)
+    if metrics:
+        result.journal["metrics"] = {
+            gid: _aggregate_metrics(m) for gid, m in metrics.items()
+        }
+    tw = ctx["tele_writer"]
+    if tw is not None:
+        tw.close()
+        result.journal["telemetry"] = {
+            "rows": tw.rows_written,
+            **({"file": "sim_timeseries.jsonl"} if tw.path is not None else {}),
+            "totals": {
+                "delivered": res["msgs_delivered"],
+                "sent": res["msgs_sent"],
+                "enqueued": res["msgs_enqueued"],
+                "dropped": res["msgs_dropped"],
+                "rejected": res["msgs_rejected"],
+                "in_flight": res["cal_depth"],
+                "fault_dropped": res.get("fault_dropped", 0),
+            },
+        }
+    latency = {}
+    if res.get("lat_hist") is not None:
+        latency = {
+            g.id: latency_percentiles(res["lat_hist"][gi], res["tick_ms"])
+            for gi, g in enumerate(groups)
+        }
+    if ctx["slo_eval"] is not None:
+        ctx["slo_eval"].close()
+        result.journal["slo"] = ctx["slo_eval"].journal()
+    perf_summary = None
+    if ctx["perf"] is not None:
+        ctx["perf"].close()
+        perf_summary = ctx["perf"].summary()
+
+    write_outputs = outputs_root is not None and n <= int(
+        getattr(job.runner_config, "write_outputs_max", 2048)
+        if job.runner_config is not None else 2048
+    )
+    for gi, g in enumerate(groups):
+        st = status[g.offset : g.offset + g.count]
+        result.outcomes[g.id].ok = int(np.sum(st == 1))
+        result.journal["events"][g.id] = {
+            name: int(np.sum(st == code)) for code, name in _STATUS_NAME.items()
+        }
+        if write_outputs:
+            _write_instance_outputs(outputs_root, job, g, st, res, metrics.get(g.id))
+
+    bucket_block = None
+    if bucket_plan is not None and ctx["bucket"] is not None:
+        mb = ctx["bucket"]
+        bucket_block = {
+            "instances": mb.live_n,
+            "padded_instances": mb.padded_n,
+            "dead_lanes": mb.padded_n - mb.live_n,
+            "per_group": {
+                g.id: {"live": lv, "padded": pv}
+                for g, lv, pv in zip(ctx["vgroups"], mb.live_counts, mb.padded_counts)
+            },
+            # the port compiles nothing, so no bucket is ever cold
+            "compile_cache": "off",
+        }
+    result.journal["sim"] = {
+        "ticks": res["ticks"],
+        "tick_ms": res["tick_ms"],
+        "wall_secs": wall,
+        "processes": 1,
+        "compile_secs": round(res.get("compile_secs", 0.0), 3),
+        "devices": 1,
+        "pub_dropped": res["pub_dropped"].tolist(),
+        "latency_clamped": res.get("latency_clamped", 0),
+        "bw_queue_dropped": res.get("bw_queue_dropped", 0),
+        "bw_rate_change_backlogged": res.get("bw_rate_change_backlogged", 0),
+        "msgs_delivered": res.get("msgs_delivered", 0),
+        "msgs_sent": res.get("msgs_sent", 0),
+        "msgs_enqueued": res.get("msgs_enqueued", 0),
+        "msgs_dropped": res.get("msgs_dropped", 0),
+        "msgs_rejected": res.get("msgs_rejected", 0),
+        "msgs_in_flight": res.get("cal_depth", 0),
+        "faults_crashed": res.get("faults_crashed", 0),
+        "faults_restarted": res.get("faults_restarted", 0),
+        "msgs_fault_dropped": res.get("fault_dropped", 0),
+        "carry_bytes": res.get("carry_bytes", 0),
+        # the pack-shared transport (one resolution per pack)
+        "transport": transport_block,
+        # this member's slot in the shared program
+        "pack": {
+            "width": width,
+            "members": n_members,
+            "index": idx,
+            "leader_run": ctx["leader_run"],
+        },
+        **({"latency": latency} if latency else {}),
+        **({"perf": perf_summary} if perf_summary else {}),
+        **({"bucket": bucket_block} if bucket_block else {}),
+    }
+    result.update_outcome()
+    if member.canceled and cancel.is_set():
+        result.outcome = Outcome.CANCELED
+    slo_eval = ctx["slo_eval"]
+    if slo_eval is not None and slo_eval.fatal is not None and not cancel.is_set():
+        from .slo import SloBreachError
+
+        result.outcome = Outcome.FAILURE
+        err = SloBreachError(slo_eval.fatal)
+        result.journal["slo"]["error"] = str(err)
+        err.run_output = RunOutput(run_id=job.run_id, result=result)
+        spans.end("collect")
+        spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
+        raise err
+    preempt_ev = getattr(job, "preempt", None)
+    if (member.canceled and preempt_ev is not None and preempt_ev.is_set()
+            and not cancel.is_set()):
+        from ..engine.controller import TaskPreemptedError
+
+        # an evicted member: its lanes stopped at the chunk boundary, and a
+        # pack member writes no snapshots, so it reruns from scratch. After
+        # the SLO raise: a fatal breach wins over eviction
+        spans.point("preempt", tick=int(res["ticks"]), snapshot_tick=0,
+                    resumable=False)
+        spans.end("collect")
+        raise TaskPreemptedError(job.run_id, tick=int(res["ticks"]), resumable=False)
+    ow.infof("sim:torch %s: packed run done — %d ticks, %s", job.run_id, res["ticks"],
+             result.outcome.value)
+    spans.end("collect")
     spans.end("run", outcome=result.outcome.value, ticks=res["ticks"])
     return RunOutput(run_id=job.run_id, result=result)
 

@@ -24,8 +24,8 @@ Which devices :func:`make_mesh` gives:
 
 Only the calendar planes are split per shard in this slice; every other
 carry leaf stays on the mesh's primary device (shard 0's), whatever the
-table says about it. A 2-D ``"RxP"`` shape (the pack run axis) is refused:
-run packs are ROADMAP queue 1 item 13c.
+table says about it. A 2-D ``"RxP"`` shape (the pack run axis over the
+mesh) is refused: packs on a mesh are ROADMAP queue 1 item 13d.
 """
 
 from __future__ import annotations
@@ -85,7 +85,7 @@ DEFAULT_RULES: tuple[tuple[str, str, PartitionSpec], ...] = (
 
 _PACK_AXIS = (
     "a 2-D mesh (pack runs x peers) is not ported yet: ROADMAP queue 1 "
-    "item 13c (run packs)"
+    "item 13d (packs on a mesh, and the 2-D mesh)"
 )
 
 

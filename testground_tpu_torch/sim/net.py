@@ -496,6 +496,7 @@ def enqueue(
     want_fate: bool = False,
     want_flow: bool = False,
     dice_idx: torch.Tensor | None = None,
+    runs: int = 1,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
@@ -524,7 +525,16 @@ def enqueue(
     - ``dice_idx``: ``[O·N]`` int32 message indices the shaping dice hash
       in place of the flat index (shape bucketing: the exact run's
       indices, so every stochastic draw matches an unpadded run's). The
-      slot ranks, the fate and the flow keep the flat index."""
+      slot ranks, the fate and the flow keep the flat index.
+    - ``runs``: a run pack's run axis (``sim/pack.py``). The lanes are
+      ``runs`` equal blocks laid out run-major, no message crosses a
+      block, and ``key`` is then an ``[O·N]`` int64 tensor of per-message
+      hash salts (each message's run's link key). Every count of the
+      feedback (``sent``, ``enqueued``, ``clamped``, ``bw_dropped``,
+      ``fault_dropped``, ``collisions``) is then ``[runs]`` int32 and
+      ``collision_where`` ``[runs, 2]``, each run's as its own run would
+      count it. Ranks are unchanged: a destination's senders all belong
+      to its run and keep their relative order in the flat index."""
     width = cal.width
     horizon, n = cal.horizon, cal.lanes
     o, n_src = valid.shape
@@ -541,7 +551,15 @@ def enqueue(
     val_f = valid.reshape(-1)
     val0 = val_f
     m = val_f.shape[0]
-    sent = val_f.sum(dtype=i32)
+    n_run = n // runs
+
+    def count(x):
+        """A per-message (or per-lane) mask's total, per run of a pack."""
+        if runs == 1:
+            return x.sum(dtype=i32)
+        return x.view(-1, runs, n_run).sum(dim=(0, 2), dtype=i32)
+
+    sent = count(val_f)
     sent_m = val0.to(i32) if want_flow else None
 
     def srow(row):  # src-indexed [N] row → per message: an o-fold tile
@@ -553,7 +571,7 @@ def enqueue(
     # per-feature dice: murmur3 finalizer of (message index, per-tick key
     # salt, feature id), exactly the reference's int32 hash (net.py:
     # 696-736) computed on uint32 values in int64
-    salt = _hash_salt(key)
+    salt = key if isinstance(key, torch.Tensor) else _hash_salt(key)
     iota_m = midx if dice_idx is None else dice_idx
     h0 = (iota_m.to(torch.int64) * 0x9E3779B1 + salt) & _M32
 
@@ -598,12 +616,14 @@ def enqueue(
             )
         action = torch.full((m,), FILTER_ACCEPT, dtype=i32, device=dev)
         matched = torch.zeros(m, dtype=torch.bool, device=dev)
+        # a pack's rules address their own run's lanes
+        dst_rule = dst_safe if runs == 1 else torch.remainder(dst_safe, n_run)
         for k in range(link.rules.shape[0]):
             # unset rules (start >= end) can never hit
             hit = (
                 ~matched
-                & (dst_safe >= srow(link.rules[k, 0]))
-                & (dst_safe < srow(link.rules[k, 1]))
+                & (dst_rule >= srow(link.rules[k, 0]))
+                & (dst_rule < srow(link.rules[k, 1]))
             )
             action = torch.where(hit, srow(link.rules[k, 2]), action)
             matched = matched | hit
@@ -625,7 +645,7 @@ def enqueue(
     # the shaping losses, so every fault kill lands in fault_dropped.
     # Only the windows open at this tick are evaluated: a closed window
     # contributes nothing to the reference's OR.
-    zero = torch.zeros((), dtype=i32, device=dev)
+    zero = torch.zeros(() if runs == 1 else (runs,), dtype=i32, device=dev)
     fault_dropped = zero
     fault_m = None
     if faults is not None and not isinstance(faults, DeviceFaults):
@@ -655,7 +675,7 @@ def enqueue(
         if is_ctrl is not None:
             kill = kill & ~is_ctrl
         fault_m = val_f & kill
-        fault_dropped = fault_m.sum(dtype=i32)
+        fault_dropped = count(fault_m)
         val_f = val_f & ~fault_m
 
     # --- bandwidth, admission-cap semantics (the HTB queue below
@@ -735,7 +755,7 @@ def enqueue(
         backlog_m = srow(link.backlog)
         q_msgs = backlog_m * rate + ahead
         overflow_q = queued & (q_msgs >= float(bw_queue_cap))
-        bw_dropped = overflow_q.sum(dtype=i32)
+        bw_dropped = count(overflow_q)
         val_f = val_f & ~overflow_q
         queued = queued & ~overflow_q
         dt = torch.floor(backlog_m + ahead / safe_rate + 1e-4).to(i32)
@@ -753,7 +773,7 @@ def enqueue(
         delay = torch.where(is_ctrl, torch.ones_like(delay), delay)
 
     # --- calendar-horizon overflow is counted, then clamped
-    clamped = (val_f & (delay > horizon - 1)).sum(dtype=i32)
+    clamped = count(val_f & (delay > horizon - 1))
     delay = delay.clamp(1, horizon - 1)
 
     def fate_of(survived):
@@ -787,7 +807,8 @@ def enqueue(
             backlog=new_backlog,
             collisions=zero if collisions is None else collisions,
             collision_where=(
-                torch.zeros(2, dtype=i32, device=dev) if where is None else where
+                torch.zeros(zero.shape + (2,), dtype=i32, device=dev)
+                if where is None else where
             ),
             sent=sent,
             enqueued=enqueued,
@@ -798,7 +819,8 @@ def enqueue(
 
     if slot_mode == "direct":
         enq, collisions, where = _commit_direct(
-            cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate
+            cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate,
+            count, runs,
         )
         return cal, feedback(enq, fate_of(val_f), flow_of(val_f), collisions, where)
 
@@ -812,10 +834,10 @@ def enqueue(
             dup = dup & ~is_ctrl
         if want_fate or want_flow:
             orig = torch.cat([midx, midx])
-        sent = sent + dup.sum(dtype=i32)
+        sent = sent + count(dup)
         if want_flow:
             sent_m = sent_m + dup.to(i32)
-        clamped = clamped + (dup & (delay >= horizon - 1)).sum(dtype=i32)
+        clamped = clamped + count(dup & (delay >= horizon - 1))
         dst_safe = torch.cat([dst_safe, dst_safe])
         pay_w = [torch.cat([p, p]) for p in pay_w]
         src_f = torch.cat([src_f, src_f])
@@ -861,11 +883,19 @@ def enqueue(
         )
         fate = fate_of(surv > 0)
         flow = flow_of(surv)
-    return cal, feedback(survived.sum(dtype=i32), fate, flow)
+    if runs == 1:
+        enqueued = survived.sum(dtype=i32)
+    else:
+        # a sorted key's destination names its run; an invalid message's
+        # key (L·N) names run 0 and adds its zero survival there
+        run_of = torch.div(torch.remainder(sk, n), n_run, rounding_mode="floor")
+        enqueued = torch.zeros(runs, dtype=i32, device=dev).index_add_(
+            0, run_of, survived)
+    return cal, feedback(enqueued, fate, flow)
 
 
 def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
-                   o, validate):
+                   o, validate, count, runs=1):
     """Direct slot mode's write (``net.py:1031-1111``): slot = the sender's
     outbox index, one write per message, no sort and no duplicate pass.
     The reference drops an invalid message by scattering it to the
@@ -876,7 +906,9 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
     On a mesh message m lands in shard ``dst // n_loc`` at row bucket,
     position ``slot·n_loc + dst mod n_loc``; a device that holds several
     shards takes one write per plane. Returns ``(enqueued, collisions,
-    collision_where)``, the last two None without ``validate``."""
+    collision_where)``, the last two None without ``validate``; ``count``
+    totals a mask per run of a pack (``runs``), whose first collision is
+    each run's own, its receiver run-local."""
     slots = cal.slots
     horizon, n = cal.horizon, cal.lanes
     ns = n * slots
@@ -913,11 +945,16 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
                 hit = flat[idx.clamp(0, flat.shape[0] - 1).to(dev)] != 0
                 occ = occ | (hit.to(occ.device) & (shard >= s0) & (shard < s1))
         conflict = dup | (occ & val_f)
-        collisions = conflict.sum(dtype=i32)
-        first = torch.where(conflict, lin, big).min()
+        collisions = count(conflict)
+        first = torch.where(conflict, lin, big)
+        if runs == 1:
+            first = first.min()
+        else:
+            first = first.view(-1, runs, n // runs).amin(dim=(0, 2))
         p = torch.remainder(first, ns)
         where = torch.stack(
-            [torch.remainder(p, n), torch.div(p, n, rounding_mode="floor")]
+            [torch.remainder(p, n // runs), torch.div(p, n, rounding_mode="floor")],
+            dim=-1,
         ).to(i32)
     keep = val_f.nonzero().squeeze(1)  # the write's one host sync
     if cal.mesh is None:
@@ -942,7 +979,7 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
             part.valid.index_put_((b, p), torch.ones_like(b, dtype=torch.bool))
         if part.etick is not None:
             part.etick.index_put_((b, p), t.reshape(()).to(dev, i32).expand(b.shape[0]))
-    return val_f.sum(dtype=i32), collisions, where
+    return count(val_f), collisions, where
 
 
 def apply_net_updates(

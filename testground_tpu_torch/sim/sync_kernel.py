@@ -60,7 +60,16 @@ def update_sync(
     pub_payload: torch.Tensor,  # [T, PW, N] int32
     pub_valid: torch.Tensor,  # [T, N] bool
     sub_consume: torch.Tensor,  # [T, N] int32
+    runs: int = 1,
 ) -> SyncState:
+    """One tick's sync fold. ``runs`` > 1 folds a run pack's state
+    (``sim/pack.py``): the lanes are ``runs`` run-major blocks and the
+    shared leaves carry a leading run axis (``counts [R, S]``, ``stream
+    [R, T, CAP, PW]``, ``stream_len``/``dropped [R, T]``); every prefix
+    sum and append stays inside its run."""
+    if runs > 1:
+        return _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume,
+                                 runs)
     i32 = torch.int32
     n_topics, cap, pw = sync.stream.shape
     prefix = torch.cumsum(signals, dim=1, dtype=i32)
@@ -88,6 +97,50 @@ def update_sync(
     cursors = torch.minimum(
         sync.cursors + sub_consume.clamp_min(0), stream_len[:, None]
     )
+    return SyncState(
+        counts=counts,
+        last_seq=last_seq,
+        stream=stream,
+        stream_len=stream_len,
+        cursors=cursors,
+        dropped=dropped,
+    )
+
+
+def _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume, runs):
+    """:func:`update_sync` over a pack's run axis, one launch per op for
+    all runs."""
+    i32, i64 = torch.int32, torch.int64
+    n_states, lanes = signals.shape
+    n = lanes // runs
+    _, n_topics, cap, pw = sync.stream.shape
+    sig = signals.view(n_states, runs, n)
+    prefix = torch.cumsum(sig, dim=2, dtype=i32)
+    seq = sync.counts.t()[:, :, None] + prefix
+    last_seq = torch.where(signals > 0, seq.reshape(n_states, lanes), sync.last_seq)
+    counts = sync.counts + sig.sum(dim=2, dtype=i32).t()
+
+    if n_topics == 0:
+        return dataclasses.replace(sync, counts=counts, last_seq=last_seq)
+
+    pv = pub_valid.to(i32).view(n_topics, runs, n)  # [T, R, N]
+    offsets = sync.stream_len.t()[:, :, None] + torch.cumsum(pv, dim=2, dtype=i32) - pv
+    in_range = pub_valid.view(n_topics, runs, n) & (offsets < cap)
+    dev = pv.device
+    run = torch.arange(runs, dtype=i64, device=dev)[None, :, None]
+    topic = torch.arange(n_topics, dtype=i64, device=dev)[:, None, None]
+    flat_idx = ((run * n_topics + topic) * cap + offsets.to(i64))[in_range]
+    upd = pub_payload.view(n_topics, pw, runs, n).permute(0, 2, 3, 1)[in_range]
+    stream = sync.stream.clone()
+    stream.reshape(-1, pw)[flat_idx] = upd
+    published = pv.sum(dim=2, dtype=i32).t()  # [R, T]
+    stored = in_range.sum(dim=2, dtype=i32).t()
+    stream_len = torch.clamp(sync.stream_len + published, max=cap)
+    dropped = sync.dropped + (published - stored)
+    cursors = torch.minimum(
+        (sync.cursors + sub_consume.clamp_min(0)).view(n_topics, runs, n),
+        stream_len.t()[:, :, None],
+    ).reshape(n_topics, lanes)
     return SyncState(
         counts=counts,
         last_seq=last_seq,

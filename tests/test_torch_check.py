@@ -208,10 +208,10 @@ def test_findings_match_jax(label):
 
 # ------------------------------------------------------------ divergences
 
-ITEM_13 = pexec._ITEM_13
+ITEM_13D = pexec._ITEM_13D
 
 
-def _not_ported(name, value, item=ITEM_13):
+def _not_ported(name, value, item=ITEM_13D):
     return ("port.not-ported", "error", pcheck.not_ported_message(name, value, item), "")
 
 
@@ -224,13 +224,14 @@ DIVERGENCES = {
     "buckets-ladder": (dict(run_cfg={"bucket": "auto", "bucket_ladder": "x,y"}), REF),
     "trace-bucket-disabled": (dict(trace={"instances": "0:1"},
                                    run_cfg={"bucket": "auto", "bucket_ladder": "16"}), REF),
-    "pack-solo": (dict(run_cfg={"pack": True}), [_not_ported("pack", True)]),
+    # pack.solo was port.not-ported until run packs were ported
+    "pack-solo": (dict(run_cfg={"pack": True, "profile": True}), REF),
     "cohort": (dict(run_cfg={"coordinator_address": "127.0.0.1:1", "telemetry": True,
                              "nan_guard": True, "num_processes": 2}),
                [_not_ported("coordinator_address", "127.0.0.1:1", pexec._ITEM_15B),
                 _not_ported("num_processes", 2, pexec._ITEM_15B)]),
     "mesh-2d": (dict(count=8, run_cfg={"mesh": "2x4"}),
-                [("port.not-ported", "error", pcheck.mesh_2d_message("2x4", ITEM_13), "")]),
+                [("port.not-ported", "error", pcheck.mesh_2d_message("2x4", ITEM_13D), "")]),
     "mesh-indivisible-pallas": (
         dict(count=6, run_cfg={"mesh": "4", "transport": "pallas"}),
         [("transport.mesh-indivisible", "error", pcheck.pallas_lanes_message(6, 0, 4),
@@ -314,11 +315,12 @@ def drive_executor(comp):
 
 _DEFAULTS = pexec.SimTorchConfig()
 # a value away from its default for every unported setting
-_UNPORTED_VALUES = {"pack": True, "pack_max": 4, "coordinator_address": "127.0.0.1:1",
+_UNPORTED_VALUES = {"coordinator_address": "127.0.0.1:1",
                     "num_processes": 2, "process_id": 1}
-# refused until shape buckets were ported (their cases keep their labels)
+# refused until shape buckets and run packs were ported (their cases keep
+# their labels)
 _PORTED_BUCKET_VALUES = {"bucket": "auto", "bucket_ladder": "32,64",
-                         "build_buckets": True}
+                         "build_buckets": True, "pack": True, "pack_max": 4}
 
 DRIFT = {
     # the resume-multi-runs rule judges the whole composition, where the
@@ -327,6 +329,8 @@ DRIFT = {
        if k != "checkpoint-resume-multi-runs"},
     **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _UNPORTED_VALUES.items()},
     **{f"unported-{k}": dict(run_cfg={k: v}) for k, v in _PORTED_BUCKET_VALUES.items()},
+    # a pack on a mesh: item 13d
+    "unported-pack-mesh": dict(count=8, run_cfg={"pack": True, "mesh": "2"}),
     "ported-bucket-ladder": dict(count=10, run_cfg={"bucket": "auto",
                                                     "bucket_ladder": "16"}),
     "buckets-mode-invalid": dict(run_cfg={"bucket": "sideways"}),

@@ -847,3 +847,63 @@ def test_gpu_padded_run_matches_exact_and_cpu_runs(cuda, name):
         for sr, sp in zip(ref["states"], res["states"]):
             for k in sr:
                 np.testing.assert_array_equal(sp[k], sr[k], err_msg=f"{label} {k}")
+
+
+# name: (plan, case, exact counts of the members, params, bucket): run packs
+PACKED_GPU_RUNS = {
+    # four bucketed tenants (one dead dummy pads the width to 4)
+    "sustained-bucketed": ("network", "pingpong-sustained", (60, 50, 40),
+                           {"duration_ticks": "48", "reshape_every": "16"}, 64),
+    # equal counts, direct slots
+    "flood": ("benchmarks", "pingpong-flood", (64, 64), {"duration_ticks": "40"}, None),
+    # TRACK_SRC off, SLOTS=16, the sync plane's publishes
+    "subtree-bucketed": ("benchmarks", "subtree", (30, 20, 17, 9),
+                         {"subtree_iterations": "4"}, 32),
+}
+
+
+@pytest.mark.parametrize("name", list(PACKED_GPU_RUNS))
+def test_gpu_packed_run_matches_cpu_run(cuda, name):
+    """A pack on the card equals the same pack on the CPU, member by member
+    (results, telemetry blocks), with K1 and K2 launched once a tick for
+    the whole pack."""
+    from testground_tpu_torch.sim.pack import PackMember, PackRunner, pack_width
+
+    plan, case, counts, params, bucket = PACKED_GPU_RUNS[name]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    n = bucket or counts[0]
+    groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
+    out = {}
+    for device in ("cpu", cuda):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, telemetry=True,
+                          live_counts=(counts[0],) if bucket else None)
+        tele = [[] for _ in counts]
+        members = [PackMember(seed=i, live_counts=(c,) if bucket else None, max_ticks=512,
+                              telemetry_cb=lambda b, i=i: tele[i].append(b.copy()))
+                   for i, c in enumerate(counts)]
+        before = (ct.commit_calendar.launches, ct.pop_bucket.launches)
+        res = PackRunner(prog, pack_width(len(counts), 8)).run(members)
+        torch.cuda.synchronize()
+        launched = (ct.commit_calendar.launches - before[0],
+                    ct.pop_bucket.launches - before[1])
+        out[str(device)] = (res, tele, launched)
+    (rc, tc, lc), (rg, tg, lg) = out["cpu"], out[str(cuda)]
+    assert lc == (0, 0) and lg[1] > 0  # one pop a tick for the whole pack
+    ticks = max(int(r["ticks"]) for r in rg)
+    assert lg[1] <= ticks
+    for i, c in enumerate(counts):
+        assert rc[i]["status"].shape == (c,) and (rc[i]["status"] == 1).all()
+        for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped",
+                  "msgs_rejected", "carry_bytes"):
+            assert rg[i][k] == rc[i][k], (i, k)
+        np.testing.assert_array_equal(rg[i]["status"], rc[i]["status"])
+        np.testing.assert_array_equal(rg[i]["finished_at"], rc[i]["finished_at"])
+        np.testing.assert_array_equal(rg[i]["sync_counts"], rc[i]["sync_counts"])
+        for sc, sg in zip(rc[i]["states"], rg[i]["states"]):
+            for k in sc:
+                np.testing.assert_array_equal(sg[k], sc[k], err_msg=f"{i} {k}")
+        assert rg[i]["lat_hist"] == rc[i]["lat_hist"]
+        assert len(tg[i]) == len(tc[i])
+        for a, b in zip(tc[i], tg[i]):
+            np.testing.assert_array_equal(b, a)

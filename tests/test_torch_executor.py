@@ -307,14 +307,15 @@ def test_outputs_over_the_cap_are_skipped(tmp_path):
 
 
 # name: (value, the ROADMAP item that refuses it; None for the settings of
-# shape buckets, refused until they were ported, which now run)
+# shape buckets and run packs, refused until they were ported, which now
+# run)
 REFUSED = {
     "bucket": ("auto", None),
     "bucket_ladder": ("32,64", None),
     "build_buckets": (True, None),
-    "pack": (True, "item 13c"),
-    "pack_max": (4, "item 13c"),
-    "mesh": ("2x4", "item 13c"),
+    "pack": (True, None),
+    "pack_max": (4, None),
+    "mesh": ("2x4", "item 13d"),
     "coordinator_address": ("localhost:1234", "item 15b"),
     "num_processes": (2, "item 15b"),
     "process_id": (1, "item 15b"),
@@ -351,11 +352,13 @@ def test_checkpoint_setting_runs(name, tmp_path):
 def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
     value, item = REFUSED[name]
     if item is None:
-        # a bucket setting: the run goes through, exact-N, and a bucketed
-        # one journals its bucket block
+        # a bucket or pack setting: the run goes through, exact-N, and a
+        # bucketed one journals its bucket block (a run alone is no pack:
+        # the pack block is the supervisor's, engine/pack.py)
         out = pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
                                     discard_writer(), threading.Event())
         assert out.result.journal["events"]["all"]["success"] == 2
+        assert "pack" not in out.result.journal["sim"]
         bucket = out.result.journal["sim"].get("bucket")
         if name == "bucket":
             assert bucket["instances"] == 2 and bucket["padded_instances"] == 4096

@@ -18,7 +18,8 @@ reference's ``tests/test_preempt.py``, on the CPU:
   fail-severity SLO breach wins);
 - bit-equality with real port runs: a preempted, a doubly preempted and an
   evicted run each end equal to the port's uninterrupted run and to the
-  reference's. Run packs' member preemption waits for item 13c.
+  reference's (pack-member preemption: ``tests/test_torch_pack_engine.py``);
+- the drain waits for a task claimed before its worker registers (F5).
 """
 
 import json
@@ -278,6 +279,44 @@ def test_drain_preempts_running_and_parks(tg_home):
         assert engine.fleet_payload()["draining"]
         assert "daemon.drain" in [r["type"] for r in _journal_rows(engine)]
     finally:
+        engine.stop()
+
+
+def test_drain_waits_for_a_task_claimed_before_its_worker_registers(tg_home,
+                                                                     monkeypatch):
+    """The window between a worker's pop (the task is PROCESSING) and its
+    entry in the worker map, held open: the drain must not report drained
+    while the claimed run has yet to start, and it preempts that run."""
+    from testground_tpu_torch.engine import supervisor
+
+    held, release = threading.Event(), threading.Event()
+    real = supervisor._note_claim
+
+    def held_claim(engine, idx, pack):
+        held.set()
+        release.wait(10.0)
+        real(engine, idx, pack)
+
+    monkeypatch.setattr(supervisor, "_note_claim", held_claim)
+    engine = make_engine(PreemptOnceRunner(resumable=False))
+    engine.start_workers()
+    try:
+        tid = engine.queue_run(simple_comp(), simple_manifest())
+        assert held.wait(10.0)
+        assert engine.get_task(tid).state().state == State.PROCESSING
+        out = {}
+        th = threading.Thread(target=lambda: out.update(engine.drain(timeout_secs=10.0)))
+        th.start()
+        time.sleep(0.5)
+        assert not out, "drain reported before the claimed task was parked"
+        assert engine.get_task(tid).state().state == State.PROCESSING
+        release.set()
+        th.join(15.0)
+        assert out["drained"] is True and out["preempted"] == [tid]
+        t = engine.get_task(tid)
+        assert t.state().state == State.SCHEDULED and int(t.trace["preemptions"]) == 1
+    finally:
+        release.set()
         engine.stop()
 
 
