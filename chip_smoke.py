@@ -58,7 +58,7 @@ and drives the port's main path through the library entry points
               kernels a tick of both; all SUCCESS and the flow totals
               closing over fault_dropped
 11. telemetry — sustained@100k at phase 4's parameters, 500 ticks, four
-              ways in three turns (wall deltas paired against the same
+              ways in two turns (wall deltas paired against the same
               turn's planes-off run, resolved past the off runs' quartiles): every observability plane off, telemetry,
               telemetry + the traffic matrix, and those two + a 64-lane
               trace plan; wall and device ms/tick, busy share, kernels a
@@ -76,7 +76,7 @@ and drives the port's main path through the library entry points
               rule in turns against SimProgram.run, faults@100k and chaos
               at 1,024 with SLO rules, CPU vs GPU at 4,096
 14. mesh    — sustained@100k at phase 4's parameters on a 4-shard virtual
-              mesh on card 0, in three turns with the same run unmeshed:
+              mesh on card 0, in two turns with the same run unmeshed:
               all SUCCESS, each sharded kernel launched once a tick, flow
               conservation exact, every carry leaf equal to the unmeshed
               run's; wall and device ms/tick, kernels a tick, busy share
@@ -86,7 +86,7 @@ and drives the port's main path through the library entry points
               process) in temporary homes holding the port's plans:
               ``healthcheck --runner sim:torch``; the sustained smoke
               composition (telemetry files, K1 and K2 journaled and
-              launched); sustained@100k as a composition in three turns
+              launched); sustained@100k as a composition in two turns
               against ``execute_sim_run`` of the ``RunInput`` the CLI
               lowered, after a warm-up run (the CLI's host cost per run
               and per tick; then kernels a tick and device ms/tick of both,
@@ -125,7 +125,7 @@ and drives the port's main path through the library entry points
               dashboard poller (see ``phase_surface``)
 20. resume  — the checkpoint plane and the fleet controller: sustained@100k
               through ``execute_sim_run`` with a snapshot every chunk (bytes,
-              D2H and write ms of each) against the knob at 0 in three
+              D2H and write ms of each) against the knob at 0 in two
               rotated turns (ms/tick; with the knob at 0 ops and syncs a
               tick equal to a run without the key), a run cut at tick 250
               and resumed, the faulted sustained at 4,096 snapshotted on the
@@ -136,7 +136,7 @@ and drives the port's main path through the library entry points
               ``phase_resume``)
 21. buckets — shape buckets: sustained@100k exact against ``bucket =
               "auto"`` (131,072 lanes) through ``execute_sim_run`` in
-              three rotated turns, equal; ``build --buckets`` and a
+              two rotated turns, equal; ``build --buckets`` and a
               bucketed ``run single`` through the CLI; ops and syncs a
               tick; ping-pong@100k and the faulted sustained at 4,000
               padded (CPU ↔ card); 100,002 instances on a 4-shard mesh
@@ -148,12 +148,14 @@ and drives the port's main path through the library entry points
 22. packs   — run packs: eight sustained tenants at 24,000 … 31,000
               instances (32,768 lanes each) through an in-process daemon
               with one worker, against the same eight one after another
-              through ``execute_sim_run``, three rotated turns, each
-              member equal to its serial run; the reference's ping-pong
-              pack smoke at 5 … 29 instances against CPU runs; a straggler
-              and an SLO-canceled member against their isolated runs; the
-              pack against one member alone, peak bytes and a profiled
-              first chunk last (see ``phase_packs``)
+              through ``execute_sim_run``, two rotated turns, each member
+              equal to its serial run; the reference's ping-pong pack
+              smoke at 5 … 29 instances against CPU runs; a straggler and
+              an SLO-canceled member against their isolated runs; the
+              eight on a 4-shard and a "2x4" virtual mesh against the
+              unmeshed pack, two rotated turns, each member equal; the
+              pack against one member alone and the meshed packs, peak
+              bytes and a profiled first chunk last (see ``phase_packs``)
 23. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
@@ -1147,7 +1149,7 @@ def phase_faults(card) -> dict:
 # the mesh phase: peer shards of its virtual mesh on card 0, and turns of
 # the meshed and unmeshed sustained@100k it times
 MESH_SHARDS = 4
-MESH_TURNS = 3
+MESH_TURNS = 2
 
 
 def phase_mesh(card) -> dict:
@@ -1235,10 +1237,10 @@ def phase_mesh(card) -> dict:
 
 # the telemetry phase's four ways to run sustained@100k, and how many
 # turns of the four it times: host speed drifts within a call by more
-# than a plane's wall cost, so three pairs against the planes-off run
-# (six to PR 14; three, as every other phase times, to make room for the
-# buckets phase inside the script's time limit)
-TURNS = 3
+# than a plane's wall cost, so pairs against the planes-off run (six
+# once, then three, now two: every phase that timed three turns times two,
+# so that the script stays inside its time limit on a slow host)
+TURNS = 2
 PLANE_SETS = {
     "off": {},
     "telemetry": {"telemetry": True},
@@ -1721,7 +1723,7 @@ SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", 
 # the perf ledger's row fields that are the run's: the rest are timings,
 # the transport that ran and, on a card, the device bytes in use
 PERF_ROW_FIELDS = ("run", "plan", "case", "tick", "chunk")
-EXEC_TURNS = 3
+EXEC_TURNS = 2
 
 
 def exec_job(run_id, root, plan, case, n, params, device="cuda", faults=None,
@@ -1949,7 +1951,7 @@ def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
 
 # ------------------------------------------------------------ the CLI
 
-CLI_TURNS = 3
+CLI_TURNS = 2
 # sustained@100k as a composition: bench.py's sustained cut as phase 4
 # cuts it, through `run composition` at full width
 SUSTAINED_COMPOSITION = """[metadata]
@@ -2688,7 +2690,7 @@ def phase_daemon(card) -> dict:
 
 # ---------------------------------------------------------------- admit
 
-ADMIT_TURNS = 3
+ADMIT_TURNS = 2
 # the bad compositions of phase admit: cli@100k's composition with one
 # change each, and the rule its 422 names
 ADMIT_REFUSED = {
@@ -2706,10 +2708,10 @@ ADMIT_REFUSED = {
                                   "kind": "partition", "instances": "0:50000",
                                   "to_instances": "50000:100000", "start_ms": 100.0,
                                   "duration_ms": -50.0}])),
-    # a run pack on a mesh: still refused (item 13d); a bucket mode the
+    # a multi-process cohort: still refused (item 15b); a bucket mode the
     # gate refuses
-    "pack-on-mesh": ("port.not-ported",
-                     lambda c: c["global"]["run_config"].update(pack=True, mesh="2")),
+    "num-processes": ("port.not-ported",
+                      lambda c: c["global"]["run_config"].update(num_processes=2)),
     "bucket-sideways": ("buckets.mode-invalid",
                         lambda c: c["global"]["run_config"].update(bucket="sideways")),
 }
@@ -2742,7 +2744,7 @@ def phase_admit(card) -> dict:
     """Admission at submit and the perf ledger on the card: (a) an
     in-process ``Daemon`` on the card with one worker refuses cli@100k's
     composition with an SLO and no telemetry, an unknown transport, an
-    inverted fault window, ``pack = true`` on a mesh (item 13d) and
+    inverted fault window, ``num_processes = 2`` (item 15b) and
     ``bucket = "sideways"``: a 422 naming the rule,
     no task, one ``task.refused`` event, no device memory allocated; (b)
     admits cli@100k's own composition, which launches K1 and K2 every tick
@@ -2968,7 +2970,7 @@ def phase_admit(card) -> dict:
 
 # ------------------------------------------------------------ observe
 
-OBSERVE_TURNS = 3
+OBSERVE_TURNS = 2
 # the phase ledger's extra ticks on the card: one warm-up, one counted,
 # then phases_measure measured ones
 OBSERVE_MEASURE = 30
@@ -3766,7 +3768,7 @@ def _answers(client, proc, log_path) -> bool:
 
 # ---------------------------------------------------------------- resume
 
-RESUME_TURNS = 3
+RESUME_TURNS = 2
 
 
 def _run_points(run_dir) -> list:
@@ -3810,7 +3812,7 @@ def phase_resume(card) -> dict:
     1. sustained@100k at phase 4's parameters through ``execute_sim_run``
        (telemetry on): with ``checkpoint_chunks = 1`` each snapshot's bytes,
        D2H ms and write ms and no write error; ms/tick with the knob at 1
-       and at 0 in three rotated turns; with the knob at 0 the ops and the
+       and at 0 in two rotated turns; with the knob at 0 the ops and the
        sync-debug syncs of a chunk equal a run's without the key;
     2. a run cut at tick 250 and resumed from its snapshot equal to the
        uninterrupted card run (journal, telemetry stream, final carry),
@@ -4054,7 +4056,7 @@ def phase_resume(card) -> dict:
 
 # ---------------------------------------------------------------- buckets
 
-BUCKET_TURNS = 3
+BUCKET_TURNS = 2
 # the phase's sizes: sustained@100k and its rung under the default ladder,
 # 1M and its rung, the faulted sustained, the plan cases' sweep
 BUCKET_SIZES = {"n": 100_000, "padded": 131_072, "big": 1_000_000,
@@ -4092,7 +4094,7 @@ def phase_buckets(card) -> dict:
 
     1. sustained@100k at phase 4's parameters through ``execute_sim_run``
        with telemetry, exact against ``bucket = "auto"`` (131,072 lanes)
-       in three rotated turns: wall ms/tick; the journals, the telemetry
+       in two rotated turns: wall ms/tick; the journals, the telemetry
        streams and the latency blocks equal;
     2. ``build single network:pingpong-sustained --buckets`` with the
        ladder 4096,32768,131072 through the CLI (seconds a rung, the
@@ -4416,23 +4418,25 @@ def phase_buckets(card) -> dict:
 # phase packs: eight sustained tenants, one bucket of the default ladder
 # (32,768 lanes each, 262,144 in the pack, 16% of them dead)
 PACK_SIZES = (24_000, 25_000, 26_000, 27_000, 28_000, 29_000, 30_000, 31_000)
-PACK_TURNS = 3
+PACK_TURNS = 2
+# the virtual meshes of card 0 a pack runs on (phase packs, step 4)
+PACK_MESHES = ("4", "2x4")
 # the reference's pack smoke: eight ping-pong tenants in one rung of 32
 PACK_SMOKE_SIZES = (5, 9, 13, 17, 21, 25, 29, 24)
 PACK_SMOKE_LADDER = (32, 64)
 PACK_PINGPONG = {"latency_ms": "4", "latency2_ms": "2", "tolerance_ms": "15"}
 
 
-def pack_profile(prog, members, wall_ms_per_tick) -> dict:
+def pack_profile(prog, members, wall_ms_per_tick, mesh=None) -> dict:
     """``device_profile`` of a pack: device kernel time and kernels a tick
-    over one chunk of ``PackRunner(prog, len(members))``, the busy share
-    against ``wall_ms_per_tick`` and the transport kernels' ms a launch at
-    the packed shape."""
+    over one chunk of ``PackRunner(prog, len(members), mesh=mesh)``, the
+    busy share against ``wall_ms_per_tick`` and the transport kernels' ms a
+    launch at the packed shape."""
     from torch.profiler import ProfilerActivity, profile
 
     from testground_tpu_torch.sim.pack import PackRunner
 
-    runner = PackRunner(prog, len(members))
+    runner = PackRunner(prog, len(members), mesh=mesh)
     ticks = prog.chunk
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         runner.run(members)
@@ -4457,7 +4461,7 @@ def phase_packs(card) -> dict:
        "auto"``: 32,768 lanes each, ``pack = true``, telemetry, chunk 250)
        submitted to an in-process daemon with one worker while a CPU run
        holds it, so one claim takes all eight; against the same eight runs
-       one after another through ``execute_sim_run``, in three rotated
+       one after another through ``execute_sim_run``, in two rotated
        turns. Every member's journal (flow totals, latency, telemetry and
        events blocks) and telemetry stream equals its serial run's, and
        journals ``sim.pack.members`` = 8. Wall ms/tick of the pack (the
@@ -4472,10 +4476,17 @@ def phase_packs(card) -> dict:
        through ``execute_packed_sim_runs``, one of them with a
        fail-severity rule, which fails alone equal to its isolated run's
        breach;
-    4. last, after every wall clock: the pack's peak device bytes against
-       one member alone's over one chunk, and a first chunk of 64 ticks
-       profiled, the pack against one member alone: device ms and kernels
-       a tick, the busy share, K1's and K2's ms a launch at the packed
+    4. pack8@sustained's eight on a 4-shard and on a ``"2x4"`` virtual
+       mesh of card 0 (``PackRunner(..., mesh=make_mesh(shape,
+       devices=[card 0] * k))``: a composition cannot name a virtual mesh
+       on CUDA) against the unmeshed pack, two rotated turns on the
+       library path: wall ms/tick and launches; every meshed member equals
+       its unmeshed-pack run;
+    5. last, after every wall clock: the pack's peak device bytes against
+       one member alone's and the meshed packs' over one chunk, and a first
+       chunk of 64 ticks profiled, the pack against one member alone and
+       the meshed packs: device ms and kernels a tick, the busy share, K1's
+       and K2's (or their sharded forms') ms a launch at the packed
        shape."""
     import shutil
     import tempfile
@@ -4714,7 +4725,10 @@ def phase_packs(card) -> dict:
                              "other_ticks": outs[1].result.journal["sim"]["ticks"]}
         step("straggler_slo")
 
-        # 4. last: peak bytes, then the first 64 ticks profiled
+        # 4. the eight on a 4-shard and a "2x4" virtual mesh of card 0,
+        # against the unmeshed pack, two rotated turns (library path)
+        from testground_tpu_torch.sim.meshplan import make_mesh
+
         lc8 = [plan_buckets([n], "auto", DEFAULT_LADDER).live_counts for n in PACK_SIZES]
 
         def pack_prog(chunk):
@@ -4725,18 +4739,70 @@ def phase_packs(card) -> dict:
             return [PackMember(seed=k, live_counts=lc, max_ticks=ticks)
                     for k, lc in enumerate(lc8)]
 
+        card0 = torch.device("cuda", 0)
+
+        def pack_mesh(way):
+            if way == "unmeshed":
+                return None
+            dims = [int(d) for d in way.split("x")]
+            return make_mesh(way, devices=[card0] * int(np.prod(dims)))
+
+        def mesh_turn(way):
+            runner = PackRunner(pack_prog(250), 8, mesh=pack_mesh(way))
+            stepped, tick = [], runner._tick
+
+            def counted_tick(*a, **k):
+                stepped.append(1)
+                return tick(*a, **k)
+
+            runner._tick = counted_tick
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = runner.run(members(10_000))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_launches(KERNELS + SHARDED_KERNELS)
+            for k, v in got.items():
+                launches[k] += v
+            ticks = len(stepped)
+            kern = SHARDED_KERNELS if way != "unmeshed" else KERNELS
+            check(all(got[k] == ticks for k in kern),
+                  f"packs mesh {way}: launches {got} over {ticks} ticks")
+            return res, wall / ticks * 1e3, got, ticks
+
+        ways = ("unmeshed", *PACK_MESHES)
+        mesh_runs = {w: [] for w in ways}
+        for i in range(2):
+            for way in (ways if i % 2 == 0 else ways[::-1]):
+                mesh_runs[way].append(mesh_turn(way))
+        base = mesh_runs["unmeshed"][0][0]
+        for way in ways:
+            for res, *_ in mesh_runs[way]:
+                for k in range(len(PACK_SIZES)):
+                    same_results(f"packs mesh {way} member {k}", base[k], res[k])
+        row["pack8_meshes"] = {
+            way: {"wall_ms_per_tick": [t[1] for t in mesh_runs[way]],
+                  "ticks": mesh_runs[way][0][3], "launches": mesh_runs[way][0][2]}
+            for way in ways}
+        step("meshes")
+
+        # 5. last: peak bytes, then the first 64 ticks profiled
         peaks = {}
-        for way in ("pack", "member"):
+        for way in ("pack", "member", *PACK_MESHES):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
-            if way == "pack":
-                PackRunner(pack_prog(64), 8).run(members(64))
-            else:
+            if way == "member":
                 pack_prog(64).run(seed=0, max_ticks=64)
+            else:
+                PackRunner(pack_prog(64), 8, mesh=None if way == "pack"
+                           else pack_mesh(way)).run(members(64))
             torch.cuda.synchronize()
-            counted(f"peak {way}")
+            got = read_launches(KERNELS + SHARDED_KERNELS)
+            for k, v in got.items():
+                launches[k] += v
             peaks[way] = torch.cuda.max_memory_allocated() - held
         p8 = row["pack8_sustained"]
         prof = {
@@ -4744,11 +4810,18 @@ def phase_packs(card) -> dict:
                                  p8["median_pack_wall_ms_per_tick"]),
             "member": device_profile(pack_prog(64), ticks=64, wall_ms_per_tick=p8[
                 "serial_member_wall_ms_per_tick"], host_ops=False),
+            **{way: pack_profile(pack_prog(64), members(64), statistics.median(
+                row["pack8_meshes"][way]["wall_ms_per_tick"]), mesh=pack_mesh(way))
+               for way in PACK_MESHES},
         }
         kp, km = prof["pack"]["kernels_per_tick"], prof["member"]["kernels_per_tick"]
         row["profiled"] = prof
         row["peak_bytes"] = {**peaks, "ratio": peaks["pack"] / peaks["member"]}
         row["kernels_ratio"] = kp / km if kp and km else None
+        row["mesh_kernels_added"] = {
+            way: (prof[way]["kernels_per_tick"] - kp
+                  if prof[way]["kernels_per_tick"] and kp else None)
+            for way in PACK_MESHES}
         step("profiled")
     finally:
         daemon.stop()
@@ -4857,6 +4930,11 @@ def main(argv=None) -> int:
             sharded_pop_case("y-fold", 2, 2, 8, 65_540, 1, False, 65),
             sharded_pop_case("y-fold-scalar", 2, 2, 6, 65_540, 2, True, 66),
             sharded_pop_case("width-8-bool-16", 4, 16, 4 * 1024, 4, 8, True, 67),
+            # pack8@sustained on a 4-shard or a "2x4" mesh: 32 sub-shards of
+            # 8,192 lanes (eight members × four peer shards), one part
+            sharded_commit_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, 2 * 32 * 8192,
+                                False, True, True, 68),
+            sharded_pop_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, False, 69),
         ]
         # the harness's own floor: an empty kernel timed the same way
         floor = {"phase": "kernels", "case": "launch-floor",

@@ -107,8 +107,10 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
     rung that does not divide across the mesh's peer shards, and a rung
     the memory precheck refuses (each rung is best-effort). With ``pack``
     each rung also warms the power-of-two pack widths up to ``pack_max``
-    (``_warm_pack_widths``; a pack on a mesh is item 13d). Returns the
-    marker's ``buckets`` rows."""
+    (``_warm_pack_widths``), on a mesh as the meshed pack runs: its
+    unmeshed inner program under ``PackRunner(..., mesh=)``, each pack row
+    keyed with the mesh layout (the reference's idiom for its BuildKey,
+    ``"mesh"`` only when meshed). Returns the marker's ``buckets`` rows."""
     import json
     import time
 
@@ -196,8 +198,21 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
         warmed.append({"bucket": rung, "compile_secs": secs})
         ow.infof("sim:plan bucket %d warmed in %.1fs (%s:%s)", rung, secs,
                  comp.global_.plan, comp.global_.case)
-        if pack_on and mesh is None:
-            _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow)
+        if pack_on:
+            pack_prog = prog
+            if mesh is not None:
+                # the inner program of a meshed pack is unmeshed
+                pack_prog = make_sim_program(
+                    testcase, groups, test_plan=comp.global_.plan,
+                    test_case=comp.global_.case, test_run="build", tick_ms=cfg.tick_ms,
+                    chunk=cfg.chunk, hosts=hosts,
+                    validate=bool(getattr(cfg, "validate", False)), telemetry=telemetry,
+                    faults=None, trace=None,
+                    netmatrix=telemetry and bool(getattr(cfg, "netmatrix", False)),
+                    device=mesh.primary, mesh=None, live_counts=tuple(counts),
+                    lane_multiple=mesh.shards,
+                )
+            _warm_pack_widths(pack_prog, cfg, counts, rung, ladder, warmed, ow, mesh)
     if warmed:
         marker = bucket_marker_path(env, comp.global_.plan, comp.global_.case)
         os.makedirs(os.path.dirname(marker), exist_ok=True)
@@ -207,16 +222,18 @@ def warm_bucket_ladder(comp, manifest, env, ow: OutputWriter,
     return warmed
 
 
-def _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow) -> None:
+def _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow, mesh=None) -> None:
     """Warm the pack-width ladder of one rung (``sim_plan.py:737-790``):
     each power-of-two width up to ``pack_max`` runs ``init`` and one chunk
     of the packed program on the run's device, bounded to packs whose lanes
     stay inside a full pack of the smallest rung (the serving envelope
     packs are for). Each width is best-effort, and each warmed width is a
-    marker row with the reference's keys."""
+    marker row with the reference's keys, and ``mesh`` (the layout) when
+    the pack is meshed."""
     import time
 
     from ..sim.engine import device_context
+    from ..sim.meshplan import layout_str
     from ..sim.pack import PackMember, PackRunner, pack_width
 
     pack_max = int(getattr(cfg, "pack_max", 8) or 8)
@@ -228,7 +245,7 @@ def _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow) -> None:
         t1 = time.perf_counter()
         try:
             with device_context(prog.device):
-                PackRunner(prog, w).run([
+                PackRunner(prog, w, mesh=mesh).run([
                     PackMember(seed=int(cfg.seed), live_counts=tuple(counts),
                                max_ticks=prog.chunk)
                     for _ in range(w)
@@ -243,6 +260,7 @@ def _warm_pack_widths(prog, cfg, counts, rung, ladder, warmed, ow) -> None:
             w *= 2
             continue
         psecs = round(time.perf_counter() - t1, 3)
-        warmed.append({"bucket": rung, "pack_width": w, "compile_secs": psecs})
+        warmed.append({"bucket": rung, "pack_width": w, "compile_secs": psecs,
+                       **({"mesh": layout_str(mesh)} if mesh is not None else {})})
         ow.infof("sim:plan bucket %d pack-width %d warmed in %.1fs", rung, w, psecs)
         w *= 2

@@ -98,6 +98,10 @@ class Engine:
         # per-task preemption signals: a preempted run checkpoints at its
         # next chunk boundary and requeues instead of archiving CANCELED
         self._preempts: dict[str, threading.Event] = {}
+        # held by a worker from its queue pop to the journaled claim, and by
+        # preempt() while it reads the task's state: a task it finds
+        # PROCESSING has its task.claimed row written
+        self._claim_lock = threading.Lock()
         # drain flag: workers stop claiming while it is set
         self._draining = threading.Event()
 
@@ -403,8 +407,11 @@ class Engine:
         """Ask a running RUN task to checkpoint at its next chunk boundary,
         requeue and resume from its newest snapshot. Idempotent; a task
         still queued is a no-op success. Returns ``{"ok", "queued"}``, or
-        ``{"ok": False, "error"}``."""
-        tsk = self.storage.get(task_id)
+        ``{"ok": False, "error"}``. A task popped but not yet journaled
+        as claimed is waited for, so ``task.preempt_requested`` always
+        follows its ``task.claimed``."""
+        with self._claim_lock:
+            tsk = self.storage.get(task_id)
         if tsk is None:
             return {"ok": False, "error": f"unknown task {task_id}"}
         st = tsk.state().state

@@ -258,8 +258,9 @@ def _signature_or_reason(
         "telemetry": _truthy(cfg.get("telemetry")),
         "validate": _truthy(cfg.get("validate")),
         "pack_max": int(cfg.get("pack_max") or 8),
-        # the mesh layout shapes the packed program, so meshed and
-        # unmeshed members never share a pack
+        # the mesh layout shapes the packed program (the pack's calendar
+        # splits over it — sim/pack.py), so meshed and unmeshed members
+        # never share a pack
         "mesh": str(cfg.get("mesh") or ""),
         # the run's device: members on different cards (or the CPU) never
         # share a program

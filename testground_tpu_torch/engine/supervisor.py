@@ -87,21 +87,28 @@ def worker(engine: Engine, idx: int) -> None:
             engine._queue_kick.wait(timeout=0.2)
             engine._queue_kick.clear()
             continue
-        try:
-            tsk = engine.queue.pop()
-        except QueueEmptyError:
+        # the pop stamps PROCESSING before the claim is journaled; holding
+        # the claim lock until it is makes the two one step for preempt(),
+        # so a preemption can never journal ahead of task.claimed
+        with engine._claim_lock:
+            try:
+                tsk = engine.queue.pop()
+            except QueueEmptyError:
+                tsk = None
+            if tsk is not None:
+                pack = claim_pack(engine, tsk)
+                # close the kill()/preempt() race before any claim
+                # bookkeeping: the tasks are already stamped PROCESSING
+                # (queue.pop, claim_matching), so an operator cancel or a
+                # preemption arriving now must find a registered event
+                for member in pack:
+                    engine.register_cancel(member.id)
+                    engine.register_preempt(member.id)
+                _note_claim(engine, idx, pack)
+        if tsk is None:
             engine._queue_kick.wait(timeout=0.2)
             engine._queue_kick.clear()
             continue
-        pack = claim_pack(engine, tsk)
-        # close the kill()/preempt() race before any claim bookkeeping: the
-        # tasks are already stamped PROCESSING (queue.pop, claim_matching),
-        # so an operator cancel or a preemption arriving now must find a
-        # registered event
-        for member in pack:
-            engine.register_cancel(member.id)
-            engine.register_preempt(member.id)
-        _note_claim(engine, idx, pack)
         engine.fleet_worker_state(idx, tsk.id)
         try:
             if len(pack) > 1:

@@ -23,9 +23,8 @@ Where the port diverges from the reference's catalog:
 
 - ``port.not-ported`` (error, layer ``port``) is the port's own rule: one
   finding for each runner-config key of ``executor._UNPORTED_SETTINGS`` set
-  away from its default, for a 2-D ``mesh`` and for ``pack`` on a mesh
-  (item 13d), with the executor's ``NotImplementedError`` text naming the
-  ROADMAP item. It stands in for the rules whose gates the port does not
+  away from its default, with the executor's ``NotImplementedError`` text
+  naming the ROADMAP item. It stands in for the rules whose gates the port does not
   have yet: the cohort rules —
   ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` and
   ``buckets.cohort-disabled`` among them), ``checkpoint.resume-cohort``,
@@ -55,7 +54,9 @@ Where the port diverges from the reference's catalog:
   - ``plan.memory``: the carry's bytes (``engine.carry_footprint``, shapes
     only) against the executor's own ``_precheck_device_memory``, with the
     card the composition's ``device`` names (none without a card and
-    without ``memory_limit_bytes``: no budget), word for word.
+    without ``memory_limit_bytes``: no budget), word for word. A
+    pack-opted run counts the widest pack's stacked carry, per device of
+    the calendar mesh a meshed pack splits over (``pack.sub_shard_mesh``).
   - ``plan.traced-int``: a plan frame reads a device value on the host
     (``int()``, ``bool()``, ``.item()``, ``.tolist()``, ``.cpu()``), which
     raises on meta — the same plan logic that fails the reference's trace
@@ -107,7 +108,6 @@ __all__ = [
     "RULES",
     "check_composition",
     "findings_payload",
-    "mesh_2d_message",
     "netmatrix_requires_telemetry_message",
     "not_ported_message",
     "pallas_lanes_message",
@@ -312,24 +312,6 @@ def not_ported_message(name: str, value, item: str) -> str:
     return (
         f"runner config {name}={value!r} is not ported yet: ROADMAP queue 1 "
         f"{item}"
-    )
-
-
-def mesh_2d_message(mesh, item: str) -> str:
-    """The 2-D mesh refusal: its leading axis is the pack run axis."""
-    return (
-        f"runner config mesh={mesh!r} is not ported yet: ROADMAP queue 1 "
-        f"{item} — a 2-D mesh's leading axis is the pack run axis"
-    )
-
-
-def pack_mesh_message(mesh, item: str) -> str:
-    """A run pack on a mesh: the pack's run axis and the mesh's peer
-    shards are one layout problem on the card, ported together."""
-    return (
-        f"runner config pack=true with mesh={mesh!r} is not ported yet: "
-        f"ROADMAP queue 1 {item} — a pack on a mesh lays out runs × peer "
-        "shards"
     )
 
 
@@ -842,6 +824,31 @@ def _check_device(cfg):
     return d
 
 
+def _pack_calendar_mesh(ctx, width: int):
+    """The calendar mesh a pack of ``width`` members would split over on
+    the cards (``pack.sub_shard_mesh`` of the executor's mesh, the cards
+    named, not opened: only its distinct devices are read). None where the
+    pack keeps one device: no mesh, or a virtual one off the cards."""
+    import torch
+
+    from .meshplan import make_mesh
+    from .pack import sub_shard_mesh
+
+    device = getattr(ctx.cfg, "device", None)
+    if device is not None and not str(device).startswith("cuda"):
+        return None
+    dims = _layout(getattr(ctx.cfg, "mesh", ""))
+    if dims is None:
+        if not getattr(ctx.cfg, "shard", True) or ctx.devices <= 1:
+            return None
+        dims = (int(ctx.devices),)
+    need = 1
+    for d in dims:
+        need *= int(d)
+    mesh = make_mesh(dims, devices=[torch.device("cuda", i) for i in range(need)])
+    return None if mesh is None else sub_shard_mesh(mesh, width)
+
+
 def _trace_one_program(ctx, run, resolved, findings) -> None:
     """Layers 2 and 3 for one run: build the run's program on the meta
     device at the shapes the run would have — the composition's exact
@@ -952,14 +959,17 @@ def _trace_one_program(ctx, run, resolved, findings) -> None:
     # a pack-opted run may share the card with the widest pack its claim
     # builds, whose carry is every member's side by side
     need = carry_footprint(carry)
+    spread = None
     if bool(getattr(ctx.cfg, "pack", False)):
         from .pack import pack_width
 
         pack_max = int(getattr(ctx.cfg, "pack_max", 8) or 8)
-        need *= pack_width(pack_max, pack_max)
+        width = pack_width(pack_max, pack_max)
+        need *= width
+        spread = _pack_calendar_mesh(ctx, width)
     try:
         _precheck_device_memory(prog, need, ctx.cfg,
-                                discard_writer(), _check_device(ctx.cfg))
+                                discard_writer(), _check_device(ctx.cfg), mesh=spread)
     except RuntimeError as e:
         add("plan.memory", str(e))
 

@@ -71,7 +71,8 @@ lookup tensor built with the program and one gather a tick. ``results()``
 demuxes to the exact layout: every result is the exact run's, bit for bit.
 
 ``mesh`` (a ``meshplan.TorchMesh``) splits the calendar's lane axis over
-the mesh's peer shards: each shard's planes live on its device, the
+the mesh's peer shards (row 0's on a 2-D mesh): each shard's planes live
+on its device, the
 commit and the pop are the sharded kernels, and every other carry leaf
 stays on the mesh's primary device (shard 0's). A lane count that does
 not divide across the shards gets dead lanes at the end of its last group
@@ -352,6 +353,7 @@ class SimProgram:
         trace=None,
         mesh=None,
         live_counts=None,
+        lane_multiple: int = 1,
     ):
         cls = type(testcase)
         # Shape bucketing (sim/buckets.py, the reference's rules and
@@ -386,6 +388,10 @@ class SimProgram:
                     "padding shifts physical ids non-contiguously — run "
                     "with bucket=off or a single group"
                 )
+        if mesh is not None and mesh.runs is not None:
+            # a solo run on a 2-D mesh: its lanes split over row 0's peer
+            # shards (the reference shards i and replicates over runs)
+            mesh = mesh.row(0)
         if mesh is None:
             self.device = resolve_device(device)
         else:
@@ -414,9 +420,11 @@ class SimProgram:
         # results, snapshots and the footprint keep the caller's layout
         n_in = sum(g.count for g in groups)
         self.bucketed = live_counts is not None
-        self.mesh_pad = 0
-        if self.meshplan is not None:
-            self.mesh_pad = -(n_in + len(self.hosts)) % self.meshplan.shards
+        # ``lane_multiple``: the peer shards of the mesh an unmeshed run
+        # pack's program is laid over (``sim/pack.py``), padded the same way
+        shards = max(1 if self.meshplan is None else self.meshplan.shards,
+                     int(lane_multiple))
+        self.mesh_pad = -(n_in + len(self.hosts)) % shards
         if self.mesh_pad:
             if live_counts is None:
                 live_counts = tuple(g.count for g in groups)

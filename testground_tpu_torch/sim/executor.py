@@ -62,12 +62,14 @@ runs the members a pack claim gathered (``engine/pack.py``) as one program
 over a run axis (``sim/pack.py``); each member keeps its run directory,
 streams, SLO evaluation, perf rows, journal (with the reference's
 ``sim.pack`` block) and result, and equals its isolated run. A solo run
-with ``pack = true`` runs as any run.
+with ``pack = true`` runs as any run. On a mesh the pack's calendar is split
+over the peer shards (the reference's bucket gate and unmeshed fallback,
+and its ``pallas`` → ``xla`` override), and each member's journal has the
+pack-shared ``sim.mesh`` block.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
 item when set away from its default (``unported_settings``; ``tg check``
-reports each as ``port.not-ported``): a pack on a mesh and the 2-D ``"RxP"``
-mesh (item 13d) and multi-host cohorts (item 15b).
+reports each as ``port.not-ported``): multi-host cohorts (item 15b).
 
 Shape buckets (``bucket = off|auto|<n>``, ``bucket_ladder``;
 ``resolve_buckets``, ``executor.py:395-452, 846-965``): a bucketed run's
@@ -77,8 +79,9 @@ remapped, the flight recorder is off, and the journal's ``sim.bucket``
 block is the reference's (``compile_cache`` is ``"off"``: the port has no
 compile cache). Every result, stream and total stays exact-N.
 
-A mesh (``mesh="4"``, or ``shard`` on a host with several cards) splits
-the calendar over the peer shards (``sim/meshplan.py``); the journal's
+A mesh (``mesh="4"``, ``mesh="2x4"``, or ``shard`` on a host with several
+cards) splits the calendar over the peer shards (``sim/meshplan.py``; a
+solo run on a 2-D mesh over row 0's); the journal's
 ``sim.mesh`` block is the reference's. A lane count that does not divide
 across the shards runs under ``xla`` and ``auto`` with dead lanes that the
 engine keeps to itself (``SimProgram.mesh_pad``); ``pallas`` refuses it,
@@ -151,8 +154,8 @@ class SimTorchConfig:
     # shard over every visible card (the reference's default): no mesh
     # on a host with one card or on the CPU
     shard: bool = True
-    # explicit 1-D peers mesh ("4"), over the visible cards, or virtual on
-    # the CPU; wins over shard. A 2-D "RxP" is refused (item 13d)
+    # explicit mesh, 1-D peers ("4") or 2-D runs x peers ("2x4"), over the
+    # visible cards, or virtual on the CPU; wins over shard
     mesh: str = ""
     write_outputs_max: int = 2048  # cap on per-instance output dirs
     keep_outputs: bool = True
@@ -208,7 +211,6 @@ class SimTorchConfig:
     device: str | None = None
 
 
-_ITEM_13D = "item 13d (packs on a mesh, and the 2-D mesh)"
 _ITEM_15B = "item 15b (multi-host runs and placement across cards)"
 
 # runner-config fields the port refuses away from their default, with
@@ -225,9 +227,9 @@ _TRANSPORTS = ("xla", "pallas", "auto")
 def unported_settings(cfg) -> list[str]:
     """The refusal of every setting the port cannot honour yet, each naming
     its ROADMAP item: the keys of ``_UNPORTED_SETTINGS`` away from their
-    default, then a 2-D ``mesh``, then ``pack`` on a mesh. The executor
-    raises the first; the checker reports each as ``port.not-ported``."""
-    from .check import mesh_2d_message, not_ported_message, pack_mesh_message
+    default. The executor raises the first; the checker reports each as
+    ``port.not-ported``."""
+    from .check import not_ported_message
 
     defaults = SimTorchConfig()
     out = []
@@ -235,16 +237,6 @@ def unported_settings(cfg) -> list[str]:
         value = getattr(cfg, name, getattr(defaults, name))
         if value != getattr(defaults, name):
             out.append(not_ported_message(name, value, item))
-    mesh = getattr(cfg, "mesh", "")
-    if mesh:
-        try:
-            dims = parse_mesh_shape(mesh)
-        except ValueError:
-            dims = ()  # mesh.shape-invalid: parse_mesh_shape's own refusal
-        if len(dims) > 1:
-            out.append(mesh_2d_message(mesh, _ITEM_13D))
-        if getattr(cfg, "pack", False):
-            out.append(pack_mesh_message(mesh, _ITEM_13D))
     return out
 
 
@@ -416,11 +408,13 @@ def make_sim_program(
     device,
     mesh,
     live_counts=None,
+    lane_multiple=1,
 ):
     """The one construction site for a run's SimProgram
     (``executor.py:304-346``): every program-shaping option is a required
-    keyword but ``live_counts`` (a bucket plan's exact counts). On a mesh
-    the program's leaves live on its primary device."""
+    keyword but ``live_counts`` (a bucket plan's exact counts) and
+    ``lane_multiple`` (a meshed pack's peer shards). On a mesh the
+    program's leaves live on its primary device."""
     from .engine import SimProgram
 
     return SimProgram(
@@ -440,6 +434,7 @@ def make_sim_program(
         device=None if mesh is not None else device,
         mesh=mesh,
         live_counts=live_counts,
+        lane_multiple=lane_multiple,
     )
 
 
@@ -572,14 +567,15 @@ def _mesh_journal_block(mesh, testcase, groups, hosts):
 _MEM_HEADROOM = 2.5
 
 
-def _precheck_device_memory(prog, carry: int, cfg, ow, device) -> None:
+def _precheck_device_memory(prog, carry: int, cfg, ow, device, mesh=None) -> None:
     """Refuse an oversized composition before its first tick
     (``executor.py:610-647``): the carry footprint × headroom, divided
     across the mesh's distinct devices, against the memory of ``device``
     (the run's card), or an explicit ``memory_limit_bytes``. ``device`` is
     the run's device, not the program's: ``tg check`` builds the program
     on the meta device and passes the card the run would use, or None
-    where it has none."""
+    where it has none. ``mesh`` is the mesh the carry spreads over where it
+    is not the program's: a run pack's calendar mesh (``sim/pack.py``)."""
     limit = int(getattr(cfg, "memory_limit_bytes", 0) or 0)
     if limit < 0:
         return
@@ -587,7 +583,8 @@ def _precheck_device_memory(prog, carry: int, cfg, ow, device) -> None:
         if device is None or device.type != "cuda":
             return  # no device budget to check against
         limit = torch.cuda.get_device_properties(device).total_memory
-    n_dev = 1 if prog.mesh is None else len(set(prog.mesh.devices))
+    mesh = prog.mesh if mesh is None else mesh
+    n_dev = 1 if mesh is None else len(set(mesh.devices))
     need = int(carry * _MEM_HEADROOM / n_dev)
     if need > limit:
         raise RuntimeError(
@@ -807,7 +804,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                  slo_plan.summary())
 
     check_mesh_lanes(transport_knob(cfg), sum(g.count for g in groups), len(hosts),
-                     1 if mesh is None else mesh.size)
+                     1 if mesh is None else mesh.shards)
     ow.infof(
         "sim:torch run %s: plan=%s case=%s instances=%d groups=%d "
         "tick=%.3fms device=%s devices=%d",
@@ -838,7 +835,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     if prog.mesh_pad:
         ow.infof("sim:torch %s: %d dead lane(s) pad the last group so the "
                  "lanes divide across %d peer shards", job.run_id, prog.mesh_pad,
-                 mesh.size)
+                 mesh.shards)
     # the carry is built here, not from its shapes on the meta device: a
     # process's first meta op imports torch's meta kernels, which takes
     # seconds; the run then starts from this carry
@@ -1612,11 +1609,12 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     device; no faults, trace, hosts, cohort or checkpoint); this function
     asserts the essentials and returns one ``RunOutput`` OR ``Exception``
     per job (a member's failure is its own task's failure, never the
-    pack's). A pack on a mesh is item 13d and refuses; the port has no
-    compile cache, so ``sim.bucket.compile_cache`` is ``"off"``."""
+    pack's). On a mesh the pack's calendar is split over the peer shards
+    (``PackRunner(prog, width, mesh=)``); the port has no compile cache, so
+    ``sim.bucket.compile_cache`` is ``"off"``."""
     from .engine import build_groups as _build_groups
     from .engine import resolve_device
-    from .pack import PACK_MESH_ITEM, PackMember, PackRunner, pack_width
+    from .pack import PackMember, PackRunner, pack_width
     from .telemetry import SIM_SERIES_FILE, SPAN_FILE, SpanTracer
 
     assert len(jobs) == len(ows) == len(cancels) and len(jobs) >= 2
@@ -1626,17 +1624,29 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     outputs_root = job0.env.dirs.outputs() if job0.env is not None else None
 
     # ---------------------------------------------------- shared program
-    if _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
-                  device) is not None:
-        raise NotImplementedError(
-            f"a run pack on a mesh is not ported yet: ROADMAP queue 1 "
-            f"{PACK_MESH_ITEM}"
-        )
-    bucket_plan = resolve_buckets(cfg, [g.instances for g in job0.groups],
-                                  warn=ows[0].warn)
+    # The run axis is laid out by the pack, but the INSTANCE axis may still
+    # shard: the inner program is built unmeshed and PackRunner splits the
+    # pack's calendar over the mesh's peer shards (one sub-shard a member
+    # and shard). The bucket gate sees the pack's real mesh so padded
+    # counts divide the peer shards; when they do not, the pack falls back
+    # to the unmeshed single-device world rather than breaking the
+    # admission signature's bucketed promise (the reference's gate).
+    pack_mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
+                           device)
+    counts = [g.instances for g in job0.groups]
+    bucket_plan = resolve_buckets(cfg, counts, mesh=pack_mesh, warn=ows[0].warn)
+    if bucket_plan is None and pack_mesh is not None:
+        unmeshed_plan = resolve_buckets(cfg, counts, mesh=None)
+        if unmeshed_plan is not None:
+            ows[0].warn(
+                "pack runs on a single device: the bucket ladder does "
+                "not divide across the mesh peer shards"
+            )
+            pack_mesh = None
+            bucket_plan = unmeshed_plan
     if bucket_plan is None:
         for j in jobs[1:]:
-            if [g.instances for g in j.groups] != [g.instances for g in job0.groups]:
+            if [g.instances for g in j.groups] != counts:
                 raise ValueError(
                     "pack admission bug: unbucketed members with "
                     "different instance counts share a pack"
@@ -1651,6 +1661,20 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     telemetry_on = bool(getattr(cfg, "telemetry", False)) and not any(
         j.disable_metrics for j in jobs
     )
+    transport_block = _transport_block(
+        cfg, device if pack_mesh is None else pack_mesh.primary, pack_mesh)
+    transport = transport_knob(cfg)
+    if transport == "pallas" and pack_mesh is not None:
+        # the reference's override, warning and journal reason; on the card
+        # the port's xla arm runs the sharded K1 and K2 all the same
+        ows[0].warn(
+            "transport=pallas on a packed mesh resolves to xla (the "
+            "vmapped kernels cannot shard over the run axis and the "
+            "mesh at once)"
+        )
+        transport_block["reason"] += (
+            " — overridden: a packed mesh run uses the XLA transport")
+        transport = "xla"
     prog = make_sim_program(
         testcase,
         groups,
@@ -1667,16 +1691,21 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
         # the matrix plane is a pack exclusion (engine/pack.py): a member
         # asking for netmatrix runs solo
         netmatrix=False,
-        device=device,
+        device=device if pack_mesh is None else pack_mesh.primary,
         mesh=None,
         live_counts=bucket_plan.live_counts if bucket_plan is not None else None,
+        # exact shapes that do not divide across the peer shards get the
+        # solo meshed run's dead lanes
+        lane_multiple=1 if pack_mesh is None else pack_mesh.shards,
     )
     width = pack_width(len(jobs), int(getattr(cfg, "pack_max", 8) or 8))
-    runner = PackRunner(prog, width)
-    transport_block = _transport_block(cfg, prog.device)
-    # the stacked carry: every member's leaves side by side
+    runner = PackRunner(prog, width, mesh=pack_mesh, transport=transport)
+    # the stacked carry: every member's leaves side by side, the calendar
+    # split over the pack mesh's devices
     carry_one = prog.footprint(prog.init_carry(0))
-    _precheck_device_memory(prog, carry_one * width, cfg, ows[0], device)
+    _precheck_device_memory(prog, carry_one * width, cfg, ows[0], device,
+                            mesh=runner.cal_mesh)
+    mesh_block = _mesh_journal_block(pack_mesh, testcase, groups, ())
 
     # ------------------------------------------------ per-member plumbing
     members: list = []
@@ -1814,7 +1843,7 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
         try:
             outs.append(_collect_pack_member(
                 idx, ctx, m, res, width, len(jobs), wall, transport_block,
-                bucket_plan, outputs_root,
+                bucket_plan, outputs_root, mesh_block,
             ))
         except Exception as e:  # noqa: BLE001 — member-local failure
             outcome = "preempted" if isinstance(e, TaskPreemptedError) else "error"
@@ -1826,10 +1855,10 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
 
 
 def _collect_pack_member(idx, ctx, member, res, width, n_members, wall,
-                         transport_block, bucket_plan, outputs_root):
+                         transport_block, bucket_plan, outputs_root, mesh_block):
     """One pack member's RunOutput (``executor.py:2689-3080``): outcomes,
-    metrics, journal (the sim block with ``sim.pack`` and ``sim.bucket``),
-    instance outputs."""
+    metrics, journal (the sim block with ``sim.pack``, ``sim.bucket`` and,
+    on a mesh, the pack-shared ``sim.mesh``), instance outputs."""
     from .telemetry import latency_percentiles
 
     job, ow, spans, cancel = ctx["job"], ctx["ow"], ctx["spans"], ctx["cancel"]
@@ -1919,7 +1948,9 @@ def _collect_pack_member(idx, ctx, member, res, width, n_members, wall,
         "wall_secs": wall,
         "processes": 1,
         "compile_secs": round(res.get("compile_secs", 0.0), 3),
-        "devices": 1,
+        "devices": (
+            int(mesh_block["shards"]) * int(mesh_block["runs"]) if mesh_block else 1
+        ),
         "pub_dropped": res["pub_dropped"].tolist(),
         "latency_clamped": res.get("latency_clamped", 0),
         "bw_queue_dropped": res.get("bw_queue_dropped", 0),
@@ -1946,6 +1977,8 @@ def _collect_pack_member(idx, ctx, member, res, width, n_members, wall,
         **({"latency": latency} if latency else {}),
         **({"perf": perf_summary} if perf_summary else {}),
         **({"bucket": bucket_block} if bucket_block else {}),
+        # the pack-shared mesh layout, where the pack's calendar is split
+        **({"mesh": mesh_block} if mesh_block else {}),
     }
     result.update_outcome()
     if member.canceled and cancel.is_set():

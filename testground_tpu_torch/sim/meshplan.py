@@ -7,30 +7,34 @@ cut into ``S`` equal contiguous shards on the mesh axis ``"i"``; shard
 :class:`PartitionSpec`) is the reference's, entry for entry, so the
 journal's ``sim.mesh`` block and every placement query answer as there.
 
-What a :class:`TorchMesh` is: one torch device per peer shard, in shard
-order. A device may repeat: consecutive shards on the same device form one
-*part*, whose calendar planes are held as one ``[S_d, L, SLOTS·n_loc]``
-tensor and committed and popped by one kernel launch. A mesh whose shards
-all sit on one device is a *virtual* mesh — the port's analog of the
-reference's ``xla_force_host_platform_device_count`` — and is how the
-sharded path runs on the CPU and on a single card.
+What a :class:`TorchMesh` is: one torch device per mesh cell, row-major
+over ``(runs, i)`` — a 1-D mesh is one row of peer shards, a 2-D ``"RxP"``
+mesh is R rows of P. A device may repeat: consecutive shards of a row on
+the same device form one *part*, whose calendar planes are held as one
+``[S_d, L, SLOTS·n_loc]`` tensor and committed and popped by one kernel
+launch. A mesh whose cells all sit on one device is a *virtual* mesh —
+the port's analog of the reference's ``xla_force_host_platform_device_count``
+— and is how the sharded path runs on the CPU and on a single card.
 
 Which devices :func:`make_mesh` gives:
 
 - an explicit ``devices=`` list, taken as it is (repeats allowed);
-- on CUDA, the visible cards, one per shard, under the reference's rule: a
+- on CUDA, the visible cards, one per cell, under the reference's rule: a
   shape needs that many cards, or it refuses with the reference's message;
-- on the CPU (``device="cpu"``), every shard on the CPU.
+- on the CPU (``device="cpu"``), every cell on the CPU.
 
-Only the calendar planes are split per shard in this slice; every other
-carry leaf stays on the mesh's primary device (shard 0's), whatever the
-table says about it. A 2-D ``"RxP"`` shape (the pack run axis over the
-mesh) is refused: packs on a mesh are ROADMAP queue 1 item 13d.
+Only the calendar planes are split per shard; every other carry leaf stays
+on the mesh's primary device (cell 0's), whatever the table says about
+it. A solo run on a 2-D mesh splits its lanes over row 0's peer shards
+(:meth:`TorchMesh.row`), as the reference shards ``i`` and replicates over
+``runs``. A run pack's members split into the rows in contiguous groups,
+and each member's lanes over its row's peer shards (``sim/pack.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from collections.abc import Mapping
 from typing import Any, Sequence
@@ -83,12 +87,6 @@ DEFAULT_RULES: tuple[tuple[str, str, PartitionSpec], ...] = (
     ("replicated", r".*", P()),
 )
 
-_PACK_AXIS = (
-    "a 2-D mesh (pack runs x peers) is not ported yet: ROADMAP queue 1 "
-    "item 13d (packs on a mesh, and the 2-D mesh)"
-)
-
-
 def parse_mesh_shape(text: str) -> tuple[int, ...]:
     """``"4"`` → ``(4,)``; ``"2x4"`` → ``(2, 4)``. 1-D is (peers,); 2-D is
     (runs, peers). Anything else refuses, with the reference's messages."""
@@ -113,26 +111,33 @@ def mesh_axis_names(ndim: int) -> tuple[str, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class TorchMesh:
-    """A 1-D ``("i",)`` mesh: ``devices[s]`` holds peer shard ``s``.
+    """A 1-D ``("i",)`` mesh (``runs`` None): ``devices[s]`` holds peer
+    shard ``s``; or a 2-D ``("runs", "i")`` mesh of ``runs`` rows: the
+    devices row-major, ``devices[g·P + s]`` holding row g's shard s.
 
-    ``parts`` lists ``(device, s0, s1)``: shards ``[s0, s1)`` held in one
-    tensor per plane on ``device``. By default each run of consecutive
-    equal devices is one part; an explicit ``parts`` may cut a device's run
-    finer (one tensor per part all the same), which lets the CPU tests
-    drive the several-part path."""
+    ``parts`` lists ``(device, s0, s1)`` over the flat cells: cells ``[s0,
+    s1)`` held in one tensor per plane on ``device``, never across a row.
+    By default each run of consecutive equal devices in a row is one part;
+    an explicit ``parts`` may cut a device's run finer (one tensor per part
+    all the same), which lets the CPU tests drive the several-part path."""
 
     devices: tuple
     parts: tuple | None = None
+    runs: int | None = None
 
     def __post_init__(self):
         devs = tuple(_indexed(d) for d in self.devices)
         if not devs:
             raise ValueError("a mesh needs at least one device")
         object.__setattr__(self, "devices", devs)
+        rows = 1 if self.runs is None else int(self.runs)
+        if rows < 1 or len(devs) % rows:
+            raise ValueError(f"{len(devs)} devices do not make {rows} mesh rows")
+        width = len(devs) // rows
         if self.parts is None:
             parts, s0 = [], 0
             for s in range(1, len(devs) + 1):
-                if s == len(devs) or devs[s] != devs[s0]:
+                if s == len(devs) or s % width == 0 or devs[s] != devs[s0]:
                     parts.append((devs[s0], s0, s))
                     s0 = s
         else:
@@ -144,28 +149,51 @@ class TorchMesh:
             ):
                 raise ValueError(f"mesh parts {self.parts} do not tile {len(devs)} shards")
             for d, a, b in parts:
-                if any(x != d for x in devs[a:b]):
+                if any(x != d for x in devs[a:b]) or a // width != (b - 1) // width:
                     raise ValueError(f"mesh part {(d, a, b)} spans other devices")
         object.__setattr__(self, "parts", tuple(parts))
 
-    axis_names = ("i",)
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return mesh_axis_names(1 if self.runs is None else 2)
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"i": len(self.devices)}
+        if self.runs is None:
+            return {"i": len(self.devices)}
+        return {"runs": int(self.runs), "i": len(self.devices) // int(self.runs)}
 
     @property
     def size(self) -> int:
+        """Every cell of the mesh (a 1-D mesh: its peer shards)."""
         return len(self.devices)
 
     @property
+    def shards(self) -> int:
+        """Extent of the peer (``i``) axis."""
+        return self.shape["i"]
+
+    @property
     def primary(self) -> torch.device:
-        """Shard 0's device: where every leaf but the calendar lives."""
+        """Cell 0's device: where every leaf but the calendar lives."""
         return self.devices[0]
 
+    def row(self, g: int) -> "TorchMesh":
+        """Row ``g``'s peer shards as a 1-D mesh, its parts kept."""
+        if self.runs is None:
+            if g != 0:
+                raise IndexError(f"a 1-D mesh has one row, not row {g}")
+            return self
+        p = self.shards
+        lo, hi = g * p, (g + 1) * p
+        return TorchMesh(
+            self.devices[lo:hi],
+            parts=tuple((d, a - lo, b - lo) for d, a, b in self.parts if lo <= a < hi),
+        )
+
     def on(self, device) -> "TorchMesh":
-        """The same shard count with every shard on ``device`` (one part)."""
-        return TorchMesh((torch.device(device),) * self.size)
+        """The same shape with every cell on ``device`` (one part a row)."""
+        return TorchMesh((torch.device(device),) * self.size, runs=self.runs)
 
 
 def _indexed(device) -> torch.device:
@@ -194,9 +222,10 @@ def make_mesh(
 ) -> TorchMesh | None:
     """Build the peers mesh, or None for a single shard.
 
-    With ``shape=None`` every device of the pool lands on the mesh (the
+    With ``shape=None`` every device of the pool lands on a 1-D mesh (the
     reference's ``shard=true``); on the CPU that pool is one device, so the
-    answer is None. An explicit shape takes the first ``prod(shape)``
+    answer is None. An explicit shape (``"4"``, or ``"2x4"`` for 2 rows of
+    4 peer shards) takes the first ``prod(shape)``
     devices of ``devices`` (which may repeat one device: a virtual mesh),
     or of the visible cards (``device`` None or CUDA; the reference's
     rule and message), or that many copies of a non-CUDA ``device``."""
@@ -205,8 +234,6 @@ def make_mesh(
     elif isinstance(shape, int):
         # `--run-cfg mesh=4` coalesces as a bare int
         shape = (int(shape),)
-    if shape is not None and len(tuple(shape)) > 1:
-        raise NotImplementedError(f"mesh shape {tuple(shape)}: {_PACK_AXIS}")
     virtual = None
     if devices is not None:
         devs = [torch.device(d) for d in devices]
@@ -217,17 +244,19 @@ def make_mesh(
         devs = _visible_cards()
     if shape is None:
         return None if len(devs) <= 1 else TorchMesh(tuple(devs))
-    need = int(shape[0])
+    shape = tuple(int(d) for d in shape)
+    need = math.prod(shape)
     if need == 1:
         return None
+    runs = shape[0] if len(shape) == 2 else None
     if virtual is not None:
-        return TorchMesh((virtual,) * need)
+        return TorchMesh((virtual,) * need, runs=runs)
     if need > len(devs):
         raise ValueError(
-            f"mesh shape {tuple(shape)} needs {need} devices, "
+            f"mesh shape {shape} needs {need} devices, "
             f"only {len(devs)} visible"
         )
-    return TorchMesh(tuple(devs[:need]))
+    return TorchMesh(tuple(devs[:need]), runs=runs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -887,8 +887,14 @@ def enqueue(
         enqueued = survived.sum(dtype=i32)
     else:
         # a sorted key's destination names its run; an invalid message's
-        # key (L·N) names run 0 and adds its zero survival there
-        run_of = torch.div(torch.remainder(sk, n), n_run, rounding_mode="floor")
+        # key (L·N) names run 0 (the shard-major key: the last run) and
+        # adds its zero survival there. A run's shards are consecutive in
+        # the shard-major key, so its keys are one block of L·n_run
+        if cal.mesh is None:
+            run_of = torch.div(torch.remainder(sk, n), n_run, rounding_mode="floor")
+        else:
+            run_of = torch.div(sk, horizon * n_run, rounding_mode="floor").clamp_max(
+                runs - 1)
         enqueued = torch.zeros(runs, dtype=i32, device=dev).index_add_(
             0, run_of, survived)
     return cal, feedback(enqueued, fate, flow)

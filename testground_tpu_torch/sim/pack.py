@@ -36,6 +36,20 @@ port's tick is eager and launches K1 and K2 through ``ctypes``, which no
   into one table each, and a tick pays one gather a map as a solo
   bucketed run does.
 
+**On a mesh** (``PackRunner(prog, width, mesh=)``, 1-D or 2-D ``"RxP"``)
+the program stays unmeshed, as the reference's inner program does, and
+only the pack's calendar is split: one sub-shard of ``n_loc = N / P`` lanes
+for each (member, peer shard), in the pack's lane order — sub-shard
+``r·P + s`` holds member r's lanes ``[s·n_loc, (s+1)·n_loc)``
+(:func:`sub_shard_mesh`). So the pack's calendar is the sharded calendar of
+``sim/net.py`` over ``W·P`` shards, with its shard-major sort key, its
+sharded K1 and K2 (one launch per part: once a tick on one card) and its
+pop straight into the step's run-major lanes. On a 2-D mesh the members
+split into contiguous groups, one per row, and a member's sub-shards sit
+on its row's devices. Every other leaf stays on the mesh's primary device.
+A member whose lanes do not divide across the peer shards is padded with
+the solo meshed run's dead lanes (``SimProgram(lane_multiple=P)``).
+
 **Stragglers and freezes.** The host reads the R done flags of a tick in
 one copy. A member whose flag rises is snapshotted right after that tick
 (the leaves its results read, and its histogram delta since the chunk's
@@ -71,11 +85,11 @@ from torch._C._functorch import (
 )
 
 from .api import CRASH, RUNNING, Inbox
+from .meshplan import TorchMesh, _indexed, plan_for
 from .engine import (
     SimCarry,
     _NoHostReads,
     _Virtual,
-    carry_footprint,
     device_context,
 )
 from .net import (
@@ -92,18 +106,15 @@ from .sync_kernel import SyncState, update_sync
 from .telemetry import LATENCY_BINS
 
 __all__ = [
-    "PACK_MESH_ITEM",
     "PACK_MIN_MEMBERS",
     "PackMember",
     "PackRunner",
     "pack_width",
+    "sub_shard_mesh",
 ]
 
 # a pack of one is just a run — the admission layer never builds one
 PACK_MIN_MEMBERS = 2
-
-# the ROADMAP item that ports packs on a mesh and the 2-D "RxP" mesh
-PACK_MESH_ITEM = "item 13d (packs on a mesh, and the 2-D mesh)"
 
 # the carry's per-run counters: [R] (collision_where [R, 2]) in a pack
 _RUN_COUNTERS = ("clamped", "bw_dropped", "bw_rate_changed", "collisions",
@@ -195,6 +206,28 @@ def _split_salts(k0: np.ndarray, k1: np.ndarray, ticks: int):
     return salts, k0[:, 0], k1[:, 0]
 
 
+def sub_shard_mesh(mesh, width: int):
+    """The calendar mesh of a pack of ``width`` members on ``mesh``: one
+    sub-shard of ``n_loc`` lanes for each (member, peer shard), in the
+    pack's lane order, so sub-shard ``r·P + s`` holds member r's lanes
+    ``[s·n_loc, (s+1)·n_loc)``. On a 2-D mesh of Rm rows the members split
+    into Rm contiguous groups of ``ceil(width / Rm)`` (the reference's
+    run-axis sharding, uneven where Rm does not divide the width), and
+    member r's sub-shards sit on its group's row. Consecutive sub-shards
+    on one device form one part; a mesh cut into parts by hand keeps its
+    cuts in every member."""
+    rows = mesh.shape.get("runs", 1)
+    per_row = -(-width // rows)
+    devs, parts, cut = [], [], False
+    for r in range(width):
+        row = mesh.row(r // per_row)
+        cut = cut or row.parts != TorchMesh(row.devices).parts
+        base = len(devs)
+        devs.extend(row.devices)
+        parts.extend((d, base + a, base + b) for d, a, b in row.parts)
+    return TorchMesh(tuple(devs), parts=tuple(parts) if cut else None)
+
+
 class _BatchedVirt:
     """The exact layout a bucketed member's plan sees, built inside the
     vmapped step from the member's row of the pack's count table:
@@ -251,7 +284,7 @@ class PackRunner:
     whether members carry per-run exact counts (shape bucketing) — when
     set, every member's ``live_counts`` must be provided."""
 
-    def __init__(self, prog, width: int, mesh=None):
+    def __init__(self, prog, width: int, mesh=None, transport: str = "xla"):
         self.prog = prog
         self.width = int(width)
         if prog.trace is not None or prog.faults is not None:
@@ -272,13 +305,32 @@ class PackRunner:
                 "through the rule table outside the vmap — pass the "
                 "mesh to PackRunner instead"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                f"a run pack on a mesh is not ported yet: {PACK_MESH_ITEM}"
+        self.meshplan = plan_for(mesh)
+        if self.meshplan is not None and str(transport).lower() == "pallas":
+            raise ValueError(
+                "a packed mesh run cannot use transport=pallas (the "
+                "vmapped single-device kernels do not partition over "
+                "the mesh; the shard_map variant is the solo path) — "
+                "the transport gate resolves this to xla"
             )
         self.cls = type(prog.tc)
         self.n = prog.n  # lanes a member holds
         self.lanes = self.width * self.n
+        # the calendar's sub-shards on a mesh (None without one)
+        self.cal_mesh = None
+        if mesh is not None:
+            if mesh.primary != _indexed(prog.device):
+                raise ValueError(
+                    f"the pack's program lives on {prog.device}, not on the "
+                    f"mesh's primary device {mesh.primary}: a meshed pack "
+                    "keeps every leaf but the calendar there"
+                )
+            if self.n % mesh.shards:
+                raise ValueError(
+                    f"a member's {self.n} lanes do not divide across the "
+                    f"mesh's {mesh.shards} peer shards"
+                )
+            self.cal_mesh = sub_shard_mesh(mesh, self.width)
         self._members_cache: dict = {}
         # the plan step's program: the member's virtual layout is set per
         # call (bucketed), and host reads are watched on the first step
@@ -292,7 +344,7 @@ class PackRunner:
         """``prog`` with a member's own live counts: its virtual maps,
         keys and dead lanes (the program itself when unbucketed)."""
         prog = self.prog
-        if prog.live_counts is None:
+        if not prog.bucketed:
             return prog
         lc = tuple(int(c) for c in live_counts)
         m = self._members_cache.get(lc)
@@ -370,7 +422,7 @@ class PackRunner:
         prog, dev = self.prog, self.prog.device
         r_n, n = self.width, self.n
         carries = [m.init_carry(s) for m, s in zip(mprogs, seeds)]
-        footprint = carry_footprint(carries[0])
+        footprint = mprogs[0].footprint(carries[0])
         c0 = carries[0]
 
         def lanes(get, dim=-1):
@@ -395,6 +447,7 @@ class PackRunner:
             cal=Calendar.empty(
                 cls.MAX_LINK_TICKS, self.lanes, cls.IN_MSGS, cls.MSG_WIDTH,
                 track_src=cls.TRACK_SRC, track_etick=prog.telemetry, device=dev,
+                mesh=self.cal_mesh,
             ),
             link=LinkState(
                 egress=lanes(lambda c: c.link.egress),
@@ -469,7 +522,8 @@ class PackRunner:
         (status, finished_at, rejected, keys, counts, last_seq, stream, stream_len,
          cursors, dropped, pay, src, valid, both) = args[n_state:]
         view = self._view
-        view._virt = _BatchedVirt(both, view) if view.bucketed else None
+        if view.bucketed:
+            view._virt = _BatchedVirt(both, view)
         carry = SimCarry(
             states=states, status=status, finished_at=finished_at, cal=None,
             link=None,
@@ -692,7 +746,7 @@ class PackRunner:
         dev = prog.device
         cuda = dev.type == "cuda"
         t0 = time.perf_counter()
-        if prog.live_counts is not None:
+        if prog.bucketed:
             for m in members:
                 if m.live_counts is None:
                     raise ValueError("bucketed pack members must carry live_counts")

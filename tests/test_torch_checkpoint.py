@@ -371,6 +371,35 @@ def test_meshed_snapshot_is_the_unmeshed_pallas_layout_and_resumes():
     _assert_leaves_equal(flat["end"], end["end"], "mesh end")
 
 
+@pytest.mark.parametrize("shape", ["2x4", "2x2"])
+def test_2d_meshed_snapshot_resumes_bit_equal(shape):
+    """A solo run on a 2-D mesh snapshots the global planes as a 1-D
+    meshed run does, and resumed from its own snapshot on the same mesh it
+    ends as the unmeshed run."""
+    from testground_tpu_torch.sim.meshplan import make_mesh
+
+    def meshed():
+        prog = _port_prog()
+        return SimProgram(prog.tc, prog.groups, test_plan="network",
+                          test_case="ping-pong", chunk=16, telemetry=True,
+                          netmatrix=True, mesh=make_mesh(shape, device="cpu"))
+
+    flat_res, flat = _capture(_port_prog(), lambda c: snapshot_carry(c, "pallas"),
+                              max_ticks=512)
+    _, mesh = _capture(meshed(), lambda c: snapshot_carry(c, "xla"), max_ticks=CUT)
+    _assert_leaves_equal(flat["cut"], mesh["cut"], f"{shape} cut")
+    prog = meshed()
+    carry = restore_carry(prog, 3, {"leaves": mesh["cut"][1]}, mesh["cut"][0],
+                          transport="xla")
+    assert isinstance(carry.cal.payload[0], tuple)
+    lat, nm = _lat_at_cut("xla")
+    res, end = _capture(prog, lambda c: snapshot_carry(c, "xla"), max_ticks=512,
+                        resume_carry=carry, resume_ticks=CUT, lat_hist_init=lat,
+                        net_mat_init=nm)
+    _assert_results_equal(flat_res, res, f"{shape} resumed")
+    _assert_leaves_equal(flat["end"], end["end"], f"{shape} end")
+
+
 _LAT_CACHE: dict = {}
 
 

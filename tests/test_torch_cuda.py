@@ -907,3 +907,79 @@ def test_gpu_packed_run_matches_cpu_run(cuda, name):
         assert len(tg[i]) == len(tc[i])
         for a, b in zip(tc[i], tg[i]):
             np.testing.assert_array_equal(b, a)
+
+
+# name: (PACKED_GPU_RUNS entry, mesh shape, cut the rows into parts)
+MESHED_PACK_GPU_RUNS = {
+    "sustained-bucketed-4": ("sustained-bucketed", "4", False),
+    "sustained-bucketed-2x4": ("sustained-bucketed", "2x4", False),
+    "flood-2x2-parts": ("flood", "2x2", True),
+    "subtree-bucketed-2x4": ("subtree-bucketed", "2x4", False),
+}
+
+
+@pytest.mark.parametrize("name", list(MESHED_PACK_GPU_RUNS))
+def test_gpu_meshed_pack_matches_cpu_run(cuda, name):
+    """A pack on a virtual mesh of card 0 equals the same meshed pack on
+    the CPU and the unmeshed pack on the card, member by member, with the
+    sharded K1 and K2 launched once a tick per part."""
+    from testground_tpu_torch.sim.meshplan import TorchMesh, make_mesh
+    from testground_tpu_torch.sim.pack import PackMember, PackRunner, pack_width
+
+    run, shape, cut = MESHED_PACK_GPU_RUNS[name]
+    plan, case, counts, params, bucket = PACKED_GPU_RUNS[run]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    n = bucket or counts[0]
+    groups = build_groups([RunGroup(id="all", instances=n, parameters=params)])
+
+    def mesh_on(dev):
+        m = make_mesh(shape, devices=[dev] * 8)
+        if not cut:
+            return m
+        p = m.shards
+        parts = [(dev, a, a + 1) for a in range(0, m.size, p)]
+        parts = sorted(parts + [(dev, a + 1, a + p) for _, a, _ in parts],
+                       key=lambda x: x[1])
+        return TorchMesh(m.devices, parts=tuple(parts), runs=m.runs)
+
+    out = {}
+    for label, device, meshed in (("cpu", "cpu", True), ("card", cuda, True),
+                                  ("unmeshed", cuda, False)):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, telemetry=True,
+                          live_counts=(counts[0],) if bucket else None)
+        tele = [[] for _ in counts]
+        members = [PackMember(seed=i, live_counts=(c,) if bucket else None, max_ticks=512,
+                              telemetry_cb=lambda b, i=i: tele[i].append(b.copy()))
+                   for i, c in enumerate(counts)]
+        runner = PackRunner(prog, pack_width(len(counts), 8),
+                            mesh=mesh_on(torch.device(device)) if meshed else None)
+        before = (ct.commit_calendar_sharded.launches, ct.pop_bucket_sharded.launches)
+        res = runner.run(members)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launched = (ct.commit_calendar_sharded.launches - before[0],
+                    ct.pop_bucket_sharded.launches - before[1])
+        parts = len(runner.cal_mesh.parts) if meshed else 0
+        out[label] = (res, tele, launched, parts)
+    ticks = max(int(r["ticks"]) for r in out["card"][0])
+    _, _, lg, parts = out["card"]
+    assert out["cpu"][2] == (0, 0) and out["unmeshed"][2] == (0, 0)
+    assert 0 < lg[1] <= ticks * parts and lg[1] % parts == 0
+    rc, tc = out["cpu"][:2]
+    for other in ("card", "unmeshed"):
+        rg, tg = out[other][:2]
+        for i in range(len(counts)):
+            for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "msgs_dropped",
+                      "msgs_rejected", "carry_bytes"):
+                assert rg[i][k] == rc[i][k], (other, i, k)
+            np.testing.assert_array_equal(rg[i]["status"], rc[i]["status"])
+            np.testing.assert_array_equal(rg[i]["finished_at"], rc[i]["finished_at"])
+            np.testing.assert_array_equal(rg[i]["sync_counts"], rc[i]["sync_counts"])
+            for sc, sg in zip(rc[i]["states"], rg[i]["states"]):
+                for k in sc:
+                    np.testing.assert_array_equal(sg[k], sc[k], err_msg=f"{other} {i} {k}")
+            assert rg[i]["lat_hist"] == rc[i]["lat_hist"]
+            assert len(tg[i]) == len(tc[i])
+            for a, b in zip(tc[i], tg[i]):
+                np.testing.assert_array_equal(b, a)

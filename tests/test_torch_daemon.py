@@ -807,16 +807,19 @@ def test_client_reports_the_refusal(daemons):
 
 
 def test_unported_setting_refused_at_submit(daemons):
-    """A divergence: ``pack = true`` on a mesh runs on the reference and is
-    refused by the port, at submit, as ``port.not-ported`` (item 13d).
-    ``pack = true`` alone and ``bucket = "auto"``, refused here until run
-    packs and shape buckets were ported, are queued."""
-    got = _submit(daemons["torch"], _ping_pong(daemons["torch"], _cfg(pack=True, mesh="2")))
+    """A setting the port does not run yet is refused at submit as
+    ``port.not-ported``, naming its item (a multi-host cohort: item 15b).
+    ``pack = true`` alone and on a mesh, a 2-D mesh and ``bucket =
+    "auto"``, refused here until run packs, packs on a mesh and shape
+    buckets were ported, are queued."""
+    got = _submit(daemons["torch"], _ping_pong(daemons["torch"],
+                                               _cfg(num_processes=2)))
     assert got["status"] == 422 and got["new_tasks"] == 0
-    assert "[port.not-ported] runner config pack=true with mesh='2' is not ported " \
-           "yet: ROADMAP queue 1 item 13d" in got["body"]["error"]
+    assert "[port.not-ported] runner config num_processes=2 is not ported " \
+           "yet: ROADMAP queue 1 item 15b" in got["body"]["error"]
     assert got["refusals"][0]["rules"] == ["port.not-ported"]
-    for cfg in (_cfg(pack=True), _cfg(bucket="auto", bucket_ladder="16")):
+    for cfg in (_cfg(pack=True), _cfg(pack=True, mesh="2"), _cfg(mesh="2x2"),
+                _cfg(bucket="auto", bucket_ladder="16")):
         got = _submit(daemons["torch"], _ping_pong(daemons["torch"], cfg))
         assert got["status"] == 200 and got["new_tasks"] == 1 and got["refusals"] == []
 

@@ -307,15 +307,15 @@ def test_outputs_over_the_cap_are_skipped(tmp_path):
 
 
 # name: (value, the ROADMAP item that refuses it; None for the settings of
-# shape buckets and run packs, refused until they were ported, which now
-# run)
+# shape buckets, run packs and the 2-D mesh, refused until they were
+# ported, which now run)
 REFUSED = {
     "bucket": ("auto", None),
     "bucket_ladder": ("32,64", None),
     "build_buckets": (True, None),
     "pack": (True, None),
     "pack_max": (4, None),
-    "mesh": ("2x4", "item 13d"),
+    "mesh": ("2x4", None),
     "coordinator_address": ("localhost:1234", "item 15b"),
     "num_processes": (2, "item 15b"),
     "process_id": (1, "item 15b"),
@@ -352,13 +352,18 @@ def test_checkpoint_setting_runs(name, tmp_path):
 def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
     value, item = REFUSED[name]
     if item is None:
-        # a bucket or pack setting: the run goes through, exact-N, and a
-        # bucketed one journals its bucket block (a run alone is no pack:
-        # the pack block is the supervisor's, engine/pack.py)
+        # a bucket, pack or mesh setting: the run goes through, exact-N, and
+        # a bucketed one journals its bucket block (a run alone is no pack:
+        # the pack block is the supervisor's, engine/pack.py), a 2-D meshed
+        # one its mesh block (its lanes split over row 0's peer shards)
         out = pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
                                     discard_writer(), threading.Event())
         assert out.result.journal["events"]["all"]["success"] == 2
         assert "pack" not in out.result.journal["sim"]
+        if name == "mesh":
+            mesh = out.result.journal["sim"]["mesh"]
+            assert (mesh["axes"], mesh["runs"], mesh["shards"]) == ("2x4", 2, 4)
+            assert out.result.journal["sim"]["devices"] == 8
         bucket = out.result.journal["sim"].get("bucket")
         if name == "bucket":
             assert bucket["instances"] == 2 and bucket["padded_instances"] == 4096
@@ -518,3 +523,96 @@ def test_carry_estimate_from_shapes_matches_jax(name):
     case, n, params, chunk = ENGINE_CASES[name]
     assert (port_program(case, n, params, chunk).estimate_carry_bytes()
             == jax_program(case, n, params, chunk).estimate_carry_bytes())
+
+
+# ------------------------------------------------- packs on a mesh
+
+
+def _pack_jobs(tmp_path, pkg, cfg, sizes=(5, 9, 13)):
+    """One pack's jobs of each package: ping-pong members of ``sizes``,
+    seeds 0.., each its own run."""
+    out = []
+    for i, n in enumerate(sizes):
+        common = dict(run_id=f"member-{i}", test_plan="network", test_case="ping-pong",
+                      total_instances=n)
+        if pkg == "jax":
+            out.append(JRunInput(
+                groups=[JRunGroup(id="all", instances=n,
+                                  artifact_path=os.path.join(REF_PLANS, "network"))],
+                env=EnvConfig.load(home=str(tmp_path / "jax")),
+                runner_config=jexec.SimJaxConfig(seed=i, **cfg), **common))
+        else:
+            out.append(RunInput(
+                groups=[RunGroup(id="all", instances=n,
+                                 artifact_path=pexec.plan_dir("network"))],
+                env=OutputsEnv(tmp_path / "torch"),
+                runner_config=pexec.SimTorchConfig(device="cpu", seed=i, **cfg), **common))
+    return out
+
+
+def _run_pack(tmp_path, pkg, cfg):
+    """The pack through the package's ``execute_packed_sim_runs``: the
+    outputs and the first member's log lines."""
+    import io
+
+    from testground_tpu.rpc import OutputWriter as JOutputWriter
+    from testground_tpu_torch.rpc import OutputWriter
+
+    jobs = _pack_jobs(tmp_path, pkg, cfg)
+    sink = io.StringIO()
+    mod, writer = (jexec, JOutputWriter) if pkg == "jax" else (pexec, OutputWriter)
+    ows = [writer(None, echo=sink)] + [writer(None) for _ in jobs[1:]]
+    outs = mod.execute_packed_sim_runs(jobs, ows, [threading.Event() for _ in jobs])
+    return outs, sink.getvalue().splitlines()
+
+
+PACK_MESH_CFG = {"pack": True, "bucket": "auto", "telemetry": True, "chunk": 16,
+                 "max_ticks": 256}
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "4"])
+def test_each_packed_member_journals_the_references_mesh_block(mesh, tmp_path):
+    cfg = dict(PACK_MESH_CFG, mesh=mesh, bucket_ladder="32")
+    jouts, _ = _run_pack(tmp_path, "jax", cfg)
+    pouts, _ = _run_pack(tmp_path, "torch", cfg)
+    for jo, po in zip(jouts, pouts):
+        assert not isinstance(po, Exception), po
+        js, ps = jo.result.journal["sim"], po.result.journal["sim"]
+        assert ps["mesh"] == js["mesh"] and ps["mesh"]["axes"] == mesh
+        assert ps["devices"] == js["devices"] == 4
+        assert ps["pack"] == js["pack"]
+        assert po.result.journal["events"]["all"]["success"] == \
+            jo.result.journal["events"]["all"]["success"]
+
+
+def test_unmeshed_fallback_warns_as_the_reference(tmp_path):
+    """A bucket rung (14) that does not divide the 4 peer shards: the pack
+    falls back to one device with the reference's two warnings and no
+    mesh block."""
+    cfg = dict(PACK_MESH_CFG, mesh="4", bucket_ladder="14")
+    (jouts, jwarns), (pouts, pwarns) = (_run_pack(tmp_path, "jax", cfg),
+                                        _run_pack(tmp_path, "torch", cfg))
+    fallback = ("pack runs on a single device: the bucket ladder does not divide "
+                "across the mesh peer shards")
+    for warns in (jwarns, pwarns):
+        assert any(fallback in w for w in warns), warns
+        assert any("shape bucketing skipped on this mesh" in w for w in warns), warns
+    for jo, po in zip(jouts, pouts):
+        ps = po.result.journal["sim"]
+        assert "mesh" not in ps and "mesh" not in jo.result.journal["sim"]
+        assert ps["devices"] == 1 and ps["bucket"]["padded_instances"] == 14
+
+
+def test_pallas_on_a_packed_mesh_is_overridden_as_the_reference(tmp_path):
+    cfg = dict(PACK_MESH_CFG, mesh="2", bucket_ladder="32", transport="pallas")
+    (jouts, jwarns), (pouts, pwarns) = (_run_pack(tmp_path, "jax", cfg),
+                                        _run_pack(tmp_path, "torch", cfg))
+    override = ("transport=pallas on a packed mesh resolves to xla (the vmapped "
+                "kernels cannot shard over the run axis and the mesh at once)")
+    assert any(override in w for w in jwarns) and any(override in w for w in pwarns)
+    suffix = " — overridden: a packed mesh run uses the XLA transport"
+    for jo, po in zip(jouts, pouts):
+        jt, pt = jo.result.journal["sim"]["transport"], po.result.journal["sim"]["transport"]
+        assert jt["reason"].endswith(suffix) and pt["reason"].endswith(suffix)
+        assert pt["requested"] == jt["requested"] == "pallas"
+        assert po.result.journal["sim"]["mesh"] == jo.result.journal["sim"]["mesh"]

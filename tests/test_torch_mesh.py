@@ -132,8 +132,9 @@ def test_make_mesh_devices():
 
 
 def test_mesh_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13"):
-        pmp.make_mesh("2x4", device="cpu")
+    # a 2-D mesh, refused until packs on a mesh were ported: rows of peers
+    m = pmp.make_mesh("2x4", device="cpu")
+    assert (m.runs, m.shards, m.size) == (2, 4, 8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmp.make_mesh("4")
@@ -579,3 +580,74 @@ def test_meshed_carry_round_trips_through_the_global_layout():
     for k in flat_m:
         np.testing.assert_array_equal(again[k], flat_m[k], err_msg=k)
     assert carry_from_numpy(flat_m, mprog).cal.src[0].shape == (4, 8, 4 * 4)
+
+
+# ------------------------------------------------------------- 2-D mesh
+
+
+@pytest.mark.parametrize("shape", ["2x4", "2x2", "4x1"])
+def test_solo_run_on_a_2d_mesh_equals_the_unmeshed_run(shape):
+    """A solo run on a 2-D mesh splits its lanes over row 0's peer shards
+    (the reference shards ``i`` and replicates over ``runs``): every
+    result and carry leaf is the unmeshed run's."""
+    mesh = pmp.make_mesh(shape, device="cpu")
+    prog = _pingpong_port(32, mesh)
+    assert prog.mesh == mesh.row(0) and prog.meshplan.shards == mesh.shards
+    res_m, (flat_m, _) = run_capturing(prog, seed=2, max_ticks=256)
+    res_u, (flat_u, _) = run_capturing(_pingpong_port(32, None), seed=2, max_ticks=256)
+    assert_results_equal(res_u, res_m, shape)
+    for k in flat_u:
+        np.testing.assert_array_equal(flat_m[k], flat_u[k], err_msg=k)
+
+
+@pytest.mark.parametrize("shape", ["2x4", "2x2"])
+def test_execute_sim_run_on_a_2d_mesh_matches_jax(shape, tmp_path):
+    """``mesh="2x4"`` on the CPU: the journal (its ``sim.mesh`` block —
+    layout ``"RxP"``, runs, shards — and ``devices``) and the run
+    directory equal the reference's."""
+    from testground_tpu.rpc import discard_writer as jdiscard
+
+    jjob, jexecute, pjob = _mesh_jobs(tmp_path, shape)
+    both = []
+    for execute, job, writer in ((jexecute, jjob, jdiscard()),
+                                 (pexec.execute_sim_run, pjob, discard_writer())):
+        out, err = _execute(execute, job, writer, threading.Event())
+        assert err is None
+        both.append((out, _read_tree(f"{job.env.dirs.outputs()}/network/run-mesh")))
+    (jout, jtree), (pout, ptree) = both
+    assert _journal(pout) == _journal(jout)
+    runs, shards = (int(x) for x in shape.split("x"))
+    mesh = pout.result.journal["sim"]["mesh"]
+    assert (mesh["axes"], mesh["runs"], mesh["shards"]) == (shape, runs, shards)
+    assert pout.result.journal["sim"]["devices"] == runs * shards
+    assert sorted(ptree) == sorted(jtree)
+    for rel in jtree:
+        assert ptree[rel] == jtree[rel], rel
+
+
+def test_a_2d_meshed_run_resumes_from_its_snapshot_as_the_reference_runs(tmp_path):
+    """Cut on a 2-D mesh by its budget with snapshots on, then resumed from
+    them (``resume_from``): the resumed run's outcome, events, totals and
+    ``sim.mesh`` block are the reference's uninterrupted run's."""
+    import dataclasses as dc
+
+    from testground_tpu.rpc import discard_writer as jdiscard
+
+    jjob, jexecute, pjob = _mesh_jobs(tmp_path, "2x4")
+    jout, err = _execute(jexecute, jjob, jdiscard(), threading.Event())
+    assert err is None
+    full = pjob.runner_config
+    pjob.runner_config = dc.replace(full, checkpoint_chunks=1, max_ticks=32)
+    cut = pexec.execute_sim_run(pjob, discard_writer(), threading.Event())
+    assert cut.result.journal["sim"]["checkpoint"]["count"] >= 1
+    assert cut.result.journal["sim"]["ticks"] == 32
+    pjob.runner_config = dc.replace(full, resume_from="run-mesh")
+    pjob.run_id = "run-resumed"
+    out = pexec.execute_sim_run(pjob, discard_writer(), threading.Event())
+    js, ps = jout.result.journal["sim"], out.result.journal["sim"]
+    assert ps["checkpoint"]["resumed"]["from_tick"] == 32
+    assert ps["mesh"] == js["mesh"] and ps["devices"] == js["devices"] == 8
+    assert out.result.journal["events"] == jout.result.journal["events"]
+    for key in ("ticks", "msgs_delivered", "msgs_sent", "msgs_enqueued", "msgs_dropped",
+                "msgs_in_flight", "latency"):
+        assert ps[key] == js[key], key

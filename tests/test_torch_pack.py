@@ -14,7 +14,8 @@ JAX package, on the CPU:
   the reference's boundary;
 - the run axis is real: the plan step issues the same ops at R = 2 and
   R = 8, and an op without a vmap batching rule raises;
-- the refusals that remain: a trace, faults, hosts and a mesh.
+- the refusals that remain: a trace, faults, hosts, a meshed inner
+  program and ``transport = "pallas"`` on a meshed pack.
 """
 
 import numpy as np
@@ -369,9 +370,9 @@ def test_refusals_that_remain():
         PackRunner(SimProgram(tc, groups, device="cpu", telemetry=True, netmatrix=True), 2)
     with pytest.raises(ValueError, match="additional hosts"):
         PackRunner(SimProgram(tc, groups, device="cpu", hosts=("echo",)), 2)
-    with pytest.raises(NotImplementedError, match="item 13d"):
+    with pytest.raises(ValueError, match="cannot use transport=pallas"):
         PackRunner(SimProgram(tc, groups, device="cpu"), 2,
-                   mesh=make_mesh("2", device="cpu"))
+                   mesh=make_mesh("2", device="cpu"), transport="pallas")
     meshed = SimProgram(tc, groups, device="cpu", mesh=make_mesh("2", device="cpu"))
     with pytest.raises(ValueError, match="built unmeshed"):
         PackRunner(meshed, 2)

@@ -14,7 +14,12 @@ the CPU:
   the reference's solo reason;
 - a preempted member reruns from scratch equal to its uninterrupted
   sibling; a drain preempts every member of a running pack;
-- ``build --buckets`` with ``pack = true`` warms the pack widths.
+- ``build --buckets`` with ``pack = true`` warms the pack widths, on a
+  mesh meshed;
+- the same queue with ``mesh = "2x2"`` (virtual on the CPU) runs as one
+  meshed pack: each member equals its unmeshed-pack twin, and the
+  ``sim.mesh`` block, the ``task.claimed`` / ``pack.admitted`` rows and
+  the fleet pack counters are the reference's.
 """
 
 import json
@@ -219,6 +224,18 @@ def _wait_all(e, tids, budget=180):
     raise TimeoutError(f"tasks not done in {budget}s")
 
 
+def _wait_idle(e, budget=60):
+    """Until the worker has let go of its pack: both packages archive a
+    pack's members before the worker drops the pack from the fleet's
+    running packs, so a payload read right after the last archive may
+    still show it."""
+    deadline = time.time() + budget
+    while e.fleet_payload()["pack"]["running"]:
+        if time.time() > deadline:
+            raise TimeoutError(f"a pack still running after {budget}s")
+        time.sleep(0.05)
+
+
 def _events(e, types=None):
     with open(e.events.path) as f:
         rows = [json.loads(line) for line in f]
@@ -243,6 +260,7 @@ def twin_packs(tmp_path_factory):
             tids = [_queue(pkg, e, n, i) for i, n in enumerate(SIZES)]
             e.start_workers()
             tasks = _wait_all(e, tids)
+            _wait_idle(e)
             fleet = e.fleet_info()
             payload = e.fleet_payload()
             events = _events(e)
@@ -389,8 +407,18 @@ def test_preempted_pack_member_reruns_equal(tmp_path):
     """Evicting one member of a running pack stops it at the next chunk
     boundary, never resumable, and requeues it; the rerun from scratch
     lands on its identically configured sibling's totals."""
+    _preempt_a_member(tmp_path, {})
+
+
+def test_preempted_meshed_pack_member_reruns_equal(tmp_path):
+    """The same on a ``"2x2"`` mesh: the member stops, reruns from scratch
+    alone on the mesh (row 0), and lands on its sibling's totals."""
+    _preempt_a_member(tmp_path, {"mesh": "2x2"})
+
+
+def _preempt_a_member(tmp_path, extra):
     e = _engine("torch", tmp_path)
-    cfg = {"debug_chunk_sleep_ms": 20, "max_ticks": 1024}
+    cfg = {"debug_chunk_sleep_ms": 20, "max_ticks": 1024, **extra}
     try:
         ids = [_queue("torch", e, 16, 5, extra=cfg, case="pingpong-sustained")
                for _ in range(2)]
@@ -415,6 +443,9 @@ def test_preempted_pack_member_reruns_equal(tmp_path):
     for key in _COMPARE:
         assert _sim(member)[key] == _sim(sibling)[key], key
     assert member.result["journal"]["events"] == sibling.result["journal"]["events"]
+    if extra:
+        assert _sim(member)["mesh"] == _sim(sibling)["mesh"]
+        assert _sim(member)["mesh"]["axes"] == extra["mesh"]
 
 
 def test_drain_preempts_every_member_of_a_running_pack(tmp_path):
@@ -474,6 +505,124 @@ def test_build_buckets_warms_the_pack_widths(tmp_path):
         (16, None), (16, 2), (16, 4), (32, None), (32, 2)]
     with open(bucket_marker_path(env, "network", "ping-pong")) as f:
         assert json.load(f)["buckets"] == rows
+
+
+def test_build_buckets_warms_the_meshed_pack_widths(tmp_path):
+    """``build --buckets`` with ``pack = true`` on ``mesh = "2"``: the
+    marker's keys and its bucket rows are the reference's; the port warms
+    each pack width meshed, its rows under the reference's pack-row keys
+    with the layout (``"mesh"``), where the reference's own pack warm
+    refuses its meshed program and writes no pack row."""
+    from test_torch_cli import PORT_ENV, REF_ENV, _cli, _make_home, jmain, pmain
+
+    argv = ["build", "single", "network:ping-pong", "--buckets", "--run-cfg",
+            "bucket_ladder=32,64", "--run-cfg", "pack=true", "--run-cfg", "mesh=2",
+            "--run-cfg", "chunk=8"]
+    got = {}
+    for pkg, main, env in (("jax", jmain, REF_ENV), ("torch", pmain, PORT_ENV)):
+        home = _make_home(tmp_path, pkg, env, ("network",))
+        rc, out, err = _cli(main, home, argv)
+        assert rc == 0 and "(outcome: success)" in out, (pkg, err)
+        found = [os.path.join(d, f) for d, _, fs in os.walk(home / "data") for f in fs
+                 if f == "buckets-network-ping-pong.json"]
+        assert len(found) == 1, (pkg, found)
+        with open(found[0]) as f:
+            got[pkg] = json.load(f)
+    port, ref = got["torch"], got["jax"]
+    assert {k: v for k, v in port.items() if k != "buckets"} == {
+        k: v for k, v in ref.items() if k != "buckets"}
+    assert [sorted(b) for b in ref["buckets"]] == [["bucket", "compile_secs"]] * 2
+    assert [sorted(b) for b in port["buckets"] if "pack_width" not in b] == [
+        sorted(b) for b in ref["buckets"]]
+    assert [(b["bucket"], b.get("pack_width"), b.get("mesh")) for b in port["buckets"]] == [
+        (32, None, None), (32, 2, "2"), (32, 4, "2"), (32, 8, "2"),
+        (64, None, None), (64, 2, "2"), (64, 4, "2")]
+
+
+@pytest.fixture(scope="module")
+def twin_mesh_packs(tmp_path_factory):
+    """The queue of ``twin_packs`` on ``mesh = "2x2"``, through both
+    packages' engines, once per module."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        e = _engine(pkg, tmp_path_factory.mktemp(f"{pkg}-mesh"))
+        try:
+            tids = [_queue(pkg, e, n, i, extra={"mesh": "2x2"})
+                    for i, n in enumerate(SIZES)]
+            e.start_workers()
+            tasks = _wait_all(e, tids, budget=300)
+            _wait_idle(e)
+            fleet = e.fleet_info()
+            events = _events(e)
+        finally:
+            e.stop()
+        out[pkg] = {"tasks": tasks, "fleet": fleet, "events": events}
+    return out
+
+
+def test_queued_runs_execute_as_one_meshed_pack(twin_mesh_packs, twin_packs):
+    """Each member of the meshed pack equals its unmeshed-pack twin, and
+    journals the reference's ``sim.mesh`` block and device count."""
+    for i, (pt, ut, jt) in enumerate(zip(twin_mesh_packs["torch"]["tasks"],
+                                         twin_packs["torch"]["tasks"],
+                                         twin_mesh_packs["jax"]["tasks"])):
+        assert pt.outcome().value == "success", pt.error
+        ps, us, js = _sim(pt), _sim(ut), _sim(jt)
+        assert ps["pack"] == {"width": 4, "members": 3, "index": i,
+                              "leader_run": twin_mesh_packs["torch"]["tasks"][0].id}
+        assert ps["mesh"] == js["mesh"] and ps["mesh"]["axes"] == "2x2"
+        assert ps["devices"] == js["devices"] == 4
+        assert ps["bucket"] == us["bucket"]
+        for key in ("ticks", "msgs_delivered", "msgs_sent", "msgs_enqueued",
+                    "msgs_dropped", "msgs_rejected", "msgs_in_flight", "pub_dropped",
+                    "latency"):
+            assert ps[key] == us[key], key
+        assert pt.result["journal"]["events"] == ut.result["journal"]["events"]
+        assert pt.result["journal"]["telemetry"] == ut.result["journal"]["telemetry"]
+
+
+def test_meshed_pack_claims_and_fleet_counters_match(twin_mesh_packs):
+    shapes = {}
+    for pkg in ("jax", "torch"):
+        rows = [r for r in twin_mesh_packs[pkg]["events"]
+                if r["type"] in ("task.claimed", "pack.admitted", "task.started")]
+        shapes[pkg] = [
+            (r["type"], r.get("pack_width"), r.get("width"), len(r.get("members", [])),
+             sorted(k for k in r if k not in ("ts", "ts_wall_ns")))
+            for r in rows
+        ]
+    assert shapes["torch"] == shapes["jax"]
+    assert twin_mesh_packs["torch"]["fleet"]["pack"] == twin_mesh_packs["jax"]["fleet"][
+        "pack"] == {"packed": 1, "packed_runs": 3, "solo": {}}
+
+
+def test_readers_render_a_meshed_pack_member_as_the_reference(twin_mesh_packs):
+    """``tg stats`` and ``tg perf`` of a meshed pack member, and the mesh
+    and pack families of ``/metrics``, line for line as the reference
+    renders its own, numbers aside."""
+    from testground_tpu.metrics.prometheus import render_prometheus as jrender
+    from testground_tpu.runners import pretty as jpretty
+    from testground_tpu_torch.metrics.prometheus import render_prometheus as prender
+    from testground_tpu_torch.runners import pretty as ppretty
+
+    views = {}
+    for pkg, pretty, render in (("jax", jpretty, jrender), ("torch", ppretty, prender)):
+        tasks = twin_mesh_packs[pkg]["tasks"]
+        lines = []
+        for t in tasks:
+            for text in (pretty.render_telemetry_summary(t.stats_payload()),
+                         pretty.render_perf_summary(t.perf_payload())):
+                lines += [ln for ln in _normalized(text, tasks).splitlines()
+                          if "mesh" in ln or "pack" in ln]
+        prom = _normalized(render(tasks, fleet=twin_mesh_packs[pkg]["fleet"]), tasks)
+        lines += [ln for ln in prom.splitlines()
+                  if ln.split(" ")[0].split("{")[0].startswith(
+                      ("tg_mesh_", "tg_pack_", "tg_fleet_pack_", "tg_run_devices"))]
+        views[pkg] = lines
+    # numbers normalized: the 2x2 layout reads "#x#"
+    assert any(ln.startswith("mesh") and "#x#" in ln for ln in views["torch"])
+    assert any(ln.startswith("tg_mesh_shards") for ln in views["torch"])
+    assert views["torch"] == views["jax"]
 
 
 def _normalized(text, tasks, i0=0):

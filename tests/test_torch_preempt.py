@@ -320,6 +320,53 @@ def test_drain_waits_for_a_task_claimed_before_its_worker_registers(tg_home,
         engine.stop()
 
 
+def test_preempt_between_pop_and_claim_journals_after_the_claim(tg_home,
+                                                                monkeypatch):
+    """A preemption landing between a worker's pop (the task is already
+    PROCESSING) and its journaled claim, held open: ``task.claimed`` still
+    comes before ``task.preempt_requested``, the run is preempted once,
+    requeues and succeeds."""
+    from testground_tpu_torch.engine import supervisor
+
+    held, release = threading.Event(), threading.Event()
+    real = supervisor._note_claim
+    first = []
+
+    def held_claim(engine, idx, pack):
+        if not first:
+            first.append(True)
+            held.set()
+            release.wait(10.0)
+        real(engine, idx, pack)
+
+    monkeypatch.setattr(supervisor, "_note_claim", held_claim)
+    engine = make_engine(PreemptOnceRunner(resumable=True))
+    engine.start_workers()
+    try:
+        tid = engine.queue_run(simple_comp(), simple_manifest())
+        assert held.wait(10.0)
+        assert engine.get_task(tid).state().state == State.PROCESSING
+        out = {}
+        th = threading.Thread(target=lambda: out.update(engine.preempt(tid)))
+        th.start()
+        time.sleep(0.3)
+        release.set()
+        th.join(15.0)
+        assert out == {"ok": True, "queued": False}
+        t = _wait_done(engine, tid)
+        assert t.outcome() == Outcome.SUCCESS, t.error
+        assert int(t.trace["preemptions"]) == 1
+        types = [r["type"] for r in _journal_rows(engine, tid)]
+        assert types.count("task.preempt_requested") == 1
+        order = ["task.scheduled", "task.claimed", "task.preempt_requested",
+                 "task.preempted", "task.migrated", "task.finished"]
+        idx = [types.index(x) for x in order]
+        assert idx == sorted(idx), types
+    finally:
+        release.set()
+        engine.stop()
+
+
 def test_drain_idle_is_immediate_and_idempotent(tg_home):
     engine = make_engine()
     try:
