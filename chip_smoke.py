@@ -58,7 +58,7 @@ and drives the port's main path through the library entry points
               kernels a tick of both; all SUCCESS and the flow totals
               closing over fault_dropped
 11. telemetry — sustained@100k at phase 4's parameters, 500 ticks, four
-              ways in two turns (wall deltas paired against the same
+              ways in one turn (wall deltas paired against the same
               turn's planes-off run, resolved past the off runs' quartiles): every observability plane off, telemetry,
               telemetry + the traffic matrix, and those two + a 64-lane
               trace plan; wall and device ms/tick, busy share, kernels a
@@ -70,13 +70,13 @@ and drives the port's main path through the library entry points
               the crash purge in the fault cells, the matrix reconciled
 12. plans   — placebo's seven cases at 100k, and verify, splitbrain,
               additional_hosts (one echo host) and chaos (the smoke
-              composition's schedule, instance ranges scaled) at 1,024:
+              composition's schedule, instance ranges scaled) at 256:
               each to its expected terminal status
 13. executor — execute_sim_run: sustained@100k with every plane and a warn
-              rule in turns against SimProgram.run, faults@100k and chaos
-              at 1,024 with SLO rules, CPU vs GPU at 4,096
+              rule against SimProgram.run (one turn), faults@100k and chaos
+              at 256 with SLO rules, CPU vs GPU at 4,096
 14. mesh    — sustained@100k at phase 4's parameters on a 4-shard virtual
-              mesh on card 0, in two turns with the same run unmeshed:
+              mesh on card 0, in one turn with the same run unmeshed:
               all SUCCESS, each sharded kernel launched once a tick, flow
               conservation exact, every carry leaf equal to the unmeshed
               run's; wall and device ms/tick, kernels a tick, busy share
@@ -86,7 +86,7 @@ and drives the port's main path through the library entry points
               process) in temporary homes holding the port's plans:
               ``healthcheck --runner sim:torch``; the sustained smoke
               composition (telemetry files, K1 and K2 journaled and
-              launched); sustained@100k as a composition in two turns
+              launched); sustained@100k as a composition in one turn
               against ``execute_sim_run`` of the ``RunInput`` the CLI
               lowered, after a warm-up run (the CLI's host cost per run
               and per tick; then kernels a tick and device ms/tick of both,
@@ -97,14 +97,14 @@ and drives the port's main path through the library entry points
               capture server (the plan-metric, ``sim.*``,
               ``sim.latency.*`` and ``sim.perf.*`` families)
 16. daemon  — the daemon as a process with the verbs against it, then an
-              in-process daemon: sustained@100k through its client in turns
-              against the in-process CLI, two runs at once, a kill, chaos
+              in-process daemon: sustained@100k through its client in one
+              turn against the in-process CLI, two runs at once, a kill, chaos
               smoke CPU ↔ card (see ``phase_daemon``)
 17. admit   — an in-process daemon on the card refuses five bad variants
               of cli@100k's composition at submit (422, no task, one
               ``task.refused``, no device memory) and admits the composition
               itself, whose run journals ``sim.perf``; ``execute_sim_run``
-              with the perf ledger on and off in turns (ms/tick; syncs,
+              with the perf ledger on and off, one pair (ms/tick; syncs,
               launches and ops a tick equal); a one-chunk
               ``profile_chunks`` capture naming K1 and K2; ``tg check`` as
               a process (see ``phase_admit``)
@@ -125,8 +125,8 @@ and drives the port's main path through the library entry points
               dashboard poller (see ``phase_surface``)
 20. resume  — the checkpoint plane and the fleet controller: sustained@100k
               through ``execute_sim_run`` with a snapshot every chunk (bytes,
-              D2H and write ms of each) against the knob at 0 in two
-              rotated turns (ms/tick; with the knob at 0 ops and syncs a
+              D2H and write ms of each) against the knob at 0 in one
+              turn (ms/tick; with the knob at 0 ops and syncs a
               tick equal to a run without the key), a run cut at tick 250
               and resumed, the faulted sustained at 4,096 snapshotted on the
               CPU and resumed on the card, each equal to the uninterrupted
@@ -136,7 +136,7 @@ and drives the port's main path through the library entry points
               ``phase_resume``)
 21. buckets — shape buckets: sustained@100k exact against ``bucket =
               "auto"`` (131,072 lanes) through ``execute_sim_run`` in
-              two rotated turns, equal; ``build --buckets`` and a
+              one turn, equal; ``build --buckets`` and a
               bucketed ``run single`` through the CLI; ops and syncs a
               tick; ping-pong@100k and the faulted sustained at 4,000
               padded (CPU ↔ card); 100,002 instances on a 4-shard mesh
@@ -148,15 +148,24 @@ and drives the port's main path through the library entry points
 22. packs   — run packs: eight sustained tenants at 24,000 … 31,000
               instances (32,768 lanes each) through an in-process daemon
               with one worker, against the same eight one after another
-              through ``execute_sim_run``, two rotated turns, each member
+              through ``execute_sim_run``, one turn, each member
               equal to its serial run; the reference's ping-pong pack
               smoke at 5 … 29 instances against CPU runs; a straggler and
               an SLO-canceled member against their isolated runs; the
               eight on a 4-shard and a "2x4" virtual mesh against the
-              unmeshed pack, two rotated turns, each member equal; the
+              unmeshed pack, one turn, each member equal; the
               pack against one member alone and the meshed packs, peak
               bytes and a profiled first chunk last (see ``phase_packs``)
-23. parity  — sustained, flood and storm at 4,096 instances, the faulted
+23. cohort  — sustained@100k at phase 4's parameters as a two-process
+              cohort on card 0 (``execute_sim_run`` with
+              ``coordinator_address`` through the leader child, one
+              ``tg-torch sim-worker``; the collectives over gloo) against
+              the same composition alone: bit-equal outcome, per-group
+              outcomes, metrics, flow totals and carry digests; wall
+              ms/tick of both, a profiled twin's kernels and collectives a
+              tick, join and first-chunk seconds, and a follower SIGKILLed
+              mid-run failing the task readably (see ``phase_cohort``)
+24. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -198,7 +207,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
           "cli", "daemon", "admit", "observe", "surface", "resume", "buckets", "packs",
-          "parity")
+          "cohort", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -958,19 +967,19 @@ def counted_syncs(fn, sites=None) -> tuple:
     return out, len(syncs)
 
 
-def device_profile(prog, ticks, wall_ms_per_tick, host_ops=True, by_name=False) -> dict:
+def device_profile(prog, ticks, wall_ms_per_tick, by_name=False) -> dict:
     """Device kernel time per tick from ``torch.profiler`` over the first
     chunk of a run (at least ``ticks`` ticks; the real count is read off
     the carry), its top kernels, the transport kernels' device time per
     launch, and the device's busy share of the unprofiled wall time per
     tick. Where the profiler reports no device time, the share is "not
-    measured" (None). ``host_ops=False`` records device activity only,
-    which keeps a long window's trace small; ``by_name`` adds each
-    device event's count a tick."""
+    measured" (None). It records device activity only: host activity,
+    which none of these figures reads, cost the host most of a window's
+    time; ``by_name`` adds each device event's count a tick."""
     from torch.profiler import ProfilerActivity, profile
 
     last = {}
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    acts = [ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         prog.run(seed=0, max_ticks=ticks,
                  observer=lambda k, c: last.__setitem__("t", int(c.t)))
@@ -1134,8 +1143,7 @@ def phase_faults(card) -> dict:
         }
     for label, row in runs.items():
         row.update(device_profile(progs[label], ticks=500,
-                                  wall_ms_per_tick=row["wall_ms_per_tick"],
-                                  host_ops=False))
+                                  wall_ms_per_tick=row["wall_ms_per_tick"]))
     f = runs["faulted"]
     f["purge"] = purge_timing(n, f["device_ms_per_tick"])
     check(f["faults_crashed"] == n // 10 and f["faults_restarted"] == n // 10,
@@ -1149,7 +1157,8 @@ def phase_faults(card) -> dict:
 # the mesh phase: peer shards of its virtual mesh on card 0, and turns of
 # the meshed and unmeshed sustained@100k it times
 MESH_SHARDS = 4
-MESH_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+MESH_TURNS = 1
 
 
 def phase_mesh(card) -> dict:
@@ -1202,8 +1211,7 @@ def phase_mesh(card) -> dict:
         row["wall_ms_per_tick_median"] = statistics.median(walls[label])
         row["peer_ticks_per_s"] = n * 1e3 / row["wall_ms_per_tick_median"]
         row.update(device_profile(progs[label], ticks=64,
-                                  wall_ms_per_tick=row["wall_ms_per_tick_median"],
-                                  host_ops=False))
+                                  wall_ms_per_tick=row["wall_ms_per_tick_median"]))
     twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, mesh=MESH_SHARDS)
     twin.run(seed=0, max_ticks=16)  # its first step builds the plan's constants
     sites: dict = {}
@@ -1238,9 +1246,10 @@ def phase_mesh(card) -> dict:
 # the telemetry phase's four ways to run sustained@100k, and how many
 # turns of the four it times: host speed drifts within a call by more
 # than a plane's wall cost, so pairs against the planes-off run (six
-# once, then three, now two: every phase that timed three turns times two,
-# so that the script stays inside its time limit on a slow host)
-TURNS = 2
+# once, then three, then two, now one: every phase that timed turns times
+# one but `observe`, whose verbs compare two runs, so that the script stays
+# inside its time limit on a slow host)
+TURNS = 1
 PLANE_SETS = {
     "off": {},
     "telemetry": {"telemetry": True},
@@ -1355,7 +1364,8 @@ def phase_telemetry(card) -> dict:
         row.update(ticks=ticks, launches=got, flows=flows(res), host_event_waits=waits,
                    **check_planes(f"telemetry {label}", prog, res, rec))
     off_walls = runs["off"]["wall_ms_per_tick"]
-    q1, _, q3 = statistics.quantiles(off_walls, n=4)
+    q1, _, q3 = (statistics.quantiles(off_walls, n=4) if len(off_walls) > 1
+                 else off_walls * 3)
     for label, row in runs.items():
         walls = row["wall_ms_per_tick"]
         wall_ms = statistics.median(walls)
@@ -1369,8 +1379,7 @@ def phase_telemetry(card) -> dict:
                    wall_ms_vs_off=diff, off_iqr_ms=q3 - q1,
                    wall_resolved=abs(diff) > q3 - q1,
                    turns_slower_than_off=sum(d > 0 for d in deltas))
-        row.update(device_profile(progs[label], ticks=250, wall_ms_per_tick=wall_ms,
-                                  host_ops=False))
+        row.update(device_profile(progs[label], ticks=250, wall_ms_per_tick=wall_ms))
         twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, **PLANE_SETS[label])
         # one warm-up run: a program's first step builds its constants
         twin.run(seed=0, max_ticks=16)
@@ -1440,20 +1449,23 @@ def purge_timing(n, device_ms_per_tick) -> dict:
 
 
 # (plan, case, n, params, max_ticks, chunk, options, expected status)
+# the sweep plans take ~n ticks by design: 256 instances (1,024 once),
+# part of the cut that pays for phase cohort's time
+SWEEP_N = 256
 PLAN_RUNS = {
     **{f"placebo/{c}": ("placebo", c, 100_000, {}, 64, 64, {}, want)
        for c, want in (("ok", 1), ("abort", 2), ("panic", 3), ("stall", 0),
                        ("silent", 0), ("optional-failure", 1), ("metrics", 1))},
     # pings cut from 8 to 2: each pinger pings once every n ticks
-    **{f"verify/{c}": ("verify", c, 1024, {"pings": "2"}, 8192, 256, {}, 1)
+    **{f"verify/{c}": ("verify", c, SWEEP_N, {"pings": "2"}, 8192, 256, {}, 1)
        for c in ("uses-data-network", "uses-data-network-drop")},
-    **{f"splitbrain/{c}": ("splitbrain", c, 1024, {}, 8192, 256, {}, 1)
+    **{f"splitbrain/{c}": ("splitbrain", c, SWEEP_N, {}, 8192, 256, {}, 1)
        for c in ("accept", "drop", "reject")},
-    **{f"additional_hosts/{c}": ("additional_hosts", c, 1024, {}, 8192, 256,
+    **{f"additional_hosts/{c}": ("additional_hosts", c, SWEEP_N, {}, 8192, 256,
                                  {"hosts": ("http-echo",)}, 1)
        for c in ("additional_hosts", "additional_hosts_drop")},
-    "chaos/chaos-barrier": ("chaos", "chaos-barrier", 1024, chaos_setup(1024)[0], 8192,
-                            256, {"fault_tables": chaos_setup(1024)[1]}, 1),
+    "chaos/chaos-barrier": ("chaos", "chaos-barrier", SWEEP_N, chaos_setup(SWEEP_N)[0],
+                            8192, 256, {"fault_tables": chaos_setup(SWEEP_N)[1]}, 1),
 }
 
 
@@ -1723,7 +1735,8 @@ SIM_SKIPPED = frozenset({"wall_secs", "compile_secs", "transport", "processes", 
 # the perf ledger's row fields that are the run's: the rest are timings,
 # the transport that ran and, on a card, the device bytes in use
 PERF_ROW_FIELDS = ("run", "plan", "case", "tick", "chunk")
-EXEC_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+EXEC_TURNS = 1
 
 
 def exec_job(run_id, root, plan, case, n, params, device="cuda", faults=None,
@@ -1825,13 +1838,13 @@ def slo_ticks(run_dir) -> list:
     return [json.loads(ln)["tick"] for ln in open(path)] if os.path.exists(path) else []
 
 
-def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
+def phase_executor(card, n=100_000, m=4096, chaos_n=SWEEP_N) -> dict:
     """The port's ``execute_sim_run`` on the card, into a temporary
     outputs root: sustained@100k with every plane and a warn SLO rule
     (checked against its run directory, and timed in turns against
     ``SimProgram.run`` of the same planes: the executor's host cost),
     faults@100k with a crashed-fraction rule (its breaches inside the crash
-    window), the chaos smoke composition at 1,024, and the faulted
+    window), the chaos smoke composition at 256, and the faulted
     sustained at 4,096 with every plane on the CPU and on the card, whose
     run directories and journals must be equal."""
     import shutil
@@ -1906,7 +1919,7 @@ def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
         faults.update(wall_s=wall, breach_ticks=ticks,
                       faults_crashed=out.result.journal["sim"]["faults_crashed"])
 
-        # the chaos smoke composition at 1,024
+        # the chaos smoke composition at SWEEP_N instances
         params, tables = chaos_setup(chaos_n)
         smoke_rule = {"name": "fleet-mostly-alive", "metric": "crashed_fraction",
                       "op": "<", "threshold": 0.2, "severity": "warn"}
@@ -1951,7 +1964,8 @@ def phase_executor(card, n=100_000, m=4096, chaos_n=1024) -> dict:
 
 # ------------------------------------------------------------ the CLI
 
-CLI_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+CLI_TURNS = 1
 # sustained@100k as a composition: bench.py's sustained cut as phase 4
 # cuts it, through `run composition` at full width
 SUSTAINED_COMPOSITION = """[metadata]
@@ -2312,8 +2326,8 @@ def phase_cli(card) -> dict:
 
 # ---------------------------------------------------------------- daemon
 
-# two turns (three before phase packs joined the script's time budget)
-DAEMON_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+DAEMON_TURNS = 1
 # a composition of one group, with {n}, {chunk}, {max_ticks}, {cfg} (more
 # run-config lines), {params} and {faults} ([[global.run.faults]] blocks)
 DAEMON_COMPOSITION = """[metadata]
@@ -2690,7 +2704,9 @@ def phase_daemon(card) -> dict:
 
 # ---------------------------------------------------------------- admit
 
-ADMIT_TURNS = 2
+# one on/off pair (two once): part of the cut that pays for phase
+# cohort's time
+ADMIT_TURNS = 1
 # the bad compositions of phase admit: cli@100k's composition with one
 # change each, and the rule its 422 names
 ADMIT_REFUSED = {
@@ -2708,10 +2724,12 @@ ADMIT_REFUSED = {
                                   "kind": "partition", "instances": "0:50000",
                                   "to_instances": "50000:100000", "start_ms": 100.0,
                                   "duration_ms": -50.0}])),
-    # a multi-process cohort: still refused (item 15b); a bucket mode the
-    # gate refuses
-    "num-processes": ("port.not-ported",
-                      lambda c: c["global"]["run_config"].update(num_processes=2)),
+    # a cohort that resumes (the reference's checkpoint.resume-cohort); a
+    # bucket mode the gate refuses
+    "cohort-resume": ("checkpoint.resume-cohort",
+                      lambda c: c["global"]["run_config"].update(
+                          coordinator_address="127.0.0.1:1", num_processes=2,
+                          resume_from="earlier")),
     "bucket-sideways": ("buckets.mode-invalid",
                         lambda c: c["global"]["run_config"].update(bucket="sideways")),
 }
@@ -2744,8 +2762,8 @@ def phase_admit(card) -> dict:
     """Admission at submit and the perf ledger on the card: (a) an
     in-process ``Daemon`` on the card with one worker refuses cli@100k's
     composition with an SLO and no telemetry, an unknown transport, an
-    inverted fault window, ``num_processes = 2`` (item 15b) and
-    ``bucket = "sideways"``: a 422 naming the rule,
+    inverted fault window, a two-process cohort that sets ``resume_from``
+    and ``bucket = "sideways"``: a 422 naming the rule,
     no task, one ``task.refused`` event, no device memory allocated; (b)
     admits cli@100k's own composition, which launches K1 and K2 every tick
     and journals ``sim.perf`` (rows = chunks, Σ row walls = the execute
@@ -3340,8 +3358,8 @@ def phase_observe(card) -> dict:
 
 # ------------------------------------------------------------ surface
 
-# two turns (three before phase packs joined the script's time budget)
-SURFACE_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+SURFACE_TURNS = 1
 SURFACE_WAYS = ("alone", "metrics", "dashboard")
 # the sustained plan at 1M instances under a 512 MiB budget: its carry
 # (321 MiB) × the executor's 2.5 headroom does not fit
@@ -3768,7 +3786,8 @@ def _answers(client, proc, log_path) -> bool:
 
 # ---------------------------------------------------------------- resume
 
-RESUME_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+RESUME_TURNS = 1
 
 
 def _run_points(run_dir) -> list:
@@ -3812,7 +3831,7 @@ def phase_resume(card) -> dict:
     1. sustained@100k at phase 4's parameters through ``execute_sim_run``
        (telemetry on): with ``checkpoint_chunks = 1`` each snapshot's bytes,
        D2H ms and write ms and no write error; ms/tick with the knob at 1
-       and at 0 in two rotated turns; with the knob at 0 the ops and the
+       and at 0, one turn; with the knob at 0 the ops and the
        sync-debug syncs of a chunk equal a run's without the key;
     2. a run cut at tick 250 and resumed from its snapshot equal to the
        uninterrupted card run (journal, telemetry stream, final carry),
@@ -4056,7 +4075,8 @@ def phase_resume(card) -> dict:
 
 # ---------------------------------------------------------------- buckets
 
-BUCKET_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+BUCKET_TURNS = 1
 # the phase's sizes: sustained@100k and its rung under the default ladder,
 # 1M and its rung, the faulted sustained, the plan cases' sweep
 BUCKET_SIZES = {"n": 100_000, "padded": 131_072, "big": 1_000_000,
@@ -4094,7 +4114,7 @@ def phase_buckets(card) -> dict:
 
     1. sustained@100k at phase 4's parameters through ``execute_sim_run``
        with telemetry, exact against ``bucket = "auto"`` (131,072 lanes)
-       in two rotated turns: wall ms/tick; the journals, the telemetry
+       in one turn: wall ms/tick; the journals, the telemetry
        streams and the latency blocks equal;
     2. ``build single network:pingpong-sustained --buckets`` with the
        ladder 4096,32768,131072 through the CLI (seconds a rung, the
@@ -4400,7 +4420,7 @@ def phase_buckets(card) -> dict:
             twin = program("pingpong-sustained", n, SUSTAINED, chunk=64, telemetry=True,
                            ladder=lad)
             prof[way] = device_profile(twin, ticks=64, wall_ms_per_tick=statistics.median(
-                ms[way]), host_ops=False, by_name=True)
+                ms[way]), by_name=True)
         # the device events a padded tick adds or drops, by kernel name
         names = {w: prof[w].pop("kernels_per_tick_by_name") for w in prof}
         row["profiled"] = prof
@@ -4418,7 +4438,8 @@ def phase_buckets(card) -> dict:
 # phase packs: eight sustained tenants, one bucket of the default ladder
 # (32,768 lanes each, 262,144 in the pack, 16% of them dead)
 PACK_SIZES = (24_000, 25_000, 26_000, 27_000, 28_000, 29_000, 30_000, 31_000)
-PACK_TURNS = 2
+# one turn (three once, then two), for the script's time limit
+PACK_TURNS = 1
 # the virtual meshes of card 0 a pack runs on (phase packs, step 4)
 PACK_MESHES = ("4", "2x4")
 # the reference's pack smoke: eight ping-pong tenants in one rung of 32
@@ -4461,8 +4482,8 @@ def phase_packs(card) -> dict:
        "auto"``: 32,768 lanes each, ``pack = true``, telemetry, chunk 250)
        submitted to an in-process daemon with one worker while a CPU run
        holds it, so one claim takes all eight; against the same eight runs
-       one after another through ``execute_sim_run``, in two rotated
-       turns. Every member's journal (flow totals, latency, telemetry and
+       one after another through ``execute_sim_run``, in one turn.
+       Every member's journal (flow totals, latency, telemetry and
        events blocks) and telemetry stream equals its serial run's, and
        journals ``sim.pack.members`` = 8. Wall ms/tick of the pack (the
        run loop's ``sim.wall_secs``), and aggregate live peer·ticks/s of
@@ -4479,7 +4500,7 @@ def phase_packs(card) -> dict:
     4. pack8@sustained's eight on a 4-shard and on a ``"2x4"`` virtual
        mesh of card 0 (``PackRunner(..., mesh=make_mesh(shape,
        devices=[card 0] * k))``: a composition cannot name a virtual mesh
-       on CUDA) against the unmeshed pack, two rotated turns on the
+       on CUDA) against the unmeshed pack, one turn on the
        library path: wall ms/tick and launches; every meshed member equals
        its unmeshed-pack run;
     5. last, after every wall clock: the pack's peak device bytes against
@@ -4726,7 +4747,7 @@ def phase_packs(card) -> dict:
         step("straggler_slo")
 
         # 4. the eight on a 4-shard and a "2x4" virtual mesh of card 0,
-        # against the unmeshed pack, two rotated turns (library path)
+        # against the unmeshed pack, one turn (library path)
         from testground_tpu_torch.sim.meshplan import make_mesh
 
         lc8 = [plan_buckets([n], "auto", DEFAULT_LADDER).live_counts for n in PACK_SIZES]
@@ -4773,7 +4794,7 @@ def phase_packs(card) -> dict:
 
         ways = ("unmeshed", *PACK_MESHES)
         mesh_runs = {w: [] for w in ways}
-        for i in range(2):
+        for i in range(PACK_TURNS):
             for way in (ways if i % 2 == 0 else ways[::-1]):
                 mesh_runs[way].append(mesh_turn(way))
         base = mesh_runs["unmeshed"][0][0]
@@ -4809,7 +4830,7 @@ def phase_packs(card) -> dict:
             "pack": pack_profile(pack_prog(64), members(64),
                                  p8["median_pack_wall_ms_per_tick"]),
             "member": device_profile(pack_prog(64), ticks=64, wall_ms_per_tick=p8[
-                "serial_member_wall_ms_per_tick"], host_ops=False),
+                "serial_member_wall_ms_per_tick"]),
             **{way: pack_profile(pack_prog(64), members(64), statistics.median(
                 row["pack8_meshes"][way]["wall_ms_per_tick"]), mesh=pack_mesh(way))
                for way in PACK_MESHES},
@@ -4827,6 +4848,301 @@ def phase_packs(card) -> dict:
         daemon.stop()
         shutil.rmtree(root, ignore_errors=True)
     row["launches"] = launches
+    return row
+
+
+# ---------------------------------------------------------------- cohort
+
+# the leader's program: the tick's collectives as the profiler names them
+COHORT_COLLECTIVES = ("all_reduce", "allreduce", "all_gather", "allgather", "broadcast")
+
+
+class _Follower:
+    """A ``tg-torch sim-worker`` process on card 0, its output lines read as
+    they come with their arrival time (seconds after the spawn)."""
+
+    def __init__(self, coord, once=True):
+        import threading
+
+        argv = [sys.executable, "-m", "testground_tpu_torch.cli", "sim-worker",
+                "--coordinator", coord, "--num-processes", "2", "--process-id", "1",
+                "--plans", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                        "testground_tpu_torch", "plans")]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(argv + (["--once"] if once else []),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+        self.lines = []
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter() - self.t0, line.rstrip("\n")))
+
+    def at(self, needle):
+        """(seconds after the spawn, line) of the first line holding
+        ``needle``, or None."""
+        return next(((t, ln) for t, ln in self.lines if needle in ln), None)
+
+    def done(self, timeout=60.0):
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.kill()
+        self._reader.join(timeout=5)
+        return self.proc.returncode
+
+    def kill(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def text(self):
+        return "\n".join(ln for _, ln in self.lines)
+
+
+def _spans(run_dir) -> list:
+    path = os.path.join(run_dir, "run_spans.jsonl")
+    return [json.loads(ln)["event"] | {"ts": json.loads(ln)["ts"]}
+            for ln in _lines(path)] if os.path.exists(path) else []
+
+
+def _leader_line(text, prefix):
+    import re
+
+    m = re.search(re.escape(prefix) + r" (\d+), launches (\{[^}]*\})", text)
+    check(m is not None, f"cohort: no '{prefix}' line in the leader's log")
+    return int(m.group(1)), json.loads(m.group(2))
+
+
+def _cohort_trace(run_dir, ticks) -> dict:
+    """Kernels, device ms and each collective's host ms a tick off the
+    leader's ``profile_chunks`` Chrome trace (``<run>/profiles``)."""
+    paths = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(run_dir, "profiles"))
+             for f in fs if f.endswith(".json")]
+    check(bool(paths), f"cohort: no profiler trace under {run_dir}")
+    with open(paths[0]) as f:
+        events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    coll = {}
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("cat") in ("cpu_op", "user_annotation") and any(
+                c in name.lower() for c in COHORT_COLLECTIVES):
+            coll[name] = coll.get(name, 0.0) + float(e.get("dur", 0.0)) / 1e3
+    kernels = {}
+    for e in dev:
+        if e.get("cat") == "kernel":
+            k = str(e.get("name", "")).split("(")[0][:40]
+            kernels[k] = kernels.get(k, 0) + 1
+    return {
+        "profiled_ticks": ticks,
+        "kernels_per_tick": len(dev) / ticks,
+        "device_ms_per_tick": sum(float(e.get("dur", 0.0)) for e in dev) / 1e3 / ticks,
+        "collective_ms_per_tick": {k: v / ticks for k, v in coll.items()},
+        "transport_kernels_per_tick": {k: v / ticks for k, v in kernels.items()
+                                       if k.startswith(TRANSPORT_KERNELS)},
+    }
+
+
+def phase_cohort(card) -> dict:
+    """A two-process cohort on card 0 (both ranks on one card: the
+    collectives go over gloo): sustained@100k at phase 4's parameters (501
+    ticks, chunk 250) through ``execute_sim_run`` with ``coordinator_address``
+    (the leader child) and one ``tg-torch sim-worker`` process; then, in
+    the same cohort, a 128-tick twin (chunk 64) whose second chunk the
+    leader profiles (kernels, device ms and the collectives' ms a tick).
+    Then a 10,000-tick cohort whose follower is SIGKILLed after its first
+    chunk: the task fails with ``CohortBrokenError``'s text within 60 s.
+    Then the same composition without a coordinator on the card (it runs
+    after the death), and its carry through ``SimProgram.run``: outcome,
+    per-group outcomes, journal metrics and flow totals equal to the
+    cohort's, and the carry digest (every replicated leaf: every instance's
+    status, finish tick and state) equal to the leader's and the
+    follower's. Reports wall ms/tick of both, bytes a tick the collectives
+    move, join and first-chunk seconds of each process, the backend."""
+    import socket
+    import tempfile
+    import threading
+
+    from testground_tpu_torch.rpc import OutputWriter, discard_writer
+    from testground_tpu_torch.sim.cohort import CohortBrokenError, shutdown_leader_child
+    from testground_tpu_torch.sim.engine import carry_digest
+    from testground_tpu_torch.sim.executor import execute_sim_run
+
+    n = 100_000
+    root = tempfile.mkdtemp(prefix="chip_smoke_cohort_")
+    row = {"phase": "cohort", "n": n, "card": card, "step_s": {}}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        row["step_s"][name] = now - t_step[0]
+        t_step[0] = now
+
+    def free_coord():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return f"127.0.0.1:{sock.getsockname()[1]}"
+
+    class Sink:
+        def __init__(self):
+            self.chunks = []
+
+        def write(self, text):
+            self.chunks.append(text)
+
+        def flush(self):
+            pass
+
+        def text(self):
+            return "".join(json.loads(c).get("p", "") for c in "".join(
+                self.chunks).splitlines() if c.startswith("{"))
+
+    def lead(job, sink, cancel=None):
+        t0 = time.perf_counter()
+        try:
+            out = execute_sim_run(job, OutputWriter(sink=sink), cancel or threading.Event())
+        except Exception as e:  # noqa: BLE001 — the death step expects one
+            out = e
+        return out, time.perf_counter() - t0
+
+    ticks = 501  # max_ticks: the run ends at its own tick
+    flow_keys = ("ticks", "msgs_sent", "msgs_delivered", "msgs_enqueued", "msgs_dropped",
+                 "msgs_rejected", "msgs_in_flight", "msgs_fault_dropped", "latency_clamped",
+                 "bw_queue_dropped", "pub_dropped", "carry_bytes")
+    follower = None
+    try:
+        # (a) the cohort: the timed run, then its profiled twin
+        coord = free_coord()
+        cfg = dict(chunk=250, max_ticks=ticks, coordinator_address=coord, num_processes=2)
+        follower = _Follower(coord, once=False)
+        sink = Sink()
+        t_lead = time.perf_counter()
+        out, lead_wall = lead(exec_job("cohort", root, "network", "pingpong-sustained", n,
+                                       SUSTAINED, device=None, **cfg), sink)
+        check(not isinstance(out, Exception), f"cohort: the run failed: {out}")
+        log = sink.text()
+        sim = out.result.journal["sim"]
+        check(out.result.outcome.value == "success", f"cohort: outcome {out.result.outcome}")
+        check((sim["processes"], sim["devices"]) == (2, 2), f"cohort: {sim['processes']}")
+        check("multi-host: 2 processes, 2 global devices, leader=0, collectives over gloo"
+              in log, "cohort: the multi-host line")
+        check("perf" not in sim, "cohort: a perf ledger under a cohort")
+        digest, lead_launches = _leader_line(log, "multi-host: carry digest")
+        _wait_for(lambda: follower.at("run cohort carry digest"), "the follower's digest",
+                  60)
+        f_digest = int(follower.at("run cohort carry digest")[1].split("carry digest ")[1]
+                       .split(",")[0])
+        f_line = follower.at("run cohort carry digest")[1]
+        f_launches = json.loads(f_line.split("launches ")[1].split(", first chunk")[0])
+        check(f_digest == digest, f"cohort: follower digest {f_digest} != leader {digest}")
+        # one sharded K1 and one sharded K2 a tick on each rank, no unmeshed
+        # launch: the pops count the ticks that ran
+        real = lead_launches["pop_bucket_sharded"]
+        for who, got in (("leader", lead_launches), ("follower", f_launches)):
+            check(got == lead_launches and got["commit_calendar_sharded"] == real > 0
+                  and got["commit_calendar"] == got["pop_bucket"] == 0,
+                  f"cohort: {who} launches {got}")
+        spans = _spans(os.path.join(root, "network", "cohort"))
+        starts = {e["span"]: e["ts"] for e in spans if e["type"] == "span_start"}
+        row["cohort"] = {
+            "ticks": real, "wall_s": sim["wall_secs"],
+            "wall_ms_per_tick": sim["wall_secs"] / real * 1e3,
+            "steady_ms_per_tick": (sim["wall_secs"] - sim["compile_secs"])
+            / (real - 250) * 1e3,
+            "call_s": lead_wall, "leader_join_s": (starts["build"] - starts["run"]) / 1e9,
+            "leader_first_chunk_s": sim["compile_secs"],
+            # from the follower's spawn (its interpreter and torch import too)
+            "follower_joined_after_spawn_s": follower.at("joined")[0],
+            "follower_spawn_before_leader_s": t_lead - follower.t0,
+            "follower_first_chunk_s": float(f_line.split("first chunk ")[1].split(" s")[0]),
+            "digest": digest, "leader_launches": lead_launches,
+            "follower_launches": f_launches, "mesh": sim["mesh"],
+        }
+        step("cohort")
+        out2, _ = lead(exec_job("cohort-prof", root, "network", "pingpong-sustained", n,
+                                SUSTAINED, device=None, **{**cfg, "chunk": 64,
+                                                            "max_ticks": 128},
+                                profile=True, profile_chunks=1), Sink())
+        check(not isinstance(out2, Exception), f"cohort: the profiled run failed: {out2}")
+        row["profiled"] = _cohort_trace(os.path.join(root, "network", "cohort-prof"), 64)
+        shutdown_leader_child()  # the sentinel ends the follower
+        check(follower.done() == 0, f"cohort: follower exit {follower.proc.returncode}")
+        check(follower.at("sim-worker: shutdown") is not None, "cohort: no shutdown")
+        launches = {"commit_calendar_sharded": lead_launches["commit_calendar_sharded"],
+                    "pop_bucket_sharded": lead_launches["pop_bucket_sharded"]}
+        # the collectives' bytes a tick: the mask's all_reduce and the pop
+        # rows' all_gather, what one rank sends
+        m2 = 2 * n  # sustained: OUT_MSGS = 2 a lane, no duplicate
+        planes = 2  # the src (occupancy) row and one payload row
+        row["collective_bytes_per_tick"] = {"all_reduce_mask": m2 * 4,
+                                            "all_gather_rows": planes * 4 * (n // 2) * 4}
+        step("profiled")
+
+        # (b) a member's death after the first chunk of a 10,000-tick run
+        coord = free_coord()
+        follower = _Follower(coord)
+        dparams = dict(SUSTAINED, duration_ticks="10000")
+        djob = exec_job("death", root, "network", "pingpong-sustained", n, dparams,
+                        device=None, chunk=250, max_ticks=10_000,
+                        coordinator_address=coord, num_processes=2)
+        box = {}
+        th = threading.Thread(target=lambda: box.update(r=lead(djob, Sink())), daemon=True)
+        th.start()
+        _wait_for(lambda: any(e["span"] == "chunk" for e in
+                              _spans(os.path.join(root, "network", "death"))),
+                  "the death run's first chunk", 120)
+        follower.proc.send_signal(9)
+        t_kill = time.perf_counter()
+        th.join(90)
+        died_s = time.perf_counter() - t_kill
+        check(not th.is_alive(), "cohort: the leader did not fail within 90 s")
+        err = box["r"][0]
+        check(isinstance(err, CohortBrokenError), f"cohort: death gave {err!r}")
+        check("cohort member" in str(err).lower() and "sim-worker" in str(err),
+              f"cohort: death message {err}")
+        check(died_s < 60, f"cohort: the task failed {died_s:.1f} s after the kill")
+        follower.done(10)
+        row["death"] = {"fail_s": died_s, "error": str(err)[:300]}
+        shutdown_leader_child()
+        step("death")
+
+        # (c) the same composition alone on the card, after the death
+        out1, wall1 = lead(exec_job("single", root, "network", "pingpong-sustained", n,
+                                    SUSTAINED, device=None, chunk=250, max_ticks=ticks),
+                           Sink())
+        check(not isinstance(out1, Exception), f"cohort: the single run failed: {out1}")
+        single = out1.result.journal["sim"]
+        check(out1.result.outcome == out.result.outcome, "cohort: outcomes differ")
+        check({k: v.to_dict() for k, v in out1.result.outcomes.items()}
+              == {k: v.to_dict() for k, v in out.result.outcomes.items()},
+              "cohort: per-group outcomes differ")
+        check(out1.result.journal.get("metrics") == out.result.journal.get("metrics")
+              and out1.result.journal["events"] == out.result.journal["events"],
+              "cohort: journal metrics differ")
+        for k in flow_keys:
+            check(single[k] == sim[k], f"cohort: {k} {single[k]} != {sim[k]}")
+        prog = program("pingpong-sustained", n, SUSTAINED, chunk=250)
+        _, _, _, carry = run_timed(prog, max_ticks=ticks)
+        one = carry_digest(carry)
+        check(one == digest, f"cohort: single digest {one} != leader {digest}")
+        row["single"] = {
+            "ticks": real, "wall_s": single["wall_secs"],
+            "wall_ms_per_tick": single["wall_secs"] / real * 1e3,
+            "steady_ms_per_tick": (single["wall_secs"] - single["compile_secs"])
+            / (real - 250) * 1e3,
+            "first_chunk_s": single["compile_secs"], "call_s": wall1,
+        }
+        row["wall_ratio"] = row["cohort"]["wall_ms_per_tick"] / row["single"]["wall_ms_per_tick"]
+        row["backend"] = "gloo"
+        row["launches"] = launches
+        step("single")
+    finally:
+        if follower is not None:
+            follower.kill()
+        shutdown_leader_child()
     return row
 
 
@@ -4935,6 +5251,11 @@ def main(argv=None) -> int:
             sharded_commit_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, 2 * 32 * 8192,
                                 False, True, True, 68),
             sharded_pop_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, False, 69),
+            # pack8@sustained unmeshed: 262,144 lanes, a 524k-message stream
+            # with the etick plane, a 1M-cell row; one launch a tick each
+            commit_case("packed", 8, 8 * 32768, 4, 1, 2 * 8 * 32768, False, True, True,
+                        70),
+            pop_case("packed", 8, 8 * 32768, 4, 1, False, 71),
         ]
         # the harness's own floor: an empty kernel timed the same way
         floor = {"phase": "kernels", "case": "launch-floor",
@@ -4952,7 +5273,8 @@ def main(argv=None) -> int:
                    ("mesh", phase_mesh), ("cli", phase_cli), ("daemon", phase_daemon),
                    ("admit", phase_admit), ("observe", phase_observe),
                    ("surface", phase_surface), ("resume", phase_resume),
-                   ("buckets", phase_buckets), ("packs", phase_packs)):
+                   ("buckets", phase_buckets), ("packs", phase_packs),
+                   ("cohort", phase_cohort)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

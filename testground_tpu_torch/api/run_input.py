@@ -43,6 +43,35 @@ class RunGroup:
     trace: dict = field(default_factory=dict)
     slo: list = field(default_factory=list)
 
+    def to_dict(self) -> dict:
+        return {
+            "id": self.id,
+            "instances": self.instances,
+            "artifact_path": self.artifact_path,
+            "builder": self.builder,
+            "parameters": dict(self.parameters),
+            "profiles": dict(self.profiles),
+            "resources": self.resources.to_dict(),
+            "faults": [dict(f) for f in self.faults],
+            "trace": dict(self.trace),
+            "slo": [dict(s) for s in self.slo],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RunGroup":
+        return cls(
+            id=d["id"],
+            instances=int(d["instances"]),
+            artifact_path=d.get("artifact_path", ""),
+            builder=d.get("builder", ""),
+            parameters=dict(d.get("parameters", {})),
+            profiles=dict(d.get("profiles", {})),
+            resources=Resources.from_dict(d.get("resources", {})),
+            faults=[dict(f) for f in d.get("faults", [])],
+            trace=dict(d.get("trace", {})),
+            slo=[dict(s) for s in d.get("slo", [])],
+        )
+
 
 @dataclass
 class RunInput:
@@ -70,6 +99,22 @@ class RunInput:
     # threading.Event the supervisor arms to stop the run at a chunk
     # boundary for a live migration. Process-local, like env
     preempt: Any = None
+
+    def to_dict(self) -> dict:
+        """The wire form (the runner config, env and preempt are not part
+        of it)."""
+        return {
+            "run_id": self.run_id,
+            "test_plan": self.test_plan,
+            "test_case": self.test_case,
+            "total_instances": self.total_instances,
+            "groups": [g.to_dict() for g in self.groups],
+            "disable_metrics": self.disable_metrics,
+            "faults": [dict(f) for f in self.faults],
+            "trace": dict(self.trace),
+            "slo": [dict(s) for s in self.slo],
+            "trace_ctx": dict(self.trace_ctx),
+        }
 
 
 @dataclass

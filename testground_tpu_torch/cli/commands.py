@@ -25,8 +25,11 @@ The reference's flags and verbs that later ROADMAP queue 1 items port are
 refused naming the item: ``collect``'s default runner ``local:exec`` (item
 16). ``build --buckets`` warms the shape-bucket ladder on the run's device
 (``builders/sim_plan.warm_bucket_ladder``), and with ``pack`` the pack
-widths of each rung. A verb the port does not register
-(``sim-worker``, ``sync-service``, ``sync-stats``) is refused by argparse.
+widths of each rung. ``sim-worker`` joins a cohort as a follower
+(``sim/executor.run_sim_worker``), with the reference's flags and a
+``--device`` (the card unless it names another). A verb the port does not
+register (``sync-service``, ``sync-stats``: item 17) is refused by
+argparse.
 """
 
 from __future__ import annotations
@@ -2081,6 +2084,63 @@ def daemon_cmd(args) -> int:
     from ..daemon.server import serve
 
     return serve(listen=args.listen)
+
+
+def register_sim_worker(sub) -> None:
+    p = sub.add_parser(
+        "sim-worker",
+        help="join a multi-process sim:torch cohort as a follower process "
+        "(the cluster-node analog; the leader is the engine whose runner "
+        "config sets coordinator_address)",
+    )
+    p.add_argument("--coordinator", required=True,
+                   help="the cohort's coordinator host:port (process 0's store)")
+    p.add_argument("--num-processes", type=int, required=True)
+    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument(
+        "--plans", default="",
+        help="plans dir holding the same plan sources as the leader "
+        "(default: $TESTGROUND_HOME/plans)",
+    )
+    p.add_argument("--once", action="store_true", help="exit after one job (tests)")
+    p.add_argument(
+        "--connect-attempts", type=int, default=3,
+        help="bounded retries joining the coordinator (a worker commonly "
+        "races the leader's startup)",
+    )
+    p.add_argument("--connect-timeout", type=float, default=60.0,
+                   help="per-attempt coordinator join timeout in seconds")
+    p.add_argument(
+        "--device", default=None,
+        help="this process's device (default: the card; 'cpu' runs the "
+        "plain versions of the kernels, as the leader's device = \"cpu\")",
+    )
+    p.set_defaults(func=sim_worker_cmd)
+
+
+def sim_worker_cmd(args) -> int:
+    import json
+
+    from ..sim.engine import carry_digest
+    from ..sim.executor import _launch_counts, run_sim_worker
+
+    plans_dir = args.plans or EnvConfig.load().dirs.plans()
+
+    def on_result(spec, res, carry):
+        # the replicated leaves' digest, for a harness to hold against the
+        # leader's ("multi-host: carry digest" in its log), this process's
+        # kernel launches and its first chunk's seconds
+        print(f"sim-worker: run {spec['run_id']} carry digest {carry_digest(carry)}, "
+              f"launches {json.dumps(_launch_counts())}, "
+              f"first chunk {res['compile_secs']:.3f} s", flush=True)
+
+    # the wrapper turns a dead leader into a one-line clean exit
+    return run_sim_worker(
+        args.coordinator, args.num_processes, args.process_id, plans_dir,
+        once=args.once, connect_attempts=args.connect_attempts,
+        connect_timeout_secs=args.connect_timeout, device=args.device,
+        on_result=on_result,
+    )
 
 
 def register_version(sub) -> None:

@@ -62,6 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
     commands.register_terminate(sub)
     commands.register_preempt(sub)
     commands.register_daemon(sub)
+    commands.register_sim_worker(sub)
     commands.register_check(sub)
     commands.register_version(sub)
     return p

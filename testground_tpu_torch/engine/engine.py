@@ -165,6 +165,18 @@ class Engine:
         self._queue_kick.set()
         for t in self._workers:
             t.join(timeout=5)
+        # a leader engine drains its cohort's sim-workers on the way out:
+        # through the leader child when one exists (sim/cohort.py), or
+        # directly if a cohort was joined in this process
+        # (isolate_cohort=False)
+        try:
+            from ..sim.cohort import shutdown_leader_child
+            from ..sim.distributed import broadcast_shutdown_if_leader
+
+            shutdown_leader_child()
+            broadcast_shutdown_if_leader()
+        except Exception as e:  # noqa: BLE001 — shutdown is best-effort
+            S().warning("cohort shutdown broadcast failed: %s", e)
 
     # ------------------------------------------------------------- registries
 

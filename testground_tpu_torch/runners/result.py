@@ -49,3 +49,16 @@ class Result:
             "outcomes": {k: v.to_dict() for k, v in self.outcomes.items()},
             "journal": self.journal,
         }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Result":
+        """Inverse of :meth:`to_dict`: a Result across the cohort-leader
+        child boundary (``sim/cohort.py``)."""
+        return cls(
+            outcome=Outcome(d.get("outcome", Outcome.UNKNOWN.value)),
+            outcomes={
+                k: GroupOutcome(total=int(v.get("total", 0)), ok=int(v.get("ok", 0)))
+                for k, v in d.get("outcomes", {}).items()
+            },
+            journal=dict(d.get("journal", {})),
+        )

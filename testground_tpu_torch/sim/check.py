@@ -12,7 +12,8 @@ the gates, it calls the functions the port's executor calls
 (``fault_specs_of`` / ``trace_specs_of`` / ``slo_specs_of``,
 ``build_fault_schedule``, ``build_trace_plan``, ``build_slo_plan``,
 ``meshplan.parse_mesh_shape``, ``_parse_hosts``, and the executor's own
-gates ``unported_settings``, ``transport_knob`` and ``check_mesh_lanes``),
+gates ``transport_knob``, ``check_mesh_lanes`` and
+``_precheck_cohort_spec_size``),
 and catches their refusals; the refusals the executor states inline take
 their text from the message helpers below, which the executor imports
 back. So an error finding is the executor's refusal, word for word, and
@@ -21,17 +22,12 @@ for (``tests/test_torch_check.py`` pins both directions).
 
 Where the port diverges from the reference's catalog:
 
-- ``port.not-ported`` (error, layer ``port``) is the port's own rule: one
-  finding for each runner-config key of ``executor._UNPORTED_SETTINGS`` set
-  away from its default, with the executor's ``NotImplementedError`` text
-  naming the ROADMAP item. It stands in for the rules whose gates the port does not
-  have yet: the cohort rules —
-  ``*.cohort-disabled`` (``checkpoint.cohort-disabled`` and
-  ``buckets.cohort-disabled`` among them), ``checkpoint.resume-cohort``,
-  ``debug.nan-guard-cohort`` and ``cohort.spec-oversize`` — which need
-  ``coordinator_address`` (item 15b). ``checkpoint.resume-multi-runs``,
-  ``buckets.*`` and ``trace.bucket-disabled`` fire as the reference's
-  (``executor.resolve_buckets``, the same gate and messages).
+- The cohort rules fire as the reference's: ``*.cohort-disabled``
+  (``checkpoint.cohort-disabled`` and ``buckets.cohort-disabled`` among
+  them), ``checkpoint.resume-cohort``, ``debug.nan-guard-cohort`` and
+  ``cohort.spec-oversize`` (the executor's own
+  ``_precheck_cohort_spec_size``). Under a cohort the peer shards are the
+  processes (one device each), where the reference's checker counts none.
 - ``transport.mesh-indivisible`` is an error, not a warn, and fires for
   ``pallas`` only: there the port refuses with the reference engine's
   message, where the reference falls back to its XLA transport. Under
@@ -109,7 +105,7 @@ __all__ = [
     "check_composition",
     "findings_payload",
     "netmatrix_requires_telemetry_message",
-    "not_ported_message",
+    "resume_cohort_message",
     "pallas_lanes_message",
     "render_findings",
     "rule_by_id",
@@ -222,10 +218,6 @@ RULES: tuple[Rule, ...] = (
          "while loop in the jitted tick (unbounded per-tick work)"),
     Rule("plan.weak-type", "warn", "plan",
          "weak-typed leaf in the instance state (recompile hazard)"),
-    # ---- the port's own
-    Rule("port.not-ported", "error", "port",
-         "a runner-config setting the port refuses until its ROADMAP "
-         "item lands"),
 )
 
 _RULE_INDEX = {r.id: r for r in RULES}
@@ -307,11 +299,13 @@ def unknown_transport_message(requested: str) -> str:
     )
 
 
-def not_ported_message(name: str, value, item: str) -> str:
-    """A runner-config setting the port refuses until ``item`` lands."""
+def resume_cohort_message() -> str:
+    """The resume-under-cohort refusal (executor + checker), the
+    reference's text (``check.py:380-386``)."""
     return (
-        f"runner config {name}={value!r} is not ported yet: ROADMAP queue 1 "
-        f"{item}"
+        "resume_from is not supported under a multi-host cohort "
+        "(checkpoints are leader-local reads of a cross-process "
+        "carry); run the resumed composition single-host"
     )
 
 
@@ -361,10 +355,17 @@ class CheckContext:
     raw_env_layer: dict = dataclasses.field(default_factory=dict)
 
     @property
+    def cohort(self) -> bool:
+        return bool(getattr(self.cfg, "coordinator_address", ""))
+
+    @property
     def peer_shards(self) -> int:
-        """The peer shards the executor's ``_make_mesh`` would split the
-        calendar over: the explicit layout's last extent, else every card
-        when ``shard`` is on and the run's device is a card, else 1."""
+        """The peer shards the executor would split the calendar over: a
+        cohort's processes (one device each); else the explicit layout's
+        last extent, else every card when ``shard`` is on and the run's
+        device is a card, else 1."""
+        if self.cohort and int(getattr(self.cfg, "num_processes", 1)) > 1:
+            return int(self.cfg.num_processes)
         dims = _layout(getattr(self.cfg, "mesh", ""))
         if dims is not None:
             return int(dims[-1])
@@ -424,15 +425,6 @@ def _check_run_cfg_keys(ctx, findings) -> None:
                 "is silently ignored — known options: "
                 f"{', '.join(sorted(known))}",
             )
-
-
-def _check_not_ported(ctx, findings) -> None:
-    """``port.not-ported``: every refusal of the executor's
-    ``unported_settings`` gate, one finding each."""
-    from .executor import unported_settings
-
-    for message in unported_settings(ctx.cfg):
-        _add(findings, "port.not-ported", message)
 
 
 def _check_pack(ctx, findings) -> None:
@@ -588,29 +580,122 @@ def _check_run(ctx, run, findings) -> dict:
             run=run.id,
         )
         trace_specs = None
+    # the cohort gates: the executor's, in its order and words
+    if trace_plan is not None and not disable_metrics and trace_specs and ctx.cohort:
+        _add(
+            findings,
+            "trace.cohort-disabled",
+            "flight recorder disabled for the cohort config (per-chunk "
+            "leader-local device reads are not symmetric across "
+            "processes)",
+            run=run.id,
+        )
+        trace_specs = None
     telemetry_on = bool(getattr(ctx.cfg, "telemetry", False)) and not disable_metrics
-    if bool(getattr(ctx.cfg, "netmatrix", False)) and not telemetry_on:
+    if telemetry_on and ctx.cohort:
+        _add(
+            findings,
+            "telemetry.cohort-disabled",
+            "telemetry disabled for the cohort config (per-chunk "
+            "leader-local device reads are not symmetric across "
+            "processes)",
+            run=run.id,
+        )
+        telemetry_on = False
+    netmatrix_on = bool(getattr(ctx.cfg, "netmatrix", False))
+    if netmatrix_on and ctx.cohort:
+        _add(
+            findings,
+            "netmatrix.cohort-disabled",
+            "traffic matrix disabled for the cohort config (per-chunk "
+            "leader-local delta reads are not symmetric across "
+            "processes)",
+            run=run.id,
+        )
+        netmatrix_on = False
+    if netmatrix_on and not telemetry_on:
         _add(findings, "netmatrix.needs-telemetry",
              netmatrix_requires_telemetry_message(disable_metrics), run=run.id)
+        netmatrix_on = False
 
     slo_plan = None
     try:
         slo_plan = build_slo_plan(vgroups, slo_specs)
     except ValueError as e:
         _add(findings, "slo.invalid", str(e), run=run.id)
+    if slo_plan is not None and ctx.cohort:
+        _add(
+            findings,
+            "slo.cohort-disabled",
+            "SLO assertions disabled for the cohort config (the "
+            "telemetry plane they evaluate is leader-local and runs "
+            "off under a cohort)",
+            run=run.id,
+        )
+        slo_plan = None
     if slo_plan is not None and not telemetry_on:
         _add(findings, "slo.needs-telemetry",
              slo_requires_telemetry_message(slo_plan.count, disable_metrics),
              run=run.id)
+
+    if ctx.cohort:
+        _check_cohort_gates(ctx, run, findings)
     return {
         "telemetry_on": telemetry_on,
         # the executor refuses the matrix without telemetry (reported
         # above); the plan layer then builds without it
-        "netmatrix_on": telemetry_on and bool(getattr(ctx.cfg, "netmatrix", False)),
+        "netmatrix_on": netmatrix_on,
         "fault_specs": fault_specs,
         "trace_specs": None if disable_metrics else trace_specs,
         "bucket_plan": bucket_plan,
     }
+
+
+def _check_cohort_gates(ctx, run, findings) -> None:
+    """The cohort's checkpoint, resume and debug gates, then the
+    broadcast-bound precheck through the executor's OWN function on a job
+    shaped like the one the engine would build (``check.py:780-857``)."""
+    from ..api import RunGroup
+    from .executor import _precheck_cohort_spec_size
+
+    if str(getattr(ctx.cfg, "resume_from", "") or ""):
+        _add(findings, "checkpoint.resume-cohort", resume_cohort_message(),
+             run=run.id)
+    if int(getattr(ctx.cfg, "checkpoint_chunks", 0) or 0) > 0:
+        _add(
+            findings,
+            "checkpoint.cohort-disabled",
+            "checkpointing disabled for the cohort config (a "
+            "leader-local read of the cross-process-sharded carry is "
+            "not symmetric)",
+            run=run.id,
+        )
+    if bool(getattr(ctx.cfg, "nan_guard", False)):
+        _add(
+            findings,
+            "debug.nan-guard-cohort",
+            "nan_guard disabled for the cohort config (a leader-local "
+            "read of the cross-process-sharded carry is not symmetric, "
+            "and raises on non-addressable shards)",
+            run=run.id,
+        )
+    run_global = ctx.comp.global_.run
+    job = types.SimpleNamespace(
+        test_plan=ctx.comp.global_.plan,
+        test_case=ctx.comp.global_.case,
+        run_id=run.id,
+        groups=[
+            RunGroup(id=rg.id, instances=rg.calculated_instance_count,
+                     parameters=dict(rg.test_params),
+                     faults=[dict(f) for f in getattr(rg, "faults", [])])
+            for rg in run.groups
+        ],
+        faults=[dict(f) for f in (run_global.faults if run_global is not None else [])],
+    )
+    try:
+        _precheck_cohort_spec_size(job, ctx.cfg)
+    except ValueError as e:
+        _add(findings, "cohort.spec-oversize", str(e), run=run.id)
 
 
 # ---------------------------------------------- plan layer (--trace-plans)
@@ -1079,7 +1164,6 @@ def check_composition(
                        raw_run_config=raw_cfg, raw_env_layer=dict(env_layer or {}))
 
     _check_run_cfg_keys(ctx, findings)
-    _check_not_ported(ctx, findings)
     _check_mesh(ctx, findings)
     _check_transport(ctx, findings)
     _check_pack(ctx, findings)

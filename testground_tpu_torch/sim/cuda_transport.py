@@ -13,7 +13,11 @@ return contracts:
   ``_pop_bucket_sharded``): one launch per device over the shards it
   holds, on the calendar of ``net.Calendar`` with a mesh. The sharded
   pop's segment geometry (:func:`pop_segments`) is computed here and
-  handed to the kernel, so the CPU tests reach it.
+  handed to the kernel, so the CPU tests reach it. On a cohort mesh
+  (``sim/distributed.py``) each process launches over its own parts, and
+  the combine crosses processes: the survival masks are summed by one
+  ``all_reduce`` and the popped rows gathered by one ``all_gather``
+  (:func:`cohort_rows`).
 
 The kernels live in ``csrc/transport.cu`` (design and bound notes there).
 They are compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` at first use
@@ -65,6 +69,7 @@ __all__ = [
     "commit_calendar_plain",
     "commit_calendar_sharded",
     "commit_calendar_sharded_plain",
+    "cohort_rows",
     "observe_launches",
     "pop_bucket",
     "pop_bucket_plain",
@@ -492,7 +497,30 @@ def commit_calendar_sharded_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=
             t.to(dev), stacking, key_lo=s0 * seg,
         ).to(dev0)
         survived = surv if survived is None else survived + surv
-    return cal, survived
+    return cal, _cohort_sum(cal, survived)
+
+
+def _cohort_sum(cal, survived):
+    """A cohort's survival mask: every process's parts summed."""
+    if not cal.mesh.cohort:
+        return survived
+    from .distributed import all_reduce_sum
+
+    return all_reduce_sum(survived)
+
+
+def cohort_rows(rows: list) -> list:
+    """A cohort's global slot-major rows from this process's: ``rows`` is
+    one ``[SLOTS, S_p·n_loc]`` tensor per plane (the lanes of this
+    process's cells), all gathered in ONE collective into ``[SLOTS·N]``
+    rows, the ranks' lanes in rank order."""
+    from .distributed import all_gather
+
+    block = torch.stack([r.to(torch.int32) for r in rows])
+    every = all_gather(block)  # [P, planes, SLOTS, S_p·n_loc]
+    glob = every.permute(1, 2, 0, 3).reshape(len(rows), -1)
+    return [g if r.dtype == torch.int32 else g.to(r.dtype)
+            for g, r in zip(glob.unbind(0), rows)]
 
 
 def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
@@ -523,7 +551,7 @@ def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         t_d = t.to(dev)
         # a part that holds every shard owns the whole mask; the others
         # write their own segment into a zeroed mask
-        own_all = not several
+        own_all = not several and not cal.mesh.cohort
         alloc = torch.empty if own_all else torch.zeros
         surv = alloc(m2, dtype=torch.int32, device=dev)
         pay_ptrs = _ptr_array(stream[2:])
@@ -557,6 +585,7 @@ def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         commit_calendar_sharded.launches += 1
         surv = surv.to(sk.device)
         survived = surv if survived is None else survived + surv
+    survived = _cohort_sum(cal, survived)
     _report_commit("commit_calendar_sharded", cal, sk, survived,
                    cal.mesh.size * seg, stacking)
     return cal, survived
@@ -573,6 +602,17 @@ def pop_bucket_sharded_plain(cal, t):
     dev0 = cal.mesh.primary
     b = int(torch.remainder(t.reshape(()), cal.horizon))
     occ_parts = cal.occupancy_plane
+    if cal.mesh.cohort:
+        local = [
+            torch.cat([p[:, b].reshape(s1 - s0, slots, n_loc).permute(1, 0, 2)
+                       .reshape(slots, -1) for p, (_, s0, s1) in zip(plane, cal.mesh.parts)],
+                      dim=1)
+            for plane in (occ_parts, *cal.payload)
+        ]
+        for p in occ_parts:
+            p[:, b].zero_()
+        occ_row, *pay_rows = cohort_rows(local)
+        return cal, occ_row, pay_rows
     occ_row = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
     pay_rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
                 for _ in range(cal.width)]
@@ -637,23 +677,27 @@ def pop_bucket_sharded(cal, t):
     dev0 = cal.mesh.primary
     parts = cal.mesh.parts
     several = len(parts) > 1
+    cohort = cal.mesh.cohort
     lib = _lib()
-    row_occ = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
-    rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
-            for _ in range(cal.width)]
+    local = []  # a cohort's part-local rows, gathered below
+    if not cohort:
+        row_occ = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
+        rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
+                for _ in range(cal.width)]
     for i, (dev, s0, s1) in enumerate(parts):
         part = cal.part(i)
         _check_planes(part)
         t_d = t.to(dev)
         _check_tick(t_d, dev)
-        home = dev == dev0
+        home = dev == dev0 and not cohort
         seg = pop_segments(cal, i, home)
         if home:  # straight into the global row
             out_occ, out_pay = row_occ, rows
         else:  # a device-local row, copied home below
             cells = seg.shards * seg.slots * seg.length
-            out_occ = torch.empty(cells, dtype=row_occ.dtype, device=dev)
-            out_pay = [torch.empty(cells, dtype=torch.int32, device=dev) for _ in rows]
+            out_occ = torch.empty(cells, dtype=occ_parts[0].dtype, device=dev)
+            out_pay = [torch.empty(cells, dtype=torch.int32, device=dev)
+                       for _ in range(cal.width)]
         pay_ptrs = _ptr_array(part.payload)
         row_ptrs = _ptr_array(out_pay)
         occ = part.occupancy_plane
@@ -681,11 +725,15 @@ def pop_bucket_sharded(cal, t):
         if rc != 0:
             raise RuntimeError(f"pop_bucket_sharded kernel launch failed: CUDA error {rc}")
         pop_bucket_sharded.launches += 1
-        if not home:
+        if cohort:
+            local.append([x.view(slots, -1) for x in (out_occ, *out_pay)])
+        elif not home:
             for glob, loc in ((row_occ, out_occ), *zip(rows, out_pay)):
                 glob.view(slots, n)[:, s0 * n_loc : s1 * n_loc].copy_(
                     loc.view(slots, (s1 - s0) * n_loc)
                 )
+    if cohort:
+        row_occ, *rows = cohort_rows([torch.cat(x, dim=1) for x in zip(*local)])
     _report_pop("pop_bucket_sharded", cal, slots * n)
     return cal, row_occ, rows
 

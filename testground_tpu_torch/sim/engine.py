@@ -80,6 +80,14 @@ not divide across the shards gets dead lanes at the end of its last group
 the program sees: results, snapshots (:class:`LaneExport`) and the
 footprint keep the caller's layout. Every result is the unmeshed run's,
 bit for bit.
+
+A cohort mesh (``sim/distributed.global_mesh``) spans processes: every
+process builds the same program, keeps the whole instance state on its
+own device and steps it identically, holding only its own cells'
+calendar shards. ``run`` reads the done flag off each process's own
+replica, and the caller passes a ``distributed.CohortCancel`` so the
+chunk-boundary cancel check is one vote of the cohort; ``results()`` reads
+the leader's replica through ``distributed.to_host``.
 """
 
 from __future__ import annotations
@@ -151,6 +159,7 @@ __all__ = [
     "SimProgram",
     "SimStallError",
     "build_groups",
+    "carry_digest",
     "carry_footprint",
     "device_context",
     "resolve_device",
@@ -779,6 +788,12 @@ class SimProgram:
         out = carry_footprint(carry)
         if self.mesh_pad:
             out -= LaneExport(self).dead_bytes(carry)
+        if self.mesh is not None and self.mesh.cohort:
+            # a cohort process holds its own cells' calendar shards: the
+            # footprint counts every process's, as the reference's global
+            # arrays do
+            held = sum(s1 - s0 for _, s0, s1 in self.mesh.parts)
+            out += carry_bytes(carry.cal) * (self.mesh.size - held) // held
         return out
 
     def lane_export(self) -> "LaneExport | None":
@@ -1604,8 +1619,7 @@ class SimProgram:
         (a run pack's member, whose carry holds only the leaves read here)
         replaces the carry's footprint."""
 
-        def host(x):
-            return x.detach().cpu().numpy()
+        from .distributed import to_host as host
 
         status = host(carry.status[: self.n])
         finished_at = host(carry.finished_at[: self.n])
@@ -1993,6 +2007,33 @@ def carry_footprint(carry: SimCarry) -> int:
     (uint32 pairs, 8 B a lane, where the port holds each word in int64)
     and 8 B for the link key, which the port keeps on the host."""
     return carry_bytes(carry) - carry.keys.numel() * 4 + 8
+
+
+def carry_digest(carry: SimCarry) -> int:
+    """The sum, as int64, of every byte of every leaf of ``carry`` but the
+    calendar's planes (a cohort process holds only its own shards of
+    those): every member of a cohort holds the same replica, so every
+    member reads the same digest."""
+    total = 0
+
+    def add(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            flat = x.detach().contiguous().view(-1).view(torch.uint8)
+            for lo in range(0, flat.numel(), 1 << 26):
+                total += int(flat[lo : lo + (1 << 26)].sum(dtype=torch.int64))
+        elif isinstance(x, dict):
+            for v in x.values():
+                add(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                add(v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, Calendar):
+            for f in dataclasses.fields(x):
+                add(getattr(x, f.name))
+
+    add(carry)
+    return total
 
 
 def carry_bytes(carry: SimCarry) -> int:

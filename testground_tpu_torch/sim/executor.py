@@ -67,9 +67,19 @@ over the peer shards (the reference's bucket gate and unmeshed fallback,
 and its ``pallas`` → ``xla`` override), and each member's journal has the
 pack-shared ``sim.mesh`` block.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the ROADMAP
-item when set away from its default (``unported_settings``; ``tg check``
-reports each as ``port.not-ported``): multi-host cohorts (item 15b).
+Multi-process cohorts (``coordinator_address``, ``num_processes``,
+``process_id``; ``executor.py:650-842, 1068-1112, 3081-3255`` of the
+reference): the engine never joins the cohort itself — the leader half
+runs in a child process (``sim/cohort.py``) that calls this function again
+with ``isolate_cohort`` off, joins the ``torch.distributed`` job
+(``sim/distributed.py``), broadcasts the job spec (``_cohort_job_spec``,
+its size prechecked before any process spawns) and runs the program over
+the global mesh, while each ``tg sim-worker`` (:func:`run_sim_worker`)
+runs the same program from the spec. A cohort config turns off, each with
+the reference's warning, telemetry, the traffic matrix, the flight
+recorder, the SLO plane, checkpointing, buckets, ``nan_guard`` and the
+perf ledger (and the phase ledger, the time-series samples and the
+transport probe, which read the leader alone); ``resume_from`` is refused.
 
 Shape buckets (``bucket = off|auto|<n>``, ``bucket_ladder``;
 ``resolve_buckets``, ``executor.py:395-452, 846-965``): a bucketed run's
@@ -129,8 +139,9 @@ __all__ = [
     "plan_dir",
     "slo_specs_of",
     "trace_specs_of",
+    "run_sim_worker",
+    "sim_worker_loop",
     "transport_knob",
-    "unported_settings",
 ]
 
 PLANS_ROOT = os.path.join(
@@ -202,42 +213,20 @@ class SimTorchConfig:
     # per-run device-memory precheck: 0 = the card's total memory (no
     # check on the CPU), -1 = off, > 0 = an explicit budget in bytes
     memory_limit_bytes: int = 0
-    coordinator_address: str = ""  # refused unless "" (item 15b)
-    num_processes: int = 1  # refused unless 1 (item 15b)
-    process_id: int = 0  # refused unless 0 (item 15b)
+    # a multi-process cohort (sim/distributed.py): this engine leads it,
+    # and num_processes - 1 `tg sim-worker` processes join the coordinator
+    coordinator_address: str = ""
+    num_processes: int = 1
+    process_id: int = 0
+    # run the leader half in a killable child process so member death
+    # fails the task, not the engine (sim/cohort.py); stripped on the hop
     isolate_cohort: bool = True
     # the run's device: None is the card (raises without one), "cpu" runs
     # the plain versions of the kernels
     device: str | None = None
 
 
-_ITEM_15B = "item 15b (multi-host runs and placement across cards)"
-
-# runner-config fields the port refuses away from their default, with
-# the ROADMAP queue-1 item that ports each
-_UNPORTED_SETTINGS = {
-    "coordinator_address": _ITEM_15B,
-    "num_processes": _ITEM_15B,
-    "process_id": _ITEM_15B,
-}
-
 _TRANSPORTS = ("xla", "pallas", "auto")
-
-
-def unported_settings(cfg) -> list[str]:
-    """The refusal of every setting the port cannot honour yet, each naming
-    its ROADMAP item: the keys of ``_UNPORTED_SETTINGS`` away from their
-    default. The executor raises the first; the checker reports each as
-    ``port.not-ported``."""
-    from .check import not_ported_message
-
-    defaults = SimTorchConfig()
-    out = []
-    for name, item in _UNPORTED_SETTINGS.items():
-        value = getattr(cfg, name, getattr(defaults, name))
-        if value != getattr(defaults, name):
-            out.append(not_ported_message(name, value, item))
-    return out
 
 
 def transport_knob(cfg) -> str:
@@ -321,12 +310,8 @@ def resolve_buckets(cfg, counts, mesh=None, warn=None):
     return plan
 
 
-def _refuse_unported(cfg) -> None:
-    """Raise for a setting the port cannot honour yet (never run as if it
-    were unset), a malformed ``mesh`` and an unknown transport."""
-    refused = unported_settings(cfg)
-    if refused:
-        raise NotImplementedError(refused[0])
+def _refuse_malformed(cfg) -> None:
+    """Raise for a malformed ``mesh`` and an unknown transport."""
     mesh = getattr(cfg, "mesh", "")
     if mesh:
         parse_mesh_shape(mesh)
@@ -653,6 +638,252 @@ def _probe_transport(prog, block: dict, reps: int, seed: int) -> dict:
     }
 
 
+# ------------------------------------------------------------- the cohort
+
+
+def _cohort_job_spec(job: RunInput, cfg, *, hosts, telemetry, transport, faults) -> dict:
+    """The cohort job spec (``executor.py:650-687``) — the ONE dict shape both
+    the leader's ``broadcast_json`` and the pre-spawn size check build.
+    Every program-shaping option must reach the followers, so gated values
+    (telemetry post its cohort gate) are passed in by the caller; cohorts
+    run trace-free and SLO-free, kept explicit as the reference keeps them."""
+    return {
+        "plan": job.test_plan,
+        "case": job.test_case,
+        "run_id": job.run_id,
+        "groups": [
+            {"id": g.id, "instances": g.instances, "parameters": dict(g.parameters)}
+            for g in job.groups
+        ],
+        "tick_ms": cfg.tick_ms,
+        "chunk": cfg.chunk,
+        "seed": cfg.seed,
+        "max_ticks": cfg.max_ticks,
+        "hosts": list(hosts),
+        "validate": bool(getattr(cfg, "validate", False)),
+        "telemetry": bool(telemetry),
+        "transport": str(transport),
+        "faults": faults,
+        "trace": {},
+        "slo": [],
+    }
+
+
+def _precheck_cohort_spec_size(job: RunInput, cfg) -> None:
+    """Refuse a cohort job spec over the broadcast bound BEFORE any process
+    is spawned or collective entered (``executor.py:690-733``, its bound
+    and message): the spec the leader would broadcast, with the values a
+    cohort always broadcasts (telemetry off, transport xla)."""
+    from .distributed import SPEC_BYTES
+
+    spec = _cohort_job_spec(
+        job, cfg, hosts=_parse_hosts(getattr(cfg, "additional_hosts", None)),
+        telemetry=False, transport="xla",
+        faults=fault_specs_of(job.groups, getattr(job, "faults", None)),
+    )
+    raw = len(json.dumps(spec).encode()) + 8  # the length prefix
+    if raw > SPEC_BYTES:
+        biggest = max(job.groups, key=lambda g: len(json.dumps(dict(g.parameters))),
+                      default=None)
+        hint = (
+            f" (largest parameter blob: group {biggest.id!r}, "
+            f"{len(json.dumps(dict(biggest.parameters)))} bytes)"
+            if biggest is not None else ""
+        )
+        raise ValueError(
+            f"cohort job spec is {raw:,} bytes, over the {SPEC_BYTES:,}-"
+            "byte broadcast bound — shrink the composition's group "
+            f"parameters or fault tables{hint}; refused before spawning "
+            "the cohort (the broadcast inside the collective would fail "
+            "anyway, stranding every joined worker)"
+        )
+
+
+def _join_cohort(cfg) -> bool:
+    """Join the cohort of a config with ``coordinator_address`` (before
+    anything of the run touches a collective); True when it has several
+    processes. Refuses a join that reports one process where several were
+    asked for (``executor.py:820-842``)."""
+    from .distributed import init_distributed, is_multiprocess
+
+    init_distributed(cfg.coordinator_address, cfg.num_processes, cfg.process_id)
+    multi = is_multiprocess()
+    if int(getattr(cfg, "num_processes", 1)) > 1 and not multi:
+        raise RuntimeError(
+            f"runner config requested a {cfg.num_processes}-process "
+            "cohort but the distributed runtime reports a single "
+            "process — the torch.distributed group did not join "
+            "(environment mismatch between cohort members?); refusing to "
+            "run on the wrong topology"
+        )
+    return multi
+
+
+def sim_worker_loop(
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
+    plans_dir: str,
+    once: bool = False,
+    log=print,
+    connect_attempts: int = 3,
+    connect_timeout_secs: float = 60.0,
+    device=None,
+    on_result=None,
+) -> None:
+    """Follower half of a cohort (the ``tg sim-worker`` verb,
+    ``executor.py:3081-3203``).
+
+    Joins the cohort, then for each job spec the leader broadcasts: load
+    the same plan from this process's plans dir, build the identical
+    program over the global mesh on ``device`` (None: the card), and run
+    it to completion. The leader owns reporting. ``once`` serves at most
+    one job, then keeps taking part in the spec broadcast until the
+    leader's shutdown sentinel arrives — leaving early would desync the
+    cohort (a second job spec in once mode is skipped via the readiness
+    vote). ``on_result(spec, results, carry)`` sees each run's results and
+    final carry."""
+    from ..api import RunGroup
+    from .distributed import (
+        CohortCancel,
+        broadcast_json,
+        cohort_agree,
+        global_mesh,
+        init_distributed,
+        shutdown,
+    )
+    from .engine import resolve_device
+    from .faults import build_fault_schedule
+    from .trace import build_trace_plan
+
+    dev = resolve_device(device)
+    # a worker routinely starts before the leader: join with the bounded
+    # retry budget (a readable failure naming the coordinator)
+    init_distributed(
+        coordinator_address, num_processes, process_id,
+        connect_attempts=connect_attempts,
+        connect_timeout_seconds=connect_timeout_secs,
+    )
+    import torch.distributed as dist
+
+    log(f"sim-worker: process {dist.get_rank()}/{dist.get_world_size()} "
+        f"joined, {dist.get_world_size()} global devices")
+    served = False
+    while True:
+        spec = broadcast_json(None)
+        if spec.get("shutdown"):
+            log("sim-worker: shutdown")
+            # leave the process groups now: torn down by the interpreter's
+            # exit instead, gloo's threads can abort the process
+            shutdown()
+            return
+        # readiness vote BEFORE any program collective: if this (or any)
+        # process cannot build the job, the whole cohort skips it
+        try:
+            if once and served:
+                raise RuntimeError("once-mode worker already served a job")
+            testcase, groups = load_and_specialize(
+                os.path.join(plans_dir, spec["plan"]),
+                spec["case"],
+                [RunGroup(id=d["id"], instances=d["instances"],
+                          parameters=d["parameters"]) for d in spec["groups"]],
+                spec["tick_ms"],
+            )
+            ok = True
+        except Exception as e:  # noqa: BLE001 — voted, not raised
+            log(f"sim-worker: cannot satisfy {spec['plan']}:{spec['case']}: {e}")
+            ok = False
+        if not cohort_agree(ok):
+            log(f"sim-worker: cohort skipped run {spec['run_id']}")
+            continue
+        prog = make_sim_program(
+            testcase,
+            groups,
+            test_plan=spec["plan"],
+            test_case=spec["case"],
+            test_run=spec["run_id"],
+            tick_ms=spec["tick_ms"],
+            chunk=spec["chunk"],
+            hosts=tuple(spec.get("hosts", ())),
+            validate=bool(spec.get("validate", False)),
+            telemetry=bool(spec.get("telemetry", False)),
+            # the same spec dict lowers to the same event tensors on every
+            # process, so the cohort runs one program
+            faults=build_fault_schedule(groups, spec.get("faults") or {},
+                                        spec["tick_ms"]),
+            trace=build_trace_plan(groups, spec.get("trace") or {}),
+            # cohorts run matrix-free and bucket-free (the leader's gates)
+            netmatrix=False,
+            device=dev,
+            mesh=global_mesh(dev),
+        )
+        final = {}
+        res = prog.run(
+            seed=spec["seed"], max_ticks=spec["max_ticks"],
+            cancel=CohortCancel(None),
+            observer=lambda ticks, carry: final.update(carry=carry),
+        )
+        if on_result is not None:
+            on_result(spec, res, final.get("carry"))
+        log(f"sim-worker: run {spec['run_id']} done — {res['ticks']} ticks")
+        served = True
+
+
+def _launch_counts() -> dict:
+    """The transport kernels' launch counters of this process (each
+    wrapper's, ``cuda_transport``): what a harness reads off a cohort
+    member's log to show its run went through the kernels."""
+    from . import cuda_transport as ct
+
+    return {k: getattr(ct, k).launches for k in (
+        "commit_calendar", "pop_bucket", "commit_calendar_sharded", "pop_bucket_sharded")}
+
+
+def run_sim_worker(
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
+    plans_dir: str,
+    once: bool = False,
+    log=print,
+    _exit=os._exit,
+    connect_attempts: int = 3,
+    connect_timeout_secs: float = 60.0,
+    device=None,
+    on_result=None,
+) -> int:
+    """The ``tg sim-worker`` entry (``executor.py:3206-3255``):
+    :func:`sim_worker_loop` wrapped so a DEAD LEADER ends the worker with
+    one readable line and an immediate exit, classified with the cohort
+    child's typed-first rule (``cohort._is_cohort_fatal``); the exit skips
+    the process group's teardown, which would wait on the dead member.
+    Other exceptions re-raise unchanged; ``_exit`` is injectable for
+    tests."""
+    try:
+        sim_worker_loop(
+            coordinator_address, num_processes, process_id, plans_dir,
+            once=once, log=log, connect_attempts=connect_attempts,
+            connect_timeout_secs=connect_timeout_secs, device=device,
+            on_result=on_result,
+        )
+    except KeyboardInterrupt:
+        raise
+    except BaseException as e:  # noqa: BLE001 — classified below
+        from .cohort import _is_cohort_fatal
+
+        if _is_cohort_fatal(e):
+            log(
+                "sim-worker: cohort lost (leader or member died: "
+                f"{type(e).__name__}) — exiting cleanly; restart every "
+                "sim-worker to form a new cohort"
+            )
+            sys.stdout.flush()
+            _exit(1)
+            return 1  # only reached when _exit is a test stub
+        raise
+    return 0
+
+
 # ------------------------------------------------------------------ the run
 
 
@@ -663,7 +894,23 @@ def execute_sim_run(
     (``executor.py:735-793``). ``cancel`` (a ``threading.Event``) stops the
     run at the next chunk's end; the outcome is then CANCELED."""
     cfg = job.runner_config or SimTorchConfig()
-    _refuse_unported(cfg)
+    _refuse_malformed(cfg)
+    # oversized cohort specs are refused HERE — before the leader child is
+    # spawned and before any process joins
+    if getattr(cfg, "coordinator_address", ""):
+        _precheck_cohort_spec_size(job, cfg)
+        if str(getattr(cfg, "resume_from", "") or ""):
+            # shared with the static checker (rule checkpoint.resume-cohort)
+            from .check import resume_cohort_message
+
+            raise ValueError(resume_cohort_message())
+    # the engine NEVER joins the cohort in-process: the leader half runs in
+    # a killable child that calls this function again with isolate_cohort
+    # off, so a member's death fails the task and not the engine
+    if getattr(cfg, "coordinator_address", "") and getattr(cfg, "isolate_cohort", True):
+        from .cohort import run_in_cohort_child
+
+        return run_in_cohort_child(job, cfg, ow, cancel)
     from .engine import resolve_device
 
     device = resolve_device(getattr(cfg, "device", None))
@@ -711,10 +958,15 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     )
     from .trace import build_trace_plan
 
+    cohort = bool(getattr(cfg, "coordinator_address", ""))
+    # the cohort join precedes anything of the run that could touch a
+    # collective
+    multi = _join_cohort(cfg) if cohort else False
     artifact = job.groups[0].artifact_path or plan_dir(job.test_plan)
     spans.start("build")
-    mesh = _make_mesh(bool(getattr(cfg, "shard", True)), getattr(cfg, "mesh", ""),
-                      device)
+    # a cohort's mesh is the global one, built once every member has voted
+    mesh = None if multi else _make_mesh(bool(getattr(cfg, "shard", True)),
+                                         getattr(cfg, "mesh", ""), device)
     # shape buckets: resolved before specialization — the padded layout is
     # what the testcase specializes against, while every lowering that
     # addresses instances (fault selectors, SLO scoping, reporting) works
@@ -782,6 +1034,17 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             job.run_id,
         )
         trace_plan = None
+    # a cohort config (even a degenerate one-process one) runs without the
+    # planes whose per-chunk reads are the leader's alone: the reference's
+    # gates and warnings
+    if trace_plan is not None and cohort:
+        ow.warn(
+            "sim:torch %s: flight recorder disabled for the cohort config "
+            "(per-chunk leader-local device reads are not symmetric "
+            "across processes)",
+            job.run_id,
+        )
+        trace_plan = None
     if trace_plan is not None:
         ow.infof("sim:torch %s: flight recorder armed — %s", job.run_id,
                  trace_plan.summary())
@@ -790,11 +1053,34 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # traffic matrix and the SLO rules need it, and are refused loudly
     # without it (the reference's messages)
     telemetry_on = bool(getattr(cfg, "telemetry", False)) and not job.disable_metrics
+    if telemetry_on and cohort:
+        ow.warn(
+            "sim:torch %s: telemetry disabled for the cohort config "
+            "(per-chunk leader-local device reads are not symmetric "
+            "across processes)",
+            job.run_id,
+        )
+        telemetry_on = False
     netmatrix_on = bool(getattr(cfg, "netmatrix", False))
+    if netmatrix_on and cohort:
+        ow.warn(
+            "sim:torch %s: traffic matrix disabled for the cohort config "
+            "(it rides the telemetry plane, which cohorts run without)",
+            job.run_id,
+        )
+        netmatrix_on = False
     if netmatrix_on and not telemetry_on:
         raise ValueError(netmatrix_requires_telemetry_message(job.disable_metrics))
     slo_specs = slo_specs_of(job.groups, getattr(job, "slo", None))
     slo_plan = build_slo_plan(vgroups, slo_specs)
+    if slo_plan is not None and cohort:
+        ow.warn(
+            "sim:torch %s: SLO assertions disabled for the cohort config "
+            "(the telemetry plane they evaluate is leader-local and runs "
+            "off under a cohort)",
+            job.run_id,
+        )
+        slo_plan = None
     if slo_plan is not None and not telemetry_on:
         raise ValueError(
             slo_requires_telemetry_message(slo_plan.count, job.disable_metrics)
@@ -802,6 +1088,42 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     if slo_plan is not None:
         ow.infof("sim:torch %s: run health plane armed — %s", job.run_id,
                  slo_plan.summary())
+    if bool(getattr(cfg, "nan_guard", False)) and cohort:
+        ow.warn(
+            "sim:torch %s: nan_guard disabled for the cohort config "
+            "(a leader-local read of the cross-process-sharded carry "
+            "is not symmetric, and raises on non-addressable shards)",
+            job.run_id,
+        )
+
+    if multi:
+        from .distributed import (
+            backend,
+            broadcast_json,
+            cohort_agree,
+            global_mesh,
+        )
+
+        # followers build the identical program from this spec
+        broadcast_json(_cohort_job_spec(
+            job, cfg, hosts=hosts, telemetry=telemetry_on,
+            transport=transport_knob(cfg), faults=fault_specs,
+        ))
+        # readiness vote: a worker whose plans dir cannot satisfy the job
+        # votes False and everyone skips in lockstep (a worker dying
+        # mid-program would strand the cohort inside a collective)
+        if not cohort_agree(True):
+            raise RuntimeError(
+                "a cohort member cannot satisfy this job (missing or "
+                "stale plan sources on a worker host) — run aborted "
+                "before any program collective"
+            )
+        mesh = global_mesh(device)  # cfg.shard has no meaning in a cohort
+        ow.infof(
+            "multi-host: %d processes, %d global devices, leader=%d, "
+            "collectives over %s",
+            len(set(mesh.ranks)), mesh.size, mesh.rank, backend(),
+        )
 
     check_mesh_lanes(transport_knob(cfg), sum(g.count for g in groups), len(hosts),
                      1 if mesh is None else mesh.shards)
@@ -855,6 +1177,14 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # is what a snapshot's manifest is validated against on resume
     ckpt_every = int(getattr(cfg, "checkpoint_chunks", 0) or 0)
     resume_from = str(getattr(cfg, "resume_from", "") or "")
+    if ckpt_every > 0 and cohort:
+        ow.warn(
+            "sim:torch %s: checkpointing disabled for the cohort config "
+            "(a leader-local read of the cross-process-sharded carry "
+            "is not symmetric)",
+            job.run_id,
+        )
+        ckpt_every = 0
     if resume_from and run_dir is None:
         raise ValueError(
             "resume_from requires a run outputs dir (no env attached "
@@ -971,8 +1301,9 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                 job.run_id, ticks, ticks * cfg.tick_ms / 1000.0, now - t0,
             )
 
-    # no outputs dir → nowhere to keep samples; disable_metrics opts out
-    ts_enabled = outputs_root is not None and not job.disable_metrics
+    # no outputs dir → nowhere to keep samples; disable_metrics opts out; a
+    # cohort samples nothing mid-run (a leader-local read)
+    ts_enabled = outputs_root is not None and not job.disable_metrics and not multi
     recorder = _TimeSeriesRecorder(
         testcase, vgroups,
         getattr(cfg, "timeseries_every", 0) if ts_enabled else 0, ow,
@@ -982,15 +1313,20 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     row_ident = {"run": job.run_id, "plan": job.test_plan, "case": job.test_case}
     transport_block = _transport_block(cfg, prog.device, mesh)
     probe_reps = int(getattr(cfg, "transport_probe", 0) or 0)
+    if multi and probe_reps > 0:
+        ow.warn("sim:torch %s: transport probe disabled for the cohort config "
+                "(it runs ticks on the leader alone)", job.run_id)
+        probe_reps = 0
     if transport_block["requested"].lower() == "auto" and probe_reps > 0:
         transport_block = _probe_transport(prog, transport_block, probe_reps,
                                            cfg.seed)
         ow.infof("sim:torch %s: transport — %s", job.run_id,
                  transport_block["reason"])
     # the perf ledger: host-side only, so not program-shaping; disable_metrics
-    # wins, as over the telemetry plane
+    # wins, as over the telemetry plane, and cohorts run ledger-free (the
+    # per-chunk walls are the leader's alone)
     perf_ledger = None
-    if bool(getattr(cfg, "perf", True)) and not job.disable_metrics:
+    if bool(getattr(cfg, "perf", True)) and not job.disable_metrics and not cohort:
         from .perf import PERF_FILE, PerfLedger
 
         perf_ledger = PerfLedger(
@@ -1046,6 +1382,12 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         if trace_plan is not None else None
     )
     run_cancel = cancel
+    if multi:
+        # cancellation is a cohort decision: the leader's local event is
+        # broadcast once a chunk so every process stops in lockstep
+        from .distributed import CohortCancel
+
+        run_cancel = CohortCancel(cancel)
     if slo_plan is not None:
         # a fail-severity breach cancels the run, never the task
         run_cancel = _SloRunCancel(cancel)
@@ -1061,7 +1403,9 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # the fleet controller's preemption (executor.py:1560-1567): the loop
     # stops at the next chunk boundary and the tail raises
     # TaskPreemptedError for the supervisor to requeue
-    preempt_ev = getattr(job, "preempt", None)
+    # Not armed under a cohort: checkpointing is off there, and the cancel
+    # must stay a lockstep cohort decision
+    preempt_ev = None if multi else getattr(job, "preempt", None)
     if preempt_ev is not None:
         run_cancel = _PreemptRunCancel(run_cancel, preempt_ev)
 
@@ -1182,6 +1526,11 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                 checkpointer.snapshot(int(ticks), carry)
 
         observers.append(_preempt_observe)
+    final = {}
+    if multi:
+        # the final carry, for the digest a harness holds each follower's
+        # against ("sim-worker: run ... carry digest")
+        observers.append(lambda ticks, carry: final.update(carry=carry))
     # the run loop calls these only where their plane is on
     lat_cbs = [cb for cb in (
         slo_eval.on_lat_delta if slo_eval else None,
@@ -1211,7 +1560,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         chunk_timeout=float(getattr(cfg, "chunk_timeout_secs", 0.0)),
         chunk_sleep_ms=float(getattr(cfg, "debug_chunk_sleep_ms", 0.0)),
         on_stall=on_stall,
-        nan_guard=bool(getattr(cfg, "nan_guard", False)),
+        nan_guard=bool(getattr(cfg, "nan_guard", False)) and not multi,
         perf=perf_ledger,
     )
     if profile_dir is not None and chunk_profiler is None:
@@ -1224,6 +1573,11 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             if chunk_profiler is not None:
                 chunk_profiler.close()
     wall = time.monotonic() - t0
+    if final:
+        from .engine import carry_digest
+
+        ow.infof("multi-host: carry digest %d, launches %s",
+                 carry_digest(final.pop("carry")), json.dumps(_launch_counts()))
     spans.point("compile", wall_secs=round(res.get("compile_secs", 0.0), 6))
     spans.end("execute", ticks=res["ticks"])
     status = res["status"]
@@ -1425,7 +1779,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     # telemetry plane (disable_metrics wins) and best-effort, so it never
     # fails the run it measures
     phases_block = None
-    if bool(getattr(cfg, "phases", False)) and not job.disable_metrics:
+    if bool(getattr(cfg, "phases", False)) and not job.disable_metrics and not cohort:
         from .phases import PHASES_FILE, build_phase_ledger, write_phase_rows
 
         spans.start("phases")
@@ -1537,7 +1891,7 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
         "ticks": res["ticks"],
         "tick_ms": cfg.tick_ms,
         "wall_secs": wall,
-        "processes": 1,
+        "processes": len(set(mesh.ranks)) if multi else 1,
         "compile_secs": round(res.get("compile_secs", 0.0), 3),
         "devices": 1 if mesh is None else mesh.size,
         "transport": transport_block,
@@ -1619,7 +1973,7 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
 
     assert len(jobs) == len(ows) == len(cancels) and len(jobs) >= 2
     job0, cfg = jobs[0], jobs[0].runner_config or SimTorchConfig()
-    _refuse_unported(cfg)
+    _refuse_malformed(cfg)
     device = resolve_device(getattr(cfg, "device", None))
     outputs_root = job0.env.dirs.outputs() if job0.env is not None else None
 

@@ -25,7 +25,11 @@ Which devices :func:`make_mesh` gives:
 
 Only the calendar planes are split per shard; every other carry leaf stays
 on the mesh's primary device (cell 0's), whatever the table says about
-it. A solo run on a 2-D mesh splits its lanes over row 0's peer shards
+it. A *cohort* mesh (``sim/distributed.global_mesh``) spans processes:
+``ranks`` names each cell's process, ``parts`` lists only this process's
+cells, and ``primary`` is this process's device, where it keeps its own
+replica of every other leaf. Every count of the mesh (``size``,
+``shards``, :func:`peer_shards`, :func:`layout_str`) is the global one. A solo run on a 2-D mesh splits its lanes over row 0's peer shards
 (:meth:`TorchMesh.row`), as the reference shards ``i`` and replicates over
 ``runs``. A run pack's members split into the rows in contiguous groups,
 and each member's lanes over its row's peer shards (``sim/pack.py``).
@@ -119,11 +123,16 @@ class TorchMesh:
     s1)`` held in one tensor per plane on ``device``, never across a row.
     By default each run of consecutive equal devices in a row is one part;
     an explicit ``parts`` may cut a device's run finer (one tensor per part
-    all the same), which lets the CPU tests drive the several-part path."""
+    all the same), which lets the CPU tests drive the several-part path.
+
+    A cohort mesh gives ``ranks`` (cell s belongs to process ``ranks[s]``)
+    and this process's ``rank``: its parts are its own cells only."""
 
     devices: tuple
     parts: tuple | None = None
     runs: int | None = None
+    ranks: tuple | None = None
+    rank: int = 0
 
     def __post_init__(self):
         devs = tuple(_indexed(d) for d in self.devices)
@@ -134,12 +143,19 @@ class TorchMesh:
         if rows < 1 or len(devs) % rows:
             raise ValueError(f"{len(devs)} devices do not make {rows} mesh rows")
         width = len(devs) // rows
+        owner = (0,) * len(devs) if self.ranks is None else tuple(self.ranks)
+        if len(owner) != len(devs):
+            raise ValueError(f"{len(owner)} ranks for {len(devs)} mesh cells")
         if self.parts is None:
             parts, s0 = [], 0
             for s in range(1, len(devs) + 1):
-                if s == len(devs) or s % width == 0 or devs[s] != devs[s0]:
-                    parts.append((devs[s0], s0, s))
+                if (s == len(devs) or s % width == 0 or devs[s] != devs[s0]
+                        or owner[s] != owner[s0]):
+                    if owner[s0] == self.rank:
+                        parts.append((devs[s0], s0, s))
                     s0 = s
+            if not parts:
+                raise ValueError(f"rank {self.rank} holds no cell of the mesh")
         else:
             parts = [(_indexed(d), int(a), int(b)) for d, a, b in self.parts]
             if (
@@ -175,8 +191,14 @@ class TorchMesh:
 
     @property
     def primary(self) -> torch.device:
-        """Cell 0's device: where every leaf but the calendar lives."""
-        return self.devices[0]
+        """This process's first cell's device (cell 0's outside a cohort):
+        where every leaf but the calendar lives."""
+        return self.parts[0][0]
+
+    @property
+    def cohort(self) -> bool:
+        """Whether the cells span processes (``sim/distributed.py``)."""
+        return self.ranks is not None
 
     def row(self, g: int) -> "TorchMesh":
         """Row ``g``'s peer shards as a 1-D mesh, its parts kept."""
@@ -192,7 +214,8 @@ class TorchMesh:
         )
 
     def on(self, device) -> "TorchMesh":
-        """The same shape with every cell on ``device`` (one part a row)."""
+        """The same shape with every cell on ``device`` (one part a row), in
+        this process: a cohort mesh's every cell."""
         return TorchMesh((torch.device(device),) * self.size, runs=self.runs)
 
 

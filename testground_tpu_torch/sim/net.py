@@ -29,6 +29,11 @@ SLOTS·n_loc]`` tensor per plane. The sorted stream then carries the
 reference's SHARD-major key (``net.py:1174-1183``), the commit and the pop
 are the sharded kernels, and the direct write, the purges and the latency
 histogram address each shard's planes. Every result is the unmeshed run's.
+On a cohort mesh (``sim/distributed.py``) a process holds only its own
+shards' planes: the direct write keeps the messages whose shard it holds,
+and what reads across shards combines over the processes — the popped and
+the etick rows are gathered (``cuda_transport.cohort_rows``), and
+``validate``'s occupancy probe and the purges' counts summed.
 
 Bit-equality with the reference rests on three rules:
 
@@ -49,6 +54,7 @@ import torch
 
 from .api import FILTER_ACCEPT, FILTER_REJECT, Inbox
 from .cuda_transport import (
+    cohort_rows,
     commit_calendar,
     commit_calendar_sharded,
     pop_bucket,
@@ -272,6 +278,13 @@ def _row_at(cal: Calendar, plane, t: torch.Tensor) -> torch.Tensor:
     if cal.mesh is None:
         return plane.index_select(0, b).view(cal.slots, -1)
     dev0 = cal.mesh.primary
+    if cal.mesh.cohort:
+        local = torch.cat([
+            p.index_select(1, b.to(p.device)).view(p.shape[0], cal.slots, -1)
+            .permute(1, 0, 2).reshape(cal.slots, -1)
+            for p in plane
+        ], dim=1)
+        return cohort_rows([local])[0].view(cal.slots, -1)
     rows = [
         p.index_select(1, b.to(p.device))
         .view(p.shape[0], cal.slots, -1)
@@ -379,7 +392,16 @@ def purge_dst(cal: Calendar, dst_mask: torch.Tensor) -> tuple[Calendar, torch.Te
         k = kill.sum(dtype=torch.int32).to(dst_mask.device)
         purged = k if purged is None else purged + k
         view.masked_fill_(kill, 0)
-    return cal, purged
+    return cal, _cohort_sum(cal, purged)
+
+
+def _cohort_sum(cal: Calendar, x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over a cohort's processes (itself otherwise)."""
+    if cal.mesh is None or not cal.mesh.cohort:
+        return x
+    from .distributed import all_reduce_sum
+
+    return all_reduce_sum(x)
 
 
 def purge_dst_matrix(
@@ -413,6 +435,9 @@ def purge_dst_matrix(
         if m is not mat:
             mat += m.to(mat.device)
         view.masked_fill_(kill, 0)
+    if cal.mesh is not None and cal.mesh.cohort:
+        both = _cohort_sum(cal, torch.cat([purged.reshape(1), mat]))
+        purged, mat = both[0], both[1:]
     return cal, purged, mat.view(gh, gh)
 
 
@@ -950,6 +975,8 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
                 idx = (row.to(torch.int64) - s0 * horizon) * (slots * n_loc) + col
                 hit = flat[idx.clamp(0, flat.shape[0] - 1).to(dev)] != 0
                 occ = occ | (hit.to(occ.device) & (shard >= s0) & (shard < s1))
+            # each process probed its own shards: their OR is the sum
+            occ = _cohort_sum(cal, occ.to(i32)) != 0
         conflict = dup | (occ & val_f)
         collisions = count(conflict)
         first = torch.where(conflict, lin, big)
@@ -970,7 +997,8 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
         writes = []
         for i, (dev, s0, s1) in enumerate(parts):
             sel = keep
-            if len(parts) > 1:  # one more host sync per part
+            # a cohort process writes its own shards' messages only
+            if len(parts) > 1 or cal.mesh.cohort:  # one more host sync a part
                 sk = shard[keep]
                 sel = keep[(sk >= s0) & (sk < s1)]
             writes.append((cal.part(i), sel, row[sel] - s0 * horizon, col[sel]))

@@ -3,8 +3,9 @@ against the JAX package's (``testground_tpu/sim/check.py``), on the CPU.
 Each composition is built once for each package, with runner ``sim:jax``
 for the reference and ``sim:torch`` for the port:
 
-- the catalog: the reference's rule ids, layers and summaries, plus the
-  port's own ``port.not-ported``;
+- the catalog: the reference's rule ids, layers and summaries, and no
+  other (the port's own ``port.not-ported`` went with the last refused
+  settings, the cohort's);
 - a matrix of bad compositions, one case each, and a clean one: the same
   findings (rule, severity, message, run) in both packages —
   ``run-cfg.unknown-key`` by its rule and key, since its message names
@@ -12,8 +13,9 @@ for the reference and ``sim:torch`` for the port:
 - each divergence the module docstring lists, by the port's finding;
 - no drift: the port's checker reports an error exactly when the port's
   ``execute_sim_run`` (``device="cpu"``) refuses the composition, with the
-  refusal's text among the errors, over the matrix, every key of
-  ``_UNPORTED_SETTINGS``, a 2-D mesh and the indivisible lanes;
+  refusal's text among the errors, over the matrix, the settings that
+  were refused until they were ported (the cohort's among them), a 2-D
+  mesh and the indivisible lanes;
 - ``tg check``: both CLIs give the same exit codes, lines (paths aside)
   and ``--json`` document, with ``--trace-plans`` too (the plan layer);
 - the plan layer (layers 2 and 3, on the meta device): one fixture plan
@@ -26,6 +28,7 @@ for the reference and ``sim:torch`` for the port:
 
 import json
 import os
+import socket
 import sys
 import threading
 
@@ -33,6 +36,7 @@ import pytest
 
 from test_torch_cli import PORT_ENV, REF_ENV, _cli, _make_home, jmain, pmain
 from test_torch_executor import REF_PLANS
+from testground_tpu_torch.sim.cohort import shutdown_leader_child
 from testground_tpu.api import Composition as JComposition
 from testground_tpu.api import Global as JGlobal
 from testground_tpu.api import Group as JGroup
@@ -123,11 +127,14 @@ def test_catalog_holds_each_reference_rule(rule_id):
     assert port.severity == want
 
 
-def test_catalog_adds_only_port_not_ported():
-    assert {r.id for r in pcheck.RULES} - {r.id for r in jcheck.RULES} == {"port.not-ported"}
+def test_catalog_is_the_references():
+    """The port's catalog holds the reference's rules and no other: its own
+    ``port.not-ported`` went when the cohort, its last refused settings,
+    was ported."""
+    assert {r.id for r in pcheck.RULES} == {r.id for r in jcheck.RULES}
     assert len({r.id for r in pcheck.RULES}) == len(pcheck.RULES)
-    r = pcheck.rule_by_id("port.not-ported")
-    assert (r.severity, r.layer) == ("error", "port")
+    with pytest.raises(KeyError):
+        pcheck.rule_by_id("port.not-ported")
 
 
 def test_findings_payload_and_rendering_match_jax():
@@ -208,10 +215,6 @@ def test_findings_match_jax(label):
 
 # ------------------------------------------------------------ divergences
 
-def _not_ported(name, value, item=pexec._ITEM_15B):
-    return ("port.not-ported", "error", pcheck.not_ported_message(name, value, item), "")
-
-
 # label: (make_comp kwargs, the port's findings, or REF where they are now
 # the reference's); each divergence of the module docstring, and the
 # bucket cases that were divergences until shape buckets were ported
@@ -223,10 +226,13 @@ DIVERGENCES = {
                                    run_cfg={"bucket": "auto", "bucket_ladder": "16"}), REF),
     # pack.solo was port.not-ported until run packs were ported
     "pack-solo": (dict(run_cfg={"pack": True, "profile": True}), REF),
+    # the cohort was port.not-ported until it was ported: the reference's
+    # findings, its gates' warnings and the resume refusal
     "cohort": (dict(run_cfg={"coordinator_address": "127.0.0.1:1", "telemetry": True,
-                             "nan_guard": True, "num_processes": 2}),
-               [_not_ported("coordinator_address", "127.0.0.1:1", pexec._ITEM_15B),
-                _not_ported("num_processes", 2, pexec._ITEM_15B)]),
+                             "nan_guard": True, "num_processes": 2,
+                             "checkpoint_chunks": 2, "netmatrix": True,
+                             "resume_from": "earlier"},
+                    trace={"instances": "0:1"}, slo=[SLO_DROP]), REF),
     # a 2-D mesh and a pack on a mesh were port.not-ported until they were
     # ported: the reference's findings on the peer shards (the last extent)
     "mesh-2d": (dict(count=6, run_cfg={"mesh": "2x4", "bucket": "auto",
@@ -284,6 +290,12 @@ def test_devices_default_to_the_visible_cards(monkeypatch):
 # -------------------------------------------------------------- no drift
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
 def drive_executor(comp):
     """The composition through the port's executor the way the engine runs
     it (validate → prepare → coalesce → RunInput → ``execute_sim_run``) on
@@ -311,12 +323,19 @@ def drive_executor(comp):
             pexec.execute_sim_run(job, discard_writer(), threading.Event())
     except Exception as e:  # noqa: BLE001 — the refusal under test
         return e
+    finally:
+        # a cohort config's leader child serves its cohort until told to
+        # stop: stop it, so the next case may lead another
+        shutdown_leader_child()
     return None
 
 
 _DEFAULTS = pexec.SimTorchConfig()
-# a value away from its default for every unported setting
-_UNPORTED_VALUES = {"coordinator_address": "127.0.0.1:1",
+# a value away from its default for each setting of the cohort, refused
+# until it was ported (their cases keep their labels): a degenerate
+# one-process cohort through the leader child, and the process count and
+# id, which mean nothing without a coordinator, as in the reference
+_UNPORTED_VALUES = {"coordinator_address": f"127.0.0.1:{_free_port()}",
                     "num_processes": 2, "process_id": 1}
 # refused until shape buckets and run packs were ported (their cases keep
 # their labels)
@@ -349,9 +368,14 @@ DRIFT = {
 }
 
 
-def test_drift_matrix_covers_every_unported_setting():
-    assert set(_UNPORTED_VALUES) == set(pexec._UNPORTED_SETTINGS)
+def test_drift_matrix_covers_every_cohort_setting():
+    """Every setting of the cohort has its drift case, away from its
+    default; and none is refused any more: the executor has no refusal
+    table left."""
+    assert set(_UNPORTED_VALUES) == {"coordinator_address", "num_processes",
+                                     "process_id"}
     assert all(v != getattr(_DEFAULTS, k) for k, v in _UNPORTED_VALUES.items())
+    assert not hasattr(pexec, "_UNPORTED_SETTINGS")
 
 
 @pytest.mark.parametrize("label", list(DRIFT))

@@ -450,11 +450,13 @@ def test_disabled_runner_is_refused_like_jax(tmp_path):
     assert msgs["torch"] == [m.replace("sim:jax", "sim:torch") for m in msgs["jax"]]
 
 
-# the setting, and the ROADMAP item that refuses it; None for bucket=auto,
-# refused until shape buckets were ported, which now runs
+# the setting, and the ROADMAP item that refuses it; None for bucket=auto
+# and num_processes=2, refused until shape buckets and the cohort were
+# ported, which now run (a process count without a coordinator means
+# nothing, as in the reference)
 @pytest.mark.parametrize("setting,item", [("bucket=auto", None),
-                                          ("num_processes=2", "item 15b")],
-                         ids=["bucket=auto-item 13", "num_processes=2-item 15b"])
+                                          ("num_processes=2", None)],
+                         ids=["bucket=auto-item 13", "num_processes=2-cohort"])
 def test_unported_runner_setting_reaches_the_user(setting, item, tmp_path):
     home = _make_home(tmp_path, "torch", PORT_ENV, ("placebo",))
     rc, out, err = _cli(pmain, home, ["run", "single", "placebo:ok", "-i", "2",
@@ -1014,8 +1016,28 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
     assert not (home / "data" / "work").exists() or not os.listdir(home / "data" / "work")
 
 
+# the reference's sim-worker flags, every one away from its default
+SIM_WORKER_ARGV = ["sim-worker", "--coordinator", "10.0.0.1:4000", "--num-processes", "3",
+                   "--process-id", "2", "--plans", "/plans", "--once",
+                   "--connect-attempts", "5", "--connect-timeout", "7.5"]
+
+
 @pytest.mark.parametrize("verb", ["sim-worker", "sync-service", "sync-stats"])
 def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
+    """``sync-service`` and ``sync-stats`` are refused by argparse (item
+    17); ``sim-worker``, refused until the cohort was ported, parses the
+    reference's flags into the reference's values, plus ``--device`` (the
+    card by default)."""
+    if verb == "sim-worker":
+        from testground_tpu.cli.main import build_parser as jparser
+        from testground_tpu_torch.cli.main import build_parser as pparser
+
+        ref, port = (vars(p().parse_args(SIM_WORKER_ARGV)) for p in (jparser, pparser))
+        assert port.pop("device") is None
+        assert {k: v for k, v in port.items() if k != "func"} == {
+            k: v for k, v in ref.items() if k != "func"}
+        assert port["func"].__name__ == ref["func"].__name__ == "sim_worker_cmd"
+        return
     with pytest.raises(SystemExit) as e:
         pmain([verb, "x"])
     assert e.value.code == 2

@@ -983,3 +983,88 @@ def test_gpu_meshed_pack_matches_cpu_run(cuda, name):
             assert len(tg[i]) == len(tc[i])
             for a, b in zip(tc[i], tg[i]):
                 np.testing.assert_array_equal(b, a)
+
+
+# a cohort on the card: (plan, case, instances, params, chunk, validate)
+COHORT_GPU_RUNS = {
+    "ping-pong": ("network", "ping-pong", 64, {"latency_ms": "100", "latency2_ms": "10",
+                                              "tolerance_ms": "15"}, 64, False),
+    "flood-validate": ("benchmarks", "pingpong-flood", 64,
+                       {"duration_ticks": "64", "latency_ms": "4"}, 32, True),
+}
+
+
+@pytest.mark.parametrize("name", list(COHORT_GPU_RUNS))
+def test_two_process_cohort_on_one_card_equals_its_single_run(cuda, name, tmp_path):
+    """A two-process cohort on card 0 (the leader child and a ``tg-torch
+    sim-worker`` on the same card, so its collectives go over gloo) gives
+    the single-process run's result on the card: outcome, journal metrics,
+    flow totals, and the follower's carry digest equals the leader's."""
+    import json
+    import re
+    import socket
+    import subprocess
+    import sys
+    import threading
+
+    from testground_tpu_torch.api import OutputsEnv, RunInput
+    from testground_tpu_torch.rpc import OutputWriter, discard_writer
+    from testground_tpu_torch.sim.cohort import shutdown_leader_child
+    from testground_tpu_torch.sim.executor import (
+        PLANS_ROOT,
+        SimTorchConfig,
+        execute_sim_run,
+    )
+
+    plan, case, n, params, chunk, validate = COHORT_GPU_RUNS[name]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+
+    def job(run_id, **cfg):
+        return RunInput(run_id=run_id, test_plan=plan, test_case=case, total_instances=n,
+                        groups=[RunGroup(id="all", instances=n, parameters=dict(params),
+                                         artifact_path=plan_dir(plan))],
+                        runner_config=SimTorchConfig(chunk=chunk, validate=validate, **cfg),
+                        env=OutputsEnv(str(tmp_path)))
+
+    chunks = []
+
+    class Sink:
+        def write(self, text):
+            chunks.append(text)
+
+        def flush(self):
+            pass
+
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "testground_tpu_torch.cli", "sim-worker", "--coordinator",
+         coord, "--num-processes", "2", "--process-id", "1", "--plans", PLANS_ROOT,
+         "--once"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        box = {}
+        th = threading.Thread(target=lambda: box.update(out=execute_sim_run(
+            job("cohort", coordinator_address=coord, num_processes=2),
+            OutputWriter(sink=Sink()), threading.Event())), daemon=True)
+        th.start()
+        th.join(120)
+        assert "out" in box, "the cohort run did not finish"
+        shutdown_leader_child()
+        wout, _ = worker.communicate(timeout=60)
+    finally:
+        shutdown_leader_child()
+        if worker.poll() is None:
+            worker.kill()
+    single = execute_sim_run(job("single"), discard_writer(), threading.Event()).result
+    got = box["out"].result
+    assert got.outcome.value == single.outcome.value == "success"
+    assert got.journal.get("metrics") == single.journal.get("metrics")
+    for k in ("msgs_sent", "msgs_delivered", "msgs_in_flight", "msgs_dropped",
+              "msgs_rejected", "ticks"):
+        assert got.journal["sim"][k] == single.journal["sim"][k], k
+    log = "".join(json.loads(c).get("p", "") for c in "".join(chunks).splitlines()
+                  if c.startswith("{"))
+    assert "collectives over gloo" in log
+    lead = re.findall(r"multi-host: carry digest (\d+)", log)
+    assert lead and re.findall(r"run cohort carry digest (\d+)", wout) == lead

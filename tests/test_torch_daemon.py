@@ -807,17 +807,20 @@ def test_client_reports_the_refusal(daemons):
 
 
 def test_unported_setting_refused_at_submit(daemons):
-    """A setting the port does not run yet is refused at submit as
-    ``port.not-ported``, naming its item (a multi-host cohort: item 15b).
-    ``pack = true`` alone and on a mesh, a 2-D mesh and ``bucket =
+    """A cohort config, refused at submit as ``port.not-ported`` until the
+    cohort was ported, is admitted by the reference's rules: one that
+    resumes is refused as ``checkpoint.resume-cohort`` by both daemons
+    alike. ``pack = true`` alone and on a mesh, a 2-D mesh and ``bucket =
     "auto"``, refused here until run packs, packs on a mesh and shape
     buckets were ported, are queued."""
-    got = _submit(daemons["torch"], _ping_pong(daemons["torch"],
-                                               _cfg(num_processes=2)))
-    assert got["status"] == 422 and got["new_tasks"] == 0
-    assert "[port.not-ported] runner config num_processes=2 is not ported " \
-           "yet: ROADMAP queue 1 item 15b" in got["body"]["error"]
-    assert got["refusals"][0]["rules"] == ["port.not-ported"]
+    cohort = _cfg(coordinator_address="127.0.0.1:1", num_processes=2,
+                  resume_from="earlier")
+    got = {pkg: _submit(daemons[pkg], _ping_pong(daemons[pkg], cohort)) for pkg in PKGS}
+    assert got["torch"] == got["jax"]
+    assert got["torch"]["status"] == 422 and got["torch"]["new_tasks"] == 0
+    assert "[checkpoint.resume-cohort] resume_from is not supported under a " \
+           "multi-host cohort" in got["torch"]["body"]["error"]
+    assert got["torch"]["refusals"][0]["rules"] == ["checkpoint.resume-cohort"]
     for cfg in (_cfg(pack=True), _cfg(pack=True, mesh="2"), _cfg(mesh="2x2"),
                 _cfg(bucket="auto", bucket_ladder="16")):
         got = _submit(daemons["torch"], _ping_pong(daemons["torch"], cfg))

@@ -31,6 +31,7 @@ NaN guard and the refused options), and the footprint the build journals,
 
 import json
 import os
+import socket
 import threading
 
 import pytest
@@ -47,6 +48,7 @@ from testground_tpu_torch.api import OutputsEnv, RunGroup, RunInput
 from testground_tpu_torch.rpc import discard_writer
 from testground_tpu_torch.sim import api as papi
 from testground_tpu_torch.sim import executor as pexec
+from testground_tpu_torch.sim.cohort import shutdown_leader_child
 from testground_tpu_torch.sim.engine import SimProgram, build_groups
 from testground_tpu_torch.sim.slo import SloBreachError
 from test_torch_engine import CASES as ENGINE_CASES
@@ -307,8 +309,9 @@ def test_outputs_over_the_cap_are_skipped(tmp_path):
 
 
 # name: (value, the ROADMAP item that refuses it; None for the settings of
-# shape buckets, run packs and the 2-D mesh, refused until they were
-# ported, which now run)
+# shape buckets, run packs, the 2-D mesh and the cohort, refused until they
+# were ported, which now run; the coordinator's value is a free port at
+# run time)
 REFUSED = {
     "bucket": ("auto", None),
     "bucket_ladder": ("32,64", None),
@@ -316,10 +319,16 @@ REFUSED = {
     "pack": (True, None),
     "pack_max": (4, None),
     "mesh": ("2x4", None),
-    "coordinator_address": ("localhost:1234", "item 15b"),
-    "num_processes": (2, "item 15b"),
-    "process_id": (1, "item 15b"),
+    "coordinator_address": ("127.0.0.1:<free>", None),
+    "num_processes": (2, None),
+    "process_id": (1, None),
 }
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def _placebo_job(tmp_path, **cfg):
@@ -351,14 +360,25 @@ def test_checkpoint_setting_runs(name, tmp_path):
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_unported_setting_is_refused_naming_its_item(name, tmp_path):
     value, item = REFUSED[name]
+    if name == "coordinator_address":
+        value = f"127.0.0.1:{_free_port()}"
     if item is None:
-        # a bucket, pack or mesh setting: the run goes through, exact-N, and
-        # a bucketed one journals its bucket block (a run alone is no pack:
-        # the pack block is the supervisor's, engine/pack.py), a 2-D meshed
-        # one its mesh block (its lanes split over row 0's peer shards)
-        out = pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
-                                    discard_writer(), threading.Event())
+        # a bucket, pack, mesh or cohort setting: the run goes through,
+        # exact-N, and a bucketed one journals its bucket block (a run
+        # alone is no pack: the pack block is the supervisor's,
+        # engine/pack.py), a 2-D meshed one its mesh block (its lanes split
+        # over row 0's peer shards). A coordinator alone is a one-process
+        # cohort, run by the leader child under the cohort's gates (no perf
+        # ledger); a process count or id without one means nothing, as in
+        # the reference
+        try:
+            out = pexec.execute_sim_run(_placebo_job(tmp_path, **{name: value}),
+                                        discard_writer(), threading.Event())
+        finally:
+            shutdown_leader_child()
         assert out.result.journal["events"]["all"]["success"] == 2
+        assert out.result.journal["sim"]["processes"] == 1
+        assert ("perf" in out.result.journal["sim"]) == (name != "coordinator_address")
         assert "pack" not in out.result.journal["sim"]
         if name == "mesh":
             mesh = out.result.journal["sim"]["mesh"]

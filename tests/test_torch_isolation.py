@@ -59,7 +59,7 @@ def test_the_scan_sees_the_whole_port():
                  "testground_tpu_torch/sim/faults.py",
                  *(f"testground_tpu_torch/sim/{m}.py"
                    for m in ("telemetry", "netmatrix", "trace", "executor", "slo",
-                             "check", "meshplan")),
+                             "check", "meshplan", "distributed", "cohort")),
                  *(f"testground_tpu_torch/{m}.py"
                    for m in ("api/run_input", "engine/task", "runners/result",
                              "runners/outputs", "rpc/writer",
@@ -73,7 +73,7 @@ def test_the_scan_sees_the_whole_port():
                              "builders/sim_plan", "sim/runner", "engine/supervisor",
                              "logging_", "metrics/influx",
                              "metrics/viewer", "cli/main", "cli/__main__",
-                             "cli/commands")),
+                             "cli/commands", "sync/errors", "sync/__init__")),
                  *(f"testground_tpu_torch/plans/{p}/sim.py"
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos"))):
