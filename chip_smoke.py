@@ -165,7 +165,14 @@ and drives the port's main path through the library entry points
               ms/tick of both, a profiled twin's kernels and collectives a
               tick, join and first-chunk seconds, and a follower SIGKILLed
               mid-run failing the task readably (see ``phase_cohort``)
-24. parity  — sustained, flood and storm at 4,096 instances, the faulted
+24. sync    — the sync service on the card's host (no card): the port's
+              ``tg-syncsvc`` and ``tg-fanin-driver`` built with g++, then
+              native@1,000, python@1,000 and native@10,000 clients, each on
+              a fresh ``tg-torch sync-service`` process through the
+              driver's connect, flood, barrier storm and pubsub; op
+              counters conserved, ``/metrics`` reconciled, no CUDA context
+              in a service process (see ``phase_sync``)
+25. parity  — sustained, flood and storm at 4,096 instances, the faulted
               sustained at 4,096, and chaos and additional_hosts at 64,
               on the CPU (plain versions) and on the card (kernels), every
               carry leaf and results() key, and with the planes on:
@@ -207,7 +214,7 @@ H100_BYTES_PER_S = 3.35e12  # HBM3 rate of one H100 SXM (data sheet)
 PHASES = ("device", "build", "kernels", "sustained", "pingpong", "flood", "storm",
           "benchmarks", "scale", "faults", "telemetry", "plans", "executor", "mesh",
           "cli", "daemon", "admit", "observe", "surface", "resume", "buckets", "packs",
-          "cohort", "parity")
+          "cohort", "sync", "parity")
 # the benchmarks cases besides flood and storm, run at their defaults
 BENCH_OTHERS = ("barrier", "netinit", "netlinkshape", "subtree", "startup")
 # bench.py's sustained (bench.py:56-69) as phase 4 runs it, 500 ticks
@@ -1006,6 +1013,17 @@ def device_profile(prog, ticks, wall_ms_per_tick, by_name=False) -> dict:
     }
 
 
+def profile_twin(n, wall_ms_per_tick, **kw) -> dict:
+    """``device_profile`` of sustained@n at phase 4's parameters over its
+    first 64 ticks, through a chunk-64 twin (``kw``: ``program``'s planes
+    and faults) after a warm-up run that builds its constants. A run stops
+    at whole chunks, and a profiled tick costs the host ~0.1 s: profiling
+    a chunk-250 program's first 64 ticks profiles 250."""
+    twin = program("pingpong-sustained", n, SUSTAINED, chunk=64, **kw)
+    twin.run(seed=0, max_ticks=64)
+    return device_profile(twin, ticks=64, wall_ms_per_tick=wall_ms_per_tick)
+
+
 def phase_pingpong(card) -> dict:
     n = 100_000
     params = {"latency_ms": "100", "latency2_ms": "10", "tolerance_ms": "15"}
@@ -1119,8 +1137,9 @@ def phase_scale(card) -> dict:
 def phase_faults(card) -> dict:
     """The slice's full-width path: sustained@100k under a schedule of
     every fault kind, beside the same run without one. Both runs are
-    timed on the wall clock first, then each is profiled over its whole
-    500 ticks."""
+    timed on the wall clock first, then profiled: the faulted one over its
+    whole 500 ticks (the fault windows end at tick 450), the unfaulted one
+    over the first 64 ticks of a chunk-64 twin (``profile_twin``)."""
     n = 100_000
     runs, progs, launches = {}, {}, {"commit_calendar": 0, "pop_bucket": 0}
     for label, tables in (("unfaulted", None), ("faulted", sustained_fault_tables(n))):
@@ -1141,9 +1160,9 @@ def phase_faults(card) -> dict:
             "faults_restarted": res["faults_restarted"],
             "fault_dropped": res["fault_dropped"],
         }
-    for label, row in runs.items():
-        row.update(device_profile(progs[label], ticks=500,
-                                  wall_ms_per_tick=row["wall_ms_per_tick"]))
+    runs["faulted"].update(device_profile(progs["faulted"], ticks=500,
+                                          wall_ms_per_tick=runs["faulted"]["wall_ms_per_tick"]))
+    runs["unfaulted"].update(profile_twin(n, runs["unfaulted"]["wall_ms_per_tick"]))
     f = runs["faulted"]
     f["purge"] = purge_timing(n, f["device_ms_per_tick"])
     check(f["faults_crashed"] == n // 10 and f["faults_restarted"] == n // 10,
@@ -1338,7 +1357,8 @@ def phase_telemetry(card) -> dict:
     at phase 4's parameters four ways, timed in TURNS turns (each way once
     a turn, every other turn in reverse order; each way's wall ms/tick
     against the planes-off run of the same turn gives its paired deltas),
-    then profiled over one chunk each;
+    then profiled over the first 64 ticks of a chunk-64 twin each
+    (``profile_twin``);
     the sync-debug counts at 32 and 64 ticks use chunk-16 twins, so that
     both runs span chunk boundaries. Then the faulted sustained of phase
     ``faults`` with telemetry and the matrix."""
@@ -1379,7 +1399,7 @@ def phase_telemetry(card) -> dict:
                    wall_ms_vs_off=diff, off_iqr_ms=q3 - q1,
                    wall_resolved=abs(diff) > q3 - q1,
                    turns_slower_than_off=sum(d > 0 for d in deltas))
-        row.update(device_profile(progs[label], ticks=250, wall_ms_per_tick=wall_ms))
+        row.update(profile_twin(n, wall_ms, **PLANE_SETS[label]))
         twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, **PLANE_SETS[label])
         # one warm-up run: a program's first step builds its constants
         twin.run(seed=0, max_ticks=16)
@@ -5146,6 +5166,277 @@ def phase_cohort(card) -> dict:
     return row
 
 
+# the sync service's rungs (backend, clients): 1,000 on both backends, and
+# the native server at 10k (the fan-in bench's top rung); each client
+# sends SYNC_SIGNAL_OPS signals (the bench sends 20; 4 keep the phase
+# inside its share of the script), joins one barrier as wide as the rung,
+# and all but one subscribe to SYNC_PUB_ENTRIES publishes
+SYNC_RUNGS = (("native", 1000), ("python", 1000), ("native", 10_000))
+SYNC_SIGNAL_OPS = 4
+SYNC_PUB_ENTRIES = 5
+
+
+def _fanin(driver, port, clients, timeout=120.0) -> list:
+    """The port's ``tg-fanin-driver`` (``native/fanin_driver.cc``) through
+    its four phases: one ``go`` line each on its stdin, one JSON record
+    each on its stdout (connect, flood, storm, pubsub)."""
+    proc = subprocess.Popen(
+        [driver, "--host", "127.0.0.1", "--port", str(port), "--clients",
+         str(clients), "--total", str(clients), "--signal-ops",
+         str(SYNC_SIGNAL_OPS), "--pub-subs", str(clients - 1), "--pub-entries",
+         str(SYNC_PUB_ENTRIES), "--timeout", str(timeout)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    try:
+        recs = []
+        for _ in range(4):
+            proc.stdin.write("go\n")
+            proc.stdin.flush()
+            line = proc.stdout.readline()
+            check(bool(line), f"fan-in driver died after {len(recs)} phases")
+            recs.append(json.loads(line))
+        proc.stdin.close()
+        check(proc.wait(timeout=60) == 0, "fan-in driver exit code")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return recs
+
+
+def _sync_stats_json(addr) -> dict:
+    """``tg-torch sync-stats ADDR --json``: the port's CLI entry point, in
+    process."""
+    import contextlib
+    import io
+
+    from testground_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["sync-stats", addr, "--json", "--timeout", "10"])
+    check(rc == 0, f"sync-stats {addr} exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def _scrape_sync(url) -> dict:
+    """The counters of a ``/metrics`` scrape of the sync service: the
+    ``tg_sync_ops_total`` series by op and the connection accepts."""
+    import re
+    import urllib.request
+
+    text = urllib.request.urlopen(url, timeout=10).read().decode()
+    ops = {m.group(1): int(float(m.group(2))) for m in re.finditer(
+        r'^tg_sync_ops_total\{op="([a-z_]+)"\} (\S+)$', text, re.M)}
+    acc = re.search(r"^tg_sync_conn_accepts_total (\S+)$", text, re.M)
+    return {"ops": ops, "accepts": int(float(acc.group(1))) if acc else None}
+
+
+def _process_tree(pid) -> list:
+    """``pid`` and its descendants (``/proc/<pid>/task/*/children``)."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        try:
+            for task in os.listdir(f"/proc/{p}/task"):
+                with open(f"/proc/{p}/task/{task}/children") as f:
+                    todo += [int(c) for c in f.read().split()]
+        except OSError:
+            pass
+    return out
+
+
+def _maps_cuda(pid) -> bool:
+    """Whether the process has the CUDA driver library mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return False
+
+
+def _compute_pids() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def phase_sync(card) -> dict:
+    """The sync service on the card's host, through the port only: the
+    port's ``tg-syncsvc`` and ``tg-fanin-driver`` built with g++ side by
+    side (wall seconds), then for each rung of ``SYNC_RUNGS`` a fresh
+    ``tg-torch sync-service`` process on the rung's backend (``--backend
+    native`` or ``python``, ``--metrics-port 0``) and against it the
+    fan-in driver's connect, flood, barrier storm as wide as the clients
+    and pubsub (the
+    soft ``RLIMIT_NOFILE`` raised toward the hard one for the 10k rung;
+    a hard limit too low for it runs the rung it allows, and says so).
+    Checks: no driver error; the server's op counters, read with
+    ``tg-torch sync-stats --json`` before and after, grew by exactly the
+    operations driven; a ``/metrics`` scrape between two such reads
+    reconciles with both; no service process holds a CUDA context. Prints
+    connects/s, flood ops/s with p50/p99, barrier p50/p99 and pubsub
+    deliveries/s for each rung."""
+    import resource
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from testground_tpu_torch.native import (
+        build_fanin_driver,
+        build_syncsvc,
+        native_available,
+    )
+
+    check(native_available(), "no g++ for the native sync service")
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    home = os.path.join(root, "home")
+    bin_dir = os.path.join(home, "data", "work", "bin")
+    row = {"phase": "sync", "card": card, "launches": {}, "rungs": []}
+
+    # 1. both binaries at once, into the bin dir the CLI's boot reads
+    built, errs = {}, []
+
+    def build(name, fn):
+        t = time.perf_counter()
+        try:
+            built[name] = (fn(bin_dir), time.perf_counter() - t)
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errs.append(f"{name}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=a) for a in
+               (("tg-syncsvc", build_syncsvc), ("tg-fanin-driver", build_fanin_driver))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    check(not errs and len(built) == 2, f"native builds failed: {errs}")
+    row["build_s"] = {k: v[1] for k, v in built.items()}
+    row["build_wall_s"] = time.perf_counter() - t0
+    driver = built["tg-fanin-driver"][0]
+
+    # the 10k rung needs that many sockets in the driver and in the server
+    soft0, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    need = max(n for _, n in SYNC_RUNGS) + 512
+    soft = max(soft0, need)
+    if hard != resource.RLIM_INFINITY:
+        soft = min(soft, hard)
+    if soft > soft0:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
+    row["nofile"] = {"soft_before": soft0, "soft": soft,
+                     "hard": None if hard == resource.RLIM_INFINITY else hard}
+    rungs = [(b, n if n + 512 <= soft else soft - 512) for b, n in SYNC_RUNGS]
+    if rungs != list(SYNC_RUNGS):
+        row["nofile"]["cut"] = f"RLIMIT_NOFILE {soft}: rungs {rungs}"
+        print(f"chip_smoke sync: RLIMIT_NOFILE hard limit {hard} allows "
+              f"rungs {rungs}, not {list(SYNC_RUNGS)}", flush=True)
+
+    def start(backend, n):
+        err = open(os.path.join(root, f"{backend}-{n}.err"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "testground_tpu_torch.cli", "sync-service",
+             "--backend", backend, "--port", "0", "--metrics-port", "0",
+             "--stats-interval", "0"],
+            cwd=here, stdout=subprocess.PIPE, stderr=err, text=True,
+            env={**os.environ, "TESTGROUND_HOME": home, "PYTHONPATH": here})
+        service[:] = [proc, err]
+        lines = [proc.stdout.readline().strip() for _ in range(2)]
+        listen = [ln.split() for ln in lines if ln.startswith("LISTENING ")]
+        metrics = [ln.split()[1] for ln in lines if ln.startswith("METRICS ")]
+        check(bool(listen and metrics), f"sync-service {backend} printed {lines}")
+        return f"127.0.0.1:{listen[0][2]}", metrics[0]
+
+    def stop():
+        proc, err = service
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        err.close()
+        service.clear()
+        return proc.returncode
+
+    service = []  # [process, its stderr file] of the rung's service
+    row["exit"], row["service_pids"], row["compute_app_pids"] = [], [], []
+    try:
+        # 2.-6. each rung on a fresh service process (the driver's barrier
+        # state and pubsub topic are the same names every rung): its
+        # conservation and the scrape around it
+        for backend, n in rungs:
+            t = time.perf_counter()
+            addr, metrics_url = start(backend, n)
+            up_s = time.perf_counter() - t
+            before = _sync_stats_json(addr)
+            recs = _fanin(driver, int(addr.rsplit(":", 1)[1]), n)
+            after = _sync_stats_json(addr)
+            scrape = _scrape_sync(metrics_url)
+            last = _sync_stats_json(addr)
+            # 7. the service never opens a CUDA context
+            pids = _process_tree(service[0].pid)
+            on_card = set(_compute_pids())
+            row["service_pids"].append(pids)
+            row["compute_app_pids"].append(sorted(on_card))
+            check(not on_card & set(pids), f"a service process is a compute app: {pids}")
+            check(not any(_maps_cuda(p) for p in pids), "a service process maps libcuda")
+            row["exit"].append(stop())
+            errors = [e for r in recs for e in r.get("errors", [])]
+            check(not errors, f"{backend}@{n}: driver errors {errors[:5]}")
+            connect, flood, storm, pubsub = recs
+            check(connect["connected"] == n, f"{backend}@{n}: {connect['connected']} connected")
+            check(len(flood["lats_ms"]) == n * SYNC_SIGNAL_OPS, f"{backend}@{n}: flood replies")
+            check(len(storm["lats_ms"]) == n, f"{backend}@{n}: barrier replies")
+            check(pubsub.get("delivered") == (n - 1) * SYNC_PUB_ENTRIES,
+                  f"{backend}@{n}: pubsub delivered {pubsub.get('delivered')}")
+            # the driven ops, and the after-read's own sync_stats
+            driven = {"signal_entry": n * SYNC_SIGNAL_OPS, "signal_and_wait": n,
+                      "subscribe": n - 1, "publish": SYNC_PUB_ENTRIES, "sync_stats": 1}
+            delta = {op: after["ops"][op] - before["ops"][op] for op in after["ops"]}
+            check(delta == {op: driven.get(op, 0) for op in after["ops"]},
+                  f"{backend}@{n}: op counters grew {delta}, driven {driven}")
+            # the scrape's own fetch counts itself, and the last read too
+            bump = {"sync_stats": after["ops"]["sync_stats"] + 1}
+            check(scrape["ops"] == {**after["ops"], **bump},
+                  f"{backend}@{n}: /metrics ops {scrape['ops']} vs {after['ops']}")
+            check(scrape["accepts"] == after["conn"]["accepts"] + 1,
+                  f"{backend}@{n}: /metrics accepts")
+            check(last["ops"] == {**after["ops"],
+                                  "sync_stats": after["ops"]["sync_stats"] + 2},
+                  f"{backend}@{n}: ops after the scrape")
+            lat_f, lat_s = flood["lats_ms"], storm["lats_ms"]
+            row["rungs"].append({
+                "backend": backend, "clients": n, "service_up_s": up_s,
+                "connects_per_s": n / connect["wall"] if connect["wall"] else None,
+                "flood_ops_per_s": len(lat_f) / flood["wall"] if flood["wall"] else None,
+                "flood_p50_ms": float(np.percentile(lat_f, 50)),
+                "flood_p99_ms": float(np.percentile(lat_f, 99)),
+                "barrier_p50_ms": float(np.percentile(lat_s, 50)),
+                "barrier_p99_ms": float(np.percentile(lat_s, 99)),
+                "barrier_wall_s": storm["wall"],
+                "pubsub_delivered": pubsub["delivered"],
+                "pubsub_delivered_per_s": (pubsub["delivered"] / pubsub["wall"]
+                                           if pubsub["wall"] else None),
+                "ops_driven": sum(driven.values()) - 1,
+                "ops_conserved": True, "metrics_reconciled": True,
+                "seconds": time.perf_counter() - t,
+            })
+        row["cuda_context"] = False
+    finally:
+        if service:
+            row["exit"].append(stop())
+        if soft > soft0:
+            resource.setrlimit(resource.RLIMIT_NOFILE, (soft0, hard))
+        shutil.rmtree(root, ignore_errors=True)
+    check(row["exit"] == [0] * len(rungs), f"sync-service exits {row['exit']}")
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES))
@@ -5274,7 +5565,7 @@ def main(argv=None) -> int:
                    ("admit", phase_admit), ("observe", phase_observe),
                    ("surface", phase_surface), ("resume", phase_resume),
                    ("buckets", phase_buckets), ("packs", phase_packs),
-                   ("cohort", phase_cohort)):
+                   ("cohort", phase_cohort), ("sync", phase_sync)):
         if ph in phases:
             t0 = time.perf_counter()
             row = fn(card)

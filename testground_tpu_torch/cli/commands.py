@@ -27,9 +27,10 @@ refused naming the item: ``collect``'s default runner ``local:exec`` (item
 (``builders/sim_plan.warm_bucket_ladder``), and with ``pack`` the pack
 widths of each rung. ``sim-worker`` joins a cohort as a follower
 (``sim/executor.run_sim_worker``), with the reference's flags and a
-``--device`` (the card unless it names another). A verb the port does not
-register (``sync-service``, ``sync-stats``: item 17) is refused by
-argparse.
+``--device`` (the card unless it names another). ``sync-service`` boots
+the sync service (``sync/boot.py``: the native C++ server or the Python
+one) and serves it until SIGTERM; ``sync-stats`` reads a running
+service's stats plane. Neither touches the card.
 """
 
 from __future__ import annotations
@@ -2084,6 +2085,235 @@ def daemon_cmd(args) -> int:
     from ..daemon.server import serve
 
     return serve(listen=args.listen)
+
+
+def register_sync_service(sub) -> None:
+    p = sub.add_parser(
+        "sync-service",
+        help="run a standalone network-reachable sync service (the "
+        "shared coordination plane of a cross-host local:exec run — "
+        "docs/CROSSHOST.md); prints 'LISTENING <host> <port>' once "
+        "bound and serves until SIGTERM",
+    )
+    p.add_argument(
+        "--host",
+        default="127.0.0.1",
+        help="bind address (0.0.0.0 serves other hosts; default loopback)",
+    )
+    p.add_argument(
+        "--port", type=int, default=0, help="bind port (0 = ephemeral)"
+    )
+    p.add_argument(
+        "--backend",
+        choices=("auto", "python", "native"),
+        default="auto",
+        help="native C++ event-loop server when a toolchain exists "
+        "(auto), or force one implementation",
+    )
+    p.add_argument(
+        "--idle-timeout",
+        type=float,
+        default=30.0,
+        help="evict connections silent for this many seconds "
+        "(heartbeating clients are never idle; 0 disables)",
+    )
+    p.add_argument(
+        "--evict-grace",
+        type=float,
+        default=2.0,
+        help="window an abnormally-disconnected instance has to "
+        "reconnect before its eviction event is published",
+    )
+    p.add_argument(
+        "--shards",
+        type=int,
+        default=0,
+        help="event-loop shards (0 = backend auto: native picks "
+        "min(4, cores), python runs one loop — docs/CROSSHOST.md "
+        "'Server architecture')",
+    )
+    p.add_argument(
+        "--metrics-port",
+        type=int,
+        default=-1,
+        help="also serve a Prometheus text exposition of the tg_sync_* "
+        "family at http://127.0.0.1:<port>/metrics (0 = ephemeral, "
+        "printed; default off) — docs/OBSERVABILITY.md 'Sync plane'",
+    )
+    p.add_argument(
+        "--stats-interval",
+        type=float,
+        default=60.0,
+        help="log a one-line stats heartbeat (conns/waiters/subs/ops-"
+        "per-sec) to stderr every N seconds so a detached service is "
+        "debuggable from its log alone (0 disables; default 60)",
+    )
+    p.set_defaults(func=sync_service_cmd)
+
+
+def sync_service_cmd(args) -> int:
+    import threading
+
+    from ..sync.boot import boot_sync_service
+    from ..sync.server import serve_until_signal
+    from ..sync.stats import (
+        SyncMetricsExporter,
+        run_stats_heartbeat,
+    )
+
+    try:
+        svc = boot_sync_service(
+            mode=args.backend,
+            host=args.host,
+            port=args.port,
+            idle_timeout=args.idle_timeout,
+            evict_grace=args.evict_grace,
+            bin_dir=os.path.join(EnvConfig.load().dirs.work(), "bin"),
+            log=lambda msg: print(msg, file=sys.stderr),
+            shards=args.shards,
+        )
+    except Exception as e:  # noqa: BLE001 — boot failures exit readably
+        print(f"sync-service: {e}", file=sys.stderr)
+        return 1
+    # the service binds args.host, but the sidecars dial it locally —
+    # a wildcard bind is reachable on loopback
+    local = ("127.0.0.1" if args.host in ("0.0.0.0", "") else args.host,
+             svc.address[1])
+    exporter = None
+    if args.metrics_port >= 0:
+        try:
+            exporter = SyncMetricsExporter(
+                local, port=args.metrics_port
+            ).start()
+            print(
+                f"METRICS http://127.0.0.1:{exporter.port}/metrics",
+                flush=True,
+            )
+        except OSError as e:
+            print(f"sync-service: metrics port: {e}", file=sys.stderr)
+            svc.stop()
+            return 1
+    hb_stop = threading.Event()
+    if args.stats_interval > 0:
+        threading.Thread(
+            target=run_stats_heartbeat,
+            args=(local, args.stats_interval, hb_stop),
+            daemon=True,
+            name="tg-sync-heartbeat",
+        ).start()
+    try:
+        return serve_until_signal(svc)
+    finally:
+        hb_stop.set()
+        if exporter is not None:
+            exporter.stop()
+
+
+def register_sync_stats(sub) -> None:
+    p = sub.add_parser(
+        "sync-stats",
+        help="query a live sync service's stats plane: op counters + "
+        "service-time percentiles, barrier fan-in timelines, pubsub "
+        "depth, connection churn (docs/OBSERVABILITY.md 'Sync plane'); "
+        "works against either backend, v1 or v2",
+    )
+    p.add_argument(
+        "address",
+        help="host:port of a running sync service (`tg sync-service` "
+        "prints it as LISTENING; a local:exec run's service address is "
+        "in the instances' SYNC_SERVICE_HOST/PORT env)",
+    )
+    p.add_argument(
+        "--json",
+        action="store_true",
+        help="dump the raw sync_stats reply as JSON (machine-readable; "
+        "the wire payload minus the correlation id)",
+    )
+    p.add_argument(
+        "--timeout",
+        type=float,
+        default=5.0,
+        help="connect + reply timeout in seconds",
+    )
+    p.add_argument(
+        "--watch",
+        type=float,
+        default=0.0,
+        metavar="N",
+        help="refresh every N seconds (an operator's live view of a "
+        "ramp without Prometheus; each refresh is the exporter's same "
+        "one-shot fetch; Ctrl-C exits; under --json one payload line "
+        "per refresh)",
+    )
+    p.add_argument(
+        "--watch-count",
+        type=int,
+        default=0,
+        help="stop after this many --watch refreshes (0 = until "
+        "Ctrl-C; for scripting)",
+    )
+    p.set_defaults(func=sync_stats_cmd)
+
+
+def sync_stats_cmd(args) -> int:
+    import json
+    import time
+
+    from ..runners.pretty import render_sync_stats
+    from ..sync.stats import fetch_sync_stats
+
+    host, _, port = args.address.rpartition(":")
+    if not host or not port.isdigit():
+        print(
+            f"sync-stats: expected <host>:<port>, got {args.address!r}",
+            file=sys.stderr,
+        )
+        return 2
+    watch = max(0.0, getattr(args, "watch", 0.0) or 0.0)
+    as_json = getattr(args, "json", False)
+    shown = 0
+    while True:
+        try:
+            stats = fetch_sync_stats(host, int(port), timeout=args.timeout)
+        except (OSError, ValueError) as e:
+            print(
+                f"sync-stats: sync service at {args.address} "
+                f"unreachable: {e}",
+                file=sys.stderr,
+            )
+            # one-shot: unreachable is an error; watching: a live ramp's
+            # service may restart — keep watching unless it never answered
+            if not watch or shown == 0:
+                return 1
+        else:
+            if as_json:
+                print(
+                    json.dumps(
+                        stats,
+                        indent=None if watch else 2,
+                        sort_keys=True,
+                    ),
+                    flush=True,
+                )
+            else:
+                if watch and shown and sys.stdout.isatty():
+                    print("\x1b[2J\x1b[H", end="")  # clear between frames
+                header = (
+                    f"--- {args.address} @ {time.strftime('%H:%M:%S')} "
+                    f"(refresh {watch:g}s, Ctrl-C to exit) ---"
+                )
+                if watch:
+                    print(header)
+                print(render_sync_stats(stats), flush=True)
+            shown += 1
+        if not watch:
+            return 0
+        if args.watch_count and shown >= args.watch_count:
+            return 0
+        try:
+            time.sleep(watch)
+        except KeyboardInterrupt:
+            return 0
 
 
 def register_sim_worker(sub) -> None:

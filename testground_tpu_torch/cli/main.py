@@ -1,9 +1,9 @@
 """The port's ``tg`` CLI entry point — the reference's
 ``testground_tpu/cli/main.py`` with the verbs the port honours: ``run``,
 ``build``, ``tasks``, ``status``, ``logs``, ``collect``, ``healthcheck``,
-``terminate``, ``preempt``, ``daemon``, ``check``, ``plan``, ``describe``,
-``version``,
-and the observability verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
+``terminate``, ``preempt``, ``daemon``, ``sync-service``, ``sync-stats``,
+``sim-worker``, ``check``, ``plan``, ``describe``, ``version``, and the
+observability verbs ``stats``, ``perf``, ``trace``, ``watch``, ``netmap``, ``diff`` and
 ``top``. The engine runs in-process unless ``--endpoint`` points at a
 daemon (the reference's client↔daemon hop is transport, not semantics);
 either way a run goes through the task queue, a worker and the
@@ -62,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     commands.register_terminate(sub)
     commands.register_preempt(sub)
     commands.register_daemon(sub)
+    commands.register_sync_service(sub)
+    commands.register_sync_stats(sub)
     commands.register_sim_worker(sub)
     commands.register_check(sub)
     commands.register_version(sub)

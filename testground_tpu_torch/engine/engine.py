@@ -47,24 +47,15 @@ from .queue import TaskQueue
 from .storage import TaskStorage
 from .task import CreatedBy, DatedState, State, Task, TaskType, new_task_id
 
+# the fleet's queue-wait and claim-latency histograms use the sync plane's
+# log2 µs bins (sync/stats.py imports only the stdlib)
+from ..sync.stats import TIME_BINS, time_bin
+
 __all__ = ["Engine", "EngineConfig"]
-
-# log2 µs bins of the fleet's queue-wait and claim-latency histograms (the
-# reference's ``sync/stats.py`` TIME_BINS and time_bin)
-TIME_BINS = 20
-
 
 # distinct solo reasons the fleet counts before folding the rest into
 # "other" (a bounded label set for tg_fleet_pack_solo_total)
 _FLEET_SOLO_REASONS_MAX = 32
-
-
-def time_bin(us: float) -> int:
-    """Histogram bin for a time in µs (log2 bins, clamped)."""
-    n = int(us)
-    if n < 1:
-        return 0
-    return min(TIME_BINS - 1, n.bit_length() - 1)
 
 
 @dataclass

@@ -40,8 +40,11 @@ they are silent: ``tg_run_lower_seconds``, ``tg_run_xla_compile_seconds``,
 bucket's ``compile_cache`` is ``"off"``: no compile cache, so neither a hit
 nor a miss). ``tg_bucket_padded_instances`` renders a port bucketed
 run's padded size, ``tg_pack_width``/``tg_pack_members`` a packed run's
-``sim.pack`` block and ``tg_fleet_pack_*`` the engine's pack claims. The sync service's ``render_sync_prometheus`` comes
-with the sync service (item 17).
+``sim.pack`` block and ``tg_fleet_pack_*`` the engine's pack claims.
+
+``render_sync_prometheus`` renders a sync service's ``sync_stats``
+snapshot as the ``tg_sync_*`` family, the exposition of ``tg-torch
+sync-service --metrics-port`` (``sync/stats.SyncMetricsExporter``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from __future__ import annotations
 # reject the whole scrape)
 from ..sim.perf import num as _num
 
-__all__ = ["CONTENT_TYPE", "render_prometheus"]
+__all__ = ["CONTENT_TYPE", "render_prometheus", "render_sync_prometheus"]
 
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
@@ -101,6 +104,190 @@ class _Exposition:
             out.append(f"# TYPE {name} {mtype}")
             out.extend(lines)
         return "\n".join(out) + "\n" if out else "\n"
+
+
+def render_sync_prometheus(stats: dict) -> str:
+    """Render a ``sync_stats`` snapshot (v1 or v2) as the ``tg_sync_*``
+    family — the ``tg sync-service --metrics-port`` exposition
+    (docs/OBSERVABILITY.md "Sync plane").
+
+    Label space is bounded by construction: ``op`` ranges over the fixed
+    protocol op set, barrier ``target`` over pow2 buckets (capped at
+    2^20 by the recorder), and the per-op duration histograms over the
+    recorder's fixed log2 bin count — a scrape's cardinality cannot grow
+    with traffic. A v1 snapshot (old server) renders just the occupancy
+    gauges; reconciliation with ``tg sync-stats`` is pinned by
+    ``tools/sync_fanin_smoke.py``."""
+    exp = _Exposition()
+    for name, key, help_ in (
+        ("tg_sync_conns", "conns", "Open connections to the sync service."),
+        ("tg_sync_waiters", "waiters", "Parked barrier waiters."),
+        ("tg_sync_subs", "subs", "Open topic subscriptions."),
+        (
+            "tg_sync_uptime_seconds",
+            "uptime_secs",
+            "Seconds since the sync service started its stats plane.",
+        ),
+    ):
+        exp.add(name, "gauge", help_, {}, stats.get(key))
+    for op, count in sorted((stats.get("ops") or {}).items()):
+        exp.add(
+            "tg_sync_ops_total",
+            "counter",
+            "Requests dispatched, by protocol op.",
+            {"op": op},
+            count,
+        )
+    conn = stats.get("conn") if isinstance(stats.get("conn"), dict) else {}
+    for name, key, help_ in (
+        ("tg_sync_conn_accepts_total", "accepts", "Connections accepted."),
+        ("tg_sync_conn_closes_total", "closes", "Connections closed."),
+        (
+            "tg_sync_conn_evictions_total",
+            "evictions",
+            "Connections evicted by the idle sweep (half-open peers).",
+        ),
+    ):
+        exp.add(name, "counter", help_, {}, conn.get(key))
+    exp.add(
+        "tg_sync_conns_hwm",
+        "gauge",
+        "Concurrent-connection high-water mark.",
+        {},
+        conn.get("hwm"),
+    )
+    bar = stats.get("barriers") if isinstance(stats.get("barriers"), dict) else {}
+    for name, key, help_ in (
+        ("tg_sync_barrier_parked_total", "parked", "Barrier waiters parked."),
+        (
+            "tg_sync_barrier_released_total",
+            "released",
+            "Barrier waiters released (fan-in reached).",
+        ),
+        (
+            "tg_sync_barrier_timed_out_total",
+            "timed_out",
+            "Barrier waiters that timed out.",
+        ),
+        (
+            "tg_sync_barrier_canceled_total",
+            "canceled",
+            "Barrier waiters canceled (connection lost mid-wait).",
+        ),
+    ):
+        exp.add(name, "counter", help_, {}, bar.get(key))
+    episodes = (
+        bar.get("episodes") if isinstance(bar.get("episodes"), dict) else {}
+    )
+    for bucket, rec in sorted(
+        (episodes.get("by_target") or {}).items(),
+        key=lambda kv: int(kv[0]),
+    ):
+        if not isinstance(rec, dict):
+            continue
+        lbl = {"target": str(bucket)}
+        exp.add(
+            "tg_sync_barrier_episodes_total",
+            "counter",
+            "Released barrier episodes, by pow2-bucketed fan-in target.",
+            lbl,
+            rec.get("count"),
+        )
+        exp.add(
+            "tg_sync_barrier_release_ms_total",
+            "counter",
+            "Summed armed-to-release wall ms of barrier episodes, by "
+            "pow2-bucketed fan-in target.",
+            lbl,
+            rec.get("total_ms"),
+        )
+        exp.add(
+            "tg_sync_barrier_release_ms_max",
+            "gauge",
+            "Slowest armed-to-release wall ms observed, by "
+            "pow2-bucketed fan-in target.",
+            lbl,
+            rec.get("max_ms"),
+        )
+    ps = stats.get("pubsub") if isinstance(stats.get("pubsub"), dict) else {}
+    exp.add(
+        "tg_sync_pubsub_published_total",
+        "counter",
+        "Entries appended to topics (dedup replays excluded).",
+        {},
+        ps.get("published"),
+    )
+    for name, key, help_ in (
+        ("tg_sync_pubsub_topics", "topics", "Topics holding entries."),
+        ("tg_sync_pubsub_entries", "entries", "Entries across all topics."),
+        (
+            "tg_sync_pubsub_depth_hwm",
+            "depth_hwm",
+            "Deepest single topic observed (queue-depth high-water).",
+        ),
+        (
+            "tg_sync_pubsub_subs_hwm",
+            "subs_hwm",
+            "Concurrent-subscription high-water mark.",
+        ),
+    ):
+        exp.add(name, "gauge", help_, {}, ps.get(key))
+    dd = stats.get("dedup") if isinstance(stats.get("dedup"), dict) else {}
+    for kind, key in (("signal", "signal_hits"), ("publish", "publish_hits")):
+        exp.add(
+            "tg_sync_dedup_hits_total",
+            "counter",
+            "Idempotency-token replays answered from the dedup map "
+            "(reconnect at-least-once wire, exactly-once effect).",
+            {"op": kind},
+            dd.get(key),
+        )
+    out = exp.render()
+    # per-op service-time histograms (python server only): proper
+    # Prometheus histogram series, hand-assembled because the le-bucket
+    # lines share one TYPE header with their _sum/_count — cumulative
+    # buckets over the recorder's log2 µs bins, le in seconds
+    op_time = (
+        stats.get("op_time_us")
+        if isinstance(stats.get("op_time_us"), dict)
+        else {}
+    )
+    hist_lines = []
+    for op in sorted(op_time):
+        rec = op_time[op]
+        bins = rec.get("bins") if isinstance(rec, dict) else None
+        if not bins:
+            continue
+        cum = 0
+        for i, c in enumerate(bins):
+            cum += int(_num(c) or 0)
+            le = (
+                "+Inf"
+                if i == len(bins) - 1
+                else repr((1 << (i + 1)) / 1e6)
+            )
+            hist_lines.append(
+                f'tg_sync_op_duration_seconds_bucket{{op="{_escape(op)}"'
+                f',le="{le}"}} {cum}'
+            )
+        total_us = _num(rec.get("total_us")) or 0
+        hist_lines.append(
+            f'tg_sync_op_duration_seconds_sum{{op="{_escape(op)}"}} '
+            f"{total_us / 1e6}"
+        )
+        hist_lines.append(
+            f'tg_sync_op_duration_seconds_count{{op="{_escape(op)}"}} {cum}'
+        )
+    if hist_lines:
+        out = out.rstrip("\n") + "\n" + "\n".join(
+            [
+                "# HELP tg_sync_op_duration_seconds Service time per op "
+                "(barrier/signal_and_wait record the full fan-in wait).",
+                "# TYPE tg_sync_op_duration_seconds histogram",
+            ]
+            + hist_lines
+        ) + "\n"
+    return out
 
 
 def render_prometheus(

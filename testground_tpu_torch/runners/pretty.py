@@ -4,9 +4,9 @@ that ``tg stats``, ``perf`` (``--phases``, ``--compare``), ``trace
 --lifecycle``, ``netmap``, ``diff``, ``top`` and ``status --telemetry``
 print, with their helpers, unchanged.
 
-Left out, with the ROADMAP queue 1 item that ports each:
-``render_sync_stats`` (item 17, the sync service) and ``PrettyPrinter``
-(item 16, the ``local:exec`` runner's event console).
+``render_sync_stats`` is what ``tg-torch sync-stats`` prints. Left out:
+``PrettyPrinter``, the ``local:exec`` runner's event console (ROADMAP
+queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ __all__ = [
     "render_perf_summary",
     "render_phase_table",
     "render_run_diff",
+    "render_sync_stats",
     "render_telemetry_summary",
 ]
 
@@ -293,6 +294,129 @@ def render_telemetry_summary(stats: dict) -> str:
             rows.append((f"group {gid}", shown or "-"))
     width = max(len(k) for k, _ in rows)
     return "\n".join(f"{k:<{width}}  {v}" for k, v in rows)
+
+
+def _fmt_us(v) -> str:
+    """A µs duration with a readable unit (µs/ms/s)."""
+    n = _num(v)
+    if n is None:
+        return "?"
+    if n >= 1e6:
+        return f"{n / 1e6:.2f}s"
+    if n >= 1e3:
+        return f"{n / 1e3:.2f}ms"
+    return f"{n:.0f}µs"
+
+
+def render_sync_stats(stats: dict) -> str:
+    """Render a ``sync_stats`` snapshot as an aligned table — the
+    console surface of the sync-plane stats tier (``tg sync-stats
+    <host:port>``; docs/OBSERVABILITY.md "Sync plane").
+
+    ``stats`` is the wire reply minus ``id`` (v1 or v2): a v1 server
+    renders its three occupancy integers plus an upgrade hint; a v2
+    server renders op counters with interpolated service-time
+    percentiles, barrier lifecycle + release-vs-fan-in timing, pubsub
+    depth and connection churn."""
+    lines = []
+    boot = str(stats.get("boot", "?"))
+    head = f"sync service   boot {boot[:12]}"
+    if stats.get("v"):
+        up = _num(stats.get("uptime_secs"))
+        head += f"   stats v{stats['v']}"
+        if up is not None:
+            head += f"   up {up:.0f}s"
+    lines.append(head)
+    lines.append(
+        f"occupancy      conns {_fmt_count(stats.get('conns'))}   "
+        f"waiters {_fmt_count(stats.get('waiters'))}   "
+        f"subs {_fmt_count(stats.get('subs'))}"
+    )
+    if not stats.get("v"):
+        lines.append(
+            "(v1 server: occupancy only — op-level metrics need a "
+            "server with the sync-stats plane)"
+        )
+        return "\n".join(lines)
+    conn = stats.get("conn") or {}
+    lines.append(
+        f"conn churn     accepts {_fmt_count(conn.get('accepts'))}   "
+        f"closes {_fmt_count(conn.get('closes'))}   "
+        f"evictions {_fmt_count(conn.get('evictions'))}   "
+        f"hwm {_fmt_count(conn.get('hwm'))}"
+    )
+    bar = stats.get("barriers") or {}
+    lines.append(
+        f"barriers       parked {_fmt_count(bar.get('parked'))}   "
+        f"released {_fmt_count(bar.get('released'))}   "
+        f"timed-out {_fmt_count(bar.get('timed_out'))}   "
+        f"canceled {_fmt_count(bar.get('canceled'))}"
+    )
+    ps = stats.get("pubsub") or {}
+    lines.append(
+        f"pubsub         topics {_fmt_count(ps.get('topics'))}   "
+        f"entries {_fmt_count(ps.get('entries'))}   "
+        f"published {_fmt_count(ps.get('published'))}   "
+        f"depth-hwm {_fmt_count(ps.get('depth_hwm'))}   "
+        f"subs-hwm {_fmt_count(ps.get('subs_hwm'))}"
+    )
+    dd = stats.get("dedup") or {}
+    lines.append(
+        f"dedup hits     signal {_fmt_count(dd.get('signal_hits'))}   "
+        f"publish {_fmt_count(dd.get('publish_hits'))}"
+    )
+    ops = stats.get("ops") or {}
+    op_time = stats.get("op_time_us") or {}
+    active = [(op, n) for op, n in ops.items() if _num(n)]
+    if active:
+        from ..sync.stats import hist_quantile_us
+
+        lines.append("")
+        lines.append(
+            f"{'op':<16}{'count':>10}{'p50':>10}{'p95':>10}"
+            f"{'p99':>10}{'max':>10}"
+        )
+        for op, n in sorted(active, key=lambda kv: -int(_num(kv[1]) or 0)):
+            rec = op_time.get(op) or {}
+            bins = rec.get("bins") or []
+            if bins and sum(bins):
+                # clamp to the observed max: log2-bin interpolation can
+                # overshoot the slowest real sample inside the top bin
+                cap = _num(rec.get("max_us")) or float("inf")
+                p50, p95, p99 = (
+                    _fmt_us(min(cap, hist_quantile_us(bins, q)))
+                    for q in (0.50, 0.95, 0.99)
+                )
+                mx = _fmt_us(rec.get("max_us"))
+            else:
+                p50 = p95 = p99 = mx = "-"
+            lines.append(
+                f"{op:<16}{_fmt_count(n):>10}{p50:>10}{p95:>10}"
+                f"{p99:>10}{mx:>10}"
+            )
+    by_target = ((bar.get("episodes") or {}).get("by_target")) or {}
+    if by_target:
+        lines.append("")
+        lines.append("barrier release vs fan-in width (armed → release):")
+        # bucket keys are strings in decoded JSON; a foreign
+        # non-numeric key sorts last, never raises
+        for bucket in sorted(
+            by_target,
+            key=lambda b: (
+                int(b) if str(b).lstrip("-").isdigit() else float("inf")
+            ),
+        ):
+            rec = by_target[bucket] or {}
+            count = _num(rec.get("count")) or 0
+            mean = (
+                (_num(rec.get("total_ms")) or 0.0) / count if count else 0.0
+            )
+            lines.append(
+                f"  target ≤{bucket:<8} episodes {int(count):<7} "
+                f"mean {mean:.2f}ms   max "
+                f"{_fmt(rec.get('max_ms'), '{:.2f}')}ms"
+            )
+    return "\n".join(lines)
 
 
 def _fmt_bytes(v) -> str:

@@ -1022,26 +1022,35 @@ SIM_WORKER_ARGV = ["sim-worker", "--coordinator", "10.0.0.1:4000", "--num-proces
                    "--connect-attempts", "5", "--connect-timeout", "7.5"]
 
 
+# the reference's sync-service and sync-stats flags, every one away from
+# its default
+SYNC_ARGV = {
+    "sync-service": ["sync-service", "--host", "0.0.0.0", "--port", "9042",
+                     "--backend", "python", "--idle-timeout", "5",
+                     "--evict-grace", "0.5", "--shards", "2",
+                     "--metrics-port", "0", "--stats-interval", "0"],
+    "sync-stats": ["sync-stats", "127.0.0.1:9042", "--json", "--timeout", "2",
+                   "--watch", "0.5", "--watch-count", "3"],
+}
+
+
 @pytest.mark.parametrize("verb", ["sim-worker", "sync-service", "sync-stats"])
 def test_unported_verb_is_refused_by_the_parser(verb, tmp_path, capsys):
-    """``sync-service`` and ``sync-stats`` are refused by argparse (item
-    17); ``sim-worker``, refused until the cohort was ported, parses the
-    reference's flags into the reference's values, plus ``--device`` (the
-    card by default)."""
-    if verb == "sim-worker":
-        from testground_tpu.cli.main import build_parser as jparser
-        from testground_tpu_torch.cli.main import build_parser as pparser
+    """The verbs argparse refused until they were ported parse the
+    reference's flags into the reference's values: ``sim-worker`` (the
+    cohort), plus ``--device`` (the card by default), and ``sync-service``
+    and ``sync-stats`` (the sync service, item 17)."""
+    from testground_tpu.cli.main import build_parser as jparser
+    from testground_tpu_torch.cli.main import build_parser as pparser
 
-        ref, port = (vars(p().parse_args(SIM_WORKER_ARGV)) for p in (jparser, pparser))
+    argv = SIM_WORKER_ARGV if verb == "sim-worker" else SYNC_ARGV[verb]
+    ref, port = (vars(p().parse_args(argv)) for p in (jparser, pparser))
+    if verb == "sim-worker":
         assert port.pop("device") is None
-        assert {k: v for k, v in port.items() if k != "func"} == {
-            k: v for k, v in ref.items() if k != "func"}
-        assert port["func"].__name__ == ref["func"].__name__ == "sim_worker_cmd"
-        return
-    with pytest.raises(SystemExit) as e:
-        pmain([verb, "x"])
-    assert e.value.code == 2
-    assert f"invalid choice: '{verb}'" in capsys.readouterr().err
+    assert {k: v for k, v in port.items() if k != "func"} == {
+        k: v for k, v in ref.items() if k != "func"}
+    assert port["func"].__name__ == ref["func"].__name__ == (
+        verb.replace("-", "_") + "_cmd")
 
 
 # the observability verbs on two runs of one composition in each package's

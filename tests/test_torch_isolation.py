@@ -73,7 +73,11 @@ def test_the_scan_sees_the_whole_port():
                              "builders/sim_plan", "sim/runner", "engine/supervisor",
                              "logging_", "metrics/influx",
                              "metrics/viewer", "cli/main", "cli/__main__",
-                             "cli/commands", "sync/errors", "sync/__init__")),
+                             "cli/commands", "sync/errors", "sync/__init__",
+                             # the sync service
+                             "sync/addr", "sync/inmem", "sync/stats",
+                             "sync/server", "sync/client", "sync/boot",
+                             "native/__init__", "native/syncsvc")),
                  *(f"testground_tpu_torch/plans/{p}/sim.py"
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos"))):
