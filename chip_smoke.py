@@ -2935,10 +2935,10 @@ def phase_admit(card) -> dict:
         kernels = {}
         for perf_on in (True, False):
             def job(label):
-                # two chunks of 125 ticks: the counts a tick do not need more
+                # two chunks of 64 ticks: the counts a tick do not need more
                 return exec_job(f"{label}-{int(perf_on)}", root, "network",
-                                "pingpong-sustained", 100_000, SUSTAINED, chunk=125,
-                                max_ticks=250, telemetry=True, perf=perf_on)
+                                "pingpong-sustained", 100_000, SUSTAINED, chunk=64,
+                                max_ticks=128, telemetry=True, perf=perf_on)
 
             (out, _, _), n_ops = dispatched_ops(lambda: run_exec(job("ops")))
             count(read_launches(), f"ops perf={perf_on}")
@@ -4953,7 +4953,8 @@ def _leader_line(text, prefix):
 
 def _cohort_trace(run_dir, ticks) -> dict:
     """Kernels, device ms and each collective's host ms a tick off the
-    leader's ``profile_chunks`` Chrome trace (``<run>/profiles``)."""
+    leader's ``profile_chunks`` Chrome trace (``<run>/profiles``), and the
+    transport kernels' device ms a launch."""
     paths = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(run_dir, "profiles"))
              for f in fs if f.endswith(".json")]
     check(bool(paths), f"cohort: no profiler trace under {run_dir}")
@@ -4966,11 +4967,12 @@ def _cohort_trace(run_dir, ticks) -> dict:
         if e.get("cat") in ("cpu_op", "user_annotation") and any(
                 c in name.lower() for c in COHORT_COLLECTIVES):
             coll[name] = coll.get(name, 0.0) + float(e.get("dur", 0.0)) / 1e3
-    kernels = {}
+    kernels, kernel_ms = {}, {}
     for e in dev:
         if e.get("cat") == "kernel":
             k = str(e.get("name", "")).split("(")[0][:40]
             kernels[k] = kernels.get(k, 0) + 1
+            kernel_ms[k] = kernel_ms.get(k, 0.0) + float(e.get("dur", 0.0)) / 1e3
     return {
         "profiled_ticks": ticks,
         "kernels_per_tick": len(dev) / ticks,
@@ -4978,6 +4980,8 @@ def _cohort_trace(run_dir, ticks) -> dict:
         "collective_ms_per_tick": {k: v / ticks for k, v in coll.items()},
         "transport_kernels_per_tick": {k: v / ticks for k, v in kernels.items()
                                        if k.startswith(TRANSPORT_KERNELS)},
+        "transport_device_ms_per_launch": {k: kernel_ms[k] / v for k, v in kernels.items()
+                                           if k.startswith(TRANSPORT_KERNELS)},
     }
 
 
@@ -4993,14 +4997,20 @@ def phase_cohort(card) -> dict:
     Then the same composition without a coordinator on the card (it runs
     after the death), and its carry through ``SimProgram.run``: outcome,
     per-group outcomes, journal metrics and flow totals equal to the
-    cohort's, and the carry digest (every replicated leaf: every instance's
-    status, finish tick and state) equal to the leader's and the
-    follower's. Reports wall ms/tick of both, bytes a tick the collectives
-    move, join and first-chunk seconds of each process, the backend."""
+    cohort's, and its carry digest equal to the leader's and the
+    follower's digest of the whole carry gathered from both ranks. Between
+    them, the placed carry (``testground_tpu_torch/cohort_ab.py``: two
+    rank processes of a library cohort, the program alone here) at 100k
+    and 1M, 64 ticks: each rank's peak device bytes and carry bytes
+    against the program alone (a rank must hold under 3/4 of them; the
+    footprint, the reference's global bytes, equal), its collectives'
+    bytes and host ms a tick. Reports wall ms/tick of both, join and
+    first-chunk seconds of each process, the backend."""
     import socket
     import tempfile
     import threading
 
+    from testground_tpu_torch import cohort_ab
     from testground_tpu_torch.rpc import OutputWriter, discard_writer
     from testground_tpu_torch.sim.cohort import CohortBrokenError, shutdown_leader_child
     from testground_tpu_torch.sim.engine import carry_digest
@@ -5073,11 +5083,13 @@ def phase_cohort(card) -> dict:
         f_line = follower.at("run cohort carry digest")[1]
         f_launches = json.loads(f_line.split("launches ")[1].split(", first chunk")[0])
         check(f_digest == digest, f"cohort: follower digest {f_digest} != leader {digest}")
-        # one sharded K1 and one sharded K2 a tick on each rank, no unmeshed
-        # launch: the pops count the ticks that ran
+        # one sharded K2 a tick on each rank and one sharded K1 a tick that
+        # brings the rank messages of its own lanes, no unmeshed launch:
+        # the pops count the ticks that ran
         real = lead_launches["pop_bucket_sharded"]
         for who, got in (("leader", lead_launches), ("follower", f_launches)):
-            check(got == lead_launches and got["commit_calendar_sharded"] == real > 0
+            check(got["pop_bucket_sharded"] == real > 0
+                  and 0 < got["commit_calendar_sharded"] <= real
                   and got["commit_calendar"] == got["pop_bucket"] == 0,
                   f"cohort: {who} launches {got}")
         spans = _spans(os.path.join(root, "network", "cohort"))
@@ -5108,13 +5120,26 @@ def phase_cohort(card) -> dict:
         check(follower.at("sim-worker: shutdown") is not None, "cohort: no shutdown")
         launches = {"commit_calendar_sharded": lead_launches["commit_calendar_sharded"],
                     "pop_bucket_sharded": lead_launches["pop_bucket_sharded"]}
-        # the collectives' bytes a tick: the mask's all_reduce and the pop
-        # rows' all_gather, what one rank sends
-        m2 = 2 * n  # sustained: OUT_MSGS = 2 a lane, no duplicate
-        planes = 2  # the src (occupancy) row and one payload row
-        row["collective_bytes_per_tick"] = {"all_reduce_mask": m2 * 4,
-                                            "all_gather_rows": planes * 4 * (n // 2) * 4}
         step("profiled")
+
+        # (a') the placed carry: each rank's peak device bytes, its carry's
+        # bytes against the program alone, its collectives' bytes and host
+        # ms a tick, at 100k and at 1M (a library cohort of 64 ticks)
+        row["placed"] = {}
+        here = os.path.dirname(os.path.abspath(__file__))
+        for size, ranks in cohort_ab.ranks(here, [n, 1_000_000], 64).items():
+            one = cohort_ab.alone(size, 64)
+            for r in ranks:
+                check(r["footprint"] == one["footprint"],
+                      f"cohort: rank {r['rank']} footprint {r['footprint']} at {size}")
+                check(r["carry_bytes"] < 0.75 * one["carry_bytes"],
+                      f"cohort: rank {r['rank']} holds {r['carry_bytes']} of "
+                      f"{one['carry_bytes']} bytes at {size}")
+            row["placed"][str(size)] = {"ranks": ranks, "alone": one}
+        row["collective_bytes_per_tick"] = {
+            op: v["bytes"] for op, v in
+            row["placed"][str(n)]["ranks"][0]["collectives_per_tick"].items()}
+        step("placed")
 
         # (b) a member's death after the first chunk of a 10,000-tick run
         coord = free_coord()

@@ -2338,16 +2338,16 @@ def register_sim_worker(sub) -> None:
 def sim_worker_cmd(args) -> int:
     import json
 
-    from ..sim.engine import carry_digest
     from ..sim.executor import _launch_counts, run_sim_worker
 
     plans_dir = args.plans or EnvConfig.load().dirs.plans()
 
     def on_result(spec, res, carry):
-        # the replicated leaves' digest, for a harness to hold against the
-        # leader's ("multi-host: carry digest" in its log), this process's
-        # kernel launches and its first chunk's seconds
-        print(f"sim-worker: run {spec['run_id']} carry digest {carry_digest(carry)}, "
+        # the digest of the whole carry gathered from every process, for a
+        # harness to hold against the leader's ("multi-host: carry digest"
+        # in its log), this process's kernel launches and its first
+        # chunk's seconds
+        print(f"sim-worker: run {spec['run_id']} carry digest {res['carry_digest']}, "
               f"launches {json.dumps(_launch_counts())}, "
               f"first chunk {res['compile_secs']:.3f} s", flush=True)
 

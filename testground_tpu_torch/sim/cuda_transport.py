@@ -14,10 +14,10 @@ return contracts:
   holds, on the calendar of ``net.Calendar`` with a mesh. The sharded
   pop's segment geometry (:func:`pop_segments`) is computed here and
   handed to the kernel, so the CPU tests reach it. On a cohort mesh
-  (``sim/distributed.py``) each process launches over its own parts, and
-  the combine crosses processes: the survival masks are summed by one
-  ``all_reduce`` and the popped rows gathered by one ``all_gather``
-  (:func:`cohort_rows`).
+  (``sim/distributed.py``) each process launches over its own parts
+  only: its commit takes the stream of its own destinations (gathered
+  from the senders' ranks by ``net.enqueue``) and its pop returns its own
+  lanes' rows; nothing of either crosses processes.
 
 The kernels live in ``csrc/transport.cu`` (design and bound notes there).
 They are compiled by ``nvcc`` for ``sm_90a`` into ``_build/`` at first use
@@ -69,7 +69,6 @@ __all__ = [
     "commit_calendar_plain",
     "commit_calendar_sharded",
     "commit_calendar_sharded_plain",
-    "cohort_rows",
     "observe_launches",
     "pop_bucket",
     "pop_bucket_plain",
@@ -497,30 +496,7 @@ def commit_calendar_sharded_plain(cal, sk, occ_vals, pay_sorted, t, *, stacking=
             t.to(dev), stacking, key_lo=s0 * seg,
         ).to(dev0)
         survived = surv if survived is None else survived + surv
-    return cal, _cohort_sum(cal, survived)
-
-
-def _cohort_sum(cal, survived):
-    """A cohort's survival mask: every process's parts summed."""
-    if not cal.mesh.cohort:
-        return survived
-    from .distributed import all_reduce_sum
-
-    return all_reduce_sum(survived)
-
-
-def cohort_rows(rows: list) -> list:
-    """A cohort's global slot-major rows from this process's: ``rows`` is
-    one ``[SLOTS, S_p·n_loc]`` tensor per plane (the lanes of this
-    process's cells), all gathered in ONE collective into ``[SLOTS·N]``
-    rows, the ranks' lanes in rank order."""
-    from .distributed import all_gather
-
-    block = torch.stack([r.to(torch.int32) for r in rows])
-    every = all_gather(block)  # [P, planes, SLOTS, S_p·n_loc]
-    glob = every.permute(1, 2, 0, 3).reshape(len(rows), -1)
-    return [g if r.dtype == torch.int32 else g.to(r.dtype)
-            for g, r in zip(glob.unbind(0), rows)]
+    return cal, survived
 
 
 def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
@@ -585,7 +561,6 @@ def commit_calendar_sharded(cal, sk, occ_vals, pay_sorted, t, *, stacking=True):
         commit_calendar_sharded.launches += 1
         surv = surv.to(sk.device)
         survived = surv if survived is None else survived + surv
-    survived = _cohort_sum(cal, survived)
     _report_commit("commit_calendar_sharded", cal, sk, survived,
                    cal.mesh.size * seg, stacking)
     return cal, survived
@@ -597,22 +572,22 @@ commit_calendar_sharded.launches = 0
 def pop_bucket_sharded_plain(cal, t):
     """Plain PyTorch sharded K2: row ``t mod L`` of every shard's planes,
     laid along the lane axis into the global slot-major ``[SLOTS·N]`` rows
-    on the primary device; every shard's occupancy row cleared."""
+    on the primary device (a cohort process: its own lanes' ``[SLOTS·
+    S_p·n_loc]`` rows); every shard's occupancy row cleared."""
     slots, n_loc, n = cal.slots, cal.n_loc, cal.lanes
     dev0 = cal.mesh.primary
     b = int(torch.remainder(t.reshape(()), cal.horizon))
     occ_parts = cal.occupancy_plane
     if cal.mesh.cohort:
-        local = [
+        rows = [
             torch.cat([p[:, b].reshape(s1 - s0, slots, n_loc).permute(1, 0, 2)
                        .reshape(slots, -1) for p, (_, s0, s1) in zip(plane, cal.mesh.parts)],
-                      dim=1)
+                      dim=1).reshape(-1)
             for plane in (occ_parts, *cal.payload)
         ]
         for p in occ_parts:
             p[:, b].zero_()
-        occ_row, *pay_rows = cohort_rows(local)
-        return cal, occ_row, pay_rows
+        return cal, rows[0], rows[1:]
     occ_row = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
     pay_rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
                 for _ in range(cal.width)]
@@ -666,7 +641,8 @@ def pop_bucket_sharded(cal, t):
     """Pop the bucket arriving at tick ``t`` from a meshed calendar: one
     launch per mesh part. Returns ``(cal, occ_row, pay_rows)`` as
     :func:`pop_bucket`, the rows global and slot-major on the primary
-    device; each shard's occupancy row is cleared in place."""
+    device (a cohort process: its own lanes' rows); each shard's occupancy
+    row is cleared in place."""
     occ_parts = cal.occupancy_plane
     if occ_parts[0].device.type == "cpu":
         return pop_bucket_sharded_plain(cal, t)
@@ -679,7 +655,7 @@ def pop_bucket_sharded(cal, t):
     several = len(parts) > 1
     cohort = cal.mesh.cohort
     lib = _lib()
-    local = []  # a cohort's part-local rows, gathered below
+    local = []  # a cohort's part-local rows, its own lanes
     if not cohort:
         row_occ = torch.empty(slots * n, dtype=occ_parts[0].dtype, device=dev0)
         rows = [torch.empty(slots * n, dtype=torch.int32, device=dev0)
@@ -733,8 +709,9 @@ def pop_bucket_sharded(cal, t):
                     loc.view(slots, (s1 - s0) * n_loc)
                 )
     if cohort:
-        row_occ, *rows = cohort_rows([torch.cat(x, dim=1) for x in zip(*local)])
-    _report_pop("pop_bucket_sharded", cal, slots * n)
+        row_occ, *rows = [torch.cat(x, dim=1).reshape(-1) for x in zip(*local)]
+    held = sum(s1 - s0 for _, s0, s1 in parts) if cohort else cal.mesh.size
+    _report_pop("pop_bucket_sharded", cal, slots * n_loc * held)
     return cal, row_occ, rows
 
 

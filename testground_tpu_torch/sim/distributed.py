@@ -16,13 +16,26 @@ Topology of a run, as in the reference:
   spec, run the SAME program over the same global mesh, and loop for the
   next job.
 
-What the port keeps on each process: the whole instance state, replicated
-and stepped identically, on the process's own device, and the calendar
-shards of its own mesh cells (``meshplan.TorchMesh.ranks``). What crosses
-processes each tick is the calendar's: the sorted commit's survival mask
-(:func:`all_reduce_sum`) and the popped rows (:func:`all_gather`); see
-``sim/cuda_transport.py`` and ``sim/net.py``. Sums of int32 are exact, so
-the replicated state cannot drift.
+What the port keeps on each process: its own lanes. Every process takes
+exactly one cell of the mesh (``meshplan.TorchMesh.ranks``), so rank r
+holds lanes ``[r·n_loc, (r+1)·n_loc)`` of every lane-placed leaf of the
+carry (``meshplan.MeshPlan.lane_axis``: the instance rows, the link
+planes, the plan states, the keys, the sync service's per-instance
+planes and its calendar shard) and steps only those; the scalars, the
+flow counters, the sync service's shared leaves and the planes'
+accumulators are replicated and equal on every rank. What crosses
+processes each tick (``sim/engine.py``, ``sim/net.py``,
+``sim/sync_kernel.py``): the live counts and the transport's counts
+(:func:`all_reduce_sum`), the senders' compacted message stream, grouped
+by destination rank (:func:`gather_blocks`), every rank's sync totals and
+partial counts in one :func:`all_gather` (each rank adds the lower ranks'
+for its exclusive sums, every rank all of them), and the sync service's
+publishes (:func:`gather_blocks`). Integer sums are
+exact and every rank folds the same gathered values in the same order,
+so the replicated leaves cannot drift. :func:`to_host` gathers a placed
+leaf over the ranks in rank order, as the reference's
+``process_allgather(tiled=True)`` does: it is collective, so every rank
+calls it in lockstep.
 
 Process groups. The job spec, the readiness vote, the cancel vote and the
 shutdown sentinel are host-side and go over gloo: the spec over a *lobby*
@@ -46,6 +59,7 @@ from __future__ import annotations
 import datetime
 import json
 import socket
+import time
 
 import numpy as np
 import torch
@@ -55,17 +69,22 @@ __all__ = [
     "SPEC_BYTES",
     "CohortCancel",
     "all_gather",
+    "all_reduce_max",
+    "all_reduce_min",
     "all_reduce_sum",
     "backend",
     "broadcast_json",
     "broadcast_shutdown_if_leader",
     "cohort_agree",
+    "collective_stats",
+    "gather_blocks",
     "global_mesh",
     "init_distributed",
     "is_leader",
     "is_multiprocess",
     "shutdown",
     "to_host",
+    "vote_all",
 ]
 
 # Fixed wire size for the job-spec broadcast, the reference's bound. Public
@@ -78,6 +97,10 @@ _SPEC_BYTES = SPEC_BYTES
 _LOBBY_TIMEOUT = datetime.timedelta(days=365)
 
 _joined: dict = {}  # key, lobby group, and the tensor group per mesh
+
+# the tick's collectives of this process: calls, bytes it sent and host
+# seconds in each, per op (collective_stats)
+_STATS: dict = {}
 
 
 # error-text markers of a coordinator that is not (yet) reachable — the
@@ -125,8 +148,6 @@ def init_distributed(
     per-attempt ``connect_timeout_seconds`` budget, then fails with an
     error that names the coordinator address. A process that already
     joined another group refuses to join."""
-    import time
-
     key = (str(coordinator_address), int(num_processes), int(process_id))
     if _joined.get("key") == key:
         return
@@ -234,11 +255,45 @@ def _tensor_group():
     return _joined["tensor"].get(backend())
 
 
+def _counted(op: str, x: torch.Tensor, call) -> None:
+    t0 = time.perf_counter()
+    call()
+    st = _STATS.setdefault(op, [0, 0, 0.0])
+    st[0] += 1
+    st[1] += x.numel() * x.element_size()
+    st[2] += time.perf_counter() - t0
+
+
+def collective_stats(reset: bool = False) -> dict:
+    """This process's tick collectives since the last reset, per op:
+    ``{op: {"calls", "bytes", "secs"}}`` — the bytes it sent, the host
+    seconds the calls took (a call on gloo returns when its data is in)."""
+    out = {op: {"calls": c, "bytes": b, "secs": t} for op, (c, b, t) in _STATS.items()}
+    if reset:
+        _STATS.clear()
+    return out
+
+
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum ``x`` over the cohort, in place; returns ``x``. On the card the
     collective runs behind the work already queued on the current stream
     (NCCL and gloo both wait on it), so it reads what the kernels wrote."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=_tensor_group())
+    _counted("all_reduce", x, lambda: dist.all_reduce(
+        x, op=dist.ReduceOp.SUM, group=_tensor_group()))
+    return x
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the cohort, in place."""
+    _counted("all_reduce", x, lambda: dist.all_reduce(
+        x, op=dist.ReduceOp.MAX, group=_tensor_group()))
+    return x
+
+
+def all_reduce_min(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise min of ``x`` over the cohort, in place."""
+    _counted("all_reduce", x, lambda: dist.all_reduce(
+        x, op=dist.ReduceOp.MIN, group=_tensor_group()))
     return x
 
 
@@ -246,8 +301,35 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: ``[P, *x.shape]``."""
     out = torch.empty((dist.get_world_size(), *x.shape), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=_tensor_group())
+    x = x.contiguous()
+    _counted("all_gather", x, lambda: dist.all_gather(
+        list(out.unbind(0)), x, group=_tensor_group()))
     return out
+
+
+def gather_blocks(x: torch.Tensor, counts: list[int] | None = None) -> tuple:
+    """Every rank's ``x`` (``[k_r, ...]``, ``k_r`` free per rank), stacked
+    in one padded ``all_gather``: returns ``(every [P, max k, ...],
+    counts)``, rank r's block being ``every[r, :counts[r]]``. ``counts``
+    (every rank's ``k``, the same list on every rank) is gathered first
+    when not given: one one-int ``all_gather`` and a host read."""
+    if x.dtype == torch.bool:  # gloo has no bool: its bytes cross
+        every, counts = gather_blocks(x.view(torch.uint8), counts)
+        return every.view(torch.bool), counts
+    if counts is None:
+        k = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+        counts = all_gather(k).view(-1).tolist()
+    kmax = max(counts)
+    if x.shape[0] < kmax:
+        x = torch.cat([x, x.new_zeros((kmax - x.shape[0], *x.shape[1:]))])
+    return all_gather(x), counts
+
+
+def vote_all(flag: torch.Tensor) -> bool:
+    """Whether every rank's ``flag`` (a one-element bool or int tensor) is
+    set: the cohort's done vote, one one-int ``all_reduce``."""
+    v = flag.reshape(1).to(torch.int32)
+    return bool(int(all_reduce_min(v)[0]) != 0)
 
 
 def broadcast_json(obj: dict | None) -> dict:
@@ -317,10 +399,17 @@ def shutdown() -> None:
     _joined.clear()
 
 
-def to_host(x) -> np.ndarray:
-    """``x`` on this process's host. A cohort's results come out of the
-    replicated state every process holds, so this is a local read on every
-    process, where the reference gathers its cross-host shards."""
-    if isinstance(x, torch.Tensor):
+def to_host(x, axis: int | None = None) -> np.ndarray:
+    """``x`` on this process's host. ``axis`` names a lane-placed leaf's
+    lane axis: on a cohort the leaf is gathered over the ranks along it,
+    each rank's block in rank order (:func:`gather_blocks`; collective, so
+    every rank calls it in lockstep). A replicated leaf (``axis`` None)
+    and any leaf outside a cohort is a local read."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    if axis is None or not is_multiprocess():
         return x.detach().cpu().numpy()
-    return np.asarray(x)
+    lead = x.detach().movedim(axis, 0).contiguous()
+    every, counts = gather_blocks(lead)
+    glob = torch.cat([every[r, :k] for r, k in enumerate(counts)])
+    return glob.movedim(0, axis).cpu().numpy()

@@ -81,13 +81,28 @@ the program sees: results, snapshots (:class:`LaneExport`) and the
 footprint keep the caller's layout. Every result is the unmeshed run's,
 bit for bit.
 
-A cohort mesh (``sim/distributed.global_mesh``) spans processes: every
-process builds the same program, keeps the whole instance state on its
-own device and steps it identically, holding only its own cells'
-calendar shards. ``run`` reads the done flag off each process's own
-replica, and the caller passes a ``distributed.CohortCancel`` so the
-chunk-boundary cancel check is one vote of the cohort; ``results()`` reads
-the leader's replica through ``distributed.to_host``.
+A cohort mesh (``sim/distributed.global_mesh``) spans processes, one
+cell each, and places the carry: rank r holds lanes ``[r·n_loc,
+(r+1)·n_loc)`` (the mesh padding makes them divide; the host lanes sit
+last, on the last rank) of every leaf ``MeshPlan.lane_axis`` names — the
+status rows, the link state, the plan states, the keys, the sync
+service's per-instance planes and its calendar shard — and steps only
+those: its plan steps take its own lanes of each group (a group may
+straddle ranks; ``global_seq``/``group_seq`` are the global values'
+slices, ``group_lanes`` the count it holds), its enqueue sends its own
+senders' messages to their destinations' ranks (``net.enqueue``), its
+sync fold numbers and appends after the lower ranks'
+(``sync_kernel.update_sync``). The scalars, the flow counters, the sync
+service's shared leaves and the planes' accumulators are replicated and
+equal on every rank: each tick sums the ranks' partial counts in one
+gather (with the sync fold's per-rank totals), and the live counts the
+plans see in one reduction. The done flag is the cohort's vote; the
+caller passes a ``distributed.CohortCancel`` so the chunk-boundary
+cancel check is one vote of the cohort; ``results()`` gathers the placed
+rows through ``distributed.to_host`` (collective: every rank calls it in
+lockstep), and :meth:`SimProgram.carry_digest` digests the carry
+gathered from every rank. Every result is the single process's, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -99,7 +114,7 @@ import itertools
 import math
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -143,6 +158,7 @@ from .netmatrix import (
     NM_SENT,
 )
 from .sync_kernel import (
+    RankTotals,
     SyncState,
     live_per_group,
     make_sub_window,
@@ -323,6 +339,15 @@ def build_groups(run_groups, parameters_of=None) -> tuple[GroupSpec, ...]:
     return tuple(specs)
 
 
+class _Span(NamedTuple):
+    """A group's lanes among a process's own: where they start there, how
+    many, and the first one's index within the group."""
+
+    offset: int
+    count: int
+    start: int
+
+
 _PY_CAST = {torch.bool: bool, torch.int32: int, torch.float32: float}
 _PY_SCALARS = (bool, int, float)
 
@@ -453,6 +478,20 @@ class SimProgram:
         self.groups = groups
         self.n = sum(g.count for g in groups)
         self.n_lanes = self.n + len(self.hosts)
+        # a cohort process's own lanes (every lane outside a cohort)
+        self.placed = mesh is not None and mesh.cohort
+        if self.placed:
+            per = self.n_lanes // len(set(mesh.ranks))
+            if self.n_lanes - per >= self.n:
+                raise ValueError(
+                    f"a cohort of {len(set(mesh.ranks))} processes holds {per} "
+                    f"lane(s) on each: the {len(self.hosts)} host lane(s) must "
+                    "fit on the last process beside at least one instance "
+                    "lane — run the cohort with fewer processes"
+                )
+            self._set_own(*mesh.own_lanes(self.n_lanes))
+        else:
+            self._set_own(0, self.n_lanes)
         # the exact per-group counts where the layout is padded (None
         # otherwise), and whether plans see them as 0-d tensors: under
         # bucketing they do (the traced-count contract), under the mesh
@@ -492,7 +531,8 @@ class SimProgram:
             )
         # the schedule's masks on the device, once per program
         self._faults = (
-            DeviceFaults.lower(faults, self.device, self.n_lanes)
+            DeviceFaults.lower(faults, self.device, self.n_lanes,
+                               own=(self._lo, self._hi) if self.placed else None)
             if faults is not None
             else None
         )
@@ -527,18 +567,39 @@ class SimProgram:
         if self.telemetry or self.trace is not None:
             self._build_plane_statics(cls)
 
+    def _set_own(self, lo: int, hi: int) -> None:
+        """This process's lanes ``[lo, hi)``: ``_n_own`` of them,
+        ``_n_inst`` of the instance axis (the host lanes follow), and per
+        group its own span (``_gown[g]``: ``offset`` and ``count`` within
+        the own lanes, ``start`` within the group)."""
+        self._lo, self._hi = lo, hi
+        self._n_own = hi - lo
+        self._n_inst = max(0, min(hi, self.n) - lo)
+        spans = []
+        for g in self.groups:
+            a, b = max(g.offset, lo), min(g.offset + g.count, hi)
+            spans.append(_Span(offset=a - lo, count=max(0, b - a), start=a - g.offset))
+        self._gown = tuple(spans)
+
     def _build_layout(self, dev) -> None:
         """The static per-lane group map and per-group index planes on
-        ``dev``, built once."""
+        ``dev``, built once (a group's planes over its own lanes on a
+        cohort)."""
         groups = self.groups
         self._group_of = torch.repeat_interleave(
             torch.arange(len(groups), dtype=torch.int32, device=dev),
             torch.tensor([g.count for g in groups], device=dev),
             output_size=self.n,
         )
-        self._gseq = [
-            torch.arange(g.count, dtype=torch.int32, device=dev) for g in groups
-        ]
+        if self.placed:
+            self._gseq = [
+                torch.arange(sp.start, sp.start + sp.count, dtype=torch.int32, device=dev)
+                for sp in self._gown
+            ]
+        else:
+            self._gseq = [
+                torch.arange(g.count, dtype=torch.int32, device=dev) for g in groups
+            ]
         self._gs = [s + g.offset for s, g in zip(self._gseq, groups)]
         if self._virt is not None:
             self._virt = self._virt.built(self, dev)
@@ -556,6 +617,10 @@ class SimProgram:
             torch.full((len(self.hosts),), n_g, dtype=i64, device=dev),
         ])
         self._plane_group_of = group_of
+        # the map over this process's own lanes (a cohort's receivers and
+        # senders; the whole map stays for the senders a lane receives from)
+        own = group_of[self._lo : self._hi] if self.placed else group_of
+        self._plane_group_own = own
         self._zero = torch.zeros((), dtype=torch.int32, device=dev)
         # post-host-merge outbox rows (the outbox grows to the echo slots)
         o_rows = max(cls.OUT_MSGS, cls.IN_MSGS) if self.hosts else cls.OUT_MSGS
@@ -564,11 +629,11 @@ class SimProgram:
             # the tick's delta is counted privatised (net.spread_offsets):
             # lane j adds into copy j mod P, folded by one sum
             self._nm_copies, spread = spread_offsets(
-                group_of.shape[0], NM_CHANNELS * gh * gh, dev
+                own.shape[0], NM_CHANNELS * gh * gh, dev
             )
             # message m's sender lane is m mod n_lanes
-            self._nm_src_cell = (group_of * gh + spread).repeat(o_rows)
-            self._nm_del_cell = (NM_DELIVERED * gh * gh + group_of + spread)[None, :]
+            self._nm_src_cell = (own * gh + spread).repeat(o_rows)
+            self._nm_del_cell = (NM_DELIVERED * gh * gh + own + spread)[None, :]
             # by which flow channels are present (rejected and fault-killed
             # may be absent): the present channels' offsets
             chans = (NM_SENT, NM_ENQUEUED, NM_REJECTED, NM_FAULT)
@@ -582,7 +647,12 @@ class SimProgram:
             lanes = torch.as_tensor(self.trace.lanes, dtype=i64, device=dev)
             n_l = lanes.shape[0]
             s = len(cls.STATES)
-            self._trace_lanes = lanes
+            # a cohort process reads its own traced lanes (another's rows
+            # are masked off at the chunk's flush, where the owners' meet)
+            self._trace_lanes = (
+                (lanes - self._lo).clamp(0, max(self._n_inst - 1, 0))
+                if self.placed else lanes
+            )
             self._trace_nrows = n_l * (1 + s + o_rows + cls.IN_MSGS)
             # per row: its lane, and its event kind when the slot is hit
             counts = (1, s, o_rows, cls.IN_MSGS)
@@ -597,6 +667,9 @@ class SimProgram:
             self._trace_zeros = torch.zeros(
                 max(s, cls.IN_MSGS) * n_l, dtype=i32, device=dev
             )
+            if self.placed:
+                col = self._trace_lane_col
+                self._trace_own = ((col >= self._lo) & (col < self._hi))[:, None]
 
     # ---------------------------------------------------------------- init
 
@@ -618,7 +691,7 @@ class SimProgram:
                 group_seq=self._gseq[g.index],
                 device=self.device,
                 hosts=self.hosts,
-                group_lanes=g.count,
+                group_lanes=self._gown[g.index].count,
                 base_keys=keys,
                 tick=tick,
             )
@@ -634,17 +707,18 @@ class SimProgram:
             group_seq=self._gseq[g.index],
             device=self.device,
             hosts=self.hosts,
-            group_lanes=g.count,
+            group_lanes=self._gown[g.index].count,
             base_keys=keys,
             tick=tick,
         )
 
     def _init_states(self, keys) -> tuple:
         """``testcase.init`` of every group under the instances' root keys
-        (at tick 0, and again for a restart)."""
+        (at tick 0, and again for a restart); on a cohort over the group's
+        own lanes, none for a group another process holds whole."""
         return tuple(
-            self.tc.init(self._env_for(g, keys[g.offset : g.offset + g.count]))
-            for g in self.groups
+            self.tc.init(self._env_for(g, keys[sp.offset : sp.offset + sp.count]))
+            for g, sp in zip(self.groups, self._gown)
         )
 
     def init_carry(self, seed: int = 0, live_counts=None) -> SimCarry:
@@ -667,26 +741,30 @@ class SimProgram:
                 )
         cls = type(self.tc)
         dev = self.device
+        lo, n_i = self._lo, self._n_inst
         # the root split on the host: the link key stays there, and the
         # instance root crosses once
         net_key, inst_root = prng.split(prng.key(seed))
         inst_root = inst_root.to(dev)
-        if self._virt is None:
+        if self._virt is None and not self.placed:
             keys = prng.split(inst_root, self.n)
         else:
             # live lane v gets the exact run's key v (the port's split
             # hashes the counter pair (0, v) alone, prng.py), the dead
-            # lanes the counters from ln up
-            y1, y2 = prng.threefry2x32(inst_root[0], inst_root[1], 0, self._virt.key_ctr)
+            # lanes the counters from ln up; a cohort process derives its
+            # own lanes' keys only
+            ctr = (self._virt.key_ctr if self._virt is not None
+                   else torch.arange(self.n, dtype=torch.int64, device=dev))
+            y1, y2 = prng.threefry2x32(inst_root[0], inst_root[1], 0, ctr[lo : lo + n_i])
             keys = torch.stack([y1, y2], dim=-1)
         states = self._init_states(keys)
-        lanes = self.n_lanes
+        lanes = self._n_own
         # host lanes sit past the instance axis: region 0 (their traffic
         # bypasses filters anyway), default egress, no sync participation
-        region_of = torch.clamp(self._group_of, max=self.n_regions - 1)
-        if self.hosts:
+        region_of = torch.clamp(self._group_of[lo : lo + n_i], max=self.n_regions - 1)
+        if lanes > n_i:
             region_of = torch.cat(
-                [region_of, torch.zeros(len(self.hosts), dtype=torch.int32, device=dev)]
+                [region_of, torch.zeros(lanes - n_i, dtype=torch.int32, device=dev)]
             )
 
         def z(dtype=torch.int32):
@@ -694,14 +772,14 @@ class SimProgram:
 
         status = torch.full((lanes,), RUNNING, dtype=torch.int32, device=dev)
         if self._virt is not None:
-            status[: self.n].masked_fill_(self._virt.dead, CRASH)
+            status[:n_i].masked_fill_(self._virt.dead[lo : lo + n_i], CRASH)
         return SimCarry(
             states=states,
             status=status,
             finished_at=torch.full((lanes,), -1, dtype=torch.int32, device=dev),
             cal=Calendar.empty(
                 cls.MAX_LINK_TICKS,
-                lanes,
+                self.n_lanes,
                 cls.IN_MSGS,
                 cls.MSG_WIDTH,
                 # the matrix attributes deliveries and purges to senders,
@@ -723,7 +801,7 @@ class SimProgram:
                 device=dev,
             ),
             sync=make_sync_state(
-                self.n,
+                n_i,
                 self.n_states,
                 self.n_topics,
                 cls.TOPIC_CAP,
@@ -785,16 +863,68 @@ class SimProgram:
         """:func:`carry_footprint` of this program's ``carry`` in the
         caller's layout: a mesh padding's dead lanes are not counted (the
         reference's meshed footprint has the exact shapes)."""
+        if self.placed:
+            return self._cohort_footprint(carry)
         out = carry_footprint(carry)
         if self.mesh_pad:
             out -= LaneExport(self).dead_bytes(carry)
-        if self.mesh is not None and self.mesh.cohort:
-            # a cohort process holds its own cells' calendar shards: the
-            # footprint counts every process's, as the reference's global
-            # arrays do
-            held = sum(s1 - s0 for _, s0, s1 in self.mesh.parts)
-            out += carry_bytes(carry.cal) * (self.mesh.size - held) // held
         return out
+
+    def _lane_extent(self, path: str) -> int | None:
+        """The whole lane extent of a cohort-placed leaf (None: replicated):
+        the lane axis for the instance rows and the link state, the
+        instances for the keys and the sync planes, a group's count for
+        its states."""
+        if path.startswith("cal.") or self.meshplan.lane_axis(path) is None:
+            return None
+        if path.startswith("states."):
+            return self.groups[int(path.split(".")[1])].count
+        return self.n if path in ("keys", "sync.last_seq", "sync.cursors") else self.n_lanes
+
+    def _cohort_footprint(self, carry: SimCarry) -> int:
+        """:meth:`footprint` of a cohort process's carry: every leaf at its
+        whole shape as the reference stores it (each placed leaf's lane
+        axis at its whole extent, every process's calendar shards), the
+        mesh padding's dead lanes cut, as the single process's footprint
+        counts it."""
+        from .checkpoint import _expected, leaf_paths
+
+        export = LaneExport(self) if self.mesh_pad else None
+        held = sum(s1 - s0 for _, s0, s1 in self.mesh.parts)
+        out = 0
+        for path in leaf_paths(carry):
+            meta = _expected(carry, path, flat=False)
+            shape = list(meta["shape"])
+            if path.startswith("cal."):
+                shape[-1] = shape[-1] * self.mesh.size // held
+            elif (extent := self._lane_extent(path)) is not None:
+                shape[self.meshplan.lane_axis(path)] = extent
+            if export is not None:
+                shape = export.shape(path, shape)
+            out += math.prod(shape) * np.dtype(meta["dtype"]).itemsize
+        return out
+
+    def carry_digest(self, carry: SimCarry) -> int:
+        """:func:`carry_digest` of the whole carry: on a cohort every placed
+        leaf gathered from every process in rank order (collective: every
+        process calls it in lockstep and reads the same number), the mesh
+        padding's dead lanes cut, so it is the single process's digest."""
+        if not self.placed:
+            return carry_digest(carry)
+        from .checkpoint import _source, leaf_paths
+        from .distributed import to_host
+
+        export = LaneExport(self) if self.mesh_pad else None
+        total = 0
+        for path in leaf_paths(carry):
+            x = _source(carry, path)
+            if path.startswith("cal.") or not isinstance(x, torch.Tensor):
+                continue
+            data = to_host(x, self.meshplan.lane_axis(path))
+            if export is not None:
+                data = export.take(path, data)
+            total += int(np.ascontiguousarray(data).view(np.uint8).sum(dtype=np.int64))
+        return total
 
     def lane_export(self) -> "LaneExport | None":
         """How a snapshot of this program cuts the mesh padding's dead
@@ -808,6 +938,9 @@ class SimProgram:
         meta = copy.copy(self)
         meta.device = torch.device("meta")
         meta.mesh = None if self.mesh is None else self.mesh.on(meta.device)
+        # a cohort's carry at its whole shapes, as the reference's
+        meta.placed = False
+        meta._set_own(0, self.n_lanes)
         meta._consts = {}
         meta._build_layout(meta.device)
         return meta.init_carry(0)
@@ -858,11 +991,15 @@ class SimProgram:
         terminal-instance freezing, and the per-group output planes
         concatenated along the instance axis."""
         cls = type(self.tc)
-        live_g = live_per_group(carry.status, self.groups)
+        live_g = (live_per_group(carry.status, self._gown, cohort=True) if self.placed
+                  else live_per_group(carry.status, self.groups))
         sub_payload, sub_valid = make_sub_window(carry.sync, cls.SUB_K)
         outs = []
-        for g in self.groups:
-            lo, hi = g.offset, g.offset + g.count
+        for g, sp in zip(self.groups, self._gown):
+            if sp.count == 0:  # a group another process holds whole
+                outs.append(None)
+                continue
+            lo, hi = sp.offset, sp.offset + sp.count
             inbox_g = Inbox(
                 payload=inbox_all.payload[:, :, lo:hi],
                 src=inbox_all.src[:, lo:hi],
@@ -883,10 +1020,10 @@ class SimProgram:
                     out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
             else:
                 out = self.tc.step(env, carry.states[g.index], inbox_g, sync_g, t)
-            outs.append(self._normalize(out, g.count))
+            outs.append(self._normalize(out, sp.count))
         self._watch_host_reads = False
 
-        n = self.n
+        n = self._n_inst
         active = carry.status[:n] == RUNNING  # [N]; host lanes echo below
 
         def freeze(old, new, a):
@@ -894,21 +1031,22 @@ class SimProgram:
             return torch.where(a, new, old)
 
         new_states = tuple(
-            {
+            carry.states[gi] if outs[gi] is None else {
                 k: freeze(
                     carry.states[gi][k],
                     outs[gi]["state"][k],
-                    active[g.offset : g.offset + g.count],
+                    active[sp.offset : sp.offset + sp.count],
                 )
                 for k in carry.states[gi]
             }
-            for gi, g in enumerate(self.groups)
+            for gi, sp in enumerate(self._gown)
         )
+        stepped = [o for o in outs if o is not None]
 
         def cat(name, dim=-1):
-            if len(outs) == 1:
-                return outs[0][name]
-            return torch.cat([o[name] for o in outs], dim=dim)
+            if len(stepped) == 1:
+                return stepped[0][name]
+            return torch.cat([o[name] for o in stepped], dim=dim)
 
         status_new = cat("status")
         status = torch.where(active, status_new, carry.status[:n])
@@ -921,7 +1059,7 @@ class SimProgram:
         )
         n_rules = cls.FILTER_RULES if "filter_rules" in cls.SHAPING else 0
         net_rules, net_rules_valid = (None, None)
-        if n_rules > 0 and any(_emits(o, "net_rules", (n_rules, 3)) for o in outs):
+        if n_rules > 0 and any(_emits(o, "net_rules", (n_rules, 3)) for o in stepped):
             net_rules, net_rules_valid = self._merge_reconfig(
                 outs, "net_rules", (n_rules, 3), active
             )
@@ -956,13 +1094,15 @@ class SimProgram:
         to its sender, payload verbatim (the outbox grows to max(OUT_MSGS,
         IN_MSGS) rows); and the reconfiguration planes get valid=False
         columns, since hosts never reconfigure."""
-        n, h = self.n, len(self.hosts)
+        n, h = self._n_inst, self._n_own - self._n_inst
+        # every process's outbox grows to the echo rows (a message's index
+        # o·N + src is the single run's); the echo lanes are the last's
+        rows = max(step["dst"].shape[0], type(self.tc).IN_MSGS)
         step["status"] = torch.cat([step["status"], carry.status[n:]])
         step["finished_at"] = torch.cat([step["finished_at"], carry.finished_at[n:]])
         h_dst = inbox_all.src[:, n:]  # [SLOTS, H]
         h_val = inbox_all.valid[:, n:]
         h_pay = inbox_all.payload[:, :, n:].transpose(0, 1)  # [SLOTS, W, H]
-        rows = max(step["dst"].shape[0], h_dst.shape[0])
 
         def pad_rows(x):
             if x.shape[0] >= rows:
@@ -988,16 +1128,17 @@ class SimProgram:
         along the instance axis: a group that emits none contributes zero
         columns that are never applied (valid = False)."""
         dev = self.device
-        emits = [_emits(o, name, lead) for o in outs]
+        held = [(o, sp) for o, sp in zip(outs, self._gown) if o is not None]
+        emits = [_emits(o, name, lead) for o, _ in held]
         plane = torch.cat([
             o[name] if e
-            else torch.zeros(lead + (g.count,), dtype=torch.int32, device=dev)
-            for o, g, e in zip(outs, self.groups, emits)
+            else torch.zeros(lead + (sp.count,), dtype=torch.int32, device=dev)
+            for (o, sp), e in zip(held, emits)
         ], dim=-1)
         valid = torch.cat([
             o[name + "_valid"] if e
-            else torch.zeros(g.count, dtype=torch.bool, device=dev)
-            for o, g, e in zip(outs, self.groups, emits)
+            else torch.zeros(sp.count, dtype=torch.bool, device=dev)
+            for (o, sp), e in zip(held, emits)
         ]) & active
         return plane, valid
 
@@ -1027,10 +1168,10 @@ class SimProgram:
 
             states = tuple(
                 {
-                    k: sel(fresh[g.index][k], v, revive[g.offset : g.offset + g.count])
+                    k: sel(fresh[g.index][k], v, revive[sp.offset : sp.offset + sp.count])
                     for k, v in states[g.index].items()
                 }
-                for g in self.groups
+                for g, sp in zip(self.groups, self._gown)
             )
             status = torch.where(revive, RUNNING, status)
             finished_at = torch.where(revive, -1, finished_at)
@@ -1051,6 +1192,16 @@ class SimProgram:
                 cal, purged_t = purge_dst(cal, kill)
             status = torch.where(kill, CRASH, status)
             finished_at = torch.where(kill, t, finished_at)
+        if self.placed and (crashed_t is not None or restarted_t is not None):
+            # the ranks' own lanes' counts (the schedule's ticks are every
+            # rank's, so each takes this reduction on the same ticks)
+            from .distributed import all_reduce_sum
+
+            both = all_reduce_sum(torch.stack([
+                torch.zeros((), dtype=torch.int32, device=self.device) if x is None else x
+                for x in (crashed_t, restarted_t)]))
+            crashed_t = None if crashed_t is None else both[0]
+            restarted_t = None if restarted_t is None else both[1]
         carry = dataclasses.replace(
             carry, states=states, status=status, finished_at=finished_at, cal=cal,
             net_mat=net_mat,
@@ -1114,14 +1265,17 @@ class SimProgram:
             # inbox.src, so it must hold the exact run's values
             inbox = Inbox(payload=inbox.payload, src=virt.src(inbox.src),
                           valid=inbox.valid)
+        placed = self.placed
         if self.telemetry:
-            lat_hist = carry.lat_hist + latency_histogram(
-                cal, inbox, t, self._plane_group_of, len(self.groups), LATENCY_BINS
+            lat_d = latency_histogram(
+                cal, inbox, t, self._plane_group_own, len(self.groups), LATENCY_BINS
             )
+            # a cohort's partial histogram is summed with the tick's counts
+            lat_hist = lat_d if placed else carry.lat_hist + lat_d
             if timer is not None:
                 timer.mark("lat_hist")
         step = self._step_phase(carry, inbox, t)
-        if done_out is not None:
+        if done_out is not None and not placed:
             flag, event = done_out
             flag.copy_((step["status"][: self.n] != RUNNING).all(), non_blocking=True)
             if event is not None:
@@ -1167,7 +1321,7 @@ class SimProgram:
             step["net_rules"],
             step["net_rules_valid"],
         )
-        bw_rate_changed = carry.bw_rate_changed
+        bw_changed_t = None
         if fb.backlog is not None:
             # HTB queue depths advance each tick; a rate change under a
             # standing backlog is where the queue bound is approximate, so
@@ -1175,8 +1329,21 @@ class SimProgram:
             changed = (link.egress[BANDWIDTH] != carry.link.egress[BANDWIDTH]) & (
                 fb.backlog > 0
             )
-            bw_rate_changed = bw_rate_changed + changed.sum(dtype=torch.int32)
+            bw_changed_t = changed.sum(dtype=torch.int32)
             link = dataclasses.replace(link, backlog=fb.backlog)
+        ranks = running = None
+        if placed:
+            (ranks, running, delivered_t, rejected_t, bw_changed_t, lat_hist,
+             nm) = self._cohort_sums(carry, step, fb, delivered_t, bw_changed_t,
+                                     lat_hist, nm, dst)
+            if done_out is not None:
+                flag, event = done_out
+                flag.copy_(running.sum() == 0, non_blocking=True)
+                if event is not None:
+                    event.record()
+        bw_rate_changed = carry.bw_rate_changed
+        if bw_changed_t is not None:
+            bw_rate_changed = bw_rate_changed + bw_changed_t
         collisions, collision_where = carry.collisions, carry.collision_where
         if self.validate:  # fb.collisions is 0 without validate
             collisions = collisions + fb.collisions
@@ -1194,10 +1361,12 @@ class SimProgram:
             step["pub_payload"],
             step["pub_valid"],
             step["sub_consume"],
+            ranks=ranks,
         )
         if timer is not None:
             timer.mark("sync")
-        rejected_t = fb.rejected.sum(dtype=torch.int32)
+        if not placed:
+            rejected_t = fb.rejected.sum(dtype=torch.int32)
         dropped_t = fb.sent - fb.enqueued - rejected_t - fb.fault_dropped
         # flow accounting (engine.py:1608-1619): crash purges move already
         # enqueued messages from the in-flight depth into fault_dropped, so
@@ -1210,14 +1379,19 @@ class SimProgram:
             cal_depth = cal_depth - purged_t
         net_mat = net_bw_hiwater = None
         if self.netmatrix:
-            nm = self._netmatrix_send(nm, fb.flow, dst)
+            if not placed:  # a cohort's delta is already the summed one
+                nm = self._netmatrix_send(nm, fb.flow, dst)
             net_mat = carry.net_mat + nm.view(NM_CHANNELS, self._nm_gh, self._nm_gh)
             net_bw_hiwater = carry.net_bw_hiwater
             if net_bw_hiwater is not None:
                 # monotone max of each sender group's HTB backlog
                 net_bw_hiwater = net_bw_hiwater.scatter_reduce(
-                    0, self._plane_group_of, link.backlog, "amax"
+                    0, self._plane_group_own, link.backlog, "amax"
                 )
+                if placed:
+                    from .distributed import all_reduce_max
+
+                    net_bw_hiwater = all_reduce_max(net_bw_hiwater)
         new = SimCarry(
             states=step["states"],
             status=step["status"],
@@ -1269,11 +1443,54 @@ class SimProgram:
             self._telemetry_row(
                 blocks.tele[row], t, step["status"], sync, delivered_t, fb.sent,
                 fb.enqueued, dropped_t, rejected_t, cal_depth, crashed_t,
-                restarted_t, fault_dropped_t,
+                restarted_t, fault_dropped_t, running,
             )
             if timer is not None:
                 timer.mark("telemetry")
         return new
+
+    def _cohort_sums(self, carry, step, fb, delivered_t, bw_changed_t, lat_d, nm, dst):
+        """A cohort tick's one gather: every rank's sync totals (signals and
+        publishes, for the fold's exclusive sums) and partial counts
+        (delivered, rejected, the HTB rate changes, the RUNNING instances
+        per group after the step, the latency histogram's and the
+        matrix's deltas; the transport's feedback comes summed), every
+        rank summing the same gathered rows. Returns the fold's
+        :class:`RankTotals`, the running counts and the summed values in
+        place of the partial ones (the histogram added to the carry's)."""
+        from .distributed import all_gather
+
+        i32 = torch.int32
+        n_s, n_t, n_g = self.n_states, self.n_topics, len(self.groups)
+        running = live_per_group(step["status"], self._gown)
+        if self.netmatrix:
+            nm = self._netmatrix_send(nm, fb.flow, dst)
+        zero = torch.zeros((), dtype=i32, device=self.device)
+        counts = (delivered_t, fb.rejected.sum(dtype=i32),
+                  zero if bw_changed_t is None else bw_changed_t)
+        parts = [step["signals"].sum(dim=1, dtype=i32),
+                 step["pub_valid"].sum(dim=1, dtype=i32),
+                 torch.stack(counts).to(i32), running]
+        if self.telemetry:
+            parts.append(lat_d.reshape(-1))
+        if self.netmatrix:
+            parts.append(nm)
+        every = all_gather(torch.cat(parts))
+        ranks = RankTotals(sig=every[:, :n_s], pub=every[:, n_s : n_s + n_t],
+                           rank=self.mesh.rank)
+        tot = every[:, n_s + n_t :].sum(0, dtype=i32)
+        k = len(counts)
+        c = tot[:k]
+        running = tot[k : k + n_g]
+        k += n_g
+        lat_hist = None
+        if self.telemetry:
+            size = n_g * LATENCY_BINS
+            lat_hist = carry.lat_hist + tot[k : k + size].view(n_g, LATENCY_BINS)
+            k += size
+        return (ranks, running, c[0], c[1],
+                None if bw_changed_t is None else c[2],
+                lat_hist, tot[k:] if self.netmatrix else nm)
 
     def _netmatrix_delivered(self, inbox: Inbox) -> torch.Tensor:
         """A fresh ``[P, NM_CHANNELS·GH·GH]`` privatised matrix delta
@@ -1314,12 +1531,12 @@ class SimProgram:
 
     def _telemetry_row(self, out, t, status, sync, delivered_t, sent_t,
                        enqueued_t, dropped_t, rejected_t, cal_depth, crashed_t,
-                       restarted_t, fault_dropped_t) -> None:
+                       restarted_t, fault_dropped_t, running=None) -> None:
         """Write the tick's counter row into ``out`` ([K] int32,
         ``engine.py:1465-1514``): TELEMETRY_FIXED_COLUMNS from scalars the
         tick already holds, then the live (RUNNING) instances per group in
-        one scatter. ``bytes_enqueued`` is an int32 multiply, as in the
-        reference."""
+        one scatter (on a cohort ``running``, the cohort's counts).
+        ``bytes_enqueued`` is an int32 multiply, as in the reference."""
         zero = self._zero
         sig_occ, pub_occ = sync_occupancy(sync)
         fixed = [
@@ -1329,6 +1546,9 @@ class SimProgram:
             zero if restarted_t is None else restarted_t,
             fault_dropped_t,
         ]
+        if running is not None:
+            torch.stack(fixed + list(running.unbind(0)), out=out)
+            return
         running = status[: self.n] == RUNNING
         if len(self.groups) == 1:
             torch.stack(fixed + [running.sum(dtype=torch.int32)], out=out)
@@ -1373,8 +1593,14 @@ class SimProgram:
     def _all_done(self, carry: SimCarry) -> bool:
         """Host lanes never terminate: only plan instances gate done. With
         a fault schedule the run must also outlive its last event (an
-        all-crashed fleet with a restart to come is paused, not done)."""
-        done = bool((carry.status[: self.n] != RUNNING).all())
+        all-crashed fleet with a restart to come is paused, not done). A
+        cohort's is one vote of every process's own lanes."""
+        if self.placed:
+            from .distributed import vote_all
+
+            done = vote_all((carry.status[: self._n_inst] != RUNNING).all())
+        else:
+            done = bool((carry.status[: self.n] != RUNNING).all())
         if self._faults is not None:
             done = done and int(carry.t) > self._faults.last_event_tick
         return done
@@ -1617,13 +1843,17 @@ class SimProgram:
                 carry_bytes: int | None = None) -> dict[str, Any]:
         """The run's results from ``carry`` after ``ticks``. ``carry_bytes``
         (a run pack's member, whose carry holds only the leaves read here)
-        replaces the carry's footprint."""
+        replaces the carry's footprint. A cohort's placed rows are gathered
+        from every process (every process calls this in lockstep)."""
 
-        from .distributed import to_host as host
+        from .distributed import to_host
 
-        status = host(carry.status[: self.n])
-        finished_at = host(carry.finished_at[: self.n])
-        states = tuple({k: host(v) for k, v in s.items()} for s in carry.states)
+        def host(x, axis=None):
+            return to_host(x, axis if self.placed else None)
+
+        status = host(carry.status[: self._n_inst], 0)
+        finished_at = host(carry.finished_at[: self._n_inst], 0)
+        states = tuple({k: host(v, 0) for k, v in s.items()} for s in carry.states)
         if carry_bytes is None:
             carry_bytes = self.footprint(carry)
         if self.live_counts is not None:
@@ -1727,9 +1957,9 @@ class _Virtual:
         cls = type(prog.tc)
         rows = max(cls.OUT_MSGS, cls.IN_MSGS) if prog.hosts else cls.OUT_MSGS
         o = np.arange(rows, dtype=np.int64)[:, None]
-        out.dice_idx = torch.from_numpy(
-            (o * self.n_vlanes + self.dice_np[None, :]).reshape(-1).astype(np.int32)
-        ).to(dev)
+        # a cohort process's own senders' messages only
+        dice = (o * self.n_vlanes + self.dice_np[None, :])[:, prog._lo : prog._hi]
+        out.dice_idx = torch.from_numpy(dice.reshape(-1).astype(np.int32)).to(dev)
         groups = prog.groups
         lc = prog.live_counts
         if prog.bucketed:
@@ -1893,6 +2123,7 @@ class _Blocks:
             else None
         )
         self.cuda = cuda
+        self.own = prog._trace_own if prog.trace is not None and prog.placed else None
         self.host = {
             k: torch.empty(v, dtype=i32, pin_memory=cuda) for k, v in shapes.items()
         }
@@ -1907,7 +2138,13 @@ class _Blocks:
         """Queue the copies of the blocks and of the histogram and matrix
         deltas to the host, zero the deltas in the carry, and record
         ``event`` (a CUDA event, or None) behind the copies."""
-        src = {"tele": self.tele, "trace": self.trace, "lat_hist": carry.lat_hist,
+        trace = self.trace
+        if trace is not None and self.own is not None:
+            # a cohort: each traced lane's rows from the process holding it
+            from .distributed import all_reduce_sum
+
+            trace = all_reduce_sum(torch.where(self.own, trace, 0))
+        src = {"tele": self.tele, "trace": trace, "lat_hist": carry.lat_hist,
                "net_mat": carry.net_mat}
         for k, h in self.host.items():
             h.copy_(src[k], non_blocking=self.cuda)
@@ -2011,9 +2248,9 @@ def carry_footprint(carry: SimCarry) -> int:
 
 def carry_digest(carry: SimCarry) -> int:
     """The sum, as int64, of every byte of every leaf of ``carry`` but the
-    calendar's planes (a cohort process holds only its own shards of
-    those): every member of a cohort holds the same replica, so every
-    member reads the same digest."""
+    calendar's planes. A cohort process holds only its own lanes:
+    :meth:`SimProgram.carry_digest` digests the carry gathered from every
+    process, which equals this of the single process's carry."""
     total = 0
 
     def add(x):

@@ -742,7 +742,9 @@ def sim_worker_loop(
     leader's shutdown sentinel arrives — leaving early would desync the
     cohort (a second job spec in once mode is skipped via the readiness
     vote). ``on_result(spec, results, carry)`` sees each run's results and
-    final carry."""
+    this process's final carry; ``results['carry_digest']`` is the digest
+    of the whole carry gathered from every process
+    (``SimProgram.carry_digest``), the leader's."""
     from ..api import RunGroup
     from .distributed import (
         CohortCancel,
@@ -823,6 +825,8 @@ def sim_worker_loop(
             cancel=CohortCancel(None),
             observer=lambda ticks, carry: final.update(carry=carry),
         )
+        # the whole carry's digest, gathered in the leader's lockstep
+        res["carry_digest"] = prog.carry_digest(final["carry"])
         if on_result is not None:
             on_result(spec, res, final.get("carry"))
         log(f"sim-worker: run {spec['run_id']} done — {res['ticks']} ticks")
@@ -1529,7 +1533,8 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
     final = {}
     if multi:
         # the final carry, for the digest a harness holds each follower's
-        # against ("sim-worker: run ... carry digest")
+        # against ("sim-worker: run ... carry digest"): every process's
+        # digest is the whole carry's
         observers.append(lambda ticks, carry: final.update(carry=carry))
     # the run loop calls these only where their plane is on
     lat_cbs = [cb for cb in (
@@ -1574,10 +1579,10 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                 chunk_profiler.close()
     wall = time.monotonic() - t0
     if final:
-        from .engine import carry_digest
-
+        # the whole carry gathered from every process, in lockstep with
+        # each follower's (sim_worker_loop)
         ow.infof("multi-host: carry digest %d, launches %s",
-                 carry_digest(final.pop("carry")), json.dumps(_launch_counts()))
+                 prog.carry_digest(final.pop("carry")), json.dumps(_launch_counts()))
     spans.point("compile", wall_secs=round(res.get("compile_secs", 0.0), 6))
     spans.end("execute", ticks=res["ticks"])
     status = res["status"]

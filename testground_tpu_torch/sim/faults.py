@@ -488,28 +488,37 @@ class DeviceFaults:
     with False to ``n_lanes`` (host lanes never fault), built once per
     program by :meth:`lower`. Event times stay on the host: each accessor
     takes the tick as a Python ``int`` and returns what fires or is open
-    then, so a tick outside every event costs no device work."""
+    then, so a tick outside every event costs no device work.
+
+    On a cohort (``own``, this process's lanes ``[lo, hi)``) the crash,
+    restart, latency and loss masks are its own lanes' rows, as every
+    per-lane row of its carry; the drop windows' masks stay whole, since a
+    message's destination may be any lane, and :meth:`own` cuts a sender's
+    rows out of them."""
 
     sched: FaultSchedule
     n_lanes: int
-    crash: dict  # tick → [n_lanes] bool, the OR of that tick's crash masks
-    restart: dict  # tick → [n_lanes] bool
+    crash: dict  # tick → [n_own] bool, the OR of that tick's crash masks
+    restart: dict  # tick → [n_own] bool
     drop_a: tuple  # Ed × [n_lanes] bool
     drop_b: tuple
-    lat_masks: tuple  # El × [n_lanes] bool
-    loss_masks: tuple  # Eo × [n_lanes] bool
+    lat_masks: tuple  # El × [n_own] bool
+    loss_masks: tuple  # Eo × [n_own] bool
+    lo: int = 0
+    hi: int | None = None
 
     @staticmethod
-    def lower(sched: FaultSchedule, device, n_lanes: int) -> "DeviceFaults":
+    def lower(sched: FaultSchedule, device, n_lanes: int, own=None) -> "DeviceFaults":
         if n_lanes < sched.n:
             raise ValueError(
                 f"fault schedule over {sched.n} instance(s) on {n_lanes} lanes"
             )
+        lo, hi = (0, n_lanes) if own is None else (int(own[0]), int(own[1]))
 
-        def dev(mask: np.ndarray) -> torch.Tensor:
+        def dev(mask: np.ndarray, whole: bool = False) -> torch.Tensor:
             padded = np.zeros((n_lanes,), bool)
             padded[: sched.n] = mask
-            return torch.from_numpy(padded).to(device)
+            return torch.from_numpy(padded if whole else padded[lo:hi]).to(device)
 
         def by_tick(ticks, mask_at):
             return {int(t): dev(mask_at(int(t))) for t in np.unique(ticks)}
@@ -519,11 +528,20 @@ class DeviceFaults:
             n_lanes=n_lanes,
             crash=by_tick(sched.crash_ticks, sched.crash_mask_at),
             restart=by_tick(sched.restart_ticks, sched.restart_mask_at),
-            drop_a=tuple(dev(m) for m in sched.drop_a),
-            drop_b=tuple(dev(m) for m in sched.drop_b),
+            drop_a=tuple(dev(m, True) for m in sched.drop_a),
+            drop_b=tuple(dev(m, True) for m in sched.drop_b),
             lat_masks=tuple(dev(m) for m in sched.lat_masks),
             loss_masks=tuple(dev(m) for m in sched.loss_masks),
+            lo=lo,
+            hi=hi,
         )
+
+    def own(self, mask: torch.Tensor) -> torch.Tensor:
+        """This process's lanes of a whole ``[n_lanes]`` drop mask (the mask
+        itself outside a cohort)."""
+        if self.lo == 0 and self.hi in (None, self.n_lanes):
+            return mask
+        return mask[self.lo : self.hi]
 
     @property
     def last_event_tick(self) -> int:

@@ -23,16 +23,22 @@ Which devices :func:`make_mesh` gives:
   shape needs that many cards, or it refuses with the reference's message;
 - on the CPU (``device="cpu"``), every cell on the CPU.
 
-Only the calendar planes are split per shard; every other carry leaf stays
-on the mesh's primary device (cell 0's), whatever the table says about
-it. A *cohort* mesh (``sim/distributed.global_mesh``) spans processes:
-``ranks`` names each cell's process, ``parts`` lists only this process's
-cells, and ``primary`` is this process's device, where it keeps its own
-replica of every other leaf. Every count of the mesh (``size``,
-``shards``, :func:`peer_shards`, :func:`layout_str`) is the global one. A solo run on a 2-D mesh splits its lanes over row 0's peer shards
-(:meth:`TorchMesh.row`), as the reference shards ``i`` and replicates over
-``runs``. A run pack's members split into the rows in contiguous groups,
-and each member's lanes over its row's peer shards (``sim/pack.py``).
+Outside a cohort only the calendar planes are split per shard; every
+other carry leaf stays on the mesh's primary device (cell 0's), whatever
+the table says about it. A *cohort* mesh (``sim/distributed.global_mesh``)
+spans processes: ``ranks`` names each cell's process, ``parts`` lists only
+this process's cells, and ``primary`` is this process's device. There the
+table places what it says: a process holds only its own lanes
+(:meth:`TorchMesh.own_lanes`) of every leaf :meth:`MeshPlan.lane_axis`
+names — the table's lane-split paths, and the plan states, the keys and
+the sync service's per-instance planes, which the reference's table
+leaves to GSPMD's propagation — and one replica of the others. Every
+count of the mesh (``size``, ``shards``, :func:`peer_shards`,
+:func:`layout_str`) is the global one. A solo run on a 2-D mesh splits
+its lanes over row 0's peer shards (:meth:`TorchMesh.row`), as the
+reference shards ``i`` and replicates over ``runs``. A run pack's members
+split into the rows in contiguous groups, and each member's lanes over
+its row's peer shards (``sim/pack.py``).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 __all__ = [
     "DEFAULT_RULES",
     "MeshPlan",
+    "PLACED_BEYOND_RULES",
     "PartitionSpec",
     "TorchMesh",
     "cross_shard_bytes_est",
@@ -90,6 +97,16 @@ DEFAULT_RULES: tuple[tuple[str, str, PartitionSpec], ...] = (
     # everything else is replicated
     ("replicated", r".*", P()),
 )
+
+# the leaves a cohort places besides the table's lane-split paths, with
+# their lane axis: the plan states' [n_g, ...] leaves, the per-instance
+# keys [N, 2] and the sync service's [S, N] / [T, N] per-instance planes
+PLACED_BEYOND_RULES: tuple[tuple[str, int], ...] = (
+    (r"^states\.\d+\..+$", 0),
+    (r"^keys$", 0),
+    (r"^sync\.(last_seq|cursors)$", 1),
+)
+
 
 def parse_mesh_shape(text: str) -> tuple[int, ...]:
     """``"4"`` → ``(4,)``; ``"2x4"`` → ``(2, 4)``. 1-D is (peers,); 2-D is
@@ -199,6 +216,13 @@ class TorchMesh:
     def cohort(self) -> bool:
         """Whether the cells span processes (``sim/distributed.py``)."""
         return self.ranks is not None
+
+    def own_lanes(self, n_lanes: int) -> tuple[int, int]:
+        """This process's lanes ``[lo, hi)`` of an ``n_lanes`` lane axis cut
+        over the mesh's cells: its parts' cells, which a cohort keeps
+        contiguous (all of them outside a cohort)."""
+        n_loc = n_lanes // self.size
+        return self.parts[0][1] * n_loc, self.parts[-1][2] * n_loc
 
     def row(self, g: int) -> "TorchMesh":
         """Row ``g``'s peer shards as a 1-D mesh, its parts kept."""
@@ -322,6 +346,20 @@ class MeshPlan:
         if ndim is not None and len(tuple(spec)) > ndim:
             spec = P(*tuple(spec)[:ndim])
         return spec
+
+    def lane_axis(self, path: str) -> int | None:
+        """The axis of the carry leaf at ``path`` that a cohort places over
+        its ranks (None: replicated): the table's ``"i"`` entry, else the
+        plan states, keys and sync lane planes
+        (:data:`PLACED_BEYOND_RULES`). The one placement query of a
+        cohort's carry."""
+        spec = tuple(self.spec_for(path))
+        if "i" in spec:
+            return spec.index("i")
+        for pat, axis in PLACED_BEYOND_RULES:
+            if re.match(pat, path):
+                return axis
+        return None
 
     def layout_table(self) -> list[dict[str, str]]:
         """The rule table in journal form."""

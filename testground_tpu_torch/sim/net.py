@@ -30,10 +30,20 @@ reference's SHARD-major key (``net.py:1174-1183``), the commit and the pop
 are the sharded kernels, and the direct write, the purges and the latency
 histogram address each shard's planes. Every result is the unmeshed run's.
 On a cohort mesh (``sim/distributed.py``) a process holds only its own
-shards' planes: the direct write keeps the messages whose shard it holds,
-and what reads across shards combines over the processes — the popped and
-the etick rows are gathered (``cuda_transport.cohort_rows``), and
-``validate``'s occupancy probe and the purges' counts summed.
+lanes: its shards' planes, and its own columns of the link state, the
+outbox and every per-lane row the functions here take or return. Its pop
+and its etick row are its own lanes' (nothing crosses processes). Its
+enqueue shapes its own senders' messages, the dice hashing the single
+run's message indices, then hands each message to the rank of its
+destination (:func:`_exchange`): every rank receives the messages of its
+own destinations from every sender rank and commits them with the sharded
+kernel in the single run's order (each sorted by key, ties by global
+message index). The survival of each message goes back to its sender
+only where the fate or the flow asks for it; the feedback's counts are
+summed over the ranks. What the shaping reads at a destination — its
+region, its fault-plane death — is read off a per-tick copy of the whole
+row gathered from the ranks (:func:`_all_lanes`), or off the fault
+schedule's whole masks. The purges' counts are summed.
 
 Bit-equality with the reference rests on three rules:
 
@@ -54,7 +64,6 @@ import torch
 
 from .api import FILTER_ACCEPT, FILTER_REJECT, Inbox
 from .cuda_transport import (
-    cohort_rows,
     commit_calendar,
     commit_calendar_sharded,
     pop_bucket,
@@ -271,20 +280,31 @@ def _lane_blocks(cal: Calendar, plane) -> list:
     ]
 
 
+def _own_lo(cal: Calendar) -> int:
+    """The first lane a per-lane row of this process holds: its own first
+    lane on a cohort, 0 otherwise."""
+    if cal.mesh is None or not cal.mesh.cohort:
+        return 0
+    return cal.mesh.own_lanes(cal.lanes)[0]
+
+
+def _all_lanes(x: torch.Tensor) -> torch.Tensor:
+    """A cohort's placed ``[n_own]`` lane row as the whole ``[N]`` row:
+    every rank's, in rank order (one ``all_gather``)."""
+    from .distributed import all_gather
+
+    if x.dtype == torch.bool:  # gloo has no bool: its bytes cross
+        return all_gather(x.view(torch.uint8)).view(torch.bool).reshape(-1)
+    return all_gather(x).reshape(-1)
+
+
 def _row_at(cal: Calendar, plane, t: torch.Tensor) -> torch.Tensor:
     """Row ``t mod L`` of ``plane`` as the global ``[SLOTS, N]`` inbox
-    layout, without a host read."""
+    layout (a cohort process: its own lanes'), without a host read."""
     b = torch.remainder(t.reshape(1), cal.horizon)
     if cal.mesh is None:
         return plane.index_select(0, b).view(cal.slots, -1)
     dev0 = cal.mesh.primary
-    if cal.mesh.cohort:
-        local = torch.cat([
-            p.index_select(1, b.to(p.device)).view(p.shape[0], cal.slots, -1)
-            .permute(1, 0, 2).reshape(cal.slots, -1)
-            for p in plane
-        ], dim=1)
-        return cohort_rows([local])[0].view(cal.slots, -1)
     rows = [
         p.index_select(1, b.to(p.device))
         .view(p.shape[0], cal.slots, -1)
@@ -380,14 +400,16 @@ def purge_dst(cal: Calendar, dst_mask: torch.Tensor) -> tuple[Calendar, torch.Te
     """Remove every in-flight calendar entry destined to a masked lane —
     a crashed instance's socket buffers vanish with it
     (``testground_tpu/sim/net.py:416-448``). ``dst_mask`` is [N] bool over
-    the receiver axis. Only the occupancy plane is cleared, in place
-    (payload words stay stale, like a bucket after ``deliver``); on a mesh
-    each shard against its own lanes. Returns ``(cal, purged)``,
-    ``purged`` the int32 count of entries removed."""
+    the receiver axis (a cohort process: over its own lanes). Only the
+    occupancy plane is cleared, in place (payload words stay stale, like a
+    bucket after ``deliver``); on a mesh each shard against its own lanes.
+    Returns ``(cal, purged)``, ``purged`` the int32 count of entries
+    removed (summed over a cohort's processes)."""
     purged = None
+    base = _own_lo(cal)
     # positions are slot-major (slot·n_loc + lane): [S_d, L·SLOTS, n_loc]
     for view, lo, hi in _lane_blocks(cal, cal.occupancy_plane):
-        mask = dst_mask[lo:hi].to(view.device).view(view.shape[0], 1, -1)
+        mask = dst_mask[lo - base : hi - base].to(view.device).view(view.shape[0], 1, -1)
         kill = (view != 0) & mask
         k = kill.sum(dtype=torch.int32).to(dst_mask.device)
         purged = k if purged is None else purged + k
@@ -412,18 +434,20 @@ def purge_dst_matrix(
     purged message is charged to its (sender group, crashed receiver
     group) cell, the sender read as the global ``src - 1`` off the
     provenance plane. ``group_of`` is the [N] lane → matrix row map (host
-    lanes on the hosts row), ``gh`` the matrix side. Returns ``(cal,
-    purged, mat [gh, gh] int32)``; the occupancy plane is cleared in
-    place."""
+    lanes on the hosts row; the whole map on a cohort, whose ``dst_mask``
+    is over its own lanes), ``gh`` the matrix side. Returns ``(cal,
+    purged, mat [gh, gh] int32)``, both summed over a cohort's processes;
+    the occupancy plane is cleared in place."""
     if cal.src is None:
         raise ValueError("purge_dst_matrix needs a Calendar built with track_src=True")
     n = cal.lanes
     g = group_of.to(torch.int64)
     mat = torch.zeros(gh * gh, dtype=torch.int32, device=dst_mask.device)
     purged = None
+    base = _own_lo(cal)
     for view, lo, hi in _lane_blocks(cal, cal.src):
         dev = view.device
-        mask = dst_mask[lo:hi].to(dev).view(view.shape[0], 1, -1)
+        mask = dst_mask[lo - base : hi - base].to(dev).view(view.shape[0], 1, -1)
         kill = (view != 0) & mask
         k = kill.sum(dtype=torch.int32).to(dst_mask.device)
         purged = k if purged is None else purged + k
@@ -483,10 +507,11 @@ def latency_histogram(
     ``n_groups`` (an additional host) counts into a trash row that is
     sliced off, and invalid inbox slots add 0, so ``sum(hist)`` is exactly
     the plan messages delivered. ``deliver`` clears only the occupancy
-    plane, so the etick row may be read before or after it."""
+    plane, so the etick row may be read before or after it. On a cohort
+    the inbox, the map and the histogram are the process's own lanes'."""
     if cal.etick is None:
         raise ValueError("latency_histogram needs a Calendar built with track_etick=True")
-    n = cal.lanes
+    n = inbox.valid.shape[-1]
     t1 = t.reshape(1)
     row = _row_at(cal, cal.etick, t)
     binidx = torch.bucketize(t1 - row, _bin_edges(n_bins, str(row.device)),
@@ -559,18 +584,39 @@ def enqueue(
       ``fault_dropped``, ``collisions``) is then ``[runs]`` int32 and
       ``collision_where`` ``[runs, 2]``, each run's as its own run would
       count it. Ranks are unchanged: a destination's senders all belong
-      to its run and keep their relative order in the flat index."""
+      to its run and keep their relative order in the flat index.
+
+    On a cohort's calendar the outbox, ``link``, ``dead`` and ``dice_idx``
+    are this process's own senders' (``[O, n_own]``, ``[n_own]``,
+    ``[O·n_own]``) and so are the feedback's ``rejected``, ``backlog``,
+    ``fate`` and ``flow``; its counts and ``collision_where`` are the
+    whole cohort's. Every process calls it in lockstep."""
     width = cal.width
     horizon, n = cal.horizon, cal.lanes
     o, n_src = valid.shape
-    if n_src != n:
-        raise ValueError(f"outbox lane count {n_src} != calendar lanes {n}")
+    placed = cal.mesh is not None and cal.mesh.cohort
+    lo, hi = cal.mesh.own_lanes(n) if placed else (0, n)
+    n_own = hi - lo
+    if n_src != n_own:
+        raise ValueError(f"outbox lane count {n_src} != calendar lanes {n_own}")
+    if placed and runs != 1:
+        raise ValueError("a run pack's enqueue does not run on a cohort's calendar")
     dev = valid.device
     i32 = torch.int32
 
-    midx = torch.arange(o * n, dtype=i32, device=dev)
-    src_f = midx if o == 1 else torch.remainder(midx, n)
-    slot_in_src = torch.div(midx, n, rounding_mode="floor")
+    midx = torch.arange(o * n_own, dtype=i32, device=dev)
+    src_l = midx if o == 1 else torch.remainder(midx, n_own)
+    slot_in_src = torch.div(midx, n_own, rounding_mode="floor")
+    # message m = o·N + src, its sender global: on a cohort the single
+    # run's index of each of this process's messages
+    src_f, gidx = src_l, midx
+    if placed:
+        if 2 * o * n >= 2**31:
+            raise ValueError(
+                f"a cohort's message index {2 * o * n:,} overflows int32"
+            )
+        src_f = src_l + lo
+        gidx = slot_in_src * n + src_f
     dst_f = dst.reshape(-1)
     pay_w = [payload[:, w, :].reshape(-1) for w in range(width)]
     val_f = valid.reshape(-1)
@@ -597,7 +643,7 @@ def enqueue(
     # salt, feature id), exactly the reference's int32 hash (net.py:
     # 696-736) computed on uint32 values in int64
     salt = key if isinstance(key, torch.Tensor) else _hash_salt(key)
-    iota_m = midx if dice_idx is None else dice_idx
+    iota_m = gidx if dice_idx is None else dice_idx
     h0 = (iota_m.to(torch.int64) * 0x9E3779B1 + salt) & _M32
 
     def uhash_id(fid):
@@ -624,15 +670,19 @@ def enqueue(
     action = None
     if "filters" in features:
         n_regions = link.filters.shape[0]
+        # the destinations' regions: a cohort's whole row, gathered
+        region_of = None
+        if n_regions > 1:
+            region_of = _all_lanes(link.region_of) if placed else link.region_of
         if n_regions == 1:
             action = srow(link.filters[0])
         elif n_regions <= 4:
-            region = link.region_of[dst_safe]
+            region = region_of[dst_safe]
             action = torch.zeros(m, dtype=i32, device=dev)
             for r in range(n_regions):
                 action = torch.where(region == r, srow(link.filters[r]), action)
         else:
-            flat_idx = link.region_of[dst_safe].to(torch.int64) * n + src_f
+            flat_idx = region_of[dst_safe].to(torch.int64) * n_own + src_l
             action = link.filters.reshape(-1)[flat_idx]
     elif "filter_rules" in features:
         if link.rules is None:
@@ -661,9 +711,9 @@ def enqueue(
             rejected_msg = rejected_msg & ~is_ctrl
         val_f = val_f & accept
         rej_m = rejected_msg
-        rejected = rejected_msg.reshape(o, n).sum(dim=0, dtype=i32)
+        rejected = rejected_msg.reshape(o, n_own).sum(dim=0, dtype=i32)
     else:
-        rejected = torch.zeros(n, dtype=i32, device=dev)
+        rejected = torch.zeros(n_own, dtype=i32, device=dev)
 
     # --- fault plane (net.py:817-863): scheduled kills after the filters
     # (the REJECT feedback a sender sees is fault-independent) and before
@@ -674,20 +724,22 @@ def enqueue(
     fault_dropped = zero
     fault_m = None
     if faults is not None and not isinstance(faults, DeviceFaults):
-        faults = DeviceFaults.lower(faults, dev, n)
+        faults = DeviceFaults.lower(faults, dev, n, own=(lo, hi))
     if faults is not None and tick is None:
         tick = int(t)
     if faults is not None or dead is not None:
         if dead is not None:
-            kill = srow(dead) | dead[dst_safe]
+            # the destinations' deaths: a cohort's whole row, gathered
+            kill = srow(dead) | (_all_lanes(dead) if placed else dead)[dst_safe]
         else:
             kill = torch.zeros(m, dtype=torch.bool, device=dev)
         if faults is not None:
             for e in faults.drops_at(tick):
+                # a sender's own rows; a destination's off the whole masks
                 a, b = faults.drop_a[e], faults.drop_b[e]
-                hit = srow(a) & b[dst_safe]
+                hit = srow(faults.own(a)) & b[dst_safe]
                 if faults.sched.drop_sym[e]:
-                    hit = hit | (srow(b) & a[dst_safe])
+                    hit = hit | (srow(faults.own(b)) & a[dst_safe])
                 kill = kill | hit
             for e in faults.losses_at(tick):
                 # independent dice per loss window (ids past the shaping
@@ -742,7 +794,7 @@ def enqueue(
         # senders, summed in float32 in event order. The reference adds
         # 0.0 for each closed window, which changes no bit, so only the
         # open ones are added here
-        extra = torch.zeros(n, dtype=torch.float32, device=dev)
+        extra = torch.zeros(n_own, dtype=torch.float32, device=dev)
         for e in spikes:
             extra = extra + torch.where(
                 faults.lat_masks[e], float(faults.sched.lat_ms[e]), 0.0
@@ -775,7 +827,7 @@ def enqueue(
         queued = val_f & (bw > 0.0)
         if is_ctrl is not None:
             queued = queued & ~is_ctrl
-        qmask = queued.reshape(o, n).to(torch.float32)
+        qmask = queued.reshape(o, n_own).to(torch.float32)
         ahead = (torch.cumsum(qmask, dim=0) - qmask).reshape(-1)
         backlog_m = srow(link.backlog)
         q_msgs = backlog_m * rate + ahead
@@ -785,7 +837,7 @@ def enqueue(
         queued = queued & ~overflow_q
         dt = torch.floor(backlog_m + ahead / safe_rate + 1e-4).to(i32)
         delay = delay + torch.where(queued, dt, torch.zeros_like(dt))
-        admitted = queued.reshape(o, n).to(torch.float32).sum(dim=0)
+        admitted = queued.reshape(o, n_own).to(torch.float32).sum(dim=0)
         bw_src = link.egress[BANDWIDTH]
         rate_src = (bw_src * (tick_ms / 1000.0) / MSG_BYTES).clamp_min(1e-9)
         new_backlog = torch.where(
@@ -825,26 +877,42 @@ def enqueue(
                 None if fault_m is None else fault_m.to(i32))
 
     def feedback(enqueued, fate, flow=None, collisions=None, where=None):
+        counts = (clamped, bw_dropped, sent, enqueued, fault_dropped,
+                  zero if collisions is None else collisions)
+        if placed:  # this process's counts, summed over the cohort
+            from .distributed import all_reduce_sum
+
+            counts = all_reduce_sum(torch.stack(counts)).unbind(0)
         return NetFeedback(
             rejected=rejected,
-            clamped=clamped,
-            bw_dropped=bw_dropped,
+            clamped=counts[0],
+            bw_dropped=counts[1],
             backlog=new_backlog,
-            collisions=zero if collisions is None else collisions,
+            collisions=counts[5],
             collision_where=(
                 torch.zeros(zero.shape + (2,), dtype=i32, device=dev)
                 if where is None else where
             ),
-            sent=sent,
-            enqueued=enqueued,
-            fault_dropped=fault_dropped,
+            sent=counts[2],
+            enqueued=counts[3],
+            fault_dropped=counts[4],
             fate=fate,
             flow=flow,
         )
 
     if slot_mode == "direct":
+        buck = torch.remainder(t.reshape(()) + delay, horizon)
+        occ_vals = src_f + 1
+        if placed:  # the messages of this process's destinations
+            got, _ = _exchange(cal, val_f, dst_safe, [dst_safe, buck, gidx, occ_vals, *pay_w])
+            dst_safe, buck, gm, occ_vals = got[:4].unbind(0)
+            pay_w = list(got[4:].unbind(0))
+            slot_in_src = torch.div(gm, n, rounding_mode="floor")
+            val_in = torch.ones_like(dst_safe, dtype=torch.bool)
+        else:
+            val_in = val_f
         enq, collisions, where = _commit_direct(
-            cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w, o, validate,
+            cal, t, buck, val_in, slot_in_src, dst_safe, occ_vals, pay_w, o, validate,
             count, runs,
         )
         return cal, feedback(enq, fate_of(val_f), flow_of(val_f), collisions, where)
@@ -859,6 +927,8 @@ def enqueue(
             dup = dup & ~is_ctrl
         if want_fate or want_flow:
             orig = torch.cat([midx, midx])
+        if placed:  # a copy's global index follows every original's
+            gidx = torch.cat([gidx, gidx + o * n])
         sent = sent + count(dup)
         if want_flow:
             sent_m = sent_m + dup.to(i32)
@@ -879,6 +949,17 @@ def enqueue(
     # bucket-major key's, so the stable sort assigns the same slots, and
     # L·N is still one past its largest value.
     big = horizon * n
+    if placed:
+        cal, surv, enqueued = _commit_placed(
+            cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking,
+            want_fate or want_flow, 2 * o * n if "duplicate" in features else o * n,
+        )
+        fate = flow = None
+        if surv is not None:
+            surv = torch.zeros(m, dtype=i32, device=dev).scatter_add_(
+                0, orig.to(torch.int64), surv)
+            fate, flow = fate_of(surv > 0), flow_of(surv)
+        return cal, feedback(enqueued, fate, flow)
     if cal.mesh is None:
         key = bucket * n + dst_safe
         commit = commit_calendar
@@ -925,12 +1006,91 @@ def enqueue(
     return cal, feedback(enqueued, fate, flow)
 
 
-def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
+def _exchange(cal: Calendar, val_f, dst_safe, cols: list) -> tuple:
+    """A cohort's message exchange: this process's valid messages (``cols``,
+    int32 columns over its outbox order) grouped by the rank of their
+    destination, one count matrix gathered (a host read), then one padded
+    ``all_gather``; returns ``(got [F, k], back)``: the messages of this
+    process's destinations, sender rank by sender rank, each rank's in
+    its outbox order, and ``back(x)``, which hands one int32 value per
+    received message back to its sender (a ``[k_own]`` tensor over this
+    process's messages, in ``cols`` order)."""
+    from .distributed import all_gather, all_reduce_sum, gather_blocks
+
+    mesh = cal.mesh
+    procs = len(set(mesh.ranks))
+    me = mesh.rank
+    per = cal.lanes // procs
+    drank = torch.where(val_f, torch.div(dst_safe, per, rounding_mode="floor"), procs)
+    _, perm = torch.sort(drank, stable=True)
+    cnt = torch.bincount(drank, minlength=procs + 1)[:procs]
+    every_cnt = all_gather(cnt).tolist()  # [sender][destination]
+    sent = [sum(row) for row in every_cnt]
+    sel = perm[: sent[me]]
+    block = torch.stack([c[sel] for c in cols], dim=1)
+    if max(sent) == 0:  # nothing crosses this tick
+        every = block.new_zeros((procs, 0, len(cols)))
+    else:
+        every, _ = gather_blocks(block, sent)
+    at = [sum(every_cnt[r][:me]) for r in range(procs)]
+    got = torch.cat([every[r, at[r] : at[r] + every_cnt[r][me]] for r in range(procs)])
+
+    def back(x: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(val_f.shape[0], dtype=torch.int32, device=x.device)
+        if max(sent) == 0:
+            return out
+        ret = torch.zeros(every.shape[:2], dtype=torch.int32, device=x.device)
+        off = 0
+        for r in range(procs):
+            k = every_cnt[r][me]
+            ret[r, at[r] : at[r] + k] = x[off : off + k]
+            off += k
+        all_reduce_sum(ret)
+        return out.index_copy_(0, sel, ret[me, : sent[me]])
+
+    return got.t(), back
+
+
+def _commit_placed(cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking,
+                   want_surv, m_all):
+    """A cohort's sorted commit: the messages of this process's
+    destinations (:func:`_exchange`) sorted by the shard-major key, ties by
+    global message index — the order the single run's stable sort gives
+    them — and committed by the sharded K1 into this process's shards.
+    Returns ``(cal, survived, enqueued)``: ``survived`` each of this
+    process's messages' survival (0/1, None unless ``want_surv``),
+    ``enqueued`` this process's destinations' count."""
+    occ = src_f + 1 if cal.src is not None else torch.ones_like(src_f)
+    got, back = _exchange(cal, val_f, dst_safe, [dst_safe, bucket, gidx, occ, *pay_w])
+    d, bk, gm = got[0], got[1], got[2]
+    n_loc, horizon = cal.n_loc, cal.horizon
+    key = (torch.div(d, n_loc, rounding_mode="floor") * (horizon * n_loc)
+           + bk * n_loc + torch.remainder(d, n_loc))
+    # global message indices are distinct: one sort of (key, index)
+    _, order = torch.sort(key.to(torch.int64) * m_all + gm.to(torch.int64))
+    rows = got[:, order]
+    cal, survived = commit_calendar_sharded(
+        cal, key[order].contiguous(),
+        rows[3].contiguous(), [r.contiguous() for r in rows[4:]], t, stacking=stacking,
+    )
+    enqueued = survived.sum(dtype=torch.int32)
+    if not want_surv:
+        return cal, None, enqueued
+    mine = torch.empty_like(survived).index_copy_(0, order, survived)
+    return cal, back(mine), enqueued
+
+
+def _commit_direct(cal, t, buck, val_f, slot_in_src, dst_safe, occ_vals, pay_w,
                    o, validate, count, runs=1):
     """Direct slot mode's write (``net.py:1031-1111``): slot = the sender's
     outbox index, one write per message, no sort and no duplicate pass.
     The reference drops an invalid message by scattering it to the
     out-of-range bucket ``horizon``; here it is masked out of the write.
+    ``buck`` is each message's arrival bucket and ``occ_vals`` its
+    occupancy mark (its sender + 1). On a cohort the messages are those of
+    this process's destinations (:func:`_exchange`, ``val_f`` all set):
+    its counts are its own (summed by the caller) and the first collision
+    the cohort's least.
     Under ``validate``, same-tick duplicate targets and writes onto a
     still-occupied slot are counted, with the first colliding (dst, slot);
     which of two colliding writes lands is undefined on both backends.
@@ -948,7 +1108,6 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
         raise ValueError(
             f"direct slot mode needs OUT_MSGS ({o}) <= IN_MSGS ({slots})"
         )
-    buck = torch.remainder(t.reshape(()) + delay, horizon)
     pos = slot_in_src * n + dst_safe
     if cal.mesh is not None:
         # the shard's [S_d·L, SLOTS·n_loc] plane: row s·L + bucket
@@ -975,13 +1134,15 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
                 idx = (row.to(torch.int64) - s0 * horizon) * (slots * n_loc) + col
                 hit = flat[idx.clamp(0, flat.shape[0] - 1).to(dev)] != 0
                 occ = occ | (hit.to(occ.device) & (shard >= s0) & (shard < s1))
-            # each process probed its own shards: their OR is the sum
-            occ = _cohort_sum(cal, occ.to(i32)) != 0
         conflict = dup | (occ & val_f)
         collisions = count(conflict)
         first = torch.where(conflict, lin, big)
         if runs == 1:
-            first = first.min()
+            first = first.min() if first.numel() else torch.tensor(big, device=lin.device)
+            if cal.mesh is not None and cal.mesh.cohort:
+                from .distributed import all_reduce_min
+
+                first = all_reduce_min(first.reshape(1)).reshape(())
         else:
             first = first.view(-1, runs, n // runs).amin(dim=(0, 2))
         p = torch.remainder(first, ns)
@@ -1008,7 +1169,7 @@ def _commit_direct(cal, t, delay, val_f, slot_in_src, dst_safe, src_f, pay_w,
         for plane, vals in zip(part.payload, pay_w):
             plane.index_put_((b, p), vals[sel].to(dev))
         if part.src is not None:  # src+1 doubles as the occupancy mark
-            part.src.index_put_((b, p), (src_f[sel] + 1).to(dev))
+            part.src.index_put_((b, p), occ_vals[sel].to(dev))
         else:
             part.valid.index_put_((b, p), torch.ones_like(b, dtype=torch.bool))
         if part.etick is not None:

@@ -5,6 +5,15 @@ per-signaller sequence numbers (a prefix sum over the instance axis),
 bounded per-topic publish streams appended in instance order, and
 per-instance subscribe cursors. Per-instance arrays keep the instance axis
 last (``last_seq [S, N]``, ``cursors [T, N]``).
+
+On a cohort (``sim/distributed.py``) each process holds its own lanes of
+``last_seq`` and ``cursors`` and one replica of the shared leaves. Its
+fold (:func:`update_sync` with ``ranks``) numbers its signals after the
+lower ranks' (the exclusive sum of their totals added to its local
+prefix), appends its publishes after theirs, and gathers every rank's
+stored entries (:func:`distributed.gather_blocks`), so every replica of
+``stream`` takes the same writes; the counts, ``stream_len`` and
+``dropped`` advance by the cohort's totals.
 """
 
 from __future__ import annotations
@@ -16,6 +25,7 @@ import torch
 from .api import RUNNING
 
 __all__ = [
+    "RankTotals",
     "SyncState",
     "live_per_group",
     "make_sub_window",
@@ -36,6 +46,17 @@ class SyncState:
     stream_len: torch.Tensor
     cursors: torch.Tensor
     dropped: torch.Tensor
+
+
+@dataclasses.dataclass
+class RankTotals:
+    """One tick's per-rank sync totals of a cohort, gathered once by the
+    engine: ``sig [P, S]`` signals and ``pub [P, T]`` publishes of every
+    rank, in rank order, and this process's ``rank``."""
+
+    sig: torch.Tensor
+    pub: torch.Tensor
+    rank: int
 
 
 def make_sync_state(
@@ -61,15 +82,20 @@ def update_sync(
     pub_valid: torch.Tensor,  # [T, N] bool
     sub_consume: torch.Tensor,  # [T, N] int32
     runs: int = 1,
+    ranks: RankTotals | None = None,
 ) -> SyncState:
     """One tick's sync fold. ``runs`` > 1 folds a run pack's state
     (``sim/pack.py``): the lanes are ``runs`` run-major blocks and the
     shared leaves carry a leading run axis (``counts [R, S]``, ``stream
     [R, T, CAP, PW]``, ``stream_len``/``dropped [R, T]``); every prefix
-    sum and append stays inside its run."""
+    sum and append stays inside its run. ``ranks`` folds a cohort
+    process's own lanes (the module docstring)."""
     if runs > 1:
         return _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume,
                                  runs)
+    if ranks is not None:
+        return _update_sync_ranks(sync, signals, pub_payload, pub_valid, sub_consume,
+                                  ranks)
     i32 = torch.int32
     n_topics, cap, pw = sync.stream.shape
     prefix = torch.cumsum(signals, dim=1, dtype=i32)
@@ -92,6 +118,57 @@ def update_sync(
     stream.reshape(-1, pw)[flat_idx] = upd
     published = pv.sum(dim=1, dtype=i32)
     stored = in_range.sum(dim=1, dtype=i32)
+    stream_len = torch.clamp(sync.stream_len + published, max=cap)
+    dropped = sync.dropped + (published - stored)
+    cursors = torch.minimum(
+        sync.cursors + sub_consume.clamp_min(0), stream_len[:, None]
+    )
+    return SyncState(
+        counts=counts,
+        last_seq=last_seq,
+        stream=stream,
+        stream_len=stream_len,
+        cursors=cursors,
+        dropped=dropped,
+    )
+
+
+def _update_sync_ranks(sync, signals, pub_payload, pub_valid, sub_consume, ranks):
+    """:func:`update_sync` of a cohort process's own lanes: its signals and
+    publishes placed after the lower ranks', every rank's stored entries
+    written into every replica of the stream."""
+    from .distributed import gather_blocks
+
+    i32 = torch.int32
+    n_topics, cap, pw = sync.stream.shape
+    me = ranks.rank
+    prefix = torch.cumsum(signals, dim=1, dtype=i32)
+    seq = (sync.counts + ranks.sig[:me].sum(0, dtype=i32))[:, None] + prefix
+    last_seq = torch.where(signals > 0, seq, sync.last_seq)
+    counts = sync.counts + ranks.sig.sum(0, dtype=i32)
+
+    if n_topics == 0:
+        return dataclasses.replace(sync, counts=counts, last_seq=last_seq)
+
+    below = torch.cumsum(ranks.pub, 0, dtype=i32) - ranks.pub  # [P, T]
+    pv = pub_valid.to(i32)  # [T, n_own]
+    offsets = (sync.stream_len + below[me])[:, None] + torch.cumsum(pv, dim=1, dtype=i32) - pv
+    in_range = pub_valid & (offsets < cap)
+    topic = torch.arange(n_topics, dtype=torch.int64, device=pv.device)[:, None]
+    flat_idx = (topic * cap + offsets.to(torch.int64))[in_range]
+    upd = pub_payload.permute(0, 2, 1)[in_range]  # [k, PW] in publish order
+    # each rank's stored entries, from the gathered totals: its publishes
+    # that still fit after the lower ranks' (one host read)
+    room = (cap - sync.stream_len[None, :] - below).clamp_min(0)
+    kept = torch.minimum(ranks.pub, room).sum(1).tolist()
+    stream = sync.stream.clone()
+    if sum(kept):
+        entries = torch.cat([flat_idx[:, None].to(i32), upd], dim=1)
+        every, _ = gather_blocks(entries, kept)
+        allent = torch.cat([every[r, :k] for r, k in enumerate(kept)])
+        stream.reshape(-1, pw)[allent[:, 0].to(torch.int64)] = allent[:, 1:]
+    published = ranks.pub.sum(0, dtype=i32)
+    stored = torch.minimum(published, cap - sync.stream_len)
     stream_len = torch.clamp(sync.stream_len + published, max=cap)
     dropped = sync.dropped + (published - stored)
     cursors = torch.minimum(
@@ -151,9 +228,15 @@ def _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume, runs):
     )
 
 
-def live_per_group(status: torch.Tensor, groups) -> torch.Tensor:
+def live_per_group(status: torch.Tensor, groups, cohort: bool = False) -> torch.Tensor:
     """[G] int32 — RUNNING instances per group (the degraded-barrier
-    denominator served as ``SyncView.live``)."""
+    denominator served as ``SyncView.live``). On a cohort ``status`` and
+    the groups' ``offset``/``count`` are this process's own lanes, and the
+    per-rank counts are summed over the cohort."""
+    if cohort:
+        from .distributed import all_reduce_sum
+
+        return all_reduce_sum(live_per_group(status, groups))
     return torch.stack(
         [
             (status[g.offset : g.offset + g.count] == RUNNING).sum(

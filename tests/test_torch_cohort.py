@@ -12,9 +12,10 @@ CPU, gloo over loopback, against the reference (``tests/test_multihost.py``,
   sim-worker --once --device cpu`` followers. Each result equals the
   port's single-process run and the reference's, per instance (status,
   ``finished_at``, ``metrics.out``), in the journal's metrics and in every
-  flow total, and each follower's carry digest equals the leader's; the
-  lockstep skip, member death, cancel and the engine's drain behave as
-  the reference's tests require.
+  flow total; every process's digest of the whole carry gathered from
+  every rank equals the leader's and the single-process run's final
+  carry's; the lockstep skip, member death, cancel and the engine's drain
+  behave as the reference's tests require.
 
 Every child has a timeout and is killed in ``finally``; a cohort's leader
 runs in a thread while the single-process runs it is held against run in
@@ -151,15 +152,45 @@ def _instance_digest(run_dir):
     return digest
 
 
-def _cohort(root, spec, n_procs, plans=PORT_PLANS, during=None, on_progress=None, **cfg):
+def _single_digest(spec, hosts=()):
+    """``carry_digest`` of the single-process run's final carry: the
+    program a cohort member builds from the job spec (its groups, or one
+    group ``all``), on the CPU alone."""
+    from testground_tpu_torch.sim.engine import carry_digest
+    from testground_tpu_torch.sim.faults import build_fault_schedule
+
+    cfg = pexec.SimTorchConfig()
+    specs = spec.get("groups") or [{"id": "all", "instances": spec["instances"],
+                                    "params": spec.get("params", {}),
+                                    "faults": spec.get("faults", [])}]
+    testcase, groups = pexec.load_and_specialize(
+        os.path.join(PORT_PLANS, spec["plan"]), spec["case"],
+        [RunGroup(id=g["id"], instances=g["instances"], parameters=dict(g["params"]))
+         for g in specs], cfg.tick_ms)
+    prog = pexec.make_sim_program(
+        testcase, groups, test_plan=spec["plan"], test_case=spec["case"],
+        test_run=spec["run_id"], tick_ms=cfg.tick_ms, chunk=spec.get("chunk", 64),
+        hosts=tuple(hosts), validate=spec.get("validate", False), telemetry=False,
+        faults=build_fault_schedule(groups, {g["id"]: g.get("faults", []) for g in specs},
+                                    cfg.tick_ms),
+        trace=None, netmatrix=False, device="cpu", mesh=None)
+    last = {}
+    prog.run(seed=cfg.seed, max_ticks=spec.get("cfg", {}).get("max_ticks", cfg.max_ticks),
+             observer=lambda t, c: last.update(c=c))
+    return carry_digest(last["c"])
+
+
+def _cohort(root, spec, n_procs, plans=PORT_PLANS, during=None, on_progress=None,
+            make=_job, **cfg):
     """Run ``spec`` as a cohort of ``n_procs``: the leader through
     ``execute_sim_run`` (its child) in a thread, ``n_procs - 1`` sim-worker
     processes. ``during()`` runs here meanwhile; ``on_progress(sink,
-    workers, cancel)`` is polled until the leader ends. Returns (the
-    leader's result or exception, its progress text, the workers' output,
-    their exit codes, what ``during`` returned)."""
+    workers, cancel)`` is polled until the leader ends. ``make(root, spec,
+    **cfg)`` builds the job. Returns (the leader's result or exception,
+    its progress text, the workers' output, their exit codes, what
+    ``during`` returned)."""
     coord = f"127.0.0.1:{_free_port()}"
-    job = _job(root, spec, coordinator_address=coord, num_processes=n_procs, **cfg)
+    job = make(root, spec, coordinator_address=coord, num_processes=n_procs, **cfg)
     sink, cancel, box = _Sink(), threading.Event(), {}
 
     def lead():
@@ -447,9 +478,9 @@ def test_cohort_equals_single_process_runs(label, tmp_path):
         single = pexec.execute_sim_run(_job(str(tmp_path / "single"), spec),
                                        discard_writer(), threading.Event())
         ref, ref_dir = _ref_run(tmp_path / "ref", spec)
-        return single.result, ref, ref_dir
+        return single.result, ref, ref_dir, _single_digest(spec)
 
-    out, progress, outs, rcs, (single, ref, ref_dir) = _cohort(
+    out, progress, outs, rcs, (single, ref, ref_dir, one) = _cohort(
         str(tmp_path / "cohort"), spec, n_procs, during=singles)
     assert not isinstance(out, Exception), out
     assert rcs == [0] * (n_procs - 1), outs
@@ -470,9 +501,11 @@ def test_cohort_equals_single_process_runs(label, tmp_path):
         str(tmp_path / "single" / spec["plan"] / spec["run_id"]))
     assert digest == _instance_digest(ref_dir)
     assert len(digest) == spec["instances"]
-    # every follower's replica ends where the leader's does
+    # the ranks hold different lanes: every process's digest of the whole
+    # carry gathered from every rank is the leader's, and the single
+    # process's final carry's
     lead = re.findall(r"multi-host: carry digest (\d+)", progress)
-    assert len(lead) == 1
+    assert lead == [str(one)]
     for text in outs:
         assert re.findall(rf"run {spec['run_id']} carry digest (\d+)", text) == lead
         assert f"sim-worker: run {spec['run_id']} done" in text
@@ -480,14 +513,15 @@ def test_cohort_equals_single_process_runs(label, tmp_path):
 
 # a cohort of the library: both processes build the program on the global
 # mesh with every plane on (the executor's gates keep them off a cohort
-# run; the library does not), so the etick row's gather and the matrix
-# purge's sums cross processes; rank 0 prints its results
+# run; the library does not), so the per-rank histograms and matrices
+# and the matrix purge's sums cross processes; each prints its results and
+# the digest of the whole carry gathered from both
 PLANES_SCRIPT = r"""
 import json, sys
 import torch
 from testground_tpu_torch.api import RunGroup
 from testground_tpu_torch.sim import distributed
-from testground_tpu_torch.sim.engine import SimProgram, build_groups, carry_digest
+from testground_tpu_torch.sim.engine import SimProgram, build_groups
 from testground_tpu_torch.sim.executor import instantiate_testcase, load_sim_testcases, plan_dir
 from testground_tpu_torch.sim.faults import build_fault_schedule
 
@@ -504,15 +538,16 @@ res = prog.run(seed=0, max_ticks=512, cancel=distributed.CohortCancel(None),
                observer=lambda t, c: last.update(c=c))
 print(json.dumps({"status": res["status"].tolist(), "lat_hist": res["lat_hist"],
                   "net_matrix": res["net_matrix"], "fault_dropped": res["fault_dropped"],
-                  "digest": carry_digest(last["c"])}), flush=True)
+                  "digest": prog.carry_digest(last["c"])}), flush=True)
 distributed.shutdown()
 """
 
 
 def test_library_cohort_with_every_plane_equals_the_single_program(tmp_path):
-    """The latency histogram (its etick row gathered over the processes)
-    and the traffic matrix (the crash purge's matrix summed) of a
-    two-process cohort of ``SimProgram``s equal the single program's."""
+    """The latency histogram and the traffic matrix (each rank's deltas
+    summed, the crash purge's matrix summed) of a two-process cohort of
+    ``SimProgram``s equal the single program's, and so does the digest of
+    the whole carry gathered from both."""
     import torch  # noqa: F401 — the single program runs here
 
     from testground_tpu_torch.api import RunGroup as PGroup
@@ -553,7 +588,8 @@ def test_library_cohort_with_every_plane_equals_the_single_program(tmp_path):
 
 # one direct-mode enqueue under validate on a cohort's calendar: fan-in
 # onto lanes of the follower's shard of a pre-filled calendar, so only the
-# follower's probe sees the occupied slots; rank 0 prints what it counted
+# follower's probe sees the occupied slots; each rank hands in its own
+# senders' columns and prints what the cohort counted
 ENQUEUE_SCRIPT = r"""
 import json, sys
 import numpy as np
@@ -569,11 +605,13 @@ valid = torch.from_numpy(rng.random((L, slots * n)) < 0.3)
 pay = torch.from_numpy(rng.integers(0, 9, (L, slots * n)).astype(np.int32))
 cal = net.Calendar(payload=(net.to_shards(pay, mesh, slots),), src=None,
                    valid=net.to_shards(valid, mesh, slots), slots=slots, mesh=mesh)
-link = net.make_link_state(n, 1, [2.0, 0, 0, 0, 0, 0, 0], device="cpu")
-dst = torch.from_numpy(rng.integers(5, 8, (2, n)).astype(np.int32))
-cal, fb = net.enqueue(cal, link, dst, torch.zeros((2, 1, n), dtype=torch.int32),
-                      torch.ones((2, n), dtype=torch.bool), torch.tensor([3], dtype=torch.int32),
-                      1.0, (1, 2), slot_mode="direct", features=("latency",), validate=True)
+lo, hi = mesh.own_lanes(n)
+link = net.make_link_state(hi - lo, 1, [2.0, 0, 0, 0, 0, 0, 0], device="cpu")
+dst = torch.from_numpy(rng.integers(5, 8, (2, n)).astype(np.int32))[:, lo:hi]
+cal, fb = net.enqueue(cal, link, dst, torch.zeros((2, 1, hi - lo), dtype=torch.int32),
+                      torch.ones((2, hi - lo), dtype=torch.bool),
+                      torch.tensor([3], dtype=torch.int32), 1.0, (1, 2), slot_mode="direct",
+                      features=("latency",), validate=True)
 print("RESULT", json.dumps([int(fb.collisions), fb.collision_where.tolist(),
                            int(fb.enqueued)]), flush=True)
 distributed.shutdown()
@@ -581,8 +619,9 @@ distributed.shutdown()
 
 
 def test_validate_probe_on_a_cohort_counts_the_followers_collisions():
-    """``validate``'s occupancy probe ORed over the processes: a fan-in onto
-    the follower's occupied slots counts the same collisions, with the same
+    """``validate``'s occupancy probe on a cohort: each rank sends its own
+    senders' messages to the destinations' ranks, and a fan-in onto the
+    follower's occupied slots counts the same collisions, with the same
     first (receiver, slot), as the single calendar's."""
     import numpy as np
     import torch
