@@ -81,7 +81,13 @@ and drives the port's main path through the library entry points
               conservation exact, every carry leaf equal to the unmeshed
               run's; wall and device ms/tick, kernels a tick, busy share
               of both, sync-debug counts at 32 and 64 ticks; ping-pong@100k
-              and flood@100k on the mesh to all SUCCESS
+              and flood@100k on the mesh to all SUCCESS; step ``parts``:
+              sustained@100k (500 ticks) and @1M (64 ticks) unmeshed, on
+              the mesh of one part and on the mesh cut into 4 parts, each
+              part holding and stepping its own lanes: equal carry
+              digests, each part's carry bytes the predicted replicated +
+              placed ÷ 4, the card's peak, kernels a tick and wall ms/tick
+              (see ``mesh_parts_step``)
 15. cli     — the port's CLI (``testground_tpu_torch.cli.main.main`` in
               process) in temporary homes holding the port's plans:
               ``healthcheck --runner sim:torch``; the sustained smoke
@@ -174,7 +180,9 @@ and drives the port's main path through the library entry points
               in a service process (see ``phase_sync``)
 25. exec    — the ``local:exec`` runner on the card's host, through the CLI:
               ``placebo:ok`` at 64 instances on ``exec:py`` (native sync
-              service), ``example:sync`` at 16, ``example-cpp:sync`` at 16
+              service), ``example:sync`` at 16, ``network:ping-pong`` at 2
+              and 4 (real TCP, each dialer's two RTT lines printed),
+              ``example-cpp:sync`` at 16
               on ``exec:bin`` (g++) and the ``polyglot`` rendezvous (with
               perl), each to all SUCCESS with its ``collect`` tarball, and
               ``placebo:ok`` at 64 on ``sim:torch`` on the card with the same
@@ -813,11 +821,13 @@ class PhaseTimer:
 
 
 def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=None,
-            trace=None, mesh=None, ladder=None, **kw):
+            trace=None, mesh=None, ladder=None, parts=None, **kw):
     """A port SimProgram of one group; ``fault_tables`` (fault tables by
     group id) are lowered by the port's ``build_fault_schedule``, ``trace``
     (an instance range, "lo:hi") by its ``build_trace_plan``; ``mesh`` (a
-    shard count) runs it on a virtual mesh on ``device``. ``ladder`` (a
+    shard count) runs it on a virtual mesh on ``device``, cut into several
+    parts at the shard cuts ``parts`` (each part then holding and stepping
+    its own lanes). ``ladder`` (a
     bucket ladder) pads the group to its rung as the executor does under
     ``bucket = "auto"``: the plan specialized at the padded count, the
     fault schedule lowered in the exact layout and remapped."""
@@ -851,7 +861,7 @@ def program(case, n, params, chunk, device="cuda", plan="network", fault_tables=
 
         kw["trace"] = build_trace_plan(groups, {"": {"instances": trace}})
     if mesh:
-        kw["mesh"] = card_mesh(mesh, device)
+        kw["mesh"] = card_mesh(mesh, device, parts)
     return SimProgram(
         tc, groups, test_plan=plan, test_case=case, tick_ms=1.0,
         chunk=chunk, device=device, **kw,
@@ -924,10 +934,16 @@ def phase_sustained(card) -> dict:
         "launches": launches, "flows": flows(res),
         "rounds_min": int(res["states"][0]["rounds"].min()),
         "phase_ms_per_tick": timer.per_tick_ms(),
-        **device_profile(prog, ticks=64, wall_ms_per_tick=wall / ticks * 1e3),
+        # a chunk-64 twin's first 64 ticks (the chunk-250 program's
+        # profile covered 250)
+        **profile_twin(n, wall / ticks * 1e3),
         "card": card,
     }
-    row["host_syncs"] = {k: host_syncs(prog, k) for k in (32, 64)}
+    # sync-debug counts on a chunk-16 twin, so 32 and 64 ticks differ by
+    # 32 ticks (the chunk-250 program runs 250 ticks for both)
+    twin = program("pingpong-sustained", n, SUSTAINED, chunk=16)
+    twin.run(seed=0, max_ticks=16)
+    row["host_syncs"] = {k: host_syncs(twin, k) for k in (32, 64)}
     return row
 
 
@@ -1021,15 +1037,16 @@ def device_profile(prog, ticks, wall_ms_per_tick, by_name=False) -> dict:
     }
 
 
-def profile_twin(n, wall_ms_per_tick, **kw) -> dict:
+def profile_twin(n, wall_ms_per_tick, ticks=64, **kw) -> dict:
     """``device_profile`` of sustained@n at phase 4's parameters over its
-    first 64 ticks, through a chunk-64 twin (``kw``: ``program``'s planes
-    and faults) after a warm-up run that builds its constants. A run stops
-    at whole chunks, and a profiled tick costs the host ~0.1 s: profiling
-    a chunk-250 program's first 64 ticks profiles 250."""
-    twin = program("pingpong-sustained", n, SUSTAINED, chunk=64, **kw)
-    twin.run(seed=0, max_ticks=64)
-    return device_profile(twin, ticks=64, wall_ms_per_tick=wall_ms_per_tick)
+    first ``ticks`` ticks, through a twin of that chunk (``kw``:
+    ``program``'s planes, faults and mesh) after a warm-up run that builds
+    its constants. A run stops at whole chunks, and a profiled tick costs
+    the host ~0.1 s: profiling a chunk-250 program's first 64 ticks
+    profiles 250."""
+    twin = program("pingpong-sustained", n, SUSTAINED, chunk=ticks, **kw)
+    twin.run(seed=0, max_ticks=ticks)
+    return device_profile(twin, ticks=ticks, wall_ms_per_tick=wall_ms_per_tick)
 
 
 def phase_pingpong(card) -> dict:
@@ -1071,9 +1088,18 @@ def phase_flood(card) -> dict:
         "peer_ticks_per_s": n * ticks / wall, "launches": launches,
         "flows": flows(res), "rounds_min": int(metrics["flood.rounds"].min()),
         "calendar_bytes": sum(p.numel() * p.element_size() for p in _planes(carry.cal)),
-        **device_profile(prog, ticks=64, wall_ms_per_tick=wall / ticks * 1e3),
+        # a chunk-64 twin's first 64 ticks (the chunk-500 program's
+        # profile covered 500)
+        **device_profile(_flood_twin(n, params), ticks=64,
+                         wall_ms_per_tick=wall / ticks * 1e3),
         "card": card,
     }
+
+
+def _flood_twin(n, params):
+    twin = program("pingpong-flood", n, params, chunk=64, plan="benchmarks")
+    twin.run(seed=0, max_ticks=64)
+    return twin
 
 
 def phase_storm(card) -> dict:
@@ -1145,9 +1171,10 @@ def phase_scale(card) -> dict:
 def phase_faults(card) -> dict:
     """The slice's full-width path: sustained@100k under a schedule of
     every fault kind, beside the same run without one. Both runs are
-    timed on the wall clock first, then profiled: the faulted one over its
-    whole 500 ticks (the fault windows end at tick 450), the unfaulted one
-    over the first 64 ticks of a chunk-64 twin (``profile_twin``)."""
+    timed on the wall clock first, then profiled over the first ticks of a
+    chunk-64 twin: the faulted one over 128 (its crash and purge at tick
+    100 inside), the unfaulted one over 64
+    (``profile_twin``)."""
     n = 100_000
     runs, progs, launches = {}, {}, {"commit_calendar": 0, "pop_bucket": 0}
     for label, tables in (("unfaulted", None), ("faulted", sustained_fault_tables(n))):
@@ -1168,8 +1195,12 @@ def phase_faults(card) -> dict:
             "faults_restarted": res["faults_restarted"],
             "fault_dropped": res["fault_dropped"],
         }
-    runs["faulted"].update(device_profile(progs["faulted"], ticks=500,
+    twin = program("pingpong-sustained", n, SUSTAINED, chunk=64,
+                   fault_tables=sustained_fault_tables(n))
+    twin.run(seed=0, max_ticks=64)
+    runs["faulted"].update(device_profile(twin, ticks=128,
                                           wall_ms_per_tick=runs["faulted"]["wall_ms_per_tick"]))
+    del twin
     runs["unfaulted"].update(profile_twin(n, runs["unfaulted"]["wall_ms_per_tick"]))
     f = runs["faulted"]
     f["purge"] = purge_timing(n, f["device_ms_per_tick"])
@@ -1194,10 +1225,11 @@ def phase_mesh(card) -> dict:
     unmeshed (wall ms/tick of each turn), both to all SUCCESS with exact
     flow conservation and every carry leaf equal; the meshed run launches
     each sharded kernel once a tick and the unsharded ones never. Then
-    device ms/tick, kernels a tick and busy share of both, sync-debug
-    counts of the meshed run at 32 and 64 ticks (chunk 16: no sync a
-    tick), and ping-pong@100k and flood@100k (direct slots) on the mesh to
-    all SUCCESS."""
+    device ms/tick, kernels a tick and busy share of both (over a chunk-32
+    twin's first 32 ticks), sync-debug counts of the meshed run at 32 and
+    64 ticks (chunk 16: no sync a tick), ping-pong@100k and flood@100k
+    (direct slots) on the mesh to all SUCCESS, and step ``parts``
+    (:func:`mesh_parts_step`)."""
     from testground_tpu_torch.sim.carry_io import carry_to_numpy
 
     n = 100_000
@@ -1227,7 +1259,9 @@ def phase_mesh(card) -> dict:
             if turn == 0:
                 carries[label] = carry_to_numpy(carry)
                 runs[label] = {"ticks": ticks, "launches": got, "flows": flows(res),
-                               "carry_bytes": res["carry_bytes"]}
+                               "carry_bytes": res["carry_bytes"],
+                               "digest": progs[label].carry_digest(carry),
+                               "device_bytes": progs[label].part_bytes(carry)[0]}
     um, me = carries["unmeshed"], carries["mesh"]
     diff = [k for k in um if not np.array_equal(um[k], me[k])]
     check(not diff, f"mesh: carry leaves differ from the unmeshed run: {diff}")
@@ -1237,8 +1271,10 @@ def phase_mesh(card) -> dict:
         row["wall_ms_per_tick"] = walls[label]
         row["wall_ms_per_tick_median"] = statistics.median(walls[label])
         row["peer_ticks_per_s"] = n * 1e3 / row["wall_ms_per_tick_median"]
-        row.update(device_profile(progs[label], ticks=64,
-                                  wall_ms_per_tick=row["wall_ms_per_tick_median"]))
+        # a chunk-32 twin: a run stops at whole chunks (the chunk-250
+        # programs' profiles covered 250 ticks)
+        row.update(profile_twin(n, row["wall_ms_per_tick_median"], ticks=32,
+                                **({"mesh": MESH_SHARDS} if label == "mesh" else {})))
     twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, mesh=MESH_SHARDS)
     twin.run(seed=0, max_ticks=16)  # its first step builds the plan's constants
     sites: dict = {}
@@ -1266,8 +1302,116 @@ def phase_mesh(card) -> dict:
                         "wall_ms_per_tick": wall / ticks * 1e3,
                         "peer_ticks_per_s": n * ticks / wall, "launches": got,
                         "flows": flows(res)}
+    parts = mesh_parts_step(runs)
+    for k, v in parts.pop("launches").items():
+        launches[k] += v
     return {"phase": "mesh", "n": n, "shards": MESH_SHARDS, "turns": MESH_TURNS,
-            "runs": runs, "others": others, "launches": launches, "card": card}
+            "runs": runs, "others": others, "parts": parts, "launches": launches,
+            "card": card}
+
+
+# step ``parts`` of phase mesh: (instances, max ticks, chunk) of sustained;
+# at 100k the run goes to completion, as the phase's own turns do
+PARTS_RUNS = ((100_000, 10_000, 250), (1_000_000, 64, 64))
+
+
+def mesh_parts_step(phase_runs: dict) -> dict:
+    """Phase mesh's step ``parts``: sustained at phase 4's parameters at
+    each of :data:`PARTS_RUNS` on card 0 three ways: unmeshed, on the
+    4-shard mesh of one part, and on the same mesh cut into 4 explicit
+    parts, each part holding and stepping its own lanes (one thread a
+    part). At 100k the first two are the phase's own turn-0 runs
+    (``phase_runs``), so only the parts run is made there. The three carry
+    digests are equal; each part's carry bytes are the replicated bytes
+    plus the placed bytes ÷ 4 (the prediction, held exactly), whose sum is
+    the run alone's; the card's peak allocated bytes during each run made
+    here, less what the process held before it (the program's build
+    included); wall ms a tick; each part pops once a tick and commits on the
+    ticks that bring its lanes messages. At 100k a chunk-16 twin of the
+    parts run gives its kernels and device ms a tick over 16 ticks."""
+    from testground_tpu_torch.sim.checkpoint import _source, leaf_paths
+
+    launches = dict.fromkeys(KERNELS + SHARDED_KERNELS, 0)
+    ways = {"unmeshed": {}, "one-part": {"mesh": MESH_SHARDS},
+            "parts": {"mesh": MESH_SHARDS, "parts": (1, 2, 3)}}
+    out = {}
+    for n, max_ticks, chunk in PARTS_RUNS:
+        row = {}
+        if n == PARTS_RUNS[0][0]:
+            for label, key in (("unmeshed", "unmeshed"), ("one-part", "mesh")):
+                got = phase_runs[key]
+                row[label] = {"ticks": got["ticks"], "digest": got["digest"],
+                              "carry_bytes": [got["device_bytes"]],
+                              "wall_ms_per_tick": got["wall_ms_per_tick"][0]}
+        for label, kw in ways.items():
+            if label in row:
+                continue
+            prog = program("pingpong-sustained", n, SUSTAINED, chunk=chunk, **kw)
+            check(prog.parted == (label == "parts"), f"mesh parts: {label} parted")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # the bytes the process held before the run (the program's own
+            # build included) are not the run's
+            held = torch.cuda.memory_allocated()
+            res, wall, ticks, carry = run_timed(prog, max_ticks=max_ticks)
+            got = read_launches(KERNELS + SHARDED_KERNELS)
+            for k, v in got.items():
+                launches[k] += v
+            check(conserved(res), f"mesh parts {label}@{n}: flow conservation {flows(res)}")
+            row[label] = {"ticks": ticks, "wall_ms_per_tick": wall / ticks * 1e3,
+                          "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                          "carry_bytes": prog.part_bytes(carry), "launches": got,
+                          "flows": flows(res), "digest": prog.carry_digest(carry)}
+            if label == "parts":
+                # each part pops its rows every tick and commits on the
+                # ticks that bring its own lanes messages
+                check(got["pop_bucket_sharded"] == MESH_SHARDS * ticks
+                      and 0 < got["commit_calendar_sharded"] <= got["pop_bucket_sharded"]
+                      and got["commit_calendar"] == got["pop_bucket"] == 0,
+                      f"mesh parts@{n}: launches {got} over {ticks} ticks")
+                placed = replicated = 0
+                for c in carry.parts:
+                    for path in leaf_paths(c):
+                        x = _source(c, path)
+                        if path.startswith("cal."):
+                            placed += sum(p.numel() * p.element_size() for p in x)
+                        elif isinstance(x, torch.Tensor) and _placed(path):
+                            placed += x.numel() * x.element_size()
+                        elif isinstance(x, torch.Tensor) and c is carry.parts[0]:
+                            replicated += x.numel() * x.element_size()
+                row["placed_bytes"], row["replicated_bytes"] = placed, replicated
+                row["predicted_part_bytes"] = replicated + placed // MESH_SHARDS
+                check(row[label]["carry_bytes"] == [row["predicted_part_bytes"]] * MESH_SHARDS,
+                      f"mesh parts@{n}: part bytes {row[label]['carry_bytes']}, predicted "
+                      f"{row['predicted_part_bytes']}")
+                if n == PARTS_RUNS[0][0]:
+                    # 16 ticks: a profiled tick of four parts costs the host
+                    # ~4× a tick of one
+                    prof = profile_twin(n, row[label]["wall_ms_per_tick"], ticks=16, **kw)
+                    row[label]["kernels_per_tick"] = prof["kernels_per_tick"]
+                    row[label]["device_ms_per_tick"] = prof["device_ms_per_tick"]
+            del prog, carry, res
+        digests = {label: r["digest"] for label, r in row.items() if label in ways}
+        check(len(set(digests.values())) == 1, f"mesh parts@{n}: carry digests {digests}")
+        check(row["placed_bytes"] + row["replicated_bytes"] == row["unmeshed"]["carry_bytes"][0],
+              f"mesh parts@{n}: placed + replicated != the run alone's carry bytes")
+        print(f"chip_smoke mesh parts@{n}: digest {digests['parts']} (one-part and unmeshed "
+              f"equal), part bytes {row['parts']['carry_bytes']} against "
+              f"{row['unmeshed']['carry_bytes'][0]} alone (predicted "
+              f"{row['predicted_part_bytes']}), peak {row['parts']['peak_bytes']} B, "
+              f"{row['parts']['wall_ms_per_tick']:.3f} ms/tick against "
+              f"{row['one-part']['wall_ms_per_tick']:.3f} on one part", flush=True)
+        out[str(n)] = row
+    out["launches"] = launches
+    return out
+
+
+def _placed(path: str) -> bool:
+    """Whether a several-part program places the carry leaf at ``path``
+    (``MeshPlan.lane_axis``)."""
+    from testground_tpu_torch.sim.meshplan import MeshPlan
+
+    return MeshPlan(None).lane_axis(path) is not None
 
 
 # the telemetry phase's four ways to run sustained@100k, and how many
@@ -1365,7 +1509,7 @@ def phase_telemetry(card) -> dict:
     at phase 4's parameters four ways, timed in TURNS turns (each way once
     a turn, every other turn in reverse order; each way's wall ms/tick
     against the planes-off run of the same turn gives its paired deltas),
-    then profiled over the first 64 ticks of a chunk-64 twin each
+    then profiled over the first 32 ticks of a chunk-32 twin each
     (``profile_twin``);
     the sync-debug counts at 32 and 64 ticks use chunk-16 twins, so that
     both runs span chunk boundaries. Then the faulted sustained of phase
@@ -1407,7 +1551,7 @@ def phase_telemetry(card) -> dict:
                    wall_ms_vs_off=diff, off_iqr_ms=q3 - q1,
                    wall_resolved=abs(diff) > q3 - q1,
                    turns_slower_than_off=sum(d > 0 for d in deltas))
-        row.update(profile_twin(n, wall_ms, **PLANE_SETS[label]))
+        row.update(profile_twin(n, wall_ms, ticks=32, **PLANE_SETS[label]))
         twin = program("pingpong-sustained", n, SUSTAINED, chunk=16, **PLANE_SETS[label])
         # one warm-up run: a program's first step builds its constants
         twin.run(seed=0, max_ticks=16)
@@ -2331,19 +2475,22 @@ def phase_cli(card) -> dict:
         step("influx")
 
         # kernels a tick and device ms/tick of the CLI's run and of the
-        # executor's over the first chunk (max_ticks = one chunk, 250
-        # ticks), profiled last (a profiler session slows later launches)
+        # executor's over one chunk of 64 ticks (a chunk-64 twin, not the
+        # run's chunk of 250), profiled last (a profiler session slows later
+        # launches)
         first = os.path.join(root, "sustained-100k-first-chunk.toml")
         with open(path) as f, open(first, "w") as g:
-            g.write(f.read().replace("max_ticks = 10000", "max_ticks = 250"))
+            g.write(f.read().replace("max_ticks = 10000", "max_ticks = 64")
+                    .replace("chunk = 250", "chunk = 64"))
         job0 = dataclasses.replace(
-            job0, runner_config=dataclasses.replace(job0.runner_config, max_ticks=250))
+            job0, runner_config=dataclasses.replace(job0.runner_config, max_ticks=64,
+                                                    chunk=64))
         prof = {}
         for way, fn in (("cli", lambda: cli_call(home, ["run", "composition", "-f", first])),
                         ("execute_sim_run", lambda: exec_run("profiled"))):
             ms, kernels = _profiled(fn)
-            prof[way] = {"ticks": 250, "device_ms_per_tick": ms / 250,
-                         "kernels_per_tick": kernels / 250}
+            prof[way] = {"ticks": 64, "device_ms_per_tick": ms / 64,
+                         "kernels_per_tick": kernels / 64}
         row["sustained_100k"]["profiled"] = prof
         step("profiled")
     finally:
@@ -2935,10 +3082,10 @@ def phase_admit(card) -> dict:
         kernels = {}
         for perf_on in (True, False):
             def job(label):
-                # two chunks of 64 ticks: the counts a tick do not need more
+                # two chunks of 32 ticks: the counts a tick do not need more
                 return exec_job(f"{label}-{int(perf_on)}", root, "network",
-                                "pingpong-sustained", 100_000, SUSTAINED, chunk=64,
-                                max_ticks=128, telemetry=True, perf=perf_on)
+                                "pingpong-sustained", 100_000, SUSTAINED, chunk=32,
+                                max_ticks=64, telemetry=True, perf=perf_on)
 
             (out, _, _), n_ops = dispatched_ops(lambda: run_exec(job("ops")))
             count(read_launches(), f"ops perf={perf_on}")
@@ -3257,7 +3404,9 @@ def phase_observe(card) -> dict:
             turns = {w: [] for w in OBSERVE_WAYS}
             watched = 0
             for i in range(OBSERVE_TURNS):
-                for way in OBSERVE_WAYS[i:] + OBSERVE_WAYS[:i]:
+                # the second turn runs alone only: the verbs' diff reads two
+                # alone runs
+                for way in OBSERVE_WAYS if i == 0 else ("alone",):
                     turns[way].append(turn(way, watched if way == "watch" else i))
                     watched += way == "watch"
             watcher.stdin.close()
@@ -4540,7 +4689,7 @@ def phase_packs(card) -> dict:
        its unmeshed-pack run;
     5. last, after every wall clock: the pack's peak device bytes against
        one member alone's and the meshed packs' over one chunk, and a first
-       chunk of 64 ticks profiled, the pack against one member alone and
+       chunk of 32 ticks profiled, the pack against one member alone and
        the meshed packs: device ms and kernels a tick, the busy share, K1's
        and K2's (or their sharded forms') ms a launch at the packed
        shape."""
@@ -4843,7 +4992,7 @@ def phase_packs(card) -> dict:
             for way in ways}
         step("meshes")
 
-        # 5. last: peak bytes, then the first 64 ticks profiled
+        # 5. last: peak bytes, then the first 32 ticks profiled
         peaks = {}
         for way in ("pack", "member", *PACK_MESHES):
             torch.cuda.synchronize()
@@ -4861,12 +5010,13 @@ def phase_packs(card) -> dict:
                 launches[k] += v
             peaks[way] = torch.cuda.max_memory_allocated() - held
         p8 = row["pack8_sustained"]
+        # one chunk of 32 ticks each
         prof = {
-            "pack": pack_profile(pack_prog(64), members(64),
+            "pack": pack_profile(pack_prog(32), members(32),
                                  p8["median_pack_wall_ms_per_tick"]),
-            "member": device_profile(pack_prog(64), ticks=64, wall_ms_per_tick=p8[
+            "member": device_profile(pack_prog(32), ticks=32, wall_ms_per_tick=p8[
                 "serial_member_wall_ms_per_tick"]),
-            **{way: pack_profile(pack_prog(64), members(64), statistics.median(
+            **{way: pack_profile(pack_prog(32), members(32), statistics.median(
                 row["pack8_meshes"][way]["wall_ms_per_tick"]), mesh=pack_mesh(way))
                for way in PACK_MESHES},
         }
@@ -5574,15 +5724,19 @@ def phase_exec(card) -> dict:
     """The ``local:exec`` runner on the card's host, through the port's CLI
     (in process, a temporary ``TESTGROUND_HOME`` whose ``.env.toml`` picks
     the native sync service): ``placebo:ok`` at 64 instances on
-    ``exec:py``, ``example:sync`` at 16, ``example-cpp:sync`` at 16 on
-    ``exec:bin`` (its ``build.sh`` runs g++) and, with perl, the
-    ``polyglot`` rendezvous of four Python and four Perl instances; each to
-    all SUCCESS, and ``collect`` of each, whose tarball holds every
-    instance directory (and each Python instance's ``run.out``). The same
+    ``exec:py``, ``example:sync`` at 16, ``network:ping-pong`` at 2 and 4
+    (real TCP between the instances, their addresses exchanged through the
+    sync service; each dialer prints its two ``round N rtt`` lines),
+    ``example-cpp:sync`` at 16 on ``exec:bin`` (its ``build.sh`` runs g++)
+    and, with perl, the ``polyglot`` rendezvous of four Python and four
+    Perl instances; each to all SUCCESS, and ``collect`` of each, whose
+    tarball holds every instance directory (and each Python instance's
+    ``run.out``). The same
     ``placebo:ok`` at 64 on ``sim:torch`` on the card gives the same
     outcome. No instance or sync-server process maps ``libcuda`` or is a
     compute app, read while they run. Prints instances/s and the runner's
     wall seconds to all outcomes of each run."""
+    import re
     import shutil
     import tarfile
     import tempfile
@@ -5601,6 +5755,10 @@ def phase_exec(card) -> dict:
                             "exec:py", "--runner", "local:exec"], {"single": EXEC_N}, True),
             ("example:sync", ["run", "single", "example:sync", "-i", "16", "--builder",
                               "exec:py", "--runner", "local:exec"], {"single": 16}, True),
+            *((f"network:ping-pong@{k}", ["run", "single", "network:ping-pong", "-i",
+                                          str(k), "--builder", "exec:py", "--runner",
+                                          "local:exec"], {"single": k}, True)
+              for k in (2, 4)),
             ("example-cpp:sync", ["run", "single", "example-cpp:sync", "-i", "16",
                                   "--builder", "exec:bin", "--runner", "local:exec"],
              {"single": 16}, False)]
@@ -5647,6 +5805,8 @@ def phase_exec(card) -> dict:
                 check(col["rc"] == 0, f"exec {label}: collect exit {col['rc']}: {col['err']}")
                 with tarfile.open(tgz) as tar:
                     names = set(tar.getnames())
+                    outs = [tar.extractfile(m).read().decode() for m in tar.getmembers()
+                            if m.name.endswith("/run.out")]
                 for g, n in groups.items():
                     for i in range(n):
                         inst = f"{task.id}/{g}/{i}"
@@ -5660,6 +5820,14 @@ def phase_exec(card) -> dict:
                     "instances": n, "wall_s": got["wall"], "runner_wall_s": runner_wall,
                     "instances_per_s": n / runner_wall, "collect_s": col["wall"],
                     "tarball_members": len(names)}
+                if label.startswith("network:"):
+                    rtts = [m.group(0) for text in outs
+                            for m in re.finditer(r"round \d rtt: [0-9.]+ ms", text)]
+                    check(len(rtts) == 2 * (n // 2),
+                          f"exec {label}: {len(rtts)} rtt lines, want two a dialer")
+                    row["runs"][label]["rtt_lines"] = rtts
+                    for ln in rtts:
+                        print(f"chip_smoke exec: {label}: {ln}", flush=True)
                 print(f"chip_smoke exec: {label} at {n} instances: "
                       f"{n / runner_wall:.1f} instances/s, {runner_wall:.3f} s to all "
                       f"outcomes ({got['wall']:.3f} s through the CLI)", flush=True)

@@ -580,7 +580,9 @@ class Engine:
         self, task_id: str, follow: bool = False, cancel: threading.Event | None = None
     ) -> Iterator[str]:
         """Stream a task's log file; with ``follow``, tail until the task
-        completes (``engine.go:461-558``)."""
+        completes (``engine.go:461-558``), then read the file to its end
+        once more: the task's last lines may land between a read at the
+        end of the file and the read of its state."""
         path = self.task_log_path(task_id)
         # wait for the file to appear if the task is still queued
         while not os.path.exists(path):
@@ -603,7 +605,10 @@ class Engine:
                     State.COMPLETE,
                     State.CANCELED,
                 )
-                if not follow or done:
+                if not follow:
+                    return
+                if done:
+                    yield from f
                     return
                 if cancel is not None and cancel.is_set():
                     return

@@ -67,9 +67,11 @@ def _total(a: np.ndarray) -> int:
     return int(a)
 
 
-def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarry:
+def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram):
     """Build a port carry on ``prog.device`` from numpy leaves keyed by
-    dotted path (see the module docstring)."""
+    dotted path (see the module docstring); a several-part program's is
+    cut into its parts' carries (``SimProgram.cut``: each part's own lanes
+    on its device)."""
     dev = prog.device
 
     def t_(key, dtype=None):
@@ -102,7 +104,7 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
             {k[len(prefix):]: t_(k) for k in sorted(arrays) if k.startswith(prefix)}
         )
     i64 = torch.int64
-    return SimCarry(
+    carry = SimCarry(
         states=tuple(states),
         status=t_("status", torch.int32),
         finished_at=t_("finished_at", torch.int32),
@@ -133,12 +135,14 @@ def carry_from_numpy(arrays: dict[str, np.ndarray], prog: SimProgram) -> SimCarr
         },
         **{k: t_(k, dtype) if k in arrays else None for k, dtype in _PLANES},
     )
+    return prog.cut(carry) if prog.parted else carry
 
 
-def carry_to_numpy(carry: SimCarry) -> dict[str, np.ndarray]:
+def carry_to_numpy(carry) -> dict[str, np.ndarray]:
     """Flatten a port carry to numpy leaves under the same dotted paths
     (calendar planes 2-D ``[L, N·SLOTS]``, a meshed calendar's shards
-    joined; totals as int64 scalars, keys as uint32)."""
+    joined; totals as int64 scalars, keys as uint32). A several-part
+    program's ``PartedCarry`` reads as its whole carry."""
     out: dict[str, np.ndarray] = {}
 
     def host(x):

@@ -1,4 +1,5 @@
-"""Multi-process cohorts over ``torch.distributed``.
+"""Multi-process cohorts over ``torch.distributed``, and the parts of a
+several-part mesh in one process.
 
 Port of ``testground_tpu/sim/distributed.py``. A run scales past one
 process as a cohort: every process joins one ``torch.distributed`` job
@@ -48,6 +49,21 @@ and over gloo where two ranks share a card (NCCL refuses that) or the run
 is on the CPU; :func:`global_mesh` makes that choice from what every rank
 reports, so all ranks choose alike, and :func:`backend` names it.
 
+The parts of one process. A mesh of several parts outside a cohort
+(``meshplan.TorchMesh.part_view``) runs the same per-owner tick, one host
+thread a part, and its parts meet at each collective through the mesh's
+:class:`PartGroup` instead of ``torch.distributed``. The parts take
+turns, in part order, from one collective to the next; the last folds
+every part's tensor once, in part order, on part 0's device, and each
+part takes the result onto its own device (a read of another part's
+tensor is a ``.to(device)``, which orders the copy behind that part's
+stream). So the replicated leaves are bit-equal on every part. Every
+collective below takes the ``mesh`` it runs over and dispatches on it: a
+mesh with a ``group`` folds in process, any other goes over the cohort's
+process groups. A part that fails breaks the group
+(:meth:`PartGroup.abort`), and every part waiting for its turn then
+raises :class:`PartsBroken`.
+
 Plan sources must be present on every process at the same plan name, and
 every process takes exactly one device: its run's device (``cpu``, a card
 named ``cuda:<k>``, or the current card). So the reference's requirement,
@@ -59,6 +75,7 @@ from __future__ import annotations
 import datetime
 import json
 import socket
+import threading
 import time
 
 import numpy as np
@@ -66,9 +83,13 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "PART_WAIT_SECS",
     "SPEC_BYTES",
     "CohortCancel",
+    "PartGroup",
+    "PartsBroken",
     "all_gather",
+    "all_gather_cat",
     "all_reduce_max",
     "all_reduce_min",
     "all_reduce_sum",
@@ -255,50 +276,220 @@ def _tensor_group():
     return _joined["tensor"].get(backend())
 
 
+def _count(stats: dict, op: str, x: torch.Tensor, secs: float) -> None:
+    st = stats.setdefault(op, [0, 0, 0.0])
+    st[0] += 1
+    st[1] += x.numel() * x.element_size()
+    st[2] += secs
+
+
 def _counted(op: str, x: torch.Tensor, call) -> None:
     t0 = time.perf_counter()
     call()
-    st = _STATS.setdefault(op, [0, 0, 0.0])
-    st[0] += 1
-    st[1] += x.numel() * x.element_size()
-    st[2] += time.perf_counter() - t0
+    _count(_STATS, op, x, time.perf_counter() - t0)
 
 
-def collective_stats(reset: bool = False) -> dict:
+# the longest a part waits for its turn (a part that fails breaks the
+# wait at once)
+PART_WAIT_SECS = 600.0
+
+
+class PartsBroken(RuntimeError):
+    """Another part of the mesh failed (or outwaited ``PART_WAIT_SECS``)
+    while this one waited for its turn."""
+
+
+def _fold_sum(xs):
+    out = xs[0].clone()
+    for x in xs[1:]:
+        out += x.to(out.device)
+    return out
+
+
+def _fold_with(fn):
+    def fold(xs):
+        out = xs[0]
+        for x in xs[1:]:
+            out = fn(out, x.to(out.device))
+        return out
+
+    return fold
+
+
+def _fold_blocks(xs):
+    dev, kmax = xs[0].device, max(x.shape[0] for x in xs)
+    return torch.stack([
+        x.to(dev) if x.shape[0] == kmax
+        else torch.cat([x.to(dev), x.new_zeros((kmax - x.shape[0], *x.shape[1:]), device=dev)])
+        for x in xs
+    ])
+
+
+_FOLDS = {
+    "sum": _fold_sum,
+    "max": _fold_with(torch.maximum),
+    "min": _fold_with(torch.minimum),
+    "gather": lambda xs: torch.stack([x.to(xs[0].device) for x in xs]),
+    "cat": lambda xs: torch.cat([x.to(xs[0].device) for x in xs]),
+    "blocks": _fold_blocks,
+}
+
+
+class PartGroup:
+    """The parts of one process's several-part mesh, one host thread each,
+    taking turns: one part runs at a time, up to its next collective, and
+    hands the turn to the next part in part order; the last part to arrive
+    folds every part's tensor once, in part order (on part 0's device), and
+    hands the turn back to part 0, and each part then reads the one result.
+    One runner at a time keeps the parts' host work from fighting over the
+    interpreter lock and the CPU's op threads, while their devices' queued
+    work overlaps. The parts call the same collectives in the same order
+    (the tick's lockstep); a part whose collective differs, or that ended
+    while the others met, fails the fold."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+        self._lock = threading.Lock()
+        self._stats: dict = {}
+        self.reset()
+
+    def reset(self) -> None:
+        """Arm the group for a new dispatch: part 0 holds the turn."""
+        self._turn = [threading.Semaphore(0) for _ in range(self.size)]
+        self._put: list = [None] * self.size
+        self._out = None
+        self._broken = False
+
+    def _fold(self) -> None:
+        ops = {None if put is None else put[0] for put in self._put}
+        if len(ops) != 1 or None in ops:
+            raise RuntimeError(
+                "the mesh's parts left lockstep: at one collective they called "
+                + ", ".join(str(None if put is None else put[0]) for put in self._put)
+                + " (None: the part had ended)"
+            )
+        self._out = _FOLDS[ops.pop()]([x for _, x in self._put])
+        self._put = [None] * self.size
+
+    def _check(self, rank: int, what: str) -> None:
+        if self._broken:
+            raise PartsBroken(
+                f"mesh part {rank}: another part failed, or the parts did not "
+                f"reach {what} within {PART_WAIT_SECS:g} s"
+            )
+
+    def _wait(self, rank: int, what: str) -> None:
+        if not self._turn[rank].acquire(timeout=PART_WAIT_SECS):
+            self.abort()
+        self._check(rank, what)
+
+    def start(self, rank: int) -> None:
+        """Wait for part ``rank``'s first turn (part 0 holds it)."""
+        if rank:
+            self._wait(rank, "their start")
+
+    def finish(self, rank: int) -> None:
+        """Part ``rank`` ended its work: hand the turn on."""
+        self._turn[(rank + 1) % self.size].release()
+
+    def meet(self, rank: int, op: str, x: torch.Tensor):
+        """Part ``rank``'s ``x`` folded with every other part's by ``op``
+        (``sum``, ``max``, ``min``: elementwise; ``gather``: stacked;
+        ``cat``: concatenated along dim 0; ``blocks``: padded to the
+        longest and stacked): the one result, on part 0's device."""
+        t0 = time.perf_counter()
+        self._check(rank, f"a collective ({op})")
+        self._put[rank] = (op, x)
+        if rank == self.size - 1:
+            self._fold()
+        self._turn[(rank + 1) % self.size].release()
+        self._wait(rank, f"a collective ({op})")
+        out = self._out
+        with self._lock:
+            _count(self._stats, _OP_NAMES[op], x, time.perf_counter() - t0)
+        return out
+
+    def abort(self) -> None:
+        """Break the group: every part waiting for its turn, and every part
+        that waits for one, raises :class:`PartsBroken`."""
+        self._broken = True
+        for turn in self._turn:
+            turn.release()
+
+    def stats(self, reset: bool = False) -> dict:
+        with self._lock:
+            out = {op: {"calls": c, "bytes": b, "secs": t}
+                   for op, (c, b, t) in self._stats.items()}
+            if reset:
+                self._stats.clear()
+        return out
+
+
+_OP_NAMES = {"sum": "all_reduce", "max": "all_reduce", "min": "all_reduce",
+             "gather": "all_gather", "cat": "all_gather", "blocks": "all_gather"}
+
+
+def _group(mesh) -> PartGroup | None:
+    return None if mesh is None else mesh.group
+
+
+def _reduce_in(mesh, op: str, x: torch.Tensor) -> torch.Tensor:
+    """``x`` reduced over the mesh's parts, in place."""
+    return x.copy_(mesh.group.meet(mesh.rank, op, x))
+
+
+def _gather_in(mesh, op: str, x: torch.Tensor) -> torch.Tensor:
+    out = mesh.group.meet(mesh.rank, op, x)
+    return out if out.device == x.device else out.to(x.device)
+
+
+def collective_stats(reset: bool = False, mesh=None) -> dict:
     """This process's tick collectives since the last reset, per op:
     ``{op: {"calls", "bytes", "secs"}}`` — the bytes it sent, the host
-    seconds the calls took (a call on gloo returns when its data is in)."""
+    seconds the calls took (a call on gloo returns when its data is in).
+    With a several-part ``mesh``, its parts' (every part's calls)."""
+    if _group(mesh) is not None:
+        return mesh.group.stats(reset)
     out = {op: {"calls": c, "bytes": b, "secs": t} for op, (c, b, t) in _STATS.items()}
     if reset:
         _STATS.clear()
     return out
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` over the cohort, in place; returns ``x``. On the card the
-    collective runs behind the work already queued on the current stream
-    (NCCL and gloo both wait on it), so it reads what the kernels wrote."""
+def all_reduce_sum(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Sum ``x`` over the cohort (over ``mesh``'s parts where it has a
+    group), in place; returns ``x``. On the card the collective runs behind
+    the work already queued on the current stream (NCCL and gloo both wait
+    on it), so it reads what the kernels wrote."""
+    if _group(mesh) is not None:
+        return _reduce_in(mesh, "sum", x)
     _counted("all_reduce", x, lambda: dist.all_reduce(
         x, op=dist.ReduceOp.SUM, group=_tensor_group()))
     return x
 
 
-def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_max(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The elementwise max of ``x`` over the cohort, in place."""
+    if _group(mesh) is not None:
+        return _reduce_in(mesh, "max", x)
     _counted("all_reduce", x, lambda: dist.all_reduce(
         x, op=dist.ReduceOp.MAX, group=_tensor_group()))
     return x
 
 
-def all_reduce_min(x: torch.Tensor) -> torch.Tensor:
+def all_reduce_min(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """The elementwise min of ``x`` over the cohort, in place."""
+    if _group(mesh) is not None:
+        return _reduce_in(mesh, "min", x)
     _counted("all_reduce", x, lambda: dist.all_reduce(
         x, op=dist.ReduceOp.MIN, group=_tensor_group()))
     return x
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
+def all_gather(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Every rank's ``x`` stacked in rank order: ``[P, *x.shape]``."""
+    if _group(mesh) is not None:
+        return _gather_in(mesh, "gather", x)
     out = torch.empty((dist.get_world_size(), *x.shape), dtype=x.dtype,
                       device=x.device)
     x = x.contiguous()
@@ -307,15 +498,31 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_blocks(x: torch.Tensor, counts: list[int] | None = None) -> tuple:
+def all_gather_cat(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order (the
+    ranks' lengths may differ on a several-part mesh; a cohort's are
+    equal)."""
+    if _group(mesh) is not None:
+        return _gather_in(mesh, "cat", x)
+    return all_gather(x).reshape(-1, *x.shape[1:])
+
+
+def gather_blocks(x: torch.Tensor, counts: list[int] | None = None, mesh=None) -> tuple:
     """Every rank's ``x`` (``[k_r, ...]``, ``k_r`` free per rank), stacked
     in one padded ``all_gather``: returns ``(every [P, max k, ...],
     counts)``, rank r's block being ``every[r, :counts[r]]``. ``counts``
     (every rank's ``k``, the same list on every rank) is gathered first
-    when not given: one one-int ``all_gather`` and a host read."""
+    when not given: one one-int ``all_gather`` and a host read (the parts
+    of one process read each other's ``k`` off the shapes)."""
     if x.dtype == torch.bool:  # gloo has no bool: its bytes cross
-        every, counts = gather_blocks(x.view(torch.uint8), counts)
+        every, counts = gather_blocks(x.view(torch.uint8), counts, mesh)
         return every.view(torch.bool), counts
+    if _group(mesh) is not None:
+        every = _gather_in(mesh, "blocks", x)
+        if counts is None:
+            k = torch.tensor([x.shape[0]], dtype=torch.int64)
+            counts = mesh.group.meet(mesh.rank, "gather", k).view(-1).tolist()
+        return every, counts
     if counts is None:
         k = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
         counts = all_gather(k).view(-1).tolist()
@@ -325,11 +532,11 @@ def gather_blocks(x: torch.Tensor, counts: list[int] | None = None) -> tuple:
     return all_gather(x), counts
 
 
-def vote_all(flag: torch.Tensor) -> bool:
+def vote_all(flag: torch.Tensor, mesh=None) -> bool:
     """Whether every rank's ``flag`` (a one-element bool or int tensor) is
     set: the cohort's done vote, one one-int ``all_reduce``."""
     v = flag.reshape(1).to(torch.int32)
-    return bool(int(all_reduce_min(v)[0]) != 0)
+    return bool(int(all_reduce_min(v, mesh)[0]) != 0)
 
 
 def broadcast_json(obj: dict | None) -> dict:
@@ -399,17 +606,18 @@ def shutdown() -> None:
     _joined.clear()
 
 
-def to_host(x, axis: int | None = None) -> np.ndarray:
+def to_host(x, axis: int | None = None, mesh=None) -> np.ndarray:
     """``x`` on this process's host. ``axis`` names a lane-placed leaf's
-    lane axis: on a cohort the leaf is gathered over the ranks along it,
-    each rank's block in rank order (:func:`gather_blocks`; collective, so
-    every rank calls it in lockstep). A replicated leaf (``axis`` None)
-    and any leaf outside a cohort is a local read."""
+    lane axis: on a cohort (or over ``mesh``'s parts) the leaf is gathered
+    over the ranks along it, each rank's block in rank order
+    (:func:`gather_blocks`; collective, so every rank calls it in
+    lockstep). A replicated leaf (``axis`` None) and any leaf outside a
+    cohort is a local read."""
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
-    if axis is None or not is_multiprocess():
+    if axis is None or (_group(mesh) is None and not is_multiprocess()):
         return x.detach().cpu().numpy()
     lead = x.detach().movedim(axis, 0).contiguous()
-    every, counts = gather_blocks(lead)
+    every, counts = gather_blocks(lead, mesh=mesh)
     glob = torch.cat([every[r, :k] for r, k in enumerate(counts)])
     return glob.movedim(0, axis).cpu().numpy()

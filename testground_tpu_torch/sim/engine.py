@@ -72,14 +72,27 @@ demuxes to the exact layout: every result is the exact run's, bit for bit.
 
 ``mesh`` (a ``meshplan.TorchMesh``) splits the calendar's lane axis over
 the mesh's peer shards (row 0's on a 2-D mesh): each shard's planes live
-on its device, the
-commit and the pop are the sharded kernels, and every other carry leaf
-stays on the mesh's primary device (shard 0's). A lane count that does
-not divide across the shards gets dead lanes at the end of its last group
-(the same machinery, the counts as Python ints), which nothing outside
-the program sees: results, snapshots (:class:`LaneExport`) and the
-footprint keep the caller's layout. Every result is the unmeshed run's,
-bit for bit.
+on its device, and the commit and the pop are the sharded kernels. On a
+mesh of one part every other carry leaf stays on the mesh's primary
+device. A lane count that does not divide across the shards gets dead
+lanes at the end of its last group (the same machinery, the counts as
+Python ints), which nothing outside the program sees: results, snapshots
+(:class:`LaneExport`) and the footprint keep the caller's layout. Every
+result is the unmeshed run's, bit for bit.
+
+A mesh of several parts in one process (explicit ``parts``, or several
+cards) places the carry as a cohort does, a part in the place of a rank:
+the program builds one program a part over the part's view of the mesh
+(``TorchMesh.part_view``, the parts meeting at the tick's collectives
+through the in-process ``distributed.PartGroup``), and its carry is a
+:class:`PartedCarry`, each part's own lanes on its device. ``run`` steps
+every part on a host thread of its own, up to each chunk's end, and runs
+the planes' callbacks and the loop hooks once, on the calling thread,
+from part 0's replicated accumulators; the observer, ``results``, the
+footprint, the digest and a snapshot read the carry whole (the placed
+leaves gathered in lane order). A layout whose last part would hold no
+instance lane (the host lanes alone) keeps the one-part placement: the
+calendar split, every other leaf on the primary device.
 
 A cohort mesh (``sim/distributed.global_mesh``) spans processes, one
 cell each, and places the carry: rank r holds lanes ``[r·n_loc,
@@ -171,6 +184,7 @@ from .trace import EV_DELIVER, EV_SEND, EV_SIGNAL, EV_STATUS
 
 __all__ = [
     "MAX_FILTER_CELLS",
+    "PartedCarry",
     "SimCarry",
     "SimProgram",
     "SimStallError",
@@ -389,6 +403,13 @@ class SimProgram:
         live_counts=None,
         lane_multiple: int = 1,
     ):
+        # the arguments as given: a several-part mesh builds its parts' own
+        # programs from them
+        given = dict(testcase=testcase, groups=groups, test_plan=test_plan,
+                     test_case=test_case, test_run=test_run, tick_ms=tick_ms, chunk=chunk,
+                     hosts=hosts, validate=validate, faults=faults, telemetry=telemetry,
+                     netmatrix=netmatrix, trace=trace, live_counts=live_counts,
+                     lane_multiple=lane_multiple)
         cls = type(testcase)
         # Shape bucketing (sim/buckets.py, the reference's rules and
         # messages, engine.py:340-378): ``groups`` is the PADDED layout and
@@ -481,8 +502,9 @@ class SimProgram:
         # a cohort process's own lanes (every lane outside a cohort)
         self.placed = mesh is not None and mesh.cohort
         if self.placed:
-            per = self.n_lanes // len(set(mesh.ranks))
-            if self.n_lanes - per >= self.n:
+            last_lo, last_hi = mesh.rank_lanes(self.n_lanes)[-1]
+            per = last_hi - last_lo
+            if last_lo >= self.n:
                 raise ValueError(
                     f"a cohort of {len(set(mesh.ranks))} processes holds {per} "
                     f"lane(s) on each: the {len(self.hosts)} host lane(s) must "
@@ -566,6 +588,16 @@ class SimProgram:
         self._consts = {}  # constant StepOut planes on the device (_plane)
         if self.telemetry or self.trace is not None:
             self._build_plane_statics(cls)
+        # a several-part mesh: one program a part, each holding and
+        # stepping its own lanes (None: this program steps the whole carry)
+        self._parts = None
+        if (mesh is not None and not mesh.cohort and len(mesh.parts) > 1
+                and mesh.parts[-1][1] * (self.n_lanes // mesh.size) < self.n):
+            from .distributed import PartGroup
+
+            self._group = PartGroup(len(mesh.parts))
+            self._parts = [SimProgram(**given, mesh=mesh.part_view(p, self._group))
+                           for p in range(len(mesh.parts))]
 
     def _set_own(self, lo: int, hi: int) -> None:
         """This process's lanes ``[lo, hi)``: ``_n_own`` of them,
@@ -739,6 +771,8 @@ class SimProgram:
                     f"the program's bucket plan {self.live_counts}: the port "
                     "builds its virtual maps once per program"
                 )
+        if self._parts is not None:
+            return PartedCarry(self, [p.init_carry(seed, live_counts) for p in self._parts])
         cls = type(self.tc)
         dev = self.device
         lo, n_i = self._lo, self._n_inst
@@ -863,6 +897,8 @@ class SimProgram:
         """:func:`carry_footprint` of this program's ``carry`` in the
         caller's layout: a mesh padding's dead lanes are not counted (the
         reference's meshed footprint has the exact shapes)."""
+        if isinstance(carry, PartedCarry):
+            carry = self._gather(carry, shapes_only=True)
         if self.placed:
             return self._cohort_footprint(carry)
         out = carry_footprint(carry)
@@ -908,7 +944,11 @@ class SimProgram:
         """:func:`carry_digest` of the whole carry: on a cohort every placed
         leaf gathered from every process in rank order (collective: every
         process calls it in lockstep and reads the same number), the mesh
-        padding's dead lanes cut, so it is the single process's digest."""
+        padding's dead lanes cut, so it is the single process's digest. A
+        several-part program's is its whole carry's, as a one-part mesh of
+        the same layout digests it."""
+        if isinstance(carry, PartedCarry):
+            return carry_digest(self._gather(carry))
         if not self.placed:
             return carry_digest(carry)
         from .checkpoint import _source, leaf_paths
@@ -920,11 +960,129 @@ class SimProgram:
             x = _source(carry, path)
             if path.startswith("cal.") or not isinstance(x, torch.Tensor):
                 continue
-            data = to_host(x, self.meshplan.lane_axis(path))
+            data = to_host(x, self.meshplan.lane_axis(path), self.mesh)
             if export is not None:
                 data = export.take(path, data)
             total += int(np.ascontiguousarray(data).view(np.uint8).sum(dtype=np.int64))
         return total
+
+    @property
+    def parted(self) -> bool:
+        """Whether each part of the mesh holds and steps its own lanes."""
+        return self._parts is not None
+
+    def part_bytes(self, carry) -> list[int]:
+        """Each part's device-resident carry bytes, in part order (one
+        entry for a program that holds its whole carry)."""
+        if isinstance(carry, PartedCarry):
+            return [carry_bytes(c) for c in carry.parts]
+        return [carry_bytes(carry)]
+
+    def single(self) -> "SimProgram":
+        """This program stepped in one thread: a several-part program as a
+        mesh of one part keeps its carry (the calendar split over the
+        parts, every other leaf on the primary device); itself otherwise."""
+        if self._parts is None:
+            return self
+        out = copy.copy(self)
+        out._parts = None
+        return out
+
+    def _gather(self, carry: "PartedCarry", shapes_only: bool = False) -> SimCarry:
+        """The whole carry of a several-part program, in the layout
+        :meth:`single` steps: every placed leaf the parts' blocks joined in
+        lane order on the host (``shapes_only``: a storage-free stand-in of
+        its shape), every replicated leaf part 0's, and the calendar every
+        part's planes."""
+        parts = carry.parts
+        lane_axis = self.meshplan.lane_axis
+
+        def leaf(path, xs):
+            axis = lane_axis(path)
+            if axis is None:
+                return xs[0]
+            if shapes_only:
+                shape = list(xs[0].shape)
+                shape[axis] = sum(x.shape[axis] for x in xs)
+                return torch.zeros((), dtype=xs[0].dtype).expand(shape)
+            return torch.cat([x.detach().cpu() for x in xs], dim=axis)
+
+        def planes(get):
+            if get(parts[0].cal) is None:
+                return None
+            return tuple(t for c in parts for t in get(c.cal))
+
+        c0 = parts[0].cal
+        cal = Calendar(
+            payload=tuple(planes(lambda c, w=w: c.payload[w]) for w in range(c0.width)),
+            src=planes(lambda c: c.src), valid=planes(lambda c: c.valid),
+            etick=planes(lambda c: c.etick), slots=c0.slots, mesh=self.mesh,
+        )
+        return _zip_carries(parts, leaf, cal)
+
+    def cut(self, whole: SimCarry) -> "PartedCarry":
+        """A whole carry of a several-part program (:meth:`_gather`'s
+        layout) as its parts' carries: each part's own lanes of every placed
+        leaf and a replica of every other copied onto its device, and its
+        calendar planes."""
+        lane_axis = self.meshplan.lane_axis
+        out = []
+        for i, part in enumerate(self._parts):
+
+            def leaf(path, xs, part=part):
+                x, axis = xs[0], lane_axis(path)
+                if axis is not None and path.startswith("states."):
+                    sp = part._gown[int(path.split(".")[1])]
+                    x = x[sp.start : sp.start + sp.count]
+                elif axis is not None:
+                    held = part._n_inst if path in _INSTANCE_PLANES else part._n_own
+                    x = x.narrow(axis, part._lo, held)
+                return x.to(part.device, copy=True)
+
+            def plane(p, i=i):
+                return None if p is None else (p[i],)
+
+            cal = whole.cal
+            pcal = Calendar(payload=tuple(plane(p) for p in cal.payload), src=plane(cal.src),
+                            valid=plane(cal.valid), etick=plane(cal.etick), slots=cal.slots,
+                            mesh=part.mesh)
+            out.append(_zip_carries([whole], leaf, pcal))
+        return PartedCarry(self, out)
+
+    def _on_parts(self, work: Callable[[int], None]) -> None:
+        """``work(i)`` for every part ``i`` of a several-part program, each
+        on a host thread of its own with its part's card current (part 0 on
+        the calling thread), the parts taking turns from one collective to
+        the next (``distributed.PartGroup``), and wait for every part. A
+        part that raises breaks the group, so every other part stops at its
+        next turn; the first part's own failure is raised (a broken wait
+        only where no part failed of its own)."""
+        from .distributed import PartsBroken
+
+        errors: list = [None] * len(self._parts)
+
+        def run(i):
+            try:
+                self._group.start(i)
+                with device_context(self._parts[i].device):
+                    work(i)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errors[i] = e
+                self._group.abort()
+            else:
+                self._group.finish(i)
+
+        self._group.reset()
+        threads = [threading.Thread(target=run, args=(i,), daemon=True, name=f"sim-part-{i}")
+                   for i in range(1, len(self._parts))]
+        for th in threads:
+            th.start()
+        run(0)
+        for th in threads:
+            th.join()
+        failed = [e for e in errors if e is not None]
+        if failed:
+            raise next((e for e in failed if not isinstance(e, PartsBroken)), failed[0])
 
     def lane_export(self) -> "LaneExport | None":
         """How a snapshot of this program cuts the mesh padding's dead
@@ -938,8 +1096,10 @@ class SimProgram:
         meta = copy.copy(self)
         meta.device = torch.device("meta")
         meta.mesh = None if self.mesh is None else self.mesh.on(meta.device)
-        # a cohort's carry at its whole shapes, as the reference's
+        # a cohort's (or a several-part program's) carry at its whole
+        # shapes, as the reference's
         meta.placed = False
+        meta._parts = None
         meta._set_own(0, self.n_lanes)
         meta._consts = {}
         meta._build_layout(meta.device)
@@ -991,7 +1151,7 @@ class SimProgram:
         terminal-instance freezing, and the per-group output planes
         concatenated along the instance axis."""
         cls = type(self.tc)
-        live_g = (live_per_group(carry.status, self._gown, cohort=True) if self.placed
+        live_g = (live_per_group(carry.status, self._gown, self.mesh) if self.placed
                   else live_per_group(carry.status, self.groups))
         sub_payload, sub_valid = make_sub_window(carry.sync, cls.SUB_K)
         outs = []
@@ -1199,7 +1359,7 @@ class SimProgram:
 
             both = all_reduce_sum(torch.stack([
                 torch.zeros((), dtype=torch.int32, device=self.device) if x is None else x
-                for x in (crashed_t, restarted_t)]))
+                for x in (crashed_t, restarted_t)]), self.mesh)
             crashed_t = None if crashed_t is None else both[0]
             restarted_t = None if restarted_t is None else both[1]
         carry = dataclasses.replace(
@@ -1391,7 +1551,7 @@ class SimProgram:
                 if placed:
                     from .distributed import all_reduce_max
 
-                    net_bw_hiwater = all_reduce_max(net_bw_hiwater)
+                    net_bw_hiwater = all_reduce_max(net_bw_hiwater, self.mesh)
         new = SimCarry(
             states=step["states"],
             status=step["status"],
@@ -1475,9 +1635,9 @@ class SimProgram:
             parts.append(lat_d.reshape(-1))
         if self.netmatrix:
             parts.append(nm)
-        every = all_gather(torch.cat(parts))
+        every = all_gather(torch.cat(parts), self.mesh)
         ranks = RankTotals(sig=every[:, :n_s], pub=every[:, n_s : n_s + n_t],
-                           rank=self.mesh.rank)
+                           rank=self.mesh.rank, mesh=self.mesh)
         tot = every[:, n_s + n_t :].sum(0, dtype=i32)
         k = len(counts)
         c = tot[:k]
@@ -1594,11 +1754,15 @@ class SimProgram:
         """Host lanes never terminate: only plan instances gate done. With
         a fault schedule the run must also outlive its last event (an
         all-crashed fleet with a restart to come is paused, not done). A
-        cohort's is one vote of every process's own lanes."""
-        if self.placed:
+        cohort's is one vote of every process's own lanes; a several-part
+        program reads every part's."""
+        if isinstance(carry, PartedCarry):
+            done = all(bool((c.status[: p._n_inst] != RUNNING).all())
+                       for p, c in zip(self._parts, carry.parts))
+        elif self.placed:
             from .distributed import vote_all
 
-            done = vote_all((carry.status[: self._n_inst] != RUNNING).all())
+            done = vote_all((carry.status[: self._n_inst] != RUNNING).all(), self.mesh)
         else:
             done = bool((carry.status[: self.n] != RUNNING).all())
         if self._faults is not None:
@@ -1676,15 +1840,18 @@ class SimProgram:
             carry, ticks = resume_carry, int(resume_ticks)
         else:
             carry, ticks = self.init_carry(seed, live_counts), 0
+        parts = self._parts
+        if parts is not None and not isinstance(carry, PartedCarry):
+            carry = self.cut(carry)
         start_ticks = ticks
         cuda = self.device.type == "cuda"
-        done_out = (
-            torch.zeros((), dtype=torch.bool, pin_memory=cuda),
-            torch.cuda.Event() if cuda else None,
-        )
-        blocks = None
-        if self.telemetry or self.trace is not None:
-            blocks = _Blocks(self, cuda)
+        planes = self.telemetry or self.trace is not None
+        # each stepping program's done flag and plane blocks (a part each
+        # on a several-part program)
+        steppers = parts if parts is not None else [self]
+        done_outs = [_done_flag(cuda) for _ in steppers]
+        pblocks = [_Blocks(p, cuda) if planes else None for p in steppers]
+        blocks = pblocks[0]
         lat_acc = nm_acc = None
         if self.telemetry:
             lat_acc = (
@@ -1707,39 +1874,22 @@ class SimProgram:
             last_event = self._faults.last_event_tick
             tick = int(carry.t)
         state = {"carry": carry, "done": self._all_done(carry), "tick": tick}
+        if parts is None:
 
-        def chunk() -> None:
-            carry, done, tick = state["carry"], state["done"], state["tick"]
-            flushed = False
-            if blocks is not None:
-                blocks.reset()
-            for i in range(self.chunk):
-                if done:
-                    break  # post-completion ticks are no-ops
-                # the chunk's last tick flushes the planes' blocks; the
-                # flag's event is recorded behind those copies instead
-                last = blocks is not None and i == self.chunk - 1
-                carry = self._tick(
-                    carry, timer=timer,
-                    done_out=(done_out[0], None) if last else done_out,
-                    tick=tick, blocks=blocks, row=i,
-                )
-                if last:
-                    carry = blocks.flush(carry, done_out[1])
-                    flushed = True
-                if cuda:
-                    done_out[1].synchronize()
-                done = bool(done_out[0])
-                if tick is not None:
-                    tick += 1
-                    done = done and tick > last_event
-            if blocks is not None and not flushed:
-                # the run ended inside the chunk: its last rows were
-                # written after the flag's event
-                carry = blocks.flush(carry, done_out[1])
-                if cuda:
-                    done_out[1].synchronize()
-            state.update(carry=carry, done=done, tick=tick)
+            def chunk() -> None:
+                self._ticks(state, blocks, done_outs[0], timer, last_event)
+
+        else:
+            # each part steps its own carry on its own thread; the parts
+            # agree on done (a replicated count) and so stop alike
+            pstates = [dict(state, carry=c) for c in carry.parts]
+
+            def chunk() -> None:
+                self._on_parts(lambda i: parts[i]._ticks(
+                    pstates[i], pblocks[i], done_outs[i], timer if i == 0 else None,
+                    last_event))
+                state.update(carry=PartedCarry(self, [st["carry"] for st in pstates]),
+                             done=pstates[0]["done"], tick=pstates[0]["tick"])
 
         setup_secs = 0.0
         while ticks < max_ticks:
@@ -1760,7 +1910,8 @@ class SimProgram:
                 perf.on_chunk(ticks // self.chunk - 1, ticks, self.chunk,
                               time.perf_counter() - t_chunk)
             if nan_guard:
-                _check_carry_finite(carry, ticks - self.chunk, ticks)
+                _check_carry_finite(carry if parts is None else carry.parts,
+                                    ticks - self.chunk, ticks)
             if setup_secs == 0.0:
                 setup_secs = time.perf_counter() - t0
             if self.telemetry:
@@ -1795,6 +1946,44 @@ class SimProgram:
             res["net_matrix"] = nm_acc.tolist()
         return res
 
+    def _ticks(self, st: dict, blocks, done_out, timer, last_event) -> None:
+        """One chunk of the run loop: up to ``chunk`` ticks from ``st``'s
+        ``carry``, ``done`` and host ``tick`` (updated in place), the done
+        flag read after every tick and the planes' blocks flushed at the
+        chunk's end."""
+        cuda = self.device.type == "cuda"
+        carry, done, tick = st["carry"], st["done"], st["tick"]
+        flushed = False
+        if blocks is not None:
+            blocks.reset()
+        for i in range(self.chunk):
+            if done:
+                break  # post-completion ticks are no-ops
+            # the chunk's last tick flushes the planes' blocks; the
+            # flag's event is recorded behind those copies instead
+            last = blocks is not None and i == self.chunk - 1
+            carry = self._tick(
+                carry, timer=timer,
+                done_out=(done_out[0], None) if last else done_out,
+                tick=tick, blocks=blocks, row=i,
+            )
+            if last:
+                carry = blocks.flush(carry, done_out[1])
+                flushed = True
+            if cuda:
+                done_out[1].synchronize()
+            done = bool(done_out[0])
+            if tick is not None:
+                tick += 1
+                done = done and tick > last_event
+        if blocks is not None and not flushed:
+            # the run ended inside the chunk: its last rows were
+            # written after the flag's event
+            carry = blocks.flush(carry, done_out[1])
+            if cuda:
+                done_out[1].synchronize()
+        st.update(carry=carry, done=done, tick=tick)
+
     def _chunk_watched(self, chunk, ticks: int, timeout: float, cancel,
                        on_stall) -> None:
         """Run one chunk under the wall-clock watchdog
@@ -1817,6 +2006,8 @@ class SimProgram:
         th.join(timeout)
         if th.is_alive():
             chunk_index = ticks // self.chunk
+            if self._parts is not None:
+                self._group.abort()  # the abandoned parts stop at a collective
             if cancel is not None:
                 cancel.set()
             if on_stall is not None:
@@ -1844,12 +2035,16 @@ class SimProgram:
         """The run's results from ``carry`` after ``ticks``. ``carry_bytes``
         (a run pack's member, whose carry holds only the leaves read here)
         replaces the carry's footprint. A cohort's placed rows are gathered
-        from every process (every process calls this in lockstep)."""
+        from every process (every process calls this in lockstep), a
+        several-part program's from its parts."""
 
         from .distributed import to_host
 
+        if isinstance(carry, PartedCarry):
+            carry = self._gather(carry)
+
         def host(x, axis=None):
-            return to_host(x, axis if self.placed else None)
+            return to_host(x, axis if self.placed else None, self.mesh)
 
         status = host(carry.status[: self._n_inst], 0)
         finished_at = host(carry.finished_at[: self._n_inst], 0)
@@ -1896,6 +2091,72 @@ class SimProgram:
             "states": states,
             "groups": self.virtual_groups(),
         }
+
+
+# the placed leaves whose lane axis is the instance axis (host lanes aside)
+_INSTANCE_PLANES = ("keys", "sync.last_seq", "sync.cursors")
+# the carry's fields that a several-part program replicates on every part
+_REPLICATED = frozenset(f.name for f in dataclasses.fields(SimCarry)) - {
+    "states", "status", "finished_at", "cal", "link", "sync", "rejected", "keys"}
+
+
+class PartedCarry:
+    """The carry of a several-part program: ``parts[p]`` is part p's own
+    carry on its device, in part order. Read as a :class:`SimCarry` (any of
+    its fields), it is the whole carry in the layout
+    :meth:`SimProgram.single` steps (``SimProgram._gather``: the placed
+    leaves joined in lane order on the host, the replicated ones part 0's,
+    the calendar every part's planes), gathered once at the first read. So
+    an observer, a snapshot or a sampler reads it as it reads any carry."""
+
+    def __init__(self, prog: SimProgram, parts):
+        self.prog = prog
+        self.parts = list(parts)
+        self._whole = None
+
+    def whole(self) -> SimCarry:
+        if self._whole is None:
+            self._whole = self.prog._gather(self)
+        return self._whole
+
+    def __getattr__(self, name):
+        if name.startswith("_"):  # copy/pickle probes, never a carry field
+            raise AttributeError(name)
+        if name in _REPLICATED:  # equal on every part: part 0's, no gather
+            return getattr(self.parts[0], name)
+        return getattr(self.whole(), name)
+
+
+def _done_flag(cuda: bool) -> tuple:
+    """A tick's done flag on the host (pinned on a card) and the CUDA event
+    recorded behind its copy (None on the CPU)."""
+    return (torch.zeros((), dtype=torch.bool, pin_memory=cuda),
+            torch.cuda.Event() if cuda else None)
+
+
+def _zip_carries(carries, leaf, cal) -> SimCarry:
+    """A carry whose every tensor leaf but the calendar's is ``leaf(path,
+    [that leaf of each of carries])`` (paths as ``sim/carry_io.py`` names
+    them; None stays None), its calendar ``cal``, its link key the first's."""
+    c0 = carries[0]
+
+    def at(path, get):
+        return None if get(c0) is None else leaf(path, [get(c) for c in carries])
+
+    def fields(obj, prefix, get):
+        return {f.name: at(prefix + f.name, lambda c, n=f.name: getattr(get(c), n))
+                for f in dataclasses.fields(obj)}
+
+    states = tuple(
+        {k: at(f"states.{g}.{k}", lambda c, g=g, k=k: c.states[g][k]) for k in st}
+        for g, st in enumerate(c0.states)
+    )
+    rest = {f.name: at(f.name, lambda c, n=f.name: getattr(c, n))
+            for f in dataclasses.fields(SimCarry)
+            if f.name not in ("states", "cal", "link", "sync", "net_key")}
+    return SimCarry(states=states, cal=cal, net_key=c0.net_key,
+                    link=LinkState(**fields(c0.link, "link.", lambda c: c.link)),
+                    sync=SyncState(**fields(c0.sync, "sync.", lambda c: c.sync)), **rest)
 
 
 class _Virtual:
@@ -2124,6 +2385,7 @@ class _Blocks:
         )
         self.cuda = cuda
         self.own = prog._trace_own if prog.trace is not None and prog.placed else None
+        self.mesh = prog.mesh
         self.host = {
             k: torch.empty(v, dtype=i32, pin_memory=cuda) for k, v in shapes.items()
         }
@@ -2143,7 +2405,7 @@ class _Blocks:
             # a cohort: each traced lane's rows from the process holding it
             from .distributed import all_reduce_sum
 
-            trace = all_reduce_sum(torch.where(self.own, trace, 0))
+            trace = all_reduce_sum(torch.where(self.own, trace, 0), self.mesh)
         src = {"tele": self.tele, "trace": trace, "lat_hist": carry.lat_hist,
                "net_mat": carry.net_mat}
         for k, h in self.host.items():

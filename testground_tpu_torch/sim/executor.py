@@ -91,8 +91,11 @@ compile cache). Every result, stream and total stays exact-N.
 
 A mesh (``mesh="4"``, ``mesh="2x4"``, or ``shard`` on a host with several
 cards) splits the calendar over the peer shards (``sim/meshplan.py``; a
-solo run on a 2-D mesh over row 0's); the journal's
-``sim.mesh`` block is the reference's. A lane count that does not divide
+solo run on a 2-D mesh over row 0's); on a mesh of several parts (one a
+card) each part holds and steps its own lanes of the whole carry, one
+host thread a part (``sim/engine.py`` ``PartedCarry``), and every plane,
+the SLO plane, the ledgers, checkpoints and resume read it whole; the
+journal's ``sim.mesh`` block is the reference's. A lane count that does not divide
 across the shards runs under ``xla`` and ``auto`` with dead lanes that the
 engine keeps to itself (``SimProgram.mesh_pad``); ``pallas`` refuses it,
 as the reference's engine does.

@@ -23,22 +23,27 @@ Which devices :func:`make_mesh` gives:
   shape needs that many cards, or it refuses with the reference's message;
 - on the CPU (``device="cpu"``), every cell on the CPU.
 
-Outside a cohort only the calendar planes are split per shard; every
-other carry leaf stays on the mesh's primary device (cell 0's), whatever
-the table says about it. A *cohort* mesh (``sim/distributed.global_mesh``)
-spans processes: ``ranks`` names each cell's process, ``parts`` lists only
-this process's cells, and ``primary`` is this process's device. There the
-table places what it says: a process holds only its own lanes
+Where the carry lives. A mesh of one part (a virtual mesh on one device,
+or a pack's sub-shard calendar) splits only the calendar's planes per
+shard; every other carry leaf stays on the mesh's primary device (part
+0's). A mesh of several parts places the carry, and so does a *cohort*
+mesh (``sim/distributed.global_mesh``), which spans processes: ``ranks``
+names each cell's owner — a process of the cohort, or a part of a
+several-part mesh in one process (:meth:`TorchMesh.part_view`) — and
+``parts`` lists only the owner's cells. The owner holds only its own lanes
 (:meth:`TorchMesh.own_lanes`) of every leaf :meth:`MeshPlan.lane_axis`
 names — the table's lane-split paths, and the plan states, the keys and
 the sync service's per-instance planes, which the reference's table
-leaves to GSPMD's propagation — and one replica of the others. Every
-count of the mesh (``size``, ``shards``, :func:`peer_shards`,
-:func:`layout_str`) is the global one. A solo run on a 2-D mesh splits
-its lanes over row 0's peer shards (:meth:`TorchMesh.row`), as the
-reference shards ``i`` and replicates over ``runs``. A run pack's members
-split into the rows in contiguous groups, and each member's lanes over
-its row's peer shards (``sim/pack.py``).
+leaves to GSPMD's propagation — on its device, and one replica of the
+others; ``primary`` is its device. The owners meet at the tick's
+collectives: over ``torch.distributed`` in a cohort, over the mesh's
+in-process ``group`` (``distributed.PartGroup``) for the parts of one
+process. Every count of the mesh (``size``, ``shards``,
+:func:`peer_shards`, :func:`layout_str`) is the global one. A solo run on
+a 2-D mesh splits its lanes over row 0's peer shards (:meth:`TorchMesh.row`),
+as the reference shards ``i`` and replicates over ``runs``. A run pack's
+members split into the rows in contiguous groups, and each member's lanes
+over its row's peer shards (``sim/pack.py``).
 """
 
 from __future__ import annotations
@@ -142,14 +147,18 @@ class TorchMesh:
     an explicit ``parts`` may cut a device's run finer (one tensor per part
     all the same), which lets the CPU tests drive the several-part path.
 
-    A cohort mesh gives ``ranks`` (cell s belongs to process ``ranks[s]``)
-    and this process's ``rank``: its parts are its own cells only."""
+    A cohort mesh gives ``ranks`` (cell s belongs to owner ``ranks[s]``)
+    and the owner's ``rank``: its parts are its own cells only. The owners
+    are a cohort's processes, or with ``group`` (a
+    ``distributed.PartGroup``) the parts of one process's several-part
+    mesh, each stepped by a thread of its own (:meth:`part_view`)."""
 
     devices: tuple
     parts: tuple | None = None
     runs: int | None = None
     ranks: tuple | None = None
     rank: int = 0
+    group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     def __post_init__(self):
         devs = tuple(_indexed(d) for d in self.devices)
@@ -208,21 +217,44 @@ class TorchMesh:
 
     @property
     def primary(self) -> torch.device:
-        """This process's first cell's device (cell 0's outside a cohort):
-        where every leaf but the calendar lives."""
+        """Part 0's device: where a mesh of one part keeps every leaf but
+        the calendar, and where a cohort's or a part view's owner keeps its
+        own."""
         return self.parts[0][0]
 
     @property
     def cohort(self) -> bool:
-        """Whether the cells span processes (``sim/distributed.py``)."""
+        """Whether the cells belong to several owners, each holding its
+        own lanes: a cohort's processes (``sim/distributed.py``), or the
+        parts of a :meth:`part_view`."""
         return self.ranks is not None
 
     def own_lanes(self, n_lanes: int) -> tuple[int, int]:
-        """This process's lanes ``[lo, hi)`` of an ``n_lanes`` lane axis cut
-        over the mesh's cells: its parts' cells, which a cohort keeps
-        contiguous (all of them outside a cohort)."""
+        """This owner's lanes ``[lo, hi)`` of an ``n_lanes`` lane axis cut
+        over the mesh's cells: its parts' cells, which an owner keeps
+        contiguous (all of them without owners)."""
         n_loc = n_lanes // self.size
         return self.parts[0][1] * n_loc, self.parts[-1][2] * n_loc
+
+    def rank_lanes(self, n_lanes: int) -> tuple[tuple[int, int], ...]:
+        """Every owner's lanes ``[lo, hi)`` of an ``n_lanes`` lane axis, in
+        rank order (one owner, all of them, without ``ranks``)."""
+        n_loc = n_lanes // self.size
+        span: dict = {}
+        for s, r in enumerate(self.ranks or (0,) * self.size):
+            lo, hi = span.get(r, (s, s + 1))
+            span[r] = (min(lo, s), max(hi, s + 1))
+        return tuple((span[r][0] * n_loc, span[r][1] * n_loc) for r in sorted(span))
+
+    def part_view(self, p: int, group) -> "TorchMesh":
+        """Part ``p`` of this one-process mesh as the owner of its own
+        cells: the same cells, each part an owner, ``p`` this one, and the
+        parts meeting at their collectives through ``group``."""
+        owner = [0] * self.size
+        for i, (_, s0, s1) in enumerate(self.parts):
+            owner[s0:s1] = [i] * (s1 - s0)
+        return TorchMesh(self.devices, runs=self.runs, ranks=tuple(owner), rank=p,
+                         group=group)
 
     def row(self, g: int) -> "TorchMesh":
         """Row ``g``'s peer shards as a 1-D mesh, its parts kept."""

@@ -29,9 +29,11 @@ SLOTS·n_loc]`` tensor per plane. The sorted stream then carries the
 reference's SHARD-major key (``net.py:1174-1183``), the commit and the pop
 are the sharded kernels, and the direct write, the purges and the latency
 histogram address each shard's planes. Every result is the unmeshed run's.
-On a cohort mesh (``sim/distributed.py``) a process holds only its own
-lanes: its shards' planes, and its own columns of the link state, the
-outbox and every per-lane row the functions here take or return. Its pop
+On a cohort mesh (``sim/distributed.py``; a part view of a several-part
+mesh likewise, "process" and "rank" below reading "part") a process
+holds only its own lanes: its shards' planes, and its own columns of the
+link state, the outbox and every per-lane row the functions here take or
+return. Its pop
 and its etick row are its own lanes' (nothing crosses processes). Its
 enqueue shapes its own senders' messages, the dice hashing the single
 run's message indices, then hands each message to the rank of its
@@ -288,14 +290,14 @@ def _own_lo(cal: Calendar) -> int:
     return cal.mesh.own_lanes(cal.lanes)[0]
 
 
-def _all_lanes(x: torch.Tensor) -> torch.Tensor:
+def _all_lanes(x: torch.Tensor, mesh) -> torch.Tensor:
     """A cohort's placed ``[n_own]`` lane row as the whole ``[N]`` row:
     every rank's, in rank order (one ``all_gather``)."""
-    from .distributed import all_gather
+    from .distributed import all_gather_cat
 
     if x.dtype == torch.bool:  # gloo has no bool: its bytes cross
-        return all_gather(x.view(torch.uint8)).view(torch.bool).reshape(-1)
-    return all_gather(x).reshape(-1)
+        return all_gather_cat(x.view(torch.uint8), mesh).view(torch.bool)
+    return all_gather_cat(x, mesh)
 
 
 def _row_at(cal: Calendar, plane, t: torch.Tensor) -> torch.Tensor:
@@ -423,7 +425,7 @@ def _cohort_sum(cal: Calendar, x: torch.Tensor) -> torch.Tensor:
         return x
     from .distributed import all_reduce_sum
 
-    return all_reduce_sum(x)
+    return all_reduce_sum(x, cal.mesh)
 
 
 def purge_dst_matrix(
@@ -673,7 +675,7 @@ def enqueue(
         # the destinations' regions: a cohort's whole row, gathered
         region_of = None
         if n_regions > 1:
-            region_of = _all_lanes(link.region_of) if placed else link.region_of
+            region_of = _all_lanes(link.region_of, cal.mesh) if placed else link.region_of
         if n_regions == 1:
             action = srow(link.filters[0])
         elif n_regions <= 4:
@@ -730,7 +732,7 @@ def enqueue(
     if faults is not None or dead is not None:
         if dead is not None:
             # the destinations' deaths: a cohort's whole row, gathered
-            kill = srow(dead) | (_all_lanes(dead) if placed else dead)[dst_safe]
+            kill = srow(dead) | (_all_lanes(dead, cal.mesh) if placed else dead)[dst_safe]
         else:
             kill = torch.zeros(m, dtype=torch.bool, device=dev)
         if faults is not None:
@@ -882,7 +884,7 @@ def enqueue(
         if placed:  # this process's counts, summed over the cohort
             from .distributed import all_reduce_sum
 
-            counts = all_reduce_sum(torch.stack(counts)).unbind(0)
+            counts = all_reduce_sum(torch.stack(counts), cal.mesh).unbind(0)
         return NetFeedback(
             rejected=rejected,
             clamped=counts[0],
@@ -1018,20 +1020,27 @@ def _exchange(cal: Calendar, val_f, dst_safe, cols: list) -> tuple:
     from .distributed import all_gather, all_reduce_sum, gather_blocks
 
     mesh = cal.mesh
-    procs = len(set(mesh.ranks))
+    bounds = mesh.rank_lanes(cal.lanes)
+    procs = len(bounds)
     me = mesh.rank
-    per = cal.lanes // procs
-    drank = torch.where(val_f, torch.div(dst_safe, per, rounding_mode="floor"), procs)
+    per = bounds[0][1]
+    if all(hi - lo == per for lo, hi in bounds):
+        drank = torch.div(dst_safe, per, rounding_mode="floor")
+    else:  # a several-part mesh's parts may hold unequal lanes
+        drank = torch.zeros_like(dst_safe)
+        for lo, _ in bounds[1:]:
+            drank += dst_safe >= lo
+    drank = torch.where(val_f, drank, procs)
     _, perm = torch.sort(drank, stable=True)
     cnt = torch.bincount(drank, minlength=procs + 1)[:procs]
-    every_cnt = all_gather(cnt).tolist()  # [sender][destination]
+    every_cnt = all_gather(cnt, mesh).tolist()  # [sender][destination]
     sent = [sum(row) for row in every_cnt]
     sel = perm[: sent[me]]
     block = torch.stack([c[sel] for c in cols], dim=1)
     if max(sent) == 0:  # nothing crosses this tick
         every = block.new_zeros((procs, 0, len(cols)))
     else:
-        every, _ = gather_blocks(block, sent)
+        every, _ = gather_blocks(block, sent, mesh)
     at = [sum(every_cnt[r][:me]) for r in range(procs)]
     got = torch.cat([every[r, at[r] : at[r] + every_cnt[r][me]] for r in range(procs)])
 
@@ -1045,7 +1054,7 @@ def _exchange(cal: Calendar, val_f, dst_safe, cols: list) -> tuple:
             k = every_cnt[r][me]
             ret[r, at[r] : at[r] + k] = x[off : off + k]
             off += k
-        all_reduce_sum(ret)
+        all_reduce_sum(ret, mesh)
         return out.index_copy_(0, sel, ret[me, : sent[me]])
 
     return got.t(), back
@@ -1142,7 +1151,7 @@ def _commit_direct(cal, t, buck, val_f, slot_in_src, dst_safe, occ_vals, pay_w,
             if cal.mesh is not None and cal.mesh.cohort:
                 from .distributed import all_reduce_min
 
-                first = all_reduce_min(first.reshape(1)).reshape(())
+                first = all_reduce_min(first.reshape(1), cal.mesh).reshape(())
         else:
             first = first.view(-1, runs, n // runs).amin(dim=(0, 2))
         p = torch.remainder(first, ns)

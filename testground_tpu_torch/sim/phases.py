@@ -240,9 +240,11 @@ def measure_phases(prog, reps: int, seed: int = 0, state=None) -> dict[str, floa
     """Mean ms per tick of each phase over ``reps`` ticks of ``prog``
     (:data:`TICK_PHASES` names, plus ``residual`` for the stretches of no
     phase), from a fresh carry unless ``state`` (a :func:`_tick_state`)
-    is given. One untimed tick goes first."""
+    is given. One untimed tick goes first. A several-part program is
+    measured stepped in one thread (``SimProgram.single``)."""
     from .engine import device_context
 
+    prog = prog.single()
     reps = max(int(reps), 1)
     with device_context(prog.device):
         carry, blocks, done_out, tick = state or _tick_state(prog, seed)
@@ -280,10 +282,14 @@ def build_phase_ledger(prog, measure: int = 0, seed: int = 0,
          kernel_bytes: {phase: {kernel: bytes}}}   # launches on the card
 
     For every field of ``whole_per_tick``, Σ phases + residual ==
-    whole_per_tick exactly."""
+    whole_per_tick exactly. A several-part program's ledger is its tick
+    stepped in one thread (``SimProgram.single``: the calendar split over
+    the parts, every other leaf on the primary device), as a mesh of one
+    part steps it."""
     from .cuda_transport import observe_launches
     from .engine import device_context
 
+    prog = prog.single()
     with device_context(prog.device):
         carry, blocks, done_out, tick = _tick_state(prog, seed)
         # tick 0 untimed and uncounted: a plan's first step may build and

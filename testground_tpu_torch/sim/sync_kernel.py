@@ -6,7 +6,8 @@ bounded per-topic publish streams appended in instance order, and
 per-instance subscribe cursors. Per-instance arrays keep the instance axis
 last (``last_seq [S, N]``, ``cursors [T, N]``).
 
-On a cohort (``sim/distributed.py``) each process holds its own lanes of
+On a cohort (``sim/distributed.py``; or over the parts of a several-part
+mesh, each a rank) each process holds its own lanes of
 ``last_seq`` and ``cursors`` and one replica of the shared leaves. Its
 fold (:func:`update_sync` with ``ranks``) numbers its signals after the
 lower ranks' (the exclusive sum of their totals added to its local
@@ -52,11 +53,13 @@ class SyncState:
 class RankTotals:
     """One tick's per-rank sync totals of a cohort, gathered once by the
     engine: ``sig [P, S]`` signals and ``pub [P, T]`` publishes of every
-    rank, in rank order, and this process's ``rank``."""
+    rank, in rank order, this process's ``rank``, and the ``mesh`` the
+    ranks meet over (``distributed``'s dispatch)."""
 
     sig: torch.Tensor
     pub: torch.Tensor
     rank: int
+    mesh: object = None
 
 
 def make_sync_state(
@@ -164,7 +167,7 @@ def _update_sync_ranks(sync, signals, pub_payload, pub_valid, sub_consume, ranks
     stream = sync.stream.clone()
     if sum(kept):
         entries = torch.cat([flat_idx[:, None].to(i32), upd], dim=1)
-        every, _ = gather_blocks(entries, kept)
+        every, _ = gather_blocks(entries, kept, ranks.mesh)
         allent = torch.cat([every[r, :k] for r, k in enumerate(kept)])
         stream.reshape(-1, pw)[allent[:, 0].to(torch.int64)] = allent[:, 1:]
     published = ranks.pub.sum(0, dtype=i32)
@@ -228,15 +231,15 @@ def _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume, runs):
     )
 
 
-def live_per_group(status: torch.Tensor, groups, cohort: bool = False) -> torch.Tensor:
+def live_per_group(status: torch.Tensor, groups, mesh=None) -> torch.Tensor:
     """[G] int32 — RUNNING instances per group (the degraded-barrier
-    denominator served as ``SyncView.live``). On a cohort ``status`` and
-    the groups' ``offset``/``count`` are this process's own lanes, and the
-    per-rank counts are summed over the cohort."""
-    if cohort:
+    denominator served as ``SyncView.live``). On a cohort ``mesh``
+    ``status`` and the groups' ``offset``/``count`` are this process's own
+    lanes, and the per-rank counts are summed over the cohort."""
+    if mesh is not None:
         from .distributed import all_reduce_sum
 
-        return all_reduce_sum(live_per_group(status, groups))
+        return all_reduce_sum(live_per_group(status, groups), mesh)
     return torch.stack(
         [
             (status[g.offset : g.offset + g.count] == RUNNING).sum(

@@ -387,9 +387,9 @@ def test_port_manifest_is_the_reference_one_on_sim_torch(plan):
     for tc in ref.testcases:
         assert port.default_parameters(tc.name) == ref.default_parameters(tc.name)
     assert port.defaults == {"builder": "sim:plan", "runner": "sim:torch"}
-    # placebo's port manifest also carries the reference's exec sections:
-    # its exec edition (main.py) runs on local:exec
-    execs = plan == "placebo"
+    # placebo's and network's port manifests also carry the reference's
+    # exec sections: their exec editions (main.py) run on local:exec
+    execs = plan in ("placebo", "network")
     assert port.builders == {"sim:plan": ref.builders["sim:plan"],
                              **({"exec:py": ref.builders["exec:py"]} if execs else {})}
     assert port.runners == {"sim:torch": ref.runners["sim:jax"],

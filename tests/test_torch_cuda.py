@@ -1068,3 +1068,46 @@ def test_two_process_cohort_on_one_card_equals_its_single_run(cuda, name, tmp_pa
     assert "collectives over gloo" in log
     lead = re.findall(r"multi-host: carry digest (\d+)", log)
     assert lead and re.findall(r"run cohort carry digest (\d+)", wout) == lead
+
+
+@pytest.mark.parametrize("name", ["sustained", "flood", "storm"])
+def test_gpu_run_over_four_parts_matches_cpu_runs(cuda, name):
+    """A 4-shard mesh on card 0 cut into 4 parts, each part holding and
+    stepping its own lanes on its own thread, against the same parts on
+    the CPU and the unmeshed CPU run: every carry leaf read whole, each
+    part's launches of the sharded kernels once a tick."""
+    plan, case, params, kw = GPU_RUNS[name]
+    factory = load_sim_testcases(plan_dir(plan))[case]
+    groups = build_groups([RunGroup(id="all", instances=64, parameters=params)])
+    cpu = torch.device("cpu")
+    out = []
+    for device, mesh in (("cpu", None),
+                         (None, _virtual_mesh(4, parts=(1, 2, 3))),
+                         ("cpu", _cpu_parts(cpu))):
+        prog = SimProgram(instantiate_testcase(factory, groups, 1.0), groups, chunk=16,
+                          device=device, mesh=mesh, **kw)
+        assert prog.parted == (mesh is not None)
+        before = (ct.commit_calendar.launches, ct.pop_bucket.launches,
+                  ct.pop_bucket_sharded.launches)
+        last = {}
+        res = prog.run(seed=1, max_ticks=256,
+                       observer=lambda k, c: last.__setitem__("c", carry_to_numpy(c)))
+        if device is None:
+            after = (ct.commit_calendar.launches, ct.pop_bucket.launches,
+                     ct.pop_bucket_sharded.launches)
+            assert after[:2] == before[:2]
+            assert after[2] - before[2] == 4 * int(last["c"]["t"])
+        out.append((res, last["c"]))
+    (ru, cu), (rg, cg), (rc, cc) = out
+    assert (ru["status"] == 1).all()
+    for k in ("ticks", "msgs_sent", "msgs_delivered", "cal_depth", "carry_bytes"):
+        assert ru[k] == rg[k] == rc[k], k
+    for k in cu:
+        np.testing.assert_array_equal(cg[k], cu[k], err_msg=k)
+        np.testing.assert_array_equal(cc[k], cu[k], err_msg=k)
+
+
+def _cpu_parts(cpu):
+    from testground_tpu_torch.sim.meshplan import TorchMesh
+
+    return TorchMesh((cpu,) * 4, parts=tuple((cpu, s, s + 1) for s in range(4)))

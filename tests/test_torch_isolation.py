@@ -88,7 +88,7 @@ def test_the_scan_sees_the_whole_port():
                    for p in ("network", "benchmarks", "placebo", "verify", "splitbrain",
                              "additional_hosts", "chaos")),
                  *(f"testground_tpu_torch/plans/{p}/main.py"
-                   for p in ("placebo", "example", "polyglot"))):
+                   for p in ("placebo", "example", "polyglot", "network"))):
         assert must in rels
 
 

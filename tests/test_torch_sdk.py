@@ -9,7 +9,9 @@ port's SDK loads neither torch nor numpy.
 
 Named differences: the port's runner's ``healthcheck`` takes the port's
 runner-interface ``config`` argument (and does not read it); the port's
-``placebo`` manifest keeps ``sim:plan``/``sim:torch`` as its defaults.
+``placebo`` manifest keeps ``sim:plan``/``sim:torch`` as its defaults, its
+``network`` manifest ``sim:torch`` for ``sim:jax``; the benchmarks plan's
+``flood-bucketed`` composition names ``sim:torch``.
 """
 
 import ast
@@ -121,12 +123,26 @@ EXEC_PLANS = ["example", "example-cpp", "example-js", "example-perl", "polyglot"
 UPSTREAM = (re.compile(r"\(/[a-z]+/reference/plans/"), "(the testground project's plans/")
 
 
-@pytest.mark.parametrize("plan", EXEC_PLANS + ["placebo"])
+# the files the port copied into a plan beside its sim edition, and the one
+# line each may change
+BESIDE_SIM = {
+    "placebo": {"main.py": ("from testground_tpu.sdk import invoke_map",
+                            "from testground_tpu_torch.sdk import invoke_map")},
+    "network": {"main.py": ("from testground_tpu.sdk import invoke_map",
+                            "from testground_tpu_torch.sdk import invoke_map")},
+    "benchmarks": {"_compositions/flood-bucketed.toml": ('runner = "sim:jax"',
+                                                         'runner = "sim:torch"'),
+                   "grafana-dashboard/dashboard.json": None},
+}
+
+
+@pytest.mark.parametrize("plan", EXEC_PLANS + list(BESIDE_SIM))
 def test_plan_copy_equals_its_original_but_the_import_line(plan):
     ref_root, port_root = os.path.join(REF_PLANS, plan), os.path.join(PORT_PLANS, plan)
     files = _plan_files(port_root)
-    if plan == "placebo":  # the exec edition beside the port's sim.py
-        files = [f for f in files if f not in ("sim.py", "manifest.toml")]
+    if plan in BESIDE_SIM:  # the exec edition and the files beside the port's sim.py
+        assert set(BESIDE_SIM[plan]) <= set(files)
+        files = sorted(BESIDE_SIM[plan])
     else:
         assert files == _plan_files(ref_root)
     assert files
@@ -145,18 +161,33 @@ def test_plan_copy_equals_its_original_but_the_import_line(plan):
         port_lines = port.decode().splitlines()
         assert len(ref_lines) == len(port_lines), rel
         diff = [(a, b) for a, b in zip(ref_lines, port_lines) if a != b]
-        assert diff == ([("from testground_tpu.sdk import invoke_map",
-                          "from testground_tpu_torch.sdk import invoke_map")]
-                        if rel == "main.py" else []), rel
+        if plan in BESIDE_SIM:
+            want = BESIDE_SIM[plan][rel]
+            assert diff == ([] if want is None else [want]), rel
+        else:
+            assert diff == ([("from testground_tpu.sdk import invoke_map",
+                              "from testground_tpu_torch.sdk import invoke_map")]
+                            if rel == "main.py" else []), rel
 
 
-def test_placebo_manifest_differs_from_the_reference_only_in_its_defaults():
+def test_no_reference_plan_file_is_missing_from_the_port():
+    """Every file of the reference's plans has its port counterpart."""
+    for plan in sorted(os.listdir(REF_PLANS)):
+        if os.path.isdir(os.path.join(REF_PLANS, plan)):
+            missing = set(_plan_files(os.path.join(REF_PLANS, plan))) - set(
+                _plan_files(os.path.join(PORT_PLANS, plan)))
+            assert not missing, (plan, sorted(missing))
+
+
+@pytest.mark.parametrize("plan", ["placebo", "network"])
+def test_placebo_manifest_differs_from_the_reference_only_in_its_defaults(plan):
     def load(root):
-        with open(os.path.join(root, "placebo", "manifest.toml"), "rb") as f:
+        with open(os.path.join(root, plan, "manifest.toml"), "rb") as f:
             return tomllib.load(f)
 
     ref, port = load(REF_PLANS), load(PORT_PLANS)
-    assert ref.pop("defaults") == {"builder": "exec:py", "runner": "local:exec"}
+    assert ref.pop("defaults") == {"placebo": {"builder": "exec:py", "runner": "local:exec"},
+                                   "network": {"builder": "sim:plan", "runner": "sim:jax"}}[plan]
     assert port.pop("defaults") == {"builder": "sim:plan", "runner": "sim:torch"}
     ref["runners"]["sim:torch"] = ref["runners"].pop("sim:jax")
     assert port == ref

@@ -539,3 +539,31 @@ def load_composition_text(load, home, text):
     path = home / "comp.toml"
     path.write_text(text)
     return load(str(path))
+
+
+def test_log_follow_streams_the_lines_written_as_the_task_ends(tmp_path):
+    """A task's last log lines can land between the follow's read at the
+    end of its log and its read of the task's state (a build's ``group …
+    built`` line, written just before the task completes). Forced into
+    that window, they are still streamed: the follow reads the log to its
+    end once more after the task is done."""
+    import types
+
+    from testground_tpu_torch.engine.engine import Engine
+
+    path = tmp_path / "t1.out"
+    path.write_text("first\n")
+
+    class Stub:
+        def task_log_path(self, task_id):
+            return str(path)
+
+        def get_task(self, task_id):
+            # the window: the task writes its last line, then completes
+            with open(path, "a") as f:
+                f.write("group single built: artifact a\n")
+            done = types.SimpleNamespace(state=ptask.State.COMPLETE)
+            return types.SimpleNamespace(state=lambda: done)
+
+    got = list(Engine.logs(Stub(), "t1", follow=True))
+    assert got == ["first\n", "group single built: artifact a\n"]
