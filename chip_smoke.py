@@ -158,8 +158,11 @@ and drives the port's main path through the library entry points
               equal to its serial run; the reference's ping-pong pack
               smoke at 5 … 29 instances against CPU runs; a straggler and
               an SLO-canceled member against their isolated runs; the
-              eight on a 4-shard and a "2x4" virtual mesh against the
-              unmeshed pack, one turn, each member equal; the
+              eight on a 4-shard virtual mesh against the unmeshed pack,
+              one turn, each member equal; 64 ticks of the eight placed
+              over three meshes of several parts on card 0 ("4" cut into
+              four, "2x4", "2x4" cut into four), each member equal to the
+              unmeshed pack's and each part's bytes its own; the
               pack against one member alone and the meshed packs, peak
               bytes and a profiled first chunk last (see ``phase_packs``)
 23. cohort  — sustained@100k at phase 4's parameters as a two-process
@@ -4624,8 +4627,14 @@ def phase_buckets(card) -> dict:
 PACK_SIZES = (24_000, 25_000, 26_000, 27_000, 28_000, 29_000, 30_000, 31_000)
 # one turn (three once, then two), for the script's time limit
 PACK_TURNS = 1
-# the virtual meshes of card 0 a pack runs on (phase packs, step 4)
-PACK_MESHES = ("4", "2x4")
+# the virtual mesh of card 0 a pack runs on to its end (phase packs, step
+# 4), and the meshes of several parts on card 0 it is placed over (step 5):
+# "4" cut into four parts, "2x4" (its two rows) and "2x4" cut into four
+PACK_MESHES = ("4",)
+PACK_PLACED = {"4-cut-4": ("4", (1, 2, 3)), "2x4": ("2x4", ()), "2x4-cut-4": ("2x4", (2,))}
+# the ticks of a placed way's run and of its profiled twin
+PACK_PLACED_TICKS = 64
+PACK_PROFILE_TICKS = 32
 # the reference's pack smoke: eight ping-pong tenants in one rung of 32
 PACK_SMOKE_SIZES = (5, 9, 13, 17, 21, 25, 29, 24)
 PACK_SMOKE_LADDER = (32, 64)
@@ -4681,18 +4690,24 @@ def phase_packs(card) -> dict:
        through ``execute_packed_sim_runs``, one of them with a
        fail-severity rule, which fails alone equal to its isolated run's
        breach;
-    4. pack8@sustained's eight on a 4-shard and on a ``"2x4"`` virtual
-       mesh of card 0 (``PackRunner(..., mesh=make_mesh(shape,
-       devices=[card 0] * k))``: a composition cannot name a virtual mesh
-       on CUDA) against the unmeshed pack, one turn on the
-       library path: wall ms/tick and launches; every meshed member equals
-       its unmeshed-pack run;
-    5. last, after every wall clock: the pack's peak device bytes against
-       one member alone's and the meshed packs' over one chunk, and a first
-       chunk of 32 ticks profiled, the pack against one member alone and
-       the meshed packs: device ms and kernels a tick, the busy share, K1's
-       and K2's (or their sharded forms') ms a launch at the packed
-       shape."""
+    4. pack8@sustained's eight on a 4-shard virtual mesh of card 0
+       (``PackRunner(..., mesh=make_mesh("4", devices=[card 0] * 4))``: a
+       composition cannot name a virtual mesh on CUDA) against the
+       unmeshed pack, one turn on the library path: wall ms/tick and
+       launches; every meshed member equals its unmeshed-pack run;
+    5. last, after every wall clock: 64 ticks of the pack, of one member
+       alone, of the 4-shard mesh and of the pack placed over each mesh of
+       several parts on card 0 (``PACK_PLACED``: each part holds its
+       members' own lanes and steps them on a thread of its own): the
+       peak device bytes, each placed way's wall ms/tick, its sharded K1
+       and K2 launches (one a part a tick) and each part's carry bytes,
+       equal to the replicated plus its own placed bytes
+       (``PackRunner.part_bytes_estimate``); every placed member equals its
+       member of the unmeshed pack's 64 ticks. Then a first chunk of 32
+       ticks profiled, the pack against one member alone, the 4-shard mesh
+       and the placed ways: device ms and kernels a tick, the busy share,
+       K1's and K2's (or their sharded forms') ms a launch at the packed
+       (a placed way: each part's) shape."""
     import shutil
     import tempfile
     import threading
@@ -4930,9 +4945,9 @@ def phase_packs(card) -> dict:
                              "other_ticks": outs[1].result.journal["sim"]["ticks"]}
         step("straggler_slo")
 
-        # 4. the eight on a 4-shard and a "2x4" virtual mesh of card 0,
-        # against the unmeshed pack, one turn (library path)
-        from testground_tpu_torch.sim.meshplan import make_mesh
+        # 4. the eight on a 4-shard virtual mesh of card 0, against the
+        # unmeshed pack, one turn (library path)
+        from testground_tpu_torch.sim.meshplan import TorchMesh, make_mesh
 
         lc8 = [plan_buckets([n], "auto", DEFAULT_LADDER).live_counts for n in PACK_SIZES]
 
@@ -4949,6 +4964,14 @@ def phase_packs(card) -> dict:
         def pack_mesh(way):
             if way == "unmeshed":
                 return None
+            if way in PACK_PLACED:  # a mesh of card 0 cut into parts
+                shape, cuts = PACK_PLACED[way]
+                mesh = make_mesh(shape, devices=[card0] * 8)
+                rows, p = mesh.shape.get("runs", 1), mesh.shards
+                bounds = (0, *cuts, p)
+                return TorchMesh(mesh.devices[: rows * p], runs=mesh.runs, parts=tuple(
+                    (card0, g * p + a, g * p + b) for g in range(rows)
+                    for a, b in zip(bounds, bounds[1:])))
             dims = [int(d) for d in way.split("x")]
             return make_mesh(way, devices=[card0] * int(np.prod(dims)))
 
@@ -4992,42 +5015,78 @@ def phase_packs(card) -> dict:
             for way in ways}
         step("meshes")
 
-        # 5. last: peak bytes, then the first 32 ticks profiled
-        peaks = {}
-        for way in ("pack", "member", *PACK_MESHES):
+        # 5. last: 64 ticks of each way (peak bytes; the placed ways' wall,
+        # launches and part bytes), then the first 32 ticks profiled
+        peaks, placed, walls, base = {}, {}, {}, None
+        for way in ("pack", "member", *PACK_MESHES, *PACK_PLACED):
+            runner = res = None
+            prog = pack_prog(PACK_PLACED_TICKS)
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
+            t0 = time.perf_counter()
             if way == "member":
-                pack_prog(64).run(seed=0, max_ticks=64)
+                prog.run(seed=0, max_ticks=PACK_PLACED_TICKS)
             else:
-                PackRunner(pack_prog(64), 8, mesh=None if way == "pack"
-                           else pack_mesh(way)).run(members(64))
+                runner = PackRunner(prog, 8, mesh=None if way == "pack" else pack_mesh(way))
+                res = runner.run(members(PACK_PLACED_TICKS))
             torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the 64 ticks' wall, the run's setup (the members' carries, a
+            # placed pack's parts) included
+            walls[way] = wall / PACK_PLACED_TICKS * 1e3
             got = read_launches(KERNELS + SHARDED_KERNELS)
             for k, v in got.items():
                 launches[k] += v
             peaks[way] = torch.cuda.max_memory_allocated() - held
+            if way == "pack":
+                base = res
+            elif way in PACK_PLACED:
+                for k in range(len(PACK_SIZES)):
+                    same_results(f"packs placed {way} member {k}", base[k], res[k])
+                # each part pops once a tick, and commits on the ticks that
+                # bring its own lanes messages
+                parts = len(runner.parts)
+                most = PACK_PLACED_TICKS * parts
+                check(got["pop_bucket_sharded"] == most
+                      and 0 < got["commit_calendar_sharded"] <= most,
+                      f"packs placed {way}: launches {got} over {PACK_PLACED_TICKS} "
+                      f"ticks on {parts} parts")
+                estimate = runner.part_bytes_estimate(prog.init_carry(0))
+                check(runner.last_part_bytes == estimate,
+                      f"packs placed {way}: part bytes {runner.last_part_bytes}, "
+                      f"predicted {estimate}")
+                placed[way] = {
+                    "parts": [(q.row, q.first, q.runs, q.s0, q.s1) for q in runner.parts],
+                    "part_bytes": runner.last_part_bytes,
+                    "wall_ms_per_tick": wall / PACK_PLACED_TICKS * 1e3,
+                    "launches": got}
         p8 = row["pack8_sustained"]
         # one chunk of 32 ticks each
+        ticks = PACK_PROFILE_TICKS
         prof = {
-            "pack": pack_profile(pack_prog(32), members(32),
+            "pack": pack_profile(pack_prog(ticks), members(ticks),
                                  p8["median_pack_wall_ms_per_tick"]),
-            "member": device_profile(pack_prog(32), ticks=32, wall_ms_per_tick=p8[
+            "member": device_profile(pack_prog(ticks), ticks=ticks, wall_ms_per_tick=p8[
                 "serial_member_wall_ms_per_tick"]),
-            **{way: pack_profile(pack_prog(32), members(32), statistics.median(
+            **{way: pack_profile(pack_prog(ticks), members(ticks), statistics.median(
                 row["pack8_meshes"][way]["wall_ms_per_tick"]), mesh=pack_mesh(way))
                for way in PACK_MESHES},
+            **{way: pack_profile(pack_prog(ticks), members(ticks),
+                                 placed[way]["wall_ms_per_tick"], mesh=pack_mesh(way))
+               for way in PACK_PLACED},
         }
         kp, km = prof["pack"]["kernels_per_tick"], prof["member"]["kernels_per_tick"]
         row["profiled"] = prof
+        row["placed"] = placed
+        row["wall_ms_per_tick_64"] = walls
         row["peak_bytes"] = {**peaks, "ratio": peaks["pack"] / peaks["member"]}
         row["kernels_ratio"] = kp / km if kp and km else None
         row["mesh_kernels_added"] = {
             way: (prof[way]["kernels_per_tick"] - kp
                   if prof[way]["kernels_per_tick"] and kp else None)
-            for way in PACK_MESHES}
+            for way in (*PACK_MESHES, *PACK_PLACED)}
         step("profiled")
     finally:
         daemon.stop()
@@ -5944,11 +6003,22 @@ def main(argv=None) -> int:
             sharded_pop_case("y-fold", 2, 2, 8, 65_540, 1, False, 65),
             sharded_pop_case("y-fold-scalar", 2, 2, 6, 65_540, 2, True, 66),
             sharded_pop_case("width-8-bool-16", 4, 16, 4 * 1024, 4, 8, True, 67),
-            # pack8@sustained on a 4-shard or a "2x4" mesh: 32 sub-shards of
-            # 8,192 lanes (eight members × four peer shards), one part
+            # pack8@sustained on a 4-shard mesh: 32 sub-shards of 8,192 lanes
+            # (eight members × four peer shards), one part
             sharded_commit_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, 2 * 32 * 8192,
                                 False, True, True, 68),
             sharded_pop_case("packed-mesh", 32, 8, 32 * 8192, 4, 1, False, 69),
+            # the pack placed over the parts of a mesh: each part's own
+            # sub-shards in one tensor, 8 of them ("4" cut into four, "2x4"
+            # cut into four) or 16 ("2x4": a row's four members)
+            sharded_commit_case("placed-8-sub-shards", 32, 8, 32 * 8192, 4, 1,
+                                2 * 32 * 8192, False, True, True, 72, parts=(8, 16, 24)),
+            sharded_pop_case("placed-8-sub-shards", 32, 8, 32 * 8192, 4, 1, False, 73,
+                             parts=(8, 16, 24)),
+            sharded_commit_case("placed-16-sub-shards", 32, 8, 32 * 8192, 4, 1,
+                                2 * 32 * 8192, False, True, True, 74, parts=(16,)),
+            sharded_pop_case("placed-16-sub-shards", 32, 8, 32 * 8192, 4, 1, False, 75,
+                             parts=(16,)),
             # pack8@sustained unmeshed: 262,144 lanes, a 524k-message stream
             # with the etick plane, a 1M-cell row; one launch a tick each
             commit_case("packed", 8, 8 * 32768, 4, 1, 2 * 8 * 32768, False, True, True,

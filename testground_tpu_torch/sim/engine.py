@@ -1050,39 +1050,8 @@ class SimProgram:
         return PartedCarry(self, out)
 
     def _on_parts(self, work: Callable[[int], None]) -> None:
-        """``work(i)`` for every part ``i`` of a several-part program, each
-        on a host thread of its own with its part's card current (part 0 on
-        the calling thread), the parts taking turns from one collective to
-        the next (``distributed.PartGroup``), and wait for every part. A
-        part that raises breaks the group, so every other part stops at its
-        next turn; the first part's own failure is raised (a broken wait
-        only where no part failed of its own)."""
-        from .distributed import PartsBroken
-
-        errors: list = [None] * len(self._parts)
-
-        def run(i):
-            try:
-                self._group.start(i)
-                with device_context(self._parts[i].device):
-                    work(i)
-            except BaseException as e:  # noqa: BLE001 — re-raised below
-                errors[i] = e
-                self._group.abort()
-            else:
-                self._group.finish(i)
-
-        self._group.reset()
-        threads = [threading.Thread(target=run, args=(i,), daemon=True, name=f"sim-part-{i}")
-                   for i in range(1, len(self._parts))]
-        for th in threads:
-            th.start()
-        run(0)
-        for th in threads:
-            th.join()
-        failed = [e for e in errors if e is not None]
-        if failed:
-            raise next((e for e in failed if not isinstance(e, PartsBroken)), failed[0])
+        """:func:`on_parts` over this several-part program's parts."""
+        on_parts(self._group, [p.device for p in self._parts], work)
 
     def lane_export(self) -> "LaneExport | None":
         """How a snapshot of this program cuts the mesh padding's dead
@@ -1146,13 +1115,19 @@ class SimProgram:
             "region_valid": plane(out.region_valid, (n_g,), b),
         }
 
-    def _step_phase(self, carry: SimCarry, inbox_all: Inbox, t) -> dict:
+    def _step_phase(self, carry: SimCarry, inbox_all: Inbox, t, live=None) -> dict:
         """Per-group ``testcase.step`` over the batched group slices,
         terminal-instance freezing, and the per-group output planes
-        concatenated along the instance axis."""
+        concatenated along the instance axis. ``live`` is the RUNNING
+        instances per group the plans see, where the caller holds them (a
+        run pack placed over a mesh's parts sums them once a tick)."""
         cls = type(self.tc)
-        live_g = (live_per_group(carry.status, self._gown, self.mesh) if self.placed
-                  else live_per_group(carry.status, self.groups))
+        if live is not None:
+            live_g = live
+        elif self.placed:
+            live_g = live_per_group(carry.status, self._gown, self.mesh)
+        else:
+            live_g = live_per_group(carry.status, self.groups)
         sub_payload, sub_valid = make_sub_window(carry.sync, cls.SUB_K)
         outs = []
         for g, sp in zip(self.groups, self._gown):
@@ -2125,6 +2100,42 @@ class PartedCarry:
         if name in _REPLICATED:  # equal on every part: part 0's, no gather
             return getattr(self.parts[0], name)
         return getattr(self.whole(), name)
+
+
+def on_parts(group, devices, work: Callable[[int], None]) -> None:
+    """``work(i)`` for every part ``i`` of a several-part mesh, each on a
+    host thread of its own with its device (``devices[i]``) current (part 0
+    on the calling thread), the parts taking turns from one collective to
+    the next (``group``, a ``distributed.PartGroup``), and wait for every
+    part. A part that raises breaks the group, so every other part stops at
+    its next turn; the first part's own failure is raised (a broken wait
+    only where no part failed of its own)."""
+    from .distributed import PartsBroken
+
+    errors: list = [None] * len(devices)
+
+    def run(i):
+        try:
+            group.start(i)
+            with device_context(devices[i]):
+                work(i)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[i] = e
+            group.abort()
+        else:
+            group.finish(i)
+
+    group.reset()
+    threads = [threading.Thread(target=run, args=(i,), daemon=True, name=f"sim-part-{i}")
+               for i in range(1, len(devices))]
+    for th in threads:
+        th.start()
+    run(0)
+    for th in threads:
+        th.join()
+    failed = [e for e in errors if e is not None]
+    if failed:
+        raise next((e for e in failed if not isinstance(e, PartsBroken)), failed[0])
 
 
 def _done_flag(cuda: bool) -> tuple:

@@ -555,7 +555,8 @@ def _mesh_journal_block(mesh, testcase, groups, hosts):
 _MEM_HEADROOM = 2.5
 
 
-def _precheck_device_memory(prog, carry: int, cfg, ow, device, mesh=None) -> None:
+def _precheck_device_memory(prog, carry: int, cfg, ow, device, mesh=None,
+                            per_device: bool = False) -> None:
     """Refuse an oversized composition before its first tick
     (``executor.py:610-647``): the carry footprint × headroom, divided
     across the mesh's distinct devices, against the memory of ``device``
@@ -563,7 +564,9 @@ def _precheck_device_memory(prog, carry: int, cfg, ow, device, mesh=None) -> Non
     the run's device, not the program's: ``tg check`` builds the program
     on the meta device and passes the card the run would use, or None
     where it has none. ``mesh`` is the mesh the carry spreads over where it
-    is not the program's: a run pack's calendar mesh (``sim/pack.py``)."""
+    is not the program's: a run pack's calendar mesh (``sim/pack.py``).
+    ``per_device``: ``carry`` is already the bytes one device holds (a
+    placed pack's part, checked against its own card)."""
     limit = int(getattr(cfg, "memory_limit_bytes", 0) or 0)
     if limit < 0:
         return
@@ -572,7 +575,7 @@ def _precheck_device_memory(prog, carry: int, cfg, ow, device, mesh=None) -> Non
             return  # no device budget to check against
         limit = torch.cuda.get_device_properties(device).total_memory
     mesh = prog.mesh if mesh is None else mesh
-    n_dev = 1 if mesh is None else len(set(mesh.devices))
+    n_dev = 1 if mesh is None or per_device else len(set(mesh.devices))
     need = int(carry * _MEM_HEADROOM / n_dev)
     if need > limit:
         raise RuntimeError(
@@ -1972,8 +1975,9 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     asserts the essentials and returns one ``RunOutput`` OR ``Exception``
     per job (a member's failure is its own task's failure, never the
     pack's). On a mesh the pack's calendar is split over the peer shards
-    (``PackRunner(prog, width, mesh=)``); the port has no compile cache, so
-    ``sim.bucket.compile_cache`` is ``"off"``."""
+    (``PackRunner(prog, width, mesh=)``), and on a mesh of several parts
+    each part holds and steps its own members' lanes; the port has no
+    compile cache, so ``sim.bucket.compile_cache`` is ``"off"``."""
     from .engine import build_groups as _build_groups
     from .engine import resolve_device
     from .pack import PackMember, PackRunner, pack_width
@@ -1989,7 +1993,8 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     # The run axis is laid out by the pack, but the INSTANCE axis may still
     # shard: the inner program is built unmeshed and PackRunner splits the
     # pack's calendar over the mesh's peer shards (one sub-shard a member
-    # and shard). The bucket gate sees the pack's real mesh so padded
+    # and shard), or, on a mesh of several parts, places every lane leaf
+    # over the parts (sim/pack.py). The bucket gate sees the pack's real mesh so padded
     # counts divide the peer shards; when they do not, the pack falls back
     # to the unmeshed single-device world rather than breaking the
     # admission signature's bucketed promise (the reference's gate).
@@ -2063,10 +2068,18 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     width = pack_width(len(jobs), int(getattr(cfg, "pack_max", 8) or 8))
     runner = PackRunner(prog, width, mesh=pack_mesh, transport=transport)
     # the stacked carry: every member's leaves side by side, the calendar
-    # split over the pack mesh's devices
-    carry_one = prog.footprint(prog.init_carry(0))
-    _precheck_device_memory(prog, carry_one * width, cfg, ows[0], device,
-                            mesh=runner.cal_mesh)
+    # split over the pack mesh's devices; placed over the mesh's parts,
+    # each part's own bytes against its own card
+    member0 = prog.init_carry(0)
+    if runner.placed:
+        for q, part_bytes in zip(runner.parts, runner.part_bytes_estimate(member0)):
+            _precheck_device_memory(prog, part_bytes, cfg, ows[0],
+                                    q.device if device.type == "cuda" else device,
+                                    per_device=True)
+    else:
+        _precheck_device_memory(prog, prog.footprint(member0) * width, cfg, ows[0],
+                                device, mesh=runner.cal_mesh)
+    del member0
     mesh_block = _mesh_journal_block(pack_mesh, testcase, groups, ())
 
     # ------------------------------------------------ per-member plumbing

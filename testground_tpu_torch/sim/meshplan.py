@@ -43,7 +43,9 @@ process. Every count of the mesh (``size``, ``shards``,
 a 2-D mesh splits its lanes over row 0's peer shards (:meth:`TorchMesh.row`),
 as the reference shards ``i`` and replicates over ``runs``. A run pack's
 members split into the rows in contiguous groups, and each member's lanes
-over its row's peer shards (``sim/pack.py``).
+over its row's peer shards (``sim/pack.py``); on a mesh of several parts
+each part holds its row's members' own lanes (:func:`pack_parts`, the
+reference's ``constrain_carry(lead="runs")``).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ __all__ = [
     "DEFAULT_RULES",
     "MeshPlan",
     "PLACED_BEYOND_RULES",
+    "PackPart",
     "PartitionSpec",
     "TorchMesh",
     "cross_shard_bytes_est",
@@ -67,6 +70,8 @@ __all__ = [
     "layout_str",
     "make_mesh",
     "mesh_axis_names",
+    "pack_owners",
+    "pack_parts",
     "parse_mesh_shape",
     "peer_shards",
     "plan_for",
@@ -379,18 +384,21 @@ class MeshPlan:
             spec = P(*tuple(spec)[:ndim])
         return spec
 
-    def lane_axis(self, path: str) -> int | None:
+    def lane_axis(self, path: str, lead: str | None = None) -> int | None:
         """The axis of the carry leaf at ``path`` that a cohort places over
         its ranks (None: replicated): the table's ``"i"`` entry, else the
         plan states, keys and sync lane planes
         (:data:`PLACED_BEYOND_RULES`). The one placement query of a
-        cohort's carry."""
+        cohort's carry. ``lead="runs"`` asks for a run pack's carry
+        (``sim/pack.py``): its lane leaves lay the members side by side on
+        the same axis, and its plan states stack them on a leading run axis,
+        so a state leaf's lanes move one axis in."""
         spec = tuple(self.spec_for(path))
         if "i" in spec:
             return spec.index("i")
         for pat, axis in PLACED_BEYOND_RULES:
             if re.match(pat, path):
-                return axis
+                return axis + (lead is not None and path.startswith("states."))
         return None
 
     def layout_table(self) -> list[dict[str, str]]:
@@ -399,6 +407,50 @@ class MeshPlan:
             {"rule": name, "path": pat, "spec": _spec_str(spec)}
             for name, pat, spec in self.rules
         ]
+
+
+@dataclasses.dataclass(frozen=True)
+class PackPart:
+    """One part of a run pack's mesh of several parts that holds members:
+    on ``device``, row ``row``'s members ``[first, first + runs)``, and of
+    each of them peer shards ``[s0, s1)``, that is lanes ``[s0·n_loc,
+    s1·n_loc)``."""
+
+    device: torch.device
+    row: int
+    first: int
+    runs: int
+    s0: int
+    s1: int
+
+
+def pack_parts(mesh: TorchMesh, width: int) -> tuple[PackPart, ...]:
+    """The owners of a pack of ``width`` members on a mesh of several parts
+    (the reference's ``constrain_carry(lead="runs")``): the members split
+    into the rows in contiguous groups of ``ceil(width / rows)``, and each
+    part of a row holds its peer shards of that row's every member. A part
+    whose row holds no member (a width below the rows) holds nothing and is
+    left out."""
+    p = mesh.shards
+    per_row = -(-width // mesh.shape.get("runs", 1))
+    out = []
+    for dev, c0, c1 in mesh.parts:
+        g = c0 // p
+        first = g * per_row
+        runs = min(per_row, width - first)
+        if runs > 0:
+            out.append(PackPart(dev, g, first, runs, c0 - g * p, c1 - g * p))
+    return tuple(out)
+
+
+def pack_owners(parts: Sequence[PackPart], width: int, shards: int):
+    """The (member, peer shard) → owning part table of :func:`pack_parts`,
+    a ``[width, shards]`` list of lists."""
+    out = [[-1] * shards for _ in range(width)]
+    for i, q in enumerate(parts):
+        for r in range(q.first, q.first + q.runs):
+            out[r][q.s0 : q.s1] = [i] * (q.s1 - q.s0)
+    return out
 
 
 def _spec_str(spec: PartitionSpec) -> str:

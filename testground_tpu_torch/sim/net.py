@@ -79,6 +79,7 @@ __all__ = [
     "Calendar",
     "LinkState",
     "NetFeedback",
+    "RunLanes",
     "apply_net_updates",
     "deliver",
     "enqueue",
@@ -146,6 +147,17 @@ class NetFeedback:
     # want_flow only: the four [M] int32 channels sent, enqueued, rejected,
     # fault-killed; None for a channel no declared feature can fill
     flow: tuple | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RunLanes:
+    """Where the lanes of a run pack placed over the parts of a mesh lie
+    (``sim/pack.py``): calendar lane l belongs to run ``run[l]`` and is lane
+    ``lane[l]`` of that run's own layout (both ``[N]`` int64 on the owner's
+    device)."""
+
+    run: torch.Tensor
+    lane: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -549,6 +561,7 @@ def enqueue(
     want_flow: bool = False,
     dice_idx: torch.Tensor | None = None,
     runs: int = 1,
+    run_lanes: RunLanes | None = None,
 ) -> tuple[Calendar, NetFeedback]:
     """Shape + schedule this tick's sends (message m = o·N + src) into the
     calendar; returns ``(cal, NetFeedback)`` with the planes updated in
@@ -587,6 +600,11 @@ def enqueue(
       ``collision_where`` ``[runs, 2]``, each run's as its own run would
       count it. Ranks are unchanged: a destination's senders all belong
       to its run and keep their relative order in the flat index.
+    - ``run_lanes``: a run pack placed over a mesh's parts, on a part's
+      calendar (:class:`RunLanes`): its lanes are no longer run-major
+      blocks, so each count is summed by the run its lane names, a filter
+      rule reads its destination's lane within its run, and the first
+      collision of a run is its run's least over every part.
 
     On a cohort's calendar the outbox, ``link``, ``dead`` and ``dice_idx``
     are this process's own senders' (``[O, n_own]``, ``[n_own]``,
@@ -601,8 +619,8 @@ def enqueue(
     n_own = hi - lo
     if n_src != n_own:
         raise ValueError(f"outbox lane count {n_src} != calendar lanes {n_own}")
-    if placed and runs != 1:
-        raise ValueError("a run pack's enqueue does not run on a cohort's calendar")
+    if placed and runs != 1 and run_lanes is None:
+        raise ValueError("a run pack's enqueue on a placed calendar needs its run_lanes")
     dev = valid.device
     i32 = torch.int32
 
@@ -625,11 +643,16 @@ def enqueue(
     val0 = val_f
     m = val_f.shape[0]
     n_run = n // runs
+    # a placed pack's own senders' runs, per message row
+    run_src = run_lanes.run[lo:hi] if placed and runs != 1 else None
 
     def count(x):
         """A per-message (or per-lane) mask's total, per run of a pack."""
         if runs == 1:
             return x.sum(dtype=i32)
+        if run_src is not None:
+            rows = run_src.repeat(x.shape[0] // n_own)
+            return torch.zeros(runs, dtype=i32, device=dev).index_add_(0, rows, x.to(i32))
         return x.view(-1, runs, n_run).sum(dim=(0, 2), dtype=i32)
 
     sent = count(val_f)
@@ -694,7 +717,12 @@ def enqueue(
         action = torch.full((m,), FILTER_ACCEPT, dtype=i32, device=dev)
         matched = torch.zeros(m, dtype=torch.bool, device=dev)
         # a pack's rules address their own run's lanes
-        dst_rule = dst_safe if runs == 1 else torch.remainder(dst_safe, n_run)
+        if runs == 1:
+            dst_rule = dst_safe
+        elif run_src is not None:
+            dst_rule = run_lanes.lane[dst_safe]
+        else:
+            dst_rule = torch.remainder(dst_safe, n_run)
         for k in range(link.rules.shape[0]):
             # unset rules (start >= end) can never hit
             hit = (
@@ -905,17 +933,23 @@ def enqueue(
     if slot_mode == "direct":
         buck = torch.remainder(t.reshape(()) + delay, horizon)
         occ_vals = src_f + 1
+        count_in = count
         if placed:  # the messages of this process's destinations
             got, _ = _exchange(cal, val_f, dst_safe, [dst_safe, buck, gidx, occ_vals, *pay_w])
             dst_safe, buck, gm, occ_vals = got[:4].unbind(0)
             pay_w = list(got[4:].unbind(0))
             slot_in_src = torch.div(gm, n, rounding_mode="floor")
             val_in = torch.ones_like(dst_safe, dtype=torch.bool)
+            if run_src is not None:  # a received message counts for its run
+
+                def count_in(x, run=run_lanes.run[dst_safe]):
+                    return torch.zeros(runs, dtype=i32, device=dev).index_add_(
+                        0, run, x.to(i32))
         else:
             val_in = val_f
         enq, collisions, where = _commit_direct(
             cal, t, buck, val_in, slot_in_src, dst_safe, occ_vals, pay_w, o, validate,
-            count, runs,
+            count_in, runs, run_lanes if run_src is not None else None,
         )
         return cal, feedback(enq, fate_of(val_f), flow_of(val_f), collisions, where)
 
@@ -955,6 +989,7 @@ def enqueue(
         cal, surv, enqueued = _commit_placed(
             cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking,
             want_fate or want_flow, 2 * o * n if "duplicate" in features else o * n,
+            None if run_src is None else (runs, run_lanes.run),
         )
         fate = flow = None
         if surv is not None:
@@ -1061,14 +1096,15 @@ def _exchange(cal: Calendar, val_f, dst_safe, cols: list) -> tuple:
 
 
 def _commit_placed(cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking,
-                   want_surv, m_all):
+                   want_surv, m_all, runs=None):
     """A cohort's sorted commit: the messages of this process's
     destinations (:func:`_exchange`) sorted by the shard-major key, ties by
     global message index — the order the single run's stable sort gives
     them — and committed by the sharded K1 into this process's shards.
     Returns ``(cal, survived, enqueued)``: ``survived`` each of this
     process's messages' survival (0/1, None unless ``want_surv``),
-    ``enqueued`` this process's destinations' count."""
+    ``enqueued`` this process's destinations' count (a placed pack's,
+    ``runs = (R, run of each calendar lane)``: per run)."""
     occ = src_f + 1 if cal.src is not None else torch.ones_like(src_f)
     got, back = _exchange(cal, val_f, dst_safe, [dst_safe, bucket, gidx, occ, *pay_w])
     d, bk, gm = got[0], got[1], got[2]
@@ -1082,7 +1118,11 @@ def _commit_placed(cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking
         cal, key[order].contiguous(),
         rows[3].contiguous(), [r.contiguous() for r in rows[4:]], t, stacking=stacking,
     )
-    enqueued = survived.sum(dtype=torch.int32)
+    if runs is None:
+        enqueued = survived.sum(dtype=torch.int32)
+    else:
+        enqueued = torch.zeros(runs[0], dtype=torch.int32, device=survived.device).index_add_(
+            0, runs[1][rows[0]], survived)
     if not want_surv:
         return cal, None, enqueued
     mine = torch.empty_like(survived).index_copy_(0, order, survived)
@@ -1090,7 +1130,7 @@ def _commit_placed(cal, t, bucket, val_f, dst_safe, gidx, src_f, pay_w, stacking
 
 
 def _commit_direct(cal, t, buck, val_f, slot_in_src, dst_safe, occ_vals, pay_w,
-                   o, validate, count, runs=1):
+                   o, validate, count, runs=1, run_lanes=None):
     """Direct slot mode's write (``net.py:1031-1111``): slot = the sender's
     outbox index, one write per message, no sort and no duplicate pass.
     The reference drops an invalid message by scattering it to the
@@ -1108,7 +1148,8 @@ def _commit_direct(cal, t, buck, val_f, slot_in_src, dst_safe, occ_vals, pay_w,
     shards takes one write per plane. Returns ``(enqueued, collisions,
     collision_where)``, the last two None without ``validate``; ``count``
     totals a mask per run of a pack (``runs``), whose first collision is
-    each run's own, its receiver run-local."""
+    each run's own, its receiver run-local (a placed pack's, with its
+    ``run_lanes``: the least over every part)."""
     slots = cal.slots
     horizon, n = cal.horizon, cal.lanes
     ns = n * slots
@@ -1152,13 +1193,18 @@ def _commit_direct(cal, t, buck, val_f, slot_in_src, dst_safe, occ_vals, pay_w,
                 from .distributed import all_reduce_min
 
                 first = all_reduce_min(first.reshape(1), cal.mesh).reshape(())
-        else:
+        elif run_lanes is None:
             first = first.view(-1, runs, n // runs).amin(dim=(0, 2))
+        else:
+            from .distributed import all_reduce_min
+
+            first = torch.full((runs,), big, dtype=first.dtype, device=first.device
+                               ).scatter_reduce_(0, run_lanes.run[dst_safe], first, "amin")
+            first = all_reduce_min(first, cal.mesh)
         p = torch.remainder(first, ns)
-        where = torch.stack(
-            [torch.remainder(p, n // runs), torch.div(p, n, rounding_mode="floor")],
-            dim=-1,
-        ).to(i32)
+        lane = (torch.remainder(p, n // runs) if run_lanes is None
+                else run_lanes.lane[torch.remainder(p, n)])
+        where = torch.stack([lane, torch.div(p, n, rounding_mode="floor")], dim=-1).to(i32)
     keep = val_f.nonzero().squeeze(1)  # the write's one host sync
     if cal.mesh is None:
         writes = [(cal, keep, buck[keep], pos[keep])]

@@ -37,18 +37,44 @@ port's tick is eager and launches K1 and K2 through ``ctypes``, which no
   bucketed run does.
 
 **On a mesh** (``PackRunner(prog, width, mesh=)``, 1-D or 2-D ``"RxP"``)
-the program stays unmeshed, as the reference's inner program does, and
-only the pack's calendar is split: one sub-shard of ``n_loc = N / P`` lanes
-for each (member, peer shard), in the pack's lane order — sub-shard
-``r·P + s`` holds member r's lanes ``[s·n_loc, (s+1)·n_loc)``
-(:func:`sub_shard_mesh`). So the pack's calendar is the sharded calendar of
-``sim/net.py`` over ``W·P`` shards, with its shard-major sort key, its
-sharded K1 and K2 (one launch per part: once a tick on one card) and its
-pop straight into the step's run-major lanes. On a 2-D mesh the members
-split into contiguous groups, one per row, and a member's sub-shards sit
-on its row's devices. Every other leaf stays on the mesh's primary device.
-A member whose lanes do not divide across the peer shards is padded with
-the solo meshed run's dead lanes (``SimProgram(lane_multiple=P)``).
+the program stays unmeshed, as the reference's inner program does. On a
+mesh of one part only the pack's calendar is split: one sub-shard of
+``n_loc = N / P`` lanes for each (member, peer shard), in the pack's lane
+order — sub-shard ``r·P + s`` holds member r's lanes ``[s·n_loc,
+(s+1)·n_loc)`` (:func:`sub_shard_mesh`). So the pack's calendar is the
+sharded calendar of ``sim/net.py`` over ``W·P`` shards, with its
+shard-major sort key, its sharded K1 and K2 (one launch a tick) and its pop
+straight into the step's run-major lanes; every other leaf stays on the
+mesh's primary device. A member whose lanes do not divide across the peer
+shards is padded with the solo meshed run's dead lanes
+(``SimProgram(lane_multiple=P)``).
+
+**On a mesh of several parts** (several cards, explicit ``parts``, or the
+rows of a 2-D mesh, which are parts even on one device) the pack is placed,
+as the reference's ``constrain_carry(carry, meshplan, lead="runs")``
+places its stacked carry: the members split into the rows in contiguous
+groups, and the part holding cells ``[s0, s1)`` of row g owns its row's
+members' lanes ``[s0·n_loc, s1·n_loc)`` (``meshplan.pack_parts``) of every
+leaf ``MeshPlan.lane_axis`` names — the status rows, the link state, the
+plan states, the keys, the sync cursors and sequence numbers — laid out
+member-major (``[R_g, lanes_p]``), and its sub-shards of the calendar, in
+one tensor: the calendar's sub-shards go owner by owner, so an owner's
+lanes are one span. The
+run-axis leaves (the counters, the sync counts and streams, the histogram)
+are replicated on every part. Each part steps its own block on a host
+thread of its own (``engine.on_parts``), its members' plan step vmapped
+over ``[R_g, lanes_p]`` with the groups' own spans, as a cohort's ranks
+step theirs; the parts meet at the tick's collectives
+(``distributed.PartGroup``): ``net.enqueue`` hands each message to its
+destination's part (its dice hashing its member's own run's index, ties
+in its commit broken by its place in its member's own order, so the
+survivors are the one-part pack's), and one gather a tick sums every
+part's per-run counts, sync totals, RUNNING instances and histogram delta,
+so the replicas stay equal and the sync fold numbers and appends each
+run's signals and publishes after the lower parts'. A member's done flag is
+the summed RUNNING count; its snapshot gathers its lanes from every part
+(a collective at the tick its flag rises). A part whose row holds no member
+holds nothing. Every result is the one-part pack's, bit for bit.
 
 **Stragglers and freezes.** The host reads the R done flags of a tick in
 one copy. A member whose flag rises is snapshotted right after that tick
@@ -85,24 +111,27 @@ from torch._C._functorch import (
 )
 
 from .api import CRASH, RUNNING, Inbox
-from .meshplan import TorchMesh, _indexed, plan_for
+from .meshplan import TorchMesh, _indexed, pack_parts, plan_for
 from .engine import (
     SimCarry,
     _NoHostReads,
     _Virtual,
+    carry_bytes,
     device_context,
+    on_parts,
 )
 from .net import (
     BANDWIDTH,
     MSG_BYTES,
     Calendar,
     LinkState,
+    RunLanes,
     apply_net_updates,
     deliver,
     enqueue,
     latency_histogram,
 )
-from .sync_kernel import SyncState, update_sync
+from .sync_kernel import RankTotals, SyncState, live_per_group, update_sync
 from .telemetry import LATENCY_BINS
 
 __all__ = [
@@ -245,6 +274,42 @@ class _BatchedVirt:
         self.global_seq = [offs[i] + prog._gseq[i] for i in range(g_n)]
 
 
+@dataclasses.dataclass(eq=False)
+class _Layout:
+    """What one stepper of a pack holds and its static maps: the whole
+    pack, or one part of a mesh of several parts (``part`` set). It steps
+    members ``[first, first + runs)`` and ``n`` lanes of each, member-major
+    (the whole pack: run-major, every lane)."""
+
+    runs: int
+    n: int
+    first: int
+    device: Any
+    view: Any  # the plan step's program
+    group_of: torch.Tensor  # [n] the held lanes' groups
+    lat_group_of: torch.Tensor  # [runs·n] the histogram's row of each lane
+    dst_tbl: torch.Tensor
+    dst_base: torch.Tensor
+    nv_max: int
+    src_tbl: torch.Tensor
+    dice_idx: torch.Tensor
+    msg_run: torch.Tensor
+    both: torch.Tensor | None
+    first_step: bool
+    out_keys: list | None = None
+    # a part of several: its index, its view of the calendar's mesh, where
+    # the calendar's lanes lie, and the RUNNING instances per (run, group)
+    # after the last tick (what the plans see as ``sync.live``)
+    part: int | None = None
+    mesh: Any = None
+    run_lanes: RunLanes | None = None
+    live: torch.Tensor | None = None
+
+    @property
+    def lanes(self) -> int:
+        return self.runs * self.n
+
+
 class _PackBlocks:
     """The pack's per-chunk telemetry buffers: the device block ``[chunk,
     R, K]`` (-1 until written) and the pinned host copies of it and of the
@@ -274,6 +339,27 @@ class _PackBlocks:
         return carry
 
 
+# the carry's leaves a placed pack splits by lane, and their lane axis in a
+# member's own carry (the plan states: their group's lanes, axis 0), as
+# ``MeshPlan.lane_axis`` places them
+_LANE_LEAVES = (("status", -1), ("finished_at", -1), ("rejected", -1), ("keys", 0),
+                ("link.egress", -1), ("link.filters", -1), ("link.region_of", -1),
+                ("link.backlog", -1), ("link.rules", -1), ("sync.last_seq", -1),
+                ("sync.cursors", -1))
+
+
+# the leaves a pack stacks on its run axis, every part holding each whole
+_RUN_LEAVES = (*_RUN_COUNTERS, "sync.counts", "sync.stream", "sync.stream_len",
+               "sync.dropped", "lat_hist", "live_counts")
+
+
+def _get(carry, path):
+    obj = carry
+    for name in path.split("."):
+        obj = getattr(obj, name)
+    return obj
+
+
 class PackRunner:
     """R compatible runs over ONE :class:`~.engine.SimProgram` (``prog``,
     the members' shared padded layout), stepped as one program over a run
@@ -282,7 +368,15 @@ class PackRunner:
     The program must be trace-free, fault-free, host-free and matrix-free
     (the admission key guarantees it). ``prog.live_counts`` decides
     whether members carry per-run exact counts (shape bucketing) — when
-    set, every member's ``live_counts`` must be provided."""
+    set, every member's ``live_counts`` must be provided.
+
+    On a mesh of several parts (``mesh.parts``: several cards, explicit
+    cuts, or the rows of a 2-D mesh) the pack is placed (``parts``, from
+    ``meshplan.pack_parts``): each part holds its members' own lanes of
+    every leaf ``MeshPlan.lane_axis`` names, member-major, and its
+    sub-shards of the calendar, and a replica of every run-axis leaf; it
+    steps them on a host thread of its own, the parts meeting at the
+    tick's collectives (``distributed.PartGroup``)."""
 
     def __init__(self, prog, width: int, mesh=None, transport: str = "xla"):
         self.prog = prog
@@ -316,27 +410,47 @@ class PackRunner:
         self.cls = type(prog.tc)
         self.n = prog.n  # lanes a member holds
         self.lanes = self.width * self.n
-        # the calendar's sub-shards on a mesh (None without one)
+        # the calendar's sub-shards on a mesh (None without one), and a
+        # mesh of several parts' owners (None: one stepper holds the pack)
         self.cal_mesh = None
+        self.parts = None
         if mesh is not None:
             if mesh.primary != _indexed(prog.device):
                 raise ValueError(
                     f"the pack's program lives on {prog.device}, not on the "
                     f"mesh's primary device {mesh.primary}: a meshed pack "
-                    "keeps every leaf but the calendar there"
+                    "builds its carry from there"
                 )
             if self.n % mesh.shards:
                 raise ValueError(
                     f"a member's {self.n} lanes do not divide across the "
                     f"mesh's {mesh.shards} peer shards"
                 )
-            self.cal_mesh = sub_shard_mesh(mesh, self.width)
+            if len(mesh.parts) > 1:
+                self.parts = pack_parts(mesh, self.width)
+                self.n_loc = self.n // mesh.shards
+                # the calendar's sub-shards owner by owner, each owner's
+                # members one after another, each member's own peer shards
+                # in order: an owner's lanes are one span, member-major
+                owners = tuple(i for i, q in enumerate(self.parts)
+                               for _ in range(q.runs * (q.s1 - q.s0)))
+                cells = tuple(self.parts[i].device for i in owners)
+                bounds = [i for i in range(1, len(owners)) if owners[i] != owners[i - 1]]
+                self._cal_owners = owners
+                self.cal_mesh = TorchMesh(cells, parts=tuple(
+                    (cells[a], a, b) for a, b in zip([0, *bounds], [*bounds, len(owners)])))
+            else:
+                self.cal_mesh = sub_shard_mesh(mesh, self.width)
         self._members_cache: dict = {}
         # the plan step's program: the member's virtual layout is set per
         # call (bucketed), and host reads are watched on the first step
         self._view = copy.copy(prog)
         self._view._watch_host_reads = False
-        self._first_step = prog.bucketed
+
+    @property
+    def placed(self) -> bool:
+        """Whether each part of the mesh holds and steps its own lanes."""
+        return self.parts is not None
 
     # ------------------------------------------------------------ members
 
@@ -357,20 +471,22 @@ class PackRunner:
             self._members_cache[lc] = m
         return m
 
-    def _tables(self, mprogs) -> None:
-        """The pack's static maps for this membership, built once per run:
-        the destination, sender and dice tables, each message's run, the
-        lane → (run, group) map of the histogram and, bucketed, the
-        members' exact-count rows."""
-        prog, cls, dev = self.prog, self.cls, self.prog.device
-        r_n, n, lanes = self.width, self.n, self.lanes
+    def _tables(self, mprogs, first, runs, lo, hi, cal_lane, dev, view) -> _Layout:
+        """The static maps of a stepper holding members ``[first, first +
+        runs)``, lanes ``[lo, hi)`` of each, built once per run: the
+        destination, sender and dice tables, each message's run, the lane →
+        (run, group) map of the histogram and, bucketed, the members'
+        exact-count rows. ``cal_lane[r, l]`` is member r's lane l's lane in
+        the calendar."""
+        prog, cls = self.prog, self.cls
+        r_n, n = self.width, self.n
         i64 = torch.int64
         g_n = len(prog.groups)
-        group_of = prog._group_of.to(i64)
-        runs = torch.arange(r_n, dtype=i64, device=dev)
+        held = hi - lo
+        group_of = prog._group_of.to(i64)[lo:hi].to(dev)
+        mine = torch.arange(first, first + runs, dtype=i64, device=dev)
         # the histogram's rows: run r's group g is row r·G + g
-        self._lat_group_of = (runs[:, None] * g_n + group_of[None, :]).reshape(-1)
-        self._group_of = group_of
+        lat_group_of = (mine[:, None] * g_n + group_of[None, :]).reshape(-1)
         o = cls.OUT_MSGS
         if prog.live_counts is None:
             nv = [n] * r_n
@@ -385,35 +501,41 @@ class PackRunner:
         # destinations: a member's virtual id v (clamped to [-1, nv_max])
         # reads row r's entry 1 + v; -1 and every id at or past the
         # member's own virtual lanes stay out of range (-1, R·N)
-        self._nv_max = max(nv)
-        width = self._nv_max + 2
-        tbl = np.full((r_n, width), lanes, np.int64)
+        nv_max = max(nv)
+        width = nv_max + 2
+        tbl = np.full((runs, width), self.lanes, np.int64)
         tbl[:, 0] = -1
-        for r in range(r_n):
-            tbl[r, 1 : 1 + nv[r]] = r * n + np.asarray(phys[r], np.int64)
-        self._dst_tbl = torch.from_numpy(tbl.reshape(-1).astype(np.int32)).to(dev)
-        self._dst_base = torch.from_numpy(
-            np.repeat(np.arange(r_n, dtype=np.int64) * width + 1, n).astype(np.int32)
+        for k in range(runs):
+            r = first + k
+            tbl[k, 1 : 1 + nv[r]] = cal_lane[r, np.asarray(phys[r], np.int64)]
+        dst_tbl = torch.from_numpy(tbl.reshape(-1).astype(np.int32)).to(dev)
+        dst_base = torch.from_numpy(
+            np.repeat(np.arange(runs, dtype=np.int64) * width + 1, held).astype(np.int32)
         ).to(dev)
-        # delivered senders (global lanes) back to each member's ids; the
+        # delivered senders (calendar lanes) back to each member's ids; the
         # empty slot's src = -1 reads the trailing -1
-        src = np.concatenate([np.asarray(s, np.int64) for s in src_loc] + [[-1]])
-        self._src_tbl = torch.from_numpy(src.astype(np.int32)).to(dev)
+        src = np.full(self.lanes + 1, -1, np.int64)
+        for r in range(r_n):
+            src[cal_lane[r]] = np.asarray(src_loc[r], np.int64)
+        src_tbl = torch.from_numpy(src.astype(np.int32)).to(dev)
         # message o·R·N + r·N + p hashes the index its member's run hashes
         rows = np.arange(o, dtype=np.int64)[:, None, None]
-        d = np.stack([np.asarray(x, np.int64) for x in dice])[None, :, :]
-        nvv = np.asarray(nv, np.int64)[None, :, None]
-        self._dice_idx = torch.from_numpy(
-            (rows * nvv + d).reshape(-1).astype(np.int32)).to(dev)
-        self._msg_run = torch.arange(r_n, dtype=i64, device=dev).repeat_interleave(
-            n).repeat(o)
-        self._both = None
+        d = np.stack([np.asarray(dice[first + k], np.int64)[lo:hi]
+                      for k in range(runs)])[None, :, :]
+        nvv = np.asarray(nv[first : first + runs], np.int64)[None, :, None]
+        dice_idx = torch.from_numpy((rows * nvv + d).reshape(-1).astype(np.int32)).to(dev)
+        msg_run = mine.repeat_interleave(held).repeat(o)
+        both = None
         if prog.bucketed:
-            both = [
-                [m._virt.ln, *m.live_counts, *m._virt.voff[:-1].tolist()]
-                for m in mprogs
-            ]
-            self._both = torch.tensor(both, dtype=torch.int32, device=dev)
+            both = torch.tensor(
+                [[m._virt.ln, *m.live_counts, *m._virt.voff[:-1].tolist()]
+                 for m in mprogs[first : first + runs]],
+                dtype=torch.int32, device=dev)
+        return _Layout(runs=runs, n=held, first=first, device=dev, view=view,
+                       group_of=group_of, lat_group_of=lat_group_of, dst_tbl=dst_tbl,
+                       dst_base=dst_base, nv_max=nv_max, src_tbl=src_tbl,
+                       dice_idx=dice_idx, msg_run=msg_run, both=both,
+                       first_step=prog.bucketed)
 
     def _init(self, mprogs, seeds, live_run) -> tuple[SimCarry, int]:
         """Each member's tick-0 carry (its program's ``init_carry``), laid
@@ -509,19 +631,276 @@ class PackRunner:
             live_counts=None if carry.live_counts is None else run(carry.live_counts),
         )
 
+    # ------------------------------------------------------------- placed
+
+    def _part_layouts(self, mprogs) -> list[_Layout]:
+        """Each part's stepper: its members' lanes member-major, its
+        program over its own lanes on its device (the plans step the
+        groups' own spans, as a cohort's ranks do), its view of the
+        calendar's mesh and where the calendar's lanes lie."""
+        from .distributed import PartGroup
+
+        prog, n, n_loc = self.prog, self.n, self.n_loc
+        self._group = PartGroup(len(self.parts))
+        # member r's lane l in the calendar: owner by owner, member-major
+        cal_lane = np.empty((self.width, n), np.int64)
+        base = 0
+        for q in self.parts:
+            held = (q.s1 - q.s0) * n_loc
+            for k in range(q.runs):
+                cal_lane[q.first + k, q.s0 * n_loc : q.s1 * n_loc] = (
+                    base + k * held + np.arange(held))
+            base += q.runs * held
+        run_of = np.empty(self.lanes, np.int64)
+        lane_of = np.empty(self.lanes, np.int64)
+        run_of[cal_lane] = np.arange(self.width)[:, None]
+        lane_of[cal_lane] = np.arange(n)[None, :]
+        lays = []
+        for i, q in enumerate(self.parts):
+            dev = _indexed(q.device)
+            lo, hi = q.s0 * n_loc, q.s1 * n_loc
+            view = copy.copy(self._view)
+            view.device = dev
+            view.placed = True
+            view._consts = {}
+            view._set_own(lo, hi)
+            view._build_layout(dev)
+            lay = self._tables(mprogs, q.first, q.runs, lo, hi, cal_lane, dev, view)
+            lay.part = i
+            lay.mesh = TorchMesh(self.cal_mesh.devices, ranks=self._cal_owners, rank=i,
+                                 group=self._group)
+            lay.run_lanes = RunLanes(run=torch.from_numpy(run_of).to(dev),
+                                     lane=torch.from_numpy(lane_of).to(dev))
+            lays.append(lay)
+        return lays
+
+    def _init_placed(self, lays, mprogs, seeds, live_run):
+        """Each part's tick-0 carry: of each of its members the isolated
+        tick-0 carry's own lanes (dead dummies all CRASH), member-major, its
+        sub-shards of the calendar, and every member's run-axis leaves.
+        One member's whole carry is built at a time. Returns the parts'
+        carries, the members' link keys and the isolated footprint."""
+        prog, cls = self.prog, self.cls
+        held = [[] for _ in lays]
+        runs_of: dict = {}
+        live, keys0, keys1 = [], [], []
+        footprint = None
+        for r, (m, seed) in enumerate(zip(mprogs, seeds)):
+            c = m.init_carry(seed)
+            if footprint is None:
+                footprint = m.footprint(c)
+            if not live_run[r]:
+                c.status.fill_(CRASH)
+            live.append(live_per_group(c.status, prog.groups))
+            keys0.append(c.net_key[0])
+            keys1.append(c.net_key[1])
+            for f in _RUN_LEAVES:
+                runs_of.setdefault(f, []).append(_get(c, f))
+            for i, lay in enumerate(lays):
+                if lay.first <= r < lay.first + lay.runs:
+                    held[i].append(self._own_lanes(lay, c))
+            del c
+        live = torch.stack(live)
+        out = []
+        for lay, mine in zip(lays, held):
+            dev = lay.device
+
+            def stack(f, dev=dev):
+                xs = runs_of[f]
+                return None if xs[0] is None else torch.stack(xs).to(dev)
+
+            def lanes(path, mine=mine, dev=dev):
+                xs = [x[path] for x in mine]
+                if xs[0] is None:
+                    return None
+                return torch.cat(xs, dim=0 if path == "keys" else -1).to(dev)
+
+            out.append(SimCarry(
+                states=tuple(
+                    {k: torch.stack([x["states"][g][k] for x in mine]).to(dev)
+                     for k in mine[0]["states"][g]}
+                    for g in range(len(prog.groups))),
+                status=lanes("status"),
+                finished_at=lanes("finished_at"),
+                cal=Calendar.empty(
+                    cls.MAX_LINK_TICKS, self.lanes, cls.IN_MSGS, cls.MSG_WIDTH,
+                    track_src=cls.TRACK_SRC, track_etick=prog.telemetry, device=dev,
+                    mesh=lay.mesh),
+                link=LinkState(**{f: lanes("link." + f) for f in
+                                  ("egress", "filters", "region_of", "backlog", "rules")}),
+                sync=SyncState(counts=stack("sync.counts"), last_seq=lanes("sync.last_seq"),
+                               stream=stack("sync.stream"),
+                               stream_len=stack("sync.stream_len"),
+                               cursors=lanes("sync.cursors"),
+                               dropped=stack("sync.dropped")),
+                rejected=lanes("rejected"),
+                keys=lanes("keys"),
+                net_key=None,
+                t=torch.zeros((), dtype=torch.int32, device=dev),
+                **{f: stack(f) for f in _RUN_COUNTERS},
+                lat_hist=stack("lat_hist"),
+                live_counts=stack("live_counts"),
+            ))
+            lay.live = live.to(dev)
+        net_key = (np.asarray(keys0, np.uint32), np.asarray(keys1, np.uint32))
+        return out, net_key, footprint
+
+    def _own_lanes(self, lay, c) -> dict:
+        """A part's own lanes of one member's whole carry ``c``."""
+        lo, hi = lay.view._lo, lay.view._hi
+        out = {}
+        for path, axis in _LANE_LEAVES:
+            x = _get(c, path)
+            out[path] = None if x is None else x.narrow(axis, lo, hi - lo)
+        out["states"] = tuple(
+            {k: v[sp.start : sp.start + sp.count] for k, v in st.items()}
+            for st, sp in zip(c.states, lay.view._gown))
+        return out
+
+    def part_bytes(self, carry) -> list[int]:
+        """Each part's device-resident carry bytes, in part order (one
+        entry for a pack that one stepper holds)."""
+        if isinstance(carry, list):
+            return [carry_bytes(c) for c in carry]
+        return [carry_bytes(carry)]
+
+    def part_bytes_estimate(self, member: SimCarry) -> list[int]:
+        """Each part's carry bytes, read off one member's tick-0 carry
+        ``member`` (``prog.init_carry``) before any part is built: every
+        run-axis leaf ``width`` times and the tick once, and of every lane
+        leaf, plan state and calendar plane the part's members' own lanes —
+        what :meth:`part_bytes` reads off the built carry. One entry (the
+        whole pack) where one stepper holds it."""
+
+        def nbytes(x):
+            return 0 if x is None else x.numel() * x.element_size()
+
+        n = self.n
+        rep = self.width * sum(nbytes(_get(member, f)) for f in _RUN_LEAVES)
+        rep += nbytes(member.t)
+        lane = sum(nbytes(_get(member, p)) for p, _ in _LANE_LEAVES)
+        lane += carry_bytes(member.cal)
+        spans = ([(0, self.width, 0, n)] if not self.placed else
+                 [(q.first, q.runs, q.s0 * self.n_loc, q.s1 * self.n_loc)
+                  for q in self.parts])
+        out = []
+        for _, runs, lo, hi in spans:
+            own = lane * (hi - lo) // n
+            for g, st in zip(self.prog.groups, member.states):
+                held = max(0, min(hi, g.offset + g.count) - max(lo, g.offset))
+                own += sum(nbytes(v) // g.count * held for v in st.values())
+            out.append(rep + runs * own)
+        return out
+
+    def _member_placed(self, lays, carries, r, gather=None) -> SimCarry:
+        """Member ``r``'s snapshot of a placed pack: its lanes from every part
+        that holds them, in lane order, and its run-axis leaves from part
+        0's replicas. From the calling thread between chunks (the parts'
+        carries read directly); or, with ``gather`` (a part's layout, its
+        carry the only one given), from inside the part's tick, a collective
+        every part takes in turn (``all_gather_cat``: a part that does not
+        hold the member adds no lane)."""
+        from .distributed import all_gather_cat
+
+        dev0 = lays[0].device
+
+        def block(lay, x, k):
+            """Member k's own block of a lane leaf (flat) or a state."""
+            return x.view(lay.runs, -1)[k] if x.dim() == 1 else x[k]
+
+        if gather is not None:
+            lay, carry = gather, carries[0]
+            k = r - lay.first
+            mine = 0 <= k < lay.runs
+
+            def lanes(get):
+                x = get(carry)
+                return all_gather_cat(block(lay, x, k) if mine else block(lay, x, 0)[:0],
+                                      lay.mesh)
+
+            src = carry
+        else:
+            holders = [(lay, c) for lay, c in zip(lays, carries)
+                       if lay.first <= r < lay.first + lay.runs]
+
+            def lanes(get):
+                return torch.cat([block(lay, get(c), r - lay.first).to(dev0)
+                                  for lay, c in holders])
+
+            src = carries[0]
+
+        def run(x):
+            return x[r].clone()
+
+        return SimCarry(
+            states=tuple({k: lanes(lambda c, g=g, k=k: c.states[g][k]) for k in st}
+                         for g, st in enumerate(src.states)),
+            status=lanes(lambda c: c.status),
+            finished_at=lanes(lambda c: c.finished_at),
+            cal=None,
+            link=None,
+            sync=SyncState(counts=run(src.sync.counts), last_seq=None, stream=None,
+                           stream_len=None, cursors=None, dropped=run(src.sync.dropped)),
+            rejected=None,
+            keys=None,
+            net_key=None,
+            t=src.t,
+            **{f: run(getattr(src, f)) for f in _RUN_COUNTERS},
+            lat_hist=None if src.lat_hist is None else run(src.lat_hist),
+            live_counts=None if src.live_counts is None else run(src.live_counts),
+        )
+
+    def _part_sums(self, lay, carry, step, fb, delivered_t, bw_changed, lat_d):
+        """A placed part's tick gather: every part's per-run sync totals
+        (signals and publishes, for the fold's exclusive sums) and partial
+        counts (delivered, rejected, the HTB rate changes, the RUNNING
+        instances per group after the step, the histogram's delta), each
+        part's runs at their rows of one ``[R, K]`` block, every part
+        summing the same gathered blocks (``engine._cohort_sums`` over a run
+        axis). Returns the fold's :class:`RankTotals`, the summed running
+        counts, delivered, rejected and rate changes, and the histogram."""
+        from .distributed import all_gather
+
+        i32 = torch.int32
+        r_n, n, w = lay.runs, lay.n, self.width
+        prog = self.prog
+        n_s, n_t, g_n = prog.n_states, prog.n_topics, len(prog.groups)
+        running = (step["status"].view(r_n, n) == RUNNING).to(i32)
+        running = torch.zeros((r_n, g_n), dtype=i32, device=lay.device).index_add_(
+            1, lay.group_of, running)
+        cols = [step["signals"].view(n_s, r_n, n).sum(2, dtype=i32).t(),
+                step["pub_valid"].view(n_t, r_n, n).sum(2, dtype=i32).t(),
+                delivered_t[:, None], fb.rejected.view(r_n, n).sum(1, dtype=i32)[:, None],
+                (torch.zeros(r_n, dtype=i32, device=lay.device) if bw_changed is None
+                 else bw_changed)[:, None],
+                running]
+        mine = torch.cat(cols, dim=1)
+        block = torch.zeros((w, mine.shape[1]), dtype=i32, device=lay.device)
+        block[lay.first : lay.first + r_n] = mine
+        if lat_d is not None:
+            block = torch.cat([block, lat_d.view(w, -1)], dim=1)
+        every = all_gather(block, lay.mesh)  # [P, R, K]
+        ranks = RankTotals(sig=every[:, :, :n_s], pub=every[:, :, n_s : n_s + n_t],
+                           rank=lay.part, mesh=lay.mesh, runs=(lay.first, r_n))
+        tot = every[:, :, n_s + n_t :].sum(0, dtype=i32)
+        lat_hist = None
+        if lat_d is not None:
+            lat_hist = carry.lat_hist + tot[:, 3 + g_n :].view(w, g_n, LATENCY_BINS)
+        return ranks, tot[:, 3 : 3 + g_n], tot[:, 0], tot[:, 1], tot[:, 2], lat_hist
+
     # --------------------------------------------------------------- tick
 
-    def _member_step(self, state_keys, args, t):
+    def _member_step(self, lay, state_keys, args, t):
         """One member's plan step (``SimProgram._step_phase``) on its batched
         leaves: the state leaves (``state_keys`` per group), then the fixed
         leaves of :meth:`_step`. Returns the step's tensors flat and sets
-        ``_out_keys`` to the names of its planes."""
+        ``lay.out_keys`` to the names of its planes."""
         n_state = sum(len(k) for k in state_keys)
         it = iter(args[:n_state])
         states = tuple({k: next(it) for k in keys} for keys in state_keys)
         (status, finished_at, rejected, keys, counts, last_seq, stream, stream_len,
-         cursors, dropped, pay, src, valid, both) = args[n_state:]
-        view = self._view
+         cursors, dropped, pay, src, valid, both, live) = args[n_state:]
+        view = lay.view
         if view.bucketed:
             view._virt = _BatchedVirt(both, view)
         carry = SimCarry(
@@ -536,17 +915,17 @@ class PackRunner:
             cal_depth=None, faults_crashed=None, faults_restarted=None,
             fault_dropped=None,
         )
-        step = view._step_phase(carry, Inbox(payload=pay, src=src, valid=valid), t)
+        step = view._step_phase(carry, Inbox(payload=pay, src=src, valid=valid), t,
+                                live=live)
         out = [v for st in step.pop("states") for v in st.values()]
-        self._out_keys = [k for k, v in step.items() if v is not None]
-        return out + [step[k] for k in self._out_keys]
+        lay.out_keys = [k for k, v in step.items() if v is not None]
+        return out + [step[k] for k in lay.out_keys]
 
-    def _vmapped(self, fn, args, dims):
-        """``fn(batched args)`` under one vmap level over the run axis, its
+    def _vmapped(self, r_n, fn, args, dims):
+        """``fn(batched args)`` under one vmap level over ``r_n`` runs, its
         flat tensor outputs with the run axis leading: ``torch.func.vmap``
         without its wrapper's pytree walks, which cost more host time a
         tick than the step's batched ops."""
-        r_n = self.width
         level = _vmap_increment_nesting(r_n, "error")
         try:
             batched = [a if d is None else _add_batch_dim(a, d, level)
@@ -555,73 +934,88 @@ class PackRunner:
         finally:
             _vmap_decrement_nesting()
 
-    def _step(self, carry: SimCarry, inbox: Inbox, t) -> dict:
-        """The plan step of every member in one vmapped call, its planes
-        laid back on the pack's ``[.., R·N]`` lane axis."""
-        r_n, n = self.width, self.n
+    def _step(self, lay, carry: SimCarry, inbox: Inbox, t) -> dict:
+        """The plan step of every member ``lay`` holds in one vmapped call,
+        its planes laid back on the ``[.., runs·n]`` lane axis."""
+        r_n, n = lay.runs, lay.n
         sync = carry.sync
         s_n, t_n = sync.last_seq.shape[0], sync.cursors.shape[0]
         w, slots = inbox.payload.shape[0], inbox.payload.shape[1]
         state_keys = [list(st) for st in carry.states]
         flat = [v for st in carry.states for v in st.values()]
+        counts, stream, stream_len, dropped = (sync.counts, sync.stream, sync.stream_len,
+                                               sync.dropped)
+        live = None
+        if lay.part is not None:  # the run-axis leaves: this part's runs
+            mine = slice(lay.first, lay.first + r_n)
+            counts, stream, stream_len, dropped = (counts[mine], stream[mine],
+                                                   stream_len[mine], dropped[mine])
+            live = lay.live[mine]
         args = flat + [
             carry.status.view(r_n, n), carry.finished_at.view(r_n, n),
-            carry.rejected.view(r_n, n), carry.keys.view(r_n, n, 2), sync.counts,
-            sync.last_seq.view(s_n, r_n, n), sync.stream, sync.stream_len,
-            sync.cursors.view(t_n, r_n, n), sync.dropped,
+            carry.rejected.view(r_n, n), carry.keys.view(r_n, n, 2), counts,
+            sync.last_seq.view(s_n, r_n, n), stream, stream_len,
+            sync.cursors.view(t_n, r_n, n), dropped,
             inbox.payload.view(w, slots, r_n, n), inbox.src.view(slots, r_n, n),
-            inbox.valid.view(slots, r_n, n), self._both,
+            inbox.valid.view(slots, r_n, n), lay.both, live,
         ]
         dims = [0] * len(flat) + [0, 0, 0, 0, 0, 1, 0, 0, 1, 0, 2, 1, 1,
-                                  None if self._both is None else 0]
+                                  None if lay.both is None else 0,
+                                  None if live is None else 0]
 
         def member(batched):
-            return self._member_step(state_keys, batched, t)
+            return self._member_step(lay, state_keys, batched, t)
 
         with no_vmap_fallback():
-            if self._first_step:
+            if lay.first_step:
                 # a padded run's plan may not read a count on the host
                 with _NoHostReads():
-                    out = self._vmapped(member, args, dims)
-                self._first_step = False
+                    out = self._vmapped(r_n, member, args, dims)
+                lay.first_step = False
             else:
-                out = self._vmapped(member, args, dims)
+                out = self._vmapped(r_n, member, args, dims)
         it = iter(out)
         step = {"states": tuple({k: next(it) for k in keys} for keys in state_keys)}
-        for k in self._out_keys:
+        for k in lay.out_keys:
             v = next(it)
             # [R, ..., N] → [..., R·N]
-            step[k] = v.movedim(0, -2).reshape(v.shape[1:-1] + (self.lanes,))
+            step[k] = v.movedim(0, -2).reshape(v.shape[1:-1] + (lay.lanes,))
         for k in ("net_rules", "net_rules_valid"):
             step.setdefault(k, None)
         return step
 
-    def _tick(self, carry: SimCarry, salts, done_out, blocks, row: int) -> SimCarry:
-        """One tick of every member (``SimProgram._tick`` over the run
-        axis). ``salts`` is this tick's ``[R]`` int64 hash salts on the
-        device; ``done_out`` the ``(flag [R], event)`` pair the members'
-        done flags are copied into right after the step."""
+    def _tick(self, lay, carry: SimCarry, salts, done_out, blocks, row: int) -> SimCarry:
+        """One tick of every member ``lay`` holds (``SimProgram._tick`` over
+        the run axis). ``salts`` is this tick's ``[R]`` int64 hash salts on
+        the device; ``done_out`` the ``(flag [R], event)`` pair the members'
+        done flags are copied into: right after the step, or on a placed
+        part after the tick's gather, where every part's lanes are counted."""
         prog, cls = self.prog, self.cls
-        r_n, n = self.width, self.n
+        r_n, n = lay.runs, lay.n
+        placed = lay.part is not None
         i32 = torch.int32
         t = carry.t
         cal, inbox = deliver(carry.cal, t)
         delivered_t = inbox.valid.view(cls.IN_MSGS, r_n, n).sum(dim=(0, 2), dtype=i32)
         if cls.TRACK_SRC:
-            inbox = Inbox(payload=inbox.payload, src=self._src_tbl[inbox.src],
+            inbox = Inbox(payload=inbox.payload, src=lay.src_tbl[inbox.src],
                           valid=inbox.valid)
-        lat_hist = None
+        lat_hist = lat_d = None
         if prog.telemetry:
             g_n = len(prog.groups)
-            lat_hist = carry.lat_hist + latency_histogram(
-                cal, inbox, t, self._lat_group_of, r_n * g_n, LATENCY_BINS
-            ).view(r_n, g_n, LATENCY_BINS)
-        step = self._step(carry, inbox, t)
+            lat_d = latency_histogram(
+                cal, inbox, t, lay.lat_group_of, self.width * g_n, LATENCY_BINS
+            ).view(self.width, g_n, LATENCY_BINS)
+            if not placed:
+                lat_hist = carry.lat_hist + lat_d
+        step = self._step(lay, carry, inbox, t)
         flag, event = done_out
-        flag.copy_((step["status"].view(r_n, n) != RUNNING).all(dim=1), non_blocking=True)
-        if event is not None:
-            event.record()
-        dst = self._dst_tbl[step["dst"].clamp(-1, self._nv_max) + self._dst_base]
+        if not placed:
+            flag.copy_((step["status"].view(r_n, n) != RUNNING).all(dim=1),
+                       non_blocking=True)
+            if event is not None:
+                event.record()
+        dst = lay.dst_tbl[step["dst"].clamp(-1, lay.nv_max) + lay.dst_base]
         cal, fb = enqueue(
             cal,
             carry.link,
@@ -630,14 +1024,15 @@ class PackRunner:
             step["valid"],
             t,
             prog.tick_ms,
-            salts[self._msg_run],
+            salts[lay.msg_run],
             slot_mode=cls.SLOT_MODE,
             features=tuple(cls.SHAPING),
             stacking=cls.CROSS_TICK_STACKING,
             bw_queue_cap=cls.BW_QUEUE_MSGS,
             validate=prog.validate,
-            dice_idx=self._dice_idx,
-            runs=r_n,
+            dice_idx=lay.dice_idx,
+            runs=self.width,
+            run_lanes=lay.run_lanes,
         )
         link = apply_net_updates(
             carry.link,
@@ -651,12 +1046,28 @@ class PackRunner:
             step["net_rules_valid"],
         )
         bw_rate_changed = carry.bw_rate_changed
+        bw_changed = None
         if fb.backlog is not None:
             changed = (link.egress[BANDWIDTH] != carry.link.egress[BANDWIDTH]) & (
                 fb.backlog > 0
             )
-            bw_rate_changed = bw_rate_changed + changed.view(r_n, n).sum(1, dtype=i32)
+            bw_changed = changed.view(r_n, n).sum(1, dtype=i32)
             link = dataclasses.replace(link, backlog=fb.backlog)
+        ranks = running = None
+        if placed:
+            (ranks, running, delivered_t, rejected_t, bw_tot,
+             lat_hist) = self._part_sums(lay, carry, step, fb, delivered_t, bw_changed,
+                                         lat_d)
+            if bw_changed is not None:
+                bw_changed = bw_tot
+            lay.live = running
+            flag.copy_(running.sum(1) == 0, non_blocking=True)
+            if event is not None:
+                event.record()
+        else:
+            rejected_t = fb.rejected.view(r_n, n).sum(1, dtype=i32)
+        if bw_changed is not None:
+            bw_rate_changed = bw_rate_changed + bw_changed
         collisions, collision_where = carry.collisions, carry.collision_where
         if prog.validate:
             collisions = collisions + fb.collisions
@@ -671,9 +1082,9 @@ class PackRunner:
             step["pub_payload"],
             step["pub_valid"],
             step["sub_consume"],
-            runs=r_n,
+            runs=self.width,
+            ranks=ranks,
         )
-        rejected_t = fb.rejected.view(r_n, n).sum(1, dtype=i32)
         dropped_t = fb.sent - fb.enqueued - rejected_t - fb.fault_dropped
         cal_depth = carry.cal_depth + fb.enqueued - delivered_t
         new = SimCarry(
@@ -706,15 +1117,17 @@ class PackRunner:
         )
         if blocks is not None:
             self._telemetry_rows(
-                blocks.tele[row], t, step["status"], sync, delivered_t, fb.sent,
-                fb.enqueued, dropped_t, rejected_t, cal_depth, fb.fault_dropped,
+                lay, blocks.tele[row], t, step["status"], sync, delivered_t, fb.sent,
+                fb.enqueued, dropped_t, rejected_t, cal_depth, fb.fault_dropped, running,
             )
         return new
 
-    def _telemetry_rows(self, out, t, status, sync, delivered_t, sent_t, enqueued_t,
-                        dropped_t, rejected_t, cal_depth, fault_dropped_t) -> None:
+    def _telemetry_rows(self, lay, out, t, status, sync, delivered_t, sent_t, enqueued_t,
+                        dropped_t, rejected_t, cal_depth, fault_dropped_t,
+                        running=None) -> None:
         """Every member's counter row of the tick into ``out`` ([R, K]
-        int32; ``SimProgram._telemetry_row`` per run)."""
+        int32; ``SimProgram._telemetry_row`` per run); a placed part's
+        RUNNING counts are the gathered ``running``."""
         r_n, n = self.width, self.n
         i32 = torch.int32
         zero = torch.zeros(r_n, dtype=i32, device=out.device)
@@ -723,18 +1136,22 @@ class PackRunner:
             enqueued_t * int(MSG_BYTES), cal_depth, sync.counts.sum(1, dtype=i32),
             sync.stream_len.sum(1, dtype=i32), zero, zero, fault_dropped_t,
         ]
-        running = (status.view(r_n, n) == RUNNING).to(i32)
         nf = len(fixed)
         out[:, :nf] = torch.stack(fixed, dim=1)
+        if running is not None:
+            out[:, nf:] = running
+            return
+        running = (status.view(r_n, n) == RUNNING).to(i32)
         out[:, nf:] = torch.zeros((r_n, len(self.prog.groups)), dtype=i32,
-                                  device=out.device).index_add_(1, self._group_of, running)
+                                  device=out.device).index_add_(1, lay.group_of, running)
 
     # ---------------------------------------------------------------- run
 
     def run(self, members: list[PackMember]) -> list[dict]:
         """Step every member to completion (or its cancel or budget) as one
-        program — one launch per op for the whole pack — and return
-        per-member results dicts (the ``SimProgram.run`` shape)."""
+        program — one launch per op for the whole pack, or for each part's
+        block of it — and return per-member results dicts (the
+        ``SimProgram.run`` shape)."""
         if not (0 < len(members) <= self.width):
             raise ValueError(
                 f"{len(members)} member(s) for a width-{self.width} pack"
@@ -757,11 +1174,20 @@ class PackRunner:
         seeds = [int(m.seed) for m in members] + [0] * (width - n_live)
         live_run = [True] * n_live + [False] * (width - n_live)
         mprogs = [self._member_program(lc) for lc in lcs]
+        lays = None
         with device_context(dev):
-            self._tables(mprogs)
-            carry, footprint = self._init(mprogs, seeds, live_run)
-        flag = torch.zeros(width, dtype=torch.bool, pin_memory=cuda)
-        event = torch.cuda.Event() if cuda else None
+            if self.placed:
+                lays = self._part_layouts(mprogs)
+                carry, net_key, footprint = self._init_placed(lays, mprogs, seeds, live_run)
+            else:
+                lay = self._tables(mprogs, 0, width, 0, self.n,
+                                   np.arange(self.lanes).reshape(width, self.n), dev,
+                                   self._view)
+                carry, footprint = self._init(mprogs, seeds, live_run)
+                net_key = carry.net_key
+        flags = [(torch.zeros(width, dtype=torch.bool, pin_memory=cuda),
+                  torch.cuda.Event() if cuda else None)
+                 for _ in (lays if lays is not None else [None])]
         blocks = _PackBlocks(self, cuda) if prog.telemetry else None
         lat_acc = None
         if prog.telemetry:
@@ -773,49 +1199,78 @@ class PackRunner:
         done = [False] * n_live
         stashes: list[Any] = [None] * n_live
 
-        def chunk_run(carry):
-            """One chunk; returns the carry and, per member that finished
-            inside it, ``(row, its histogram delta up to the finish or
-            None when the chunk's flush holds exactly that)``."""
-            finished: dict[int, tuple] = {}
-            salts_np, k0, k1 = _split_salts(carry.net_key[0], carry.net_key[1], chunk)
-            salts = torch.from_numpy(salts_np).to(dev)
-            carry = dataclasses.replace(carry, net_key=(k0, k1))
+        def ticks_of(lay, carry, salts, done_run, blocks, flag, finished, snap):
+            """One chunk of one stepper: up to ``chunk`` ticks, while a
+            watched member runs; ``done_run`` (updated in place) the members
+            seen done, and per member that finished inside it, ``finished[r]
+            = (row, its histogram delta up to the finish or None when the
+            chunk's flush holds exactly that)``, its snapshot ``snap(carry,
+            r)`` (None: not this stepper's to keep)."""
+            flag, event = flag
             flushed = False
             if blocks is not None:
                 blocks.reset()
             for i in range(chunk):
-                pending = [r for r in range(n_live) if active[r] and not done[r]]
+                pending = [r for r in range(n_live) if active[r] and not done_run[r]]
                 if not pending:
                     break  # every watched member is done: no-op ticks
-                last = blocks is not None and i == chunk - 1
-                carry = self._tick(carry, salts[i], (flag, None if last else event),
+                last = prog.telemetry and i == chunk - 1
+                carry = self._tick(lay, carry, salts[i], (flag, None if last else event),
                                    blocks, i)
                 if last:
-                    carry = blocks.flush(carry, event)
+                    carry = self._flush(carry, blocks, event)
                     flushed = True
                 if cuda:
                     event.synchronize()
                 f = flag.numpy()
                 for r in pending:
                     if f[r]:
-                        done[r] = True
-                        stashes[r] = self.member_carry(carry, r, clone=True)
-                        finished[r] = (
-                            i,
-                            None if last or carry.lat_hist is None
-                            else stashes[r].lat_hist,
-                        )
-            if blocks is not None and not flushed:
-                carry = blocks.flush(carry, event)
+                        done_run[r] = True
+                        got = snap(carry, r)
+                        if got is not None:
+                            stashes[r] = got
+                            finished[r] = (
+                                i,
+                                None if last or carry.lat_hist is None else got.lat_hist,
+                            )
+            if prog.telemetry and not flushed:
+                carry = self._flush(carry, blocks, event)
                 if cuda:
                     event.synchronize()
-            return carry, finished
+            return carry
+
+        def chunk_run(carry, net_key):
+            """One chunk; returns the carry, the link keys after it and the
+            members that finished inside it (``ticks_of``)."""
+            finished: dict[int, tuple] = {}
+            salts_np, k0, k1 = _split_salts(net_key[0], net_key[1], chunk)
+            salts = torch.from_numpy(salts_np)
+            if lays is None:
+                carry = ticks_of(lay, carry, salts.to(dev), done, blocks, flags[0], finished,
+                                 lambda c, r: self.member_carry(c, r, clone=True))
+                return dataclasses.replace(carry, net_key=(k0, k1)), (k0, k1), finished
+            seen = list(done)
+            out = list(carry)
+
+            def work(i):
+                part = lays[i]
+
+                def snap(c, r):
+                    got = self._member_placed(lays, [c], r, gather=part)
+                    return got if i == 0 else None
+
+                # every part reads the same flags: each keeps its own copy
+                done_run = done if i == 0 else list(seen)
+                out[i] = ticks_of(part, carry[i], salts.to(part.device), done_run,
+                                  blocks if i == 0 else None, flags[i], finished, snap)
+
+            on_parts(self._group, [q.device for q in lays], work)
+            return out, (k0, k1), finished
 
         while ticks < max_ticks and any(active):
             t_chunk = time.perf_counter()
             with device_context(dev):
-                carry, finished = chunk_run(carry)
+                carry, net_key, finished = chunk_run(carry, net_key)
             ticks += chunk
             wall = time.perf_counter() - t_chunk
             if compile_secs == 0.0:
@@ -857,24 +1312,43 @@ class PackRunner:
                     # may run longer): its snapshot is this boundary
                     m.ticks = ticks
                     active[i] = False
-                    stashes[i] = self.member_carry(carry, i, clone=True)
+                    stashes[i] = self._member(lays, carry, i, clone=True)
                 elif m.cancel_check is not None and m.cancel_check():
                     m.canceled = True
                     m.ticks = ticks
                     active[i] = False
-                    stashes[i] = self.member_carry(carry, i, clone=True)
+                    stashes[i] = self._member(lays, carry, i, clone=True)
 
         for i, m in enumerate(members):
             if active[i]:  # the pack's budget ran out while it ran
                 m.ticks = ticks
                 active[i] = False
 
+        self.last_part_bytes = self.part_bytes(carry)
         results: list[dict] = []
         for i, m in enumerate(members):
-            src = stashes[i] if stashes[i] is not None else self.member_carry(carry, i)
+            src = stashes[i] if stashes[i] is not None else self._member(lays, carry, i)
             res = mprogs[i].results(src, m.ticks, carry_bytes=footprint)
             res["compile_secs"] = compile_secs
             if lat_acc is not None:
                 res["lat_hist"] = lat_acc[i].tolist()
             results.append(res)
         return results
+
+    def _member(self, lays, carry, r, clone=False) -> SimCarry:
+        """Member ``r``'s snapshot between chunks."""
+        if lays is None:
+            return self.member_carry(carry, r, clone=clone)
+        return self._member_placed(lays, carry, r)
+
+    @staticmethod
+    def _flush(carry, blocks, event) -> SimCarry:
+        """The chunk's end: the pack's blocks to the host (a placed part
+        other than the first holds none, and zeroes its histogram replica
+        alike), the done flag's event recorded behind."""
+        if blocks is not None:
+            return blocks.flush(carry, event)
+        carry = dataclasses.replace(carry, lat_hist=torch.zeros_like(carry.lat_hist))
+        if event is not None:
+            event.record()
+        return carry

@@ -15,6 +15,12 @@ prefix), appends its publishes after theirs, and gathers every rank's
 stored entries (:func:`distributed.gather_blocks`), so every replica of
 ``stream`` takes the same writes; the counts, ``stream_len`` and
 ``dropped`` advance by the cohort's totals.
+
+A run pack placed over the parts of a mesh (``sim/pack.py``) folds both
+ways at once (:func:`update_sync` with ``runs`` and ``ranks``): each part
+holds its members' own lanes, member-major, and every member's shared
+leaves; within each run it numbers its signals and appends its publishes
+after the lower parts' in that run.
 """
 
 from __future__ import annotations
@@ -54,12 +60,15 @@ class RankTotals:
     """One tick's per-rank sync totals of a cohort, gathered once by the
     engine: ``sig [P, S]`` signals and ``pub [P, T]`` publishes of every
     rank, in rank order, this process's ``rank``, and the ``mesh`` the
-    ranks meet over (``distributed``'s dispatch)."""
+    ranks meet over (``distributed``'s dispatch). A placed run pack's carry
+    a run axis, ``sig [P, R, S]`` and ``pub [P, R, T]``, and ``runs =
+    (first, held)``: this part holds runs ``[first, first + held)``."""
 
     sig: torch.Tensor
     pub: torch.Tensor
     rank: int
     mesh: object = None
+    runs: tuple | None = None
 
 
 def make_sync_state(
@@ -92,7 +101,11 @@ def update_sync(
     shared leaves carry a leading run axis (``counts [R, S]``, ``stream
     [R, T, CAP, PW]``, ``stream_len``/``dropped [R, T]``); every prefix
     sum and append stays inside its run. ``ranks`` folds a cohort
-    process's own lanes (the module docstring)."""
+    process's own lanes (the module docstring), and with ``runs`` a placed
+    pack's part's."""
+    if runs > 1 and ranks is not None:
+        return _update_sync_runs_ranks(sync, signals, pub_payload, pub_valid,
+                                       sub_consume, ranks)
     if runs > 1:
         return _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume,
                                  runs)
@@ -220,6 +233,67 @@ def _update_sync_runs(sync, signals, pub_payload, pub_valid, sub_consume, runs):
     cursors = torch.minimum(
         (sync.cursors + sub_consume.clamp_min(0)).view(n_topics, runs, n),
         stream_len.t()[:, :, None],
+    ).reshape(n_topics, lanes)
+    return SyncState(
+        counts=counts,
+        last_seq=last_seq,
+        stream=stream,
+        stream_len=stream_len,
+        cursors=cursors,
+        dropped=dropped,
+    )
+
+
+def _update_sync_runs_ranks(sync, signals, pub_payload, pub_valid, sub_consume, ranks):
+    """:func:`update_sync` of a placed pack's part: its lanes ``held``
+    member-major blocks of runs ``[first, first + held)``, each run's
+    signals and publishes placed after the lower parts' in that run, every
+    part's stored entries written into every replica of the streams."""
+    from .distributed import gather_blocks
+
+    i32, i64 = torch.int32, torch.int64
+    first, held = ranks.runs
+    mine = slice(first, first + held)
+    me = ranks.rank
+    n_states, lanes = signals.shape
+    n = lanes // held
+    _, n_topics, cap, pw = sync.stream.shape
+    sig = signals.view(n_states, held, n)
+    prefix = torch.cumsum(sig, dim=2, dtype=i32)
+    base = sync.counts[mine] + ranks.sig[:me, mine].sum(0, dtype=i32)  # [held, S]
+    seq = base.t()[:, :, None] + prefix
+    last_seq = torch.where(signals > 0, seq.reshape(n_states, lanes), sync.last_seq)
+    counts = sync.counts + ranks.sig.sum(0, dtype=i32)
+
+    if n_topics == 0:
+        return dataclasses.replace(sync, counts=counts, last_seq=last_seq)
+
+    below = torch.cumsum(ranks.pub, 0, dtype=i32) - ranks.pub  # [P, R, T]
+    pv = pub_valid.to(i32).view(n_topics, held, n)
+    start = (sync.stream_len[mine] + below[me, mine]).t()  # [T, held]
+    offsets = start[:, :, None] + torch.cumsum(pv, dim=2, dtype=i32) - pv
+    in_range = pub_valid.view(n_topics, held, n) & (offsets < cap)
+    dev = pv.device
+    run = torch.arange(first, first + held, dtype=i64, device=dev)[None, :, None]
+    topic = torch.arange(n_topics, dtype=i64, device=dev)[:, None, None]
+    flat_idx = ((run * n_topics + topic) * cap + offsets.to(i64))[in_range]
+    upd = pub_payload.view(n_topics, pw, held, n).permute(0, 2, 3, 1)[in_range]
+    # each part's stored entries, from the gathered totals (one host read)
+    room = (cap - sync.stream_len[None] - below).clamp_min(0)
+    kept = torch.minimum(ranks.pub, room).sum((1, 2)).tolist()
+    stream = sync.stream.clone()
+    if sum(kept):
+        entries = torch.cat([flat_idx[:, None].to(i32), upd], dim=1)
+        every, _ = gather_blocks(entries, kept, ranks.mesh)
+        allent = torch.cat([every[r, :k] for r, k in enumerate(kept)])
+        stream.reshape(-1, pw)[allent[:, 0].to(i64)] = allent[:, 1:]
+    published = ranks.pub.sum(0, dtype=i32)  # [R, T]
+    stored = torch.minimum(published, cap - sync.stream_len)
+    stream_len = torch.clamp(sync.stream_len + published, max=cap)
+    dropped = sync.dropped + (published - stored)
+    cursors = torch.minimum(
+        (sync.cursors + sub_consume.clamp_min(0)).view(n_topics, held, n),
+        stream_len[mine].t()[:, :, None],
     ).reshape(n_topics, lanes)
     return SyncState(
         counts=counts,

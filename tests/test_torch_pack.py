@@ -16,7 +16,17 @@ JAX package, on the CPU:
   R = 8, and an op without a vmap batching rule raises;
 - the refusals that remain: a trace, faults, hosts, a meshed inner
   program and ``transport = "pallas"`` on a meshed pack.
+
+The reference's exact-N runs, the packs and the port's isolated runs are
+made once per test run (``_shared``): under xdist the first worker to need
+one makes it and the others read its copy, so ``test_torch_pack_mesh.py``
+and ``test_torch_pack_parts.py`` hold their members against the same runs
+without making them again.
 """
+
+import os
+import pickle
+import time
 
 import numpy as np
 import pytest
@@ -107,45 +117,118 @@ def _record(prog, seed, max_ticks):
 
 
 _CACHE: dict = {}
+# a directory every xdist worker of this test run shares (None: this
+# process only): the runs below are deterministic, so the first worker to
+# make one hands it to the others (``_shared``)
+_SHARED_DIR: list = [None]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_runs(tmp_path_factory):
+    """Under xdist, the run's shared directory (the workers' basetemps'
+    common parent, new for every test run)."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        shared = tmp_path_factory.getbasetemp().parent / "torch-pack-runs"
+        shared.mkdir(exist_ok=True)
+        _SHARED_DIR[0] = shared
+
+
+# the longest a worker waits for another to finish a run it is making
+_SHARED_WAIT_SECS = 300.0
+
+
+def _shared(key, make):
+    """``make()``, cached by ``key`` in this process and, under xdist, for
+    every worker of the test run: a worker that finds another making the
+    same run waits for its copy (or makes it itself when that worker
+    fails or outwaits ``_SHARED_WAIT_SECS``)."""
+    if key in _CACHE:
+        return _CACHE[key]
+    shared = _SHARED_DIR[0]
+    if shared is None:
+        _CACHE[key] = make()
+        return _CACHE[key]
+    path = shared / ("-".join(str(k) for k in key) + ".pkl")
+    lock = path.with_suffix(".lock")
+    try:
+        os.close(os.open(lock, os.O_CREAT | os.O_EXCL))
+        mine = True
+    except FileExistsError:
+        mine = False
+    if not mine:
+        deadline = time.monotonic() + _SHARED_WAIT_SECS
+        while not path.exists() and lock.exists() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if path.exists():
+            with open(path, "rb") as f:
+                _CACHE[key] = pickle.load(f)
+            return _CACHE[key]
+    try:
+        out = make()
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        with open(tmp, "wb") as f:
+            pickle.dump(out, f)
+        os.replace(tmp, path)
+    finally:
+        if mine:
+            lock.unlink(missing_ok=True)
+    _CACHE[key] = out
+    return out
+
+
+def _ref_exact(label, n, seed, transport="xla"):
+    """The reference's isolated exact-N run of ``label`` at ``n``
+    instances (``_record``), its program compiled once per size and
+    transport in this process."""
+
+    def make():
+        pkey = ("ref-prog", label, n, transport)
+        if pkey not in _CACHE:
+            _CACHE[pkey] = _program("jax", label, n, transport=transport)
+        return _record(_CACHE[pkey], seed, PACKABLE[label][4])
+
+    return _shared(("ref", label, n, seed, transport), make)
 
 
 def _packed(label, bucketed):
     """The pack of one workload (three members, width 4: one dead dummy),
-    run once per module: ``(results, telemetry blocks per member)``."""
-    key = ("pack", label, bucketed)
-    if key not in _CACHE:
-        sizes, max_ticks = _sizes(label, bucketed), PACKABLE[label][4]
-        if bucketed:
-            plans = [pb.plan_buckets([n], "auto", LADDER) for n in sizes]
-            prog = _program("torch", label, plans[0].padded_n, live=plans[0].live_counts)
-            lcs = [p.live_counts for p in plans]
-        else:
-            prog = _program("torch", label, sizes[0])
-            lcs = [None] * len(sizes)
-        tele = [[] for _ in sizes]
-        members = [
-            PackMember(seed=s, live_counts=lc, max_ticks=max_ticks,
-                       telemetry_cb=lambda b, i=i: tele[i].append(np.asarray(b).copy()))
-            for i, (s, lc) in enumerate(zip(SEEDS, lcs))
-        ]
-        runner = PackRunner(prog, pack_width(len(members), 8))
-        assert runner.width == 4
-        _CACHE[key] = (runner.run(members), tele)
-    return _CACHE[key]
+    run once per test run: ``(results, telemetry blocks per member)``."""
+    return _shared(("pack", label, bucketed), lambda: _make_packed(label, bucketed))
+
+
+def _make_packed(label, bucketed):
+    sizes, max_ticks = _sizes(label, bucketed), PACKABLE[label][4]
+    if bucketed:
+        plans = [pb.plan_buckets([n], "auto", LADDER) for n in sizes]
+        prog = _program("torch", label, plans[0].padded_n, live=plans[0].live_counts)
+        lcs = [p.live_counts for p in plans]
+    else:
+        prog = _program("torch", label, sizes[0])
+        lcs = [None] * len(sizes)
+    tele = [[] for _ in sizes]
+    members = [
+        PackMember(seed=s, live_counts=lc, max_ticks=max_ticks,
+                   telemetry_cb=lambda b, i=i: tele[i].append(np.asarray(b).copy()))
+        for i, (s, lc) in enumerate(zip(SEEDS, lcs))
+    ]
+    runner = PackRunner(prog, pack_width(len(members), 8))
+    assert runner.width == 4
+    return runner.run(members), tele
 
 
 def _isolated(label, bucketed, i):
     """The port's isolated run of member ``i`` (padded when bucketed)."""
-    key = ("iso", label, bucketed, i)
-    if key not in _CACHE:
+
+    def make():
         n, max_ticks = _sizes(label, bucketed)[i], PACKABLE[label][4]
         if bucketed:
             bp = pb.plan_buckets([n], "auto", LADDER)
             prog = _program("torch", label, bp.padded_n, live=bp.live_counts)
         else:
             prog = _program("torch", label, n)
-        _CACHE[key] = _record(prog, SEEDS[i], max_ticks)
-    return _CACHE[key]
+        return _record(prog, SEEDS[i], max_ticks)
+
+    return _shared(("iso", label, bucketed, i), make)
 
 
 def _assert_member_equal(want, got, label, same_layout=True):
@@ -209,9 +292,8 @@ REF_MODES = [(label, b) for label, b in MODES
                          ids=[f"{lb}-{'bucketed' if b else 'exact'}" for lb, b in REF_MODES])
 def test_packed_member_equals_the_references_exact_run(label, bucketed, transport):
     packed, tele = _packed(label, bucketed)
-    max_ticks = PACKABLE[label][4]
     for i, n in enumerate(_sizes(label, bucketed)):
-        ref = _record(_program("jax", label, n, transport=transport), SEEDS[i], max_ticks)
+        ref = _ref_exact(label, n, SEEDS[i], transport)
         _assert_member_equal(ref, (packed[i], tele[i]), f"{label}[{i}] vs jax",
                              same_layout=not bucketed)
         assert [(g.id, g.offset, g.count) for g in packed[i]["groups"]] == [
@@ -226,9 +308,8 @@ def test_packed_member_equals_the_references_exact_run_more_plans(label):
     under the xla knob."""
     bucketed = label not in UNBUCKETABLE
     packed, tele = _packed(label, bucketed)
-    max_ticks = PACKABLE[label][4]
     for i, n in enumerate(_sizes(label, bucketed)):
-        ref = _record(_program("jax", label, n), SEEDS[i], max_ticks)
+        ref = _ref_exact(label, n, SEEDS[i])
         _assert_member_equal(ref, (packed[i], tele[i]), f"{label}[{i}] vs jax",
                              same_layout=not bucketed)
 

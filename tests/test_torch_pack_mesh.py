@@ -13,11 +13,14 @@ JAX package, on the CPU, every mesh virtual (every cell on the CPU):
   the reference's isolated EXACT-N run under both transport knobs (ROADMAP
   R1, R2: never the reference's packed or bucketed runs) — status,
   finished_at, every state leaf, every flow total, the sync counters, the
-  telemetry stream row for row and the histogram;
+  telemetry stream row for row and the histogram. A 2-D mesh's rows
+  are parts, so on ``"2x4"`` the pack is placed: each row's part holds its
+  own members (``tests/test_torch_pack_parts.py``);
 - the other layouts: ``"2"``, ``"2x2"``, ``"4x1"`` (a width below the
-  rows), a mesh cut into several parts on one device (one launch per part
-  a tick), dead dummies that fill a whole row, and members whose lanes do
-  not divide across the peer shards (the solo meshed run's dead lanes);
+  rows), a mesh cut into several parts on one device (placed: one launch
+  per part a tick), dead dummies that fill a whole row, and members whose
+  lanes do not divide across the peer shards (the solo meshed run's dead
+  lanes);
 - stragglers, budgets and cancels on a meshed pack: each member freezes at
   the reference's boundary;
 - the refusals: ``transport = "pallas"`` on a meshed pack (the
@@ -43,7 +46,9 @@ from test_torch_pack import (
     _packed,
     _program,
     _record,
+    _ref_exact,
     _sizes,
+    shared_runs,  # noqa: F401 — the reference's runs shared across workers
 )
 from testground_tpu.sim import meshplan as jmp
 from testground_tpu.sim import pack as jpack
@@ -185,7 +190,10 @@ def _meshed(label, bucketed, mesh_key, members=3, width=None):
     return _CACHE[key]
 
 
-PIN = [(label, b, m) for label, b in MODES for m in ("4", "2x4")]
+# the pins below walk the cases from the last: test_torch_pack.py walks the
+# same runs from the first, so under xdist the two workers share each run
+# (test_torch_pack._shared) rather than make it twice
+PIN = [(label, b, m) for label, b in MODES for m in ("4", "2x4")][::-1]
 
 
 @pytest.mark.parametrize("label,bucketed,mesh", PIN,
@@ -201,18 +209,9 @@ def test_meshed_member_equals_the_unmeshed_pack_and_the_isolated_run(label, buck
                              f"{label}[{i}] on {mesh} vs port")
 
 
-def _ref_run(label, n, transport, seed):
-    """The reference's isolated exact-N run, its program compiled once per
-    size and transport in this module."""
-    pkey = ("ref-prog", label, n, transport)
-    if pkey not in _CACHE:
-        _CACHE[pkey] = _program("jax", label, n, transport=transport)
-    return _record(_CACHE[pkey], seed, PACKABLE[label][4])
-
-
 def _against_the_reference(label, bucketed, transport, i):
     n = _sizes(label, bucketed)[i]
-    ref = _ref_run(label, n, transport, SEEDS[i])
+    ref = _ref_exact(label, n, SEEDS[i], transport)
     for mesh in ("4", "2x4"):
         meshed, tele = _meshed(label, bucketed, mesh)
         _assert_member_equal(ref, (meshed[i], tele[i]), f"{label}[{i}] on {mesh} vs jax",
@@ -221,10 +220,10 @@ def _against_the_reference(label, bucketed, transport, i):
             (g.id, g.offset, g.count) for g in ref[0]["groups"]]
 
 
-REF_PIN = [(label, b, i) for label, b in REF_MODES for i in range(len(SEEDS))]
+REF_PIN = [(label, b, i) for label, b in REF_MODES for i in range(len(SEEDS))][::-1]
 
 
-@pytest.mark.parametrize("transport", ["xla", "pallas"])
+@pytest.mark.parametrize("transport", ["pallas", "xla"])
 @pytest.mark.parametrize("label,bucketed,i", REF_PIN,
                          ids=[f"{lb}-{'bucketed' if b else 'exact'}-{i}"
                               for lb, b, i in REF_PIN])
@@ -233,7 +232,8 @@ def test_meshed_member_equals_the_references_exact_run(label, bucketed, i, trans
 
 
 MORE = [(label, i) for label in ("barrier", "placebo", "verify", "splitbrain",
-                                 "traffic-allowed", "ruled-ring") for i in range(len(SEEDS))]
+                                 "traffic-allowed", "ruled-ring")
+        for i in range(len(SEEDS))][::-1]
 
 
 @pytest.mark.parametrize("label,i", MORE, ids=[f"{lb}-{i}" for lb, i in MORE])
@@ -342,11 +342,14 @@ def test_other_layouts_equal_the_unmeshed_pack(label, bucketed, mesh):
                              f"{label}[{i}] on {mesh}")
 
 
-@pytest.mark.parametrize("mesh,parts", [("2x2", 1), ("4-parts", 8), ("2x4-parts", 8)])
+@pytest.mark.parametrize("mesh,parts", [("4", 1), ("2x2", 2), ("4-parts", 2),
+                                        ("2x4-parts", 4)])
 def test_one_sharded_launch_a_tick_per_part(mesh, parts, monkeypatch):
     """The meshed pack commits and pops its whole calendar through the
     sharded K1 and K2: one launch per part a tick (the plain versions are
-    counted here), once a tick on one device."""
+    counted here), once a tick on a mesh of one part; on a mesh of several
+    parts (a 2-D mesh's rows, or explicit cuts) each part holds its
+    members' sub-shards as one tensor and launches once a tick."""
     calls = {"commit": 0, "pop": 0}
     real_commit, real_pop = pnet.commit_calendar_sharded, pnet.pop_bucket_sharded
 
@@ -365,9 +368,10 @@ def test_one_sharded_launch_a_tick_per_part(mesh, parts, monkeypatch):
     assert len(runner.cal_mesh.parts) == parts
     ticks, tick = [], runner._tick
 
-    def counted(*a, **k):
-        ticks.append(1)
-        return tick(*a, **k)
+    def counted(lay, *a, **k):
+        if lay.part in (None, 0):  # a tick, counted once
+            ticks.append(1)
+        return tick(lay, *a, **k)
 
     runner._tick = counted
     runner.run([PackMember(seed=s, max_ticks=16) for s in (1, 2, 3)])
