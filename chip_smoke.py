@@ -92,7 +92,12 @@ and drives the port's main path through the library entry points
               process) in temporary homes holding the port's plans:
               ``healthcheck --runner sim:torch``; the sustained smoke
               composition (telemetry files, K1 and K2 journaled and
-              launched); sustained@100k as a composition in one turn
+              launched); the build's precompile pass (``build composition
+              --write-artifacts`` of sustained@100k bucketed on a rung of
+              100,000: its marker, its warm tick's launches as the builder
+              logs them, ``total_instances``; a rebuild's cache hit with
+              no launch; a run of the built composition journaling
+              ``compile_cache: "hit"``); sustained@100k as a composition in one turn
               against ``execute_sim_run`` of the ``RunInput`` the CLI
               lowered, after a warm-up run (the CLI's host cost per run
               and per tick; then kernels a tick and device ms/tick of both,
@@ -2263,6 +2268,84 @@ def _profiled(fn) -> tuple:
     return sum(r[1] for r in rows) / 1e3, sum(r[2] for r in rows)
 
 
+def precompile_step(root, home, path, launches) -> dict:
+    """The build's precompile pass on the card, in phase ``cli``'s home:
+    ``build composition --write-artifacts`` of the sustained@100k
+    composition at ``path`` bucketed on a one-rung ladder of 100,000 (the
+    exact run's shapes, with the journal's bucket block). The build must log "precompiled run" and launch, in its warm
+    tick, exactly the kernels its log line names (K2 at least); its marker
+    must hold the spec (the card, the kernel library's digest) and a
+    ``perf`` block whose ``carry_bytes`` is the run's journaled carry
+    bytes and whose ``peak_bytes`` is the card's; the written
+    composition's run must count 100,000 instances. A rebuild must log the
+    cache hit and launch nothing, and the built composition's run must
+    journal ``compile_cache: "hit"``."""
+    import re
+
+    from testground_tpu_torch.api import Composition
+    from testground_tpu_torch.sim import cuda_transport as ct
+
+    built = os.path.join(root, "sustained-100k-built.toml")
+    with open(path) as f, open(built, "w") as g:
+        g.write(f.read().replace(
+            "max_ticks = 10000",
+            'max_ticks = 10000\nbucket = "auto"\nbucket_ladder = "100000"'))
+    argv = ["build", "composition", "-f", built]
+    reset_launches()
+    got = cli_call(home, argv + ["--write-artifacts"])
+    counts = read_launches()
+    out = got["out"]
+    check(got["rc"] == 0 and "(outcome: success)" in out
+          and "sim:plan precompiled run default into " in out,
+          f"cli precompile: build: {out[-2000:]} {got['err'][-1500:]}")
+    said = re.search(r"warm tick of run default on \S+ launched (\{.*\})", out)
+    check(said is not None, f"cli precompile: no warm-tick line: {out[-2000:]}")
+    predicted = json.loads(said.group(1))
+    check(counts == {k: predicted.get(k, 0) for k in KERNELS}
+          and counts["pop_bucket"] >= 1,
+          f"cli precompile: launches {counts}, the builder said {predicted}")
+    key = re.search(r"precompiled run default into \S+ in \S+ \(key (\w+)\)", out).group(1)
+    with open(os.path.join(home, "data", "compile-cache", "precompiled",
+                           f"{key}.json")) as f:
+        marker = json.load(f)
+    perf = marker["perf"]
+    check(marker["device"] == "cuda" and marker["kernels"] == ct.kernel_digest()
+          and marker["groups"][0]["instances"] == 100_000
+          and marker["bucket"] == [100_000]
+          and marker["device_name"] == torch.cuda.get_device_name(0),
+          f"cli precompile: marker spec {marker}")
+    check(sorted(perf) == ["carry_bytes", "kernel_build_secs", "peak_bytes", "warm_secs"]
+          and perf["carry_bytes"] > 0 and isinstance(perf["peak_bytes"], int)
+          and perf["peak_bytes"] >= perf["carry_bytes"],
+          f"cli precompile: marker perf {perf}")
+    runs = Composition.load_file(built).runs
+    check([r.total_instances for r in runs] == [100_000],
+          f"cli precompile: written total_instances {[r.total_instances for r in runs]}")
+    reset_launches()
+    again = cli_call(home, argv)
+    check(again["rc"] == 0 and f"cache hit for run default (key {key})" in again["out"]
+          and "precompiled run" not in again["out"]
+          and all(v == 0 for v in read_launches().values()),
+          f"cli precompile: rebuild {again['out'][-1500:]} {read_launches()}")
+    torch.cuda.reset_peak_memory_stats()
+    ran = cli_run("sustained@100k built", home, ["run", "composition", "-f", built],
+                  launches)
+    run_peak = torch.cuda.max_memory_allocated()
+    sim = ran["task"].result["journal"]["sim"]
+    check(sim["bucket"]["compile_cache"] == "hit" and sim["bucket"]["dead_lanes"] == 0,
+          f"cli precompile: run bucket {sim.get('bucket')}")
+    check(sim["carry_bytes"] == perf["carry_bytes"],
+          f"cli precompile: carry {perf['carry_bytes']} against the run's "
+          f"{sim['carry_bytes']}")
+    return {"build_wall_s": got["wall"], "rebuild_wall_s": again["wall"],
+            "compile_secs": marker["compile_secs"], "perf": perf,
+            "build_launches": counts, "builder_said": predicted,
+            "run_wall_s": ran["wall"], "run_ticks": sim["ticks"],
+            "run_first_chunk_s": sim["compile_secs"], "run_peak_bytes": run_peak,
+            "peak_vs_run": perf["peak_bytes"] / run_peak,
+            "compile_cache": sim["bucket"]["compile_cache"]}
+
+
 def phase_cli(card) -> dict:
     """The port's CLI on the card (``testground_tpu_torch.cli.main.main``
     in process, so that the kernels' launch counts are visible), in
@@ -2327,13 +2410,16 @@ def phase_cli(card) -> dict:
                                   "launches": got["launches"], "files": sorted(files)}
         step("sustained_smoke")
 
-        # sustained@100k as a composition: a warm-up run through the CLI,
-        # recording the RunInput the supervisor lowered; then turns of the
-        # CLI against execute_sim_run of that same RunInput
         path = os.path.join(root, "sustained-100k.toml")
         with open(path, "w") as f:
             f.write(SUSTAINED_COMPOSITION.format(params="\n".join(
                 f'{k} = "{v}"' for k, v in SUSTAINED.items())))
+        row["precompile"] = precompile_step(root, home, path, launches)
+        step("precompile")
+
+        # sustained@100k as a composition: a warm-up run through the CLI,
+        # recording the RunInput the supervisor lowered; then turns of the
+        # CLI against execute_sim_run of that same RunInput
         argv = ["run", "composition", "-f", path]
         lowered = []
         plain_run = SimTorchRunner.run
@@ -2344,9 +2430,13 @@ def phase_cli(card) -> dict:
 
         SimTorchRunner.run = recording
         try:
-            cli_run("sustained@100k warm-up", home, argv, launches)
+            warm = cli_run("sustained@100k warm-up", home, argv, launches)
         finally:
             SimTorchRunner.run = plain_run
+        # the first chunk of the unbucketed warm-up, beside the built run's
+        row["precompile"]["warm_up_first_chunk_s"] = (
+            warm["task"].result["journal"]["sim"]["compile_secs"])
+        print("cli precompile: " + json.dumps(row["precompile"]), flush=True)
         check(len(lowered) == 1, "cli sustained@100k: no RunInput lowered")
         job0 = lowered[0]
 
@@ -4402,7 +4492,7 @@ def phase_buckets(card) -> dict:
                               "--run-cfg", f"bucket_ladder={BUILD_LADDER}"])
         check(got["rc"] == 0 and "(outcome: success)" in got["out"],
               f"buckets build: {got['out'][-1500:]} {got['err'][-1500:]}")
-        with open(os.path.join(home, "data", "precompiled",
+        with open(os.path.join(home, "data", "compile-cache", "precompiled",
                                "buckets-network-pingpong-sustained.json")) as f:
             marker = json.load(f)
         check([b["bucket"] for b in marker["buckets"]]
@@ -4415,7 +4505,8 @@ def phase_buckets(card) -> dict:
                        "--run-cfg", "bucket=auto"], launches)
         rj = ran["task"].result["journal"]
         check(rj["events"]["single"]["success"] == n
-              and rj["sim"]["bucket"]["padded_instances"] == sz["padded"],
+              and rj["sim"]["bucket"]["padded_instances"] == sz["padded"]
+              and rj["sim"]["bucket"]["compile_cache"] == "hit",
               f"buckets run single: {rj['events']} {rj['sim'].get('bucket')}")
         row["cli"] = {"build_wall_s": got["wall"], "marker": marker,
                       "run_wall_s": ran["wall"], "run_ticks": rj["sim"]["ticks"],

@@ -1,7 +1,7 @@
 """Builder interface (``pkg/api/builder.go:14-26``) — the port's copy of
-the reference's ``testground_tpu/builders/base.py``, without the
-``Precompiler`` capability, since the reference's precompile fills XLA's
-compile cache and the port has no such cache."""
+the reference's ``testground_tpu/builders/base.py``, with its
+``Precompiler`` capability: an explicit build task also warms what the run
+will need (``builders/sim_plan.py``), BuildKey-deduped by a marker."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from ..api import BuildInput, BuildOutput
 from ..rpc import OutputWriter
 from ..runners.base import Terminatable
 
-__all__ = ["Builder", "purge_snapshots", "snapshot_plan_sources"]
+__all__ = ["Builder", "Precompiler", "purge_snapshots", "snapshot_plan_sources"]
 
 # Paths never copied into a build snapshot (caches, VCS, fixtures).
 _SNAPSHOT_IGNORE = ("__pycache__", "*.pyc", ".git", "_compositions")
@@ -93,3 +93,26 @@ class Builder(Terminatable, abc.ABC):
 
     def config_type(self) -> type | None:
         return None
+
+
+class Precompiler(abc.ABC):
+    """A builder whose artifact includes a warmed program.
+
+    The reference's expensive artifact production happens at *build* time,
+    BuildKey-deduped (``pkg/engine/supervisor.go:359-364``; go-build cache
+    ``pkg/build/docker_go.go:266-283``). The port's one compiled artifact
+    is the kernel library (``sim/cuda_transport.py``): an explicit build
+    task builds it, and steps each of the composition's programs once on
+    the run's device, so that a later run of the same composition starts
+    warm; a marker per program (``<compile cache>/precompiled/<key>.json``)
+    makes a rebuild a cache hit."""
+
+    @abc.abstractmethod
+    def precompile(
+        self,
+        comp,
+        manifest,
+        env,
+        ow: OutputWriter,
+        cancel: threading.Event,
+    ) -> None: ...

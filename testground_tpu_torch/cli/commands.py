@@ -23,9 +23,11 @@ again with ``resume_from`` at its own run), ``preempt`` and ``terminate
 
 Runs go to either of the port's runners: ``local:exec`` (one host process
 per instance, on the ``exec:py`` and ``exec:bin`` builders) or
-``sim:torch``. ``build --buckets`` warms the shape-bucket ladder on the run's device
-(``builders/sim_plan.warm_bucket_ladder``), and with ``pack`` the pack
-widths of each rung. ``sim-worker`` joins a cohort as a follower
+``sim:torch``. ``build`` precompiles: the check pass, then each distinct
+run shape warmed on the run's device under a BuildKey marker
+(``builders/sim_plan.SimPlanBuilder.precompile``); ``build --buckets`` also
+warms the shape-bucket ladder (``builders/sim_plan.warm_bucket_ladder``),
+and with ``pack`` the pack widths of each rung. ``sim-worker`` joins a cohort as a follower
 (``sim/executor.run_sim_worker``), with the reference's flags and a
 ``--device`` (the card unless it names another). ``sync-service`` boots
 the sync service (``sync/boot.py``: the native C++ server or the Python

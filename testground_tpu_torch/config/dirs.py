@@ -30,6 +30,11 @@ class Directories:
     def daemon(self) -> str:
         return os.path.join(self.home, "data", "daemon")
 
+    def compile_cache(self) -> str:
+        """Where the build's precompile pass writes its BuildKey markers
+        (``utils/compile_cache.py``)."""
+        return os.path.join(self.home, "data", "compile-cache")
+
     def all(self) -> list[str]:
         return [
             self.home,

@@ -23,9 +23,10 @@ two members runs its survivor solo. A preempted or evicted member stops at
 the next chunk boundary and is requeued to rerun from scratch (a pack
 writes no snapshots).
 
-Left out: the build task's precompile, which fills the reference's XLA
-compile cache (the port has no such cache; ``build --buckets`` warms the
-bucket ladder and the pack widths on the run's device instead).
+An explicit build task precompiles (``do_build_task``): every builder that
+is a ``Precompiler`` (``sim:plan``) warms the composition's programs on the
+run's device and marks each with its BuildKey; the implicit build inside a
+run task does not.
 """
 
 from __future__ import annotations
@@ -671,23 +672,27 @@ def do_build_task(
     engine: Engine, tsk: Task, ow: OutputWriter, cancel: threading.Event
 ) -> dict:
     """A build task (``tg build``, ``supervisor.go:298-493``): the groups'
-    artifacts, without the reference's precompile into XLA's compile
-    cache; with ``build_buckets`` (``tg build --buckets``) the shape-bucket
-    ladder is warmed on the run's device after them
-    (``builders/sim_plan.warm_bucket_ladder``), best-effort like the
-    reference's precompile."""
+    artifacts, then the precompile pass of every builder that has one
+    (``builders/sim_plan.SimPlanBuilder.precompile``: the check pass, the
+    BuildKey markers, the warm tick and, with ``build_buckets``, the
+    bucket ladder), best-effort as the reference's."""
     comp = Composition.from_dict(tsk.composition)
     manifest = TestPlanManifest.from_dict(tsk.input["manifest"])
     built = do_build(
         engine, comp, manifest, tsk.input.get("sources_dir", ""), tsk.id, ow, cancel
     )
-    if "sim:plan" in built.list_builders() and not cancel.is_set():
-        from ..builders.sim_plan import warm_bucket_ladder
+    # build = warm: the implicit build inside a run task skips this — the
+    # run steps the same program right after it anyway
+    from ..builders.base import Precompiler
 
-        try:
-            warm_bucket_ladder(built, manifest, engine.env, ow, cancel)
-        except Exception as e:  # noqa: BLE001 — the artifacts above stand
-            ow.warn("sim:plan bucket-ladder warmup failed (build still ok): %s", e)
+    for builder_id in built.list_builders():
+        builder = engine.builder_by_name(builder_id)
+        if isinstance(builder, Precompiler) and not cancel.is_set():
+            try:
+                builder.precompile(built, manifest, engine.env, ow, cancel)
+            except Exception as e:  # noqa: BLE001 — precompile is an
+                # optimization; the snapshot artifact above is already valid
+                ow.warn("%s precompile failed (build still ok): %s", builder_id, e)
     return {
         "outcome": Outcome.SUCCESS.value,
         "artifacts": {g.id: g.run.artifact for g in built.groups},

@@ -36,9 +36,12 @@ Some families read journal fields the port's runs never write; their code
 stays, so that a reference journal renders the same, and on a port run
 they are silent: ``tg_run_lower_seconds``, ``tg_run_xla_compile_seconds``,
 ``tg_run_est_flops_per_chunk`` and ``tg_run_est_bytes_accessed_per_chunk``
-(no XLA compile or cost analysis), ``tg_compile_bucket_*`` (a port
-bucket's ``compile_cache`` is ``"off"``: no compile cache, so neither a hit
-nor a miss). ``tg_bucket_padded_instances`` renders a port bucketed
+(no XLA compile or cost analysis). ``tg_compile_bucket_*`` counts a port
+bucket's ``compile_cache`` verdict as the reference's: ``"hit"`` or
+``"miss"`` on the card (whether the run's process ran nvcc for its kernel
+library, ``sim/executor.compile_cache_verdict``); ``"off"`` on the CPU or
+with the cache disabled, and ``"unknown"`` on a resumed run, count neither.
+``tg_bucket_padded_instances`` renders a port bucketed
 run's padded size, ``tg_pack_width``/``tg_pack_members`` a packed run's
 ``sim.pack`` block and ``tg_fleet_pack_*`` the engine's pack claims.
 

@@ -509,6 +509,8 @@ def render_perf_summary(payload: dict) -> str:
         "padded_instances"
     )
     if _num(bucket) and _num(bucket) != n_inst:
+        # the bucket's compile_cache verdict: hit or miss on the card (the
+        # kernel library's cold start), off on the CPU, unknown on a resume
         cache = (sim.get("bucket") or {}).get("compile_cache")
         rows.append(
             (

@@ -64,11 +64,14 @@ __all__ = [
     "MAX_WIDTH",
     "PopSegments",
     "build_kernels",
+    "claim_kernel_builds",
     "commit_bytes",
     "commit_calendar",
     "commit_calendar_plain",
     "commit_calendar_sharded",
     "commit_calendar_sharded_plain",
+    "kernel_builds",
+    "kernel_digest",
     "observe_launches",
     "pop_bucket",
     "pop_bucket_plain",
@@ -114,20 +117,52 @@ def _nvcc() -> str:
 # workers): one of them runs nvcc, the others then find its library
 _BUILD_LOCK = threading.Lock()
 
+# the nvcc runs of this process and their seconds: the port's one cold
+# start, read by the build's precompile pass (its marker's
+# ``kernel_build_secs``) and by a run's ``sim.bucket.compile_cache``
+_BUILDS = {"runs": 0, "secs": 0.0, "claimed": 0}
+
+
+def kernel_builds() -> tuple[int, float]:
+    """``(runs, seconds)`` of the nvcc builds this process has made; a
+    library found already built adds nothing."""
+    return _BUILDS["runs"], _BUILDS["secs"]
+
+
+def claim_kernel_builds() -> int:
+    """The nvcc builds made since the last claim, which this call takes: the
+    first run (or build precompile) after a cold start claims its build,
+    wherever in the process the build happened (a runner's healthcheck
+    builds the library before the run launches anything)."""
+    with _BUILD_LOCK:
+        n = _BUILDS["runs"] - _BUILDS["claimed"]
+        _BUILDS["claimed"] = _BUILDS["runs"]
+        return n
+
+
+def kernel_digest() -> str:
+    """The digest of the kernel library's source bytes and flags: the name
+    of its build under ``_build/`` and part of a precompile's BuildKey."""
+    with open(_SOURCE, "rb") as f:
+        src = f.read()
+    return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
 
 def build_kernels() -> tuple[str, float, str]:
     """Compile ``csrc/transport.cu`` unless a library built from the same
     source bytes and flags exists. Returns ``(path, seconds, compiler
-    output)``; seconds is 0.0 on a cache hit."""
+    output)``; seconds is 0.0 on a cache hit. A compile is recorded in
+    :func:`kernel_builds`."""
     with _BUILD_LOCK:
-        return _build_kernels()
+        out = _build_kernels()
+        if out[1] > 0.0:
+            _BUILDS["runs"] += 1
+            _BUILDS["secs"] += out[1]
+        return out
 
 
 def _build_kernels() -> tuple[str, float, str]:
-    with open(_SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(_BUILD_DIR, f"transport_{digest}.so")
+    out = os.path.join(_BUILD_DIR, f"transport_{kernel_digest()}.so")
     if os.path.isfile(out):
         return out, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)

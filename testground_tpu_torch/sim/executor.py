@@ -86,8 +86,11 @@ Shape buckets (``bucket = off|auto|<n>``, ``bucket_ladder``;
 groups are padded to the ladder, the plan is specialized against the
 padded layout, the fault schedule is lowered in the exact layout and
 remapped, the flight recorder is off, and the journal's ``sim.bucket``
-block is the reference's (``compile_cache`` is ``"off"``: the port has no
-compile cache). Every result, stream and total stays exact-N.
+block is the reference's. Its ``compile_cache`` verdict is the port's
+cold start (:func:`compile_cache_verdict`): ``"miss"`` when this process
+ran nvcc for the kernels the run launched, ``"hit"`` when the library was
+already built, ``"unknown"`` on a resumed run and ``"off"`` on the CPU or
+with the cache disabled. Every result, stream and total stays exact-N.
 
 A mesh (``mesh="4"``, ``mesh="2x4"``, or ``shard`` on a host with several
 cards) splits the calendar over the peer shards (``sim/meshplan.py``; a
@@ -311,6 +314,31 @@ def resolve_buckets(cfg, counts, mesh=None, warn=None):
             )
         return None
     return plan
+
+
+def compile_cache_verdict(device: torch.device, cache_on: bool, resumed: bool,
+                          nvcc_builds: int) -> str:
+    """A bucketed run's ``sim.bucket.compile_cache`` (the reference's
+    ``executor.py:1836-1846``, read off the port's one compiled artifact,
+    the kernel library): ``"off"`` when the compile cache is disabled or the
+    run is on the CPU (nothing is compiled), ``"unknown"`` for a resumed
+    run, else ``"miss"`` when ``nvcc_builds`` (the builds this run claimed,
+    ``cuda_transport.claim_kernel_builds``) is not 0 and ``"hit"`` when the
+    library was already built."""
+    if not cache_on or device.type != "cuda":
+        return "off"
+    if resumed:
+        return "unknown"
+    return "miss" if nvcc_builds > 0 else "hit"
+
+
+def _cache_on(job) -> bool:
+    """Whether the compile cache is on for ``job``'s home
+    (``utils/compile_cache.compile_cache_dir``; a job without an env's
+    home resolves the default one)."""
+    from ..utils.compile_cache import compile_cache_dir
+
+    return compile_cache_dir(getattr(getattr(job.env, "dirs", None), "home", None)) is not None
 
 
 def _refuse_malformed(cfg) -> None:
@@ -1584,6 +1612,11 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
             if chunk_profiler is not None:
                 chunk_profiler.close()
     wall = time.monotonic() - t0
+    # the nvcc builds since the last run or build precompile claimed one:
+    # this run's cold start, claimed whether or not it is bucketed
+    from .cuda_transport import claim_kernel_builds
+
+    nvcc_builds = claim_kernel_builds()
     if final:
         # the whole carry gathered from every process, in lockstep with
         # each follower's (sim_worker_loop)
@@ -1604,9 +1637,10 @@ def _execute_sim_run(job, cfg, device, ow, cancel, outputs_root, run_dir, spans)
                 for g, lv, pv in zip(vgroups, bucket_plan.live_counts,
                                      bucket_plan.padded_counts)
             },
-            # the reference's value without a compile cache: the port
-            # compiles nothing, so no bucket is ever cold
-            "compile_cache": "off",
+            # the port's cold start: whether this process ran nvcc for
+            # the kernels this run launched
+            "compile_cache": compile_cache_verdict(
+                device, _cache_on(job), resume_state is not None, nvcc_builds),
         }
         ow.infof("sim:torch %s: bucket %d (live %d) — compile cache %s", job.run_id,
                  bucket_plan.padded_n, bucket_plan.live_n, bucket_block["compile_cache"])
@@ -1976,8 +2010,9 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
     per job (a member's failure is its own task's failure, never the
     pack's). On a mesh the pack's calendar is split over the peer shards
     (``PackRunner(prog, width, mesh=)``), and on a mesh of several parts
-    each part holds and steps its own members' lanes; the port has no
-    compile cache, so ``sim.bucket.compile_cache`` is ``"off"``."""
+    each part holds and steps its own members' lanes; every member's
+    ``sim.bucket.compile_cache`` is the pack's one verdict
+    (:func:`compile_cache_verdict`)."""
     from .engine import build_groups as _build_groups
     from .engine import resolve_device
     from .pack import PackMember, PackRunner, pack_width
@@ -2208,6 +2243,14 @@ def execute_packed_sim_runs(jobs: list, ows: list, cancels: list) -> list:
             ctx["spans"].close()
         raise
     wall = time.monotonic() - t0
+    # the pack's cold start, one verdict for every member (a pack never
+    # resumes)
+    from .cuda_transport import claim_kernel_builds
+
+    verdict = compile_cache_verdict(device, _cache_on(job0), False,
+                                    claim_kernel_builds())
+    for ctx in contexts:
+        ctx["compile_cache"] = verdict
 
     # ------------------------------------------------- per-member collect
     from ..engine.controller import TaskPreemptedError
@@ -2314,8 +2357,7 @@ def _collect_pack_member(idx, ctx, member, res, width, n_members, wall,
                 g.id: {"live": lv, "padded": pv}
                 for g, lv, pv in zip(ctx["vgroups"], mb.live_counts, mb.padded_counts)
             },
-            # the port compiles nothing, so no bucket is ever cold
-            "compile_cache": "off",
+            "compile_cache": ctx["compile_cache"],
         }
     result.journal["sim"] = {
         "ticks": res["ticks"],

@@ -203,16 +203,17 @@ class _MarkTimer:
         return sums
 
 
-def _tick_state(prog, seed: int):
-    """A fresh carry and what the run's loop hands each tick: the blocks
-    when a plane writes rows, the done flag and its event, and the host's
-    tick under a fault schedule."""
+def _tick_state(prog, seed: int, carry=None):
+    """A fresh carry (or ``carry``) and what the run's loop hands each tick:
+    the blocks when a plane writes rows, the done flag and its event, and
+    the host's tick under a fault schedule."""
     import torch
 
     from .engine import _Blocks
 
     cuda = prog.device.type == "cuda"
-    carry = prog.init_carry(seed)
+    if carry is None:
+        carry = prog.init_carry(seed)
     blocks = (_Blocks(prog, cuda)
               if prog.telemetry or prog.trace is not None else None)
     done_out = (torch.zeros((), dtype=torch.bool, pin_memory=cuda),

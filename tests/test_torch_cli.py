@@ -380,10 +380,11 @@ def test_write_artifacts_and_reuse(tmp_path):
     assert rc == 0 and "sim:plan built placebo" in out
 
 
-# the lines a build prints in both packages (the reference's precompile
-# into XLA's cache has no counterpart in the port)
+# the lines a build prints in both packages, its check pass's findings
+# among them (the precompile's own lines name each package's cache key, which
+# holds its backend: tests/test_torch_precompile.py compares them)
 BUILD_LINES = ("build is queued", "sim:plan built", "group ", "finished build",
-               "wrote artifacts")
+               "wrote artifacts", "check: ")
 
 # name: (argv with {home}; plans to copy)
 BUILD_RUN_CFG = {
@@ -400,8 +401,8 @@ def test_build_run_cfg_matches_jax(mode, tmp_path):
     """``build composition|single --run-cfg k=v`` merges the overrides into
     the composition's ``global.run_config`` as the reference does: the same
     exit code and lines, the same build task composition and the same
-    written composition file (``[[runs]]``' ``total_instances`` aside, which
-    the reference's precompile pass fills in as it validates)."""
+    written composition file, ``[[runs]]``' ``total_instances`` included
+    (both precompile passes fill it in as they prepare the run)."""
     argv, plans = BUILD_RUN_CFG[mode]
     got = {}
     for pkg, main, env, runner in (("jax", jmain, REF_ENV, "sim:jax"),
@@ -417,8 +418,6 @@ def test_build_run_cfg_matches_jax(mode, tmp_path):
             from testground_tpu_torch.api import Composition
 
             written = Composition.load_file(str(comp)).to_dict()
-            for run in written["runs"]:
-                run.pop("total_instances")
         got[pkg] = _norm({
             "rc": rc, "outcome": task.outcome().value,
             "lines": [ln for ln in out.splitlines() if ln.startswith(BUILD_LINES)],
@@ -948,10 +947,11 @@ def test_build_verbs_match_jax(name, tmp_path):
         written = "sim-plan--placebo-" in (home / "one-run.toml").read_text()
         prc, pout, _ = _cli(main, home, ["build", "purge", "-b", "sim:plan", "-p", "placebo"])
         left = sorted(p.name for p in work.iterdir())
-        # the reference's build task also lints and precompiles into XLA's
-        # cache, and logs both; the port has no such cache
+        # both build tasks also check and precompile, and log both; the
+        # precompile's lines name each package's cache key
         lines = [ln for ln in out.splitlines() if ln.startswith(
-            ("build is queued", "sim:plan built", "group ", "finished build", "wrote"))]
+            ("build is queued", "sim:plan built", "group ", "finished build", "wrote",
+             "check: "))]
         got[pkg] = _norm({"rc": rc, "lines": lines, "built": built,
                           "written": written, "purge": (prc, pout.splitlines()),
                           "left": left}, m[1], home)
@@ -1015,7 +1015,8 @@ def test_unported_flag_is_refused_naming_its_item(name, tmp_path):
         return
     if item is None:
         assert rc == 0 and "(outcome: success)" in out, err
-        marker = home / "data" / "precompiled" / "buckets-placebo-ok.json"
+        marker = (home / "data" / "compile-cache" / "precompiled"
+                  / "buckets-placebo-ok.json")
         got = json.loads(marker.read_text())
         assert [b["bucket"] for b in got["buckets"]] == [4, 8] and got["ladder"] == [4, 8]
         return

@@ -1111,3 +1111,52 @@ def _cpu_parts(cpu):
     from testground_tpu_torch.sim.meshplan import TorchMesh
 
     return TorchMesh((cpu,) * 4, parts=tuple((cpu, s, s + 1) for s in range(4)))
+
+
+def test_build_precompile_warms_on_the_card(cuda, tmp_path):
+    """``SimPlanBuilder.precompile`` on the card: the marker names the card
+    and the kernel library, its peak is the card's, its warm tick launched
+    K2 once; a second precompile is a cache hit that launches nothing."""
+    import json
+    import os
+    import threading
+
+    from testground_tpu_torch.api import (
+        Composition,
+        Global,
+        Group,
+        Instances,
+        TestPlanManifest,
+        generate_default_run,
+    )
+    from testground_tpu_torch.builders.sim_plan import SimPlanBuilder
+    from testground_tpu_torch.config import EnvConfig
+    from testground_tpu_torch.rpc import discard_writer
+
+    env = EnvConfig.load(home=str(tmp_path))
+    comp = generate_default_run(Composition(
+        global_=Global(plan="network", case="pingpong-sustained", builder="sim:plan",
+                       runner="sim:torch", run_config={"chunk": 8}),
+        groups=[Group(id="all", instances=Instances(count=16))],
+    ))
+    for g in comp.groups:
+        g.run.artifact = plan_dir("network")
+    manifest = TestPlanManifest.load_file(os.path.join(plan_dir("network"), "manifest.toml"))
+
+    def launches():
+        return ct.pop_bucket.launches, ct.commit_calendar.launches
+
+    pops = launches()[0]
+    SimPlanBuilder().precompile(comp, manifest, env, discard_writer(), threading.Event())
+    assert launches()[0] == pops + 1
+    cache = os.path.join(str(tmp_path), "data", "compile-cache", "precompiled")
+    (name,) = os.listdir(cache)
+    with open(os.path.join(cache, name)) as f:
+        marker = json.load(f)
+    assert marker["device"] == "cuda" and marker["kernels"] == ct.kernel_digest()
+    assert marker["device_name"] == torch.cuda.get_device_name(0)
+    perf = marker["perf"]
+    assert isinstance(perf["peak_bytes"], int) and perf["peak_bytes"] >= perf["carry_bytes"] > 0
+    seen = launches()
+    SimPlanBuilder().precompile(comp, manifest, env, discard_writer(), threading.Event())
+    assert launches() == seen and os.listdir(cache) == [name]

@@ -474,16 +474,18 @@ def test_drain_preempts_every_member_of_a_running_pack(tmp_path):
 
 def test_build_buckets_warms_the_pack_widths(tmp_path):
     """``build --buckets`` with ``pack = true`` writes a marker row per
-    warmed pack width under the reference's keys."""
+    warmed pack width under the reference's keys, at the reference's path
+    (``<compile cache>/precompiled/buckets-<plan>-<case>.json``)."""
     from testground_tpu_torch.api import (
         Composition, Global, Group, Instances, TestPlanManifest, generate_default_run,
     )
     from testground_tpu_torch.builders.sim_plan import (
+        SimPlanBuilder,
         bucket_marker_path,
-        warm_bucket_ladder,
     )
     from testground_tpu_torch.config import EnvConfig
     from testground_tpu_torch.rpc import discard_writer
+    from testground_tpu_torch.utils.compile_cache import compile_cache_dir
 
     env = EnvConfig.load(home=str(tmp_path))
     comp = generate_default_run(Composition(
@@ -500,11 +502,15 @@ def test_build_buckets_warms_the_pack_widths(tmp_path):
         os.path.join(PLANS["torch"], "network", "manifest.toml"))
     import threading
 
-    rows = warm_bucket_ladder(comp, manifest, env, discard_writer(), threading.Event())
+    SimPlanBuilder().precompile(comp, manifest, env, discard_writer(), threading.Event())
+    cache = compile_cache_dir(env.dirs.home)
+    assert bucket_marker_path(cache, "network", "ping-pong") == os.path.join(
+        str(tmp_path), "data", "compile-cache", "precompiled",
+        "buckets-network-ping-pong.json")
+    with open(bucket_marker_path(cache, "network", "ping-pong")) as f:
+        rows = json.load(f)["buckets"]
     assert [(r["bucket"], r.get("pack_width")) for r in rows] == [
         (16, None), (16, 2), (16, 4), (32, None), (32, 2)]
-    with open(bucket_marker_path(env, "network", "ping-pong")) as f:
-        assert json.load(f)["buckets"] == rows
 
 
 def test_build_buckets_warms_the_meshed_pack_widths(tmp_path):
